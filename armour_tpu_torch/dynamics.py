@@ -1,0 +1,217 @@
+"""PZ recursive Newton-Euler (passivity form) and the robust torque bound
+(counterpart of armour_tpu/dynamics.py).
+
+The forward recursion carries w, w_aux, wdot and the linear acceleration
+through the chain; the backward recursion accumulates wrenches and reads the
+joint torque along the motion axis.  P parameter sets (nominal, interval)
+share one kinematic forward pass.  Layout: kinematic quantities are
+[W, 1, T, ...] and parameter-dependent ones [W, P, T, ...], so the P axis
+broadcasts where the JAX code broadcasts a leading [P] against [T].
+
+The rotations (w | w_aux | wdot | acc stacked as a 3x4 PZ matrix, and f | n
+as 3x2) go through kernel K1 (bpz.matmul_linear); the PZ x PZ cross products
+through kernel K2 (bpz.cross).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .config import ArmourConfig
+from .jrs import JRS
+from .pz import bpz
+from .pz.basis import KBasis
+from .pz.bpz import BPZ
+from .robot import RobotModel
+from .utils import to_device
+
+
+def _embed(a: BPZ, axis: int, sign: float) -> BPZ:
+    """Scalar PZ [...] times the signed one-hot axis vector -> [..., 3]."""
+    e = torch.zeros(3, dtype=a.coef.dtype, device=a.coef.device)
+    e[axis] = sign
+    return BPZ(coef=e[:, None] * a.coef[..., None, :],
+               egen=e[:, None] * a.egen[..., None, :],
+               rad=torch.abs(e) * a.rad[..., None])
+
+
+def _col_stack(ps) -> BPZ:
+    """Stack vector PZs [..., 3] as columns of a matrix PZ [..., 3, n]."""
+    return bpz.stack(ps, dim=-1)
+
+
+def _col(p: BPZ, j: int) -> BPZ:
+    return BPZ(coef=p.coef[..., j, :], egen=p.egen[..., j, :], rad=p.rad[..., j])
+
+
+def _joint(p: BPZ, i: int) -> BPZ:
+    """Joint i of a [W, T, J, ...] PZ as [W, 1, T, ...]."""
+    return BPZ(coef=p.coef[:, None, :, i], egen=p.egen[:, None, :, i],
+               rad=p.rad[:, None, :, i])
+
+
+def _inertial_pzs(robot: RobotModel, basis: KBasis, dtype, device, sets):
+    """Mass, inertia and COM PZs over parameter sets, [J, P, ...]."""
+    mass = to_device(robot.mass, dtype, device)
+    inertia = to_device(robot.inertia, dtype, device)
+    com = to_device(robot.com, dtype, device)
+    mrads = torch.stack([
+        robot.mass_uncertainty * torch.abs(mass) if s == "int" else torch.zeros_like(mass)
+        for s in sets], dim=1)
+    irads = torch.stack([
+        robot.inertia_uncertainty * torch.abs(inertia) if s == "int"
+        else torch.zeros_like(inertia) for s in sets], dim=1)
+    crads = torch.stack([
+        robot.com_uncertainty * torch.abs(com) if (s == "int" and robot.com_uncertainty)
+        else torch.zeros_like(com) for s in sets], dim=1)
+    P = len(sets)
+    J = mass.shape[0]
+    mass_pz = bpz.from_interval(mass[:, None].expand(J, P), mrads, basis)
+    inertia_pz = bpz.from_interval(inertia[:, None].expand(J, P, 3, 3), irads, basis)
+    com_pz = bpz.from_interval(com[:, None].expand(J, P, 3), crads, basis)
+    return mass_pz, inertia_pz, com_pz
+
+
+def _row(p: BPZ, i: int) -> BPZ:
+    """Entry i of a [J, ...] PZ."""
+    return BPZ(coef=p.coef[i], egen=p.egen[i], rad=p.rad[i])
+
+
+def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) -> BPZ:
+    """PZ RNEA torque u [W, P, T, F] for the P = 2 parameter sets (nominal,
+    interval) sharing one kinematic forward pass, with gravity."""
+    sets = ("nom", "int")
+    dt, dev = jrs.qd.coef.dtype, jrs.qd.coef.device
+    Wn, T = jrs.qd.coef.shape[:2]
+    J = robot.num_joints
+    F = robot.num_factors
+    P = len(sets)
+    slop = cfg.float_slop
+    trans = to_device(robot.trans, dt, dev)         # [J+1, 3]
+    com = to_device(robot.com, dt, dev)             # [J, 3]
+    mass_pz, inertia_pz, com_pz = _inertial_pzs(robot, basis, dt, dev, sets)
+    com_uncertain = bool(robot.com_uncertainty and any(s == "int" for s in sets))
+    if F != J:
+        raise NotImplementedError("trailing fixed joints (F < J) are not ported yet")
+
+    w = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
+    w_aux = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
+    wdot = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
+    lin_acc = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
+    lin_acc.coef[..., 2, 0] = robot.gravity
+
+    F_all, N_all = [], []
+    for i in range(J):
+        rev = robot.axes[i] != 0 and i < F
+        ax = abs(int(robot.axes[i])) - 1 if rev else 0
+        sgn = (1.0 if robot.axes[i] > 0 else -1.0) if rev else 0.0
+        rt = _joint(jrs.Rt, i)
+        qd_i, qda_i, qdda_i = (BPZ(coef=p.coef[:, None, :, i], egen=p.egen[:, None, :, i],
+                                   rad=p.rad[:, None, :, i])
+                               for p in (jrs.qd, jrs.qda, jrs.qdda))
+
+        acc_arg = bpz.add(
+            lin_acc,
+            bpz.add(bpz.cross_pz_const(wdot, trans[i]),
+                    bpz.cross(w, bpz.cross_pz_const(w_aux, trans[i]), basis, slop)))
+        # fused rotation of (w | w_aux | wdot | acc): one 3x4 product
+        rotated = bpz.matmul_linear(rt, _col_stack([w, w_aux, wdot, acc_arg]), basis, slop)
+        w, w_aux, wdot, lin_acc = (_col(rotated, j) for j in range(4))
+
+        rv = 1.0 if rev else 0.0
+        qd_vec = _embed(bpz.scale(qd_i, rv), ax, sgn)
+        w = bpz.add(w, qd_vec)
+        wdot = bpz.add(wdot, bpz.cross(w_aux, qd_vec, basis, slop))
+        wdot = bpz.add(wdot, _embed(bpz.scale(qdda_i, rv), ax, sgn))
+        w_aux = bpz.add(w_aux, _embed(bpz.scale(qda_i, rv), ax, sgn))
+
+        # link force / moment; parameter PZs [P, ...] -> [P, 1, ...] so they
+        # broadcast against the kinematics [W, 1, T, ...]
+        if com_uncertain:
+            com_b = _row(com_pz, i)
+            com_b = BPZ(coef=com_b.coef[:, None], egen=com_b.egen[:, None],
+                        rad=com_b.rad[:, None])              # [P, 1, 3]
+            f_arg = bpz.add(lin_acc, bpz.add(
+                bpz.cross(wdot, com_b, basis, slop),
+                bpz.cross(w, bpz.cross(w_aux, com_b, basis, slop), basis, slop)))
+        else:
+            f_arg = bpz.add(lin_acc, bpz.add(
+                bpz.cross_pz_const(wdot, com[i]),
+                bpz.cross(w, bpz.cross_pz_const(w_aux, com[i]), basis, slop)))
+        m_c, m_r = bpz.interval_operand(_row(mass_pz, i))        # [P]
+        F_i = bpz.mul_interval(m_c[:, None, None], m_r[:, None, None], f_arg, slop)
+        I_c, I_r = bpz.interval_operand(_row(inertia_pz, i))     # [P, 3, 3]
+        Iw = bpz.matmul_interval(I_c[:, None], I_r[:, None], _col_stack([wdot, w]), slop)
+        N_i = bpz.add(_col(Iw, 0), bpz.cross(w_aux, _col(Iw, 1), basis, slop))
+        F_all.append(F_i)
+        N_all.append(N_i)
+
+    # backward recursion over the chain, last joint first
+    f = bpz.zeros((Wn, P, T, 3), basis, dt, dev)
+    n = bpz.zeros((Wn, P, T, 3), basis, dt, dev)
+    armature = robot.armature
+    damping = robot.damping
+    u_all = [None] * J
+    for i in reversed(range(J)):
+        rev = robot.axes[i] != 0 and i < F
+        ax = abs(int(robot.axes[i])) - 1 if rev else 0
+        sgn = (1.0 if robot.axes[i] > 0 else -1.0) if rev else 0.0
+        rv = 1.0 if rev else 0.0
+        r_ip1 = _joint(jrs.R, i + 1)
+        rot = bpz.matmul_linear(r_ip1, _col_stack([f, n]), basis, slop)
+        rf, rn = _col(rot, 0), _col(rot, 1)
+        if com_uncertain:
+            com_b = _row(com_pz, i)
+            com_b = BPZ(coef=com_b.coef[:, None], egen=com_b.egen[:, None],
+                        rad=com_b.rad[:, None])
+            com_cross_F = bpz.cross(com_b, F_all[i], basis, slop)
+        else:
+            com_cross_F = bpz.cross_const(com[i], F_all[i])
+        n = bpz.add(bpz.add(N_all[i], rn),
+                    bpz.add(com_cross_F, bpz.cross_const(trans[i + 1], rf)))
+        f = bpz.add(rf, F_all[i])
+        u_axis = BPZ(coef=sgn * n.coef[..., ax, :], egen=sgn * n.egen[..., ax, :],
+                     rad=abs(sgn) * n.rad[..., ax])
+        qdda_i = BPZ(coef=jrs.qdda.coef[:, None, :, i], egen=jrs.qdda.egen[:, None, :, i],
+                     rad=jrs.qdda.rad[:, None, :, i])
+        qd_i = BPZ(coef=jrs.qd.coef[:, None, :, i], egen=jrs.qd.egen[:, None, :, i],
+                   rad=jrs.qd.rad[:, None, :, i])
+        u_i = bpz.add(u_axis, bpz.scale(qdda_i, float(armature[i]) * rv))
+        u_all[i] = bpz.add(u_i, bpz.scale(qd_i, float(damping[i]) * rv))
+    return bpz.stack(u_all[:F], dim=-1)                  # [W, P, T, F]
+
+
+@dataclasses.dataclass
+class TorqueFRS:
+    """Reduced nominal torque + total control-input radius for the NLP."""
+
+    u_coef: torch.Tensor         # [W, T, F, B]
+    torque_radius: torch.Tensor  # [W, T, F]
+
+
+def torque_frs(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) -> TorqueFRS:
+    """Nominal torque PZ + robust input radius (armour_tpu/dynamics.py:293-319)."""
+    u_both = rnea_pz_sets(jrs, robot, cfg, basis)
+    u_nom = BPZ(coef=u_both.coef[:, 0], egen=u_both.egen[:, 0], rad=u_both.rad[:, 0])
+    u_int = BPZ(coef=u_both.coef[:, 1], egen=u_both.egen[:, 1], rad=u_both.rad[:, 1])
+    disturbance = bpz.sub(u_int, u_nom)
+
+    d_c, d_r = bpz.to_interval(disturbance)
+    d_lo, d_hi = d_c - d_r, d_c + d_r
+    d_max = torch.maximum(torch.abs(d_lo), torch.abs(d_hi))
+    ub = cfg.ub
+    rho_sq = torch.sum(torch.maximum(d_lo * d_lo, d_hi * d_hi), dim=-1)   # [W, T]
+    rho_max = torch.sqrt(rho_sq)
+    u_nom_red = bpz.reduce_(u_nom)
+    friction = to_device(robot.friction[: robot.num_factors], u_nom.coef.dtype,
+                         u_nom.coef.device)
+    torque_radius = (
+        ub.alpha * (ub.m_max - ub.m_min) * ub.eps
+        + 0.5 * d_max
+        + 0.5 * rho_max[..., None]
+        + u_nom_red.rad
+        + friction
+    )
+    return TorqueFRS(u_coef=u_nom_red.coef, torque_radius=torque_radius)

@@ -1,0 +1,53 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their launch counters.
+
+  K1 pz_matmul_linear   csrc/pz_matmul_linear.cu   (kernels/pz.py)
+  K2 pz_cross           csrc/pz_cross.cu           (kernels/pz.py)
+  K3 build_hyperplanes  csrc/build_hyperplanes.cu  (kernels/collision.py)
+  K4 collision_rows     csrc/collision_rows.cu     (kernels/collision.py)
+
+The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
+collision.py): a CPU tensor takes the plain version, a CUDA tensor launches
+the kernel through the launchers here or raises.  Each launcher adds one to
+LAUNCHES[name] where it launches its kernel and nowhere else.  Sources are
+compiled with nvcc at first use (kernels/build.py).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows")
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+# when a dict: the first call of each (kernel, shape signature) records its
+# inputs here, so that a run can replay the main path's calls against the
+# plain versions (see chip_smoke.py)
+_CAPTURE = None
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def counts() -> dict:
+    return dict(LAUNCHES)
+
+
+@contextlib.contextmanager
+def capture():
+    """Record the inputs of the first launch of every (kernel, shapes)
+    signature made inside the block: yields {key: (name, inputs)}."""
+    global _CAPTURE
+    rec = {}
+    _CAPTURE = rec
+    try:
+        yield rec
+    finally:
+        _CAPTURE = None
+
+
+def record(name: str, key, inputs) -> None:
+    if _CAPTURE is not None and (name, key) not in _CAPTURE:
+        _CAPTURE[(name, key)] = inputs

@@ -1,0 +1,83 @@
+"""PZ forward kinematics and link forward-occupancy sets (counterpart of
+armour_tpu/kinematics.py).
+
+The serial chain
+
+    FK_T <- FK_T + FK_R @ P_i ;  FK_R <- FK_R @ R_i ;
+    links_i = FK_R @ link_box_i + FK_T
+
+runs as a Python loop over the joints on [W, T]-batched BPZ tensors.  The
+rotation product FK_R @ R_i is kernel K1 (bpz.matmul_linear_right).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .config import ArmourConfig
+from .jrs import JRS
+from .pz import bpz
+from .pz.basis import KBasis, error_layout
+from .pz.bpz import BPZ
+from .robot import RobotModel
+from .utils import to_device
+
+
+@dataclasses.dataclass
+class LinkFRS:
+    """Reduced link forward reachable sets.  center_coef: k-polynomial of
+    each link centre; shape_gens: 3 rotated box generators (columns);
+    radius: per-axis independent radii."""
+
+    center_coef: torch.Tensor  # [W, T, J, 3, B]
+    shape_gens: torch.Tensor   # [W, T, J, 3, 3]
+    radius: torch.Tensor       # [W, T, J, 3]
+
+
+def link_box_pz(robot: RobotModel, basis: KBasis, dtype, device) -> BPZ:
+    """Link bounding boxes as BPZ [J, 3] with shape-slot generators."""
+    lay = error_layout(basis.nf)
+    J = robot.num_joints
+    coef = torch.zeros((J, 3, basis.size), dtype=dtype, device=device)
+    coef[..., 0] = to_device(robot.link_center, dtype, device)
+    egen = torch.zeros((J, 3, lay["size"]), dtype=dtype, device=device)
+    gens = to_device(robot.link_generators, dtype, device)
+    for j in range(3):
+        egen[:, j, lay["shape"].start + j] = gens[:, j]
+    return BPZ(coef=coef, egen=egen, rad=torch.zeros((J, 3), dtype=dtype, device=device))
+
+
+def forward_occupancy(jrs: JRS, robot: RobotModel, cfg: ArmourConfig,
+                      basis: KBasis) -> BPZ:
+    """Forward kinematics: link PZs [W, T, J, 3]."""
+    R = jrs.R
+    dt, dev = R.coef.dtype, R.coef.device
+    Wn, T = R.coef.shape[:2]
+    J = robot.num_joints
+    boxes = link_box_pz(robot, basis, dt, dev)
+    trans = to_device(robot.trans, dt, dev)
+
+    fk_r = bpz.zeros((Wn, T, 3, 3), basis, dt, dev)
+    fk_r.coef[..., 0] = torch.eye(3, dtype=dt, device=dev)
+    fk_t = bpz.zeros((Wn, T, 3), basis, dt, dev)
+    links = []
+    for i in range(J):
+        r_i = BPZ(coef=R.coef[:, :, i], egen=R.egen[:, :, i], rad=R.rad[:, :, i])
+        box_i = BPZ(coef=boxes.coef[i], egen=boxes.egen[i], rad=boxes.rad[i])
+        fk_t = bpz.add(fk_t, bpz.matvec_cvec(fk_r, trans[i]))
+        # R_i is a degree<=1 rotation PZ; the box has constant-only k-coefs
+        fk_r = bpz.matmul_linear_right(fk_r, r_i, basis, cfg.float_slop)
+        links.append(bpz.add(bpz.matvec_const_coef(fk_r, box_i, cfg.float_slop), fk_t))
+    return bpz.stack(links, dim=-2)
+
+
+def reduce_links(links: BPZ, basis: KBasis) -> LinkFRS:
+    """Split link PZs into sliceable k-poly + shape generators + radii."""
+    sh = error_layout(basis.nf)["shape"]
+    shape_gens = links.egen[..., sh]                         # [W, T, J, 3, 3gen]
+    other = torch.cat([links.egen[..., : sh.start], links.egen[..., sh.stop:]], dim=-1)
+    radius = links.rad + torch.sum(torch.abs(other), dim=-1)
+    return LinkFRS(center_coef=links.coef, shape_gens=shape_gens.contiguous(),
+                   radius=radius)

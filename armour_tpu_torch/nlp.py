@@ -1,0 +1,505 @@
+"""Batched trajectory-optimisation NLP (counterpart of armour_tpu/nlp.py).
+
+The problem: n = F variables k in [-1,1]^F;
+  cost = cost_scale * sum_j wrap(q_plan_j(k) - q_des_j)^2
+  subject to torque, collision and state-limit rows c(k) <= 0.
+Solved by a fixed-iteration multi-start augmented-Lagrangian method with
+projected Gauss-Newton inner steps, then re-checked against the full
+constraint set (infeasible -> NaN k, the caller brakes).
+
+Layout: k is [W, Q, F] (worlds, query points); the multi-start seeds are
+Q = S, the line search evaluates Q = S * A points in one pass.  The solve
+loop makes no host synchronisation: control flow is torch.where on device
+tensors, the 7x7 KKT solve is cholesky_ex + cholesky_solve.
+
+q_plan is linear in k (weight s^3 (6 s^2 - 15 s + 10) * k_range at
+s = t_plan / duration), so the cost gradient is written out and its Hessian
+is the constant diagonal 2 * cost_scale * weight^2 (the JAX package takes
+them from jax.grad / jax.hessian).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from . import bezier
+from .collision import (BIG, Hyperplanes, ObstacleSet, ScreenedCollision,
+                        collision_constraints, eval_link_poly_grads,
+                        eval_link_polys, screened_rows)
+from .config import ArmourConfig
+from .dynamics import TorqueFRS
+from .jrs import TrajectoryCoeffs
+from .kinematics import LinkFRS
+from .pz.basis import KBasis
+from .robot import RobotModel
+from .utils import to_device
+
+
+def wrap_to_pi(x):
+    return torch.remainder(x + math.pi, 2.0 * math.pi) - math.pi
+
+
+@dataclasses.dataclass
+class RobotLimits:
+    """Robot limits on the solver's device, each [F]."""
+
+    torque: torch.Tensor
+    pos_lb: torch.Tensor
+    pos_ub: torch.Tensor
+    speed: torch.Tensor
+    continuous: torch.Tensor   # bool
+
+
+def robot_limits(robot: RobotModel, dtype, device) -> RobotLimits:
+    return RobotLimits(
+        torque=to_device(robot.torque_limits, dtype, device),
+        pos_lb=to_device(robot.position_limits_lb, dtype, device),
+        pos_ub=to_device(robot.position_limits_ub, dtype, device),
+        speed=to_device(robot.speed_limits, dtype, device),
+        continuous=to_device(robot.continuous_joints, torch.bool, device),
+    )
+
+
+@dataclasses.dataclass
+class PlanProblem:
+    """Everything the solver needs, built once per plan."""
+
+    traj: TrajectoryCoeffs
+    q_des: torch.Tensor          # [W, F]
+    torque: TorqueFRS
+    frs: LinkFRS
+    hyp: Hyperplanes
+    obs: ObstacleSet
+    screened: ScreenedCollision
+    limits: RobotLimits
+
+
+# ---------------------------------------------------------------------------
+# cost
+# ---------------------------------------------------------------------------
+
+
+def _traj(traj: TrajectoryCoeffs):
+    """Trajectory scalars [W, F] -> [W, 1, F] against k [W, Q, F]."""
+    return traj.q0[:, None], traj.Tqd0[:, None], traj.TTqdd0[:, None], traj.k_scale[:, None]
+
+
+def _plan_diff(k, traj: TrajectoryCoeffs, q_des, continuous, cfg: ArmourConfig):
+    q0, Tqd0, TTqdd0, k_scale = _traj(traj)
+    s_plan = cfg.t_plan / cfg.duration
+    q_plan = bezier.q_des(q0, Tqd0, TTqdd0, k * k_scale, s_plan)
+    diff = q_plan - q_des[:, None]
+    return torch.where(continuous, wrap_to_pi(diff), diff)
+
+
+def plan_cost(k, traj: TrajectoryCoeffs, q_des, continuous, cfg: ArmourConfig):
+    """cost [W, Q] at k [W, Q, F]."""
+    diff = _plan_diff(k, traj, q_des, continuous, cfg)
+    return cfg.cost_scale * torch.sum(diff * diff, dim=-1)
+
+
+def _cost_weight(traj: TrajectoryCoeffs, cfg: ArmourConfig):
+    """d q_plan / d k [W, 1, F]."""
+    return bezier.q_des_k_weight(cfg.t_plan / cfg.duration) * traj.k_scale[:, None]
+
+
+def plan_cost_grad(k, traj: TrajectoryCoeffs, q_des, continuous, cfg: ArmourConfig):
+    """d cost / d k [W, Q, F] (the wrap is piecewise a shift)."""
+    diff = _plan_diff(k, traj, q_des, continuous, cfg)
+    return cfg.cost_scale * (2.0 * diff) * _cost_weight(traj, cfg)
+
+
+def plan_cost_hessian(traj: TrajectoryCoeffs, cfg: ArmourConfig):
+    """Constant diagonal Hessian of the cost [W, 1, F, F]."""
+    w = _cost_weight(traj, cfg)
+    return torch.diag_embed(2.0 * cfg.cost_scale * w * w)
+
+
+# ---------------------------------------------------------------------------
+# state-limit extrema over the whole trajectory
+# ---------------------------------------------------------------------------
+
+
+def _select_extrema(cands, grads, inside):
+    """min/max over candidate rows [4, ...] and the gradients there."""
+    cands_lo = torch.where(inside, cands, torch.full_like(cands, BIG))
+    cands_hi = torch.where(inside, cands, torch.full_like(cands, -BIG))
+    i_lo = torch.argmin(cands_lo, dim=0, keepdim=True)
+    i_hi = torch.argmax(cands_hi, dim=0, keepdim=True)
+    return (torch.gather(cands_lo, 0, i_lo)[0], torch.gather(cands_hi, 0, i_hi)[0],
+            torch.gather(grads, 0, i_lo)[0], torch.gather(grads, 0, i_hi)[0])
+
+
+def _root_ok(valid, e, v):
+    return valid & (0.0 <= e) & (e <= 1.0) & torch.isfinite(e) & torch.isfinite(v)
+
+
+def joint_position_extrema(k, traj: TrajectoryCoeffs, cfg: ArmourConfig):
+    """(q_min, q_max) [W, Q, F] over the trajectory and their dk gradients."""
+    q0, Tqd0, TTqdd0, k_range = _traj(traj)
+    k_act = k * k_range
+    e2, e3, valid = bezier.q_extrema_in_k(Tqd0, TTqdd0, k_act)
+    v0 = bezier.q_des(q0, Tqd0, TTqdd0, k_act, torch.zeros_like(k))
+    v1 = bezier.q_des(q0, Tqd0, TTqdd0, k_act, torch.ones_like(k))
+    v2 = bezier.q_des(q0, Tqd0, TTqdd0, k_act, e2)
+    v3 = bezier.q_des(q0, Tqd0, TTqdd0, k_act, e3)
+
+    def dq_dk(s):
+        return s**3 * (6.0 * s**2 - 15.0 * s + 10.0)
+
+    true = torch.ones_like(k, dtype=torch.bool)
+    q_min, q_max, g_min, g_max = _select_extrema(
+        torch.stack([v0, v1, v2, v3]),
+        torch.stack([torch.zeros_like(k), torch.ones_like(k), dq_dk(e2), dq_dk(e3)]),
+        torch.stack([true, true, _root_ok(valid, e2, v2), _root_ok(valid, e3, v3)]))
+    return q_min, q_max, g_min * k_range, g_max * k_range
+
+
+def joint_velocity_extrema(k, traj: TrajectoryCoeffs, cfg: ArmourConfig):
+    """(qd_min, qd_max) [W, Q, F] and their dk gradients."""
+    q0, Tqd0, TTqdd0, k_range = _traj(traj)
+    k_act = k * k_range
+    dur = cfg.duration
+    e2, e3, valid = bezier.qd_extrema_in_k(Tqd0, TTqdd0, k_act)
+    v0 = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, torch.zeros_like(k))
+    v1 = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, torch.ones_like(k))
+    v2 = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, e2)
+    v3 = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, e3)
+
+    def dqd_dk(s):
+        return 30.0 * s**2 * (s - 1.0) ** 2
+
+    true = torch.ones_like(k, dtype=torch.bool)
+    qd_min, qd_max, g_min, g_max = _select_extrema(
+        torch.stack([v0, v1, v2, v3]),
+        torch.stack([torch.zeros_like(k), torch.zeros_like(k), dqd_dk(e2), dqd_dk(e3)]),
+        torch.stack([true, true, _root_ok(valid, e2, v2), _root_ok(valid, e3, v3)]))
+    return (qd_min / dur, qd_max / dur, g_min * k_range / dur, g_max * k_range / dur)
+
+
+# ---------------------------------------------------------------------------
+# constraint assembly: one-sided c(k) <= 0 stack
+# ---------------------------------------------------------------------------
+
+
+def _torque(k_phi, prob: PlanProblem):
+    """Nominal torque u [W, Q, T*F] at phi(k), and its limit [W, 1, T*F]."""
+    Wn, T, F, B = prob.torque.u_coef.shape
+    uc = prob.torque.u_coef.reshape(Wn, T * F, B)
+    u = torch.matmul(k_phi, uc.transpose(1, 2))
+    hi = (prob.limits.torque - prob.torque.torque_radius).reshape(Wn, 1, T * F)
+    return u, hi, uc
+
+
+def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
+                     with_grad: bool = True):
+    """All inequality rows c [W, Q, M] and (optionally) the Jacobian
+    [W, Q, M, F].  Ordering: [torque_hi; torque_lo; collision; pos_min_lo;
+    pos_min_hi; pos_max_lo; pos_max_hi; vel_min_lo; vel_min_hi; vel_max_lo;
+    vel_max_hi]."""
+    if cfg.smooth_obstacle_constraints:
+        raise NotImplementedError("smooth obstacle constraints are not ported yet")
+    F = k.shape[-1]
+    phi = basis.phi(k)
+    dphi = basis.dphi(k) if with_grad else None
+    ub = cfg.ub
+    lim = prob.limits
+    cs, Js = [], []
+
+    if not cfg.turn_off_input_constraints:
+        u, hi, uc = _torque(phi, prob)
+        cs += [u - hi, -u - hi]
+        if with_grad:
+            du = torch.matmul(uc[:, None], dphi)                # [W, Q, T*F, F]
+            Js += [du, -du]
+
+    p_all = eval_link_polys(prob.frs, phi)
+    dp_all = eval_link_poly_grads(prob.frs, dphi) if with_grad else None
+    g_col, dg_col = screened_rows(prob.screened, p_all, dp_all)
+    # plan with extra clearance; the certification stays exact
+    cs.append(g_col + cfg.collision_search_margin)
+    if with_grad:
+        Js.append(dg_col)
+
+    q_min, q_max, gq_min, gq_max = joint_position_extrema(k, prob.traj, cfg)
+    qd_min, qd_max, gd_min, gd_max = joint_velocity_extrema(k, prob.traj, cfg)
+    m = cfg.state_limit_margin
+    pos_lb = lim.pos_lb + ub.qe + m
+    pos_ub = lim.pos_ub - ub.qe - m
+    vel_ub = lim.speed - ub.qde - m
+    eye = torch.eye(F, dtype=k.dtype, device=k.device)
+    for val, grad in ((q_min, gq_min), (q_max, gq_max)):
+        cs += [pos_lb - val, val - pos_ub]
+        if with_grad:
+            Js += [-grad[..., None] * eye, grad[..., None] * eye]
+    for val, grad in ((qd_min, gd_min), (qd_max, gd_max)):
+        cs += [-vel_ub - val, val - vel_ub]
+        if with_grad:
+            Js += [-grad[..., None] * eye, grad[..., None] * eye]
+
+    c = torch.cat(cs, dim=-1)
+    if with_grad:
+        return c, torch.cat(Js, dim=-2)
+    return c, None
+
+
+def max_violations(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
+                   collision_fn=collision_constraints):
+    """Per-group max violations (torque, collision, state, grasp), each
+    [W, Q], over the FULL constraint set.  collision_fn evaluates every
+    collision row; the default routes through kernel K4 on the card."""
+    phi = basis.phi(k)
+    ub = cfg.ub
+    lim = prob.limits
+    neg_big = torch.full(k.shape[:-1], -BIG, dtype=k.dtype, device=k.device)
+    if cfg.turn_off_input_constraints:
+        v_torque = neg_big
+    else:
+        u, hi, _ = _torque(phi, prob)
+        v_torque = torch.amax(torch.abs(u) - hi, dim=-1)
+    v_grasp = neg_big
+
+    g_col = collision_fn(prob.hyp, prob.obs, eval_link_polys(prob.frs, phi))
+    v_col = torch.amax(g_col.reshape(*k.shape[:-1], -1), dim=-1)
+
+    q_min, q_max, _, _ = joint_position_extrema(k, prob.traj, cfg)
+    qd_min, qd_max, _, _ = joint_velocity_extrema(k, prob.traj, cfg)
+    pos_lb = lim.pos_lb + ub.qe
+    pos_ub = lim.pos_ub - ub.qe
+    vel_ub = lim.speed - ub.qde
+    v_state = torch.amax(torch.stack([
+        torch.amax(pos_lb - q_min, dim=-1), torch.amax(q_min - pos_ub, dim=-1),
+        torch.amax(pos_lb - q_max, dim=-1), torch.amax(q_max - pos_ub, dim=-1),
+        torch.amax(-vel_ub - qd_min, dim=-1), torch.amax(qd_min - vel_ub, dim=-1),
+        torch.amax(-vel_ub - qd_max, dim=-1), torch.amax(qd_max - vel_ub, dim=-1),
+    ]), dim=0)
+    return v_torque, v_col, v_state, v_grasp
+
+
+def viol_feasible(v, cfg: ArmourConfig):
+    """Feasibility of stacked violations v [..., 4] against the thresholds
+    of the finalize check."""
+    return ((v[..., 0] <= cfg.torque_violation_threshold)
+            & (v[..., 1] <= cfg.collision_violation_threshold)
+            & (v[..., 2] <= 1e-6)
+            & (v[..., 3] <= cfg.grasp_violation_threshold))
+
+
+# ---------------------------------------------------------------------------
+# augmented-Lagrangian solver with projected Gauss-Newton inner steps
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """k [W, F] (NaN when infeasible), feasible [W], cost [W] and the
+    per-group violations [W, 4] (torque, collision, state, grasp)."""
+
+    k: torch.Tensor
+    feasible: torch.Tensor
+    cost: torch.Tensor
+    viol: torch.Tensor
+
+
+def _stack_thresholds(prob: PlanProblem, cfg: ArmourConfig) -> torch.Tensor:
+    """Per-row violation thresholds in constraint_stack's order [M]."""
+    dt, dev = prob.q_des.dtype, prob.q_des.device
+    F = prob.q_des.shape[-1]
+    parts = []
+    if not cfg.turn_off_input_constraints:
+        T = prob.torque.u_coef.shape[1]
+        parts.append(torch.full((2 * T * F,), cfg.torque_violation_threshold, dtype=dt, device=dev))
+    K = prob.screened.row.shape[-1]
+    parts.append(torch.full((K,), cfg.collision_violation_threshold, dtype=dt, device=dev))
+    # state rows are margin-tightened: accepting margin/2 against them
+    # leaves margin/2 slack against the true limits
+    parts.append(torch.full((8 * F,), 0.5 * cfg.state_limit_margin, dtype=dt, device=dev))
+    return torch.cat(parts)
+
+
+def _take(x, idx):
+    """x [W, S, ...] at seed indices idx [W, S']."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.dim() - 2)))
+                        .expand(*idx.shape, *x.shape[2:]))
+
+
+def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None) -> SolveResult:
+    """Multi-start ALM solve for every world.  Seeds: k=0, the
+    waypoint-directed k and +-0.5 of it; the best feasible result wins."""
+    dt, dev = prob.q_des.dtype, prob.q_des.device
+    Wn, F = prob.q_des.shape
+
+    if k0 is None:
+        diff = prob.q_des - prob.traj.q0
+        diff = torch.where(prob.limits.continuous, wrap_to_pi(diff), diff)
+        k_wp = torch.clamp(diff / prob.traj.k_scale, -1.0, 1.0)
+        seeds = [torch.zeros_like(k_wp), k_wp, 0.5 * k_wp, -0.5 * k_wp]
+        n_seeds = max(1, cfg.solver_seeds)
+        if n_seeds > len(seeds):
+            extra = [(0.25 + 0.75 * j / max(1, n_seeds - len(seeds)))
+                     * (-1.0 if j % 2 else 1.0) * k_wp
+                     for j in range(n_seeds - len(seeds))]
+            seeds = seeds + extra
+        seeds = torch.stack(seeds[:n_seeds], dim=1)             # [W, S, F]
+    else:
+        seeds = torch.as_tensor(k0, dtype=dt, device=dev).reshape(Wn, 1, F)
+
+    n_seeds = seeds.shape[1]
+    cull_after = int(cfg.solver_cull_after)
+    keep = int(cfg.solver_keep_seeds)
+    init, run_outer, finalize, cull_score = _alm_phases(prob, cfg, basis)
+
+    carry = init(seeds)
+    if 0 < cull_after < cfg.solver_outer_iters and 0 < keep < n_seeds:
+        # phase A on all seeds, keep the most promising, phase B on those
+        carry = run_outer(carry, cull_after)
+        idx = torch.argsort(cull_score(carry), dim=-1, stable=True)[:, :keep]
+        carry = tuple(_take(x, idx) for x in carry)
+        carry = run_outer(carry, cfg.solver_outer_iters - cull_after)
+    else:
+        carry = run_outer(carry, cfg.solver_outer_iters)
+    res = finalize(carry)
+
+    # best feasible across starts; else the lowest-cost (infeasible) one
+    cost_rank = torch.where(res.feasible, res.cost, torch.full_like(res.cost, math.inf))
+    any_feas = torch.any(res.feasible, dim=-1)
+    i = torch.where(any_feas, torch.argmin(cost_rank, dim=-1),
+                    torch.argmin(res.cost, dim=-1))[:, None]    # [W, 1]
+    return SolveResult(k=_take(res.k, i)[:, 0], feasible=_take(res.feasible, i)[:, 0],
+                       cost=_take(res.cost, i)[:, 0], viol=_take(res.viol, i)[:, 0])
+
+
+def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
+    """The ALM descent as (init, run_outer, finalize, cull_score) over a
+    carry (k, lam, rho, best_k, best_cost) of [W, S, ...] tensors."""
+    dt, dev = prob.q_des.dtype, prob.q_des.device
+    F = prob.q_des.shape[-1]
+    cont = prob.limits.continuous
+    thr = _stack_thresholds(prob, cfg)
+    alphas = torch.tensor(cfg.solver_alphas, dtype=dt).to(dev, non_blocking=True)
+    A = len(cfg.solver_alphas)
+    Hc = plan_cost_hessian(prob.traj, cfg)
+    reg = 1e-3 * torch.eye(F, dtype=dt, device=dev)
+
+    def cost_fn(kk):
+        return plan_cost(kk, prob.traj, prob.q_des, cont, cfg)
+
+    def stack(kk, with_grad=False):
+        return constraint_stack(kk, prob, cfg, basis, with_grad=with_grad)
+
+    def clip_big(c):
+        # padded/degenerate rows sit at -BIG; keep them inert
+        return torch.clamp(c, min=-1e6)
+
+    def penalty(cc, lam, rho):
+        z = lam + rho[..., None] * cc
+        return torch.sum(torch.where(z > 0, z * z, torch.zeros_like(z)), dim=-1) / (2 * rho)
+
+    def track_best(kk, cc, best_k, best_cost):
+        feas = torch.all(cc <= thr, dim=-1)
+        cost_kk = cost_fn(kk)
+        better = feas & (cost_kk < best_cost)
+        return (torch.where(better[..., None], kk, best_k),
+                torch.where(better, cost_kk, best_cost))
+
+    def init(k):
+        c0, _ = stack(k)
+        feas0 = torch.all(clip_big(c0) <= thr, dim=-1)
+        # a feasible start (k=0 is the rest plan) seeds the best tracker
+        best_cost = torch.where(feas0, cost_fn(k), torch.full_like(feas0, math.inf, dtype=dt))
+        rho = torch.full(k.shape[:-1], 10.0, dtype=dt, device=dev)
+        return (k, torch.zeros_like(c0), rho, k, best_cost)
+
+    def inner_step(k, best_k, best_cost, lam, rho):
+        Wn, S = k.shape[:2]
+        c, Jc = stack(k, with_grad=True)
+        c = clip_big(c)
+        z = lam + rho[..., None] * c
+        act = z > 0.0                                       # active set
+        w = torch.where(act, rho[..., None], torch.zeros_like(c))
+        lam_eff = torch.where(act, z, torch.zeros_like(c))
+        JcT = Jc.transpose(-1, -2)
+        g = (plan_cost_grad(k, prob.traj, prob.q_des, cont, cfg)
+             + torch.matmul(JcT, lam_eff[..., None])[..., 0])
+        H = torch.matmul(JcT * w[..., None, :], Jc) + Hc + reg
+        L, _ = torch.linalg.cholesky_ex(H)                  # H is SPD
+        step = torch.cholesky_solve(g[..., None], L)[..., 0]
+
+        m0 = cost_fn(k) + penalty(c, lam, rho)
+        best_k, best_cost = track_best(k, c, best_k, best_cost)
+
+        # geometric backtracking ladder, all alphas in one stack pass
+        kks = torch.clamp(k[:, :, None] - alphas[:, None] * step[:, :, None], -1.0, 1.0)
+        cc = clip_big(stack(kks.reshape(Wn, S * A, F))[0]).reshape(Wn, S, A, -1)
+        merits = (cost_fn(kks.reshape(Wn, S * A, F)).reshape(Wn, S, A)
+                  + penalty(cc, lam[:, :, None], rho[:, :, None]))
+        # every line-search candidate is also a best-feasible candidate
+        for a in range(A):
+            best_k, best_cost = track_best(kks[:, :, a], cc[:, :, a], best_k, best_cost)
+        best = torch.argmin(merits, dim=-1, keepdim=True)   # [W, S, 1]
+        m_best = torch.gather(merits, -1, best)[..., 0]
+        k_best = torch.gather(kks, 2, best[..., None].expand(Wn, S, 1, F))[:, :, 0]
+        k_new = torch.where((m_best < m0)[..., None], k_best, k)
+        return k_new, best_k, best_cost
+
+    def run_outer(carry, n: int):
+        k, lam, rho, best_k, best_cost = carry
+        for _ in range(n):
+            for _ in range(cfg.solver_inner_iters):
+                k, best_k, best_cost = inner_step(k, best_k, best_cost, lam, rho)
+            c = clip_big(stack(k)[0])
+            # proxy feasibility on the screened stack; the winner is
+            # re-checked against the full set in finalize
+            best_k, best_cost = track_best(k, c, best_k, best_cost)
+            lam = torch.clamp(lam + rho[..., None] * c, min=0.0)
+            rho = torch.clamp(rho * 2.0, max=1e6)
+        return (k, lam, rho, best_k, best_cost)
+
+    def cull_score(carry):
+        """Feasible seeds rank by best cost, infeasible ones behind them by
+        total violation."""
+        k, lam, rho, best_k, best_cost = carry
+        c, _ = stack(k)
+        v = torch.sum(torch.clamp(clip_big(c) - thr, min=0.0), dim=-1)
+        return torch.where(torch.isfinite(best_cost), best_cost, 1e6 + v + cost_fn(k))
+
+    def finalize(carry):
+        k, lam, rho, best_k, best_cost = carry
+        S = k.shape[1]
+
+        # feasibility pull-in: bisect along [best_k, k] for the deepest
+        # feasible point when the ALM ends epsilon outside the feasible set
+        def pull_in(lo, hi):
+            for _ in range(6):
+                mid = 0.5 * (lo + hi)
+                ok = torch.all(clip_big(stack(mid)[0]) <= thr, dim=-1)[..., None]
+                lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+            return lo
+
+        end_feas = torch.all(clip_big(stack(k)[0]) <= thr, dim=-1)
+        have_seed = torch.isfinite(best_cost)
+        pulled = pull_in(torch.where(have_seed[..., None], best_k, k), k)
+        k_pull = torch.where((~end_feas & have_seed)[..., None], pulled, k)
+        cc_pull = clip_big(stack(k_pull)[0])
+        best_k, best_cost = track_best(k_pull, cc_pull, best_k, best_cost)
+
+        # one full-set check for the final and the best iterate of every seed
+        v = torch.stack(max_violations(torch.cat([k, best_k], dim=1), prob, cfg, basis),
+                        dim=-1)                              # [W, 2S, 4]
+        v_final, v_best = v[:, :S], v[:, S:]
+        feas_final = viol_feasible(v_final, cfg)
+        feas_best = viol_feasible(v_best, cfg) & torch.isfinite(best_cost)
+        cost_final = cost_fn(k)
+        use_best = feas_best & ((~feas_final) | (best_cost < cost_final))
+        feasible = feas_final | feas_best
+        k_sel = torch.where(use_best[..., None], best_k, k)
+        return SolveResult(
+            k=torch.where(feasible[..., None], k_sel, torch.full_like(k_sel, math.nan)),
+            feasible=feasible,
+            cost=torch.where(use_best, best_cost, cost_final),
+            viol=torch.where(use_best[..., None], v_best, v_final))
+
+    return init, run_outer, finalize, cull_score

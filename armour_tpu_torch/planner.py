@@ -1,0 +1,103 @@
+"""The receding-horizon planner: one planning step (counterpart of
+armour_tpu/planner.py).
+
+plan_step runs JRS -> PZ FK -> PZ RNEA torque bound -> obstacle hyperplanes
+-> screen -> ALM solve for a batch of worlds.  make_batch_planner and
+make_planner return step functions that run on the card by default; pass
+device="cpu" to run the plain versions of every kernel on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .collision import ObstacleSet, build_hyperplanes, screen_collision
+from .config import ArmourConfig
+from .dynamics import torque_frs
+from .jrs import build_jrs
+from .kinematics import forward_occupancy, reduce_links
+from .nlp import PlanProblem, SolveResult, robot_limits, solve
+from .pz.basis import KBasis, make_basis
+from .robot import RobotModel
+
+
+def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
+                 cfg: ArmourConfig, basis: KBasis) -> PlanProblem:
+    """Reachable sets, hyperplanes and screened rows of one planning step.
+    q0/qd0/qdd0/q_des [W, F] tensors, obs [W, O, ...] on one device."""
+    if cfg.traj_family != "bernstein":
+        raise NotImplementedError("the ARMTD trajectory family is not ported yet")
+    if cfg.grasp_constraints:
+        raise NotImplementedError("grasp constraints are not ported yet")
+    jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
+    frs = reduce_links(forward_occupancy(jrs, robot, cfg, basis), basis)
+    torque = torque_frs(jrs, robot, cfg, basis)
+    hyp = build_hyperplanes(frs, obs)
+    screened = screen_collision(hyp, obs, frs, cfg.screen_k, cfg.screen_obstacle_quota)
+    return PlanProblem(traj=jrs.traj, q_des=q_des, torque=torque, frs=frs, hyp=hyp,
+                       obs=obs, screened=screened,
+                       limits=robot_limits(robot, q0.dtype, q0.device))
+
+
+def plan_step(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
+              cfg: ArmourConfig, basis: KBasis, k0=None) -> SolveResult:
+    """One full planning iteration for a batch of worlds."""
+    prob = plan_problem(q0, qd0, qdd0, q_des, obs, robot, cfg, basis)
+    return solve(prob, cfg, basis, k0=k0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names another device; raises when the
+    card is asked for and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return dev
+
+
+def _obs_to(obs: ObstacleSet, dtype, device) -> ObstacleSet:
+    return ObstacleSet(centers=obs.centers.to(device=device, dtype=dtype),
+                       generators=obs.generators.to(device=device, dtype=dtype),
+                       mask=obs.mask.to(device=device, dtype=torch.bool))
+
+
+def make_batch_planner(robot: RobotModel, cfg: ArmourConfig, device=None):
+    """Planner over a leading worlds axis: (q0, qd0, qdd0, q_des [W, F],
+    obs [W, O, ...]) -> SolveResult [W, ...]."""
+    dev = resolve_device(device)
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+
+    def step(q0, qd0, qdd0, q_des, obs: ObstacleSet) -> SolveResult:
+        args = [torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, qd0, qdd0, q_des)]
+        return plan_step(*args, _obs_to(obs, cfg.dtype, dev), robot, cfg, basis)
+
+    return step
+
+
+def make_planner(robot: RobotModel, cfg: ArmourConfig, device=None):
+    """Single-world planner: (q0, qd0, qdd0, q_des [F], obs [O, ...]) ->
+    SolveResult for that world."""
+    batch = make_batch_planner(robot, cfg, device)
+
+    def step(q0, qd0, qdd0, q_des, obs: ObstacleSet) -> SolveResult:
+        one = ObstacleSet(centers=obs.centers[None], generators=obs.generators[None],
+                          mask=obs.mask[None])
+        res = batch(*(torch.as_tensor(x)[None] for x in (q0, qd0, qdd0, q_des)), one)
+        return SolveResult(k=res.k[0], feasible=res.feasible[0], cost=res.cost[0],
+                           viol=res.viol[0])
+
+    return step
+
+
+def strong_config(cfg: ArmourConfig) -> ArmourConfig:
+    """The rescue/acceptance solver profile: full iteration budget and deep
+    screening."""
+    return dataclasses.replace(
+        cfg, solver_outer_iters=max(cfg.solver_outer_iters, 8),
+        solver_inner_iters=max(cfg.solver_inner_iters, 6),
+        solver_cull_after=2, solver_keep_seeds=2,
+        solver_alphas=(1.0, 0.25, 0.0625, 0.015625),
+        screen_k=max(cfg.screen_k, 4096))

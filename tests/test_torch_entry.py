@@ -1,0 +1,125 @@
+"""Entry points and boundaries of the PyTorch port: the planners run on the
+card unless asked for the CPU, the package and chip_smoke.py import neither
+JAX nor the JAX package, and the kernel launchers take CUDA tensors only
+(no silent fallback)."""
+
+import ast
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from armour_tpu_torch.config import ArmourConfig
+from armour_tpu_torch.kernels import build, collision as kcol, pz as kpz
+from armour_tpu_torch.models.kinova import kinova_gen3
+from armour_tpu_torch.planner import make_batch_planner, make_planner
+from armour_tpu_torch.pz import bpz
+from armour_tpu_torch.pz.basis import make_basis
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "armour_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("maker", [make_planner, make_batch_planner])
+def test_planners_default_to_the_card(maker):
+    if torch.cuda.is_available():
+        maker(kinova_gen3(), ArmourConfig())
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            maker(kinova_gen3(), ArmourConfig())
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "armour_tpu"), f"{path} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted({".".join(p.relative_to(ROOT).with_suffix("").parts)
+                   for p in PORT_FILES if p.name != "chip_smoke.py"})
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'armour_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+def test_precision_pins():
+    import armour_tpu_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _cpu_bpz(shape, basis):
+    return bpz.zeros(shape, basis, torch.float32)
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """A launcher never computes on the CPU: the plain version is taken by
+    the public wrapper, for CPU tensors only."""
+    basis = make_basis(7, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpz.matmul_linear(_cpu_bpz((2, 3, 3), basis), _cpu_bpz((2, 3, 3), basis), basis)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpz.cross(_cpu_bpz((2, 3), basis), _cpu_bpz((2, 3), basis), basis)
+    with pytest.raises(ValueError, match="CUDA"):
+        kcol.build_hyperplanes(torch.zeros(1, 2, 7, 3, 3), torch.zeros(1, 2, 7, 3),
+                               torch.zeros(1, 4, 3), torch.zeros(1, 4, 3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        kcol.collision_rows(torch.zeros(1, 3, 36, 8), torch.zeros(1, 36, 8),
+                            torch.zeros(1, 36, 8), torch.zeros(1, 8, dtype=torch.int32),
+                            torch.ones(1, 8, dtype=torch.bool), torch.zeros(1, 2, 3, 14))
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    basis = make_basis(7, 3)
+    rng = np.random.default_rng(0)
+    a = bpz.BPZ(torch.as_tensor(rng.normal(size=(2, 3, 3, basis.size))),
+                torch.as_tensor(rng.normal(size=(2, 3, 3, 38))),
+                torch.as_tensor(np.abs(rng.normal(size=(2, 3, 3)))))
+    for f, plain in ((bpz.matmul_linear, bpz.matmul_linear_plain),
+                     (bpz.matmul_linear_right, bpz.matmul_linear_right_plain)):
+        got, want = f(a, a, basis, 1e-6), plain(a, a, basis, 1e-6)
+        assert torch.equal(got.coef, want.coef) and torch.equal(got.rad, want.rad)
+    v = bpz.BPZ(a.coef[:, 0], a.egen[:, 0], a.rad[:, 0])
+    assert torch.equal(bpz.cross(v, v, basis).rad, bpz.cross_plain(v, v, basis).rad)
+
+
+def test_build_flags_keep_ieee_float32():
+    assert "-use_fast_math" not in build.FLAGS and "--use_fast_math" not in build.FLAGS
+    assert "-fmad=false" in build.FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.FLAGS
+    for src in (ROOT / "armour_tpu_torch" / "csrc").glob("*.cu"):
+        text = src.read_text()
+        for fast in ("rsqrtf", "__fdividef", "__frsqrt", "__fsqrt"):
+            assert fast not in text, f"{src.name} uses {fast}"
+
+
+def test_kernel_argument_structs_fit_the_parameter_space():
+    """The argument structs travel as kernel parameters (4 KB limit)."""
+    for s in (kpz.K1Args, kpz.K2Args, kcol.K3Args, kcol.K4Args):
+        assert ctypes.sizeof(s) <= 4096
+    assert ctypes.sizeof(kpz.PZView) == 3 * 8 + 9 * 8 + 6 * 8
+
+
+def test_every_kernel_has_a_source():
+    for name, src in build.SOURCES.items():
+        assert (build.CSRC / src).exists(), name
