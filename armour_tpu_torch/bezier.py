@@ -46,6 +46,24 @@ def qd_des(q0, Tqd0, TTqdd0, k_actual, s):
     return db0 * beta0 + db1 * beta1 + db2 * beta2 + (db3 + db4 + db5) * beta3
 
 
+def qdd_des(q0, Tqd0, TTqdd0, k_actual, s):
+    """d2(q_des)/ds2 (divide by duration^2 for real-time acceleration)."""
+    t5 = s - 1.0
+    t8 = t5 * t5
+    t9 = t8 * t5
+    ddb0 = -20.0 * t9
+    ddb1 = 40.0 * t9 + 60.0 * s * t8
+    ddb2 = -20.0 * t9 - 120.0 * s * t8 - 30.0 * s**2 * (2.0 * s - 2.0)
+    ddb3 = 20.0 * s**3 + 60.0 * s * t8 + 60.0 * s**2 * (2.0 * s - 2.0)
+    ddb4 = -40.0 * s**3 - 60.0 * s**2 * t5
+    ddb5 = 20.0 * s**3
+    beta0 = q0
+    beta1 = q0 + Tqd0 / 5.0
+    beta2 = q0 + 2.0 * Tqd0 / 5.0 + TTqdd0 / 20.0
+    beta3 = q0 + k_actual
+    return ddb0 * beta0 + ddb1 * beta1 + ddb2 * beta2 + (ddb3 + ddb4 + ddb5) * beta3
+
+
 def q_des_k_indep(q0, Tqd0, TTqdd0, s):
     return (
         q0

@@ -23,6 +23,8 @@ from .dynamics import TorqueFRS
 from .kinematics import LinkFRS
 from .pz.bpz import BPZ
 from .robot import RobotModel
+from .simulator import TrueParams
+from .trajectory import PlanRef
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -106,3 +108,15 @@ def torque_frs_from_numpy(u_coef, torque_radius, dtype=torch.float64,
                           device="cpu") -> TorqueFRS:
     return TorqueFRS(u_coef=_t(u_coef, dtype, device),
                      torque_radius=_t(torque_radius, dtype, device))
+
+
+def true_params_from_numpy(mass, inertia, com, dtype=torch.float64,
+                           device="cpu") -> TrueParams:
+    return TrueParams(mass=_t(mass, dtype, device), inertia=_t(inertia, dtype, device),
+                      com=_t(com, dtype, device))
+
+
+def planref_from_numpy(q0, qd0, qdd0, k_act, prev_q0, prev_qd0, prev_qdd0, prev_k_act,
+                       dtype=torch.float64, device="cpu") -> PlanRef:
+    return PlanRef(*(_t(x, dtype, device) for x in
+                     (q0, qd0, qdd0, k_act, prev_q0, prev_qd0, prev_qdd0, prev_k_act)))

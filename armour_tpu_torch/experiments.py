@@ -1,0 +1,178 @@
+"""Experiment harness: the batched world suite, its buckets and its results
+file (counterpart of armour_tpu/experiments.py:48-66,135-240,312-385).
+
+    python3 -m armour_tpu_torch.experiments [world_dir] [n_worlds] [results.json]
+        [--seed S] [--device cpu|cuda]
+
+runs every world of world_dir (the first n_worlds when n_worlds > 0; the
+positional arguments of scripts/run_worlds.py) in lockstep on the card:
+float32, straight-line guidance with the rescue solver, worst-case true
+parameters, at most 500 lockstep iterations, seed 0 unless --seed names
+another.  It writes the results file and prints the buckets.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from .config import ArmourConfig
+from .robot import RobotModel
+from .simulator import TrialSummary
+from .worlds import load_world_csv
+
+
+@dataclasses.dataclass
+class SuiteResult:
+    world: str
+    summary: TrialSummary
+
+    def bucket(self) -> str:
+        s = self.summary
+        if s.collision:
+            return "collision"
+        if s.torque_exceeded:
+            return "torque"
+        if s.ultimate_bound_exceeded:
+            return "ultimate_bound"
+        if s.joint_limit_exceeded:
+            return "joint_limit"
+        if s.goal_reached:
+            return "goal"
+        return "stuck"
+
+
+def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
+                            cfg: ArmourConfig, max_iterations: int = 500,
+                            true_param_scale: Optional[float] = 1.0,
+                            seed: int = 0, verbose: bool = True,
+                            results_path: Optional[str] = None,
+                            rescue_solver: bool = True,
+                            guidance: str = "straight",
+                            device=None) -> List[SuiteResult]:
+    """All worlds advanced in lockstep on one card
+    (batch_sim.run_trials_batched); rescue_solver/guidance pass through and
+    are recorded in the saved batch_stats."""
+    from .batch_sim import run_trials_batched
+
+    names = [os.path.basename(p) for p in world_paths]
+    worlds = [load_world_csv(p) for p in world_paths]
+    t0 = time.perf_counter()
+    batch_stats: dict = {"rescue_solver": rescue_solver, "guidance": guidance}
+    summaries = run_trials_batched(
+        worlds, robot, cfg, max_iterations=max_iterations,
+        true_param_scale=true_param_scale, seed=seed, verbose=verbose,
+        stats=batch_stats, rescue_solver=rescue_solver, guidance=guidance,
+        device=device)
+    batch_stats["suite_wall_s"] = time.perf_counter() - t0
+    results = [SuiteResult(world=n, summary=s) for n, s in zip(names, summaries)]
+    if verbose:
+        print(f"batched suite: {len(worlds)} worlds in {batch_stats['suite_wall_s']:.1f}s  "
+              f"rescue_rate={batch_stats.get('rescue_rate', 0.0):.3f} wall_share="
+              f"{batch_stats.get('rescue_wall_share', 0.0):.3f}", flush=True)
+    if results_path:
+        save_results(results, results_path, batch_stats=batch_stats)
+    return results
+
+
+def summarize(results: Sequence[SuiteResult]) -> dict:
+    """Buckets (collision / torque / ultimate bound / joint limit / goal /
+    stuck) and the stuck attribution."""
+    buckets = {"goal": 0, "collision": 0, "torque": 0, "ultimate_bound": 0,
+               "joint_limit": 0, "stuck": 0}
+    plan_times = []
+    for r in results:
+        buckets[r.bucket()] += 1
+        plan_times.extend(r.summary.planning_times)
+    out = dict(buckets)
+    out["n_trials"] = len(results)
+    if plan_times:
+        out["mean_planning_time_s"] = float(np.mean(plan_times))
+        out["max_planning_time_s"] = float(np.max(plan_times))
+    out["safe"] = (out["collision"] == 0 and out["torque"] == 0
+                   and out["ultimate_bound"] == 0 and out["joint_limit"] == 0)
+    blocked_total: dict = {}
+    stuck_gd = []
+    for r in results:
+        if r.bucket() == "stuck":
+            for g, c in (r.summary.blocked_counts or {}).items():
+                blocked_total[g] = blocked_total.get(g, 0) + c
+            if np.isfinite(r.summary.goal_distance_min):
+                stuck_gd.append(r.summary.goal_distance_min)
+    out["stuck_blocked_by"] = blocked_total
+    if stuck_gd:
+        out["stuck_goal_distance_min_mean"] = float(np.mean(stuck_gd))
+    out["rescued_plans_total"] = int(sum(r.summary.rescued_plans for r in results))
+    return out
+
+
+def _provenance() -> dict:
+    """Producing command, commit (when the checkout is a git repository),
+    time and device, embedded in every results file."""
+    import subprocess
+    import sys
+
+    import torch
+
+    try:
+        commit = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            timeout=10).stdout.strip() or "unknown"
+    except (OSError, subprocess.SubprocessError):
+        commit = "unknown"
+    return {"command": " ".join(sys.argv), "commit": commit,
+            "generated_at": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+            "device": (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+                       else "cpu")}
+
+
+def save_results(results: Sequence[SuiteResult], path: str,
+                 batch_stats: Optional[dict] = None) -> None:
+    payload = []
+    for r in results:
+        d = dataclasses.asdict(r.summary)
+        d["world"] = r.world
+        d["bucket"] = r.bucket()
+        d["planning_times"] = [float(x) for x in d["planning_times"]]
+        payload.append(d)
+    doc = {"results": payload, "summary": summarize(results), "provenance": _provenance()}
+    if batch_stats:
+        doc["batch_stats"] = batch_stats
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+
+
+def main(argv=None) -> None:
+    import argparse
+    import glob
+
+    import torch
+
+    from .models.kinova import kinova_gen3
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("world_dir", nargs="?", default="saved_worlds/random")
+    ap.add_argument("n_worlds", nargs="?", type=int, default=0)
+    ap.add_argument("results", nargs="?", default="results_worlds_torch.json")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args(argv)
+    paths = sorted(glob.glob(os.path.join(args.world_dir, "*.csv")))
+    if args.n_worlds:
+        paths = paths[: args.n_worlds]
+    if not paths:
+        raise SystemExit(f"no *.csv worlds in {args.world_dir}")
+    results = run_world_suite_batched(paths, kinova_gen3(), ArmourConfig(dtype=torch.float32),
+                                      max_iterations=500, seed=args.seed,
+                                      results_path=args.results, device=args.device)
+    print(json.dumps(summarize(results), indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,9 +4,11 @@
   K2 pz_cross           csrc/pz_cross.cu           (kernels/pz.py)
   K3 build_hyperplanes  csrc/build_hyperplanes.cu  (kernels/collision.py)
   K4 collision_rows     csrc/collision_rows.cu     (kernels/collision.py)
+  K5 rollout            csrc/rollout.cu            (kernels/sim.py)
+  K6 oracle_check       csrc/oracle_check.cu       (kernels/sim.py)
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
-collision.py): a CPU tensor takes the plain version, a CUDA tensor launches
+collision.py, simulator.py): a CPU tensor takes the plain version, a CUDA tensor launches
 the kernel through the launchers here or raises.  Each launcher adds one to
 LAUNCHES[name] where it launches its kernel and nowhere else.  Sources are
 compiled with nvcc at first use (kernels/build.py).
@@ -16,7 +18,8 @@ from __future__ import annotations
 
 import contextlib
 
-KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows")
+KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
+           "rollout", "oracle_check")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

@@ -27,6 +27,8 @@ SOURCES = {
     "pz_cross": "pz_cross.cu",
     "build_hyperplanes": "build_hyperplanes.cu",
     "collision_rows": "collision_rows.cu",
+    "rollout": "rollout.cu",
+    "oracle_check": "oracle_check.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

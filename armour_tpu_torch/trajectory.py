@@ -1,0 +1,105 @@
+"""Reference-trajectory evaluation with the braking fallback (counterpart of
+armour_tpu/trajectory.py:30-145, Bernstein family).
+
+Given the plan anchor state (q0, qd0, qdd0) and the chosen trajectory
+parameter k (NaN if the last plan was infeasible), the desired state at time
+t since the plan anchor is
+
+  * the degree-5 Bezier toward q0 + k * k_range if k is finite;
+  * else the PREVIOUS plan's trajectory shifted forward by t_plan (its second
+    half ends at rest: the braking manoeuvre the reachable sets certified);
+  * if already stopped, hold position.
+
+PlanRef fields are tensors [..., F] with any leading (worlds) dims.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import bezier
+from .config import ArmourConfig
+
+
+@dataclasses.dataclass
+class PlanRef:
+    """Anchor state + parameter of the active plan and its predecessor."""
+
+    q0: torch.Tensor        # [..., F] anchor position of the active plan
+    qd0: torch.Tensor
+    qdd0: torch.Tensor
+    k_act: torch.Tensor     # [..., F] scaled trajectory parameter; NaN = brake
+    prev_q0: torch.Tensor   # previous plan's anchor (for the braking replay)
+    prev_qd0: torch.Tensor
+    prev_qdd0: torch.Tensor
+    prev_k_act: torch.Tensor
+
+
+def initial_plan(q0, dtype=torch.float32, device="cpu") -> PlanRef:
+    q0 = torch.as_tensor(q0, dtype=dtype).to(device)
+    z = torch.zeros_like(q0)
+    return PlanRef(q0=q0, qd0=z, qdd0=z, k_act=z,
+                   prev_q0=q0, prev_qd0=z, prev_qdd0=z, prev_k_act=z)
+
+
+def advance_plan(ref: PlanRef, k_new, q0, qd0, qdd0, cfg: ArmourConfig) -> PlanRef:
+    """Accept a new plan anchored at (q0, qd0, qdd0) with parameter k_new in
+    [-1, 1]^F (NaN if infeasible -> braking)."""
+    if cfg.traj_family != "bernstein":
+        raise NotImplementedError("the ARMTD trajectory family is not ported yet")
+    like = ref.q0
+
+    def t(x):
+        return torch.as_tensor(x, dtype=like.dtype).to(like.device)
+
+    scale = t(cfg.k_range)
+    return PlanRef(q0=t(q0), qd0=t(qd0), qdd0=t(qdd0), k_act=t(k_new) * scale,
+                   prev_q0=ref.q0, prev_qd0=ref.qd0, prev_qdd0=ref.qdd0,
+                   prev_k_act=ref.k_act)
+
+
+def _bezier_state(q0, qd0, qdd0, k_act, t, cfg: ArmourConfig):
+    dur = cfg.duration
+    s = torch.clamp(t / dur, 0.0, 1.0)
+    Tqd0 = qd0 * dur
+    TTqdd0 = qdd0 * dur * dur
+    q = bezier.q_des(q0, Tqd0, TTqdd0, k_act, s)
+    qd = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, s) / dur
+    qdd = bezier.qdd_des(q0, Tqd0, TTqdd0, k_act, s) / (dur * dur)
+    return q, qd, qdd
+
+
+def desired_state(ref: PlanRef, t, cfg: ArmourConfig):
+    """(q_des, qd_des, qdd_des) at time t since the active plan's anchor.
+
+    t is a number or a 0-d tensor ([..., F] out), or a 1-d tensor of n times
+    ([..., n, F] out: a whole move's reference in one call)."""
+    if cfg.traj_family != "bernstein":
+        raise NotImplementedError("the ARMTD trajectory family is not ported yet")
+    like = ref.q0
+    t = torch.as_tensor(t, dtype=like.dtype).to(like.device)
+    fields = dataclasses.astuple(ref)
+    if t.dim() == 1:
+        t = t[:, None]
+        fields = tuple(x.unsqueeze(-2) for x in fields)
+    q0, qd0, qdd0, k_act, prev_q0, prev_qd0, prev_qdd0, prev_k_act = fields
+
+    ok = torch.isfinite(k_act).all(-1, keepdim=True)
+    k = torch.where(ok, k_act, torch.zeros_like(k_act))
+    q_n, qd_n, qdd_n = _bezier_state(q0, qd0, qdd0, k, t, cfg)
+
+    # braking: replay the previous plan shifted by t_plan
+    prev_ok = torch.isfinite(prev_k_act).all(-1, keepdim=True)
+    pk = torch.where(prev_ok, prev_k_act, torch.zeros_like(prev_k_act))
+    q_b, qd_b, qdd_b = _bezier_state(prev_q0, prev_qd0, prev_qdd0, pk, t + cfg.t_plan, cfg)
+    moving = torch.linalg.vector_norm(qd0, dim=-1, keepdim=True) > 1e-8
+    brake_active = moving & (t <= cfg.t_plan) & prev_ok
+    z = torch.zeros_like(q_n)
+    q_f = torch.where(brake_active, q_b, q0.expand_as(q_n))
+    qd_f = torch.where(brake_active, qd_b, z)
+    qdd_f = torch.where(brake_active, qdd_b, z)
+
+    return (torch.where(ok, q_n, q_f), torch.where(ok, qd_n, qd_f),
+            torch.where(ok, qdd_n, qdd_f))

@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port through one full planning step on the card.
+"""Drive the PyTorch/CUDA port on the card: one full planning step and three
+iterations of the lockstep closed loop.
 
     python3 chip_smoke.py
 
@@ -18,6 +19,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      solves/s at W = 64, the reach-set / solver split, the device time of
      one step by kernel name (torch.profiler), and batch-1 p50/p99 latency
      against the 0.5 s budget.
+  5. the closed loop at the flagship width: run_trials_batched over the same
+     64 worlds, 3 iterations, straight-line guidance with the rescue solver,
+     worst-case true parameters, seed 0, the launch counters set to 0 just
+     before it; K5 (rollout) and K6 (oracle_check) must launch once per
+     iteration and no world may raise a safety flag.  Per iteration: plan,
+     rescue, rollout (K5), oracles (K6) and the host time left over.
+  6. K5 and K6 against their plain versions on the inputs recorded in phase
+     5 (the first move: 500 control steps of 64 worlds), with the tolerances
+     below.  K5 also on the move's first 100 steps with the Althoff and the
+     nominal controller and with seeded measurement noise; K6 also on four
+     copies of the move, each with one planted fault (obstacles on the
+     links, torque, ultimate bound, joint limit) in every other world, whose
+     plain flag must fire there and nowhere else.  Kernels timed as
+     CUDA-event medians of 20, the plain K5 (a launch-bound Python loop of
+     ~2M small launches) over one call.
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -42,6 +58,12 @@ N_WORLDS = 64
 N_LATENCY = 32
 N_CPU = 8
 TIMING_ITERS = 20
+LOOP_ITERATIONS = 3
+K5_TOL_Q = 1e-4      # rad, max |dq| over the move's log rows and final state
+K5_TOL_QD = 1e-3     # rad/s
+K5_TOL_U = 1e-4      # relative: |du| <= K5_TOL_U * (|u| + 1)
+K6_MARGIN = 1e-5     # m: an overlap whose deciding SAT margin is this close may flip
+K5_VARIANT_STEPS = 100  # control steps of the Althoff / nominal / noise comparisons
 
 
 def fail(msg: str) -> None:
@@ -254,17 +276,21 @@ REPLACES = {
     "pz_cross": ("armour_tpu_torch/csrc/pz_cross.cu", "armour_tpu/pz/bpz.py:120"),
     "build_hyperplanes": ("armour_tpu_torch/csrc/build_hyperplanes.cu", "armour_tpu/collision.py:99"),
     "collision_rows": ("armour_tpu_torch/csrc/collision_rows.cu", "armour_tpu/collision.py:255"),
+    "rollout": ("armour_tpu_torch/csrc/rollout.cu", "armour_tpu/simulator.py:111"),
+    "oracle_check": ("armour_tpu_torch/csrc/oracle_check.cu", "armour_tpu/simulator.py:217"),
 }
+PLANNING_KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows")
 
 
 def kernel_phase(captured, launches, dev):
-    from armour_tpu_torch.kernels import KERNELS
     from armour_tpu_torch.utils.timing import median_ms
 
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0, "calls": 0}
-            for k in KERNELS}
+            for k in PLANNING_KERNELS}
     all_ok = True
     for (name, key), inputs in captured.items():
+        if name not in rows:
+            continue
         if name in ("pz_matmul_linear", "pz_cross"):
             res = check_pz(name, inputs, dev)
         elif name == "build_hyperplanes":
@@ -285,7 +311,7 @@ def kernel_phase(captured, launches, dev):
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB")
         all_ok &= ok
     out = []
-    for name in KERNELS:
+    for name in PLANNING_KERNELS:
         r = rows[name]
         if r["calls"] == 0:
             fail(f"kernel {name} was never called on the main path")
@@ -324,7 +350,8 @@ def profile_step(fn, dev, step_s) -> dict:
         return {}
     hand = {name: sum(r[0] for r in rows if r[2].startswith(f"{k}_kernel"))
             for name, k in zip(("pz_matmul_linear", "pz_cross", "build_hyperplanes",
-                                "collision_rows"), ("k1", "k2", "k3", "k4"))}
+                                "collision_rows", "rollout", "oracle_check"),
+                               ("k1", "k2", "k3", "k4", "k5", "k6"))}
     launches = sum(r[1] for r in rows)
     print(f"  profiler: device time {total:.1f} ms in {launches} device activities of one "
           f"W={N_WORLDS} step ({len(rows)} names); top by device time:")
@@ -333,6 +360,353 @@ def profile_step(fn, dev, step_s) -> dict:
     print("  hand kernels: " + ", ".join(f"{k} {v:.3f} ms" for k, v in hand.items()))
     return {"device_ms": total, "hand_kernel_ms": sum(hand.values()),
             "device_busy_share": total / (step_s * 1e3), "device_activities": launches}
+
+
+# ---------------------------------------------------------------------------
+# the closed loop: K5 and K6
+# ---------------------------------------------------------------------------
+
+
+# float32 operations per link of one numeric RNEA pass (rnea_numeric.rnea)
+ROT_FLOPS = 48      # joint rotation: cos, sin, axis pattern, rot_mats @ R_axis
+KIN_FLOPS = 114     # forward recursion: linear acceleration 48, w / w_aux / wdot 66
+LIN_FLOPS = 48      # the linear-acceleration part of KIN_FLOPS alone
+FORCE_FLOPS = 36    # link force m (a + wdot x c + w x (w_aux x c))
+MOMENT_FLOPS = 42   # link moment I wdot + w_aux x (I w)
+BACK_FLOPS = 63     # backward recursion of one link
+
+
+def k5_work(robot, n: int, Wn: int, substeps: int, noise: bool, clock_mhz: float):
+    """(operations, serial-chain ms) of one K5 move: the work the function
+    needs, per world and control step:
+      - joint rotations once per distinct configuration: the measured state
+        (apart from the true state only with noise), the true state (mass
+        matrix, first RK4 stage) and the 4 * substeps - 1 other stage states;
+      - the velocity / acceleration recursion once per distinct motion: the
+        controller's two (tau; V with qd = 0, qdd = r, whose perturbation
+        passes add gravity and so a second linear-acceleration chain), the F
+        mass-matrix columns and the 4 * substeps bias stages; the 2 x 2J
+        perturbation passes share the controller's;
+      - link wrench and backward recursion for every nominal pass; a
+        perturbation direction of link i changes that link's force (mass) or
+        moment (inertia) only, so it needs that term and the backward
+        recursion over links 0..i;
+      - the controller's reductions, the 7x7 Gauss-Jordan inverse, the M^-1
+        products and the RK4 sums.
+    The serial chain: the dependent float32 operations of one step (one
+    controller pass, the inverse, 4 * substeps bias passes and their
+    products; ~15 per link of a pass) at 4 cycles each at the card's maximum
+    SM clock."""
+    J, F = robot.num_joints, robot.num_factors
+    stages = 4 * substeps
+    configs = (2 if noise else 1) + stages - 1
+    motions = 2 + F + stages
+    pert = sum(FORCE_FLOPS + MOMENT_FLOPS + 2 * BACK_FLOPS * (i + 1) for i in range(J))
+    per_step = (configs * J * ROT_FLOPS + motions * J * KIN_FLOPS + J * LIN_FLOPS
+                + motions * J * (FORCE_FLOPS + MOMENT_FLOPS + BACK_FLOPS) + 2 * pert
+                + 8 * J * F + 20 * F + 4 * F ** 3
+                + substeps * (4 * (F + 2 * F * F) + 34 * F))
+    depth = 15 * J + (3 * F + F * F) + stages * (15 * J + 2 * F + 4)
+    serial_ms = n * depth * 4 / (clock_mhz * 1e6) * 1e3
+    return Wn * n * per_step, serial_ms
+
+
+def check_rollout(robot, cfg, inp, dev, label, timed):
+    """K5 against rollout_plain on inp; the kernel timed (median of
+    TIMING_ITERS) only when timed, the plain version over its one call."""
+    from armour_tpu_torch import simulator as tsim
+    from armour_tpu_torch.kernels import sim as ksim
+    from armour_tpu_torch.utils.timing import median_ms
+
+    def kern():
+        return ksim.rollout(robot, cfg, **inp)
+
+    got = kern()
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = tsim.rollout_plain(robot, cfg, inp["q"], inp["qd"], inp["q_des"], inp["qd_des"],
+                             inp["qdd_des"], inp["tp"], inp["control_dt"], inp["substeps"],
+                             inp["controller"], inp["noise"], inp["gains"])
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    q_out, qd_out, q_log, qd_log, u_log = got
+    rq_out, rqd_out, rq_log, rqd_log, ru_log = ref
+    dq = max(float((q_log - rq_log).abs().max()), float((q_out - rq_out).abs().max()))
+    dqd = max(float((qd_log - rqd_log).abs().max()), float((qd_out - rqd_out).abs().max()))
+    du = float((u_log - ru_log).abs().max())
+    u_ratio = float(((u_log - ru_log).abs() / (K5_TOL_U * (ru_log.abs() + 1.0))).max())
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    ok = finite and dq <= K5_TOL_Q and dqd <= K5_TOL_QD and u_ratio <= 1.0
+    ms = median_ms(kern, dev, TIMING_ITERS) if timed else None
+    Wn, n, F = inp["q_des"].shape
+    nbytes = _nbytes(inp["q"], inp["qd"], inp["q_des"], inp["qd_des"], inp["qdd_des"],
+                     inp["noise"], inp["tp"].mass, inp["tp"].inertia, inp["tp"].com, *got)
+    timing = (f"kernel {ms:.3f} ms (median of {TIMING_ITERS}), " if timed else "") \
+        + f"plain {plain_ms:.1f} ms (1 call)"
+    print(f"  rollout {label} [{Wn} worlds x {n} steps]: {'ok' if ok else 'MISMATCH'} "
+          f"(max |dq| {dq:.3g} rad <= {K5_TOL_Q}, max |dqd| {dqd:.3g} rad/s <= {K5_TOL_QD}, "
+          f"max |du| {du:.3g}, worst |du|/({K5_TOL_U}(|u|+1)) {u_ratio:.3g}); {timing}")
+    return ok, max(dq, dqd, du), ms, plain_ms, nbytes
+
+
+def rollout_variants(inp, dev, n):
+    """The recorded move cut to its first n control steps, with the paths
+    the main path does not take: the Althoff and nominal controllers, and
+    the robust controller under seeded measurement noise (1e-4, as the
+    noise test uses)."""
+    cut = dict(inp, q_des=inp["q_des"][:, :n].contiguous(),
+               qd_des=inp["qd_des"][:, :n].contiguous(),
+               qdd_des=inp["qdd_des"][:, :n].contiguous())
+    Wn, _, F = cut["q_des"].shape
+    g = torch.Generator().manual_seed(0)
+    noise = (1e-4 * torch.randn((Wn, n, 2, F), generator=g, dtype=torch.float64)).to(
+        device=dev, dtype=torch.float32)
+    return [("althoff", dict(cut, controller="althoff")),
+            ("nominal", dict(cut, controller="nominal")),
+            ("robust + noise", dict(cut, controller="robust", noise=noise))]
+
+
+def link_obstacle_margins(robot, q, obs):
+    """The deciding SAT margin (simulator.sat_margin) of every (world,
+    logged step, link, obstacle): q [W, N, F] -> [W, N, J, O]."""
+    from armour_tpu_torch import simulator as tsim
+
+    R_w, centers, link_h = tsim._link_boxes(robot, q)
+    axes, half = tsim.obstacle_axes_halves(obs.generators)
+    return tsim.sat_margin(centers[:, :, :, None, :], R_w[:, :, :, None], link_h[:, None, :],
+                           obs.centers[:, None, None], axes[:, None, None],
+                           half[:, None, None])
+
+
+def sat_axes_needed(robot, logs, obs) -> int:
+    """Separating-axis candidates K6 evaluates on these inputs: for every
+    real (state, link, obstacle) triple, up to and including the first axis
+    that separates (all 15 for an overlap)."""
+    from armour_tpu_torch import simulator as tsim
+
+    R_w, centers, link_h = tsim._link_boxes(robot, logs["q"])
+    axes, half = tsim.obstacle_axes_halves(obs.generators)
+    need = None
+    done = None
+    for k, (valid, dist, rad) in enumerate(tsim._sat_axes(
+            centers[:, :, :, None, :], R_w[:, :, :, None], link_h[:, None, :],
+            obs.centers[:, None, None], axes[:, None, None], half[:, None, None])):
+        sep = valid & (dist > rad)
+        if need is None:
+            need = torch.full_like(dist, 15, dtype=torch.int64)
+            done = torch.zeros_like(sep)
+        need = torch.where(sep & ~done, torch.full_like(need, k + 1), need)
+        done = done | sep
+    return int((need * obs.mask[:, None, None, :]).sum())
+
+
+def planted_oracle_inputs(robot, cfg, inp):
+    """Copies of the recorded K6 inputs, one fault planted in each, in every
+    other world (the others as logged): 4 real obstacles moved onto logged
+    link centres (collision), u scaled 1% past the nearest torque limit
+    (torque), q_des shifted by 1.5 qe over 10 steps (ultimate bound), q
+    pushed 0.01 rad past a position limit at one step (joint limit)."""
+    from armour_tpu_torch import simulator as tsim
+
+    Wn, N, F = inp["q"].shape
+    dev = inp["q"].device
+    lim = torch.as_tensor(robot.torque_limits, dtype=torch.float32, device=dev)
+    ub = torch.as_tensor(robot.position_limits_ub, dtype=torch.float32, device=dev)
+    j_lim = int(torch.argmin(ub))                         # a joint with a finite limit
+    copies = []
+    for flag in range(4):
+        sel = torch.arange(Wn, device=dev) % 2 == flag % 2
+        x = {k: v.clone() for k, v in inp.items()}
+        if flag == 0:
+            _, link_c, _ = tsim._link_boxes(robot, x["q"])       # [W, N, J, 3]
+            for w in torch.nonzero(sel).flatten().tolist():
+                real = torch.nonzero(x["mask"][w]).flatten()[:4].tolist()
+                for i, o in enumerate(real):
+                    x["centers"][w, o] = link_c[w, (i * N) // 4, 1 + (2 * i) % (F - 1)]
+        elif flag == 1:
+            worst = (x["u"].abs() / lim).amax(dim=(1, 2))          # [W]
+            x["u"] = torch.where(sel[:, None, None], x["u"] * (1.01 / worst)[:, None, None],
+                                 x["u"]).contiguous()
+        elif flag == 2:
+            x["q_des"][sel, N // 2: N // 2 + 10, 3] += 1.5 * cfg.ub.qe
+        else:
+            x["q"][sel, N // 3, j_lim] = ub[j_lim] + 0.01
+        copies.append((tsim.ORACLE_FLAGS[flag], x))
+    return copies
+def oracle_agreement(robot, cfg, inp):
+    """K6 against oracle_check_plain on inp: (flags identical and overlap
+    counts equal up to the triples whose deciding margin lies within
+    K6_MARGIN, plain flags [W, 4], kernel and plain counts [W], |d| [W],
+    ambiguous triples [W])."""
+    from armour_tpu_torch import simulator as tsim
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.kernels import sim as ksim
+
+    logs = {k: inp[k] for k in ("q", "qd", "u", "q_des", "qd_des")}
+    obs = ObstacleSet(centers=inp["centers"], generators=inp["generators"], mask=inp["mask"])
+    fk, ok_ = ksim.oracle_check(robot, cfg, **inp)
+    fp, op = tsim.oracle_check_plain(robot, cfg, logs, obs)
+    margins = link_obstacle_margins(robot, logs["q"], obs)
+    amb = ((margins.abs() <= K6_MARGIN) & obs.mask[:, None, None, :]).flatten(1).sum(-1)
+    del margins
+    diff = (ok_ - op).abs()
+    return torch.equal(fk, fp) and bool((diff <= amb).all()), fp, ok_, op, diff, amb
+
+
+def check_oracles(robot, cfg, inp, dev):
+    """K6 against oracle_check_plain on the recorded move and on copies of
+    it with planted faults: flags exactly, overlap counts exactly up to the
+    ambiguous triples; each planted fault must raise its plain flag in some
+    world and no other world.  Timed on the recorded move."""
+    from armour_tpu_torch import simulator as tsim
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.kernels import sim as ksim
+    from armour_tpu_torch.utils.timing import median_ms
+
+    logs = {k: inp[k] for k in ("q", "qd", "u", "q_des", "qd_des")}
+    obs = ObstacleSet(centers=inp["centers"], generators=inp["generators"], mask=inp["mask"])
+    all_ok = True
+    err = 0
+    Wn, N, F = logs["q"].shape
+    J = robot.num_joints
+    for label, x in [("as logged", inp)] + planted_oracle_inputs(robot, cfg, inp):
+        ok, fp, ok_, op, diff, amb = oracle_agreement(robot, cfg, x)
+        torch.cuda.synchronize(dev)
+        if label != "as logged":
+            col = tsim.ORACLE_FLAGS.index(label)
+            planted = torch.arange(Wn, device=dev) % 2 == col % 2
+            # the planted flag is raised in some world, and in none of the
+            # worlds left as logged
+            fired = bool(fp[:, col].any()) and not bool(fp[~planted, col].any())
+            ok = ok and fired
+        all_ok &= ok
+        err = max(err, int(diff.max()))
+        raised = {name: int(fp[:, c].sum()) for c, name in enumerate(tsim.ORACLE_FLAGS)}
+        print(f"  oracle_check {label} [{Wn} worlds x {N} steps x {J} links x "
+              f"{obs.mask.shape[1]} obstacles]: {'ok' if ok else 'MISMATCH'} (worlds flagged "
+              f"by the plain version {raised}; overlaps kernel {int(ok_.sum())} plain "
+              f"{int(op.sum())}, max |d| per world {int(diff.max())}, triples within "
+              f"{K6_MARGIN} m of the boundary {int(amb.sum())})")
+
+    def kern():
+        return ksim.oracle_check(robot, cfg, **inp)
+
+    def plain():
+        return tsim.oracle_check_plain(robot, cfg, logs, obs)
+
+    ms = median_ms(kern, dev, TIMING_ITERS)
+    pms = median_ms(plain, dev, TIMING_ITERS)
+    # the function's work on the recorded move: FK once per logged state
+    # (7 joint steps of 111 + one link centre of 18 per link), obstacle axes
+    # once per (world, real obstacle), d per real triple, the axis tests the
+    # data needs (60 each), the per-joint torque / bound / limit tests
+    axes_needed = sat_axes_needed(robot, logs, obs)
+    n_obs = int(obs.mask.sum())
+    n_real = n_obs * N * J
+    flops = (Wn * N * J * (111 + 18) + n_obs * 30 + n_real * 3 + axes_needed * 60
+             + Wn * N * F * 10)
+    fk, ok_ = kern()
+    nbytes = _nbytes(*logs.values(), obs.centers, obs.generators, obs.mask, fk, ok_)
+    print(f"  oracle_check: {axes_needed} axis tests over {n_real} real triples on the "
+          f"logged move; kernel {ms:.4f} ms, plain {pms:.2f} ms (medians of {TIMING_ITERS})")
+    return all_ok, float(err), ms, pms, nbytes, flops
+
+
+def clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def closed_loop_phase(robot, cfg, dev):
+    """Phase 5: three lockstep iterations over the flagship worlds, counted."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.batch_sim import run_trials_batched
+    from armour_tpu_torch.utils.timing import wall_s
+    from armour_tpu_torch.worlds import load_world_csv
+
+    worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:N_WORLDS]]
+    stats: dict = {}
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        t_loop, summaries = wall_s(lambda: run_trials_batched(
+            worlds, robot, cfg, max_iterations=LOOP_ITERATIONS, true_param_scale=1.0, seed=0,
+            rescue_solver=True, guidance="straight", stats=stats), dev)
+    launches = kernels.counts()
+    keep = {k[0]: v for k, v in captured.items() if k[0] in ("rollout", "oracle_check")}
+    captured.clear()
+    n_it = stats["batch_iterations"]
+    print(f"phase 5: W={N_WORLDS} closed loop, {n_it} lockstep iterations in {t_loop:.1f} s "
+          f"(planner warm-up included); launches {launches}")
+    for i, rec in enumerate(stats["iterations"]):
+        rescue = "not fired" if rec["rescue_s"] is None else f"{rec['rescue_s'] * 1e3:.1f} ms"
+        host = rec["iteration_s"] - rec["plan_s"] - (rec["rescue_s"] or 0.0) \
+            - rec["rollout_s"] - rec["oracles_s"]
+        print(f"  iteration {i}: plan {rec['plan_s'] * 1e3:.1f} ms, rescue {rescue}, "
+              f"rollout (reference + K5) {rec['rollout_s'] * 1e3:.1f} ms, oracles (K6 + flags "
+              f"to host) {rec['oracles_s'] * 1e3:.1f} ms, host left over {host * 1e3:.1f} ms")
+    if n_it < 1:
+        fail("the closed loop ran no iteration")
+    for name in PLANNING_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the closed-loop path")
+    for name in ("rollout", "oracle_check"):
+        if launches[name] != n_it:
+            fail(f"kernel {name} launched {launches[name]} times in {n_it} iterations")
+        if name not in keep:
+            fail(f"kernel {name} was not recorded")
+    flagged = [i for i, s in enumerate(summaries)
+               if s.collision or s.torque_exceeded or s.ultimate_bound_exceeded
+               or s.joint_limit_exceeded]
+    if flagged:
+        fail(f"worlds {flagged} raised a safety flag under worst-case true parameters")
+    buckets = {"goal": sum(s.goal_reached for s in summaries),
+               "stuck": sum(s.stuck for s in summaries),
+               "active": sum(not (s.goal_reached or s.stuck) for s in summaries)}
+    print(f"  no world raised a safety flag; after {n_it} iterations {buckets}; "
+          f"infeasible plans {sum(s.infeasible_plans for s in summaries)}, rescued "
+          f"{stats['recovered_rows']}/{stats['rescued_rows']} rows in "
+          f"{stats['rescue_iterations']} rescue iterations")
+    return launches, keep, stats, t_loop, buckets
+
+
+def closed_loop_kernel_rows(robot, cfg, launches, inputs, dev):
+    """Phase 6: the K5 and K6 rows of the kernels line."""
+    print("phase 6: K5 and K6 against their plain versions on the recorded inputs")
+    inp = inputs["rollout"]
+    ok5, err5, ms5, pms5, bytes5 = check_rollout(robot, cfg, inp, dev, "robust", timed=True)
+    for label, x in rollout_variants(inp, dev, K5_VARIANT_STEPS):
+        ok, err, _, _, _ = check_rollout(robot, cfg, x, dev, label, timed=False)
+        ok5 &= ok
+        err5 = max(err5, err)
+    Wn, n, _ = inp["q_des"].shape
+    flops5, serial5 = k5_work(robot, n, Wn, inp["substeps"], inp["noise"] is not None,
+                              clock_mhz())
+    ok6, err6, ms6, pms6, bytes6, flops6 = check_oracles(robot, cfg, inputs["oracle_check"], dev)
+    rows = []
+    for name, err, ms, pms, nbytes, flops in (("rollout", err5, ms5, pms5, bytes5, flops5),
+                                               ("oracle_check", err6, ms6, pms6, bytes6, flops6)):
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
+        src, rep = REPLACES[name]
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None, "variants": 1,
+               "compared_inputs": 4 if name == "rollout" else 5}
+        if name == "rollout":
+            row["serial_chain_ms"] = serial5
+        rows.append(row)
+    print(f"  K5 bound: {flops5 / 1e9:.3f} GFLOP -> {rows[0]['bound_ms']:.4f} ms at 67 TFLOP/s; "
+          f"serial-chain estimate {serial5:.3f} ms (the row's bound_ms is the operations bound)")
+    print(f"  K6 bound: {flops6 / 1e9:.3f} GFLOP -> {rows[1]['bound_ms']:.4f} ms")
+    if not (ok5 and ok6):
+        fail("a closed-loop kernel disagrees with its plain version")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -387,8 +761,8 @@ def main() -> None:
     launches = kernels.counts()
     print(f"phase 2: W={N_WORLDS} planning step {t_main * 1e3:.1f} ms "
           f"(first call {t_first * 1e3:.1f} ms); launches {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in PLANNING_KERNELS:
+        if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
 
     # ---- phase 3: kernels against their plain versions ----
@@ -451,6 +825,21 @@ def main() -> None:
     lats = [wall_s(lambda a=a: step1(*a), dev)[0] for a in one]
     p50, p99 = float(np.percentile(lats, 50)), float(np.percentile(lats, 99))
     sync(dev)
+
+    # ---- phase 5: the closed loop, counted; phase 6: K5 / K6 vs plain ----
+    loop_launches, loop_inputs, loop_stats, t_loop, buckets = closed_loop_phase(robot, cfg, dev)
+    krows += closed_loop_kernel_rows(robot, cfg, loop_launches, loop_inputs, dev)
+    loop_inputs.clear()
+    its = loop_stats["iterations"]
+    loop = {"worlds": N_WORLDS, "iterations": loop_stats["batch_iterations"],
+            "wall_s": t_loop, "buckets": buckets,
+            "rescue_iterations": loop_stats["rescue_iterations"],
+            "plan_ms": [r["plan_s"] * 1e3 for r in its],
+            "rescue_ms": [None if r["rescue_s"] is None else r["rescue_s"] * 1e3 for r in its],
+            "rollout_ms": [r["rollout_s"] * 1e3 for r in its],
+            "oracles_ms": [r["oracles_s"] * 1e3 for r in its],
+            "iteration_ms": [r["iteration_s"] * 1e3 for r in its]}
+    print("closed_loop: " + json.dumps(loop))
 
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,

@@ -1,10 +1,11 @@
-"""Entry points and boundaries of the PyTorch port: the planners run on the
-card unless asked for the CPU, the package and chip_smoke.py import neither
+"""Entry points and boundaries of the PyTorch port: the planners and the
+closed loop run on the card unless asked for the CPU, the package and chip_smoke.py import neither
 JAX nor the JAX package, and the kernel launchers take CUDA tensors only
 (no silent fallback)."""
 
 import ast
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -14,23 +15,37 @@ import pytest
 import torch
 
 from armour_tpu_torch.config import ArmourConfig
-from armour_tpu_torch.kernels import build, collision as kcol, pz as kpz
+from armour_tpu_torch import simulator as tsim
+from armour_tpu_torch.batch_sim import run_trials_batched
+from armour_tpu_torch.kernels import build, collision as kcol, pz as kpz, sim as ksim
 from armour_tpu_torch.models.kinova import kinova_gen3
 from armour_tpu_torch.planner import make_batch_planner, make_planner
+from armour_tpu_torch.worlds import load_world_csv
 from armour_tpu_torch.pz import bpz
 from armour_tpu_torch.pz.basis import make_basis
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "armour_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# _build holds build outputs (git-ignored), not the port's sources
+PORT_FILES = sorted(p for p in (ROOT / "armour_tpu_torch").rglob("*.py")
+                    if "_build" not in p.relative_to(ROOT).parts) + [ROOT / "chip_smoke.py"]
 
 
-@pytest.mark.parametrize("maker", [make_planner, make_batch_planner])
+def _one_world_suite(robot, cfg, **kw):
+    """run_trials_batched on one saved world, no iteration past the warm-up."""
+    w = load_world_csv(str(ROOT / "saved_worlds/random/scene_013_001.csv"))
+    return run_trials_batched([w], robot, cfg, max_iterations=0, **kw)
+
+
+@pytest.mark.parametrize("maker", [make_planner, make_batch_planner, tsim.make_rollout,
+                                   tsim.make_oracles, _one_world_suite])
 def test_planners_default_to_the_card(maker):
     if torch.cuda.is_available():
         maker(kinova_gen3(), ArmourConfig())
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             maker(kinova_gen3(), ArmourConfig())
+    if maker is not _one_world_suite:
+        maker(kinova_gen3(), ArmourConfig(), device="cpu")
 
 
 def _imported_modules(path: Path):
@@ -87,6 +102,14 @@ def test_kernel_launchers_refuse_cpu_tensors():
         kcol.collision_rows(torch.zeros(1, 3, 36, 8), torch.zeros(1, 36, 8),
                             torch.zeros(1, 36, 8), torch.zeros(1, 8, dtype=torch.int32),
                             torch.ones(1, 8, dtype=torch.bool), torch.zeros(1, 2, 3, 14))
+    robot, cfg = kinova_gen3(), ArmourConfig()
+    z, zn = torch.zeros(2, 7), torch.zeros(2, 3, 7)
+    tp = tsim.TrueParams(torch.zeros(2, 7), torch.zeros(2, 7, 3, 3), torch.zeros(2, 7, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        ksim.rollout(robot, cfg, z, z, zn, zn, zn, tp, 1e-3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ksim.oracle_check(robot, cfg, zn, zn, zn, zn, zn, torch.zeros(2, 4, 3),
+                          torch.zeros(2, 4, 3, 3), torch.ones(2, 4, dtype=torch.bool))
 
 
 def test_cpu_wrappers_take_the_plain_versions():
@@ -103,6 +126,27 @@ def test_cpu_wrappers_take_the_plain_versions():
     assert torch.equal(bpz.cross(v, v, basis).rad, bpz.cross_plain(v, v, basis).rad)
 
 
+def test_cpu_closed_loop_wrappers_take_the_plain_versions():
+    robot, cfg = kinova_gen3(), ArmourConfig(dtype=torch.float64)
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.uniform(-1, 1, (2, 7)))
+    qr = [torch.as_tensor(rng.uniform(-1, 1, (2, 3, 7))) for _ in range(3)]
+    tp = tsim.TrueParams(
+        *(torch.as_tensor(np.stack([x, x]))
+          for x in (robot.mass, robot.inertia, robot.com)))
+    got = tsim.rollout_move(robot, cfg, q, q * 0, *qr, tp, 1e-3)
+    want = tsim.rollout_plain(robot, cfg, q, q * 0, *qr, tp, 1e-3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    logs = {"q": qr[0], "qd": qr[1], "u": qr[2], "q_des": qr[0], "qd_des": qr[1]}
+    obs = tsim.ObstacleSet(centers=torch.zeros(2, 1, 3, dtype=torch.float64),
+                           generators=0.1 * torch.eye(3, dtype=torch.float64).expand(2, 1, 3, 3),
+                           mask=torch.ones(2, 1, dtype=torch.bool))
+    for g, w in zip(tsim.oracle_check(robot, cfg, logs, obs),
+                    tsim.oracle_check_plain(robot, cfg, logs, obs)):
+        assert torch.equal(g, w)
+
+
 def test_build_flags_keep_ieee_float32():
     assert "-use_fast_math" not in build.FLAGS and "--use_fast_math" not in build.FLAGS
     assert "-fmad=false" in build.FLAGS
@@ -115,9 +159,35 @@ def test_build_flags_keep_ieee_float32():
 
 def test_kernel_argument_structs_fit_the_parameter_space():
     """The argument structs travel as kernel parameters (4 KB limit)."""
-    for s in (kpz.K1Args, kpz.K2Args, kcol.K3Args, kcol.K4Args):
+    for s in (kpz.K1Args, kpz.K2Args, kcol.K3Args, kcol.K4Args, ksim.K5Args, ksim.K6Args):
         assert ctypes.sizeof(s) <= 4096
     assert ctypes.sizeof(kpz.PZView) == 3 * 8 + 9 * 8 + 6 * 8
+
+
+def _c_struct_fields(source: str, name: str):
+    """Field names, in order, of `struct name { ... };` in a CUDA source."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, source, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        first, *rest = [p.strip() for p in decl.split(",")]
+        names.append(re.sub(r"\[.*\]", "", first).split()[-1].lstrip("*"))
+        names += [re.sub(r"\[.*\]", "", r).lstrip("*") for r in rest]
+    return names
+
+
+@pytest.mark.parametrize("src, structs", [
+    ("rollout.cu", (ksim.K5Robot, ksim.K5Args)),
+    ("oracle_check.cu", (ksim.K6Robot, ksim.K6Args))])
+def test_closed_loop_structs_match_the_sources(src, structs):
+    """The ctypes mirrors list the C structs' fields in the same order (no
+    compiler here checks the layout)."""
+    text = (build.CSRC / src).read_text()
+    for s in structs:
+        assert _c_struct_fields(text, s.__name__) == [f[0] for f in s._fields_], s.__name__
 
 
 def test_every_kernel_has_a_source():
