@@ -1,0 +1,387 @@
+// Row evaluation of the ALM solver's constraint stack, shared by K7
+// (alm_newton.cu) and K8 (alm_values.cu), so that the two cannot drift apart.
+//
+// The stack is the one of nlp.py:constraint_stack, in its row order:
+//
+//   [torque_hi (TF); torque_lo (TF); collision (K); state (8F)]
+//
+//   torque    u = u_coef[row] . phi(k),  c = +-u - hi,  dc/dk = +-u_coef[row] . dphi(k)
+//   collision K4's rule (collision_rows.cu) at the link centre p = center[cell] . phi(k)
+//             of the row's (time, link) cell, plus collision_search_margin
+//   state     the Bezier position / velocity extrema over the whole
+//             trajectory (bezier.py:q_extrema_in_k, qd_extrema_in_k) against
+//             the margin-tightened limits, each row's gradient one entry
+//
+// Every row is clipped at -1e6 (padded rows sit at -BIG) before it meets
+// the multipliers.  The float32 arithmetic repeats the plain PyTorch
+// version's operation by operation where a verdict rests on it (the
+// extrema's root tests, K4's argmax); the 120-term dot products are summed
+// in another order than torch.matmul's, so values agree to rounding.
+//
+// Built without fast math and with -fmad=false: IEEE division and sqrtf,
+// no contraction into fused multiply-adds.
+#pragma once
+#include <cuda_runtime.h>
+
+#define ALM_THREADS 256
+#define ALM_WARPS (ALM_THREADS / 32)
+#define ALM_MAX_B 128
+#define ALM_MAX_F 8
+#define ALM_MAX_DEG 3
+#define ALM_BIG 1e8f
+#define ALM_CLIP (-1e6f)
+#define ALM_FULL 0xffffffffu
+
+struct AlmArgs {
+  const float* u_coef;              // [W, TF, B] nominal torque polynomials
+  const float* u_hi;                // [W, TF] torque limit minus the robust radius
+  const float* center;              // [W, TJ * 3, B] link-centre polynomials
+  const float* A;                   // [W, 3, C, K] screened rows' unit normals
+  const float* d;                   // [W, C, K]
+  const float* delta;               // [W, C, K]
+  const int* row;                   // [W, K] (time, link) cell of each screened row
+  const unsigned char* mask;        // [W, K] real obstacle
+  const float* traj;                // [W, 5, F]: q0, Tqd0, TTqdd0, k_scale, q_des
+  const float* limits;              // [3, F]: pos_lb, pos_ub, vel_ub, margin-tightened
+  const unsigned char* continuous;  // [F]
+  const float* k;                   // [W, Q, F] query points
+  const float* lam;                 // [W, S, M] multipliers
+  const float* rho;                 // [W, S] penalty weights
+  const int* seed;                  // [Q] seed of each query (K8)
+  float* value;                     // [W, Q]: K7 m0, K8 merit
+  unsigned char* feas;              // [W, Q]: every row within its threshold
+  float* step;                      // K7 [W, Q, F]
+  float* g;                         // K7 [W, Q, F] or null
+  float* H;                         // K7 [W, Q, F, F] or null
+  float* c;                         // K8 [W, Q, M] or null
+  int W, Q, S, M, TF, TJ, C, K, B, F;
+  float cost_scale;                 // cfg.cost_scale
+  float kw;                         // d q_plan / d k_actual at t_plan
+  float qb0, qb1, qb2, qb3;         // q_des's Bernstein weights at t_plan (b3+b4+b5 last)
+  float two_pi, pi;                 // the wrap's constants, as float32
+  float inv_dur;                    // 1 / duration
+  float thr_torque, thr_col, thr_state, col_margin;
+  unsigned char degs[ALM_MAX_B * ALM_MAX_F];   // [B, F] monomial degrees
+};
+
+// ---------------------------------------------------------------------------
+// the monomial basis: phi(k) [B] and dphi/dk [F][B] (pz/basis.py:phi, dphi)
+// ---------------------------------------------------------------------------
+
+// basis[0 * ALM_MAX_B + b] = phi_b; with grad, basis[(1 + f) * ALM_MAX_B + b]
+// = d phi_b / d k_f.  k [NF] in shared memory.
+template <int NF>
+__device__ void alm_basis(const AlmArgs& a, const float* k, float* basis, bool grad) {
+  for (int b = threadIdx.x; b < a.B; b += blockDim.x) {
+    float pw[NF][ALM_MAX_DEG + 1];
+#pragma unroll
+    for (int i = 0; i < NF; ++i) {
+      pw[i][0] = 1.0f;
+#pragma unroll
+      for (int e = 1; e <= ALM_MAX_DEG; ++e) pw[i][e] = pw[i][e - 1] * k[i];
+    }
+    const unsigned char* dg = a.degs + b * ALM_MAX_F;
+    float take[NF];
+#pragma unroll
+    for (int i = 0; i < NF; ++i) take[i] = pw[i][dg[i]];
+    float phi = take[0];
+#pragma unroll
+    for (int i = 1; i < NF; ++i) phi = phi * take[i];
+    basis[b] = phi;
+    if (grad) {
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const int dj = dg[j];
+        const float dcol = (float)dj * pw[j][dj > 0 ? dj - 1 : 0];
+        float others = 1.0f;
+        bool first = true;
+#pragma unroll
+        for (int i = 0; i < NF; ++i) {
+          if (i == j) continue;
+          others = first ? take[i] : others * take[i];
+          first = false;
+        }
+        basis[(1 + j) * ALM_MAX_B + b] = dcol * others;
+      }
+    }
+  }
+}
+
+// NV dot products of one coefficient row (B floats, global) with the
+// vectors vec[v * ALM_MAX_B + b] in shared memory, lanes over b, summed by a
+// butterfly: every lane returns the same sums.
+template <int NV>
+__device__ __forceinline__ void alm_warp_dots(const float* __restrict__ row, const float* vec,
+                                              int B, float* out) {
+  const int lane = threadIdx.x & 31;
+  float s[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) s[v] = 0.0f;
+  for (int b = lane; b < B; b += 32) {
+    const float x = __ldg(row + b);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) s[v] += x * vec[v * ALM_MAX_B + b];
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s[v] += __shfl_xor_sync(ALM_FULL, s[v], off);
+    out[v] = s[v];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// collision rows: K4's rule (collision_rows.cu)
+// ---------------------------------------------------------------------------
+
+// Screened row r of world w at the G link centres p[(g * 3 + a) * TJ + cell]:
+// m[g] = max over the 2C candidates (first maximal, pos before neg), and,
+// when comb is given, the chosen normal and sign.  Returns the row's cell.
+template <int G>
+__device__ __forceinline__ int alm_collision(const AlmArgs& a, int w, int r, const float* p,
+                                             float* m, int* comb, float* sign) {
+  const long long K = a.K;
+  const int C = a.C;
+  const int TJ = a.TJ;
+  const int cell = a.row[(long long)w * K + r];
+  float p0[G], p1[G], p2[G], best_p[G], best_n[G];
+  int ip[G], in[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    p0[g] = p[(g * 3 + 0) * TJ + cell];
+    p1[g] = p[(g * 3 + 1) * TJ + cell];
+    p2[g] = p[(g * 3 + 2) * TJ + cell];
+    best_p[g] = 0.0f;
+    best_n[g] = 0.0f;
+    ip[g] = 0;
+    in[g] = 0;
+  }
+  const float* Aw = a.A + (long long)w * 3 * C * K;
+  const float* dw = a.d + (long long)w * C * K;
+  const float* delw = a.delta + (long long)w * C * K;
+  for (int cc = 0; cc < C; ++cc) {
+    const float A0 = Aw[(0 * C + cc) * K + r];
+    const float A1 = Aw[(1 * C + cc) * K + r];
+    const float A2 = Aw[(2 * C + cc) * K + r];
+    const bool ok = fabsf(A0) + fabsf(A1) + fabsf(A2) > 0.0f;
+    const float dd = dw[cc * K + r], de = delw[cc * K + r];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float Ap = A0 * p0[g] + A1 * p1[g] + A2 * p2[g];
+      const float pos = ok ? Ap - (dd + de) : -ALM_BIG;
+      const float neg = ok ? -Ap - (-dd + de) : -ALM_BIG;
+      if (cc == 0 || pos > best_p[g]) { best_p[g] = pos; ip[g] = cc; }
+      if (cc == 0 || neg > best_n[g]) { best_n[g] = neg; in[g] = cc; }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const bool use_neg = best_n[g] > best_p[g];
+    m[g] = use_neg ? best_n[g] : best_p[g];
+    if (comb != nullptr) {
+      comb[g] = use_neg ? in[g] : ip[g];
+      sign[g] = use_neg ? 1.0f : -1.0f;
+    }
+  }
+  return cell;
+}
+
+// ---------------------------------------------------------------------------
+// state rows: trajectory extrema (nlp.py:joint_position_extrema,
+// joint_velocity_extrema; bezier.py), the plain version's operations
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float alm_pow(float x, int e) {
+  // torch.pow: x*x for 2, x*x*x for 3, pow otherwise
+  if (e == 2) return x * x;
+  if (e == 3) return x * x * x;
+  return powf(x, (float)e);
+}
+
+__device__ __forceinline__ float alm_q_des(float q0, float T, float TT, float ka, float s) {
+  const float sm1 = s - 1.0f;
+  const float b0 = -alm_pow(sm1, 5);
+  const float b1 = (5.0f * s) * alm_pow(sm1, 4);
+  const float b2 = (-10.0f * alm_pow(s, 2)) * alm_pow(sm1, 3);
+  const float b3 = (10.0f * alm_pow(s, 3)) * alm_pow(sm1, 2);
+  const float b4 = (-5.0f * alm_pow(s, 4)) * sm1;
+  const float b5 = alm_pow(s, 5);
+  const float beta1 = q0 + T * (1.0f / 5.0f);
+  const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
+  const float beta3 = q0 + ka;
+  return ((b0 * q0 + b1 * beta1) + b2 * beta2) + ((b3 + b4) + b5) * beta3;
+}
+
+__device__ __forceinline__ float alm_qd_des(float q0, float T, float TT, float ka, float s) {
+  const float sm1 = s - 1.0f;
+  const float db0 = -5.0f * alm_pow(sm1, 4);
+  const float db1 = (20.0f * s) * alm_pow(sm1, 3) + 5.0f * alm_pow(sm1, 4);
+  const float db2 = (-20.0f * s) * alm_pow(sm1, 3) - (30.0f * alm_pow(s, 2)) * alm_pow(sm1, 2);
+  const float db3 = (10.0f * alm_pow(s, 3)) * (2.0f * s - 2.0f)
+                    + (30.0f * alm_pow(s, 2)) * alm_pow(sm1, 2);
+  const float db4 = (-20.0f * alm_pow(s, 3)) * sm1 - 5.0f * alm_pow(s, 4);
+  const float db5 = 5.0f * alm_pow(s, 4);
+  const float beta1 = q0 + T * (1.0f / 5.0f);
+  const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
+  const float beta3 = q0 + ka;
+  return ((db0 * q0 + db1 * beta1) + db2 * beta2) + ((db3 + db4) + db5) * beta3;
+}
+
+__device__ __forceinline__ bool alm_root_ok(bool valid, float e, float v) {
+  return valid && (0.0f <= e) && (e <= 1.0f) && isfinite(e) && isfinite(v);
+}
+
+// min / max over the candidates [v0, v1, v2, v3] inside (first index on
+// ties, as torch.argmin / argmax) and the gradients there
+__device__ __forceinline__ void alm_select(const float* v, const float* gr, const bool* in,
+                                           float* lo, float* hi, float* glo, float* ghi) {
+  int ilo = 0, ihi = 0;
+  float vlo = in[0] ? v[0] : ALM_BIG, vhi = in[0] ? v[0] : -ALM_BIG;
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    const float xl = in[i] ? v[i] : ALM_BIG;
+    const float xh = in[i] ? v[i] : -ALM_BIG;
+    if (xl < vlo) { vlo = xl; ilo = i; }
+    if (xh > vhi) { vhi = xh; ihi = i; }
+  }
+  *lo = vlo;
+  *hi = vhi;
+  *glo = gr[ilo];
+  *ghi = gr[ihi];
+}
+
+// The 8 state rows of factor f at k_f: c[8] in the stack's order
+// (pos_min lo/hi, pos_max lo/hi, vel_min lo/hi, vel_max lo/hi) and the one
+// non-zero gradient entry of each, jf[8].
+__device__ void alm_state_rows(const AlmArgs& a, int w, int f, float kf, float* c, float* jf) {
+  const int F = a.F;
+  const float* tr = a.traj + (long long)w * 5 * F;
+  const float q0 = tr[f], T = tr[F + f], TT = tr[2 * F + f], kr = tr[3 * F + f];
+  const float ka = kf * kr;
+  float v[4], gr[4], lo, hi, glo, ghi;
+  bool in[4] = {true, true, false, false};
+
+  // position: q_extrema_in_k
+  {
+    const float den = 5.0f * ((6.0f * T - 12.0f * ka) + TT);
+    const float disc_sq = ((64.0f * (T * T) + (14.0f * T) * TT) - (120.0f * ka) * T) + TT * TT;
+    const float disc = sqrtf(disc_sq < 0.0f ? 0.0f : disc_sq);
+    const bool valid = disc_sq >= 0.0f;
+    const float num = 2.0f * T + TT;
+    const float e2 = (num + disc) / den, e3 = (num - disc) / den;
+    v[0] = alm_q_des(q0, T, TT, ka, 0.0f);
+    v[1] = alm_q_des(q0, T, TT, ka, 1.0f);
+    v[2] = alm_q_des(q0, T, TT, ka, e2);
+    v[3] = alm_q_des(q0, T, TT, ka, e3);
+    gr[0] = 0.0f;
+    gr[1] = 1.0f;
+    gr[2] = alm_pow(e2, 3) * ((6.0f * alm_pow(e2, 2) - 15.0f * e2) + 10.0f);
+    gr[3] = alm_pow(e3, 3) * ((6.0f * alm_pow(e3, 2) - 15.0f * e3) + 10.0f);
+    in[2] = alm_root_ok(valid, e2, v[2]);
+    in[3] = alm_root_ok(valid, e3, v[3]);
+    alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
+    const float lb = a.limits[f], ub = a.limits[F + f];
+    const float gl = glo * kr, gh = ghi * kr;
+    c[0] = lb - lo;  jf[0] = -gl;
+    c[1] = lo - ub;  jf[1] = gl;
+    c[2] = lb - hi;  jf[2] = -gh;
+    c[3] = hi - ub;  jf[3] = gh;
+  }
+  // velocity: qd_extrema_in_k
+  {
+    const float den = 10.0f * ((6.0f * T - 12.0f * ka) + TT);
+    const float disc_sq = 6.0f * (((((150.0f * (ka * ka) - (180.0f * ka) * T) - (20.0f * ka) * TT)
+                                    + 54.0f * (T * T)) + (14.0f * T) * TT) + TT * TT);
+    const float disc = sqrtf(disc_sq < 0.0f ? 0.0f : disc_sq);
+    const bool valid = disc_sq >= 0.0f;
+    const float num = ((18.0f * T - 30.0f * ka) + 4.0f * TT);
+    const float e2 = (num + disc) / den, e3 = (num - disc) / den;
+    v[0] = alm_qd_des(q0, T, TT, ka, 0.0f);
+    v[1] = alm_qd_des(q0, T, TT, ka, 1.0f);
+    v[2] = alm_qd_des(q0, T, TT, ka, e2);
+    v[3] = alm_qd_des(q0, T, TT, ka, e3);
+    gr[0] = 0.0f;
+    gr[1] = 0.0f;
+    gr[2] = (30.0f * alm_pow(e2, 2)) * alm_pow(e2 - 1.0f, 2);
+    gr[3] = (30.0f * alm_pow(e3, 2)) * alm_pow(e3 - 1.0f, 2);
+    in[2] = alm_root_ok(valid, e2, v[2]);
+    in[3] = alm_root_ok(valid, e3, v[3]);
+    alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
+    const float vub = a.limits[2 * F + f];
+    const float lo_v = lo * a.inv_dur, hi_v = hi * a.inv_dur;
+    const float gl = (glo * kr) * a.inv_dur, gh = (ghi * kr) * a.inv_dur;
+    c[4] = -vub - lo_v;  jf[4] = -gl;
+    c[5] = lo_v - vub;   jf[5] = gl;
+    c[6] = -vub - hi_v;  jf[6] = -gh;
+    c[7] = hi_v - vub;   jf[7] = gh;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// cost (nlp.py:plan_cost, plan_cost_grad)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float alm_wrap(const AlmArgs& a, float x) {
+  // torch.remainder(x + pi, 2 pi) - pi
+  const float y = x + a.pi;
+  float mod = fmodf(y, a.two_pi);
+  if (mod != 0.0f && ((a.two_pi < 0.0f) != (mod < 0.0f))) mod += a.two_pi;
+  return mod - a.pi;
+}
+
+// cost at k [F] and, when grad is given, d cost / d k [F]
+__device__ float alm_cost(const AlmArgs& a, int w, const float* k, float* grad) {
+  const int F = a.F;
+  const float* tr = a.traj + (long long)w * 5 * F;
+  float sum = 0.0f;
+  for (int f = 0; f < F; ++f) {
+    const float q0 = tr[f], T = tr[F + f], TT = tr[2 * F + f], kr = tr[3 * F + f];
+    const float qd = tr[4 * F + f];
+    const float beta1 = q0 + T * (1.0f / 5.0f);
+    const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
+    const float beta3 = q0 + k[f] * kr;
+    const float qp = ((a.qb0 * q0 + a.qb1 * beta1) + a.qb2 * beta2) + a.qb3 * beta3;
+    float diff = qp - qd;
+    if (a.continuous[f]) diff = alm_wrap(a, diff);
+    sum = sum + diff * diff;
+    if (grad != nullptr) grad[f] = (a.cost_scale * (2.0f * diff)) * (a.kw * kr);
+  }
+  return a.cost_scale * sum;
+}
+
+// ---------------------------------------------------------------------------
+// block reduction in a fixed order (no atomics: repeated calls give the same bits)
+// ---------------------------------------------------------------------------
+
+// Sums acc[0..n) over the block; thread 0 returns the totals in acc.
+// red: ALM_WARPS * n floats of shared memory.
+template <int N>
+__device__ void alm_block_sum(float* acc, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float v = acc[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(ALM_FULL, v, off);
+    if (lane == 0) red[warp * N + i] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float s = red[i];
+      for (int wp = 1; wp < ALM_WARPS; ++wp) s += red[wp * N + i];
+      acc[i] = s;
+    }
+  }
+}
+
+__device__ __forceinline__ float alm_clip(float c) {
+  // torch.clamp(c, min=-1e6): NaN stays NaN
+  return c < ALM_CLIP ? ALM_CLIP : c;
+}
+
+__device__ __forceinline__ int alm_lin(int i, int j) {
+  // lower-triangle index of (i >= j)
+  return i * (i + 1) / 2 + j;
+}

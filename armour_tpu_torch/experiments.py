@@ -2,13 +2,19 @@
 file (counterpart of armour_tpu/experiments.py:48-66,135-240,312-385).
 
     python3 -m armour_tpu_torch.experiments [world_dir] [n_worlds] [results.json]
-        [--seed S] [--device cpu|cuda]
+        [mode] [--seed S] [--device cpu|cuda]
 
 runs every world of world_dir (the first n_worlds when n_worlds > 0; the
 positional arguments of scripts/run_worlds.py) in lockstep on the card:
 float32, straight-line guidance with the rescue solver, worst-case true
 parameters, at most 500 lockstep iterations, seed 0 unless --seed names
 another.  It writes the results file and prints the buckets.
+
+mode "budget" (as in scripts/run_worlds.py) first calibrates the solver's
+outer iterations to the measured reach-set time at batch 1
+(planner.make_realtime_planner) and runs the suite at that profile,
+recording the calibration in the results' batch_stats.  The serial mode of
+scripts/run_worlds.py is not ported.
 """
 
 from __future__ import annotations
@@ -54,16 +60,19 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
                             results_path: Optional[str] = None,
                             rescue_solver: bool = True,
                             guidance: str = "straight",
+                            extra_stats: Optional[dict] = None,
                             device=None) -> List[SuiteResult]:
     """All worlds advanced in lockstep on one card
     (batch_sim.run_trials_batched); rescue_solver/guidance pass through and
-    are recorded in the saved batch_stats."""
+    are recorded in the saved batch_stats, into which extra_stats (e.g. the
+    real-time budget calibration) is merged."""
     from .batch_sim import run_trials_batched
 
     names = [os.path.basename(p) for p in world_paths]
     worlds = [load_world_csv(p) for p in world_paths]
     t0 = time.perf_counter()
-    batch_stats: dict = {"rescue_solver": rescue_solver, "guidance": guidance}
+    batch_stats: dict = dict(extra_stats or {})
+    batch_stats.update(rescue_solver=rescue_solver, guidance=guidance)
     summaries = run_trials_batched(
         worlds, robot, cfg, max_iterations=max_iterations,
         true_param_scale=true_param_scale, seed=seed, verbose=verbose,
@@ -160,17 +169,31 @@ def main(argv=None) -> None:
     ap.add_argument("world_dir", nargs="?", default="saved_worlds/random")
     ap.add_argument("n_worlds", nargs="?", type=int, default=0)
     ap.add_argument("results", nargs="?", default="results_worlds_torch.json")
+    ap.add_argument("mode", nargs="?", default="batched", choices=("batched", "budget", "serial"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
+    if args.mode == "serial":
+        raise SystemExit("mode 'serial' (the per-world loop of scripts/run_worlds.py) is not "
+                         "ported; the batched suite gives the same outcomes")
     paths = sorted(glob.glob(os.path.join(args.world_dir, "*.csv")))
     if args.n_worlds:
         paths = paths[: args.n_worlds]
     if not paths:
         raise SystemExit(f"no *.csv worlds in {args.world_dir}")
-    results = run_world_suite_batched(paths, kinova_gen3(), ArmourConfig(dtype=torch.float32),
-                                      max_iterations=500, seed=args.seed,
-                                      results_path=args.results, device=args.device)
+    robot, cfg = kinova_gen3(), ArmourConfig(dtype=torch.float32)
+    extra = None
+    if args.mode == "budget":
+        from .planner import make_realtime_planner
+
+        _, calib = make_realtime_planner(robot, cfg, verbose=True, device=args.device)
+        cfg = dataclasses.replace(
+            cfg, solver_outer_iters=calib["outer_iters"],
+            solver_cull_after=min(cfg.solver_cull_after, max(calib["outer_iters"] - 1, 0)))
+        extra = {"budget_calibration": calib, "budget_mode": True}
+    results = run_world_suite_batched(paths, robot, cfg, max_iterations=500, seed=args.seed,
+                                      results_path=args.results, extra_stats=extra,
+                                      device=args.device)
     print(json.dumps(summarize(results), indent=1))
 
 

@@ -29,6 +29,8 @@ SOURCES = {
     "collision_rows": "collision_rows.cu",
     "rollout": "rollout.cu",
     "oracle_check": "oracle_check.cu",
+    "alm_newton": "alm_newton.cu",
+    "alm_values": "alm_values.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,246 @@
+"""Launchers of the ALM solver's row kernels K7 (alm_newton) and K8
+(alm_values).  Called by nlp.py for CUDA tensors only; each checks device,
+dtype, shapes and contiguity, raises on anything its kernel does not take,
+allocates the outputs with torch.empty and launches on the current stream,
+without a host synchronisation.
+
+alm_rows() gathers a plan's per-world inputs once per solve (float32 and
+contiguous on the card, the torque limits and state limits tightened as the
+plain version tightens them); every launch of the solve reuses them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from . import LAUNCHES, record
+from .build import launcher
+from .collision import _require, _stream
+from ..pz.basis import KBasis
+
+MAX_B, MAX_F, MAX_DEG = 128, 8, 3
+FACTORS = (7,)            # the kernels are instantiated for these F (the Kinova Gen3's 7)
+THREADS = 256
+SMEM_LIMIT = 232448       # bytes of shared memory a block can use on Hopper
+
+
+class AlmArgs(ctypes.Structure):
+    _fields_ = [("u_coef", ctypes.c_void_p), ("u_hi", ctypes.c_void_p),
+                ("center", ctypes.c_void_p), ("A", ctypes.c_void_p), ("d", ctypes.c_void_p),
+                ("delta", ctypes.c_void_p), ("row", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("traj", ctypes.c_void_p), ("limits", ctypes.c_void_p),
+                ("continuous", ctypes.c_void_p), ("k", ctypes.c_void_p), ("lam", ctypes.c_void_p),
+                ("rho", ctypes.c_void_p), ("seed", ctypes.c_void_p), ("value", ctypes.c_void_p),
+                ("feas", ctypes.c_void_p), ("step", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("H", ctypes.c_void_p), ("c", ctypes.c_void_p),
+                ("W", ctypes.c_int), ("Q", ctypes.c_int), ("S", ctypes.c_int),
+                ("M", ctypes.c_int), ("TF", ctypes.c_int), ("TJ", ctypes.c_int),
+                ("C", ctypes.c_int), ("K", ctypes.c_int), ("B", ctypes.c_int),
+                ("F", ctypes.c_int),
+                ("cost_scale", ctypes.c_float), ("kw", ctypes.c_float),
+                ("qb0", ctypes.c_float), ("qb1", ctypes.c_float), ("qb2", ctypes.c_float),
+                ("qb3", ctypes.c_float), ("two_pi", ctypes.c_float), ("pi", ctypes.c_float),
+                ("inv_dur", ctypes.c_float), ("thr_torque", ctypes.c_float),
+                ("thr_col", ctypes.c_float), ("thr_state", ctypes.c_float),
+                ("col_margin", ctypes.c_float),
+                ("degs", ctypes.c_ubyte * (MAX_B * MAX_F))]
+
+
+def _degs_template(basis: KBasis) -> AlmArgs:
+    """The basis' degree table in the kernels' parameters, built once per
+    basis and kept in basis.kernel_args."""
+    tab = basis.kernel_args
+    if "alm" not in tab:
+        B, nf = basis.degs.shape
+        if B > MAX_B or nf > MAX_F or int(basis.degs.max()) > MAX_DEG:
+            raise ValueError(f"basis (B={B}, nf={nf}, degree {int(basis.degs.max())}) "
+                             "exceeds the ALM kernels' tables")
+        args = AlmArgs()
+        deg = np.zeros((MAX_B, MAX_F), dtype=np.uint8)
+        deg[:B, :nf] = basis.degree_table()
+        ctypes.memmove(args.degs, deg.tobytes(), deg.nbytes)
+        tab["alm"] = args
+    return tab["alm"]
+
+
+@dataclasses.dataclass
+class AlmRows:
+    """One plan's inputs to K7 / K8.  prob, cfg and basis are kept for the
+    plain versions (nlp.alm_newton_plain / alm_values_plain)."""
+
+    prob: object
+    cfg: object
+    basis: KBasis
+    tensors: dict            # name -> CUDA tensor held for the kernels' pointers
+    args: AlmArgs            # the per-plan part of the launch arguments
+    M: int
+
+
+def _bezier_weights(s: float):
+    """q_des's weights of beta0, beta1, beta2 and beta3 at a scalar s
+    (bezier.q_des), and d q_des / d k_actual (= the last)."""
+    b0 = -((s - 1.0) ** 5)
+    b1 = 5.0 * s * (s - 1.0) ** 4
+    b2 = -10.0 * s**2 * (s - 1.0) ** 3
+    b3 = 10.0 * s**3 * (s - 1.0) ** 2
+    b4 = -5.0 * s**4 * (s - 1.0)
+    b5 = s**5
+    return b0, b1, b2, b3 + b4 + b5
+
+
+def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
+    """Gather and check a plan's inputs to K7 / K8 (three small launches per
+    solve: the torque limits, the trajectory scalars, the state limits)."""
+    if cfg.smooth_obstacle_constraints:
+        raise NotImplementedError("smooth obstacle constraints are not ported yet")
+    Wn, F = prob.q_des.shape
+    if F not in FACTORS or F != basis.nf:
+        raise ValueError(f"the ALM kernels take F in {FACTORS} matching the basis, got {F}")
+    frs, sc = prob.frs, prob.screened
+    _, T, J = frs.center_coef.shape[:3]
+    B = basis.size
+    TJ = T * J
+    C, K = sc.A.shape[2], sc.A.shape[3]
+    if cfg.turn_off_input_constraints:
+        TF = 0
+        u_coef = torch.zeros(1, device=prob.q_des.device, dtype=torch.float32)
+        u_hi = u_coef
+    else:
+        Tt = prob.torque.u_coef.shape[1]
+        TF = Tt * F
+        u_coef = prob.torque.u_coef.reshape(Wn, TF, B).contiguous()
+        u_hi = (prob.limits.torque - prob.torque.torque_radius).reshape(Wn, TF).contiguous()
+        _require(u_coef, "u_coef", (Wn, TF, B))
+    center = frs.center_coef.reshape(Wn, TJ * 3, B).contiguous()
+    _require(center, "center_coef", (Wn, TJ * 3, B))
+    _require(sc.A, "screened A", (Wn, 3, C, K))
+    _require(sc.d, "screened d", (Wn, C, K))
+    _require(sc.delta, "screened delta", (Wn, C, K))
+    _require(sc.row, "screened row", (Wn, K), torch.int32)
+    _require(sc.mask, "screened mask", (Wn, K), torch.bool)
+    tr = prob.traj
+    traj = torch.stack([tr.q0, tr.Tqd0, tr.TTqdd0, tr.k_scale, prob.q_des], dim=1).contiguous()
+    _require(traj, "trajectory scalars", (Wn, 5, F))
+    lim, ub, m = prob.limits, cfg.ub, cfg.state_limit_margin
+    limits = torch.stack([lim.pos_lb + ub.qe + m, lim.pos_ub - ub.qe - m,
+                          lim.speed - ub.qde - m]).contiguous()
+    _require(limits, "state limits", (3, F))
+    continuous = lim.continuous.contiguous()
+    _require(continuous, "continuous", (F,), torch.bool)
+    smem = 4 * (8 + (1 + F) * MAX_B + 3 * TJ * (1 + F) + (THREADS // 32) * (F + F * (F + 1) // 2 + 2))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"T*J = {TJ} link cells need {smem} bytes of shared memory in K7")
+
+    args = AlmArgs()
+    ctypes.memmove(ctypes.addressof(args), ctypes.addressof(_degs_template(basis)),
+                   ctypes.sizeof(AlmArgs))
+    tensors = {"u_coef": u_coef, "u_hi": u_hi, "center": center, "traj": traj,
+               "limits": limits, "continuous": continuous}
+    for name, t in (("u_coef", u_coef), ("u_hi", u_hi), ("center", center), ("A", sc.A),
+                    ("d", sc.d), ("delta", sc.delta), ("row", sc.row), ("mask", sc.mask),
+                    ("traj", traj), ("limits", limits), ("continuous", continuous)):
+        setattr(args, name, t.data_ptr())
+    M = 2 * TF + K + 8 * F
+    args.W, args.M, args.TF, args.TJ, args.C, args.K, args.B, args.F = Wn, M, TF, TJ, C, K, B, F
+    s_plan = cfg.t_plan / cfg.duration
+    b0, b1, b2, b3 = _bezier_weights(s_plan)
+    args.cost_scale, args.kw = cfg.cost_scale, b3
+    args.qb0, args.qb1, args.qb2, args.qb3 = b0, b1, b2, b3
+    args.two_pi, args.pi = 2.0 * math.pi, math.pi
+    args.inv_dur = float(np.float32(1.0) / np.float32(cfg.duration))
+    args.thr_torque = cfg.torque_violation_threshold
+    args.thr_col = cfg.collision_violation_threshold
+    args.thr_state = 0.5 * cfg.state_limit_margin
+    args.col_margin = cfg.collision_search_margin
+    return AlmRows(prob=prob, cfg=cfg, basis=basis, tensors=tensors, args=args, M=M)
+
+
+def _state(rows: AlmRows, k, lam, rho, Q: int):
+    a = rows.args
+    Wn, F, M = a.W, a.F, a.M
+    S = rho.shape[1] if rho.dim() == 2 else -1
+    _require(k, "k", (Wn, Q, F))
+    _require(lam, "lam", (Wn, S, M))
+    _require(rho, "rho", (Wn, S))
+    return S
+
+
+def _launch_args(rows: AlmRows, k, lam, rho, Q: int, S: int) -> AlmArgs:
+    args = AlmArgs()
+    ctypes.memmove(ctypes.addressof(args), ctypes.addressof(rows.args), ctypes.sizeof(AlmArgs))
+    args.k, args.lam, args.rho = k.data_ptr(), lam.data_ptr(), rho.data_ptr()
+    args.Q, args.S = Q, S
+    return args
+
+
+def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
+    """K7: (step [W,S,F], m0 [W,S], feas [W,S]) at the seeds k [W,S,F] with
+    multipliers lam [W,S,M] and penalties rho [W,S]; with want_system also
+    g [W,S,F] and H [W,S,F,F]."""
+    S = k.shape[1] if k.dim() == 3 else -1
+    if _state(rows, k, lam, rho, S) != S:
+        raise ValueError("alm_newton takes one query per seed")
+    Wn, F = rows.args.W, rows.args.F
+    dev = k.device
+    step = torch.empty(Wn, S, F, device=dev, dtype=torch.float32)
+    m0 = torch.empty(Wn, S, device=dev, dtype=torch.float32)
+    feas = torch.empty(Wn, S, device=dev, dtype=torch.bool)
+    g = torch.empty(Wn, S, F, device=dev, dtype=torch.float32) if want_system else None
+    H = torch.empty(Wn, S, F, F, device=dev, dtype=torch.float32) if want_system else None
+    record("alm_newton", (Wn, S, rows.M, want_system), (rows, k, lam, rho))
+    if Wn * S:
+        args = _launch_args(rows, k, lam, rho, S, S)
+        args.value, args.feas, args.step = m0.data_ptr(), feas.data_ptr(), step.data_ptr()
+        if want_system:
+            args.g, args.H = g.data_ptr(), H.data_ptr()
+        fn = launcher("alm_newton", "k7_launch", [ctypes.POINTER(AlmArgs), ctypes.c_void_p])
+        err = fn(ctypes.byref(args), _stream(k))
+        if err:
+            raise RuntimeError(f"alm_newton launch failed: cudaError {err}")
+        LAUNCHES["alm_newton"] += 1
+    if want_system:
+        return step, m0, feas, g, H
+    return step, m0, feas
+
+
+def queries_per_block(Wn: int, Q: int, device) -> int:
+    """Queries a K8 block serves (1, 2 or 4): as many as keep two blocks
+    per SM busy, so that each coefficient row read serves several queries."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    G = 4
+    while G > 1 and Wn * -(-Q // G) < 2 * sms:
+        G //= 2
+    return min(G, 1 << (max(Q, 1) - 1).bit_length())
+
+
+def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
+    """K8: (merit [W,Q], feas [W,Q], c [W,Q,M] or None) at the query points
+    kq [W,Q,F], query q taking the multipliers lam [W,S,M] and penalty rho
+    [W,S] of seed seed_of_q[q] (int32 [Q] on the card)."""
+    Q = kq.shape[1] if kq.dim() == 3 else -1
+    S = _state(rows, kq, lam, rho, Q)
+    _require(seed_of_q, "seed_of_q", (Q,), torch.int32)
+    Wn, M = rows.args.W, rows.M
+    dev = kq.device
+    merit = torch.empty(Wn, Q, device=dev, dtype=torch.float32)
+    feas = torch.empty(Wn, Q, device=dev, dtype=torch.bool)
+    c = torch.empty(Wn, Q, M, device=dev, dtype=torch.float32) if want_c else None
+    record("alm_values", (Wn, Q, S, rows.M, want_c), (rows, kq, lam, rho, seed_of_q, want_c))
+    if Wn * Q:
+        args = _launch_args(rows, kq, lam, rho, Q, S)
+        args.seed = seed_of_q.data_ptr()
+        args.value, args.feas = merit.data_ptr(), feas.data_ptr()
+        if want_c:
+            args.c = c.data_ptr()
+        fn = launcher("alm_values", "k8_launch",
+                      [ctypes.POINTER(AlmArgs), ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), queries_per_block(Wn, Q, dev), _stream(kq))
+        if err:
+            raise RuntimeError(f"alm_values launch failed: cudaError {err}")
+        LAUNCHES["alm_values"] += 1
+    return merit, feas, c

@@ -10,7 +10,16 @@ constraint set (infeasible -> NaN k, the caller brakes).
 Layout: k is [W, Q, F] (worlds, query points); the multi-start seeds are
 Q = S, the line search evaluates Q = S * A points in one pass.  The solve
 loop makes no host synchronisation: control flow is torch.where on device
-tensors, the 7x7 KKT solve is cholesky_ex + cholesky_solve.
+tensors.
+
+The loop evaluates its rows only through two functions of plain tensors:
+alm_newton (one inner step's Gauss-Newton system, its 7x7 Cholesky step,
+merit and feasibility; kernel K7 on the card, alm_newton_plain on the CPU)
+and alm_values (merit, feasibility and optionally the rows of query points;
+kernel K8, alm_values_plain).  On the card neither the constraint stack nor
+its Jacobian is formed inside the loop; the full-set check in finalize
+(max_violations, kernel K4 over every collision row) is what soundness
+rests on.
 
 q_plan is linear in k (weight s^3 (6 s^2 - 15 s + 10) * k_range at
 s = t_plan / duration), so the cost gradient is written out and its Hessian
@@ -326,9 +335,100 @@ def _take(x, idx):
                         .expand(*idx.shape, *x.shape[2:]))
 
 
-def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None) -> SolveResult:
+def is_feasible(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
+    """Full-set feasibility of k [W, Q, F]: [W, Q] bool
+    (armour_tpu/nlp.py:305-313)."""
+    return viol_feasible(torch.stack(max_violations(k, prob, cfg, basis), dim=-1), cfg)
+
+
+# ---------------------------------------------------------------------------
+# the solver's row evaluation: plain versions and the K7 / K8 dispatch
+# ---------------------------------------------------------------------------
+
+
+def _clip_big(c):
+    # padded/degenerate rows sit at -BIG; keep them inert
+    return torch.clamp(c, min=-1e6)
+
+
+def _penalty(c, lam, rho):
+    z = lam + rho[..., None] * c
+    return torch.sum(torch.where(z > 0, z * z, torch.zeros_like(z)), dim=-1) / (2 * rho)
+
+
+def alm_newton_system(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
+    """The Gauss-Newton system of one inner step (armour_tpu/nlp.py:475-489):
+    (g [W,S,F], H [W,S,F,F], clipped c [W,S,M]) at the seeds k [W,S,F] with
+    multipliers lam [W,S,M] and penalties rho [W,S]."""
+    F = k.shape[-1]
+    c, Jc = constraint_stack(k, prob, cfg, basis, with_grad=True)
+    c = _clip_big(c)
+    z = lam + rho[..., None] * c
+    act = z > 0.0                                           # active set
+    w = torch.where(act, rho[..., None], torch.zeros_like(c))
+    lam_eff = torch.where(act, z, torch.zeros_like(c))
+    JcT = Jc.transpose(-1, -2)
+    g = (plan_cost_grad(k, prob.traj, prob.q_des, prob.limits.continuous, cfg)
+         + torch.matmul(JcT, lam_eff[..., None])[..., 0])
+    H = (torch.matmul(JcT * w[..., None, :], Jc) + plan_cost_hessian(prob.traj, cfg)
+         + 1e-3 * torch.eye(F, dtype=k.dtype, device=k.device))
+    return g, H, c
+
+
+def alm_newton_plain(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
+    """Plain version of kernel K7: (step [W,S,F], m0 [W,S], feas [W,S]).
+    step = H^-1 g by Cholesky (H is SPD), m0 = cost + penalty, feas = every
+    clipped row within its threshold."""
+    g, H, c = alm_newton_system(k, lam, rho, prob, cfg, basis)
+    L, _ = torch.linalg.cholesky_ex(H)
+    step = torch.cholesky_solve(g[..., None], L)[..., 0]
+    m0 = plan_cost(k, prob.traj, prob.q_des, prob.limits.continuous, cfg) + _penalty(c, lam, rho)
+    feas = torch.all(c <= _stack_thresholds(prob, cfg), dim=-1)
+    return step, m0, feas
+
+
+def alm_values_plain(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConfig,
+                     basis: KBasis, want_c: bool = False):
+    """Plain version of kernel K8: (merit [W,Q], feas [W,Q], clipped c
+    [W,Q,M] or None) at the query points kq [W,Q,F]; query q takes the lam
+    [W,S,M] and rho [W,S] of seed seed_of_q[q]."""
+    c = _clip_big(constraint_stack(kq, prob, cfg, basis, with_grad=False)[0])
+    idx = seed_of_q.to(device=kq.device, dtype=torch.int64)
+    merit = (plan_cost(kq, prob.traj, prob.q_des, prob.limits.continuous, cfg)
+             + _penalty(c, lam[:, idx], rho[:, idx]))
+    feas = torch.all(c <= _stack_thresholds(prob, cfg), dim=-1)
+    return merit, feas, (c if want_c else None)
+
+
+def alm_newton(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, rows=None):
+    """One inner step's (step, m0, feas): kernel K7 on CUDA tensors (rows:
+    kernels.solver.alm_rows of this plan, built when not given),
+    alm_newton_plain on CPU tensors."""
+    if not k.is_cuda:
+        return alm_newton_plain(k, lam, rho, prob, cfg, basis)
+    from .kernels import solver as ksolver
+
+    return ksolver.alm_newton(rows or ksolver.alm_rows(prob, cfg, basis), k, lam, rho)
+
+
+def alm_values(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
+               want_c: bool = False, rows=None):
+    """(merit, feas, c or None) of query points: kernel K8 on CUDA tensors,
+    alm_values_plain on CPU tensors."""
+    if not kq.is_cuda:
+        return alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
+    from .kernels import solver as ksolver
+
+    return ksolver.alm_values(rows or ksolver.alm_rows(prob, cfg, basis), kq, lam, rho,
+                              seed_of_q, want_c)
+
+
+def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None,
+          plain: bool = False) -> SolveResult:
     """Multi-start ALM solve for every world.  Seeds: k=0, the
-    waypoint-directed k and +-0.5 of it; the best feasible result wins."""
+    waypoint-directed k and +-0.5 of it; the best feasible result wins.
+    plain=True evaluates the rows with the plain versions on any device (the
+    reference the kernels are held against); otherwise K7 / K8 on the card."""
     dt, dev = prob.q_des.dtype, prob.q_des.device
     Wn, F = prob.q_des.shape
 
@@ -350,7 +450,7 @@ def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None) -> Solve
     n_seeds = seeds.shape[1]
     cull_after = int(cfg.solver_cull_after)
     keep = int(cfg.solver_keep_seeds)
-    init, run_outer, finalize, cull_score = _alm_phases(prob, cfg, basis)
+    init, run_outer, finalize, cull_score = _alm_phases(prob, cfg, basis, plain=plain)
 
     carry = init(seeds)
     if 0 < cull_after < cfg.solver_outer_iters and 0 < keep < n_seeds:
@@ -372,73 +472,72 @@ def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None) -> Solve
                        cost=_take(res.cost, i)[:, 0], viol=_take(res.viol, i)[:, 0])
 
 
-def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
+def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, plain: bool = False):
     """The ALM descent as (init, run_outer, finalize, cull_score) over a
-    carry (k, lam, rho, best_k, best_cost) of [W, S, ...] tensors."""
+    carry (k, lam, rho, best_k, best_cost) of [W, S, ...] tensors.  Every
+    row evaluation is one newton (K7) or values (K8) pass; on the card no
+    constraint stack or Jacobian is formed."""
     dt, dev = prob.q_des.dtype, prob.q_des.device
-    F = prob.q_des.shape[-1]
     cont = prob.limits.continuous
     thr = _stack_thresholds(prob, cfg)
+    M = thr.shape[0]
     alphas = torch.tensor(cfg.solver_alphas, dtype=dt).to(dev, non_blocking=True)
     A = len(cfg.solver_alphas)
-    Hc = plan_cost_hessian(prob.traj, cfg)
-    reg = 1e-3 * torch.eye(F, dtype=dt, device=dev)
+    rows = None
+    if dev.type == "cuda" and not plain:
+        from .kernels import solver as ksolver
+
+        rows = ksolver.alm_rows(prob, cfg, basis)
+
+    def newton(k, lam, rho):
+        if plain:
+            return alm_newton_plain(k, lam, rho, prob, cfg, basis)
+        return alm_newton(k, lam, rho, prob, cfg, basis, rows)
+
+    def values(kq, lam, rho, seed_of_q, want_c=False):
+        if plain:
+            return alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
+        return alm_values(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c, rows)
+
+    seed_index = {}
+
+    def seeds_of(S, per_seed=1):
+        """seed_of_q for S seeds with per_seed consecutive queries each."""
+        if (S, per_seed) not in seed_index:
+            seed_index[(S, per_seed)] = torch.arange(S, dtype=torch.int32).repeat_interleave(
+                per_seed).to(dev, non_blocking=True)
+        return seed_index[(S, per_seed)]
 
     def cost_fn(kk):
         return plan_cost(kk, prob.traj, prob.q_des, cont, cfg)
 
-    def stack(kk, with_grad=False):
-        return constraint_stack(kk, prob, cfg, basis, with_grad=with_grad)
-
-    def clip_big(c):
-        # padded/degenerate rows sit at -BIG; keep them inert
-        return torch.clamp(c, min=-1e6)
-
-    def penalty(cc, lam, rho):
-        z = lam + rho[..., None] * cc
-        return torch.sum(torch.where(z > 0, z * z, torch.zeros_like(z)), dim=-1) / (2 * rho)
-
-    def track_best(kk, cc, best_k, best_cost):
-        feas = torch.all(cc <= thr, dim=-1)
+    def track_best(kk, feas, best_k, best_cost):
         cost_kk = cost_fn(kk)
         better = feas & (cost_kk < best_cost)
         return (torch.where(better[..., None], kk, best_k),
                 torch.where(better, cost_kk, best_cost))
 
     def init(k):
-        c0, _ = stack(k)
-        feas0 = torch.all(clip_big(c0) <= thr, dim=-1)
+        Wn, S = k.shape[:2]
+        lam = torch.zeros(Wn, S, M, dtype=dt, device=dev)
+        rho = torch.full((Wn, S), 10.0, dtype=dt, device=dev)
+        _, feas0, _ = values(k, lam, rho, seeds_of(S))
         # a feasible start (k=0 is the rest plan) seeds the best tracker
         best_cost = torch.where(feas0, cost_fn(k), torch.full_like(feas0, math.inf, dtype=dt))
-        rho = torch.full(k.shape[:-1], 10.0, dtype=dt, device=dev)
-        return (k, torch.zeros_like(c0), rho, k, best_cost)
+        return (k, lam, rho, k, best_cost)
 
     def inner_step(k, best_k, best_cost, lam, rho):
-        Wn, S = k.shape[:2]
-        c, Jc = stack(k, with_grad=True)
-        c = clip_big(c)
-        z = lam + rho[..., None] * c
-        act = z > 0.0                                       # active set
-        w = torch.where(act, rho[..., None], torch.zeros_like(c))
-        lam_eff = torch.where(act, z, torch.zeros_like(c))
-        JcT = Jc.transpose(-1, -2)
-        g = (plan_cost_grad(k, prob.traj, prob.q_des, cont, cfg)
-             + torch.matmul(JcT, lam_eff[..., None])[..., 0])
-        H = torch.matmul(JcT * w[..., None, :], Jc) + Hc + reg
-        L, _ = torch.linalg.cholesky_ex(H)                  # H is SPD
-        step = torch.cholesky_solve(g[..., None], L)[..., 0]
+        Wn, S, F = k.shape
+        step, m0, feas = newton(k, lam, rho)
+        best_k, best_cost = track_best(k, feas, best_k, best_cost)
 
-        m0 = cost_fn(k) + penalty(c, lam, rho)
-        best_k, best_cost = track_best(k, c, best_k, best_cost)
-
-        # geometric backtracking ladder, all alphas in one stack pass
+        # geometric backtracking ladder, all alphas in one values pass
         kks = torch.clamp(k[:, :, None] - alphas[:, None] * step[:, :, None], -1.0, 1.0)
-        cc = clip_big(stack(kks.reshape(Wn, S * A, F))[0]).reshape(Wn, S, A, -1)
-        merits = (cost_fn(kks.reshape(Wn, S * A, F)).reshape(Wn, S, A)
-                  + penalty(cc, lam[:, :, None], rho[:, :, None]))
+        merits, feas_ls, _ = values(kks.reshape(Wn, S * A, F), lam, rho, seeds_of(S, A))
+        merits, feas_ls = merits.reshape(Wn, S, A), feas_ls.reshape(Wn, S, A)
         # every line-search candidate is also a best-feasible candidate
         for a in range(A):
-            best_k, best_cost = track_best(kks[:, :, a], cc[:, :, a], best_k, best_cost)
+            best_k, best_cost = track_best(kks[:, :, a], feas_ls[:, :, a], best_k, best_cost)
         best = torch.argmin(merits, dim=-1, keepdim=True)   # [W, S, 1]
         m_best = torch.gather(merits, -1, best)[..., 0]
         k_best = torch.gather(kks, 2, best[..., None].expand(Wn, S, 1, F))[:, :, 0]
@@ -450,10 +549,10 @@ def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
         for _ in range(n):
             for _ in range(cfg.solver_inner_iters):
                 k, best_k, best_cost = inner_step(k, best_k, best_cost, lam, rho)
-            c = clip_big(stack(k)[0])
+            _, feas, c = values(k, lam, rho, seeds_of(k.shape[1]), want_c=True)
             # proxy feasibility on the screened stack; the winner is
             # re-checked against the full set in finalize
-            best_k, best_cost = track_best(k, c, best_k, best_cost)
+            best_k, best_cost = track_best(k, feas, best_k, best_cost)
             lam = torch.clamp(lam + rho[..., None] * c, min=0.0)
             rho = torch.clamp(rho * 2.0, max=1e6)
         return (k, lam, rho, best_k, best_cost)
@@ -462,29 +561,32 @@ def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
         """Feasible seeds rank by best cost, infeasible ones behind them by
         total violation."""
         k, lam, rho, best_k, best_cost = carry
-        c, _ = stack(k)
-        v = torch.sum(torch.clamp(clip_big(c) - thr, min=0.0), dim=-1)
+        _, _, c = values(k, lam, rho, seeds_of(k.shape[1]), want_c=True)
+        v = torch.sum(torch.clamp(c - thr, min=0.0), dim=-1)
         return torch.where(torch.isfinite(best_cost), best_cost, 1e6 + v + cost_fn(k))
 
     def finalize(carry):
         k, lam, rho, best_k, best_cost = carry
         S = k.shape[1]
+        ident = seeds_of(S)
+
+        def feasible_at(kk):
+            return values(kk, lam, rho, ident)[1]
 
         # feasibility pull-in: bisect along [best_k, k] for the deepest
         # feasible point when the ALM ends epsilon outside the feasible set
         def pull_in(lo, hi):
             for _ in range(6):
                 mid = 0.5 * (lo + hi)
-                ok = torch.all(clip_big(stack(mid)[0]) <= thr, dim=-1)[..., None]
+                ok = feasible_at(mid)[..., None]
                 lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
             return lo
 
-        end_feas = torch.all(clip_big(stack(k)[0]) <= thr, dim=-1)
+        end_feas = feasible_at(k)
         have_seed = torch.isfinite(best_cost)
         pulled = pull_in(torch.where(have_seed[..., None], best_k, k), k)
         k_pull = torch.where((~end_feas & have_seed)[..., None], pulled, k)
-        cc_pull = clip_big(stack(k_pull)[0])
-        best_k, best_cost = track_best(k_pull, cc_pull, best_k, best_cost)
+        best_k, best_cost = track_best(k_pull, feasible_at(k_pull), best_k, best_cost)
 
         # one full-set check for the final and the best iterate of every seed
         v = torch.stack(max_violations(torch.cat([k, best_k], dim=1), prob, cfg, basis),

@@ -2,18 +2,21 @@
 armour_tpu/planner.py).
 
 plan_step runs JRS -> PZ FK -> PZ RNEA torque bound -> obstacle hyperplanes
--> screen -> ALM solve for a batch of worlds.  make_batch_planner and
-make_planner return step functions that run on the card by default; pass
-device="cpu" to run the plain versions of every kernel on the CPU.
+-> screen -> ALM solve for a batch of worlds.  make_batch_planner,
+make_planner, make_rescue_planner and make_realtime_planner return step
+functions that run on the card by default; pass device="cpu" to run the
+plain versions of every kernel on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+import numpy as np
 import torch
 
-from .collision import ObstacleSet, build_hyperplanes, screen_collision
+from .collision import ObstacleSet, build_hyperplanes, pad_obstacles, screen_collision
 from .config import ArmourConfig
 from .dynamics import torque_frs
 from .jrs import build_jrs
@@ -21,6 +24,7 @@ from .kinematics import forward_occupancy, reduce_links
 from .nlp import PlanProblem, SolveResult, robot_limits, solve
 from .pz.basis import KBasis, make_basis
 from .robot import RobotModel
+from .utils.timing import sync
 
 
 def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
@@ -101,3 +105,78 @@ def strong_config(cfg: ArmourConfig) -> ArmourConfig:
         solver_cull_after=2, solver_keep_seeds=2,
         solver_alphas=(1.0, 0.25, 0.0625, 0.015625),
         screen_k=max(cfg.screen_k, 4096))
+
+
+def make_rescue_planner(robot: RobotModel, cfg: ArmourConfig, device=None):
+    """Single-world planner at the strong profile, for infeasible-plan
+    retries (armour_tpu/planner.py:110-113)."""
+    return make_planner(robot, strong_config(cfg), device)
+
+
+def make_realtime_planner(robot: RobotModel, cfg: ArmourConfig, example_args=None,
+                          time_buffer: float = 0.05, min_outer: int = 2,
+                          verbose: bool = False, device=None):
+    """Budget-respecting single-world planner (armour_tpu/planner.py:116-191,
+    the semantics of armour_main.cu:227-229).
+
+    The reference gives the solver 0.5 * duration - t_reachsets - 0.05 s of
+    wall time per solve and lets Ipopt stop on the clock.  Here the budget
+    is met by calibration: time the reach-set prefix of the step
+    (plan_problem, up to the screen), derive the solver budget, then lower
+    solver_outer_iters one at a time until the measured step fits
+    t_reachsets + budget or min_outer is reached.  Each timing is a warm-up
+    call, then 5 calls ending in a device synchronisation, averaged.
+
+    example_args: (q0, qd0, qdd0, q_des [F], obs [O, ...]) used for timing;
+    defaults to a synthetic two-obstacle scene.  Returns (step,
+    calibration) with calibration {"t_reachsets_s", "budget_s",
+    "outer_iters", "step_s", "fits_budget"}, or None when min_outer exceeds
+    cfg.solver_outer_iters.
+    """
+    dev = resolve_device(device)
+    if example_args is None:
+        rng = np.random.default_rng(0)
+        q0 = torch.as_tensor(rng.uniform(-0.5, 0.5, robot.num_factors), dtype=cfg.dtype)
+        c = np.array([[0.6, 0.6, 0.6], [-0.6, -0.5, 0.8]])
+        g = np.stack([np.diag([0.05] * 3)] * 2)
+        example_args = (q0, torch.zeros_like(q0), torch.zeros_like(q0), q0 + 0.04,
+                        pad_obstacles(c, g, cfg.max_obstacles, cfg.dtype))
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+
+    def timed(fn, iters=5):
+        fn(*example_args)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*example_args)
+        sync(dev)
+        return (time.perf_counter() - t0) / iters
+
+    def reachsets_only(q0, qd0, qdd0, q_des, obs):
+        args = [torch.as_tensor(x, dtype=cfg.dtype).to(dev)[None] for x in (q0, qd0, qdd0, q_des)]
+        one = ObstacleSet(centers=obs.centers[None], generators=obs.generators[None],
+                          mask=obs.mask[None])
+        return plan_problem(*args, _obs_to(one, cfg.dtype, dev), robot, cfg, basis)
+
+    t_rs = timed(reachsets_only)
+    budget = 0.5 * cfg.duration - t_rs - time_buffer
+    deadline = t_rs + budget
+
+    outer = cfg.solver_outer_iters
+    chosen = None
+    while outer >= min_outer:
+        cfg_i = dataclasses.replace(cfg, solver_outer_iters=outer,
+                                    solver_cull_after=min(cfg.solver_cull_after,
+                                                          max(outer - 1, 0)))
+        step_i = make_planner(robot, cfg_i, dev)
+        dt = timed(step_i)
+        if verbose:
+            print(f"realtime calibration: outer={outer} step={dt * 1e3:.1f} ms "
+                  f"(deadline {deadline * 1e3:.1f} ms)")
+        chosen = (step_i, {"t_reachsets_s": t_rs, "budget_s": budget,
+                           "outer_iters": outer, "step_s": dt,
+                           "fits_budget": dt <= deadline})
+        if dt <= deadline:
+            break
+        outer -= 1
+    return chosen

@@ -4,7 +4,10 @@ armour_tpu/pz/basis.py).
 The tables (degree vectors, the product pair table, the degree<=1
 shift-gather table) are numpy, built once per (nf, max_degree).  phi/dphi
 evaluate the monomials in torch on k's device; the integer tables they need
-are copied to that device once and kept on the basis.
+are copied to that device once and kept on the basis.  kernel_args keeps
+each kernel's copy of the tables it reads from its parameters: K1's
+shift-gather table, K2's pair segments, and the [B, nf] degree table from
+which K7 and K8 form phi(k) and dphi/dk in shared memory (degree_table()).
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ class KBasis:
         """Basis index of the linear monomial k_i, for each factor i."""
         eye = np.eye(self.nf, dtype=np.int64)
         return np.array([self.index[tuple(row)] for row in eye])
+
+    def degree_table(self) -> np.ndarray:
+        """The degree vectors as uint8 [B, nf]: monomial b is
+        prod_i k_i ** degs[b, i]."""
+        return self.degs.astype(np.uint8)
 
     def device_tables(self, device) -> dict:
         """Integer tables on `device`, copied once per device."""

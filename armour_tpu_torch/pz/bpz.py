@@ -200,35 +200,30 @@ def matmul_linear_plain(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ
     A1 = torch.sum(torch.abs(a_lin), dim=-1)            # [..., n, m]
     ovfsum = torch.sum(torch.abs(b.coef) * ovf_mask, dim=-1)   # [..., m, p]
 
-    rows_c, rows_e, rows_r = [], [], []
-    for i in range(n):
-        cols_c, cols_e, cols_r = [], [], []
-        for k in range(p):
-            cacc = eacc = racc = None
-            for j in range(m):
-                c_j = (a0[..., i, j, None] * b.coef[..., j, k, :]
-                       + torch.sum(a_lin[..., i, j, :, None]
-                                   * gath[..., j, k, :, :], dim=-2))
-                e_j = (a0[..., i, j, None] * b.egen[..., j, k, :]
-                       + a.egen[..., i, j, :] * b0[..., j, k, None])
-                r_j = (Ta[..., i, j] * b.rad[..., j, k]
-                       + a.rad[..., i, j] * (Tb[..., j, k] + b.rad[..., j, k])
-                       + Ea[..., i, j] * (Sb[..., j, k]
-                                          - torch.abs(b0[..., j, k]) + Eb[..., j, k])
-                       + (Sa[..., i, j] - torch.abs(a0[..., i, j])) * Eb[..., j, k]
-                       + A1[..., i, j] * ovfsum[..., j, k])
-                cacc = c_j if cacc is None else cacc + c_j
-                eacc = e_j if eacc is None else eacc + e_j
-                racc = r_j if racc is None else racc + r_j
-            cols_c.append(cacc)
-            cols_e.append(eacc)
-            cols_r.append(racc)
-        rows_c.append(torch.stack(cols_c, dim=-2))
-        rows_e.append(torch.stack(cols_e, dim=-2))
-        rows_r.append(torch.stack(cols_r, dim=-1))
-    coef = torch.stack(rows_c, dim=-3)
-    egen = torch.stack(rows_e, dim=-3)
-    rad = torch.stack(rows_r, dim=-2)
+    # every (i, k, j) term at once as [..., n, p, m, ...] (a's [..., n, m] as
+    # [..., n, 1, m], b's [..., m, p] as [..., 1, p, m]); the sum over j then
+    # runs in the order of a loop over j
+    def bt(x):
+        return x.transpose(-2, -1)[..., None, :, :]
+
+    def bt_vec(x):
+        return x.transpose(-3, -2)[..., None, :, :, :]
+
+    a0_ = a0[..., :, None, :]
+    c_all = (a0_[..., None] * bt_vec(b.coef)
+             + torch.sum(a_lin[..., :, None, :, :, None]
+                         * gath.transpose(-4, -3)[..., None, :, :, :, :], dim=-2))
+    e_all = a0_[..., None] * bt_vec(b.egen) + a.egen[..., :, None, :, :] * bt(b0)[..., None]
+    r_all = (Ta[..., :, None, :] * bt(b.rad)
+             + a.rad[..., :, None, :] * (bt(Tb) + bt(b.rad))
+             + Ea[..., :, None, :] * (bt(Sb) - torch.abs(bt(b0)) + bt(Eb))
+             + (Sa - torch.abs(a0))[..., :, None, :] * bt(Eb)
+             + A1[..., :, None, :] * bt(ovfsum))
+    coef, egen, rad = c_all[..., 0, :], e_all[..., 0, :], r_all[..., 0]
+    for j in range(1, m):
+        coef = coef + c_all[..., j, :]
+        egen = egen + e_all[..., j, :]
+        rad = rad + r_all[..., j]
     if slop:
         rad = rad + slop * (torch.sum(torch.abs(coef), dim=-1)
                             + torch.sum(torch.abs(egen), dim=-1) + rad)

@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port on the card: one full planning step and three
-iterations of the lockstep closed loop.
+"""Drive the PyTorch/CUDA port on the card: one full planning step, three
+iterations of the lockstep closed loop, a rescue-profile solve and the
+real-time planner.
 
     python3 chip_smoke.py
 
@@ -12,13 +13,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      to 0, which must launch every kernel.
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
-     (median of 20 calls, CUDA events).
+     (median of 20 calls, CUDA events).  K7 / K8 (the solver's rows) on
+     every shape of the step: seeds 4 -> 2, line search S x 3.
   4. planning-step checks and timings: every feasible k passes the plain
-     full-set check on the card; the first 8 worlds through the port on the
-     CPU (plain versions) agree on feasibility with at most one flip;
-     solves/s at W = 64, the reach-set / solver split, the device time of
-     one step by kernel name (torch.profiler), and batch-1 p50/p99 latency
-     against the 0.5 s budget.
+     full-set check on the card; the solve with K7 / K8 against the eager
+     solve with the plain row versions on the card (same feasible count,
+     its feasible k certified by the plain full-set check, max |d cost|);
+     the first 8 worlds through the port on the CPU (plain versions) agree
+     on feasibility with at most one flip; solves/s at W = 64, the reach-set
+     / solver split, the device time of one step by kernel name, its device
+     activities and busy share (torch.profiler), and batch-1 p50/p99 latency
+     at the full profile against the 0.5 s budget.
   5. the closed loop at the flagship width: run_trials_batched over the same
      64 worlds, 3 iterations, straight-line guidance with the rescue solver,
      worst-case true parameters, seed 0, the launch counters set to 0 just
@@ -34,6 +39,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain flag must fire there and nowhere else.  Kernels timed as
      CUDA-event medians of 20, the plain K5 (a launch-bound Python loop of
      ~2M small launches) over one call.
+  7. one solve at the rescue profile (strong_config: 8 x 6 iterations, seeds
+     4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8 against their
+     plain versions at its shapes.
+  8. the real-time planner: make_realtime_planner calibrates on the card
+     (its calibration printed), then batch-1 p50/p99 through the calibrated
+     step over the first 32 worlds, counted (every planning kernel must
+     launch); K7 / K8 against their plain versions at the W = 1 shapes.
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -64,6 +76,11 @@ K5_TOL_QD = 1e-3     # rad/s
 K5_TOL_U = 1e-4      # relative: |du| <= K5_TOL_U * (|u| + 1)
 K6_MARGIN = 1e-5     # m: an overlap whose deciding SAT margin is this close may flip
 K5_VARIANT_STEPS = 100  # control steps of the Althoff / nominal / noise comparisons
+ALM_TOL = 1e-4       # K7 / K8: g, H, step (backward error), m0, merit, relative to |terms|
+ALM_C_TOL = 1e-5     # K8 rows: |dc| <= ALM_C_TOL (1 + |c| + torque terms); a query with a
+                     # row this close to its threshold may flip its feasibility
+ALM_TIE = 1e-5       # an active collision row whose best two candidates are this close
+                     # may take the other normal: its (world, seed) is left out of g, H, step
 
 
 def fail(msg: str) -> None:
@@ -271,6 +288,189 @@ def check_rows(inputs, dev):
     return ok, err, kern, plain, nbytes, flops, note
 
 
+def _alm_io_bytes(rows, k, lam, rho, newton: bool, want_c: bool) -> int:
+    """Bytes a K7 / K8 call must move: the plan's rows read once, the
+    queries and multipliers read once, the outputs written once."""
+    t, sc = rows.tensors, rows.prob.screened
+    Wn, Q = k.shape[:2]
+    F, M = rows.args.F, rows.M
+    out = Wn * Q * (4 + 1) + (Wn * Q * F * 4 if newton else 0) + (Wn * Q * M * 4 if want_c else 0)
+    return _nbytes(t["u_coef"], t["u_hi"], t["center"], sc.A, sc.d, sc.delta, sc.row, sc.mask,
+                   t["traj"], t["limits"], k, lam, rho) + out
+
+
+def _alm_flops(rows, nq: int, newton: bool) -> int:
+    """float32 operations of a K7 / K8 call: the basis, the link-centre and
+    torque dot products (with the k-gradients for K7), K4's 2C candidates
+    per screened row, and per row the penalty (K7: g and H terms)."""
+    a = rows.args
+    B, F, TF, TJ, K, C, M = a.B, a.F, a.TF, a.TJ, a.K, a.C, rows.M
+    nv = 1 + F if newton else 1
+    per = (B * F * (4 + (F if newton else 0)) + 2 * nv * B * (3 * TJ + TF) + K * C * 14
+           + M * 6)
+    if newton:
+        per += K * 6 * F + M * (2 * F + F * (F + 1)) + 2 * F ** 3
+    return a.W * nq * per
+
+
+def check_alm_newton(inputs, dev):
+    """K7 against alm_newton_plain (and alm_newton_system for g, H): m0
+    within ALM_TOL |m0|; g, H within ALM_TOL of their summed |terms| and the
+    step within ALM_TOL backward error (|H step - g| against |H| |step| +
+    |g|) on every (world, seed) whose active set and active argmaxes are the
+    same in both (the others counted); feas identical up to queries with a
+    row within ALM_C_TOL of its threshold."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.kernels import solver as ks
+
+    rows, k, lam, rho = inputs
+    prob, cfg, basis = rows.prob, rows.cfg, rows.basis
+    Wn, S, F = k.shape
+
+    def kern():
+        return ks.alm_newton(rows, k, lam, rho)
+
+    def plain():
+        return nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
+
+    step, m0, feas, g, H = ks.alm_newton(rows, k, lam, rho, want_system=True)
+    st0, m00, f0 = plain()
+    g0, H0, c0 = nlp.alm_newton_system(k, lam, rho, prob, cfg, basis)
+    _, Jc = nlp.constraint_stack(k, prob, cfg, basis, with_grad=True)
+    # the kernels' own rows at the same k (K8 shares K7's row code)
+    ck = ks.alm_values(rows, k, lam, rho, torch.arange(S, dtype=torch.int32, device=dev),
+                       want_c=True)[2]
+    z0 = lam + rho[..., None] * c0
+    act0 = z0 > 0
+    flip = (act0 != (lam + rho[..., None] * ck > 0)).any(-1)
+    tie = _collision_ties(rows, k) & act0[..., 2 * rows.args.TF:2 * rows.args.TF + rows.args.K]
+    clear = ~(flip | tie.any(-1))                                      # [W, S]
+    w = torch.where(act0, rho[..., None], torch.zeros_like(c0))
+    le = torch.where(act0, z0, torch.zeros_like(c0))
+    Ja = Jc.abs()
+    cont = prob.limits.continuous
+    g_mag = (nlp.plan_cost_grad(k, prob.traj, prob.q_des, cont, cfg).abs()
+             + (Ja * le[..., None]).sum(-2))
+    H_mag = (torch.matmul(Ja.transpose(-1, -2) * w[..., None, :], Ja)
+             + nlp.plan_cost_hessian(prob.traj, cfg) + 1e-3)
+    resid = (torch.matmul(H0, step[..., None])[..., 0] - g0).abs()
+    r_mag = torch.matmul(H0.abs(), step.abs()[..., None])[..., 0] + g0.abs()
+    ratios = {
+        "g": ((g - g0).abs() / (ALM_TOL * (g_mag + 1e-6))).amax(-1),
+        "H": ((H - H0).abs() / (ALM_TOL * (H_mag + 1e-6))).amax((-1, -2)),
+        "step": (resid / (ALM_TOL * (r_mag + 1e-6))).amax(-1)}
+    worst = {n: float(r[clear].max()) if bool(clear.any()) else 0.0 for n, r in ratios.items()}
+    m_ratio = float(((m0 - m00).abs() / (ALM_TOL * (m00.abs() + 1e-6))).max())
+    amb = ((c0 - nlp._stack_thresholds(prob, cfg)).abs()
+           <= ALM_C_TOL * _row_mag(rows, k, c0)).any(-1)
+    feas_ok = bool(((feas == f0) | amb).all())
+    torch.cuda.synchronize(dev)
+    ok = feas_ok and m_ratio <= 1.0 and all(v <= 1.0 for v in worst.values()) \
+        and bool(torch.isfinite(step[clear]).all())
+    err = max(float((m0 - m00).abs().max()),
+              float((step - st0)[clear].abs().max()) if bool(clear.any()) else 0.0)
+    note = (f"m0 worst |d|/tol {m_ratio:.3g}; g {worst['g']:.3g}, H {worst['H']:.3g}, step "
+            f"(backward error) {worst['step']:.3g} on {int(clear.sum())}/{clear.numel()} "
+            f"(world, seed): {int(flip.sum())} with an active-set flip, "
+            f"{int((tie.any(-1) & ~flip).sum())} with an active argmax near-tie left out; "
+            f"max |dstep| {err:.3g}; feas {'identical' if bool(torch.equal(feas, f0)) else 'differs'}"
+            f" ({int(f0.sum())} feasible, {int(amb.sum())} within {ALM_C_TOL} of a threshold); "
+            f"{int(act0.sum())} active rows")
+    nbytes = _alm_io_bytes(rows, k, lam, rho, True, False)
+    return ok, err, kern, plain, nbytes, _alm_flops(rows, S, True), note
+
+
+def _row_mag(rows, kq, c0):
+    """Magnitude of the terms of every row at kq [W, Q, F]: 1 + |c|, and for
+    the torque rows also sum_b |u_coef_b phi_b| + |hi|."""
+    a = rows.args
+    mag = 1.0 + c0.abs()
+    if a.TF:
+        phi = rows.basis.phi(kq).abs()
+        u_abs = torch.matmul(phi, rows.tensors["u_coef"].abs().transpose(1, 2))  # [W, Q, TF]
+        t = u_abs + rows.tensors["u_hi"].abs()[:, None]
+        mag[..., :2 * a.TF] += torch.cat([t, t], dim=-1)
+    return mag
+
+
+def _collision_ties(rows, k):
+    """[W, Q, K]: real screened rows whose best two of the 2C candidates at
+    k lie within ALM_TIE and carry gradients (signed unit normals) more than
+    0.1 ALM_TOL apart; parallel generator pairs tie with the same normal."""
+    from armour_tpu_torch import collision as col
+
+    prob, basis = rows.prob, rows.basis
+    sc = prob.screened
+    p = col._rows_at(col.eval_link_polys(prob.frs, basis.phi(k)), sc.row)   # [W, Q, 3, K]
+    A = sc.A[:, None]
+    Ap = col._dot3(A, p[:, :, :, None, :], 2)                           # [W, Q, C, K]
+    okn = A.abs().sum(dim=2) > 0
+    big = torch.full_like(Ap, -col.BIG)
+    both = torch.cat([torch.where(okn, Ap - (sc.d + sc.delta)[:, None], big),
+                      torch.where(okn, -Ap - (-sc.d + sc.delta)[:, None], big)], dim=-2)
+    top2, idx = torch.topk(both, 2, dim=-2)                             # [W, Q, 2, K]
+    C = sc.A.shape[2]
+    sign = torch.where(idx < C, -1.0, 1.0)
+    comb = torch.where(idx < C, idx, idx - C)
+    An = torch.gather(A.expand(-1, comb.shape[1], -1, -1, -1), 3,
+                      comb[:, :, None].expand(-1, -1, 3, -1, -1))     # [W, Q, 3, 2, K]
+    grad = sign[:, :, None] * An
+    differ = (grad[:, :, :, 0] - grad[:, :, :, 1]).abs().amax(2) > 0.1 * ALM_TOL
+    return ((top2[:, :, 0] - top2[:, :, 1]) <= ALM_TIE) & differ & sc.mask[:, None]
+
+
+def check_alm_values(inputs, dev):
+    """K8 against alm_values_plain: merit within ALM_TOL |merit|, rows within
+    ALM_C_TOL (1 + |c|), feas identical up to queries with a row within
+    ALM_C_TOL of its threshold."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.kernels import solver as ks
+
+    rows, kq, lam, rho, seed_of_q, want_c = inputs
+    prob, cfg, basis = rows.prob, rows.cfg, rows.basis
+
+    def kern():
+        return ks.alm_values(rows, kq, lam, rho, seed_of_q, want_c)
+
+    def plain():
+        return nlp.alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
+
+    merit, feas, c = ks.alm_values(rows, kq, lam, rho, seed_of_q, True)
+    m0, f0, c0 = nlp.alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, True)
+    m_ratio = float(((merit - m0).abs() / (ALM_TOL * (m0.abs() + 1e-6))).max())
+    mag = _row_mag(rows, kq, c0)
+    c_ratio = float(((c - c0).abs() / (ALM_C_TOL * mag)).max())
+    amb = ((c0 - nlp._stack_thresholds(prob, cfg)).abs() <= ALM_C_TOL * mag).any(-1)
+    feas_ok = bool(((feas == f0) | amb).all())
+    torch.cuda.synchronize(dev)
+    ok = feas_ok and m_ratio <= 1.0 and c_ratio <= 1.0
+    err = max(float((merit - m0).abs().max()), float((c - c0).abs().max()))
+    note = (f"merit worst |d|/tol {m_ratio:.3g}, rows {c_ratio:.3g} (max |dc| "
+            f"{float((c - c0).abs().max()):.3g}); feas "
+            f"{'identical' if bool(torch.equal(feas, f0)) else 'differs'} ({int(f0.sum())}/"
+            f"{f0.numel()} feasible, {int(amb.sum())} within {ALM_C_TOL} of a threshold)")
+    nbytes = _alm_io_bytes(rows, kq, lam, rho, False, want_c)
+    return ok, err, kern, plain, nbytes, _alm_flops(rows, kq.shape[1], False), note
+
+
+def check_alm_captures(captured, dev, label) -> None:
+    """K7 / K8 against their plain versions on every recorded shape of a
+    path other than the main one; fails on a mismatch."""
+    n, all_ok = 0, True
+    for (name, key), inputs in captured.items():
+        if name not in ("alm_newton", "alm_values"):
+            continue
+        fn = check_alm_newton if name == "alm_newton" else check_alm_values
+        ok, _, _, _, _, _, note = fn(inputs, dev)
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note})")
+        all_ok &= ok
+        n += 1
+    if n == 0:
+        fail(f"no K7 / K8 call was recorded on the {label}")
+    if not all_ok:
+        fail(f"K7 / K8 disagree with their plain versions on the {label}")
+
+
 REPLACES = {
     "pz_matmul_linear": ("armour_tpu_torch/csrc/pz_matmul_linear.cu", "armour_tpu/pz/bpz.py:214"),
     "pz_cross": ("armour_tpu_torch/csrc/pz_cross.cu", "armour_tpu/pz/bpz.py:120"),
@@ -278,8 +478,14 @@ REPLACES = {
     "collision_rows": ("armour_tpu_torch/csrc/collision_rows.cu", "armour_tpu/collision.py:255"),
     "rollout": ("armour_tpu_torch/csrc/rollout.cu", "armour_tpu/simulator.py:111"),
     "oracle_check": ("armour_tpu_torch/csrc/oracle_check.cu", "armour_tpu/simulator.py:217"),
+    "alm_newton": ("armour_tpu_torch/csrc/alm_newton.cu", "armour_tpu/nlp.py:475"),
+    "alm_values": ("armour_tpu_torch/csrc/alm_values.cu", "armour_tpu/nlp.py:494"),
 }
-PLANNING_KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows")
+PLANNING_KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
+                    "alm_newton", "alm_values")
+HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperplanes": "k3",
+                      "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
+                      "alm_newton": "k7", "alm_values": "k8"}
 
 
 def kernel_phase(captured, launches, dev):
@@ -295,6 +501,10 @@ def kernel_phase(captured, launches, dev):
             res = check_pz(name, inputs, dev)
         elif name == "build_hyperplanes":
             res = check_hyperplanes(inputs, dev)
+        elif name == "alm_newton":
+            res = check_alm_newton(inputs, dev)
+        elif name == "alm_values":
+            res = check_alm_values(inputs, dev)
         else:
             res = check_rows(inputs, dev)
         ok, err, kern, plain, nbytes, flops, note = res
@@ -348,10 +558,8 @@ def profile_step(fn, dev, step_s) -> dict:
     if total == 0:
         print("  profiler: no device time recorded (not measured)")
         return {}
-    hand = {name: sum(r[0] for r in rows if r[2].startswith(f"{k}_kernel"))
-            for name, k in zip(("pz_matmul_linear", "pz_cross", "build_hyperplanes",
-                                "collision_rows", "rollout", "oracle_check"),
-                               ("k1", "k2", "k3", "k4", "k5", "k6"))}
+    hand = {name: sum(r[0] for r in rows if f"{k}_kernel" in r[2])
+            for name, k in HAND_KERNEL_PREFIX.items()}
     launches = sum(r[1] for r in rows)
     print(f"  profiler: device time {total:.1f} ms in {launches} device activities of one "
           f"W={N_WORLDS} step ({len(rows)} names); top by device time:")
@@ -710,6 +918,98 @@ def closed_loop_kernel_rows(robot, cfg, launches, inputs, dev):
 
 
 # ---------------------------------------------------------------------------
+# the solver: fused against plain, the rescue profile, the real-time planner
+# ---------------------------------------------------------------------------
+
+
+def fused_against_plain(prob, cfg, basis, dev) -> dict:
+    """The solve with K7 / K8 against the eager solve with the plain row
+    versions on the card, same problem: the same feasible count, every
+    feasible k of the fused solve certified by the plain full-set check, the
+    largest |d cost| over the worlds feasible in both; both timed (host
+    clock to a sync, median of 3, in turns)."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.collision import collision_constraints_plain
+    from armour_tpu_torch.utils.timing import wall_s
+
+    times = {False: [], True: []}
+    res = {}
+    for plain in (False, True, True, False, False, True):
+        t, res[plain] = wall_s(lambda p=plain: nlp.solve(prob, cfg, basis, plain=p), dev)
+        times[plain].append(t)
+    fused, ref = res[False], res[True]
+    n_f, n_p = int(fused.feasible.sum()), int(ref.feasible.sum())
+    k_chk = torch.where(fused.feasible[:, None], fused.k, torch.zeros_like(fused.k))[:, None]
+    v = torch.stack(nlp.max_violations(k_chk, prob, cfg, basis,
+                                       collision_fn=collision_constraints_plain), dim=-1)[:, 0]
+    cert = nlp.viol_feasible(v, cfg)
+    both = fused.feasible & ref.feasible
+    dcost = float((fused.cost - ref.cost)[both].abs().max()) if bool(both.any()) else 0.0
+    t_f, t_p = statistics.median(times[False]), statistics.median(times[True])
+    print(f"  solve with K7 / K8 {t_f * 1e3:.1f} ms, with the plain rows on the card "
+          f"{t_p * 1e3:.1f} ms (medians of 3); feasible {n_f} and {n_p}; the fused solve's "
+          f"feasible k all certified by the plain full-set check: "
+          f"{bool(cert[fused.feasible].all())}; max |d cost| {dcost:.3g} over {int(both.sum())} "
+          f"worlds feasible in both; verdicts differ in "
+          f"{int((fused.feasible != ref.feasible).sum())}")
+    if n_f != n_p:
+        fail(f"the fused solve finds {n_f} feasible worlds, the plain solve {n_p}")
+    if not bool(cert[fused.feasible].all()):
+        fail("the plain full-set check rejects a feasible k of the fused solve")
+    return {"solve_fused_ms": t_f * 1e3, "solve_plain_ms": t_p * 1e3, "solve_max_dcost": dcost}
+
+
+def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
+    """Phase 7: one solve at the rescue profile (strong_config: 8 x 6
+    iterations, seeds 4 -> 2, 4 line-search alphas) over the flagship
+    worlds; K7 / K8 against their plain versions at its shapes."""
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.planner import plan_problem, strong_config
+    from armour_tpu_torch.utils.timing import wall_s
+
+    strong = strong_config(cfg)
+    prob = plan_problem(*args_dev, obs_dev, robot, strong, basis)
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        t, res = wall_s(lambda: nlp.solve(prob, strong, basis), dev)
+    n = kernels.counts()
+    print(f"phase 7: rescue-profile solve over W={N_WORLDS} in {t * 1e3:.1f} ms, "
+          f"{int(res.feasible.sum())} feasible; K7 x{n['alm_newton']}, K8 x{n['alm_values']}")
+    if n["alm_newton"] == 0 or n["alm_values"] == 0:
+        fail("the rescue-profile solve did not launch K7 and K8")
+    check_alm_captures(captured, dev, "rescue profile")
+    captured.clear()
+
+
+def realtime_phase(robot, cfg, one, dev) -> dict:
+    """Phase 8: make_realtime_planner calibrates on the card; batch-1
+    latency through the calibrated step over the first N_LATENCY worlds,
+    counted; K7 / K8 against their plain versions at the W = 1 shapes."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.planner import make_realtime_planner
+    from armour_tpu_torch.utils.timing import wall_s
+
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        t_cal, (step_rt, cal) = wall_s(lambda: make_realtime_planner(robot, cfg, verbose=True),
+                                       dev)
+        lats = [wall_s(lambda a=a: step_rt(*a), dev)[0] for a in one]
+    n = kernels.counts()
+    p50, p99 = float(np.percentile(lats, 50)), float(np.percentile(lats, 99))
+    print(f"phase 8: real-time calibration in {t_cal:.1f} s: {json.dumps(cal)}")
+    print(f"  batch-1 through the calibrated step ({cal['outer_iters']} outer iterations) over "
+          f"{len(one)} worlds: p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms against 500 ms; "
+          f"fits_budget {cal['fits_budget']}; launches {n}")
+    for name in PLANNING_KERNELS:
+        if n[name] == 0:
+            fail(f"kernel {name} was not launched on the real-time path")
+    check_alm_captures(captured, dev, "real-time path")
+    captured.clear()
+    return {"realtime_calibration": cal, "realtime_p50_ms": p50 * 1e3,
+            "realtime_p99_ms": p99 * 1e3, "realtime_ok": p99 < 0.5}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -794,6 +1094,7 @@ def main() -> None:
              f"{torch.nonzero(feas & ~cert).flatten().tolist()}")
     print(f"phase 4: {n_feas}/{N_WORLDS} worlds feasible; every feasible k passes the plain "
           f"full-set check (max collision violation {float(v[feas][:, 1].max()) if n_feas else float('nan'):.3g})")
+    solve_cmp = fused_against_plain(prob, cfg, basis, dev)
     del prob
 
     step_cpu = make_batch_planner(robot, cfg, device="cpu")
@@ -841,12 +1142,17 @@ def main() -> None:
             "iteration_ms": [r["iteration_s"] * 1e3 for r in its]}
     print("closed_loop: " + json.dumps(loop))
 
+    # ---- phase 7: the rescue profile's solve; phase 8: the real-time planner ----
+    rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev)
+    realtime = realtime_phase(robot, cfg, one, dev)
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
             "latency_batch1_p50_ms": p50 * 1e3, "latency_batch1_p99_ms": p99 * 1e3,
-            "budget_ms": 500.0, "realtime_ok": p99 < 0.5,
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown}
+            "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown,
+            **solve_cmp, **realtime}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

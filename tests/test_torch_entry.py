@@ -17,9 +17,11 @@ import torch
 from armour_tpu_torch.config import ArmourConfig
 from armour_tpu_torch import simulator as tsim
 from armour_tpu_torch.batch_sim import run_trials_batched
-from armour_tpu_torch.kernels import build, collision as kcol, pz as kpz, sim as ksim
+from armour_tpu_torch.kernels import (build, collision as kcol, pz as kpz, sim as ksim,
+                                      solver as ksolver)
 from armour_tpu_torch.models.kinova import kinova_gen3
-from armour_tpu_torch.planner import make_batch_planner, make_planner
+from armour_tpu_torch.planner import (make_batch_planner, make_planner, make_realtime_planner,
+                                      make_rescue_planner)
 from armour_tpu_torch.worlds import load_world_csv
 from armour_tpu_torch.pz import bpz
 from armour_tpu_torch.pz.basis import make_basis
@@ -36,8 +38,8 @@ def _one_world_suite(robot, cfg, **kw):
     return run_trials_batched([w], robot, cfg, max_iterations=0, **kw)
 
 
-@pytest.mark.parametrize("maker", [make_planner, make_batch_planner, tsim.make_rollout,
-                                   tsim.make_oracles, _one_world_suite])
+@pytest.mark.parametrize("maker", [make_planner, make_batch_planner, make_rescue_planner,
+                                   tsim.make_rollout, tsim.make_oracles, _one_world_suite])
 def test_planners_default_to_the_card(maker):
     if torch.cuda.is_available():
         maker(kinova_gen3(), ArmourConfig())
@@ -46,6 +48,14 @@ def test_planners_default_to_the_card(maker):
             maker(kinova_gen3(), ArmourConfig())
     if maker is not _one_world_suite:
         maker(kinova_gen3(), ArmourConfig(), device="cpu")
+
+
+def test_realtime_planner_defaults_to_the_card():
+    """Without a device it calibrates on the card, and raises before any
+    work where there is none (its CPU run is tests/test_torch_solver.py)."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_realtime_planner(kinova_gen3(), ArmourConfig())
 
 
 def _imported_modules(path: Path):
@@ -110,6 +120,13 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ksim.oracle_check(robot, cfg, zn, zn, zn, zn, zn, torch.zeros(2, 4, 3),
                           torch.zeros(2, 4, 3, 3), torch.ones(2, 4, dtype=torch.bool))
+    rows = ksolver.AlmRows(prob=None, cfg=None, basis=basis, tensors={},
+                           args=ksolver.AlmArgs(W=1, F=7, M=10), M=10)
+    k, lam, rho = torch.zeros(1, 2, 7), torch.zeros(1, 2, 10), torch.ones(1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ksolver.alm_newton(rows, k, lam, rho)
+    with pytest.raises(ValueError, match="CUDA"):
+        ksolver.alm_values(rows, k, lam, rho, torch.zeros(2, dtype=torch.int32))
 
 
 def test_cpu_wrappers_take_the_plain_versions():
@@ -159,7 +176,8 @@ def test_build_flags_keep_ieee_float32():
 
 def test_kernel_argument_structs_fit_the_parameter_space():
     """The argument structs travel as kernel parameters (4 KB limit)."""
-    for s in (kpz.K1Args, kpz.K2Args, kcol.K3Args, kcol.K4Args, ksim.K5Args, ksim.K6Args):
+    for s in (kpz.K1Args, kpz.K2Args, kcol.K3Args, kcol.K4Args, ksim.K5Args, ksim.K6Args,
+              ksolver.AlmArgs):
         assert ctypes.sizeof(s) <= 4096
     assert ctypes.sizeof(kpz.PZView) == 3 * 8 + 9 * 8 + 6 * 8
 
@@ -181,7 +199,8 @@ def _c_struct_fields(source: str, name: str):
 
 @pytest.mark.parametrize("src, structs", [
     ("rollout.cu", (ksim.K5Robot, ksim.K5Args)),
-    ("oracle_check.cu", (ksim.K6Robot, ksim.K6Args))])
+    ("oracle_check.cu", (ksim.K6Robot, ksim.K6Args)),
+    ("alm_rows.cuh", (ksolver.AlmArgs,))])
 def test_closed_loop_structs_match_the_sources(src, structs):
     """The ctypes mirrors list the C structs' fields in the same order (no
     compiler here checks the layout)."""
