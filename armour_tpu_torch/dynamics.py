@@ -8,9 +8,12 @@ share one kinematic forward pass.  Layout: kinematic quantities are
 [W, 1, T, ...] and parameter-dependent ones [W, P, T, ...], so the P axis
 broadcasts where the JAX code broadcasts a leading [P] against [T].
 
-The rotations (w | w_aux | wdot | acc stacked as a 3x4 PZ matrix, and f | n
-as 3x2) go through kernel K1 (bpz.matmul_linear); the PZ x PZ cross products
-through kernel K2 (bpz.cross).
+rnea_pz_sets_plain runs both recursions as Python loops over the joints of
+the plain PyTorch ops, on any device.  On CUDA tensors rnea_pz_sets runs the
+whole chain as kernel K10 (kernels/reach.py, csrc/rnea_chain.cu); a robot
+with an uncertain centre of mass (robot.com_uncertainty > 0, off for the
+Kinova) is routed, by that field, to the same loops over the op-level
+kernels K1 (bpz.matmul_linear: the rotations) and K2 (bpz.cross).
 """
 
 from __future__ import annotations
@@ -79,10 +82,10 @@ def _row(p: BPZ, i: int) -> BPZ:
     return BPZ(coef=p.coef[i], egen=p.egen[i], rad=p.rad[i])
 
 
-def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) -> BPZ:
-    """PZ RNEA torque u [W, P, T, F] for the P = 2 parameter sets (nominal,
-    interval) sharing one kinematic forward pass, with gravity."""
-    sets = ("nom", "int")
+def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, sets,
+                matmul_linear, cross) -> BPZ:
+    """The PZ RNEA as loops over the joints (armour_tpu/dynamics.py:116-283)
+    with the given rotation product and PZ x PZ cross product."""
     dt, dev = jrs.qd.coef.dtype, jrs.qd.coef.device
     Wn, T = jrs.qd.coef.shape[:2]
     J = robot.num_joints
@@ -115,15 +118,15 @@ def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) 
         acc_arg = bpz.add(
             lin_acc,
             bpz.add(bpz.cross_pz_const(wdot, trans[i]),
-                    bpz.cross(w, bpz.cross_pz_const(w_aux, trans[i]), basis, slop)))
+                    cross(w, bpz.cross_pz_const(w_aux, trans[i]), basis, slop)))
         # fused rotation of (w | w_aux | wdot | acc): one 3x4 product
-        rotated = bpz.matmul_linear(rt, _col_stack([w, w_aux, wdot, acc_arg]), basis, slop)
+        rotated = matmul_linear(rt, _col_stack([w, w_aux, wdot, acc_arg]), basis, slop)
         w, w_aux, wdot, lin_acc = (_col(rotated, j) for j in range(4))
 
         rv = 1.0 if rev else 0.0
         qd_vec = _embed(bpz.scale(qd_i, rv), ax, sgn)
         w = bpz.add(w, qd_vec)
-        wdot = bpz.add(wdot, bpz.cross(w_aux, qd_vec, basis, slop))
+        wdot = bpz.add(wdot, cross(w_aux, qd_vec, basis, slop))
         wdot = bpz.add(wdot, _embed(bpz.scale(qdda_i, rv), ax, sgn))
         w_aux = bpz.add(w_aux, _embed(bpz.scale(qda_i, rv), ax, sgn))
 
@@ -134,17 +137,17 @@ def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) 
             com_b = BPZ(coef=com_b.coef[:, None], egen=com_b.egen[:, None],
                         rad=com_b.rad[:, None])              # [P, 1, 3]
             f_arg = bpz.add(lin_acc, bpz.add(
-                bpz.cross(wdot, com_b, basis, slop),
-                bpz.cross(w, bpz.cross(w_aux, com_b, basis, slop), basis, slop)))
+                cross(wdot, com_b, basis, slop),
+                cross(w, cross(w_aux, com_b, basis, slop), basis, slop)))
         else:
             f_arg = bpz.add(lin_acc, bpz.add(
                 bpz.cross_pz_const(wdot, com[i]),
-                bpz.cross(w, bpz.cross_pz_const(w_aux, com[i]), basis, slop)))
+                cross(w, bpz.cross_pz_const(w_aux, com[i]), basis, slop)))
         m_c, m_r = bpz.interval_operand(_row(mass_pz, i))        # [P]
         F_i = bpz.mul_interval(m_c[:, None, None], m_r[:, None, None], f_arg, slop)
         I_c, I_r = bpz.interval_operand(_row(inertia_pz, i))     # [P, 3, 3]
         Iw = bpz.matmul_interval(I_c[:, None], I_r[:, None], _col_stack([wdot, w]), slop)
-        N_i = bpz.add(_col(Iw, 0), bpz.cross(w_aux, _col(Iw, 1), basis, slop))
+        N_i = bpz.add(_col(Iw, 0), cross(w_aux, _col(Iw, 1), basis, slop))
         F_all.append(F_i)
         N_all.append(N_i)
 
@@ -160,13 +163,13 @@ def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) 
         sgn = (1.0 if robot.axes[i] > 0 else -1.0) if rev else 0.0
         rv = 1.0 if rev else 0.0
         r_ip1 = _joint(jrs.R, i + 1)
-        rot = bpz.matmul_linear(r_ip1, _col_stack([f, n]), basis, slop)
+        rot = matmul_linear(r_ip1, _col_stack([f, n]), basis, slop)
         rf, rn = _col(rot, 0), _col(rot, 1)
         if com_uncertain:
             com_b = _row(com_pz, i)
             com_b = BPZ(coef=com_b.coef[:, None], egen=com_b.egen[:, None],
                         rad=com_b.rad[:, None])
-            com_cross_F = bpz.cross(com_b, F_all[i], basis, slop)
+            com_cross_F = cross(com_b, F_all[i], basis, slop)
         else:
             com_cross_F = bpz.cross_const(com[i], F_all[i])
         n = bpz.add(bpz.add(N_all[i], rn),
@@ -183,6 +186,38 @@ def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) 
     return bpz.stack(u_all[:F], dim=-1)                  # [W, P, T, F]
 
 
+def rnea_pz_sets_plain(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
+                       sets=("nom", "int")) -> BPZ:
+    """Plain version of kernel K10: PZ RNEA torque u [W, P, T, F] for the
+    parameter sets (nominal "nom", interval "int") sharing one kinematic
+    forward pass, on the plain PyTorch ops (pure PyTorch on any device)."""
+    return _rnea_loops(jrs, robot, cfg, basis, sets, bpz.matmul_linear_plain,
+                       bpz.cross_plain)
+
+
+def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
+                 sets=("nom", "int")) -> BPZ:
+    """PZ RNEA torque u [W, P, T, F] (armour_tpu/dynamics.py:116-283).
+    CPU tensors take rnea_pz_sets_plain; on CUDA tensors kernel K10, or,
+    for a robot with an uncertain centre of mass, the loops over kernels K1
+    and K2."""
+    if not jrs.qd.coef.is_cuda:
+        return rnea_pz_sets_plain(jrs, robot, cfg, basis, sets)
+    if robot.com_uncertainty and "int" in sets:
+        return _rnea_loops(jrs, robot, cfg, basis, sets, bpz.matmul_linear, bpz.cross)
+    from .kernels import reach
+
+    return reach.rnea_chain(jrs, robot, cfg, basis, sets)
+
+
+def rnea_pz(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
+            uncertain: bool) -> BPZ:
+    """PZ RNEA torque u [W, T, F] of one parameter set: interval when
+    uncertain, else nominal (armour_tpu/dynamics.py:98-105, with gravity)."""
+    u = rnea_pz_sets(jrs, robot, cfg, basis, sets=("int" if uncertain else "nom",))
+    return BPZ(coef=u.coef[:, 0], egen=u.egen[:, 0], rad=u.rad[:, 0])
+
+
 @dataclasses.dataclass
 class TorqueFRS:
     """Reduced nominal torque + total control-input radius for the NLP."""
@@ -191,9 +226,13 @@ class TorqueFRS:
     torque_radius: torch.Tensor  # [W, T, F]
 
 
-def torque_frs(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) -> TorqueFRS:
-    """Nominal torque PZ + robust input radius (armour_tpu/dynamics.py:293-319)."""
-    u_both = rnea_pz_sets(jrs, robot, cfg, basis)
+def torque_frs(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
+               plain: bool = False) -> TorqueFRS:
+    """Nominal torque PZ + robust input radius (armour_tpu/dynamics.py:293-319).
+    The assembly after the RNEA stays in PyTorch; plain=True takes the
+    RNEA's plain version on any device."""
+    rnea = rnea_pz_sets_plain if plain else rnea_pz_sets
+    u_both = rnea(jrs, robot, cfg, basis)
     u_nom = BPZ(coef=u_both.coef[:, 0], egen=u_both.egen[:, 0], rad=u_both.rad[:, 0])
     u_int = BPZ(coef=u_both.coef[:, 1], egen=u_both.egen[:, 1], rad=u_both.rad[:, 1])
     disturbance = bpz.sub(u_int, u_nom)

@@ -8,9 +8,11 @@
   K6 oracle_check       csrc/oracle_check.cu       (kernels/sim.py)
   K7 alm_newton         csrc/alm_newton.cu         (kernels/solver.py)
   K8 alm_values         csrc/alm_values.cu         (kernels/solver.py)
+  K9 fk_chain           csrc/fk_chain.cu           (kernels/reach.py)
+  K10 rnea_chain        csrc/rnea_chain.cu         (kernels/reach.py)
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
-collision.py, simulator.py, nlp.py): a CPU tensor takes the plain version, a CUDA tensor launches
+collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py): a CPU tensor takes the plain version, a CUDA tensor launches
 the kernel through the launchers here or raises.  Each launcher adds one to
 LAUNCHES[name] where it launches its kernel and nowhere else.  Sources are
 compiled with nvcc at first use (kernels/build.py).
@@ -21,7 +23,7 @@ from __future__ import annotations
 import contextlib
 
 KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
-           "rollout", "oracle_check", "alm_newton", "alm_values")
+           "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

@@ -31,6 +31,8 @@ SOURCES = {
     "oracle_check": "oracle_check.cu",
     "alm_newton": "alm_newton.cu",
     "alm_values": "alm_values.cu",
+    "fk_chain": "fk_chain.cu",
+    "rnea_chain": "rnea_chain.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,7 +1,9 @@
 """Launchers of the PZ product kernels K1 (pz_matmul_linear) and K2
-(pz_cross).  Called by pz/bpz.py for CUDA tensors only; each checks device,
-dtype, shapes and strides, raises on anything its kernel does not take,
-allocates the outputs with torch.empty and launches on the current stream."""
+(pz_cross), and the basis tables every PZ kernel (K1, K2, K9, K10) reads
+from constant memory.  Called by pz/bpz.py for CUDA tensors only; each
+checks device, dtype, shapes and strides, raises on anything its kernel
+does not take, allocates the outputs with torch.empty and launches on the
+current stream."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from ..pz.bpz import BPZ
 _LL3 = ctypes.c_longlong * 3
 _LL2 = ctypes.c_longlong * 2
 
-MAX_B, MAX_E = 128, 64
+MAX_B, MAX_E, MAX_NF, MAX_PAIRS = 128, 64, 8, 1024
 
 
 class PZView(ctypes.Structure):
@@ -27,20 +29,66 @@ class PZView(ctypes.Structure):
                 ("cv", _LL2), ("ev", _LL2), ("rv", _LL2)]
 
 
+class PZTables(ctypes.Structure):
+    """The basis tables every PZ kernel reads (csrc/pz_ops.cuh), uploaded
+    to each library's constant memory once."""
+    _fields_ = [("B", ctypes.c_int), ("E", ctypes.c_int), ("nf", ctypes.c_int),
+                ("P", ctypes.c_int), ("lin", ctypes.c_int * MAX_NF),
+                ("seg", ctypes.c_short * (MAX_B + 2)),
+                ("src", ctypes.c_ubyte * (MAX_NF * MAX_B)), ("ovf", ctypes.c_ubyte * MAX_B),
+                ("pi", ctypes.c_ubyte * MAX_PAIRS), ("pj", ctypes.c_ubyte * MAX_PAIRS)]
+
+
 class K1Args(ctypes.Structure):
     _fields_ = [("a", PZView), ("b", PZView), ("out", PZView),
                 ("bd", ctypes.c_int * 3), ("n", ctypes.c_int), ("m", ctypes.c_int),
-                ("p", ctypes.c_int), ("B", ctypes.c_int), ("E", ctypes.c_int),
-                ("nf", ctypes.c_int), ("slop", ctypes.c_float), ("lin", ctypes.c_int * 8),
-                ("src", ctypes.c_short * 1024), ("ovf", ctypes.c_ubyte * 256)]
+                ("p", ctypes.c_int), ("slop", ctypes.c_float)]
 
 
 class K2Args(ctypes.Structure):
     _fields_ = [("a", PZView), ("b", PZView), ("out", PZView),
-                ("bd", ctypes.c_int * 3), ("B", ctypes.c_int), ("E", ctypes.c_int),
-                ("P", ctypes.c_int), ("slop", ctypes.c_float),
-                ("pi", ctypes.c_ubyte * 1024), ("pj", ctypes.c_ubyte * 1024),
-                ("seg", ctypes.c_short * 260)]
+                ("bd", ctypes.c_int * 3), ("slop", ctypes.c_float)]
+
+
+def pz_tables(basis: KBasis, E: int) -> PZTables:
+    """The tables of `basis` with E error slots (cached on the basis)."""
+    key = ("pz_tables", E)
+    tab = basis.kernel_args
+    if key not in tab:
+        src, ovf = linear_tables(basis.nf, basis.max_degree)
+        pi, pj, seg = pair_segments(basis.nf, basis.max_degree)
+        B, nf = basis.size, basis.nf
+        if B > MAX_B or nf > MAX_NF or len(pi) > MAX_PAIRS or E > MAX_E:
+            raise ValueError(f"basis (nf={nf}, B={B}, pairs={len(pi)}, E={E}) exceeds the "
+                             "kernels' tables")
+        t = PZTables()
+        t.B, t.E, t.nf, t.P = B, E, nf, len(pi)
+        t.lin[:nf] = [int(x) for x in basis.lin_idx]
+        t.seg[:B + 1] = [int(x) for x in seg]
+        t.src[:nf * B] = [int(x) for x in src.reshape(-1)]
+        t.ovf[:B] = [int(x) for x in ovf]
+        t.pi[:len(pi)] = [int(x) for x in pi]
+        t.pj[:len(pj)] = [int(x) for x in pj]
+        tab[key] = t
+    return tab[key]
+
+
+_UPLOADED = {}
+
+
+def upload_tables(name: str, symbol: str, basis: KBasis, E: int) -> None:
+    """Copy the basis tables into kernel `name`'s constant memory, once per
+    (library, tables); a change of tables waits for the queued work first."""
+    t = pz_tables(basis, E)
+    if _UPLOADED.get(name) is t:
+        return
+    if name in _UPLOADED:
+        torch.cuda.synchronize()
+    fn = launcher(name, symbol, [ctypes.POINTER(PZTables)])
+    err = fn(ctypes.byref(t))
+    if err:
+        raise RuntimeError(f"{name}: uploading the basis tables failed: cudaError {err}")
+    _UPLOADED[name] = t
 
 
 def _check(p: BPZ, what: str) -> None:
@@ -90,22 +138,6 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _k1_template(basis: KBasis) -> K1Args:
-    tab = basis.kernel_args
-    if "k1" not in tab:
-        src, ovf = linear_tables(basis.nf, basis.max_degree)
-        B, nf = basis.size, basis.nf
-        if B > MAX_B or nf > 8 or nf * B > 1024:
-            raise ValueError(f"basis (nf={nf}, B={B}) exceeds the kernel's tables")
-        args = K1Args()
-        args.B, args.nf = B, nf
-        args.lin[:nf] = [int(x) for x in basis.lin_idx]
-        args.src[:nf * B] = [int(x) for x in src.reshape(-1)]
-        args.ovf[:B] = [int(x) for x in ovf]
-        tab["k1"] = args
-    return tab["k1"]
-
-
 def matmul_linear(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0,
                   transpose_out: bool = False) -> BPZ:
     """K1: a [.., n, m] @ b [.., m, p] with a of degree <= 1 in k.  With
@@ -133,39 +165,24 @@ def matmul_linear(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0,
         res = out = BPZ(coef=torch.empty(*bshape, n, p, B, device=dev, dtype=torch.float32),
                         egen=torch.empty(*bshape, n, p, E, device=dev, dtype=torch.float32),
                         rad=torch.empty(*bshape, n, p, device=dev, dtype=torch.float32))
-    args = _k1_template(basis)
+    args = K1Args()
     args.a = _view(a, bshape, 2, "pz_matmul_linear")
     args.b = _view(b, bshape, 2, "pz_matmul_linear")
     args.out = _view(out, bshape, 2, "pz_matmul_linear")
     args.bd, blocks = _bd(bshape)
-    args.n, args.m, args.p, args.E = n, m, p, E
+    args.n, args.m, args.p = n, m, p
     args.slop = float(slop)
     record("pz_matmul_linear", (tuple(a.rad.shape), tuple(b.rad.shape), transpose_out),
            (a, b, basis, slop, transpose_out))
     if blocks:
+        upload_tables("pz_matmul_linear", "k1_tables", basis, E)
         fn = launcher("pz_matmul_linear", "k1_launch",
-                      [ctypes.POINTER(K1Args), ctypes.c_longlong, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), blocks, _stream(a.coef))
+                      [ctypes.POINTER(K1Args), ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), blocks, B + E + 1, _stream(a.coef))
         if err:
             raise RuntimeError(f"pz_matmul_linear launch failed: cudaError {err}")
         LAUNCHES["pz_matmul_linear"] += 1
     return res
-
-
-def _k2_template(basis: KBasis) -> K2Args:
-    tab = basis.kernel_args
-    if "k2" not in tab:
-        pi, pj, seg = pair_segments(basis.nf, basis.max_degree)
-        B = basis.size
-        if B > MAX_B or len(pi) > 1024 or B > 255:
-            raise ValueError(f"basis (B={B}, pairs={len(pi)}) exceeds the kernel's tables")
-        args = K2Args()
-        args.B, args.P = B, len(pi)
-        args.pi[:len(pi)] = [int(x) for x in pi]
-        args.pj[:len(pj)] = [int(x) for x in pj]
-        args.seg[:B + 1] = [int(x) for x in seg]
-        tab["k2"] = args
-    return tab["k2"]
 
 
 def cross(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
@@ -182,18 +199,18 @@ def cross(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
     out = BPZ(coef=torch.empty(*bshape, 3, B, device=dev, dtype=torch.float32),
               egen=torch.empty(*bshape, 3, E, device=dev, dtype=torch.float32),
               rad=torch.empty(*bshape, 3, device=dev, dtype=torch.float32))
-    args = _k2_template(basis)
+    args = K2Args()
     args.a = _view(a, bshape, 1, "pz_cross")
     args.b = _view(b, bshape, 1, "pz_cross")
     args.out = _view(out, bshape, 1, "pz_cross")
     args.bd, blocks = _bd(bshape)
-    args.E = E
     args.slop = float(slop)
     record("pz_cross", (tuple(a.rad.shape), tuple(b.rad.shape)), (a, b, basis, slop))
     if blocks:
+        upload_tables("pz_cross", "k2_tables", basis, E)
         fn = launcher("pz_cross", "k2_launch",
-                      [ctypes.POINTER(K2Args), ctypes.c_longlong, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), blocks, _stream(a.coef))
+                      [ctypes.POINTER(K2Args), ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), blocks, B + E + 1, _stream(a.coef))
         if err:
             raise RuntimeError(f"pz_cross launch failed: cudaError {err}")
         LAUNCHES["pz_cross"] += 1

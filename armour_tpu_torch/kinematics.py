@@ -6,8 +6,9 @@ The serial chain
     FK_T <- FK_T + FK_R @ P_i ;  FK_R <- FK_R @ R_i ;
     links_i = FK_R @ link_box_i + FK_T
 
-runs as a Python loop over the joints on [W, T]-batched BPZ tensors.  The
-rotation product FK_R @ R_i is kernel K1 (bpz.matmul_linear_right).
+runs on [W, T]-batched BPZ tensors.  forward_occupancy_plain is a Python
+loop over the joints of the plain PyTorch ops; on CUDA tensors the whole
+chain is kernel K9 (kernels/reach.py, csrc/fk_chain.cu).
 """
 
 from __future__ import annotations
@@ -49,9 +50,11 @@ def link_box_pz(robot: RobotModel, basis: KBasis, dtype, device) -> BPZ:
     return BPZ(coef=coef, egen=egen, rad=torch.zeros((J, 3), dtype=dtype, device=device))
 
 
-def forward_occupancy(jrs: JRS, robot: RobotModel, cfg: ArmourConfig,
-                      basis: KBasis) -> BPZ:
-    """Forward kinematics: link PZs [W, T, J, 3]."""
+def forward_occupancy_plain(jrs: JRS, robot: RobotModel, cfg: ArmourConfig,
+                            basis: KBasis) -> BPZ:
+    """Plain version of kernel K9: the forward-kinematics chain as a loop
+    over the joints of the plain PyTorch ops (armour_tpu/kinematics.py:97-107),
+    on any device: link PZs [W, T, J, 3]."""
     R = jrs.R
     dt, dev = R.coef.dtype, R.coef.device
     Wn, T = R.coef.shape[:2]
@@ -68,9 +71,20 @@ def forward_occupancy(jrs: JRS, robot: RobotModel, cfg: ArmourConfig,
         box_i = BPZ(coef=boxes.coef[i], egen=boxes.egen[i], rad=boxes.rad[i])
         fk_t = bpz.add(fk_t, bpz.matvec_cvec(fk_r, trans[i]))
         # R_i is a degree<=1 rotation PZ; the box has constant-only k-coefs
-        fk_r = bpz.matmul_linear_right(fk_r, r_i, basis, cfg.float_slop)
+        fk_r = bpz.matmul_linear_right_plain(fk_r, r_i, basis, cfg.float_slop)
         links.append(bpz.add(bpz.matvec_const_coef(fk_r, box_i, cfg.float_slop), fk_t))
     return bpz.stack(links, dim=-2)
+
+
+def forward_occupancy(jrs: JRS, robot: RobotModel, cfg: ArmourConfig,
+                      basis: KBasis) -> BPZ:
+    """Forward kinematics: link PZs [W, T, J, 3].  Kernel K9 on CUDA
+    tensors, forward_occupancy_plain on CPU tensors."""
+    if not jrs.R.coef.is_cuda:
+        return forward_occupancy_plain(jrs, robot, cfg, basis)
+    from .kernels import reach
+
+    return reach.fk_chain(jrs, robot, cfg, basis)
 
 
 def reduce_links(links: BPZ, basis: KBasis) -> LinkFRS:

@@ -16,11 +16,12 @@ import time
 import numpy as np
 import torch
 
-from .collision import ObstacleSet, build_hyperplanes, pad_obstacles, screen_collision
+from .collision import (ObstacleSet, build_hyperplanes, build_hyperplanes_plain, pad_obstacles,
+                        screen_collision)
 from .config import ArmourConfig
 from .dynamics import torque_frs
 from .jrs import build_jrs
-from .kinematics import forward_occupancy, reduce_links
+from .kinematics import forward_occupancy, forward_occupancy_plain, reduce_links
 from .nlp import PlanProblem, SolveResult, robot_limits, solve
 from .pz.basis import KBasis, make_basis
 from .robot import RobotModel
@@ -28,17 +29,20 @@ from .utils.timing import sync
 
 
 def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
-                 cfg: ArmourConfig, basis: KBasis) -> PlanProblem:
+                 cfg: ArmourConfig, basis: KBasis, plain: bool = False) -> PlanProblem:
     """Reachable sets, hyperplanes and screened rows of one planning step.
-    q0/qd0/qdd0/q_des [W, F] tensors, obs [W, O, ...] on one device."""
+    q0/qd0/qdd0/q_des [W, F] tensors, obs [W, O, ...] on one device.  On the
+    card the FK chain is kernel K9, the RNEA kernel K10 and the hyperplanes
+    kernel K3; plain=True takes their plain versions on any device."""
     if cfg.traj_family != "bernstein":
         raise NotImplementedError("the ARMTD trajectory family is not ported yet")
     if cfg.grasp_constraints:
         raise NotImplementedError("grasp constraints are not ported yet")
     jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
-    frs = reduce_links(forward_occupancy(jrs, robot, cfg, basis), basis)
-    torque = torque_frs(jrs, robot, cfg, basis)
-    hyp = build_hyperplanes(frs, obs)
+    fk = forward_occupancy_plain if plain else forward_occupancy
+    frs = reduce_links(fk(jrs, robot, cfg, basis), basis)
+    torque = torque_frs(jrs, robot, cfg, basis, plain=plain)
+    hyp = (build_hyperplanes_plain if plain else build_hyperplanes)(frs, obs)
     screened = screen_collision(hyp, obs, frs, cfg.screen_k, cfg.screen_obstacle_quota)
     return PlanProblem(traj=jrs.traj, q_des=q_des, torque=torque, frs=frs, hyp=hyp,
                        obs=obs, screened=screened,

@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port on the card: one full planning step, three
-iterations of the lockstep closed loop, a rescue-profile solve and the
-real-time planner.
+iterations of the lockstep closed loop, a rescue-profile solve, the
+real-time planner, the containment of sampled true states in the chain
+kernels' sets, and the two entry points plan_from_armour_in and the
+rest-FRS solvability checker.
 
     python3 chip_smoke.py
 
@@ -10,20 +12,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. the main path at the flagship width (Kinova Gen3, T = 128, O = 40,
      K = 4096, float32) over the first 64 saved worlds: one warm-up step that
      records each kernel's inputs, then one step with the launch counters set
-     to 0, which must launch every kernel.
+     to 0, which must launch every kernel of the step (K3, K4, K7, K8 and the
+     reach-set chains K9, K10) and neither K1 nor K2.
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
      (median of 20 calls, CUDA events).  K7 / K8 (the solver's rows) on
-     every shape of the step: seeds 4 -> 2, line search S x 3.
+     every shape of the step: seeds 4 -> 2, line search S x 3.  K1 / K2,
+     which the step no longer launches, on calls formed from the step's JRS:
+     the FK rotation product of joint 1 and the PZ RNEA through the op-level
+     route a robot with an uncertain centre of mass takes.
   4. planning-step checks and timings: every feasible k passes the plain
      full-set check on the card; the solve with K7 / K8 against the eager
      solve with the plain row versions on the card (same feasible count,
      its feasible k certified by the plain full-set check, max |d cost|);
      the first 8 worlds through the port on the CPU (plain versions) agree
      on feasibility with at most one flip; solves/s at W = 64, the reach-set
-     / solver split, the device time of one step by kernel name, its device
-     activities and busy share (torch.profiler), and batch-1 p50/p99 latency
-     at the full profile against the 0.5 s budget.
+     / solver split (reachset_ms), the device time of one step by kernel
+     name, its device activities and busy share (torch.profiler), and
+     batch-1 p50/p99 latency at the full profile against the 0.5 s budget.
   5. the closed loop at the flagship width: run_trials_batched over the same
      64 worlds, 3 iterations, straight-line guidance with the rescue solver,
      worst-case true parameters, seed 0, the launch counters set to 0 just
@@ -39,13 +45,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain flag must fire there and nowhere else.  Kernels timed as
      CUDA-event medians of 20, the plain K5 (a launch-bound Python loop of
      ~2M small launches) over one call.
-  7. one solve at the rescue profile (strong_config: 8 x 6 iterations, seeds
-     4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8 against their
-     plain versions at its shapes.
+  7. one plan at the rescue profile (strong_config: 8 x 6 iterations, seeds
+     4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8 and K9 / K10
+     against their plain versions at its shapes.
   8. the real-time planner: make_realtime_planner calibrates on the card
      (its calibration printed), then batch-1 p50/p99 through the calibrated
-     step over the first 32 worlds, counted (every planning kernel must
-     launch); K7 / K8 against their plain versions at the W = 1 shapes.
+     step over the first 32 worlds, counted (every kernel of the step must
+     launch); K7 / K8 and K9 / K10 against their plain versions at the
+     W = 1 shapes.
+  9. containment: for the first 8 worlds of the step, 64 sampled k per world
+     at a sampled time inside each of the 128 sub-intervals: every numeric
+     link centre inside K9's sliced link hull and inside its centre set
+     (shape generators at 0), every numeric nominal torque inside K10's
+     sliced nominal band; the worst margins printed.
+  10. the entry points: plan_from_armour_in on the card for an armour.in
+     written from the first reference scene (the five files in the
+     reference layouts, their contents equal to the plain route on the
+     card, its wall time); make_rest_frs_checker on the card over the
+     starts and goals of the 64 worlds and a planted box on a start elbow
+     (every margin's sign equal to the plain route's, the planted one > 0).
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -79,6 +97,10 @@ K5_VARIANT_STEPS = 100  # control steps of the Althoff / nominal / noise compari
 ALM_TOL = 1e-4       # K7 / K8: g, H, step (backward error), m0, merit, relative to |terms|
 ALM_C_TOL = 1e-5     # K8 rows: |dc| <= ALM_C_TOL (1 + |c| + torque terms); a query with a
                      # row this close to its threshold may flip its feasibility
+N_CONTAIN = 8        # worlds of the containment phase
+N_K = 64             # sampled k per world there (one sampled time per sub-interval each)
+CONTAIN_SLACK = 1e-9  # m / Nm: the float64 slicing of the float32 sets
+ENTRY_TOL = 1e-5     # relative (1 + |value|): the dump files against the plain route
 ALM_TIE = 1e-5       # an active collision row whose best two candidates are this close
                      # may take the other normal: its (world, seed) is left out of g, H, step
 
@@ -183,6 +205,12 @@ def check_pz(name, inputs, dev):
 
         mag = bpz.bilinear(_abs_bpz(a), _abs_bpz(b), bpz._cross_abs_t, bpz._cross_abs,
                            basis, slop, absprod_t=bpz._cross_abs_t)
+        # rad's terms include both operands of the overflow
+        # max(absprod(Sa, Sb) - in_abs, 0), which cancel in mag: when every
+        # pair is in the basis (a constant operand, the uncertain COM) the
+        # overflow is the rounding of two sums of ~Sa Sb taken in different
+        # orders
+        mag.rad = mag.rad + 2.0 * bpz._cross_abs(a.coef.abs().sum(-1), b.coef.abs().sum(-1))
         elems = max(a.rad.numel(), b.rad.numel()) // 3
         B, E = basis.size, a.egen.shape[-1]
         flops = elems * (len(basis.pair_i) * 24 + 3 * E * 6 + 12 * (B + E) + 6 * (B + E))
@@ -471,6 +499,119 @@ def check_alm_captures(captured, dev, label) -> None:
         fail(f"K7 / K8 disagree with their plain versions on the {label}")
 
 
+def _chain_flops(name, Wn, T, J, P, basis, E) -> int:
+    """float32 operations of K9 / K10 on these shapes: every PZ op of the
+    chain counted as the plain version writes it (pz_ops.cuh repeats it)."""
+    B, nf = basis.size, basis.nf
+    ld = B + E + 1
+
+    def mm(n, m, p):        # matmul_linear with its abs masses and slop
+        return (n * p * m * (B * (2 + 2 * nf) + 4 * E + 15) + (n * m + m * p) * (2 * B + E)
+                + 2 * n * p * (B + E))
+
+    cross = len(basis.pair_i) * 24 + 3 * E * 6 + 18 * (B + E)
+    if name == "fk_chain":
+        per = J * (21 * ld + mm(3, 3, 3) + 9 * (B + 3 * E + 10) + 18 * (B + E) + 3 * ld)
+    else:
+        fwd = (3 + P) * cross + 4 * 9 * ld + 9 * ld + mm(3, 3, 4) + 3 * 3 * ld \
+            + P * (3 * ld * 2 + 6 * (B + E) + 3 * 2 * 3 * 2 * ld + 12 * (B + E) + 3 * ld)
+        bwd = mm(3, 3, 2 * P) + P * (2 * 9 * ld + 4 * 3 * ld + 4 * ld)
+        per = J * (fwd + bwd)
+    return Wn * T * per
+
+
+def check_chain(name, inputs, dev):
+    """K9 / K10 against their plain versions (forward_occupancy_plain,
+    rnea_pz_sets_plain) on the card: every coef / egen / rad entry within
+    TOL (PR 1's 1e-5) of the plain output entry's total mass
+    (sum |coef| + sum |egen| + rad, the scale its summed terms share) + 1e-6."""
+    from armour_tpu_torch import dynamics, kinematics
+    from armour_tpu_torch.kernels import reach
+
+    if name == "fk_chain":
+        jrs, robot, cfg, basis = inputs
+
+        def kern():
+            return reach.fk_chain(jrs, robot, cfg, basis)
+
+        def plain():
+            return kinematics.forward_occupancy_plain(jrs, robot, cfg, basis)
+        P = 1
+        in_bytes = sum(_nbytes(t[:, :, :robot.num_joints])
+                       for t in (jrs.R.coef, jrs.R.egen, jrs.R.rad))
+    else:
+        jrs, robot, cfg, basis, sets = inputs
+
+        def kern():
+            return reach.rnea_chain(jrs, robot, cfg, basis, sets)
+
+        def plain():
+            return dynamics.rnea_pz_sets_plain(jrs, robot, cfg, basis, sets)
+        P = len(sets)
+        in_bytes = _bpz_bytes(jrs.R) + _bpz_bytes(jrs.qd) + _bpz_bytes(jrs.qda) \
+            + _bpz_bytes(jrs.qdda)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize(dev)
+    mass = ref.coef.abs().sum(-1) + ref.egen.abs().sum(-1) + ref.rad.abs()
+    ratio = max(_rel_ratio(got.coef, ref.coef, mass[..., None]),
+                _rel_ratio(got.egen, ref.egen, mass[..., None]),
+                _rel_ratio(got.rad, ref.rad, mass))
+    err = max(float((getattr(got, f) - getattr(ref, f)).abs().max())
+              for f in ("coef", "egen", "rad"))
+    finite = all(bool(torch.isfinite(getattr(got, f)).all()) for f in ("coef", "egen", "rad"))
+    Wn, T = jrs.R.rad.shape[:2]
+    flops = _chain_flops(name, Wn, T, robot.num_joints, P, basis, jrs.R.egen.shape[-1])
+    nbytes = in_bytes + _bpz_bytes(got)
+    return ratio <= 1.0 and finite, err, kern, plain, nbytes, flops, \
+        f"worst |d|/tol {ratio:.3g}, max |d| {err:.3g}"
+
+
+def check_chain_captures(captured, dev, label) -> None:
+    """K9 / K10 against their plain versions on every shape recorded on a
+    path other than the main one, both timed; fails on a mismatch."""
+    from armour_tpu_torch.utils.timing import median_ms
+
+    n, all_ok = 0, True
+    for (name, key), inputs in captured.items():
+        if name not in ("fk_chain", "rnea_chain"):
+            continue
+        ok, _, kern, plain, nbytes, _, note = check_chain(name, inputs, dev)
+        ms, pms = median_ms(kern, dev, TIMING_ITERS), median_ms(plain, dev, TIMING_ITERS)
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms (medians of {TIMING_ITERS}), {nbytes / 1e6:.1f} MB")
+        all_ok &= ok
+        n += 1
+    if n < 2:
+        fail(f"K9 and K10 were not both recorded on the {label}")
+    if not all_ok:
+        fail(f"K9 / K10 disagree with their plain versions on the {label}")
+
+
+def op_kernel_inputs(jrs, robot, cfg, basis):
+    """Phase 3's K1 / K2 calls, formed from the step's JRS at the flagship
+    shapes: the FK rotation product of the second joint (fk_r = R_0, the
+    chain's carry after the first joint up to its slop, times R_1), and the
+    PZ RNEA through the op-level route a robot with an uncertain centre of
+    mass takes (its rotations and cross products).  Returns the recorded
+    calls."""
+    import dataclasses
+
+    from armour_tpu_torch import dynamics, kernels
+    from armour_tpu_torch.pz import bpz
+
+    R = jrs.R
+    r0 = bpz.BPZ(coef=R.coef[:, :, 0], egen=R.egen[:, :, 0], rad=R.rad[:, :, 0])
+    r1 = bpz.BPZ(coef=R.coef[:, :, 1], egen=R.egen[:, :, 1], rad=R.rad[:, :, 1])
+    robot_c = dataclasses.replace(robot, com_uncertainty=0.05)
+    with kernels.capture() as rec:
+        bpz.matmul_linear_right(r0, r1, basis, cfg.float_slop)
+        dynamics.rnea_pz_sets(jrs, robot_c, cfg, basis)
+    if not any(k[0] == "pz_matmul_linear" for k in rec) or not any(k[0] == "pz_cross"
+                                                                    for k in rec):
+        fail("the op-level route recorded no K1 / K2 call")
+    return dict(rec)
+
+
 REPLACES = {
     "pz_matmul_linear": ("armour_tpu_torch/csrc/pz_matmul_linear.cu", "armour_tpu/pz/bpz.py:214"),
     "pz_cross": ("armour_tpu_torch/csrc/pz_cross.cu", "armour_tpu/pz/bpz.py:120"),
@@ -480,12 +621,20 @@ REPLACES = {
     "oracle_check": ("armour_tpu_torch/csrc/oracle_check.cu", "armour_tpu/simulator.py:217"),
     "alm_newton": ("armour_tpu_torch/csrc/alm_newton.cu", "armour_tpu/nlp.py:475"),
     "alm_values": ("armour_tpu_torch/csrc/alm_values.cu", "armour_tpu/nlp.py:494"),
+    "fk_chain": ("armour_tpu_torch/csrc/fk_chain.cu", "armour_tpu/kinematics.py:97"),
+    "rnea_chain": ("armour_tpu_torch/csrc/rnea_chain.cu", "armour_tpu/dynamics.py:160"),
 }
-PLANNING_KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
-                    "alm_newton", "alm_values")
+# the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
+# only the uncertain-COM route and are held in phase 3 on inputs formed
+# from the step's JRS
+STEP_KERNELS = ("build_hyperplanes", "collision_rows", "alm_newton", "alm_values",
+                "fk_chain", "rnea_chain")
+OP_KERNELS = ("pz_matmul_linear", "pz_cross")
+PLANNING_KERNELS = OP_KERNELS + STEP_KERNELS
 HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperplanes": "k3",
                       "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
-                      "alm_newton": "k7", "alm_values": "k8"}
+                      "alm_newton": "k7", "alm_values": "k8", "fk_chain": "k9",
+                      "rnea_chain": "k10"}
 
 
 def kernel_phase(captured, launches, dev):
@@ -505,6 +654,8 @@ def kernel_phase(captured, launches, dev):
             res = check_alm_newton(inputs, dev)
         elif name == "alm_values":
             res = check_alm_values(inputs, dev)
+        elif name in ("fk_chain", "rnea_chain"):
+            res = check_chain(name, inputs, dev)
         else:
             res = check_rows(inputs, dev)
         ok, err, kern, plain, nbytes, flops, note = res
@@ -858,7 +1009,7 @@ def closed_loop_phase(robot, cfg, dev):
               f"to host) {rec['oracles_s'] * 1e3:.1f} ms, host left over {host * 1e3:.1f} ms")
     if n_it < 1:
         fail("the closed loop ran no iteration")
-    for name in PLANNING_KERNELS:
+    for name in STEP_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the closed-loop path")
     for name in ("rollout", "oracle_check"):
@@ -968,16 +1119,19 @@ def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
     from armour_tpu_torch.utils.timing import wall_s
 
     strong = strong_config(cfg)
-    prob = plan_problem(*args_dev, obs_dev, robot, strong, basis)
     kernels.reset_counts()
     with kernels.capture() as captured:
+        prob = plan_problem(*args_dev, obs_dev, robot, strong, basis)
         t, res = wall_s(lambda: nlp.solve(prob, strong, basis), dev)
     n = kernels.counts()
     print(f"phase 7: rescue-profile solve over W={N_WORLDS} in {t * 1e3:.1f} ms, "
-          f"{int(res.feasible.sum())} feasible; K7 x{n['alm_newton']}, K8 x{n['alm_values']}")
-    if n["alm_newton"] == 0 or n["alm_values"] == 0:
-        fail("the rescue-profile solve did not launch K7 and K8")
+          f"{int(res.feasible.sum())} feasible; K7 x{n['alm_newton']}, K8 x{n['alm_values']}, "
+          f"K9 x{n['fk_chain']}, K10 x{n['rnea_chain']} (its reach sets)")
+    if n["alm_newton"] == 0 or n["alm_values"] == 0 or n["fk_chain"] == 0 \
+            or n["rnea_chain"] == 0:
+        fail("the rescue-profile plan did not launch K7 to K10")
     check_alm_captures(captured, dev, "rescue profile")
+    check_chain_captures(captured, dev, "rescue profile")
     captured.clear()
 
 
@@ -1000,13 +1154,214 @@ def realtime_phase(robot, cfg, one, dev) -> dict:
     print(f"  batch-1 through the calibrated step ({cal['outer_iters']} outer iterations) over "
           f"{len(one)} worlds: p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms against 500 ms; "
           f"fits_budget {cal['fits_budget']}; launches {n}")
-    for name in PLANNING_KERNELS:
+    for name in STEP_KERNELS:
         if n[name] == 0:
             fail(f"kernel {name} was not launched on the real-time path")
     check_alm_captures(captured, dev, "real-time path")
+    check_chain_captures(captured, dev, "real-time path (W = 1)")
     captured.clear()
     return {"realtime_calibration": cal, "realtime_p50_ms": p50 * 1e3,
             "realtime_p99_ms": p99 * 1e3, "realtime_ok": p99 < 0.5}
+
+
+# ---------------------------------------------------------------------------
+# containment of numeric ground truth in K9's and K10's sets
+# ---------------------------------------------------------------------------
+
+
+def containment_phase(jrs, robot, cfg, basis, dev) -> dict:
+    """Phase 9: for the first N_CONTAIN worlds of the step, N_K sampled k
+    per world at one sampled time inside every sub-interval: the numeric
+    link centres (rnea_numeric.forward_kinematics) must lie in K9's sliced
+    link hull, the numeric passivity RNEA torque (rnea_numeric.rnea, nominal
+    parameters) in K10's sliced nominal band; the numeric link centres also
+    in the centre set alone (shape generators at 0).  Ground truth and slicing in
+    float64 on the card, from the kernels' float32 sets; CONTAIN_SLACK
+    absorbs only the float64 slicing."""
+    import dataclasses
+
+    from armour_tpu_torch import bezier, rnea_numeric
+    from armour_tpu_torch.kernels import reach
+    from armour_tpu_torch.kinematics import reduce_links
+    from armour_tpu_torch.pz.bpz import BPZ
+
+    W = N_CONTAIN
+
+    def first(p):
+        return BPZ(coef=p.coef[:W], egen=p.egen[:W], rad=p.rad[:W])
+
+    sub = dataclasses.replace(jrs, R=first(jrs.R), Rt=first(jrs.Rt), qd=first(jrs.qd),
+                              qda=first(jrs.qda), qdda=first(jrs.qdda))
+    frs = reduce_links(reach.fk_chain(sub, robot, cfg, basis), basis)
+    u = reach.rnea_chain(sub, robot, cfg, basis)                   # [W, 2, T, F]
+    T = cfg.num_time_steps
+    g = torch.Generator(device="cpu").manual_seed(0)
+    k = (2 * torch.rand((W, N_K, 7), generator=g, dtype=torch.float64) - 1).to(dev)
+    s = ((torch.arange(T, dtype=torch.float64)[None, None]
+          + torch.rand((W, N_K, T), generator=g, dtype=torch.float64)) / T).to(dev)
+    tr = jrs.traj
+    dur = cfg.duration
+    q0, Tqd0, TTqdd0 = (x[:W].double()[:, None, None] for x in (tr.q0, tr.Tqd0, tr.TTqdd0))
+    k_act = (k * torch.as_tensor(cfg.k_range, dtype=torch.float64, device=dev))[:, :, None]
+    sb = s[..., None]
+    q = bezier.q_des(q0, Tqd0, TTqdd0, k_act, sb)                  # [W, N_K, T, F]
+    qd = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, sb) / dur
+    qdd = bezier.qdd_des(q0, Tqd0, TTqdd0, k_act, sb) / dur ** 2
+    phi = basis.phi(k)                                             # [W, N_K, B]
+    _, _, centers = rnea_numeric.forward_kinematics(robot, q)      # [W, N_K, T, J, 3]
+    c = torch.einsum("wtjab,wnb->wntja", frs.center_coef.double(), phi)
+    hull = (frs.shape_gens.double().abs().sum(-1) + frs.radius.double())[:, None]
+    fk_margin = float(((centers - c).abs() - hull).max())
+    # the link box's own centre takes the shape generators at 0: it lies in
+    # the centre set alone (the k-polynomial and the radius), a far tighter test
+    centre_margin = float(((centers - c).abs() - frs.radius.double()[:, None]).max())
+    tau = rnea_numeric.rnea(robot, q, qd, qd, qdd)                 # [W, N_K, T, F]
+    un = BPZ(coef=u.coef[:, 0].double(), egen=u.egen[:, 0].double(), rad=u.rad[:, 0].double())
+    cu = torch.einsum("wtfb,wnb->wntf", un.coef, phi)
+    ru = (un.egen.abs().sum(-1) + un.rad)[:, None]
+    tau_margin = float(((tau - cu).abs() - ru).max())
+    n = W * N_K * T
+    print(f"phase 9: containment over {W} worlds x {N_K} k x {T} sub-intervals ({n} sampled "
+          f"states): worst numeric link centre outside K9's hull by {fk_margin:.4g} m and "
+          f"outside its centre set (no shape generators) by {centre_margin:.4g} m, worst "
+          f"numeric torque outside K10's nominal band by {tau_margin:.4g} Nm (<= 0 inside; "
+          f"slack {CONTAIN_SLACK})")
+    if max(fk_margin, centre_margin, tau_margin) > CONTAIN_SLACK:
+        fail("a sampled true state lies outside K9's or K10's reachable set")
+    return {"containment_states": n, "containment_fk_margin_m": fk_margin,
+            "containment_centre_margin_m": centre_margin,
+            "containment_torque_margin_nm": tau_margin}
+
+
+# ---------------------------------------------------------------------------
+# the entry points: the reference file interface and the solvability oracle
+# ---------------------------------------------------------------------------
+
+
+def _close(got, want, what, tol=ENTRY_TOL) -> float:
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    if got.shape != want.shape:
+        fail(f"{what}: shape {got.shape}, expected {want.shape}")
+    ratio = float((np.abs(got - want) / (tol * (1.0 + np.abs(want)))).max()) if got.size else 0.0
+    if not ratio <= 1.0:
+        fail(f"{what} disagrees with the plain route (worst |d|/tol {ratio:.3g})")
+    return ratio
+
+
+def armour_io_phase(robot, cfg, dev) -> dict:
+    """Phase 10a: plan_from_armour_in on the card for an armour.in written
+    from the first reference scene; the five files in the reference layouts,
+    their contents equal to the plain-route values on the card (K9, K10,
+    K3, K4 replaced by their plain versions) within ENTRY_TOL, relative."""
+    import os
+    import tempfile
+
+    from armour_tpu_torch import armour_io, kernels
+    from armour_tpu_torch.worlds import load_world_csv, straight_line_waypoint
+
+    path = sorted(glob.glob("saved_worlds/reference/*.csv"))[0]
+    w = load_world_csv(path)
+    data = armour_io.ArmourIn(
+        q0=w.start, qd0=np.zeros(7), qdd0=np.zeros(7),
+        q_des=straight_line_waypoint(w.start, w.goal, continuous=robot.continuous_joints),
+        centers=w.obstacle_centers, generators=w.obstacle_generators)
+    with tempfile.TemporaryDirectory() as tmp:
+        in_path = os.path.join(tmp, "armour.in")
+        armour_io.write_armour_in(in_path, data)
+        armour_io.plan_from_armour_in(in_path, os.path.join(tmp, "warm"), robot, cfg)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = armour_io.plan_from_armour_in(in_path, os.path.join(tmp, "out"), robot, cfg)
+        wall = time.perf_counter() - t0
+        n = kernels.counts()
+        od = os.path.join(tmp, "out")
+        k_file, ms = armour_io.read_armour_out(os.path.join(od, "armour.out"))
+        files = {name: np.loadtxt(os.path.join(od, name)) for name in (
+            "armour_joint_position_center.out", "armour_joint_position_radius.out",
+            "armour_control_input_radius.out", "armour_constraints.out")}
+    for name in STEP_KERNELS:
+        if n[name] == 0:
+            fail(f"kernel {name} was not launched by plan_from_armour_in")
+    if not out["feasible"] or k_file is None:
+        fail(f"plan_from_armour_in found no feasible plan for {path}")
+    T, J = cfg.num_time_steps, robot.num_joints
+    F, O = robot.num_factors, len(data.centers)
+    ref = armour_io.frs_values(data, out["k"], robot, cfg, dev, plain=True)
+    worst = max(
+        _close(k_file, out["k"], "armour.out k", 1e-8),
+        _close(files["armour_joint_position_center.out"],
+               ref["link_centers"].reshape(T * J, 3), "link centres"),
+        _close(files["armour_joint_position_radius.out"],
+               np.concatenate([ref["link_generators"],
+                               ref["link_radius"][..., None] * np.eye(3)], axis=-1)
+               .reshape(T * J * 3, 6), "link generators and radii"),
+        _close(files["armour_control_input_radius.out"], ref["torque_radius"],
+               "control input radius"),
+        _close(files["armour_constraints.out"], np.concatenate([
+            ref["constraint_torque"].reshape(-1),
+            np.transpose(ref["constraint_collision"][:, :, :O], (1, 0, 2)).reshape(-1),
+            ref["constraint_state"]]), "constraints (torque, link-major collision, state)"))
+    print(f"phase 10: plan_from_armour_in on {os.path.basename(path)} ({O} obstacles): "
+          f"feasible, planner {out['millis']:.1f} ms (armour.out {ms:.1f}), whole call "
+          f"{wall * 1e3:.1f} ms; the five files in the reference layouts, equal to the plain "
+          f"route on the card (worst |d|/tol {worst:.3g}, tol {ENTRY_TOL} (1 + |value|)); "
+          f"launches {n}")
+    return {"armour_io_planner_ms": out["millis"], "armour_io_call_ms": wall * 1e3}
+
+
+def rest_checker_phase(robot, cfg, args_dev, obs_dev, dev) -> dict:
+    """Phase 10b: make_rest_frs_checker on the card over the starts and
+    goals of the flagship worlds and a planted world (a box on world 0's
+    start elbow); every margin's sign equal to the plain route's
+    (solvability.rest_frs_margins with plain=True, batched), the planted
+    one > 0."""
+    import dataclasses
+
+    from armour_tpu_torch import kernels, solvability
+    from armour_tpu_torch.collision import pad_obstacles
+    from armour_tpu_torch.hlp import _fk_points_batch
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.worlds import load_world_csv
+
+    worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:N_WORLDS]]
+    elbow = _fk_points_batch(robot, np.asarray(worlds[0].start)[None])[0][3]
+    planted = dataclasses.replace(worlds[0], obstacle_centers=np.asarray([elbow]),
+                                  obstacle_generators=np.diag([0.15] * 3)[None])
+    rest = solvability.make_rest_frs_checker(robot, cfg)
+    rest(planted.start, planted)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    got = [rest(w.start, w) for w in worlds] + [rest(w.goal, w) for w in worlds] \
+        + [rest(planted.start, planted)]
+    t_all = time.perf_counter() - t0
+    n = kernels.counts()
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    goals = torch.as_tensor(np.stack([w.goal for w in worlds]), dtype=cfg.dtype).to(dev)
+    pl = pad_obstacles(planted.obstacle_centers, planted.obstacle_generators,
+                       cfg.max_obstacles, cfg.dtype, dev)
+    one = type(obs_dev)(centers=pl.centers[None], generators=pl.generators[None],
+                        mask=pl.mask[None])
+    ref = torch.cat([solvability.rest_frs_margins(args_dev[0], obs_dev, robot, cfg, basis,
+                                                  plain=True),
+                     solvability.rest_frs_margins(goals, obs_dev, robot, cfg, basis,
+                                                  plain=True),
+                     solvability.rest_frs_margins(args_dev[0][:1], one, robot, cfg, basis,
+                                                  plain=True)]).cpu().numpy()
+    got = np.asarray(got)
+    flips = int(np.sum((got > 0) != (ref > 0)))
+    print(f"  rest-FRS checker on the card: {len(got)} margins (64 starts, 64 goals, 1 planted) "
+          f"in {t_all:.2f} s ({t_all / len(got) * 1e3:.1f} ms each); {int((got > 0).sum())} > 0 "
+          f"(plain route {int((ref > 0).sum())}); sign differs in {flips}; planted margin "
+          f"{got[-1]:.4g} m (plain {ref[-1]:.4g}); max |d| {float(np.abs(got - ref).max()):.3g}; "
+          f"launches {n}")
+    for name in ("fk_chain", "rnea_chain", "build_hyperplanes", "collision_rows"):
+        if n[name] == 0:
+            fail(f"kernel {name} was not launched by the rest-FRS checker")
+    if flips or not got[-1] > 0:
+        fail("the rest-FRS checker's verdicts differ from the plain route's, or the planted "
+             "obstacle was not caught")
+    return {"rest_checker_ms_each": t_all / len(got) * 1e3,
+            "rest_margins_positive": int((got > 0).sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -1061,12 +1416,20 @@ def main() -> None:
     launches = kernels.counts()
     print(f"phase 2: W={N_WORLDS} planning step {t_main * 1e3:.1f} ms "
           f"(first call {t_first * 1e3:.1f} ms); launches {launches}")
-    for name in PLANNING_KERNELS:
+    for name in STEP_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
+    for name in OP_KERNELS:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched on the main path: the reach sets should run "
+                 f"as the chain kernels K9 / K10")
 
     # ---- phase 3: kernels against their plain versions ----
-    print(f"phase 3: {len(captured)} recorded kernel calls against their plain versions")
+    jrs64 = next(v[0] for k, v in captured.items() if k[0] == "rnea_chain")
+    captured.update(op_kernel_inputs(jrs64, robot, cfg, basis))
+    print(f"phase 3: {len(captured)} recorded kernel calls against their plain versions "
+          f"(K1 / K2 on the FK product of joint 1 and the uncertain-COM RNEA route over the "
+          f"step's JRS)")
     krows = kernel_phase(captured, launches, dev)
     captured.clear()
 
@@ -1118,6 +1481,10 @@ def main() -> None:
 
     # where the device time of one W = 64 step goes, by kernel name
     breakdown = profile_step(lambda: step64(q0, qd0, qdd0, q_des, obs), dev, t_step)
+    print(f"  W={N_WORLDS} step {t_step * 1e3:.1f} ms (median of 3), reach sets "
+          f"{t_rs * 1e3:.1f} ms (reachset_ms), solve {(t_step - t_rs) * 1e3:.1f} ms; "
+          f"{breakdown.get('device_activities', 'not measured')} device activities, busy "
+          f"share {breakdown.get('device_busy_share', float('nan')):.3f}")
 
     # batch-1 latency over the first N_LATENCY worlds
     step1 = make_planner(robot, cfg)
@@ -1146,13 +1513,19 @@ def main() -> None:
     rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev)
     realtime = realtime_phase(robot, cfg, one, dev)
 
+    # ---- phase 9: containment; phase 10: the entry points ----
+    contain = containment_phase(jrs64, robot, cfg, basis, dev)
+    del jrs64
+    entry = armour_io_phase(robot, cfg, dev)
+    entry.update(rest_checker_phase(robot, cfg, args_dev, obs_dev, dev))
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
             "latency_batch1_p50_ms": p50 * 1e3, "latency_batch1_p99_ms": p99 * 1e3,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown,
-            **solve_cmp, **realtime}
+            **solve_cmp, **realtime, **contain, **entry}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

@@ -4,6 +4,7 @@ JAX nor the JAX package, and the kernel launchers take CUDA tensors only
 (no silent fallback)."""
 
 import ast
+import dataclasses
 import ctypes
 import re
 import subprocess
@@ -17,8 +18,10 @@ import torch
 from armour_tpu_torch.config import ArmourConfig
 from armour_tpu_torch import simulator as tsim
 from armour_tpu_torch.batch_sim import run_trials_batched
-from armour_tpu_torch.kernels import (build, collision as kcol, pz as kpz, sim as ksim,
-                                      solver as ksolver)
+from armour_tpu_torch import armour_io, dynamics, kinematics, solvability
+from armour_tpu_torch.jrs import build_jrs
+from armour_tpu_torch.kernels import (build, collision as kcol, pz as kpz, reach as kreach,
+                                      sim as ksim, solver as ksolver)
 from armour_tpu_torch.models.kinova import kinova_gen3
 from armour_tpu_torch.planner import (make_batch_planner, make_planner, make_realtime_planner,
                                       make_rescue_planner)
@@ -48,6 +51,28 @@ def test_planners_default_to_the_card(maker):
             maker(kinova_gen3(), ArmourConfig())
     if maker is not _one_world_suite:
         maker(kinova_gen3(), ArmourConfig(), device="cpu")
+
+
+def test_rest_frs_checker_defaults_to_the_card():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solvability.make_rest_frs_checker(kinova_gen3())
+    solvability.make_rest_frs_checker(kinova_gen3(), device="cpu")
+
+
+def test_plan_from_armour_in_defaults_to_the_card(tmp_path):
+    """Without a device it plans on the card, and raises before any work
+    where there is none (its CPU run is tests/test_torch_reach_entry.py)."""
+    data = armour_io.ArmourIn(q0=np.zeros(7), qd0=np.zeros(7), qdd0=np.zeros(7),
+                              q_des=np.full(7, 0.02), centers=np.array([[2.5, 2.5, 2.5]]),
+                              generators=np.diag([0.05] * 3)[None])
+    path = str(tmp_path / "armour.in")
+    armour_io.write_armour_in(path, data)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            armour_io.plan_from_armour_in(path, str(tmp_path / "out"), kinova_gen3(),
+                                          ArmourConfig())
+        assert not (tmp_path / "out").exists()
 
 
 def test_realtime_planner_defaults_to_the_card():
@@ -120,6 +145,12 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ksim.oracle_check(robot, cfg, zn, zn, zn, zn, zn, torch.zeros(2, 4, 3),
                           torch.zeros(2, 4, 3, 3), torch.ones(2, 4, dtype=torch.bool))
+    cfg4 = ArmourConfig(num_time_steps=2)
+    jrs = build_jrs(*(torch.zeros(1, 7) for _ in range(3)), robot, cfg4, basis)
+    with pytest.raises(ValueError, match="CUDA"):
+        kreach.fk_chain(jrs, robot, cfg4, basis)
+    with pytest.raises(ValueError, match="CUDA"):
+        kreach.rnea_chain(jrs, robot, cfg4, basis)
     rows = ksolver.AlmRows(prob=None, cfg=None, basis=basis, tensors={},
                            args=ksolver.AlmArgs(W=1, F=7, M=10), M=10)
     k, lam, rho = torch.zeros(1, 2, 7), torch.zeros(1, 2, 10), torch.ones(1, 2)
@@ -141,6 +172,23 @@ def test_cpu_wrappers_take_the_plain_versions():
         assert torch.equal(got.coef, want.coef) and torch.equal(got.rad, want.rad)
     v = bpz.BPZ(a.coef[:, 0], a.egen[:, 0], a.rad[:, 0])
     assert torch.equal(bpz.cross(v, v, basis).rad, bpz.cross_plain(v, v, basis).rad)
+
+
+def test_cpu_chain_wrappers_take_the_plain_versions():
+    """forward_occupancy and rnea_pz_sets (K9 / K10 on the card) take
+    their plain versions for CPU tensors, also for an uncertain COM."""
+    robot, cfg = kinova_gen3(), ArmourConfig(num_time_steps=2, dtype=torch.float64)
+    basis = make_basis(7, 3)
+    rng = np.random.default_rng(2)
+    jrs = build_jrs(*(torch.as_tensor(rng.uniform(-0.5, 0.5, (2, 7))) for _ in range(3)),
+                    robot, cfg, basis)
+    got = kinematics.forward_occupancy(jrs, robot, cfg, basis)
+    want = kinematics.forward_occupancy_plain(jrs, robot, cfg, basis)
+    assert torch.equal(got.coef, want.coef) and torch.equal(got.rad, want.rad)
+    for r in (robot, dataclasses.replace(robot, com_uncertainty=0.05)):
+        got = dynamics.rnea_pz_sets(jrs, r, cfg, basis)
+        want = dynamics.rnea_pz_sets_plain(jrs, r, cfg, basis)
+        assert torch.equal(got.coef, want.coef) and torch.equal(got.rad, want.rad)
 
 
 def test_cpu_closed_loop_wrappers_take_the_plain_versions():
@@ -176,7 +224,7 @@ def test_build_flags_keep_ieee_float32():
 
 def test_kernel_argument_structs_fit_the_parameter_space():
     """The argument structs travel as kernel parameters (4 KB limit)."""
-    for s in (kpz.K1Args, kpz.K2Args, kcol.K3Args, kcol.K4Args, ksim.K5Args, ksim.K6Args,
+    for s in (kpz.K1Args, kpz.K2Args, kreach.K9Args, kreach.K10Args, kcol.K3Args, kcol.K4Args, ksim.K5Args, ksim.K6Args,
               ksolver.AlmArgs):
         assert ctypes.sizeof(s) <= 4096
     assert ctypes.sizeof(kpz.PZView) == 3 * 8 + 9 * 8 + 6 * 8
@@ -200,7 +248,12 @@ def _c_struct_fields(source: str, name: str):
 @pytest.mark.parametrize("src, structs", [
     ("rollout.cu", (ksim.K5Robot, ksim.K5Args)),
     ("oracle_check.cu", (ksim.K6Robot, ksim.K6Args)),
-    ("alm_rows.cuh", (ksolver.AlmArgs,))])
+    ("alm_rows.cuh", (ksolver.AlmArgs,)),
+    ("pz_ops.cuh", (kpz.PZTables,)),
+    ("pz_matmul_linear.cu", (kpz.K1Args,)),
+    ("pz_cross.cu", (kpz.K2Args,)),
+    ("fk_chain.cu", (kreach.K9Args,)),
+    ("rnea_chain.cu", (kreach.K10Args,))])
 def test_closed_loop_structs_match_the_sources(src, structs):
     """The ctypes mirrors list the C structs' fields in the same order (no
     compiler here checks the layout)."""
