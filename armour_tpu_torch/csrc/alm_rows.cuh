@@ -1,5 +1,8 @@
 // Row evaluation of the ALM solver's constraint stack, shared by K7
 // (alm_newton.cu) and K8 (alm_values.cu), so that the two cannot drift apart.
+// K7 runs these functions block-wide on one (world, seed); K8 calls the
+// per-row ones (alm_phi, alm_collision, alm_state_rows, alm_cost) from
+// its row-tiled grids.
 //
 // The stack is the one of nlp.py:constraint_stack, in its row order:
 //
@@ -68,31 +71,41 @@ struct AlmArgs {
 // the monomial basis: phi(k) [B] and dphi/dk [F][B] (pz/basis.py:phi, dphi)
 // ---------------------------------------------------------------------------
 
+// k^e for e <= ALM_MAX_DEG as the product 1 * k * ... * k taken in order
+// (1 * k = k exactly), chosen without an indexed table.
+__device__ __forceinline__ float alm_power(float k, float k2, float k3, int e) {
+  return e == 0 ? 1.0f : e == 1 ? k : e == 2 ? k2 : k3;
+}
+
+// The factors of monomial b (degrees dg [NF]), take[i] = k_i^deg(b, i);
+// phi_b is their product in factor order.
+template <int NF>
+__device__ __forceinline__ float alm_phi(const unsigned char* dg, const float* k, float* take) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) {
+    const float k2 = k[i] * k[i];
+    take[i] = alm_power(k[i], k2, k2 * k[i], dg[i]);
+  }
+  float phi = take[0];
+#pragma unroll
+  for (int i = 1; i < NF; ++i) phi = phi * take[i];
+  return phi;
+}
+
 // basis[0 * ALM_MAX_B + b] = phi_b; with grad, basis[(1 + f) * ALM_MAX_B + b]
 // = d phi_b / d k_f.  k [NF] in shared memory.
 template <int NF>
 __device__ void alm_basis(const AlmArgs& a, const float* k, float* basis, bool grad) {
   for (int b = threadIdx.x; b < a.B; b += blockDim.x) {
-    float pw[NF][ALM_MAX_DEG + 1];
-#pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      pw[i][0] = 1.0f;
-#pragma unroll
-      for (int e = 1; e <= ALM_MAX_DEG; ++e) pw[i][e] = pw[i][e - 1] * k[i];
-    }
     const unsigned char* dg = a.degs + b * ALM_MAX_F;
     float take[NF];
-#pragma unroll
-    for (int i = 0; i < NF; ++i) take[i] = pw[i][dg[i]];
-    float phi = take[0];
-#pragma unroll
-    for (int i = 1; i < NF; ++i) phi = phi * take[i];
-    basis[b] = phi;
+    basis[b] = alm_phi<NF>(dg, k, take);
     if (grad) {
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
         const int dj = dg[j];
-        const float dcol = (float)dj * pw[j][dj > 0 ? dj - 1 : 0];
+        const float k2 = k[j] * k[j];
+        const float dcol = (float)dj * alm_power(k[j], k2, k2 * k[j], dj > 0 ? dj - 1 : 0);
         float others = 1.0f;
         bool first = true;
 #pragma unroll
@@ -159,6 +172,7 @@ __device__ __forceinline__ int alm_collision(const AlmArgs& a, int w, int r, con
   const float* Aw = a.A + (long long)w * 3 * C * K;
   const float* dw = a.d + (long long)w * C * K;
   const float* delw = a.delta + (long long)w * C * K;
+#pragma unroll 4
   for (int cc = 0; cc < C; ++cc) {
     const float A0 = Aw[(0 * C + cc) * K + r];
     const float A1 = Aw[(1 * C + cc) * K + r];
@@ -353,9 +367,9 @@ __device__ float alm_cost(const AlmArgs& a, int w, const float* k, float* grad) 
 // block reduction in a fixed order (no atomics: repeated calls give the same bits)
 // ---------------------------------------------------------------------------
 
-// Sums acc[0..n) over the block; thread 0 returns the totals in acc.
-// red: ALM_WARPS * n floats of shared memory.
-template <int N>
+// Sums acc[0..n) over a block of NW warps; thread 0 returns the totals in
+// acc.  red: NW * n floats of shared memory.
+template <int N, int NW = ALM_WARPS>
 __device__ void alm_block_sum(float* acc, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -370,7 +384,7 @@ __device__ void alm_block_sum(float* acc, float* red) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       float s = red[i];
-      for (int wp = 1; wp < ALM_WARPS; ++wp) s += red[wp * N + i];
+      for (int wp = 1; wp < NW; ++wp) s += red[wp * N + i];
       acc[i] = s;
     }
   }

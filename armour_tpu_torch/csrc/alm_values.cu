@@ -13,157 +13,332 @@
 //
 // Bound on the H100 (flagship, W = 64, Q = S A = 12): the world's centre
 // and torque polynomials and screened rows are read once, ~0.30 GB, ~0.09
-// ms at 3.35 TB/s; ~1.2 MFLOP per query, ~0.9 GFLOP, ~0.014 ms at 67
-// TFLOP/s: bound by bytes (c, when written, adds 4 M bytes per query).
+// ms at 3.35 TB/s; ~1.2 MFLOP per query, ~0.9 GFLOP, ~0.03 ms at the 33.5 T
+// operations/s of separate float32 multiplies and adds (no FMA contraction):
+// bound by bytes (c, when written, adds 4 M bytes per query).
 //
-// Design, simple first: one CTA per (world, group of G <= 4 queries), 256
-// threads.  phi of the G queries and their link centres at every (time,
-// link) cell (3 G T J floats) live in shared memory; a warp per polynomial
-// row forms G dot products from one read of the row, a thread per screened
-// row reads its 36 normals once for all G queries.  Per query the penalty
-// and the count of violated rows are summed per thread in a fixed order and
-// reduced in a fixed tree order (no atomics).
+// Design: parallel over a world's rows, not its queries, so that each row
+// is read once per call for all Q <= 16 queries together, and the grid
+// fills the card at W = 1 as at W = 64.  Three launches on one stream:
+//
+//   (a) rows: a CTA per (tile of R polynomial rows, world).  It stages its
+//       R centre / torque rows (cp.async, 16 bytes a lane) and, while they
+//       arrive, phi of every query in shared memory; a thread per (row,
+//       query slot) forms the dot
+//       products.  Centre rows go to the scratch p [W, Qp, 3, TJ] (8.3 MB
+//       at W = 64, Q = 12: it stays in L2); torque rows become their two
+//       clipped stack rows, whose penalty and violation count are summed
+//       per (tile, query) in row order.
+//   (b) collision: a CTA per (128 screened rows, group of G queries,
+//       world); a thread per row reads its 3 C normals, d and delta once
+//       and evaluates K4's rule (alm_collision) at the row's cell for its
+//       G queries; per (tile, query) partials by a fixed shuffle tree.
+//   (c) finish: a CTA per world sums the partials in tile order, adds the
+//       state rows (alm_state_rows) and the cost (alm_cost), and writes
+//       value and feas.
+//
+// R and G come from kernels/solver.py:k8_geometry (the largest tile, the
+// widest query group, that still give >= 2 x 132 CTAs).  No atomics: every
+// sum has a fixed order, so repeated calls give the same bits.
 #include "alm_rows.cuh"
 
-template <int NF, int G>
-__global__ void __launch_bounds__(ALM_THREADS) k8_kernel(const AlmArgs a) {
-  extern __shared__ float sm[];
-  const int w = blockIdx.y;
-  const int q0 = blockIdx.x * G;
-  const int nq = min(G, a.Q - q0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int TJ = a.TJ, TF = a.TF, K = a.K, B = a.B, M = a.M;
-  float* kq = sm;                              // [G][8]
-  float* phi = kq + 8 * G;                     // [G][ALM_MAX_B]
-  float* p = phi + G * ALM_MAX_B;              // [G][3][TJ]
-  float* red = p + 3 * G * TJ;                 // [ALM_WARPS][2 G]
+#define K8_MAXQ 16
+#define K8A_THREADS 256
+#define K8B_THREADS 128
+#define K8C_THREADS 128
 
-  // queries past the end repeat the last one; their results are not written
-  if (tid < G * NF) {
-    const int g = tid / NF, f = tid - NF * (tid / NF);
-    const int q = q0 + (g < nq ? g : nq - 1);
-    kq[g * 8 + f] = a.k[((long long)w * a.Q + q) * NF + f];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < G; ++g) alm_basis<NF>(a, kq + g * 8, phi + g * ALM_MAX_B, false);
-  __syncthreads();
+// floats per staged row and per phi vector: B rounded up to a multiple of 4
+// with an odd number of float4s, so that a warp's float4 reads of 32 rows
+// fall on distinct banks
+static __host__ __device__ __forceinline__ int k8_pitch(int B) {
+  int p = (B + 3) / 4 * 4;
+  if ((p / 4) % 2 == 0) p += 4;
+  return p;
+}
 
-  const float* lam_q[G];
-  float rho_q[G];
-  float* c_q[G];
-  float acc[2 * G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int q = q0 + (g < nq ? g : nq - 1);
-    const int s = a.seed[q];
-    lam_q[g] = a.lam + ((long long)w * a.S + s) * M;
-    rho_q[g] = a.rho[(long long)w * a.S + s];
-    c_q[g] = (a.c != nullptr && g < nq) ? a.c + ((long long)w * a.Q + q) * M : nullptr;
-    acc[2 * g] = 0.0f;
-    acc[2 * g + 1] = 0.0f;
-  }
-  // one row's clipped value for query g
-  auto row = [&](int g, int r, float thr, float c_raw) {
-    const float c = alm_clip(c_raw);
-    const float z = lam_q[g][r] + rho_q[g] * c;
-    acc[2 * g] += z > 0.0f ? z * z : 0.0f;
-    acc[2 * g + 1] += (c <= thr) ? 0.0f : 1.0f;
-    if (c_q[g] != nullptr) c_q[g][r] = c;
-  };
+// 16-byte asynchronous copy from device to shared memory (cp.async), and
+// the wait for all of a thread's copies
+__device__ __forceinline__ void k8_cp16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+}
 
-  // link centres at every (time, link) cell
-  const float* cw = a.center + (long long)w * 3 * TJ * B;
-  for (int r = warp; r < 3 * TJ; r += ALM_WARPS) {
-    float v[G];
-    alm_warp_dots<G>(cw + (long long)r * B, phi, B, v);
-    if (lane == 0) {
-      const int cell = r / 3, ax = r - 3 * (r / 3);
-#pragma unroll
-      for (int g = 0; g < G; ++g) p[(g * 3 + ax) * TJ + cell] = v[g];
+__device__ __forceinline__ void k8_cp_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// One clipped stack row: adds its penalty term and violation to (pen, cnt)
+// and returns the clipped value.
+__device__ __forceinline__ float k8_row(float c_raw, float lam, float rho, float thr, float& pen,
+                                        float& cnt) {
+  const float c = alm_clip(c_raw);
+  const float z = lam + rho * c;
+  pen += z > 0.0f ? z * z : 0.0f;
+  cnt += (c <= thr) ? 0.0f : 1.0f;
+  return c;
+}
+
+// (a) polynomial rows: [0, 3 TJ) link centres, [3 TJ, 3 TJ + TF) torques
+template <int NF, int R>
+__global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, float* p, int Qp,
+                                                             float* part, int ntiles) {
+  constexpr int SLOTS = K8A_THREADS / R;
+  constexpr int QPT = (K8_MAXQ + SLOTS - 1) / SLOTS;
+  extern __shared__ float4 k8_smem[];
+  const int P = k8_pitch(a.B);
+  float* kq = (float*)k8_smem;                 // [MAXQ][8]
+  float* phi = kq + 8 * K8_MAXQ;               // [MAXQ][P]
+  float* tile = phi + K8_MAXQ * P;             // [R][P]
+  float* pen = tile + R * P;                   // [MAXQ][R]
+  float* cnt = pen + K8_MAXQ * R;              // [MAXQ][R]
+  unsigned char* degs = (unsigned char*)(cnt + K8_MAXQ * R);   // [B][ALM_MAX_F]
+  const int w = blockIdx.y, t = blockIdx.x, tid = threadIdx.x;
+  const int Q = a.Q, B = a.B, TJ = a.TJ, TF = a.TF;
+  const int NC = 3 * TJ, NR = NC + TF, r0 = t * R;
+
+  // a warp per staged row, lanes along it: 16-byte asynchronous copies
+  // when rows are 16-byte aligned (B % 4 == 0), so that phi is formed while
+  // the rows arrive
+  const bool vec = B % 4 == 0;
+  for (int row = tid >> 5; row < R; row += K8A_THREADS / 32) {
+    const int rr = r0 + row;
+    const float* src = rr < NC ? a.center + ((long long)w * NC + rr) * B
+                               : a.u_coef + ((long long)w * TF + rr - NC) * B;
+    float* dst = tile + row * P;
+    if (vec && rr < NR) {
+      for (int b4 = tid & 31; b4 < B / 4; b4 += 32) k8_cp16(dst + 4 * b4, src + 4 * b4);
+      for (int b = B + (tid & 31); b < P; b += 32) dst[b] = 0.0f;
+    } else {
+      for (int b = tid & 31; b < P; b += 32) dst[b] = (b < B && rr < NR) ? src[b] : 0.0f;
     }
   }
-  // torque rows: +u - hi, then -u - hi
-  const float* uw = a.u_coef + (long long)w * TF * B;
-  for (int r = warp; r < TF; r += ALM_WARPS) {
-    float v[G];
-    alm_warp_dots<G>(uw + (long long)r * B, phi, B, v);
-    if (lane == 0) {
-      const float hi = a.u_hi[(long long)w * TF + r];
+  for (int i = tid; i < Q * NF; i += K8A_THREADS)
+    kq[(i / NF) * 8 + i % NF] = a.k[(long long)w * Q * NF + i];
+  for (int i = tid; i < B * ALM_MAX_F; i += K8A_THREADS) degs[i] = a.degs[i];
+  __syncthreads();
+  for (int i = tid; i < Q * P; i += K8A_THREADS) {
+    const int q = i / P, b = i - P * q;
+    float take[NF];
+    phi[i] = b < B ? alm_phi<NF>(degs + b * ALM_MAX_F, kq + q * 8, take) : 0.0f;
+  }
+  k8_cp_wait();
+  __syncthreads();
+
+  const int row = tid % R, slot = tid / R, rr = r0 + row;
+  float s[QPT];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        row(g, r, a.thr_torque, v[g] - hi);
-        row(g, TF + r, a.thr_torque, -v[g] - hi);
+  for (int j = 0; j < QPT; ++j) s[j] = 0.0f;
+  const float4* x4 = (const float4*)(tile + row * P);
+  for (int b4 = 0; b4 < P / 4; ++b4) {
+    const float4 x = x4[b4];
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+      const int q = slot + j * SLOTS;
+      if (q < Q) {
+        const float4 f = ((const float4*)(phi + q * P))[b4];
+        s[j] += x.x * f.x;
+        s[j] += x.y * f.y;
+        s[j] += x.z * f.z;
+        s[j] += x.w * f.w;
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < QPT; ++j) {
+    const int q = slot + j * SLOTS;
+    if (q >= K8_MAXQ) continue;
+    float pe = 0.0f, co = 0.0f;
+    if (q < Q && rr < NC) {
+      p[((long long)(w * Qp + q) * 3 + rr % 3) * TJ + rr / 3] = s[j];
+    } else if (q < Q && rr < NR) {
+      const int r = rr - NC, sd = a.seed[q];
+      const float* lam = a.lam + ((long long)w * a.S + sd) * a.M;
+      const float rho = a.rho[(long long)w * a.S + sd];
+      const float hi = a.u_hi[(long long)w * TF + r];
+      const float c1 = k8_row(s[j] - hi, lam[r], rho, a.thr_torque, pe, co);
+      const float c2 = k8_row(-s[j] - hi, lam[TF + r], rho, a.thr_torque, pe, co);
+      if (a.c != nullptr) {
+        float* cq = a.c + ((long long)w * Q + q) * a.M;
+        cq[r] = c1;
+        cq[TF + r] = c2;
+      }
+    }
+    pen[q * R + row] = pe;
+    cnt[q * R + row] = co;
+  }
   __syncthreads();
-
-  // screened collision rows
-  const unsigned char* mw = a.mask + (long long)w * K;
-  for (int r = tid; r < K; r += ALM_THREADS) {
-    float m[G];
-    alm_collision<G>(a, w, r, p, m, nullptr, nullptr);
-    const bool real = mw[r] != 0;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float gval = real ? -m[g] : -ALM_BIG;
-      row(g, 2 * TF + r, a.thr_col, gval + a.col_margin);
+  // per query: chunks of 8 rows (a thread each), then the chunk sums in order
+  constexpr int NCH = (R + 7) / 8;
+  float* chunk = tile;                         // the staged rows are no longer read
+  if (tid < K8_MAXQ * NCH) {
+    const int q = tid / NCH, ch = tid - NCH * q, r1 = min(R, 8 * ch + 8);
+    float pe = pen[q * R + 8 * ch], co = cnt[q * R + 8 * ch];
+    for (int i = 8 * ch + 1; i < r1; ++i) {
+      pe += pen[q * R + i];
+      co += cnt[q * R + i];
     }
+    chunk[tid * 2] = pe;
+    chunk[tid * 2 + 1] = co;
   }
-  // state rows: one thread per (query, factor)
-  if (tid < G * NF) {
-    const int gq = tid / NF, f = tid - NF * (tid / NF);
-    float c8[8], j8[8];
-    alm_state_rows(a, w, f, kq[gq * 8 + f], c8, j8);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g != gq) continue;
-      for (int grp = 0; grp < 8; ++grp) row(g, 2 * TF + K + grp * NF + f, a.thr_state, c8[grp]);
+  __syncthreads();
+  if (tid < Q) {
+    float pe = chunk[tid * NCH * 2], co = chunk[tid * NCH * 2 + 1];
+    for (int ch = 1; ch < NCH; ++ch) {
+      pe += chunk[(tid * NCH + ch) * 2];
+      co += chunk[(tid * NCH + ch) * 2 + 1];
     }
-  }
-
-  alm_block_sum<2 * G>(acc, red);
-  if (tid != 0) return;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g >= nq) continue;
-    float kk[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) kk[f] = kq[g * 8 + f];
-    const float cost = alm_cost(a, w, kk, nullptr);
-    const long long o = (long long)w * a.Q + q0 + g;
-    a.value[o] = cost + acc[2 * g] / (2.0f * rho_q[g]);
-    a.feas[o] = acc[2 * g + 1] == 0.0f ? 1 : 0;
+    float* o = part + (((long long)w * ntiles + t) * Q + tid) * 2;
+    o[0] = pe;
+    o[1] = co;
   }
 }
 
-template <int NF, int G>
-static int k8_launch_g(const AlmArgs* a, void* stream) {
-  const size_t smem = sizeof(float) * (8 * G + G * ALM_MAX_B + 3 * G * (size_t)a->TJ
-                                       + ALM_WARPS * 2 * G);
-  cudaError_t err = cudaFuncSetAttribute(k8_kernel<NF, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned int)((a->Q + G - 1) / G), (unsigned int)a->W);
-  k8_kernel<NF, G><<<grid, ALM_THREADS, smem, (cudaStream_t)stream>>>(*a);
+// (b) screened collision rows, G queries per thread
+template <int G>
+__global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs a, const float* p,
+                                                                  int Qp, float* part, int tile0,
+                                                                  int ntiles) {
+  __shared__ float red[(K8B_THREADS / 32) * 2 * G];
+  const int w = blockIdx.z, q0 = blockIdx.y * G, r = blockIdx.x * K8B_THREADS + threadIdx.x;
+  const int Q = a.Q, K = a.K, nq = min(G, Q - q0);
+  float acc[2 * G];
+#pragma unroll
+  for (int g = 0; g < 2 * G; ++g) acc[g] = 0.0f;
+  if (r < K) {
+    float m[G];
+    // queries q0 + g >= Q read the scratch's padding; their results are dropped
+    alm_collision<G>(a, w, r, p + (long long)(w * Qp + q0) * 3 * a.TJ, m, nullptr, nullptr);
+    const bool real = a.mask[(long long)w * K + r] != 0;
+    const int row = 2 * a.TF + r;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g >= nq) continue;
+      const int q = q0 + g, sd = a.seed[q];
+      const float gval = real ? -m[g] : -ALM_BIG;
+      const float c = k8_row(gval + a.col_margin, a.lam[((long long)w * a.S + sd) * a.M + row],
+                             a.rho[(long long)w * a.S + sd], a.thr_col, acc[2 * g],
+                             acc[2 * g + 1]);
+      if (a.c != nullptr) a.c[((long long)w * Q + q) * a.M + row] = c;
+    }
+  }
+  alm_block_sum<2 * G, K8B_THREADS / 32>(acc, red);
+  if (threadIdx.x != 0) return;
+  for (int g = 0; g < nq; ++g) {
+    float* o = part + (((long long)w * ntiles + tile0 + blockIdx.x) * Q + q0 + g) * 2;
+    o[0] = acc[2 * g];
+    o[1] = acc[2 * g + 1];
+  }
+}
+
+// (c) the finish: partials in tile order, then the state rows and the cost
+template <int NF>
+__global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a, const float* part,
+                                                               int ntiles) {
+  __shared__ float st[K8_MAXQ * NF * 2];
+  const int w = blockIdx.x, tid = threadIdx.x, Q = a.Q;
+  if (tid < Q * NF) {
+    const int q = tid / NF, f = tid % NF, sd = a.seed[q];
+    const float* lam = a.lam + ((long long)w * a.S + sd) * a.M;
+    const float rho = a.rho[(long long)w * a.S + sd];
+    float c8[8], j8[8], pe = 0.0f, co = 0.0f;
+    alm_state_rows(a, w, f, a.k[((long long)w * Q + q) * NF + f], c8, j8);
+    for (int grp = 0; grp < 8; ++grp) {
+      const int row = 2 * a.TF + a.K + grp * NF + f;
+      const float c = k8_row(c8[grp], lam[row], rho, a.thr_state, pe, co);
+      if (a.c != nullptr) a.c[((long long)w * Q + q) * a.M + row] = c;
+    }
+    st[tid * 2] = pe;
+    st[tid * 2 + 1] = co;
+  }
+  __syncthreads();
+  if (tid >= Q) return;
+  const int q = tid;
+  const float* pq = part + ((long long)w * ntiles * Q + q) * 2;
+  float pe = pq[0], co = pq[1];
+#pragma unroll 8
+  for (int t = 1; t < ntiles; ++t) {
+    pe += pq[(long long)t * Q * 2];
+    co += pq[(long long)t * Q * 2 + 1];
+  }
+  float kk[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    pe += st[(q * NF + f) * 2];
+    co += st[(q * NF + f) * 2 + 1];
+    kk[f] = a.k[((long long)w * Q + q) * NF + f];
+  }
+  const float rho = a.rho[(long long)w * a.S + a.seed[q]];
+  const long long o = (long long)w * Q + q;
+  a.value[o] = alm_cost(a, w, kk, nullptr) + pe / (2.0f * rho);
+  a.feas[o] = co == 0.0f ? 1 : 0;
+}
+
+static size_t k8_rows_smem(int B, int R) {
+  const int P = k8_pitch(B);
+  return sizeof(float) * (8 * K8_MAXQ + (size_t)K8_MAXQ * P + (size_t)R * P + 2 * K8_MAXQ * R)
+         + (size_t)B * ALM_MAX_F;
+}
+
+template <int NF, int R>
+static int k8_rows(const AlmArgs* a, float* p, int Qp, float* part, int ntiles, void* stream) {
+  const size_t smem = k8_rows_smem(a->B, R);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(k8_rows_kernel<NF, R>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((unsigned int)((3 * a->TJ + a->TF + R - 1) / R), (unsigned int)a->W);
+  k8_rows_kernel<NF, R><<<grid, K8A_THREADS, smem, (cudaStream_t)stream>>>(*a, p, Qp, part, ntiles);
+  return (int)cudaGetLastError();
+}
+
+template <int G>
+static int k8_collision(const AlmArgs* a, const float* p, int Qp, float* part, int tile0,
+                        int ntiles, void* stream) {
+  dim3 grid((unsigned int)((a->K + K8B_THREADS - 1) / K8B_THREADS),
+            (unsigned int)((a->Q + G - 1) / G), (unsigned int)a->W);
+  k8_collision_kernel<G><<<grid, K8B_THREADS, 0, (cudaStream_t)stream>>>(*a, p, Qp, part, tile0,
+                                                                         ntiles);
   return (int)cudaGetLastError();
 }
 
 template <int NF>
-static int k8_launch_nf(const AlmArgs* a, int G, void* stream) {
-  switch (G) {
-    case 1: return k8_launch_g<NF, 1>(a, stream);
-    case 2: return k8_launch_g<NF, 2>(a, stream);
-    case 4: return k8_launch_g<NF, 4>(a, stream);
+static int k8_launch_nf(const AlmArgs* a, float* p, float* part, int R, int G, void* stream) {
+  const int Qp = (a->Q + G - 1) / G * G;
+  const int tiles_a = (3 * a->TJ + a->TF + R - 1) / R;
+  const int ntiles = tiles_a + (a->K + K8B_THREADS - 1) / K8B_THREADS;
+  int err;
+  switch (R) {
+    case 64: err = k8_rows<NF, 64>(a, p, Qp, part, ntiles, stream); break;
+    case 32: err = k8_rows<NF, 32>(a, p, Qp, part, ntiles, stream); break;
+    case 16: err = k8_rows<NF, 16>(a, p, Qp, part, ntiles, stream); break;
+    case 8: err = k8_rows<NF, 8>(a, p, Qp, part, ntiles, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
+  if (a->K > 0) {
+    switch (G) {
+      case 16: err = k8_collision<16>(a, p, Qp, part, tiles_a, ntiles, stream); break;
+      case 12: err = k8_collision<12>(a, p, Qp, part, tiles_a, ntiles, stream); break;
+      case 8: err = k8_collision<8>(a, p, Qp, part, tiles_a, ntiles, stream); break;
+      case 6: err = k8_collision<6>(a, p, Qp, part, tiles_a, ntiles, stream); break;
+      case 4: err = k8_collision<4>(a, p, Qp, part, tiles_a, ntiles, stream); break;
+      case 2: err = k8_collision<2>(a, p, Qp, part, tiles_a, ntiles, stream); break;
+      case 1: err = k8_collision<1>(a, p, Qp, part, tiles_a, ntiles, stream); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (err) return err;
+  }
+  k8_finish_kernel<NF><<<(unsigned int)a->W, K8C_THREADS, 0, (cudaStream_t)stream>>>(*a, part,
+                                                                                   ntiles);
+  return (int)cudaGetLastError();
 }
 
-// G: queries per CTA (1, 2 or 4)
-extern "C" int k8_launch(const AlmArgs* a, int G, void* stream) {
+// p: scratch [W, Qp, 3, TJ] (Qp = Q rounded up to G); part: scratch
+// [W, ntiles, Q, 2]; R: polynomial rows per CTA (8, 16, 32, 64); G:
+// queries per collision thread (1, 2, 4, 6, 8, 12, 16); Q <= 16.
+extern "C" int k8_launch(const AlmArgs* a, float* p, float* part, int R, int G, void* stream) {
+  if (a->Q > K8_MAXQ) return (int)cudaErrorInvalidValue;
   switch (a->F) {
-    case 7: return k8_launch_nf<7>(a, G, stream);
+    case 7: return k8_launch_nf<7>(a, p, part, R, G, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

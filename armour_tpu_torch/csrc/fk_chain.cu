@@ -27,7 +27,7 @@
 // fk_t [3] stays in shared memory across the joints as packed PZ entries
 // (ld = B + E + 1 floats each, two fk_r buffers), ~25 KB of shared memory
 // in all at the flagship widths; every product is a pz_ops.cuh op (the code
-// of K1), its abs masses block reductions in a fixed order.  R_i and the
+// of K1), its abs masses taken a warp per entry in a fixed order.  R_i and the
 // link box are staged per joint, the links written per joint.
 //
 // Built without fast math and with -fmad=false: IEEE float32 everywhere.
@@ -56,12 +56,11 @@ struct K9Args {
 __global__ void __launch_bounds__(K9_THREADS) k9_kernel(const K9Args args) {
   extern __shared__ float4 k9_smem[];
   unsigned char* tab = (unsigned char*)k9_smem;
-  float* red = (float*)(tab + PZ_TAB_BYTES);
-  float* mass = red + PZ_RED_FLOATS;
+  float* mass = (float*)(tab + PZ_TAB_BYTES);
   float* trans = mass + 4 * PZ_MAXMASS;          // [J, 3]
   float* ent = trans + 3 * K9_MAXJ;
   PZCtx c;
-  pz_ctx_init(c, tab, red, mass);
+  pz_ctx_init(c, tab, mass);
   const int B = c.B, E = c.E, ld = c.ld, J = args.J;
   float* fr0 = ent;               // fk_r, two buffers of 9 entries
   float* ft = fr0 + 18 * ld;      // fk_t, 3
@@ -108,7 +107,7 @@ extern "C" int k9_tables(const PZTables* t) { return pz_upload_tables(t); }
 
 extern "C" int k9_launch(const K9Args* args, long long blocks, int ld, void* stream) {
   const size_t smem = PZ_TAB_BYTES
-      + sizeof(float) * (PZ_RED_FLOATS + 4 * PZ_MAXMASS + 3 * K9_MAXJ + 39 * ld);
+      + sizeof(float) * (4 * PZ_MAXMASS + 3 * K9_MAXJ + 39 * ld);
   cudaError_t err = cudaFuncSetAttribute(k9_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;

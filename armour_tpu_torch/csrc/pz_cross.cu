@@ -44,11 +44,10 @@ struct K2Args {
 __global__ void __launch_bounds__(K2_THREADS) k2_kernel(const K2Args args) {
   extern __shared__ float4 k2_smem[];
   unsigned char* tab = (unsigned char*)k2_smem;
-  float* red = (float*)(tab + PZ_TAB_BYTES);
-  float* mass = red + PZ_RED_FLOATS;
+  float* mass = (float*)(tab + PZ_TAB_BYTES);
   float* ent = mass + 4 * PZ_MAXMASS;
   PZCtx c;
-  pz_ctx_init(c, tab, red, mass);
+  pz_ctx_init(c, tab, mass);
   const int B = c.B, E = c.E, ld = c.ld;
   float* sa = ent;
   float* sb = sa + 3 * ld;
@@ -88,7 +87,7 @@ __global__ void __launch_bounds__(K2_THREADS) k2_kernel(const K2Args args) {
 extern "C" int k2_tables(const PZTables* t) { return pz_upload_tables(t); }
 
 extern "C" int k2_launch(const K2Args* args, long long blocks, int ld, void* stream) {
-  const size_t smem = PZ_TAB_BYTES + sizeof(float) * (PZ_RED_FLOATS + 4 * PZ_MAXMASS + 9 * ld);
+  const size_t smem = PZ_TAB_BYTES + sizeof(float) * (4 * PZ_MAXMASS + 9 * ld);
   k2_kernel<<<(unsigned int)blocks, K2_THREADS, smem, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@
 // Design: one block per batch element, 128 threads.  The block stages both
 // operands in shared memory as packed PZ entries (coalesced along the
 // monomial axis) and runs pz_matmul_linear of pz_ops.cuh, the same code the
-// chain kernels run: the abs masses are block reductions in a fixed order,
+// chain kernels run: the abs masses taken a warp per entry in a fixed order,
 // the basis tables sit in constant memory and are copied to shared memory
 // per block.  Results do not depend on the launch.
 //
@@ -45,11 +45,10 @@ struct K1Args {
 __global__ void __launch_bounds__(K1_THREADS) k1_kernel(const K1Args args) {
   extern __shared__ float4 k1_smem[];
   unsigned char* tab = (unsigned char*)k1_smem;
-  float* red = (float*)(tab + PZ_TAB_BYTES);
-  float* mass = red + PZ_RED_FLOATS;
+  float* mass = (float*)(tab + PZ_TAB_BYTES);
   float* ent = mass + 4 * PZ_MAXMASS;
   PZCtx c;
-  pz_ctx_init(c, tab, red, mass);
+  pz_ctx_init(c, tab, mass);
   const int n = args.n, m = args.m, p = args.p;
   const int B = c.B, E = c.E, ld = c.ld;
   float* sa = ent;
@@ -97,7 +96,7 @@ extern "C" int k1_tables(const PZTables* t) { return pz_upload_tables(t); }
 
 extern "C" int k1_launch(const K1Args* args, long long blocks, int ld, void* stream) {
   const int ents = args->n * args->m + args->m * args->p + args->n * args->p;
-  const size_t smem = PZ_TAB_BYTES + sizeof(float) * (PZ_RED_FLOATS + 4 * PZ_MAXMASS + ents * ld);
+  const size_t smem = PZ_TAB_BYTES + sizeof(float) * (4 * PZ_MAXMASS + ents * ld);
   k1_kernel<<<(unsigned int)blocks, K1_THREADS, smem, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

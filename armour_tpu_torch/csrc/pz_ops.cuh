@@ -4,23 +4,29 @@
 // arithmetic here is what keeps the op-level kernels and the fused chains
 // from drifting apart.
 //
-// One block works on one batch element (a world, parameter set and time
-// step).  A PZ entry is packed in shared memory as
+// One thread group works on one batch element (a world, parameter set and
+// time step).  A group is a whole block (K1, K2, K9: __syncthreads), one
+// warp (__syncwarp) or a few warps with a named barrier of their own
+// (bar.sync id, n), so that K10 runs several elements per block with no
+// block-wide barrier between their ops; its size is a multiple of 32.  A PZ
+// entry is packed in shared memory as
 //     [coef 0..B) | egen B..B+E) | rad]       (ld = B + E + 1 floats)
 // and a matrix of entries is a PZMat view: entry (r, c) starts at
 // p + r * rs + c * cs (floats), so transposes and column slices are views.
+// The pointer may also be a global one (K10 keeps its links' forces there).
 //
-// Every op is called by all threads of the block, reads operands that are
-// ready, and ends with __syncthreads(), so its output is ready for the next
-// op.  Outputs never alias inputs, except pz_add and pz_add_scaled_axis,
-// which are elementwise and may write in place.
+// Every op is called by all threads of the group, reads operands that are
+// ready, and ends with the group's barrier, so its output is ready for the
+// next op.  Outputs never alias inputs, except pz_add, pz_add_scaled_axis
+// and pz_add_cross_pz_const, which are elementwise and may write in place.
 //
 // Each op repeats the plain PyTorch version's formula term by term
 // (armour_tpu_torch/pz/bpz.py, which follows armour_tpu/pz/bpz.py); only
 // the order of long sums differs.  The abs masses (sum |coef|, sum |egen|)
-// are block reductions in a fixed order: chunks of PZ_CH terms summed by
-// one thread each, then the chunk sums in order, so repeated calls give the
-// same bits.  Built with -fmad=false and no fast math.
+// of an entry are taken by one warp in a fixed order: lane l sums the terms
+// l, l + 32, ... in order, then a shuffle butterfly; so the masses, and
+// every result, are the same bits whatever the group's size, and repeated
+// calls give the same bits.  Built with -fmad=false and no fast math.
 //
 // The tables of the monomial basis live in constant memory (uploaded once
 // per library by pz_upload_tables) and are copied to shared memory at the
@@ -33,10 +39,11 @@
 #define PZ_MAXE 64
 #define PZ_MAXNF 8
 #define PZ_MAXPAIRS 1024
-#define PZ_CH 8
 #define PZ_TAB_BYTES 3520
 #define PZ_MAXMASS 32          // entries one pz_masses call may take
-#define PZ_RED_FLOATS 1536     // reduction scratch, floats
+#define PZ_MAXM 3              // inner dimension of pz_matmul_linear at most
+#define PZ_MB 3                // entries a warp reduces at once
+#define PZ_FULL 0xffffffffu
 
 struct PZTables {
   int B, E, nf, P;                        // monomials, error slots, factors, pairs
@@ -54,6 +61,22 @@ static inline int pz_upload_tables(const PZTables* t) {
   return (int)cudaMemcpyToSymbol(c_pz, t, sizeof(PZTables));
 }
 
+// The threads that work on one element: rank in [0, size), size a multiple
+// of 32; bar 0 is the whole block, else a named barrier id (1..15).
+struct PZGroup {
+  int rank, size, bar;
+};
+
+__device__ __forceinline__ void pz_sync(const PZGroup& g) {
+  if (g.size == 32) {
+    __syncwarp();
+  } else if (g.bar == 0) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(g.bar), "r"(g.size) : "memory");
+  }
+}
+
 struct PZCtx {
   int B, E, nf, ld;
   const int* lin;
@@ -62,8 +85,8 @@ struct PZCtx {
   const unsigned char* ovf;
   const unsigned char* pi;
   const unsigned char* pj;
-  float* red;    // PZ_RED_FLOATS of scratch
-  float* mass;   // 4 * PZ_MAXMASS of scratch
+  float* mass;   // 4 * PZ_MAXMASS floats of the group's scratch
+  PZGroup g;
 };
 
 struct PZMat {
@@ -74,14 +97,12 @@ struct PZMat {
 __device__ __forceinline__ float* pz_at(PZMat v, int r, int c) { return v.p + r * v.rs + c * v.cs; }
 __device__ __forceinline__ PZMat pz_mat(float* p, int rs, int cs) { PZMat v = {p, rs, cs}; return v; }
 __device__ __forceinline__ PZMat pz_t(PZMat v) { PZMat t = {v.p, v.cs, v.rs}; return t; }
-// column c of a matrix view as a vector view (rows at rs)
-__device__ __forceinline__ PZMat pz_col(PZMat v, int c) { PZMat t = {v.p + c * v.cs, v.rs, 0}; return t; }
 __device__ __forceinline__ int pz_u(int o) { return (o + 1) % 3; }
 __device__ __forceinline__ int pz_v(int o) { return (o + 2) % 3; }
 
-// Copy the basis tables to shared memory (tab: PZ_TAB_BYTES bytes) and set
-// up the context.  Ends with __syncthreads().
-__device__ void pz_ctx_init(PZCtx& c, unsigned char* tab, float* red, float* mass) {
+// Copy the basis tables to shared memory (tab: PZ_TAB_BYTES bytes), by the
+// whole block; ends with __syncthreads().
+__device__ void pz_tables_init(unsigned char* tab) {
   int* lin = (int*)tab;
   short* seg = (short*)(tab + 32);
   unsigned char* src = tab + 32 + 2 * (PZ_MAXB + 2);
@@ -97,68 +118,141 @@ __device__ void pz_ctx_init(PZCtx& c, unsigned char* tab, float* red, float* mas
   for (int i = threadIdx.x; i <= B; i += blockDim.x) seg[i] = c_pz.seg[i];
   for (int i = threadIdx.x; i < B; i += blockDim.x) ovf[i] = c_pz.ovf[i];
   for (int i = threadIdx.x; i < nf; i += blockDim.x) lin[i] = c_pz.lin[i];
-  c.B = B;
-  c.E = c_pz.E;
-  c.nf = nf;
-  c.ld = B + c_pz.E + 1;
-  c.lin = lin;
-  c.seg = seg;
-  c.src = src;
-  c.ovf = ovf;
-  c.pi = pi;
-  c.pj = pj;
-  c.red = red;
-  c.mass = mass;
   __syncthreads();
 }
 
-// Abs masses of the entries of two matrix views (n0 x m0, then n1 x m1;
-// either may be empty), in a fixed order.  For entry k (row-major, view 0
-// first) c.mass[4k + 0..3] = S = sum_b |coef_b|, E = sum_q |egen_q|,
-// A1 = sum_f |coef_lin(f)|, O = sum_b ovf_b |coef_b|.
-__device__ void pz_masses(const PZCtx& c, PZMat v0, int n0, int m0, PZMat v1, int n1, int m1) {
+// The context of one group over tables already in shared memory.
+__device__ void pz_ctx(PZCtx& c, unsigned char* tab, float* mass, PZGroup g) {
+  c.B = c_pz.B;
+  c.E = c_pz.E;
+  c.nf = c_pz.nf;
+  c.ld = c.B + c.E + 1;
+  c.lin = (const int*)tab;
+  c.seg = (const short*)(tab + 32);
+  c.src = tab + 32 + 2 * (PZ_MAXB + 2);
+  c.ovf = c.src + PZ_MAXNF * PZ_MAXB;
+  c.pi = c.ovf + PZ_MAXB;
+  c.pj = c.pi + PZ_MAXPAIRS;
+  c.mass = mass;
+  c.g = g;
+}
+
+// Tables and context for a block that is one group (K1, K2, K9).
+__device__ void pz_ctx_init(PZCtx& c, unsigned char* tab, float* mass) {
+  pz_tables_init(tab);
+  PZGroup g = {(int)threadIdx.x, (int)blockDim.x, 0};
+  pz_ctx(c, tab, mass, g);
+}
+
+__device__ __forceinline__ float pz_warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(PZ_FULL, v, off);
+  return v;
+}
+
+// One entry's coefficients and error generators (packed: e = c + B).
+struct PZEnt {
+  const float* c;
+  const float* e;
+};
+
+// Abs masses of N entries, a warp per MB entries (their chains
+// interleave); entry k (ent(k)) gets S = sum_b |coef_b|, Ee = sum_q
+// |egen_q|, A1 = sum_f |coef_lin(f)|, O = sum_b ovf_b |coef_b|, each summed
+// by lane l over the terms l, l + 32, ... in order, then a shuffle
+// butterfly, whatever warp takes it; put(k, S, Ee, A1, O) runs on every
+// lane of that warp.
+template <int MB, class Ent, class Put>
+__device__ __forceinline__ void pz_mass_batches(const PZCtx& c, int N, Ent ent, Put put) {
+  const int warp = c.g.rank >> 5, nw = c.g.size >> 5, lane = c.g.rank & 31;
   const int B = c.B, E = c.E;
-  const int nc = (B + PZ_CH - 1) / PZ_CH, ne = (E + PZ_CH - 1) / PZ_CH;
-  const int per = 2 * nc + ne;
-  const int N0 = n0 * m0, N = N0 + n1 * m1;
-  for (int it = threadIdx.x; it < N * (nc + ne); it += blockDim.x) {
-    const int k = it / (nc + ne), ch = it % (nc + ne);
-    const float* e = k < N0 ? pz_at(v0, k / m0, k % m0) : pz_at(v1, (k - N0) / m1, (k - N0) % m1);
-    float* part = c.red + k * per;
-    if (ch < nc) {
-      float s = 0.0f, o = 0.0f;
-      const int hi = min(B, (ch + 1) * PZ_CH);
-      for (int b = ch * PZ_CH; b < hi; ++b) {
-        const float a = fabsf(e[b]);
-        s += a;
-        if (c.ovf[b]) o += a;
+  for (int k0 = warp * MB; k0 < N; k0 += nw * MB) {
+    PZEnt p[MB];
+    float s[MB], o[MB], e[MB], a1[MB];
+#pragma unroll
+    for (int u = 0; u < MB; ++u) {
+      p[u] = ent(min(k0 + u, N - 1));
+      s[u] = 0.0f;
+      o[u] = 0.0f;
+      e[u] = 0.0f;
+      a1[u] = 0.0f;
+    }
+#pragma unroll 4
+    for (int b = lane; b < B; b += 32) {
+      const bool ov = c.ovf[b] != 0;
+#pragma unroll
+      for (int u = 0; u < MB; ++u) {
+        const float a = fabsf(p[u].c[b]);
+        s[u] += a;
+        if (ov) o[u] += a;
       }
-      part[ch] = s;
-      part[nc + ch] = o;
-    } else {
-      const int q0 = (ch - nc) * PZ_CH, hi = min(E, q0 + PZ_CH);
-      float s = 0.0f;
-      for (int q = q0; q < hi; ++q) s += fabsf(e[B + q]);
-      part[2 * nc + ch - nc] = s;
     }
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < N; k += blockDim.x) {
-    const float* e = k < N0 ? pz_at(v0, k / m0, k % m0) : pz_at(v1, (k - N0) / m1, (k - N0) % m1);
-    const float* part = c.red + k * per;
-    float s = part[0], o = part[nc], ee = ne ? part[2 * nc] : 0.0f, a1 = 0.0f;
-    for (int ch = 1; ch < nc; ++ch) {
-      s += part[ch];
-      o += part[nc + ch];
+#pragma unroll 2
+    for (int q = lane; q < E; q += 32) {
+#pragma unroll
+      for (int u = 0; u < MB; ++u) e[u] += fabsf(p[u].e[q]);
     }
-    for (int ch = 1; ch < ne; ++ch) ee += part[2 * nc + ch];
-    for (int f = 0; f < c.nf; ++f) a1 += fabsf(e[c.lin[f]]);
-    c.mass[4 * k + 0] = s;
-    c.mass[4 * k + 1] = ee;
-    c.mass[4 * k + 2] = a1;
-    c.mass[4 * k + 3] = o;
+#pragma unroll
+    for (int f = 0; f < PZ_MAXNF; ++f) {
+      if (f < c.nf) {
+        const int li = c.lin[f];
+#pragma unroll
+        for (int u = 0; u < MB; ++u) a1[u] += fabsf(p[u].c[li]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < MB; ++u) {
+      s[u] = pz_warp_sum(s[u]);
+      o[u] = pz_warp_sum(o[u]);
+      e[u] = pz_warp_sum(e[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < MB; ++u)
+      if (k0 + u < N) put(k0 + u, s[u], e[u], a1[u], o[u]);
   }
-  __syncthreads();
+}
+
+// pz_mass_batches with PZ_MB entries a warp, or one where the group has
+// three warps or more (they then work side by side): the same bits.
+template <class Ent, class Put>
+__device__ __forceinline__ void pz_mass_loop(const PZCtx& c, int N, Ent ent, Put put) {
+  if (c.g.size >= 96) pz_mass_batches<1>(c, N, ent, put);
+  else pz_mass_batches<PZ_MB>(c, N, ent, put);
+}
+
+// Abs masses of N packed entries, entry k at ent(k): c.mass[4k + 0..3] =
+// S, E, A1, O as pz_mass_loop.  Ends with the group's barrier.
+template <class EntPtr>
+__device__ void pz_masses_of(const PZCtx& c, int N, EntPtr ent) {
+  const int B = c.B;
+  const bool lane0 = (c.g.rank & 31) == 0;
+  float* mass = c.mass;
+  pz_mass_loop(
+      c, N,
+      [&](int k) {
+        const float* e = ent(k);
+        PZEnt r = {e, e + B};
+        return r;
+      },
+      [&](int k, float S, float Ee, float A1, float O) {
+        if (lane0) {
+          mass[4 * k + 0] = S;
+          mass[4 * k + 1] = Ee;
+          mass[4 * k + 2] = A1;
+          mass[4 * k + 3] = O;
+        }
+      });
+  pz_sync(c.g);
+}
+
+// Abs masses of the entries of two matrix views (n0 x m0, then n1 x m1;
+// either may be empty), entry k row-major, view 0 first.
+__device__ void pz_masses(const PZCtx& c, PZMat v0, int n0, int m0, PZMat v1, int n1, int m1) {
+  const int N0 = n0 * m0;
+  pz_masses_of(c, N0 + n1 * m1, [&](int k) {
+    return k < N0 ? pz_at(v0, k / m0, k % m0)
+                  : pz_at(v1, (k - N0) / m1, (k - N0) % m1);
+  });
 }
 
 __device__ __forceinline__ void pz_masses1(const PZCtx& c, PZMat v, int n, int m) {
@@ -169,14 +263,41 @@ __device__ __forceinline__ void pz_masses1(const PZCtx& c, PZMat v, int n, int m
 // rad <- rad + slop (sum |coef| + sum |egen| + rad), per entry of out.
 __device__ void pz_slop(const PZCtx& c, PZMat out, int n, int p, float slop) {
   if (slop == 0.0f) return;
-  pz_masses1(c, out, n, p);
-  const int rix = c.B + c.E;
-  for (int k = threadIdx.x; k < n * p; k += blockDim.x) {
-    float* e = pz_at(out, k / p, k % p);
-    const float r = e[rix];
-    e[rix] = r + slop * (c.mass[4 * k] + c.mass[4 * k + 1] + r);
+  const int B = c.B, rix = c.B + c.E;
+  const bool lane0 = (c.g.rank & 31) == 0;
+  pz_mass_loop(
+      c, n * p,
+      [&](int k) {
+        const float* e = pz_at(out, k / p, k % p);
+        PZEnt r = {e, e + B};
+        return r;
+      },
+      [&](int k, float S, float Ee, float, float) {
+        if (lane0) {
+          float* e = pz_at(out, k / p, k % p);
+          const float r = e[rix];
+          e[rix] = r + slop * (S + Ee + r);
+        }
+      });
+  pz_sync(c.g);
+}
+
+// f(k, x) for every k < N and x < c.ld, spread over the group (item
+// k ld + x to thread item mod size), without a division per item.
+template <class F>
+__device__ __forceinline__ void pz_each(const PZCtx& c, int N, F f) {
+  const int ld = c.ld, size = c.g.size;
+  const int dk = size / ld, dx = size - dk * ld;
+  int k = c.g.rank / ld, x = c.g.rank - k * ld;
+  while (k < N) {
+    f(k, x);
+    x += dx;
+    k += dk;
+    if (x >= ld) {
+      x -= ld;
+      ++k;
+    }
   }
-  __syncthreads();
 }
 
 // Load n contiguous entries from global arrays (coef [n, B], egen [n, E],
@@ -184,212 +305,410 @@ __device__ void pz_slop(const PZCtx& c, PZMat out, int n, int p, float slop) {
 __device__ void pz_load(const PZCtx& c, float* dst, int n, const float* coef,
                         const float* egen, const float* rad) {
   const int B = c.B, E = c.E, ld = c.ld;
-  for (int it = threadIdx.x; it < n * ld; it += blockDim.x) {
-    const int k = it / ld, x = it % ld;
-    dst[it] = x < B ? coef[k * B + x] : x < B + E ? egen[k * E + x - B] : rad[k];
-  }
+  pz_each(c, n, [&](int k, int x) {
+    dst[k * ld + x] = x < B ? coef[k * B + x] : x < B + E ? egen[k * E + x - B] : rad[k];
+  });
 }
 
 // Store the entries of a vector view (n entries) to contiguous global arrays.
 __device__ void pz_store(const PZCtx& c, PZMat v, int n, float* coef, float* egen, float* rad) {
-  const int B = c.B, E = c.E, ld = c.ld;
-  for (int it = threadIdx.x; it < n * ld; it += blockDim.x) {
-    const int k = it / ld, x = it % ld;
+  const int B = c.B, E = c.E;
+  pz_each(c, n, [&](int k, int x) {
     const float val = pz_at(v, k, 0)[x];
     if (x < B) coef[k * B + x] = val;
     else if (x < B + E) egen[k * E + x - B] = val;
     else rad[k] = val;
-  }
+  });
 }
+
+// ---------------------------------------------------------------------------
+// degree <= 1 matrix operands in compact form (K10's rotations)
+// ---------------------------------------------------------------------------
+
+// floats of a compact entry, [coef 0 | coef lin(0..nf) | egen (E) | rad | S | E | A1],
+// rounded up to a multiple of 4 so that entries stay 16-byte aligned
+__host__ __device__ __forceinline__ int pz_lin_ld(int nf, int E) {
+  return (nf + E + 5 + 3) / 4 * 4;
+}
+
+// Load n contiguous entries (global coef [n, B], egen [n, E], rad [n]) into
+// compact entries at dst, dst + ldl, ..., with their abs masses taken over
+// every coefficient as pz_masses takes them: the same bits as the packed
+// entry would give.  Ends with the group's barrier.
+__device__ void pz_load_lin(const PZCtx& c, float* dst, int n, const float* coef,
+                            const float* egen, const float* rad) {
+  const int B = c.B, E = c.E, nf = c.nf, ldl = pz_lin_ld(nf, E);
+  const bool lane0 = (c.g.rank & 31) == 0;
+  pz_mass_loop(
+      c, n,
+      [&](int k) {
+        PZEnt r = {coef + (long long)k * B, egen + (long long)k * E};
+        return r;
+      },
+      [&](int k, float S, float Ee, float A1, float) {
+        if (lane0) {
+          float* d = dst + k * ldl;
+          d[1 + nf + E] = rad[k];
+          d[2 + nf + E] = S;
+          d[3 + nf + E] = Ee;
+          d[4 + nf + E] = A1;
+        }
+      });
+  for (int it = c.g.rank; it < n * 32; it += c.g.size) {
+    const int k = it >> 5;
+    for (int x = it & 31; x < 1 + nf + E; x += 32) {
+      const float* ce = coef + (long long)k * B;
+      dst[k * ldl + x] = x == 0 ? ce[0]
+                         : x <= nf ? ce[c.lin[x - 1]] : egen[(long long)k * E + x - 1 - nf];
+    }
+  }
+  pz_sync(c.g);
+}
+
+// The a operand of pz_matmul_linear_t: packed entries, masses from pz_masses
+// (mass of entry (i, j) at mass[4 (i m + j)]).
+struct PZDenseA {
+  PZMat v;
+  const float* mass;
+  int m;
+  __device__ const float* ent(int i, int j) const { return pz_at(v, i, j); }
+  __device__ float c0(const PZCtx&, const float* e) const { return e[0]; }
+  // coefficient 0 and the linear ones: k[0] = coef 0, k[1 + f] = coef lin(f)
+  __device__ void coefs(const PZCtx& c, const float* e, float* k) const {
+    k[0] = e[0];
+#pragma unroll
+    for (int f = 0; f < PZ_MAXNF; ++f) k[1 + f] = f < c.nf ? e[c.lin[f]] : 0.0f;
+  }
+  __device__ float eg(const PZCtx&, const float* e, int x) const { return e[x]; }
+  __device__ float rad(const PZCtx& c, const float* e) const { return e[c.B + c.E]; }
+  __device__ void masses(const PZCtx&, const float*, int i, int j, float& S, float& Ee,
+                         float& A1) const {
+    const int k = 4 * (i * m + j);
+    S = mass[k];
+    Ee = mass[k + 1];
+    A1 = mass[k + 2];
+  }
+};
+
+// The a operand of pz_matmul_linear_t: compact entries (pz_load_lin); entry
+// (i, j) at p + i rs + j cs, so a transpose is a view.
+struct PZLinA {
+  const float* p;
+  int rs, cs;
+  __device__ const float* ent(int i, int j) const { return p + i * rs + j * cs; }
+  __device__ float c0(const PZCtx&, const float* e) const { return e[0]; }
+  // two 16-byte loads (entries are 16-byte aligned), a third for nf = 8
+  __device__ void coefs(const PZCtx& c, const float* e, float* k) const {
+    const float4 u = ((const float4*)e)[0], w = ((const float4*)e)[1];
+    k[0] = u.x; k[1] = u.y; k[2] = u.z; k[3] = u.w;
+    k[4] = w.x; k[5] = w.y; k[6] = w.z; k[7] = w.w;
+    k[8] = c.nf > 7 ? e[8] : 0.0f;
+  }
+  __device__ float eg(const PZCtx& c, const float* e, int x) const { return e[1 + c.nf + x - c.B]; }
+  __device__ float rad(const PZCtx& c, const float* e) const { return e[1 + c.nf + c.E]; }
+  __device__ void masses(const PZCtx& c, const float* e, int, int, float& S, float& Ee,
+                         float& A1) const {
+    S = e[2 + c.nf + c.E];
+    Ee = e[3 + c.nf + c.E];
+    A1 = e[4 + c.nf + c.E];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the ops
+// ---------------------------------------------------------------------------
 
 // Set n entries of a vector view to zero.
 __device__ void pz_zero(const PZCtx& c, PZMat v, int n) {
-  for (int it = threadIdx.x; it < n * c.ld; it += blockDim.x) pz_at(v, it / c.ld, 0)[it % c.ld] = 0.0f;
-  __syncthreads();
+  pz_each(c, n, [&](int k, int x) { pz_at(v, k, 0)[x] = 0.0f; });
+  pz_sync(c.g);
+}
+
+// out = a over n entries of vector views.
+__device__ void pz_copy(const PZCtx& c, PZMat a, PZMat out, int n) {
+  pz_each(c, n, [&](int k, int x) { pz_at(out, k, 0)[x] = pz_at(a, k, 0)[x]; });
+  pz_sync(c.g);
 }
 
 // out = a + b over n x m entries (bpz.add); out may be a or b.
 __device__ void pz_add(const PZCtx& c, PZMat a, PZMat b, PZMat out, int n, int m) {
-  const int ld = c.ld;
-  for (int it = threadIdx.x; it < n * m * ld; it += blockDim.x) {
-    const int k = it / ld, x = it % ld, r = k / m, cc = k % m;
+  pz_each(c, n * m, [&](int k, int x) {
+    const int r = k / m, cc = k - m * r;
     pz_at(out, r, cc)[x] = pz_at(a, r, cc)[x] + pz_at(b, r, cc)[x];
-  }
-  __syncthreads();
+  });
+  pz_sync(c.g);
 }
 
-// v[ax] += sgn * (s * x) for a scalar PZ x: bpz.add(v, _embed(bpz.scale(x, s),
-// ax, sgn)); the other components gain exact zeros and are left as they are.
+// v[ax] += sgn * (s * x) for a scalar PZ x given as (coef [B], egen [E],
+// rad): bpz.add(v, _embed(bpz.scale(x, s), ax, sgn)); the other components
+// gain exact zeros and are left as they are.
 __device__ void pz_add_scaled_axis(const PZCtx& c, PZMat v, int ax, float sgn, float s,
-                                   const float* x) {
-  const int ld = c.ld, rix = c.B + c.E;
+                                   const float* xc, const float* xe, const float* xr) {
+  const int ld = c.ld, B = c.B, rix = c.B + c.E;
   float* e = pz_at(v, ax, 0);
-  for (int i = threadIdx.x; i < ld; i += blockDim.x) {
-    if (i < rix) e[i] = e[i] + sgn * (x[i] * s);
-    else e[i] = e[i] + fabsf(sgn) * (x[i] * fabsf(s));
+  for (int i = c.g.rank; i < ld; i += c.g.size) {
+    if (i < B) e[i] = e[i] + sgn * (xc[i] * s);
+    else if (i < rix) e[i] = e[i] + sgn * (xe[i - B] * s);
+    else e[i] = e[i] + fabsf(sgn) * (xr[0] * fabsf(s));
   }
-  __syncthreads();
+  pz_sync(c.g);
 }
 
 // out = a @ b for a matrix PZ a [n, m] of degree <= 1 in k and a matrix PZ
-// b [m, p] (bpz.matmul_linear_plain; armour_tpu/pz/bpz.py:214-285).  Only
-// coefficient 0 and the linear ones of a enter the product (the shift
-// table); all of a's coefficients enter its mass Sa, as in the plain version.
-__device__ void pz_matmul_linear(const PZCtx& c, PZMat a, PZMat b, PZMat out, int n, int m,
-                                 int p, float slop) {
-  const int B = c.B, E = c.E, ld = c.ld, nf = c.nf, rix = B + E;
-  pz_masses(c, a, n, m, b, m, p);
-  const float* ma = c.mass;
-  const float* mb = c.mass + 4 * n * m;
-  for (int it = threadIdx.x; it < n * p * ld; it += blockDim.x) {
-    const int k = it / ld, x = it % ld, i = k / p, kk = k % p;
-    float acc = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      const float* ae = pz_at(a, i, j);
-      const float* be = pz_at(b, j, kk);
-      float t;
-      if (x < B) {
-        float fs = 0.0f;
-        for (int f = 0; f < nf; ++f) {
-          const int s = c.src[f * B + x];
-          fs += ae[c.lin[f]] * (s < B ? be[s] : 0.0f);
-        }
-        t = ae[0] * be[x] + fs;
-      } else if (x < rix) {
-        t = ae[0] * be[x] + ae[x] * be[0];
-      } else {
-        const int ia = 4 * (i * m + j), ib = 4 * (j * p + kk);
-        const float Sa = ma[ia], Ea = ma[ia + 1], A1 = ma[ia + 2];
-        const float Sb = mb[ib], Eb = mb[ib + 1], Ov = mb[ib + 3];
-        const float Ta = Sa + Ea, Tb = Sb + Eb, brad = be[rix], arad = ae[rix];
-        t = Ta * brad + arad * (Tb + brad) + Ea * (Sb - fabsf(be[0]) + Eb)
-            + (Sa - fabsf(ae[0])) * Eb + A1 * Ov;
+// b [m, p] (bpz.matmul_linear_plain; armour_tpu/pz/bpz.py:214-285); n, m <=
+// PZ_MAXM.  Only coefficient 0 and the linear ones of a enter the product
+// (the shift table); all of a's coefficients enter its mass Sa, as in the
+// plain version.  mb: the masses of b's entries (entry (j, k) at
+// mb[4 (j p + k)]).  A thread takes one (column, position) of the output:
+// it reads b's values there and the shift table once, for every row.
+template <class A>
+__device__ void pz_matmul_linear_t(const PZCtx& c, const A& a, PZMat b, const float* mb,
+                                   PZMat out, int n, int m, int p, float slop) {
+  const int B = c.B, E = c.E, nf = c.nf, rix = B + E;
+  pz_each(c, p, [&](int kk, int x) {
+    float bx[PZ_MAXM];
+#pragma unroll
+    for (int j = 0; j < PZ_MAXM; ++j) bx[j] = j < m ? pz_at(b, j, kk)[x] : 0.0f;
+    if (x < B) {
+      float bs[PZ_MAXM][PZ_MAXNF];
+#pragma unroll
+      for (int f = 0; f < PZ_MAXNF; ++f) {
+        const int s = f < nf ? c.src[f * B + x] : B;
+#pragma unroll
+        for (int j = 0; j < PZ_MAXM; ++j) bs[j][f] = (j < m && s < B) ? pz_at(b, j, kk)[s] : 0.0f;
       }
-      acc = (j == 0) ? t : acc + t;
+#pragma unroll
+      for (int i = 0; i < PZ_MAXM; ++i) {
+        if (i >= n) continue;
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < PZ_MAXM; ++j) {
+          if (j >= m) continue;
+          float ak[1 + PZ_MAXNF];
+          a.coefs(c, a.ent(i, j), ak);
+          float fs = 0.0f;
+#pragma unroll
+          for (int f = 0; f < PZ_MAXNF; ++f)
+            if (f < nf) fs += ak[1 + f] * bs[j][f];
+          const float t = ak[0] * bx[j] + fs;
+          acc = (j == 0) ? t : acc + t;
+        }
+        pz_at(out, i, kk)[x] = acc;
+      }
+    } else if (x < rix) {
+      float b0[PZ_MAXM];
+#pragma unroll
+      for (int j = 0; j < PZ_MAXM; ++j) b0[j] = j < m ? pz_at(b, j, kk)[0] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < PZ_MAXM; ++i) {
+        if (i >= n) continue;
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < PZ_MAXM; ++j) {
+          if (j >= m) continue;
+          const float* ae = a.ent(i, j);
+          const float t = a.c0(c, ae) * bx[j] + a.eg(c, ae, x) * b0[j];
+          acc = (j == 0) ? t : acc + t;
+        }
+        pz_at(out, i, kk)[x] = acc;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < PZ_MAXM; ++i) {
+        if (i >= n) continue;
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < PZ_MAXM; ++j) {
+          if (j >= m) continue;
+          const float* ae = a.ent(i, j);
+          const float* be = pz_at(b, j, kk);
+          float Sa, Ea, A1;
+          a.masses(c, ae, i, j, Sa, Ea, A1);
+          const int ib = 4 * (j * p + kk);
+          const float Sb = mb[ib], Eb = mb[ib + 1], Ov = mb[ib + 3];
+          const float Ta = Sa + Ea, Tb = Sb + Eb, brad = bx[j], arad = a.rad(c, ae);
+          const float a0 = a.c0(c, ae);
+          const float t = Ta * brad + arad * (Tb + brad) + Ea * (Sb - fabsf(be[0]) + Eb)
+                          + (Sa - fabsf(a0)) * Eb + A1 * Ov;
+          acc = (j == 0) ? t : acc + t;
+        }
+        pz_at(out, i, kk)[x] = acc;
+      }
     }
-    pz_at(out, i, kk)[x] = acc;
-  }
-  __syncthreads();
+  });
+  pz_sync(c.g);
   pz_slop(c, out, n, p, slop);
 }
 
-__device__ __forceinline__ float pz_cabs(const float* x, const float* y, int o) {
-  // component o of _cross_abs: x[u] y[v] + x[v] y[u]
-  const int u = pz_u(o), v = pz_v(o);
-  return x[u] * y[v] + x[v] * y[u];
+// pz_matmul_linear_t with a packed a [n, m].
+__device__ void pz_matmul_linear(const PZCtx& c, PZMat a, PZMat b, PZMat out, int n, int m,
+                                 int p, float slop) {
+  pz_masses(c, a, n, m, b, m, p);
+  const PZDenseA A = {a, c.mass, m};
+  pz_matmul_linear_t(c, A, b, c.mass + 4 * n * m, out, n, m, p, slop);
+}
+
+template <class T>
+__device__ __forceinline__ T* pz_pick(int i, T* p0, T* p1, T* p2) {
+  return i == 0 ? p0 : i == 1 ? p1 : p2;
+}
+
+// The coefficients of cross(a, b) (a0..a2, b0..b2 its components) by one
+// warp, lanes over the monomials: all three components (ALL) or only
+// component o, each a segment sum over the pairs sorted by output monomial
+// whose in-basis abs mass is taken per pair before any contraction and
+// summed by the warp in a fixed order; then the radius of each component
+// the warp took (bpz.py:146-166).  The same bits either way.
+template <bool ALL>
+__device__ __forceinline__ void pz_cross_coefs(const PZCtx& c, const float* a0, const float* a1,
+                                               const float* a2, const float* b0, const float* b1,
+                                               const float* b2, float* o0, float* o1, float* o2,
+                                               int o) {
+  const int B = c.B, rix = c.B + c.E, lane = c.g.rank & 31;
+  float ia0 = 0.0f, ia1 = 0.0f, ia2 = 0.0f;
+  for (int x = lane; x < B; x += 32) {
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, i0 = 0.0f, i1 = 0.0f, i2 = 0.0f;
+    const int q1 = c.seg[x + 1];
+#pragma unroll 2
+    for (int q = c.seg[x]; q < q1; ++q) {
+      const int i = c.pi[q], j = c.pj[q];
+      const float x0 = a0[i], x1 = a1[i], x2 = a2[i], y0 = b0[j], y1 = b1[j], y2 = b2[j];
+      // component o: a[u] b[v] - a[v] b[u], u = o + 1, v = o + 2 (mod 3)
+      if (ALL || o == 0) {
+        s0 += x1 * y2 - x2 * y1;
+        i0 += fabsf(x1) * fabsf(y2) + fabsf(x2) * fabsf(y1);
+      }
+      if (ALL || o == 1) {
+        s1 += x2 * y0 - x0 * y2;
+        i1 += fabsf(x2) * fabsf(y0) + fabsf(x0) * fabsf(y2);
+      }
+      if (ALL || o == 2) {
+        s2 += x0 * y1 - x1 * y0;
+        i2 += fabsf(x0) * fabsf(y1) + fabsf(x1) * fabsf(y0);
+      }
+    }
+    if (ALL || o == 0) o0[x] = s0;
+    if (ALL || o == 1) o1[x] = s1;
+    if (ALL || o == 2) o2[x] = s2;
+    ia0 += i0;
+    ia1 += i1;
+    ia2 += i2;
+  }
+  if (ALL || o == 0) ia0 = pz_warp_sum(ia0);
+  if (ALL || o == 1) ia1 = pz_warp_sum(ia1);
+  if (ALL || o == 2) ia2 = pz_warp_sum(ia2);
+  if (ALL ? lane < 3 : lane == 0) {
+    const int oc = ALL ? lane : o, u = pz_u(oc), v = pz_v(oc);
+    const float ia = oc == 0 ? ia0 : oc == 1 ? ia1 : ia2;
+    const float* au = pz_pick(u, a0, a1, a2);
+    const float* av = pz_pick(v, a0, a1, a2);
+    const float* bu = pz_pick(u, b0, b1, b2);
+    const float* bv = pz_pick(v, b0, b1, b2);
+    const float Sau = c.mass[4 * u], Sav = c.mass[4 * v];
+    const float Eau = c.mass[4 * u + 1], Eav = c.mass[4 * v + 1];
+    const float Sbu = c.mass[4 * (3 + u)], Sbv = c.mass[4 * (3 + v)];
+    const float Ebu = c.mass[4 * (3 + u) + 1], Ebv = c.mass[4 * (3 + v) + 1];
+    const float Tau = Sau + Eau, Tav = Sav + Eav, Tbu = Sbu + Ebu, Tbv = Sbv + Ebv;
+    const float Sa0u = Sau - fabsf(au[0]), Sa0v = Sav - fabsf(av[0]);
+    const float Sb0u = Sbu - fabsf(bu[0]), Sb0v = Sbv - fabsf(bv[0]);
+    const float aru = au[rix], arv = av[rix], bru = bu[rix], brv = bv[rix];
+    // _cross_abs(x, y)[o] = x[u] y[v] + x[v] y[u]
+    const float overflow = fmaxf((Sau * Sbv + Sav * Sbu) - ia, 0.0f);
+    pz_pick(oc, o0, o1, o2)[rix] = (Tau * brv + Tav * bru) + (aru * Tbv + arv * Tbu)
+                                   + (aru * brv + arv * bru) + (Eau * Sb0v + Eav * Sb0u)
+                                   + (Sa0u * Ebv + Sa0v * Ebu) + (Eau * Ebv + Eav * Ebu)
+                                   + overflow;
+  }
 }
 
 // out = a x b for 3-vector PZs (bpz.cross_plain: the pair-table bilinear
-// product, armour_tpu/pz/bpz.py:120-167,481-484).  Coefficients are a
-// segment sum over the pairs sorted by output monomial; the in-basis abs
-// mass is taken per pair before any contraction, then reduced.
+// product, armour_tpu/pz/bpz.py:120-167,481-484).  The coefficients and
+// radii by pz_cross_coefs: a warp per component in a group of three warps
+// or more, else the first warp takes all three, each pair's six operand
+// values read once; then the error generators over the whole group.
 __device__ void pz_cross(const PZCtx& c, PZMat a, PZMat b, PZMat out, float slop) {
-  const int B = c.B, E = c.E, rix = B + E;
-  const int nc = (B + PZ_CH - 1) / PZ_CH;
+  const int B = c.B, E = c.E;
+  const int warp = c.g.rank >> 5, nw = c.g.size >> 5;
   pz_masses(c, a, 3, 1, b, 3, 1);
-  // in-basis abs mass per (component, monomial), after the masses' scratch
-  float* inabs = c.red + 6 * (2 * nc + (E + PZ_CH - 1) / PZ_CH);
-  float* inpart = inabs + 3 * B;
   const float* a0 = pz_at(a, 0, 0);
   const float* a1 = pz_at(a, 1, 0);
   const float* a2 = pz_at(a, 2, 0);
   const float* b0 = pz_at(b, 0, 0);
   const float* b1 = pz_at(b, 1, 0);
   const float* b2 = pz_at(b, 2, 0);
-  for (int it = threadIdx.x; it < 3 * (B + E); it += blockDim.x) {
-    const int o = it / (B + E), x = it % (B + E);
-    const int u = pz_u(o), v = pz_v(o);
-    const float* au = u == 0 ? a0 : u == 1 ? a1 : a2;
-    const float* av = v == 0 ? a0 : v == 1 ? a1 : a2;
-    const float* bu = u == 0 ? b0 : u == 1 ? b1 : b2;
-    const float* bv = v == 0 ? b0 : v == 1 ? b1 : b2;
-    if (x < B) {
-      float s = 0.0f, ia = 0.0f;
-      for (int q = c.seg[x]; q < c.seg[x + 1]; ++q) {
-        const int i = c.pi[q], j = c.pj[q];
-        s += au[i] * bv[j] - av[i] * bu[j];
-        ia += fabsf(au[i]) * fabsf(bv[j]) + fabsf(av[i]) * fabsf(bu[j]);
-      }
-      pz_at(out, o, 0)[x] = s;
-      inabs[o * B + x] = ia;
-    } else {
-      // cross(a.egen, b0) + cross(a0, b.egen)
-      pz_at(out, o, 0)[x] = (au[x] * bv[0] - av[x] * bu[0]) + (au[0] * bv[x] - av[0] * bu[x]);
-    }
+  float* o0 = pz_at(out, 0, 0);
+  float* o1 = pz_at(out, 1, 0);
+  float* o2 = pz_at(out, 2, 0);
+  if (nw >= 3) {
+    if (warp < 3) pz_cross_coefs<false>(c, a0, a1, a2, b0, b1, b2, o0, o1, o2, warp);
+  } else if (warp == 0) {
+    pz_cross_coefs<true>(c, a0, a1, a2, b0, b1, b2, o0, o1, o2, 0);
   }
-  __syncthreads();
-  for (int it = threadIdx.x; it < 3 * nc; it += blockDim.x) {
-    const int o = it / nc, ch = it % nc, hi = min(B, (ch + 1) * PZ_CH);
-    float s = 0.0f;
-    for (int x = ch * PZ_CH; x < hi; ++x) s += inabs[o * B + x];
-    inpart[it] = s;
+  // error generators: cross(a.egen, b0) + cross(a0, b.egen)
+  for (int it = c.g.rank; it < 3 * E; it += c.g.size) {
+    const int o = it / E, x = B + it - E * o, u = pz_u(o), v = pz_v(o);
+    const float* au = pz_pick(u, a0, a1, a2);
+    const float* av = pz_pick(v, a0, a1, a2);
+    const float* bu = pz_pick(u, b0, b1, b2);
+    const float* bv = pz_pick(v, b0, b1, b2);
+    pz_pick(o, o0, o1, o2)[x] =
+        (au[x] * bv[0] - av[x] * bu[0]) + (au[0] * bv[x] - av[0] * bu[x]);
   }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    const int o = threadIdx.x;
-    float ia = inpart[o * nc];
-    for (int ch = 1; ch < nc; ++ch) ia += inpart[o * nc + ch];
-    float Sa[3], Ea[3], Sb[3], Eb[3], Ta[3], Tb[3], Sa0[3], Sb0[3], ar[3], br[3];
-    for (int q = 0; q < 3; ++q) {
-      Sa[q] = c.mass[4 * q];
-      Ea[q] = c.mass[4 * q + 1];
-      Sb[q] = c.mass[4 * (3 + q)];
-      Eb[q] = c.mass[4 * (3 + q) + 1];
-      Ta[q] = Sa[q] + Ea[q];
-      Tb[q] = Sb[q] + Eb[q];
-      const float* ae = q == 0 ? a0 : q == 1 ? a1 : a2;
-      const float* be = q == 0 ? b0 : q == 1 ? b1 : b2;
-      Sa0[q] = Sa[q] - fabsf(ae[0]);
-      Sb0[q] = Sb[q] - fabsf(be[0]);
-      ar[q] = ae[rix];
-      br[q] = be[rix];
-    }
-    const float overflow = fmaxf(pz_cabs(Sa, Sb, o) - ia, 0.0f);
-    pz_at(out, o, 0)[rix] = pz_cabs(Ta, br, o) + pz_cabs(ar, Tb, o) + pz_cabs(ar, br, o)
-                            + pz_cabs(Ea, Sb0, o) + pz_cabs(Sa0, Eb, o) + pz_cabs(Ea, Eb, o)
-                            + overflow;
-  }
-  __syncthreads();
+  pz_sync(c.g);
   pz_slop(c, out, 3, 1, slop);
+}
+
+// Component o of a x v at position x for a PZ 3-vector a (au = a[u],
+// aw = a[v]) and a constant vector v (bpz.cross_pz_const; exact).
+__device__ __forceinline__ float pz_cpc_at(const float* au, const float* aw, const float* v, int o,
+                                           int x, int rix) {
+  const int u = pz_u(o), w = pz_v(o);
+  return x < rix ? au[x] * v[w] - aw[x] * v[u] : au[x] * fabsf(v[w]) + aw[x] * fabsf(v[u]);
+}
+
+// Component o of m x b at position x for a constant vector m and a PZ
+// 3-vector b (bu = b[u], bw = b[v]) (bpz.cross_const; exact; K10's wrench
+// update takes it inside one fused pass).
+__device__ __forceinline__ float pz_cc_at(const float* mv, const float* bu, const float* bw, int o,
+                                          int x, int rix) {
+  const int u = pz_u(o), w = pz_v(o);
+  return x < rix ? mv[u] * bw[x] - mv[w] * bu[x] : fabsf(mv[u]) * bw[x] + fabsf(mv[w]) * bu[x];
 }
 
 // out = a x v for a PZ 3-vector a and a constant vector v (bpz.cross_pz_const; exact).
 __device__ void pz_cross_pz_const(const PZCtx& c, PZMat a, const float* v, PZMat out) {
-  const int ld = c.ld, rix = c.B + c.E;
-  for (int it = threadIdx.x; it < 3 * ld; it += blockDim.x) {
-    const int o = it / ld, x = it % ld, u = pz_u(o), w = pz_v(o);
-    const float xu = pz_at(a, u, 0)[x], xw = pz_at(a, w, 0)[x];
-    pz_at(out, o, 0)[x] = x < rix ? xu * v[w] - xw * v[u] : xu * fabsf(v[w]) + xw * fabsf(v[u]);
-  }
-  __syncthreads();
+  const int rix = c.B + c.E;
+  pz_each(c, 3, [&](int o, int x) {
+    pz_at(out, o, 0)[x] = pz_cpc_at(pz_at(a, pz_u(o), 0), pz_at(a, pz_v(o), 0), v, o, x, rix);
+  });
+  pz_sync(c.g);
 }
 
-// out = m x b for a constant vector m and a PZ 3-vector b (bpz.cross_const; exact).
-__device__ void pz_cross_const(const PZCtx& c, const float* mv, PZMat b, PZMat out) {
-  const int ld = c.ld, rix = c.B + c.E;
-  for (int it = threadIdx.x; it < 3 * ld; it += blockDim.x) {
-    const int o = it / ld, x = it % ld, u = pz_u(o), w = pz_v(o);
-    const float yu = pz_at(b, u, 0)[x], yw = pz_at(b, w, 0)[x];
-    pz_at(out, o, 0)[x] = x < rix ? mv[u] * yw - mv[w] * yu
-                                  : fabsf(mv[u]) * yw + fabsf(mv[w]) * yu;
-  }
-  __syncthreads();
+// out = s + ((a x v) + t) for PZ 3-vectors s, a, t and a constant vector v:
+// bpz.add(s, bpz.add(bpz.cross_pz_const(a, v), t)) in one pass; out may be s.
+__device__ void pz_add_cross_pz_const(const PZCtx& c, PZMat s, PZMat a, const float* v, PZMat t,
+                                      PZMat out) {
+  const int rix = c.B + c.E;
+  pz_each(c, 3, [&](int o, int x) {
+    const float x_v = pz_cpc_at(pz_at(a, pz_u(o), 0), pz_at(a, pz_v(o), 0), v, o, x, rix);
+    pz_at(out, o, 0)[x] = pz_at(s, o, 0)[x] + (x_v + pz_at(t, o, 0)[x]);
+  });
+  pz_sync(c.g);
 }
 
 // out = a v for a matrix PZ a [n, m] and a constant vector v [m]
 // (bpz.matvec_cvec; exact).
 __device__ void pz_matvec_cvec(const PZCtx& c, PZMat a, const float* v, PZMat out, int n, int m) {
-  const int ld = c.ld, rix = c.B + c.E;
-  for (int it = threadIdx.x; it < n * ld; it += blockDim.x) {
-    const int i = it / ld, x = it % ld;
+  const int rix = c.B + c.E;
+  pz_each(c, n, [&](int i, int x) {
     float acc = 0.0f;
     for (int j = 0; j < m; ++j) {
       const float t = pz_at(a, i, j)[x] * (x < rix ? v[j] : fabsf(v[j]));
       acc = (j == 0) ? t : acc + t;
     }
     pz_at(out, i, 0)[x] = acc;
-  }
-  __syncthreads();
+  });
+  pz_sync(c.g);
 }
 
 // out = a b for a matrix PZ a [n, m] and a PZ vector b [m] whose
@@ -397,11 +716,10 @@ __device__ void pz_matvec_cvec(const PZCtx& c, PZMat a, const float* v, PZMat ou
 // bpz.matvec_const_coef, armour_tpu/pz/bpz.py:303).
 __device__ void pz_matvec_const_coef(const PZCtx& c, PZMat a, PZMat b, PZMat out, int n, int m,
                                      float slop) {
-  const int B = c.B, E = c.E, ld = c.ld, rix = B + E;
+  const int B = c.B, E = c.E, rix = B + E;
   pz_masses(c, a, n, m, b, m, 1);
   const float* mb = c.mass + 4 * n * m;
-  for (int it = threadIdx.x; it < n * ld; it += blockDim.x) {
-    const int i = it / ld, x = it % ld;
+  pz_each(c, n, [&](int i, int x) {
     float acc = 0.0f;
     for (int j = 0; j < m; ++j) {
       const float* ae = pz_at(a, i, j);
@@ -421,8 +739,8 @@ __device__ void pz_matvec_const_coef(const PZCtx& c, PZMat a, PZMat b, PZMat out
       acc = (j == 0) ? t : acc + t;
     }
     pz_at(out, i, 0)[x] = acc;
-  }
-  __syncthreads();
+  });
+  pz_sync(c.g);
   pz_slop(c, out, n, 1, slop);
 }
 
@@ -430,15 +748,14 @@ __device__ void pz_matvec_const_coef(const PZCtx& c, PZMat a, PZMat b, PZMat out
 // armour_tpu/pz/bpz.py:189): exact for an interval operand.
 __device__ void pz_mul_interval(const PZCtx& c, float cc, float r, PZMat b, PZMat out, int n,
                                 float slop) {
-  const int ld = c.ld, rix = c.B + c.E;
+  const int rix = c.B + c.E;
   pz_masses1(c, b, n, 1);
-  for (int it = threadIdx.x; it < n * ld; it += blockDim.x) {
-    const int i = it / ld, x = it % ld;
+  pz_each(c, n, [&](int i, int x) {
     const float* be = pz_at(b, i, 0);
     pz_at(out, i, 0)[x] = x < rix ? cc * be[x]
         : fabsf(cc) * be[rix] + r * (c.mass[4 * i] + c.mass[4 * i + 1] + be[rix]);
-  }
-  __syncthreads();
+  });
+  pz_sync(c.g);
   pz_slop(c, out, n, 1, slop);
 }
 
@@ -446,10 +763,10 @@ __device__ void pz_mul_interval(const PZCtx& c, float cc, float r, PZMat b, PZMa
 // and a matrix PZ b [m, p] (bpz.matmul_interval, armour_tpu/pz/bpz.py:341).
 __device__ void pz_matmul_interval(const PZCtx& c, const float* C, const float* R, PZMat b,
                                    PZMat out, int n, int m, int p, float slop) {
-  const int ld = c.ld, rix = c.B + c.E;
+  const int rix = c.B + c.E;
   pz_masses1(c, b, m, p);
-  for (int it = threadIdx.x; it < n * p * ld; it += blockDim.x) {
-    const int k = it / ld, x = it % ld, i = k / p, kk = k % p;
+  pz_each(c, n * p, [&](int k, int x) {
+    const int i = k / p, kk = k - p * i;
     float acc = 0.0f;
     for (int j = 0; j < m; ++j) {
       const float* be = pz_at(b, j, kk);
@@ -464,7 +781,7 @@ __device__ void pz_matmul_interval(const PZCtx& c, const float* C, const float* 
       acc = (j == 0) ? t : acc + t;
     }
     pz_at(out, i, kk)[x] = acc;
-  }
-  __syncthreads();
+  });
+  pz_sync(c.g);
   pz_slop(c, out, n, p, slop);
 }

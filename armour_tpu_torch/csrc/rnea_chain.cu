@@ -6,48 +6,62 @@
 // :517 cross_pz_const, the pair-table cross of :120 and matmul_linear of
 // :214).  For every (world, time) element the forward recursion carries
 // w, w_aux, wdot and the linear acceleration through the J joints (rotated
-// together as one 3x4 product by Rt_i = R_i^T), forms each link's force
-// F_i = m_i f_arg and moment N_i = I_i wdot + w_aux x (I_i w) for the P
-// parameter sets (nominal, interval: P <= 2) that share the kinematics,
-// and the backward recursion accumulates the wrenches (f, n), rotated by
-// R_{i+1}, and reads u_i = e_i . n + armature qdda_i + damping qd_i.
-// Writes u [W, P, T, F] (coef, egen, rad); torque_frs's assembly
-// (disturbance interval, rho, nominal reduce, radius) stays in torch.
+// by Rt_i = R_i^T), forms each link's force F_i = m_i f_arg and moment
+// N_i = I_i wdot + w_aux x (I_i w) for the P parameter sets (nominal,
+// interval: P <= 2) that share the kinematics, and the backward recursion
+// accumulates the wrenches (f, n), rotated by R_{i+1}, and reads
+// u_i = e_i . n + armature qdda_i + damping qd_i.  Writes u [W, P, T, F]
+// (coef, egen, rad); torque_frs's assembly (disturbance interval, rho,
+// nominal reduce, radius) stays in torch.
 //
 // Not taken here: an uncertain centre of mass (robot.com_uncertainty > 0
 // with an interval set), whose F_i and N_i need PZ x PZ crosses with the
 // COM PZ.  dynamics.rnea_pz_sets routes that robot, by its field, to the
 // op-level kernels K1 / K2; the Kinova flagship has it off.
 //
-// R is read in full (all B coefficients, as the plain matmul_linear_plain
-// reads it); only coefficient 0 and the linear ones enter the products,
-// the JRS writes R of degree <= 1.
-//
 // Bound on the H100 (flagship, W = 64, T = 128, B = 120, E = 38, J = 7,
-// P = 2): each element reads R (72 entries; Rt is R transposed, read
-// through the view) and qd, qda, qdda (21 entries), 59 KB, and writes u
-// (14 entries, 8.9 KB): ~0.56 GB per call, ~0.17 ms at 3.35 TB/s; the
-// ~1.3 MFLOP per element (~10.6 GFLOP per call) take ~0.16 ms at
-// 67 TFLOP/s.
+// P = 2): each element reads R (72 entries) and qd, qda, qdda (21
+// entries), 59 KB, and writes u (14 entries, 8.9 KB): ~0.56 GB per call,
+// ~0.17 ms at 3.35 TB/s.  Its ~2.2 M float32 operations per element, 17.7
+// G per call (every op as the plain version writes it), take 0.26 ms at
+// the 67 TFLOP/s that counts an FMA as two operations, and 0.53 ms at the
+// 33.5 T operations/s of separate multiplies and adds, which is the rate
+// that applies here: built with -fmad=false, nothing is contracted.
+// Bound by operations.
 //
-// Design: one block per element, 256 threads.  Shared memory holds, as
-// packed PZ entries (ld = B + E + 1 floats): the kinematic carry (two 3x4
-// buffers, reused for the backward (f | n) carry of the P sets), R_i, the
-// temporaries, and F_i / N_i of every joint and set (J P 6 entries: 84 at
-// the flagship, 53 KB), so the backward pass reads them on chip and
-// nothing but u goes to device memory.  ~100 KB of dynamic shared memory
-// per block at the flagship widths: two blocks per SM.  Every product is a
-// pz_ops.cuh op (the code of K1 and K2), its abs masses block reductions
-// in a fixed order, so repeated calls give the same bits.
+// Design: a group of G threads per element (one warp; two below 8
+// elements an SM; eight, one element a block, for the W = 1 planner's 128
+// elements), NG elements per block, and a persistent grid that walks the
+// elements; every pz_ops.cuh op runs over the group and ends with the
+// group's barrier (__syncwarp, or a named barrier), so no element waits
+// for another and there is no block-wide barrier after the tables are
+// staged.  Per element, shared memory holds 17.6 KB at the flagship widths:
+//   - the carry as five 3-entry column slots (four columns and a spare): a
+//     rotation maps one column at a time into the spare, then the slots
+//     swap, so no second carry buffer is needed;
+//   - three 3-entry temporaries: chains of elementwise ops are fused
+//     (pz_add_cross_pz_const; the whole backward wrench update and the
+//     torque read-out are one pass), and the inertia product is formed a
+//     column at a time;
+//   - R_i in compact form (coefficient 0, the nf linear ones, egen, rad and
+//     its abs masses, taken over all B coefficients once at the load, as
+//     the plain matmul_linear takes them): 52 floats an entry, not 159,
+//     its coefficients read as two 16-byte loads;
+//   - the group's mass scratch.
+// F_i and N_i of the forward pass (J P 6 entries, 53 KB an element) go to
+// a global scratch per resident group, which stays in L2; qd, qda, qdda
+// are read from device memory where they are used.  The abs masses are
+// warp shuffles in a fixed order, so repeated calls give the same bits.
 //
 // Built without fast math and with -fmad=false: IEEE float32 everywhere.
 #include <cuda_runtime.h>
 
 #include "pz_ops.cuh"
 
-#define K10_THREADS 256
 #define K10_MAXJ 8
 #define K10_MAXP 2
+#define K10_SLOTS 5        // carry columns: four and a spare
+#define K10_TEMPS 3
 
 struct K10Args {
   const float* rc;   // R coef [W, T, J+1, 3, 3, B]
@@ -65,6 +79,8 @@ struct K10Args {
   float* uc;         // u coef [W, P, T, J, B]
   float* ue;
   float* ur;
+  float* fn;         // scratch: F_i, N_i [grid, NG, J, P, 2, 3, ld] of each resident group
+  long long n;       // elements, W T
   int T, J, P;
   float slop, gravity;
   float trans[K10_MAXJ + 1][3];
@@ -77,34 +93,32 @@ struct K10Args {
   float sgn[K10_MAXJ], rv[K10_MAXJ], arm[K10_MAXJ], damp[K10_MAXJ];
 };
 
-#define K10_CONST (3 * (K10_MAXJ + 1) + 3 * K10_MAXJ + 18 * K10_MAXJ * K10_MAXP)
+// the robot's constants in shared memory, floats (a multiple of 4)
+#define K10_CONST ((3 * (K10_MAXJ + 1) + 3 * K10_MAXJ + 18 * K10_MAXJ * K10_MAXP + 3) / 4 * 4)
 
-__global__ void __launch_bounds__(K10_THREADS) k10_kernel(const K10Args args) {
-  extern __shared__ float4 k10_smem[];
-  unsigned char* tab = (unsigned char*)k10_smem;
-  float* red = (float*)(tab + PZ_TAB_BYTES);
-  float* mass = red + PZ_RED_FLOATS;
-  float* trans = mass + 4 * PZ_MAXMASS;          // [J+1, 3]
+// floats of one group's shared memory: compact R, mass scratch, entries;
+// a multiple of 4, so that every group's R stays 16-byte aligned
+static __host__ __device__ __forceinline__ int k10_group_floats(int ld, int ldl) {
+  return (9 * ldl + 4 * PZ_MAXMASS + (3 * K10_SLOTS + 3 * K10_TEMPS) * ld + 3) / 4 * 4;
+}
+
+static __host__ __device__ __forceinline__ size_t k10_smem(int ld, int ldl, int NG) {
+  return PZ_TAB_BYTES + sizeof(float) * (K10_CONST + (size_t)NG * k10_group_floats(ld, ldl));
+}
+
+// up to 128 threads a block, three blocks an SM (four warps of one element
+// each); one element of 256 threads at the fewest elements
+template <int G>
+__global__ void __launch_bounds__(G > 128 ? G : 128, G > 128 ? 1 : 3)
+    k10_kernel(const K10Args args) {
+  extern __shared__ float4 k10_smem_f4[];
+  unsigned char* tab = (unsigned char*)k10_smem_f4;
+  float* trans = (float*)(tab + PZ_TAB_BYTES);   // [J+1, 3]
   float* com = trans + 3 * (K10_MAXJ + 1);       // [J, 3]
   float* Ic = com + 3 * K10_MAXJ;                // [J, P, 9]
   float* Ir = Ic + 9 * K10_MAXJ * K10_MAXP;
-  float* ent = Ir + 9 * K10_MAXJ * K10_MAXP;
-  PZCtx c;
-  pz_ctx_init(c, tab, red, mass);
-  const int B = c.B, E = c.E, ld = c.ld, rix = B + E;
+  float* groups = trans + K10_CONST;             // 16-byte aligned
   const int J = args.J, P = args.P, T = args.T;
-  float* kc = ent;                // carry: two buffers of 12 entries
-  float* rm = kc + 24 * ld;       // R_i or R_{i+1}, 9
-  float* ta = rm + 9 * ld;        // temporaries, 3 each
-  float* tb = ta + 3 * ld;
-  float* tc = tb + 3 * ld;
-  float* qv = tc + 3 * ld;
-  float* qs = qv + 3 * ld;        // qd_i, qda_i, qdda_i
-  float* iw = qs + 3 * ld;        // I w products, 3x2
-  float* fn = iw + 6 * ld;        // F_i, N_i [J, P, 2, 3]
-  const long long e = blockIdx.x;
-  const long long w = e / T, t = e % T;
-
   for (int i = threadIdx.x; i < 3 * (J + 1); i += blockDim.x) trans[i] = args.trans[i / 3][i % 3];
   for (int i = threadIdx.x; i < 3 * J; i += blockDim.x) com[i] = args.com[i / 3][i % 3];
   for (int i = threadIdx.x; i < 9 * J * P; i += blockDim.x) {
@@ -112,125 +126,184 @@ __global__ void __launch_bounds__(K10_THREADS) k10_kernel(const K10Args args) {
     Ic[i] = args.Ic[j][p][q];
     Ir[i] = args.Ir[j][p][q];
   }
-  // kinematic carry, columns (wdot | w | w_aux | lin_acc); lin_acc = gravity e_z
-  for (int i = threadIdx.x; i < 12 * ld; i += blockDim.x)
-    kc[i] = (i == (2 * 4 + 3) * ld) ? args.gravity : 0.0f;
-  __syncthreads();
+  pz_tables_init(tab);   // the last block-wide barrier
 
-  const PZMat TA = pz_mat(ta, ld, 0), TB = pz_mat(tb, ld, 0), TC = pz_mat(tc, ld, 0);
-  const PZMat QV = pz_mat(qv, ld, 0), IW = pz_mat(iw, 2 * ld, ld);
-  const PZMat RM = pz_mat(rm, 3 * ld, ld);
-  const float* qd_s = qs;
-  const float* qda_s = qs + ld;
-  const float* qdda_s = qs + 2 * ld;
-  int cur = 0;
+  const int B = c_pz.B, E = c_pz.E, ld = B + E + 1, ldl = pz_lin_ld(c_pz.nf, E);
+  const int gi = threadIdx.x / G, NG = blockDim.x / G;
+  float* rl = groups + gi * k10_group_floats(ld, ldl);   // R compact, 9 entries
+  const PZGroup g = {(int)threadIdx.x % G, G, 1 + gi};
+  PZCtx c;
+  pz_ctx(c, tab, rl + 9 * ldl, g);
+  float* slots = c.mass + 4 * PZ_MAXMASS;        // 5 column slots of 3 entries
+  const PZMat TA = pz_mat(slots + 3 * K10_SLOTS * ld, ld, 0);
+  const PZMat TB = pz_mat(TA.p + 3 * ld, ld, 0), TC = pz_mat(TB.p + 3 * ld, ld, 0);
+  float* fn = args.fn + ((long long)blockIdx.x * NG + gi) * (J * P * 6) * ld;
+  const int rix = B + E;
 
-  // ---- forward recursion ----
-  for (int i = 0; i < J; ++i) {
-    PZMat K = pz_mat(kc + cur * 12 * ld, 4 * ld, ld);
-    const float* tr = trans + 3 * i;
-    // acc_arg = lin_acc + (wdot x trans_i + w x (w_aux x trans_i)), in place
-    pz_cross_pz_const(c, pz_col(K, 2), tr, TA);
-    pz_cross(c, pz_col(K, 1), TA, TB, args.slop);
-    pz_cross_pz_const(c, pz_col(K, 0), tr, TC);
-    pz_add(c, TC, TB, TC, 3, 1);
-    pz_add(c, pz_col(K, 3), TC, pz_col(K, 3), 3, 1);
-    const long long r0 = ((e * (J + 1)) + i) * 9;
-    pz_load(c, rm, 9, args.rc + r0 * B, args.re + r0 * E, args.rr + r0);
-    const long long q0 = e * J + i;
-    pz_load(c, qs, 1, args.qc + q0 * B, args.qe + q0 * E, args.qr + q0);
-    pz_load(c, qs + ld, 1, args.ac + q0 * B, args.ae + q0 * E, args.ar + q0);
-    pz_load(c, qs + 2 * ld, 1, args.dc + q0 * B, args.de + q0 * E, args.dr + q0);
-    __syncthreads();
-    // (wdot | w | w_aux | acc) <- Rt_i (wdot | w | w_aux | acc): one 3x4 product
-    const PZMat Kn = pz_mat(kc + (1 - cur) * 12 * ld, 4 * ld, ld);
-    pz_matmul_linear(c, pz_t(RM), K, Kn, 3, 3, 4, args.slop);
-    cur = 1 - cur;
-    K = Kn;
-    const PZMat WD = pz_col(K, 0), WV = pz_col(K, 1), WA = pz_col(K, 2), LA = pz_col(K, 3);
-    const int ax = args.ax[i];
-    const float sg = args.sgn[i], rv = args.rv[i];
-    // w += e qd ; wdot += w_aux x (e qd) + e qdda ; w_aux += e qda
-    pz_zero(c, QV, 3);
-    pz_add_scaled_axis(c, QV, ax, sg, rv, qd_s);
-    pz_add(c, WV, QV, WV, 3, 1);
-    pz_cross(c, WA, QV, TA, args.slop);
-    pz_add(c, WD, TA, WD, 3, 1);
-    pz_add_scaled_axis(c, WD, ax, sg, rv, qdda_s);
-    pz_add_scaled_axis(c, WA, ax, sg, rv, qda_s);
-    // f_arg = lin_acc + (wdot x com_i + w x (w_aux x com_i)) -> TC
-    const float* cm = com + 3 * i;
-    pz_cross_pz_const(c, WA, cm, TA);
-    pz_cross(c, WV, TA, TB, args.slop);
-    pz_cross_pz_const(c, WD, cm, TC);
-    pz_add(c, TC, TB, TC, 3, 1);
-    pz_add(c, LA, TC, TC, 3, 1);
-    for (int p = 0; p < P; ++p) {
-      const PZMat Fp = pz_mat(fn + ((i * P + p) * 2 + 0) * 3 * ld, ld, 0);
-      const PZMat Np = pz_mat(fn + ((i * P + p) * 2 + 1) * 3 * ld, ld, 0);
-      pz_mul_interval(c, args.mc[i][p], args.mr[i][p], TC, Fp, 3, args.slop);
-      // I (wdot | w): the first two carry columns
-      pz_matmul_interval(c, Ic + 9 * (i * P + p), Ir + 9 * (i * P + p), K, IW, 3, 3, 2,
-                         args.slop);
-      pz_cross(c, WA, pz_col(IW, 1), TA, args.slop);
-      pz_add(c, pz_col(IW, 0), TA, Np, 3, 1);
+  for (long long base = (long long)blockIdx.x * NG; base < args.n;
+       base += (long long)gridDim.x * NG) {
+    const long long e = base + gi;
+    if (e >= args.n) break;
+    const long long w = e / T, t = e % T;
+    // slot of carry column k (k = 4: the spare) in bits 4k..4k+3
+    unsigned sl = 0x43210u;
+    auto col = [&](int k) { return pz_mat(slots + ((sl >> (4 * k)) & 15u) * 3 * ld, ld, 0); };
+    auto swap_spare = [&](int k) {
+      const unsigned a = (sl >> (4 * k)) & 15u, b = (sl >> 16) & 15u;
+      sl = (sl & ~((15u << (4 * k)) | (15u << 16))) | (b << (4 * k)) | (a << 16);
+    };
+    // columns 0..ncols-1 <- A (column): their masses in one pass, then a
+    // column at a time into the spare slot, which takes the column's place
+    auto rotate = [&](const PZLinA& A, int ncols) {
+      pz_masses_of(c, 3 * ncols, [&](int k) { return col(k / 3).p + (k % 3) * ld; });
+      for (int k = 0; k < ncols; ++k) {
+        pz_matmul_linear_t(c, A, col(k), c.mass + 12 * k, col(4), 3, 3, 1, args.slop);
+        swap_spare(k);
+      }
+    };
+    auto force = [&](int i, int p, int which) {
+      return pz_mat(fn + ((i * P + p) * 2 + which) * 3 * ld, ld, 0);
+    };
+    // kinematic carry, columns (wdot | w | w_aux | lin_acc); lin_acc = gravity e_z
+    for (int it = g.rank; it < 12 * ld; it += G) slots[it] = it == 11 * ld ? args.gravity : 0.0f;
+    pz_sync(g);
+
+    // ---- forward recursion ----
+    for (int i = 0; i < J; ++i) {
+      const float* tr = trans + 3 * i;
+      // lin_acc = lin_acc + (wdot x trans_i + w x (w_aux x trans_i))
+      pz_cross_pz_const(c, col(2), tr, TA);
+      pz_cross(c, col(1), TA, TB, args.slop);
+      pz_add_cross_pz_const(c, col(3), col(0), tr, TB, col(3));
+      // (wdot | w | w_aux | acc) <- Rt_i (wdot | w | w_aux | acc), a column at a time
+      const long long r0 = (e * (J + 1) + i) * 9;
+      pz_load_lin(c, rl, 9, args.rc + r0 * B, args.re + r0 * E, args.rr + r0);
+      const PZLinA Rt = {rl, ldl, 3 * ldl};
+      rotate(Rt, 4);
+      const PZMat WD = col(0), WV = col(1), WA = col(2), LA = col(3);
+      const long long q0 = e * J + i;
+      const int ax = args.ax[i];
+      const float sg = args.sgn[i], rv = args.rv[i];
+      // w += e qd ; wdot += w_aux x (e qd) + e qdda ; w_aux += e qda
+      pz_zero(c, TB, 3);
+      pz_add_scaled_axis(c, TB, ax, sg, rv, args.qc + q0 * B, args.qe + q0 * E, args.qr + q0);
+      pz_add(c, WV, TB, WV, 3, 1);
+      pz_cross(c, WA, TB, TA, args.slop);
+      pz_add(c, WD, TA, WD, 3, 1);
+      pz_add_scaled_axis(c, WD, ax, sg, rv, args.dc + q0 * B, args.de + q0 * E, args.dr + q0);
+      pz_add_scaled_axis(c, WA, ax, sg, rv, args.ac + q0 * B, args.ae + q0 * E, args.ar + q0);
+      // f_arg = lin_acc + (wdot x com_i + w x (w_aux x com_i)) -> TA
+      const float* cm = com + 3 * i;
+      pz_cross_pz_const(c, WA, cm, TA);
+      pz_cross(c, WV, TA, TB, args.slop);
+      pz_add_cross_pz_const(c, LA, WD, cm, TB, TA);
+      for (int p = 0; p < P; ++p) {
+        const float* ic = Ic + 9 * (i * P + p);
+        const float* ir = Ir + 9 * (i * P + p);
+        // F and N are formed in shared memory and only written to the scratch
+        pz_mul_interval(c, args.mc[i][p], args.mr[i][p], TA, TC, 3, args.slop);
+        pz_copy(c, TC, force(i, p, 0), 3);
+        // N = I wdot + w_aux x (I w), the product a column at a time
+        pz_matmul_interval(c, ic, ir, WV, TB, 3, 3, 1, args.slop);
+        pz_cross(c, WA, TB, TC, args.slop);
+        pz_matmul_interval(c, ic, ir, WD, TB, 3, 3, 1, args.slop);
+        pz_add(c, TB, TC, force(i, p, 1), 3, 1);
+      }
     }
-  }
 
-  // ---- backward recursion, last joint first; carry columns (f_p | n_p) ----
-  pz_zero(c, pz_mat(kc + cur * 12 * ld, ld, 0), 12);
-  for (int i = J - 1; i >= 0; --i) {
-    const PZMat S = pz_mat(kc + cur * 12 * ld, 4 * ld, ld);
-    const PZMat Sn = pz_mat(kc + (1 - cur) * 12 * ld, 4 * ld, ld);
-    const long long r0 = ((e * (J + 1)) + i + 1) * 9;
-    pz_load(c, rm, 9, args.rc + r0 * B, args.re + r0 * E, args.rr + r0);
-    const long long q0 = e * J + i;
-    pz_load(c, qs, 1, args.qc + q0 * B, args.qe + q0 * E, args.qr + q0);
-    pz_load(c, qs + 2 * ld, 1, args.dc + q0 * B, args.de + q0 * E, args.dr + q0);
-    __syncthreads();
-    // (f_p | n_p) <- R_{i+1} (f_p | n_p) for every set: one 3 x 2P product
-    pz_matmul_linear(c, RM, S, Sn, 3, 3, 2 * P, args.slop);
-    cur = 1 - cur;
-    for (int p = 0; p < P; ++p) {
-      const PZMat RF = pz_col(Sn, 2 * p), RN = pz_col(Sn, 2 * p + 1);
-      const PZMat Fp = pz_mat(fn + ((i * P + p) * 2 + 0) * 3 * ld, ld, 0);
-      const PZMat Np = pz_mat(fn + ((i * P + p) * 2 + 1) * 3 * ld, ld, 0);
-      // n = (N_i + rn) + (com_i x F_i + trans_{i+1} x rf) ; f = rf + F_i
-      pz_cross_const(c, com + 3 * i, Fp, TA);
-      pz_cross_const(c, trans + 3 * (i + 1), RF, TB);
-      pz_add(c, TA, TB, TA, 3, 1);
-      pz_add(c, Np, RN, TC, 3, 1);
-      pz_add(c, TC, TA, RN, 3, 1);
-      pz_add(c, RF, Fp, RF, 3, 1);
-      // u_i = (sgn n[ax] + arm rv qdda_i) + damp rv qd_i
+    // ---- backward recursion, last joint first; carry columns (f_p | n_p) ----
+    for (int k = 0; k < 4; ++k)
+      for (int x = g.rank; x < 3 * ld; x += G) col(k).p[x] = 0.0f;
+    pz_sync(g);
+    for (int i = J - 1; i >= 0; --i) {
+      const long long r0 = (e * (J + 1) + i + 1) * 9;
+      pz_load_lin(c, rl, 9, args.rc + r0 * B, args.re + r0 * E, args.rr + r0);
+      const PZLinA Rm = {rl, 3 * ldl, ldl};
+      rotate(Rm, 2 * P);
+      const long long q0 = e * J + i;
+      const float* qdc = args.qc + q0 * B;
+      const float* qde = args.qe + q0 * E;
+      const float* ddc = args.dc + q0 * B;
+      const float* dde = args.de + q0 * E;
+      const float qdr = args.qr[q0], ddr = args.dr[q0];
       const int ax = args.ax[i];
       const float sg = args.sgn[i];
       const float sa = args.arm[i] * args.rv[i], sd = args.damp[i] * args.rv[i];
-      const float* na = pz_at(RN, ax, 0);
-      const long long u0 = (w * P + p) * T * J + t * J + i;
-      for (int x = threadIdx.x; x < ld; x += blockDim.x) {
-        if (x < B) {
-          args.uc[u0 * B + x] = (sg * na[x] + qdda_s[x] * sa) + qd_s[x] * sd;
-        } else if (x < rix) {
-          args.ue[u0 * E + x - B] = (sg * na[x] + qdda_s[x] * sa) + qd_s[x] * sd;
-        } else {
-          args.ur[u0] = (fabsf(sg) * na[x] + qdda_s[x] * fabsf(sa)) + qd_s[x] * fabsf(sd);
+      const float* cm = com + 3 * i;
+      const float* tr = trans + 3 * (i + 1);
+      for (int p = 0; p < P; ++p) {
+        // n = (N_i + rn) + (com_i x F_i + trans_{i+1} x rf) ; f = rf + F_i ;
+        // u_i = (sgn n[ax] + arm rv qdda_i) + damp rv qd_i: one pass over x
+        const PZMat RF = col(2 * p), RN = col(2 * p + 1);
+        const PZMat Fp = force(i, p, 0), Np = force(i, p, 1);
+        const long long u0 = (w * P + p) * T * J + t * J + i;
+        for (int x = g.rank; x < ld; x += G) {
+          float nn[3], ff[3];
+#pragma unroll
+          for (int o = 0; o < 3; ++o) {
+            const int u = pz_u(o), v = pz_v(o);
+            const float ta = pz_cc_at(cm, pz_at(Fp, u, 0), pz_at(Fp, v, 0), o, x, rix);
+            const float tb = pz_cc_at(tr, pz_at(RF, u, 0), pz_at(RF, v, 0), o, x, rix);
+            nn[o] = (pz_at(Np, o, 0)[x] + pz_at(RN, o, 0)[x]) + (ta + tb);
+            ff[o] = pz_at(RF, o, 0)[x] + pz_at(Fp, o, 0)[x];
+          }
+#pragma unroll
+          for (int o = 0; o < 3; ++o) {
+            pz_at(RN, o, 0)[x] = nn[o];
+            pz_at(RF, o, 0)[x] = ff[o];
+          }
+          const float na = nn[ax];
+          if (x < B) {
+            args.uc[u0 * B + x] = (sg * na + ddc[x] * sa) + qdc[x] * sd;
+          } else if (x < rix) {
+            args.ue[u0 * E + x - B] = (sg * na + dde[x - B] * sa) + qde[x - B] * sd;
+          } else {
+            args.ur[u0] = (fabsf(sg) * na + ddr * fabsf(sa)) + qdr * fabsf(sd);
+          }
         }
+        pz_sync(g);
       }
-      __syncthreads();
     }
   }
 }
 
 extern "C" int k10_tables(const PZTables* t) { return pz_upload_tables(t); }
 
-extern "C" int k10_launch(const K10Args* args, long long blocks, int ld, void* stream) {
-  const int ents = 24 + 9 + 15 + 6 + 6 * args->J * args->P;
-  const size_t smem = PZ_TAB_BYTES
-      + sizeof(float) * (PZ_RED_FLOATS + 4 * PZ_MAXMASS + K10_CONST + ents * ld);
-  cudaError_t err = cudaFuncSetAttribute(k10_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  k10_kernel<<<(unsigned int)blocks, K10_THREADS, smem, (cudaStream_t)stream>>>(*args);
+// G threads per element (32, 64, 128 or 256), NG elements per block, grid blocks
+// walking the n elements; args->fn holds grid * NG * J * P * 6 entries.
+extern "C" int k10_launch(const K10Args* args, int ld, int ldl, int G, int NG, int grid,
+                          void* stream) {
+  const size_t smem = k10_smem(ld, ldl, NG);
+  const int threads = G * NG;
+  if (threads > 256 || NG > 15) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (G) {
+    case 32:
+      err = cudaFuncSetAttribute(k10_kernel<32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      k10_kernel<32><<<(unsigned int)grid, threads, smem, (cudaStream_t)stream>>>(*args);
+      break;
+    case 64:
+      err = cudaFuncSetAttribute(k10_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      k10_kernel<64><<<(unsigned int)grid, threads, smem, (cudaStream_t)stream>>>(*args);
+      break;
+    case 128:
+      err = cudaFuncSetAttribute(k10_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      k10_kernel<128><<<(unsigned int)grid, threads, smem, (cudaStream_t)stream>>>(*args);
+      break;
+    case 256:
+      err = cudaFuncSetAttribute(k10_kernel<256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      k10_kernel<256><<<(unsigned int)grid, threads, smem, (cudaStream_t)stream>>>(*args);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,10 @@
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
 collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py): a CPU tensor takes the plain version, a CUDA tensor launches
-the kernel through the launchers here or raises.  Each launcher adds one to
-LAUNCHES[name] where it launches its kernel and nowhere else.  Sources are
+the kernel through the launchers here or raises.  Each launcher calls
+launched(name) where it launches its kernel and nowhere else: LAUNCHES[name]
+counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
+launched (K8 runs three per call, every other kernel one).  Sources are
 compiled with nvcc at first use (kernels/build.py).
 """
 
@@ -25,7 +27,10 @@ import contextlib
 KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
            "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain")
 
+H100_SMS = 132            # streaming multiprocessors of an H100 SXM (launch geometry defaults)
+
 LAUNCHES = {name: 0 for name in KERNELS}
+DEVICE_LAUNCHES = {name: 0 for name in KERNELS}
 
 # when a dict: the first call of each (kernel, shape signature) records its
 # inputs here, so that a run can replay the main path's calls against the
@@ -33,13 +38,23 @@ LAUNCHES = {name: 0 for name in KERNELS}
 _CAPTURE = None
 
 
+def launched(name: str, device_launches: int = 1) -> None:
+    LAUNCHES[name] += 1
+    DEVICE_LAUNCHES[name] += device_launches
+
+
 def reset_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+        DEVICE_LAUNCHES[name] = 0
 
 
 def counts() -> dict:
     return dict(LAUNCHES)
+
+
+def device_counts() -> dict:
+    return dict(DEVICE_LAUNCHES)
 
 
 @contextlib.contextmanager

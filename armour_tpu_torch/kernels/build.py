@@ -59,21 +59,24 @@ def _lib_path(name: str) -> Path:
 
 
 def build_all(names=None) -> dict:
-    """Compile every missing library in parallel; returns {name: ptxas
-    report} for the libraries built by this call."""
+    """Compile every missing library in parallel; returns {name: nvcc /
+    ptxas report} for every library asked for (kept beside the library, so
+    a library built by an earlier call reports too)."""
     names = list(SOURCES) if names is None else list(names)
     BUILD.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, reports = {}, {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            reports[name] = log.read_text() if log.exists() else ""
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
         cmd = [nvcc(), *FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         reports[name] = log
@@ -81,6 +84,7 @@ def build_all(names=None) -> dict:
             os.unlink(tmp)
             failed.append(f"{name}:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -10,7 +10,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, record
+from . import launched, record
 from .build import launcher
 
 N_COMB = 36
@@ -74,7 +74,7 @@ def build_hyperplanes(shape_gens, radius, centers, generators):
         err = fn(ctypes.byref(args), _stream(radius))
         if err:
             raise RuntimeError(f"build_hyperplanes launch failed: cudaError {err}")
-        LAUNCHES["build_hyperplanes"] += 1
+        launched("build_hyperplanes")
     return A, d, delta
 
 
@@ -115,5 +115,5 @@ def collision_rows(A, d, delta, row, mask, p_all, dp_all=None):
         err = fn(ctypes.byref(args), _stream(A))
         if err:
             raise RuntimeError(f"collision_rows launch failed: cudaError {err}")
-        LAUNCHES["collision_rows"] += 1
+        launched("collision_rows")
     return g, dg

@@ -12,7 +12,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import LAUNCHES, record
+from . import launched, record
 from .build import launcher
 from ..pz.basis import KBasis, linear_tables, pair_segments
 from ..pz.bpz import BPZ
@@ -181,7 +181,7 @@ def matmul_linear(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0,
         err = fn(ctypes.byref(args), blocks, B + E + 1, _stream(a.coef))
         if err:
             raise RuntimeError(f"pz_matmul_linear launch failed: cudaError {err}")
-        LAUNCHES["pz_matmul_linear"] += 1
+        launched("pz_matmul_linear")
     return res
 
 
@@ -213,5 +213,5 @@ def cross(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
         err = fn(ctypes.byref(args), blocks, B + E + 1, _stream(a.coef))
         if err:
             raise RuntimeError(f"pz_cross launch failed: cudaError {err}")
-        LAUNCHES["pz_cross"] += 1
+        launched("pz_cross")
     return out

@@ -2,22 +2,73 @@
 kinematics) and K10 (rnea_chain: the PZ RNEA for P <= 2 parameter sets).
 Called by kinematics.forward_occupancy and dynamics.rnea_pz_sets for CUDA
 tensors only; each checks device, dtype, shapes and contiguity, raises on
-anything its kernel does not take, allocates the outputs with torch.empty
-and launches on the current stream."""
+anything its kernel does not take, allocates the outputs and scratch with
+torch.empty and launches on the current stream.
+
+k10_geometry is K10's launch geometry (threads per element, elements per
+block, the persistent grid), pure Python so that the CPU tests check it."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
-from . import LAUNCHES, record
+from . import H100_SMS, launched, record
 from .build import launcher
 from .pz import upload_tables
 from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
 
 MAX_J, MAX_P = 8, 2
+SM_SMEM = 233472          # bytes of shared memory of one Hopper SM, for all its blocks
+BLOCK_SMEM_RESERVED = 1024  # bytes the runtime keeps per resident block
+PZ_TAB_BYTES, PZ_MAXMASS = 3520, 32          # csrc/pz_ops.cuh
+K10_THREADS = 128         # threads per block of several elements (csrc/rnea_chain.cu)
+K10_ENTRIES = 3 * 5 + 3 * 3                  # five carry column slots, three temporaries
+K10_CONST = -(-(3 * (MAX_J + 1) + 3 * MAX_J + 18 * MAX_J * MAX_P) // 4) * 4
+
+
+def lin_ld(nf: int, E: int) -> int:
+    """Floats of a compact degree-1 entry (pz_ops.cuh:pz_lin_ld)."""
+    return -(-(nf + E + 5) // 4) * 4
+
+
+def k10_smem(ld: int, ldl: int, NG: int) -> int:
+    """Bytes of shared memory of a K10 block of NG elements
+    (rnea_chain.cu:k10_smem): the tables, the robot's constants, and per
+    element the mass scratch, R in compact form and the PZ entries."""
+    group = -(-(9 * ldl + 4 * PZ_MAXMASS + K10_ENTRIES * ld) // 4) * 4
+    return PZ_TAB_BYTES + 4 * (K10_CONST + NG * group)
+
+
+@dataclasses.dataclass(frozen=True)
+class K10Geometry:
+    """G threads per element, NG elements per block, a grid of `grid`
+    blocks; block b takes the elements b NG + gi, (b + grid) NG + gi, ..."""
+
+    G: int
+    NG: int
+    grid: int
+
+    def elements(self, b: int, gi: int, n: int):
+        """The elements group gi of block b works on (rnea_chain.cu's loop)."""
+        return list(range(b * self.NG + gi, n, self.grid * self.NG))
+
+
+def k10_geometry(n: int, ld: int, ldl: int, sms: int = H100_SMS) -> K10Geometry:
+    """One warp per element, four to a block, once there are enough
+    elements to give every SM several; two warps per element from 2 per SM,
+    eight below that (the W = 1 planner's 128 elements, one block each);
+    fewer elements per block until the grid reaches 2 x sms blocks.  The
+    grid is persistent: as many blocks as fit on the card at once (by
+    shared memory), each walking its share of the n elements."""
+    G = 32 if n >= 8 * sms else 64 if n >= 2 * sms else 256
+    NG = max(1, min(K10_THREADS // G, n // (2 * sms)))   # 1 for G = 256
+    per_sm = min(SM_SMEM // (k10_smem(ld, ldl, NG) + BLOCK_SMEM_RESERVED), 2048 // (G * NG))
+    return K10Geometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
 
 _F3 = ctypes.c_float * 3
 _PTRS = [(n, ctypes.c_void_p) for n in ("rc", "re", "rr")]
@@ -31,8 +82,8 @@ class K9Args(ctypes.Structure):
 
 class K10Args(ctypes.Structure):
     _fields_ = _PTRS + [(n, ctypes.c_void_p) for n in (
-        "qc", "qe", "qr", "ac", "ae", "ar", "dc", "de", "dr", "uc", "ue", "ur")] + [
-        ("T", ctypes.c_int), ("J", ctypes.c_int), ("P", ctypes.c_int),
+        "qc", "qe", "qr", "ac", "ae", "ar", "dc", "de", "dr", "uc", "ue", "ur", "fn")] + [
+        ("n", ctypes.c_longlong), ("T", ctypes.c_int), ("J", ctypes.c_int), ("P", ctypes.c_int),
         ("slop", ctypes.c_float), ("gravity", ctypes.c_float),
         ("trans", _F3 * (MAX_J + 1)), ("com", _F3 * MAX_J),
         ("mc", (ctypes.c_float * MAX_P) * MAX_J), ("mr", (ctypes.c_float * MAX_P) * MAX_J),
@@ -82,7 +133,7 @@ def _launch(name: str, symbol: str, argtype, args, blocks: int, ld: int, like) -
     err = fn(ctypes.byref(args), blocks, ld, _stream(like))
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    launched(name)
 
 
 def fk_chain(jrs, robot, cfg, basis: KBasis) -> BPZ:
@@ -133,6 +184,39 @@ def chain_params(robot, sets, basis: KBasis) -> dict:
             "Ir": Ir.reshape(J, -1, 9).numpy(), "ax": ax, "sgn": sgn, "rv": rv}
 
 
+def _robot_args(robot, cfg, basis: KBasis, sets) -> K10Args:
+    """The robot's part of K10's arguments (constants, inertial intervals,
+    joint axes, float slop), formed once per robot, sets and slop and kept
+    in basis.kernel_args: forming them takes more host time than a W = 1
+    launch."""
+    key = ("k10", tuple(sets), float(cfg.float_slop), robot.num_joints, robot.num_factors,
+           float(robot.gravity), float(robot.mass_uncertainty),
+           float(robot.inertia_uncertainty), float(robot.com_uncertainty)) + tuple(
+        np.asarray(x).tobytes() for x in (robot.axes, robot.trans, robot.com, robot.mass,
+                                          robot.inertia, robot.armature, robot.damping))
+    tab = basis.kernel_args
+    if key not in tab:
+        J, P = robot.num_joints, len(sets)
+        args = K10Args()
+        args.J, args.P = J, P
+        args.slop = float(cfg.float_slop)
+        args.gravity = float(robot.gravity)
+        prm = chain_params(robot, sets, basis)
+        for i in range(J + 1):
+            args.trans[i][:] = [float(x) for x in robot.trans[i]]
+        for i in range(J):
+            args.com[i][:] = [float(x) for x in robot.com[i]]
+            args.mc[i][:P] = [float(x) for x in prm["mc"][i]]
+            args.mr[i][:P] = [float(x) for x in prm["mr"][i]]
+            for p in range(P):
+                args.Ic[i][p][:] = [float(x) for x in prm["Ic"][i, p]]
+                args.Ir[i][p][:] = [float(x) for x in prm["Ir"][i, p]]
+            args.ax[i], args.sgn[i], args.rv[i] = prm["ax"][i], prm["sgn"][i], prm["rv"][i]
+            args.arm[i], args.damp[i] = float(robot.armature[i]), float(robot.damping[i])
+        tab[key] = args
+    return tab[key]
+
+
 def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int")) -> BPZ:
     """K10: the PZ RNEA torque u [W, P, T, F] for P = len(sets) <= 2
     parameter sets without COM uncertainty (dynamics.rnea_pz_sets_plain's
@@ -152,28 +236,28 @@ def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int")) -> BPZ:
     B, E = _widths(basis, R, "rnea_chain")
     u = _empty((Wn, P, T, F), B, E, R.coef)
     args = K10Args()
+    ctypes.memmove(ctypes.addressof(args), ctypes.addressof(_robot_args(robot, cfg, basis, sets)),
+                   ctypes.sizeof(K10Args))
     args.rc, args.re, args.rr = _ptrs(R)
     args.qc, args.qe, args.qr = _ptrs(qd)
     args.ac, args.ae, args.ar = _ptrs(qda)
     args.dc, args.de, args.dr = _ptrs(qdda)
     args.uc, args.ue, args.ur = _ptrs(u)
-    args.T, args.J, args.P = T, J, P
-    args.slop = float(cfg.float_slop)
-    args.gravity = float(robot.gravity)
-    prm = chain_params(robot, sets, basis)
-    for i in range(J + 1):
-        args.trans[i][:] = [float(x) for x in robot.trans[i]]
-    for i in range(J):
-        args.com[i][:] = [float(x) for x in robot.com[i]]
-        args.mc[i][:P] = [float(x) for x in prm["mc"][i]]
-        args.mr[i][:P] = [float(x) for x in prm["mr"][i]]
-        for p in range(P):
-            args.Ic[i][p][:] = [float(x) for x in prm["Ic"][i, p]]
-            args.Ir[i][p][:] = [float(x) for x in prm["Ir"][i, p]]
-        args.ax[i], args.sgn[i], args.rv[i] = prm["ax"][i], prm["sgn"][i], prm["rv"][i]
-        args.arm[i], args.damp[i] = float(robot.armature[i]), float(robot.damping[i])
+    args.T = T
     record("rnea_chain", (tuple(R.rad.shape), tuple(sets)), (jrs, robot, cfg, basis, tuple(sets)))
     if Wn * T:
+        ld, ldl = B + E + 1, lin_ld(basis.nf, E)
+        dev = R.coef.device
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        geo = k10_geometry(Wn * T, ld, ldl, sms)
+        fn = torch.empty(geo.grid * geo.NG * J * P * 6 * ld, device=dev, dtype=torch.float32)
+        args.fn, args.n = fn.data_ptr(), Wn * T
         upload_tables("rnea_chain", "k10_tables", basis, E)
-        _launch("rnea_chain", "k10_launch", K10Args, args, Wn * T, B + E + 1, R.coef)
+        launch = launcher("rnea_chain", "k10_launch",
+                          [ctypes.POINTER(K10Args), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        err = launch(ctypes.byref(args), ld, ldl, geo.G, geo.NG, geo.grid, _stream(R.coef))
+        if err:
+            raise RuntimeError(f"rnea_chain launch failed: cudaError {err}")
+        launched("rnea_chain")
     return u

@@ -11,7 +11,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import LAUNCHES, record
+from . import launched, record
 from .build import launcher
 from .collision import _require, _stream
 
@@ -161,7 +161,7 @@ def rollout(robot, cfg, q, qd, q_des, qd_des, qdd_des, tp, control_dt, substeps=
         err = fn(ctypes.byref(args), _stream(q))
         if err:
             raise RuntimeError(f"rollout launch failed: cudaError {err}")
-        LAUNCHES["rollout"] += 1
+        launched("rollout")
     else:
         q_out.copy_(q)
         qd_out.copy_(qd)
@@ -194,5 +194,5 @@ def oracle_check(robot, cfg, q, qd, u, q_des, qd_des, centers, generators, mask)
         err = fn(ctypes.byref(args), _stream(q))
         if err:
             raise RuntimeError(f"oracle_check launch failed: cudaError {err}")
-        LAUNCHES["oracle_check"] += 1
+        launched("oracle_check")
     return flags != 0, overlaps

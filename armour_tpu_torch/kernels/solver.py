@@ -7,6 +7,9 @@ without a host synchronisation.
 alm_rows() gathers a plan's per-world inputs once per solve (float32 and
 contiguous on the card, the torque limits and state limits tightened as the
 plain version tightens them); every launch of the solve reuses them.
+k8_geometry is K8's launch geometry (row tiles, query groups), pure Python
+so that the CPU tests check it; K8's scratch (link centres, partial sums)
+is allocated by alm_values with torch.empty.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from . import LAUNCHES, record
+from . import H100_SMS, launched, record
 from .build import launcher
 from .collision import _require, _stream
 from ..pz.basis import KBasis
@@ -202,20 +205,68 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
         err = fn(ctypes.byref(args), _stream(k))
         if err:
             raise RuntimeError(f"alm_newton launch failed: cudaError {err}")
-        LAUNCHES["alm_newton"] += 1
+        launched("alm_newton")
     if want_system:
         return step, m0, feas, g, H
     return step, m0, feas
 
 
-def queries_per_block(Wn: int, Q: int, device) -> int:
-    """Queries a K8 block serves (1, 2 or 4): as many as keep two blocks
-    per SM busy, so that each coefficient row read serves several queries."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    G = 4
-    while G > 1 and Wn * -(-Q // G) < 2 * sms:
-        G //= 2
-    return min(G, 1 << (max(Q, 1) - 1).bit_length())
+K8_MAXQ = 16              # queries one K8 call takes
+K8_ROWS_THREADS, K8_COL_THREADS = 256, 128
+K8_TILES = (64, 32, 16, 8)          # polynomial rows per CTA of K8's step (a)
+K8_GROUPS = (16, 12, 8, 6, 4, 2, 1)  # queries per thread of K8's step (b)
+
+
+def k8_pitch(B: int) -> int:
+    """Floats per staged row in K8's step (a) (csrc/alm_values.cu:k8_pitch)."""
+    p = -(-B // 4) * 4
+    return p + 4 if (p // 4) % 2 == 0 else p
+
+
+def k8_rows_smem(B: int, R: int) -> int:
+    """Bytes of shared memory of K8's step (a) with R rows per CTA
+    (alm_values.cu:k8_rows_smem)."""
+    P = k8_pitch(B)
+    return 4 * (8 * K8_MAXQ + K8_MAXQ * P + R * P + 2 * K8_MAXQ * R) + B * MAX_F
+
+
+@dataclasses.dataclass(frozen=True)
+class K8Geometry:
+    """K8's launch geometry: R polynomial rows per CTA of step (a), G
+    queries per thread of step (b) (128 screened rows per CTA), the tiles of
+    each step and the scratch's padded query count Qp."""
+
+    R: int
+    G: int
+    tiles_a: int
+    tiles_b: int
+    Qp: int
+
+    @property
+    def ntiles(self) -> int:
+        return self.tiles_a + self.tiles_b
+
+    def ctas(self, Wn: int, Q: int) -> tuple:
+        """CTAs of step (a) and step (b)."""
+        return Wn * self.tiles_a, Wn * self.tiles_b * -(-Q // self.G)
+
+
+def k8_geometry(Wn: int, Q: int, n_poly: int, K: int, sms: int = H100_SMS) -> K8Geometry:
+    """The largest row tile and the widest query group (at most the
+    narrowest that holds all Q queries) that still give 2 x sms CTAs (the
+    smallest ones where none does): each row is read once per call for as
+    many queries as the card allows, and the grid fills the card at W = 1
+    as at W = 64.  n_poly: polynomial rows per world (3 T J centres + T F
+    torques); K: screened rows per world."""
+    if not 1 <= Q <= K8_MAXQ:
+        raise ValueError(f"alm_values takes 1..{K8_MAXQ} queries, got {Q}")
+    target = 2 * sms
+    R = next((r for r in K8_TILES if Wn * -(-n_poly // r) >= target), K8_TILES[-1])
+    tiles_b = -(-K // K8_COL_THREADS)
+    widest = min(g for g in K8_GROUPS if g >= Q)
+    G = next((g for g in K8_GROUPS
+              if g <= widest and Wn * tiles_b * -(-Q // g) >= target), 1)
+    return K8Geometry(R=R, G=G, tiles_a=-(-n_poly // R), tiles_b=tiles_b, Qp=-(-Q // G) * G)
 
 
 def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
@@ -225,22 +276,28 @@ def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
     Q = kq.shape[1] if kq.dim() == 3 else -1
     S = _state(rows, kq, lam, rho, Q)
     _require(seed_of_q, "seed_of_q", (Q,), torch.int32)
-    Wn, M = rows.args.W, rows.M
+    a = rows.args
+    Wn, M = a.W, rows.M
     dev = kq.device
     merit = torch.empty(Wn, Q, device=dev, dtype=torch.float32)
     feas = torch.empty(Wn, Q, device=dev, dtype=torch.bool)
     c = torch.empty(Wn, Q, M, device=dev, dtype=torch.float32) if want_c else None
     record("alm_values", (Wn, Q, S, rows.M, want_c), (rows, kq, lam, rho, seed_of_q, want_c))
     if Wn * Q:
+        geo = k8_geometry(Wn, Q, 3 * a.TJ + a.TF, a.K,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+        p = torch.empty(Wn, geo.Qp, 3, a.TJ, device=dev, dtype=torch.float32)
+        part = torch.empty(Wn, geo.ntiles, Q, 2, device=dev, dtype=torch.float32)
         args = _launch_args(rows, kq, lam, rho, Q, S)
         args.seed = seed_of_q.data_ptr()
         args.value, args.feas = merit.data_ptr(), feas.data_ptr()
         if want_c:
             args.c = c.data_ptr()
         fn = launcher("alm_values", "k8_launch",
-                      [ctypes.POINTER(AlmArgs), ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), queries_per_block(Wn, Q, dev), _stream(kq))
+                      [ctypes.POINTER(AlmArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), p.data_ptr(), part.data_ptr(), geo.R, geo.G, _stream(kq))
         if err:
             raise RuntimeError(f"alm_values launch failed: cudaError {err}")
-        LAUNCHES["alm_values"] += 1
+        launched("alm_values", 3 if a.K else 2)
     return merit, feas, c

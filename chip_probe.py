@@ -1,0 +1,199 @@
+"""Time the two redesigned kernels on the card, K8 (alm_values) launch by
+launch and K10 (rnea_chain) beside other launch geometries.
+
+    python3 chip_probe.py
+
+Runs one 64-world planning step (Kinova Gen3, the flagship config, the
+first 64 saved worlds, as chip_smoke.py) and records its K8 and K10 calls:
+
+  - every K8 call: the median of 20 calls (CUDA events) and the device time
+    of each of its three launches (torch.profiler over 10 calls);
+  - K10 at W = 64 and at W = 1 (the first world): the median of 20 calls
+    with the geometry that kernels/reach.py:k10_geometry picks and with
+    other (threads per element, elements per block) pairs.  K10's result
+    does not depend on the geometry: every variant must give the default's
+    bits, or the script fails.
+
+    python3 chip_probe.py --times
+
+only times K8 and K10 on every shape of the step (W = 64), the rescue
+profile's solve and a one-world step (W = 1), median of 20 calls each,
+through the public launchers alone, so that the same script can time an
+older checkout of the port beside this one on one card, in turns (older,
+this, this, older).
+
+Prints the card line and, last, one JSON line of the times.  Needs one
+card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import sys
+
+import torch
+
+W64_VARIANTS = ((32, 4), (32, 3), (64, 2), (128, 1))
+W1_VARIANTS = ((256, 1), (128, 1), (64, 1))
+ITERS = 20
+
+
+def fail(msg: str) -> None:
+    print(f"chip_probe: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+@contextlib.contextmanager
+def k10_geometry(G: int, NG: int):
+    """K10 launched with G threads per element and NG elements per block."""
+    from armour_tpu_torch.kernels import reach
+
+    default = reach.k10_geometry
+
+    def fixed(n, ld, ldl, sms=reach.H100_SMS):
+        per_sm = min(reach.SM_SMEM // (reach.k10_smem(ld, ldl, NG) + reach.BLOCK_SMEM_RESERVED),
+                     2048 // (G * NG))
+        return reach.K10Geometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
+
+    reach.k10_geometry = fixed
+    try:
+        yield
+    finally:
+        reach.k10_geometry = default
+
+
+def launch_split(fn, n: int = 10) -> dict:
+    """Device ms per call of each kernel fn launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0]: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("coef", "egen", "rad"))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs the card")
+    import armour_tpu_torch  # noqa: F401  (precision pins)
+    from chip_smoke import card_line, scenes
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.kernels import reach, solver as ks
+    from armour_tpu_torch.kernels.build import build_all
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import make_batch_planner
+    from armour_tpu_torch.pz.bpz import BPZ
+    from armour_tpu_torch.utils.timing import median_ms
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    build_all()
+    robot = kinova_gen3()
+    cfg = ArmourConfig(dtype=torch.float32)
+    step = make_batch_planner(robot, cfg)
+    with kernels.capture() as captured:
+        step(*scenes(robot, cfg, 64))
+    torch.cuda.synchronize()
+    if "--times" in sys.argv[1:]:
+        times_only(captured, robot, cfg, card, dev)
+        return
+    out = {"card": card, "alm_values": [], "rnea_chain": {}}
+
+    for (name, key), inputs in captured.items():
+        if name != "alm_values":
+            continue
+        rows, kq, lam, rho, seed, want_c = inputs
+
+        def k8(rows=rows, kq=kq, lam=lam, rho=rho, seed=seed, want_c=want_c):
+            return ks.alm_values(rows, kq, lam, rho, seed, want_c)
+
+        ms = median_ms(k8, dev, ITERS)
+        split = launch_split(k8)
+        print(f"K8 {key}: {ms:.4f} ms a call (median of {ITERS}); device ms a launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        out["alm_values"].append({"shape": list(key), "ms": ms, "launch_ms": split})
+
+    jrs, _, _, basis, sets = next(v for k, v in captured.items() if k[0] == "rnea_chain")
+
+    def first(p):
+        return BPZ(coef=p.coef[:1].contiguous(), egen=p.egen[:1].contiguous(),
+                   rad=p.rad[:1].contiguous())
+
+    jrs1 = dataclasses.replace(jrs, R=first(jrs.R), Rt=first(jrs.Rt), qd=first(jrs.qd),
+                               qda=first(jrs.qda), qdda=first(jrs.qdda))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    E = jrs.R.egen.shape[-1]
+    for label, j, variants in (("W=64", jrs, W64_VARIANTS), ("W=1", jrs1, W1_VARIANTS)):
+        def k10(j=j):
+            return reach.rnea_chain(j, robot, cfg, basis, sets)
+
+        ref = k10()
+        n = j.R.rad.shape[0] * j.R.rad.shape[1]
+        geo = reach.k10_geometry(n, basis.size + E + 1, reach.lin_ld(basis.nf, E), sms)
+        times = {f"default G={geo.G} NG={geo.NG}": median_ms(k10, dev, ITERS)}
+        for G, NG in variants:
+            with k10_geometry(G, NG):
+                times[f"G={G} NG={NG}"] = median_ms(k10, dev, ITERS)
+                if not same_bits(k10(), ref):
+                    fail(f"K10 at {label} with G={G} NG={NG} differs from the default geometry")
+        print(f"K10 {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + f" (medians of {ITERS}; every geometry gives the same bits)")
+        out["rnea_chain"][label] = times
+    print(card)
+    print(json.dumps(out))
+
+
+def times_only(captured, robot, cfg, card, dev) -> None:
+    """Medians of 20 calls of K8 and K10 on every recorded shape of the
+    step, the rescue profile's solve and a one-world step."""
+    from chip_smoke import scenes
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.kernels import reach, solver as ks
+    from armour_tpu_torch.planner import make_batch_planner, plan_problem, strong_config
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.utils.timing import median_ms
+
+    q0, qd0, qdd0, q_des, obs = scenes(robot, cfg, 64)
+    args = [torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, qd0, qdd0, q_des)]
+    obs = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                      mask=obs.mask.to(dev))
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    strong = strong_config(cfg)
+    with kernels.capture() as rescue:
+        nlp.solve(plan_problem(*args, obs, robot, strong, basis), strong, basis)
+    step1 = make_batch_planner(robot, cfg)
+    with kernels.capture() as one:
+        step1(*scenes(robot, cfg, 1))
+    torch.cuda.synchronize()
+    out = {"card": card, "alm_values": {}, "rnea_chain": {}}
+    for label, rec in (("step", captured), ("rescue", rescue), ("W=1", one)):
+        for (name, key), inputs in rec.items():
+            if name == "alm_values":
+                def fn(i=inputs):
+                    return ks.alm_values(*i)
+            elif name == "rnea_chain":
+                def fn(i=inputs):
+                    return reach.rnea_chain(*i)
+            else:
+                continue
+            ms = median_ms(fn, dev, ITERS)
+            out[name][f"{label} {key}"] = ms
+            print(f"{name} {label} {key}: {ms:.4f} ms (median of {ITERS})")
+    print(card)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

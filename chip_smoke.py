@@ -8,7 +8,9 @@ rest-FRS solvability checker.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
-     flags; build the kernels from csrc/ (one nvcc per source, in parallel).
+     flags; build the kernels from csrc/ (one nvcc per source, in parallel)
+     and print the nvcc flags, every kernel's registers, spills and static
+     shared memory (ptxas) and K8's / K10's dynamic shared memory a block.
   2. the main path at the flagship width (Kinova Gen3, T = 128, O = 40,
      K = 4096, float32) over the first 64 saved worlds: one warm-up step that
      records each kernel's inputs, then one step with the launch counters set
@@ -16,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      reach-set chains K9, K10) and neither K1 nor K2.
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
-     (median of 20 calls, CUDA events).  K7 / K8 (the solver's rows) on
+     (median of 20 calls, CUDA events); K8, K9 and K10 also run twice and
+     must give the same bits, and K7-K10 are printed beside the times of
+     their previous designs (PERF.md's kernel history).  K7 / K8 (the solver's rows) on
      every shape of the step: seeds 4 -> 2, line search S x 3.  K1 / K2,
      which the step no longer launches, on calls formed from the step's JRS:
      the FK rotation product of joint 1 and the PZ RNEA through the op-level
@@ -47,12 +51,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ~2M small launches) over one call.
   7. one plan at the rescue profile (strong_config: 8 x 6 iterations, seeds
      4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8 and K9 / K10
-     against their plain versions at its shapes.
+     against their plain versions at its shapes, all four timed.
   8. the real-time planner: make_realtime_planner calibrates on the card
      (its calibration printed), then batch-1 p50/p99 through the calibrated
      step over the first 32 worlds, counted (every kernel of the step must
      launch); K7 / K8 and K9 / K10 against their plain versions at the
-     W = 1 shapes.
+     W = 1 shapes, all four timed.
   9. containment: for the first 8 worlds of the step, 64 sampled k per world
      at a sampled time inside each of the 128 sub-intervals: every numeric
      link centre inside K9's sliced link hull and inside its centre set
@@ -103,6 +107,14 @@ CONTAIN_SLACK = 1e-9  # m / Nm: the float64 slicing of the float32 sets
 ENTRY_TOL = 1e-5     # relative (1 + |value|): the dump files against the plain route
 ALM_TIE = 1e-5       # an active collision row whose best two candidates are this close
                      # may take the other normal: its (world, seed) is left out of g, H, step
+# the times of the kernels' previous designs (PERF.md's kernel history; NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's: ms summed over the step's call shapes, and per call
+BEFORE_MS = {"alm_values": "7.413 (6 shapes; 1.22-1.31 a call)",
+             "alm_newton": "2.817 (2 shapes)", "fk_chain": "3.058", "rnea_chain": "24.131"}
+BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "25.348",
+                   ("fk_chain", "rescue profile"): "2.946",
+                   ("rnea_chain", "real-time path (W = 1)"): "1.188",
+                   ("fk_chain", "real-time path (W = 1)"): "0.426"}
 
 
 def fail(msg: str) -> None:
@@ -464,6 +476,8 @@ def check_alm_values(inputs, dev):
         return nlp.alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
 
     merit, feas, c = ks.alm_values(rows, kq, lam, rho, seed_of_q, True)
+    again = ks.alm_values(rows, kq, lam, rho, seed_of_q, True)
+    same = all(torch.equal(x, y) for x, y in zip((merit, feas, c), again))
     m0, f0, c0 = nlp.alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, True)
     m_ratio = float(((merit - m0).abs() / (ALM_TOL * (m0.abs() + 1e-6))).max())
     mag = _row_mag(rows, kq, c0)
@@ -471,26 +485,30 @@ def check_alm_values(inputs, dev):
     amb = ((c0 - nlp._stack_thresholds(prob, cfg)).abs() <= ALM_C_TOL * mag).any(-1)
     feas_ok = bool(((feas == f0) | amb).all())
     torch.cuda.synchronize(dev)
-    ok = feas_ok and m_ratio <= 1.0 and c_ratio <= 1.0
+    ok = feas_ok and m_ratio <= 1.0 and c_ratio <= 1.0 and same
     err = max(float((merit - m0).abs().max()), float((c - c0).abs().max()))
     note = (f"merit worst |d|/tol {m_ratio:.3g}, rows {c_ratio:.3g} (max |dc| "
             f"{float((c - c0).abs().max()):.3g}); feas "
             f"{'identical' if bool(torch.equal(feas, f0)) else 'differs'} ({int(f0.sum())}/"
-            f"{f0.numel()} feasible, {int(amb.sum())} within {ALM_C_TOL} of a threshold)")
+            f"{f0.numel()} feasible, {int(amb.sum())} within {ALM_C_TOL} of a threshold); "
+            f"a second call {'gives the same bits' if same else 'DIFFERS'}")
     nbytes = _alm_io_bytes(rows, kq, lam, rho, False, want_c)
     return ok, err, kern, plain, nbytes, _alm_flops(rows, kq.shape[1], False), note
 
 
 def check_alm_captures(captured, dev, label) -> None:
     """K7 / K8 against their plain versions on every recorded shape of a
-    path other than the main one; fails on a mismatch."""
+    path other than the main one, the kernels timed; fails on a mismatch."""
+    from armour_tpu_torch.utils.timing import median_ms
+
     n, all_ok = 0, True
     for (name, key), inputs in captured.items():
         if name not in ("alm_newton", "alm_values"):
             continue
         fn = check_alm_newton if name == "alm_newton" else check_alm_values
-        ok, _, _, _, _, _, note = fn(inputs, dev)
-        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note})")
+        ok, _, kern, _, _, _, note = fn(inputs, dev)
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel "
+              f"{median_ms(kern, dev, TIMING_ITERS):.4f} ms (median of {TIMING_ITERS})")
         all_ok &= ok
         n += 1
     if n == 0:
@@ -550,8 +568,9 @@ def check_chain(name, inputs, dev):
         P = len(sets)
         in_bytes = _bpz_bytes(jrs.R) + _bpz_bytes(jrs.qd) + _bpz_bytes(jrs.qda) \
             + _bpz_bytes(jrs.qdda)
-    got, ref = kern(), plain()
+    got, again, ref = kern(), kern(), plain()
     torch.cuda.synchronize(dev)
+    same = all(torch.equal(getattr(got, f), getattr(again, f)) for f in ("coef", "egen", "rad"))
     mass = ref.coef.abs().sum(-1) + ref.egen.abs().sum(-1) + ref.rad.abs()
     ratio = max(_rel_ratio(got.coef, ref.coef, mass[..., None]),
                 _rel_ratio(got.egen, ref.egen, mass[..., None]),
@@ -562,8 +581,9 @@ def check_chain(name, inputs, dev):
     Wn, T = jrs.R.rad.shape[:2]
     flops = _chain_flops(name, Wn, T, robot.num_joints, P, basis, jrs.R.egen.shape[-1])
     nbytes = in_bytes + _bpz_bytes(got)
-    return ratio <= 1.0 and finite, err, kern, plain, nbytes, flops, \
-        f"worst |d|/tol {ratio:.3g}, max |d| {err:.3g}"
+    return ratio <= 1.0 and finite and same, err, kern, plain, nbytes, flops, \
+        (f"worst |d|/tol {ratio:.3g}, max |d| {err:.3g}; a second call "
+         f"{'gives the same bits' if same else 'DIFFERS'}")
 
 
 def check_chain_captures(captured, dev, label) -> None:
@@ -577,8 +597,10 @@ def check_chain_captures(captured, dev, label) -> None:
             continue
         ok, _, kern, plain, nbytes, _, note = check_chain(name, inputs, dev)
         ms, pms = median_ms(kern, dev, TIMING_ITERS), median_ms(plain, dev, TIMING_ITERS)
-        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms (medians of {TIMING_ITERS}), {nbytes / 1e6:.1f} MB")
+        was = BEFORE_MS_OTHER.get((name, label))
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms"
+              f"{f' (before: {was} ms)' if was else ''}, plain {pms:.4f} ms (medians of "
+              f"{TIMING_ITERS}), {nbytes / 1e6:.1f} MB")
         all_ok &= ok
         n += 1
     if n < 2:
@@ -637,7 +659,7 @@ HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperpl
                       "rnea_chain": "k10"}
 
 
-def kernel_phase(captured, launches, dev):
+def kernel_phase(captured, launches, device_launches, dev):
     from armour_tpu_torch.utils.timing import median_ms
 
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0, "calls": 0}
@@ -678,13 +700,17 @@ def kernel_phase(captured, launches, dev):
             fail(f"kernel {name} was never called on the main path")
         t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = r["flops"] / H100_FP32_FLOP_PER_S * 1e3
+        if name in BEFORE_MS:
+            print(f"  {name}: {r['ms']:.4f} ms over {r['calls']} shapes (before: "
+                  f"{BEFORE_MS[name]} ms)")
         src, rep = REPLACES[name]
         out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                     "launches": launches[name], "max_abs_err": r["err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": None, "variants": r["calls"]})
+                    "library_ms": None, "variants": r["calls"],
+                    "device_launches": device_launches[name]})
     if not all_ok:
         fail("a kernel disagrees with its plain version")
     return out
@@ -709,7 +735,7 @@ def profile_step(fn, dev, step_s) -> dict:
     if total == 0:
         print("  profiler: no device time recorded (not measured)")
         return {}
-    hand = {name: sum(r[0] for r in rows if f"{k}_kernel" in r[2])
+    hand = {name: sum(r[0] for r in rows if f"{k}_" in r[2])
             for name, k in HAND_KERNEL_PREFIX.items()}
     launches = sum(r[1] for r in rows)
     print(f"  profiler: device time {total:.1f} ms in {launches} device activities of one "
@@ -1376,7 +1402,8 @@ def main() -> None:
     from armour_tpu_torch import kernels, nlp
     from armour_tpu_torch.collision import ObstacleSet, collision_constraints_plain
     from armour_tpu_torch.config import ArmourConfig
-    from armour_tpu_torch.kernels.build import build_all
+    from armour_tpu_torch.kernels import reach as reach_k, solver as solver_k
+    from armour_tpu_torch.kernels.build import FLAGS as BUILD_FLAGS, build_all
     from armour_tpu_torch.models.kinova import kinova_gen3
     from armour_tpu_torch.planner import (make_batch_planner, make_planner,
                                           plan_problem)
@@ -1396,11 +1423,18 @@ def main() -> None:
 
     t0 = time.perf_counter()
     reports = build_all()
-    print(f"phase 1: built {len(reports)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 1: {len(reports)} kernel libraries ready in {time.perf_counter() - t0:.1f} s, "
+          f"built with nvcc {' '.join(BUILD_FLAGS)}")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    print("  dynamic shared memory per block at the flagship widths (B = 120, E = 38): K8 "
+          "step (a) " + ", ".join(f"R = {r}: {solver_k.k8_rows_smem(120, r)} B"
+                                  for r in solver_k.K8_TILES)
+          + "; K10 " + ", ".join(f"{ng} elements: "
+                                 f"{reach_k.k10_smem(159, reach_k.lin_ld(7, 38), ng)} B"
+                                 for ng in (1, 2, 4)))
 
     robot = kinova_gen3()
     cfg = ArmourConfig(dtype=torch.float32)
@@ -1413,9 +1447,10 @@ def main() -> None:
         t_first, _ = wall_s(lambda: step64(q0, qd0, qdd0, q_des, obs), dev)
     kernels.reset_counts()
     t_main, res = wall_s(lambda: step64(q0, qd0, qdd0, q_des, obs), dev)
-    launches = kernels.counts()
+    launches, device_launches = kernels.counts(), kernels.device_counts()
     print(f"phase 2: W={N_WORLDS} planning step {t_main * 1e3:.1f} ms "
-          f"(first call {t_first * 1e3:.1f} ms); launches {launches}")
+          f"(first call {t_first * 1e3:.1f} ms); launches {launches}; device launches "
+          f"{device_launches}")
     for name in STEP_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -1430,7 +1465,7 @@ def main() -> None:
     print(f"phase 3: {len(captured)} recorded kernel calls against their plain versions "
           f"(K1 / K2 on the FK product of joint 1 and the uncertain-COM RNEA route over the "
           f"step's JRS)")
-    krows = kernel_phase(captured, launches, dev)
+    krows = kernel_phase(captured, launches, device_launches, dev)
     captured.clear()
 
     # ---- phase 4: results and timings ----

@@ -1,0 +1,222 @@
+"""Launch geometry of kernels K8 (alm_values) and K10 (rnea_chain), pure
+Python on the CPU: every row, query and element is covered exactly once,
+the grid reaches 2 x 132 CTAs wherever the work allows, and the shared
+memory each block asks for fits the H100 (227 KB a block, 228 KB an SM), so
+that a launch the card would refuse shows up here.  The Python mirrors of
+the kernels' shared-memory formulas are held against the constants of the
+CUDA sources.
+
+The last two tests run K8 and K10 against their plain versions on the card
+(marked cuda; they skip where there is none)."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from armour_tpu_torch.kernels import build, reach, solver as ks
+
+SMS = 132
+BLOCK_SMEM = 232448
+# flagship widths: Kinova Gen3 (T = 128, J = F = 7), B = 120, E = 38, K = 4096
+T, J, F, B, E, K = 128, 7, 7, 120, 38, 4096
+N_POLY = 3 * T * J + T * F
+LD, LDL = B + E + 1, reach.lin_ld(F, E)
+WORLDS = [1, 64, 128]
+QUERIES = [2, 4, 6, 12]
+
+
+def _source(name):
+    return (build.CSRC / name).read_text()
+
+
+def _define(text, name):
+    return int(re.search(r"#define %s (\d+)" % name, text).group(1))
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+@pytest.mark.parametrize("Q", QUERIES)
+def test_k8_rows_and_queries_covered_once(Wn, Q):
+    geo = ks.k8_geometry(Wn, Q, N_POLY, K)
+    # step (a): tile t takes rows [t R, t R + R); every query of every tile
+    rows = np.zeros(N_POLY, dtype=int)
+    for t in range(geo.tiles_a):
+        rows[t * geo.R:min((t + 1) * geo.R, N_POLY)] += 1
+    assert (rows == 1).all() and (geo.tiles_a - 1) * geo.R < N_POLY
+    # step (b): thread x of CTA (bx, by) takes row bx 128 + x and queries by G ..
+    pairs = np.zeros((K, Q), dtype=int)
+    for bx in range(geo.tiles_b):
+        r = np.arange(bx * ks.K8_COL_THREADS, (bx + 1) * ks.K8_COL_THREADS)
+        r = r[r < K]
+        for by in range(-(-Q // geo.G)):
+            q = np.arange(by * geo.G, min((by + 1) * geo.G, Q))
+            pairs[np.ix_(r, q)] += 1
+    assert (pairs == 1).all()
+    # the scratch of link centres holds every query group whole
+    assert geo.Qp % geo.G == 0 and Q <= geo.Qp < Q + geo.G
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+@pytest.mark.parametrize("Q", QUERIES)
+def test_k8_grid_fills_the_card(Wn, Q):
+    geo = ks.k8_geometry(Wn, Q, N_POLY, K, SMS)
+    ctas_a, ctas_b = geo.ctas(Wn, Q)
+    # step (a): the smallest tile is 8 rows
+    if Wn * N_POLY >= 2 * SMS * ks.K8_TILES[-1]:
+        assert ctas_a >= 2 * SMS
+    else:
+        assert geo.R == ks.K8_TILES[-1]
+    # step (b): one row and one query per thread at the least
+    if Wn * K * Q >= 2 * SMS * ks.K8_COL_THREADS:
+        assert ctas_b >= 2 * SMS
+    else:
+        assert geo.G == 1
+    # the widest tile and group that do (each row read once for more queries)
+    bigger = [r for r in ks.K8_TILES if r > geo.R]
+    assert all(Wn * -(-N_POLY // r) < 2 * SMS for r in bigger)
+
+
+@pytest.mark.parametrize("R", ks.K8_TILES)
+def test_k8_shared_memory_fits(R):
+    text = _source("alm_values.cu")
+    assert _define(text, "K8_MAXQ") == ks.K8_MAXQ
+    assert _define(text, "K8A_THREADS") == ks.K8_ROWS_THREADS
+    assert _define(text, "K8B_THREADS") == ks.K8_COL_THREADS
+    assert ks.k8_pitch(B) == 124 and (ks.k8_pitch(B) // 4) % 2 == 1
+    assert ks.k8_rows_smem(B, R) <= BLOCK_SMEM
+    assert ks.k8_rows_smem(ks.MAX_B, R) <= BLOCK_SMEM
+
+
+def test_k8_takes_at_most_16_queries():
+    with pytest.raises(ValueError, match="queries"):
+        ks.k8_geometry(1, 17, N_POLY, K)
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+def test_k10_elements_covered_once(Wn):
+    n = Wn * T
+    geo = reach.k10_geometry(n, LD, LDL, SMS)
+    seen = np.zeros(n, dtype=int)
+    for b in range(geo.grid):
+        for gi in range(geo.NG):
+            seen[geo.elements(b, gi, n)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+def test_k10_grid_fills_the_card(Wn):
+    n = Wn * T
+    geo = reach.k10_geometry(n, LD, LDL, SMS)
+    assert geo.G in (32, 64, 256) and geo.NG <= 15
+    assert geo.G * geo.NG <= max(reach.K10_THREADS, geo.G)
+    if n >= 2 * SMS:
+        assert geo.grid >= 2 * SMS
+    else:
+        # one element per block, eight warps each: W = 1 spreads over the card
+        assert geo.NG == 1 and geo.grid == n and geo.G == 256
+    # the persistent grid never asks for more blocks than the card holds at once
+    per_sm = reach.SM_SMEM // (reach.k10_smem(LD, LDL, geo.NG) + reach.BLOCK_SMEM_RESERVED)
+    assert per_sm >= 1 and geo.grid <= SMS * per_sm
+
+
+def test_k10_shared_memory_fits():
+    ops, k10 = _source("pz_ops.cuh"), _source("rnea_chain.cu")
+    assert _define(ops, "PZ_TAB_BYTES") == reach.PZ_TAB_BYTES
+    assert _define(ops, "PZ_MAXMASS") == reach.PZ_MAXMASS
+    assert 3 * _define(k10, "K10_SLOTS") + 3 * _define(k10, "K10_TEMPS") == reach.K10_ENTRIES
+    assert LDL == 52 and LDL % 4 == 0
+    # up to K10_THREADS threads a block, three blocks an SM
+    assert re.search(r"__launch_bounds__\(G > %d \? G : %d, G > %d \? 1 : 3\)"
+                     % ((reach.K10_THREADS,) * 3), k10)
+    for NG in (1, 2, 4):
+        assert reach.k10_smem(LD, LDL, NG) <= BLOCK_SMEM
+    # four warps a block, three blocks an SM at the flagship widths
+    assert 3 * (reach.k10_smem(LD, LDL, 4) + reach.BLOCK_SMEM_RESERVED) <= reach.SM_SMEM
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels are built with nvcc there)")
+    return torch.device("cuda")
+
+
+def _small_problem(dev):
+    import glob
+
+    from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.worlds import load_world_csv, straight_line_waypoint
+
+    robot = kinova_gen3()
+    cfg = ArmourConfig(dtype=torch.float32, num_time_steps=16, screen_k=512)
+    basis = make_basis(7, 3)
+    ws = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:3]]
+    rng = np.random.default_rng(0)
+    q0 = torch.as_tensor(np.stack([w.start for w in ws]), dtype=torch.float32, device=dev)
+    qd0 = torch.as_tensor(rng.uniform(-0.3, 0.3, q0.shape), dtype=torch.float32, device=dev)
+    q_des = torch.as_tensor(np.stack([straight_line_waypoint(w.start, w.goal,
+                                                             continuous=robot.continuous_joints)
+                                      for w in ws]), dtype=torch.float32, device=dev)
+    obs = stack_obstacles([pad_obstacles(w.obstacle_centers, w.obstacle_generators,
+                                         cfg.max_obstacles, cfg.dtype) for w in ws])
+    obs = type(obs)(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                    mask=obs.mask.to(dev))
+    return robot, cfg, basis, plan_problem(q0, qd0, 0.5 * qd0, q_des, obs, robot, cfg, basis)
+
+
+@pytest.mark.cuda
+def test_k8_matches_its_plain_version_on_the_card():
+    """Merit within 1e-4 |merit|, rows within 1e-5 of their terms, feasibility
+    identical but for queries with a row that close to its threshold, and
+    the same bits on a second call."""
+    from armour_tpu_torch import nlp
+
+    dev = _card()
+    robot, cfg, basis, prob = _small_problem(dev)
+    rows = ks.alm_rows(prob, cfg, basis)
+    Wn, S, A = prob.q_des.shape[0], 4, 3
+    g = torch.Generator().manual_seed(0)
+    kq = ((torch.rand(Wn, S * A, 7, generator=g) * 2 - 1) * 0.5).to(dev)
+    lam = (torch.rand(Wn, S, rows.M, generator=g) * 3).to(dev)
+    rho = torch.full((Wn, S), 10.0, device=dev)
+    seed = torch.arange(S, dtype=torch.int32).repeat_interleave(A).to(dev)
+    m, f, c = ks.alm_values(rows, kq, lam, rho, seed, True)
+    m2, f2, c2 = ks.alm_values(rows, kq, lam, rho, seed, True)
+    m0, f0, c0 = nlp.alm_values_plain(kq, lam, rho, seed, prob, cfg, basis, True)
+    assert torch.equal(m, m2) and torch.equal(c, c2) and torch.equal(f, f2)
+    assert ((m - m0).abs() <= 1e-4 * (m0.abs() + 1e-6)).all()
+    # a torque row's terms: sum_b |u_coef_b phi_b| + |hi|, twice (+u - hi, -u - hi)
+    t = (torch.matmul(basis.phi(kq).abs(), rows.tensors["u_coef"].abs().transpose(1, 2))
+         + rows.tensors["u_hi"].abs()[:, None])
+    mag = 1.0 + c0.abs()
+    mag[..., :2 * rows.args.TF] += torch.cat([t, t], dim=-1)
+    assert ((c - c0).abs() <= 1e-5 * mag).all()
+    near = ((c0 - nlp._stack_thresholds(prob, cfg)).abs() <= 1e-5 * mag).any(-1)
+    assert ((f == f0) | near).all()
+
+
+@pytest.mark.cuda
+def test_k10_matches_its_plain_version_on_the_card():
+    """Every entry within 1e-5 of the plain entry's total mass, and the same
+    bits on a second call."""
+    from armour_tpu_torch import dynamics
+    from armour_tpu_torch.jrs import build_jrs
+
+    dev = _card()
+    robot, cfg, basis, prob = _small_problem(dev)
+    rng = np.random.default_rng(1)
+    q = [torch.as_tensor(rng.uniform(-0.5, 0.5, (3, 7)), dtype=torch.float32, device=dev)
+         for _ in range(3)]
+    jrs = build_jrs(*q, robot, cfg, basis)
+    got = reach.rnea_chain(jrs, robot, cfg, basis)
+    again = reach.rnea_chain(jrs, robot, cfg, basis)
+    ref = dynamics.rnea_pz_sets_plain(jrs, robot, cfg, basis)
+    mass = ref.coef.abs().sum(-1) + ref.egen.abs().sum(-1) + ref.rad.abs()
+    for f in ("coef", "egen", "rad"):
+        assert torch.equal(getattr(got, f), getattr(again, f))
+        m = mass if f == "rad" else mass[..., None]
+        assert ((getattr(got, f) - getattr(ref, f)).abs() <= 1e-5 * (m + 1e-6)).all()
