@@ -137,7 +137,7 @@ def _batch1(obs):
 
 
 def plan_from_armour_in(in_path: str, out_dir: str, robot, cfg, planner_step=None,
-                        device=None) -> dict:
+                        *, device=None) -> dict:
     """Run one planning iteration from an armour.in file and write every
     reference output file into out_dir (armour_tpu/armour_io.py:81-201).
     Returns the parsed result dict with the JAX function's keys; millis is
@@ -149,7 +149,7 @@ def plan_from_armour_in(in_path: str, out_dir: str, robot, cfg, planner_step=Non
     dev = resolve_device(device)
     data = read_armour_in(in_path, robot.num_factors)
     obs = pad_obstacles(data.centers, data.generators, cfg.max_obstacles, cfg.dtype)
-    step = planner_step if planner_step is not None else make_planner(robot, cfg, dev)
+    step = planner_step if planner_step is not None else make_planner(robot, cfg, device=dev)
 
     sync(dev)
     t0 = time.perf_counter()

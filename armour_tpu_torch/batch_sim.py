@@ -28,12 +28,12 @@ from .utils.timing import sync
 from .worlds import World
 
 
-def stack_worlds(worlds: Sequence[World], cfg: ArmourConfig, device="cpu"):
+def stack_worlds(worlds: Sequence[World], cfg: ArmourConfig, *, device="cpu"):
     """starts [W, F] tensor, goals [W, F] numpy, padded ObstacleSet [W, O, ...]."""
     starts = torch.as_tensor(np.stack([w.start for w in worlds]), dtype=cfg.dtype).to(device)
     goals = np.stack([w.goal for w in worlds])
     obs = stack_obstacles([pad_obstacles(w.obstacle_centers, w.obstacle_generators,
-                                         cfg.max_obstacles, cfg.dtype, device)
+                                         cfg.max_obstacles, cfg.dtype, device=device)
                            for w in worlds])
     return starts, goals, obs
 
@@ -76,6 +76,7 @@ def run_trials_batched(
     tp_indices: Optional[Sequence[int]] = None,
     tp_total: Optional[int] = None,
     fallback_kwargs: Optional[dict] = None,
+    *,
     device=None,
 ) -> List[TrialSummary]:
     """Run every world's closed-loop trial in lockstep (batched run_trial).
@@ -107,7 +108,7 @@ def run_trials_batched(
     dt = cfg.dtype
     if not all(w.goal_type == "configuration" for w in worlds):
         raise ValueError("the batched suite supports configuration goals")
-    starts, goals_np, obs = stack_worlds(worlds, cfg, dev)
+    starts, goals_np, obs = stack_worlds(worlds, cfg, device=dev)
     rng = np.random.default_rng(seed)
     tp = _batched_true_params(robot, rng, W, true_param_scale,
                               indices=tp_indices, total=tp_total).to(dt, dev)
@@ -118,8 +119,8 @@ def run_trials_batched(
         hlps = [EndEffectorRRTStarHLP(w, robot, lookahead=hlp_lookahead, seed=seed + i)
                 for i, w in enumerate(worlds)]
 
-    planner = make_batch_planner(robot, cfg, dev)
-    rescue = make_batch_planner(robot, strong_config(cfg), dev) if rescue_solver else None
+    planner = make_batch_planner(robot, cfg, device=dev)
+    rescue = make_batch_planner(robot, strong_config(cfg), device=dev) if rescue_solver else None
     rollout = make_rollout(robot, cfg, device=dev)
     oracles = make_oracles(robot, cfg, device=dev)
 
@@ -192,7 +193,7 @@ def run_trials_batched(
 
     q = starts
     qd = torch.zeros_like(q)
-    ref = initial_plan(starts, dt, dev)
+    ref = initial_plan(starts, dt, device=dev)
 
     # warm-up outside the timed loop: every kernel's build (in parallel),
     # the planners' first calls, the allocator

@@ -50,7 +50,7 @@ class ObstacleSet:
 
 
 def pad_obstacles(centers, generators, max_obstacles: int, dtype=torch.float32,
-                  device="cpu") -> ObstacleSet:
+                  *, device="cpu") -> ObstacleSet:
     """One world's obstacles padded to max_obstacles: [O, ...]."""
     centers = np.asarray(centers, dtype=np.float64).reshape(-1, 3)
     generators = np.asarray(generators, dtype=np.float64).reshape(-1, 3, 3)

@@ -1,8 +1,7 @@
 // Row evaluation of the ALM solver's constraint stack, shared by K7
 // (alm_newton.cu) and K8 (alm_values.cu), so that the two cannot drift apart.
-// K7 runs these functions block-wide on one (world, seed); K8 calls the
-// per-row ones (alm_phi, alm_collision, alm_state_rows, alm_cost) from
-// its row-tiled grids.
+// Both call the per-row functions (alm_basis_at / alm_phi, alm_collision,
+// alm_state_rows, alm_cost) from their row-tiled grids.
 //
 // The stack is the one of nlp.py:constraint_stack, in its row order:
 //
@@ -26,8 +25,6 @@
 #pragma once
 #include <cuda_runtime.h>
 
-#define ALM_THREADS 256
-#define ALM_WARPS (ALM_THREADS / 32)
 #define ALM_MAX_B 128
 #define ALM_MAX_F 8
 #define ALM_MAX_DEG 3
@@ -92,31 +89,27 @@ __device__ __forceinline__ float alm_phi(const unsigned char* dg, const float* k
   return phi;
 }
 
-// basis[0 * ALM_MAX_B + b] = phi_b; with grad, basis[(1 + f) * ALM_MAX_B + b]
-// = d phi_b / d k_f.  k [NF] in shared memory.
+// phi_b and its k-gradient at k [NF]: out[0] = phi_b, out[(1 + f) * stride] =
+// d phi_b / d k_f (dg: monomial b's degrees)
 template <int NF>
-__device__ void alm_basis(const AlmArgs& a, const float* k, float* basis, bool grad) {
-  for (int b = threadIdx.x; b < a.B; b += blockDim.x) {
-    const unsigned char* dg = a.degs + b * ALM_MAX_F;
-    float take[NF];
-    basis[b] = alm_phi<NF>(dg, k, take);
-    if (grad) {
+__device__ __forceinline__ void alm_basis_at(const unsigned char* dg, const float* k, float* out,
+                                             int stride) {
+  float take[NF];
+  out[0] = alm_phi<NF>(dg, k, take);
 #pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const int dj = dg[j];
-        const float k2 = k[j] * k[j];
-        const float dcol = (float)dj * alm_power(k[j], k2, k2 * k[j], dj > 0 ? dj - 1 : 0);
-        float others = 1.0f;
-        bool first = true;
+  for (int j = 0; j < NF; ++j) {
+    const int dj = dg[j];
+    const float k2 = k[j] * k[j];
+    const float dcol = (float)dj * alm_power(k[j], k2, k2 * k[j], dj > 0 ? dj - 1 : 0);
+    float others = 1.0f;
+    bool first = true;
 #pragma unroll
-        for (int i = 0; i < NF; ++i) {
-          if (i == j) continue;
-          others = first ? take[i] : others * take[i];
-          first = false;
-        }
-        basis[(1 + j) * ALM_MAX_B + b] = dcol * others;
-      }
+    for (int i = 0; i < NF; ++i) {
+      if (i == j) continue;
+      others = first ? take[i] : others * take[i];
+      first = false;
     }
+    out[(1 + j) * stride] = dcol * others;
   }
 }
 
@@ -147,23 +140,19 @@ __device__ __forceinline__ void alm_warp_dots(const float* __restrict__ row, con
 // collision rows: K4's rule (collision_rows.cu)
 // ---------------------------------------------------------------------------
 
-// Screened row r of world w at the G link centres p[(g * 3 + a) * TJ + cell]:
+// K4's rule for screened row r of world w at G link centres (p0, p1, p2)[g]:
 // m[g] = max over the 2C candidates (first maximal, pos before neg), and,
-// when comb is given, the chosen normal and sign.  Returns the row's cell.
+// when comb is given, the chosen normal and sign.
 template <int G>
-__device__ __forceinline__ int alm_collision(const AlmArgs& a, int w, int r, const float* p,
-                                             float* m, int* comb, float* sign) {
+__device__ __forceinline__ void alm_collision_at(const AlmArgs& a, int w, int r, const float* p0,
+                                                 const float* p1, const float* p2, float* m,
+                                                 int* comb, float* sign) {
   const long long K = a.K;
   const int C = a.C;
-  const int TJ = a.TJ;
-  const int cell = a.row[(long long)w * K + r];
-  float p0[G], p1[G], p2[G], best_p[G], best_n[G];
+  float best_p[G], best_n[G];
   int ip[G], in[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    p0[g] = p[(g * 3 + 0) * TJ + cell];
-    p1[g] = p[(g * 3 + 1) * TJ + cell];
-    p2[g] = p[(g * 3 + 2) * TJ + cell];
     best_p[g] = 0.0f;
     best_n[g] = 0.0f;
     ip[g] = 0;
@@ -197,6 +186,23 @@ __device__ __forceinline__ int alm_collision(const AlmArgs& a, int w, int r, con
       sign[g] = use_neg ? 1.0f : -1.0f;
     }
   }
+}
+
+// The same at the link centres p[(g * 3 + a) * TJ + cell] of the row's
+// (time, link) cell; returns the cell.
+template <int G>
+__device__ __forceinline__ int alm_collision(const AlmArgs& a, int w, int r, const float* p,
+                                             float* m, int* comb, float* sign) {
+  const int TJ = a.TJ;
+  const int cell = a.row[(long long)w * a.K + r];
+  float p0[G], p1[G], p2[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    p0[g] = p[(g * 3 + 0) * TJ + cell];
+    p1[g] = p[(g * 3 + 1) * TJ + cell];
+    p2[g] = p[(g * 3 + 2) * TJ + cell];
+  }
+  alm_collision_at<G>(a, w, r, p0, p1, p2, m, comb, sign);
   return cell;
 }
 
@@ -369,7 +375,7 @@ __device__ float alm_cost(const AlmArgs& a, int w, const float* k, float* grad) 
 
 // Sums acc[0..n) over a block of NW warps; thread 0 returns the totals in
 // acc.  red: NW * n floats of shared memory.
-template <int N, int NW = ALM_WARPS>
+template <int N, int NW>
 __device__ void alm_block_sum(float* acc, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -399,3 +405,22 @@ __device__ __forceinline__ int alm_lin(int i, int j) {
   // lower-triangle index of (i >= j)
   return i * (i + 1) / 2 + j;
 }
+
+// floats per staged row and per basis vector: B rounded up to a multiple of
+// 4 with an odd number of float4s, so that a warp's float4 reads of 32 rows
+// fall on distinct banks
+static __host__ __device__ __forceinline__ int alm_pitch(int B) {
+  int p = (B + 3) / 4 * 4;
+  if ((p / 4) % 2 == 0) p += 4;
+  return p;
+}
+
+// 16-byte asynchronous copy from device to shared memory (cp.async), and
+// the wait for all of a thread's copies
+__device__ __forceinline__ void alm_cp16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void alm_cp_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+

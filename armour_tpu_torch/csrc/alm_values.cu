@@ -47,24 +47,6 @@
 #define K8B_THREADS 128
 #define K8C_THREADS 128
 
-// floats per staged row and per phi vector: B rounded up to a multiple of 4
-// with an odd number of float4s, so that a warp's float4 reads of 32 rows
-// fall on distinct banks
-static __host__ __device__ __forceinline__ int k8_pitch(int B) {
-  int p = (B + 3) / 4 * 4;
-  if ((p / 4) % 2 == 0) p += 4;
-  return p;
-}
-
-// 16-byte asynchronous copy from device to shared memory (cp.async), and
-// the wait for all of a thread's copies
-__device__ __forceinline__ void k8_cp16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void k8_cp_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
-
 // One clipped stack row: adds its penalty term and violation to (pen, cnt)
 // and returns the clipped value.
 __device__ __forceinline__ float k8_row(float c_raw, float lam, float rho, float thr, float& pen,
@@ -83,7 +65,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
   constexpr int SLOTS = K8A_THREADS / R;
   constexpr int QPT = (K8_MAXQ + SLOTS - 1) / SLOTS;
   extern __shared__ float4 k8_smem[];
-  const int P = k8_pitch(a.B);
+  const int P = alm_pitch(a.B);
   float* kq = (float*)k8_smem;                 // [MAXQ][8]
   float* phi = kq + 8 * K8_MAXQ;               // [MAXQ][P]
   float* tile = phi + K8_MAXQ * P;             // [R][P]
@@ -104,7 +86,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
                                : a.u_coef + ((long long)w * TF + rr - NC) * B;
     float* dst = tile + row * P;
     if (vec && rr < NR) {
-      for (int b4 = tid & 31; b4 < B / 4; b4 += 32) k8_cp16(dst + 4 * b4, src + 4 * b4);
+      for (int b4 = tid & 31; b4 < B / 4; b4 += 32) alm_cp16(dst + 4 * b4, src + 4 * b4);
       for (int b = B + (tid & 31); b < P; b += 32) dst[b] = 0.0f;
     } else {
       for (int b = tid & 31; b < P; b += 32) dst[b] = (b < B && rr < NR) ? src[b] : 0.0f;
@@ -119,7 +101,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
     float take[NF];
     phi[i] = b < B ? alm_phi<NF>(degs + b * ALM_MAX_F, kq + q * 8, take) : 0.0f;
   }
-  k8_cp_wait();
+  alm_cp_wait();
   __syncthreads();
 
   const int row = tid % R, slot = tid / R, rr = r0 + row;
@@ -272,7 +254,7 @@ __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a,
 }
 
 static size_t k8_rows_smem(int B, int R) {
-  const int P = k8_pitch(B);
+  const int P = alm_pitch(B);
   return sizeof(float) * (8 * K8_MAXQ + (size_t)K8_MAXQ * P + (size_t)R * P + 2 * K8_MAXQ * R)
          + (size_t)B * ALM_MAX_F;
 }

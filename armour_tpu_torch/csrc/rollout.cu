@@ -25,24 +25,61 @@
 // logs), ~0.2 us at 3.35 TB/s; the function needs ~45 kFLOP per
 // world-step (45 RNEA passes, with the joint rotations, the kinematic
 // recursions and the sparse perturbation passes counted once each),
-// ~22 MFLOP per world-move, ~1.4 GFLOP per move, ~0.02 ms at 67 TFLOP/s.
-// That bound is not reachable: the move is a chain of n
-// steps, each a chain of 1 (parallel controller and mass-matrix passes) +
-// 4 * substeps (bias passes) dependent RNEA evaluations; ~1,200 dependent
-// float32 operations per step at ~4 cycles each make a serial chain of
-// ~1.2 ms per move at the card's 1.98 GHz maximum clock.
+// ~22 MFLOP per world-move, ~1.4 GFLOP per move, 0.021 ms at 67 TFLOP/s.
+// That bound is not reachable: the move is a chain of n steps, each a
+// chain of 1 (parallel controller and mass-matrix passes) + 4 * substeps
+// (bias passes) dependent RNEA evaluations; ~1,200 dependent float32
+// operations per step at ~4 cycles each make a serial chain of 1.17 ms per
+// move at the card's 1.98 GHz maximum clock.
 //
-// Design, simple first: one warp (one block) per world.  The 2 + 4J + F
-// independent RNEA chains of a step (37 for the Kinova) are spread over the
-// 32 lanes, each chain a register-resident 7-joint pass; lane 0 then reduces
-// rho, V_sup and lambda, forms M^-1 and runs the 8 dependent bias passes of
-// the 2 RK4 substeps, and writes the step's log row.  64 warps leave most
-// of the card idle.  Built with -fmad=false and no fast math, so that each
-// RNEA pass repeats the plain version's float32 operations.
+// What held the first design back (101 ms a move): the joint counts were
+// runtime values, so the per-joint arrays (rotations, forces, the
+// Gauss-Jordan tableau, the RK4 stages) were indexed dynamically and lived
+// in local memory (255 registers, 1,408 bytes of spills a thread); the
+// robot sat in a by-value parameter addressed through pointers; lane 0
+// alone ran the controller, the 7x14 Gauss-Jordan inverse and the 8 bias
+// passes, each recomputing 7 rotations while 31 lanes waited; the 37
+// chains took two rounds of 32 lanes, and each mass-matrix chain
+// recomputed the true-state rotations.
+//
+// This design: J (joints) and NL (lanes per world, 32 or 64, from
+// kernels/sim.py:k5_geometry, so that the 2 + 4J + F chains of a step run
+// in one round) are template parameters and every joint loop is unrolled
+// to J; F <= J stays a runtime bound, tested inside those loops, so every
+// per-joint array is indexed by a constant and lives in registers (nine
+// instantiations instead of 36 keep the build short).  The robot is a
+// __grid_constant__ parameter, read in place.  One block of NL threads per
+// world; per control step:
+//   1. lane f forms joint f's measured state and references, lanes 0..J-1
+//      the rotations at the measured state, lanes J..2J-1 at the true
+//      state, once each, into shared memory (a chain lane then holds only
+//      its own inputs: with every lane holding all references the J = 7
+//      kernel needed 255 registers and 532 bytes of spills);
+//   2. a lane per chain runs its RNEA pass (the nominal, the 4J
+//      perturbation and the F mass-matrix chains), outputs to shared memory;
+//   3. the controller on one lane (lane 32 when NL = 64, so that it runs
+//      beside step 4), its sums in the first design's order;
+//   4. M^-1 by Gauss-Jordan with one lane per column of [M | I] (2F lanes of
+//      warp 0): the pivot row and the column of multipliers come from the
+//      pivot column's lane by shuffles, and each lane updates its column;
+//   5. the RK4 substeps: lane 0 runs each stage's bias pass, M^-1 (u - bias)
+//      and the RK4 sums in registers, while J other lanes form the next
+//      stage's rotations (stage g + 1's configuration needs only stage
+//      g - 1's acceleration).  A phase clock on the card (world 0, one
+//      control step) put the bias pass at ~4.3k cycles, ~1,870 float32
+//      instructions on one dependent chain, and the hand-offs of an earlier
+//      layout (rotations and M^-1 rows on other lanes, each through shared
+//      memory and a warp barrier) at ~1.85k more a stage.
+// Each RNEA pass, rotation, Gauss-Jordan element update, row of M^-1 rhs
+// and RK4 sum keeps the first design's float32 operation sequence (only
+// the lane that runs it changed), so K5 keeps its agreement with
+// rollout_plain; no sum is reordered.  Built with -fmad=false and no fast
+// math.  The accurate sinf / cosf keep their slow-path stack frame (taken
+// only for |angle| > 105615 rad).
 #include <cuda_runtime.h>
 
 #define K5_MAXJ 8
-#define K5_MAXC (2 + 4 * K5_MAXJ + K5_MAXJ)
+#define K5_FULL 0xffffffffu
 
 struct K5Robot {
   int J, F;
@@ -95,38 +132,48 @@ __device__ __forceinline__ void k5_cross(const float a[3], const float b[3], flo
 
 // o = M v (M row-major 3x3)
 __device__ __forceinline__ void k5_mv(const float* M, const float v[3], float o[3]) {
+#pragma unroll
   for (int a = 0; a < 3; ++a) o[a] = M[3 * a] * v[0] + M[3 * a + 1] * v[1] + M[3 * a + 2] * v[2];
 }
 
 // o = M^T v
 __device__ __forceinline__ void k5_mtv(const float* M, const float v[3], float o[3]) {
+#pragma unroll
   for (int a = 0; a < 3; ++a) o[a] = M[a] * v[0] + M[3 + a] * v[1] + M[6 + a] * v[2];
 }
 
-// R_i = rot_i @ Rot_axis(sgn * q_i) for every joint
-__device__ void k5_rotations(const K5Robot& rb, const float* q, float Rs[K5_MAXJ][9]) {
-#pragma unroll
-  for (int i = 0; i < K5_MAXJ; ++i) {
-    if (i >= rb.J) break;
-    const int axis = rb.axes[i];
-    float Ra[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
-    if (axis != 0 && i < rb.F) {
-      const float th = (axis > 0 ? 1.0f : -1.0f) * q[i];
-      const float c = cosf(th), s = sinf(th);
-      const int a = (axis > 0 ? axis : -axis) - 1;
-      if (a == 0) {
-        Ra[4] = c; Ra[5] = -s; Ra[7] = s; Ra[8] = c;
-      } else if (a == 1) {
-        Ra[0] = c; Ra[2] = s; Ra[6] = -s; Ra[8] = c;
-      } else {
-        Ra[0] = c; Ra[1] = -s; Ra[3] = s; Ra[4] = c;
-      }
+// R_i = rot_i @ Rot_axis(sgn * q_i) of joint i (the identity axis for a
+// fixed joint or i >= F), into Rs[9]
+__device__ __forceinline__ void k5_rotation(const K5Robot& rb, int i, float qi, float* Rs) {
+  const int axis = rb.axes[i];
+  float Ra[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
+  if (axis != 0 && i < rb.F) {
+    const float th = (axis > 0 ? 1.0f : -1.0f) * qi;
+    const float c = cosf(th), s = sinf(th);
+    const int a = (axis > 0 ? axis : -axis) - 1;
+    if (a == 0) {
+      Ra[4] = c; Ra[5] = -s; Ra[7] = s; Ra[8] = c;
+    } else if (a == 1) {
+      Ra[0] = c; Ra[2] = s; Ra[6] = -s; Ra[8] = c;
+    } else {
+      Ra[0] = c; Ra[1] = -s; Ra[3] = s; Ra[4] = c;
     }
-    const float* P = rb.rot + 9 * i;
-    for (int a = 0; a < 3; ++a)
-      for (int b = 0; b < 3; ++b)
-        Rs[i][3 * a + b] = P[3 * a] * Ra[b] + P[3 * a + 1] * Ra[3 + b] + P[3 * a + 2] * Ra[6 + b];
   }
+  const float* P = rb.rot + 9 * i;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      Rs[3 * a + b] = P[3 * a] * Ra[b] + P[3 * a + 1] * Ra[3 + b] + P[3 * a + 2] * Ra[6 + b];
+}
+
+// joint i's unit axis (sign included) as three constants: e[ax] = sg
+__device__ __forceinline__ void k5_axis(int axis, float e[3]) {
+  const int ax = (axis > 0 ? axis : -axis) - 1;
+  const float sg = axis > 0 ? 1.0f : -1.0f;
+  e[0] = ax == 0 ? sg : 0.0f;
+  e[1] = ax == 1 ? sg : 0.0f;
+  e[2] = ax == 2 ? sg : 0.0f;
 }
 
 // link i's inertials as chain `kind` sees them (link = the perturbed link)
@@ -137,32 +184,38 @@ __device__ __forceinline__ void k5_link(const K5Robot& rb, const K5True& tr, int
   if (kind == K5_NOMINAL || kind == K5_TRUE) {
     const float* Ip = (kind == K5_TRUE) ? tr.inertia + 9 * i : rb.inertia + 9 * i;
     m = (kind == K5_TRUE) ? tr.mass[i] : rb.mass[i];
+#pragma unroll
     for (int k = 0; k < 9; ++k) I[k] = Ip[k];
   } else if (kind == K5_MASS_DIR) {
     m = (i == link) ? rb.mass[i] * rb.mass_unc : 0.0f;
+#pragma unroll
     for (int k = 0; k < 9; ++k) I[k] = 0.0f;
   } else {
     m = 0.0f;
+#pragma unroll
     for (int k = 0; k < 9; ++k) I[k] = (i == link) ? rb.inertia[9 * i + k] * rb.inertia_unc : 0.0f;
   }
 }
 
-// passivity-form RNEA (rnea_numeric.py:79-168), one chain, tau[F]
-__device__ void k5_rnea(const K5Robot& rb, const K5True& tr, const float Rs[K5_MAXJ][9],
-                        const float* qd, const float* qa, const float* qdd, int kind, int link,
-                        bool grav, bool arm, float* tau) {
+// passivity-form RNEA (rnea_numeric.py:79-168), one chain: rotations Rs,
+// qd / qa / qdd and tau (entries i < F set) all in registers
+template <int J>
+__device__ __forceinline__ void k5_rnea(const K5Robot& rb, const K5True& tr,
+                                        const float (&Rs)[J][9], const float* qd,
+                                        const float* qa, const float* qdd, int kind, int link,
+                                        bool grav, bool arm, float* tau) {
+  const int F = rb.F;
   float w[3] = {0.f, 0.f, 0.f}, wa[3] = {0.f, 0.f, 0.f}, wd[3] = {0.f, 0.f, 0.f};
   float acc[3] = {0.f, 0.f, grav ? rb.gravity : 0.f};
-  float Fv[K5_MAXJ][3], Nv[K5_MAXJ][3];
-  const int J = rb.J;
+  float Fv[J][3], Nv[J][3];
 #pragma unroll
-  for (int i = 0; i < K5_MAXJ; ++i) {
-    if (i >= J) break;
+  for (int i = 0; i < J; ++i) {
     const float* tri = rb.trans + 3 * i;
     float t0[3], t1[3], t2[3], s[3];
     k5_cross(wd, tri, t0);
     k5_cross(wa, tri, t1);
     k5_cross(w, t1, t2);
+#pragma unroll
     for (int a = 0; a < 3; ++a) s[a] = acc[a] + t0[a] + t2[a];
     k5_mtv(Rs[i], s, acc);
     float tmp[3];
@@ -170,19 +223,21 @@ __device__ void k5_rnea(const K5Robot& rb, const K5True& tr, const float Rs[K5_M
     k5_mtv(Rs[i], wa, tmp); wa[0] = tmp[0]; wa[1] = tmp[1]; wa[2] = tmp[2];
     k5_mtv(Rs[i], wd, tmp); wd[0] = tmp[0]; wd[1] = tmp[1]; wd[2] = tmp[2];
     const int axis = rb.axes[i];
-    if (axis != 0 && i < rb.F) {
-      const int ax = (axis > 0 ? axis : -axis) - 1;
-      const float sg = axis > 0 ? 1.0f : -1.0f;
-      float e[3] = {0.f, 0.f, 0.f};
-      e[ax] = sg;
+    if (axis != 0 && i < F) {
+      float e[3];
+      k5_axis(axis, e);
       float eq[3], eqdd[3], c1[3];
+#pragma unroll
       for (int a = 0; a < 3; ++a) {
         eq[a] = e[a] * qd[i];
         eqdd[a] = e[a] * qdd[i];
       }
+#pragma unroll
       for (int a = 0; a < 3; ++a) w[a] = w[a] + eq[a];
       k5_cross(wa, eq, c1);
+#pragma unroll
       for (int a = 0; a < 3; ++a) wd[a] = wd[a] + c1[a] + eqdd[a];
+#pragma unroll
       for (int a = 0; a < 3; ++a) wa[a] = wa[a] + e[a] * qa[i];
     }
     float m, cb[3], Ib[9];
@@ -191,22 +246,24 @@ __device__ void k5_rnea(const K5Robot& rb, const K5True& tr, const float Rs[K5_M
     k5_cross(wd, cb, c0);
     k5_cross(wa, cb, c2);
     k5_cross(w, c2, c3);
+#pragma unroll
     for (int a = 0; a < 3; ++a) Fv[i][a] = m * (acc[a] + c0[a] + c3[a]);
     float Iw[3], Iwd[3], c4[3];
     k5_mv(Ib, wd, Iwd);
     k5_mv(Ib, w, Iw);
     k5_cross(wa, Iw, c4);
+#pragma unroll
     for (int a = 0; a < 3; ++a) Nv[i][a] = Iwd[a] + c4[a];
   }
   float f[3] = {0.f, 0.f, 0.f}, n[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = K5_MAXJ - 1; i >= 0; --i) {
-    if (i >= J) continue;
+  for (int i = J - 1; i >= 0; --i) {
     float rf[3], rn[3];
     if (i + 1 < J) {
       k5_mv(Rs[i + 1], f, rf);
       k5_mv(Rs[i + 1], n, rn);
     } else {
+#pragma unroll
       for (int a = 0; a < 3; ++a) { rf[a] = f[a]; rn[a] = n[a]; }
     }
     float cb[3];
@@ -215,14 +272,18 @@ __device__ void k5_rnea(const K5Robot& rb, const K5True& tr, const float Rs[K5_M
     float c0[3], c1[3];
     k5_cross(cb, Fv[i], c0);
     k5_cross(rb.trans + 3 * (i + 1), rf, c1);
+#pragma unroll
     for (int a = 0; a < 3; ++a) {
       n[a] = Nv[i][a] + rn[a] + c0[a] + c1[a];
       f[a] = rf[a] + Fv[i][a];
     }
     const int axis = rb.axes[i];
-    if (axis != 0 && i < rb.F) {
-      const int ax = (axis > 0 ? axis : -axis) - 1;
-      float t = (axis > 0 ? 1.0f : -1.0f) * n[ax];
+    if (axis != 0 && i < F) {
+      float e[3];
+      k5_axis(axis, e);
+      const float sg = axis > 0 ? 1.0f : -1.0f;
+      const float nax = e[0] != 0.0f ? n[0] : e[1] != 0.0f ? n[1] : n[2];
+      float t = sg * nax;
       if (arm) t = t + rb.armature[i] * qdd[i];
       if (rb.damping[i] != 0.0f) t = t + rb.damping[i] * qd[i];
       tau[i] = t;
@@ -230,211 +291,356 @@ __device__ void k5_rnea(const K5Robot& rb, const K5True& tr, const float Rs[K5_M
   }
 }
 
-// bias(q, qd) with the true inertials, then qdd = M^-1 (u - bias)
-__device__ void k5_accel(const K5Robot& rb, const K5True& tr, const float Minv[K5_MAXJ][K5_MAXJ],
-                         const float* q, const float* qd, const float* u, float* qdd) {
-  float Rs[K5_MAXJ][9];
-  k5_rotations(rb, q, Rs);
-  const float zero[K5_MAXJ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float bias[K5_MAXJ], rhs[K5_MAXJ];
-  k5_rnea(rb, tr, Rs, qd, qd, zero, K5_TRUE, -1, true, false, bias);
-  const int F = rb.F;
-  for (int j = 0; j < F; ++j) rhs[j] = u[j] - bias[j];
-  for (int i = 0; i < F; ++i) {
-    float s = 0.0f;
-    for (int j = 0; j < F; ++j) s = s + Minv[i][j] * rhs[j];
-    qdd[i] = s;
-  }
-}
-
-__global__ void __launch_bounds__(32) k5_kernel(const K5Args args) {
+template <int J, int NL>
+__global__ void __launch_bounds__(NL) k5_kernel(const __grid_constant__ K5Args args) {
+  constexpr int NCH = 2 + 5 * J;               // chains of a step at F = J
   const K5Robot& rb = args.rb;
   const int w = blockIdx.x;
   const int lane = threadIdx.x;
-  const int J = rb.J, F = rb.F, n = args.n;
+  const int F = rb.F, n = args.n;
   const int n_chains = 2 + 4 * J + F;
+  constexpr int CTRL = NL > 32 ? 32 : 0;       // the controller's lane
 
   __shared__ K5True tr;
-  __shared__ float sq[K5_MAXJ], sqd[K5_MAXJ];
-  __shared__ float stau[K5_MAXC][K5_MAXJ];
+  __shared__ float sq[J], sqd[J];              // the true state
+  __shared__ float Rm[J][9], Rt[J][9];         // rotations at the measured and true states
+  __shared__ float Rb[2][J][9], sx[2][J];      // RK4 stages: rotations, configurations
+  __shared__ float stau[NCH][J];
+  __shared__ float su[J], sMinv[J][J];
+  __shared__ float sref[6][J];                 // qd, qd_ref, qdd_ref, r, err, derr (measured)
 
-  for (int k = lane; k < J; k += 32) tr.mass[k] = args.tmass[w * J + k];
-  for (int k = lane; k < 3 * J; k += 32) tr.com[k] = args.tcom[w * 3 * J + k];
-  for (int k = lane; k < 9 * J; k += 32) tr.inertia[k] = args.tinertia[w * 9 * J + k];
-  for (int k = lane; k < F; k += 32) {
+  for (int k = lane; k < J; k += NL) tr.mass[k] = args.tmass[w * J + k];
+  for (int k = lane; k < 3 * J; k += NL) tr.com[k] = args.tcom[w * 3 * J + k];
+  for (int k = lane; k < 9 * J; k += NL) tr.inertia[k] = args.tinertia[w * 9 * J + k];
+  for (int k = lane; k < F; k += NL) {
     sq[k] = args.q0[w * F + k];
     sqd[k] = args.qd0[w * F + k];
   }
-  float e_acc = 0.0f;          // althoff E(t), lane 0
-  __syncwarp();
+  float e_acc = 0.0f;          // althoff E(t), on the controller's lane
+  __syncthreads();
 
+#pragma unroll 1
   for (int s = 0; s < n; ++s) {
     const long long row = ((long long)w * n + s) * F;
-    // measured state and the controller's references (every lane)
-    float qm[K5_MAXJ], qdm[K5_MAXJ], qt[K5_MAXJ], err[K5_MAXJ], derr[K5_MAXJ];
-    float qd_ref[K5_MAXJ], qdd_ref[K5_MAXJ], r[K5_MAXJ];
-    for (int f = 0; f < F; ++f) {
-      qt[f] = sq[f];
-      qm[f] = sq[f];
-      qdm[f] = sqd[f];
+    const long long nb = (((long long)w * n + s) * 2) * F;
+    // 1. measured state and the controller's references, lane f for joint
+    //    f, into shared memory; the rotations at the measured (lanes
+    //    0..J-1) and true (J..2J-1) states
+    if (lane < F) {
+      const int f = lane;
+      float qm = sq[f];
+      float qdm = sqd[f];
       if (args.noise != nullptr) {
-        const long long nb = (((long long)w * n + s) * 2) * F;
-        qm[f] = sq[f] + args.noise[nb + f];
-        qdm[f] = sqd[f] + args.noise[nb + F + f];
+        qm = sq[f] + args.noise[nb + f];
+        qdm = sqd[f] + args.noise[nb + F + f];
       }
-      err[f] = args.q_des[row + f] - qm[f];
-      derr[f] = args.qd_des[row + f] - qdm[f];
-      qd_ref[f] = args.qd_des[row + f] + args.k_r * err[f];
-      qdd_ref[f] = args.qdd_des[row + f] + args.k_r * derr[f];
-      r[f] = derr[f] + args.k_r * err[f];
+      const float err = args.q_des[row + f] - qm;
+      const float derr = args.qd_des[row + f] - qdm;
+      sref[0][f] = qdm;
+      sref[1][f] = args.qd_des[row + f] + args.k_r * err;
+      sref[2][f] = args.qdd_des[row + f] + args.k_r * derr;
+      sref[3][f] = derr + args.k_r * err;
+      sref[4][f] = err;
+      sref[5][f] = derr;
     }
-    const float zero[K5_MAXJ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (lane < 2 * J) {
+      const int i = lane < J ? lane : lane - J;
+      float qi = i < F ? sq[i] : 0.0f;
+      if (lane < J && i < F && args.noise != nullptr) qi = sq[i] + args.noise[nb + i];
+      k5_rotation(rb, i, qi, lane < J ? Rm[i] : Rt[i]);
+    }
+    __syncthreads();
 
-    // the step's independent RNEA chains, spread over the lanes
-    float Rm[K5_MAXJ][9];
-    k5_rotations(rb, qm, Rm);
-    for (int c = lane; c < n_chains; c += 32) {
-      float tau[K5_MAXJ];
-      if (c == 0) {
-        k5_rnea(rb, tr, Rm, qdm, qd_ref, qdd_ref, K5_NOMINAL, -1, true, true, tau);
-      } else if (c == 1) {
-        k5_rnea(rb, tr, Rm, zero, zero, r, K5_NOMINAL, -1, false, true, tau);
-      } else if (c < 2 + 4 * J) {
+    // 2. the step's independent RNEA chains, a lane each
+#pragma unroll 1
+    for (int c = lane; c < n_chains; c += NL) {
+      const bool at_qd = c == 0 || (c >= 2 && c < 2 + 2 * J);   // (qd, qd_ref, qdd_ref)
+      const bool mass_col = c >= 2 + 4 * J;                     // M(q)'s column j
+      const int j = c - 2 - 4 * J;
+      float vq[J], va[J], vdd[J], tau[J];
+#pragma unroll
+      for (int f = 0; f < J; ++f) {
+        const bool on = f < F;
+        vq[f] = at_qd && on ? sref[0][f] : 0.0f;
+        va[f] = at_qd && on ? sref[1][f] : 0.0f;
+        vdd[f] = !on ? 0.0f : at_qd ? sref[2][f] : mass_col ? (f == j ? 1.0f : 0.0f)
+                                                            : sref[3][f];
+        tau[f] = 0.0f;
+      }
+      int kind = K5_NOMINAL, link = -1;
+      if (mass_col) {
+        kind = K5_TRUE;
+      } else if (c >= 2) {
         const int p = (c - 2) % (2 * J);
-        const int kind = p < J ? K5_MASS_DIR : K5_INERTIA_DIR;
-        const int link = p < J ? p : p - J;
-        if (c < 2 + 2 * J)
-          k5_rnea(rb, tr, Rm, qdm, qd_ref, qdd_ref, kind, link, true, false, tau);
-        else
-          k5_rnea(rb, tr, Rm, zero, zero, r, kind, link, true, false, tau);
-      } else {
-        const int j = c - 2 - 4 * J;
-        float Rt[K5_MAXJ][9];
-        k5_rotations(rb, qt, Rt);
-        float ej[K5_MAXJ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        ej[j] = 1.0f;
-        k5_rnea(rb, tr, Rt, zero, zero, ej, K5_TRUE, -1, false, true, tau);
+        kind = p < J ? K5_MASS_DIR : K5_INERTIA_DIR;
+        link = p < J ? p : p - J;
       }
-      for (int f = 0; f < F; ++f) stau[c][f] = tau[f];
+      const bool grav = c != 1 && !mass_col;
+      const bool arm = c < 2 || mass_col;
+      float R[J][9];                           // the rotations, loaded up front
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int k = 0; k < 9; ++k) R[i][k] = mass_col ? Rt[i][k] : Rm[i][k];
+      k5_rnea<J>(rb, tr, R, vq, va, vdd, kind, link, grav, arm, tau);
+#pragma unroll
+      for (int f = 0; f < J; ++f)
+        if (f < F) stau[c][f] = tau[f];
     }
-    __syncwarp();
+    __syncthreads();
 
-    if (lane == 0) {
-      // controller
-      float u[K5_MAXJ];
+    // 3. the controller (one lane, the first design's order)
+    if (lane == CTRL) {
+      float u[J], r[J], err[J], derr[J];
+#pragma unroll
+      for (int f = 0; f < J; ++f) {
+        r[f] = f < F ? sref[3][f] : 0.0f;
+        err[f] = f < F ? sref[4][f] : 0.0f;
+        derr[f] = f < F ? sref[5][f] : 0.0f;
+      }
       const float* tau = stau[0];
       if (args.controller == 1) {
-        for (int f = 0; f < F; ++f) u[f] = tau[f];
+#pragma unroll
+        for (int f = 0; f < J; ++f) u[f] = f < F ? tau[f] : 0.0f;
       } else {
-        float dist_sup[K5_MAXJ];
-        for (int f = 0; f < F; ++f) {
+        float dist_sup[J];
+#pragma unroll
+        for (int f = 0; f < J; ++f) {
           float a = 0.0f;
-          for (int p = 0; p < 2 * J; ++p) a = a + fabsf(stau[2 + p][f]);
+#pragma unroll
+          for (int p = 0; p < 2 * J; ++p) a = a + fabsf(stau[2 + p][f < F ? f : 0]);
           dist_sup[f] = a;
         }
         if (args.controller == 0) {
           float rho = 0.0f, vn = 0.0f, r_sq = 0.0f, vp = 0.0f;
-          for (int f = 0; f < F; ++f) rho = rho + fabsf(r[f]) * dist_sup[f];
-          for (int f = 0; f < F; ++f) vn = vn + r[f] * stau[1][f];
+#pragma unroll
+          for (int f = 0; f < J; ++f)
+            if (f < F) rho = rho + fabsf(r[f]) * dist_sup[f];
+#pragma unroll
+          for (int f = 0; f < J; ++f)
+            if (f < F) vn = vn + r[f] * stau[1][f];
+#pragma unroll
           for (int p = 0; p < 2 * J; ++p) {
             float d = 0.0f;
-            for (int f = 0; f < F; ++f) d = d + stau[2 + 2 * J + p][f] * r[f];
+#pragma unroll
+            for (int f = 0; f < J; ++f)
+              if (f < F) d = d + stau[2 + 2 * J + p][f] * r[f];
             vp = vp + fabsf(d);
           }
-          for (int f = 0; f < F; ++f) r_sq = r_sq + r[f] * r[f];
+#pragma unroll
+          for (int f = 0; f < J; ++f)
+            if (f < F) r_sq = r_sq + r[f] * r[f];
           const float v_sup = 0.5f * vn + 0.5f * vp;
           const float hh = args.v_max - v_sup;
           const float lam = fmaxf((-args.alpha * hh + rho) / fmaxf(r_sq, 1e-12f), 0.0f);
-          for (int f = 0; f < F; ++f) u[f] = tau[f] + (r_sq > 0.0f ? lam * r[f] : 0.0f);
+#pragma unroll
+          for (int f = 0; f < J; ++f)
+            u[f] = f < F ? tau[f] + (r_sq > 0.0f ? lam * r[f] : 0.0f) : 0.0f;
         } else {
           float bn = 0.0f, es = 0.0f, ds = 0.0f;
-          for (int f = 0; f < F; ++f) bn = bn + dist_sup[f] * dist_sup[f];
+#pragma unroll
+          for (int f = 0; f < J; ++f)
+            if (f < F) bn = bn + dist_sup[f] * dist_sup[f];
           bn = sqrtf(bn);
-          for (int f = 0; f < F; ++f) es = es + err[f] * err[f];
-          for (int f = 0; f < F; ++f) ds = ds + derr[f] * derr[f];
+#pragma unroll
+          for (int f = 0; f < J; ++f)
+            if (f < F) es = es + err[f] * err[f];
+#pragma unroll
+          for (int f = 0; f < J; ++f)
+            if (f < F) ds = ds + derr[f] * derr[f];
           const float state_err = sqrtf(es + ds);
           e_acc = e_acc + (state_err > args.max_error ? state_err * args.dt : 0.0f);
           const float phi = args.kp0 + args.ki0 * e_acc;
           const float kappa = args.kp1 + args.ki1 * e_acc;
           const float gain = kappa * bn + phi;
-          for (int f = 0; f < F; ++f) u[f] = tau[f] + gain * r[f];
+#pragma unroll
+          for (int f = 0; f < J; ++f) u[f] = f < F ? tau[f] + gain * r[f] : 0.0f;
         }
       }
+#pragma unroll
+      for (int f = 0; f < J; ++f)
+        if (f < F) su[f] = u[f];
+    }
 
-      // M(q) (true inertials) and its inverse: Gauss-Jordan, partial pivoting
-      float A[K5_MAXJ][2 * K5_MAXJ];
-      for (int i = 0; i < F; ++i)
-        for (int j = 0; j < F; ++j) {
-          A[i][j] = stau[2 + 4 * J + j][i];
-          A[i][F + j] = (i == j) ? 1.0f : 0.0f;
+    // 4. M(q) (true inertials) and its inverse: Gauss-Jordan with partial
+    //    pivoting, lane k < 2F holding column k of [M | I]
+    if (lane < 32) {
+      float col[J];
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        col[i] = 0.0f;
+        if (i < F) {
+          if (lane < F) col[i] = stau[2 + 4 * J + lane][i];
+          else col[i] = (lane - F == i) ? 1.0f : 0.0f;
         }
-      for (int c = 0; c < F; ++c) {
+      }
+#pragma unroll
+      for (int c = 0; c < J; ++c) {
+        if (c >= F) break;
         int p = c;
-        for (int i = c + 1; i < F; ++i)
-          if (fabsf(A[i][c]) > fabsf(A[p][c])) p = i;
-        if (p != c)
-          for (int k = 0; k < 2 * F; ++k) {
-            const float t = A[c][k]; A[c][k] = A[p][k]; A[p][k] = t;
-          }
-        const float d = A[c][c];
-        for (int k = 0; k < 2 * F; ++k) A[c][k] = A[c][k] / d;
-        for (int i = 0; i < F; ++i) {
-          if (i == c) continue;
-          const float fac = A[i][c];
-          for (int k = 0; k < 2 * F; ++k) A[i][k] = A[i][k] - fac * A[c][k];
+        float best = fabsf(col[c]);
+#pragma unroll
+        for (int i = c + 1; i < J; ++i) {
+          if (i < F && fabsf(col[i]) > best) { best = fabsf(col[i]); p = i; }
+        }
+        p = __shfl_sync(K5_FULL, p, c);
+#pragma unroll
+        for (int i = c + 1; i < J; ++i) {
+          if (i == p) { const float t = col[c]; col[c] = col[i]; col[i] = t; }
+        }
+        const float d = __shfl_sync(K5_FULL, col[c], c);
+        float fac[J];
+#pragma unroll
+        for (int i = 0; i < J; ++i) fac[i] = __shfl_sync(K5_FULL, col[i], c);
+        col[c] = col[c] / d;
+#pragma unroll
+        for (int i = 0; i < J; ++i) {
+          if (i == c || i >= F) continue;
+          col[i] = col[i] - fac[i] * col[c];
         }
       }
-      float Minv[K5_MAXJ][K5_MAXJ];
-      for (int i = 0; i < F; ++i)
-        for (int j = 0; j < F; ++j) Minv[i][j] = A[i][F + j];
-
-      // RK4 substeps with M^-1 held
-      float q[K5_MAXJ], qd[K5_MAXJ];
-      for (int f = 0; f < F; ++f) { q[f] = sq[f]; qd[f] = sqd[f]; }
-      for (int sub = 0; sub < args.substeps; ++sub) {
-        float k1[K5_MAXJ], k2[K5_MAXJ], k3[K5_MAXJ], k4[K5_MAXJ];
-        float v2[K5_MAXJ], v3[K5_MAXJ], v4[K5_MAXJ], tq[K5_MAXJ];
-        k5_accel(rb, tr, Minv, q, qd, u, k1);
-        for (int f = 0; f < F; ++f) {
-          tq[f] = q[f] + args.half_h * qd[f];
-          v2[f] = qd[f] + args.half_h * k1[f];
-        }
-        k5_accel(rb, tr, Minv, tq, v2, u, k2);
-        for (int f = 0; f < F; ++f) {
-          tq[f] = q[f] + args.half_h * v2[f];
-          v3[f] = qd[f] + args.half_h * k2[f];
-        }
-        k5_accel(rb, tr, Minv, tq, v3, u, k3);
-        for (int f = 0; f < F; ++f) {
-          tq[f] = q[f] + args.h * v3[f];
-          v4[f] = qd[f] + args.h * k3[f];
-        }
-        k5_accel(rb, tr, Minv, tq, v4, u, k4);
-        for (int f = 0; f < F; ++f) {
-          const float dq = qd[f] + 2.0f * v2[f] + 2.0f * v3[f] + v4[f];
-          const float dv = k1[f] + 2.0f * k2[f] + 2.0f * k3[f] + k4[f];
-          q[f] = q[f] + args.h6 * dq;
-          qd[f] = qd[f] + args.h6 * dv;
-        }
-      }
-      for (int f = 0; f < F; ++f) {
-        sq[f] = q[f];
-        sqd[f] = qd[f];
-        args.q_log[row + f] = q[f];
-        args.qd_log[row + f] = qd[f];
-        args.u_log[row + f] = u[f];
+      if (lane >= F && lane < 2 * F) {
+#pragma unroll
+        for (int i = 0; i < J; ++i)
+          if (i < F) sMinv[i][lane - F] = col[i];
       }
     }
-    __syncwarp();
+    __syncthreads();
+
+    // 5. the RK4 substeps with M^-1 held.  Lane 0 runs every stage's bias
+    //    pass, M^-1 (u - bias) and the RK4 sums in registers; the rotation
+    //    lanes (warp 1's first J lanes, or lanes 1..J when NL = 32) form the
+    //    next stage's rotations meanwhile: stage g + 1's configuration needs
+    //    only stage g - 1's acceleration, so lane 0 writes it one stage
+    //    ahead (double buffers sx, Rb) and the rotations leave the chain.
+    {
+      constexpr int ROT0 = NL > 32 ? 32 : 1;   // the first rotation lane
+      const int n_st = 4 * args.substeps;
+      float q[J], qd[J], u[J], vcur[J], qn[J], dq[J], dv[J];
+      if (lane == 0) {
+#pragma unroll
+        for (int f = 0; f < J; ++f) {
+          q[f] = f < F ? sq[f] : 0.0f;
+          qd[f] = f < F ? sqd[f] : 0.0f;
+          u[f] = f < F ? su[f] : 0.0f;
+          vcur[f] = qd[f];
+          sx[0][f] = q[f];
+          sx[1][f] = q[f] + args.half_h * qd[f];
+        }
+      }
+      __syncthreads();
+      if (lane >= ROT0 && lane < ROT0 + J) {
+        const int i = lane - ROT0;
+        k5_rotation(rb, i, i < F ? sx[0][i] : 0.0f, Rb[0][i]);
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int g = 0; g < n_st; ++g) {
+        const int st = g & 3;
+        if (lane >= ROT0 && lane < ROT0 + J && g + 1 < n_st) {
+          const int i = lane - ROT0;
+          k5_rotation(rb, i, i < F ? sx[(g + 1) & 1][i] : 0.0f, Rb[(g + 1) & 1][i]);
+        }
+        if (lane == 0) {
+          float R[J][9], zero[J], bias[J];
+#pragma unroll
+          for (int f = 0; f < J; ++f) {
+#pragma unroll
+            for (int k = 0; k < 9; ++k) R[f][k] = Rb[g & 1][f][k];
+            zero[f] = 0.0f;
+            bias[f] = 0.0f;
+          }
+          k5_rnea<J>(rb, tr, R, vcur, vcur, zero, K5_TRUE, -1, true, false, bias);
+          float rhs[J];
+#pragma unroll
+          for (int f = 0; f < J; ++f) rhs[f] = u[f] - bias[f];
+#pragma unroll
+          for (int i = 0; i < J; ++i) {
+            float a = 0.0f;
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+              if (i < F && j < F) a = a + sMinv[i][j] * rhs[j];
+            // the RK4 sums qd + 2 v1 + 2 v2 + v3 and k0 + 2 k1 + 2 k2 + k3
+            // in order, the next stage's velocity, and the configuration of
+            // the stage after it
+            float x;
+            if (st == 0) {
+              dv[i] = a;
+              vcur[i] = qd[i] + args.half_h * a;
+              dq[i] = qd[i] + 2.0f * vcur[i];
+              x = q[i] + args.half_h * vcur[i];
+            } else if (st == 1) {
+              dv[i] = dv[i] + 2.0f * a;
+              vcur[i] = qd[i] + args.half_h * a;
+              dq[i] = dq[i] + 2.0f * vcur[i];
+              x = q[i] + args.h * vcur[i];
+            } else if (st == 2) {
+              dv[i] = dv[i] + 2.0f * a;
+              vcur[i] = qd[i] + args.h * a;
+              dq[i] = dq[i] + vcur[i];
+              qn[i] = q[i] + args.h6 * dq[i];
+              x = qn[i];
+            } else {
+              dv[i] = dv[i] + a;
+              q[i] = qn[i];
+              qd[i] = qd[i] + args.h6 * dv[i];
+              vcur[i] = qd[i];
+              x = q[i] + args.half_h * qd[i];
+            }
+            if (i < F) sx[g & 1][i] = x;
+          }
+        }
+        __syncthreads();
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int f = 0; f < J; ++f) {
+          if (f < F) {
+            sq[f] = q[f];
+            sqd[f] = qd[f];
+            args.q_log[row + f] = q[f];
+            args.qd_log[row + f] = qd[f];
+            args.u_log[row + f] = u[f];
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
-  for (int k = lane; k < F; k += 32) {
+  for (int k = lane; k < F; k += NL) {
     args.q_out[w * F + k] = sq[k];
     args.qd_out[w * F + k] = sqd[k];
   }
 }
 
-extern "C" int k5_launch(const K5Args* args, void* stream) {
-  if (args->rb.J > K5_MAXJ || args->rb.F > args->rb.J) return (int)cudaErrorInvalidValue;
-  k5_kernel<<<args->W, 32, 0, (cudaStream_t)stream>>>(*args);
+template <int J, int NL>
+static int k5_go(const K5Args* args, void* stream) {
+  k5_kernel<J, NL><<<args->W, NL, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
+}
+
+// lanes: 32 or 64 threads per world (kernels/sim.py:k5_geometry)
+extern "C" int k5_launch(const K5Args* args, int lanes, void* stream) {
+  const int J = args->rb.J, F = args->rb.F;
+  if (F < 1 || F > J || J > K5_MAXJ || 2 + 4 * J + F > lanes) return (int)cudaErrorInvalidValue;
+  if (lanes == 32) {
+    switch (J) {
+      case 1: return k5_go<1, 32>(args, stream);
+      case 2: return k5_go<2, 32>(args, stream);
+      case 3: return k5_go<3, 32>(args, stream);
+      case 4: return k5_go<4, 32>(args, stream);
+      case 5: return k5_go<5, 32>(args, stream);
+      case 6: return k5_go<6, 32>(args, stream);
+      case 7: return k5_go<7, 32>(args, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (lanes == 64) {
+    switch (J) {
+      case 7: return k5_go<7, 64>(args, stream);
+      case 8: return k5_go<8, 64>(args, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }

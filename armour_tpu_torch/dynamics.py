@@ -99,10 +99,10 @@ def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, s
     if F != J:
         raise NotImplementedError("trailing fixed joints (F < J) are not ported yet")
 
-    w = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
-    w_aux = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
-    wdot = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
-    lin_acc = bpz.zeros((Wn, 1, T, 3), basis, dt, dev)
+    w = bpz.zeros((Wn, 1, T, 3), basis, dt, device=dev)
+    w_aux = bpz.zeros((Wn, 1, T, 3), basis, dt, device=dev)
+    wdot = bpz.zeros((Wn, 1, T, 3), basis, dt, device=dev)
+    lin_acc = bpz.zeros((Wn, 1, T, 3), basis, dt, device=dev)
     lin_acc.coef[..., 2, 0] = robot.gravity
 
     F_all, N_all = [], []
@@ -152,8 +152,8 @@ def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, s
         N_all.append(N_i)
 
     # backward recursion over the chain, last joint first
-    f = bpz.zeros((Wn, P, T, 3), basis, dt, dev)
-    n = bpz.zeros((Wn, P, T, 3), basis, dt, dev)
+    f = bpz.zeros((Wn, P, T, 3), basis, dt, device=dev)
+    n = bpz.zeros((Wn, P, T, 3), basis, dt, device=dev)
     armature = robot.armature
     damping = robot.damping
     u_all = [None] * J
@@ -227,7 +227,7 @@ class TorqueFRS:
 
 
 def torque_frs(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
-               plain: bool = False) -> TorqueFRS:
+               *, plain: bool = False) -> TorqueFRS:
     """Nominal torque PZ + robust input radius (armour_tpu/dynamics.py:293-319).
     The assembly after the RNEA stays in PyTorch; plain=True takes the
     RNEA's plain version on any device."""

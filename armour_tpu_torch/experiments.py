@@ -58,10 +58,10 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
                             true_param_scale: Optional[float] = 1.0,
                             seed: int = 0, verbose: bool = True,
                             results_path: Optional[str] = None,
+                            extra_stats: Optional[dict] = None,
                             rescue_solver: bool = True,
                             guidance: str = "straight",
-                            extra_stats: Optional[dict] = None,
-                            device=None) -> List[SuiteResult]:
+                            *, device=None) -> List[SuiteResult]:
     """All worlds advanced in lockstep on one card
     (batch_sim.run_trials_batched); rescue_solver/guidance pass through and
     are recorded in the saved batch_stats, into which extra_stats (e.g. the
@@ -120,6 +120,36 @@ def summarize(results: Sequence[SuiteResult]) -> dict:
     return out
 
 
+def compare_results(path_a: str, path_b: str) -> dict:
+    """World-for-world comparison of two results files (save_results'
+    layout, e.g. this package's run against the JAX package's): buckets
+    that differ, and per world the iterations and rescued plans of each
+    where either differs, with the totals."""
+    def load(path):
+        with open(path) as f:
+            return {r["world"]: r for r in json.load(f)["results"]}
+
+    a, b = load(path_a), load(path_b)
+    common = sorted(set(a) & set(b))
+    worlds = []
+    for w in common:
+        ra, rb = a[w], b[w]
+        if (ra["iterations"], ra["rescued_plans"]) != (rb["iterations"], rb["rescued_plans"]) \
+                or ra["bucket"] != rb["bucket"]:
+            worlds.append({"world": w, "bucket": [ra["bucket"], rb["bucket"]],
+                           "iterations": [ra["iterations"], rb["iterations"]],
+                           "rescued_plans": [ra["rescued_plans"], rb["rescued_plans"]]})
+    worlds.sort(key=lambda d: -abs(d["iterations"][0] - d["iterations"][1]))
+    return {"worlds_compared": len(common),
+            "only_in_one": sorted(set(a) ^ set(b)),
+            "buckets_differ": [d["world"] for d in worlds if d["bucket"][0] != d["bucket"][1]],
+            "iterations": [sum(a[w]["iterations"] for w in common),
+                           sum(b[w]["iterations"] for w in common)],
+            "rescued_plans": [sum(a[w]["rescued_plans"] for w in common),
+                              sum(b[w]["rescued_plans"] for w in common)],
+            "differing_worlds": worlds}
+
+
 def _provenance() -> dict:
     """Producing command, commit (when the checkout is a git repository),
     time and device, embedded in every results file."""
@@ -172,7 +202,12 @@ def main(argv=None) -> None:
     ap.add_argument("mode", nargs="?", default="batched", choices=("batched", "budget", "serial"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="print the world-for-world comparison of two results files and exit")
     args = ap.parse_args(argv)
+    if args.compare:
+        print(json.dumps(compare_results(*args.compare), indent=1))
+        return
     if args.mode == "serial":
         raise SystemExit("mode 'serial' (the per-world loop of scripts/run_worlds.py) is not "
                          "ported; the batched suite gives the same outcomes")

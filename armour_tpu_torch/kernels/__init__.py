@@ -16,7 +16,7 @@ collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py): a CPU tensor ta
 the kernel through the launchers here or raises.  Each launcher calls
 launched(name) where it launches its kernel and nowhere else: LAUNCHES[name]
 counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
-launched (K8 runs three per call, every other kernel one).  Sources are
+launched (K7 and K8 run three per call, every other kernel one).  Sources are
 compiled with nvcc at first use (kernels/build.py).
 """
 

@@ -147,7 +147,7 @@ def fk_chain(jrs, robot, cfg, basis: KBasis) -> BPZ:
         raise ValueError(f"fk_chain takes at most {MAX_J} joints, got {J} (R holds {Jr})")
     R = _require(jrs.R, "fk_chain", (Wn, T, Jr, 3, 3))
     B, E = _widths(basis, R, "fk_chain")
-    boxes = link_box_pz(robot, basis, torch.float32, R.coef.device)
+    boxes = link_box_pz(robot, basis, torch.float32, device=R.coef.device)
     links = _empty((Wn, T, J, 3), B, E, R.coef)
     args = K9Args()
     args.rc, args.re, args.rr = _ptrs(R)

@@ -16,6 +16,7 @@ from .build import launcher
 from .collision import _require, _stream
 
 MAXJ = 8
+K5_LANES = (32, 64)       # threads per world of K5 (rollout.cu's instantiations)
 CONTROLLER_IDS = {"robust": 0, "nominal": 1, "althoff": 2}
 
 _f = ctypes.c_float
@@ -113,6 +114,22 @@ def _k6_robot(robot, cfg) -> K6Robot:
     return rb
 
 
+def k5_chains(J: int, F: int) -> int:
+    """Independent RNEA chains of one K5 control step: the nominal torque,
+    the nominal r-pass, 2J perturbation chains at each of the two, and F
+    mass-matrix columns."""
+    return 2 + 4 * J + F
+
+
+def k5_geometry(J: int, F: int) -> int:
+    """Threads per world of K5: 32 when every chain of a step fits one
+    warp, else 64 (two warps; the controller then runs beside the
+    Gauss-Jordan inverse), so that all chains run in one round."""
+    if not 1 <= F <= J <= MAXJ:
+        raise ValueError(f"the closed-loop kernels take 1 <= F <= J <= {MAXJ}, got F={F} J={J}")
+    return next(n for n in K5_LANES if k5_chains(J, F) <= n)
+
+
 def rollout(robot, cfg, q, qd, q_des, qd_des, qdd_des, tp, control_dt, substeps=2,
             controller="robust", noise=None, gains=None):
     """K5: one move of W worlds.  q, qd [W, F]; q_des/qd_des/qdd_des
@@ -157,8 +174,9 @@ def rollout(robot, cfg, q, qd, q_des, qd_des, qdd_des, tp, control_dt, substeps=
                       cfg.ub.k_r, cfg.ub.alpha, cfg.ub.v_max, control_dt, h, 0.5 * h, h / 6.0,
                       gains.kp[0], gains.kp[1], gains.ki[0], gains.ki[1], gains.max_error,
                       Wn, n, substeps, CONTROLLER_IDS[controller])
-        fn = launcher("rollout", "k5_launch", [ctypes.POINTER(K5Args), ctypes.c_void_p])
-        err = fn(ctypes.byref(args), _stream(q))
+        fn = launcher("rollout", "k5_launch",
+                      [ctypes.POINTER(K5Args), ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), k5_geometry(J, F), _stream(q))
         if err:
             raise RuntimeError(f"rollout launch failed: cudaError {err}")
         launched("rollout")

@@ -7,9 +7,10 @@ without a host synchronisation.
 alm_rows() gathers a plan's per-world inputs once per solve (float32 and
 contiguous on the card, the torque limits and state limits tightened as the
 plain version tightens them); every launch of the solve reuses them.
-k8_geometry is K8's launch geometry (row tiles, query groups), pure Python
-so that the CPU tests check it; K8's scratch (link centres, partial sums)
-is allocated by alm_values with torch.empty.
+k7_geometry and k8_geometry are K7's and K8's launch geometries (row
+tiles, query groups), pure Python so that the CPU tests check them; their
+scratch (link centres, partial sums) is allocated by alm_newton and
+alm_values with torch.empty.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from ..pz.basis import KBasis
 
 MAX_B, MAX_F, MAX_DEG = 128, 8, 3
 FACTORS = (7,)            # the kernels are instantiated for these F (the Kinova Gen3's 7)
-THREADS = 256
 SMEM_LIMIT = 232448       # bytes of shared memory a block can use on Hopper
 
 
@@ -135,9 +135,6 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     _require(limits, "state limits", (3, F))
     continuous = lim.continuous.contiguous()
     _require(continuous, "continuous", (F,), torch.bool)
-    smem = 4 * (8 + (1 + F) * MAX_B + 3 * TJ * (1 + F) + (THREADS // 32) * (F + F * (F + 1) // 2 + 2))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"T*J = {TJ} link cells need {smem} bytes of shared memory in K7")
 
     args = AlmArgs()
     ctypes.memmove(ctypes.addressof(args), ctypes.addressof(_degs_template(basis)),
@@ -181,14 +178,83 @@ def _launch_args(rows: AlmRows, k, lam, rho, Q: int, S: int) -> AlmArgs:
     return args
 
 
+K7_MAXS = 8               # seeds one K7 call takes
+K7_ROWS_THREADS, K7_FINISH_THREADS, K7_FINISH_CHUNKS = 256, 256, 6
+K7_TILES = (64, 32, 16, 8)           # polynomial rows per CTA of K7's step (a)
+K7_COL_TILES = (128, 64, 32)         # screened rows per CTA of K7's step (b)
+
+
+def k7_nacc(F: int) -> int:
+    """K7's accumulators per (world, seed): g (F), H's lower triangle, the
+    penalty and the violation count (alm_newton.cu:K7Sizes)."""
+    return F + F * (F + 1) // 2 + 2
+
+
+def k7_rows_smem(B: int, F: int, S: int, R: int) -> int:
+    """Bytes of shared memory of K7's step (a) with S seeds and R rows per
+    CTA (alm_newton.cu:k7_rows_smem)."""
+    P = k8_pitch(B)
+    return 4 * (8 * K7_MAXS + S * (1 + F) * P + R * P) + B * MAX_F
+
+
+def k7_rows_static_smem(F: int, S: int, R: int) -> int:
+    """Bytes of static shared memory of K7's step (a): the per-warp partial
+    sums red[SM][ceil(R / 32)][NACC], SM the seed slots that hold S."""
+    slots = next(m for m in (1, 2, 4, 8) if S <= m)
+    return 4 * slots * -(-R // 32) * k7_nacc(F)
+
+
+@dataclasses.dataclass(frozen=True)
+class K7Geometry:
+    """K7's launch geometry: R polynomial rows per CTA of step (a), RB
+    screened rows per CTA of step (b); step (a)'s tiles from t_first on hold
+    torque rows and write partials, as does every tile of step (b)."""
+
+    R: int
+    RB: int
+    tiles_a: int
+    t_first: int
+    tiles_b: int
+
+    @property
+    def npart(self) -> int:
+        return self.tiles_a - self.t_first + self.tiles_b
+
+    def ctas(self, Wn: int, S: int) -> tuple:
+        """CTAs of steps (a), (b) and (c)."""
+        return Wn * self.tiles_a, Wn * self.tiles_b, Wn * S
+
+
+def k7_geometry(Wn: int, S: int, n_centre: int, n_torque: int, K: int,
+                sms: int = H100_SMS) -> K7Geometry:
+    """The largest row tiles that still give 2 x sms CTAs in K7's steps (a)
+    and (b) (the smallest where none does): each polynomial row is read
+    once per call for all S seeds, and the grid fills the card at W = 1 as
+    at W = 64.  n_centre: link-centre rows (3 T J), n_torque: torque rows
+    (T F), K: screened rows, per world."""
+    if not 1 <= S <= K7_MAXS:
+        raise ValueError(f"alm_newton takes 1..{K7_MAXS} seeds, got {S}")
+    target = 2 * sms
+    n_poly = n_centre + n_torque
+    R = next((r for r in K7_TILES if Wn * -(-n_poly // r) >= target), K7_TILES[-1])
+    RB = next((r for r in K7_COL_TILES if Wn * -(-K // r) >= target), K7_COL_TILES[-1])
+    return K7Geometry(R=R, RB=RB, tiles_a=-(-n_poly // R), t_first=n_centre // R,
+                      tiles_b=-(-K // RB))
+
+
 def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
     """K7: (step [W,S,F], m0 [W,S], feas [W,S]) at the seeds k [W,S,F] with
     multipliers lam [W,S,M] and penalties rho [W,S]; with want_system also
-    g [W,S,F] and H [W,S,F,F]."""
+    g [W,S,F] and H [W,S,F,F].  Three device launches (two without
+    screened rows); the scratch (link centres and their gradients, partial
+    sums) is allocated here."""
     S = k.shape[1] if k.dim() == 3 else -1
     if _state(rows, k, lam, rho, S) != S:
         raise ValueError("alm_newton takes one query per seed")
-    Wn, F = rows.args.W, rows.args.F
+    a = rows.args
+    Wn, F = a.W, a.F
+    if Wn * S and (S > K7_MAXS or S * (1 + F) > k8_pitch(a.B)):
+        raise ValueError(f"alm_newton takes at most {K7_MAXS} seeds, got {S}")
     dev = k.device
     step = torch.empty(Wn, S, F, device=dev, dtype=torch.float32)
     m0 = torch.empty(Wn, S, device=dev, dtype=torch.float32)
@@ -197,15 +263,23 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
     H = torch.empty(Wn, S, F, F, device=dev, dtype=torch.float32) if want_system else None
     record("alm_newton", (Wn, S, rows.M, want_system), (rows, k, lam, rho))
     if Wn * S:
+        geo = k7_geometry(Wn, S, 3 * a.TJ, a.TF, a.K,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+        if k7_rows_smem(a.B, F, S, geo.R) + k7_rows_static_smem(F, S, geo.R) > SMEM_LIMIT:
+            raise ValueError(f"K7's row tiles need more than {SMEM_LIMIT} bytes of shared memory")
+        pd = torch.empty(Wn, S, 3 * a.TJ, 1 + F, device=dev, dtype=torch.float32)
+        part = torch.empty(Wn, geo.npart, S, k7_nacc(F), device=dev, dtype=torch.float32)
         args = _launch_args(rows, k, lam, rho, S, S)
         args.value, args.feas, args.step = m0.data_ptr(), feas.data_ptr(), step.data_ptr()
         if want_system:
             args.g, args.H = g.data_ptr(), H.data_ptr()
-        fn = launcher("alm_newton", "k7_launch", [ctypes.POINTER(AlmArgs), ctypes.c_void_p])
-        err = fn(ctypes.byref(args), _stream(k))
+        fn = launcher("alm_newton", "k7_launch",
+                      [ctypes.POINTER(AlmArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), pd.data_ptr(), part.data_ptr(), geo.R, geo.RB, _stream(k))
         if err:
             raise RuntimeError(f"alm_newton launch failed: cudaError {err}")
-        launched("alm_newton")
+        launched("alm_newton", 3 if a.K else 2)
     if want_system:
         return step, m0, feas, g, H
     return step, m0, feas
@@ -218,7 +292,8 @@ K8_GROUPS = (16, 12, 8, 6, 4, 2, 1)  # queries per thread of K8's step (b)
 
 
 def k8_pitch(B: int) -> int:
-    """Floats per staged row in K8's step (a) (csrc/alm_values.cu:k8_pitch)."""
+    """Floats per staged row and basis vector in K7's and K8's step (a)
+    (csrc/alm_rows.cuh:alm_pitch)."""
     p = -(-B // 4) * 4
     return p + 4 if (p // 4) % 2 == 0 else p
 

@@ -37,7 +37,7 @@ class LinkFRS:
     radius: torch.Tensor       # [W, T, J, 3]
 
 
-def link_box_pz(robot: RobotModel, basis: KBasis, dtype, device) -> BPZ:
+def link_box_pz(robot: RobotModel, basis: KBasis, dtype, *, device) -> BPZ:
     """Link bounding boxes as BPZ [J, 3] with shape-slot generators."""
     lay = error_layout(basis.nf)
     J = robot.num_joints
@@ -59,12 +59,12 @@ def forward_occupancy_plain(jrs: JRS, robot: RobotModel, cfg: ArmourConfig,
     dt, dev = R.coef.dtype, R.coef.device
     Wn, T = R.coef.shape[:2]
     J = robot.num_joints
-    boxes = link_box_pz(robot, basis, dt, dev)
+    boxes = link_box_pz(robot, basis, dt, device=dev)
     trans = to_device(robot.trans, dt, dev)
 
-    fk_r = bpz.zeros((Wn, T, 3, 3), basis, dt, dev)
+    fk_r = bpz.zeros((Wn, T, 3, 3), basis, dt, device=dev)
     fk_r.coef[..., 0] = torch.eye(3, dtype=dt, device=dev)
-    fk_t = bpz.zeros((Wn, T, 3), basis, dt, dev)
+    fk_t = bpz.zeros((Wn, T, 3), basis, dt, device=dev)
     links = []
     for i in range(J):
         r_i = BPZ(coef=R.coef[:, :, i], egen=R.egen[:, :, i], rad=R.rad[:, :, i])

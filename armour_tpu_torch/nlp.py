@@ -256,7 +256,7 @@ def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
 
 
 def max_violations(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
-                   collision_fn=collision_constraints):
+                   *, collision_fn=collision_constraints):
     """Per-group max violations (torque, collision, state, grasp), each
     [W, Q], over the FULL constraint set.  collision_fn evaluates every
     collision row; the default routes through kernel K4 on the card."""
@@ -424,7 +424,7 @@ def alm_values(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConfig, ba
 
 
 def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None,
-          plain: bool = False) -> SolveResult:
+          *, plain: bool = False) -> SolveResult:
     """Multi-start ALM solve for every world.  Seeds: k=0, the
     waypoint-directed k and +-0.5 of it; the best feasible result wins.
     plain=True evaluates the rows with the plain versions on any device (the

@@ -72,7 +72,7 @@ def _obs_to(obs: ObstacleSet, dtype, device) -> ObstacleSet:
                        mask=obs.mask.to(device=device, dtype=torch.bool))
 
 
-def make_batch_planner(robot: RobotModel, cfg: ArmourConfig, device=None):
+def make_batch_planner(robot: RobotModel, cfg: ArmourConfig, *, device=None):
     """Planner over a leading worlds axis: (q0, qd0, qdd0, q_des [W, F],
     obs [W, O, ...]) -> SolveResult [W, ...]."""
     dev = resolve_device(device)
@@ -85,10 +85,10 @@ def make_batch_planner(robot: RobotModel, cfg: ArmourConfig, device=None):
     return step
 
 
-def make_planner(robot: RobotModel, cfg: ArmourConfig, device=None):
+def make_planner(robot: RobotModel, cfg: ArmourConfig, *, device=None):
     """Single-world planner: (q0, qd0, qdd0, q_des [F], obs [O, ...]) ->
     SolveResult for that world."""
-    batch = make_batch_planner(robot, cfg, device)
+    batch = make_batch_planner(robot, cfg, device=device)
 
     def step(q0, qd0, qdd0, q_des, obs: ObstacleSet) -> SolveResult:
         one = ObstacleSet(centers=obs.centers[None], generators=obs.generators[None],
@@ -111,15 +111,15 @@ def strong_config(cfg: ArmourConfig) -> ArmourConfig:
         screen_k=max(cfg.screen_k, 4096))
 
 
-def make_rescue_planner(robot: RobotModel, cfg: ArmourConfig, device=None):
+def make_rescue_planner(robot: RobotModel, cfg: ArmourConfig, *, device=None):
     """Single-world planner at the strong profile, for infeasible-plan
     retries (armour_tpu/planner.py:110-113)."""
-    return make_planner(robot, strong_config(cfg), device)
+    return make_planner(robot, strong_config(cfg), device=device)
 
 
 def make_realtime_planner(robot: RobotModel, cfg: ArmourConfig, example_args=None,
                           time_buffer: float = 0.05, min_outer: int = 2,
-                          verbose: bool = False, device=None):
+                          verbose: bool = False, *, device=None):
     """Budget-respecting single-world planner (armour_tpu/planner.py:116-191,
     the semantics of armour_main.cu:227-229).
 
@@ -172,7 +172,7 @@ def make_realtime_planner(robot: RobotModel, cfg: ArmourConfig, example_args=Non
         cfg_i = dataclasses.replace(cfg, solver_outer_iters=outer,
                                     solver_cull_after=min(cfg.solver_cull_after,
                                                           max(outer - 1, 0)))
-        step_i = make_planner(robot, cfg_i, dev)
+        step_i = make_planner(robot, cfg_i, device=dev)
         dt = timed(step_i)
         if verbose:
             print(f"realtime calibration: outer={outer} step={dt * 1e3:.1f} ms "

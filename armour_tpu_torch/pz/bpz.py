@@ -58,7 +58,7 @@ def _tables(basis: KBasis, like: torch.Tensor) -> dict:
     return {**tab, **tab[key]}
 
 
-def zeros(shape, basis: KBasis, dtype=torch.float32, device="cpu") -> BPZ:
+def zeros(shape, basis: KBasis, dtype=torch.float32, *, device="cpu") -> BPZ:
     E = error_layout(basis.nf)["size"]
     return BPZ(
         coef=torch.zeros((*shape, basis.size), dtype=dtype, device=device),
@@ -68,7 +68,7 @@ def zeros(shape, basis: KBasis, dtype=torch.float32, device="cpu") -> BPZ:
 
 
 def const(x: torch.Tensor, basis: KBasis) -> BPZ:
-    z = zeros(x.shape, basis, x.dtype, x.device)
+    z = zeros(x.shape, basis, x.dtype, device=x.device)
     z.coef[..., 0] = x
     return z
 
@@ -415,7 +415,7 @@ def cross_pz_const(a: BPZ, v: torch.Tensor) -> BPZ:
     return BPZ(coef=cr(a.coef), egen=cr(a.egen), rad=_cross_abs(a.rad, torch.abs(v)))
 
 
-def stack(pzs, dim: int = -1) -> BPZ:
+def stack(pzs, *, dim: int = -1) -> BPZ:
     """Stack PZs along a new value axis (dim counts over the value axes,
     -1 = trailing)."""
     return BPZ(coef=torch.stack([p.coef for p in pzs], dim=dim - 1),

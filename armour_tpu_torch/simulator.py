@@ -152,7 +152,7 @@ def rollout_move(robot: RobotModel, cfg: ArmourConfig, q, qd, q_des, qd_des, qdd
 def make_rollout(robot: RobotModel, cfg: ArmourConfig, control_dt: float = 1e-3,
                  substeps: int = 2, controller: str = "robust",
                  measurement_noise: float = 0.0, noise_seed: int = 0,
-                 move_mode: str = "integrate", device=None,
+                 move_mode: str = "integrate", *, device=None,
                  gains: AlthoffGains = ALTHOFF_DEFAULT):
     """The tracking rollout over t_plan: rollout(q, qd, ref, tp) ->
     (q, qd, logs) with q, qd [W, F], ref a PlanRef [W, F], tp TrueParams
@@ -317,7 +317,7 @@ def oracle_check(robot: RobotModel, cfg: ArmourConfig, logs: dict, obs: Obstacle
                              logs["qd_des"], obs.centers, obs.generators, obs.mask)
 
 
-def make_oracles(robot: RobotModel, cfg: ArmourConfig, device=None):
+def make_oracles(robot: RobotModel, cfg: ArmourConfig, *, device=None):
     """The per-move safety checks over logged trajectories: check(logs, obs)
     -> {flag: [W] bool} for the flags of ORACLE_FLAGS.  Runs on the card
     unless device names another device."""
@@ -368,9 +368,9 @@ def run_trial(world: World, robot: RobotModel, cfg: ArmourConfig, planner_step,
               obs: ObstacleSet, true_params: TrueParams, max_iterations: int = 100,
               stop_threshold: int = 4, lookahead: float = 1.0, verbose: bool = False,
               rollout=None, oracles=None, hlp=None, trace_path: Optional[str] = None,
-              stall_window: int = 25,
+              trace_stride: int = 10, stall_window: int = 25,
               stall_progress: float = 0.05, rescue_step=None,
-              max_fallback_regrows: int = 50, device=None) -> TrialSummary:
+              max_fallback_regrows: int = 50, *, device=None) -> TrialSummary:
     """One closed-loop trial on one world.  planner_step = make_planner(robot,
     cfg) output (one world); rollout/oracles default to make_rollout /
     make_oracles on `device` (the card unless named).  hlp: optional
@@ -397,7 +397,7 @@ def run_trial(world: World, robot: RobotModel, cfg: ArmourConfig, planner_step,
 
     q = torch.as_tensor(world.start, dtype=dt).to(dev)[None]
     qd = torch.zeros_like(q)
-    ref = initial_plan(q, dt, dev)
+    ref = initial_plan(q, dt, device=dev)
     flags = {name: False for name in ORACLE_FLAGS}
     infeasible = 0
     stop_count = 0

@@ -95,7 +95,7 @@ def rest_frs_margins(q: torch.Tensor, obs, robot: RobotModel, cfg, basis,
 _REST_CHECKERS: dict = {}
 
 
-def make_rest_frs_checker(robot: RobotModel, cfg=None, device=None):
+def make_rest_frs_checker(robot: RobotModel, *, cfg=None, device=None):
     """The exact rest-FRS collision margin: (q [F], world) -> float, > 0
     when the stationary arm's certified envelope already penetrates an
     obstacle.  cfg defaults to ArmourConfig(float32), the JAX default; the
@@ -115,7 +115,7 @@ def make_rest_frs_checker(robot: RobotModel, cfg=None, device=None):
 
     def check(q, world: World) -> float:
         obs = pad_obstacles(world.obstacle_centers, world.obstacle_generators,
-                            cfg.max_obstacles, cfg.dtype, dev)
+                            cfg.max_obstacles, cfg.dtype, device=dev)
         one = ObstacleSet(centers=obs.centers[None], generators=obs.generators[None],
                           mask=obs.mask[None])
         qt = torch.as_tensor(np.asarray(q, float), dtype=cfg.dtype).to(dev)[None]
@@ -127,13 +127,13 @@ def make_rest_frs_checker(robot: RobotModel, cfg=None, device=None):
 
 
 def classify_world(world: World, robot: RobotModel, seed: int = 0, max_nodes: int = 3000,
-                   frs_check: bool = True, cfg=None, device=None) -> dict:
+                   frs_check: bool = True, *, cfg=None, device=None) -> dict:
     """Solvability verdict for one world: a dict with `verdict` (one of the
     module docstring's classes) and the intermediate booleans.  frs_check
     runs the exact rest-FRS test first, with cfg (default
     ArmourConfig(float32)) on device (default the card)."""
     if frs_check:
-        rest = make_rest_frs_checker(robot, cfg, device)
+        rest = make_rest_frs_checker(robot, cfg=cfg, device=device)
         vs = rest(world.start, world)
         if vs > 0.0:
             return {"verdict": "frs_blocked_start", "start_free": False,
@@ -162,7 +162,7 @@ def classify_world(world: World, robot: RobotModel, seed: int = 0, max_nodes: in
 
 
 def annotate_results(results_path: str, world_dir: str, robot: RobotModel, seed: int = 0,
-                     max_nodes: int = 3000, verbose: bool = True, cfg=None,
+                     max_nodes: int = 3000, verbose: bool = True, *, cfg=None,
                      device=None) -> dict:
     """Attach a solvability verdict to every stuck trial in a results JSON
     (in place) and add a verdict histogram to its summary.  Returns the

@@ -37,7 +37,7 @@ class PlanRef:
     prev_k_act: torch.Tensor
 
 
-def initial_plan(q0, dtype=torch.float32, device="cpu") -> PlanRef:
+def initial_plan(q0, dtype=torch.float32, *, device="cpu") -> PlanRef:
     q0 = torch.as_tensor(q0, dtype=dtype).to(device)
     z = torch.zeros_like(q0)
     return PlanRef(q0=q0, qd0=z, qdd0=z, k_act=z,

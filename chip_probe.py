@@ -1,13 +1,16 @@
-"""Time the two redesigned kernels on the card, K8 (alm_values) launch by
-launch and K10 (rnea_chain) beside other launch geometries.
+"""Time the redesigned kernels on the card: K7 (alm_newton) and K8
+(alm_values) launch by launch, K10 (rnea_chain) beside other launch
+geometries.
 
     python3 chip_probe.py
 
 Runs one 64-world planning step (Kinova Gen3, the flagship config, the
-first 64 saved worlds, as chip_smoke.py) and records its K8 and K10 calls:
+first 64 saved worlds, as chip_smoke.py) and records its K7, K8 and K10
+calls:
 
-  - every K8 call: the median of 20 calls (CUDA events) and the device time
-    of each of its three launches (torch.profiler over 10 calls);
+  - every K7 and K8 call: the median of 20 calls (CUDA events) and the
+    device time of each of its three launches (torch.profiler over 10
+    calls);
   - K10 at W = 64 and at W = 1 (the first world): the median of 20 calls
     with the geometry that kernels/reach.py:k10_geometry picks and with
     other (threads per element, elements per block) pairs.  K10's result
@@ -16,11 +19,13 @@ first 64 saved worlds, as chip_smoke.py) and records its K8 and K10 calls:
 
     python3 chip_probe.py --times
 
-only times K8 and K10 on every shape of the step (W = 64), the rescue
-profile's solve and a one-world step (W = 1), median of 20 calls each,
-through the public launchers alone, so that the same script can time an
-older checkout of the port beside this one on one card, in turns (older,
-this, this, older).
+only times K7, K8 and K10 on every shape of the step (W = 64), the rescue
+profile's solve and a one-world step (W = 1), median of 20 calls each (K7
+also by device launch), and K5 (rollout) on the first move of a one-
+iteration closed loop over the same 64 worlds (median of 5), through the
+public launchers alone, so that the same script can time an older checkout
+of the port beside this one on one card, in turns (older, this, this,
+older).
 
 Prints the card line and, last, one JSON line of the times.  Needs one
 card; exits non-zero without one.
@@ -108,21 +113,23 @@ def main() -> None:
     if "--times" in sys.argv[1:]:
         times_only(captured, robot, cfg, card, dev)
         return
-    out = {"card": card, "alm_values": [], "rnea_chain": {}}
+    out = {"card": card, "alm_newton": [], "alm_values": [], "rnea_chain": {}}
 
     for (name, key), inputs in captured.items():
-        if name != "alm_values":
+        if name == "alm_newton":
+            def fn(i=inputs):
+                return ks.alm_newton(*i)
+        elif name == "alm_values":
+            def fn(i=inputs):
+                return ks.alm_values(*i)
+        else:
             continue
-        rows, kq, lam, rho, seed, want_c = inputs
-
-        def k8(rows=rows, kq=kq, lam=lam, rho=rho, seed=seed, want_c=want_c):
-            return ks.alm_values(rows, kq, lam, rho, seed, want_c)
-
-        ms = median_ms(k8, dev, ITERS)
-        split = launch_split(k8)
-        print(f"K8 {key}: {ms:.4f} ms a call (median of {ITERS}); device ms a launch: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
-        out["alm_values"].append({"shape": list(key), "ms": ms, "launch_ms": split})
+        ms = median_ms(fn, dev, ITERS)
+        split = launch_split(fn)
+        print(f"{'K7' if name == 'alm_newton' else 'K8'} {key}: {ms:.4f} ms a call (median of "
+              f"{ITERS}); device ms a launch: " + ", ".join(f"{k} {v:.4f}"
+                                                          for k, v in split.items()))
+        out[name].append({"shape": list(key), "ms": ms, "launch_ms": split})
 
     jrs, _, _, basis, sets = next(v for k, v in captured.items() if k[0] == "rnea_chain")
 
@@ -155,12 +162,18 @@ def main() -> None:
 
 
 def times_only(captured, robot, cfg, card, dev) -> None:
-    """Medians of 20 calls of K8 and K10 on every recorded shape of the
-    step, the rescue profile's solve and a one-world step."""
+    """Medians of 20 calls of K7, K8 and K10 on every recorded shape of the
+    step, the rescue profile's solve and a one-world step (K7 also by device
+    launch), and of 5 calls of K5 on the first move of a one-iteration
+    closed loop over the step's 64 worlds."""
+    import glob
+
     from chip_smoke import scenes
     from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.batch_sim import run_trials_batched
     from armour_tpu_torch.collision import ObstacleSet
-    from armour_tpu_torch.kernels import reach, solver as ks
+    from armour_tpu_torch.kernels import reach, sim as ksim, solver as ks
+    from armour_tpu_torch.worlds import load_world_csv
     from armour_tpu_torch.planner import make_batch_planner, plan_problem, strong_config
     from armour_tpu_torch.pz.basis import make_basis
     from armour_tpu_torch.utils.timing import median_ms
@@ -176,11 +189,29 @@ def times_only(captured, robot, cfg, card, dev) -> None:
     step1 = make_batch_planner(robot, cfg)
     with kernels.capture() as one:
         step1(*scenes(robot, cfg, 1))
+    worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:64]]
+    with kernels.capture() as loop:
+        run_trials_batched(worlds, robot, cfg, max_iterations=1, true_param_scale=1.0, seed=0,
+                           rescue_solver=False, guidance="straight", stats={})
     torch.cuda.synchronize()
-    out = {"card": card, "alm_values": {}, "rnea_chain": {}}
+    out = {"card": card, "alm_newton": {}, "alm_newton_launch_ms": {}, "alm_values": {},
+           "rnea_chain": {}, "rollout": {}}
+    for (name, key), inputs in loop.items():
+        if name == "rollout":
+            def k5(i=inputs):
+                return ksim.rollout(robot, cfg, **i)
+
+            ms = median_ms(k5, dev, 5)
+            out["rollout"][f"move {key}"] = ms
+            print(f"rollout move {key}: {ms:.3f} ms (median of 5)")
     for label, rec in (("step", captured), ("rescue", rescue), ("W=1", one)):
         for (name, key), inputs in rec.items():
-            if name == "alm_values":
+            if name == "alm_newton":
+                def fn(i=inputs):
+                    return ks.alm_newton(*i)
+
+                out["alm_newton_launch_ms"][f"{label} {key}"] = launch_split(fn)
+            elif name == "alm_values":
                 def fn(i=inputs):
                     return ks.alm_values(*i)
             elif name == "rnea_chain":

@@ -9,8 +9,9 @@ rest-FRS solvability checker.
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
      flags; build the kernels from csrc/ (one nvcc per source, in parallel)
-     and print the nvcc flags, every kernel's registers, spills and static
-     shared memory (ptxas) and K8's / K10's dynamic shared memory a block.
+     and print the nvcc flags, every kernel's registers, spills, stack frame
+     and static shared memory (ptxas) and K7's / K8's / K10's dynamic shared
+     memory a block.
   2. the main path at the flagship width (Kinova Gen3, T = 128, O = 40,
      K = 4096, float32) over the first 64 saved worlds: one warm-up step that
      records each kernel's inputs, then one step with the launch counters set
@@ -18,9 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      reach-set chains K9, K10) and neither K1 nor K2.
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
-     (median of 20 calls, CUDA events); K8, K9 and K10 also run twice and
-     must give the same bits, and K7-K10 are printed beside the times of
-     their previous designs (PERF.md's kernel history).  K7 / K8 (the solver's rows) on
+     (median of 20 calls, CUDA events); K7, K8, K9 and K10 also run twice
+     and must give the same bits, and K7-K10 are printed beside their
+     earlier times (PERF.md's kernel history).  K7 / K8 (the solver's rows) on
      every shape of the step: seeds 4 -> 2, line search S x 3.  K1 / K2,
      which the step no longer launches, on calls formed from the step's JRS:
      the FK rotation product of joint 1 and the PZ RNEA through the op-level
@@ -46,7 +47,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      nominal controller and with seeded measurement noise; K6 also on four
      copies of the move, each with one planted fault (obstacles on the
      links, torque, ultimate bound, joint limit) in every other world, whose
-     plain flag must fire there and nowhere else.  Kernels timed as
+     plain flag must fire there and nowhere else.  K5 runs twice on every
+     one of its four inputs and must give the same bits; it is printed
+     beside its earlier time.  Kernels timed as
      CUDA-event medians of 20, the plain K5 (a launch-bound Python loop of
      ~2M small launches) over one call.
   7. one plan at the rescue profile (strong_config: 8 x 6 iterations, seeds
@@ -107,14 +110,14 @@ CONTAIN_SLACK = 1e-9  # m / Nm: the float64 slicing of the float32 sets
 ENTRY_TOL = 1e-5     # relative (1 + |value|): the dump files against the plain route
 ALM_TIE = 1e-5       # an active collision row whose best two candidates are this close
                      # may take the other normal: its (world, seed) is left out of g, H, step
-# the times of the kernels' previous designs (PERF.md's kernel history; NVIDIA H100 80GB
-# HBM3, 700 W), printed beside this run's: ms summed over the step's call shapes, and per call
-BEFORE_MS = {"alm_values": "7.413 (6 shapes; 1.22-1.31 a call)",
-             "alm_newton": "2.817 (2 shapes)", "fk_chain": "3.058", "rnea_chain": "24.131"}
-BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "25.348",
-                   ("fk_chain", "rescue profile"): "2.946",
-                   ("rnea_chain", "real-time path (W = 1)"): "1.188",
-                   ("fk_chain", "real-time path (W = 1)"): "0.426"}
+# the kernels' times before their current designs (PERF.md's kernel history; NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's: ms summed over the step's call shapes
+BEFORE_MS = {"alm_values": "1.464 (6 shapes)", "alm_newton": "2.138 (2 shapes)",
+             "fk_chain": "3.396", "rnea_chain": "7.154", "rollout": "101.253"}
+BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "7.168",
+                   ("fk_chain", "rescue profile"): "3.225",
+                   ("rnea_chain", "real-time path (W = 1)"): "0.440",
+                   ("fk_chain", "real-time path (W = 1)"): "0.274"}
 
 
 def fail(msg: str) -> None:
@@ -374,6 +377,8 @@ def check_alm_newton(inputs, dev):
         return nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
 
     step, m0, feas, g, H = ks.alm_newton(rows, k, lam, rho, want_system=True)
+    again = ks.alm_newton(rows, k, lam, rho, want_system=True)
+    same = all(torch.equal(x, y) for x, y in zip((step, m0, feas, g, H), again))
     st0, m00, f0 = plain()
     g0, H0, c0 = nlp.alm_newton_system(k, lam, rho, prob, cfg, basis)
     _, Jc = nlp.constraint_stack(k, prob, cfg, basis, with_grad=True)
@@ -406,7 +411,7 @@ def check_alm_newton(inputs, dev):
     feas_ok = bool(((feas == f0) | amb).all())
     torch.cuda.synchronize(dev)
     ok = feas_ok and m_ratio <= 1.0 and all(v <= 1.0 for v in worst.values()) \
-        and bool(torch.isfinite(step[clear]).all())
+        and bool(torch.isfinite(step[clear]).all()) and same
     err = max(float((m0 - m00).abs().max()),
               float((step - st0)[clear].abs().max()) if bool(clear.any()) else 0.0)
     note = (f"m0 worst |d|/tol {m_ratio:.3g}; g {worst['g']:.3g}, H {worst['H']:.3g}, step "
@@ -415,7 +420,8 @@ def check_alm_newton(inputs, dev):
             f"{int((tie.any(-1) & ~flip).sum())} with an active argmax near-tie left out; "
             f"max |dstep| {err:.3g}; feas {'identical' if bool(torch.equal(feas, f0)) else 'differs'}"
             f" ({int(f0.sum())} feasible, {int(amb.sum())} within {ALM_C_TOL} of a threshold); "
-            f"{int(act0.sum())} active rows")
+            f"{int(act0.sum())} active rows; a second call "
+            f"{'gives the same bits' if same else 'DIFFERS'}")
     nbytes = _alm_io_bytes(rows, k, lam, rho, True, False)
     return ok, err, kern, plain, nbytes, _alm_flops(rows, S, True), note
 
@@ -806,8 +812,9 @@ def check_rollout(robot, cfg, inp, dev, label, timed):
     def kern():
         return ksim.rollout(robot, cfg, **inp)
 
-    got = kern()
+    got, again = kern(), kern()
     torch.cuda.synchronize(dev)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     ref = tsim.rollout_plain(robot, cfg, inp["q"], inp["qd"], inp["q_des"], inp["qd_des"],
@@ -823,13 +830,15 @@ def check_rollout(robot, cfg, inp, dev, label, timed):
     du = float((u_log - ru_log).abs().max())
     u_ratio = float(((u_log - ru_log).abs() / (K5_TOL_U * (ru_log.abs() + 1.0))).max())
     finite = all(bool(torch.isfinite(t).all()) for t in got)
-    ok = finite and dq <= K5_TOL_Q and dqd <= K5_TOL_QD and u_ratio <= 1.0
+    ok = finite and dq <= K5_TOL_Q and dqd <= K5_TOL_QD and u_ratio <= 1.0 and same
     ms = median_ms(kern, dev, TIMING_ITERS) if timed else None
     Wn, n, F = inp["q_des"].shape
     nbytes = _nbytes(inp["q"], inp["qd"], inp["q_des"], inp["qd_des"], inp["qdd_des"],
                      inp["noise"], inp["tp"].mass, inp["tp"].inertia, inp["tp"].com, *got)
-    timing = (f"kernel {ms:.3f} ms (median of {TIMING_ITERS}), " if timed else "") \
-        + f"plain {plain_ms:.1f} ms (1 call)"
+    timing = (f"kernel {ms:.3f} ms (median of {TIMING_ITERS}; before: "
+              f"{BEFORE_MS['rollout']} ms), " if timed else "") \
+        + f"plain {plain_ms:.1f} ms (1 call); a second call " \
+        + ("gives the same bits" if same else "DIFFERS")
     print(f"  rollout {label} [{Wn} worlds x {n} steps]: {'ok' if ok else 'MISMATCH'} "
           f"(max |dq| {dq:.3g} rad <= {K5_TOL_Q}, max |dqd| {dqd:.3g} rad/s <= {K5_TOL_QD}, "
           f"max |du| {du:.3g}, worst |du|/({K5_TOL_U}(|u|+1)) {u_ratio:.3g}); {timing}")
@@ -1353,7 +1362,7 @@ def rest_checker_phase(robot, cfg, args_dev, obs_dev, dev) -> dict:
     elbow = _fk_points_batch(robot, np.asarray(worlds[0].start)[None])[0][3]
     planted = dataclasses.replace(worlds[0], obstacle_centers=np.asarray([elbow]),
                                   obstacle_generators=np.diag([0.15] * 3)[None])
-    rest = solvability.make_rest_frs_checker(robot, cfg)
+    rest = solvability.make_rest_frs_checker(robot, cfg=cfg)
     rest(planted.start, planted)
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -1364,7 +1373,7 @@ def rest_checker_phase(robot, cfg, args_dev, obs_dev, dev) -> dict:
     basis = make_basis(robot.num_factors, cfg.max_poly_degree)
     goals = torch.as_tensor(np.stack([w.goal for w in worlds]), dtype=cfg.dtype).to(dev)
     pl = pad_obstacles(planted.obstacle_centers, planted.obstacle_generators,
-                       cfg.max_obstacles, cfg.dtype, dev)
+                       cfg.max_obstacles, cfg.dtype, device=dev)
     one = type(obs_dev)(centers=pl.centers[None], generators=pl.generators[None],
                         mask=pl.mask[None])
     ref = torch.cat([solvability.rest_frs_margins(args_dev[0], obs_dev, robot, cfg, basis,
@@ -1427,11 +1436,14 @@ def main() -> None:
           f"built with nvcc {' '.join(BUILD_FLAGS)}")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "Function properties for" in line or "registers" in line or "spill" in line:
+            if ("Function properties for" in line or "registers" in line or "spill" in line
+                    or "stack frame" in line):
                 print(f"  {name}: {line.strip()}")
-    print("  dynamic shared memory per block at the flagship widths (B = 120, E = 38): K8 "
-          "step (a) " + ", ".join(f"R = {r}: {solver_k.k8_rows_smem(120, r)} B"
-                                  for r in solver_k.K8_TILES)
+    print("  dynamic shared memory per block at the flagship widths (B = 120, E = 38): K7 "
+          "step (a) at S = 4 " + ", ".join(f"R = {r}: {solver_k.k7_rows_smem(120, 7, 4, r)} B"
+                                           for r in solver_k.K7_TILES)
+          + "; K8 step (a) " + ", ".join(f"R = {r}: {solver_k.k8_rows_smem(120, r)} B"
+                                         for r in solver_k.K8_TILES)
           + "; K10 " + ", ".join(f"{ng} elements: "
                                  f"{reach_k.k10_smem(159, reach_k.lin_ld(7, 38), ng)} B"
                                  for ng in (1, 2, 4)))

@@ -265,3 +265,99 @@ def test_closed_loop_structs_match_the_sources(src, structs):
 def test_every_kernel_has_a_source():
     for name, src in build.SOURCES.items():
         assert (build.CSRC / src).exists(), name
+
+
+# Deliberate divergences from the JAX signatures, applied to the JAX
+# parameter list before the order is compared: the solver's row functions
+# take no robot (the plain versions read everything from prob), plan_cost
+# takes the continuous-joint mask where JAX takes the robot, and
+# utils/timing.sync waits for a device where JAX's blocks on a pytree.
+_SIG_DIVERGENCES = {
+    ("nlp.py", "solve"): {"robot": None},
+    ("nlp.py", "max_violations"): {"robot": None},
+    ("nlp.py", "is_feasible"): {"robot": None},
+    ("nlp.py", "constraint_stack"): {"robot": None},
+    ("nlp.py", "plan_cost"): {"robot": "continuous"},
+    ("utils/timing.py", "sync"): {"out": "device"},
+}
+
+
+def _public_functions(path: Path) -> dict:
+    return {n.name: n for n in ast.parse(path.read_text()).body
+            if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")}
+
+
+def _shared_functions():
+    """(module, function) of every public module-level function that the
+    port and the JAX package both define in modules of the same path."""
+    out = []
+    for p in sorted((ROOT / "armour_tpu_torch").rglob("*.py")):
+        rel = p.relative_to(ROOT / "armour_tpu_torch")
+        ref = ROOT / "armour_tpu" / rel
+        if "_build" in rel.parts or not ref.exists():
+            continue
+        for name in sorted(set(_public_functions(p)) & set(_public_functions(ref))):
+            out.append((rel.as_posix(), name))
+    return out
+
+
+@pytest.mark.parametrize("module, name", _shared_functions(), ids=lambda x: str(x))
+def test_shared_functions_keep_the_jax_positional_order(module, name):
+    """A call written for the JAX package binds the same values in the
+    port: the port's positional parameters are the JAX ones in the JAX
+    order (a trailing JAX parameter may be missing), and a parameter only
+    the port has is keyword-only."""
+    port = _public_functions(ROOT / "armour_tpu_torch" / module)[name].args
+    ref = _public_functions(ROOT / "armour_tpu" / module)[name].args
+    rename = _SIG_DIVERGENCES.get((module, name), {})
+    want = [rename.get(a.arg, a.arg) for a in ref.posonlyargs + ref.args
+            if rename.get(a.arg, a.arg) is not None]
+    got = [a.arg for a in port.posonlyargs + port.args]
+    assert got == want[:len(got)], f"{module}:{name} positional {got}, JAX order {want}"
+
+
+def test_extra_stats_passed_ninth_lands_in_batch_stats(tmp_path):
+    """run_world_suite_batched takes extra_stats 9th, as the JAX package
+    does: a dict passed there by position is merged into the saved
+    batch_stats, and the 10th position is rescue_solver."""
+    import json
+
+    from armour_tpu_torch.experiments import run_world_suite_batched
+
+    cfg = ArmourConfig(num_time_steps=8, dtype=torch.float64, max_obstacles=16, screen_k=128,
+                       solver_outer_iters=2, solver_inner_iters=2)
+    out = tmp_path / "r.json"
+    res = run_world_suite_batched([str(ROOT / "saved_worlds/random/scene_013_001.csv")],
+                                  kinova_gen3(), cfg, 1, 1.0, 0, False, str(out),
+                                  {"marker": 17}, False, device="cpu")
+    assert len(res) == 1
+    stats = json.loads(out.read_text())["batch_stats"]
+    assert stats["marker"] == 17
+    assert stats["rescue_solver"] is False and stats["guidance"] == "straight"
+
+
+def test_compare_results_lists_the_worlds_that_differ(tmp_path):
+    """experiments.compare_results: per world the iterations and rescued
+    plans of both files where either differs, buckets that differ, totals
+    over the worlds both files hold."""
+    import json
+
+    from armour_tpu_torch.experiments import compare_results
+
+    def write(name, rows):
+        path = tmp_path / name
+        path.write_text(json.dumps({"results": [
+            {"world": w, "bucket": b, "iterations": it, "rescued_plans": rp}
+            for w, b, it, rp in rows]}))
+        return str(path)
+
+    a = write("a.json", [("s1", "goal", 10, 0), ("s2", "goal", 12, 1), ("s3", "stuck", 40, 3),
+                         ("s4", "goal", 5, 0)])
+    b = write("b.json", [("s1", "goal", 10, 0), ("s2", "goal", 15, 1), ("s3", "goal", 30, 2)])
+    out = compare_results(a, b)
+    assert out["worlds_compared"] == 3 and out["only_in_one"] == ["s4"]
+    assert out["buckets_differ"] == ["s3"]
+    assert out["iterations"] == [62, 55] and out["rescued_plans"] == [4, 3]
+    assert [d["world"] for d in out["differing_worlds"]] == ["s3", "s2"]
+    assert out["differing_worlds"][1] == {"world": "s2", "bucket": ["goal", "goal"],
+                                          "iterations": [12, 15], "rescued_plans": [1, 1]}

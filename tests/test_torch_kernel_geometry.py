@@ -1,13 +1,14 @@
-"""Launch geometry of kernels K8 (alm_values) and K10 (rnea_chain), pure
-Python on the CPU: every row, query and element is covered exactly once,
+"""Launch geometry of kernels K5 (rollout), K7 (alm_newton), K8
+(alm_values) and K10 (rnea_chain), pure Python on the CPU: every row,
+query, seed, chain and element is covered exactly once,
 the grid reaches 2 x 132 CTAs wherever the work allows, and the shared
 memory each block asks for fits the H100 (227 KB a block, 228 KB an SM), so
 that a launch the card would refuse shows up here.  The Python mirrors of
 the kernels' shared-memory formulas are held against the constants of the
 CUDA sources.
 
-The last two tests run K8 and K10 against their plain versions on the card
-(marked cuda; they skip where there is none)."""
+The last four tests run K5, K7, K8 and K10 against their plain versions on
+the card (marked cuda; they skip where there is none)."""
 
 import re
 
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from armour_tpu_torch.kernels import build, reach, solver as ks
+from armour_tpu_torch.kernels import build, reach, sim as ksim, solver as ks
 
 SMS = 132
 BLOCK_SMEM = 232448
@@ -25,6 +26,7 @@ N_POLY = 3 * T * J + T * F
 LD, LDL = B + E + 1, reach.lin_ld(F, E)
 WORLDS = [1, 64, 128]
 QUERIES = [2, 4, 6, 12]
+SEEDS = [2, 4]
 
 
 def _source(name):
@@ -91,6 +93,95 @@ def test_k8_shared_memory_fits(R):
 def test_k8_takes_at_most_16_queries():
     with pytest.raises(ValueError, match="queries"):
         ks.k8_geometry(1, 17, N_POLY, K)
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+@pytest.mark.parametrize("S", SEEDS)
+def test_k7_rows_covered_once(Wn, S):
+    """Step (a)'s tiles take every polynomial row once, the tiles from
+    t_first on hold every torque row, step (b)'s tiles every screened row
+    once, and each of those tiles owns one partial slot per seed."""
+    n_centre, n_torque = 3 * T * J, T * F
+    geo = ks.k7_geometry(Wn, S, n_centre, n_torque, K)
+    rows = np.zeros(N_POLY, dtype=int)
+    for t in range(geo.tiles_a):
+        rows[t * geo.R:min((t + 1) * geo.R, N_POLY)] += 1
+    assert (rows == 1).all() and (geo.tiles_a - 1) * geo.R < N_POLY
+    # tiles before t_first hold centre rows only; t_first holds the first torque row
+    assert geo.t_first * geo.R <= n_centre < (geo.t_first + 1) * geo.R
+    screened = np.zeros(K, dtype=int)
+    for t in range(geo.tiles_b):
+        screened[t * geo.RB:min((t + 1) * geo.RB, K)] += 1
+    assert (screened == 1).all()
+    slots = [("a", t) for t in range(geo.t_first, geo.tiles_a)] + \
+        [("b", t) for t in range(geo.tiles_b)]
+    assert len(slots) == geo.npart
+    # step (c): a CTA per (world, seed)
+    assert geo.ctas(Wn, S)[2] == Wn * S
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+@pytest.mark.parametrize("S", SEEDS)
+def test_k7_grid_fills_the_card(Wn, S):
+    geo = ks.k7_geometry(Wn, S, 3 * T * J, T * F, K, SMS)
+    ctas_a, ctas_b, _ = geo.ctas(Wn, S)
+    if Wn * N_POLY >= 2 * SMS * ks.K7_TILES[-1]:
+        assert ctas_a >= 2 * SMS
+    else:
+        assert geo.R == ks.K7_TILES[-1]
+    if Wn * K >= 2 * SMS * ks.K7_COL_TILES[-1]:
+        assert ctas_b >= 2 * SMS
+    else:
+        assert geo.RB == ks.K7_COL_TILES[-1]
+    # the largest tiles that do (each row read once for all seeds, fewer partials)
+    assert all(Wn * -(-N_POLY // r) < 2 * SMS for r in ks.K7_TILES if r > geo.R)
+    assert all(Wn * -(-K // r) < 2 * SMS for r in ks.K7_COL_TILES if r > geo.RB)
+
+
+@pytest.mark.parametrize("R", ks.K7_TILES)
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_k7_shared_memory_fits(R, S):
+    text = _source("alm_newton.cu")
+    assert _define(text, "K7_MAXS") == ks.K7_MAXS
+    assert _define(text, "K7A_THREADS") == ks.K7_ROWS_THREADS
+    assert _define(text, "K7C_THREADS") == ks.K7_FINISH_THREADS
+    assert _define(text, "K7C_CHUNKS") == ks.K7_FINISH_CHUNKS
+    assert re.search(r"case %d: err = k7_rows<NF, %d>" % (R, R), text)
+    assert ks.k7_nacc(F) == 37 and ks.k7_nacc(F) * ks.K7_FINISH_CHUNKS <= ks.K7_FINISH_THREADS
+    # the torque values of step (a) reuse the staged rows' space
+    assert S * (1 + F) <= ks.k8_pitch(B)
+    assert re.search(r"__shared__ float red\[SM\]\[\(R \+ 31\) / 32\]\[NACC\]", text)
+    static = ks.k7_rows_static_smem(F, S, R)
+    assert static == 4 * {1: 1, 2: 2, 4: 4, 8: 8}[S] * -(-R // 32) * 37
+    assert ks.k7_rows_smem(B, F, S, R) + static <= BLOCK_SMEM
+    assert ks.k7_rows_smem(ks.MAX_B, F, S, R) + static <= BLOCK_SMEM
+    # above 48 KB a block only by opt-in: the launcher always asks for it
+    assert "cudaFuncSetAttribute(k7_rows_kernel<NF, R, SM>" in text
+
+
+def test_k7_takes_at_most_8_seeds():
+    with pytest.raises(ValueError, match="seeds"):
+        ks.k7_geometry(1, 9, 3 * T * J, T * F, K)
+
+
+@pytest.mark.parametrize("J_, F_", [(7, 7), (7, 6), (6, 6), (8, 7), (8, 8), (1, 1), (7, 1)])
+def test_k5_lanes_cover_every_chain(J_, F_):
+    """K5 runs the 2 + 4J + F chains of a control step in one round: one
+    lane each, 32 lanes when they fit one warp, else 64; the Gauss-Jordan
+    inverse takes 2F lanes of the first warp, and rollout.cu has the
+    instantiation."""
+    lanes = ksim.k5_geometry(J_, F_)
+    chains = ksim.k5_chains(J_, F_)
+    assert chains == 2 + 4 * J_ + F_ and chains <= lanes and 2 * F_ <= 32
+    assert lanes == (32 if chains <= 32 else 64)
+    text = _source("rollout.cu")
+    assert re.search(r"case %d: return k5_go<%d, %d>" % (J_, J_, lanes), text)
+
+
+def test_k5_geometry_refuses_what_the_kernel_does_not_take():
+    for J_, F_ in ((9, 7), (7, 8), (7, 0)):
+        with pytest.raises(ValueError, match="closed-loop"):
+            ksim.k5_geometry(J_, F_)
 
 
 @pytest.mark.parametrize("Wn", WORLDS)
@@ -220,3 +311,83 @@ def test_k10_matches_its_plain_version_on_the_card():
         assert torch.equal(getattr(got, f), getattr(again, f))
         m = mass if f == "rad" else mass[..., None]
         assert ((getattr(got, f) - getattr(ref, f)).abs() <= 1e-5 * (m + 1e-6)).all()
+
+
+@pytest.mark.cuda
+def test_k7_matches_its_plain_version_on_the_card():
+    """m0 within 1e-4 |m0|, g and H within 1e-4 of their summed terms, the
+    step's backward error within 1e-4, feasibility identical, and the same
+    bits on a second call (seeds 4 and 2)."""
+    from armour_tpu_torch import nlp
+
+    dev = _card()
+    robot, cfg, basis, prob = _small_problem(dev)
+    rows = ks.alm_rows(prob, cfg, basis)
+    Wn = prob.q_des.shape[0]
+    g = torch.Generator().manual_seed(0)
+    for S in (4, 2):
+        k = ((torch.rand(Wn, S, 7, generator=g) * 2 - 1) * 0.5).to(dev)
+        lam = (torch.rand(Wn, S, rows.M, generator=g) * 3).to(dev)
+        rho = torch.full((Wn, S), 10.0, device=dev)
+        got = ks.alm_newton(rows, k, lam, rho, want_system=True)
+        again = ks.alm_newton(rows, k, lam, rho, want_system=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        step, m0, feas, gk, Hk = got
+        _, m00, f0 = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
+        g0, H0, c0 = nlp.alm_newton_system(k, lam, rho, prob, cfg, basis)
+        _, Jc = nlp.constraint_stack(k, prob, cfg, basis, with_grad=True)
+        z0 = lam + rho[..., None] * c0
+        w = torch.where(z0 > 0, rho[..., None], torch.zeros_like(c0))
+        le = torch.where(z0 > 0, z0, torch.zeros_like(c0))
+        Ja = Jc.abs()
+        g_mag = nlp.plan_cost_grad(k, prob.traj, prob.q_des, prob.limits.continuous,
+                                   cfg).abs() + (Ja * le[..., None]).sum(-2)
+        H_mag = torch.matmul(Ja.transpose(-1, -2) * w[..., None, :], Ja) \
+            + nlp.plan_cost_hessian(prob.traj, cfg) + 1e-3
+        assert ((m0 - m00).abs() <= 1e-4 * (m00.abs() + 1e-6)).all()
+        assert ((gk - g0).abs() <= 1e-4 * (g_mag + 1e-6)).all()
+        assert ((Hk - H0).abs() <= 1e-4 * (H_mag + 1e-6)).all()
+        resid = (torch.matmul(H0, step[..., None])[..., 0] - g0).abs()
+        assert (resid <= 1e-4 * (torch.matmul(H0.abs(), step.abs()[..., None])[..., 0]
+                                 + g0.abs() + 1e-6)).all()
+        assert torch.equal(feas, f0)
+
+
+@pytest.mark.cuda
+def test_k5_matches_its_plain_version_on_the_card():
+    """A 60-step move of three worlds under each controller: |dq| <= 1e-4
+    rad, |dqd| <= 1e-3 rad/s, |du| <= 1e-4 (|u| + 1), and the same bits on
+    a second call."""
+    from armour_tpu_torch import simulator as tsim
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.controller import ALTHOFF_DEFAULT
+    from armour_tpu_torch.models.kinova import kinova_gen3
+
+    dev = _card()
+    robot, cfg = kinova_gen3(), ArmourConfig(dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    Wn, n = 3, 60
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev).contiguous()
+
+    q, qd = f32(rng.uniform(-1, 1, (Wn, 7))), f32(rng.uniform(-0.3, 0.3, (Wn, 7)))
+    t = np.arange(n) * 1e-3
+    amp = [rng.uniform(-1, 1, (Wn, 1, 7)) for _ in range(3)]
+    q_des = f32(q.cpu().numpy()[:, None] + 0.2 * np.sin(3 * t)[None, :, None] * amp[0])
+    qd_des = f32(0.6 * np.cos(3 * t)[None, :, None] * amp[1])
+    qdd_des = f32(-1.8 * np.sin(3 * t)[None, :, None] * amp[2])
+    tps = [tsim.sample_true_params(robot, rng, scale=1.0) for _ in range(Wn)]
+    tp = tsim.TrueParams(*(f32(np.stack([getattr(x, a).numpy() for x in tps]))
+                           for a in ("mass", "inertia", "com")))
+    noise = f32(1e-4 * rng.standard_normal((Wn, n, 2, 7)))
+    for controller, nz in (("robust", None), ("althoff", None), ("nominal", None),
+                           ("robust", noise)):
+        a = (robot, cfg, q, qd, q_des, qd_des, qdd_des, tp, 1e-3, 2, controller, nz,
+             ALTHOFF_DEFAULT)
+        got, again = ksim.rollout(*a), ksim.rollout(*a)
+        ref = tsim.rollout_plain(*a)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        assert float((got[2] - ref[2]).abs().max()) <= 1e-4
+        assert float((got[3] - ref[3]).abs().max()) <= 1e-3
+        assert ((got[4] - ref[4]).abs() <= 1e-4 * (ref[4].abs() + 1.0)).all()

@@ -156,8 +156,8 @@ def _j_margin(q, obs):
 
 
 def test_rest_frs_checker_matches_the_jax_pipeline():
-    rest = sv.make_rest_frs_checker(T_ROBOT, T_CFG, device="cpu")
-    assert sv.make_rest_frs_checker(T_ROBOT, T_CFG, device="cpu") is rest
+    rest = sv.make_rest_frs_checker(T_ROBOT, cfg=T_CFG, device="cpu")
+    assert sv.make_rest_frs_checker(T_ROBOT, cfg=T_CFG, device="cpu") is rest
     saved = load_world_csv("saved_worlds/random/scene_013_001.csv")
     saved = dataclasses.replace(saved, obstacle_centers=saved.obstacle_centers[:4],
                                 obstacle_generators=saved.obstacle_generators[:4])
