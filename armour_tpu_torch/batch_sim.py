@@ -78,6 +78,7 @@ def run_trials_batched(
     fallback_kwargs: Optional[dict] = None,
     *,
     device=None,
+    trace: Sequence[int] = (),
 ) -> List[TrialSummary]:
     """Run every world's closed-loop trial in lockstep (batched run_trial).
 
@@ -101,6 +102,11 @@ def run_trials_batched(
     rescue_wall_share, rescued and recovered rows) and one record per
     iteration (host-clock seconds of plan, rescue, rollout, oracles and the
     whole iteration, each ending in a device synchronisation).
+
+    trace: world indices whose every iteration is recorded in
+    stats["trace"][i] (the guidance in force, the plan's start state,
+    waypoint, chosen k, feasibility, cost and whether the rescue solver
+    gave it, the state reached, the goal distance and the stall counters).
 
     Runs on the card unless device names another device."""
     dev = resolve_device(device)
@@ -163,6 +169,7 @@ def run_trials_batched(
     gd_final = np.full(W, np.nan)
     gd_min = np.full(W, np.inf)
     iter_log: List[dict] = []
+    traces = {int(i): [] for i in trace}
     # stall-fallback guidance: per-world config-RRT*, engaged when the
     # straight-line waypoint stops making progress
     fallback: List = [None] * W
@@ -234,12 +241,18 @@ def run_trials_batched(
                         wp_np[i] = gen.get_waypoint(q0h[i])
                 wp_cache[i] = wp_np[i]
             waypoints = torch.as_tensor(wp_np, dtype=dt).to(dev)
+        guide = {i: ("retreat" if stop_count[i] > 0 else
+                     f"rrt#{int(fallback_regrows[i])}" if fallback[i] is not None else
+                     "ee_rrt" if hlps is not None else "straight") for i in traces}
         t0 = time.perf_counter()
         res = planner(q0, qd0, qdd0, waypoints, obs)
         k = res.k.cpu().numpy()
         viol = res.viol.cpu().numpy()
         feas = np.all(np.isfinite(k), axis=-1)
         t_fast = time.perf_counter() - t0
+        # the trace's copies stay outside the timed windows
+        cost = res.cost.cpu().numpy() if traces else None
+        took_rescue = np.zeros(W, dtype=bool)
         plan_times.append(t_fast)
         fast_wall += t_fast
         t_rescue = None
@@ -263,6 +276,9 @@ def run_trials_batched(
             t_rescue = time.perf_counter() - t0r
             rescue_wall += t_rescue
             rescue_iters += 1
+            if traces:
+                cost[take] = res2.cost.cpu().numpy()[take]
+                took_rescue = take
         infeasible += (~feas) & active
         grp = np.argmax(viol, axis=-1)
         rows = np.where((~feas) & active)[0]
@@ -309,6 +325,17 @@ def run_trials_batched(
                 print(f"  world {i}: stalled at gd={gd[i]:.2f} -> "
                       f"config-RRT* fallback #{int(fallback_regrows[i])}", flush=True)
 
+        for i, rec in traces.items():
+            if active[i]:
+                rec.append({
+                    "it": it, "guidance": guide[i],
+                    "q0": q0_np[i].tolist(), "qd0": qd0[i].tolist(),
+                    "qdd0": qdd0[i].tolist(), "waypoint": waypoints[i].tolist(),
+                    "k": k[i].tolist(), "feasible": bool(feas[i]), "cost": float(cost[i]),
+                    "rescued": bool(took_rescue[i]), "q": q_np[i].tolist(),
+                    "gd": float(gd[i]), "gd_min": float(gd_min[i]),
+                    "stall_ref_gd": float(stall_ref_gd[i]), "stall_count": int(stall_count[i]),
+                    "regrows": int(fallback_regrows[i])})
         iterations += active
         for name in flags:
             flags[name] |= checks[name] & active
@@ -342,6 +369,8 @@ def run_trials_batched(
             "recovered_rows": recovered_rows,
             "iterations": iter_log,
         })
+        if traces:
+            stats["trace"] = {str(i): rec for i, rec in traces.items()}
     return [
         TrialSummary(
             goal_reached=bool(goal[i]),

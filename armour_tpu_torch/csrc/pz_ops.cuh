@@ -5,14 +5,14 @@
 // from drifting apart.
 //
 // One thread group works on one batch element (a world, parameter set and
-// time step).  A group is a whole block (K1, K2, K9: __syncthreads), one
-// warp (__syncwarp) or a few warps with a named barrier of their own
-// (bar.sync id, n), so that K10 runs several elements per block with no
+// time step).  A group is a whole block (K1, K2: __syncthreads), one warp
+// (__syncwarp) or a few warps with a named barrier of their own (bar.sync
+// id, n), so that K9 and K10 run several elements per block with no
 // block-wide barrier between their ops; its size is a multiple of 32.  A PZ
 // entry is packed in shared memory as
 //     [coef 0..B) | egen B..B+E) | rad]       (ld = B + E + 1 floats)
 // and a matrix of entries is a PZMat view: entry (r, c) starts at
-// p + r * rs + c * cs (floats), so transposes and column slices are views.
+// p + r * rs + c * cs (floats), so column slices are views.
 // The pointer may also be a global one (K10 keeps its links' forces there).
 //
 // Every op is called by all threads of the group, reads operands that are
@@ -96,7 +96,6 @@ struct PZMat {
 
 __device__ __forceinline__ float* pz_at(PZMat v, int r, int c) { return v.p + r * v.rs + c * v.cs; }
 __device__ __forceinline__ PZMat pz_mat(float* p, int rs, int cs) { PZMat v = {p, rs, cs}; return v; }
-__device__ __forceinline__ PZMat pz_t(PZMat v) { PZMat t = {v.p, v.cs, v.rs}; return t; }
 __device__ __forceinline__ int pz_u(int o) { return (o + 1) % 3; }
 __device__ __forceinline__ int pz_v(int o) { return (o + 2) % 3; }
 
@@ -137,7 +136,7 @@ __device__ void pz_ctx(PZCtx& c, unsigned char* tab, float* mass, PZGroup g) {
   c.g = g;
 }
 
-// Tables and context for a block that is one group (K1, K2, K9).
+// Tables and context for a block that is one group (K1, K2).
 __device__ void pz_ctx_init(PZCtx& c, unsigned char* tab, float* mass) {
   pz_tables_init(tab);
   PZGroup g = {(int)threadIdx.x, (int)blockDim.x, 0};
@@ -300,29 +299,8 @@ __device__ __forceinline__ void pz_each(const PZCtx& c, int N, F f) {
   }
 }
 
-// Load n contiguous entries from global arrays (coef [n, B], egen [n, E],
-// rad [n]) into shared entries at dst, dst + ld, ...
-__device__ void pz_load(const PZCtx& c, float* dst, int n, const float* coef,
-                        const float* egen, const float* rad) {
-  const int B = c.B, E = c.E, ld = c.ld;
-  pz_each(c, n, [&](int k, int x) {
-    dst[k * ld + x] = x < B ? coef[k * B + x] : x < B + E ? egen[k * E + x - B] : rad[k];
-  });
-}
-
-// Store the entries of a vector view (n entries) to contiguous global arrays.
-__device__ void pz_store(const PZCtx& c, PZMat v, int n, float* coef, float* egen, float* rad) {
-  const int B = c.B, E = c.E;
-  pz_each(c, n, [&](int k, int x) {
-    const float val = pz_at(v, k, 0)[x];
-    if (x < B) coef[k * B + x] = val;
-    else if (x < B + E) egen[k * E + x - B] = val;
-    else rad[k] = val;
-  });
-}
-
 // ---------------------------------------------------------------------------
-// degree <= 1 matrix operands in compact form (K10's rotations)
+// degree <= 1 matrix operands in compact form (K9's and K10's rotations)
 // ---------------------------------------------------------------------------
 
 // floats of a compact entry, [coef 0 | coef lin(0..nf) | egen (E) | rad | S | E | A1],
@@ -333,36 +311,90 @@ __host__ __device__ __forceinline__ int pz_lin_ld(int nf, int E) {
 
 // Load n contiguous entries (global coef [n, B], egen [n, E], rad [n]) into
 // compact entries at dst, dst + ldl, ..., with their abs masses taken over
-// every coefficient as pz_masses takes them: the same bits as the packed
-// entry would give.  Ends with the group's barrier.
-__device__ void pz_load_lin(const PZCtx& c, float* dst, int n, const float* coef,
-                            const float* egen, const float* rad) {
+// every coefficient in pz_mass_loop's order: the same bits as the packed
+// entry would give.  A warp takes MB entries at once with all their
+// coefficients and error generators in flight together, and writes the
+// compact values from its registers.  Ends with the group's barrier.
+template <int MB>
+__device__ __forceinline__ void pz_load_lin_batches(const PZCtx& c, float* dst, int n,
+                                                    const float* coef, const float* egen,
+                                                    const float* rad) {
+  constexpr int NB = (PZ_MAXB + 31) / 32, NE = (PZ_MAXE + 31) / 32;
   const int B = c.B, E = c.E, nf = c.nf, ldl = pz_lin_ld(nf, E);
-  const bool lane0 = (c.g.rank & 31) == 0;
-  pz_mass_loop(
-      c, n,
-      [&](int k) {
-        PZEnt r = {coef + (long long)k * B, egen + (long long)k * E};
-        return r;
-      },
-      [&](int k, float S, float Ee, float A1, float) {
-        if (lane0) {
-          float* d = dst + k * ldl;
-          d[1 + nf + E] = rad[k];
-          d[2 + nf + E] = S;
-          d[3 + nf + E] = Ee;
-          d[4 + nf + E] = A1;
+  const int warp = c.g.rank >> 5, nw = c.g.size >> 5, lane = c.g.rank & 31;
+  // compact position of coefficient lane + 32 t (-1: none)
+  int cpos[NB];
+#pragma unroll
+  for (int t = 0; t < NB; ++t) {
+    const int b = lane + 32 * t;
+    int p = b == 0 ? 0 : -1;
+    for (int f = 0; f < nf; ++f)
+      if (c.lin[f] == b) p = 1 + f;
+    cpos[t] = p;
+  }
+  for (int k0 = warp * MB; k0 < n; k0 += nw * MB) {
+    float cv[MB][NB], ev[MB][NE];
+#pragma unroll
+    for (int u = 0; u < MB; ++u) {
+      const long long k = min(k0 + u, n - 1);
+#pragma unroll
+      for (int t = 0; t < NB; ++t) {
+        const int b = lane + 32 * t;
+        cv[u][t] = b < B ? coef[k * B + b] : 0.0f;
+      }
+#pragma unroll
+      for (int t = 0; t < NE; ++t) {
+        const int q = lane + 32 * t;
+        ev[u][t] = q < E ? egen[k * E + q] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < MB; ++u) {
+      const int k = k0 + u;
+      if (k >= n) break;
+      float s = 0.0f, e = 0.0f;
+      float* d = dst + k * ldl;
+#pragma unroll
+      for (int t = 0; t < NB; ++t) {
+        if (lane + 32 * t < B) {
+          s += fabsf(cv[u][t]);
+          if (cpos[t] >= 0) d[cpos[t]] = cv[u][t];
         }
-      });
-  for (int it = c.g.rank; it < n * 32; it += c.g.size) {
-    const int k = it >> 5;
-    for (int x = it & 31; x < 1 + nf + E; x += 32) {
-      const float* ce = coef + (long long)k * B;
-      dst[k * ldl + x] = x == 0 ? ce[0]
-                         : x <= nf ? ce[c.lin[x - 1]] : egen[(long long)k * E + x - 1 - nf];
+      }
+#pragma unroll
+      for (int t = 0; t < NE; ++t) {
+        const int q = lane + 32 * t;
+        if (q < E) {
+          e += fabsf(ev[u][t]);
+          d[1 + nf + q] = ev[u][t];
+        }
+      }
+      s = pz_warp_sum(s);
+      e = pz_warp_sum(e);
+      if (lane == 0) {
+        d[1 + nf + E] = rad[k];
+        d[2 + nf + E] = s;
+        d[3 + nf + E] = e;
+      }
     }
   }
   pz_sync(c.g);
+  // A1 = sum_f |coef lin(f)| in factor order, from the compact entry
+  for (int k = c.g.rank; k < n; k += c.g.size) {
+    float* d = dst + k * ldl;
+    float a1 = 0.0f;
+    for (int f = 0; f < nf; ++f) a1 += fabsf(d[1 + f]);
+    d[4 + nf + E] = a1;
+  }
+  pz_sync(c.g);
+}
+
+// pz_load_lin_batches with five entries a warp in a group of one or two
+// warps, two in a wider group: the same bits.
+__device__ __forceinline__ void pz_load_lin(const PZCtx& c, float* dst, int n, const float* coef,
+                                            const float* egen, const float* rad) {
+  if (c.g.size <= 64) pz_load_lin_batches<5>(c, dst, n, coef, egen, rad);
+  else pz_load_lin_batches<2>(c, dst, n, coef, egen, rad);
 }
 
 // The a operand of pz_matmul_linear_t: packed entries, masses from pz_masses
@@ -694,54 +726,6 @@ __device__ void pz_add_cross_pz_const(const PZCtx& c, PZMat s, PZMat a, const fl
     pz_at(out, o, 0)[x] = pz_at(s, o, 0)[x] + (x_v + pz_at(t, o, 0)[x]);
   });
   pz_sync(c.g);
-}
-
-// out = a v for a matrix PZ a [n, m] and a constant vector v [m]
-// (bpz.matvec_cvec; exact).
-__device__ void pz_matvec_cvec(const PZCtx& c, PZMat a, const float* v, PZMat out, int n, int m) {
-  const int rix = c.B + c.E;
-  pz_each(c, n, [&](int i, int x) {
-    float acc = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      const float t = pz_at(a, i, j)[x] * (x < rix ? v[j] : fabsf(v[j]));
-      acc = (j == 0) ? t : acc + t;
-    }
-    pz_at(out, i, 0)[x] = acc;
-  });
-  pz_sync(c.g);
-}
-
-// out = a b for a matrix PZ a [n, m] and a PZ vector b [m] whose
-// k-coefficients live only at the constant monomial (the link boxes;
-// bpz.matvec_const_coef, armour_tpu/pz/bpz.py:303).
-__device__ void pz_matvec_const_coef(const PZCtx& c, PZMat a, PZMat b, PZMat out, int n, int m,
-                                     float slop) {
-  const int B = c.B, E = c.E, rix = B + E;
-  pz_masses(c, a, n, m, b, m, 1);
-  const float* mb = c.mass + 4 * n * m;
-  pz_each(c, n, [&](int i, int x) {
-    float acc = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      const float* ae = pz_at(a, i, j);
-      const float* be = pz_at(b, j, 0);
-      const float b0 = be[0];
-      float t;
-      if (x < B) {
-        t = ae[x] * b0;
-      } else if (x < rix) {
-        t = ae[0] * be[x] + ae[x] * b0;
-      } else {
-        const int ia = 4 * (i * m + j);
-        const float Sa = c.mass[ia], Ea = c.mass[ia + 1], Eb = mb[4 * j + 1];
-        t = (Sa + Ea) * be[rix] + ae[rix] * (fabsf(b0) + Eb + be[rix])
-            + (Sa - fabsf(ae[0]) + Ea) * Eb;
-      }
-      acc = (j == 0) ? t : acc + t;
-    }
-    pz_at(out, i, 0)[x] = acc;
-  });
-  pz_sync(c.g);
-  pz_slop(c, out, n, 1, slop);
 }
 
 // out = (cc + r [-1, 1]) b for a PZ vector b [n] (bpz.mul_interval,

@@ -2,7 +2,7 @@
 file (counterpart of armour_tpu/experiments.py:48-66,135-240,312-385).
 
     python3 -m armour_tpu_torch.experiments [world_dir] [n_worlds] [results.json]
-        [mode] [--seed S] [--device cpu|cuda]
+        [mode] [--seed S] [--device cpu|cuda] [--trace WORLD ...]
 
 runs every world of world_dir (the first n_worlds when n_worlds > 0; the
 positional arguments of scripts/run_worlds.py) in lockstep on the card:
@@ -13,8 +13,10 @@ another.  It writes the results file and prints the buckets.
 mode "budget" (as in scripts/run_worlds.py) first calibrates the solver's
 outer iterations to the measured reach-set time at batch 1
 (planner.make_realtime_planner) and runs the suite at that profile,
-recording the calibration in the results' batch_stats.  The serial mode of
-scripts/run_worlds.py is not ported.
+recording the calibration in the results' batch_stats.  --trace WORLD (a
+world's file name, repeatable) records that world's every iteration in
+batch_stats["trace"][WORLD] (batch_sim.run_trials_batched's trace).  The
+serial mode of scripts/run_worlds.py is not ported.
 """
 
 from __future__ import annotations
@@ -61,11 +63,12 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
                             extra_stats: Optional[dict] = None,
                             rescue_solver: bool = True,
                             guidance: str = "straight",
-                            *, device=None) -> List[SuiteResult]:
+                            *, device=None, trace: Sequence[str] = ()) -> List[SuiteResult]:
     """All worlds advanced in lockstep on one card
     (batch_sim.run_trials_batched); rescue_solver/guidance pass through and
     are recorded in the saved batch_stats, into which extra_stats (e.g. the
-    real-time budget calibration) is merged."""
+    real-time budget calibration) is merged.  trace: world file names whose
+    every iteration goes to batch_stats["trace"][name]."""
     from .batch_sim import run_trials_batched
 
     names = [os.path.basename(p) for p in world_paths]
@@ -77,7 +80,9 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
         worlds, robot, cfg, max_iterations=max_iterations,
         true_param_scale=true_param_scale, seed=seed, verbose=verbose,
         stats=batch_stats, rescue_solver=rescue_solver, guidance=guidance,
-        device=device)
+        device=device, trace=[names.index(n) for n in trace])
+    if "trace" in batch_stats:
+        batch_stats["trace"] = {names[int(i)]: rec for i, rec in batch_stats["trace"].items()}
     batch_stats["suite_wall_s"] = time.perf_counter() - t0
     results = [SuiteResult(world=n, summary=s) for n, s in zip(names, summaries)]
     if verbose:
@@ -124,12 +129,16 @@ def compare_results(path_a: str, path_b: str) -> dict:
     """World-for-world comparison of two results files (save_results'
     layout, e.g. this package's run against the JAX package's): buckets
     that differ, and per world the iterations and rescued plans of each
-    where either differs, with the totals."""
-    def load(path):
+    where either differs, with the totals.  For a world that both files
+    trace (--trace), "traces" gives per common iteration [it, max |dq0|,
+    max |dk|, cost a, cost b, gd a, gd b, guidance a, guidance b], the
+    first iteration whose k differs at all and the first whose k differs
+    by more than FORK_DK."""
+    docs = []
+    for path in (path_a, path_b):
         with open(path) as f:
-            return {r["world"]: r for r in json.load(f)["results"]}
-
-    a, b = load(path_a), load(path_b)
+            docs.append(json.load(f))
+    a, b = ({r["world"]: r for r in d["results"]} for d in docs)
     common = sorted(set(a) & set(b))
     worlds = []
     for w in common:
@@ -147,7 +156,28 @@ def compare_results(path_a: str, path_b: str) -> dict:
                            sum(b[w]["iterations"] for w in common)],
             "rescued_plans": [sum(a[w]["rescued_plans"] for w in common),
                               sum(b[w]["rescued_plans"] for w in common)],
-            "differing_worlds": worlds}
+            "differing_worlds": worlds,
+            "traces": {w: compare_traces(ta, docs[1]["batch_stats"]["trace"][w])
+                       for w, ta in docs[0].get("batch_stats", {}).get("trace", {}).items()
+                       if w in docs[1].get("batch_stats", {}).get("trace", {})}}
+
+
+FORK_DK = 1e-3   # a k difference this large is a different plan, not rounding
+
+
+def compare_traces(ta: Sequence[dict], tb: Sequence[dict]) -> dict:
+    """One world's two traces (run_trials_batched's trace records), iteration
+    for iteration while both run."""
+    rows = []
+    for ra, rb in zip(ta, tb):
+        dq = float(np.max(np.abs(np.subtract(ra["q0"], rb["q0"]))))
+        dk = float(np.max(np.abs(np.subtract(ra["k"], rb["k"]))))
+        rows.append([ra["it"], dq, dk, ra["cost"], rb["cost"], ra["gd"], rb["gd"],
+                     ra["guidance"], rb["guidance"]])
+    return {"iterations": [len(ta), len(tb)],
+            "first_k_difference": next((r[0] for r in rows if r[2] > 0.0), None),
+            "first_fork": next((r[0] for r in rows if r[2] > FORK_DK), None),
+            "rows": rows}
 
 
 def _provenance() -> dict:
@@ -202,11 +232,19 @@ def main(argv=None) -> None:
     ap.add_argument("mode", nargs="?", default="batched", choices=("batched", "budget", "serial"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--trace", action="append", default=[], metavar="WORLD",
+                    help="record this world's every iteration (file name, e.g. scene_028_009.csv)")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
                     help="print the world-for-world comparison of two results files and exit")
     args = ap.parse_args(argv)
     if args.compare:
-        print(json.dumps(compare_results(*args.compare), indent=1))
+        out = compare_results(*args.compare)
+        traces = out.pop("traces")
+        print(json.dumps(out, indent=1))
+        for w, t in traces.items():   # one line a row
+            print(f"trace {w}: " + json.dumps({k: v for k, v in t.items() if k != "rows"}))
+            for r in t["rows"]:
+                print("  " + json.dumps(r))
         return
     if args.mode == "serial":
         raise SystemExit("mode 'serial' (the per-world loop of scripts/run_worlds.py) is not "
@@ -228,7 +266,7 @@ def main(argv=None) -> None:
         extra = {"budget_calibration": calib, "budget_mode": True}
     results = run_world_suite_batched(paths, robot, cfg, max_iterations=500, seed=args.seed,
                                       results_path=args.results, extra_stats=extra,
-                                      device=args.device)
+                                      device=args.device, trace=args.trace)
     print(json.dumps(summarize(results), indent=1))
 
 

@@ -5,8 +5,9 @@ tensors only; each checks device, dtype, shapes and contiguity, raises on
 anything its kernel does not take, allocates the outputs and scratch with
 torch.empty and launches on the current stream.
 
-k10_geometry is K10's launch geometry (threads per element, elements per
-block, the persistent grid), pure Python so that the CPU tests check it."""
+k9_geometry and k10_geometry are K9's and K10's launch geometries
+(threads per element, elements per block, the persistent grid), pure
+Python so that the CPU tests check them."""
 
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ MAX_J, MAX_P = 8, 2
 SM_SMEM = 233472          # bytes of shared memory of one Hopper SM, for all its blocks
 BLOCK_SMEM_RESERVED = 1024  # bytes the runtime keeps per resident block
 PZ_TAB_BYTES, PZ_MAXMASS = 3520, 32          # csrc/pz_ops.cuh
+K9_THREADS = 256          # threads per block of several elements at most (csrc/fk_chain.cu)
+K9_ENTRIES = 3 * 4 + 3                       # four fk_r row slots, fk_t
+K9_CONST = -(-(3 * (MAX_J + 1) + 12 * MAX_J) // 4) * 4
 K10_THREADS = 128         # threads per block of several elements (csrc/rnea_chain.cu)
 K10_ENTRIES = 3 * 5 + 3 * 3                  # five carry column slots, three temporaries
 K10_CONST = -(-(3 * (MAX_J + 1) + 3 * MAX_J + 18 * MAX_J * MAX_P) // 4) * 4
@@ -36,16 +40,30 @@ def lin_ld(nf: int, E: int) -> int:
     return -(-(nf + E + 5) // 4) * 4
 
 
+def _group_floats(ld: int, ldl: int, entries: int) -> int:
+    """Floats of one element's group area (compact R, the mass scratch,
+    `entries` packed entries), a multiple of 4."""
+    return -(-(9 * ldl + 4 * PZ_MAXMASS + entries * ld) // 4) * 4
+
+
+def k9_smem(ld: int, ldl: int, NG: int) -> int:
+    """Bytes of shared memory of a K9 block of NG elements
+    (fk_chain.cu:k9_smem): the tables, the translations and the link boxes'
+    masses, the link boxes in compact form (stride ldl), and per element its
+    group area."""
+    return PZ_TAB_BYTES + 4 * (K9_CONST + 3 * MAX_J * ldl
+                               + NG * _group_floats(ld, ldl, K9_ENTRIES))
+
+
 def k10_smem(ld: int, ldl: int, NG: int) -> int:
     """Bytes of shared memory of a K10 block of NG elements
     (rnea_chain.cu:k10_smem): the tables, the robot's constants, and per
     element the mass scratch, R in compact form and the PZ entries."""
-    group = -(-(9 * ldl + 4 * PZ_MAXMASS + K10_ENTRIES * ld) // 4) * 4
-    return PZ_TAB_BYTES + 4 * (K10_CONST + NG * group)
+    return PZ_TAB_BYTES + 4 * (K10_CONST + NG * _group_floats(ld, ldl, K10_ENTRIES))
 
 
 @dataclasses.dataclass(frozen=True)
-class K10Geometry:
+class ChainGeometry:
     """G threads per element, NG elements per block, a grid of `grid`
     blocks; block b takes the elements b NG + gi, (b + grid) NG + gi, ..."""
 
@@ -54,21 +72,43 @@ class K10Geometry:
     grid: int
 
     def elements(self, b: int, gi: int, n: int):
-        """The elements group gi of block b works on (rnea_chain.cu's loop)."""
+        """The elements group gi of block b works on (the kernels' loop)."""
         return list(range(b * self.NG + gi, n, self.grid * self.NG))
 
 
-def k10_geometry(n: int, ld: int, ldl: int, sms: int = H100_SMS) -> K10Geometry:
-    """One warp per element, four to a block, once there are enough
-    elements to give every SM several; two warps per element from 2 per SM,
-    eight below that (the W = 1 planner's 128 elements, one block each);
-    fewer elements per block until the grid reaches 2 x sms blocks.  The
-    grid is persistent: as many blocks as fit on the card at once (by
-    shared memory), each walking its share of the n elements."""
-    G = 32 if n >= 8 * sms else 64 if n >= 2 * sms else 256
+
+def chain_geometry(n: int, G: int, NG: int, smem: int, sms: int = H100_SMS) -> ChainGeometry:
+    """The persistent grid of NG groups of G threads: as many blocks as fit
+    on the card at once (by shared memory and threads), at most one per NG
+    elements."""
+    per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), 2048 // (G * NG))
+    return ChainGeometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
+
+
+def _group_size(n: int, sms: int) -> int:
+    """One warp per element once there are enough elements to give every SM
+    several; two warps from 2 per SM; eight below that (the W = 1 planner's
+    128 elements, one block each)."""
+    return 32 if n >= 8 * sms else 64 if n >= 2 * sms else 256
+
+
+def k9_geometry(n: int, ld: int, ldl: int, sms: int = H100_SMS) -> ChainGeometry:
+    """K9's geometry: K10's group sizes, up to eight elements (256 threads)
+    a block, fewer until the grid reaches 2 x sms blocks; two blocks of
+    eight warps fit an SM's shared memory at the flagship widths."""
+    G = _group_size(n, sms)
+    NG = max(1, min(K9_THREADS // G, n // (2 * sms)))
+    return chain_geometry(n, G, NG, k9_smem(ld, ldl, NG), sms)
+
+
+def k10_geometry(n: int, ld: int, ldl: int, sms: int = H100_SMS) -> ChainGeometry:
+    """K10's geometry: one warp per element, four to a block, once there are
+    enough elements to give every SM several; two warps per element from 2
+    per SM, eight below that (the W = 1 planner's 128 elements, one block
+    each); fewer elements per block until the grid reaches 2 x sms blocks."""
+    G = _group_size(n, sms)
     NG = max(1, min(K10_THREADS // G, n // (2 * sms)))   # 1 for G = 256
-    per_sm = min(SM_SMEM // (k10_smem(ld, ldl, NG) + BLOCK_SMEM_RESERVED), 2048 // (G * NG))
-    return K10Geometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
+    return chain_geometry(n, G, NG, k10_smem(ld, ldl, NG), sms)
 
 _F3 = ctypes.c_float * 3
 _PTRS = [(n, ctypes.c_void_p) for n in ("rc", "re", "rr")]
@@ -76,7 +116,8 @@ _PTRS = [(n, ctypes.c_void_p) for n in ("rc", "re", "rr")]
 
 class K9Args(ctypes.Structure):
     _fields_ = _PTRS + [(n, ctypes.c_void_p) for n in ("bc", "be", "br", "lc", "le", "lr")] + [
-        ("J", ctypes.c_int), ("Jr", ctypes.c_int), ("slop", ctypes.c_float),
+        ("n", ctypes.c_longlong), ("J", ctypes.c_int), ("Jr", ctypes.c_int),
+        ("slop", ctypes.c_float),
         ("trans", _F3 * (MAX_J + 1))]
 
 
@@ -127,39 +168,64 @@ def _widths(basis: KBasis, R: BPZ, what: str):
     return B, E
 
 
-def _launch(name: str, symbol: str, argtype, args, blocks: int, ld: int, like) -> None:
-    fn = launcher(name, symbol, [ctypes.POINTER(argtype), ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_void_p])
-    err = fn(ctypes.byref(args), blocks, ld, _stream(like))
+def _launch(name: str, symbol: str, argtype, args, geo: ChainGeometry, ld: int, ldl: int,
+            like) -> None:
+    fn = launcher(name, symbol, [ctypes.POINTER(argtype), ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    err = fn(ctypes.byref(args), ld, ldl, geo.G, geo.NG, geo.grid, _stream(like))
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launched(name)
 
 
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _k9_robot(robot, cfg, basis: KBasis, device):
+    """The link boxes on the device and the robot's part of K9's arguments,
+    formed once per robot, slop and device and kept in basis.kernel_args
+    (the boxes with them, so that the pointers stay valid): forming them
+    costs a host-to-device copy and several launches a call otherwise."""
+    from ..kinematics import link_box_pz
+
+    key = ("k9", str(device), float(cfg.float_slop), robot.num_joints) + tuple(
+        np.asarray(x).tobytes() for x in (robot.trans, robot.link_center, robot.link_generators))
+    tab = basis.kernel_args
+    if key not in tab:
+        boxes = link_box_pz(robot, basis, torch.float32, device=device)
+        args = K9Args()
+        args.bc, args.be, args.br = _ptrs(boxes)
+        args.J, args.slop = robot.num_joints, float(cfg.float_slop)
+        for i in range(robot.num_joints):
+            args.trans[i][:] = [float(x) for x in robot.trans[i]]
+        tab[key] = (boxes, args)
+    return tab[key][1]
+
+
 def fk_chain(jrs, robot, cfg, basis: KBasis) -> BPZ:
     """K9: the link PZs [W, T, J, 3] of the forward-kinematics chain
     (kinematics.forward_occupancy_plain's result)."""
-    from ..kinematics import link_box_pz
-
     Wn, T, Jr = jrs.R.rad.shape[:3]
     J = robot.num_joints
     if J > MAX_J or Jr < J:
         raise ValueError(f"fk_chain takes at most {MAX_J} joints, got {J} (R holds {Jr})")
     R = _require(jrs.R, "fk_chain", (Wn, T, Jr, 3, 3))
     B, E = _widths(basis, R, "fk_chain")
-    boxes = link_box_pz(robot, basis, torch.float32, device=R.coef.device)
     links = _empty((Wn, T, J, 3), B, E, R.coef)
     args = K9Args()
+    ctypes.memmove(ctypes.addressof(args),
+                   ctypes.addressof(_k9_robot(robot, cfg, basis, R.coef.device)),
+                   ctypes.sizeof(K9Args))
     args.rc, args.re, args.rr = _ptrs(R)
-    args.bc, args.be, args.br = _ptrs(boxes)
     args.lc, args.le, args.lr = _ptrs(links)
-    args.J, args.Jr, args.slop = J, Jr, float(cfg.float_slop)
-    for i in range(J):
-        args.trans[i][:] = [float(x) for x in robot.trans[i]]
+    args.Jr, args.n = Jr, Wn * T
     record("fk_chain", tuple(R.rad.shape), (jrs, robot, cfg, basis))
     if Wn * T:
+        ld, ldl = B + E + 1, lin_ld(basis.nf, E)
         upload_tables("fk_chain", "k9_tables", basis, E)
-        _launch("fk_chain", "k9_launch", K9Args, args, Wn * T, B + E + 1, R.coef)
+        _launch("fk_chain", "k9_launch", K9Args, args, k9_geometry(Wn * T, ld, ldl, _sms(R.coef)),
+                ld, ldl, R.coef)
     return links
 
 
@@ -247,17 +313,10 @@ def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int")) -> BPZ:
     record("rnea_chain", (tuple(R.rad.shape), tuple(sets)), (jrs, robot, cfg, basis, tuple(sets)))
     if Wn * T:
         ld, ldl = B + E + 1, lin_ld(basis.nf, E)
-        dev = R.coef.device
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        geo = k10_geometry(Wn * T, ld, ldl, sms)
-        fn = torch.empty(geo.grid * geo.NG * J * P * 6 * ld, device=dev, dtype=torch.float32)
+        geo = k10_geometry(Wn * T, ld, ldl, _sms(R.coef))
+        fn = torch.empty(geo.grid * geo.NG * J * P * 6 * ld, device=R.coef.device,
+                         dtype=torch.float32)
         args.fn, args.n = fn.data_ptr(), Wn * T
         upload_tables("rnea_chain", "k10_tables", basis, E)
-        launch = launcher("rnea_chain", "k10_launch",
-                          [ctypes.POINTER(K10Args), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        err = launch(ctypes.byref(args), ld, ldl, geo.G, geo.NG, geo.grid, _stream(R.coef))
-        if err:
-            raise RuntimeError(f"rnea_chain launch failed: cudaError {err}")
-        launched("rnea_chain")
+        _launch("rnea_chain", "k10_launch", K10Args, args, geo, ld, ldl, R.coef)
     return u

@@ -1,31 +1,32 @@
 """Time the redesigned kernels on the card: K7 (alm_newton) and K8
-(alm_values) launch by launch, K10 (rnea_chain) beside other launch
-geometries.
+(alm_values) launch by launch, K9 (fk_chain) and K10 (rnea_chain) beside
+other launch geometries.
 
     python3 chip_probe.py
 
 Runs one 64-world planning step (Kinova Gen3, the flagship config, the
-first 64 saved worlds, as chip_smoke.py) and records its K7, K8 and K10
+first 64 saved worlds, as chip_smoke.py) and records its K7, K8, K9 and K10
 calls:
 
   - every K7 and K8 call: the median of 20 calls (CUDA events) and the
     device time of each of its three launches (torch.profiler over 10
     calls);
-  - K10 at W = 64 and at W = 1 (the first world): the median of 20 calls
-    with the geometry that kernels/reach.py:k10_geometry picks and with
-    other (threads per element, elements per block) pairs.  K10's result
-    does not depend on the geometry: every variant must give the default's
-    bits, or the script fails.
+  - K9 and K10 at W = 64 and at W = 1 (the first world): the median of 20
+    calls with the geometry that kernels/reach.py:k9_geometry /
+    k10_geometry picks and with other (threads per element, elements per
+    block) pairs.  Neither result depends on the geometry: every variant
+    must give the default's bits, or the script fails.
 
     python3 chip_probe.py --times
 
-only times K7, K8 and K10 on every shape of the step (W = 64), the rescue
-profile's solve and a one-world step (W = 1), median of 20 calls each (K7
-also by device launch), and K5 (rollout) on the first move of a one-
+only times K7, K8, K9 and K10 on every shape of the step (W = 64), the
+rescue profile's solve and a one-world step (W = 1), median of 20 calls each
+(K7 also by device launch), and K5 (rollout) on the first move of a one-
 iteration closed loop over the same 64 worlds (median of 5), through the
 public launchers alone, so that the same script can time an older checkout
 of the port beside this one on one card, in turns (older, this, this,
-older).
+older).  It also prints a digest of every K9 and K10 result's bits, so that
+two checkouts that must agree bit for bit can be held to it.
 
 Prints the card line and, last, one JSON line of the times.  Needs one
 card; exits non-zero without one.
@@ -40,8 +41,12 @@ import sys
 
 import torch
 
-W64_VARIANTS = ((32, 4), (32, 3), (64, 2), (128, 1))
-W1_VARIANTS = ((256, 1), (128, 1), (64, 1))
+VARIANTS = {  # (threads per element, elements per block) beside each default
+    ("fk_chain", "W=64"): ((32, 4), (32, 6), (64, 2), (128, 1), (256, 1)),
+    ("fk_chain", "W=1"): ((128, 1), (64, 1), (32, 1)),
+    ("rnea_chain", "W=64"): ((32, 4), (32, 3), (64, 2), (128, 1)),
+    ("rnea_chain", "W=1"): ((256, 1), (128, 1), (64, 1)),
+}
 ITERS = 20
 
 
@@ -51,22 +56,23 @@ def fail(msg: str) -> None:
 
 
 @contextlib.contextmanager
-def k10_geometry(G: int, NG: int):
-    """K10 launched with G threads per element and NG elements per block."""
+def chain_geometry(name: str, G: int, NG: int):
+    """K9 (name fk_chain) or K10 (rnea_chain) launched with G threads per
+    element and NG elements per block."""
     from armour_tpu_torch.kernels import reach
 
-    default = reach.k10_geometry
+    attr, smem = {"fk_chain": ("k9_geometry", reach.k9_smem),
+                  "rnea_chain": ("k10_geometry", reach.k10_smem)}[name]
+    default = getattr(reach, attr)
 
     def fixed(n, ld, ldl, sms=reach.H100_SMS):
-        per_sm = min(reach.SM_SMEM // (reach.k10_smem(ld, ldl, NG) + reach.BLOCK_SMEM_RESERVED),
-                     2048 // (G * NG))
-        return reach.K10Geometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
+        return reach.chain_geometry(n, G, NG, smem(ld, ldl, NG), sms)
 
-    reach.k10_geometry = fixed
+    setattr(reach, attr, fixed)
     try:
         yield
     finally:
-        reach.k10_geometry = default
+        setattr(reach, attr, default)
 
 
 def launch_split(fn, n: int = 10) -> dict:
@@ -84,6 +90,16 @@ def launch_split(fn, n: int = 10) -> dict:
 
 def same_bits(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("coef", "egen", "rad"))
+
+
+def digest(p) -> str:
+    """sha256 of a BPZ's coef, egen and rad bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("coef", "egen", "rad"):
+        h.update(getattr(p, f).detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main() -> None:
@@ -113,7 +129,7 @@ def main() -> None:
     if "--times" in sys.argv[1:]:
         times_only(captured, robot, cfg, card, dev)
         return
-    out = {"card": card, "alm_newton": [], "alm_values": [], "rnea_chain": {}}
+    out = {"card": card, "alm_newton": [], "alm_values": [], "fk_chain": {}, "rnea_chain": {}}
 
     for (name, key), inputs in captured.items():
         if name == "alm_newton":
@@ -141,29 +157,38 @@ def main() -> None:
                                qda=first(jrs.qda), qdda=first(jrs.qdda))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     E = jrs.R.egen.shape[-1]
-    for label, j, variants in (("W=64", jrs, W64_VARIANTS), ("W=1", jrs1, W1_VARIANTS)):
-        def k10(j=j):
-            return reach.rnea_chain(j, robot, cfg, basis, sets)
+    ld, ldl = basis.size + E + 1, reach.lin_ld(basis.nf, E)
+    for name, label, j in (("fk_chain", "W=64", jrs), ("fk_chain", "W=1", jrs1),
+                           ("rnea_chain", "W=64", jrs), ("rnea_chain", "W=1", jrs1)):
+        if name == "fk_chain":
+            def chain(j=j):
+                return reach.fk_chain(j, robot, cfg, basis)
+            geo = reach.k9_geometry
+        else:
+            def chain(j=j):
+                return reach.rnea_chain(j, robot, cfg, basis, sets)
+            geo = reach.k10_geometry
 
-        ref = k10()
-        n = j.R.rad.shape[0] * j.R.rad.shape[1]
-        geo = reach.k10_geometry(n, basis.size + E + 1, reach.lin_ld(basis.nf, E), sms)
-        times = {f"default G={geo.G} NG={geo.NG}": median_ms(k10, dev, ITERS)}
-        for G, NG in variants:
-            with k10_geometry(G, NG):
-                times[f"G={G} NG={NG}"] = median_ms(k10, dev, ITERS)
-                if not same_bits(k10(), ref):
-                    fail(f"K10 at {label} with G={G} NG={NG} differs from the default geometry")
-        print(f"K10 {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        ref = chain()
+        g = geo(j.R.rad.shape[0] * j.R.rad.shape[1], ld, ldl, sms)
+        times = {f"default G={g.G} NG={g.NG}": median_ms(chain, dev, ITERS)}
+        for G, NG in VARIANTS[(name, label)]:
+            with chain_geometry(name, G, NG):
+                times[f"G={G} NG={NG}"] = median_ms(chain, dev, ITERS)
+                if not same_bits(chain(), ref):
+                    fail(f"{name} at {label} with G={G} NG={NG} differs from the default "
+                         "geometry")
+        print(f"{'K9' if name == 'fk_chain' else 'K10'} {label}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
               + f" (medians of {ITERS}; every geometry gives the same bits)")
-        out["rnea_chain"][label] = times
+        out[name][label] = times
     print(card)
     print(json.dumps(out))
 
 
 def times_only(captured, robot, cfg, card, dev) -> None:
-    """Medians of 20 calls of K7, K8 and K10 on every recorded shape of the
-    step, the rescue profile's solve and a one-world step (K7 also by device
+    """Medians of 20 calls of K7, K8, K9 and K10 on every recorded shape of
+    the step, the rescue profile's solve and a one-world step (K7 also by device
     launch), and of 5 calls of K5 on the first move of a one-iteration
     closed loop over the step's 64 worlds."""
     import glob
@@ -195,7 +220,7 @@ def times_only(captured, robot, cfg, card, dev) -> None:
                            rescue_solver=False, guidance="straight", stats={})
     torch.cuda.synchronize()
     out = {"card": card, "alm_newton": {}, "alm_newton_launch_ms": {}, "alm_values": {},
-           "rnea_chain": {}, "rollout": {}}
+           "fk_chain": {}, "rnea_chain": {}, "rollout": {}, "digest": {}}
     for (name, key), inputs in loop.items():
         if name == "rollout":
             def k5(i=inputs):
@@ -214,6 +239,9 @@ def times_only(captured, robot, cfg, card, dev) -> None:
             elif name == "alm_values":
                 def fn(i=inputs):
                     return ks.alm_values(*i)
+            elif name == "fk_chain":
+                def fn(i=inputs):
+                    return reach.fk_chain(*i)
             elif name == "rnea_chain":
                 def fn(i=inputs):
                     return reach.rnea_chain(*i)
@@ -222,6 +250,8 @@ def times_only(captured, robot, cfg, card, dev) -> None:
             ms = median_ms(fn, dev, ITERS)
             out[name][f"{label} {key}"] = ms
             print(f"{name} {label} {key}: {ms:.4f} ms (median of {ITERS})")
+            if name in ("fk_chain", "rnea_chain"):
+                out["digest"][f"{name} {label} {key}"] = digest(fn())
     print(card)
     print(json.dumps(out))
 

@@ -10,8 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
      flags; build the kernels from csrc/ (one nvcc per source, in parallel)
      and print the nvcc flags, every kernel's registers, spills, stack frame
-     and static shared memory (ptxas) and K7's / K8's / K10's dynamic shared
-     memory a block.
+     and static shared memory (ptxas) and K7's / K8's / K9's / K10's dynamic
+     shared memory a block.
   2. the main path at the flagship width (Kinova Gen3, T = 128, O = 40,
      K = 4096, float32) over the first 64 saved worlds: one warm-up step that
      records each kernel's inputs, then one step with the launch counters set
@@ -20,8 +20,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
      (median of 20 calls, CUDA events); K7, K8, K9 and K10 also run twice
-     and must give the same bits, and K7-K10 are printed beside their
-     earlier times (PERF.md's kernel history).  K7 / K8 (the solver's rows) on
+     and must give the same bits, K9 also under other launch geometries
+     (the same bits again), and K7-K10 are printed beside their earlier
+     times (PERF.md's kernel history).  K7 / K8 (the solver's rows) on
      every shape of the step: seeds 4 -> 2, line search S x 3.  K1 / K2,
      which the step no longer launches, on calls formed from the step's JRS:
      the FK rotation product of joint 1 and the PZ RNEA through the op-level
@@ -113,11 +114,14 @@ ALM_TIE = 1e-5       # an active collision row whose best two candidates are thi
 # the kernels' times before their current designs (PERF.md's kernel history; NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's: ms summed over the step's call shapes
 BEFORE_MS = {"alm_values": "1.464 (6 shapes)", "alm_newton": "2.138 (2 shapes)",
-             "fk_chain": "3.396", "rnea_chain": "7.154", "rollout": "101.253"}
+             "fk_chain": "3.417", "rnea_chain": "7.154", "rollout": "101.253"}
 BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "7.168",
-                   ("fk_chain", "rescue profile"): "3.225",
+                   ("fk_chain", "rescue profile"): "3.814",
                    ("rnea_chain", "real-time path (W = 1)"): "0.440",
-                   ("fk_chain", "real-time path (W = 1)"): "0.274"}
+                   ("fk_chain", "real-time path (W = 1)"): "0.375"}
+# K9 under other launch geometries (threads per element, elements per block,
+# blocks): each must give the default geometry's bits
+K9_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (256, 1, 528), (32, 8, 17))
 
 
 def fail(msg: str) -> None:
@@ -592,6 +596,27 @@ def check_chain(name, inputs, dev):
          f"{'gives the same bits' if same else 'DIFFERS'}")
 
 
+def check_k9_geometries(inputs) -> str:
+    """K9 under K9_GEOMETRIES against its default geometry: the same bits,
+    or the run fails."""
+    from armour_tpu_torch.kernels import reach
+
+    jrs, robot, cfg, basis = inputs
+    ref = reach.fk_chain(jrs, robot, cfg, basis)
+    default = reach.k9_geometry
+    try:
+        for G, NG, grid in K9_GEOMETRIES:
+            reach.k9_geometry = lambda *a, g=reach.ChainGeometry(G, NG, grid), **k: g
+            got = reach.fk_chain(jrs, robot, cfg, basis)
+            if not all(torch.equal(getattr(got, f), getattr(ref, f))
+                       for f in ("coef", "egen", "rad")):
+                fail(f"K9 with G={G} NG={NG} grid={grid} differs from its default geometry")
+    finally:
+        reach.k9_geometry = default
+    return (f"the same bits under {len(K9_GEOMETRIES)} other geometries "
+            f"{[g[:2] for g in K9_GEOMETRIES]}")
+
+
 def check_chain_captures(captured, dev, label) -> None:
     """K9 / K10 against their plain versions on every shape recorded on a
     path other than the main one, both timed; fails on a mismatch."""
@@ -698,6 +723,8 @@ def kernel_phase(captured, launches, device_launches, dev):
         r["calls"] += 1
         print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); "
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB")
+        if name == "fk_chain":
+            print(f"  {name} {key}: {check_k9_geometries(inputs)}")
         all_ok &= ok
     out = []
     for name in PLANNING_KERNELS:
@@ -1444,6 +1471,9 @@ def main() -> None:
                                            for r in solver_k.K7_TILES)
           + "; K8 step (a) " + ", ".join(f"R = {r}: {solver_k.k8_rows_smem(120, r)} B"
                                          for r in solver_k.K8_TILES)
+          + "; K9 " + ", ".join(f"{ng} elements: "
+                                f"{reach_k.k9_smem(159, reach_k.lin_ld(7, 38), ng)} B"
+                                for ng in (1, 2, 8))
           + "; K10 " + ", ".join(f"{ng} elements: "
                                  f"{reach_k.k10_smem(159, reach_k.lin_ld(7, 38), ng)} B"
                                  for ng in (1, 2, 4)))

@@ -5,7 +5,7 @@ guidance with the rescue solver, worst-case true parameters), one run per
 package.  Every TrialSummary field agrees except planning_times (host
 clock); the two goal distances, computed from the rolled-out state, to
 1e-9.  The batch economics, the suite buckets and the serial run_trial
-agree too."""
+agree too; the port's per-world trace agrees with its summaries."""
 
 import dataclasses
 
@@ -56,6 +56,16 @@ def runs():
     return j, t, j_stats, t_stats
 
 
+@pytest.fixture(scope="module")
+def traced():
+    """The port's run again with both worlds traced."""
+    stats = {}
+    t = tbs.run_trials_batched(_worlds(TWorld), T_ROBOT, T_CFG, max_iterations=ITERS,
+                               true_param_scale=1.0, seed=0, stats=stats, device="cpu",
+                               trace=(0, 1))
+    return t, stats
+
+
 EXACT = [f.name for f in dataclasses.fields(TrialSummary)
          if f.name not in ("planning_times", "goal_distance_final", "goal_distance_min")]
 
@@ -72,6 +82,28 @@ def test_goal_distances_match_jax(runs, field):
     j, t, _, _ = runs
     for a, b in zip(j, t):
         assert abs(getattr(b, field) - getattr(a, field)) <= 1e-9, (field, a, b)
+
+
+def test_tracing_leaves_the_run_unchanged(runs, traced):
+    _, t, _, _ = runs
+    for a, b in zip(t, traced[0]):
+        assert dataclasses.replace(b, planning_times=a.planning_times) == a
+
+
+def test_trace_records_every_iteration(traced):
+    """The per-world trace agrees with the summaries it explains."""
+    t, t_stats = traced
+    for i, b in enumerate(t):
+        rec = t_stats["trace"][str(i)]
+        assert [r["it"] for r in rec] == list(range(b.iterations))
+        assert rec[-1]["gd"] == b.goal_distance_final
+        assert min(r["gd"] for r in rec) == b.goal_distance_min
+        assert sum(not r["feasible"] for r in rec) == b.infeasible_plans
+        assert sum(r["rescued"] for r in rec) == b.rescued_plans
+        for r in rec:
+            assert r["guidance"] in ("straight", "retreat") or r["guidance"].startswith("rrt#")
+            assert len(r["k"]) == len(r["q0"]) == len(r["waypoint"]) == len(r["q"]) == 7
+            assert r["gd_min"] <= r["gd"] and r["stall_count"] >= 0
 
 
 def test_planning_times_one_per_iteration(runs):

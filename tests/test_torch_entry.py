@@ -361,3 +361,34 @@ def test_compare_results_lists_the_worlds_that_differ(tmp_path):
     assert [d["world"] for d in out["differing_worlds"]] == ["s3", "s2"]
     assert out["differing_worlds"][1] == {"world": "s2", "bucket": ["goal", "goal"],
                                           "iterations": [12, 15], "rescued_plans": [1, 1]}
+
+
+def test_compare_results_holds_two_traces_of_a_world(tmp_path):
+    """experiments.compare_results on two files that trace the same world:
+    per common iteration the largest state and k differences, the first
+    iteration whose k differs at all and the first a different plan."""
+    import json
+
+    from armour_tpu_torch.experiments import compare_results
+
+    def rec(it, q, k, cost):
+        return {"it": it, "q0": [0.0, q], "k": [k, 0.5], "cost": cost, "gd": 1.0 - it,
+                "guidance": "straight"}
+
+    def write(name, recs):
+        path = tmp_path / name
+        path.write_text(json.dumps({
+            "results": [{"world": "w", "bucket": "goal", "iterations": len(recs),
+                         "rescued_plans": 0}],
+            "batch_stats": {"trace": {"w": recs}}}))
+        return str(path)
+
+    a = write("a.json", [rec(0, 0.0, 0.25, 3.0), rec(1, 0.0, 0.25, 2.0), rec(2, 1e-7, 0.25, 1.0),
+                         rec(3, 2e-7, 0.25, 1.0)])
+    b = write("b.json", [rec(0, 0.0, 0.25, 3.0), rec(1, 0.0, 0.25 + 1e-6, 2.0),
+                         rec(2, 1e-7, -0.5, 1.5)])
+    t = compare_results(a, b)["traces"]["w"]
+    assert t["iterations"] == [4, 3]
+    assert t["first_k_difference"] == 1 and t["first_fork"] == 2
+    assert [r[0] for r in t["rows"]] == [0, 1, 2]
+    assert t["rows"][2][1:5] == [0.0, 0.75, 1.0, 1.5]

@@ -1,5 +1,5 @@
 """Launch geometry of kernels K5 (rollout), K7 (alm_newton), K8
-(alm_values) and K10 (rnea_chain), pure Python on the CPU: every row,
+(alm_values), K9 (fk_chain) and K10 (rnea_chain), pure Python on the CPU: every row,
 query, seed, chain and element is covered exactly once,
 the grid reaches 2 x 132 CTAs wherever the work allows, and the shared
 memory each block asks for fits the H100 (227 KB a block, 228 KB an SM), so
@@ -7,8 +7,8 @@ that a launch the card would refuse shows up here.  The Python mirrors of
 the kernels' shared-memory formulas are held against the constants of the
 CUDA sources.
 
-The last four tests run K5, K7, K8 and K10 against their plain versions on
-the card (marked cuda; they skip where there is none)."""
+The last five tests run K5, K7, K8, K9 and K10 against their plain versions
+on the card (marked cuda; they skip where there is none)."""
 
 import re
 
@@ -226,6 +226,57 @@ def test_k10_shared_memory_fits():
     assert 3 * (reach.k10_smem(LD, LDL, 4) + reach.BLOCK_SMEM_RESERVED) <= reach.SM_SMEM
 
 
+K9_WORLDS = [1, 4, 64, 512]
+
+
+@pytest.mark.parametrize("Wn", K9_WORLDS)
+def test_k9_elements_covered_once(Wn):
+    n = Wn * T
+    geo = reach.k9_geometry(n, LD, LDL, SMS)
+    seen = np.zeros(n, dtype=int)
+    for b in range(geo.grid):
+        for gi in range(geo.NG):
+            seen[geo.elements(b, gi, n)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("Wn", K9_WORLDS)
+def test_k9_grid_fills_the_card(Wn):
+    n = Wn * T
+    geo = reach.k9_geometry(n, LD, LDL, SMS)
+    assert geo.G in (32, 64, 256) and geo.NG <= 15 and geo.G * geo.NG <= reach.K9_THREADS
+    if n >= 2 * SMS:
+        assert geo.grid >= 2 * SMS
+    else:
+        # one element per block, eight warps each: W = 1 spreads over the card
+        assert geo.NG == 1 and geo.grid == n and geo.G == 256
+    if n >= 8 * SMS:
+        # a warp per element, eight a block, two blocks an SM
+        assert geo.G == 32 and geo.NG == 8 and geo.grid == 2 * SMS
+    per_sm = reach.SM_SMEM // (reach.k9_smem(LD, LDL, geo.NG) + reach.BLOCK_SMEM_RESERVED)
+    assert per_sm >= 1 and geo.grid <= SMS * per_sm
+
+
+def test_k9_shared_memory_fits():
+    ops, k9 = _source("pz_ops.cuh"), _source("fk_chain.cu")
+    assert _define(ops, "PZ_TAB_BYTES") == reach.PZ_TAB_BYTES
+    assert _define(ops, "PZ_MAXMASS") == reach.PZ_MAXMASS
+    assert 3 * _define(k9, "K9_SLOTS") + 3 == reach.K9_ENTRIES
+    assert _define(k9, "K9_THREADS") == reach.K9_THREADS
+    assert _define(k9, "K9_MAXJ") == reach.MAX_J
+    # at most K9_THREADS threads a block, two blocks an SM
+    assert re.search(r"__launch_bounds__\(K9_THREADS, 2\)", k9)
+    for NG in range(1, reach.K9_THREADS // 32 + 1):
+        assert reach.k9_smem(LD, LDL, NG) <= BLOCK_SMEM
+    assert 2 * (reach.k9_smem(LD, LDL, 8) + reach.BLOCK_SMEM_RESERVED) <= reach.SM_SMEM
+    # past 48 KB a launch needs the opt-in: it is asked for on every launch,
+    # whatever the size (a conditional opt-in was K7's cudaError 1)
+    launch = k9[k9.index('extern "C" int k9_launch'):]
+    assert re.search(r"\n  cudaError_t err = cudaFuncSetAttribute\(k9_kernel, "
+                     r"cudaFuncAttributeMaxDynamicSharedMemorySize", launch)
+    assert reach.k9_smem(LD, LDL, 8) > 48 * 1024
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels are built with nvcc there)")
@@ -311,6 +362,39 @@ def test_k10_matches_its_plain_version_on_the_card():
         assert torch.equal(getattr(got, f), getattr(again, f))
         m = mass if f == "rad" else mass[..., None]
         assert ((getattr(got, f) - getattr(ref, f)).abs() <= 1e-5 * (m + 1e-6)).all()
+
+
+@pytest.mark.cuda
+def test_k9_matches_its_plain_version_on_the_card():
+    """Every link entry within 1e-5 of the plain entry's total mass, the
+    same bits on a second call and under other launch geometries."""
+    from armour_tpu_torch import kinematics
+    from armour_tpu_torch.jrs import build_jrs
+
+    dev = _card()
+    robot, cfg, basis, _ = _small_problem(dev)
+    rng = np.random.default_rng(2)
+    q = [torch.as_tensor(rng.uniform(-0.5, 0.5, (3, 7)), dtype=torch.float32, device=dev)
+         for _ in range(3)]
+    jrs = build_jrs(*q, robot, cfg, basis)
+    got = reach.fk_chain(jrs, robot, cfg, basis)
+    ref = kinematics.forward_occupancy_plain(jrs, robot, cfg, basis)
+    mass = ref.coef.abs().sum(-1) + ref.egen.abs().sum(-1) + ref.rad.abs()
+    for f in ("coef", "egen", "rad"):
+        m = mass if f == "rad" else mass[..., None]
+        assert ((getattr(got, f) - getattr(ref, f)).abs() <= 1e-5 * (m + 1e-6)).all()
+    default = reach.k9_geometry
+    try:
+        for G, NG, grid in ((256, 1, 5), (64, 2, 7), (32, 8, 1), (32, 3, 2), (None, 0, 0)):
+            if G is not None:
+                reach.k9_geometry = lambda *a, g=reach.ChainGeometry(G, NG, grid), **k: g
+            else:
+                reach.k9_geometry = default
+            again = reach.fk_chain(jrs, robot, cfg, basis)
+            assert all(torch.equal(getattr(got, f), getattr(again, f))
+                       for f in ("coef", "egen", "rad")), (G, NG, grid)
+    finally:
+        reach.k9_geometry = default
 
 
 @pytest.mark.cuda
