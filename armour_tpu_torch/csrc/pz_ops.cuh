@@ -5,9 +5,9 @@
 // from drifting apart.
 //
 // One thread group works on one batch element (a world, parameter set and
-// time step).  A group is a whole block (K1, K2: __syncthreads), one warp
+// time step).  A group is a whole block (K1: __syncthreads), one warp
 // (__syncwarp) or a few warps with a named barrier of their own (bar.sync
-// id, n), so that K9 and K10 run several elements per block with no
+// id, n), so that K2, K9 and K10 run several elements per block with no
 // block-wide barrier between their ops; its size is a multiple of 32.  A PZ
 // entry is packed in shared memory as
 //     [coef 0..B) | egen B..B+E) | rad]       (ld = B + E + 1 floats)
@@ -136,7 +136,7 @@ __device__ void pz_ctx(PZCtx& c, unsigned char* tab, float* mass, PZGroup g) {
   c.g = g;
 }
 
-// Tables and context for a block that is one group (K1, K2).
+// Tables and context for a block that is one group (K1).
 __device__ void pz_ctx_init(PZCtx& c, unsigned char* tab, float* mass) {
   pz_tables_init(tab);
   PZGroup g = {(int)threadIdx.x, (int)blockDim.x, 0};
@@ -395,6 +395,62 @@ __device__ __forceinline__ void pz_load_lin(const PZCtx& c, float* dst, int n, c
                                             const float* egen, const float* rad) {
   if (c.g.size <= 64) pz_load_lin_batches<5>(c, dst, n, coef, egen, rad);
   else pz_load_lin_batches<2>(c, dst, n, coef, egen, rad);
+}
+
+// Load n entries of a strided global operand into packed entries dst, dst +
+// ld, ...: entry k has its coefficients at coef + k cs (B floats), its error
+// generators at egen + k es (E floats) and its radius at rad[k rs].  A warp
+// takes MB entries at once with all their values in flight together, then
+// writes them from its registers.  No barrier at the end: the caller loads
+// all its operands, then syncs the group once.
+template <int MB>
+__device__ __forceinline__ void pz_load_batches(const PZCtx& c, float* dst, int n,
+                                                const float* coef, long long cs,
+                                                const float* egen, long long es,
+                                                const float* rad, long long rs) {
+  constexpr int NB = (PZ_MAXB + 31) / 32, NE = (PZ_MAXE + 31) / 32;
+  const int B = c.B, E = c.E, ld = c.ld;
+  const int warp = c.g.rank >> 5, nw = c.g.size >> 5, lane = c.g.rank & 31;
+  for (int k0 = warp * MB; k0 < n; k0 += nw * MB) {
+    float cv[MB][NB], ev[MB][NE], rv[MB];
+#pragma unroll
+    for (int u = 0; u < MB; ++u) {
+      const long long k = min(k0 + u, n - 1);
+#pragma unroll
+      for (int t = 0; t < NB; ++t) {
+        const int b = lane + 32 * t;
+        cv[u][t] = b < B ? coef[k * cs + b] : 0.0f;
+      }
+#pragma unroll
+      for (int t = 0; t < NE; ++t) {
+        const int q = lane + 32 * t;
+        ev[u][t] = q < E ? egen[k * es + q] : 0.0f;
+      }
+      rv[u] = rad[k * rs];
+    }
+#pragma unroll
+    for (int u = 0; u < MB; ++u) {
+      const int k = k0 + u;
+      if (k >= n) break;
+      float* d = dst + k * ld;
+#pragma unroll
+      for (int t = 0; t < NB; ++t)
+        if (lane + 32 * t < B) d[lane + 32 * t] = cv[u][t];
+#pragma unroll
+      for (int t = 0; t < NE; ++t)
+        if (lane + 32 * t < E) d[B + lane + 32 * t] = ev[u][t];
+      if (lane == 0) d[B + E] = rv[u];
+    }
+  }
+}
+
+// pz_load_batches with three entries a warp in a group of one warp, one in
+// a wider group (its warps then load side by side).
+__device__ __forceinline__ void pz_load(const PZCtx& c, float* dst, int n, const float* coef,
+                                        long long cs, const float* egen, long long es,
+                                        const float* rad, long long rs) {
+  if (c.g.size <= 32) pz_load_batches<3>(c, dst, n, coef, cs, egen, es, rad, rs);
+  else pz_load_batches<1>(c, dst, n, coef, cs, egen, es, rad, rs);
 }
 
 // The a operand of pz_matmul_linear_t: packed entries, masses from pz_masses

@@ -1,18 +1,23 @@
 """Launchers of the PZ product kernels K1 (pz_matmul_linear) and K2
-(pz_cross), and the basis tables every PZ kernel (K1, K2, K9, K10) reads
-from constant memory.  Called by pz/bpz.py for CUDA tensors only; each
-checks device, dtype, shapes and strides, raises on anything its kernel
-does not take, allocates the outputs with torch.empty and launches on the
-current stream."""
+(pz_cross), the basis tables every PZ kernel (K1, K2, K9, K10) reads
+from constant memory, and the persistent-grid geometry K2, K9 and K10
+share.  Called by pz/bpz.py for CUDA tensors only; each launcher checks
+device, dtype, shapes and strides, raises on anything its kernel does not
+take, allocates the outputs with torch.empty and launches on the current
+stream.
+
+chain_geometry and k2_geometry are pure Python, so that the CPU tests
+check them."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
-import numpy as np
 import torch
 
-from . import launched, record
+from . import H100_SMS, launched, record
 from .build import launcher
 from ..pz.basis import KBasis, linear_tables, pair_segments
 from ..pz.bpz import BPZ
@@ -21,6 +26,59 @@ _LL3 = ctypes.c_longlong * 3
 _LL2 = ctypes.c_longlong * 2
 
 MAX_B, MAX_E, MAX_NF, MAX_PAIRS = 128, 64, 8, 1024
+SM_SMEM = 233472          # bytes of shared memory of one Hopper SM, for all its blocks
+BLOCK_SMEM_RESERVED = 1024  # bytes the runtime keeps per resident block
+PZ_TAB_BYTES, PZ_MAXMASS = 3520, 32          # csrc/pz_ops.cuh
+K2_THREADS = 256          # threads per block of several elements at most (csrc/pz_cross.cu)
+K2_BLOCKS_PER_SM = 2      # its __launch_bounds__ (128 registers a thread): two blocks an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainGeometry:
+    """G threads per element, NG elements per block, a grid of `grid`
+    blocks; block b takes the elements b NG + gi, (b + grid) NG + gi, ..."""
+
+    G: int
+    NG: int
+    grid: int
+
+    def elements(self, b: int, gi: int, n: int):
+        """The elements group gi of block b works on (the kernels' loop)."""
+        return list(range(b * self.NG + gi, n, self.grid * self.NG))
+
+
+def chain_geometry(n: int, G: int, NG: int, smem: int, sms: int = H100_SMS,
+                   blocks_per_sm: int = 32) -> ChainGeometry:
+    """The persistent grid of NG groups of G threads: as many blocks as fit
+    on the card at once (by shared memory, threads and the kernel's
+    registers, blocks_per_sm), at most one per NG elements."""
+    per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), 2048 // (G * NG), blocks_per_sm)
+    return ChainGeometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
+
+
+def group_size(n: int, sms: int) -> int:
+    """One warp per element once there are enough elements to give every SM
+    several; two warps from 2 per SM; eight below that (one element a
+    block)."""
+    return 32 if n >= 8 * sms else 64 if n >= 2 * sms else 256
+
+
+def k2_smem(ld: int, NG: int) -> int:
+    """Bytes of shared memory of a K2 block of NG elements
+    (pz_cross.cu:k2_smem): the tables, and per element the mass scratch and
+    the packed entries of a, b and the result."""
+    return PZ_TAB_BYTES + 4 * NG * (-(-(4 * PZ_MAXMASS + 9 * ld) // 4) * 4)
+
+
+def k2_geometry(n: int, ld: int, sms: int = H100_SMS) -> ChainGeometry:
+    """K2's geometry: K10's group sizes (a warp per element at the
+    flagship's 8,192-16,384 elements), up to eight elements (256 threads) a
+    block, fewer until the grid reaches 2 x sms blocks; two blocks an SM, as
+    many as its registers let stay resident (a grid of four an SM, the rest
+    waiting, was 8% slower on an 8,192-element call on an H100)."""
+    G = group_size(n, sms)
+    NG = max(1, min(K2_THREADS // G, n // (2 * sms)))
+    return chain_geometry(n, G, NG, k2_smem(ld, NG), sms, K2_BLOCKS_PER_SM)
 
 
 class PZView(ctypes.Structure):
@@ -100,38 +158,48 @@ def _check(p: BPZ, what: str) -> None:
 
 
 def _batch_shape(a: BPZ, b: BPZ, nval: int):
-    shape = torch.broadcast_shapes(a.rad.shape[:-nval], b.rad.shape[:-nval])
-    if len(shape) > 3:
-        raise ValueError(f"at most 3 batch dims are supported, got {tuple(shape)}")
-    return tuple(shape)
+    """The broadcast batch shape of a and b (their shapes without the nval
+    value dims), in plain Python: torch.broadcast_shapes costs more host
+    time than a small launch."""
+    sa, sb = tuple(a.rad.shape[:-nval]), tuple(b.rad.shape[:-nval])
+    n = max(len(sa), len(sb))
+    sa, sb = (1,) * (n - len(sa)) + sa, (1,) * (n - len(sb)) + sb
+    if any(x != y and x != 1 and y != 1 for x, y in zip(sa, sb)):
+        raise ValueError(f"batch shapes {sa} and {sb} do not broadcast")
+    if n > 3:
+        raise ValueError(f"at most 3 batch dims are supported, got {n}")
+    return tuple(y if x == 1 else x for x, y in zip(sa, sb))
 
 
 def _view(p: BPZ, bshape, nval: int, what: str) -> PZView:
     """Strides of p broadcast to batch shape bshape (stride 0 where it is
-    broadcast); the trailing coef/egen axis must be contiguous."""
-    coef = p.coef.expand(*bshape, *p.coef.shape[-nval - 1:])
-    egen = p.egen.expand(*bshape, *p.egen.shape[-nval - 1:])
-    rad = p.rad.expand(*bshape, *p.rad.shape[-nval:])
-    if coef.stride(-1) != 1 or egen.stride(-1) != 1:
+    broadcast, as Tensor.expand gives them, formed without it); the trailing
+    coef/egen axis must be contiguous."""
+    if p.coef.stride(-1) != 1 or p.egen.stride(-1) != 1:
         raise ValueError(f"{what}: the monomial / error axis must be contiguous")
     nb = len(bshape)
 
-    def bstr(t):
-        s = t.stride()[:nb]
-        return _LL3(*([0] * (3 - nb) + list(s)))
+    def bstr(t, trailing):
+        shape, stride = t.shape, t.stride()
+        off = nb - (t.dim() - trailing)
+        s = [0] * (3 - nb)
+        for i, n in enumerate(bshape):
+            j = i - off
+            s.append(stride[j] if j >= 0 and shape[j] == n else 0)
+        return _LL3(*s)
 
     def vstr(t, trailing):
-        s = list(t.stride()[nb:t.dim() - trailing])
+        s = list(t.stride()[t.dim() - trailing - nval:t.dim() - trailing])
         return _LL2(*(s + [0] * (2 - len(s))))
 
-    return PZView(coef.data_ptr(), egen.data_ptr(), rad.data_ptr(),
-                  bstr(coef), bstr(egen), bstr(rad),
-                  vstr(coef, 1), vstr(egen, 1), vstr(rad, 0))
+    return PZView(p.coef.data_ptr(), p.egen.data_ptr(), p.rad.data_ptr(),
+                  bstr(p.coef, nval + 1), bstr(p.egen, nval + 1), bstr(p.rad, nval),
+                  vstr(p.coef, 1), vstr(p.egen, 1), vstr(p.rad, 0))
 
 
 def _bd(bshape):
     full = [1] * (3 - len(bshape)) + list(bshape)
-    return (ctypes.c_int * 3)(*full), int(np.prod(full))
+    return (ctypes.c_int * 3)(*full), math.prod(full)
 
 
 def _stream(t: torch.Tensor):
@@ -185,8 +253,16 @@ def matmul_linear(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0,
     return res
 
 
+_K2_SIGS = {}
+_K2_TYPES = [ctypes.POINTER(K2Args), ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
+
+
 def cross(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
-    """K2: PZ x PZ cross product of 3-vectors [.., 3]."""
+    """K2: PZ x PZ cross product of 3-vectors [.., 3].  The views' strides
+    and batch sizes are formed once per signature (the operands' shapes and
+    strides, slop, device) and kept: forming them costs more host time than
+    the launch; a call sets the data pointers and picks the geometry."""
     _check(a, "pz_cross")
     _check(b, "pz_cross")
     B, E = a.coef.shape[-1], a.egen.shape[-1]
@@ -194,23 +270,34 @@ def cross(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
         raise ValueError("pz_cross takes 3-vectors")
     if B != basis.size or b.coef.shape[-1] != B or E > MAX_E or b.egen.shape[-1] != E:
         raise ValueError("pz_cross: operand widths do not match the basis")
-    bshape = _batch_shape(a, b, 1)
     dev = a.coef.device
+    key = tuple((p.coef.shape, p.coef.stride(), p.egen.shape, p.egen.stride(), p.rad.shape,
+                 p.rad.stride()) for p in (a, b)) + (float(slop), dev.index)
+    sig = _K2_SIGS.get(key)
+    bshape = sig[0] if sig is not None else _batch_shape(a, b, 1)
     out = BPZ(coef=torch.empty(*bshape, 3, B, device=dev, dtype=torch.float32),
               egen=torch.empty(*bshape, 3, E, device=dev, dtype=torch.float32),
               rad=torch.empty(*bshape, 3, device=dev, dtype=torch.float32))
-    args = K2Args()
-    args.a = _view(a, bshape, 1, "pz_cross")
-    args.b = _view(b, bshape, 1, "pz_cross")
-    args.out = _view(out, bshape, 1, "pz_cross")
-    args.bd, blocks = _bd(bshape)
-    args.slop = float(slop)
+    if sig is None:
+        args = K2Args()
+        args.a = _view(a, bshape, 1, "pz_cross")
+        args.b = _view(b, bshape, 1, "pz_cross")
+        args.out = _view(out, bshape, 1, "pz_cross")
+        args.bd, n = _bd(bshape)
+        args.slop = float(slop)
+        if len(_K2_SIGS) >= 256:
+            _K2_SIGS.clear()
+        sig = _K2_SIGS[key] = (bshape, args, n,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+    _, args, n, sms = sig
+    for view, p in ((args.a, a), (args.b, b), (args.out, out)):
+        view.coef, view.egen, view.rad = p.coef.data_ptr(), p.egen.data_ptr(), p.rad.data_ptr()
     record("pz_cross", (tuple(a.rad.shape), tuple(b.rad.shape)), (a, b, basis, slop))
-    if blocks:
+    if n:
+        geo = k2_geometry(n, B + E + 1, sms)
         upload_tables("pz_cross", "k2_tables", basis, E)
-        fn = launcher("pz_cross", "k2_launch",
-                      [ctypes.POINTER(K2Args), ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), blocks, B + E + 1, _stream(a.coef))
+        fn = launcher("pz_cross", "k2_launch", _K2_TYPES)
+        err = fn(ctypes.byref(args), n, B + E + 1, geo.G, geo.NG, geo.grid, _stream(a.coef))
         if err:
             raise RuntimeError(f"pz_cross launch failed: cudaError {err}")
         launched("pz_cross")

@@ -6,27 +6,25 @@ anything its kernel does not take, allocates the outputs and scratch with
 torch.empty and launches on the current stream.
 
 k9_geometry and k10_geometry are K9's and K10's launch geometries
-(threads per element, elements per block, the persistent grid), pure
-Python so that the CPU tests check them."""
+(threads per element, elements per block, the persistent grid of
+kernels/pz.py:chain_geometry, which K2 shares), pure Python so that the
+CPU tests check them."""
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import numpy as np
 import torch
 
 from . import H100_SMS, launched, record
 from .build import launcher
-from .pz import upload_tables
+from .pz import (PZ_MAXMASS, PZ_TAB_BYTES, ChainGeometry, chain_geometry, group_size,
+                 upload_tables)
 from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
 
 MAX_J, MAX_P = 8, 2
-SM_SMEM = 233472          # bytes of shared memory of one Hopper SM, for all its blocks
-BLOCK_SMEM_RESERVED = 1024  # bytes the runtime keeps per resident block
-PZ_TAB_BYTES, PZ_MAXMASS = 3520, 32          # csrc/pz_ops.cuh
 K9_THREADS = 256          # threads per block of several elements at most (csrc/fk_chain.cu)
 K9_ENTRIES = 3 * 4 + 3                       # four fk_r row slots, fk_t
 K9_CONST = -(-(3 * (MAX_J + 1) + 12 * MAX_J) // 4) * 4
@@ -62,41 +60,11 @@ def k10_smem(ld: int, ldl: int, NG: int) -> int:
     return PZ_TAB_BYTES + 4 * (K10_CONST + NG * _group_floats(ld, ldl, K10_ENTRIES))
 
 
-@dataclasses.dataclass(frozen=True)
-class ChainGeometry:
-    """G threads per element, NG elements per block, a grid of `grid`
-    blocks; block b takes the elements b NG + gi, (b + grid) NG + gi, ..."""
-
-    G: int
-    NG: int
-    grid: int
-
-    def elements(self, b: int, gi: int, n: int):
-        """The elements group gi of block b works on (the kernels' loop)."""
-        return list(range(b * self.NG + gi, n, self.grid * self.NG))
-
-
-
-def chain_geometry(n: int, G: int, NG: int, smem: int, sms: int = H100_SMS) -> ChainGeometry:
-    """The persistent grid of NG groups of G threads: as many blocks as fit
-    on the card at once (by shared memory and threads), at most one per NG
-    elements."""
-    per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), 2048 // (G * NG))
-    return ChainGeometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
-
-
-def _group_size(n: int, sms: int) -> int:
-    """One warp per element once there are enough elements to give every SM
-    several; two warps from 2 per SM; eight below that (the W = 1 planner's
-    128 elements, one block each)."""
-    return 32 if n >= 8 * sms else 64 if n >= 2 * sms else 256
-
-
 def k9_geometry(n: int, ld: int, ldl: int, sms: int = H100_SMS) -> ChainGeometry:
     """K9's geometry: K10's group sizes, up to eight elements (256 threads)
     a block, fewer until the grid reaches 2 x sms blocks; two blocks of
     eight warps fit an SM's shared memory at the flagship widths."""
-    G = _group_size(n, sms)
+    G = group_size(n, sms)
     NG = max(1, min(K9_THREADS // G, n // (2 * sms)))
     return chain_geometry(n, G, NG, k9_smem(ld, ldl, NG), sms)
 
@@ -106,7 +74,7 @@ def k10_geometry(n: int, ld: int, ldl: int, sms: int = H100_SMS) -> ChainGeometr
     enough elements to give every SM several; two warps per element from 2
     per SM, eight below that (the W = 1 planner's 128 elements, one block
     each); fewer elements per block until the grid reaches 2 x sms blocks."""
-    G = _group_size(n, sms)
+    G = group_size(n, sms)
     NG = max(1, min(K10_THREADS // G, n // (2 * sms)))   # 1 for G = 256
     return chain_geometry(n, G, NG, k10_smem(ld, ldl, NG), sms)
 

@@ -1,22 +1,31 @@
 """Launchers of the closed-loop kernels K5 (rollout) and K6 (oracle_check).
 Called by simulator.py for CUDA tensors only; each checks device, dtype,
 shapes and contiguity, raises on anything its kernel does not take,
-allocates the outputs with torch.empty / torch.zeros and launches on the
-current stream."""
+allocates the outputs with torch.empty (K6's one output buffer is zeroed by
+its launcher) and launches on the current stream.
+
+k5_geometry and k6_geometry are K5's and K6's launch geometries, pure
+Python so that the CPU tests check them."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from . import launched, record
+from . import H100_SMS, launched, record
 from .build import launcher
 from .collision import _require, _stream
 
 MAXJ = 8
 K5_LANES = (32, 64)       # threads per world of K5 (rollout.cu's instantiations)
+K6_STEPS = 32             # logged steps of a K6 chunk, one per lane (csrc/oracle_check.cu)
+K6_THREADS = 256
+K6_MAXSPLIT = 16          # blocks that may share one chunk's (link, obstacle) pairs
+K6_FRAME, K6_OBS = 27, 32  # floats of a staged link frame and obstacle
 CONTROLLER_IDS = {"robust": 0, "nominal": 1, "althoff": 2}
 
 _f = ctypes.c_float
@@ -61,9 +70,9 @@ class K6Robot(ctypes.Structure):
 class K6Args(ctypes.Structure):
     _fields_ = [("rb", K6Robot),
                 ("q", _p), ("qd", _p), ("u", _p), ("q_des", _p), ("qd_des", _p),
-                ("centers", _p), ("gens", _p), ("mask", _p), ("flags", _p),
-                ("overlaps", _p),
-                ("W", ctypes.c_int), ("N", ctypes.c_int), ("O", ctypes.c_int)]
+                ("centers", _p), ("gens", _p), ("mask", _p), ("out", _p),
+                ("W", ctypes.c_int), ("N", ctypes.c_int), ("O", ctypes.c_int),
+                ("chunks", ctypes.c_int), ("splits", ctypes.c_int)]
 
 
 def _fill(arr, values) -> None:
@@ -112,6 +121,63 @@ def _k6_robot(robot, cfg) -> K6Robot:
     rb.qe = float(np.float32(cfg.ub.qe))
     rb.qde = float(np.float32(cfg.ub.qde))
     return rb
+
+
+_K6_ARGS = {}
+
+
+def _k6_args(robot, cfg, device) -> K6Args:
+    """K6's arguments with the robot's part filled, one per (robot, cfg,
+    device) object and reused by every call (the launch copies them): forming
+    the robot's part costs more host time than the kernel takes.  RobotModel
+    and ArmourConfig are frozen; the entry keeps both alive, so their ids
+    stay theirs."""
+    key = (id(robot), id(cfg), str(device))
+    hit = _K6_ARGS.get(key)
+    if hit is None or hit[0] is not robot or hit[1] is not cfg:
+        hit = (robot, cfg, K6Args(_k6_robot(robot, cfg)))
+        _K6_ARGS[key] = hit
+    return hit[2]
+
+
+@dataclasses.dataclass(frozen=True)
+class K6Geometry:
+    """K6's grid: per world `chunks` chunks of K6_STEPS logged steps, each
+    taken by `splits` blocks of K6_THREADS threads."""
+
+    chunks: int
+    splits: int
+    grid: int
+
+    def block(self, b: int):
+        """(world, first step, split) of block b (the kernel's indexing)."""
+        w, r = divmod(b, self.chunks * self.splits)
+        chunk, split = divmod(r, self.splits)
+        return w, chunk * K6_STEPS, split
+
+    def pairs(self, split: int, warp: int, J: int, nobs: int):
+        """The (link, real obstacle) pairs warp `warp` of a block of split
+        `split` tests, a lane per logged step of its chunk."""
+        n = J * nobs
+        return [divmod(p, nobs) for p in range(split + self.splits * warp, n,
+                                               self.splits * (K6_THREADS // 32))]
+
+
+def k6_smem(O: int) -> int:
+    """Bytes of dynamic shared memory of a K6 block (oracle_check.cu:k6_smem):
+    the chunk's link frames and the staged obstacles."""
+    return 4 * (MAXJ * K6_FRAME * K6_STEPS + K6_OBS * O)
+
+
+@functools.lru_cache(maxsize=64)
+def k6_geometry(Wn: int, N: int, sms: int = H100_SMS) -> K6Geometry:
+    """Chunks of K6_STEPS logged steps; where the worlds x chunks give fewer
+    than 2 x sms blocks, up to K6_MAXSPLIT blocks share each chunk's pairs
+    so that the grid reaches 2 x sms."""
+    chunks = -(-N // K6_STEPS)
+    base = max(1, Wn * chunks)
+    splits = max(1, min(K6_MAXSPLIT, -(-2 * sms // base)))
+    return K6Geometry(chunks=chunks, splits=splits, grid=Wn * chunks * splits)
 
 
 def k5_chains(J: int, F: int) -> int:
@@ -197,20 +263,28 @@ def oracle_check(robot, cfg, q, qd, u, q_des, qd_des, centers, generators, mask)
     _require(centers, "centers", (Wn, O, 3))
     _require(generators, "generators", (Wn, O, 3, 3))
     _require(mask, "mask", (Wn, O), torch.bool)
+    if F != robot.num_factors:
+        raise ValueError(f"oracle_check: logs of {F} joints for a robot of {robot.num_factors}")
     dev = q.device
-    flags = torch.zeros(Wn, 4, device=dev, dtype=torch.int32)
-    overlaps = torch.zeros(Wn, device=dev, dtype=torch.int64)
     record("oracle_check", (tuple(q.shape), O),
            dict(q=q, qd=qd, u=u, q_des=q_des, qd_des=qd_des, centers=centers,
                 generators=generators, mask=mask))
-    if Wn * N:
-        args = K6Args(_k6_robot(robot, cfg), q.data_ptr(), qd.data_ptr(), u.data_ptr(),
-                      q_des.data_ptr(), qd_des.data_ptr(), centers.data_ptr(),
-                      generators.data_ptr(), mask.data_ptr(), flags.data_ptr(),
-                      overlaps.data_ptr(), Wn, N, O)
-        fn = launcher("oracle_check", "k6_launch", [ctypes.POINTER(K6Args), ctypes.c_void_p])
-        err = fn(ctypes.byref(args), _stream(q))
-        if err:
-            raise RuntimeError(f"oracle_check launch failed: cudaError {err}")
-        launched("oracle_check")
-    return flags != 0, overlaps
+    if not Wn * N:
+        return (torch.zeros(Wn, 4, device=dev, dtype=torch.bool),
+                torch.zeros(Wn, device=dev, dtype=torch.int64))
+    # one buffer, zeroed by the launcher: overlaps [W] int64, then flags [W, 4] bytes
+    out = torch.empty(12 * Wn, device=dev, dtype=torch.bool)
+    geo = k6_geometry(Wn, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    args = _k6_args(robot, cfg, dev)
+    args.q, args.qd, args.u = q.data_ptr(), qd.data_ptr(), u.data_ptr()
+    args.q_des, args.qd_des = q_des.data_ptr(), qd_des.data_ptr()
+    args.centers, args.gens, args.mask = (centers.data_ptr(), generators.data_ptr(),
+                                          mask.data_ptr())
+    args.out = out.data_ptr()
+    args.W, args.N, args.O, args.chunks, args.splits = Wn, N, O, geo.chunks, geo.splits
+    fn = launcher("oracle_check", "k6_launch", [ctypes.POINTER(K6Args), ctypes.c_void_p])
+    err = fn(ctypes.byref(args), _stream(q))
+    if err:
+        raise RuntimeError(f"oracle_check launch failed: cudaError {err}")
+    launched("oracle_check")
+    return out.as_strided((Wn, 4), (4, 1), 8 * Wn), out[:8 * Wn].view(torch.int64)

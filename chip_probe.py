@@ -21,12 +21,23 @@ calls:
 
 only times K7, K8, K9 and K10 on every shape of the step (W = 64), the
 rescue profile's solve and a one-world step (W = 1), median of 20 calls each
-(K7 also by device launch), and K5 (rollout) on the first move of a one-
-iteration closed loop over the same 64 worlds (median of 5), through the
-public launchers alone, so that the same script can time an older checkout
-of the port beside this one on one card, in turns (older, this, this,
-older).  It also prints a digest of every K9 and K10 result's bits, so that
-two checkouts that must agree bit for bit can be held to it.
+(K7 also by device launch), K5 (rollout) on the first move of a one-
+iteration closed loop over the same 64 worlds (median of 5), K6
+(oracle_check) on that move (CUDA-event median of 20, its device time a
+call by queued_ms, and torch.profiler's split), and the uncertain-centre-
+of-mass route: the PZ RNEA of the step's JRS for the Kinova with
+com_uncertainty = 0.05 (dynamics.rnea_pz_sets, median of 5, with its K1 /
+K2 launches and those of one W = 64 planning step of that robot) and each
+K1 / K2 call shape it makes (median of 20, and its device time), through
+the public launchers alone, so that the same script can time an older
+checkout of the port beside this one on one card, in turns (older, this,
+this, older).  It also prints a digest of every K2, K9 and K10 result's
+bits, of the uncertain-COM torque, and of K6's flags and overlap counts on
+the move and on four copies with planted faults
+(chip_smoke.planted_oracle_inputs), so that two checkouts that must agree
+bit for bit can be held to it; where kernels/pz.py has k2_geometry, K2 also
+runs under the launch geometries of K2_VARIANTS and must give the
+default's bits.
 
 Prints the card line and, last, one JSON line of the times.  Needs one
 card; exits non-zero without one.
@@ -47,7 +58,12 @@ VARIANTS = {  # (threads per element, elements per block) beside each default
     ("rnea_chain", "W=64"): ((32, 4), (32, 3), (64, 2), (128, 1)),
     ("rnea_chain", "W=1"): ((256, 1), (128, 1), (64, 1)),
 }
+K2_VARIANTS = ((32, 4), (64, 2), (96, 2), (128, 1), (256, 1))
+# the kernels' times before their current designs (PERF.md's kernel history;
+# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+BEFORE_MS = {"oracle_check": "0.259", "pz_cross": "2.073 over its 4 shapes"}
 ITERS = 20
+COM_UNCERTAINTY = 0.05     # the uncertain-COM route (tests/test_torch_reachsets.py)
 
 
 def fail(msg: str) -> None:
@@ -88,17 +104,42 @@ def launch_split(fn, n: int = 10) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def queued_ms(fn, dev, n: int = 20, reps: int = 5) -> float:
+    """Device ms per call of fn with its host work hidden: n calls are
+    queued behind two float32 4096 x 4096 matrix products (several ms of
+    work) and timed by CUDA events from the end of the products to the end
+    of the last call; the median of reps.  (torch.profiler has returned 0
+    ms for a whole session on that machine.)"""
+    fn()
+    a = torch.ones(4096, 4096, device=dev)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        a @ a
+        a @ a
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[reps // 2]
+
+
 def same_bits(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("coef", "egen", "rad"))
 
 
 def digest(p) -> str:
-    """sha256 of a BPZ's coef, egen and rad bytes."""
+    """sha256 of a BPZ's coef, egen and rad bytes, or of a tuple of tensors."""
     import hashlib
 
     h = hashlib.sha256()
-    for f in ("coef", "egen", "rad"):
-        h.update(getattr(p, f).detach().contiguous().cpu().numpy().tobytes())
+    ts = p if isinstance(p, tuple) else tuple(getattr(p, f) for f in ("coef", "egen", "rad"))
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -189,11 +230,13 @@ def main() -> None:
 def times_only(captured, robot, cfg, card, dev) -> None:
     """Medians of 20 calls of K7, K8, K9 and K10 on every recorded shape of
     the step, the rescue profile's solve and a one-world step (K7 also by device
-    launch), and of 5 calls of K5 on the first move of a one-iteration
-    closed loop over the step's 64 worlds."""
+    launch), of 5 calls of K5 and 20 of K6 on the first move of a one-iteration
+    closed loop over the step's 64 worlds (K6 also by device time), and the
+    uncertain-COM route (the RNEA call, its K1 / K2 launches and call
+    shapes)."""
     import glob
 
-    from chip_smoke import scenes
+    from chip_smoke import planted_oracle_inputs, scenes
     from armour_tpu_torch import kernels, nlp
     from armour_tpu_torch.batch_sim import run_trials_batched
     from armour_tpu_torch.collision import ObstacleSet
@@ -217,10 +260,11 @@ def times_only(captured, robot, cfg, card, dev) -> None:
     worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:64]]
     with kernels.capture() as loop:
         run_trials_batched(worlds, robot, cfg, max_iterations=1, true_param_scale=1.0, seed=0,
-                           rescue_solver=False, guidance="straight", stats={})
+                           rescue_solver=True, guidance="straight", stats={})
     torch.cuda.synchronize()
     out = {"card": card, "alm_newton": {}, "alm_newton_launch_ms": {}, "alm_values": {},
-           "fk_chain": {}, "rnea_chain": {}, "rollout": {}, "digest": {}}
+           "fk_chain": {}, "rnea_chain": {}, "rollout": {}, "oracle_check": {},
+           "uncertain_com": {}, "pz_matmul_linear": {}, "pz_cross": {}, "digest": {}}
     for (name, key), inputs in loop.items():
         if name == "rollout":
             def k5(i=inputs):
@@ -229,6 +273,24 @@ def times_only(captured, robot, cfg, card, dev) -> None:
             ms = median_ms(k5, dev, 5)
             out["rollout"][f"move {key}"] = ms
             print(f"rollout move {key}: {ms:.3f} ms (median of 5)")
+        elif name == "oracle_check":
+            def k6(i=inputs):
+                return ksim.oracle_check(robot, cfg, **i)
+
+            ms = median_ms(k6, dev, ITERS)
+            dev_ms = queued_ms(k6, dev)
+            split = launch_split(k6)
+            out["oracle_check"][f"move {key}"] = {"event_ms": ms, "device_ms": dev_ms,
+                                                   "profiler_ms_by_kernel": split}
+            print(f"oracle_check move {key}: {ms:.4f} ms a call (CUDA events, median of "
+                  f"{ITERS}; before: {BEFORE_MS['oracle_check']} ms); device {dev_ms:.4f} ms a "
+                  f"call (queued_ms); torch.profiler over 10 calls: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            for label, x in [("as logged", inputs)] + planted_oracle_inputs(robot, cfg, inputs):
+                flags, overlaps = ksim.oracle_check(robot, cfg, **x)
+                out["digest"][f"oracle_check {label}"] = digest((flags, overlaps))
+                print(f"oracle_check {label}: flags raised {flags.sum(0).tolist()}, overlaps "
+                      f"{int(overlaps.sum())}, digest {out['digest'][f'oracle_check {label}']}")
     for label, rec in (("step", captured), ("rescue", rescue), ("W=1", one)):
         for (name, key), inputs in rec.items():
             if name == "alm_newton":
@@ -252,8 +314,84 @@ def times_only(captured, robot, cfg, card, dev) -> None:
             print(f"{name} {label} {key}: {ms:.4f} ms (median of {ITERS})")
             if name in ("fk_chain", "rnea_chain"):
                 out["digest"][f"{name} {label} {key}"] = digest(fn())
+    uncertain_com(captured, robot, cfg, basis, args, obs, dev, out)
     print(card)
     print(json.dumps(out))
+
+
+def uncertain_com(captured, robot, cfg, basis, args, obs, dev, out) -> None:
+    """The uncertain-COM route at W = 64: the K1 / K2 launches of one
+    planning step of the Kinova with com_uncertainty = COM_UNCERTAINTY and of
+    its RNEA call on the step's JRS, that call timed (median of 5), and each
+    K1 / K2 call shape it makes timed (median of 20, and its device time) with a digest of its
+    result; K2 also under K2_VARIANTS where this checkout has k2_geometry."""
+    from armour_tpu_torch import dynamics, kernels
+    from armour_tpu_torch.kernels import pz as kpz
+    from armour_tpu_torch.planner import make_batch_planner
+    from armour_tpu_torch.utils.timing import median_ms
+
+    robot_c = dataclasses.replace(robot, com_uncertainty=COM_UNCERTAINTY)
+    step_c = make_batch_planner(robot_c, cfg)
+    step_c(*args, obs)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    step_c(*args, obs)
+    torch.cuda.synchronize()
+    n_step = {k: v for k, v in kernels.counts().items() if k in ("pz_matmul_linear", "pz_cross")}
+    jrs = next(v[0] for k, v in captured.items() if k[0] == "rnea_chain")
+
+    def rnea():
+        return dynamics.rnea_pz_sets(jrs, robot_c, cfg, basis)
+
+    kernels.reset_counts()
+    with kernels.capture() as ops:
+        u = rnea()
+    torch.cuda.synchronize()
+    n_call = {k: v for k, v in kernels.counts().items() if k in ("pz_matmul_linear", "pz_cross")}
+    ms = median_ms(rnea, dev, 5)
+    out["uncertain_com"] = {"rnea_ms": ms, "launches_rnea_call": n_call,
+                            "launches_planning_step": n_step}
+    out["digest"]["uncertain_com rnea_pz_sets"] = digest(u)
+    print(f"uncertain-COM route (com_uncertainty {COM_UNCERTAINTY}), W = 64: "
+          f"dynamics.rnea_pz_sets {ms:.3f} ms (median of 5); K1 / K2 launches of the call "
+          f"{n_call}, of one planning step {n_step}; digest {digest(u)}")
+    for (name, key), inputs in ops.items():
+        if name == "pz_matmul_linear":
+            a, b, bs, slop, tr = inputs
+
+            def fn(a=a, b=b, bs=bs, slop=slop, tr=tr):
+                return kpz.matmul_linear(a, b, bs, slop, transpose_out=tr)
+        elif name == "pz_cross":
+            a, b, bs, slop = inputs
+
+            def fn(a=a, b=b, bs=bs, slop=slop):
+                return kpz.cross(a, b, bs, slop)
+        else:
+            continue
+        ms = median_ms(fn, dev, ITERS)
+        dev_ms = queued_ms(fn, dev)
+        ref = fn()
+        out[name][str(key)] = {"event_ms": ms, "device_ms": dev_ms}
+        out["digest"][f"{name} {key}"] = digest(ref)
+        note = ""
+        if name == "pz_cross" and hasattr(kpz, "k2_geometry"):
+            default = kpz.k2_geometry
+            try:
+                for G, NG in K2_VARIANTS:
+                    kpz.k2_geometry = (lambda n, ld, sms=kernels.H100_SMS, G=G, NG=NG:
+                                       kpz.chain_geometry(n, G, NG, kpz.k2_smem(ld, NG), sms))
+                    if not same_bits(fn(), ref):
+                        fail(f"K2 {key} with G={G} NG={NG} differs from the default geometry")
+            finally:
+                kpz.k2_geometry = default
+            note = f"; the same bits under {len(K2_VARIANTS)} other geometries"
+        print(f"{name} uncertain-COM {key}: {ms:.4f} ms (median of {ITERS}; device "
+              f"{dev_ms:.4f} ms a call, queued_ms), digest "
+              f"{out['digest'][f'{name} {key}']}{note}")
+    k2 = out["pz_cross"].values()
+    print(f"pz_cross over its {len(k2)} shapes: {sum(v['event_ms'] for v in k2):.4f} ms of "
+          f"CUDA-event time (before: {BEFORE_MS['pz_cross']} ms), "
+          f"{sum(v['device_ms'] for v in k2):.4f} ms of device time")
 
 
 if __name__ == "__main__":

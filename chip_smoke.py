@@ -20,13 +20,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
      (median of 20 calls, CUDA events); K7, K8, K9 and K10 also run twice
-     and must give the same bits, K9 also under other launch geometries
-     (the same bits again), and K7-K10 are printed beside their earlier
-     times (PERF.md's kernel history).  K7 / K8 (the solver's rows) on
-     every shape of the step: seeds 4 -> 2, line search S x 3.  K1 / K2,
-     which the step no longer launches, on calls formed from the step's JRS:
-     the FK rotation product of joint 1 and the PZ RNEA through the op-level
-     route a robot with an uncertain centre of mass takes.
+     and must give the same bits, K9 and K2 also under other launch
+     geometries (the same bits again), and K2 and K7-K10 are printed beside
+     their earlier times (PERF.md's kernel history).  K7 / K8 (the solver's
+     rows) on every shape of the step: seeds 4 -> 2, line search S x 3.  K1
+     / K2, which the Kinova's step does not launch, on their own path: one
+     W = 64 planning step of the Kinova with com_uncertainty = 0.05 (the
+     uncertain-COM route of the PZ RNEA, through the op-level kernels),
+     driven with the launch counters set to 0 just before it and read just
+     after, which must launch both; their calls recorded there, plus the FK
+     rotation product of joint 1 formed from the step's JRS (not counted).
   4. planning-step checks and timings: every feasible k passes the plain
      full-set check on the card; the solve with K7 / K8 against the eager
      solve with the plain row versions on the card (same feasible count,
@@ -49,8 +52,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      copies of the move, each with one planted fault (obstacles on the
      links, torque, ultimate bound, joint limit) in every other world, whose
      plain flag must fire there and nowhere else.  K5 runs twice on every
-     one of its four inputs and must give the same bits; it is printed
-     beside its earlier time.  Kernels timed as
+     one of its four inputs and must give the same bits; K5 and K6 are
+     printed beside their earlier times, K6's CUDA-event time beside its
+     device time (calls queued behind busy work, chip_probe.queued_ms).
+     Kernels timed as
      CUDA-event medians of 20, the plain K5 (a launch-bound Python loop of
      ~2M small launches) over one call.
   7. one plan at the rescue profile (strong_config: 8 x 6 iterations, seeds
@@ -114,7 +119,8 @@ ALM_TIE = 1e-5       # an active collision row whose best two candidates are thi
 # the kernels' times before their current designs (PERF.md's kernel history; NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's: ms summed over the step's call shapes
 BEFORE_MS = {"alm_values": "1.464 (6 shapes)", "alm_newton": "2.138 (2 shapes)",
-             "fk_chain": "3.417", "rnea_chain": "7.154", "rollout": "101.253"}
+             "fk_chain": "3.417", "rnea_chain": "7.154", "rollout": "101.253",
+             "oracle_check": "0.259", "pz_cross": "2.073 (4 shapes)"}
 BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "7.168",
                    ("fk_chain", "rescue profile"): "3.814",
                    ("rnea_chain", "real-time path (W = 1)"): "0.440",
@@ -122,6 +128,9 @@ BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "7.168",
 # K9 under other launch geometries (threads per element, elements per block,
 # blocks): each must give the default geometry's bits
 K9_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (256, 1, 528), (32, 8, 17))
+# K2 likewise (a group of three warps takes a component each)
+K2_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (96, 2, 100), (256, 1, 528), (32, 8, 17))
+COM_UNCERTAINTY = 0.05   # the uncertain-COM route (tests/test_torch_reachsets.py)
 
 
 def fail(msg: str) -> None:
@@ -617,6 +626,27 @@ def check_k9_geometries(inputs) -> str:
             f"{[g[:2] for g in K9_GEOMETRIES]}")
 
 
+def check_k2_geometries(inputs) -> str:
+    """K2 under K2_GEOMETRIES against its default geometry: the same bits,
+    or the run fails."""
+    from armour_tpu_torch.kernels import pz as kpz
+
+    a, b, basis, slop = inputs
+    ref = kpz.cross(a, b, basis, slop)
+    default = kpz.k2_geometry
+    try:
+        for G, NG, grid in K2_GEOMETRIES:
+            kpz.k2_geometry = lambda *x, g=kpz.ChainGeometry(G, NG, grid), **k: g
+            got = kpz.cross(a, b, basis, slop)
+            if not all(torch.equal(getattr(got, f), getattr(ref, f))
+                       for f in ("coef", "egen", "rad")):
+                fail(f"K2 with G={G} NG={NG} grid={grid} differs from its default geometry")
+    finally:
+        kpz.k2_geometry = default
+    return (f"the same bits under {len(K2_GEOMETRIES)} other geometries "
+            f"{[g[:2] for g in K2_GEOMETRIES]}")
+
+
 def check_chain_captures(captured, dev, label) -> None:
     """K9 / K10 against their plain versions on every shape recorded on a
     path other than the main one, both timed; fails on a mismatch."""
@@ -640,29 +670,49 @@ def check_chain_captures(captured, dev, label) -> None:
         fail(f"K9 / K10 disagree with their plain versions on the {label}")
 
 
-def op_kernel_inputs(jrs, robot, cfg, basis):
-    """Phase 3's K1 / K2 calls, formed from the step's JRS at the flagship
-    shapes: the FK rotation product of the second joint (fk_r = R_0, the
-    chain's carry after the first joint up to its slop, times R_1), and the
-    PZ RNEA through the op-level route a robot with an uncertain centre of
-    mass takes (its rotations and cross products).  Returns the recorded
-    calls."""
+def uncertain_com_path(jrs, robot, cfg, obs_args, dev):
+    """K1 / K2's path: one W = 64 planning step of the Kinova with
+    com_uncertainty = COM_UNCERTAINTY, whose PZ RNEA takes the op-level
+    route (rotations by K1, PZ x PZ crosses by K2).  A warm-up step records
+    the calls; the launch counters are set to 0 just before the counted step
+    and read just after, and both kernels must have launched.  Then the FK
+    rotation product of the second joint (fk_r = R_0, times R_1) is formed
+    from the step's JRS for K1's comparison, outside the count.  Returns
+    (recorded calls, K1 / K2 launches, device launches, step ms)."""
     import dataclasses
 
-    from armour_tpu_torch import dynamics, kernels
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.planner import make_batch_planner
     from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.utils.timing import wall_s
 
+    robot_c = dataclasses.replace(robot, com_uncertainty=COM_UNCERTAINTY)
+    step_c = make_batch_planner(robot_c, cfg)
+    with kernels.capture() as rec:
+        wall_s(lambda: step_c(*obs_args), dev)
+    kernels.reset_counts()
+    t, res = wall_s(lambda: step_c(*obs_args), dev)
+    counts, dcounts = kernels.counts(), kernels.device_counts()
+    launches = {k: counts[k] for k in OP_KERNELS}
+    print(f"phase 3: uncertain-COM path (com_uncertainty {COM_UNCERTAINTY}): W={N_WORLDS} "
+          f"planning step {t * 1e3:.1f} ms, {int(res.feasible.sum())}/{N_WORLDS} feasible; "
+          f"launches {counts}")
+    for name in OP_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the uncertain-COM path")
     R = jrs.R
     r0 = bpz.BPZ(coef=R.coef[:, :, 0], egen=R.egen[:, :, 0], rad=R.rad[:, :, 0])
     r1 = bpz.BPZ(coef=R.coef[:, :, 1], egen=R.egen[:, :, 1], rad=R.rad[:, :, 1])
-    robot_c = dataclasses.replace(robot, com_uncertainty=0.05)
-    with kernels.capture() as rec:
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    with kernels.capture() as fk:
         bpz.matmul_linear_right(r0, r1, basis, cfg.float_slop)
-        dynamics.rnea_pz_sets(jrs, robot_c, cfg, basis)
+    rec = {k: v for k, v in rec.items() if k[0] in OP_KERNELS}
+    rec.update(fk)
     if not any(k[0] == "pz_matmul_linear" for k in rec) or not any(k[0] == "pz_cross"
                                                                     for k in rec):
-        fail("the op-level route recorded no K1 / K2 call")
-    return dict(rec)
+        fail("the uncertain-COM path recorded no K1 / K2 call")
+    return rec, launches, {k: dcounts[k] for k in OP_KERNELS}, t * 1e3
 
 
 REPLACES = {
@@ -678,8 +728,7 @@ REPLACES = {
     "rnea_chain": ("armour_tpu_torch/csrc/rnea_chain.cu", "armour_tpu/dynamics.py:160"),
 }
 # the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
-# only the uncertain-COM route and are held in phase 3 on inputs formed
-# from the step's JRS
+# only the uncertain-COM route, which phase 3 drives as their own path
 STEP_KERNELS = ("build_hyperplanes", "collision_rows", "alm_newton", "alm_values",
                 "fk_chain", "rnea_chain")
 OP_KERNELS = ("pz_matmul_linear", "pz_cross")
@@ -725,6 +774,8 @@ def kernel_phase(captured, launches, device_launches, dev):
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB")
         if name == "fk_chain":
             print(f"  {name} {key}: {check_k9_geometries(inputs)}")
+        elif name == "pz_cross":
+            print(f"  {name} {key}: {check_k2_geometries(inputs)}")
         all_ok &= ok
     out = []
     for name in PLANNING_KERNELS:
@@ -1017,7 +1068,10 @@ def check_oracles(robot, cfg, inp, dev):
     def plain():
         return tsim.oracle_check_plain(robot, cfg, logs, obs)
 
+    from chip_probe import queued_ms
+
     ms = median_ms(kern, dev, TIMING_ITERS)
+    dev_ms = queued_ms(kern, dev)
     pms = median_ms(plain, dev, TIMING_ITERS)
     # the function's work on the recorded move: FK once per logged state
     # (7 joint steps of 111 + one link centre of 18 per link), obstacle axes
@@ -1031,8 +1085,10 @@ def check_oracles(robot, cfg, inp, dev):
     fk, ok_ = kern()
     nbytes = _nbytes(*logs.values(), obs.centers, obs.generators, obs.mask, fk, ok_)
     print(f"  oracle_check: {axes_needed} axis tests over {n_real} real triples on the "
-          f"logged move; kernel {ms:.4f} ms, plain {pms:.2f} ms (medians of {TIMING_ITERS})")
-    return all_ok, float(err), ms, pms, nbytes, flops
+          f"logged move; kernel {ms:.4f} ms of CUDA-event time (before: "
+          f"{BEFORE_MS['oracle_check']} ms), {dev_ms:.4f} ms of device time a call "
+          f"(chip_probe.queued_ms), plain {pms:.2f} ms (medians of {TIMING_ITERS})")
+    return all_ok, float(err), ms, pms, nbytes, flops, dev_ms
 
 
 def clock_mhz() -> float:
@@ -1106,7 +1162,8 @@ def closed_loop_kernel_rows(robot, cfg, launches, inputs, dev):
     Wn, n, _ = inp["q_des"].shape
     flops5, serial5 = k5_work(robot, n, Wn, inp["substeps"], inp["noise"] is not None,
                               clock_mhz())
-    ok6, err6, ms6, pms6, bytes6, flops6 = check_oracles(robot, cfg, inputs["oracle_check"], dev)
+    ok6, err6, ms6, pms6, bytes6, flops6, dev6 = check_oracles(robot, cfg,
+                                                               inputs["oracle_check"], dev)
     rows = []
     for name, err, ms, pms, nbytes, flops in (("rollout", err5, ms5, pms5, bytes5, flops5),
                                                ("oracle_check", err6, ms6, pms6, bytes6, flops6)):
@@ -1121,6 +1178,8 @@ def closed_loop_kernel_rows(robot, cfg, launches, inputs, dev):
                "compared_inputs": 4 if name == "rollout" else 5}
         if name == "rollout":
             row["serial_chain_ms"] = serial5
+        else:
+            row["device_ms"] = dev6
         rows.append(row)
     print(f"  K5 bound: {flops5 / 1e9:.3f} GFLOP -> {rows[0]['bound_ms']:.4f} ms at 67 TFLOP/s; "
           f"serial-chain estimate {serial5:.3f} ms (the row's bound_ms is the operations bound)")
@@ -1503,11 +1562,13 @@ def main() -> None:
 
     # ---- phase 3: kernels against their plain versions ----
     jrs64 = next(v[0] for k, v in captured.items() if k[0] == "rnea_chain")
-    captured.update(op_kernel_inputs(jrs64, robot, cfg, basis))
+    op_rec, op_launches, op_device, t_com = uncertain_com_path(
+        jrs64, robot, cfg, (q0, qd0, qdd0, q_des, obs), dev)
+    captured.update(op_rec)
     print(f"phase 3: {len(captured)} recorded kernel calls against their plain versions "
-          f"(K1 / K2 on the FK product of joint 1 and the uncertain-COM RNEA route over the "
-          f"step's JRS)")
-    krows = kernel_phase(captured, launches, device_launches, dev)
+          f"(K1 / K2 on the uncertain-COM path's calls and the FK product of joint 1)")
+    krows = kernel_phase(captured, {**launches, **op_launches},
+                         {**device_launches, **op_device}, dev)
     captured.clear()
 
     # ---- phase 4: results and timings ----
@@ -1600,6 +1661,7 @@ def main() -> None:
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
             "latency_batch1_p50_ms": p50 * 1e3, "latency_batch1_p99_ms": p99 * 1e3,
+            "uncertain_com_step_ms": t_com,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown,
             **solve_cmp, **realtime, **contain, **entry}

@@ -403,6 +403,59 @@ def test_oracles_match_jax():
     assert int(t_overlaps.sum()) > 0
 
 
+def test_oracles_match_jax_on_degenerate_axes():
+    """The two branches of the separating-axis test that kernel K6 keeps:
+    obstacles with a zero generator (its axis becomes the coordinate axis,
+    half extent 0) and link axes parallel to obstacle axes (link frames at
+    q = 0 are axis-aligned, as are these boxes), where a cross-product axis
+    has norm <= 1e-9 and is skipped.  Flags and overlap counts equal the
+    JAX oracles'."""
+    rng = np.random.default_rng(11)
+    W, n = 3, 6
+    q = np.zeros((W, n, 7))
+    q[:, n // 2:] = Q0 + rng.normal(0, 0.1, (W, n - n // 2, 7))
+    zeros = np.zeros_like(q)
+    logs = {"q": q, "qd": zeros, "u": zeros, "q_des": q.copy(), "qd_des": zeros}
+    _, _, link_c = jrn.forward_kinematics(J_ROBOT, jnp.zeros(7))
+    link_c = np.asarray(link_c)
+    obs_j, obs_t = [], []
+    for w in range(W):
+        h = rng.uniform(0.03, 0.1, (4, 3))
+        h[:, w] = 0.0                                   # a zero generator: axis w
+        gens = np.stack([np.diag(x) for x in h])
+        offsets = np.array([[0.0, 0.0, 0.0], [0.02 * (w + 1), 0.0, 0.0], [0.0, 0.3, 0.0],
+                            [0.6, 0.6, 0.6]])
+        centers = link_c[2 * w + 1] + offsets
+        obs_j.append(j_pad(centers, gens, J_CFG.max_obstacles, jnp.float64))
+        obs_t.append(pad_obstacles(centers, gens, T_CFG.max_obstacles, torch.float64))
+    obs = stack_obstacles(obs_t)
+    # a cross axis of norm <= 1e-9 occurs: link axis x obstacle axis at q = 0
+    R_w, _, _ = trn.forward_kinematics(T_ROBOT, _t(q[:, 0]))
+    axes, half = tsim.obstacle_axes_halves(obs.generators)
+    link_axes = R_w.transpose(-1, -2)[:, :, None, :, None, :]      # [W, J, 1, 3, 1, 3]
+    obs_axes = axes.transpose(-1, -2)[:, None, :, None, :, :]      # [W, 1, O, 1, 3, 3]
+    cross = torch.linalg.cross(*torch.broadcast_tensors(link_axes, obs_axes), dim=-1)
+    assert float(torch.linalg.vector_norm(cross[:, :, :4], dim=-1).min()) <= 1e-9
+    assert bool((half[:, :4] == 0).any(-1).all())
+    t_flags, t_overlaps = tsim.oracle_check_plain(
+        T_ROBOT, T_CFG, {k: _t(v) for k, v in logs.items()}, obs)
+    j_check = jsim.make_oracles(J_ROBOT, J_CFG)
+    for w in range(W):
+        want = j_check({k: jnp.asarray(v[w]) for k, v in logs.items()}, obs_j[w])
+        for j, name in enumerate(tsim.ORACLE_FLAGS):
+            assert bool(t_flags[w, j]) == bool(want[name]), (w, name)
+        R_j, _, centers = jrn.forward_kinematics(J_ROBOT, jnp.asarray(q[w]))
+        axes_j, half_j = jsim.obstacle_axes_halves(obs_j[w].generators)
+        sep = jsim.obb_obb_separated(
+            centers[:, :, None], R_j[:, :, None],
+            jnp.broadcast_to(jnp.asarray(J_ROBOT.link_generators)[None, :, None],
+                             centers[:, :, None].shape),
+            obs_j[w].centers[None, None], axes_j[None, None], half_j[None, None])
+        assert int(t_overlaps[w]) == int(np.sum(~np.asarray(sep) & np.asarray(obs_j[w].mask)))
+    assert 0 < int(t_overlaps.sum()) < W * n * 7 * 4
+    assert bool(t_flags[:, 0].all())
+
+
 def test_oracle_detects_rotated_obstacle_collision():
     """A rotated slab that overlaps a link only through its off-diagonal
     generators is a collision; the same slab far away is not."""

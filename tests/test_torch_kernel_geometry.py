@@ -1,22 +1,24 @@
-"""Launch geometry of kernels K5 (rollout), K7 (alm_newton), K8
-(alm_values), K9 (fk_chain) and K10 (rnea_chain), pure Python on the CPU: every row,
-query, seed, chain and element is covered exactly once,
+"""Launch geometry of kernels K2 (pz_cross), K5 (rollout), K6
+(oracle_check), K7 (alm_newton), K8 (alm_values), K9 (fk_chain) and K10
+(rnea_chain), pure Python on the CPU: every row, query, seed, chain,
+element and (world, logged step, link, obstacle) is covered exactly once,
 the grid reaches 2 x 132 CTAs wherever the work allows, and the shared
 memory each block asks for fits the H100 (227 KB a block, 228 KB an SM), so
 that a launch the card would refuse shows up here.  The Python mirrors of
 the kernels' shared-memory formulas are held against the constants of the
 CUDA sources.
 
-The last five tests run K5, K7, K8, K9 and K10 against their plain versions
-on the card (marked cuda; they skip where there is none)."""
+The last seven tests run K2, K5, K6, K7, K8, K9 and K10 against their plain
+versions on the card (marked cuda; they skip where there is none)."""
 
+import dataclasses
 import re
 
 import numpy as np
 import pytest
 import torch
 
-from armour_tpu_torch.kernels import build, reach, sim as ksim, solver as ks
+from armour_tpu_torch.kernels import build, pz as kpz, reach, sim as ksim, solver as ks
 
 SMS = 132
 BLOCK_SMEM = 232448
@@ -207,14 +209,14 @@ def test_k10_grid_fills_the_card(Wn):
         # one element per block, eight warps each: W = 1 spreads over the card
         assert geo.NG == 1 and geo.grid == n and geo.G == 256
     # the persistent grid never asks for more blocks than the card holds at once
-    per_sm = reach.SM_SMEM // (reach.k10_smem(LD, LDL, geo.NG) + reach.BLOCK_SMEM_RESERVED)
+    per_sm = kpz.SM_SMEM // (reach.k10_smem(LD, LDL, geo.NG) + kpz.BLOCK_SMEM_RESERVED)
     assert per_sm >= 1 and geo.grid <= SMS * per_sm
 
 
 def test_k10_shared_memory_fits():
     ops, k10 = _source("pz_ops.cuh"), _source("rnea_chain.cu")
-    assert _define(ops, "PZ_TAB_BYTES") == reach.PZ_TAB_BYTES
-    assert _define(ops, "PZ_MAXMASS") == reach.PZ_MAXMASS
+    assert _define(ops, "PZ_TAB_BYTES") == kpz.PZ_TAB_BYTES
+    assert _define(ops, "PZ_MAXMASS") == kpz.PZ_MAXMASS
     assert 3 * _define(k10, "K10_SLOTS") + 3 * _define(k10, "K10_TEMPS") == reach.K10_ENTRIES
     assert LDL == 52 and LDL % 4 == 0
     # up to K10_THREADS threads a block, three blocks an SM
@@ -223,7 +225,7 @@ def test_k10_shared_memory_fits():
     for NG in (1, 2, 4):
         assert reach.k10_smem(LD, LDL, NG) <= BLOCK_SMEM
     # four warps a block, three blocks an SM at the flagship widths
-    assert 3 * (reach.k10_smem(LD, LDL, 4) + reach.BLOCK_SMEM_RESERVED) <= reach.SM_SMEM
+    assert 3 * (reach.k10_smem(LD, LDL, 4) + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
 
 
 K9_WORLDS = [1, 4, 64, 512]
@@ -253,14 +255,14 @@ def test_k9_grid_fills_the_card(Wn):
     if n >= 8 * SMS:
         # a warp per element, eight a block, two blocks an SM
         assert geo.G == 32 and geo.NG == 8 and geo.grid == 2 * SMS
-    per_sm = reach.SM_SMEM // (reach.k9_smem(LD, LDL, geo.NG) + reach.BLOCK_SMEM_RESERVED)
+    per_sm = kpz.SM_SMEM // (reach.k9_smem(LD, LDL, geo.NG) + kpz.BLOCK_SMEM_RESERVED)
     assert per_sm >= 1 and geo.grid <= SMS * per_sm
 
 
 def test_k9_shared_memory_fits():
     ops, k9 = _source("pz_ops.cuh"), _source("fk_chain.cu")
-    assert _define(ops, "PZ_TAB_BYTES") == reach.PZ_TAB_BYTES
-    assert _define(ops, "PZ_MAXMASS") == reach.PZ_MAXMASS
+    assert _define(ops, "PZ_TAB_BYTES") == kpz.PZ_TAB_BYTES
+    assert _define(ops, "PZ_MAXMASS") == kpz.PZ_MAXMASS
     assert 3 * _define(k9, "K9_SLOTS") + 3 == reach.K9_ENTRIES
     assert _define(k9, "K9_THREADS") == reach.K9_THREADS
     assert _define(k9, "K9_MAXJ") == reach.MAX_J
@@ -268,13 +270,188 @@ def test_k9_shared_memory_fits():
     assert re.search(r"__launch_bounds__\(K9_THREADS, 2\)", k9)
     for NG in range(1, reach.K9_THREADS // 32 + 1):
         assert reach.k9_smem(LD, LDL, NG) <= BLOCK_SMEM
-    assert 2 * (reach.k9_smem(LD, LDL, 8) + reach.BLOCK_SMEM_RESERVED) <= reach.SM_SMEM
+    assert 2 * (reach.k9_smem(LD, LDL, 8) + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
     # past 48 KB a launch needs the opt-in: it is asked for on every launch,
     # whatever the size (a conditional opt-in was K7's cudaError 1)
     launch = k9[k9.index('extern "C" int k9_launch'):]
     assert re.search(r"\n  cudaError_t err = cudaFuncSetAttribute\(k9_kernel, "
                      r"cudaFuncAttributeMaxDynamicSharedMemorySize", launch)
     assert reach.k9_smem(LD, LDL, 8) > 48 * 1024
+
+
+K6_WORLDS = [1, 4, 64, 512]
+N_LOG, O_MAX = 500, 40         # logged steps of a closed-loop move, obstacles
+
+
+@pytest.mark.parametrize("Wn", K6_WORLDS)
+def test_k6_states_and_links_covered_once(Wn):
+    """Every (world, chunk, split) is one block, the chunks cover the logged
+    steps once, and a chunk's split blocks test every (link, real obstacle)
+    pair once between their warps, whatever the number of real obstacles."""
+    geo = ksim.k6_geometry(Wn, N_LOG, SMS)
+    blocks = np.zeros((Wn, geo.chunks, geo.splits), dtype=int)
+    for b in range(geo.grid):
+        w, s0, split = geo.block(b)
+        blocks[w, s0 // ksim.K6_STEPS, split] += 1
+    assert (blocks == 1).all()
+    steps = np.zeros(N_LOG, dtype=int)
+    for c in range(geo.chunks):
+        steps[c * ksim.K6_STEPS:(c + 1) * ksim.K6_STEPS] += 1
+    assert (steps == 1).all() and (geo.chunks - 1) * ksim.K6_STEPS < N_LOG
+    for nobs in (0, 1, 13, O_MAX):
+        pairs = np.zeros((J, max(nobs, 1)), dtype=int)
+        for split in range(geo.splits):
+            for warp in range(ksim.K6_THREADS // 32):
+                for j, k in geo.pairs(split, warp, J, nobs):
+                    pairs[j, k] += 1
+        assert (pairs == (1 if nobs else 0)).all(), nobs
+
+
+@pytest.mark.parametrize("Wn", K6_WORLDS)
+def test_k6_grid_fills_the_card(Wn):
+    geo = ksim.k6_geometry(Wn, N_LOG, SMS)
+    assert 1 <= geo.splits <= ksim.K6_MAXSPLIT
+    assert geo.grid == Wn * geo.chunks * geo.splits
+    if Wn * geo.chunks >= 2 * SMS:
+        assert geo.splits == 1          # no chunk's FK is run twice
+    else:
+        # W = 1: 16 chunks x 16 splits, 256 blocks of 8 warps
+        assert geo.grid >= 2 * SMS or geo.splits == ksim.K6_MAXSPLIT
+    assert geo.grid >= SMS
+
+
+def test_k6_shared_memory_fits():
+    k6 = _source("oracle_check.cu")
+    assert _define(k6, "K6_MAXJ") == ksim.MAXJ
+    assert _define(k6, "K6_STEPS") == ksim.K6_STEPS == 32
+    assert _define(k6, "K6_THREADS") == ksim.K6_THREADS
+    assert _define(k6, "K6_MAXSPLIT") == ksim.K6_MAXSPLIT
+    assert _define(k6, "K6_FRAME") == ksim.K6_FRAME
+    assert _define(k6, "K6_OBS") == ksim.K6_OBS
+    assert ksim.K6_FRAME == 12 + 3 * _define(k6, "K6_AXIS")
+    for O in (0, 1, O_MAX, 1000):
+        assert ksim.k6_smem(O) <= BLOCK_SMEM
+    # four blocks an SM at the flagship's 40 obstacles
+    assert 4 * (ksim.k6_smem(O_MAX) + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
+    launch = k6[k6.index('extern "C" int k6_launch'):]
+    # the opt-in on every launch, whatever the size; the one output buffer
+    # zeroed by one memset before the kernel, which only adds to it
+    assert re.search(r"\n  err = cudaFuncSetAttribute\(k6_kernel, "
+                     r"cudaFuncAttributeMaxDynamicSharedMemorySize", launch)
+    assert launch.count("cudaMemsetAsync(args->out, 0, (size_t)args->W * (8 + 4)") == 1
+    kernel = k6[k6.index("k6_kernel(const K6Args args)"):k6.index('extern "C" int k6_launch')]
+    assert "memset" not in kernel and not re.search(r"flags\[\d\] = 0", kernel)
+
+
+def test_k6_refuses_logs_of_another_width():
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models.kinova import kinova_gen3
+
+    z = torch.zeros(2, 3, 6)
+    saved = ksim._require
+    ksim._require = lambda *a, **k: None      # past the device checks, to the width check
+    try:
+        with pytest.raises(ValueError, match="logs of 6 joints"):
+            ksim.oracle_check(kinova_gen3(), ArmourConfig(), z, z, z, z, z,
+                              torch.zeros(2, 4, 3), torch.zeros(2, 4, 3, 3),
+                              torch.ones(2, 4, dtype=torch.bool))
+    finally:
+        ksim._require = saved
+
+
+K2_ELEMENTS = [128, 4 * 128, 64 * 128, 2 * 64 * 128, 2 * 512 * 128]
+
+
+@pytest.mark.parametrize("n", K2_ELEMENTS)
+def test_k2_elements_covered_once(n):
+    geo = kpz.k2_geometry(n, LD, SMS)
+    seen = np.zeros(n, dtype=int)
+    for b in range(geo.grid):
+        for gi in range(geo.NG):
+            seen[geo.elements(b, gi, n)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", K2_ELEMENTS)
+def test_k2_grid_fills_the_card(n):
+    geo = kpz.k2_geometry(n, LD, SMS)
+    assert geo.G in (32, 64, 256) and geo.G * geo.NG <= kpz.K2_THREADS and geo.NG <= 15
+    if n >= 2 * SMS:
+        assert geo.grid >= 2 * SMS
+    else:
+        assert geo.NG == 1 and geo.grid == n and geo.G == 256
+    if n >= 8 * SMS:
+        # a warp per element, eight a block, two blocks an SM (its registers):
+        # the flagship's 8,192 and 16,384 elements on a grid of 264 blocks
+        assert geo.G == 32 and geo.NG == 8 and geo.grid == 2 * SMS
+    per_sm = kpz.SM_SMEM // (kpz.k2_smem(LD, geo.NG) + kpz.BLOCK_SMEM_RESERVED)
+    assert per_sm >= 1 and geo.grid <= SMS * min(per_sm, kpz.K2_BLOCKS_PER_SM)
+
+
+def test_k2_shared_memory_fits():
+    ops, k2 = _source("pz_ops.cuh"), _source("pz_cross.cu")
+    assert _define(ops, "PZ_TAB_BYTES") == kpz.PZ_TAB_BYTES
+    assert _define(ops, "PZ_MAXMASS") == kpz.PZ_MAXMASS
+    assert _define(k2, "K2_THREADS") == kpz.K2_THREADS
+    assert "__launch_bounds__(K2_THREADS, %d)" % kpz.K2_BLOCKS_PER_SM in k2
+    # the group area: mass scratch and the entries of a, b and the result
+    assert "(4 * PZ_MAXMASS + 9 * ld + 3) / 4 * 4" in k2
+    for NG in range(1, kpz.K2_THREADS // 32 + 1):
+        assert kpz.k2_smem(LD, NG) <= BLOCK_SMEM
+        assert kpz.k2_smem(kpz.MAX_B + kpz.MAX_E + 1, NG) <= BLOCK_SMEM
+    assert 4 * (kpz.k2_smem(LD, 8) + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
+    # past 48 KB a launch needs the opt-in: it is asked for on every launch,
+    # whatever the size (a conditional opt-in was K7's cudaError 1)
+    launch = k2[k2.index('extern "C" int k2_launch'):]
+    assert re.search(r"\n  cudaError_t err = cudaFuncSetAttribute\(k2_kernel, "
+                     r"cudaFuncAttributeMaxDynamicSharedMemorySize", launch)
+    assert kpz.k2_smem(LD, 8) > 48 * 1024
+    # the element loop of K2 is the persistent grid's (ChainGeometry.elements)
+    assert "base += (long long)gridDim.x * NG" in k2
+
+
+def test_k2_strided_views_match_expand():
+    """kernels/pz.py forms each operand's batch strides without
+    Tensor.expand: the same strides wherever a batch dim has more than one
+    element (a broadcast dim has stride 0), for vectors and matrices,
+    broadcast parameter sets and transposed operands."""
+    from armour_tpu_torch.pz.bpz import BPZ
+
+    def mk(shape, Bw=5, Ew=3):
+        return BPZ(coef=torch.zeros(*shape, Bw), egen=torch.zeros(*shape, Ew),
+                   rad=torch.zeros(*shape))
+
+    def expanded(p, bshape, nval):
+        nb = len(bshape)
+        full = [1] * (3 - nb) + list(bshape)
+        ts = (p.coef.expand(*bshape, *p.coef.shape[-nval - 1:]),
+              p.egen.expand(*bshape, *p.egen.shape[-nval - 1:]),
+              p.rad.expand(*bshape, *p.rad.shape[-nval:]))
+        bat = [[s if n > 1 else 0 for s, n in zip([0] * (3 - nb) + list(t.stride()[:nb]), full)]
+               for t in ts]
+        val = [(list(t.stride()[nb:t.dim() - tr]) + [0, 0])[:2] for t, tr in zip(ts, (1, 1, 0))]
+        return bat, val
+
+    cases = [((64, 1, 128, 3), (64, 1, 128, 3), 1), ((64, 1, 128, 3), (2, 1, 3), 1),
+             ((2, 1, 3), (64, 2, 128, 3), 1), ((7, 3), (7, 3), 1), ((3,), (4, 3), 1),
+             ((2, 1, 4, 3, 3), (2, 3, 4, 3, 4), 2), ((5, 3, 3), (3, 2), 2)]
+    for sa, sb, nval in cases:
+        a, b = mk(sa), mk(sb)
+        bshape = kpz._batch_shape(a, b, nval)
+        assert bshape == tuple(torch.broadcast_shapes(sa[:-nval], sb[:-nval]))
+        full = [1] * (3 - len(bshape)) + list(bshape)
+        for p in (a, b):
+            v = kpz._view(p, bshape, nval, "t")
+            bat = [[s if n > 1 else 0 for s, n in zip(list(x), full)] for x in (v.cb, v.eb, v.rb)]
+            assert (bat, [list(v.cv), list(v.ev), list(v.rv)]) == expanded(p, bshape, nval)
+    m = mk((2, 3, 4, 3, 3))
+    t = BPZ(coef=m.coef.transpose(-3, -2), egen=m.egen.transpose(-3, -2),
+            rad=m.rad.transpose(-2, -1))
+    v = kpz._view(t, (2, 3, 4), 2, "t")
+    assert ([list(v.cb), list(v.cv), list(v.rv)]
+            == [expanded(t, (2, 3, 4), 2)[0][0], [5, 15], [1, 3]])
+    with pytest.raises(ValueError, match="broadcast"):
+        kpz._batch_shape(mk((2, 3)), mk((3, 3)), 1)
 
 
 def _card():
@@ -475,3 +652,146 @@ def test_k5_matches_its_plain_version_on_the_card():
         assert float((got[2] - ref[2]).abs().max()) <= 1e-4
         assert float((got[3] - ref[3]).abs().max()) <= 1e-3
         assert ((got[4] - ref[4]).abs() <= 1e-4 * (ref[4].abs() + 1.0)).all()
+
+
+K6_MARGIN = 1e-5     # m: an overlap whose deciding margin is this close may flip (chip_smoke.py)
+
+
+def _k6_logs(dev, seed=3, Wn=4, N=70, O=12):
+    """Logged states of W worlds (the first third of world 0 at q = 0, so
+    link axes are parallel to the axis-aligned obstacles' and some cross
+    axes vanish), obstacles around the logged link centres, some with a
+    zero generator, a quarter masked out."""
+    from armour_tpu_torch import simulator as tsim
+    from armour_tpu_torch.models.kinova import kinova_gen3
+
+    robot = kinova_gen3()
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-1, 1, (Wn, 1, 7)) + 0.3 * np.linspace(0, 1, N)[None, :, None] \
+        * rng.uniform(-1, 1, (Wn, 1, 7))
+    q[0, :N // 3] = 0.0
+    qd = 0.3 * rng.uniform(-1, 1, (Wn, N, 7))
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32).contiguous()
+
+    _, link_c, _ = tsim._link_boxes(robot, f32(q))
+    centers, gens = np.zeros((Wn, O, 3)), np.zeros((Wn, O, 3, 3))
+    for w in range(Wn):
+        for o in range(O):
+            centers[w, o] = link_c[w, rng.integers(0, N), rng.integers(0, 7)].numpy() \
+                + rng.uniform(-0.3, 0.3, 3)
+            A = np.eye(3) if o % 3 == 0 else np.linalg.qr(rng.standard_normal((3, 3)))[0]
+            h = rng.uniform(0.02, 0.15, 3)
+            h[o % 3] = 0.0 if o % 4 == 1 else h[o % 3]
+            gens[w, o] = A * h[None, :]
+    logs = dict(q=f32(q), qd=f32(qd), u=f32(20 * rng.uniform(-1, 1, (Wn, N, 7))),
+                q_des=f32(q + 1e-3 * rng.standard_normal((Wn, N, 7))),
+                qd_des=f32(qd + 1e-3 * rng.standard_normal((Wn, N, 7))))
+    logs = {k: v.to(dev) for k, v in logs.items()}
+    return robot, logs, f32(centers).to(dev), f32(gens).to(dev), \
+        torch.as_tensor(rng.uniform(size=(Wn, O)) > 0.25).to(dev)
+
+
+@pytest.mark.cuda
+def test_k6_matches_its_plain_version_on_the_card():
+    """Flags identical to oracle_check_plain's and overlap counts equal up
+    to the triples whose deciding margin lies within K6_MARGIN, on logs with
+    vanishing cross axes and zero generators and on copies with a planted
+    fault each (obstacles on the links, torque, ultimate bound, joint
+    limit); the same bits on a second call and under other grid splits."""
+    from armour_tpu_torch import simulator as tsim
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.config import ArmourConfig
+
+    dev = _card()
+    robot, logs, centers, gens, mask = _k6_logs(dev)
+    cfg = ArmourConfig(dtype=torch.float32)
+    Wn, N, _ = logs["q"].shape
+    lim = torch.as_tensor(robot.torque_limits, dtype=torch.float32, device=dev)
+    ub = torch.as_tensor(robot.position_limits_ub, dtype=torch.float32, device=dev)
+    _, link_c, _ = tsim._link_boxes(robot, logs["q"])
+    copies = [(None, logs, centers)]
+    for flag in range(4):
+        x, c = {k: v.clone() for k, v in logs.items()}, centers.clone()
+        if flag == 0:
+            c[1, :3] = link_c[1, N // 2, 2:5]
+        elif flag == 1:
+            x["u"][1] *= 1.01 / float((x["u"][1].abs() / lim).max())
+        elif flag == 2:
+            x["q_des"][1, N // 2, 3] += 1.5 * cfg.ub.qe
+        else:
+            x["q"][1, N // 3, int(torch.argmin(ub))] = ub.min() + 0.01
+        copies.append((flag, x, c))
+    default = ksim.k6_geometry
+    for flag, x, c in copies:
+        obs = ObstacleSet(centers=c, generators=gens, mask=mask)
+        args = (robot, cfg, x["q"], x["qd"], x["u"], x["q_des"], x["qd_des"], c, gens, mask)
+        got = ksim.oracle_check(*args)
+        fp, op = tsim.oracle_check_plain(robot, cfg, x, obs)
+        R_w, link_centers, link_h = tsim._link_boxes(robot, x["q"])
+        axes, half = tsim.obstacle_axes_halves(gens)
+        margin = tsim.sat_margin(link_centers[:, :, :, None], R_w[:, :, :, None],
+                                 link_h[:, None], c[:, None, None], axes[:, None, None],
+                                 half[:, None, None])
+        amb = ((margin.abs() <= K6_MARGIN) & mask[:, None, None]).flatten(1).sum(-1)
+        assert torch.equal(got[0], fp), flag
+        assert bool(((got[1] - op).abs() <= amb).all()), flag
+        if flag is not None:
+            assert bool(fp[1, flag]) and not bool(fp[0, flag])
+        try:
+            for splits in (None, 1, 3, ksim.K6_MAXSPLIT):
+                if splits is not None:
+                    geo = default(Wn, N)
+                    ksim.k6_geometry = lambda *a, g=dataclasses.replace(
+                        geo, splits=splits, grid=Wn * geo.chunks * splits), **k: g
+                again = ksim.oracle_check(*args)
+                assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]), splits
+        finally:
+            ksim.k6_geometry = default
+
+
+@pytest.mark.cuda
+def test_k2_matches_its_plain_version_on_the_card():
+    """Every entry within 1e-5 of the plain version's summed |terms| (the
+    product on |a|, |b|, plus both sides of the overflow), a broadcast
+    parameter-set operand (stride 0) included, and the same bits on a
+    second call and under two other launch geometries."""
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import error_layout, make_basis
+    from armour_tpu_torch.pz.bpz import BPZ
+
+    dev = _card()
+    basis = make_basis(7, 3)
+    Ew = error_layout(basis.nf)["size"]
+    rng = np.random.default_rng(4)
+
+    def rand(shape):
+        coef = rng.standard_normal(shape + (basis.size,)) * 0.3 ** rng.integers(0, 4, basis.size)
+        return BPZ(*(torch.as_tensor(x, dtype=torch.float32).contiguous().to(dev) for x in (
+            coef, 0.01 * rng.standard_normal(shape + (Ew,)), 0.01 * rng.uniform(size=shape))))
+
+    def absp(p):
+        return BPZ(coef=p.coef.abs(), egen=p.egen.abs(), rad=p.rad.abs())
+
+    default = kpz.k2_geometry
+    for sa, sb in (((3, 1, 40, 3), (3, 1, 40, 3)), ((3, 1, 40, 3), (2, 1, 3)),
+                   ((2, 1, 3), (3, 2, 40, 3))):
+        a, b = rand(sa), rand(sb)
+        got = kpz.cross(a, b, basis, 1e-6)
+        ref = bpz.cross_plain(a, b, basis, 1e-6)
+        mag = bpz.bilinear(absp(a), absp(b), bpz._cross_abs_t, bpz._cross_abs, basis, 1e-6,
+                           absprod_t=bpz._cross_abs_t)
+        mag.rad = mag.rad + 2.0 * bpz._cross_abs(a.coef.abs().sum(-1), b.coef.abs().sum(-1))
+        for f in ("coef", "egen", "rad"):
+            assert ((getattr(got, f) - getattr(ref, f)).abs()
+                    <= 1e-5 * (getattr(mag, f).abs() + 1e-6)).all(), (sa, sb, f)
+        try:
+            for geo in (None, kpz.ChainGeometry(96, 2, 7), kpz.ChainGeometry(32, 3, 5)):
+                if geo is not None:
+                    kpz.k2_geometry = lambda *x, g=geo: g
+                again = kpz.cross(a, b, basis, 1e-6)
+                assert all(torch.equal(getattr(got, f), getattr(again, f))
+                           for f in ("coef", "egen", "rad")), (sa, sb, geo)
+        finally:
+            kpz.k2_geometry = default
