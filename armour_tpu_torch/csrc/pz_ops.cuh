@@ -5,10 +5,10 @@
 // from drifting apart.
 //
 // One thread group works on one batch element (a world, parameter set and
-// time step).  A group is a whole block (K1: __syncthreads), one warp
-// (__syncwarp) or a few warps with a named barrier of their own (bar.sync
-// id, n), so that K2, K9 and K10 run several elements per block with no
-// block-wide barrier between their ops; its size is a multiple of 32.  A PZ
+// time step).  A group is one warp (__syncwarp) or a few warps with a named
+// barrier of their own (bar.sync id, n), so that every kernel runs several
+// elements per block with no block-wide barrier between their ops; its size
+// is a multiple of 32.  A PZ
 // entry is packed in shared memory as
 //     [coef 0..B) | egen B..B+E) | rad]       (ld = B + E + 1 floats)
 // and a matrix of entries is a PZMat view: entry (r, c) starts at
@@ -29,8 +29,8 @@
 // calls give the same bits.  Built with -fmad=false and no fast math.
 //
 // The tables of the monomial basis live in constant memory (uploaded once
-// per library by pz_upload_tables) and are copied to shared memory at the
-// start of every block, since threads index them divergently.
+// per library by pz_upload_tables) and are copied to shared memory once a
+// block of a persistent grid, since threads index them divergently.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -134,13 +134,6 @@ __device__ void pz_ctx(PZCtx& c, unsigned char* tab, float* mass, PZGroup g) {
   c.pj = c.pi + PZ_MAXPAIRS;
   c.mass = mass;
   c.g = g;
-}
-
-// Tables and context for a block that is one group (K1).
-__device__ void pz_ctx_init(PZCtx& c, unsigned char* tab, float* mass) {
-  pz_tables_init(tab);
-  PZGroup g = {(int)threadIdx.x, (int)blockDim.x, 0};
-  pz_ctx(c, tab, mass, g);
 }
 
 __device__ __forceinline__ float pz_warp_sum(float v) {
@@ -299,8 +292,16 @@ __device__ __forceinline__ void pz_each(const PZCtx& c, int N, F f) {
   }
 }
 
+// Where entry k of a global operand lies (src(k) of the loaders below): its
+// coefficients (B floats), error generators (E floats) and radius.
+struct PZSrc {
+  const float* c;
+  const float* e;
+  const float* r;
+};
+
 // ---------------------------------------------------------------------------
-// degree <= 1 matrix operands in compact form (K9's and K10's rotations)
+// degree <= 1 matrix operands in compact form (K1's, K9's and K10's rotations)
 // ---------------------------------------------------------------------------
 
 // floats of a compact entry, [coef 0 | coef lin(0..nf) | egen (E) | rad | S | E | A1],
@@ -309,16 +310,14 @@ __host__ __device__ __forceinline__ int pz_lin_ld(int nf, int E) {
   return (nf + E + 5 + 3) / 4 * 4;
 }
 
-// Load n contiguous entries (global coef [n, B], egen [n, E], rad [n]) into
-// compact entries at dst, dst + ldl, ..., with their abs masses taken over
-// every coefficient in pz_mass_loop's order: the same bits as the packed
-// entry would give.  A warp takes MB entries at once with all their
-// coefficients and error generators in flight together, and writes the
-// compact values from its registers.  Ends with the group's barrier.
-template <int MB>
-__device__ __forceinline__ void pz_load_lin_batches(const PZCtx& c, float* dst, int n,
-                                                    const float* coef, const float* egen,
-                                                    const float* rad) {
+// Load the n entries src(0..n) of a global operand into compact entries at
+// dst, dst + ldl, ..., with their abs masses taken over every coefficient
+// in pz_mass_loop's order: the same bits as the packed entry would give.  A
+// warp takes MB entries at once with all their coefficients and error
+// generators in flight together, and writes the compact values from its
+// registers.  Ends with the group's barrier.
+template <int MB, class Src>
+__device__ __forceinline__ void pz_load_lin_batches(const PZCtx& c, float* dst, int n, Src src) {
   constexpr int NB = (PZ_MAXB + 31) / 32, NE = (PZ_MAXE + 31) / 32;
   const int B = c.B, E = c.E, nf = c.nf, ldl = pz_lin_ld(nf, E);
   const int warp = c.g.rank >> 5, nw = c.g.size >> 5, lane = c.g.rank & 31;
@@ -336,16 +335,16 @@ __device__ __forceinline__ void pz_load_lin_batches(const PZCtx& c, float* dst, 
     float cv[MB][NB], ev[MB][NE];
 #pragma unroll
     for (int u = 0; u < MB; ++u) {
-      const long long k = min(k0 + u, n - 1);
+      const PZSrc s = src(min(k0 + u, n - 1));
 #pragma unroll
       for (int t = 0; t < NB; ++t) {
         const int b = lane + 32 * t;
-        cv[u][t] = b < B ? coef[k * B + b] : 0.0f;
+        cv[u][t] = b < B ? s.c[b] : 0.0f;
       }
 #pragma unroll
       for (int t = 0; t < NE; ++t) {
         const int q = lane + 32 * t;
-        ev[u][t] = q < E ? egen[k * E + q] : 0.0f;
+        ev[u][t] = q < E ? s.e[q] : 0.0f;
       }
     }
 #pragma unroll
@@ -372,7 +371,7 @@ __device__ __forceinline__ void pz_load_lin_batches(const PZCtx& c, float* dst, 
       s = pz_warp_sum(s);
       e = pz_warp_sum(e);
       if (lane == 0) {
-        d[1 + nf + E] = rad[k];
+        d[1 + nf + E] = *src(k).r;
         d[2 + nf + E] = s;
         d[3 + nf + E] = e;
       }
@@ -391,23 +390,28 @@ __device__ __forceinline__ void pz_load_lin_batches(const PZCtx& c, float* dst, 
 
 // pz_load_lin_batches with five entries a warp in a group of one or two
 // warps, two in a wider group: the same bits.
-__device__ __forceinline__ void pz_load_lin(const PZCtx& c, float* dst, int n, const float* coef,
-                                            const float* egen, const float* rad) {
-  if (c.g.size <= 64) pz_load_lin_batches<5>(c, dst, n, coef, egen, rad);
-  else pz_load_lin_batches<2>(c, dst, n, coef, egen, rad);
+template <class Src>
+__device__ __forceinline__ void pz_load_lin(const PZCtx& c, float* dst, int n, Src src) {
+  if (c.g.size <= 64) pz_load_lin_batches<5>(c, dst, n, src);
+  else pz_load_lin_batches<2>(c, dst, n, src);
 }
 
-// Load n entries of a strided global operand into packed entries dst, dst +
-// ld, ...: entry k has its coefficients at coef + k cs (B floats), its error
-// generators at egen + k es (E floats) and its radius at rad[k rs].  A warp
-// takes MB entries at once with all their values in flight together, then
-// writes them from its registers.  No barrier at the end: the caller loads
-// all its operands, then syncs the group once.
-template <int MB>
-__device__ __forceinline__ void pz_load_batches(const PZCtx& c, float* dst, int n,
-                                                const float* coef, long long cs,
-                                                const float* egen, long long es,
-                                                const float* rad, long long rs) {
+// pz_load_lin of n contiguous entries (global coef [n, B], egen [n, E], rad [n]).
+__device__ __forceinline__ void pz_load_lin(const PZCtx& c, float* dst, int n, const float* coef,
+                                            const float* egen, const float* rad) {
+  const int B = c.B, E = c.E;
+  pz_load_lin(c, dst, n, [=](int k) {
+    const PZSrc s = {coef + (long long)k * B, egen + (long long)k * E, rad + k};
+    return s;
+  });
+}
+
+// Load the n entries src(0..n) of a global operand into packed entries
+// dst, dst + ld, ...  A warp takes MB entries at once with all their values
+// in flight together, then writes them from its registers.  No barrier at
+// the end: the caller loads all its operands, then syncs the group once.
+template <int MB, class Src>
+__device__ __forceinline__ void pz_load_batches(const PZCtx& c, float* dst, int n, Src src) {
   constexpr int NB = (PZ_MAXB + 31) / 32, NE = (PZ_MAXE + 31) / 32;
   const int B = c.B, E = c.E, ld = c.ld;
   const int warp = c.g.rank >> 5, nw = c.g.size >> 5, lane = c.g.rank & 31;
@@ -415,18 +419,18 @@ __device__ __forceinline__ void pz_load_batches(const PZCtx& c, float* dst, int 
     float cv[MB][NB], ev[MB][NE], rv[MB];
 #pragma unroll
     for (int u = 0; u < MB; ++u) {
-      const long long k = min(k0 + u, n - 1);
+      const PZSrc s = src(min(k0 + u, n - 1));
 #pragma unroll
       for (int t = 0; t < NB; ++t) {
         const int b = lane + 32 * t;
-        cv[u][t] = b < B ? coef[k * cs + b] : 0.0f;
+        cv[u][t] = b < B ? s.c[b] : 0.0f;
       }
 #pragma unroll
       for (int t = 0; t < NE; ++t) {
         const int q = lane + 32 * t;
-        ev[u][t] = q < E ? egen[k * es + q] : 0.0f;
+        ev[u][t] = q < E ? s.e[q] : 0.0f;
       }
-      rv[u] = rad[k * rs];
+      rv[u] = *s.r;
     }
 #pragma unroll
     for (int u = 0; u < MB; ++u) {
@@ -446,37 +450,23 @@ __device__ __forceinline__ void pz_load_batches(const PZCtx& c, float* dst, int 
 
 // pz_load_batches with three entries a warp in a group of one warp, one in
 // a wider group (its warps then load side by side).
+template <class Src>
+__device__ __forceinline__ void pz_load(const PZCtx& c, float* dst, int n, Src src) {
+  if (c.g.size <= 32) pz_load_batches<3>(c, dst, n, src);
+  else pz_load_batches<1>(c, dst, n, src);
+}
+
+// pz_load of n strided entries: entry k has its coefficients at coef + k cs
+// (B floats), its error generators at egen + k es (E floats) and its radius
+// at rad[k rs].
 __device__ __forceinline__ void pz_load(const PZCtx& c, float* dst, int n, const float* coef,
                                         long long cs, const float* egen, long long es,
                                         const float* rad, long long rs) {
-  if (c.g.size <= 32) pz_load_batches<3>(c, dst, n, coef, cs, egen, es, rad, rs);
-  else pz_load_batches<1>(c, dst, n, coef, cs, egen, es, rad, rs);
+  pz_load(c, dst, n, [=](int k) {
+    const PZSrc s = {coef + k * cs, egen + k * es, rad + k * rs};
+    return s;
+  });
 }
-
-// The a operand of pz_matmul_linear_t: packed entries, masses from pz_masses
-// (mass of entry (i, j) at mass[4 (i m + j)]).
-struct PZDenseA {
-  PZMat v;
-  const float* mass;
-  int m;
-  __device__ const float* ent(int i, int j) const { return pz_at(v, i, j); }
-  __device__ float c0(const PZCtx&, const float* e) const { return e[0]; }
-  // coefficient 0 and the linear ones: k[0] = coef 0, k[1 + f] = coef lin(f)
-  __device__ void coefs(const PZCtx& c, const float* e, float* k) const {
-    k[0] = e[0];
-#pragma unroll
-    for (int f = 0; f < PZ_MAXNF; ++f) k[1 + f] = f < c.nf ? e[c.lin[f]] : 0.0f;
-  }
-  __device__ float eg(const PZCtx&, const float* e, int x) const { return e[x]; }
-  __device__ float rad(const PZCtx& c, const float* e) const { return e[c.B + c.E]; }
-  __device__ void masses(const PZCtx&, const float*, int i, int j, float& S, float& Ee,
-                         float& A1) const {
-    const int k = 4 * (i * m + j);
-    S = mass[k];
-    Ee = mass[k + 1];
-    A1 = mass[k + 2];
-  }
-};
 
 // The a operand of pz_matmul_linear_t: compact entries (pz_load_lin); entry
 // (i, j) at p + i rs + j cs, so a transpose is a view.
@@ -626,14 +616,6 @@ __device__ void pz_matmul_linear_t(const PZCtx& c, const A& a, PZMat b, const fl
   });
   pz_sync(c.g);
   pz_slop(c, out, n, p, slop);
-}
-
-// pz_matmul_linear_t with a packed a [n, m].
-__device__ void pz_matmul_linear(const PZCtx& c, PZMat a, PZMat b, PZMat out, int n, int m,
-                                 int p, float slop) {
-  pz_masses(c, a, n, m, b, m, p);
-  const PZDenseA A = {a, c.mass, m};
-  pz_matmul_linear_t(c, A, b, c.mass + 4 * n * m, out, n, m, p, slop);
 }
 
 template <class T>

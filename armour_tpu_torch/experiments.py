@@ -1,5 +1,7 @@
-"""Experiment harness: the batched world suite, its buckets and its results
-file (counterpart of armour_tpu/experiments.py:48-66,135-240,312-385).
+"""Experiment harness: the batched world suite, the hard scenarios, their
+buckets and results files (counterpart of
+armour_tpu/experiments.py:48-66,135-240,312-385 and
+scripts/run_hard_scenarios.py).
 
     python3 -m armour_tpu_torch.experiments [world_dir] [n_worlds] [results.json]
         [mode] [--seed S] [--device cpu|cuda] [--trace WORLD ...]
@@ -17,6 +19,18 @@ recording the calibration in the results' batch_stats.  --trace WORLD (a
 world's file name, repeatable) records that world's every iteration in
 batch_stats["trace"][WORLD] (batch_sim.run_trials_batched's trace).  The
 serial mode of scripts/run_worlds.py is not ported.
+
+mode "hard" runs the 7 hard scenarios (scenarios.all_hard_scenarios) as
+scripts/run_hard_scenarios.py does: one world at a time through run_trial
+with make_planner, the rescue planner, worst-case true parameters
+(sample_true_params at scale 1.0 on one numpy generator seeded 0), EE-RRT*
+guidance (lookahead 0.1, seed i), at most 500 iterations, the results file
+saved after each world
+(never the JAX package's results_hard.json):
+
+    python3 -m armour_tpu_torch.experiments - 0 results_hard_torch.json hard
+
+It ignores world_dir, n_worlds, --seed and --trace.
 """
 
 from __future__ import annotations
@@ -91,6 +105,56 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
               f"{batch_stats.get('rescue_wall_share', 0.0):.3f}", flush=True)
     if results_path:
         save_results(results, results_path, batch_stats=batch_stats)
+    return results
+
+
+def run_hard_world(i: int, world, robot: RobotModel, cfg: ArmourConfig, step, rescue,
+                   rng: np.random.Generator, max_iterations: int = 500, *,
+                   device=None) -> SuiteResult:
+    """Hard scenario i closed loop, as scripts/run_hard_scenarios.py runs
+    each world: its obstacles padded to cfg.max_obstacles, worst-case true
+    parameters (sample_true_params(robot, rng, scale=1.0)), EE-RRT*
+    guidance (lookahead 0.1, seed i),
+    the planners step and rescue (make_planner / make_rescue_planner), at
+    most max_iterations iterations."""
+    from .collision import pad_obstacles
+    from .hlp import EndEffectorRRTStarHLP
+    from .simulator import run_trial, sample_true_params
+
+    obs = pad_obstacles(world.obstacle_centers, world.obstacle_generators, cfg.max_obstacles,
+                        cfg.dtype)
+    tp = sample_true_params(robot, rng, scale=1.0)
+    hlp = EndEffectorRRTStarHLP(world, robot, lookahead=0.1, seed=i)
+    summary = run_trial(world, robot, cfg, step, obs, tp, max_iterations=max_iterations,
+                        hlp=hlp, rescue_step=rescue, device=device)
+    return SuiteResult(world=f"hard_{i}", summary=summary)
+
+
+def run_hard_scenarios(results_path: str = "results_hard_torch.json", *,
+                       device=None) -> List[SuiteResult]:
+    """The 7 hard scenarios, one world at a time (scripts/run_hard_scenarios.py):
+    the Kinova Gen3 in float32, one generator np.random.default_rng(0) for
+    every world's true parameters, 500 iterations at most; the results file
+    is saved after each world."""
+    import torch
+
+    from .models.kinova import kinova_gen3
+    from .planner import make_planner, make_rescue_planner
+    from .scenarios import all_hard_scenarios
+
+    if os.path.basename(results_path) == "results_hard.json":
+        raise ValueError("results_hard.json is the JAX package's record; name another file")
+    robot = kinova_gen3()
+    cfg = ArmourConfig(dtype=torch.float32)
+    step = make_planner(robot, cfg, device=device)
+    rescue = make_rescue_planner(robot, cfg, device=device)
+    rng = np.random.default_rng(0)
+    results = []
+    for i, world in enumerate(all_hard_scenarios(), start=1):
+        res = run_hard_world(i, world, robot, cfg, step, rescue, rng, device=device)
+        results.append(res)
+        print(f"hard scenario {i}: {res.bucket()} iters={res.summary.iterations}", flush=True)
+        save_results(results, results_path)
     return results
 
 
@@ -229,7 +293,8 @@ def main(argv=None) -> None:
     ap.add_argument("world_dir", nargs="?", default="saved_worlds/random")
     ap.add_argument("n_worlds", nargs="?", type=int, default=0)
     ap.add_argument("results", nargs="?", default="results_worlds_torch.json")
-    ap.add_argument("mode", nargs="?", default="batched", choices=("batched", "budget", "serial"))
+    ap.add_argument("mode", nargs="?", default="batched",
+                    choices=("batched", "budget", "serial", "hard"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", action="append", default=[], metavar="WORLD",
@@ -245,6 +310,10 @@ def main(argv=None) -> None:
             print(f"trace {w}: " + json.dumps({k: v for k, v in t.items() if k != "rows"}))
             for r in t["rows"]:
                 print("  " + json.dumps(r))
+        return
+    if args.mode == "hard":
+        results = run_hard_scenarios(args.results, device=args.device)
+        print(json.dumps(summarize(results), indent=1))
         return
     if args.mode == "serial":
         raise SystemExit("mode 'serial' (the per-world loop of scripts/run_worlds.py) is not "

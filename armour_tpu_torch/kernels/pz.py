@@ -1,13 +1,12 @@
 """Launchers of the PZ product kernels K1 (pz_matmul_linear) and K2
 (pz_cross), the basis tables every PZ kernel (K1, K2, K9, K10) reads
-from constant memory, and the persistent-grid geometry K2, K9 and K10
-share.  Called by pz/bpz.py for CUDA tensors only; each launcher checks
-device, dtype, shapes and strides, raises on anything its kernel does not
-take, allocates the outputs with torch.empty and launches on the current
-stream.
+from constant memory, and the persistent-grid geometry they share.  Called
+by pz/bpz.py for CUDA tensors only; each launcher checks device, dtype,
+shapes and strides, raises on anything its kernel does not take, allocates
+the outputs with torch.empty and launches on the current stream.
 
-chain_geometry and k2_geometry are pure Python, so that the CPU tests
-check them."""
+chain_geometry, k1_geometry and k2_geometry are pure Python, so that the
+CPU tests check them."""
 
 from __future__ import annotations
 
@@ -29,6 +28,8 @@ MAX_B, MAX_E, MAX_NF, MAX_PAIRS = 128, 64, 8, 1024
 SM_SMEM = 233472          # bytes of shared memory of one Hopper SM, for all its blocks
 BLOCK_SMEM_RESERVED = 1024  # bytes the runtime keeps per resident block
 PZ_TAB_BYTES, PZ_MAXMASS = 3520, 32          # csrc/pz_ops.cuh
+K1_THREADS = 256          # threads per block of several elements at most (csrc/pz_matmul_linear.cu)
+K1_BLOCKS_PER_SM = 2      # its __launch_bounds__ (128 registers a thread): two blocks an SM
 K2_THREADS = 256          # threads per block of several elements at most (csrc/pz_cross.cu)
 K2_BLOCKS_PER_SM = 2      # its __launch_bounds__ (128 registers a thread): two blocks an SM
 
@@ -61,6 +62,36 @@ def group_size(n: int, sms: int) -> int:
     several; two warps from 2 per SM; eight below that (one element a
     block)."""
     return 32 if n >= 8 * sms else 64 if n >= 2 * sms else 256
+
+
+def lin_ld(nf: int, E: int) -> int:
+    """Floats of a compact degree-1 entry (pz_ops.cuh:pz_lin_ld)."""
+    return -(-(nf + E + 5) // 4) * 4
+
+
+def k1_smem(ld: int, ldl: int, n: int, m: int, NG: int) -> int:
+    """Bytes of shared memory of a K1 block of NG elements of an [n, m] @
+    [m, p] product (pz_matmul_linear.cu:k1_smem): the tables, and per
+    element the mass scratch, a's compact entries (stride ldl) and the
+    packed entries of one column of b and of the result (stride ld)."""
+    floats = 4 * PZ_MAXMASS + n * m * ldl + (m + n) * ld
+    return PZ_TAB_BYTES + 4 * NG * (-(-floats // 4) * 4)
+
+
+def k1_geometry(total: int, ld: int, ldl: int, n: int, m: int,
+                sms: int = H100_SMS) -> ChainGeometry:
+    """K1's geometry: K2's group sizes (a warp per element at the flagship's
+    8,192-16,384 elements), as many elements a block as 256 threads and two
+    blocks' shared memory an SM allow (eight at the flagship widths), fewer
+    until the grid reaches 2 x sms blocks; two blocks an SM, as many as its
+    registers let stay resident."""
+    G = group_size(total, sms)
+    fit = 1
+    while (fit < K1_THREADS // G and K1_BLOCKS_PER_SM * (
+            k1_smem(ld, ldl, n, m, fit + 1) + BLOCK_SMEM_RESERVED) <= SM_SMEM):
+        fit += 1
+    NG = max(1, min(fit, total // (2 * sms)))
+    return chain_geometry(total, G, NG, k1_smem(ld, ldl, n, m, NG), sms, K1_BLOCKS_PER_SM)
 
 
 def k2_smem(ld: int, NG: int) -> int:
@@ -206,47 +237,71 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+_K1_SIGS = {}
+_K1_TYPES = [ctypes.POINTER(K1Args), ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _sig_key(a: BPZ, b: BPZ, *rest):
+    """The operands' shapes and strides and the launch's other arguments:
+    what K1's and K2's views, batch sizes and argument structs depend on."""
+    return tuple((p.coef.shape, p.coef.stride(), p.egen.shape, p.egen.stride(), p.rad.shape,
+                  p.rad.stride()) for p in (a, b)) + rest
+
+
 def matmul_linear(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0,
                   transpose_out: bool = False) -> BPZ:
     """K1: a [.., n, m] @ b [.., m, p] with a of degree <= 1 in k.  With
     transpose_out the result is returned transposed ([.., p, n]), written
-    through strides."""
+    through strides.  As for K2, the shapes are checked and the views,
+    batch sizes and argument struct formed once per signature and kept; a
+    call sets the data pointers and picks the geometry."""
     _check(a, "pz_matmul_linear")
     _check(b, "pz_matmul_linear")
-    n, m = a.rad.shape[-2:]
-    m2, p = b.rad.shape[-2:]
     B, E = a.coef.shape[-1], a.egen.shape[-1]
-    if m != m2 or n > 3 or m > 3 or p > 4:
-        raise ValueError(f"pz_matmul_linear takes [.., n<=3, m<=3] @ [.., m, p<=4], "
-                         f"got {tuple(a.rad.shape)} @ {tuple(b.rad.shape)}")
-    if B != basis.size or b.coef.shape[-1] != B or E > MAX_E or b.egen.shape[-1] != E:
-        raise ValueError("pz_matmul_linear: operand widths do not match the basis")
-    bshape = _batch_shape(a, b, 2)
     dev = a.coef.device
-    if transpose_out:
-        res = BPZ(coef=torch.empty(*bshape, p, n, B, device=dev, dtype=torch.float32),
-                  egen=torch.empty(*bshape, p, n, E, device=dev, dtype=torch.float32),
-                  rad=torch.empty(*bshape, p, n, device=dev, dtype=torch.float32))
-        out = BPZ(coef=res.coef.transpose(-3, -2), egen=res.egen.transpose(-3, -2),
-                  rad=res.rad.transpose(-2, -1))
+    key = _sig_key(a, b, float(slop), bool(transpose_out), dev.index)
+    sig = _K1_SIGS.get(key)
+    if sig is None:
+        n, m = a.rad.shape[-2:]
+        m2, p = b.rad.shape[-2:]
+        if m != m2 or n > 3 or m > 3:
+            raise ValueError(f"pz_matmul_linear takes [.., n<=3, m<=3] @ [.., m, p], "
+                             f"got {tuple(a.rad.shape)} @ {tuple(b.rad.shape)}")
+        if B != basis.size or b.coef.shape[-1] != B or E > MAX_E or b.egen.shape[-1] != E:
+            raise ValueError("pz_matmul_linear: operand widths do not match the basis")
+        bshape = _batch_shape(a, b, 2)
     else:
-        res = out = BPZ(coef=torch.empty(*bshape, n, p, B, device=dev, dtype=torch.float32),
-                        egen=torch.empty(*bshape, n, p, E, device=dev, dtype=torch.float32),
-                        rad=torch.empty(*bshape, n, p, device=dev, dtype=torch.float32))
-    args = K1Args()
-    args.a = _view(a, bshape, 2, "pz_matmul_linear")
-    args.b = _view(b, bshape, 2, "pz_matmul_linear")
-    args.out = _view(out, bshape, 2, "pz_matmul_linear")
-    args.bd, blocks = _bd(bshape)
-    args.n, args.m, args.p = n, m, p
-    args.slop = float(slop)
+        bshape, n, p = sig[0], sig[2], sig[3]
+    shape = (*bshape, p, n) if transpose_out else (*bshape, n, p)
+    res = BPZ(coef=torch.empty(*shape, B, device=dev, dtype=torch.float32),
+              egen=torch.empty(*shape, E, device=dev, dtype=torch.float32),
+              rad=torch.empty(*shape, device=dev, dtype=torch.float32))
+    out = BPZ(coef=res.coef.transpose(-3, -2), egen=res.egen.transpose(-3, -2),
+              rad=res.rad.transpose(-2, -1)) if transpose_out else res
+    if sig is None:
+        args = K1Args()
+        args.a = _view(a, bshape, 2, "pz_matmul_linear")
+        args.b = _view(b, bshape, 2, "pz_matmul_linear")
+        args.out = _view(out, bshape, 2, "pz_matmul_linear")
+        args.bd, total = _bd(bshape)
+        args.n, args.m, args.p = n, m, p
+        args.slop = float(slop)
+        if len(_K1_SIGS) >= 256:
+            _K1_SIGS.clear()
+        sig = _K1_SIGS[key] = (bshape, args, n, p, total,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+    _, args, n, p, total, sms = sig
+    for view, t in ((args.a, a), (args.b, b), (args.out, out)):
+        view.coef, view.egen, view.rad = t.coef.data_ptr(), t.egen.data_ptr(), t.rad.data_ptr()
     record("pz_matmul_linear", (tuple(a.rad.shape), tuple(b.rad.shape), transpose_out),
            (a, b, basis, slop, transpose_out))
-    if blocks:
+    if total:
+        ld, ldl = B + E + 1, lin_ld(basis.nf, E)
+        geo = k1_geometry(total, ld, ldl, n, args.m, sms)
         upload_tables("pz_matmul_linear", "k1_tables", basis, E)
-        fn = launcher("pz_matmul_linear", "k1_launch",
-                      [ctypes.POINTER(K1Args), ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), blocks, B + E + 1, _stream(a.coef))
+        fn = launcher("pz_matmul_linear", "k1_launch", _K1_TYPES)
+        err = fn(ctypes.byref(args), total, ld, ldl, geo.G, geo.NG, geo.grid, _stream(a.coef))
         if err:
             raise RuntimeError(f"pz_matmul_linear launch failed: cudaError {err}")
         launched("pz_matmul_linear")
@@ -271,8 +326,7 @@ def cross(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
     if B != basis.size or b.coef.shape[-1] != B or E > MAX_E or b.egen.shape[-1] != E:
         raise ValueError("pz_cross: operand widths do not match the basis")
     dev = a.coef.device
-    key = tuple((p.coef.shape, p.coef.stride(), p.egen.shape, p.egen.stride(), p.rad.shape,
-                 p.rad.stride()) for p in (a, b)) + (float(slop), dev.index)
+    key = _sig_key(a, b, float(slop), dev.index)
     sig = _K2_SIGS.get(key)
     bshape = sig[0] if sig is not None else _batch_shape(a, b, 1)
     out = BPZ(coef=torch.empty(*bshape, 3, B, device=dev, dtype=torch.float32),

@@ -19,7 +19,7 @@ import torch
 
 from . import H100_SMS, launched, record
 from .build import launcher
-from .pz import (PZ_MAXMASS, PZ_TAB_BYTES, ChainGeometry, chain_geometry, group_size,
+from .pz import (PZ_MAXMASS, PZ_TAB_BYTES, ChainGeometry, chain_geometry, group_size, lin_ld,
                  upload_tables)
 from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
@@ -31,11 +31,6 @@ K9_CONST = -(-(3 * (MAX_J + 1) + 12 * MAX_J) // 4) * 4
 K10_THREADS = 128         # threads per block of several elements (csrc/rnea_chain.cu)
 K10_ENTRIES = 3 * 5 + 3 * 3                  # five carry column slots, three temporaries
 K10_CONST = -(-(3 * (MAX_J + 1) + 3 * MAX_J + 18 * MAX_J * MAX_P) // 4) * 4
-
-
-def lin_ld(nf: int, E: int) -> int:
-    """Floats of a compact degree-1 entry (pz_ops.cuh:pz_lin_ld)."""
-    return -(-(nf + E + 5) // 4) * 4
 
 
 def _group_floats(ld: int, ldl: int, entries: int) -> int:

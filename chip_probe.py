@@ -28,19 +28,30 @@ call by queued_ms, and torch.profiler's split), and the uncertain-centre-
 of-mass route: the PZ RNEA of the step's JRS for the Kinova with
 com_uncertainty = 0.05 (dynamics.rnea_pz_sets, median of 5, with its K1 /
 K2 launches and those of one W = 64 planning step of that robot) and each
-K1 / K2 call shape it makes (median of 20, and its device time), through
-the public launchers alone, so that the same script can time an older
-checkout of the port beside this one on one card, in turns (older, this,
-this, older).  It also prints a digest of every K2, K9 and K10 result's
-bits, of the uncertain-COM torque, and of K6's flags and overlap counts on
-the move and on four copies with planted faults
-(chip_smoke.planted_oracle_inputs), so that two checkouts that must agree
-bit for bit can be held to it; where kernels/pz.py has k2_geometry, K2 also
-runs under the launch geometries of K2_VARIANTS and must give the
+K1 / K2 call shape it makes, with K1's third shape, the transposed FK
+product of joint 1 (matmul_linear_right), formed from the same JRS (median
+of 20, and its device time), through the public launchers alone, so that
+the same script can time an older checkout of the port beside this one on
+one card, in turns (older, this, this, older).  It also prints a digest of
+every K1, K2, K9 and K10 result's bits, of the uncertain-COM torque, and
+of K6's flags and overlap counts on the move and on four copies with
+planted faults (chip_smoke.planted_oracle_inputs), so that two checkouts
+that must agree bit for bit can be held to it; where kernels/pz.py has
+k2_geometry (k1_geometry), K2 (K1) also runs under the launch geometries of
+K2_VARIANTS (K1_VARIANTS), each result's digest printed, and must give the
 default's bits.
 
 Prints the card line and, last, one JSON line of the times.  Needs one
 card; exits non-zero without one.
+
+    python3 chip_probe.py --ops
+
+runs on the CPU (no card): the torch ops that one uncertain-COM RNEA call
+dispatches (dynamics._rnea_loops for the Kinova with com_uncertainty =
+0.05, both parameter sets, the first 4 saved worlds at T = 128), with the
+K1 / K2 calls and everything their plain versions dispatch left out, so
+that what is counted is the glue the card runs around its 63 kernel
+launches; by op name, and without the views (which launch nothing).
 """
 
 from __future__ import annotations
@@ -59,9 +70,11 @@ VARIANTS = {  # (threads per element, elements per block) beside each default
     ("rnea_chain", "W=1"): ((256, 1), (128, 1), (64, 1)),
 }
 K2_VARIANTS = ((32, 4), (64, 2), (96, 2), (128, 1), (256, 1))
+K1_VARIANTS = ((32, 1), (32, 4), (64, 2), (96, 2), (256, 1))
 # the kernels' times before their current designs (PERF.md's kernel history;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-BEFORE_MS = {"oracle_check": "0.259", "pz_cross": "2.073 over its 4 shapes"}
+BEFORE_MS = {"oracle_check": "0.259", "pz_cross": "2.073 over its 4 shapes",
+             "pz_matmul_linear": "2.295 over its 3 shapes"}
 ITERS = 20
 COM_UNCERTAINTY = 0.05     # the uncertain-COM route (tests/test_torch_reachsets.py)
 
@@ -143,7 +156,68 @@ def digest(p) -> str:
     return h.hexdigest()[:16]
 
 
+def count_ops() -> dict:
+    """--ops: the torch ops of one uncertain-COM RNEA call on the CPU, the
+    K1 / K2 calls left out (see the module docstring)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from chip_smoke import scenes
+    from armour_tpu_torch import dynamics
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.jrs import build_jrs
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import make_basis
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.views, self.paused = Counter(), 0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not self.paused:
+                self.ops[func.overloadpacket.__name__] += 1
+                self.views += bool(func.is_view)
+            return func(*args, **(kwargs or {}))
+
+    mode, calls = Count(), Counter()
+
+    def left_out(fn, name):
+        def call(*a, **k):
+            mode.paused += 1
+            calls[name] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                mode.paused -= 1
+        return call
+
+    robot = dataclasses.replace(kinova_gen3(), com_uncertainty=COM_UNCERTAINTY)
+    cfg = ArmourConfig(dtype=torch.float32)
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    q0, qd0, qdd0, _, _ = scenes(robot, cfg, 4)
+    jrs = build_jrs(*(torch.as_tensor(x, dtype=cfg.dtype) for x in (q0, qd0, qdd0)), robot,
+                    cfg, basis)
+    with mode:
+        dynamics._rnea_loops(jrs, robot, cfg, basis, ("nom", "int"),
+                             left_out(bpz.matmul_linear_plain, "pz_matmul_linear"),
+                             left_out(bpz.cross_plain, "pz_cross"))
+    total = sum(mode.ops.values())
+    out = {"torch_ops": total, "views": mode.views, "non_view_ops": total - mode.views,
+           "kernel_calls_left_out": dict(calls), "by_op": dict(mode.ops.most_common())}
+    print(f"uncertain-COM RNEA call (W = 4, T = 128, on the CPU): {total} torch ops "
+          f"({mode.views} views, {total - mode.views} others) beside the kernel calls "
+          f"{dict(calls)}; by op: " + ", ".join(f"{k} {v}" for k, v in mode.ops.most_common()))
+    print(json.dumps(out))
+    return out
+
+
 def main() -> None:
+    if "--ops" in sys.argv[1:]:
+        count_ops()
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
     import armour_tpu_torch  # noqa: F401  (precision pins)
@@ -319,15 +393,35 @@ def times_only(captured, robot, cfg, card, dev) -> None:
     print(json.dumps(out))
 
 
+def _variants(name, kpz, kernels):
+    """(label, geometry function) of every launch geometry K1 (name
+    pz_matmul_linear) or K2 (pz_cross) is also held to, where this checkout
+    has the kernel's geometry function; else none."""
+    if name == "pz_cross" and hasattr(kpz, "k2_geometry"):
+        return "k2_geometry", [
+            (f"G={G} NG={NG}", lambda n, ld, sms=kernels.H100_SMS, G=G, NG=NG:
+             kpz.chain_geometry(n, G, NG, kpz.k2_smem(ld, NG), sms))
+            for G, NG in K2_VARIANTS]
+    if name == "pz_matmul_linear" and hasattr(kpz, "k1_geometry"):
+        return "k1_geometry", [
+            (f"G={G} NG={NG}", lambda t, ld, ldl, n, m, sms=kernels.H100_SMS, G=G, NG=NG:
+             kpz.chain_geometry(t, G, NG, kpz.k1_smem(ld, ldl, n, m, NG), sms))
+            for G, NG in K1_VARIANTS]
+    return None, []
+
+
 def uncertain_com(captured, robot, cfg, basis, args, obs, dev, out) -> None:
     """The uncertain-COM route at W = 64: the K1 / K2 launches of one
     planning step of the Kinova with com_uncertainty = COM_UNCERTAINTY and of
     its RNEA call on the step's JRS, that call timed (median of 5), and each
-    K1 / K2 call shape it makes timed (median of 20, and its device time) with a digest of its
-    result; K2 also under K2_VARIANTS where this checkout has k2_geometry."""
+    K1 / K2 call shape it makes, and K1's transposed FK product of joint 1,
+    timed (median of 20, and its device time) with a digest of its result;
+    K1 and K2 also under K1_VARIANTS / K2_VARIANTS where this checkout has
+    their geometry functions."""
     from armour_tpu_torch import dynamics, kernels
     from armour_tpu_torch.kernels import pz as kpz
     from armour_tpu_torch.planner import make_batch_planner
+    from armour_tpu_torch.pz import bpz
     from armour_tpu_torch.utils.timing import median_ms
 
     robot_c = dataclasses.replace(robot, com_uncertainty=COM_UNCERTAINTY)
@@ -355,6 +449,12 @@ def uncertain_com(captured, robot, cfg, basis, args, obs, dev, out) -> None:
     print(f"uncertain-COM route (com_uncertainty {COM_UNCERTAINTY}), W = 64: "
           f"dynamics.rnea_pz_sets {ms:.3f} ms (median of 5); K1 / K2 launches of the call "
           f"{n_call}, of one planning step {n_step}; digest {digest(u)}")
+    R = jrs.R
+    r0, r1 = (bpz.BPZ(coef=R.coef[:, :, j], egen=R.egen[:, :, j], rad=R.rad[:, :, j])
+              for j in (0, 1))
+    with kernels.capture() as fk:
+        bpz.matmul_linear_right(r0, r1, basis, cfg.float_slop)
+    ops.update(fk)
     for (name, key), inputs in ops.items():
         if name == "pz_matmul_linear":
             a, b, bs, slop, tr = inputs
@@ -373,25 +473,32 @@ def uncertain_com(captured, robot, cfg, basis, args, obs, dev, out) -> None:
         ref = fn()
         out[name][str(key)] = {"event_ms": ms, "device_ms": dev_ms}
         out["digest"][f"{name} {key}"] = digest(ref)
-        note = ""
-        if name == "pz_cross" and hasattr(kpz, "k2_geometry"):
-            default = kpz.k2_geometry
+        attr, variants = _variants(name, kpz, kernels)
+        if variants:
+            default = getattr(kpz, attr)
             try:
-                for G, NG in K2_VARIANTS:
-                    kpz.k2_geometry = (lambda n, ld, sms=kernels.H100_SMS, G=G, NG=NG:
-                                       kpz.chain_geometry(n, G, NG, kpz.k2_smem(ld, NG), sms))
-                    if not same_bits(fn(), ref):
-                        fail(f"K2 {key} with G={G} NG={NG} differs from the default geometry")
+                for label, geo in variants:
+                    setattr(kpz, attr, geo)
+                    got = fn()
+                    out["digest"][f"{name} {key} {label}"] = digest(got)
+                    if not same_bits(got, ref):
+                        fail(f"{name} {key} with {label} differs from the default geometry")
+                    if name == "pz_matmul_linear":
+                        out[name][str(key)][f"device_ms {label}"] = queued_ms(fn, dev)
             finally:
-                kpz.k2_geometry = default
-            note = f"; the same bits under {len(K2_VARIANTS)} other geometries"
+                setattr(kpz, attr, default)
+        note = f"; the same bits under {len(variants)} other geometries" if variants else ""
+        if name == "pz_matmul_linear" and variants:
+            note += " (device ms: " + ", ".join(
+                f"{lb} {out[name][str(key)][f'device_ms {lb}']:.4f}" for lb, _ in variants) + ")"
         print(f"{name} uncertain-COM {key}: {ms:.4f} ms (median of {ITERS}; device "
               f"{dev_ms:.4f} ms a call, queued_ms), digest "
               f"{out['digest'][f'{name} {key}']}{note}")
-    k2 = out["pz_cross"].values()
-    print(f"pz_cross over its {len(k2)} shapes: {sum(v['event_ms'] for v in k2):.4f} ms of "
-          f"CUDA-event time (before: {BEFORE_MS['pz_cross']} ms), "
-          f"{sum(v['device_ms'] for v in k2):.4f} ms of device time")
+    for name in ("pz_matmul_linear", "pz_cross"):
+        k = out[name].values()
+        print(f"{name} over its {len(k)} shapes: {sum(v['event_ms'] for v in k):.4f} ms of "
+              f"CUDA-event time (before: {BEFORE_MS[name]} ms), "
+              f"{sum(v['device_ms'] for v in k):.4f} ms of device time")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port on the card: one full planning step, three
 iterations of the lockstep closed loop, a rescue-profile solve, the
 real-time planner, the containment of sampled true states in the chain
-kernels' sets, and the two entry points plan_from_armour_in and the
-rest-FRS solvability checker.
+kernels' sets, the two entry points plan_from_armour_in and the rest-FRS
+solvability checker, and three iterations of a hard scenario.
 
     python3 chip_smoke.py
 
@@ -20,9 +20,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
      (median of 20 calls, CUDA events); K7, K8, K9 and K10 also run twice
-     and must give the same bits, K9 and K2 also under other launch
-     geometries (the same bits again), and K2 and K7-K10 are printed beside
-     their earlier times (PERF.md's kernel history).  K7 / K8 (the solver's
+     and must give the same bits, K9, K1 and K2 also under other launch
+     geometries (the same bits again), and K1, K2 and K7-K10 are printed
+     beside their earlier times (PERF.md's kernel history).  K7 / K8 (the solver's
      rows) on every shape of the step: seeds 4 -> 2, line search S x 3.  K1
      / K2, which the Kinova's step does not launch, on their own path: one
      W = 64 planning step of the Kinova with com_uncertainty = 0.05 (the
@@ -77,6 +77,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      card, its wall time); make_rest_frs_checker on the card over the
      starts and goals of the 64 worlds and a planted box on a start elbow
      (every margin's sign equal to the plain route's, the planted one > 0).
+  11. a hard scenario: experiments.run_hard_world (the per-world function
+     of the "hard" mode, scripts/run_hard_scenarios.py's settings) on hard_7
+     (reach through a window) for 3 iterations, the launch counters set to 0
+     just before it; every kernel of the step, K5 and K6 must launch, K1 and
+     K2 not, and no safety flag may be raised.
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -120,7 +125,8 @@ ALM_TIE = 1e-5       # an active collision row whose best two candidates are thi
 # 80GB HBM3, 700 W), printed beside this run's: ms summed over the step's call shapes
 BEFORE_MS = {"alm_values": "1.464 (6 shapes)", "alm_newton": "2.138 (2 shapes)",
              "fk_chain": "3.417", "rnea_chain": "7.154", "rollout": "101.253",
-             "oracle_check": "0.259", "pz_cross": "2.073 (4 shapes)"}
+             "oracle_check": "0.259", "pz_cross": "2.073 (4 shapes)",
+             "pz_matmul_linear": "2.295 (3 shapes)"}
 BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "7.168",
                    ("fk_chain", "rescue profile"): "3.814",
                    ("rnea_chain", "real-time path (W = 1)"): "0.440",
@@ -128,8 +134,9 @@ BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "7.168",
 # K9 under other launch geometries (threads per element, elements per block,
 # blocks): each must give the default geometry's bits
 K9_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (256, 1, 528), (32, 8, 17))
-# K2 likewise (a group of three warps takes a component each)
-K2_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (96, 2, 100), (256, 1, 528), (32, 8, 17))
+# K1 and K2 likewise (a group of three warps takes a component each in K2)
+OP_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (96, 2, 100), (256, 1, 528), (32, 8, 17))
+HARD_WORLD, HARD_ITERATIONS = 7, 3   # phase 11
 COM_UNCERTAINTY = 0.05   # the uncertain-COM route (tests/test_torch_reachsets.py)
 
 
@@ -626,25 +633,35 @@ def check_k9_geometries(inputs) -> str:
             f"{[g[:2] for g in K9_GEOMETRIES]}")
 
 
-def check_k2_geometries(inputs) -> str:
-    """K2 under K2_GEOMETRIES against its default geometry: the same bits,
-    or the run fails."""
+def check_op_geometries(name, inputs) -> str:
+    """K1 (name pz_matmul_linear) or K2 (pz_cross) under OP_GEOMETRIES
+    against its default geometry: the same bits, or the run fails."""
     from armour_tpu_torch.kernels import pz as kpz
 
-    a, b, basis, slop = inputs
-    ref = kpz.cross(a, b, basis, slop)
-    default = kpz.k2_geometry
+    if name == "pz_cross":
+        attr, label = "k2_geometry", "K2"
+
+        def call():
+            return kpz.cross(*inputs)
+    else:
+        attr, label = "k1_geometry", "K1"
+        a, b, basis, slop, tr = inputs
+
+        def call():
+            return kpz.matmul_linear(a, b, basis, slop, transpose_out=tr)
+    ref = call()
+    default = getattr(kpz, attr)
     try:
-        for G, NG, grid in K2_GEOMETRIES:
-            kpz.k2_geometry = lambda *x, g=kpz.ChainGeometry(G, NG, grid), **k: g
-            got = kpz.cross(a, b, basis, slop)
+        for G, NG, grid in OP_GEOMETRIES:
+            setattr(kpz, attr, lambda *x, g=kpz.ChainGeometry(G, NG, grid), **k: g)
+            got = call()
             if not all(torch.equal(getattr(got, f), getattr(ref, f))
                        for f in ("coef", "egen", "rad")):
-                fail(f"K2 with G={G} NG={NG} grid={grid} differs from its default geometry")
+                fail(f"{label} with G={G} NG={NG} grid={grid} differs from its default geometry")
     finally:
-        kpz.k2_geometry = default
-    return (f"the same bits under {len(K2_GEOMETRIES)} other geometries "
-            f"{[g[:2] for g in K2_GEOMETRIES]}")
+        setattr(kpz, attr, default)
+    return (f"the same bits under {len(OP_GEOMETRIES)} other geometries "
+            f"{[g[:2] for g in OP_GEOMETRIES]}")
 
 
 def check_chain_captures(captured, dev, label) -> None:
@@ -774,8 +791,8 @@ def kernel_phase(captured, launches, device_launches, dev):
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB")
         if name == "fk_chain":
             print(f"  {name} {key}: {check_k9_geometries(inputs)}")
-        elif name == "pz_cross":
-            print(f"  {name} {key}: {check_k2_geometries(inputs)}")
+        elif name in OP_KERNELS:
+            print(f"  {name} {key}: {check_op_geometries(name, inputs)}")
         all_ok &= ok
     out = []
     for name in PLANNING_KERNELS:
@@ -1486,6 +1503,47 @@ def rest_checker_phase(robot, cfg, args_dev, obs_dev, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# a hard scenario through the "hard" mode's per-world function
+# ---------------------------------------------------------------------------
+
+
+def hard_phase(robot, cfg, dev) -> dict:
+    """Phase 11: experiments.run_hard_world on hard_HARD_WORLD for
+    HARD_ITERATIONS iterations, counted."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.experiments import run_hard_world
+    from armour_tpu_torch.planner import make_planner, make_rescue_planner
+    from armour_tpu_torch.scenarios import hard_scenario
+    from armour_tpu_torch.utils.timing import wall_s
+
+    step, rescue = make_planner(robot, cfg), make_rescue_planner(robot, cfg)
+    kernels.reset_counts()
+    t, res = wall_s(lambda: run_hard_world(HARD_WORLD, hard_scenario(HARD_WORLD), robot, cfg,
+                                           step, rescue, np.random.default_rng(0),
+                                           max_iterations=HARD_ITERATIONS), dev)
+    counts = kernels.counts()
+    s = res.summary
+    flags = {f: getattr(s, f) for f in ("collision", "torque_exceeded",
+                                        "ultimate_bound_exceeded", "joint_limit_exceeded")}
+    print(f"phase 11: {res.world} for {s.iterations} iterations in {t:.1f} s (warm-up "
+          f"included): bucket {res.bucket()}, {s.infeasible_plans} infeasible plans, "
+          f"{s.rescued_plans} rescued, goal distance {s.goal_distance_final:.3f}, flags "
+          f"{flags}; launches {counts}")
+    for name in STEP_KERNELS + ("rollout", "oracle_check"):
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the hard scenario")
+    for name in OP_KERNELS:
+        if counts[name] != 0:
+            fail(f"kernel {name} was launched on the hard scenario")
+    if any(flags.values()):
+        fail(f"{res.world} raised a safety flag: {flags}")
+    if s.iterations != HARD_ITERATIONS or len(s.planning_times) != HARD_ITERATIONS:
+        fail(f"{res.world} ran {s.iterations} iterations, not {HARD_ITERATIONS}")
+    return {"hard_world": res.world, "hard_iterations": s.iterations,
+            "hard_bucket": res.bucket(), "hard_plan_ms": [x * 1e3 for x in s.planning_times]}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1657,6 +1715,9 @@ def main() -> None:
     entry = armour_io_phase(robot, cfg, dev)
     entry.update(rest_checker_phase(robot, cfg, args_dev, obs_dev, dev))
 
+    # ---- phase 11: a hard scenario ----
+    hard = hard_phase(robot, cfg, dev)
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -1664,7 +1725,7 @@ def main() -> None:
             "uncertain_com_step_ms": t_com,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown,
-            **solve_cmp, **realtime, **contain, **entry}
+            **solve_cmp, **realtime, **contain, **entry, **hard}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

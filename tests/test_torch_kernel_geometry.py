@@ -1,4 +1,4 @@
-"""Launch geometry of kernels K2 (pz_cross), K5 (rollout), K6
+"""Launch geometry of kernels K1 (pz_matmul_linear), K2 (pz_cross), K5 (rollout), K6
 (oracle_check), K7 (alm_newton), K8 (alm_values), K9 (fk_chain) and K10
 (rnea_chain), pure Python on the CPU: every row, query, seed, chain,
 element and (world, logged step, link, obstacle) is covered exactly once,
@@ -8,8 +8,8 @@ that a launch the card would refuse shows up here.  The Python mirrors of
 the kernels' shared-memory formulas are held against the constants of the
 CUDA sources.
 
-The last seven tests run K2, K5, K6, K7, K8, K9 and K10 against their plain
-versions on the card (marked cuda; they skip where there is none)."""
+The last eight tests run K1, K2, K5, K6, K7, K8, K9 and K10 against their
+plain versions on the card (marked cuda; they skip where there is none)."""
 
 import dataclasses
 import re
@@ -454,6 +454,65 @@ def test_k2_strided_views_match_expand():
         kpz._batch_shape(mk((2, 3)), mk((3, 3)), 1)
 
 
+# (n, m) of K1's rotation operand a: 3x3 in all three products on its path
+# (its shared memory holds a and one column of b and of the result, so the
+# result's width p does not enter), and smaller ones the kernel also takes
+K1_SHAPES = [(3, 3), (2, 3), (3, 1)]
+
+
+@pytest.mark.parametrize("n", K2_ELEMENTS)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_elements_covered_once(n, shape):
+    geo = kpz.k1_geometry(n, LD, LDL, *shape, SMS)
+    seen = np.zeros(n, dtype=int)
+    for b in range(geo.grid):
+        for gi in range(geo.NG):
+            seen[geo.elements(b, gi, n)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", K2_ELEMENTS)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_grid_fills_the_card(n, shape):
+    geo = kpz.k1_geometry(n, LD, LDL, *shape, SMS)
+    assert geo.G in (32, 64, 256) and geo.G * geo.NG <= kpz.K1_THREADS and geo.NG <= 15
+    if n >= 2 * SMS:
+        assert geo.grid >= 2 * SMS
+    else:
+        assert geo.NG == 1 and geo.grid == n and geo.G == 256
+    if n >= 8 * SMS:
+        # a warp per element, eight a block, two blocks an SM (its registers):
+        # the flagship's 8,192 and 16,384 elements on a grid of 264 blocks
+        assert geo.G == 32 and geo.NG == 8 and geo.grid == 2 * SMS
+    per_sm = kpz.SM_SMEM // (kpz.k1_smem(LD, LDL, *shape, geo.NG) + kpz.BLOCK_SMEM_RESERVED)
+    assert per_sm >= kpz.K1_BLOCKS_PER_SM and geo.grid <= SMS * kpz.K1_BLOCKS_PER_SM
+
+
+def test_k1_shared_memory_fits():
+    k1 = _source("pz_matmul_linear.cu")
+    assert _define(k1, "K1_THREADS") == kpz.K1_THREADS
+    assert "__launch_bounds__(K1_THREADS, %d)" % kpz.K1_BLOCKS_PER_SM in k1
+    # the group area: mass scratch, a compact, one column of b and the result
+    assert "(4 * PZ_MAXMASS + n * m * ldl + (m + n) * ld + 3) / 4 * 4" in k1
+    assert _define(_source("pz_ops.cuh"), "PZ_MAXM") == 3
+    ld_max, ldl_max = kpz.MAX_B + kpz.MAX_E + 1, kpz.lin_ld(kpz.MAX_NF, kpz.MAX_E)
+    for shape in K1_SHAPES:
+        for ld, ldl in ((LD, LDL), (ld_max, ldl_max)):
+            geo = kpz.k1_geometry(64 * 128, ld, ldl, *shape, SMS)
+            assert geo.NG >= 1 and kpz.k1_smem(ld, ldl, *shape, geo.NG) <= BLOCK_SMEM
+            assert kpz.K1_BLOCKS_PER_SM * (kpz.k1_smem(ld, ldl, *shape, geo.NG)
+                                           + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
+    # a's compact entries start 16-byte aligned (PZLinA reads them as float4)
+    assert kpz.PZ_TAB_BYTES % 16 == 0 and LDL % 4 == 0
+    # past 48 KB a launch needs the opt-in: it is asked for on every launch
+    launch = k1[k1.index('extern "C" int k1_launch'):]
+    assert re.search(r"\n  cudaError_t err = cudaFuncSetAttribute\(k1_kernel, "
+                     r"cudaFuncAttributeMaxDynamicSharedMemorySize", launch)
+    assert kpz.k1_smem(LD, LDL, 3, 3, 8) > 48 * 1024
+    # the element loop of K1 is the persistent grid's (ChainGeometry.elements)
+    assert "base += (long long)gridDim.x * NG" in k1
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels are built with nvcc there)")
@@ -795,3 +854,52 @@ def test_k2_matches_its_plain_version_on_the_card():
                            for f in ("coef", "egen", "rad")), (sa, sb, geo)
         finally:
             kpz.k2_geometry = default
+
+
+@pytest.mark.cuda
+def test_k1_matches_its_plain_version_on_the_card():
+    """Every entry within 1e-5 of the plain version's summed |terms| (the
+    product on |a|, |b|), on the forward and backward rotation shapes (a
+    broadcast over parameter sets by a stride of 0) and the transposed FK
+    product, and the same bits on a second call and under two other
+    launch geometries."""
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import error_layout, make_basis
+    from armour_tpu_torch.pz.bpz import BPZ
+
+    dev = _card()
+    basis = make_basis(7, 3)
+    Ew = error_layout(basis.nf)["size"]
+    rng = np.random.default_rng(5)
+
+    def rand(shape):
+        coef = rng.standard_normal(shape + (basis.size,)) * 0.3 ** rng.integers(0, 4, basis.size)
+        return BPZ(*(torch.as_tensor(x, dtype=torch.float32).contiguous().to(dev) for x in (
+            coef, 0.01 * rng.standard_normal(shape + (Ew,)), 0.01 * rng.uniform(size=shape))))
+
+    def absp(p):
+        return BPZ(coef=p.coef.abs(), egen=p.egen.abs(), rad=p.rad.abs())
+
+    def plain(a, b, tr):
+        out = bpz.matmul_linear_plain(a, b, basis, 1e-6)
+        return bpz._transpose_mat(out) if tr else out
+
+    default = kpz.k1_geometry
+    for sa, sb, tr in (((3, 1, 40, 3, 3), (3, 1, 40, 3, 4), False),
+                       ((3, 1, 40, 3, 3), (3, 2, 40, 3, 2), False),
+                       ((3, 40, 3, 3), (3, 40, 3, 3), True)):
+        a, b = rand(sa), rand(sb)
+        got = kpz.matmul_linear(a, b, basis, 1e-6, transpose_out=tr)
+        ref, mag = plain(a, b, tr), plain(absp(a), absp(b), tr)
+        for f in ("coef", "egen", "rad"):
+            assert ((getattr(got, f) - getattr(ref, f)).abs()
+                    <= 1e-5 * (getattr(mag, f).abs() + 1e-6)).all(), (sa, sb, f)
+        try:
+            for geo in (None, kpz.ChainGeometry(96, 2, 7), kpz.ChainGeometry(32, 3, 5)):
+                if geo is not None:
+                    kpz.k1_geometry = lambda *x, g=geo: g
+                again = kpz.matmul_linear(a, b, basis, 1e-6, transpose_out=tr)
+                assert all(torch.equal(getattr(got, f), getattr(again, f))
+                           for f in ("coef", "egen", "rad")), (sa, sb, geo)
+        finally:
+            kpz.k1_geometry = default
