@@ -10,9 +10,12 @@
 //   torque    u = u_coef[row] . phi(k),  c = +-u - hi,  dc/dk = +-u_coef[row] . dphi(k)
 //   collision K4's rule (collision_rows.cu) at the link centre p = center[cell] . phi(k)
 //             of the row's (time, link) cell, plus collision_search_margin
-//   state     the Bezier position / velocity extrema over the whole
-//             trajectory (bezier.py:q_extrema_in_k, qd_extrema_in_k) against
-//             the margin-tightened limits, each row's gradient one entry
+//   state     the position / velocity extrema over the whole trajectory
+//             against the margin-tightened limits, each row's gradient one
+//             entry: the Bezier family's (bezier.py:q_extrema_in_k,
+//             qd_extrema_in_k) or, when armtd is set, the constant-
+//             acceleration family's (armtd.py:armtd_position_extrema,
+//             armtd_velocity_extrema); the family is uniform per launch
 //
 // Every row is clipped at -1e6 (padded rows sit at -BIG) before it meets
 // the multipliers.  The float32 arithmetic repeats the plain PyTorch
@@ -41,7 +44,7 @@ struct AlmArgs {
   const float* delta;               // [W, C, K]
   const int* row;                   // [W, K] (time, link) cell of each screened row
   const unsigned char* mask;        // [W, K] real obstacle
-  const float* traj;                // [W, 5, F]: q0, Tqd0, TTqdd0, k_scale, q_des
+  const float* traj;                // [W, 5, F]: q0, Tqd0 (ARMTD: qd0), TTqdd0, k_scale, q_des
   const float* limits;              // [3, F]: pos_lb, pos_ub, vel_ub, margin-tightened
   const unsigned char* continuous;  // [F]
   const float* k;                   // [W, Q, F] query points
@@ -55,12 +58,15 @@ struct AlmArgs {
   float* H;                         // K7 [W, Q, F, F] or null
   float* c;                         // K8 [W, Q, M] or null
   int W, Q, S, M, TF, TJ, C, K, B, F;
+  int armtd;                        // 1: the constant-acceleration family
   float cost_scale;                 // cfg.cost_scale
-  float kw;                         // d q_plan / d k_actual at t_plan
+  float kw;                         // d q_plan / d k_actual at t_plan (ARMTD: 0.5 tp^2)
   float qb0, qb1, qb2, qb3;         // q_des's Bernstein weights at t_plan (b3+b4+b5 last)
   float two_pi, pi;                 // the wrap's constants, as float32
   float inv_dur;                    // 1 / duration
   float thr_torque, thr_col, thr_state, col_margin;
+  float tp, dts;                    // ARMTD: t_plan and duration - t_plan
+  float g_tp, g_ts;                 // ARMTD: dq/dk_actual at t_plan and at duration
   unsigned char degs[ALM_MAX_B * ALM_MAX_F];   // [B, F] monomial degrees
 };
 
@@ -270,10 +276,66 @@ __device__ __forceinline__ void alm_select(const float* v, const float* gr, cons
   *ghi = gr[ihi];
 }
 
+// The ARMTD family's 8 state rows (armtd.py:armtd_position_extrema,
+// armtd_velocity_extrema, operation for operation): position candidates
+// q0, q(t_plan), q(duration) and the phase-1 vertex at t* = -qd0 / k_act
+// where it lies in (0, t_plan); velocity candidates qd0, the peak qd0 + k_act
+// t_plan and 0, already in rad/s (no 1 / duration).  traj's row 1 holds qd0.
+__device__ void alm_armtd_state_rows(const AlmArgs& a, int w, int f, float kf, float* c,
+                                     float* jf) {
+  const int F = a.F;
+  const float* tr = a.traj + (long long)w * 5 * F;
+  const float q0 = tr[f], qd0 = tr[F + f], kr = tr[3 * F + f];
+  const float tp = a.tp;
+  const float ka = kf * kr;
+  const float qd_pk = qd0 + ka * tp;
+  float v[4], gr[4], lo, hi, glo, ghi;
+  bool in[4] = {true, true, true, false};
+
+  v[0] = q0;
+  v[1] = (q0 + qd0 * tp) + ((0.5f * ka) * tp) * tp;
+  v[2] = v[1] + (0.5f * qd_pk) * a.dts;
+  const bool nonzero = fabsf(ka) > 1e-12f;
+  const float ts = nonzero ? (-qd0) / ka : -1.0f;
+  v[3] = (q0 + qd0 * ts) + ((0.5f * ka) * ts) * ts;
+  in[3] = (0.0f < ts) && (ts < tp);
+  gr[0] = 0.0f;
+  gr[1] = a.g_tp;
+  gr[2] = a.g_ts;
+  gr[3] = (0.5f * ts) * ts;
+  alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
+  const float lb = a.limits[f], ub = a.limits[F + f];
+  float gl = glo * kr, gh = ghi * kr;
+  c[0] = lb - lo;  jf[0] = -gl;
+  c[1] = lo - ub;  jf[1] = gl;
+  c[2] = lb - hi;  jf[2] = -gh;
+  c[3] = hi - ub;  jf[3] = gh;
+
+  v[0] = qd0;
+  v[1] = qd_pk;
+  v[2] = 0.0f;
+  gr[0] = 0.0f;
+  gr[1] = tp;
+  gr[2] = 0.0f;
+  in[3] = false;
+  alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
+  const float vub = a.limits[2 * F + f];
+  gl = glo * kr;
+  gh = ghi * kr;
+  c[4] = -vub - lo;  jf[4] = -gl;
+  c[5] = lo - vub;   jf[5] = gl;
+  c[6] = -vub - hi;  jf[6] = -gh;
+  c[7] = hi - vub;   jf[7] = gh;
+}
+
 // The 8 state rows of factor f at k_f: c[8] in the stack's order
 // (pos_min lo/hi, pos_max lo/hi, vel_min lo/hi, vel_max lo/hi) and the one
 // non-zero gradient entry of each, jf[8].
 __device__ void alm_state_rows(const AlmArgs& a, int w, int f, float kf, float* c, float* jf) {
+  if (a.armtd) {
+    alm_armtd_state_rows(a, w, f, kf, c, jf);
+    return;
+  }
   const int F = a.F;
   const float* tr = a.traj + (long long)w * 5 * F;
   const float q0 = tr[f], T = tr[F + f], TT = tr[2 * F + f], kr = tr[3 * F + f];
@@ -349,7 +411,8 @@ __device__ __forceinline__ float alm_wrap(const AlmArgs& a, float x) {
   return mod - a.pi;
 }
 
-// cost at k [F] and, when grad is given, d cost / d k [F]
+// cost at k [F] and, when grad is given, d cost / d k [F] (nlp.py:_plan_diff,
+// either family; d q_plan / d k = kw k_scale)
 __device__ float alm_cost(const AlmArgs& a, int w, const float* k, float* grad) {
   const int F = a.F;
   const float* tr = a.traj + (long long)w * 5 * F;
@@ -357,10 +420,16 @@ __device__ float alm_cost(const AlmArgs& a, int w, const float* k, float* grad) 
   for (int f = 0; f < F; ++f) {
     const float q0 = tr[f], T = tr[F + f], TT = tr[2 * F + f], kr = tr[3 * F + f];
     const float qd = tr[4 * F + f];
-    const float beta1 = q0 + T * (1.0f / 5.0f);
-    const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
-    const float beta3 = q0 + k[f] * kr;
-    const float qp = ((a.qb0 * q0 + a.qb1 * beta1) + a.qb2 * beta2) + a.qb3 * beta3;
+    float qp;
+    if (a.armtd) {
+      // q0 + qd0 tp + 0.5 k_act tp^2 (row 1 holds qd0)
+      qp = (q0 + T * a.tp) + ((0.5f * (k[f] * kr)) * a.tp) * a.tp;
+    } else {
+      const float beta1 = q0 + T * (1.0f / 5.0f);
+      const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
+      const float beta3 = q0 + k[f] * kr;
+      qp = ((a.qb0 * q0 + a.qb1 * beta1) + a.qb2 * beta2) + a.qb3 * beta3;
+    }
     float diff = qp - qd;
     if (a.continuous[f]) diff = alm_wrap(a, diff);
     sum = sum + diff * diff;

@@ -31,6 +31,17 @@ saved after each world
     python3 -m armour_tpu_torch.experiments - 0 results_hard_torch.json hard
 
 It ignores world_dir, n_worlds, --seed and --trace.
+
+mode "armtd" runs the suite twice on the same worlds, once per trajectory
+family (Bernstein, then ARMTD: cfg.traj_family), as
+scripts/run_armtd_comparison.py does, and writes one file holding per
+family the summary, the per-world buckets and the batch_stats (rescue rate
+included), and each family's full results file beside it
+(armtd_torch.bernstein.json, armtd_torch.armtd.json: the layout --compare
+reads); --trace applies to both runs.  It never writes the JAX package's
+results_armtd_comparison.json:
+
+    python3 -m armour_tpu_torch.experiments saved_worlds/reference 0 armtd_torch.json armtd
 """
 
 from __future__ import annotations
@@ -77,12 +88,14 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
                             extra_stats: Optional[dict] = None,
                             rescue_solver: bool = True,
                             guidance: str = "straight",
-                            *, device=None, trace: Sequence[str] = ()) -> List[SuiteResult]:
+                            *, device=None, trace: Sequence[str] = (),
+                            stats: Optional[dict] = None) -> List[SuiteResult]:
     """All worlds advanced in lockstep on one card
     (batch_sim.run_trials_batched); rescue_solver/guidance pass through and
     are recorded in the saved batch_stats, into which extra_stats (e.g. the
     real-time budget calibration) is merged.  trace: world file names whose
-    every iteration goes to batch_stats["trace"][name]."""
+    every iteration goes to batch_stats["trace"][name].  stats, when given,
+    receives the batch_stats."""
     from .batch_sim import run_trials_batched
 
     names = [os.path.basename(p) for p in world_paths]
@@ -99,6 +112,8 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
         batch_stats["trace"] = {names[int(i)]: rec for i, rec in batch_stats["trace"].items()}
     batch_stats["suite_wall_s"] = time.perf_counter() - t0
     results = [SuiteResult(world=n, summary=s) for n, s in zip(names, summaries)]
+    if stats is not None:
+        stats.update(batch_stats)
     if verbose:
         print(f"batched suite: {len(worlds)} worlds in {batch_stats['suite_wall_s']:.1f}s  "
               f"rescue_rate={batch_stats.get('rescue_rate', 0.0):.3f} wall_share="
@@ -156,6 +171,38 @@ def run_hard_scenarios(results_path: str = "results_hard_torch.json", *,
         print(f"hard scenario {i}: {res.bucket()} iters={res.summary.iterations}", flush=True)
         save_results(results, results_path)
     return results
+
+
+def run_armtd_comparison(world_paths: Sequence[str], robot: RobotModel, cfg: ArmourConfig,
+                         results_path: str, max_iterations: int = 500, seed: int = 0, *,
+                         device=None, trace: Sequence[str] = ()) -> dict:
+    """Both trajectory families through run_world_suite_batched on the same
+    worlds (scripts/run_armtd_comparison.py): {"world_dir", "n_worlds",
+    "families": {family: {"summary", "buckets", "batch_stats"}},
+    "provenance"}, written to results_path after each family.  Each
+    family's full results file (save_results' layout, for --compare) goes
+    beside it, the family's name before the extension."""
+    if os.path.basename(results_path) == "results_armtd_comparison.json":
+        raise ValueError("results_armtd_comparison.json is the JAX package's record; "
+                         "name another file")
+    doc = {"world_dir": os.path.dirname(world_paths[0]) if world_paths else "",
+           "n_worlds": len(world_paths), "families": {}}
+    stem, ext = os.path.splitext(results_path)
+    for family in ("bernstein", "armtd"):
+        batch_stats: dict = {}
+        results = run_world_suite_batched(
+            world_paths, robot, dataclasses.replace(cfg, traj_family=family),
+            max_iterations=max_iterations, seed=seed, results_path=f"{stem}.{family}{ext}",
+            device=device, trace=trace, stats=batch_stats)
+        summ = summarize(results)
+        doc["families"][family] = {"summary": summ,
+                                   "buckets": {r.world: r.bucket() for r in results},
+                                   "batch_stats": batch_stats}
+        print(f"{family}: {json.dumps(summ)}", flush=True)
+        doc["provenance"] = _provenance()
+        with open(results_path, "w") as f:
+            json.dump(doc, f, indent=1)
+    return doc
 
 
 def summarize(results: Sequence[SuiteResult]) -> dict:
@@ -294,7 +341,7 @@ def main(argv=None) -> None:
     ap.add_argument("n_worlds", nargs="?", type=int, default=0)
     ap.add_argument("results", nargs="?", default="results_worlds_torch.json")
     ap.add_argument("mode", nargs="?", default="batched",
-                    choices=("batched", "budget", "serial", "hard"))
+                    choices=("batched", "budget", "serial", "hard", "armtd"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", action="append", default=[], metavar="WORLD",
@@ -324,6 +371,11 @@ def main(argv=None) -> None:
     if not paths:
         raise SystemExit(f"no *.csv worlds in {args.world_dir}")
     robot, cfg = kinova_gen3(), ArmourConfig(dtype=torch.float32)
+    if args.mode == "armtd":
+        doc = run_armtd_comparison(paths, robot, cfg, args.results, seed=args.seed,
+                                   device=args.device, trace=args.trace)
+        print(json.dumps({f: d["summary"] for f, d in doc["families"].items()}, indent=1))
+        return
     extra = None
     if args.mode == "budget":
         from .planner import make_realtime_planner

@@ -31,7 +31,12 @@ QDD_K_DEP_MINIMA = 0.5 + SQRT3_6
 
 @dataclasses.dataclass
 class TrajectoryCoeffs:
-    """Initial-state scalars shared by JRS, cost and extrema, each [W, F]."""
+    """Initial-state scalars shared by JRS, cost and extrema, each [W, F].
+
+    family: 'bernstein' (degree-5 Bezier, the ARMOUR trajectory) or 'armtd'
+    (constant acceleration, then braking: armtd.py).  k_scale: the actual
+    parameter range per joint; cfg.k_range for bernstein, the
+    velocity-adaptive g_k for armtd."""
 
     q0: torch.Tensor
     qd0: torch.Tensor
@@ -39,6 +44,7 @@ class TrajectoryCoeffs:
     Tqd0: torch.Tensor
     TTqdd0: torch.Tensor
     k_scale: torch.Tensor
+    family: str = "bernstein"
 
 
 @dataclasses.dataclass

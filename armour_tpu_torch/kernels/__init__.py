@@ -10,9 +10,11 @@
   K8 alm_values         csrc/alm_values.cu         (kernels/solver.py)
   K9 fk_chain           csrc/fk_chain.cu           (kernels/reach.py)
   K10 rnea_chain        csrc/rnea_chain.cu         (kernels/reach.py)
+  K11 jrs_armtd         csrc/jrs_armtd.cu          (kernels/jrs.py)
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
-collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py): a CPU tensor takes the plain version, a CUDA tensor launches
+collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py, armtd.py): a
+CPU tensor takes the plain version, a CUDA tensor launches
 the kernel through the launchers here or raises.  Each launcher calls
 launched(name) where it launches its kernel and nowhere else: LAUNCHES[name]
 counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
@@ -25,7 +27,8 @@ from __future__ import annotations
 import contextlib
 
 KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
-           "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain")
+           "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain",
+           "jrs_armtd")
 
 H100_SMS = 132            # streaming multiprocessors of an H100 SXM (launch geometry defaults)
 

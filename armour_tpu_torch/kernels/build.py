@@ -33,6 +33,7 @@ SOURCES = {
     "alm_values": "alm_values.cu",
     "fk_chain": "fk_chain.cu",
     "rnea_chain": "rnea_chain.cu",
+    "jrs_armtd": "jrs_armtd.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

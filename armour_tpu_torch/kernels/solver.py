@@ -6,7 +6,8 @@ without a host synchronisation.
 
 alm_rows() gathers a plan's per-world inputs once per solve (float32 and
 contiguous on the card, the torque limits and state limits tightened as the
-plain version tightens them); every launch of the solve reuses them.
+plain version tightens them, the trajectory family's switch and constants);
+every launch of the solve reuses them.
 k7_geometry and k8_geometry are K7's and K8's launch geometries (row
 tiles, query groups), pure Python so that the CPU tests check them; their
 scratch (link centres, partial sums) is allocated by alm_newton and
@@ -44,13 +45,14 @@ class AlmArgs(ctypes.Structure):
                 ("W", ctypes.c_int), ("Q", ctypes.c_int), ("S", ctypes.c_int),
                 ("M", ctypes.c_int), ("TF", ctypes.c_int), ("TJ", ctypes.c_int),
                 ("C", ctypes.c_int), ("K", ctypes.c_int), ("B", ctypes.c_int),
-                ("F", ctypes.c_int),
+                ("F", ctypes.c_int), ("armtd", ctypes.c_int),
                 ("cost_scale", ctypes.c_float), ("kw", ctypes.c_float),
                 ("qb0", ctypes.c_float), ("qb1", ctypes.c_float), ("qb2", ctypes.c_float),
                 ("qb3", ctypes.c_float), ("two_pi", ctypes.c_float), ("pi", ctypes.c_float),
                 ("inv_dur", ctypes.c_float), ("thr_torque", ctypes.c_float),
                 ("thr_col", ctypes.c_float), ("thr_state", ctypes.c_float),
-                ("col_margin", ctypes.c_float),
+                ("col_margin", ctypes.c_float), ("tp", ctypes.c_float), ("dts", ctypes.c_float),
+                ("g_tp", ctypes.c_float), ("g_ts", ctypes.c_float),
                 ("degs", ctypes.c_ubyte * (MAX_B * MAX_F))]
 
 
@@ -127,7 +129,10 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     _require(sc.row, "screened row", (Wn, K), torch.int32)
     _require(sc.mask, "screened mask", (Wn, K), torch.bool)
     tr = prob.traj
-    traj = torch.stack([tr.q0, tr.Tqd0, tr.TTqdd0, tr.k_scale, prob.q_des], dim=1).contiguous()
+    armtd = tr.family == "armtd"
+    # the ARMTD rows and cost read the plain version's float32 qd0 in row 1
+    traj = torch.stack([tr.q0, tr.qd0 if armtd else tr.Tqd0, tr.TTqdd0, tr.k_scale, prob.q_des],
+                       dim=1).contiguous()
     _require(traj, "trajectory scalars", (Wn, 5, F))
     lim, ub, m = prob.limits, cfg.ub, cfg.state_limit_margin
     limits = torch.stack([lim.pos_lb + ub.qe + m, lim.pos_ub - ub.qe - m,
@@ -149,8 +154,14 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     args.W, args.M, args.TF, args.TJ, args.C, args.K, args.B, args.F = Wn, M, TF, TJ, C, K, B, F
     s_plan = cfg.t_plan / cfg.duration
     b0, b1, b2, b3 = _bezier_weights(s_plan)
-    args.cost_scale, args.kw = cfg.cost_scale, b3
+    tp, ts = cfg.t_plan, cfg.duration
+    args.armtd = int(armtd)
+    args.cost_scale, args.kw = cfg.cost_scale, (0.5 * tp * tp if armtd else b3)
     args.qb0, args.qb1, args.qb2, args.qb3 = b0, b1, b2, b3
+    # the ARMTD constants as the plain version rounds them: Python doubles
+    # rounded once to float32
+    args.tp, args.dts = tp, ts - tp
+    args.g_tp, args.g_ts = 0.5 * tp * tp, 0.5 * tp * tp + 0.5 * tp * (ts - tp)
     args.two_pi, args.pi = 2.0 * math.pi, math.pi
     args.inv_dur = float(np.float32(1.0) / np.float32(cfg.duration))
     args.thr_torque = cfg.torque_violation_threshold

@@ -22,9 +22,10 @@ its Jacobian is formed inside the loop; the full-set check in finalize
 rests on.
 
 q_plan is linear in k (weight s^3 (6 s^2 - 15 s + 10) * k_range at
-s = t_plan / duration), so the cost gradient is written out and its Hessian
-is the constant diagonal 2 * cost_scale * weight^2 (the JAX package takes
-them from jax.grad / jax.hessian).
+s = t_plan / duration; 0.5 t_plan^2 g_k for the ARMTD family), so the cost
+gradient is written out and its Hessian is the constant diagonal
+2 * cost_scale * weight^2 (the JAX package takes them from jax.grad /
+jax.hessian).
 """
 
 from __future__ import annotations
@@ -98,8 +99,11 @@ def _traj(traj: TrajectoryCoeffs):
 
 def _plan_diff(k, traj: TrajectoryCoeffs, q_des, continuous, cfg: ArmourConfig):
     q0, Tqd0, TTqdd0, k_scale = _traj(traj)
-    s_plan = cfg.t_plan / cfg.duration
-    q_plan = bezier.q_des(q0, Tqd0, TTqdd0, k * k_scale, s_plan)
+    if traj.family == "armtd":
+        tp = cfg.t_plan
+        q_plan = q0 + traj.qd0[:, None] * tp + 0.5 * (k * k_scale) * tp * tp
+    else:
+        q_plan = bezier.q_des(q0, Tqd0, TTqdd0, k * k_scale, cfg.t_plan / cfg.duration)
     diff = q_plan - q_des[:, None]
     return torch.where(continuous, wrap_to_pi(diff), diff)
 
@@ -112,6 +116,8 @@ def plan_cost(k, traj: TrajectoryCoeffs, q_des, continuous, cfg: ArmourConfig):
 
 def _cost_weight(traj: TrajectoryCoeffs, cfg: ArmourConfig):
     """d q_plan / d k [W, 1, F]."""
+    if traj.family == "armtd":
+        return 0.5 * cfg.t_plan * cfg.t_plan * traj.k_scale[:, None]
     return bezier.q_des_k_weight(cfg.t_plan / cfg.duration) * traj.k_scale[:, None]
 
 
@@ -148,6 +154,10 @@ def _root_ok(valid, e, v):
 
 def joint_position_extrema(k, traj: TrajectoryCoeffs, cfg: ArmourConfig):
     """(q_min, q_max) [W, Q, F] over the trajectory and their dk gradients."""
+    if traj.family == "armtd":
+        from .armtd import armtd_position_extrema
+
+        return armtd_position_extrema(k, traj, cfg)
     q0, Tqd0, TTqdd0, k_range = _traj(traj)
     k_act = k * k_range
     e2, e3, valid = bezier.q_extrema_in_k(Tqd0, TTqdd0, k_act)
@@ -168,7 +178,11 @@ def joint_position_extrema(k, traj: TrajectoryCoeffs, cfg: ArmourConfig):
 
 
 def joint_velocity_extrema(k, traj: TrajectoryCoeffs, cfg: ArmourConfig):
-    """(qd_min, qd_max) [W, Q, F] and their dk gradients."""
+    """(qd_min, qd_max) [W, Q, F] in rad/s and their dk gradients."""
+    if traj.family == "armtd":
+        from .armtd import armtd_velocity_extrema
+
+        return armtd_velocity_extrema(k, traj, cfg)
     q0, Tqd0, TTqdd0, k_range = _traj(traj)
     k_act = k * k_range
     dur = cfg.duration

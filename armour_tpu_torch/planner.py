@@ -18,6 +18,7 @@ import torch
 
 from .collision import (ObstacleSet, build_hyperplanes, build_hyperplanes_plain, pad_obstacles,
                         screen_collision)
+from .armtd import build_jrs_armtd, build_jrs_armtd_plain
 from .config import ArmourConfig
 from .dynamics import torque_frs
 from .jrs import build_jrs
@@ -31,14 +32,26 @@ from .utils.timing import sync
 def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
                  cfg: ArmourConfig, basis: KBasis, plain: bool = False) -> PlanProblem:
     """Reachable sets, hyperplanes and screened rows of one planning step.
-    q0/qd0/qdd0/q_des [W, F] tensors, obs [W, O, ...] on one device.  On the
-    card the FK chain is kernel K9, the RNEA kernel K10 and the hyperplanes
-    kernel K3; plain=True takes their plain versions on any device."""
-    if cfg.traj_family != "bernstein":
-        raise NotImplementedError("the ARMTD trajectory family is not ported yet")
+    q0/qd0/qdd0/q_des [W, F] tensors, obs [W, O, ...] on one device.
+    cfg.traj_family "armtd" builds the constant-acceleration JRS (kernel K11
+    on the card) and ignores qdd0.  On the card the FK chain is kernel K9,
+    the RNEA kernel K10 and the hyperplanes kernel K3; plain=True takes
+    their plain versions on any device."""
+    if cfg.traj_family == "armtd":
+        jrs = (build_jrs_armtd_plain if plain else build_jrs_armtd)(q0, qd0, robot, cfg, basis)
+    elif cfg.traj_family == "bernstein":
+        jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
+    else:
+        raise NotImplementedError(f"unknown trajectory family {cfg.traj_family!r}")
+    return problem_from_jrs(jrs, q_des, obs, robot, cfg, basis, plain=plain)
+
+
+def problem_from_jrs(jrs, q_des, obs: ObstacleSet, robot: RobotModel, cfg: ArmourConfig,
+                     basis: KBasis, *, plain: bool = False) -> PlanProblem:
+    """The stages after the JRS, shared by both trajectory families: FK
+    (K9), RNEA (K10), hyperplanes (K3) and the screen."""
     if cfg.grasp_constraints:
         raise NotImplementedError("grasp constraints are not ported yet")
-    jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
     fk = forward_occupancy_plain if plain else forward_occupancy
     frs = reduce_links(fk(jrs, robot, cfg, basis), basis)
     torque = torque_frs(jrs, robot, cfg, basis, plain=plain)
@@ -46,12 +59,13 @@ def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
     screened = screen_collision(hyp, obs, frs, cfg.screen_k, cfg.screen_obstacle_quota)
     return PlanProblem(traj=jrs.traj, q_des=q_des, torque=torque, frs=frs, hyp=hyp,
                        obs=obs, screened=screened,
-                       limits=robot_limits(robot, q0.dtype, q0.device))
+                       limits=robot_limits(robot, q_des.dtype, q_des.device))
 
 
 def plan_step(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
               cfg: ArmourConfig, basis: KBasis, k0=None) -> SolveResult:
-    """One full planning iteration for a batch of worlds."""
+    """One full planning iteration for a batch of worlds (either trajectory
+    family, as plan_problem builds it)."""
     prob = plan_problem(q0, qd0, qdd0, q_des, obs, robot, cfg, basis)
     return solve(prob, cfg, basis, k0=k0)
 

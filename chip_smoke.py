@@ -2,13 +2,14 @@
 iterations of the lockstep closed loop, a rescue-profile solve, the
 real-time planner, the containment of sampled true states in the chain
 kernels' sets, the two entry points plan_from_armour_in and the rest-FRS
-solvability checker, and three iterations of a hard scenario.
+solvability checker, three iterations of a hard scenario, and the ARMTD
+(constant-acceleration) trajectory family end to end.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
-     flags; build the kernels from csrc/ (one nvcc per source, in parallel)
+     flags; build the eleven kernels from csrc/ (one nvcc per source, in parallel)
      and print the nvcc flags, every kernel's registers, spills, stack frame
      and static shared memory (ptxas) and K7's / K8's / K9's / K10's dynamic
      shared memory a block.
@@ -82,6 +83,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (reach through a window) for 3 iterations, the launch counters set to 0
      just before it; every kernel of the step, K5 and K6 must launch, K1 and
      K2 not, and no safety flag may be raised.
+  12. the ARMTD family (cfg.traj_family = "armtd") over the same 64 worlds
+     with start velocities seeded uniform in +-ARMTD_QD0 rad/s: one warm-up
+     step that records each kernel's inputs, then one step with the launch
+     counters set to 0 just before it and read just after, which must
+     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, and neither K1
+     nor K2; every recorded call (K11, K3, K4, K7 / K8's ARMTD branch on
+     every shape, K9 / K10 on the ARMTD sets) against its plain version
+     with the tolerances above, each kernel twice for the same bits, all
+     timed; every feasible k passes the plain full-set check; the solve
+     with K7 / K8 against the plain rows (the same feasible count, max
+     |d cost|); the step beside phase 4's Bernstein step, profiled; phase
+     9's containment on the ARMTD sets (65,536 sampled states); three
+     closed-loop iterations with rescue (K11, K5, K6 launched, no safety
+     flag); batch-1 p50 / p99.
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -91,6 +106,7 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -137,6 +153,9 @@ K9_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (256, 1, 528), (32, 8, 17))
 # K1 and K2 likewise (a group of three warps takes a component each in K2)
 OP_GEOMETRIES = ((32, 4, 132), (64, 2, 264), (96, 2, 100), (256, 1, 528), (32, 8, 17))
 HARD_WORLD, HARD_ITERATIONS = 7, 3   # phase 11
+ARMTD_QD0 = 0.6      # rad/s: phase 12's start velocities, seeded uniform in +-ARMTD_QD0
+ARMTD_SEED = 12
+ARMTD_ITERATIONS = 3
 COM_UNCERTAINTY = 0.05   # the uncertain-COM route (tests/test_torch_reachsets.py)
 
 
@@ -743,6 +762,7 @@ REPLACES = {
     "alm_values": ("armour_tpu_torch/csrc/alm_values.cu", "armour_tpu/nlp.py:494"),
     "fk_chain": ("armour_tpu_torch/csrc/fk_chain.cu", "armour_tpu/kinematics.py:97"),
     "rnea_chain": ("armour_tpu_torch/csrc/rnea_chain.cu", "armour_tpu/dynamics.py:160"),
+    "jrs_armtd": ("armour_tpu_torch/csrc/jrs_armtd.cu", "armour_tpu/armtd.py:77"),
 }
 # the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
 # only the uncertain-COM route, which phase 3 drives as their own path
@@ -753,7 +773,7 @@ PLANNING_KERNELS = OP_KERNELS + STEP_KERNELS
 HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperplanes": "k3",
                       "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
                       "alm_newton": "k7", "alm_values": "k8", "fk_chain": "k9",
-                      "rnea_chain": "k10"}
+                      "rnea_chain": "k10", "jrs_armtd": "k11"}
 
 
 def kernel_phase(captured, launches, device_launches, dev):
@@ -824,13 +844,21 @@ def profile_step(fn, dev, step_s) -> dict:
     (kernels, copies, fills), and the device busy share of the unprofiled
     step time step_s."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(dev)
+    # one warm-up step, then the recorded one: a second profiling session in
+    # a process has lost the first device activities of its first step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize(dev)
+            prof.step()
+    # the schedule's step annotation spans the whole step on the device
+    # timeline: it is no activity of its own
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")),
                   reverse=True)
     total = sum(r[0] for r in rows)
     if total == 0:
@@ -1307,7 +1335,7 @@ def realtime_phase(robot, cfg, one, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def containment_phase(jrs, robot, cfg, basis, dev) -> dict:
+def containment_phase(jrs, robot, cfg, basis, dev, label="phase 9") -> dict:
     """Phase 9: for the first N_CONTAIN worlds of the step, N_K sampled k
     per world at one sampled time inside every sub-interval: the numeric
     link centres (rnea_numeric.forward_kinematics) must lie in K9's sliced
@@ -1318,7 +1346,7 @@ def containment_phase(jrs, robot, cfg, basis, dev) -> dict:
     absorbs only the float64 slicing."""
     import dataclasses
 
-    from armour_tpu_torch import bezier, rnea_numeric
+    from armour_tpu_torch import bezier, rnea_numeric, trajectory
     from armour_tpu_torch.kernels import reach
     from armour_tpu_torch.kinematics import reduce_links
     from armour_tpu_torch.pz.bpz import BPZ
@@ -1339,12 +1367,18 @@ def containment_phase(jrs, robot, cfg, basis, dev) -> dict:
           + torch.rand((W, N_K, T), generator=g, dtype=torch.float64)) / T).to(dev)
     tr = jrs.traj
     dur = cfg.duration
-    q0, Tqd0, TTqdd0 = (x[:W].double()[:, None, None] for x in (tr.q0, tr.Tqd0, tr.TTqdd0))
-    k_act = (k * torch.as_tensor(cfg.k_range, dtype=torch.float64, device=dev))[:, :, None]
     sb = s[..., None]
-    q = bezier.q_des(q0, Tqd0, TTqdd0, k_act, sb)                  # [W, N_K, T, F]
-    qd = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, sb) / dur
-    qdd = bezier.qdd_des(q0, Tqd0, TTqdd0, k_act, sb) / dur ** 2
+    if tr.family == "armtd":
+        # the constant-acceleration trajectory at k g_k (the set's own g_k)
+        q0, qd0 = (x[:W].double()[:, None, None] for x in (tr.q0, tr.qd0))
+        k_act = (k * tr.k_scale[:W].double()[:, None])[:, :, None]
+        q, qd, qdd = trajectory._armtd_state(q0, qd0, None, k_act, sb * dur, cfg)
+    else:
+        q0, Tqd0, TTqdd0 = (x[:W].double()[:, None, None] for x in (tr.q0, tr.Tqd0, tr.TTqdd0))
+        k_act = (k * torch.as_tensor(cfg.k_range, dtype=torch.float64, device=dev))[:, :, None]
+        q = bezier.q_des(q0, Tqd0, TTqdd0, k_act, sb)              # [W, N_K, T, F]
+        qd = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, sb) / dur
+        qdd = bezier.qdd_des(q0, Tqd0, TTqdd0, k_act, sb) / dur ** 2
     phi = basis.phi(k)                                             # [W, N_K, B]
     _, _, centers = rnea_numeric.forward_kinematics(robot, q)      # [W, N_K, T, J, 3]
     c = torch.einsum("wtjab,wnb->wntja", frs.center_coef.double(), phi)
@@ -1359,7 +1393,7 @@ def containment_phase(jrs, robot, cfg, basis, dev) -> dict:
     ru = (un.egen.abs().sum(-1) + un.rad)[:, None]
     tau_margin = float(((tau - cu).abs() - ru).max())
     n = W * N_K * T
-    print(f"phase 9: containment over {W} worlds x {N_K} k x {T} sub-intervals ({n} sampled "
+    print(f"{label}: containment over {W} worlds x {N_K} k x {T} sub-intervals ({n} sampled "
           f"states): worst numeric link centre outside K9's hull by {fk_margin:.4g} m and "
           f"outside its centre set (no shape generators) by {centre_margin:.4g} m, worst "
           f"numeric torque outside K10's nominal band by {tau_margin:.4g} Nm (<= 0 inside; "
@@ -1544,6 +1578,220 @@ def hard_phase(robot, cfg, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the ARMTD family: K11 and K7 / K8's constant-acceleration branch
+# ---------------------------------------------------------------------------
+
+
+def check_jrs_armtd(inputs, dev):
+    """K11 against build_jrs_armtd_plain on the card: every coef / egen /
+    rad entry of R, qd, qda, qdda and the trajectory scalars within TOL
+    (1 + |plain entry|) (the same float32 operations; cos / sin and the
+    3x3 products may round differently); a second call gives the same bits."""
+    from armour_tpu_torch import armtd
+    from armour_tpu_torch.kernels import jrs as kjrs
+
+    q0, qd0, robot, cfg, basis = inputs
+
+    def kern():
+        return kjrs.jrs_armtd(q0, qd0, robot, cfg, basis)
+
+    def plain():
+        return armtd.build_jrs_armtd_plain(q0, qd0, robot, cfg, basis)
+
+    got, again, ref = kern(), kern(), plain()
+    torch.cuda.synchronize(dev)
+    pairs = [(getattr(getattr(x, f), g) for x in (got, again, ref))
+             for f in ("R", "qd", "qda", "qdda") for g in ("coef", "egen", "rad")]
+    pairs += [(getattr(x.traj, n) for x in (got, again, ref))
+              for n in ("qdd0", "Tqd0", "TTqdd0", "k_scale")]
+    ratio, err, same, exact = 0.0, 0.0, True, True
+    for a, b, r in pairs:
+        same &= torch.equal(a, b)
+        exact &= torch.equal(a, r)
+        d = (a - r).abs()
+        err = max(err, float(d.max()))
+        ratio = max(ratio, float((d / (TOL * (1.0 + r.abs()))).max()))
+    out_bytes = sum(_bpz_bytes(p) for p in (got.R, got.qd, got.qda, got.qdda)) \
+        + 3 * _nbytes(got.traj.k_scale)
+    Wn, T = got.R.rad.shape[:2]
+    # per (world, sub-interval, factor): the element (~120), the trig tail
+    # with its four interval cos / sin (~4 x 20 + 60), four 3x3 products (216)
+    flops = Wn * T * robot.num_factors * 480
+    return ratio <= 1.0 and same, err, kern, plain, _nbytes(q0, qd0) + out_bytes, flops, \
+        (f"worst |d| / (TOL (1 + |plain|)) {ratio:.3g}, max |d| {err:.3g}; "
+         f"{'the same bits as the plain version; ' if exact else ''}a second call "
+         f"{'gives the same bits' if same else 'DIFFERS'}")
+
+
+def armtd_inputs(q0, cfg, n, dev):
+    """Phase 12's start velocities: seeded uniform in +-ARMTD_QD0 rad/s, so
+    that g_k takes both its floor pi/24 and the adaptive |qd0| / 3."""
+    rng = np.random.default_rng(ARMTD_SEED)
+    return torch.as_tensor(rng.uniform(-ARMTD_QD0, ARMTD_QD0, (n, q0.shape[1])),
+                           dtype=cfg.dtype).to(dev)
+
+
+def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
+    """Phase 12: the ARMTD family at the flagship width.  A W = 64 step
+    counted (K11 once, K3, K4, K7, K8, K9, K10, neither K1 nor K2), every
+    recorded kernel call against its plain version, the full-set check and
+    the fused-vs-plain solve, containment, three closed-loop iterations with
+    rescue, batch-1 latency.  Returns (K11's kernels-line row, numbers)."""
+    import dataclasses
+
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.batch_sim import run_trials_batched
+    from armour_tpu_torch.collision import ObstacleSet, collision_constraints_plain
+    from armour_tpu_torch.planner import make_batch_planner, make_planner, plan_problem
+    from armour_tpu_torch.utils.timing import median_ms, wall_s
+    from armour_tpu_torch.worlds import load_world_csv
+
+    cfg_a = dataclasses.replace(cfg, traj_family="armtd")
+    q0d = torch.as_tensor(q0, dtype=cfg.dtype).to(dev)
+    qd0 = armtd_inputs(q0d, cfg, N_WORLDS, dev)
+    qdd0 = torch.zeros_like(q0d)
+    q_des_d = torch.as_tensor(q_des, dtype=cfg.dtype).to(dev)
+    obs_d = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                        mask=obs.mask.to(dev))
+    step = make_batch_planner(robot, cfg_a)
+    args = (q0d, qd0, qdd0, q_des_d, obs_d)
+    with kernels.capture() as captured:
+        t_first, _ = wall_s(lambda: step(*args), dev)
+    kernels.reset_counts()
+    t_main, res = wall_s(lambda: step(*args), dev)
+    launches, dlaunches = kernels.counts(), kernels.device_counts()
+    gk = (qd0.abs() / 3.0).clamp(min=math.pi / 24, max=math.pi / 3)
+    print(f"phase 12: ARMTD family (traj_family='armtd'), start velocities seeded in "
+          f"+-{ARMTD_QD0} rad/s ({int((gk > math.pi / 24).sum())} of {gk.numel()} factors "
+          f"above g_k's floor): W={N_WORLDS} step {t_main * 1e3:.1f} ms (first call "
+          f"{t_first * 1e3:.1f} ms); launches {launches}")
+    if launches["jrs_armtd"] != 1:
+        fail(f"K11 launched {launches['jrs_armtd']} times in one ARMTD step")
+    for name in STEP_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the ARMTD step")
+    for name in OP_KERNELS:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched on the ARMTD step")
+
+    # every recorded call against its plain version, each kernel twice
+    check = {"jrs_armtd": check_jrs_armtd, "build_hyperplanes": check_hyperplanes,
+             "collision_rows": check_rows, "alm_newton": check_alm_newton,
+             "alm_values": check_alm_values}
+    sums = {}
+    k11 = None
+    all_ok = True
+    for (name, key), inputs in captured.items():
+        if name in ("fk_chain", "rnea_chain"):
+            res_c = check_chain(name, inputs, dev)
+        elif name in check:
+            res_c = check[name](inputs, dev)
+        else:
+            continue
+        ok, err, kern, plain, nbytes, flops, note = res_c
+        ms, pms = median_ms(kern, dev, TIMING_ITERS), median_ms(plain, dev, TIMING_ITERS)
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB")
+        all_ok &= ok
+        sm = sums.setdefault(name, [0.0, 0.0, 0])
+        sm[0] += ms
+        sm[1] += pms
+        sm[2] += 1
+        if name == "jrs_armtd":
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
+            src, rep = REPLACES[name]
+            k11 = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                   "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None, "variants": 1, "device_launches": dlaunches[name]}
+    jrs = next(v[0] for kk, v in captured.items() if kk[0] == "rnea_chain")
+    captured.clear()
+    if not all_ok:
+        fail("a kernel disagrees with its plain version on the ARMTD step")
+    if k11 is None or "alm_newton" not in sums or "alm_values" not in sums:
+        fail("the ARMTD step recorded no K11 / K7 / K8 call")
+    print("  ARMTD step kernels, ms summed over their shapes (kernel / plain): " + ", ".join(
+        f"{n} {v[0]:.4f} / {v[1]:.4f} ({v[2]} shapes)" for n, v in sums.items()))
+
+    # results: the full-set check, fused against plain
+    k, feas = res.k, res.feasible
+    kf = k[feas]
+    if not bool(torch.isfinite(kf).all()) or bool((kf.abs() > 1.0 + 1e-6).any()):
+        fail("a feasible ARMTD k is not finite or leaves [-1, 1]")
+    if bool(torch.isfinite(k[~feas]).any()):
+        fail("an infeasible ARMTD world returned a finite k")
+    prob = plan_problem(q0d, qd0, qdd0, q_des_d, obs_d, robot, cfg_a, basis)
+    k_chk = torch.where(feas[:, None], k, torch.zeros_like(k))[:, None]
+    v = torch.stack(nlp.max_violations(k_chk, prob, cfg_a, basis,
+                                       collision_fn=collision_constraints_plain), dim=-1)[:, 0]
+    cert = nlp.viol_feasible(v, cfg_a)
+    if not bool(cert[feas].all()):
+        fail(f"the plain full-set check rejects feasible ARMTD worlds "
+             f"{torch.nonzero(feas & ~cert).flatten().tolist()}")
+    n_feas = int(feas.sum())
+    print(f"  {n_feas}/{N_WORLDS} ARMTD worlds feasible; every feasible k passes the plain "
+          f"full-set check")
+    solve_cmp = fused_against_plain(prob, cfg_a, basis, dev)
+    del prob
+
+    t_steps = [wall_s(lambda: step(*args), dev)[0] for _ in range(3)]
+    t_step = statistics.median(t_steps)
+    breakdown = profile_step(lambda: step(*args), dev, t_step)
+    print(f"  ARMTD W={N_WORLDS} step {t_step * 1e3:.1f} ms (median of 3) beside the Bernstein "
+          f"step {bern_step_s * 1e3:.1f} ms (phase 4, this call)")
+
+    # containment of sampled ARMTD states in K9's / K10's sets
+    contain = containment_phase(jrs, robot, cfg_a, basis, dev, label="  phase 12")
+    del jrs
+
+    # three closed-loop iterations with rescue, counted
+    worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:N_WORLDS]]
+    stats: dict = {}
+    kernels.reset_counts()
+    t_loop, summaries = wall_s(lambda: run_trials_batched(
+        worlds, robot, cfg_a, max_iterations=ARMTD_ITERATIONS, true_param_scale=1.0, seed=0,
+        rescue_solver=True, guidance="straight", stats=stats), dev)
+    loop_counts = kernels.counts()
+    flagged = [i for i, x in enumerate(summaries)
+               if x.collision or x.torque_exceeded or x.ultimate_bound_exceeded
+               or x.joint_limit_exceeded]
+    n_it = stats["batch_iterations"]
+    print(f"  ARMTD closed loop: W={N_WORLDS}, {n_it} lockstep iterations with rescue in "
+          f"{t_loop:.1f} s (warm-up included); launches {loop_counts}; infeasible plans "
+          f"{sum(x.infeasible_plans for x in summaries)}, rescued {stats['recovered_rows']}/"
+          f"{stats['rescued_rows']} rows; safety flags in worlds {flagged}")
+    if n_it != ARMTD_ITERATIONS:
+        fail(f"the ARMTD closed loop ran {n_it} iterations, not {ARMTD_ITERATIONS}")
+    for name in ("jrs_armtd", "rollout", "oracle_check") + STEP_KERNELS:
+        if loop_counts[name] == 0:
+            fail(f"kernel {name} was not launched on the ARMTD closed loop")
+    if flagged:
+        fail(f"ARMTD worlds {flagged} raised a safety flag under worst-case true parameters")
+
+    # batch-1 latency
+    step1 = make_planner(robot, cfg_a)
+    one = [(q0d[i], qd0[i], qdd0[i], q_des_d[i], obs_slice(obs_d, i)) for i in range(N_LATENCY)]
+    wall_s(lambda: step1(*one[0]), dev)
+    lats = [wall_s(lambda a=a: step1(*a), dev)[0] for a in one]
+    p50, p99 = float(np.percentile(lats, 50)), float(np.percentile(lats, 99))
+    print(f"  ARMTD batch-1 over {N_LATENCY} worlds: p50 {p50 * 1e3:.1f} ms, p99 "
+          f"{p99 * 1e3:.1f} ms against 500 ms")
+    perf = {"armtd_step_ms": t_step * 1e3, "armtd_feasible": n_feas,
+            "armtd_launches": {n: launches[n] for n in ("jrs_armtd",) + STEP_KERNELS},
+            "armtd_kernel_ms": {n: v[0] for n, v in sums.items()},
+            "armtd_plain_ms": {n: v[1] for n, v in sums.items()},
+            "armtd_latency_batch1_p50_ms": p50 * 1e3, "armtd_latency_batch1_p99_ms": p99 * 1e3,
+            "armtd_batch1_ok": p99 < 0.5, "armtd_loop_iterations": n_it,
+            "armtd_loop_wall_s": t_loop,
+            **{f"armtd_{kk}": vv for kk, vv in solve_cmp.items()},
+            **{f"armtd_{kk}": vv for kk, vv in contain.items()},
+            **{f"armtd_{kk}": vv for kk, vv in breakdown.items()}}
+    return k11, perf
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1718,6 +1966,10 @@ def main() -> None:
     # ---- phase 11: a hard scenario ----
     hard = hard_phase(robot, cfg, dev)
 
+    # ---- phase 12: the ARMTD family ----
+    k11, armtd_perf = armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, t_step)
+    krows.append(k11)
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -1725,7 +1977,7 @@ def main() -> None:
             "uncertain_com_step_ms": t_com,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown,
-            **solve_cmp, **realtime, **contain, **entry, **hard}
+            **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

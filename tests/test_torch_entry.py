@@ -20,8 +20,8 @@ from armour_tpu_torch import simulator as tsim
 from armour_tpu_torch.batch_sim import run_trials_batched
 from armour_tpu_torch import armour_io, dynamics, kinematics, solvability
 from armour_tpu_torch.jrs import build_jrs
-from armour_tpu_torch.kernels import (build, collision as kcol, pz as kpz, reach as kreach,
-                                      sim as ksim, solver as ksolver)
+from armour_tpu_torch.kernels import (build, collision as kcol, jrs as kjrs, pz as kpz,
+                                      reach as kreach, sim as ksim, solver as ksolver)
 from armour_tpu_torch.models.kinova import kinova_gen3
 from armour_tpu_torch.planner import (make_batch_planner, make_planner, make_realtime_planner,
                                       make_rescue_planner)
@@ -158,6 +158,8 @@ def test_kernel_launchers_refuse_cpu_tensors():
         ksolver.alm_newton(rows, k, lam, rho)
     with pytest.raises(ValueError, match="CUDA"):
         ksolver.alm_values(rows, k, lam, rho, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kjrs.jrs_armtd(torch.zeros(2, 7), torch.zeros(2, 7), robot, cfg4, basis)
 
 
 def test_cpu_wrappers_take_the_plain_versions():
@@ -225,7 +227,7 @@ def test_build_flags_keep_ieee_float32():
 def test_kernel_argument_structs_fit_the_parameter_space():
     """The argument structs travel as kernel parameters (4 KB limit)."""
     for s in (kpz.K1Args, kpz.K2Args, kreach.K9Args, kreach.K10Args, kcol.K3Args, kcol.K4Args, ksim.K5Args, ksim.K6Args,
-              ksolver.AlmArgs):
+              ksolver.AlmArgs, kjrs.K11Args):
         assert ctypes.sizeof(s) <= 4096
     assert ctypes.sizeof(kpz.PZView) == 3 * 8 + 9 * 8 + 6 * 8
 
@@ -253,7 +255,9 @@ def _c_struct_fields(source: str, name: str):
     ("pz_matmul_linear.cu", (kpz.K1Args,)),
     ("pz_cross.cu", (kpz.K2Args,)),
     ("fk_chain.cu", (kreach.K9Args,)),
-    ("rnea_chain.cu", (kreach.K10Args,))])
+    ("rnea_chain.cu", (kreach.K10Args,)),
+    ("jrs_tail.cuh", (kjrs.JrsTrig,)),
+    ("jrs_armtd.cu", (kjrs.K11Args,))])
 def test_closed_loop_structs_match_the_sources(src, structs):
     """The ctypes mirrors list the C structs' fields in the same order (no
     compiler here checks the layout)."""

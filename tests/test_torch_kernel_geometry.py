@@ -8,8 +8,9 @@ that a launch the card would refuse shows up here.  The Python mirrors of
 the kernels' shared-memory formulas are held against the constants of the
 CUDA sources.
 
-The last eight tests run K1, K2, K5, K6, K7, K8, K9 and K10 against their
-plain versions on the card (marked cuda; they skip where there is none)."""
+The cuda-marked tests run K1, K2, K5, K6, K7, K8, K9 and K10 against their
+plain versions on the card, and K11 and K7 / K8's ARMTD branch against
+theirs (they skip where there is no card)."""
 
 import dataclasses
 import re
@@ -903,3 +904,84 @@ def test_k1_matches_its_plain_version_on_the_card():
                            for f in ("coef", "egen", "rad")), (sa, sb, geo)
         finally:
             kpz.k1_geometry = default
+
+
+def _armtd_problem(dev, W=4, T=16):
+    """An ARMTD plan's inputs on the card: start velocities at g_k's floor,
+    in its adaptive range and at its cap."""
+    from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig
+
+    cfg = ArmourConfig(num_time_steps=T, dtype=torch.float32, max_obstacles=4, screen_k=64,
+                       traj_family="armtd")
+    rng = np.random.default_rng(2)
+    q0 = torch.as_tensor(rng.uniform(-2, 2, (W, 7)), dtype=torch.float32).to(dev)
+    qd0 = torch.as_tensor(rng.uniform(-1, 1, (W, 7)) * np.array([[0.0], [0.3], [2.0], [5.0]]),
+                          dtype=torch.float32).to(dev)
+    obs = stack_obstacles([pad_obstacles(np.array([[0.6, 0.6, 0.5]]), np.diag([0.05] * 3)[None],
+                                         4, torch.float32)] * W)
+    obs = type(obs)(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                    mask=obs.mask.to(dev))
+    return cfg, q0, qd0, q0 + 0.1, obs
+
+
+@pytest.mark.cuda
+def test_k11_matches_its_plain_version_on_the_card():
+    """K11 against build_jrs_armtd_plain on the card: every field within
+    1e-6 (1 + |plain|) (the plain g_k's |qd0| / 3 is a multiply by the
+    float32 reciprocal on CUDA tensors, K11's an IEEE division; R's cos /
+    sin and 3x3 products may round differently); a repeat gives the same
+    bits."""
+    from armour_tpu_torch import armtd, kernels
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.pz.basis import make_basis
+
+    dev = _card()
+    robot, basis = kinova_gen3(), make_basis(7, 3)
+    cfg, q0, qd0, _, _ = _armtd_problem(dev)
+    kernels.reset_counts()
+    got = armtd.build_jrs_armtd(q0, qd0, robot, cfg, basis)
+    again = armtd.build_jrs_armtd(q0, qd0, robot, cfg, basis)
+    assert kernels.counts()["jrs_armtd"] == 2
+    ref = armtd.build_jrs_armtd_plain(q0, qd0, robot, cfg, basis)
+    for f in ("R", "Rt", "qd", "qda", "qdda"):
+        for g in ("coef", "egen", "rad"):
+            a, b = getattr(getattr(got, f), g), getattr(getattr(ref, f), g)
+            assert torch.equal(a, getattr(getattr(again, f), g))
+            assert bool(((a - b).abs() <= 1e-6 * (1 + b.abs())).all()), (f, g)
+    for n in ("qdd0", "Tqd0", "TTqdd0", "k_scale"):
+        a, b = getattr(got.traj, n), getattr(ref.traj, n)
+        assert bool(((a - b).abs() <= 1e-6 * (1 + b.abs())).all()), n
+
+
+@pytest.mark.cuda
+def test_k7_k8_armtd_branch_matches_plain_on_the_card():
+    """K7 / K8 on an ARMTD plan against alm_newton_plain / alm_values_plain:
+    the state rows bit for bit, merit and m0 within 1e-5 relative, the step
+    within 1e-4 relative."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+
+    dev = _card()
+    robot, basis = kinova_gen3(), make_basis(7, 3)
+    cfg, q0, qd0, q_des, obs = _armtd_problem(dev)
+    prob = plan_problem(q0, qd0, torch.zeros_like(q0), q_des, obs, robot, cfg, basis)
+    rows = ks.alm_rows(prob, cfg, basis)
+    assert rows.args.armtd == 1
+    W, S, F = q0.shape[0], 4, 7
+    g = torch.Generator(device="cpu").manual_seed(0)
+    k = (2 * torch.rand((W, S, F), generator=g) - 1).to(dev)
+    k[:, 0] = 0.0
+    lam = torch.zeros(W, S, rows.M, device=dev)
+    rho = torch.full((W, S), 10.0, device=dev)
+    seed = torch.arange(S, dtype=torch.int32, device=dev)
+    merit, feas, c = ks.alm_values(rows, k, lam, rho, seed, want_c=True)
+    m0, f0, c0 = nlp.alm_values_plain(k, lam, rho, seed, prob, cfg, basis, want_c=True)
+    assert torch.equal(c[..., -8 * F:], c0[..., -8 * F:])
+    assert float(((merit - m0).abs() / (1 + m0.abs())).max()) <= 1e-5
+    step, m1, _ = ks.alm_newton(rows, k, lam, rho)
+    st0, m10, _ = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
+    assert float(((m1 - m10).abs() / (1 + m10.abs())).max()) <= 1e-5
+    assert float(((step - st0).abs() / (1 + st0.abs())).max()) <= 1e-4
