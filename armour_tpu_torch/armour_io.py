@@ -91,11 +91,11 @@ def frs_values(data: ArmourIn, k_slice: np.ndarray, robot, cfg, device,
     link centres [T, J, 3], shape generators [T, J, 3, 3], radii [T, J, 3],
     the torque radius [T, F], and the torque [T, F], collision [T, J, O]
     and 4F state rows.  plain=True takes the plain versions of the kernels
-    (K3, K4, K9, K10) on `device`."""
+    (K3, K4, K9, K10, K12) on `device`."""
     from .collision import (build_hyperplanes, build_hyperplanes_plain, collision_constraints,
                             collision_constraints_plain, eval_link_polys, pad_obstacles)
     from .dynamics import torque_frs
-    from .jrs import build_jrs
+    from .jrs import build_jrs, build_jrs_plain
     from .kinematics import forward_occupancy, forward_occupancy_plain, reduce_links
     from .nlp import joint_position_extrema, joint_velocity_extrema
     from .planner import _obs_to
@@ -107,7 +107,7 @@ def frs_values(data: ArmourIn, k_slice: np.ndarray, robot, cfg, device,
                   dt, device)
     q0, qd0, qdd0 = (torch.as_tensor(x, dtype=dt).to(device)[None]
                      for x in (data.q0, data.qd0, data.qdd0))
-    jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
+    jrs = (build_jrs_plain if plain else build_jrs)(q0, qd0, qdd0, robot, cfg, basis)
     fk = forward_occupancy_plain if plain else forward_occupancy
     frs = reduce_links(fk(jrs, robot, cfg, basis), basis)
     torque = torque_frs(jrs, robot, cfg, basis, plain=plain)

@@ -29,13 +29,14 @@ from .jrs import JRS, TrajectoryCoeffs, assemble_rotations, make_velocity_pz, tr
 from .nlp import _select_extrema
 from .pz.basis import KBasis
 from .robot import RobotModel
+from .utils import div
 
 PI = math.pi
 
 
 def g_k_adaptive(qd0):
     """Velocity-adaptive parameter range min(max(pi/24, |qd0|/3), pi/3)."""
-    return torch.clamp(torch.abs(qd0) / 3.0, min=PI / 24, max=PI / 3.0)
+    return torch.clamp(div(torch.abs(qd0), 3.0), min=PI / 24, max=PI / 3.0)
 
 
 def _phase_coeffs(t, qd0, tp, ts):

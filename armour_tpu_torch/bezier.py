@@ -1,10 +1,13 @@
 """Degree-5 Bezier (Bernstein) trajectory closed forms (counterpart of
 armour_tpu/bezier.py).  Elementwise over tensors; s may be a tensor or a
-Python number."""
+Python number.  Divisions by a constant go through utils.div (an IEEE
+division on the card too)."""
 
 from __future__ import annotations
 
 import torch
+
+from .utils import div
 
 
 def q_des(q0, Tqd0, TTqdd0, k_actual, s):
@@ -16,8 +19,8 @@ def q_des(q0, Tqd0, TTqdd0, k_actual, s):
     b4 = -5.0 * s**4 * (s - 1.0)
     b5 = s**5
     beta0 = q0
-    beta1 = q0 + Tqd0 / 5.0
-    beta2 = q0 + 2.0 * Tqd0 / 5.0 + TTqdd0 / 20.0
+    beta1 = q0 + div(Tqd0, 5.0)
+    beta2 = q0 + div(2.0 * Tqd0, 5.0) + div(TTqdd0, 20.0)
     beta3 = q0 + k_actual
     return b0 * beta0 + b1 * beta1 + b2 * beta2 + (b3 + b4 + b5) * beta3
 
@@ -40,8 +43,8 @@ def qd_des(q0, Tqd0, TTqdd0, k_actual, s):
     db4 = -20.0 * s**3 * (s - 1.0) - 5.0 * s**4
     db5 = 5.0 * s**4
     beta0 = q0
-    beta1 = q0 + Tqd0 / 5.0
-    beta2 = q0 + 2.0 * Tqd0 / 5.0 + TTqdd0 / 20.0
+    beta1 = q0 + div(Tqd0, 5.0)
+    beta2 = q0 + div(2.0 * Tqd0, 5.0) + div(TTqdd0, 20.0)
     beta3 = q0 + k_actual
     return db0 * beta0 + db1 * beta1 + db2 * beta2 + (db3 + db4 + db5) * beta3
 
@@ -58,8 +61,8 @@ def qdd_des(q0, Tqd0, TTqdd0, k_actual, s):
     ddb4 = -40.0 * s**3 - 60.0 * s**2 * t5
     ddb5 = 20.0 * s**3
     beta0 = q0
-    beta1 = q0 + Tqd0 / 5.0
-    beta2 = q0 + 2.0 * Tqd0 / 5.0 + TTqdd0 / 20.0
+    beta1 = q0 + div(Tqd0, 5.0)
+    beta2 = q0 + div(2.0 * Tqd0, 5.0) + div(TTqdd0, 20.0)
     beta3 = q0 + k_actual
     return ddb0 * beta0 + ddb1 * beta1 + ddb2 * beta2 + (ddb3 + ddb4 + ddb5) * beta3
 
@@ -79,20 +82,18 @@ def q_des_k_indep(q0, Tqd0, TTqdd0, s):
 
 
 def qd_des_k_indep(q0, Tqd0, TTqdd0, s, duration=1.0):
-    return (
+    return div(
         0.5
         * (s - 1.0) ** 2
-        * (2.0 * Tqd0 + 4.0 * Tqd0 * s + 2.0 * TTqdd0 * s - 30.0 * Tqd0 * s**2 - 5.0 * TTqdd0 * s**2)
-        / duration
-    )
+        * (2.0 * Tqd0 + 4.0 * Tqd0 * s + 2.0 * TTqdd0 * s - 30.0 * Tqd0 * s**2 - 5.0 * TTqdd0 * s**2),
+        duration)
 
 
 def qdd_des_k_indep(q0, Tqd0, TTqdd0, s, duration=1.0):
-    return (
+    return div(
         -(s - 1.0)
-        * (TTqdd0 - (36.0 * Tqd0 + 8.0 * TTqdd0) * s + (60.0 * Tqd0 + 10.0 * TTqdd0) * s**2)
-        / (duration * duration)
-    )
+        * (TTqdd0 - (36.0 * Tqd0 + 8.0 * TTqdd0) * s + (60.0 * Tqd0 + 10.0 * TTqdd0) * s**2),
+        duration * duration)
 
 
 # interior critical points of the k-independent parts; denominators vanish

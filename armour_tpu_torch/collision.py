@@ -10,10 +10,13 @@ the signed distance of the k-sliced link centre outside that polytope:
 
 Every tensor carries the world axis W in front and, where the solver
 evaluates several k at once (seeds, line-search alphas), a query axis Q after
-it.  Two functions have hand-written CUDA kernels:
+it.  Three functions have hand-written CUDA kernels:
 
   build_hyperplanes    kernel K3 (kernels/collision.py), plain version
                        build_hyperplanes_plain;
+  screen_collision     kernel K13: the rows' upper bound, the top K in
+                       jax.lax.top_k's order and the gather; plain version
+                       screen_collision_plain;
   screened_rows,       kernel K4: per-row max over the 2C signed distances,
   collision_constraints  first argmax, and dg/dk; plain versions
                        screened_rows_plain / collision_constraints_plain.
@@ -231,11 +234,9 @@ class ScreenedCollision:
     mask: torch.Tensor     # [W, K] real-obstacle mask
 
 
-def screen_collision(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
-                     K: int, obstacle_quota: int = 0) -> ScreenedCollision:
-    """Rank all rows by an upper bound of g over the k-box and keep the K
-    worst (armour_tpu/collision.py:193-252).  obstacle_quota > 0 first
-    reserves that many best rows for every obstacle."""
+def _screen_bound(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS):
+    """Upper bound of g over the k-box for every row: (g_up [W, N], the
+    real-obstacle mask [W, N])."""
     T, J, O = hyp.dims
     Wn = hyp.A.shape[0]
     N = T * J * O
@@ -247,7 +248,7 @@ def screen_collision(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
 
     Apc = _dot3(A, per_cell(frs.center_coef[..., 0]), 1)   # [W, C, N]
     # coordinate-box bound of sup_k |A . (p(k) - p0)|: a valid over-bound
-    env = per_cell(torch.sum(torch.abs(frs.center_coef[..., 1:]), dim=-1))
+    env = per_cell(screen_envelope(frs.center_coef))
     r = (torch.abs(A[:, 0]) * env[:, 0] + torch.abs(A[:, 1]) * env[:, 1]
          + torch.abs(A[:, 2]) * env[:, 2])
     ok = torch.abs(A[:, 0]) + torch.abs(A[:, 1]) + torch.abs(A[:, 2]) > 0
@@ -256,28 +257,74 @@ def screen_collision(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
     neg_lb = torch.where(ok, -Apc - r - (-hyp.d + hyp.delta), big)
     m_lb = torch.maximum(torch.amax(pos_lb, dim=1), torch.amax(neg_lb, dim=1))   # [W, N]
     mask = _cell_mask(obs, T, J)
-    g_up = torch.where(mask, -m_lb, torch.full_like(m_lb, -BIG))
+    return torch.where(mask, -m_lb, torch.full_like(m_lb, -BIG)), mask
 
+
+def screen_envelope(center_coef: torch.Tensor) -> torch.Tensor:
+    """Per-cell monomial envelope sum_b>0 |coef_b| of the link centres
+    [W, T, J, 3, B] -> [W, T, J, 3] (the same torch reduction on every
+    route, so the screen's bound rests on the same bits)."""
+    return torch.sum(torch.abs(center_coef[..., 1:]), dim=-1)
+
+
+def _top_sorted(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last axis, by value
+    descending and the lower index first among equal values (the order of
+    jax.lax.top_k; torch.topk leaves ties in no defined order).  -0.0 is
+    taken as +0.0."""
+    return torch.sort(x + 0.0, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def screen_rows(g_up: torch.Tensor, O: int, K: int, obstacle_quota: int = 0) -> torch.Tensor:
+    """The screen's selection: indices [W, min(K, N)] of the worst rows of
+    g_up [W, N] (N = T*J*O, obstacle fastest) in _top_sorted's order;
+    obstacle_quota > 0 first takes that many best rows of every obstacle,
+    obstacle-major, then fills the rest globally from the other rows."""
+    Wn, N = g_up.shape
     Kk = min(K, N)
     if obstacle_quota > 0 and obstacle_quota * O < Kk:
         q = obstacle_quota
-        gu_o = g_up.reshape(Wn, T * J, O).transpose(1, 2)   # [W, O, T*J]
-        _, idx_o = torch.topk(gu_o, q, dim=-1)              # [W, O, q]
-        obs_idx = torch.arange(O, device=A.device)[:, None]
+        gu_o = g_up.reshape(Wn, N // O, O).transpose(1, 2)  # [W, O, T*J]
+        idx_o = _top_sorted(gu_o, q)                        # [W, O, q]
+        obs_idx = torch.arange(O, device=g_up.device)[:, None]
         quota_idx = (idx_o * O + obs_idx).reshape(Wn, O * q)
         g_fill = g_up.scatter(-1, quota_idx, float("-inf"))
-        _, idx_g = torch.topk(g_fill, Kk - q * O, dim=-1)
-        idx = torch.cat([quota_idx, idx_g], dim=-1)
-    else:
-        _, idx = torch.topk(g_up, Kk, dim=-1)               # [W, K]
-    C = A.shape[2]
+        return torch.cat([quota_idx, _top_sorted(g_fill, Kk - q * O)], dim=-1)
+    return _top_sorted(g_up, Kk)                            # [W, K]
+
+
+def screen_collision_plain(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
+                           K: int, obstacle_quota: int = 0) -> ScreenedCollision:
+    """Plain version of kernel K13 (armour_tpu/collision.py:193-252): rank
+    all rows by an upper bound of g over the k-box and keep the K worst,
+    in jax.lax.top_k's order.  obstacle_quota > 0 first reserves that many
+    best rows for every obstacle."""
+    O = hyp.dims[2]
+    g_up, mask = _screen_bound(hyp, obs, frs)
+    idx = screen_rows(g_up, O, K, obstacle_quota)
+    Wn, _, C = hyp.A.shape[:3]
+    Kk = idx.shape[-1]
     return ScreenedCollision(
-        A=torch.gather(A, -1, idx[:, None, None, :].expand(Wn, 3, C, Kk)),
+        A=torch.gather(hyp.A, -1, idx[:, None, None, :].expand(Wn, 3, C, Kk)),
         d=torch.gather(hyp.d, -1, idx[:, None, :].expand(Wn, C, Kk)),
         delta=torch.gather(hyp.delta, -1, idx[:, None, :].expand(Wn, C, Kk)),
         row=(idx // O).to(torch.int32),
         mask=torch.gather(mask, -1, idx),
     )
+
+
+def screen_collision(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
+                     K: int, obstacle_quota: int = 0) -> ScreenedCollision:
+    """The K worst rows for the solver loop (see screen_collision_plain):
+    kernel K13 on CUDA tensors, screen_collision_plain on CPU tensors."""
+    if not hyp.A.is_cuda:
+        return screen_collision_plain(hyp, obs, frs, K, obstacle_quota)
+    from .kernels import collision as kcol
+
+    A, d, delta, row, mask = kcol.screen_collision(
+        hyp.A, hyp.d, hyp.delta, frs.center_coef, screen_envelope(frs.center_coef),
+        obs.mask, K, obstacle_quota)
+    return ScreenedCollision(A=A, d=d, delta=delta, row=row, mask=mask)
 
 
 def _rows_at(x: torch.Tensor, row: torch.Tensor) -> torch.Tensor:

@@ -63,7 +63,7 @@ struct AlmArgs {
   float kw;                         // d q_plan / d k_actual at t_plan (ARMTD: 0.5 tp^2)
   float qb0, qb1, qb2, qb3;         // q_des's Bernstein weights at t_plan (b3+b4+b5 last)
   float two_pi, pi;                 // the wrap's constants, as float32
-  float inv_dur;                    // 1 / duration
+  float dur;                        // duration
   float thr_torque, thr_col, thr_state, col_margin;
   float tp, dts;                    // ARMTD: t_plan and duration - t_plan
   float g_tp, g_ts;                 // ARMTD: dq/dk_actual at t_plan and at duration
@@ -232,8 +232,8 @@ __device__ __forceinline__ float alm_q_des(float q0, float T, float TT, float ka
   const float b3 = (10.0f * alm_pow(s, 3)) * alm_pow(sm1, 2);
   const float b4 = (-5.0f * alm_pow(s, 4)) * sm1;
   const float b5 = alm_pow(s, 5);
-  const float beta1 = q0 + T * (1.0f / 5.0f);
-  const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
+  const float beta1 = q0 + T / 5.0f;
+  const float beta2 = (q0 + (2.0f * T) / 5.0f) + TT / 20.0f;
   const float beta3 = q0 + ka;
   return ((b0 * q0 + b1 * beta1) + b2 * beta2) + ((b3 + b4) + b5) * beta3;
 }
@@ -247,8 +247,8 @@ __device__ __forceinline__ float alm_qd_des(float q0, float T, float TT, float k
                     + (30.0f * alm_pow(s, 2)) * alm_pow(sm1, 2);
   const float db4 = (-20.0f * alm_pow(s, 3)) * sm1 - 5.0f * alm_pow(s, 4);
   const float db5 = 5.0f * alm_pow(s, 4);
-  const float beta1 = q0 + T * (1.0f / 5.0f);
-  const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
+  const float beta1 = q0 + T / 5.0f;
+  const float beta2 = (q0 + (2.0f * T) / 5.0f) + TT / 20.0f;
   const float beta3 = q0 + ka;
   return ((db0 * q0 + db1 * beta1) + db2 * beta2) + ((db3 + db4) + db5) * beta3;
 }
@@ -390,8 +390,8 @@ __device__ void alm_state_rows(const AlmArgs& a, int w, int f, float kf, float* 
     in[3] = alm_root_ok(valid, e3, v[3]);
     alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
     const float vub = a.limits[2 * F + f];
-    const float lo_v = lo * a.inv_dur, hi_v = hi * a.inv_dur;
-    const float gl = (glo * kr) * a.inv_dur, gh = (ghi * kr) * a.inv_dur;
+    const float lo_v = lo / a.dur, hi_v = hi / a.dur;
+    const float gl = (glo * kr) / a.dur, gh = (ghi * kr) / a.dur;
     c[4] = -vub - lo_v;  jf[4] = -gl;
     c[5] = lo_v - vub;   jf[5] = gl;
     c[6] = -vub - hi_v;  jf[6] = -gh;
@@ -425,8 +425,8 @@ __device__ float alm_cost(const AlmArgs& a, int w, const float* k, float* grad) 
       // q0 + qd0 tp + 0.5 k_act tp^2 (row 1 holds qd0)
       qp = (q0 + T * a.tp) + ((0.5f * (k[f] * kr)) * a.tp) * a.tp;
     } else {
-      const float beta1 = q0 + T * (1.0f / 5.0f);
-      const float beta2 = (q0 + (2.0f * T) * (1.0f / 5.0f)) + TT * (1.0f / 20.0f);
+      const float beta1 = q0 + T / 5.0f;
+      const float beta2 = (q0 + (2.0f * T) / 5.0f) + TT / 20.0f;
       const float beta3 = q0 + k[f] * kr;
       qp = ((a.qb0 * q0 + a.qb1 * beta1) + a.qb2 * beta2) + a.qb3 * beta3;
     }

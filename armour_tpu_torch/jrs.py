@@ -6,7 +6,8 @@ closed-form extrema, bound the k coefficient, take a first-order Taylor
 expansion of cos/sin with an interval Lagrange remainder, and inject the
 controller tracking-error generators.  The JAX code builds one world and
 vmaps; here every tensor carries the world axis W in front: q0 [W, F] ->
-JRS fields [W, T, ...].
+JRS fields [W, T, ...].  build_jrs is kernel K12 (csrc/jrs_bernstein.cu)
+on CUDA tensors and build_jrs_plain on CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from .pz import interval as iv
 from .pz.basis import KBasis, error_layout
 from .pz.bpz import BPZ
 from .robot import RobotModel
-from .utils import to_device
+from .utils import div, to_device
 
 SQRT3_6 = float(np.sqrt(3.0) / 6.0)
 QDD_K_DEP_MAXIMA = 0.5 - SQRT3_6
@@ -170,8 +171,10 @@ def make_velocity_pz(center, kcoef, ecoef, egroup_name: str, basis: KBasis):
     return BPZ(coef=coef, egen=eg, rad=torch.zeros_like(center))
 
 
-def build_jrs(q0, qd0, qdd0, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) -> JRS:
-    """Online JRS for a batch of initial states q0/qd0/qdd0 [W, F]."""
+def build_jrs_plain(q0, qd0, qdd0, robot: RobotModel, cfg: ArmourConfig,
+                    basis: KBasis) -> JRS:
+    """Plain version of kernel K12: the online JRS for a batch of initial
+    states q0/qd0/qdd0 [W, F]."""
     dt, dev = q0.dtype, q0.device
     T = cfg.num_time_steps
     F = robot.num_factors
@@ -210,8 +213,8 @@ def build_jrs(q0, qd0, qdd0, robot: RobotModel, cfg: ArmourConfig, basis: KBasis
         qc, Rq, (kd_center * k_range).expand_as(qc))
 
     # ---- Part 2: qd_des / qda_des ----
-    v_lb = 30.0 * s_lb**2 * (s_lb - 1.0) ** 2 / dur
-    v_ub = 30.0 * s_ub**2 * (s_ub - 1.0) ** 2 / dur
+    v_lb = div(30.0 * s_lb**2 * (s_lb - 1.0) ** 2, dur)
+    v_ub = div(30.0 * s_ub**2 * (s_ub - 1.0) ** 2, dur)
     v_lo = torch.minimum(v_lb, v_ub)
     v_hi = torch.maximum(v_lb, v_ub)
     vd_center = (v_hi + v_lo) * 0.5 * k_range
@@ -227,7 +230,7 @@ def build_jrs(q0, qd0, qdd0, robot: RobotModel, cfg: ArmourConfig, basis: KBasis
 
     # ---- Part 3: qdda_des ----
     def acc(s):
-        return 60.0 * s * (2.0 * s**2 - 3.0 * s + 1.0) / (dur * dur)
+        return div(60.0 * s * (2.0 * s**2 - 3.0 * s + 1.0), dur * dur)
 
     t_lb = acc(s_lb)
     t_ub = acc(s_ub)
@@ -263,3 +266,14 @@ def build_jrs(q0, qd0, qdd0, robot: RobotModel, cfg: ArmourConfig, basis: KBasis
     qdda_pz = make_velocity_pz(qdd_center, full(ad_center), qdda_e, "qddae", basis)
     R, Rt = assemble_rotations(robot, cos_c, cos_k, cos_e, sin_c, sin_k, sin_e, basis)
     return JRS(R=R, Rt=Rt, qd=qd_pz, qda=qda_pz, qdda=qdda_pz, traj=traj)
+
+
+def build_jrs(q0, qd0, qdd0, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) -> JRS:
+    """Online JRS for a batch of initial states q0/qd0/qdd0 [W, F]: kernel
+    K12 (csrc/jrs_bernstein.cu) on CUDA tensors, build_jrs_plain on CPU
+    tensors."""
+    if not q0.is_cuda:
+        return build_jrs_plain(q0, qd0, qdd0, robot, cfg, basis)
+    from .kernels import jrs as kjrs
+
+    return kjrs.jrs_bernstein(q0, qd0, qdd0, robot, cfg, basis)

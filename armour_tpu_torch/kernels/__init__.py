@@ -11,15 +11,17 @@
   K9 fk_chain           csrc/fk_chain.cu           (kernels/reach.py)
   K10 rnea_chain        csrc/rnea_chain.cu         (kernels/reach.py)
   K11 jrs_armtd         csrc/jrs_armtd.cu          (kernels/jrs.py)
+  K12 jrs_bernstein     csrc/jrs_bernstein.cu      (kernels/jrs.py)
+  K13 screen_collision  csrc/screen_collision.cu   (kernels/collision.py)
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
-collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py, armtd.py): a
-CPU tensor takes the plain version, a CUDA tensor launches
-the kernel through the launchers here or raises.  Each launcher calls
+collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py, armtd.py,
+jrs.py): a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel through the launchers here or raises.  Each launcher calls
 launched(name) where it launches its kernel and nowhere else: LAUNCHES[name]
 counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
-launched (K7 and K8 run three per call, every other kernel one).  Sources are
-compiled with nvcc at first use (kernels/build.py).
+launched (K7, K8 and K13 run three per call, every other kernel one).
+Sources are compiled with nvcc at first use (kernels/build.py).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import contextlib
 
 KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
            "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain",
-           "jrs_armtd")
+           "jrs_armtd", "jrs_bernstein", "screen_collision")
 
 H100_SMS = 132            # streaming multiprocessors of an H100 SXM (launch geometry defaults)
 

@@ -34,6 +34,8 @@ SOURCES = {
     "fk_chain": "fk_chain.cu",
     "rnea_chain": "rnea_chain.cu",
     "jrs_armtd": "jrs_armtd.cu",
+    "jrs_bernstein": "jrs_bernstein.cu",
+    "screen_collision": "screen_collision.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

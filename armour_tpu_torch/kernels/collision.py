@@ -1,12 +1,13 @@
-"""Launchers of the collision kernels K3 (build_hyperplanes) and K4
-(collision_rows).  Called by collision.py for CUDA tensors only; each checks
-device, dtype, shapes and contiguity, raises on anything its kernel does not
-take, allocates the outputs with torch.empty and launches on the current
-stream."""
+"""Launchers of the collision kernels K3 (build_hyperplanes), K4
+(collision_rows) and K13 (screen_collision).  Called by collision.py for
+CUDA tensors only; each checks device, dtype, shapes and contiguity, raises
+on anything its kernel does not take, allocates the outputs with
+torch.empty and launches on the current stream."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -33,6 +34,47 @@ class K4Args(ctypes.Structure):
                 ("g", ctypes.c_void_p), ("dg", ctypes.c_void_p),
                 ("W", ctypes.c_int), ("Q", ctypes.c_int), ("C", ctypes.c_int),
                 ("R", ctypes.c_int), ("TJ", ctypes.c_int), ("F", ctypes.c_int)]
+
+
+class K13Args(ctypes.Structure):
+    _fields_ = [("A", ctypes.c_void_p), ("d", ctypes.c_void_p), ("delta", ctypes.c_void_p),
+                ("center", ctypes.c_void_p), ("env", ctypes.c_void_p),
+                ("obs_mask", ctypes.c_void_p), ("g", ctypes.c_void_p), ("idx", ctypes.c_void_p),
+                ("sort", ctypes.c_void_p), ("A_out", ctypes.c_void_p),
+                ("d_out", ctypes.c_void_p), ("delta_out", ctypes.c_void_p),
+                ("row", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("W", ctypes.c_int), ("C", ctypes.c_int), ("N", ctypes.c_int),
+                ("TJ", ctypes.c_int), ("O", ctypes.c_int), ("B", ctypes.c_int),
+                ("K", ctypes.c_int), ("quota", ctypes.c_int), ("Kp", ctypes.c_int),
+                ("smem_sort", ctypes.c_int)]
+
+
+# csrc/screen_collision.cu: K13_BOUND_THREADS, K13_SELECT_THREADS, K13_GATHER_THREADS
+K13_BOUND_THREADS, K13_SELECT_THREADS, K13_GATHER_THREADS = 256, 1024, 256
+K13_SMEM_SORT_MAX = 64 * 1024   # the sort buffer's largest size in shared memory, bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ScreenGeometry:
+    """K13's launch: (a) bound_grid = (blocks over N, W) of
+    K13_BOUND_THREADS; (b) W blocks of K13_SELECT_THREADS, the sort over Kp
+    (a power of two >= K) entries of 8 bytes, in smem_bytes of dynamic
+    shared memory or (smem_bytes = 0) in a global scratch [W, Kp]; (c)
+    gather_blocks of K13_GATHER_THREADS over (W, C, K)."""
+
+    bound_grid: tuple
+    Kp: int
+    smem_bytes: int
+    gather_blocks: int
+
+
+def k13_geometry(Wn: int, C: int, N: int, K: int) -> ScreenGeometry:
+    Kp = 1
+    while Kp < K:
+        Kp <<= 1
+    smem = Kp * 8 if Kp * 8 <= K13_SMEM_SORT_MAX else 0
+    return ScreenGeometry(bound_grid=(-(-N // K13_BOUND_THREADS), Wn), Kp=Kp, smem_bytes=smem,
+                          gather_blocks=-(-(Wn * C * K) // K13_GATHER_THREADS))
 
 
 def _require(t: torch.Tensor, name: str, shape, dtype=_F32) -> None:
@@ -117,3 +159,51 @@ def collision_rows(A, d, delta, row, mask, p_all, dp_all=None):
             raise RuntimeError(f"collision_rows launch failed: cudaError {err}")
         launched("collision_rows")
     return g, dg
+
+
+def screen_collision(A, d, delta, center_coef, env, obs_mask, K: int, obstacle_quota: int = 0):
+    """K13: the K worst rows (collision.py:screen_collision_plain's order)
+    of the hyperplanes A [W,3,C,N], d / delta [W,C,N] (N = T*J*O, obstacle
+    fastest) at the link centres center_coef [W,T,J,3,B] with their envelope
+    env [W,T,J,3] (collision.screen_envelope) and the real-obstacle mask
+    obs_mask [W,O]: (A [W,3,C,K'], d [W,C,K'], delta [W,C,K'], row int32
+    [W,K'], mask [W,K']), K' = min(K, N)."""
+    Wn, _, C, N = A.shape
+    T, J, _, B = center_coef.shape[1:]
+    O = obs_mask.shape[-1]
+    if N != T * J * O:
+        raise ValueError(f"A has {N} rows, expected T J O = {T * J * O}")
+    _require(A, "A", (Wn, 3, C, N))
+    _require(d, "d", (Wn, C, N))
+    _require(delta, "delta", (Wn, C, N))
+    _require(center_coef, "center_coef", (Wn, T, J, 3, B))
+    _require(env, "env", (Wn, T, J, 3))
+    _require(obs_mask, "obs_mask", (Wn, O), torch.bool)
+    Kk = min(K, N)
+    quota = obstacle_quota if obstacle_quota > 0 and obstacle_quota * O < Kk else 0
+    dev = A.device
+    A_out = torch.empty(Wn, 3, C, Kk, device=dev, dtype=_F32)
+    d_out = torch.empty(Wn, C, Kk, device=dev, dtype=_F32)
+    delta_out = torch.empty(Wn, C, Kk, device=dev, dtype=_F32)
+    row = torch.empty(Wn, Kk, device=dev, dtype=torch.int32)
+    mask = torch.empty(Wn, Kk, device=dev, dtype=torch.bool)
+    record("screen_collision", (tuple(A.shape), O, Kk, quota),
+           (A, d, delta, center_coef, env, obs_mask, K, obstacle_quota))
+    if Wn * Kk:
+        geo = k13_geometry(Wn, C, N, Kk)
+        g = torch.empty(Wn, N, device=dev, dtype=_F32)
+        idx = torch.empty(Wn, Kk, device=dev, dtype=torch.int32)
+        sort = (torch.empty(Wn, geo.Kp, device=dev, dtype=torch.int64)
+                if geo.smem_bytes == 0 else None)
+        args = K13Args(A.data_ptr(), d.data_ptr(), delta.data_ptr(), center_coef.data_ptr(),
+                       env.data_ptr(), obs_mask.data_ptr(), g.data_ptr(), idx.data_ptr(),
+                       sort.data_ptr() if sort is not None else None, A_out.data_ptr(),
+                       d_out.data_ptr(), delta_out.data_ptr(), row.data_ptr(), mask.data_ptr(),
+                       Wn, C, N, T * J, O, B, Kk, quota, geo.Kp, int(geo.smem_bytes > 0))
+        fn = launcher("screen_collision", "k13_launch",
+                      [ctypes.POINTER(K13Args), ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), geo.smem_bytes, _stream(A))
+        if err:
+            raise RuntimeError(f"screen_collision launch failed: cudaError {err}")
+        launched("screen_collision", 3)
+    return A_out, d_out, delta_out, row, mask

@@ -49,7 +49,7 @@ class AlmArgs(ctypes.Structure):
                 ("cost_scale", ctypes.c_float), ("kw", ctypes.c_float),
                 ("qb0", ctypes.c_float), ("qb1", ctypes.c_float), ("qb2", ctypes.c_float),
                 ("qb3", ctypes.c_float), ("two_pi", ctypes.c_float), ("pi", ctypes.c_float),
-                ("inv_dur", ctypes.c_float), ("thr_torque", ctypes.c_float),
+                ("dur", ctypes.c_float), ("thr_torque", ctypes.c_float),
                 ("thr_col", ctypes.c_float), ("thr_state", ctypes.c_float),
                 ("col_margin", ctypes.c_float), ("tp", ctypes.c_float), ("dts", ctypes.c_float),
                 ("g_tp", ctypes.c_float), ("g_ts", ctypes.c_float),
@@ -163,7 +163,7 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     args.tp, args.dts = tp, ts - tp
     args.g_tp, args.g_ts = 0.5 * tp * tp, 0.5 * tp * tp + 0.5 * tp * (ts - tp)
     args.two_pi, args.pi = 2.0 * math.pi, math.pi
-    args.inv_dur = float(np.float32(1.0) / np.float32(cfg.duration))
+    args.dur = cfg.duration
     args.thr_torque = cfg.torque_violation_threshold
     args.thr_col = cfg.collision_violation_threshold
     args.thr_state = 0.5 * cfg.state_limit_margin

@@ -45,7 +45,7 @@ from .jrs import TrajectoryCoeffs
 from .kinematics import LinkFRS
 from .pz.basis import KBasis
 from .robot import RobotModel
-from .utils import to_device
+from .utils import div, to_device
 
 
 def wrap_to_pi(x):
@@ -200,7 +200,8 @@ def joint_velocity_extrema(k, traj: TrajectoryCoeffs, cfg: ArmourConfig):
         torch.stack([v0, v1, v2, v3]),
         torch.stack([torch.zeros_like(k), torch.zeros_like(k), dqd_dk(e2), dqd_dk(e3)]),
         torch.stack([true, true, _root_ok(valid, e2, v2), _root_ok(valid, e3, v3)]))
-    return (qd_min / dur, qd_max / dur, g_min * k_range / dur, g_max * k_range / dur)
+    return (div(qd_min, dur), div(qd_max, dur), div(g_min * k_range, dur),
+            div(g_max * k_range, dur))
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,11 @@ import numpy as np
 import torch
 
 from .collision import (ObstacleSet, build_hyperplanes, build_hyperplanes_plain, pad_obstacles,
-                        screen_collision)
+                        screen_collision, screen_collision_plain)
 from .armtd import build_jrs_armtd, build_jrs_armtd_plain
 from .config import ArmourConfig
 from .dynamics import torque_frs
-from .jrs import build_jrs
+from .jrs import build_jrs, build_jrs_plain
 from .kinematics import forward_occupancy, forward_occupancy_plain, reduce_links
 from .nlp import PlanProblem, SolveResult, robot_limits, solve
 from .pz.basis import KBasis, make_basis
@@ -33,14 +33,15 @@ def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
                  cfg: ArmourConfig, basis: KBasis, plain: bool = False) -> PlanProblem:
     """Reachable sets, hyperplanes and screened rows of one planning step.
     q0/qd0/qdd0/q_des [W, F] tensors, obs [W, O, ...] on one device.
-    cfg.traj_family "armtd" builds the constant-acceleration JRS (kernel K11
-    on the card) and ignores qdd0.  On the card the FK chain is kernel K9,
-    the RNEA kernel K10 and the hyperplanes kernel K3; plain=True takes
-    their plain versions on any device."""
+    The Bernstein JRS is kernel K12 on the card; cfg.traj_family "armtd"
+    builds the constant-acceleration JRS (kernel K11) and ignores qdd0.  On
+    the card the FK chain is kernel K9, the RNEA kernel K10, the
+    hyperplanes kernel K3 and the screen kernel K13; plain=True takes their
+    plain versions on any device."""
     if cfg.traj_family == "armtd":
         jrs = (build_jrs_armtd_plain if plain else build_jrs_armtd)(q0, qd0, robot, cfg, basis)
     elif cfg.traj_family == "bernstein":
-        jrs = build_jrs(q0, qd0, qdd0, robot, cfg, basis)
+        jrs = (build_jrs_plain if plain else build_jrs)(q0, qd0, qdd0, robot, cfg, basis)
     else:
         raise NotImplementedError(f"unknown trajectory family {cfg.traj_family!r}")
     return problem_from_jrs(jrs, q_des, obs, robot, cfg, basis, plain=plain)
@@ -49,14 +50,15 @@ def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
 def problem_from_jrs(jrs, q_des, obs: ObstacleSet, robot: RobotModel, cfg: ArmourConfig,
                      basis: KBasis, *, plain: bool = False) -> PlanProblem:
     """The stages after the JRS, shared by both trajectory families: FK
-    (K9), RNEA (K10), hyperplanes (K3) and the screen."""
+    (K9), RNEA (K10), hyperplanes (K3) and the screen (K13)."""
     if cfg.grasp_constraints:
         raise NotImplementedError("grasp constraints are not ported yet")
     fk = forward_occupancy_plain if plain else forward_occupancy
     frs = reduce_links(fk(jrs, robot, cfg, basis), basis)
     torque = torque_frs(jrs, robot, cfg, basis, plain=plain)
     hyp = (build_hyperplanes_plain if plain else build_hyperplanes)(frs, obs)
-    screened = screen_collision(hyp, obs, frs, cfg.screen_k, cfg.screen_obstacle_quota)
+    screened = (screen_collision_plain if plain else screen_collision)(
+        hyp, obs, frs, cfg.screen_k, cfg.screen_obstacle_quota)
     return PlanProblem(traj=jrs.traj, q_des=q_des, torque=torque, frs=frs, hyp=hyp,
                        obs=obs, screened=screened,
                        limits=robot_limits(robot, q_des.dtype, q_des.device))

@@ -23,6 +23,7 @@ import torch
 from . import bezier
 from .armtd import g_k_adaptive
 from .config import ArmourConfig
+from .utils import div
 
 
 @dataclasses.dataclass
@@ -66,12 +67,12 @@ def advance_plan(ref: PlanRef, k_new, q0, qd0, qdd0, cfg: ArmourConfig) -> PlanR
 
 def _bezier_state(q0, qd0, qdd0, k_act, t, cfg: ArmourConfig):
     dur = cfg.duration
-    s = torch.clamp(t / dur, 0.0, 1.0)
+    s = torch.clamp(div(t, dur), 0.0, 1.0)
     Tqd0 = qd0 * dur
     TTqdd0 = qdd0 * dur * dur
     q = bezier.q_des(q0, Tqd0, TTqdd0, k_act, s)
-    qd = bezier.qd_des(q0, Tqd0, TTqdd0, k_act, s) / dur
-    qdd = bezier.qdd_des(q0, Tqd0, TTqdd0, k_act, s) / (dur * dur)
+    qd = div(bezier.qd_des(q0, Tqd0, TTqdd0, k_act, s), dur)
+    qdd = div(bezier.qdd_des(q0, Tqd0, TTqdd0, k_act, s), dur * dur)
     return q, qd, qdd
 
 
@@ -83,7 +84,7 @@ def _armtd_state(q0, qd0, qdd0, k_act, t, cfg: ArmourConfig):
     tp, ts = cfg.t_plan, cfg.duration
     t = torch.clamp(t, 0.0, ts)
     qd_pk = qd0 + k_act * tp
-    brk = -qd_pk / (ts - tp)
+    brk = div(-qd_pk, ts - tp)
     q1 = q0 + qd0 * t + 0.5 * k_act * t * t
     qd1 = qd0 + k_act * t
     tau = t - tp

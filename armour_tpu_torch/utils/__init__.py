@@ -8,3 +8,21 @@ def to_device(x, dtype, device) -> torch.Tensor:
     """Host array -> tensor on `device` without a stream synchronisation
     (a pageable host-to-device copy is staged before the call returns)."""
     return torch.as_tensor(np.asarray(x), dtype=dtype).to(device, non_blocking=True)
+
+
+_DIVISORS = {}
+
+
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c for a Python number c, an IEEE division on every device.
+
+    On a CUDA tensor, x / c with c a Python number is a multiply by c's
+    float32 reciprocal (ATen's shortcut), one ulp from the division the CPU,
+    the JAX package and the kernels compute; dividing by c as a 0-d tensor
+    on x's device (formed once per value, dtype and device) divides."""
+    key = (float(c), x.dtype, x.device)
+    t = _DIVISORS.get(key)
+    if t is None:
+        t = torch.tensor(float(c), dtype=x.dtype, device=x.device)
+        _DIVISORS[key] = t
+    return x / t

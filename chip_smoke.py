@@ -43,8 +43,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. the closed loop at the flagship width: run_trials_batched over the same
      64 worlds, 3 iterations, straight-line guidance with the rescue solver,
      worst-case true parameters, seed 0, the launch counters set to 0 just
-     before it; K5 (rollout) and K6 (oracle_check) must launch once per
-     iteration and no world may raise a safety flag.  Per iteration: plan,
+     before it; every kernel of the step (K12 and K13 included) must launch,
+     K5 (rollout) and K6 (oracle_check) once per iteration, and no world
+     may raise a safety flag.  Per iteration: plan,
      rescue, rollout (K5), oracles (K6) and the host time left over.
   6. K5 and K6 against their plain versions on the inputs recorded in phase
      5 (the first move: 500 control steps of 64 worlds), with the tolerances
@@ -60,13 +61,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      CUDA-event medians of 20, the plain K5 (a launch-bound Python loop of
      ~2M small launches) over one call.
   7. one plan at the rescue profile (strong_config: 8 x 6 iterations, seeds
-     4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8 and K9 / K10
-     against their plain versions at its shapes, all four timed.
+     4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8, K9 / K10 and
+     K12 / K13 against their plain versions at its shapes, all timed.
   8. the real-time planner: make_realtime_planner calibrates on the card
      (its calibration printed), then batch-1 p50/p99 through the calibrated
      step over the first 32 worlds, counted (every kernel of the step must
-     launch); K7 / K8 and K9 / K10 against their plain versions at the
-     W = 1 shapes, all four timed.
+     launch); K7 / K8, K9 / K10 and K12 / K13 against their plain versions
+     at the W = 1 shapes, all timed.
   9. containment: for the first 8 worlds of the step, 64 sampled k per world
      at a sampled time inside each of the 128 sub-intervals: every numeric
      link centre inside K9's sliced link hull and inside its centre set
@@ -87,9 +88,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with start velocities seeded uniform in +-ARMTD_QD0 rad/s: one warm-up
      step that records each kernel's inputs, then one step with the launch
      counters set to 0 just before it and read just after, which must
-     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, and neither K1
-     nor K2; every recorded call (K11, K3, K4, K7 / K8's ARMTD branch on
-     every shape, K9 / K10 on the ARMTD sets) against its plain version
+     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, K13, and
+     neither K1, K2 nor K12; every recorded call (K11, K3, K4, K13, K7 /
+     K8's ARMTD branch on every shape, K9 / K10 on the ARMTD sets) against
+     its plain version
      with the tolerances above, each kernel twice for the same bits, all
      timed; every feasible k passes the plain full-set check; the solve
      with K7 / K8 against the plain rows (the same feasible count, max
@@ -763,29 +765,41 @@ REPLACES = {
     "fk_chain": ("armour_tpu_torch/csrc/fk_chain.cu", "armour_tpu/kinematics.py:97"),
     "rnea_chain": ("armour_tpu_torch/csrc/rnea_chain.cu", "armour_tpu/dynamics.py:160"),
     "jrs_armtd": ("armour_tpu_torch/csrc/jrs_armtd.cu", "armour_tpu/armtd.py:77"),
+    "jrs_bernstein": ("armour_tpu_torch/csrc/jrs_bernstein.cu", "armour_tpu/jrs.py:220"),
+    "screen_collision": ("armour_tpu_torch/csrc/screen_collision.cu",
+                         "armour_tpu/collision.py:193"),
 }
 # the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
 # only the uncertain-COM route, which phase 3 drives as their own path
+# the kernels of a planning step of either trajectory family, after its JRS
 STEP_KERNELS = ("build_hyperplanes", "collision_rows", "alm_newton", "alm_values",
-                "fk_chain", "rnea_chain")
+                "fk_chain", "rnea_chain", "screen_collision")
+# a Bernstein step: its JRS is K12 (the ARMTD family's is K11)
+BERNSTEIN_KERNELS = ("jrs_bernstein",) + STEP_KERNELS
 OP_KERNELS = ("pz_matmul_linear", "pz_cross")
-PLANNING_KERNELS = OP_KERNELS + STEP_KERNELS
+PLANNING_KERNELS = OP_KERNELS + BERNSTEIN_KERNELS
 HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperplanes": "k3",
                       "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
                       "alm_newton": "k7", "alm_values": "k8", "fk_chain": "k9",
-                      "rnea_chain": "k10", "jrs_armtd": "k11"}
+                      "rnea_chain": "k10", "jrs_armtd": "k11", "jrs_bernstein": "k12",
+                      "screen_collision": "k13"}
 
 
 def kernel_phase(captured, launches, device_launches, dev):
     from armour_tpu_torch.utils.timing import median_ms
 
-    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0, "calls": 0}
-            for k in PLANNING_KERNELS}
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0, "calls": 0,
+                "library_ms": None} for k in PLANNING_KERNELS}
     all_ok = True
     for (name, key), inputs in captured.items():
         if name not in rows:
             continue
-        if name in ("pz_matmul_linear", "pz_cross"):
+        library = None
+        if name == "jrs_bernstein":
+            res = check_jrs(name, inputs, dev)
+        elif name == "screen_collision":
+            *res, library = check_screen(inputs, dev)
+        elif name in ("pz_matmul_linear", "pz_cross"):
             res = check_pz(name, inputs, dev)
         elif name == "build_hyperplanes":
             res = check_hyperplanes(inputs, dev)
@@ -807,12 +821,24 @@ def kernel_phase(captured, launches, device_launches, dev):
         r["flops"] += flops
         r["err"] = max(r["err"], err)
         r["calls"] += 1
+        lib = ""
+        if library is not None:
+            lms = median_ms(library, dev, TIMING_ITERS)
+            r["library_ms"] = (r["library_ms"] or 0.0) + lms
+            lib = f", library (torch.topk of the same K over the same bound) {lms:.4f} ms"
         print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB")
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms{lib}, {nbytes / 1e6:.1f} MB")
         if name == "fk_chain":
             print(f"  {name} {key}: {check_k9_geometries(inputs)}")
         elif name in OP_KERNELS:
             print(f"  {name} {key}: {check_op_geometries(name, inputs)}")
+        elif name == "screen_collision":
+            for label, x in screen_variants(inputs):
+                ok_v, _, kern_v, plain_v, _, _, note_v, _ = check_screen(x, dev)
+                print(f"  {name} {key}, {label}: {'ok' if ok_v else 'MISMATCH'} ({note_v}); "
+                      f"kernel {median_ms(kern_v, dev, TIMING_ITERS):.4f} ms, plain "
+                      f"{median_ms(plain_v, dev, TIMING_ITERS):.4f} ms")
+                ok &= ok_v
         all_ok &= ok
     out = []
     for name in PLANNING_KERNELS:
@@ -830,7 +856,7 @@ def kernel_phase(captured, launches, device_launches, dev):
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": None, "variants": r["calls"],
+                    "library_ms": r["library_ms"], "variants": r["calls"],
                     "device_launches": device_launches[name]})
     if not all_ok:
         fail("a kernel disagrees with its plain version")
@@ -1172,7 +1198,7 @@ def closed_loop_phase(robot, cfg, dev):
               f"to host) {rec['oracles_s'] * 1e3:.1f} ms, host left over {host * 1e3:.1f} ms")
     if n_it < 1:
         fail("the closed loop ran no iteration")
-    for name in STEP_KERNELS:
+    for name in BERNSTEIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the closed-loop path")
     for name in ("rollout", "oracle_check"):
@@ -1292,12 +1318,15 @@ def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
     n = kernels.counts()
     print(f"phase 7: rescue-profile solve over W={N_WORLDS} in {t * 1e3:.1f} ms, "
           f"{int(res.feasible.sum())} feasible; K7 x{n['alm_newton']}, K8 x{n['alm_values']}, "
-          f"K9 x{n['fk_chain']}, K10 x{n['rnea_chain']} (its reach sets)")
-    if n["alm_newton"] == 0 or n["alm_values"] == 0 or n["fk_chain"] == 0 \
-            or n["rnea_chain"] == 0:
-        fail("the rescue-profile plan did not launch K7 to K10")
+          f"K9 x{n['fk_chain']}, K10 x{n['rnea_chain']}, K12 x{n['jrs_bernstein']}, "
+          f"K13 x{n['screen_collision']} (its reach sets and screen)")
+    for name in ("alm_newton", "alm_values", "fk_chain", "rnea_chain", "jrs_bernstein",
+                 "screen_collision"):
+        if n[name] == 0:
+            fail(f"the rescue-profile plan did not launch {name}")
     check_alm_captures(captured, dev, "rescue profile")
     check_chain_captures(captured, dev, "rescue profile")
+    check_jrs_screen_captures(captured, dev, "rescue profile")
     captured.clear()
 
 
@@ -1320,11 +1349,12 @@ def realtime_phase(robot, cfg, one, dev) -> dict:
     print(f"  batch-1 through the calibrated step ({cal['outer_iters']} outer iterations) over "
           f"{len(one)} worlds: p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms against 500 ms; "
           f"fits_budget {cal['fits_budget']}; launches {n}")
-    for name in STEP_KERNELS:
+    for name in BERNSTEIN_KERNELS:
         if n[name] == 0:
             fail(f"kernel {name} was not launched on the real-time path")
     check_alm_captures(captured, dev, "real-time path")
     check_chain_captures(captured, dev, "real-time path (W = 1)")
+    check_jrs_screen_captures(captured, dev, "real-time path (W = 1)")
     captured.clear()
     return {"realtime_calibration": cal, "realtime_p50_ms": p50 * 1e3,
             "realtime_p99_ms": p99 * 1e3, "realtime_ok": p99 < 0.5}
@@ -1451,7 +1481,7 @@ def armour_io_phase(robot, cfg, dev) -> dict:
         files = {name: np.loadtxt(os.path.join(od, name)) for name in (
             "armour_joint_position_center.out", "armour_joint_position_radius.out",
             "armour_control_input_radius.out", "armour_constraints.out")}
-    for name in STEP_KERNELS:
+    for name in BERNSTEIN_KERNELS:
         if n[name] == 0:
             fail(f"kernel {name} was not launched by plan_from_armour_in")
     if not out["feasible"] or k_file is None:
@@ -1526,7 +1556,8 @@ def rest_checker_phase(robot, cfg, args_dev, obs_dev, dev) -> dict:
           f"(plain route {int((ref > 0).sum())}); sign differs in {flips}; planted margin "
           f"{got[-1]:.4g} m (plain {ref[-1]:.4g}); max |d| {float(np.abs(got - ref).max()):.3g}; "
           f"launches {n}")
-    for name in ("fk_chain", "rnea_chain", "build_hyperplanes", "collision_rows"):
+    for name in ("fk_chain", "rnea_chain", "build_hyperplanes", "collision_rows",
+                 "jrs_bernstein", "screen_collision"):
         if n[name] == 0:
             fail(f"kernel {name} was not launched by the rest-FRS checker")
     if flips or not got[-1] > 0:
@@ -1563,7 +1594,7 @@ def hard_phase(robot, cfg, dev) -> dict:
           f"included): bucket {res.bucket()}, {s.infeasible_plans} infeasible plans, "
           f"{s.rescued_plans} rescued, goal distance {s.goal_distance_final:.3f}, flags "
           f"{flags}; launches {counts}")
-    for name in STEP_KERNELS + ("rollout", "oracle_check"):
+    for name in BERNSTEIN_KERNELS + ("rollout", "oracle_check"):
         if counts[name] == 0:
             fail(f"kernel {name} was not launched on the hard scenario")
     for name in OP_KERNELS:
@@ -1582,45 +1613,162 @@ def hard_phase(robot, cfg, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_jrs_armtd(inputs, dev):
-    """K11 against build_jrs_armtd_plain on the card: every coef / egen /
-    rad entry of R, qd, qda, qdda and the trajectory scalars within TOL
-    (1 + |plain entry|) (the same float32 operations; cos / sin and the
-    3x3 products may round differently); a second call gives the same bits."""
-    from armour_tpu_torch import armtd
+def check_jrs(name, inputs, dev):
+    """K11 (name jrs_armtd) against build_jrs_armtd_plain, or K12
+    (jrs_bernstein) against build_jrs_plain, on the card: the velocity PZs
+    qd, qda, qdda and the trajectory scalars bit for bit; R's coef / egen /
+    rad entries within TOL (1 + |plain entry|) (its cos / sin and 3x3
+    products may round differently); a second call gives the same bits."""
+    from armour_tpu_torch import armtd, jrs
     from armour_tpu_torch.kernels import jrs as kjrs
 
-    q0, qd0, robot, cfg, basis = inputs
+    if name == "jrs_armtd":
+        q0, qd0, robot, cfg, basis = inputs
+        qs = (q0, qd0)
 
-    def kern():
-        return kjrs.jrs_armtd(q0, qd0, robot, cfg, basis)
+        def kern():
+            return kjrs.jrs_armtd(q0, qd0, robot, cfg, basis)
 
-    def plain():
-        return armtd.build_jrs_armtd_plain(q0, qd0, robot, cfg, basis)
+        def plain():
+            return armtd.build_jrs_armtd_plain(q0, qd0, robot, cfg, basis)
+    else:
+        q0, qd0, qdd0, robot, cfg, basis = inputs
+        qs = (q0, qd0, qdd0)
+
+        def kern():
+            return kjrs.jrs_bernstein(q0, qd0, qdd0, robot, cfg, basis)
+
+        def plain():
+            return jrs.build_jrs_plain(q0, qd0, qdd0, robot, cfg, basis)
 
     got, again, ref = kern(), kern(), plain()
     torch.cuda.synchronize(dev)
-    pairs = [(getattr(getattr(x, f), g) for x in (got, again, ref))
-             for f in ("R", "qd", "qda", "qdda") for g in ("coef", "egen", "rad")]
-    pairs += [(getattr(x.traj, n) for x in (got, again, ref))
-              for n in ("qdd0", "Tqd0", "TTqdd0", "k_scale")]
-    ratio, err, same, exact = 0.0, 0.0, True, True
-    for a, b, r in pairs:
+    rot = [(getattr(x.R, g) for x in (got, again, ref)) for g in ("coef", "egen", "rad")]
+    exact_fields = [(getattr(getattr(x, f), g) for x in (got, again, ref))
+                    for f in ("qd", "qda", "qdda") for g in ("coef", "egen", "rad")]
+    exact_fields += [(getattr(x.traj, n) for x in (got, again, ref))
+                     for n in ("qdd0", "Tqd0", "TTqdd0", "k_scale")]
+    ratio, err, same, r_exact, v_exact = 0.0, 0.0, True, True, True
+    for i, (a, b, r) in enumerate(rot + exact_fields):
         same &= torch.equal(a, b)
-        exact &= torch.equal(a, r)
+        eq = torch.equal(a, r)
+        if i < len(rot):
+            r_exact &= eq
+        else:
+            v_exact &= eq
         d = (a - r).abs()
         err = max(err, float(d.max()))
         ratio = max(ratio, float((d / (TOL * (1.0 + r.abs()))).max()))
     out_bytes = sum(_bpz_bytes(p) for p in (got.R, got.qd, got.qda, got.qdda)) \
         + 3 * _nbytes(got.traj.k_scale)
     Wn, T = got.R.rad.shape[:2]
-    # per (world, sub-interval, factor): the element (~120), the trig tail
-    # with its four interval cos / sin (~4 x 20 + 60), four 3x3 products (216)
-    flops = Wn * T * robot.num_factors * 480
-    return ratio <= 1.0 and same, err, kern, plain, _nbytes(q0, qd0) + out_bytes, flops, \
-        (f"worst |d| / (TOL (1 + |plain|)) {ratio:.3g}, max |d| {err:.3g}; "
-         f"{'the same bits as the plain version; ' if exact else ''}a second call "
-         f"{'gives the same bits' if same else 'DIFFERS'}")
+    # per (world, sub-interval, factor): the element (K11 ~120; K12's bounds
+    # of three parts at four points with powf ~600), the trig tail with its
+    # four interval cos / sin (~4 x 20 + 60), four 3x3 products (216)
+    flops = Wn * T * robot.num_factors * (480 if name == "jrs_armtd" else 960)
+    return ratio <= 1.0 and same and v_exact, err, kern, plain, _nbytes(*qs) + out_bytes, \
+        flops, (f"velocity PZs and trajectory scalars "
+                f"{'bit for bit' if v_exact else 'DIFFER'}; R "
+                f"{'bit for bit' if r_exact else f'worst |d| / (TOL (1 + |plain|)) {ratio:.3g}'}"
+                f", max |d| {err:.3g}; a second call "
+                f"{'gives the same bits' if same else 'DIFFERS'}")
+
+
+def _screen_args(inputs):
+    """Phase-3 views of a recorded K13 call: the plain version's arguments."""
+    from armour_tpu_torch import collision as col
+    from armour_tpu_torch.kinematics import LinkFRS
+
+    A, d, delta, center_coef, env, obs_mask, K, quota = inputs
+    T, J = center_coef.shape[1:3]
+    hyp = col.Hyperplanes(A=A, d=d, delta=delta, dims=(T, J, obs_mask.shape[1]))
+    obs = col.ObstacleSet(centers=None, generators=None, mask=obs_mask)
+    frs = LinkFRS(center_coef=center_coef, shape_gens=None, radius=None)
+    return hyp, obs, frs, K, quota
+
+
+def check_screen(inputs, dev):
+    """K13 against screen_collision_plain on the card: the same rows in the
+    same order and the same bits in every field; a second call gives the
+    same bits.  Also returns the library call: torch.topk of the same K
+    over the same [W, N] bound (the selection alone)."""
+    from armour_tpu_torch import collision as col
+    from armour_tpu_torch.kernels import collision as kcol
+
+    A, d, delta, center_coef, env, obs_mask, K, quota = inputs
+    hyp, obs, frs, _, _ = _screen_args(inputs)
+
+    def kern():
+        return kcol.screen_collision(A, d, delta, center_coef, env, obs_mask, K, quota)
+
+    def plain():
+        return col.screen_collision_plain(hyp, obs, frs, K, quota)
+
+    got, again, ref = kern(), kern(), plain()
+    ref = (ref.A, ref.d, ref.delta, ref.row, ref.mask)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+              for a, b in zip(got, ref))
+    g_up, _ = col._screen_bound(hyp, obs, frs)
+    ties = int(g_up.numel() - sum(torch.unique(x).numel() for x in g_up))
+    torch.cuda.synchronize(dev)
+    Wn, C, N = d.shape
+    Kk = got[3].shape[1]
+    TJ = center_coef.shape[1] * center_coef.shape[2]
+    nbytes = _nbytes(A, d, delta, env, obs_mask, *got) + Wn * TJ * 3 * 4   # + p0
+    flops = Wn * N * C * 22
+    library = lambda: torch.topk(g_up, Kk, dim=-1)   # noqa: E731
+    return exact and same, err, kern, plain, nbytes, flops, \
+        (f"K = {Kk}, quota {quota}: indices and every field "
+         f"{'bit for bit' if exact else 'DIFFER'} ({ties} tied bounds among {g_up.numel()}); "
+         f"a second call {'gives the same bits' if same else 'DIFFERS'}"), library
+
+
+def screen_variants(inputs):
+    """K13's inputs with an obstacle quota of 8, and with planted ties:
+    every odd obstacle slot a copy of the even one before it (hyperplanes
+    and mask), so that rows tie in pairs; both at quota 0 and 8."""
+    A, d, delta, center_coef, env, obs_mask, K, quota = inputs
+    Wn, _, C, N = A.shape
+    O = obs_mask.shape[1]
+    if O % 2:
+        fail("the planted-tie copy takes an even obstacle count")
+
+    def pair(x):
+        y = x.reshape(*x.shape[:-1], N // O, O).clone()
+        y[..., 1::2] = y[..., 0::2]
+        return y.reshape(x.shape)
+
+    m = obs_mask.clone()
+    m[:, 1::2] = m[:, 0::2]
+    tied = (pair(A), pair(d), pair(delta), center_coef, env, m)
+    return [("quota 8", (A, d, delta, center_coef, env, obs_mask, K, 8)),
+            ("planted ties", tied + (K, 0)), ("planted ties, quota 8", tied + (K, 8))]
+
+
+def check_jrs_screen_captures(captured, dev, label) -> None:
+    """K12 / K13 against their plain versions on every shape recorded on a
+    path other than the main one, both timed; fails on a mismatch."""
+    from armour_tpu_torch.utils.timing import median_ms
+
+    n, all_ok = set(), True
+    for (name, key), inputs in captured.items():
+        if name == "jrs_bernstein":
+            ok, _, kern, plain, nbytes, _, note = check_jrs(name, inputs, dev)
+        elif name == "screen_collision":
+            ok, _, kern, plain, nbytes, _, note, _ = check_screen(inputs, dev)
+        else:
+            continue
+        ms, pms = median_ms(kern, dev, TIMING_ITERS), median_ms(plain, dev, TIMING_ITERS)
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms (medians of {TIMING_ITERS}), {nbytes / 1e6:.1f} MB")
+        all_ok &= ok
+        n.add(name)
+    if n != {"jrs_bernstein", "screen_collision"}:
+        fail(f"K12 and K13 were not both recorded on the {label}")
+    if not all_ok:
+        fail(f"K12 / K13 disagree with their plain versions on the {label}")
 
 
 def armtd_inputs(q0, cfg, n, dev):
@@ -1665,8 +1813,9 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
           f"+-{ARMTD_QD0} rad/s ({int((gk > math.pi / 24).sum())} of {gk.numel()} factors "
           f"above g_k's floor): W={N_WORLDS} step {t_main * 1e3:.1f} ms (first call "
           f"{t_first * 1e3:.1f} ms); launches {launches}")
-    if launches["jrs_armtd"] != 1:
-        fail(f"K11 launched {launches['jrs_armtd']} times in one ARMTD step")
+    if launches["jrs_armtd"] != 1 or launches["jrs_bernstein"] != 0:
+        fail(f"K11 launched {launches['jrs_armtd']} times and K12 {launches['jrs_bernstein']} "
+             f"times in one ARMTD step (once and never)")
     for name in STEP_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the ARMTD step")
@@ -1675,9 +1824,10 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
             fail(f"kernel {name} was launched on the ARMTD step")
 
     # every recorded call against its plain version, each kernel twice
-    check = {"jrs_armtd": check_jrs_armtd, "build_hyperplanes": check_hyperplanes,
-             "collision_rows": check_rows, "alm_newton": check_alm_newton,
-             "alm_values": check_alm_values}
+    check = {"jrs_armtd": lambda x, d: check_jrs("jrs_armtd", x, d),
+             "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
+             "alm_newton": check_alm_newton, "alm_values": check_alm_values,
+             "screen_collision": lambda x, d: check_screen(x, d)[:7]}
     sums = {}
     k11 = None
     all_ok = True
@@ -1858,9 +2008,12 @@ def main() -> None:
     print(f"phase 2: W={N_WORLDS} planning step {t_main * 1e3:.1f} ms "
           f"(first call {t_first * 1e3:.1f} ms); launches {launches}; device launches "
           f"{device_launches}")
-    for name in STEP_KERNELS:
+    for name in BERNSTEIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
+    for name in ("jrs_bernstein", "screen_collision"):
+        if launches[name] != 1:
+            fail(f"kernel {name} launched {launches[name]} times in one step, not once")
     for name in OP_KERNELS:
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the main path: the reach sets should run "

@@ -160,6 +160,13 @@ def test_kernel_launchers_refuse_cpu_tensors():
         ksolver.alm_values(rows, k, lam, rho, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         kjrs.jrs_armtd(torch.zeros(2, 7), torch.zeros(2, 7), robot, cfg4, basis)
+    with pytest.raises(ValueError, match="CUDA"):
+        kjrs.jrs_bernstein(torch.zeros(2, 7), torch.zeros(2, 7), torch.zeros(2, 7), robot, cfg4,
+                           basis)
+    with pytest.raises(ValueError, match="CUDA"):
+        kcol.screen_collision(torch.zeros(1, 3, 36, 56), torch.zeros(1, 36, 56),
+                              torch.zeros(1, 36, 56), torch.zeros(1, 2, 7, 3, 120),
+                              torch.zeros(1, 2, 7, 3), torch.ones(1, 4, dtype=torch.bool), 16)
 
 
 def test_cpu_wrappers_take_the_plain_versions():
@@ -227,7 +234,7 @@ def test_build_flags_keep_ieee_float32():
 def test_kernel_argument_structs_fit_the_parameter_space():
     """The argument structs travel as kernel parameters (4 KB limit)."""
     for s in (kpz.K1Args, kpz.K2Args, kreach.K9Args, kreach.K10Args, kcol.K3Args, kcol.K4Args, ksim.K5Args, ksim.K6Args,
-              ksolver.AlmArgs, kjrs.K11Args):
+              ksolver.AlmArgs, kjrs.K11Args, kjrs.K12Args, kcol.K13Args):
         assert ctypes.sizeof(s) <= 4096
     assert ctypes.sizeof(kpz.PZView) == 3 * 8 + 9 * 8 + 6 * 8
 
@@ -257,7 +264,9 @@ def _c_struct_fields(source: str, name: str):
     ("fk_chain.cu", (kreach.K9Args,)),
     ("rnea_chain.cu", (kreach.K10Args,)),
     ("jrs_tail.cuh", (kjrs.JrsTrig,)),
-    ("jrs_armtd.cu", (kjrs.K11Args,))])
+    ("jrs_armtd.cu", (kjrs.K11Args,)),
+    ("jrs_bernstein.cu", (kjrs.K12Args,)),
+    ("screen_collision.cu", (kcol.K13Args,))])
 def test_closed_loop_structs_match_the_sources(src, structs):
     """The ctypes mirrors list the C structs' fields in the same order (no
     compiler here checks the layout)."""
