@@ -10,7 +10,7 @@
 //   g = grad cost + sum_r J_r max(z_r, 0)
 //   H = sum_r (J_r rho [active]) J_r^T + Hc + 1e-3 I          (lower triangle)
 //   step = H^-1 g (7x7 Cholesky),  m0 = cost + sum_r [active] z_r^2 / (2 rho)
-//   feas = all(c <= thr)
+//   feas = all(c <= thr),  and the cost itself (the solve loop's tracker, K14)
 //
 // over the M = 2 T F + K + 8 F rows, without writing the Jacobian.
 //
@@ -44,7 +44,8 @@
 //   (c) finish: a CTA per (world, seed) sums the partials of (a) and (b) in
 //       tile order (six chunks of tiles, then the chunks in order), adds the
 //       state rows (alm_state_rows) and the cost (alm_cost), factors H (7x7
-//       Cholesky) and writes step, m0 and feas, and g and H when asked.
+//       Cholesky) and writes step, m0, feas and the cost, and g and H when
+//       asked.
 //
 // R and RB come from kernels/solver.py:k7_geometry (the largest tiles that
 // still give >= 2 x 132 CTAs).  No atomics: every sum has a fixed order, so
@@ -303,7 +304,7 @@ __global__ void __launch_bounds__(K7C_THREADS) k7_finish_kernel(const AlmArgs a,
     const float* lam = a.lam + ((long long)w * S + s) * a.M;
     const float rho = a.rho[(long long)w * S + s];
     float c8[8], j8[8];
-    alm_state_rows(a, w, f, kq[f], c8, j8);
+    alm_state_rows(a, a.limits, w, f, kq[f], c8, j8);
     float gf = 0.0f, hf = 0.0f, pe = 0.0f, co = 0.0f;
     for (int grp = 0; grp < 8; ++grp) {
       const float c = alm_clip(c8[grp]);
@@ -401,6 +402,7 @@ __global__ void __launch_bounds__(K7C_THREADS) k7_finish_kernel(const AlmArgs a,
   for (int i = 0; i < NF; ++i) a.step[o * NF + i] = y[i];
   a.value[o] = cost + acc[NF + NT] / (2.0f * rho);
   a.feas[o] = acc[NF + NT + 1] == 0.0f ? 1 : 0;
+  if (a.cost != nullptr) a.cost[o] = cost;
 }
 
 static size_t k7_rows_smem(int B, int NV, int S, int R) {

@@ -45,7 +45,8 @@ struct AlmArgs {
   const int* row;                   // [W, K] (time, link) cell of each screened row
   const unsigned char* mask;        // [W, K] real obstacle
   const float* traj;                // [W, 5, F]: q0, Tqd0 (ARMTD: qd0), TTqdd0, k_scale, q_des
-  const float* limits;              // [3, F]: pos_lb, pos_ub, vel_ub, margin-tightened
+  const float* limits;              // [6, F]: pos_lb, pos_ub, vel_ub, margin-tightened, then
+                                    // the same untightened (K8's max mode)
   const unsigned char* continuous;  // [F]
   const float* k;                   // [W, Q, F] query points
   const float* lam;                 // [W, S, M] multipliers
@@ -57,8 +58,11 @@ struct AlmArgs {
   float* g;                         // K7 [W, Q, F] or null
   float* H;                         // K7 [W, Q, F, F] or null
   float* c;                         // K8 [W, Q, M] or null
+  float* cost;                      // [W, Q] the cost at each query, or null
+  float* vmax;                      // K8's max mode: [W, Q, 2] torque and state maxima
   int W, Q, S, M, TF, TJ, C, K, B, F;
   int armtd;                        // 1: the constant-acceleration family
+  int maxima;                       // 1: K8's max mode (max_violations' torque and state rows)
   float cost_scale;                 // cfg.cost_scale
   float kw;                         // d q_plan / d k_actual at t_plan (ARMTD: 0.5 tp^2)
   float qb0, qb1, qb2, qb3;         // q_des's Bernstein weights at t_plan (b3+b4+b5 last)
@@ -281,8 +285,8 @@ __device__ __forceinline__ void alm_select(const float* v, const float* gr, cons
 // q0, q(t_plan), q(duration) and the phase-1 vertex at t* = -qd0 / k_act
 // where it lies in (0, t_plan); velocity candidates qd0, the peak qd0 + k_act
 // t_plan and 0, already in rad/s (no 1 / duration).  traj's row 1 holds qd0.
-__device__ void alm_armtd_state_rows(const AlmArgs& a, int w, int f, float kf, float* c,
-                                     float* jf) {
+__device__ void alm_armtd_state_rows(const AlmArgs& a, const float* lim, int w, int f, float kf,
+                                     float* c, float* jf) {
   const int F = a.F;
   const float* tr = a.traj + (long long)w * 5 * F;
   const float q0 = tr[f], qd0 = tr[F + f], kr = tr[3 * F + f];
@@ -304,7 +308,7 @@ __device__ void alm_armtd_state_rows(const AlmArgs& a, int w, int f, float kf, f
   gr[2] = a.g_ts;
   gr[3] = (0.5f * ts) * ts;
   alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
-  const float lb = a.limits[f], ub = a.limits[F + f];
+  const float lb = lim[f], ub = lim[F + f];
   float gl = glo * kr, gh = ghi * kr;
   c[0] = lb - lo;  jf[0] = -gl;
   c[1] = lo - ub;  jf[1] = gl;
@@ -319,7 +323,7 @@ __device__ void alm_armtd_state_rows(const AlmArgs& a, int w, int f, float kf, f
   gr[2] = 0.0f;
   in[3] = false;
   alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
-  const float vub = a.limits[2 * F + f];
+  const float vub = lim[2 * F + f];
   gl = glo * kr;
   gh = ghi * kr;
   c[4] = -vub - lo;  jf[4] = -gl;
@@ -330,10 +334,12 @@ __device__ void alm_armtd_state_rows(const AlmArgs& a, int w, int f, float kf, f
 
 // The 8 state rows of factor f at k_f: c[8] in the stack's order
 // (pos_min lo/hi, pos_max lo/hi, vel_min lo/hi, vel_max lo/hi) and the one
-// non-zero gradient entry of each, jf[8].
-__device__ void alm_state_rows(const AlmArgs& a, int w, int f, float kf, float* c, float* jf) {
+// non-zero gradient entry of each, jf[8], against the limits lim [3, F]
+// (a.limits: margin-tightened; a.limits + 3 F: untightened).
+__device__ void alm_state_rows(const AlmArgs& a, const float* lim, int w, int f, float kf,
+                               float* c, float* jf) {
   if (a.armtd) {
-    alm_armtd_state_rows(a, w, f, kf, c, jf);
+    alm_armtd_state_rows(a, lim, w, f, kf, c, jf);
     return;
   }
   const int F = a.F;
@@ -362,7 +368,7 @@ __device__ void alm_state_rows(const AlmArgs& a, int w, int f, float kf, float* 
     in[2] = alm_root_ok(valid, e2, v[2]);
     in[3] = alm_root_ok(valid, e3, v[3]);
     alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
-    const float lb = a.limits[f], ub = a.limits[F + f];
+    const float lb = lim[f], ub = lim[F + f];
     const float gl = glo * kr, gh = ghi * kr;
     c[0] = lb - lo;  jf[0] = -gl;
     c[1] = lo - ub;  jf[1] = gl;
@@ -389,7 +395,7 @@ __device__ void alm_state_rows(const AlmArgs& a, int w, int f, float kf, float* 
     in[2] = alm_root_ok(valid, e2, v[2]);
     in[3] = alm_root_ok(valid, e3, v[3]);
     alm_select(v, gr, in, &lo, &hi, &glo, &ghi);
-    const float vub = a.limits[2 * F + f];
+    const float vub = lim[2 * F + f];
     const float lo_v = lo / a.dur, hi_v = hi / a.dur;
     const float gl = (glo * kr) / a.dur, gh = (ghi * kr) / a.dur;
     c[4] = -vub - lo_v;  jf[4] = -gl;
@@ -464,6 +470,9 @@ __device__ void alm_block_sum(float* acc, float* red) {
     }
   }
 }
+
+// torch.amax's pairwise maximum: NaN propagates
+__device__ __forceinline__ float alm_max(float m, float x) { return (isnan(m) || m > x) ? m : x; }
 
 __device__ __forceinline__ float alm_clip(float c) {
   // torch.clamp(c, min=-1e6): NaN stays NaN

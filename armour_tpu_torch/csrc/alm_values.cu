@@ -9,7 +9,16 @@
 //
 //   c = clip(stack(k_q), -1e6)
 //   merit = cost(k_q) + sum_r [lam_s + rho_s c > 0] (lam_s + rho_s c)^2 / (2 rho_s)
-//   feas = all(c <= thr);  c written when asked
+//   feas = all(c <= thr);  cost(k_q) and c written when asked
+//
+// The max mode (maxima set; nlp.py:max_violations, armour_tpu/nlp.py:258-297)
+// writes instead, per query, vmax = (max_r |u_r| - hi_r over the torque rows,
+// the max of the 8 F state rows against the untightened limits): the torque
+// maximum is the larger of K8's two rows +-u - hi, unclipped, so no
+// operation is added to u.  Step (a) tiles the torque rows only (the link
+// centres are neither read nor formed, p is not used), step (b) does not
+// run, lam, rho and seed are not read, and value, feas and cost are not
+// written.
 //
 // Bound on the H100 (flagship, W = 64, Q = S A = 12): the world's centre
 // and torque polynomials and screened rows are read once, ~0.30 GB, ~0.09
@@ -35,7 +44,7 @@
 //       G queries; per (tile, query) partials by a fixed shuffle tree.
 //   (c) finish: a CTA per world sums the partials in tile order, adds the
 //       state rows (alm_state_rows) and the cost (alm_cost), and writes
-//       value and feas.
+//       value, feas and the cost.
 //
 // R and G come from kernels/solver.py:k8_geometry (the largest tile, the
 // widest query group, that still give >= 2 x 132 CTAs).  No atomics: every
@@ -58,10 +67,11 @@ __device__ __forceinline__ float k8_row(float c_raw, float lam, float rho, float
   return c;
 }
 
-// (a) polynomial rows: [0, 3 TJ) link centres, [3 TJ, 3 TJ + TF) torques
+// (a) polynomial rows: [0, 3 TJ) link centres, [3 TJ, 3 TJ + TF) torques;
+// tile t holds rows [row0 + t R, row0 + t R + R) (row0 = 3 TJ in the max mode)
 template <int NF, int R>
 __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, float* p, int Qp,
-                                                             float* part, int ntiles) {
+                                                             float* part, int ntiles, int row0) {
   constexpr int SLOTS = K8A_THREADS / R;
   constexpr int QPT = (K8_MAXQ + SLOTS - 1) / SLOTS;
   extern __shared__ float4 k8_smem[];
@@ -74,7 +84,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
   unsigned char* degs = (unsigned char*)(cnt + K8_MAXQ * R);   // [B][ALM_MAX_F]
   const int w = blockIdx.y, t = blockIdx.x, tid = threadIdx.x;
   const int Q = a.Q, B = a.B, TJ = a.TJ, TF = a.TF;
-  const int NC = 3 * TJ, NR = NC + TF, r0 = t * R;
+  const int NC = 3 * TJ, NR = NC + TF, r0 = row0 + t * R;
 
   // a warp per staged row, lanes along it: 16-byte asynchronous copies
   // when rows are 16-byte aligned (B % 4 == 0), so that phi is formed while
@@ -123,13 +133,18 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
       }
     }
   }
+  const bool maxima = a.maxima != 0;
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
     const int q = slot + j * SLOTS;
     if (q >= K8_MAXQ) continue;
-    float pe = 0.0f, co = 0.0f;
+    // max mode: pe holds the rows' maximum (-inf is its identity)
+    float pe = maxima ? -INFINITY : 0.0f, co = 0.0f;
     if (q < Q && rr < NC) {
       p[((long long)(w * Qp + q) * 3 + rr % 3) * TJ + rr / 3] = s[j];
+    } else if (q < Q && rr < NR && maxima) {
+      const float hi = a.u_hi[(long long)w * TF + rr - NC];
+      pe = alm_max(s[j] - hi, -s[j] - hi);
     } else if (q < Q && rr < NR) {
       const int r = rr - NC, sd = a.seed[q];
       const float* lam = a.lam + ((long long)w * a.S + sd) * a.M;
@@ -154,7 +169,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
     const int q = tid / NCH, ch = tid - NCH * q, r1 = min(R, 8 * ch + 8);
     float pe = pen[q * R + 8 * ch], co = cnt[q * R + 8 * ch];
     for (int i = 8 * ch + 1; i < r1; ++i) {
-      pe += pen[q * R + i];
+      pe = maxima ? alm_max(pe, pen[q * R + i]) : pe + pen[q * R + i];
       co += cnt[q * R + i];
     }
     chunk[tid * 2] = pe;
@@ -164,7 +179,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
   if (tid < Q) {
     float pe = chunk[tid * NCH * 2], co = chunk[tid * NCH * 2 + 1];
     for (int ch = 1; ch < NCH; ++ch) {
-      pe += chunk[(tid * NCH + ch) * 2];
+      pe = maxima ? alm_max(pe, chunk[(tid * NCH + ch) * 2]) : pe + chunk[(tid * NCH + ch) * 2];
       co += chunk[(tid * NCH + ch) * 2 + 1];
     }
     float* o = part + (((long long)w * ntiles + t) * Q + tid) * 2;
@@ -210,18 +225,44 @@ __global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs
   }
 }
 
-// (c) the finish: partials in tile order, then the state rows and the cost
+// (c) the finish: partials in tile order, then the state rows and the cost;
+// in the max mode the torque maxima of the nread row tiles and the state
+// rows' maximum
 template <int NF>
 __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a, const float* part,
-                                                               int ntiles) {
+                                                               int ntiles, int nread) {
   __shared__ float st[K8_MAXQ * NF * 2];
   const int w = blockIdx.x, tid = threadIdx.x, Q = a.Q;
+  if (a.maxima) {
+    if (tid < Q * NF) {
+      const int q = tid / NF, f = tid % NF;
+      float c8[8], j8[8];
+      alm_state_rows(a, a.limits + 3 * NF, w, f, a.k[((long long)w * Q + q) * NF + f], c8, j8);
+      float m = c8[0];
+      for (int grp = 1; grp < 8; ++grp) m = alm_max(m, c8[grp]);
+      st[tid] = m;
+    }
+    __syncthreads();
+    if (tid >= Q) return;
+    const float* pq = part + ((long long)w * ntiles * Q + tid) * 2;
+    float vt = -ALM_BIG;            // without torque rows (nread = 0)
+    if (nread > 0) {
+      vt = pq[0];
+      for (int t = 1; t < nread; ++t) vt = alm_max(vt, pq[(long long)t * Q * 2]);
+    }
+    float vs = st[tid * NF];
+    for (int f = 1; f < NF; ++f) vs = alm_max(vs, st[tid * NF + f]);
+    float* o = a.vmax + ((long long)w * Q + tid) * 2;
+    o[0] = vt;
+    o[1] = vs;
+    return;
+  }
   if (tid < Q * NF) {
     const int q = tid / NF, f = tid % NF, sd = a.seed[q];
     const float* lam = a.lam + ((long long)w * a.S + sd) * a.M;
     const float rho = a.rho[(long long)w * a.S + sd];
     float c8[8], j8[8], pe = 0.0f, co = 0.0f;
-    alm_state_rows(a, w, f, a.k[((long long)w * Q + q) * NF + f], c8, j8);
+    alm_state_rows(a, a.limits, w, f, a.k[((long long)w * Q + q) * NF + f], c8, j8);
     for (int grp = 0; grp < 8; ++grp) {
       const int row = 2 * a.TF + a.K + grp * NF + f;
       const float c = k8_row(c8[grp], lam[row], rho, a.thr_state, pe, co);
@@ -236,7 +277,7 @@ __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a,
   const float* pq = part + ((long long)w * ntiles * Q + q) * 2;
   float pe = pq[0], co = pq[1];
 #pragma unroll 8
-  for (int t = 1; t < ntiles; ++t) {
+  for (int t = 1; t < nread; ++t) {
     pe += pq[(long long)t * Q * 2];
     co += pq[(long long)t * Q * 2 + 1];
   }
@@ -249,8 +290,10 @@ __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a,
   }
   const float rho = a.rho[(long long)w * a.S + a.seed[q]];
   const long long o = (long long)w * Q + q;
-  a.value[o] = alm_cost(a, w, kk, nullptr) + pe / (2.0f * rho);
+  const float cost = alm_cost(a, w, kk, nullptr);
+  a.value[o] = cost + pe / (2.0f * rho);
   a.feas[o] = co == 0.0f ? 1 : 0;
+  if (a.cost != nullptr) a.cost[o] = cost;
 }
 
 static size_t k8_rows_smem(int B, int R) {
@@ -260,15 +303,17 @@ static size_t k8_rows_smem(int B, int R) {
 }
 
 template <int NF, int R>
-static int k8_rows(const AlmArgs* a, float* p, int Qp, float* part, int ntiles, void* stream) {
+static int k8_rows(const AlmArgs* a, float* p, int Qp, float* part, int tiles, int ntiles,
+                   int row0, void* stream) {
   const size_t smem = k8_rows_smem(a->B, R);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(k8_rows_kernel<NF, R>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((unsigned int)((3 * a->TJ + a->TF + R - 1) / R), (unsigned int)a->W);
-  k8_rows_kernel<NF, R><<<grid, K8A_THREADS, smem, (cudaStream_t)stream>>>(*a, p, Qp, part, ntiles);
+  dim3 grid((unsigned int)tiles, (unsigned int)a->W);
+  k8_rows_kernel<NF, R><<<grid, K8A_THREADS, smem, (cudaStream_t)stream>>>(*a, p, Qp, part, ntiles,
+                                                                          row0);
   return (int)cudaGetLastError();
 }
 
@@ -285,18 +330,21 @@ static int k8_collision(const AlmArgs* a, const float* p, int Qp, float* part, i
 template <int NF>
 static int k8_launch_nf(const AlmArgs* a, float* p, float* part, int R, int G, void* stream) {
   const int Qp = (a->Q + G - 1) / G * G;
-  const int tiles_a = (3 * a->TJ + a->TF + R - 1) / R;
-  const int ntiles = tiles_a + (a->K + K8B_THREADS - 1) / K8B_THREADS;
-  int err;
-  switch (R) {
-    case 64: err = k8_rows<NF, 64>(a, p, Qp, part, ntiles, stream); break;
-    case 32: err = k8_rows<NF, 32>(a, p, Qp, part, ntiles, stream); break;
-    case 16: err = k8_rows<NF, 16>(a, p, Qp, part, ntiles, stream); break;
-    case 8: err = k8_rows<NF, 8>(a, p, Qp, part, ntiles, stream); break;
-    default: return (int)cudaErrorInvalidValue;
+  const int row0 = a->maxima ? 3 * a->TJ : 0;
+  const int tiles_a = (3 * a->TJ + a->TF - row0 + R - 1) / R;
+  const int ntiles = a->maxima ? tiles_a : tiles_a + (a->K + K8B_THREADS - 1) / K8B_THREADS;
+  int err = 0;
+  if (tiles_a > 0) {
+    switch (R) {
+      case 64: err = k8_rows<NF, 64>(a, p, Qp, part, tiles_a, ntiles, row0, stream); break;
+      case 32: err = k8_rows<NF, 32>(a, p, Qp, part, tiles_a, ntiles, row0, stream); break;
+      case 16: err = k8_rows<NF, 16>(a, p, Qp, part, tiles_a, ntiles, row0, stream); break;
+      case 8: err = k8_rows<NF, 8>(a, p, Qp, part, tiles_a, ntiles, row0, stream); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   if (err) return err;
-  if (a->K > 0) {
+  if (a->K > 0 && !a->maxima) {
     switch (G) {
       case 16: err = k8_collision<16>(a, p, Qp, part, tiles_a, ntiles, stream); break;
       case 12: err = k8_collision<12>(a, p, Qp, part, tiles_a, ntiles, stream); break;
@@ -309,14 +357,15 @@ static int k8_launch_nf(const AlmArgs* a, float* p, float* part, int R, int G, v
     }
     if (err) return err;
   }
-  k8_finish_kernel<NF><<<(unsigned int)a->W, K8C_THREADS, 0, (cudaStream_t)stream>>>(*a, part,
-                                                                                   ntiles);
+  k8_finish_kernel<NF><<<(unsigned int)a->W, K8C_THREADS, 0, (cudaStream_t)stream>>>(
+      *a, part, ntiles, a->maxima ? tiles_a : ntiles);
   return (int)cudaGetLastError();
 }
 
-// p: scratch [W, Qp, 3, TJ] (Qp = Q rounded up to G); part: scratch
-// [W, ntiles, Q, 2]; R: polynomial rows per CTA (8, 16, 32, 64); G:
-// queries per collision thread (1, 2, 4, 6, 8, 12, 16); Q <= 16.
+// p: scratch [W, Qp, 3, TJ] (Qp = Q rounded up to G; null in the max mode);
+// part: scratch [W, ntiles, Q, 2] (max mode: ntiles = the torque rows'
+// tiles); R: polynomial rows per CTA (8, 16, 32, 64); G: queries per
+// collision thread (1, 2, 4, 6, 8, 12, 16); Q <= 16.
 extern "C" int k8_launch(const AlmArgs* a, float* p, float* part, int R, int G, void* stream) {
   if (a->Q > K8_MAXQ) return (int)cudaErrorInvalidValue;
   switch (a->F) {

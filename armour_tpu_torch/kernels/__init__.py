@@ -13,6 +13,7 @@
   K11 jrs_armtd         csrc/jrs_armtd.cu          (kernels/jrs.py)
   K12 jrs_bernstein     csrc/jrs_bernstein.cu      (kernels/jrs.py)
   K13 screen_collision  csrc/screen_collision.cu   (kernels/collision.py)
+  K14 alm_loop          csrc/alm_loop.cu           (kernels/solver.py)
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
 collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py, armtd.py,
@@ -20,7 +21,8 @@ jrs.py): a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel through the launchers here or raises.  Each launcher calls
 launched(name) where it launches its kernel and nowhere else: LAUNCHES[name]
 counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
-launched (K7, K8 and K13 run three per call, every other kernel one).
+launched (K7, K8 and K13 run three per call, K8's max mode two, every
+other kernel one).
 Sources are compiled with nvcc at first use (kernels/build.py).
 """
 
@@ -30,7 +32,7 @@ import contextlib
 
 KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
            "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain",
-           "jrs_armtd", "jrs_bernstein", "screen_collision")
+           "jrs_armtd", "jrs_bernstein", "screen_collision", "alm_loop")
 
 H100_SMS = 132            # streaming multiprocessors of an H100 SXM (launch geometry defaults)
 

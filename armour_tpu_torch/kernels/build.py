@@ -36,6 +36,7 @@ SOURCES = {
     "jrs_armtd": "jrs_armtd.cu",
     "jrs_bernstein": "jrs_bernstein.cu",
     "screen_collision": "screen_collision.cu",
+    "alm_loop": "alm_loop.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,24 +1,29 @@
 """Launchers of the ALM solver's row kernels K7 (alm_newton) and K8
-(alm_values).  Called by nlp.py for CUDA tensors only; each checks device,
-dtype, shapes and contiguity, raises on anything its kernel does not take,
-allocates the outputs with torch.empty and launches on the current stream,
-without a host synchronisation.
+(alm_values, and its max mode alm_maxima), and of K14 (alm_loop), the solve
+loop's bookkeeping between them.  Called by nlp.py for CUDA tensors only;
+each checks device, dtype, shapes and contiguity, raises on anything its
+kernel does not take, allocates the outputs with torch.empty and launches
+on the current stream, without a host synchronisation.
 
 alm_rows() gathers a plan's per-world inputs once per solve (float32 and
 contiguous on the card, the torque limits and state limits tightened as the
-plain version tightens them, the trajectory family's switch and constants);
-every launch of the solve reuses them.
-k7_geometry and k8_geometry are K7's and K8's launch geometries (row
-tiles, query groups), pure Python so that the CPU tests check them; their
-scratch (link centres, partial sums) is allocated by alm_newton and
-alm_values with torch.empty.
+plain version tightens them, the state limits also untightened for the max
+mode, the trajectory family's switch and constants); every launch of the
+solve reuses them.
+k7_geometry, k8_geometry and k14_geometry are the launch geometries (row
+tiles, query groups, grids), pure Python so that the CPU tests check them;
+K7's and K8's scratch (link centres, partial sums) is allocated by
+alm_newton and alm_values with torch.empty.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
+import re
+import types
 
 import numpy as np
 import torch
@@ -41,11 +46,12 @@ class AlmArgs(ctypes.Structure):
                 ("continuous", ctypes.c_void_p), ("k", ctypes.c_void_p), ("lam", ctypes.c_void_p),
                 ("rho", ctypes.c_void_p), ("seed", ctypes.c_void_p), ("value", ctypes.c_void_p),
                 ("feas", ctypes.c_void_p), ("step", ctypes.c_void_p), ("g", ctypes.c_void_p),
-                ("H", ctypes.c_void_p), ("c", ctypes.c_void_p),
+                ("H", ctypes.c_void_p), ("c", ctypes.c_void_p), ("cost", ctypes.c_void_p),
+                ("vmax", ctypes.c_void_p),
                 ("W", ctypes.c_int), ("Q", ctypes.c_int), ("S", ctypes.c_int),
                 ("M", ctypes.c_int), ("TF", ctypes.c_int), ("TJ", ctypes.c_int),
                 ("C", ctypes.c_int), ("K", ctypes.c_int), ("B", ctypes.c_int),
-                ("F", ctypes.c_int), ("armtd", ctypes.c_int),
+                ("F", ctypes.c_int), ("armtd", ctypes.c_int), ("maxima", ctypes.c_int),
                 ("cost_scale", ctypes.c_float), ("kw", ctypes.c_float),
                 ("qb0", ctypes.c_float), ("qb1", ctypes.c_float), ("qb2", ctypes.c_float),
                 ("qb3", ctypes.c_float), ("two_pi", ctypes.c_float), ("pi", ctypes.c_float),
@@ -135,9 +141,12 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
                        dim=1).contiguous()
     _require(traj, "trajectory scalars", (Wn, 5, F))
     lim, ub, m = prob.limits, cfg.ub, cfg.state_limit_margin
+    # margin-tightened for the stack's rows; untightened, as max_violations
+    # forms them, for the max mode
     limits = torch.stack([lim.pos_lb + ub.qe + m, lim.pos_ub - ub.qe - m,
-                          lim.speed - ub.qde - m]).contiguous()
-    _require(limits, "state limits", (3, F))
+                          lim.speed - ub.qde - m, lim.pos_lb + ub.qe, lim.pos_ub - ub.qe,
+                          lim.speed - ub.qde]).contiguous()
+    _require(limits, "state limits", (6, F))
     continuous = lim.continuous.contiguous()
     _require(continuous, "continuous", (F,), torch.bool)
 
@@ -254,11 +263,11 @@ def k7_geometry(Wn: int, S: int, n_centre: int, n_torque: int, K: int,
 
 
 def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
-    """K7: (step [W,S,F], m0 [W,S], feas [W,S]) at the seeds k [W,S,F] with
-    multipliers lam [W,S,M] and penalties rho [W,S]; with want_system also
-    g [W,S,F] and H [W,S,F,F].  Three device launches (two without
-    screened rows); the scratch (link centres and their gradients, partial
-    sums) is allocated here."""
+    """K7: (step [W,S,F], m0 [W,S], feas [W,S], cost [W,S]) at the seeds k
+    [W,S,F] with multipliers lam [W,S,M] and penalties rho [W,S]; with
+    want_system also g [W,S,F] and H [W,S,F,F].  Three device launches (two
+    without screened rows); the scratch (link centres and their gradients,
+    partial sums) is allocated here."""
     S = k.shape[1] if k.dim() == 3 else -1
     if _state(rows, k, lam, rho, S) != S:
         raise ValueError("alm_newton takes one query per seed")
@@ -270,6 +279,7 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
     step = torch.empty(Wn, S, F, device=dev, dtype=torch.float32)
     m0 = torch.empty(Wn, S, device=dev, dtype=torch.float32)
     feas = torch.empty(Wn, S, device=dev, dtype=torch.bool)
+    cost = torch.empty(Wn, S, device=dev, dtype=torch.float32)
     g = torch.empty(Wn, S, F, device=dev, dtype=torch.float32) if want_system else None
     H = torch.empty(Wn, S, F, F, device=dev, dtype=torch.float32) if want_system else None
     record("alm_newton", (Wn, S, rows.M, want_system), (rows, k, lam, rho))
@@ -282,6 +292,7 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
         part = torch.empty(Wn, geo.npart, S, k7_nacc(F), device=dev, dtype=torch.float32)
         args = _launch_args(rows, k, lam, rho, S, S)
         args.value, args.feas, args.step = m0.data_ptr(), feas.data_ptr(), step.data_ptr()
+        args.cost = cost.data_ptr()
         if want_system:
             args.g, args.H = g.data_ptr(), H.data_ptr()
         fn = launcher("alm_newton", "k7_launch",
@@ -292,8 +303,8 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
             raise RuntimeError(f"alm_newton launch failed: cudaError {err}")
         launched("alm_newton", 3 if a.K else 2)
     if want_system:
-        return step, m0, feas, g, H
-    return step, m0, feas
+        return step, m0, feas, cost, g, H
+    return step, m0, feas, cost
 
 
 K8_MAXQ = 16              # queries one K8 call takes
@@ -356,9 +367,9 @@ def k8_geometry(Wn: int, Q: int, n_poly: int, K: int, sms: int = H100_SMS) -> K8
 
 
 def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
-    """K8: (merit [W,Q], feas [W,Q], c [W,Q,M] or None) at the query points
-    kq [W,Q,F], query q taking the multipliers lam [W,S,M] and penalty rho
-    [W,S] of seed seed_of_q[q] (int32 [Q] on the card)."""
+    """K8: (merit [W,Q], feas [W,Q], cost [W,Q], c [W,Q,M] or None) at the
+    query points kq [W,Q,F], query q taking the multipliers lam [W,S,M] and
+    penalty rho [W,S] of seed seed_of_q[q] (int32 [Q] on the card)."""
     Q = kq.shape[1] if kq.dim() == 3 else -1
     S = _state(rows, kq, lam, rho, Q)
     _require(seed_of_q, "seed_of_q", (Q,), torch.int32)
@@ -367,6 +378,7 @@ def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
     dev = kq.device
     merit = torch.empty(Wn, Q, device=dev, dtype=torch.float32)
     feas = torch.empty(Wn, Q, device=dev, dtype=torch.bool)
+    cost = torch.empty(Wn, Q, device=dev, dtype=torch.float32)
     c = torch.empty(Wn, Q, M, device=dev, dtype=torch.float32) if want_c else None
     record("alm_values", (Wn, Q, S, rows.M, want_c), (rows, kq, lam, rho, seed_of_q, want_c))
     if Wn * Q:
@@ -376,14 +388,317 @@ def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
         part = torch.empty(Wn, geo.ntiles, Q, 2, device=dev, dtype=torch.float32)
         args = _launch_args(rows, kq, lam, rho, Q, S)
         args.seed = seed_of_q.data_ptr()
-        args.value, args.feas = merit.data_ptr(), feas.data_ptr()
+        args.value, args.feas, args.cost = merit.data_ptr(), feas.data_ptr(), cost.data_ptr()
         if want_c:
             args.c = c.data_ptr()
-        fn = launcher("alm_values", "k8_launch",
-                      [ctypes.POINTER(AlmArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), p.data_ptr(), part.data_ptr(), geo.R, geo.G, _stream(kq))
-        if err:
-            raise RuntimeError(f"alm_values launch failed: cudaError {err}")
+        _k8_launch(args, p, part, geo, kq)
         launched("alm_values", 3 if a.K else 2)
-    return merit, feas, c
+    return merit, feas, cost, c
+
+
+def _k8_launch(args: AlmArgs, p, part, geo: K8Geometry, kq) -> None:
+    fn = launcher("alm_values", "k8_launch",
+                  [ctypes.POINTER(AlmArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p])
+    err = fn(ctypes.byref(args), None if p is None else p.data_ptr(), part.data_ptr(), geo.R,
+             geo.G, _stream(kq))
+    if err:
+        raise RuntimeError(f"alm_values launch failed: cudaError {err}")
+
+
+def alm_maxima(rows: AlmRows, kq):
+    """K8's max mode: (v_torque [W,Q], v_state [W,Q]) at kq [W,Q,F], the
+    torque and state maxima of nlp.max_violations (max |u| - hi over the
+    torque rows, -BIG without them; the 8 F state rows against the
+    untightened limits).  Two device launches: step (a) over the torque
+    rows alone (no link centres, no scratch p) and the finish."""
+    Q = kq.shape[1] if kq.dim() == 3 else -1
+    a = rows.args
+    Wn = a.W
+    _require(kq, "k", (Wn, Q, a.F))
+    dev = kq.device
+    vmax = torch.empty(Wn, Q, 2, device=dev, dtype=torch.float32)
+    record("alm_values", (Wn, Q, "maxima"), (rows, kq, "maxima"))
+    if Wn * Q:
+        geo = k8_geometry(Wn, Q, a.TF, a.K,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = torch.empty(Wn, geo.tiles_a, Q, 2, device=dev, dtype=torch.float32)
+        args = AlmArgs()
+        ctypes.memmove(ctypes.addressof(args), ctypes.addressof(a), ctypes.sizeof(AlmArgs))
+        args.k, args.Q, args.maxima, args.vmax = kq.data_ptr(), Q, 1, vmax.data_ptr()
+        _k8_launch(args, None, part, geo, kq)
+        launched("alm_values", 2 if a.TF else 1)
+    return vmax[..., 0], vmax[..., 1]
+
+
+# ---------------------------------------------------------------------------
+# K14: the solve loop's bookkeeping (csrc/alm_loop.cu)
+# ---------------------------------------------------------------------------
+
+K14_THREADS = 128
+K14_MAX_A, K14_MAX_S, K14_MAX_F = 16, 8, 8
+
+# K14's C launchers (csrc/alm_loop.cu), every parameter in order: name[dims]
+# a tensor (":bool" a bool one, else float32) of the given sizes, or a
+# float[A] array for "alphas"; name:float a float; a bare name an int (a
+# size, or a grid dimension "blocks*" from k14_geometry); "stream" the
+# stream.  Sizes: W worlds, S seeds, F factors, A ladder points per seed,
+# Q = S A, S2 = 2 S, M multipliers, keep kept seeds, n = W S.
+# tests/test_torch_alm_loop.py holds this table against the source.
+K14_PROTOS = {
+    "k14_init": "k[W,S,F] feas[W,S]:bool cost[W,S] best_k[W,S,F] best_cost[W,S] n F blocks "
+                "stream",
+    "k14_ladder": "k[W,S,F] step[W,S,F] feas[W,S]:bool cost[W,S] best_k[W,S,F] best_cost[W,S] "
+                  "kq[W,Q,F] best_k_out[W,S,F] best_cost_out[W,S] n F A alphas[A] blocks stream",
+    "k14_accept": "k[W,S,F] m0[W,S] kq[W,Q,F] merit[W,Q] feas[W,Q]:bool cost[W,Q] "
+                  "best_k[W,S,F] best_cost[W,S] k_out[W,S,F] best_k_out[W,S,F] "
+                  "best_cost_out[W,S] n F A blocks stream",
+    "k14_outer": "k[W,S,F] feas[W,S]:bool cost[W,S] c[W,S,M] lam[W,S,M] rho[W,S] best_k[W,S,F] "
+                 "best_cost[W,S] lam_out[W,S,M] rho_out[W,S] best_k_out[W,S,F] "
+                 "best_cost_out[W,S] n F M blocks stream",
+    "k14_cull": "k[W,S,F] lam[W,S,M] rho[W,S] best_k[W,S,F] best_cost[W,S] v[W,S] cost[W,S] "
+                "k_out[W,keep,F] lam_out[W,keep,M] rho_out[W,keep] best_k_out[W,keep,F] "
+                "best_cost_out[W,keep] W S keep F M blocks_m blocks_wk stream",
+    "k14_pull_start": "k[W,S,F] best_k[W,S,F] best_cost[W,S] lo[W,S,F] hi[W,S,F] mid[W,S,F] "
+                      "n F blocks stream",
+    "k14_pull_step": "lo[W,S,F] hi[W,S,F] mid[W,S,F] ok[W,S]:bool lo_out[W,S,F] hi_out[W,S,F] "
+                     "mid_out[W,S,F] n F blocks stream",
+    "k14_pull_end": "k[W,S,F] lo[W,S,F] mid[W,S,F] ok[W,S]:bool end_feas[W,S]:bool "
+                    "best_cost[W,S] k_pull[W,S,F] n F blocks stream",
+    "k14_finish": "k[W,S,F] k_pull[W,S,F] feas[W,S]:bool cost[W,S] best_k[W,S,F] "
+                  "best_cost[W,S] kb[W,S2,F] best_cost_out[W,S] n S F blocks stream",
+    "k14_select": "kb[W,S2,F] v[W,S2,4] best_cost[W,S] cost_final[W,S] t0:float t1:float "
+                  "t2:float t3:float k_out[W,F] feasible_out[W]:bool cost_out[W] viol_out[W,4] "
+                  "W S F blocks stream",
+}
+_PARAM = re.compile(r"(\w+)(?:\[([\w,]+)\])?(?::(\w+))?$")
+
+
+@functools.lru_cache(maxsize=None)
+def k14_params(symbol: str) -> tuple:
+    """K14_PROTOS[symbol] as (name, kind, dims): kind "tensor", "bool"
+    (a bool tensor), "array", "float", "int" or "stream"; dims the sizes of
+    a tensor or array."""
+    out = []
+    for tok in K14_PROTOS[symbol].split():
+        name, dims, tag = _PARAM.match(tok).groups()
+        if dims is not None:
+            kind = "array" if name == "alphas" else ("bool" if tag == "bool" else "tensor")
+        else:
+            kind = "stream" if name == "stream" else (tag or "int")
+        out.append((name, kind, tuple(int(d) if d.isdigit() else d
+                                      for d in dims.split(",")) if dims else ()))
+    return tuple(out)
+
+
+def k14_geometry(phase: str, Wn: int, S: int, M: int = 0, keep: int = 0) -> tuple:
+    """K14's grid for a phase, in blocks of K14_THREADS: a thread per
+    (world, seed), per multiplier ("outer"), per world ("select"); "cull":
+    (blocks over M, W keep) CTAs."""
+    if not 1 <= S <= K14_MAX_S:
+        raise ValueError(f"alm_loop takes 1..{K14_MAX_S} seeds, got {S}")
+    per = -(-Wn * S // K14_THREADS)
+    if phase == "outer":
+        return (max(per, -(-Wn * S * M // K14_THREADS)),)
+    if phase == "cull":
+        if not 1 <= keep <= S:
+            raise ValueError(f"the cull keeps 1..{S} seeds, got {keep}")
+        return (-(-M // K14_THREADS), Wn * keep)
+    if phase == "select":
+        return (-(-Wn // K14_THREADS),)
+    return (per,)
+
+
+@functools.lru_cache(maxsize=None)
+def _k14_ctypes(symbol: str) -> tuple:
+    """The ctypes parameter types of K14's launcher `symbol`, and the names
+    of its grid parameters."""
+    params = k14_params(symbol)
+    types_ = [{"float": ctypes.c_float, "int": ctypes.c_int}.get(kind, ctypes.c_void_p)
+              for _, kind, _ in params]
+    return types_, tuple(n for n, _, _ in params if n.startswith("blocks"))
+
+
+def _loop_call(symbol: str, sizes: dict, rec: tuple, **vals) -> None:
+    """Launch K14's phase `symbol`: its grid from k14_geometry, each named
+    value checked against K14_PROTOS (a tensor's device, dtype, shape and
+    contiguity), the int parameters taken from `sizes`; record the call
+    as rec = (key, inputs) and count it."""
+    sz = dict(sizes, n=sizes["W"] * sizes["S"], S2=2 * sizes["S"], Q=sizes["S"] * sizes.get("A", 0))
+    grid = k14_geometry(symbol[len("k14_"):], sz["W"], sz["S"], sz.get("M", 0), sz.get("keep", 0))
+    argtypes, blocks = _k14_ctypes(symbol)
+    sz.update(zip(blocks, grid))
+    call, first, arrays, shapes = [], None, [], {}
+    for name, kind, dims in k14_params(symbol):
+        if kind == "tensor" or kind == "bool":
+            x = vals.pop(name)
+            shape = shapes.get(dims)
+            if shape is None:
+                shape = shapes[dims] = tuple([d if type(d) is int else sz[d] for d in dims])
+            _require(x, name, shape, torch.bool if kind == "bool" else torch.float32)
+            first = x if first is None else first
+            call.append(x.data_ptr())
+        elif kind == "array":
+            arrays.append((ctypes.c_float * sz[dims[0]])(*vals.pop(name)))
+            call.append(ctypes.addressof(arrays[-1]))
+        elif kind == "float":
+            call.append(float(vals.pop(name)))
+        elif kind == "int":
+            call.append(int(sz[name]))
+        else:
+            call.append(name)                 # the stream, once every tensor is checked
+    if vals:
+        raise TypeError(f"{symbol} takes no {sorted(vals)}")
+    record("alm_loop", *rec)
+    if min(grid) > 0:
+        call[call.index("stream")] = _stream(first)
+        err = launcher("alm_loop", symbol, argtypes)(*call)
+        if err:
+            raise RuntimeError(f"alm_loop ({symbol}) launch failed: cudaError {err}")
+        launched("alm_loop")
+
+
+def _seeds(k, what="k"):
+    """(W, S, F) of the iterate k [W, S, F]: the sizes K14 takes (the
+    tensors are checked against them by _loop_call)."""
+    if k.dim() != 3:
+        raise ValueError(f"{what} must be [W, S, F], got {tuple(k.shape)}")
+    Wn, S, F = k.shape
+    if not 1 <= S <= K14_MAX_S or F > K14_MAX_F:
+        raise ValueError(f"alm_loop takes 1..{K14_MAX_S} seeds and F <= {K14_MAX_F}, got "
+                         f"{tuple(k.shape)}")
+    return Wn, S, F
+
+
+def _empty(*shape, like, dtype=torch.float32):
+    return torch.empty(*shape, device=like.device, dtype=dtype)
+
+
+def loop_init(k, feas, cost):
+    """K14 init (nlp.alm_init_plain): (best_k, best_cost)."""
+    Wn, S, F = _seeds(k)
+    best_k, best_cost = _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
+    _loop_call("k14_init", dict(W=Wn, S=S, F=F), (("init", Wn, S), (k, feas, cost)),
+               k=k, feas=feas, cost=cost, best_k=best_k, best_cost=best_cost)
+    return best_k, best_cost
+
+
+def loop_ladder(k, step, feas, cost, best_k, best_cost, alphas):
+    """K14 ladder (nlp.alm_ladder_plain): (kq [W,S*A,F], best_k, best_cost)."""
+    Wn, S, F = _seeds(k)
+    A = len(alphas)
+    if not 1 <= A or S * A > K14_MAX_A:
+        raise ValueError(f"alm_loop takes S * A <= {K14_MAX_A} ladder points, got {S} x {A}")
+    kq = _empty(Wn, S * A, F, like=k)
+    bk, bc = _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
+    _loop_call("k14_ladder", dict(W=Wn, S=S, F=F, A=A),
+               (("ladder", Wn, S, A), (k, step, feas, cost, best_k, best_cost, tuple(alphas))),
+               k=k, step=step, feas=feas, cost=cost, best_k=best_k, best_cost=best_cost, kq=kq,
+               best_k_out=bk, best_cost_out=bc, alphas=alphas)
+    return kq, bk, bc
+
+
+def loop_accept(k, m0, kq, merit, feas, cost, best_k, best_cost):
+    """K14 accept (nlp.alm_accept_plain): (k, best_k, best_cost)."""
+    Wn, S, F = _seeds(k)
+    Q = kq.shape[1] if kq.dim() == 3 else -1
+    A = Q // S
+    if A < 1 or A * S != Q or Q > K14_MAX_A:
+        raise ValueError(f"the ladder block has {Q} points for {S} seeds")
+    k_out, bk, bc = _empty(Wn, S, F, like=k), _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
+    _loop_call("k14_accept", dict(W=Wn, S=S, F=F, A=A),
+               (("accept", Wn, S, A), (k, m0, kq, merit, feas, cost, best_k, best_cost)),
+               k=k, m0=m0, kq=kq, merit=merit, feas=feas, cost=cost, best_k=best_k,
+               best_cost=best_cost, k_out=k_out, best_k_out=bk, best_cost_out=bc)
+    return k_out, bk, bc
+
+
+def loop_outer(k, feas, cost, c, lam, rho, best_k, best_cost):
+    """K14 outer (nlp.alm_outer_plain): (lam, rho, best_k, best_cost)."""
+    Wn, S, F = _seeds(k)
+    M = lam.shape[-1]
+    lam_o, rho_o = _empty(Wn, S, M, like=k), _empty(Wn, S, like=k)
+    bk, bc = _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
+    _loop_call("k14_outer", dict(W=Wn, S=S, F=F, M=M),
+               (("outer", Wn, S, M), (k, feas, cost, c, lam, rho, best_k, best_cost)),
+               k=k, feas=feas, cost=cost, c=c, lam=lam, rho=rho, best_k=best_k,
+               best_cost=best_cost, lam_out=lam_o, rho_out=rho_o, best_k_out=bk, best_cost_out=bc)
+    return lam_o, rho_o, bk, bc
+
+
+def loop_cull(k, lam, rho, best_k, best_cost, v, cost, keep: int):
+    """K14 cull (nlp.alm_cull_plain): the kept (k, lam, rho, best_k,
+    best_cost)."""
+    Wn, S, F = _seeds(k)
+    M = lam.shape[-1]
+    out = (_empty(Wn, keep, F, like=k), _empty(Wn, keep, M, like=k), _empty(Wn, keep, like=k),
+           _empty(Wn, keep, F, like=k), _empty(Wn, keep, like=k))
+    _loop_call("k14_cull", dict(W=Wn, S=S, F=F, M=M, keep=keep),
+               (("cull", Wn, S, M, keep), (k, lam, rho, best_k, best_cost, v, cost, keep)),
+               k=k, lam=lam, rho=rho, best_k=best_k, best_cost=best_cost, v=v, cost=cost,
+               **dict(zip(("k_out", "lam_out", "rho_out", "best_k_out", "best_cost_out"), out)))
+    return out
+
+
+def loop_pull_start(k, best_k, best_cost):
+    """K14 pull-in bracket (nlp.alm_pull_start_plain): (lo, hi, mid)."""
+    Wn, S, F = _seeds(k)
+    lo, hi, mid = (_empty(Wn, S, F, like=k) for _ in range(3))
+    _loop_call("k14_pull_start", dict(W=Wn, S=S, F=F),
+               (("pull_start", Wn, S), (k, best_k, best_cost)),
+               k=k, best_k=best_k, best_cost=best_cost, lo=lo, hi=hi, mid=mid)
+    return lo, hi, mid
+
+
+def loop_pull_step(lo, hi, mid, ok):
+    """K14 bisection step (nlp.alm_pull_step_plain): (lo, hi, mid)."""
+    Wn, S, F = _seeds(lo, "lo")
+    out = tuple(_empty(Wn, S, F, like=lo) for _ in range(3))
+    _loop_call("k14_pull_step", dict(W=Wn, S=S, F=F), (("pull_step", Wn, S), (lo, hi, mid, ok)),
+               lo=lo, hi=hi, mid=mid, ok=ok, lo_out=out[0], hi_out=out[1], mid_out=out[2])
+    return out
+
+
+def loop_pull_end(k, lo, mid, ok, end_feas, best_cost):
+    """K14 last bisection step and k_pull (nlp.alm_pull_end_plain)."""
+    Wn, S, F = _seeds(k)
+    k_pull = _empty(Wn, S, F, like=k)
+    _loop_call("k14_pull_end", dict(W=Wn, S=S, F=F),
+               (("pull_end", Wn, S), (k, lo, mid, ok, end_feas, best_cost)),
+               k=k, lo=lo, mid=mid, ok=ok, end_feas=end_feas, best_cost=best_cost, k_pull=k_pull)
+    return k_pull
+
+
+def loop_finish(k, k_pull, feas, cost, best_k, best_cost):
+    """K14 finish (nlp.alm_finish_plain): (kb [W,2S,F], best_cost)."""
+    Wn, S, F = _seeds(k)
+    kb, bc = _empty(Wn, 2 * S, F, like=k), _empty(Wn, S, like=k)
+    _loop_call("k14_finish", dict(W=Wn, S=S, F=F),
+               (("finish", Wn, S), (k, k_pull, feas, cost, best_k, best_cost)),
+               k=k, k_pull=k_pull, feas=feas, cost=cost, best_k=best_k, best_cost=best_cost,
+               kb=kb, best_cost_out=bc)
+    return kb, bc
+
+
+def loop_select(kb, v, best_cost, cost_final, thresholds):
+    """K14 selection (nlp.alm_select_plain): (k [W,F], feasible [W], cost
+    [W], viol [W,4])."""
+    if kb.dim() != 3 or kb.shape[1] % 2:
+        raise ValueError(f"kb must be [W, 2S, F], got {tuple(kb.shape)}")
+    Wn, S2, F = kb.shape
+    S = S2 // 2
+    out = (_empty(Wn, F, like=kb), _empty(Wn, like=kb, dtype=torch.bool), _empty(Wn, like=kb),
+           _empty(Wn, 4, like=kb))
+    t = tuple(float(x) for x in thresholds)
+    _loop_call("k14_select", dict(W=Wn, S=S, F=F),
+               (("select", Wn, S), (kb, v, best_cost, cost_final, t)),
+               kb=kb, v=v, best_cost=best_cost, cost_final=cost_final, t0=t[0], t1=t[1],
+               t2=t[2], t3=t[3], k_out=out[0], feasible_out=out[1], cost_out=out[2],
+               viol_out=out[3])
+    return out
+
+
+LOOP = types.SimpleNamespace(
+    init=loop_init, ladder=loop_ladder, accept=loop_accept, outer=loop_outer, cull=loop_cull,
+    pull_start=loop_pull_start, pull_step=loop_pull_step, pull_end=loop_pull_end,
+    finish=loop_finish, select=loop_select)

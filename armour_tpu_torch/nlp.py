@@ -14,12 +14,16 @@ tensors.
 
 The loop evaluates its rows only through two functions of plain tensors:
 alm_newton (one inner step's Gauss-Newton system, its 7x7 Cholesky step,
-merit and feasibility; kernel K7 on the card, alm_newton_plain on the CPU)
-and alm_values (merit, feasibility and optionally the rows of query points;
-kernel K8, alm_values_plain).  On the card neither the constraint stack nor
-its Jacobian is formed inside the loop; the full-set check in finalize
-(max_violations, kernel K4 over every collision row) is what soundness
-rests on.
+merit, feasibility and cost; kernel K7 on the card, alm_newton_plain on the
+CPU) and alm_values (merit, feasibility, cost and optionally the rows of
+query points; kernel K8, alm_values_plain).  Between two row passes the
+loop's bookkeeping (the best-feasible tracker, the line search's ladder
+and accept test, the multiplier update, the cull, the pull-in bisection and
+the final selection) is one phase of kernel K14 on the card and the
+alm_*_plain functions on the CPU.  On the card neither the constraint stack
+nor its Jacobian is formed inside the loop; the full-set check in finalize
+(max_violations: kernel K4 over every collision row, K8's max mode for the
+torque and state rows) is what soundness rests on.
 
 q_plan is linear in k (weight s^3 (6 s^2 - 15 s + 10) * k_range at
 s = t_plan / duration; 0.5 t_plan^2 g_k for the ARMTD family), so the cost
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 
 import torch
 
@@ -109,9 +114,15 @@ def _plan_diff(k, traj: TrajectoryCoeffs, q_des, continuous, cfg: ArmourConfig):
 
 
 def plan_cost(k, traj: TrajectoryCoeffs, q_des, continuous, cfg: ArmourConfig):
-    """cost [W, Q] at k [W, Q, F]."""
+    """cost [W, Q] at k [W, Q, F].  The squares are summed over F in order,
+    as kernels K7 / K8 sum them (csrc/alm_rows.cuh:alm_cost): torch.sum's
+    order is its own and differs between devices."""
     diff = _plan_diff(k, traj, q_des, continuous, cfg)
-    return cfg.cost_scale * torch.sum(diff * diff, dim=-1)
+    sq = diff * diff
+    total = sq[..., 0]
+    for f in range(1, sq.shape[-1]):
+        total = total + sq[..., f]
+    return cfg.cost_scale * total
 
 
 def _cost_weight(traj: TrajectoryCoeffs, cfg: ArmourConfig):
@@ -270,25 +281,18 @@ def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
     return c, None
 
 
-def max_violations(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
-                   *, collision_fn=collision_constraints):
-    """Per-group max violations (torque, collision, state, grasp), each
-    [W, Q], over the FULL constraint set.  collision_fn evaluates every
-    collision row; the default routes through kernel K4 on the card."""
-    phi = basis.phi(k)
+def maxima_plain(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, phi=None):
+    """Plain version of kernel K8's max mode: the torque and state groups of
+    max_violations, (v_torque, v_state) [W, Q] at k [W, Q, F]: max |u| - hi
+    over the torque rows (-BIG without them) and the max of the 8 F state
+    rows against the untightened limits."""
     ub = cfg.ub
     lim = prob.limits
-    neg_big = torch.full(k.shape[:-1], -BIG, dtype=k.dtype, device=k.device)
     if cfg.turn_off_input_constraints:
-        v_torque = neg_big
+        v_torque = torch.full(k.shape[:-1], -BIG, dtype=k.dtype, device=k.device)
     else:
-        u, hi, _ = _torque(phi, prob)
+        u, hi, _ = _torque(basis.phi(k) if phi is None else phi, prob)
         v_torque = torch.amax(torch.abs(u) - hi, dim=-1)
-    v_grasp = neg_big
-
-    g_col = collision_fn(prob.hyp, prob.obs, eval_link_polys(prob.frs, phi))
-    v_col = torch.amax(g_col.reshape(*k.shape[:-1], -1), dim=-1)
-
     q_min, q_max, _, _ = joint_position_extrema(k, prob.traj, cfg)
     qd_min, qd_max, _, _ = joint_velocity_extrema(k, prob.traj, cfg)
     pos_lb = lim.pos_lb + ub.qe
@@ -300,16 +304,45 @@ def max_violations(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
         torch.amax(-vel_ub - qd_min, dim=-1), torch.amax(qd_min - vel_ub, dim=-1),
         torch.amax(-vel_ub - qd_max, dim=-1), torch.amax(qd_max - vel_ub, dim=-1),
     ]), dim=0)
+    return v_torque, v_state
+
+
+def max_violations(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
+                   *, collision_fn=collision_constraints, rows=None):
+    """Per-group max violations (torque, collision, state, grasp), each
+    [W, Q], over the FULL constraint set.  collision_fn evaluates every
+    collision row; the default routes through kernel K4 on the card.  With
+    rows (kernels.solver.alm_rows of this plan, CUDA tensors) the torque and
+    state maxima come from kernel K8's max mode, else from maxima_plain."""
+    phi = basis.phi(k)
+    v_grasp = torch.full(k.shape[:-1], -BIG, dtype=k.dtype, device=k.device)
+    g_col = collision_fn(prob.hyp, prob.obs, eval_link_polys(prob.frs, phi))
+    v_col = torch.amax(g_col.reshape(*k.shape[:-1], -1), dim=-1)
+    if rows is not None:
+        from .kernels import solver as ksolver
+
+        v_torque, v_state = ksolver.alm_maxima(rows, k)
+    else:
+        v_torque, v_state = maxima_plain(k, prob, cfg, basis, phi)
     return v_torque, v_col, v_state, v_grasp
+
+
+def viol_thresholds(cfg: ArmourConfig) -> tuple:
+    """The finalize check's thresholds (torque, collision, state, grasp)."""
+    return (cfg.torque_violation_threshold, cfg.collision_violation_threshold, 1e-6,
+            cfg.grasp_violation_threshold)
+
+
+def _viol_ok(v, thresholds):
+    t_torque, t_col, t_state, t_grasp = thresholds
+    return ((v[..., 0] <= t_torque) & (v[..., 1] <= t_col) & (v[..., 2] <= t_state)
+            & (v[..., 3] <= t_grasp))
 
 
 def viol_feasible(v, cfg: ArmourConfig):
     """Feasibility of stacked violations v [..., 4] against the thresholds
     of the finalize check."""
-    return ((v[..., 0] <= cfg.torque_violation_threshold)
-            & (v[..., 1] <= cfg.collision_violation_threshold)
-            & (v[..., 2] <= 1e-6)
-            & (v[..., 3] <= cfg.grasp_violation_threshold))
+    return _viol_ok(v, viol_thresholds(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -391,33 +424,34 @@ def alm_newton_system(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: 
 
 
 def alm_newton_plain(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
-    """Plain version of kernel K7: (step [W,S,F], m0 [W,S], feas [W,S]).
-    step = H^-1 g by Cholesky (H is SPD), m0 = cost + penalty, feas = every
-    clipped row within its threshold."""
+    """Plain version of kernel K7: (step [W,S,F], m0 [W,S], feas [W,S],
+    cost [W,S]).  step = H^-1 g by Cholesky (H is SPD), m0 = cost + penalty,
+    feas = every clipped row within its threshold, cost = plan_cost at k."""
     g, H, c = alm_newton_system(k, lam, rho, prob, cfg, basis)
     L, _ = torch.linalg.cholesky_ex(H)
     step = torch.cholesky_solve(g[..., None], L)[..., 0]
-    m0 = plan_cost(k, prob.traj, prob.q_des, prob.limits.continuous, cfg) + _penalty(c, lam, rho)
+    cost = plan_cost(k, prob.traj, prob.q_des, prob.limits.continuous, cfg)
+    m0 = cost + _penalty(c, lam, rho)
     feas = torch.all(c <= _stack_thresholds(prob, cfg), dim=-1)
-    return step, m0, feas
+    return step, m0, feas, cost
 
 
 def alm_values_plain(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConfig,
                      basis: KBasis, want_c: bool = False):
-    """Plain version of kernel K8: (merit [W,Q], feas [W,Q], clipped c
-    [W,Q,M] or None) at the query points kq [W,Q,F]; query q takes the lam
-    [W,S,M] and rho [W,S] of seed seed_of_q[q]."""
+    """Plain version of kernel K8: (merit [W,Q], feas [W,Q], cost [W,Q],
+    clipped c [W,Q,M] or None) at the query points kq [W,Q,F]; query q takes
+    the lam [W,S,M] and rho [W,S] of seed seed_of_q[q]."""
     c = _clip_big(constraint_stack(kq, prob, cfg, basis, with_grad=False)[0])
     idx = seed_of_q.to(device=kq.device, dtype=torch.int64)
-    merit = (plan_cost(kq, prob.traj, prob.q_des, prob.limits.continuous, cfg)
-             + _penalty(c, lam[:, idx], rho[:, idx]))
+    cost = plan_cost(kq, prob.traj, prob.q_des, prob.limits.continuous, cfg)
+    merit = cost + _penalty(c, lam[:, idx], rho[:, idx])
     feas = torch.all(c <= _stack_thresholds(prob, cfg), dim=-1)
-    return merit, feas, (c if want_c else None)
+    return merit, feas, cost, (c if want_c else None)
 
 
 def alm_newton(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, rows=None):
-    """One inner step's (step, m0, feas): kernel K7 on CUDA tensors (rows:
-    kernels.solver.alm_rows of this plan, built when not given),
+    """One inner step's (step, m0, feas, cost): kernel K7 on CUDA tensors
+    (rows: kernels.solver.alm_rows of this plan, built when not given),
     alm_newton_plain on CPU tensors."""
     if not k.is_cuda:
         return alm_newton_plain(k, lam, rho, prob, cfg, basis)
@@ -428,8 +462,8 @@ def alm_newton(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
 
 def alm_values(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
                want_c: bool = False, rows=None):
-    """(merit, feas, c or None) of query points: kernel K8 on CUDA tensors,
-    alm_values_plain on CPU tensors."""
+    """(merit, feas, cost, c or None) of query points: kernel K8 on CUDA
+    tensors, alm_values_plain on CPU tensors."""
     if not kq.is_cuda:
         return alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
     from .kernels import solver as ksolver
@@ -438,12 +472,165 @@ def alm_values(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConfig, ba
                               seed_of_q, want_c)
 
 
+# ---------------------------------------------------------------------------
+# the solve loop's bookkeeping: plain versions of kernel K14 (alm_loop)
+# ---------------------------------------------------------------------------
+#
+# Each phase is a function of plain tensors between two row evaluations
+# (armour_tpu/nlp.py:427-600): a best-feasible tracker (best_k [W,S,F],
+# best_cost [W,S]) folds in every evaluated point with the feasibility and
+# cost its row pass gave.  Outputs are new tensors; inputs are not changed.
+
+
+def _track(kk, feas, cost, best_k, best_cost):
+    better = feas & (cost < best_cost)
+    return (torch.where(better[..., None], kk, best_k), torch.where(better, cost, best_cost))
+
+
+def alm_init_plain(k, feas, cost):
+    """The tracker at the starts k [W,S,F] (armour_tpu/nlp.py:455-467): a
+    feasible start seeds it.  Returns (best_k, best_cost)."""
+    return k, torch.where(feas, cost, torch.full_like(cost, math.inf))
+
+
+def alm_ladder_plain(k, step, feas, cost, best_k, best_cost, alphas):
+    """After K7 (armour_tpu/nlp.py:491-509): fold the iterate k [W,S,F]
+    into the tracker with its feas and cost, then the line search's query
+    block clamp(k - alpha step, -1, 1) [W, S*A, F], alpha by alpha within a
+    seed.  alphas: cfg.solver_alphas.  Returns (kq, best_k, best_cost)."""
+    best_k, best_cost = _track(k, feas, cost, best_k, best_cost)
+    Wn, S, F = k.shape
+    al = _table(alphas, k.dtype, k.device)
+    kq = torch.clamp(k[:, :, None] - al[:, None] * step[:, :, None], -1.0, 1.0)
+    return kq.reshape(Wn, S * len(alphas), F), best_k, best_cost
+
+
+def alm_accept_plain(k, m0, kq, merit, feas, cost, best_k, best_cost):
+    """After K8 on the ladder (armour_tpu/nlp.py:510-516): fold the A
+    candidates of each seed into the tracker in alpha order, then take the
+    first candidate of least merit (NaN first, as torch.argmin) when it is
+    below m0.  kq, merit, feas, cost: [W, S*A, ...].  Returns (k, best_k,
+    best_cost)."""
+    Wn, S, F = k.shape
+    A = kq.shape[1] // S
+    kks = kq.reshape(Wn, S, A, F)
+    merits, feas, cost = (x.reshape(Wn, S, A) for x in (merit, feas, cost))
+    for a in range(A):
+        best_k, best_cost = _track(kks[:, :, a], feas[:, :, a], cost[:, :, a], best_k, best_cost)
+    best = torch.argmin(merits, dim=-1, keepdim=True)          # [W, S, 1]
+    m_best = torch.gather(merits, -1, best)[..., 0]
+    k_best = torch.gather(kks, 2, best[..., None].expand(Wn, S, 1, F))[:, :, 0]
+    return torch.where((m_best < m0)[..., None], k_best, k), best_k, best_cost
+
+
+def alm_outer_plain(k, feas, cost, c, lam, rho, best_k, best_cost):
+    """After K8 at the outer iterate (armour_tpu/nlp.py:518-532): fold k
+    into the tracker, lam = max(lam + rho c, 0), rho = min(2 rho, 1e6).
+    Returns (lam, rho, best_k, best_cost)."""
+    best_k, best_cost = _track(k, feas, cost, best_k, best_cost)
+    return (torch.clamp(lam + rho[..., None] * c, min=0.0), torch.clamp(rho * 2.0, max=1e6),
+            best_k, best_cost)
+
+
+def alm_cull_plain(k, lam, rho, best_k, best_cost, v, cost, keep: int):
+    """The cull (armour_tpu/nlp.py:405-412,536-543): feasible seeds rank by
+    their best cost, the others behind them by 1e6 + v + cost (v: the
+    summed row violations [W,S], cost at k); the `keep` first in a stable
+    ascending order (NaN last) carry on.  Returns the kept (k, lam, rho,
+    best_k, best_cost)."""
+    score = torch.where(torch.isfinite(best_cost), best_cost, 1e6 + v + cost)
+    idx = torch.argsort(score, dim=-1, stable=True)[:, :keep]
+    return tuple(_take(x, idx) for x in (k, lam, rho, best_k, best_cost))
+
+
+def alm_pull_start_plain(k, best_k, best_cost):
+    """The pull-in's bracket (armour_tpu/nlp.py:562-575): lo = best_k where
+    the tracker holds a point, else k; hi = k.  Returns (lo, hi, mid)."""
+    lo = torch.where(torch.isfinite(best_cost)[..., None], best_k, k)
+    return lo, k, 0.5 * (lo + k)
+
+
+def alm_pull_step_plain(lo, hi, mid, ok):
+    """One bisection step on K8's feasibility ok [W,S] of mid.  Returns
+    (lo, hi, mid)."""
+    lo, hi = torch.where(ok[..., None], mid, lo), torch.where(ok[..., None], hi, mid)
+    return lo, hi, 0.5 * (lo + hi)
+
+
+def alm_pull_end_plain(k, lo, mid, ok, end_feas, best_cost):
+    """The last bisection step, then k_pull: the bracket's feasible end
+    where k ended infeasible (end_feas) and the tracker holds a point, else
+    k."""
+    lo = torch.where(ok[..., None], mid, lo)
+    return torch.where((~end_feas & torch.isfinite(best_cost))[..., None], lo, k)
+
+
+def alm_finish_plain(k, k_pull, feas, cost, best_k, best_cost):
+    """Fold k_pull into the tracker; returns ([k, best_k] [W,2S,F] for the
+    full-set check, best_cost)."""
+    best_k, best_cost = _track(k_pull, feas, cost, best_k, best_cost)
+    return torch.cat([k, best_k], dim=1), best_cost
+
+
+def alm_select_plain(kb, v, best_cost, cost_final, thresholds):
+    """The result (armour_tpu/nlp.py:586-600 and the best start, :403-416):
+    per seed the final or the best iterate by the full-set violations v
+    [W,2S,4] of kb = [k, best_k] ([W,2S,F]), NaN k when neither is
+    feasible; then per world the feasible seed of least cost, else the seed
+    of least cost (torch.argmin: NaN first, then the lower index).
+    thresholds: (torque, collision, state, grasp).  Returns (k [W,F],
+    feasible [W], cost [W], viol [W,4])."""
+    S = kb.shape[1] // 2
+    k, best_k, v_final, v_best = kb[:, :S], kb[:, S:], v[:, :S], v[:, S:]
+    feas_final = _viol_ok(v_final, thresholds)
+    feas_best = _viol_ok(v_best, thresholds) & torch.isfinite(best_cost)
+    use_best = feas_best & ((~feas_final) | (best_cost < cost_final))
+    feasible = feas_final | feas_best
+    k_sel = torch.where(use_best[..., None], best_k, k)
+    k_sel = torch.where(feasible[..., None], k_sel, torch.full_like(k_sel, math.nan))
+    cost = torch.where(use_best, best_cost, cost_final)
+    viol = torch.where(use_best[..., None], v_best, v_final)
+    cost_rank = torch.where(feasible, cost, torch.full_like(cost, math.inf))
+    i = torch.where(torch.any(feasible, dim=-1), torch.argmin(cost_rank, dim=-1),
+                    torch.argmin(cost, dim=-1))[:, None]       # [W, 1]
+    return (_take(k_sel, i)[:, 0], _take(feasible, i)[:, 0], _take(cost, i)[:, 0],
+            _take(viol, i)[:, 0])
+
+
+PLAIN_LOOP = types.SimpleNamespace(
+    init=alm_init_plain, ladder=alm_ladder_plain, accept=alm_accept_plain,
+    outer=alm_outer_plain, cull=alm_cull_plain, pull_start=alm_pull_start_plain,
+    pull_step=alm_pull_step_plain, pull_end=alm_pull_end_plain, finish=alm_finish_plain,
+    select=alm_select_plain)
+
+_TABLES = {}
+
+
+def _table(values, dtype, device) -> torch.Tensor:
+    """A constant table (the alphas, a seed index) on `device`, formed once
+    per values, dtype and device: the solve loop copies nothing to the card
+    after its first solve."""
+    key = (tuple(values), dtype, torch.device(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = torch.tensor(list(values), dtype=dtype).to(device, non_blocking=True)
+        _TABLES[key] = t
+    return t
+
+
+def _seed_index(S: int, per_seed: int, device) -> torch.Tensor:
+    """seed_of_q for S seeds with per_seed consecutive queries each."""
+    return _table([s for s in range(S) for _ in range(per_seed)], torch.int32, device)
+
+
 def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None,
-          *, plain: bool = False) -> SolveResult:
+          *, plain: bool = False, eager: bool = False) -> SolveResult:
     """Multi-start ALM solve for every world.  Seeds: k=0, the
     waypoint-directed k and +-0.5 of it; the best feasible result wins.
-    plain=True evaluates the rows with the plain versions on any device (the
-    reference the kernels are held against); otherwise K7 / K8 on the card."""
+    On the card the rows are kernels K7 / K8 and the bookkeeping between
+    them kernel K14.  plain=True takes the plain versions of all three on
+    any device (the reference the kernels are held against); eager=True
+    keeps K7 / K8 and takes the plain bookkeeping."""
     dt, dev = prob.q_des.dtype, prob.q_des.device
     Wn, F = prob.q_des.shape
 
@@ -465,44 +652,44 @@ def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None,
     n_seeds = seeds.shape[1]
     cull_after = int(cfg.solver_cull_after)
     keep = int(cfg.solver_keep_seeds)
-    init, run_outer, finalize, cull_score = _alm_phases(prob, cfg, basis, plain=plain)
+    init, run_outer, finalize, cull = _alm_phases(prob, cfg, basis, plain=plain, eager=eager)
 
     carry = init(seeds)
     if 0 < cull_after < cfg.solver_outer_iters and 0 < keep < n_seeds:
         # phase A on all seeds, keep the most promising, phase B on those
         carry = run_outer(carry, cull_after)
-        idx = torch.argsort(cull_score(carry), dim=-1, stable=True)[:, :keep]
-        carry = tuple(_take(x, idx) for x in carry)
+        carry = cull(carry, keep)
         carry = run_outer(carry, cfg.solver_outer_iters - cull_after)
     else:
         carry = run_outer(carry, cfg.solver_outer_iters)
-    res = finalize(carry)
-
-    # best feasible across starts; else the lowest-cost (infeasible) one
-    cost_rank = torch.where(res.feasible, res.cost, torch.full_like(res.cost, math.inf))
-    any_feas = torch.any(res.feasible, dim=-1)
-    i = torch.where(any_feas, torch.argmin(cost_rank, dim=-1),
-                    torch.argmin(res.cost, dim=-1))[:, None]    # [W, 1]
-    return SolveResult(k=_take(res.k, i)[:, 0], feasible=_take(res.feasible, i)[:, 0],
-                       cost=_take(res.cost, i)[:, 0], viol=_take(res.viol, i)[:, 0])
+    k, feasible, cost, viol = finalize(carry)
+    return SolveResult(k=k, feasible=feasible, cost=cost, viol=viol)
 
 
-def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, plain: bool = False):
-    """The ALM descent as (init, run_outer, finalize, cull_score) over a
-    carry (k, lam, rho, best_k, best_cost) of [W, S, ...] tensors.  Every
-    row evaluation is one newton (K7) or values (K8) pass; on the card no
-    constraint stack or Jacobian is formed."""
+def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, plain: bool = False,
+                eager: bool = False):
+    """The ALM descent as (init, run_outer, finalize, cull) over a carry
+    (k, lam, rho, best_k, best_cost) of [W, S, ...] tensors.  Every row
+    evaluation is one newton (K7) or values (K8) pass, every step between
+    two of them one phase of the loop's book: kernel K14 on the card (one
+    launch each), the plain versions above on the CPU or when asked.  On
+    the card no constraint stack or Jacobian is formed and, between the
+    first row pass and the full-set check, no torch op runs but the cull's
+    violation sum."""
     dt, dev = prob.q_des.dtype, prob.q_des.device
-    cont = prob.limits.continuous
     thr = _stack_thresholds(prob, cfg)
     M = thr.shape[0]
-    alphas = torch.tensor(cfg.solver_alphas, dtype=dt).to(dev, non_blocking=True)
-    A = len(cfg.solver_alphas)
+    alphas = tuple(cfg.solver_alphas)
+    A = len(alphas)
+    kernel_rows = dev.type == "cuda" and not plain
     rows = None
-    if dev.type == "cuda" and not plain:
+    book = PLAIN_LOOP
+    if kernel_rows:
         from .kernels import solver as ksolver
 
         rows = ksolver.alm_rows(prob, cfg, basis)
+        if not eager:
+            book = ksolver.LOOP
 
     def newton(k, lam, rho):
         if plain:
@@ -514,109 +701,60 @@ def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, plain: bool
             return alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
         return alm_values(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c, rows)
 
-    seed_index = {}
-
-    def seeds_of(S, per_seed=1):
-        """seed_of_q for S seeds with per_seed consecutive queries each."""
-        if (S, per_seed) not in seed_index:
-            seed_index[(S, per_seed)] = torch.arange(S, dtype=torch.int32).repeat_interleave(
-                per_seed).to(dev, non_blocking=True)
-        return seed_index[(S, per_seed)]
-
-    def cost_fn(kk):
-        return plan_cost(kk, prob.traj, prob.q_des, cont, cfg)
-
-    def track_best(kk, feas, best_k, best_cost):
-        cost_kk = cost_fn(kk)
-        better = feas & (cost_kk < best_cost)
-        return (torch.where(better[..., None], kk, best_k),
-                torch.where(better, cost_kk, best_cost))
-
     def init(k):
         Wn, S = k.shape[:2]
         lam = torch.zeros(Wn, S, M, dtype=dt, device=dev)
         rho = torch.full((Wn, S), 10.0, dtype=dt, device=dev)
-        _, feas0, _ = values(k, lam, rho, seeds_of(S))
+        _, feas0, cost0, _ = values(k, lam, rho, _seed_index(S, 1, dev))
         # a feasible start (k=0 is the rest plan) seeds the best tracker
-        best_cost = torch.where(feas0, cost_fn(k), torch.full_like(feas0, math.inf, dtype=dt))
-        return (k, lam, rho, k, best_cost)
-
-    def inner_step(k, best_k, best_cost, lam, rho):
-        Wn, S, F = k.shape
-        step, m0, feas = newton(k, lam, rho)
-        best_k, best_cost = track_best(k, feas, best_k, best_cost)
-
-        # geometric backtracking ladder, all alphas in one values pass
-        kks = torch.clamp(k[:, :, None] - alphas[:, None] * step[:, :, None], -1.0, 1.0)
-        merits, feas_ls, _ = values(kks.reshape(Wn, S * A, F), lam, rho, seeds_of(S, A))
-        merits, feas_ls = merits.reshape(Wn, S, A), feas_ls.reshape(Wn, S, A)
-        # every line-search candidate is also a best-feasible candidate
-        for a in range(A):
-            best_k, best_cost = track_best(kks[:, :, a], feas_ls[:, :, a], best_k, best_cost)
-        best = torch.argmin(merits, dim=-1, keepdim=True)   # [W, S, 1]
-        m_best = torch.gather(merits, -1, best)[..., 0]
-        k_best = torch.gather(kks, 2, best[..., None].expand(Wn, S, 1, F))[:, :, 0]
-        k_new = torch.where((m_best < m0)[..., None], k_best, k)
-        return k_new, best_k, best_cost
+        best_k, best_cost = book.init(k, feas0, cost0)
+        return (k, lam, rho, best_k, best_cost)
 
     def run_outer(carry, n: int):
         k, lam, rho, best_k, best_cost = carry
+        S = k.shape[1]
         for _ in range(n):
             for _ in range(cfg.solver_inner_iters):
-                k, best_k, best_cost = inner_step(k, best_k, best_cost, lam, rho)
-            _, feas, c = values(k, lam, rho, seeds_of(k.shape[1]), want_c=True)
+                step, m0, feas, cost = newton(k, lam, rho)
+                # geometric backtracking ladder, all alphas in one values pass;
+                # every line-search candidate is also a best-feasible candidate
+                kq, best_k, best_cost = book.ladder(k, step, feas, cost, best_k, best_cost,
+                                                    alphas)
+                merit, feas_q, cost_q, _ = values(kq, lam, rho, _seed_index(S, A, dev))
+                k, best_k, best_cost = book.accept(k, m0, kq, merit, feas_q, cost_q, best_k,
+                                                   best_cost)
+            _, feas, cost, c = values(k, lam, rho, _seed_index(S, 1, dev), want_c=True)
             # proxy feasibility on the screened stack; the winner is
             # re-checked against the full set in finalize
-            best_k, best_cost = track_best(k, feas, best_k, best_cost)
-            lam = torch.clamp(lam + rho[..., None] * c, min=0.0)
-            rho = torch.clamp(rho * 2.0, max=1e6)
+            lam, rho, best_k, best_cost = book.outer(k, feas, cost, c, lam, rho, best_k,
+                                                     best_cost)
         return (k, lam, rho, best_k, best_cost)
 
-    def cull_score(carry):
+    def cull(carry, keep: int):
         """Feasible seeds rank by best cost, infeasible ones behind them by
-        total violation."""
+        total violation; the sum over the rows stays a torch reduction."""
         k, lam, rho, best_k, best_cost = carry
-        _, _, c = values(k, lam, rho, seeds_of(k.shape[1]), want_c=True)
+        _, _, cost, c = values(k, lam, rho, _seed_index(k.shape[1], 1, dev), want_c=True)
         v = torch.sum(torch.clamp(c - thr, min=0.0), dim=-1)
-        return torch.where(torch.isfinite(best_cost), best_cost, 1e6 + v + cost_fn(k))
+        return book.cull(k, lam, rho, best_k, best_cost, v, cost, keep)
 
     def finalize(carry):
         k, lam, rho, best_k, best_cost = carry
-        S = k.shape[1]
-        ident = seeds_of(S)
-
-        def feasible_at(kk):
-            return values(kk, lam, rho, ident)[1]
-
+        ident = _seed_index(k.shape[1], 1, dev)
         # feasibility pull-in: bisect along [best_k, k] for the deepest
         # feasible point when the ALM ends epsilon outside the feasible set
-        def pull_in(lo, hi):
-            for _ in range(6):
-                mid = 0.5 * (lo + hi)
-                ok = feasible_at(mid)[..., None]
-                lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
-            return lo
-
-        end_feas = feasible_at(k)
-        have_seed = torch.isfinite(best_cost)
-        pulled = pull_in(torch.where(have_seed[..., None], best_k, k), k)
-        k_pull = torch.where((~end_feas & have_seed)[..., None], pulled, k)
-        best_k, best_cost = track_best(k_pull, feasible_at(k_pull), best_k, best_cost)
+        _, end_feas, cost_final, _ = values(k, lam, rho, ident)
+        lo, hi, mid = book.pull_start(k, best_k, best_cost)
+        for i in range(6):
+            ok = values(mid, lam, rho, ident)[1]
+            if i < 5:
+                lo, hi, mid = book.pull_step(lo, hi, mid, ok)
+        k_pull = book.pull_end(k, lo, mid, ok, end_feas, best_cost)
+        _, feas, cost, _ = values(k_pull, lam, rho, ident)
+        kb, best_cost = book.finish(k, k_pull, feas, cost, best_k, best_cost)
 
         # one full-set check for the final and the best iterate of every seed
-        v = torch.stack(max_violations(torch.cat([k, best_k], dim=1), prob, cfg, basis),
-                        dim=-1)                              # [W, 2S, 4]
-        v_final, v_best = v[:, :S], v[:, S:]
-        feas_final = viol_feasible(v_final, cfg)
-        feas_best = viol_feasible(v_best, cfg) & torch.isfinite(best_cost)
-        cost_final = cost_fn(k)
-        use_best = feas_best & ((~feas_final) | (best_cost < cost_final))
-        feasible = feas_final | feas_best
-        k_sel = torch.where(use_best[..., None], best_k, k)
-        return SolveResult(
-            k=torch.where(feasible[..., None], k_sel, torch.full_like(k_sel, math.nan)),
-            feasible=feasible,
-            cost=torch.where(use_best, best_cost, cost_final),
-            viol=torch.where(use_best[..., None], v_best, v_final))
+        v = torch.stack(max_violations(kb, prob, cfg, basis, rows=rows), dim=-1)  # [W, 2S, 4]
+        return book.select(kb, v, best_cost, cost_final, viol_thresholds(cfg))
 
-    return init, run_outer, finalize, cull_score
+    return init, run_outer, finalize, cull

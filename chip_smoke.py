@@ -9,22 +9,26 @@ solvability checker, three iterations of a hard scenario, and the ARMTD
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
-     flags; build the eleven kernels from csrc/ (one nvcc per source, in parallel)
+     flags; build the fourteen kernels from csrc/ (one nvcc per source, in parallel)
      and print the nvcc flags, every kernel's registers, spills, stack frame
      and static shared memory (ptxas) and K7's / K8's / K9's / K10's dynamic
      shared memory a block.
   2. the main path at the flagship width (Kinova Gen3, T = 128, O = 40,
      K = 4096, float32) over the first 64 saved worlds: one warm-up step that
      records each kernel's inputs, then one step with the launch counters set
-     to 0, which must launch every kernel of the step (K3, K4, K7, K8 and the
-     reach-set chains K9, K10) and neither K1 nor K2.
+     to 0, which must launch every kernel of the step (K12, K13, K3, K4, K7,
+     K8, K14 and the reach-set chains K9, K10) and neither K1 nor K2.
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
      (median of 20 calls, CUDA events); K7, K8, K9 and K10 also run twice
      and must give the same bits, K9, K1 and K2 also under other launch
      geometries (the same bits again), and K1, K2 and K7-K10 are printed
      beside their earlier times (PERF.md's kernel history).  K7 / K8 (the solver's
-     rows) on every shape of the step: seeds 4 -> 2, line search S x 3.  K1
+     rows) on every shape of the step: seeds 4 -> 2, line search S x 3; their
+     cost output bit for bit against plan_cost; K8's max mode (the full-set
+     check's torque and state maxima) with the state maxima bit for bit; K14
+     (the solve loop's bookkeeping) on every phase and shape bit for bit
+     against its plain version, and again on a second call.  K1
      / K2, which the Kinova's step does not launch, on their own path: one
      W = 64 planning step of the Kinova with com_uncertainty = 0.05 (the
      uncertain-COM route of the PZ RNEA, through the op-level kernels),
@@ -32,9 +36,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      after, which must launch both; their calls recorded there, plus the FK
      rotation product of joint 1 formed from the step's JRS (not counted).
   4. planning-step checks and timings: every feasible k passes the plain
-     full-set check on the card; the solve with K7 / K8 against the eager
-     solve with the plain row versions on the card (same feasible count,
-     its feasible k certified by the plain full-set check, max |d cost|);
+     full-set check on the card; the fused solve (K7 / K8 / K14) against the
+     eager solve (K7 / K8 and the plain bookkeeping: k, feasible, cost and
+     viol bit for bit, also from one start k0, whose K7 / K8 / K14 calls are
+     held against their plain versions) and the plain solve (same feasible
+     count, its feasible k certified by the plain full-set check, max
+     |d cost|), each timed; the fused and the eager solve profiled (device
+     activities by name, busy share), and the fused solve's activities from
+     its first K8 call to the full-set check must all be K7 / K8 / K14, but
+     the cull's violation sum;
      the first 8 worlds through the port on the CPU (plain versions) agree
      on feasibility with at most one flip; solves/s at W = 64, the reach-set
      / solver split (reachset_ms), the device time of one step by kernel
@@ -61,13 +71,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      CUDA-event medians of 20, the plain K5 (a launch-bound Python loop of
      ~2M small launches) over one call.
   7. one plan at the rescue profile (strong_config: 8 x 6 iterations, seeds
-     4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8, K9 / K10 and
-     K12 / K13 against their plain versions at its shapes, all timed.
+     4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8 / K14, K9 / K10
+     and K12 / K13 against their plain versions at its shapes, all timed.
   8. the real-time planner: make_realtime_planner calibrates on the card
      (its calibration printed), then batch-1 p50/p99 through the calibrated
      step over the first 32 worlds, counted (every kernel of the step must
-     launch); K7 / K8, K9 / K10 and K12 / K13 against their plain versions
-     at the W = 1 shapes, all timed.
+     launch); K7 / K8 / K14, K9 / K10 and K12 / K13 against their plain
+     versions at the W = 1 shapes, all timed.
   9. containment: for the first 8 worlds of the step, 64 sampled k per world
      at a sampled time inside each of the 128 sub-intervals: every numeric
      link centre inside K9's sliced link hull and inside its centre set
@@ -88,14 +98,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with start velocities seeded uniform in +-ARMTD_QD0 rad/s: one warm-up
      step that records each kernel's inputs, then one step with the launch
      counters set to 0 just before it and read just after, which must
-     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, K13, and
+     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, K13, K14, and
      neither K1, K2 nor K12; every recorded call (K11, K3, K4, K13, K7 /
-     K8's ARMTD branch on every shape, K9 / K10 on the ARMTD sets) against
-     its plain version
+     K8's ARMTD branch and K14 on every shape, K9 / K10 on the ARMTD sets)
+     against its plain version
      with the tolerances above, each kernel twice for the same bits, all
-     timed; every feasible k passes the plain full-set check; the solve
-     with K7 / K8 against the plain rows (the same feasible count, max
-     |d cost|); the step beside phase 4's Bernstein step, profiled; phase
+     timed; every feasible k passes the plain full-set check; phase 4's
+     fused / eager / plain solve comparison and profiles on the ARMTD plan;
+     the step beside phase 4's Bernstein step, profiled; phase
      9's containment on the ARMTD sets (65,536 sampled states); three
      closed-loop iterations with rescue (K11, K5, K6 launched, no safety
      flag); batch-1 p50 / p99.
@@ -417,15 +427,16 @@ def check_alm_newton(inputs, dev):
     def plain():
         return nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
 
-    step, m0, feas, g, H = ks.alm_newton(rows, k, lam, rho, want_system=True)
+    step, m0, feas, cost, g, H = ks.alm_newton(rows, k, lam, rho, want_system=True)
     again = ks.alm_newton(rows, k, lam, rho, want_system=True)
-    same = all(torch.equal(x, y) for x, y in zip((step, m0, feas, g, H), again))
-    st0, m00, f0 = plain()
+    same = all(torch.equal(x, y) for x, y in zip((step, m0, feas, cost, g, H), again))
+    st0, m00, f0, cost0 = plain()
+    cost_ok, cost_note = _cost_bits(rows, k, cost, cost0)
     g0, H0, c0 = nlp.alm_newton_system(k, lam, rho, prob, cfg, basis)
     _, Jc = nlp.constraint_stack(k, prob, cfg, basis, with_grad=True)
     # the kernels' own rows at the same k (K8 shares K7's row code)
     ck = ks.alm_values(rows, k, lam, rho, torch.arange(S, dtype=torch.int32, device=dev),
-                       want_c=True)[2]
+                       want_c=True)[3]
     z0 = lam + rho[..., None] * c0
     act0 = z0 > 0
     flip = (act0 != (lam + rho[..., None] * ck > 0)).any(-1)
@@ -452,7 +463,7 @@ def check_alm_newton(inputs, dev):
     feas_ok = bool(((feas == f0) | amb).all())
     torch.cuda.synchronize(dev)
     ok = feas_ok and m_ratio <= 1.0 and all(v <= 1.0 for v in worst.values()) \
-        and bool(torch.isfinite(step[clear]).all()) and same
+        and bool(torch.isfinite(step[clear]).all()) and same and cost_ok
     err = max(float((m0 - m00).abs().max()),
               float((step - st0)[clear].abs().max()) if bool(clear.any()) else 0.0)
     note = (f"m0 worst |d|/tol {m_ratio:.3g}; g {worst['g']:.3g}, H {worst['H']:.3g}, step "
@@ -461,7 +472,7 @@ def check_alm_newton(inputs, dev):
             f"{int((tie.any(-1) & ~flip).sum())} with an active argmax near-tie left out; "
             f"max |dstep| {err:.3g}; feas {'identical' if bool(torch.equal(feas, f0)) else 'differs'}"
             f" ({int(f0.sum())} feasible, {int(amb.sum())} within {ALM_C_TOL} of a threshold); "
-            f"{int(act0.sum())} active rows; a second call "
+            f"{int(act0.sum())} active rows; {cost_note}; a second call "
             f"{'gives the same bits' if same else 'DIFFERS'}")
     nbytes = _alm_io_bytes(rows, k, lam, rho, True, False)
     return ok, err, kern, plain, nbytes, _alm_flops(rows, S, True), note
@@ -522,46 +533,249 @@ def check_alm_values(inputs, dev):
     def plain():
         return nlp.alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
 
-    merit, feas, c = ks.alm_values(rows, kq, lam, rho, seed_of_q, True)
+    merit, feas, cost, c = ks.alm_values(rows, kq, lam, rho, seed_of_q, True)
     again = ks.alm_values(rows, kq, lam, rho, seed_of_q, True)
-    same = all(torch.equal(x, y) for x, y in zip((merit, feas, c), again))
-    m0, f0, c0 = nlp.alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, True)
+    same = all(torch.equal(x, y) for x, y in zip((merit, feas, cost, c), again))
+    m0, f0, cost0, c0 = nlp.alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, True)
+    cost_ok, cost_note = _cost_bits(rows, kq, cost, cost0)
     m_ratio = float(((merit - m0).abs() / (ALM_TOL * (m0.abs() + 1e-6))).max())
     mag = _row_mag(rows, kq, c0)
     c_ratio = float(((c - c0).abs() / (ALM_C_TOL * mag)).max())
     amb = ((c0 - nlp._stack_thresholds(prob, cfg)).abs() <= ALM_C_TOL * mag).any(-1)
     feas_ok = bool(((feas == f0) | amb).all())
     torch.cuda.synchronize(dev)
-    ok = feas_ok and m_ratio <= 1.0 and c_ratio <= 1.0 and same
+    ok = feas_ok and m_ratio <= 1.0 and c_ratio <= 1.0 and same and cost_ok
     err = max(float((merit - m0).abs().max()), float((c - c0).abs().max()))
     note = (f"merit worst |d|/tol {m_ratio:.3g}, rows {c_ratio:.3g} (max |dc| "
             f"{float((c - c0).abs().max()):.3g}); feas "
             f"{'identical' if bool(torch.equal(feas, f0)) else 'differs'} ({int(f0.sum())}/"
             f"{f0.numel()} feasible, {int(amb.sum())} within {ALM_C_TOL} of a threshold); "
-            f"a second call {'gives the same bits' if same else 'DIFFERS'}")
+            f"{cost_note}; a second call {'gives the same bits' if same else 'DIFFERS'}")
     nbytes = _alm_io_bytes(rows, kq, lam, rho, False, want_c)
     return ok, err, kern, plain, nbytes, _alm_flops(rows, kq.shape[1], False), note
 
 
+def _bits(a, b) -> bool:
+    """The same bits (float tensors compared as int32 words: NaN payloads
+    and the sign of zero count)."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype == torch.bool or b.dtype == torch.bool:
+        return a.dtype == b.dtype and torch.equal(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _cost_bits(rows, kq, cost, cost0):
+    """K7 / K8's cost against plan_cost (cost0, the plain version's output):
+    (bit for bit?, a note that also counts the queries where the cost summed
+    by torch.sum, the plain cost's sum before it took alm_cost's order,
+    differs)."""
+    from armour_tpu_torch import nlp
+
+    prob, cfg = rows.prob, rows.cfg
+    d = nlp._plan_diff(kq, prob.traj, prob.q_des, prob.limits.continuous, cfg)
+    by_sum = cfg.cost_scale * torch.sum(d * d, dim=-1)
+    ok = _bits(cost, cost0)
+    n_sum = int((by_sum.view(torch.int32) != cost.contiguous().view(torch.int32)).sum())
+    return ok, (f"cost {'= plan_cost bit for bit' if ok else 'DIFFERS from plan_cost'} "
+                f"({cost.numel()} points; torch.sum's order would differ at {n_sum})")
+
+
+def check_alm_maxima(inputs, dev):
+    """K8's max mode against nlp.maxima_plain at the solve's points: the
+    state maxima bit for bit, the torque maxima within ALM_C_TOL of their
+    terms (K8's dot products sum in their own order), the same bits on a
+    repeat."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.kernels import solver as ks
+
+    rows, kq, _ = inputs
+    prob, cfg, basis = rows.prob, rows.cfg, rows.basis
+
+    def kern():
+        return ks.alm_maxima(rows, kq)
+
+    def plain():
+        return nlp.maxima_plain(kq, prob, cfg, basis)
+
+    vt, vs = kern()
+    vt2, vs2 = kern()
+    pt, ps = plain()
+    same = _bits(vt, vt2) and _bits(vs, vs2)
+    state_ok = _bits(vs, ps)
+    if rows.args.TF:
+        u_abs = torch.matmul(basis.phi(kq).abs(), rows.tensors["u_coef"].abs().transpose(1, 2))
+        mag = (u_abs + rows.tensors["u_hi"].abs()[:, None]).amax(-1) + 1.0
+    else:
+        mag = torch.ones_like(pt)
+    t_ratio = float(((vt - pt).abs() / (ALM_C_TOL * mag)).max())
+    torch.cuda.synchronize(dev)
+    ok = same and state_ok and t_ratio <= 1.0
+    err = max(float((vt - pt).abs().max()), float((vs - ps).abs().max()))
+    note = (f"max mode at {kq.shape[1]} points: state maxima "
+            f"{'bit for bit' if state_ok else 'DIFFER'} "
+            f"({int((vs.view(torch.int32) != ps.contiguous().view(torch.int32)).sum())} of "
+            f"{vs.numel()} differ), torque maxima worst |d|/tol {t_ratio:.3g} (max |d| "
+            f"{float((vt - pt).abs().max()):.3g}; {int((vt != pt).sum())} not bit for bit); a "
+            f"second call {'gives the same bits' if same else 'DIFFERS'}")
+    # the max mode reads the torque rows and their limits, the trajectory
+    # scalars and the untightened state limits (rows 3-5); no link centre
+    a, t = rows.args, rows.tensors
+    torque = (t["u_coef"], t["u_hi"]) if a.TF else ()
+    nbytes = (_nbytes(*torque, t["traj"], t["limits"][3:], t["continuous"], kq)
+              + kq.shape[0] * kq.shape[1] * 8)
+    flops = a.W * kq.shape[1] * (a.B * a.F * 4 + 2 * a.B * a.TF + 3 * a.TF + 8 * a.F * 60)
+    return ok, err, kern, plain, nbytes, flops, note
+
+
+def _tup(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _k14_bytes(phase, inputs, got) -> int:
+    """Bytes K14's phase must move on this run's data: every output written
+    once and, of the inputs, what csrc/alm_loop.cu reads: a row of F floats
+    (a seed's k, a multiplier row) only where the phase picks it or folds it
+    into the tracker, a cost only where its point is feasible."""
+    def some(t, where):
+        """bytes of the rows of t picked by the mask `where` (t's leading dims)"""
+        return int(where.sum()) * (t.numel() // max(where.numel(), 1)) * t.element_size()
+
+    def folded(feas, cost, bc):
+        """the tracker's updates where the points (feas, cost) are folded into bc"""
+        return feas & (cost < bc)
+
+    out = _nbytes(*got)
+    if phase == "init":
+        k, feas, cost = inputs
+        return out + _nbytes(k, feas) + some(cost, feas)
+    if phase == "ladder":
+        k, step, feas, cost, best_k, best_cost, alphas = inputs
+        return out + _nbytes(k, step, feas, best_k, best_cost) + some(cost, feas) + 4 * len(alphas)
+    if phase == "accept":
+        k, m0, kq, merit, feas, cost, best_k, best_cost = inputs
+        Wn, S, F = k.shape
+        A = kq.shape[1] // S
+        fq, cq, bc = feas.view(Wn, S, A), cost.view(Wn, S, A), best_cost.clone()
+        read = torch.zeros_like(fq)
+        for i in range(A):
+            read[..., i] = folded(fq[..., i], cq[..., i], bc)
+            bc = torch.where(read[..., i], cq[..., i], bc)
+        mv = merit.view(Wn, S, A)
+        pick = mv.argmin(-1)
+        took = mv.gather(-1, pick[..., None])[..., 0] < m0
+        read |= torch.nn.functional.one_hot(pick, A).bool() & took[..., None]
+        return (out + _nbytes(m0, merit, feas, best_k, best_cost) + some(cost, feas)
+                + some(kq.view(Wn, S, A, F), read) + some(k, ~took))
+    if phase == "outer":
+        k, feas, cost, c, lam, rho, best_k, best_cost = inputs
+        return (out + _nbytes(feas, c, lam, rho, best_k, best_cost) + some(cost, feas)
+                + some(k, folded(feas, cost, best_cost)))
+    if phase == "cull":
+        # the scores; then only the kept seeds' carry (W keep rows of lam)
+        k, lam, rho, best_k, best_cost, v, cost, keep = inputs
+        open_ = ~torch.isfinite(best_cost)
+        kept = k.shape[0] * keep
+        return (out + _nbytes(best_cost) + some(v, open_) + some(cost, open_)
+                + kept * (lam.shape[-1] + 2 * k.shape[-1] + 1) * 4)
+    if phase == "pull_start":
+        k, best_k, best_cost = inputs
+        return out + _nbytes(k, best_cost) + some(best_k, torch.isfinite(best_cost))
+    if phase == "pull_step":
+        lo, hi, mid, ok = inputs
+        return out + _nbytes(mid, ok) + some(lo, ~ok) + some(hi, ok)
+    if phase == "pull_end":
+        k, lo, mid, ok, end_feas, best_cost = inputs
+        pull = ~end_feas & torch.isfinite(best_cost)
+        return (out + _nbytes(ok, end_feas) + some(best_cost, ~end_feas) + some(k, ~pull)
+                + some(mid, pull & ok) + some(lo, pull & ~ok))
+    if phase == "finish":
+        k, k_pull, feas, cost, best_k, best_cost = inputs
+        return (out + _nbytes(k, feas, best_k, best_cost) + some(cost, feas)
+                + some(k_pull, folded(feas, cost, best_cost)))
+    if phase == "select":
+        # the full-set violations of both iterates; one kb row per feasible world
+        kb, v, best_cost, cost_final, t = inputs
+        return (out + _nbytes(v, best_cost, cost_final) + 4 * len(t)
+                + int(got[1].sum()) * kb.shape[-1] * kb.element_size())
+    raise ValueError(f"no byte count for K14 phase {phase}")
+
+
+def check_alm_loop(key, inputs, dev):
+    """K14's phase key[0] against its plain version (nlp.PLAIN_LOOP) on the
+    recorded inputs: every output bit for bit, and the same bits on a
+    second call."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.kernels import solver as ks
+
+    phase = key[0]
+    kern_fn, plain_fn = getattr(ks.LOOP, phase), getattr(nlp.PLAIN_LOOP, phase)
+
+    def kern():
+        return kern_fn(*inputs)
+
+    def plain():
+        return plain_fn(*inputs)
+
+    got, again, want = _tup(kern()), _tup(kern()), _tup(plain())
+    torch.cuda.synchronize(dev)
+    same = len(got) == len(again) and all(_bits(g, a) for g, a in zip(got, again))
+    equal = len(got) == len(want) and all(_bits(g, w) for g, w in zip(got, want))
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype != torch.bool:
+            d = (torch.nan_to_num(g.float(), nan=0.0, posinf=0.0, neginf=0.0)
+                 - torch.nan_to_num(w.float(), nan=0.0, posinf=0.0, neginf=0.0)).abs()
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+    nbytes = _k14_bytes(phase, inputs, got)
+    flops = 4 * sum(x.numel() for x in got)
+    note = (f"{phase}: {'the plain version' + chr(39) + 's bits' if equal else 'DIFFERS'} on "
+            f"{len(got)} outputs; a second call {'gives the same bits' if same else 'DIFFERS'}")
+    return equal and same, err, kern, plain, nbytes, flops, note
+
+
+def check_alm(name, key, inputs, dev):
+    """The check of a recorded K7 / K8 / K8 max mode / K14 call."""
+    if name == "alm_newton":
+        return check_alm_newton(inputs, dev)
+    if name == "alm_loop":
+        return check_alm_loop(key, inputs, dev)
+    if key[-1] == "maxima":
+        return check_alm_maxima(inputs, dev)
+    return check_alm_values(inputs, dev)
+
+
+ALM_KERNELS = ("alm_newton", "alm_values", "alm_loop")
+
+
 def check_alm_captures(captured, dev, label) -> None:
-    """K7 / K8 against their plain versions on every recorded shape of a
-    path other than the main one, the kernels timed; fails on a mismatch."""
+    """K7 / K8 / K14 against their plain versions on every recorded shape of
+    a path other than the main one, the kernels timed (and summed by kernel
+    over the shapes); fails on a mismatch."""
     from armour_tpu_torch.utils.timing import median_ms
 
-    n, all_ok = 0, True
+    sums, all_ok = {}, True
     for (name, key), inputs in captured.items():
-        if name not in ("alm_newton", "alm_values"):
+        if name not in ALM_KERNELS:
             continue
-        fn = check_alm_newton if name == "alm_newton" else check_alm_values
-        ok, _, kern, _, _, _, note = fn(inputs, dev)
-        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel "
-              f"{median_ms(kern, dev, TIMING_ITERS):.4f} ms (median of {TIMING_ITERS})")
+        ok, _, kern, plain, _, _, note = check_alm(name, key, inputs, dev)
+        ms = median_ms(kern, dev, TIMING_ITERS)
+        pms = median_ms(plain, dev, TIMING_ITERS)
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms (medians of {TIMING_ITERS})")
+        sm = sums.setdefault(name, [0.0, 0.0, 0])
+        sm[0] += ms
+        sm[1] += pms
+        sm[2] += 1
         all_ok &= ok
-        n += 1
-    if n == 0:
-        fail(f"no K7 / K8 call was recorded on the {label}")
+    for name in ALM_KERNELS:
+        if name not in sums:
+            fail(f"no {name} call was recorded on the {label}")
     if not all_ok:
-        fail(f"K7 / K8 disagree with their plain versions on the {label}")
+        fail(f"K7 / K8 / K14 disagree with their plain versions on the {label}")
+    print(f"  {label}: " + ", ".join(f"{n} {v[0]:.4f} ms / plain {v[1]:.4f} ms over {v[2]} "
+                                     f"shapes" for n, v in sums.items()))
 
 
 def _chain_flops(name, Wn, T, J, P, basis, E) -> int:
@@ -768,12 +982,13 @@ REPLACES = {
     "jrs_bernstein": ("armour_tpu_torch/csrc/jrs_bernstein.cu", "armour_tpu/jrs.py:220"),
     "screen_collision": ("armour_tpu_torch/csrc/screen_collision.cu",
                          "armour_tpu/collision.py:193"),
+    "alm_loop": ("armour_tpu_torch/csrc/alm_loop.cu", "armour_tpu/nlp.py:427"),
 }
 # the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
 # only the uncertain-COM route, which phase 3 drives as their own path
 # the kernels of a planning step of either trajectory family, after its JRS
 STEP_KERNELS = ("build_hyperplanes", "collision_rows", "alm_newton", "alm_values",
-                "fk_chain", "rnea_chain", "screen_collision")
+                "fk_chain", "rnea_chain", "screen_collision", "alm_loop")
 # a Bernstein step: its JRS is K12 (the ARMTD family's is K11)
 BERNSTEIN_KERNELS = ("jrs_bernstein",) + STEP_KERNELS
 OP_KERNELS = ("pz_matmul_linear", "pz_cross")
@@ -782,7 +997,23 @@ HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperpl
                       "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
                       "alm_newton": "k7", "alm_values": "k8", "fk_chain": "k9",
                       "rnea_chain": "k10", "jrs_armtd": "k11", "jrs_bernstein": "k12",
-                      "screen_collision": "k13"}
+                      "screen_collision": "k13", "alm_loop": "k14"}
+
+
+def _bound_ms(nbytes, flops) -> float:
+    """The least time on the card for the work: bytes over its memory rate
+    or float32 operations over its peak, whichever is longer."""
+    return max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOP_PER_S) * 1e3
+
+
+def kernel_part(name, key):
+    """The part of a kernel whose shapes are summed apart: K8's row passes
+    and its max mode, K14's phases; None for the other kernels."""
+    if name == "alm_values":
+        return "max mode" if key[-1] == "maxima" else "row passes"
+    if name == "alm_loop":
+        return key[0]
+    return None
 
 
 def kernel_phase(captured, launches, device_launches, dev):
@@ -790,6 +1021,7 @@ def kernel_phase(captured, launches, device_launches, dev):
 
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0, "calls": 0,
                 "library_ms": None} for k in PLANNING_KERNELS}
+    parts = {}
     all_ok = True
     for (name, key), inputs in captured.items():
         if name not in rows:
@@ -803,10 +1035,8 @@ def kernel_phase(captured, launches, device_launches, dev):
             res = check_pz(name, inputs, dev)
         elif name == "build_hyperplanes":
             res = check_hyperplanes(inputs, dev)
-        elif name == "alm_newton":
-            res = check_alm_newton(inputs, dev)
-        elif name == "alm_values":
-            res = check_alm_values(inputs, dev)
+        elif name in ALM_KERNELS:
+            res = check_alm(name, key, inputs, dev)
         elif name in ("fk_chain", "rnea_chain"):
             res = check_chain(name, inputs, dev)
         else:
@@ -821,13 +1051,19 @@ def kernel_phase(captured, launches, device_launches, dev):
         r["flops"] += flops
         r["err"] = max(r["err"], err)
         r["calls"] += 1
+        part = kernel_part(name, key)
+        if part is not None:
+            pt = parts.setdefault((name, part), [0.0, 0.0, 0, 0, 0])
+            for i, x in enumerate((ms, pms, nbytes, flops, 1)):
+                pt[i] += x
         lib = ""
         if library is not None:
             lms = median_ms(library, dev, TIMING_ITERS)
             r["library_ms"] = (r["library_ms"] or 0.0) + lms
             lib = f", library (torch.topk of the same K over the same bound) {lms:.4f} ms"
         print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms{lib}, {nbytes / 1e6:.1f} MB")
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms{lib}, {nbytes / 1e6:.1f} MB, "
+              f"bound {_bound_ms(nbytes, flops):.4f} ms")
         if name == "fk_chain":
             print(f"  {name} {key}: {check_k9_geometries(inputs)}")
         elif name in OP_KERNELS:
@@ -840,6 +1076,10 @@ def kernel_phase(captured, launches, device_launches, dev):
                       f"{median_ms(plain_v, dev, TIMING_ITERS):.4f} ms")
                 ok &= ok_v
         all_ok &= ok
+    for (name, part), (ms, pms, nbytes, flops, n) in parts.items():
+        print(f"  {name}, {part}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{_bound_ms(nbytes, flops):.4f} ms ({nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP) over {n} shapes")
     out = []
     for name in PLANNING_KERNELS:
         r = rows[name]
@@ -1265,22 +1505,103 @@ def closed_loop_kernel_rows(robot, cfg, launches, inputs, dev):
 # ---------------------------------------------------------------------------
 
 
-def fused_against_plain(prob, cfg, basis, dev) -> dict:
-    """The solve with K7 / K8 against the eager solve with the plain row
-    versions on the card, same problem: the same feasible count, every
-    feasible k of the fused solve certified by the plain full-set check, the
-    largest |d cost| over the worlds feasible in both; both timed (host
-    clock to a sync, median of 3, in turns)."""
-    from armour_tpu_torch import nlp
+def device_timeline(fn, dev) -> list:
+    """(name, device us) of every device activity of one call of fn, in
+    start order (torch.profiler; a warm-up call, then the recorded one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize(dev)
+            prof.step()
+    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("ProfilerStep")), key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in ev]
+
+
+def _is_alm(name: str) -> bool:
+    return any(p in name for p in ("k7_", "k8_", "k14_"))
+
+
+def solve_window(timeline) -> dict:
+    """Checks that between the solve's first K8 activity and the full-set
+    check (after K14's finish phase) only K7, K8 and K14 ran, but the cull's
+    violation sum (its torch ops, between the cull's K8 call and K14's cull
+    phase); returns the counts."""
+    names = [n for n, _ in timeline]
+    first = next((i for i, n in enumerate(names) if "k8_" in n), None)
+    last = max((i for i, n in enumerate(names) if "k14_finish" in n), default=None)
+    if first is None or last is None:
+        fail("the fused solve's profile shows no K8 or no K14 finish activity")
+    allowed = set()
+    for c in (i for i, n in enumerate(names) if "k14_cull" in n):
+        j = c - 1
+        while j > first and not _is_alm(names[j]):
+            allowed.add(j)
+            j -= 1
+    others = [i for i in range(first, last + 1) if not _is_alm(names[i])]
+    bad = sorted({names[i][:90] for i in others if i not in allowed})
+    cull_ops = [names[i][:60] for i in sorted(allowed)]
+    if bad or len(cull_ops) > 4:
+        fail(f"the fused solve ran other device work between its first K8 call and the full-set "
+             f"check: {bad or cull_ops}")
+    return {"window_activities": last + 1 - first, "window_cull_sum_ops": len(cull_ops)}
+
+
+def solve_profile(fn, dev, wall_s, label) -> tuple:
+    """The solve's device activities by name, their count, device time and
+    busy share of the solve's wall time."""
+    tl = device_timeline(fn, dev)
+    by = {}
+    for n, us in tl:
+        key = n.split("(")[0][:70]
+        c = by.setdefault(key, [0, 0.0])
+        c[0] += 1
+        c[1] += us / 1e3
+    dev_ms = sum(us for _, us in tl) / 1e3
+    print(f"  {label}: {len(tl)} device activities, {dev_ms:.2f} ms of device time, busy "
+          f"{dev_ms / (wall_s * 1e3):.3f} of {wall_s * 1e3:.1f} ms; by name:")
+    for key, (n, ms) in sorted(by.items(), key=lambda x: -x[1][0])[:14]:
+        print(f"    x{n:5d} {ms:8.3f} ms  {key}")
+    return tl, {"activities": len(tl), "device_ms": dev_ms, "busy": dev_ms / (wall_s * 1e3)}
+
+
+def solver_phase(prob, cfg, basis, dev) -> dict:
+    """The solve with K7 / K8 / K14 (fused) against the eager solve (K7 /
+    K8 and the plain bookkeeping) and the plain solve (the plain rows too)
+    on the card, same problem, timed in turns (host clock to a sync, median
+    of 3): the fused solve gives the eager solve's k, feasible, cost and
+    viol bit for bit, from all starts and from one (k0 = 0); the plain
+    solve the same feasible count, and every feasible k of the fused solve
+    passes the plain full-set check; the fused and the eager solve
+    profiled (activities by name, busy share), and the fused solve's
+    activities between its first K8 call and the full-set check must be
+    K7 / K8 / K14 (but the cull's sum).  The single-seed path's K7 / K8 /
+    K14 calls are recorded and held against their plain versions."""
+    from armour_tpu_torch import kernels, nlp
     from armour_tpu_torch.collision import collision_constraints_plain
     from armour_tpu_torch.utils.timing import wall_s
 
-    times = {False: [], True: []}
+    modes = {"fused": {}, "eager": {"eager": True}, "plain": {"plain": True}}
+    times = {m: [] for m in modes}
     res = {}
-    for plain in (False, True, True, False, False, True):
-        t, res[plain] = wall_s(lambda p=plain: nlp.solve(prob, cfg, basis, plain=p), dev)
-        times[plain].append(t)
-    fused, ref = res[False], res[True]
+    for m in ("fused", "eager", "plain", "plain", "eager", "fused", "fused", "eager", "plain"):
+        t, res[m] = wall_s(lambda kw=modes[m]: nlp.solve(prob, cfg, basis, **kw), dev)
+        times[m].append(t)
+    fused, eager, ref = res["fused"], res["eager"], res["plain"]
+    same = {f: _bits(getattr(fused, f), getattr(eager, f)) for f in ("k", "feasible", "cost",
+                                                                      "viol")}
+    k0 = torch.zeros_like(prob.q_des)
+    kernels.reset_counts()
+    with kernels.capture() as cap:
+        one = nlp.solve(prob, cfg, basis, k0=k0)
+    n_one = kernels.counts()
+    one_e = nlp.solve(prob, cfg, basis, k0=k0, eager=True)
+    same_one = all(_bits(getattr(one, f), getattr(one_e, f))
+                   for f in ("k", "feasible", "cost", "viol"))
     n_f, n_p = int(fused.feasible.sum()), int(ref.feasible.sum())
     k_chk = torch.where(fused.feasible[:, None], fused.k, torch.zeros_like(fused.k))[:, None]
     v = torch.stack(nlp.max_violations(k_chk, prob, cfg, basis,
@@ -1288,18 +1609,35 @@ def fused_against_plain(prob, cfg, basis, dev) -> dict:
     cert = nlp.viol_feasible(v, cfg)
     both = fused.feasible & ref.feasible
     dcost = float((fused.cost - ref.cost)[both].abs().max()) if bool(both.any()) else 0.0
-    t_f, t_p = statistics.median(times[False]), statistics.median(times[True])
-    print(f"  solve with K7 / K8 {t_f * 1e3:.1f} ms, with the plain rows on the card "
-          f"{t_p * 1e3:.1f} ms (medians of 3); feasible {n_f} and {n_p}; the fused solve's "
+    t = {m: statistics.median(x) for m, x in times.items()}
+    print(f"  solve: fused (K7 / K8 / K14) {t['fused'] * 1e3:.1f} ms, eager (K7 / K8, the plain "
+          f"bookkeeping) {t['eager'] * 1e3:.1f} ms, plain {t['plain'] * 1e3:.1f} ms (medians of "
+          f"3); fused against eager bit for bit: {same}; from one start (k0 = 0, K14 x"
+          f"{n_one['alm_loop']}): {same_one}; feasible {n_f} (plain {n_p}); the fused solve's "
           f"feasible k all certified by the plain full-set check: "
-          f"{bool(cert[fused.feasible].all())}; max |d cost| {dcost:.3g} over {int(both.sum())} "
-          f"worlds feasible in both; verdicts differ in "
+          f"{bool(cert[fused.feasible].all())}; max |d cost| against plain {dcost:.3g} over "
+          f"{int(both.sum())} worlds feasible in both; verdicts differ in "
           f"{int((fused.feasible != ref.feasible).sum())}")
+    if not all(same.values()) or not same_one:
+        fail(f"the fused solve differs from the eager solve: {same}, one start {same_one}")
     if n_f != n_p:
         fail(f"the fused solve finds {n_f} feasible worlds, the plain solve {n_p}")
     if not bool(cert[fused.feasible].all()):
         fail("the plain full-set check rejects a feasible k of the fused solve")
-    return {"solve_fused_ms": t_f * 1e3, "solve_plain_ms": t_p * 1e3, "solve_max_dcost": dcost}
+    check_alm_captures(cap, dev, "single-seed path (k0)")
+    cap.clear()
+    tl, pf = solve_profile(lambda: nlp.solve(prob, cfg, basis), dev, t["fused"], "fused solve")
+    window = solve_window(tl)
+    print(f"  fused solve: {window['window_activities']} device activities from its first K8 "
+          f"call to the full-set check, all K7 / K8 / K14 but {window['window_cull_sum_ops']} of "
+          f"the cull's violation sum")
+    _, pe = solve_profile(lambda: nlp.solve(prob, cfg, basis, eager=True), dev, t["eager"],
+                          "eager solve")
+    return {"solve_fused_ms": t["fused"] * 1e3, "solve_eager_ms": t["eager"] * 1e3,
+            "solve_plain_ms": t["plain"] * 1e3, "solve_max_dcost": dcost,
+            "solve_fused_activities": pf["activities"], "solve_fused_device_ms": pf["device_ms"],
+            "solve_fused_busy": pf["busy"], "solve_eager_activities": pe["activities"],
+            "solve_eager_device_ms": pe["device_ms"], "solve_eager_busy": pe["busy"], **window}
 
 
 def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
@@ -1318,10 +1656,11 @@ def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
     n = kernels.counts()
     print(f"phase 7: rescue-profile solve over W={N_WORLDS} in {t * 1e3:.1f} ms, "
           f"{int(res.feasible.sum())} feasible; K7 x{n['alm_newton']}, K8 x{n['alm_values']}, "
+          f"K14 x{n['alm_loop']}, "
           f"K9 x{n['fk_chain']}, K10 x{n['rnea_chain']}, K12 x{n['jrs_bernstein']}, "
           f"K13 x{n['screen_collision']} (its reach sets and screen)")
-    for name in ("alm_newton", "alm_values", "fk_chain", "rnea_chain", "jrs_bernstein",
-                 "screen_collision"):
+    for name in ("alm_newton", "alm_values", "alm_loop", "fk_chain", "rnea_chain",
+                 "jrs_bernstein", "screen_collision"):
         if n[name] == 0:
             fail(f"the rescue-profile plan did not launch {name}")
     check_alm_captures(captured, dev, "rescue profile")
@@ -1826,7 +2165,6 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     # every recorded call against its plain version, each kernel twice
     check = {"jrs_armtd": lambda x, d: check_jrs("jrs_armtd", x, d),
              "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
-             "alm_newton": check_alm_newton, "alm_values": check_alm_values,
              "screen_collision": lambda x, d: check_screen(x, d)[:7]}
     sums = {}
     k11 = None
@@ -1834,6 +2172,8 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     for (name, key), inputs in captured.items():
         if name in ("fk_chain", "rnea_chain"):
             res_c = check_chain(name, inputs, dev)
+        elif name in ALM_KERNELS:
+            res_c = check_alm(name, key, inputs, dev)
         elif name in check:
             res_c = check[name](inputs, dev)
         else:
@@ -1860,8 +2200,8 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     captured.clear()
     if not all_ok:
         fail("a kernel disagrees with its plain version on the ARMTD step")
-    if k11 is None or "alm_newton" not in sums or "alm_values" not in sums:
-        fail("the ARMTD step recorded no K11 / K7 / K8 call")
+    if k11 is None or any(n not in sums for n in ALM_KERNELS):
+        fail("the ARMTD step recorded no K11 / K7 / K8 / K14 call")
     print("  ARMTD step kernels, ms summed over their shapes (kernel / plain): " + ", ".join(
         f"{n} {v[0]:.4f} / {v[1]:.4f} ({v[2]} shapes)" for n, v in sums.items()))
 
@@ -1883,7 +2223,7 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     n_feas = int(feas.sum())
     print(f"  {n_feas}/{N_WORLDS} ARMTD worlds feasible; every feasible k passes the plain "
           f"full-set check")
-    solve_cmp = fused_against_plain(prob, cfg_a, basis, dev)
+    solve_cmp = solver_phase(prob, cfg_a, basis, dev)
     del prob
 
     t_steps = [wall_s(lambda: step(*args), dev)[0] for _ in range(3)]
@@ -2054,7 +2394,7 @@ def main() -> None:
              f"{torch.nonzero(feas & ~cert).flatten().tolist()}")
     print(f"phase 4: {n_feas}/{N_WORLDS} worlds feasible; every feasible k passes the plain "
           f"full-set check (max collision violation {float(v[feas][:, 1].max()) if n_feas else float('nan'):.3g})")
-    solve_cmp = fused_against_plain(prob, cfg, basis, dev)
+    solve_cmp = solver_phase(prob, cfg, basis, dev)
     del prob
 
     step_cpu = make_batch_planner(robot, cfg, device="cpu")

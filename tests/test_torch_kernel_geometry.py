@@ -564,9 +564,9 @@ def test_k8_matches_its_plain_version_on_the_card():
     lam = (torch.rand(Wn, S, rows.M, generator=g) * 3).to(dev)
     rho = torch.full((Wn, S), 10.0, device=dev)
     seed = torch.arange(S, dtype=torch.int32).repeat_interleave(A).to(dev)
-    m, f, c = ks.alm_values(rows, kq, lam, rho, seed, True)
-    m2, f2, c2 = ks.alm_values(rows, kq, lam, rho, seed, True)
-    m0, f0, c0 = nlp.alm_values_plain(kq, lam, rho, seed, prob, cfg, basis, True)
+    m, f, _, c = ks.alm_values(rows, kq, lam, rho, seed, True)
+    m2, f2, _, c2 = ks.alm_values(rows, kq, lam, rho, seed, True)
+    m0, f0, _, c0 = nlp.alm_values_plain(kq, lam, rho, seed, prob, cfg, basis, True)
     assert torch.equal(m, m2) and torch.equal(c, c2) and torch.equal(f, f2)
     assert ((m - m0).abs() <= 1e-4 * (m0.abs() + 1e-6)).all()
     # a torque row's terms: sum_b |u_coef_b phi_b| + |hi|, twice (+u - hi, -u - hi)
@@ -654,8 +654,8 @@ def test_k7_matches_its_plain_version_on_the_card():
         got = ks.alm_newton(rows, k, lam, rho, want_system=True)
         again = ks.alm_newton(rows, k, lam, rho, want_system=True)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-        step, m0, feas, gk, Hk = got
-        _, m00, f0 = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
+        step, m0, feas, _, gk, Hk = got
+        _, m00, f0, _ = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
         g0, H0, c0 = nlp.alm_newton_system(k, lam, rho, prob, cfg, basis)
         _, Jc = nlp.constraint_stack(k, prob, cfg, basis, with_grad=True)
         z0 = lam + rho[..., None] * c0
@@ -979,11 +979,11 @@ def test_k7_k8_armtd_branch_matches_plain_on_the_card():
     lam = torch.zeros(W, S, rows.M, device=dev)
     rho = torch.full((W, S), 10.0, device=dev)
     seed = torch.arange(S, dtype=torch.int32, device=dev)
-    merit, feas, c = ks.alm_values(rows, k, lam, rho, seed, want_c=True)
-    m0, f0, c0 = nlp.alm_values_plain(k, lam, rho, seed, prob, cfg, basis, want_c=True)
+    merit, feas, _, c = ks.alm_values(rows, k, lam, rho, seed, want_c=True)
+    m0, f0, _, c0 = nlp.alm_values_plain(k, lam, rho, seed, prob, cfg, basis, want_c=True)
     assert torch.equal(c[..., -8 * F:], c0[..., -8 * F:])
     assert float(((merit - m0).abs() / (1 + m0.abs())).max()) <= 1e-5
-    step, m1, _ = ks.alm_newton(rows, k, lam, rho)
-    st0, m10, _ = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
+    step, m1, _, _ = ks.alm_newton(rows, k, lam, rho)
+    st0, m10, _, _ = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
     assert float(((m1 - m10).abs() / (1 + m10.abs())).max()) <= 1e-5
     assert float(((step - st0).abs() / (1 + st0.abs())).max()) <= 1e-4

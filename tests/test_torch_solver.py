@@ -155,9 +155,9 @@ def test_alm_newton_plain_matches_jax(problem, jax_side, seed):
     k, lam, rho = _state(problem, seed)
     kt, lt, rt = (torch.as_tensor(x)[None] for x in (k, lam, rho))
     g, H, c = tnlp.alm_newton_system(kt, lt, rt, tp, T_CFG, BASIS)
-    step, m0, feas = tnlp.alm_newton_plain(kt, lt, rt, tp, T_CFG, BASIS)
+    step, m0, feas, cost = tnlp.alm_newton_plain(kt, lt, rt, tp, T_CFG, BASIS)
     # CPU tensors take the plain version
-    for got, want in zip(tnlp.alm_newton(kt, lt, rt, tp, T_CFG, BASIS), (step, m0, feas)):
+    for got, want in zip(tnlp.alm_newton(kt, lt, rt, tp, T_CFG, BASIS), (step, m0, feas, cost)):
         assert torch.equal(got, want)
     for s in range(2):
         jg, jH, jstep, jm0, jfeas, jc, jact = (np.asarray(x) for x in newton(
@@ -180,9 +180,10 @@ def test_alm_values_plain_matches_jax(problem, jax_side):
     k, lam, rho = _state(problem, 3)
     kq = np.clip(k[:, None] - np.array([1.0, 0.25, 0.5])[:, None] * 0.7, -1.0, 1.0).reshape(6, 7)
     seed_of_q = torch.arange(2).repeat_interleave(3)
-    merit, feas, c = tnlp.alm_values_plain(torch.as_tensor(kq)[None], torch.as_tensor(lam)[None],
-                                           torch.as_tensor(rho)[None], seed_of_q, tp, T_CFG,
-                                           BASIS, want_c=True)
+    merit, feas, _, c = tnlp.alm_values_plain(torch.as_tensor(kq)[None],
+                                              torch.as_tensor(lam)[None],
+                                              torch.as_tensor(rho)[None], seed_of_q, tp, T_CFG,
+                                              BASIS, want_c=True)
     for q in range(6):
         s = int(seed_of_q[q])
         jm, jf, jc = (np.asarray(x) for x in newton(jnp.asarray(kq[q]), jnp.asarray(lam[s]),
@@ -190,7 +191,7 @@ def test_alm_values_plain_matches_jax(problem, jax_side):
         np.testing.assert_allclose(float(merit[0, q]), float(jm), rtol=TOL)
         np.testing.assert_allclose(c[0, q].numpy(), jc, rtol=TOL, atol=1e-12)
         assert bool(feas[0, q]) == bool(jf)
-    m_cpu, f_cpu, c_cpu = tnlp.alm_values(torch.as_tensor(kq)[None], torch.as_tensor(lam)[None],
+    m_cpu, f_cpu, _, c_cpu = tnlp.alm_values(torch.as_tensor(kq)[None], torch.as_tensor(lam)[None],
                                           torch.as_tensor(rho)[None], seed_of_q, tp, T_CFG,
                                           BASIS)
     assert torch.equal(m_cpu, merit) and torch.equal(f_cpu, feas) and c_cpu is None
