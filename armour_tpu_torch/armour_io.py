@@ -91,12 +91,13 @@ def frs_values(data: ArmourIn, k_slice: np.ndarray, robot, cfg, device,
     link centres [T, J, 3], shape generators [T, J, 3, 3], radii [T, J, 3],
     the torque radius [T, F], and the torque [T, F], collision [T, J, O]
     and 4F state rows.  plain=True takes the plain versions of the kernels
-    (K3, K4, K9, K10, K12) on `device`."""
+    (K3, K4, K9, K10, K12, K15) on `device`."""
     from .collision import (build_hyperplanes, build_hyperplanes_plain, collision_constraints,
                             collision_constraints_plain, eval_link_polys, pad_obstacles)
-    from .dynamics import torque_frs
+    from .dynamics import (reach_assembly, reach_assembly_plain, rnea_pz_sets,
+                           rnea_pz_sets_plain)
     from .jrs import build_jrs, build_jrs_plain
-    from .kinematics import forward_occupancy, forward_occupancy_plain, reduce_links
+    from .kinematics import forward_occupancy, forward_occupancy_plain
     from .nlp import joint_position_extrema, joint_velocity_extrema
     from .planner import _obs_to
     from .pz.basis import make_basis
@@ -109,8 +110,9 @@ def frs_values(data: ArmourIn, k_slice: np.ndarray, robot, cfg, device,
                      for x in (data.q0, data.qd0, data.qdd0))
     jrs = (build_jrs_plain if plain else build_jrs)(q0, qd0, qdd0, robot, cfg, basis)
     fk = forward_occupancy_plain if plain else forward_occupancy
-    frs = reduce_links(fk(jrs, robot, cfg, basis), basis)
-    torque = torque_frs(jrs, robot, cfg, basis, plain=plain)
+    rnea = rnea_pz_sets_plain if plain else rnea_pz_sets
+    frs, torque = (reach_assembly_plain if plain else reach_assembly)(
+        fk(jrs, robot, cfg, basis), rnea(jrs, robot, cfg, basis), robot, cfg, basis)
     hyp = (build_hyperplanes_plain if plain else build_hyperplanes)(frs, obs)
     kk = torch.as_tensor(k_slice, dtype=dt).to(device)[None, None]        # [1, 1, F]
     phi = basis.phi(kk)                                                    # [1, 1, B]

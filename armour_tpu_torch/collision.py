@@ -15,7 +15,8 @@ it.  Three functions have hand-written CUDA kernels:
   build_hyperplanes    kernel K3 (kernels/collision.py), plain version
                        build_hyperplanes_plain;
   screen_collision     kernel K13: the rows' upper bound, the top K in
-                       jax.lax.top_k's order and the gather; plain version
+                       jax.lax.top_k's order and the chosen rows, each
+                       formed again with K3's device code; plain version
                        screen_collision_plain;
   screened_rows,       kernel K4: per-row max over the 2C signed distances,
   collision_constraints  first argmax, and dg/dk; plain versions
@@ -316,14 +317,17 @@ def screen_collision_plain(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
 def screen_collision(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
                      K: int, obstacle_quota: int = 0) -> ScreenedCollision:
     """The K worst rows for the solver loop (see screen_collision_plain):
-    kernel K13 on CUDA tensors, screen_collision_plain on CPU tensors."""
+    kernel K13 on CUDA tensors, screen_collision_plain on CPU tensors.  K13
+    forms each row's hyperplanes again from frs and obs with K3's device
+    code, so on the card it reads nothing of hyp and gives the rows
+    screen_collision_plain takes from K3's hyp, bit for bit."""
     if not hyp.A.is_cuda:
         return screen_collision_plain(hyp, obs, frs, K, obstacle_quota)
     from .kernels import collision as kcol
 
     A, d, delta, row, mask = kcol.screen_collision(
-        hyp.A, hyp.d, hyp.delta, frs.center_coef, screen_envelope(frs.center_coef),
-        obs.mask, K, obstacle_quota)
+        frs.shape_gens, frs.radius, obs.centers, obs.generators, frs.center_coef,
+        screen_envelope(frs.center_coef), obs.mask, K, obstacle_quota)
     return ScreenedCollision(A=A, d=d, delta=delta, row=row, mask=mask)
 
 

@@ -10,18 +10,23 @@
 //
 // Bound on the H100 (flagship, W = 64, N = T*J*O = 35,840, C = 36): the
 // outputs A [W,3,C,N] + d + delta [W,C,N] are 1.65 GB and the inputs a few
-// MB, so one call is ~0.49 ms at 3.35 TB/s.  The ~1.5 kflop per cell is
+// MB, so one call is ~0.49 ms at 3.35 TB/s.  Since K13 forms its rows
+// itself, only K4's full-set check reads them.  The ~1.5 kflop per cell is
 // ~0.1 ms at 67 TFLOP/s: bound by the bytes written.
 //
 // Design, simple first: one thread per (world, cell), generators in
-// registers, writes coalesced along the cell axis N (the layout the screen
-// and K4 read).  The [C, 9, N] A.G intermediate of the JAX code (46 MB per
-// world) is never materialised.
+// registers, writes coalesced along the cell axis N (the layout K4 reads).
+// The [C, 9, N] A.G intermediate of the JAX code (46 MB per world) is never
+// materialised.  The per-cell arithmetic is hyperplane_cell.cuh, which K13
+// (screen_collision.cu) compiles too, so the rows it forms again carry
+// these bits.
 //
 // Built without fast math and with -fmad=false, and the normal is IEEE
 // 1.0f / sqrtf(n2): an approximate rsqrt or a fused multiply-add changes A
 // and delta, and with them the safety buffer.
 #include <cuda_runtime.h>
+
+#include "hyperplane_cell.cuh"
 
 struct K3Args {
   const float* shape_gens;   // [W, T, J, 3, 3] (coord, generator)
@@ -34,7 +39,7 @@ struct K3Args {
   int W, T, J, O;
 };
 
-#define K3_C 36
+#define K3_C HCELL_C
 
 __global__ void __launch_bounds__(256) k3_kernel(const K3Args args) {
   const long long N = (long long)args.T * args.J * args.O;
@@ -44,41 +49,19 @@ __global__ void __launch_bounds__(256) k3_kernel(const K3Args args) {
   const long long tj = n / args.O;
   const int o = (int)(n % args.O);
 
-  float G[3][9];
-  const float* og = args.gens + ((long long)w * args.O + o) * 9;
-  const float* sg = args.shape_gens + ((long long)w * args.T * args.J + tj) * 9;
-  const float* rd = args.radius + ((long long)w * args.T * args.J + tj) * 3;
-  for (int a = 0; a < 3; ++a) {
-    for (int g = 0; g < 3; ++g) {
-      G[a][g] = og[a * 3 + g];
-      G[a][3 + g] = sg[a * 3 + g];
-      G[a][6 + g] = (a == g) ? rd[a] : 0.0f;
-    }
-  }
-  const float* oc = args.centers + ((long long)w * args.O + o) * 3;
-  const float c0 = oc[0], c1 = oc[1], c2 = oc[2];
-
+  HCell h;
+  hcell_load(args.shape_gens, args.radius, args.centers, args.gens, w,
+             (long long)args.T * args.J, tj, args.O, o, h);
   float* Aw = args.A + (long long)w * 3 * K3_C * N;
   float* dw = args.d + (long long)w * K3_C * N;
   float* delw = args.delta + (long long)w * K3_C * N;
-  int c = 0;
-  for (int ia = 0; ia < 9; ++ia) {
-    for (int ib = ia + 1; ib < 9; ++ib, ++c) {
-      const float cr0 = G[1][ia] * G[2][ib] - G[2][ia] * G[1][ib];
-      const float cr1 = G[2][ia] * G[0][ib] - G[0][ia] * G[2][ib];
-      const float cr2 = G[0][ia] * G[1][ib] - G[1][ia] * G[0][ib];
-      const float n2 = cr0 * cr0 + cr1 * cr1 + cr2 * cr2;
-      const float inv = n2 > 0.0f ? 1.0f / sqrtf(n2) : 0.0f;
-      const float A0 = cr0 * inv, A1 = cr1 * inv, A2 = cr2 * inv;
-      float del = 0.0f;
-      for (int g = 0; g < 9; ++g) del += fabsf(A0 * G[0][g] + A1 * G[1][g] + A2 * G[2][g]);
-      Aw[(0 * K3_C + c) * N + n] = A0;
-      Aw[(1 * K3_C + c) * N + n] = A1;
-      Aw[(2 * K3_C + c) * N + n] = A2;
-      dw[c * N + n] = A0 * c0 + A1 * c1 + A2 * c2;
-      delw[c * N + n] = del;
-    }
-  }
+  hcell_rows(h, [&](int c, float A0, float A1, float A2, float d, float del) {
+    Aw[(0 * K3_C + c) * N + n] = A0;
+    Aw[(1 * K3_C + c) * N + n] = A1;
+    Aw[(2 * K3_C + c) * N + n] = A2;
+    dw[c * N + n] = d;
+    delw[c * N + n] = del;
+  });
 }
 
 extern "C" int k3_launch(const K3Args* args, void* stream) {

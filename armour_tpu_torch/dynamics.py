@@ -14,6 +14,11 @@ whole chain as kernel K10 (kernels/reach.py, csrc/rnea_chain.cu); a robot
 with an uncertain centre of mass (robot.com_uncertainty > 0, off for the
 Kinova) is routed, by that field, to the same loops over the op-level
 kernels K1 (bpz.matmul_linear: the rotations) and K2 (bpz.cross).
+
+After the RNEA, the robust torque radius (torque_frs) and the split of the
+FK chain's links (kinematics.reduce_links) are kernel K15
+(csrc/reach_assembly.cu), one launch for both (reach_assembly); its plain
+version is reach_assembly_plain.
 """
 
 from __future__ import annotations
@@ -24,11 +29,12 @@ import torch
 
 from .config import ArmourConfig
 from .jrs import JRS
+from .kinematics import LinkFRS, forward_occupancy, reduce_links_plain
 from .pz import bpz
 from .pz.basis import KBasis
 from .pz.bpz import BPZ
 from .robot import RobotModel
-from .utils import to_device
+from .utils import abs_sum_in_order, to_device
 
 
 def _embed(a: BPZ, axis: int, sign: float) -> BPZ:
@@ -226,31 +232,70 @@ class TorqueFRS:
     torque_radius: torch.Tensor  # [W, T, F]
 
 
-def torque_frs(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
-               *, plain: bool = False) -> TorqueFRS:
-    """Nominal torque PZ + robust input radius (armour_tpu/dynamics.py:293-319).
-    The assembly after the RNEA stays in PyTorch; plain=True takes the
-    RNEA's plain version on any device."""
-    rnea = rnea_pz_sets_plain if plain else rnea_pz_sets
-    u_both = rnea(jrs, robot, cfg, basis)
+def torque_assembly_plain(u_both: BPZ, robot: RobotModel, cfg: ArmourConfig) -> TorqueFRS:
+    """The torque part of kernel K15's plain version: the robust input
+    radius from the RNEA torque u_both [W, 2, T, F] (nominal, interval) as
+    armour_tpu/dynamics.py:296-319 forms it; every sum (the interval hull's
+    radii, rho over F, the reduced nominal radius) left to right, as K15
+    sums.  u_coef is a view of u_both's nominal coefficients."""
     u_nom = BPZ(coef=u_both.coef[:, 0], egen=u_both.egen[:, 0], rad=u_both.rad[:, 0])
     u_int = BPZ(coef=u_both.coef[:, 1], egen=u_both.egen[:, 1], rad=u_both.rad[:, 1])
     disturbance = bpz.sub(u_int, u_nom)
 
-    d_c, d_r = bpz.to_interval(disturbance)
+    # the disturbance's interval hull (bpz.to_interval in a fixed order)
+    d_c = disturbance.coef[..., 0]
+    d_r = abs_sum_in_order(disturbance.coef[..., 1:]) + abs_sum_in_order(disturbance.egen) \
+        + disturbance.rad
     d_lo, d_hi = d_c - d_r, d_c + d_r
     d_max = torch.maximum(torch.abs(d_lo), torch.abs(d_hi))
     ub = cfg.ub
-    rho_sq = torch.sum(torch.maximum(d_lo * d_lo, d_hi * d_hi), dim=-1)   # [W, T]
+    sq = torch.maximum(d_lo * d_lo, d_hi * d_hi)                           # [W, T, F]
+    rho_sq = sq[..., 0]
+    for f in range(1, sq.shape[-1]):
+        rho_sq = rho_sq + sq[..., f]
     rho_max = torch.sqrt(rho_sq)
-    u_nom_red = bpz.reduce_(u_nom)
+    nom_rad = u_nom.rad + abs_sum_in_order(u_nom.egen)                     # bpz.reduce_
     friction = to_device(robot.friction[: robot.num_factors], u_nom.coef.dtype,
                          u_nom.coef.device)
     torque_radius = (
         ub.alpha * (ub.m_max - ub.m_min) * ub.eps
         + 0.5 * d_max
         + 0.5 * rho_max[..., None]
-        + u_nom_red.rad
+        + nom_rad
         + friction
     )
-    return TorqueFRS(u_coef=u_nom_red.coef, torque_radius=torque_radius)
+    return TorqueFRS(u_coef=u_nom.coef, torque_radius=torque_radius)
+
+
+def reach_assembly_plain(links: BPZ, u_both: BPZ, robot: RobotModel, cfg: ArmourConfig,
+                         basis: KBasis) -> tuple[LinkFRS, TorqueFRS]:
+    """Plain version of kernel K15: the link split (kinematics.
+    reduce_links_plain) of the FK chain's links [W, T, J, 3] and the robust
+    torque radius (torque_assembly_plain) of the RNEA's u_both [W, 2, T, F],
+    on any device."""
+    return reduce_links_plain(links, basis), torque_assembly_plain(u_both, robot, cfg)
+
+
+def reach_assembly(links: BPZ, u_both: BPZ, robot: RobotModel, cfg: ArmourConfig,
+                   basis: KBasis) -> tuple[LinkFRS, TorqueFRS]:
+    """The reach sets' assembly after K9 and K10, (LinkFRS, TorqueFRS):
+    kernel K15 in one launch on CUDA tensors, reach_assembly_plain on CPU
+    tensors."""
+    if not links.rad.is_cuda:
+        return reach_assembly_plain(links, u_both, robot, cfg, basis)
+    from .kernels import reach
+
+    return reach.reach_assembly(links, u_both, robot, cfg, basis)
+
+
+def torque_frs(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis) -> TorqueFRS:
+    """Nominal torque PZ + robust input radius (armour_tpu/dynamics.py:293-319):
+    the RNEA for the nominal and interval sets, then the assembly.  On CUDA
+    tensors the assembly is kernel K15, which takes the FK chain's links
+    too (a planning step launches it once for both: reach_assembly); on CPU
+    tensors torque_assembly_plain."""
+    u_both = rnea_pz_sets(jrs, robot, cfg, basis)
+    if not u_both.rad.is_cuda:
+        return torque_assembly_plain(u_both, robot, cfg)
+    return reach_assembly(forward_occupancy(jrs, robot, cfg, basis), u_both, robot, cfg,
+                          basis)[1]

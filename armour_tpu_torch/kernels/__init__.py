@@ -14,6 +14,7 @@
   K12 jrs_bernstein     csrc/jrs_bernstein.cu      (kernels/jrs.py)
   K13 screen_collision  csrc/screen_collision.cu   (kernels/collision.py)
   K14 alm_loop          csrc/alm_loop.cu           (kernels/solver.py)
+  K15 reach_assembly    csrc/reach_assembly.cu     (kernels/reach.py)
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
 collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py, armtd.py,
@@ -32,7 +33,7 @@ import contextlib
 
 KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
            "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain",
-           "jrs_armtd", "jrs_bernstein", "screen_collision", "alm_loop")
+           "jrs_armtd", "jrs_bernstein", "screen_collision", "alm_loop", "reach_assembly")
 
 H100_SMS = 132            # streaming multiprocessors of an H100 SXM (launch geometry defaults)
 

@@ -37,6 +37,7 @@ SOURCES = {
     "jrs_bernstein": "jrs_bernstein.cu",
     "screen_collision": "screen_collision.cu",
     "alm_loop": "alm_loop.cu",
+    "reach_assembly": "reach_assembly.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

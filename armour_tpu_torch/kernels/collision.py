@@ -37,16 +37,16 @@ class K4Args(ctypes.Structure):
 
 
 class K13Args(ctypes.Structure):
-    _fields_ = [("A", ctypes.c_void_p), ("d", ctypes.c_void_p), ("delta", ctypes.c_void_p),
+    _fields_ = [("shape_gens", ctypes.c_void_p), ("radius", ctypes.c_void_p),
+                ("centers", ctypes.c_void_p), ("gens", ctypes.c_void_p),
                 ("center", ctypes.c_void_p), ("env", ctypes.c_void_p),
                 ("obs_mask", ctypes.c_void_p), ("g", ctypes.c_void_p), ("idx", ctypes.c_void_p),
                 ("sort", ctypes.c_void_p), ("A_out", ctypes.c_void_p),
                 ("d_out", ctypes.c_void_p), ("delta_out", ctypes.c_void_p),
                 ("row", ctypes.c_void_p), ("mask", ctypes.c_void_p),
-                ("W", ctypes.c_int), ("C", ctypes.c_int), ("N", ctypes.c_int),
-                ("TJ", ctypes.c_int), ("O", ctypes.c_int), ("B", ctypes.c_int),
-                ("K", ctypes.c_int), ("quota", ctypes.c_int), ("Kp", ctypes.c_int),
-                ("smem_sort", ctypes.c_int)]
+                ("W", ctypes.c_int), ("N", ctypes.c_int), ("TJ", ctypes.c_int),
+                ("O", ctypes.c_int), ("B", ctypes.c_int), ("K", ctypes.c_int),
+                ("quota", ctypes.c_int), ("Kp", ctypes.c_int), ("smem_sort", ctypes.c_int)]
 
 
 # csrc/screen_collision.cu: K13_BOUND_THREADS, K13_SELECT_THREADS, K13_GATHER_THREADS
@@ -60,7 +60,7 @@ class ScreenGeometry:
     K13_BOUND_THREADS; (b) W blocks of K13_SELECT_THREADS, the sort over Kp
     (a power of two >= K) entries of 8 bytes, in smem_bytes of dynamic
     shared memory or (smem_bytes = 0) in a global scratch [W, Kp]; (c)
-    gather_blocks of K13_GATHER_THREADS over (W, C, K)."""
+    gather_blocks of K13_GATHER_THREADS, a thread per (world, chosen row)."""
 
     bound_grid: tuple
     Kp: int
@@ -68,13 +68,13 @@ class ScreenGeometry:
     gather_blocks: int
 
 
-def k13_geometry(Wn: int, C: int, N: int, K: int) -> ScreenGeometry:
+def k13_geometry(Wn: int, N: int, K: int) -> ScreenGeometry:
     Kp = 1
     while Kp < K:
         Kp <<= 1
     smem = Kp * 8 if Kp * 8 <= K13_SMEM_SORT_MAX else 0
     return ScreenGeometry(bound_grid=(-(-N // K13_BOUND_THREADS), Wn), Kp=Kp, smem_bytes=smem,
-                          gather_blocks=-(-(Wn * C * K) // K13_GATHER_THREADS))
+                          gather_blocks=-(-(Wn * K) // K13_GATHER_THREADS))
 
 
 def _require(t: torch.Tensor, name: str, shape, dtype=_F32) -> None:
@@ -161,48 +161,56 @@ def collision_rows(A, d, delta, row, mask, p_all, dp_all=None):
     return g, dg
 
 
-def screen_collision(A, d, delta, center_coef, env, obs_mask, K: int, obstacle_quota: int = 0):
+def screen_collision(shape_gens, radius, centers, generators, center_coef, env, obs_mask,
+                     K: int, obstacle_quota: int = 0):
     """K13: the K worst rows (collision.py:screen_collision_plain's order)
-    of the hyperplanes A [W,3,C,N], d / delta [W,C,N] (N = T*J*O, obstacle
-    fastest) at the link centres center_coef [W,T,J,3,B] with their envelope
-    env [W,T,J,3] (collision.screen_envelope) and the real-obstacle mask
-    obs_mask [W,O]: (A [W,3,C,K'], d [W,C,K'], delta [W,C,K'], row int32
-    [W,K'], mask [W,K']), K' = min(K, N)."""
-    Wn, _, C, N = A.shape
-    T, J, _, B = center_coef.shape[1:]
+    of the cells' hyperplanes, which the kernel forms itself with K3's code
+    from the link shape generators [W,T,J,3,3], radii [W,T,J,3] and the
+    obstacles' centres [W,O,3] and generators [W,O,3,3] (N = T*J*O rows,
+    obstacle fastest), at the link centres center_coef [W,T,J,3,B] with
+    their envelope env [W,T,J,3] (collision.screen_envelope) and the
+    real-obstacle mask obs_mask [W,O]: (A [W,3,C,K'], d [W,C,K'], delta
+    [W,C,K'], row int32 [W,K'], mask [W,K']), K' = min(K, N)."""
+    Wn, T, J, _, B = center_coef.shape
     O = obs_mask.shape[-1]
-    if N != T * J * O:
-        raise ValueError(f"A has {N} rows, expected T J O = {T * J * O}")
-    _require(A, "A", (Wn, 3, C, N))
-    _require(d, "d", (Wn, C, N))
-    _require(delta, "delta", (Wn, C, N))
+    N = T * J * O
+    if tuple(centers.shape) != (Wn, O, 3) or tuple(generators.shape) != (Wn, O, 3, 3):
+        raise ValueError(f"the obstacles' centres {tuple(centers.shape)} / generators "
+                         f"{tuple(generators.shape)} do not match the mask's {O} obstacles")
+    _require(shape_gens, "shape_gens", (Wn, T, J, 3, 3))
+    _require(radius, "radius", (Wn, T, J, 3))
+    _require(centers, "centers", (Wn, O, 3))
+    _require(generators, "generators", (Wn, O, 3, 3))
     _require(center_coef, "center_coef", (Wn, T, J, 3, B))
     _require(env, "env", (Wn, T, J, 3))
     _require(obs_mask, "obs_mask", (Wn, O), torch.bool)
     Kk = min(K, N)
     quota = obstacle_quota if obstacle_quota > 0 and obstacle_quota * O < Kk else 0
-    dev = A.device
+    dev = radius.device
+    C = N_COMB
     A_out = torch.empty(Wn, 3, C, Kk, device=dev, dtype=_F32)
     d_out = torch.empty(Wn, C, Kk, device=dev, dtype=_F32)
     delta_out = torch.empty(Wn, C, Kk, device=dev, dtype=_F32)
     row = torch.empty(Wn, Kk, device=dev, dtype=torch.int32)
     mask = torch.empty(Wn, Kk, device=dev, dtype=torch.bool)
-    record("screen_collision", (tuple(A.shape), O, Kk, quota),
-           (A, d, delta, center_coef, env, obs_mask, K, obstacle_quota))
+    record("screen_collision", (tuple(radius.shape), O, Kk, quota),
+           (shape_gens, radius, centers, generators, center_coef, env, obs_mask, K,
+            obstacle_quota))
     if Wn * Kk:
-        geo = k13_geometry(Wn, C, N, Kk)
+        geo = k13_geometry(Wn, N, Kk)
         g = torch.empty(Wn, N, device=dev, dtype=_F32)
         idx = torch.empty(Wn, Kk, device=dev, dtype=torch.int32)
         sort = (torch.empty(Wn, geo.Kp, device=dev, dtype=torch.int64)
                 if geo.smem_bytes == 0 else None)
-        args = K13Args(A.data_ptr(), d.data_ptr(), delta.data_ptr(), center_coef.data_ptr(),
-                       env.data_ptr(), obs_mask.data_ptr(), g.data_ptr(), idx.data_ptr(),
+        args = K13Args(shape_gens.data_ptr(), radius.data_ptr(), centers.data_ptr(),
+                       generators.data_ptr(), center_coef.data_ptr(), env.data_ptr(),
+                       obs_mask.data_ptr(), g.data_ptr(), idx.data_ptr(),
                        sort.data_ptr() if sort is not None else None, A_out.data_ptr(),
                        d_out.data_ptr(), delta_out.data_ptr(), row.data_ptr(), mask.data_ptr(),
-                       Wn, C, N, T * J, O, B, Kk, quota, geo.Kp, int(geo.smem_bytes > 0))
+                       Wn, N, T * J, O, B, Kk, quota, geo.Kp, int(geo.smem_bytes > 0))
         fn = launcher("screen_collision", "k13_launch",
                       [ctypes.POINTER(K13Args), ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), geo.smem_bytes, _stream(A))
+        err = fn(ctypes.byref(args), geo.smem_bytes, _stream(radius))
         if err:
             raise RuntimeError(f"screen_collision launch failed: cudaError {err}")
         launched("screen_collision", 3)

@@ -1,9 +1,11 @@
 """Launchers of the reach-set chain kernels K9 (fk_chain: the PZ forward
-kinematics) and K10 (rnea_chain: the PZ RNEA for P <= 2 parameter sets).
-Called by kinematics.forward_occupancy and dynamics.rnea_pz_sets for CUDA
-tensors only; each checks device, dtype, shapes and contiguity, raises on
-anything its kernel does not take, allocates the outputs and scratch with
-torch.empty and launches on the current stream.
+kinematics) and K10 (rnea_chain: the PZ RNEA for P <= 2 parameter sets),
+and of K15 (reach_assembly: the torque radius and the link split after
+them).  Called by kinematics.forward_occupancy and dynamics.rnea_pz_sets
+/ reach_assembly for CUDA tensors only; each checks device, dtype, shapes
+and contiguity, raises on anything its kernel does not take, allocates
+the outputs and scratch with torch.empty and launches on the current
+stream.
 
 k9_geometry and k10_geometry are K9's and K10's launch geometries
 (threads per element, elements per block, the persistent grid of
@@ -283,3 +285,91 @@ def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int")) -> BPZ:
         upload_tables("rnea_chain", "k10_tables", basis, E)
         _launch("rnea_chain", "k10_launch", K10Args, args, geo, ld, ldl, R.coef)
     return u
+
+
+K15_THREADS = 64          # threads per block of one (world, time step) (csrc/reach_assembly.cu)
+K15_MAX_F, K15_MAX_J3 = 8, 24
+K15_SMEM_MAX = 48 * 1024  # dynamic shared memory without the opt-in, bytes
+
+
+class K15Args(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "uc", "ue", "ur", "le", "lr", "torque_radius", "shape_gens", "radius")] + [
+        (n, ctypes.c_int) for n in ("W", "T", "F", "J3", "B", "E", "sh0")] + [
+        ("c0", ctypes.c_float), ("friction", ctypes.c_float * K15_MAX_F)]
+
+
+def k15_smem(F: int, J3: int, B: int, E: int) -> int:
+    """Bytes of dynamic shared memory of a K15 block: the (world, time)
+    slab of u_both's two sets (coef, egen, rad of F factors) and of the
+    links' egen (J3 rows)."""
+    return 4 * (2 * F * (B + E + 1) + J3 * E)
+
+
+def _k15_template(robot, cfg, basis: KBasis) -> K15Args:
+    """The robot's and config's part of K15's arguments (c0 and the
+    friction, each the plain version's Python double rounded once to
+    float32), kept in basis.kernel_args."""
+    ub = cfg.ub
+    c0 = ub.alpha * (ub.m_max - ub.m_min) * ub.eps
+    F = robot.num_factors
+    key = ("k15", F, float(c0)) + (np.asarray(robot.friction[:F], np.float64).tobytes(),)
+    tab = basis.kernel_args
+    if key not in tab:
+        if F > K15_MAX_F:
+            raise ValueError(f"reach_assembly takes at most {K15_MAX_F} factors, got {F}")
+        args = K15Args()
+        args.c0 = float(c0)
+        args.friction[:F] = [float(x) for x in robot.friction[:F]]
+        tab[key] = args
+    return tab[key]
+
+
+def reach_assembly(links, u_both, robot, cfg, basis: KBasis):
+    """K15: (LinkFRS of the links [W, T, J, 3], TorqueFRS of the RNEA
+    torque u_both [W, 2, T, F]) in one launch (dynamics.
+    reach_assembly_plain's result)."""
+    from ..dynamics import TorqueFRS
+    from ..kinematics import LinkFRS
+
+    Wn, T, J = links.rad.shape[:3]
+    F = u_both.rad.shape[-1]
+    if 3 * J > K15_MAX_J3:
+        raise ValueError(f"reach_assembly takes at most {K15_MAX_J3 // 3} links, got {J}")
+    if F != robot.num_factors:
+        raise ValueError(f"reach_assembly: u_both has {F} factors, the robot "
+                         f"{robot.num_factors}")
+    L = _require(links, "reach_assembly", (Wn, T, J, 3))
+    U = _require(u_both, "reach_assembly", (Wn, 2, T, F))
+    if L.rad.device != U.rad.device:
+        raise ValueError("reach_assembly: the links and the torque lie on different devices")
+    B, E = _widths(basis, L, "reach_assembly")
+    _widths(basis, U, "reach_assembly")
+    kw = dict(device=L.rad.device, dtype=torch.float32)
+    shape_gens = torch.empty(Wn, T, J, 3, 3, **kw)
+    radius = torch.empty(Wn, T, J, 3, **kw)
+    torque_radius = torch.empty(Wn, T, F, **kw)
+    args = K15Args()
+    ctypes.memmove(ctypes.addressof(args),
+                   ctypes.addressof(_k15_template(robot, cfg, basis)), ctypes.sizeof(K15Args))
+    args.uc, args.ue, args.ur = _ptrs(U)
+    args.le, args.lr = L.egen.data_ptr(), L.rad.data_ptr()
+    args.torque_radius = torque_radius.data_ptr()
+    args.shape_gens, args.radius = shape_gens.data_ptr(), radius.data_ptr()
+    args.W, args.T, args.F, args.J3, args.B, args.E = Wn, T, F, 3 * J, B, E
+    args.sh0 = error_layout(basis.nf)["shape"].start
+    record("reach_assembly", (tuple(links.rad.shape), tuple(u_both.rad.shape)),
+           (links, u_both, robot, cfg, basis))
+    if Wn * T:
+        smem = k15_smem(F, 3 * J, B, E)
+        if smem > K15_SMEM_MAX:
+            raise ValueError(f"reach_assembly: {smem} bytes of shared memory a block exceed "
+                             f"{K15_SMEM_MAX}")
+        fn = launcher("reach_assembly", "k15_launch",
+                      [ctypes.POINTER(K15Args), ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), smem, _stream(L.rad))
+        if err:
+            raise RuntimeError(f"reach_assembly launch failed: cudaError {err}")
+        launched("reach_assembly")
+    return (LinkFRS(center_coef=links.coef, shape_gens=shape_gens, radius=radius),
+            TorqueFRS(u_coef=U.coef[:, 0], torque_radius=torque_radius))

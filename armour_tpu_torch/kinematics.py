@@ -8,7 +8,8 @@ The serial chain
 
 runs on [W, T]-batched BPZ tensors.  forward_occupancy_plain is a Python
 loop over the joints of the plain PyTorch ops; on CUDA tensors the whole
-chain is kernel K9 (kernels/reach.py, csrc/fk_chain.cu).
+chain is kernel K9 (kernels/reach.py, csrc/fk_chain.cu), and the split of
+its links (reduce_links) part of kernel K15 (csrc/reach_assembly.cu).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from .pz import bpz
 from .pz.basis import KBasis, error_layout
 from .pz.bpz import BPZ
 from .robot import RobotModel
-from .utils import to_device
+from .utils import abs_sum_in_order, to_device
 
 
 @dataclasses.dataclass
@@ -87,11 +88,25 @@ def forward_occupancy(jrs: JRS, robot: RobotModel, cfg: ArmourConfig,
     return reach.fk_chain(jrs, robot, cfg, basis)
 
 
-def reduce_links(links: BPZ, basis: KBasis) -> LinkFRS:
-    """Split link PZs into sliceable k-poly + shape generators + radii."""
+def reduce_links_plain(links: BPZ, basis: KBasis) -> LinkFRS:
+    """The link part of kernel K15's plain version: the link PZs split into
+    the sliceable k-polynomial (a view), the shape generators and the
+    radii, rad + sum |other egen| summed left to right
+    (armour_tpu/kinematics.py:115-125)."""
     sh = error_layout(basis.nf)["shape"]
     shape_gens = links.egen[..., sh]                         # [W, T, J, 3, 3gen]
-    other = torch.cat([links.egen[..., : sh.start], links.egen[..., sh.stop:]], dim=-1)
-    radius = links.rad + torch.sum(torch.abs(other), dim=-1)
+    radius = links.rad + abs_sum_in_order(links.egen[..., : sh.start],
+                                          links.egen[..., sh.stop:])
     return LinkFRS(center_coef=links.coef, shape_gens=shape_gens.contiguous(),
                    radius=radius)
+
+
+def reduce_links(links: BPZ, basis: KBasis) -> LinkFRS:
+    """Split link PZs into sliceable k-poly + shape generators + radii:
+    reduce_links_plain on CPU tensors.  On the card the split is part of
+    kernel K15, which takes the RNEA's torque too: call
+    dynamics.reach_assembly."""
+    if links.rad.is_cuda:
+        raise ValueError("reduce_links: on CUDA tensors the link split runs in kernel K15 "
+                         "with the torque; call dynamics.reach_assembly")
+    return reduce_links_plain(links, basis)

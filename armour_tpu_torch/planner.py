@@ -20,9 +20,9 @@ from .collision import (ObstacleSet, build_hyperplanes, build_hyperplanes_plain,
                         screen_collision, screen_collision_plain)
 from .armtd import build_jrs_armtd, build_jrs_armtd_plain
 from .config import ArmourConfig
-from .dynamics import torque_frs
+from .dynamics import reach_assembly, reach_assembly_plain, rnea_pz_sets, rnea_pz_sets_plain
 from .jrs import build_jrs, build_jrs_plain
-from .kinematics import forward_occupancy, forward_occupancy_plain, reduce_links
+from .kinematics import forward_occupancy, forward_occupancy_plain
 from .nlp import PlanProblem, SolveResult, robot_limits, solve
 from .pz.basis import KBasis, make_basis
 from .robot import RobotModel
@@ -35,9 +35,9 @@ def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
     q0/qd0/qdd0/q_des [W, F] tensors, obs [W, O, ...] on one device.
     The Bernstein JRS is kernel K12 on the card; cfg.traj_family "armtd"
     builds the constant-acceleration JRS (kernel K11) and ignores qdd0.  On
-    the card the FK chain is kernel K9, the RNEA kernel K10, the
-    hyperplanes kernel K3 and the screen kernel K13; plain=True takes their
-    plain versions on any device."""
+    the card the FK chain is kernel K9, the RNEA kernel K10, the assembly
+    after them kernel K15, the hyperplanes kernel K3 and the screen kernel
+    K13; plain=True takes their plain versions on any device."""
     if cfg.traj_family == "armtd":
         jrs = (build_jrs_armtd_plain if plain else build_jrs_armtd)(q0, qd0, robot, cfg, basis)
     elif cfg.traj_family == "bernstein":
@@ -50,12 +50,14 @@ def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
 def problem_from_jrs(jrs, q_des, obs: ObstacleSet, robot: RobotModel, cfg: ArmourConfig,
                      basis: KBasis, *, plain: bool = False) -> PlanProblem:
     """The stages after the JRS, shared by both trajectory families: FK
-    (K9), RNEA (K10), hyperplanes (K3) and the screen (K13)."""
+    (K9), RNEA (K10), the torque radius and the link split in one launch
+    (K15), hyperplanes (K3) and the screen (K13)."""
     if cfg.grasp_constraints:
         raise NotImplementedError("grasp constraints are not ported yet")
     fk = forward_occupancy_plain if plain else forward_occupancy
-    frs = reduce_links(fk(jrs, robot, cfg, basis), basis)
-    torque = torque_frs(jrs, robot, cfg, basis, plain=plain)
+    rnea = rnea_pz_sets_plain if plain else rnea_pz_sets
+    frs, torque = (reach_assembly_plain if plain else reach_assembly)(
+        fk(jrs, robot, cfg, basis), rnea(jrs, robot, cfg, basis), robot, cfg, basis)
     hyp = (build_hyperplanes_plain if plain else build_hyperplanes)(frs, obs)
     screened = (screen_collision_plain if plain else screen_collision)(
         hyp, obs, frs, cfg.screen_k, cfg.screen_obstacle_quota)

@@ -26,3 +26,17 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
         t = torch.tensor(float(c), dtype=x.dtype, device=x.device)
         _DIVISORS[key] = t
     return x / t
+
+
+def abs_sum_in_order(*parts: torch.Tensor) -> torch.Tensor:
+    """sum |x| over the last axis of each part, the parts one after another,
+    each left to right, from 0: the order kernel K15 sums in
+    (csrc/reach_assembly.cu).  torch.sum's order is its own and differs
+    between devices, so a sum that a kernel must repeat bit for bit is
+    taken here."""
+    total = parts[0].new_zeros(parts[0].shape[:-1])
+    for x in parts:
+        a = torch.abs(x)
+        for i in range(a.shape[-1]):
+            total = total + a[..., i]
+    return total

@@ -44,6 +44,17 @@ default's bits.
 Prints the card line and, last, one JSON line of the times.  Needs one
 card; exits non-zero without one.
 
+    python3 chip_probe.py --step
+
+times the W = 64 planning step of both trajectory families (the first 64
+saved worlds; ARMTD with chip_smoke.armtd_inputs' start velocities) through
+make_batch_planner alone, median of 7 after two warm-up steps, and prints a
+digest of K3's hyperplanes of that step's cells: the links of K9 (the FK
+chain) split here, in this script, with a left-to-right sum (so that two
+checkouts whose reduce_links sum in other orders still hand K3 the same
+cells).  Copied into an older checkout, it times and digests that one in
+turns with this one (older, this, this, older).
+
     python3 chip_probe.py --ops
 
 runs on the CPU (no card): the torch ops that one uncertain-COM RNEA call
@@ -220,6 +231,9 @@ def main() -> None:
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
+    if "--step" in sys.argv[1:]:
+        step_only()
+        return
     import armour_tpu_torch  # noqa: F401  (precision pins)
     from chip_smoke import card_line, scenes
     from armour_tpu_torch import kernels
@@ -297,6 +311,56 @@ def main() -> None:
               + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
               + f" (medians of {ITERS}; every geometry gives the same bits)")
         out[name][label] = times
+    print(card)
+    print(json.dumps(out))
+
+
+def step_only() -> None:
+    """--step: the W = 64 step of both families timed through
+    make_batch_planner, and the digest of K3's hyperplanes of its cells."""
+    import statistics
+
+    import armour_tpu_torch  # noqa: F401  (precision pins)
+    from chip_smoke import armtd_inputs, card_line, scenes
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.jrs import build_jrs
+    from armour_tpu_torch.kernels import collision as kcol
+    from armour_tpu_torch.kernels.build import build_all
+    from armour_tpu_torch.kinematics import forward_occupancy
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import make_batch_planner
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.utils.timing import wall_s
+
+    dev = torch.device("cuda")
+    card = card_line()
+    build_all()
+    robot = kinova_gen3()
+    cfg = ArmourConfig(dtype=torch.float32)
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    q0, qd0, qdd0, q_des, obs = scenes(robot, cfg, 64)
+    q0d, q_des_d = (torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, q_des))
+    obs_d = type(obs)(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                      mask=obs.mask.to(dev))
+    z = torch.zeros_like(q0d)
+    out = {"card": card}
+    for family, qd in (("bernstein", z), ("armtd", armtd_inputs(q0d, cfg, 64, dev))):
+        step = make_batch_planner(robot, dataclasses.replace(cfg, traj_family=family))
+        for _ in range(2):
+            wall_s(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)
+        ts = [wall_s(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)[0] for _ in range(7)]
+        out[f"{family}_step_ms"] = statistics.median(ts) * 1e3
+    links = forward_occupancy(build_jrs(q0d, z, z, robot, cfg, basis), robot, cfg, basis)
+    sh0 = links.egen.shape[-1] - 3
+    radius = torch.zeros_like(links.rad)
+    for i in range(sh0):
+        radius = radius + links.egen[..., i].abs()
+    radius = links.rad + radius
+    hyp = kcol.build_hyperplanes(links.egen[..., sh0:].contiguous(), radius, obs_d.centers,
+                                 obs_d.generators)
+    out["k3_digest"] = digest(tuple(hyp))
+    print(f"step: Bernstein {out['bernstein_step_ms']:.3f} ms, ARMTD {out['armtd_step_ms']:.3f} "
+          f"ms (W = 64, medians of 7); K3 digest {out['k3_digest']}")
     print(card)
     print(json.dumps(out))
 

@@ -9,7 +9,7 @@ solvability checker, three iterations of a hard scenario, and the ARMTD
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
-     flags; build the fourteen kernels from csrc/ (one nvcc per source, in parallel)
+     flags; build the fifteen kernels from csrc/ (one nvcc per source, in parallel)
      and print the nvcc flags, every kernel's registers, spills, stack frame
      and static shared memory (ptxas) and K7's / K8's / K9's / K10's dynamic
      shared memory a block.
@@ -17,23 +17,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K = 4096, float32) over the first 64 saved worlds: one warm-up step that
      records each kernel's inputs, then one step with the launch counters set
      to 0, which must launch every kernel of the step (K12, K13, K3, K4, K7,
-     K8, K14 and the reach-set chains K9, K10) and neither K1 nor K2.
+     K8, K14, the reach-set chains K9, K10 and their assembly K15; K12, K13
+     and K15 once) and neither K1 nor K2.
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
      (median of 20 calls, CUDA events); K7, K8, K9 and K10 also run twice
      and must give the same bits, K9, K1 and K2 also under other launch
-     geometries (the same bits again), and K1, K2 and K7-K10 are printed
-     beside their earlier times (PERF.md's kernel history).  K7 / K8 (the solver's
+     geometries (the same bits again), and K1, K2, K7-K10 and K13 are
+     printed beside their earlier times (PERF.md's kernel history).  K7 / K8 (the solver's
      rows) on every shape of the step: seeds 4 -> 2, line search S x 3; their
      cost output bit for bit against plan_cost; K8's max mode (the full-set
      check's torque and state maxima) with the state maxima bit for bit; K14
      (the solve loop's bookkeeping) on every phase and shape bit for bit
-     against its plain version, and again on a second call.  K1
+     against its plain version, and again on a second call; K13 (passed the
+     cells, never K3's hyperplane tensors) against the plain screen of K3's
+     hyperplanes of the same cells bit for bit, also at quota 8 and on
+     planted ties; K15 bit for bit, twice, its outputs' views checked.  K1
      / K2, which the Kinova's step does not launch, on their own path: one
      W = 64 planning step of the Kinova with com_uncertainty = 0.05 (the
      uncertain-COM route of the PZ RNEA, through the op-level kernels),
      driven with the launch counters set to 0 just before it and read just
-     after, which must launch both; their calls recorded there, plus the FK
+     after, which must launch both and K15 once (K15 checked there on the
+     K1 / K2 route's torque); their calls recorded there, plus the FK
      rotation product of joint 1 formed from the step's JRS (not counted).
   4. planning-step checks and timings: every feasible k passes the plain
      full-set check on the card; the fused solve (K7 / K8 / K14) against the
@@ -48,8 +53,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the first 8 worlds through the port on the CPU (plain versions) agree
      on feasibility with at most one flip; solves/s at W = 64, the reach-set
      / solver split (reachset_ms), the device time of one step by kernel
-     name, its device activities and busy share (torch.profiler), and
-     batch-1 p50/p99 latency at the full profile against the 0.5 s budget.
+     name, its device activities and busy share (torch.profiler), the reach
+     sets' device activities (only K15 between K10 and K3), K13's and K15's
+     event time, device time and bound, and batch-1 p50/p99 latency at the
+     full profile against the 0.5 s budget.
   5. the closed loop at the flagship width: run_trials_batched over the same
      64 worlds, 3 iterations, straight-line guidance with the rescue solver,
      worst-case true parameters, seed 0, the launch counters set to 0 just
@@ -72,11 +79,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ~2M small launches) over one call.
   7. one plan at the rescue profile (strong_config: 8 x 6 iterations, seeds
      4 -> 2, 4 alphas) over the 64 worlds, counted; K7 / K8 / K14, K9 / K10
-     and K12 / K13 against their plain versions at its shapes, all timed.
+     and K12 / K13 / K15 against their plain versions at its shapes, all timed.
   8. the real-time planner: make_realtime_planner calibrates on the card
      (its calibration printed), then batch-1 p50/p99 through the calibrated
      step over the first 32 worlds, counted (every kernel of the step must
-     launch); K7 / K8 / K14, K9 / K10 and K12 / K13 against their plain
+     launch); K7 / K8 / K14, K9 / K10 and K12 / K13 / K15 against their plain
      versions at the W = 1 shapes, all timed.
   9. containment: for the first 8 worlds of the step, 64 sampled k per world
      at a sampled time inside each of the 128 sub-intervals: every numeric
@@ -98,14 +105,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with start velocities seeded uniform in +-ARMTD_QD0 rad/s: one warm-up
      step that records each kernel's inputs, then one step with the launch
      counters set to 0 just before it and read just after, which must
-     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, K13, K14, and
-     neither K1, K2 nor K12; every recorded call (K11, K3, K4, K13, K7 /
+     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, K13, K14, K15,
+     and neither K1, K2 nor K12; every recorded call (K11, K3, K4, K13, K15, K7 /
      K8's ARMTD branch and K14 on every shape, K9 / K10 on the ARMTD sets)
      against its plain version
      with the tolerances above, each kernel twice for the same bits, all
      timed; every feasible k passes the plain full-set check; phase 4's
      fused / eager / plain solve comparison and profiles on the ARMTD plan;
-     the step beside phase 4's Bernstein step, profiled; phase
+     the step beside phase 4's Bernstein step, profiled, its reach sets'
+     window from K10 to K3 (K15 alone); phase
      9's containment on the ARMTD sets (65,536 sampled states); three
      closed-loop iterations with rescue (K11, K5, K6 launched, no safety
      flag); batch-1 p50 / p99.
@@ -152,6 +160,7 @@ ALM_TIE = 1e-5       # an active collision row whose best two candidates are thi
 # the kernels' times before their current designs (PERF.md's kernel history; NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's: ms summed over the step's call shapes
 BEFORE_MS = {"alm_values": "1.464 (6 shapes)", "alm_newton": "2.138 (2 shapes)",
+             "screen_collision": "1.403 event, 1.264 device, bound 0.550 (read K3's tensors)",
              "fk_chain": "3.417", "rnea_chain": "7.154", "rollout": "101.253",
              "oracle_check": "0.259", "pz_cross": "2.073 (4 shapes)",
              "pz_matmul_linear": "2.295 (3 shapes)"}
@@ -937,7 +946,7 @@ def uncertain_com_path(jrs, robot, cfg, obs_args, dev):
     from armour_tpu_torch.planner import make_batch_planner
     from armour_tpu_torch.pz import bpz
     from armour_tpu_torch.pz.basis import make_basis
-    from armour_tpu_torch.utils.timing import wall_s
+    from armour_tpu_torch.utils.timing import median_ms, wall_s
 
     robot_c = dataclasses.replace(robot, com_uncertainty=COM_UNCERTAINTY)
     step_c = make_batch_planner(robot_c, cfg)
@@ -953,6 +962,18 @@ def uncertain_com_path(jrs, robot, cfg, obs_args, dev):
     for name in OP_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the uncertain-COM path")
+    if counts["reach_assembly"] != 1:
+        fail(f"K15 launched {counts['reach_assembly']} times in the uncertain-COM step, not once")
+    k15 = [v for k, v in rec.items() if k[0] == "reach_assembly"]
+    if len(k15) != 1:
+        fail("the uncertain-COM step recorded no K15 call")
+    ok, _, kern, plain, _, _, note = check_reach_assembly(k15[0], dev)
+    print(f"  reach_assembly on the uncertain-COM route (u_both from the K1 / K2 loops): "
+          f"{'ok' if ok else 'MISMATCH'} ({note}); kernel "
+          f"{median_ms(kern, dev, TIMING_ITERS):.4f} ms, plain "
+          f"{median_ms(plain, dev, TIMING_ITERS):.4f} ms")
+    if not ok:
+        fail("K15 disagrees with its plain version on the uncertain-COM route")
     R = jrs.R
     r0 = bpz.BPZ(coef=R.coef[:, :, 0], egen=R.egen[:, :, 0], rad=R.rad[:, :, 0])
     r1 = bpz.BPZ(coef=R.coef[:, :, 1], egen=R.egen[:, :, 1], rad=R.rad[:, :, 1])
@@ -983,12 +1004,14 @@ REPLACES = {
     "screen_collision": ("armour_tpu_torch/csrc/screen_collision.cu",
                          "armour_tpu/collision.py:193"),
     "alm_loop": ("armour_tpu_torch/csrc/alm_loop.cu", "armour_tpu/nlp.py:427"),
+    "reach_assembly": ("armour_tpu_torch/csrc/reach_assembly.cu",
+                       "armour_tpu/dynamics.py:293, armour_tpu/kinematics.py:115"),
 }
 # the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
 # only the uncertain-COM route, which phase 3 drives as their own path
 # the kernels of a planning step of either trajectory family, after its JRS
 STEP_KERNELS = ("build_hyperplanes", "collision_rows", "alm_newton", "alm_values",
-                "fk_chain", "rnea_chain", "screen_collision", "alm_loop")
+                "fk_chain", "rnea_chain", "screen_collision", "alm_loop", "reach_assembly")
 # a Bernstein step: its JRS is K12 (the ARMTD family's is K11)
 BERNSTEIN_KERNELS = ("jrs_bernstein",) + STEP_KERNELS
 OP_KERNELS = ("pz_matmul_linear", "pz_cross")
@@ -997,7 +1020,7 @@ HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperpl
                       "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
                       "alm_newton": "k7", "alm_values": "k8", "fk_chain": "k9",
                       "rnea_chain": "k10", "jrs_armtd": "k11", "jrs_bernstein": "k12",
-                      "screen_collision": "k13", "alm_loop": "k14"}
+                      "screen_collision": "k13", "alm_loop": "k14", "reach_assembly": "k15"}
 
 
 def _bound_ms(nbytes, flops) -> float:
@@ -1031,6 +1054,8 @@ def kernel_phase(captured, launches, device_launches, dev):
             res = check_jrs(name, inputs, dev)
         elif name == "screen_collision":
             *res, library = check_screen(inputs, dev)
+        elif name == "reach_assembly":
+            res = check_reach_assembly(inputs, dev)
         elif name in ("pz_matmul_linear", "pz_cross"):
             res = check_pz(name, inputs, dev)
         elif name == "build_hyperplanes":
@@ -1103,6 +1128,20 @@ def kernel_phase(captured, launches, device_launches, dev):
     return out
 
 
+def print_k13_k15(krows, breakdown, label) -> None:
+    """K13's and K15's event time (phase 3, summed over the step's call
+    shapes), device time in one step (torch.profiler) and bound."""
+    dev_ms = breakdown.get("hand_device_ms", {})
+    for r in krows:
+        if r["name"] in ("screen_collision", "reach_assembly"):
+            print(f"  {label}, {r['name']}: event {r['ms']:.4f} ms ({r['variants']} shapes), "
+                  f"device {dev_ms.get(r['name'], float('nan')):.4f} ms in one step, "
+                  f"{r['launches']} launch(es), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"plain {r['plain_ms']:.4f} ms")
+    print(f"  {label}, K13's passes, device ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in breakdown.get("k13_pass_ms", {}).items()))
+
+
 def profile_step(fn, dev, step_s) -> dict:
     """Device time of one call of fn by kernel name (torch.profiler's
     device-side events only: the host-side operator events carry the same
@@ -1139,7 +1178,9 @@ def profile_step(fn, dev, step_s) -> dict:
         print(f"    {ms:9.3f} ms  x{n:5d}  {key[:90]}")
     print("  hand kernels: " + ", ".join(f"{k} {v:.3f} ms" for k, v in hand.items()))
     return {"device_ms": total, "hand_kernel_ms": sum(hand.values()),
-            "device_busy_share": total / (step_s * 1e3), "device_activities": launches}
+            "device_busy_share": total / (step_s * 1e3), "device_activities": launches,
+            "hand_device_ms": hand,
+            "k13_pass_ms": {r[2].split("(")[0]: r[0] for r in rows if "k13_" in r[2]}}
 
 
 # ---------------------------------------------------------------------------
@@ -1658,9 +1699,9 @@ def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
           f"{int(res.feasible.sum())} feasible; K7 x{n['alm_newton']}, K8 x{n['alm_values']}, "
           f"K14 x{n['alm_loop']}, "
           f"K9 x{n['fk_chain']}, K10 x{n['rnea_chain']}, K12 x{n['jrs_bernstein']}, "
-          f"K13 x{n['screen_collision']} (its reach sets and screen)")
+          f"K13 x{n['screen_collision']}, K15 x{n['reach_assembly']} (its reach sets and screen)")
     for name in ("alm_newton", "alm_values", "alm_loop", "fk_chain", "rnea_chain",
-                 "jrs_bernstein", "screen_collision"):
+                 "jrs_bernstein", "screen_collision", "reach_assembly"):
         if n[name] == 0:
             fail(f"the rescue-profile plan did not launch {name}")
     check_alm_captures(captured, dev, "rescue profile")
@@ -1717,7 +1758,6 @@ def containment_phase(jrs, robot, cfg, basis, dev, label="phase 9") -> dict:
 
     from armour_tpu_torch import bezier, rnea_numeric, trajectory
     from armour_tpu_torch.kernels import reach
-    from armour_tpu_torch.kinematics import reduce_links
     from armour_tpu_torch.pz.bpz import BPZ
 
     W = N_CONTAIN
@@ -1727,8 +1767,8 @@ def containment_phase(jrs, robot, cfg, basis, dev, label="phase 9") -> dict:
 
     sub = dataclasses.replace(jrs, R=first(jrs.R), Rt=first(jrs.Rt), qd=first(jrs.qd),
                               qda=first(jrs.qda), qdda=first(jrs.qdda))
-    frs = reduce_links(reach.fk_chain(sub, robot, cfg, basis), basis)
     u = reach.rnea_chain(sub, robot, cfg, basis)                   # [W, 2, T, F]
+    frs, _ = reach.reach_assembly(reach.fk_chain(sub, robot, cfg, basis), u, robot, cfg, basis)
     T = cfg.num_time_steps
     g = torch.Generator(device="cpu").manual_seed(0)
     k = (2 * torch.rand((W, N_K, 7), generator=g, dtype=torch.float64) - 1).to(dev)
@@ -1896,7 +1936,7 @@ def rest_checker_phase(robot, cfg, args_dev, obs_dev, dev) -> dict:
           f"{got[-1]:.4g} m (plain {ref[-1]:.4g}); max |d| {float(np.abs(got - ref).max()):.3g}; "
           f"launches {n}")
     for name in ("fk_chain", "rnea_chain", "build_hyperplanes", "collision_rows",
-                 "jrs_bernstein", "screen_collision"):
+                 "jrs_bernstein", "screen_collision", "reach_assembly"):
         if n[name] == 0:
             fail(f"kernel {name} was not launched by the rest-FRS checker")
     if flips or not got[-1] > 0:
@@ -2014,31 +2054,37 @@ def check_jrs(name, inputs, dev):
 
 
 def _screen_args(inputs):
-    """Phase-3 views of a recorded K13 call: the plain version's arguments."""
+    """A recorded K13 call as the plain version's arguments: the cells'
+    link sets and obstacles, and K3's hyperplanes of them on the card."""
     from armour_tpu_torch import collision as col
     from armour_tpu_torch.kinematics import LinkFRS
 
-    A, d, delta, center_coef, env, obs_mask, K, quota = inputs
-    T, J = center_coef.shape[1:3]
-    hyp = col.Hyperplanes(A=A, d=d, delta=delta, dims=(T, J, obs_mask.shape[1]))
-    obs = col.ObstacleSet(centers=None, generators=None, mask=obs_mask)
-    frs = LinkFRS(center_coef=center_coef, shape_gens=None, radius=None)
-    return hyp, obs, frs, K, quota
+    shape_gens, radius, centers, gens, center_coef, env, obs_mask, K, quota = inputs
+    frs = LinkFRS(center_coef=center_coef, shape_gens=shape_gens, radius=radius)
+    obs = col.ObstacleSet(centers=centers, generators=gens, mask=obs_mask)
+    return col.build_hyperplanes(frs, obs), obs, frs, K, quota
 
 
 def check_screen(inputs, dev):
-    """K13 against screen_collision_plain on the card: the same rows in the
-    same order and the same bits in every field; a second call gives the
-    same bits.  Also returns the library call: torch.topk of the same K
-    over the same [W, N] bound (the selection alone)."""
+    """K13 against screen_collision_plain on K3's hyperplanes of the same
+    cells, on the card: the same rows in the same order and the same bits in
+    every field; a second call gives the same bits.  K13 is passed the cells
+    (no hyperplane tensor: its argument struct and the recorded call are
+    checked).  Also returns the library call: torch.topk of the same K over
+    the same [W, N] bound (the selection alone)."""
     from armour_tpu_torch import collision as col
     from armour_tpu_torch.kernels import collision as kcol
 
-    A, d, delta, center_coef, env, obs_mask, K, quota = inputs
+    shape_gens, radius, centers, gens, center_coef, env, obs_mask, K, quota = inputs
     hyp, obs, frs, _, _ = _screen_args(inputs)
+    fields = {n for n, _ in kcol.K13Args._fields_}
+    passed = [tuple(t.shape) for t in inputs if isinstance(t, torch.Tensor)]
+    if fields & {"A", "d", "delta"} or {tuple(hyp.A.shape), tuple(hyp.d.shape)} & set(passed):
+        fail("K13 is still passed a hyperplane tensor")
 
     def kern():
-        return kcol.screen_collision(A, d, delta, center_coef, env, obs_mask, K, quota)
+        return kcol.screen_collision(shape_gens, radius, centers, gens, center_coef, env,
+                                     obs_mask, K, quota)
 
     def plain():
         return col.screen_collision_plain(hyp, obs, frs, K, quota)
@@ -2052,43 +2098,140 @@ def check_screen(inputs, dev):
     g_up, _ = col._screen_bound(hyp, obs, frs)
     ties = int(g_up.numel() - sum(torch.unique(x).numel() for x in g_up))
     torch.cuda.synchronize(dev)
-    Wn, C, N = d.shape
+    Wn, C, N = hyp.d.shape
     Kk = got[3].shape[1]
     TJ = center_coef.shape[1] * center_coef.shape[2]
-    nbytes = _nbytes(A, d, delta, env, obs_mask, *got) + Wn * TJ * 3 * 4   # + p0
-    flops = Wn * N * C * 22
+    real = int(obs_mask.sum()) * TJ
+    # the cells' inputs, p0, the outputs and the scratch bound g, each once
+    nbytes = (_nbytes(shape_gens, radius, centers, gens, env, obs_mask, *got)
+              + Wn * TJ * 3 * 4 + Wn * N * 4)
+    flops = k13_operations(int((obs_mask.sum(1) > 0).sum()) * TJ, int(obs_mask.sum()), real,
+                           Wn * Kk)
     library = lambda: torch.topk(g_up, Kk, dim=-1)   # noqa: E731
     return exact and same, err, kern, plain, nbytes, flops, \
         (f"K = {Kk}, quota {quota}: indices and every field "
-         f"{'bit for bit' if exact else 'DIFFER'} ({ties} tied bounds among {g_up.numel()}); "
-         f"a second call {'gives the same bits' if same else 'DIFFERS'}"), library
+         f"{'bit for bit' if exact else 'DIFFER'} against the plain screen of K3's "
+         f"hyperplanes ({ties} tied bounds among {g_up.numel()}; {real} real rows); a second "
+         f"call {'gives the same bits' if same else 'DIFFERS'}; passed the cells, no "
+         f"hyperplane tensor"), library
+
+
+# float32 operations of one hyperplane's parts in K13 (hyperplane_cell.cuh,
+# screen_collision.cu; |x| and -x are operand modifiers and not counted)
+K13_NORMAL = 20   # cross product 9, n2 5, the test, sqrt and division 3, scale 3
+K13_TERM = 6      # one generator's |A . G_g| into delta: 3 mul, 2 add, the sum's add
+K13_DOT = 5       # A . c (d) or A . p0
+K13_SIDE = 15     # A . p0 5, r = sum_a |A_a| env_a 5, ok 3, +-(A . p0) - r 2
+K13_PICK = 6      # +-d + delta 2, the two sides' differences 2, their running maxima 2
+
+
+def k13_operations(cells, obstacles, real, chosen):
+    """The least float32 operation count of K13's function: each part of a
+    row's 36 hyperplanes counted once where it depends on less than the
+    row.  Of the 9 generators, 3 are the obstacle's and 6 the link cell's:
+    the 15 normals of link-generator pairs, their link terms of delta and
+    their p0 / env side belong to the link cell (cells: the link cells of
+    worlds with a real obstacle); the 3 normals of obstacle-generator pairs
+    with their obstacle terms and d to the obstacle (obstacles: the real
+    ones); the rest to the row (real: the real rows, bounded in pass (a);
+    chosen: the rows whose hyperplanes pass (c) writes)."""
+    per_cell = 15 * (K13_NORMAL + 6 * K13_TERM + K13_SIDE)
+    per_obstacle = 3 * (K13_NORMAL + 3 * K13_TERM + K13_DOT)
+    # the 18 mixed pairs whole; the link pairs' obstacle terms (+ 1 add to
+    # join the link part) and d; the obstacle pairs' link terms (+ 1) and side
+    built = (18 * (K13_NORMAL + 9 * K13_TERM + K13_DOT) + 15 * (3 * K13_TERM + 1 + K13_DOT)
+             + 3 * (6 * K13_TERM + 1))
+    per_row = built + 18 * K13_SIDE + 3 * K13_SIDE + 36 * K13_PICK
+    return cells * per_cell + obstacles * per_obstacle + real * per_row + chosen * built
 
 
 def screen_variants(inputs):
     """K13's inputs with an obstacle quota of 8, and with planted ties:
-    every odd obstacle slot a copy of the even one before it (hyperplanes
-    and mask), so that rows tie in pairs; both at quota 0 and 8."""
-    A, d, delta, center_coef, env, obs_mask, K, quota = inputs
-    Wn, _, C, N = A.shape
-    O = obs_mask.shape[1]
-    if O % 2:
+    every odd obstacle slot a copy of the even one before it (centre,
+    generators and mask), so that rows tie in pairs; both at quota 0 and 8."""
+    shape_gens, radius, centers, gens, center_coef, env, obs_mask, K, quota = inputs
+    if obs_mask.shape[1] % 2:
         fail("the planted-tie copy takes an even obstacle count")
 
     def pair(x):
-        y = x.reshape(*x.shape[:-1], N // O, O).clone()
-        y[..., 1::2] = y[..., 0::2]
-        return y.reshape(x.shape)
+        y = x.clone()
+        y[:, 1::2] = y[:, 0::2]
+        return y
 
-    m = obs_mask.clone()
-    m[:, 1::2] = m[:, 0::2]
-    tied = (pair(A), pair(d), pair(delta), center_coef, env, m)
-    return [("quota 8", (A, d, delta, center_coef, env, obs_mask, K, 8)),
+    cells = (shape_gens, radius)
+    tied = cells + (pair(centers), pair(gens), center_coef, env, pair(obs_mask))
+    return [("quota 8", inputs[:7] + (K, 8)),
             ("planted ties", tied + (K, 0)), ("planted ties, quota 8", tied + (K, 8))]
 
 
+def check_reach_assembly(inputs, dev):
+    """K15 against its plain version (dynamics.reach_assembly_plain, or the
+    one part's plain version) on the card: the shape generators, the link
+    radii and the torque radius bit for bit, the same bits on a second call,
+    u_coef and center_coef views of K10's and K9's outputs."""
+    from armour_tpu_torch import dynamics, kinematics
+    from armour_tpu_torch.kernels import reach as kreach
+
+    links, u_both, robot, cfg, basis = inputs
+
+    def kern():
+        return kreach.reach_assembly(links, u_both, robot, cfg, basis)
+
+    def plain():
+        return (None if links is None else kinematics.reduce_links_plain(links, basis),
+                None if u_both is None else dynamics.torque_assembly_plain(u_both, robot, cfg))
+
+    got, again, ref = kern(), kern(), plain()
+    torch.cuda.synchronize(dev)
+    pairs = []
+    if links is not None:
+        pairs += [(got[0].shape_gens, again[0].shape_gens, ref[0].shape_gens),
+                  (got[0].radius, again[0].radius, ref[0].radius)]
+        views = got[0].center_coef.data_ptr() == links.coef.data_ptr()
+    if u_both is not None:
+        pairs.append((got[1].torque_radius, again[1].torque_radius, ref[1].torque_radius))
+        views = got[1].u_coef.data_ptr() == u_both.coef.data_ptr() and (
+            links is None or views)
+    exact = all(torch.equal(a, c) for a, _, c in pairs)
+    same = all(torch.equal(a, b) for a, b, _ in pairs)
+    err = max(float((a - c).abs().max()) for a, _, c in pairs)
+    nbytes = sum(_nbytes(a) for a, _, _ in pairs)
+    flops = 0
+    if links is not None:
+        nbytes += _nbytes(links.egen, links.rad)
+        flops += links.rad.numel() * 2 * (links.egen.shape[-1] - 3)
+    if u_both is not None:
+        nbytes += _bpz_bytes(u_both)
+        B, E = u_both.coef.shape[-1], u_both.egen.shape[-1]
+        per = 3 * (B - 1) + 3 * E + 2 * E + 16          # the sums, lo / hi, the radius
+        flops += (u_both.rad.numel() // 2) * per + u_both.rad[:, 0, :, 0].numel() * 8
+    return exact and same and views, err, kern, plain, nbytes, flops, \
+        (f"links {None if links is None else tuple(links.rad.shape)}, u_both "
+         f"{None if u_both is None else tuple(u_both.rad.shape)}: every output "
+         f"{'bit for bit' if exact else 'DIFFERS'}; a second call "
+         f"{'gives the same bits' if same else 'DIFFERS'}; u_coef / center_coef "
+         f"{'views' if views else 'COPIES'}")
+
+
+def reach_window(fn, dev, label) -> dict:
+    """The reach sets' device activities of one call of fn: from K10's
+    launch to K3's only K15 may run (once).  Returns the window's names."""
+    names = [n for n, _ in device_timeline(fn, dev)]
+    i10 = [i for i, n in enumerate(names) if "k10_" in n]
+    i3 = [i for i, n in enumerate(names) if "k3_" in n]
+    if len(i10) != 1 or len(i3) != 1 or i3[0] < i10[0]:
+        fail(f"{label}: expected one K10 then one K3 activity, got {len(i10)} / {len(i3)}")
+    window = names[i10[0] + 1:i3[0]]
+    print(f"  {label}: {len(names)} device activities in the reach sets; from K10 to K3: "
+          f"{[n[:40] for n in window]}")
+    if len(window) != 1 or "k15_" not in window[0]:
+        fail(f"{label}: other device work than K15 between K10 and K3: {window}")
+    return {"reach_activities": len(names), "k10_to_k3": [n[:40] for n in window]}
+
+
 def check_jrs_screen_captures(captured, dev, label) -> None:
-    """K12 / K13 against their plain versions on every shape recorded on a
-    path other than the main one, both timed; fails on a mismatch."""
+    """K12 / K13 / K15 against their plain versions on every shape recorded
+    on a path other than the main one, both timed; fails on a mismatch."""
     from armour_tpu_torch.utils.timing import median_ms
 
     n, all_ok = set(), True
@@ -2097,6 +2240,8 @@ def check_jrs_screen_captures(captured, dev, label) -> None:
             ok, _, kern, plain, nbytes, _, note = check_jrs(name, inputs, dev)
         elif name == "screen_collision":
             ok, _, kern, plain, nbytes, _, note, _ = check_screen(inputs, dev)
+        elif name == "reach_assembly":
+            ok, _, kern, plain, nbytes, _, note = check_reach_assembly(inputs, dev)
         else:
             continue
         ms, pms = median_ms(kern, dev, TIMING_ITERS), median_ms(plain, dev, TIMING_ITERS)
@@ -2104,10 +2249,10 @@ def check_jrs_screen_captures(captured, dev, label) -> None:
               f"plain {pms:.4f} ms (medians of {TIMING_ITERS}), {nbytes / 1e6:.1f} MB")
         all_ok &= ok
         n.add(name)
-    if n != {"jrs_bernstein", "screen_collision"}:
-        fail(f"K12 and K13 were not both recorded on the {label}")
+    if n != {"jrs_bernstein", "screen_collision", "reach_assembly"}:
+        fail(f"K12, K13 and K15 were not all recorded on the {label}")
     if not all_ok:
-        fail(f"K12 / K13 disagree with their plain versions on the {label}")
+        fail(f"K12 / K13 / K15 disagree with their plain versions on the {label}")
 
 
 def armtd_inputs(q0, cfg, n, dev):
@@ -2165,7 +2310,8 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     # every recorded call against its plain version, each kernel twice
     check = {"jrs_armtd": lambda x, d: check_jrs("jrs_armtd", x, d),
              "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
-             "screen_collision": lambda x, d: check_screen(x, d)[:7]}
+             "screen_collision": lambda x, d: check_screen(x, d)[:7],
+             "reach_assembly": check_reach_assembly}
     sums = {}
     k11 = None
     all_ok = True
@@ -2231,6 +2377,12 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     breakdown = profile_step(lambda: step(*args), dev, t_step)
     print(f"  ARMTD W={N_WORLDS} step {t_step * 1e3:.1f} ms (median of 3) beside the Bernstein "
           f"step {bern_step_s * 1e3:.1f} ms (phase 4, this call)")
+    window = reach_window(lambda: plan_problem(q0d, qd0, qdd0, q_des_d, obs_d, robot, cfg_a,
+                                               basis), dev, f"ARMTD reach sets, W={N_WORLDS}")
+    print("  ARMTD step, device ms of one step: " + ", ".join(
+        f"{n} {breakdown.get('hand_device_ms', {}).get(n, float('nan')):.4f}"
+        for n in ("screen_collision", "reach_assembly")) + "; K13's passes " + ", ".join(
+        f"{k} {v:.4f}" for k, v in breakdown.get("k13_pass_ms", {}).items()))
 
     # containment of sampled ARMTD states in K9's / K10's sets
     contain = containment_phase(jrs, robot, cfg_a, basis, dev, label="  phase 12")
@@ -2277,7 +2429,8 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
             "armtd_loop_wall_s": t_loop,
             **{f"armtd_{kk}": vv for kk, vv in solve_cmp.items()},
             **{f"armtd_{kk}": vv for kk, vv in contain.items()},
-            **{f"armtd_{kk}": vv for kk, vv in breakdown.items()}}
+            **{f"armtd_{kk}": vv for kk, vv in breakdown.items()},
+            **{f"armtd_{kk}": vv for kk, vv in window.items()}}
     return k11, perf
 
 
@@ -2351,7 +2504,7 @@ def main() -> None:
     for name in BERNSTEIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
-    for name in ("jrs_bernstein", "screen_collision"):
+    for name in ("jrs_bernstein", "screen_collision", "reach_assembly"):
         if launches[name] != 1:
             fail(f"kernel {name} launched {launches[name]} times in one step, not once")
     for name in OP_KERNELS:
@@ -2422,6 +2575,9 @@ def main() -> None:
           f"{t_rs * 1e3:.1f} ms (reachset_ms), solve {(t_step - t_rs) * 1e3:.1f} ms; "
           f"{breakdown.get('device_activities', 'not measured')} device activities, busy "
           f"share {breakdown.get('device_busy_share', float('nan')):.3f}")
+    window = reach_window(lambda: plan_problem(*args_dev, obs_dev, robot, cfg, basis), dev,
+                          f"reach sets of the W={N_WORLDS} step")
+    print_k13_k15(krows, breakdown, "Bernstein step")
 
     # batch-1 latency over the first N_LATENCY worlds
     step1 = make_planner(robot, cfg)
@@ -2469,7 +2625,7 @@ def main() -> None:
             "latency_batch1_p50_ms": p50 * 1e3, "latency_batch1_p99_ms": p99 * 1e3,
             "uncertain_com_step_ms": t_com,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown, **window,
             **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf}
     print("planning: " + json.dumps(perf))
     print(card)

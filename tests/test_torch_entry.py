@@ -164,9 +164,13 @@ def test_kernel_launchers_refuse_cpu_tensors():
         kjrs.jrs_bernstein(torch.zeros(2, 7), torch.zeros(2, 7), torch.zeros(2, 7), robot, cfg4,
                            basis)
     with pytest.raises(ValueError, match="CUDA"):
-        kcol.screen_collision(torch.zeros(1, 3, 36, 56), torch.zeros(1, 36, 56),
-                              torch.zeros(1, 36, 56), torch.zeros(1, 2, 7, 3, 120),
-                              torch.zeros(1, 2, 7, 3), torch.ones(1, 4, dtype=torch.bool), 16)
+        kcol.screen_collision(torch.zeros(1, 2, 7, 3, 3), torch.zeros(1, 2, 7, 3),
+                              torch.zeros(1, 4, 3), torch.zeros(1, 4, 3, 3),
+                              torch.zeros(1, 2, 7, 3, 120), torch.zeros(1, 2, 7, 3),
+                              torch.ones(1, 4, dtype=torch.bool), 16)
+    links, u_both = _cpu_bpz((1, 2, 7, 3), basis), _cpu_bpz((1, 2, 2, 7), basis)
+    with pytest.raises(ValueError, match="CUDA"):
+        kreach.reach_assembly(links, u_both, robot, cfg4, basis)
 
 
 def test_cpu_wrappers_take_the_plain_versions():

@@ -10,11 +10,15 @@ utils.div.  The cuda-marked tests hold K12 and K13 against their plain
 versions on the card (K12: the velocity PZs and trajectory scalars bit for
 bit, R within 1e-6 (1 + |plain|) where cos / sin or the 3x3 products round
 differently; K13: the same indices and bits in every field, with quota 0
-and 8 and planted ties), each twice for the same bits, and every repaired
-division on the card against the CPU bit for bit.  They skip where there is
-no card; this file imports no JAX, so on the card it runs with
+and 8 and planted ties, against the plain screen of K3's hyperplanes and
+against tests/data/screen_hyperplanes.cu, the screen that reads K3's
+tensors, built there with the port's flags), each twice for the same
+bits, and every repaired division on the card against the CPU bit for
+bit.  They skip where there is no card; this file imports no JAX, so on
+the card it runs with
 `python3 -m pytest --noconftest tests/test_torch_jrs_screen_kernels.py -m cuda`."""
 
+import ctypes
 import re
 
 import numpy as np
@@ -75,9 +79,9 @@ def test_k13_geometry_covers_and_fits(K):
     """The bound pass covers every row, the sort length is the least power
     of two >= K, the sort sits in shared memory up to K13_SMEM_SORT_MAX and
     fits a block with the select pass's static shared memory, else it goes
-    to the global scratch; the gather covers every (world, c, k)."""
-    Wn, C, N = 3, 36, 35840
-    geo = kcol.k13_geometry(Wn, C, N, K)
+    to the global scratch; the gather covers every (world, chosen row)."""
+    Wn, N = 3, 35840
+    geo = kcol.k13_geometry(Wn, N, K)
     assert geo.bound_grid == (-(-N // kcol.K13_BOUND_THREADS), Wn)
     assert (geo.bound_grid[0] - 1) * kcol.K13_BOUND_THREADS < N
     assert geo.Kp >= K and geo.Kp & (geo.Kp - 1) == 0 and (geo.Kp == 1 or geo.Kp // 2 < K)
@@ -86,8 +90,8 @@ def test_k13_geometry_covers_and_fits(K):
         assert geo.smem_bytes == geo.Kp * 8 and geo.smem_bytes + static <= BLOCK_SMEM
     else:
         assert geo.smem_bytes == 0
-    assert geo.gather_blocks * kcol.K13_GATHER_THREADS >= Wn * C * K
-    assert (geo.gather_blocks - 1) * kcol.K13_GATHER_THREADS < Wn * C * K
+    assert geo.gather_blocks * kcol.K13_GATHER_THREADS >= Wn * K
+    assert (geo.gather_blocks - 1) * kcol.K13_GATHER_THREADS < Wn * K
 
 
 def test_k13_constants_match_the_source():
@@ -99,16 +103,16 @@ def test_k13_constants_match_the_source():
 
 
 def test_k13_refuses_what_it_does_not_take():
-    """CPU tensors, and a row count other than T J O (before any launch)."""
+    """CPU tensors, and obstacles of another count than the mask's (before
+    any launch)."""
     Wn, T, J, O, B = 1, 2, 7, 4, 120
-    N = T * J * O
-    args = [torch.zeros(Wn, 3, 36, N), torch.zeros(Wn, 36, N), torch.zeros(Wn, 36, N),
-            torch.zeros(Wn, T, J, 3, B), torch.zeros(Wn, T, J, 3),
+    args = [torch.zeros(Wn, T, J, 3, 3), torch.zeros(Wn, T, J, 3), torch.zeros(Wn, O, 3),
+            torch.zeros(Wn, O, 3, 3), torch.zeros(Wn, T, J, 3, B), torch.zeros(Wn, T, J, 3),
             torch.ones(Wn, O, dtype=torch.bool)]
     with pytest.raises(ValueError, match="CUDA"):
         kcol.screen_collision(*args, 16)
-    args[5] = torch.ones(Wn, O + 1, dtype=torch.bool)
-    with pytest.raises(ValueError, match="T J O"):
+    args[6] = torch.ones(Wn, O + 1, dtype=torch.bool)
+    with pytest.raises(ValueError, match="the mask's 5 obstacles"):
         kcol.screen_collision(*args, 16)
 
 
@@ -209,13 +213,14 @@ def test_k12_matches_its_plain_version_on_the_card(start, T):
 
 def _screen_inputs(dev, dup):
     """Hyperplanes, obstacles and link sets of a T = 16 plan of three saved
-    worlds on the card (K12, K9, K3); dup: every other real obstacle is a
-    copy of the one before it, so that real rows tie."""
+    worlds on the card (K12, K9, K10, K15, K3); dup: every other real
+    obstacle is a copy of the one before it, so that real rows tie."""
     import glob
 
     from armour_tpu_torch.collision import build_hyperplanes, pad_obstacles, stack_obstacles
+    from armour_tpu_torch.dynamics import reach_assembly, rnea_pz_sets
     from armour_tpu_torch.jrs import build_jrs
-    from armour_tpu_torch.kinematics import forward_occupancy, reduce_links
+    from armour_tpu_torch.kinematics import forward_occupancy
     from armour_tpu_torch.worlds import load_world_csv
 
     robot, basis = kinova_gen3(), make_basis(7, 3)
@@ -233,7 +238,8 @@ def _screen_inputs(dev, dup):
     q0 = torch.as_tensor(np.stack([w.start for w in ws]), dtype=torch.float32, device=dev)
     z = torch.zeros_like(q0)
     jrs = build_jrs(q0, z, z, robot, cfg, basis)
-    frs = reduce_links(forward_occupancy(jrs, robot, cfg, basis), basis)
+    frs, _ = reach_assembly(forward_occupancy(jrs, robot, cfg, basis),
+                            rnea_pz_sets(jrs, robot, cfg, basis), robot, cfg, basis)
     return build_hyperplanes(frs, obs), obs, frs
 
 
@@ -325,3 +331,75 @@ def test_scalar_divisions_are_ieee_on_the_card():
             return trajectory.desired_state(ref, t_, cfg_f)
 
         both(state, q0, qd0, qdd0, k_new, tt)
+
+
+class _ReferenceK13Args(ctypes.Structure):
+    """The argument struct of tests/data/screen_hyperplanes.cu."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "A", "d", "delta", "center", "env", "obs_mask", "g", "idx", "sort", "A_out", "d_out",
+        "delta_out", "row", "mask")] + [(n, ctypes.c_int) for n in (
+            "W", "C", "N", "TJ", "O", "B", "K", "quota", "Kp", "smem_sort")]
+
+
+def _reference_screen(hyp, obs, frs, K, quota):
+    """tests/data/screen_hyperplanes.cu (the screen that reads K3's tensors),
+    built with the port's nvcc flags into a library named by a hash of the
+    source and the flags, on hyp: (A, d, delta, row, mask)."""
+    import hashlib
+    import os
+    import subprocess
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parent / "data" / "screen_hyperplanes.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(build.FLAGS).encode()).hexdigest()[:16]
+    out = build.BUILD / f"libscreen_hyperplanes_reference-{key}.so"
+    if not out.exists():
+        build.BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        subprocess.run([build.nvcc(), *build.FLAGS, "-o", str(tmp), str(src)], check=True,
+                       capture_output=True)
+        os.replace(tmp, out)
+    fn = ctypes.CDLL(str(out)).k13_launch
+    fn.argtypes = [ctypes.POINTER(_ReferenceK13Args), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    A, d, delta = hyp.A, hyp.d, hyp.delta
+    Wn, _, C, N = A.shape
+    T, J, _, B = frs.center_coef.shape[1:]
+    O = obs.mask.shape[1]
+    Kk = min(K, N)
+    q = quota if quota > 0 and quota * O < Kk else 0
+    geo = kcol.k13_geometry(Wn, N, Kk)
+    dev = A.device
+    env = col.screen_envelope(frs.center_coef)
+    g = torch.empty(Wn, N, device=dev)
+    idx = torch.empty(Wn, Kk, device=dev, dtype=torch.int32)
+    sort = torch.empty(Wn, geo.Kp, device=dev, dtype=torch.int64) if geo.smem_bytes == 0 else None
+    outs = (torch.empty(Wn, 3, C, Kk, device=dev), torch.empty(Wn, C, Kk, device=dev),
+            torch.empty(Wn, C, Kk, device=dev), torch.empty(Wn, Kk, device=dev, dtype=torch.int32),
+            torch.empty(Wn, Kk, device=dev, dtype=torch.bool))
+    args = _ReferenceK13Args(A.data_ptr(), d.data_ptr(), delta.data_ptr(),
+                             frs.center_coef.data_ptr(), env.data_ptr(), obs.mask.data_ptr(),
+                             g.data_ptr(), idx.data_ptr(),
+                             sort.data_ptr() if sort is not None else None,
+                             *(t.data_ptr() for t in outs), Wn, C, N, T * J, O, B, Kk, q,
+                             geo.Kp, int(geo.smem_bytes > 0))
+    err = fn(ctypes.byref(args), geo.smem_bytes,
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    assert err == 0
+    torch.cuda.synchronize(dev)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quota, dup", [(0, False), (8, False), (0, True), (8, True)])
+def test_k13_matches_the_screen_of_k3s_tensors_on_the_card(quota, dup):
+    """K13, which forms its rows again from the cells, against the screen
+    that reads K3's hyperplane tensors (tests/data/screen_hyperplanes.cu) on
+    the same K3 output: the same rows and the same bits in every field."""
+    dev = _card()
+    hyp, obs, frs = _screen_inputs(dev, dup)
+    for K in (512, 3000):
+        got = col.screen_collision(hyp, obs, frs, K, quota)
+        ref = _reference_screen(hyp, obs, frs, K, quota)
+        for f, b in zip(("A", "d", "delta", "row", "mask"), ref):
+            assert torch.equal(getattr(got, f), b), (K, f)

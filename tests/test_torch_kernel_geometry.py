@@ -6,11 +6,14 @@ the grid reaches 2 x 132 CTAs wherever the work allows, and the shared
 memory each block asks for fits the H100 (227 KB a block, 228 KB an SM), so
 that a launch the card would refuse shows up here.  The Python mirrors of
 the kernels' shared-memory formulas are held against the constants of the
-CUDA sources.
+CUDA sources.  K13's (screen_collision) and K15's (reach_assembly) ctypes
+argument structs are held field for field against the structs parsed out
+of their sources, and their launchers' values against the inputs with the
+library stubbed.
 
-The cuda-marked tests run K1, K2, K5, K6, K7, K8, K9 and K10 against their
-plain versions on the card, and K11 and K7 / K8's ARMTD branch against
-theirs (they skip where there is no card; K12 and K13 are in
+The cuda-marked tests run K1, K2, K5, K6, K7, K8, K9, K10 and K15 against
+their plain versions on the card, and K11 and K7 / K8's ARMTD branch
+against theirs (they skip where there is no card; K12 and K13 are in
 test_torch_jrs_screen_kernels.py)."""
 
 import dataclasses
@@ -987,3 +990,213 @@ def test_k7_k8_armtd_branch_matches_plain_on_the_card():
     st0, m10, _, _ = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
     assert float(((m1 - m10).abs() / (1 + m10.abs())).max()) <= 1e-5
     assert float(((step - st0).abs() / (1 + st0.abs())).max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# K13 (screen_collision) and K15 (reach_assembly): the argument structs
+# against the sources, the launchers' values, the launch geometry
+# ---------------------------------------------------------------------------
+
+_C_TYPES = {"int": "c_int", "long long": "c_longlong", "float": "c_float"}
+
+
+def _struct_fields(src, name):
+    """[(field, ctypes type name or (type name, length))] of `struct name`
+    in csrc/src: pointers are c_void_p, arrays (type, #define'd length)."""
+    text = _source(src)
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, text, re.S).group(1)
+    out = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        m = re.match(r"(?:const )?((?:unsigned )?(?:long long|int|float|char))\s*(\*?)\s*(.*)$",
+                     decl, re.S)
+        base, ptr, names = m.groups()
+        for nm in (x.strip() for x in names.split(",")):
+            arr = re.match(r"(\w+)\[(\w+)\]$", nm)
+            if ptr or nm.startswith("*"):
+                out.append((nm.lstrip("* "), "c_void_p"))
+            elif arr:
+                out.append((arr.group(1), (_C_TYPES[base], _define(text, arr.group(2)))))
+            else:
+                out.append((nm, _C_TYPES[base]))
+    return out
+
+
+def _ctypes_fields(cls):
+    out = []
+    for nm, ty in cls._fields_:
+        if hasattr(ty, "_length_"):
+            out.append((nm, (ty._type_.__name__, ty._length_)))
+        else:
+            out.append((nm, ty.__name__))
+    return out
+
+
+def test_k13_args_match_the_source():
+    """K13Args names csrc/screen_collision.cu's struct field for field, in
+    order and type, and holds no hyperplane tensor: K13 forms its rows."""
+    from armour_tpu_torch.kernels import collision as kcol
+
+    assert _ctypes_fields(kcol.K13Args) == _struct_fields("screen_collision.cu", "K13Args")
+    names = {n for n, _ in kcol.K13Args._fields_}
+    assert not names & {"A", "d", "delta"}
+    assert '#include "hyperplane_cell.cuh"' in _source("screen_collision.cu")
+    assert '#include "hyperplane_cell.cuh"' in _source("build_hyperplanes.cu")
+
+
+def test_k15_args_match_the_source():
+    assert _ctypes_fields(reach.K15Args) == _struct_fields("reach_assembly.cu", "K15Args")
+    text = _source("reach_assembly.cu")
+    assert _define(text, "K15_THREADS") == reach.K15_THREADS
+    assert _define(text, "K15_MAXF") == reach.K15_MAX_F
+    assert _define(text, "K15_MAXJ3") == reach.K15_MAX_J3
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+@pytest.mark.parametrize("Kq", [1, 512, K, 40000])
+def test_k13_passes_cover_rows_and_choices_once(Wn, Kq):
+    """Pass (a) a thread per (world, row), pass (c) a thread per (world,
+    chosen row): every one covered, no block wholly idle."""
+    from armour_tpu_torch.kernels import collision as kcol
+
+    O = 40
+    N = T * J * O
+    Kk = min(Kq, N)
+    geo = kcol.k13_geometry(Wn, N, Kk)
+    bx, by = geo.bound_grid
+    assert by == Wn and bx * kcol.K13_BOUND_THREADS >= N > (bx - 1) * kcol.K13_BOUND_THREADS
+    G = kcol.K13_GATHER_THREADS
+    assert geo.gather_blocks * G >= Wn * Kk > (geo.gather_blocks - 1) * G
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+def test_k15_geometry_fits(Wn):
+    """A block per (world, time step) of K15_THREADS; warp 0 holds the F
+    disturbance sums, warp 1 the F nominal sums and the 3 J link rows; the
+    slab fits the shared memory a block takes without the opt-in, up to 8
+    factors and 8 links with the basis of 8 factors."""
+    assert reach.K15_THREADS == 64
+    assert reach.K15_MAX_F + reach.K15_MAX_J3 <= 32
+    assert reach.k15_smem(F, 3 * J, B, E) == 4 * (2 * F * (B + E + 1) + 3 * J * E)
+    from armour_tpu_torch.pz.basis import make_basis
+
+    b8 = make_basis(8, 3)
+    E8 = 5 * 8 + 3
+    assert reach.k15_smem(8, 24, b8.size, E8) <= reach.K15_SMEM_MAX <= 48 * 1024
+    assert Wn * T < 2 ** 31
+
+
+def _fake_launcher(calls):
+    def launcher(name, symbol, argtypes):
+        def fn(*args):
+            calls.append((name, symbol, argtypes, args))
+            return 0
+        return fn
+    return launcher
+
+
+def test_k13_launcher_passes_the_cells(monkeypatch):
+    """The launcher hands K13 the cells' inputs (no hyperplanes), the
+    sizes and the geometry, with the library and the device check
+    stubbed."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.kernels import collision as kcol
+
+    calls = []
+    monkeypatch.setattr(kcol, "launcher", _fake_launcher(calls))
+    monkeypatch.setattr(kcol, "_stream", lambda t: None)
+    monkeypatch.setattr(kcol, "launched", lambda *a: None)
+    monkeypatch.setattr(kcol, "_require", lambda *a, **k: None)
+    Wn, Tn, Jn, O, Bn = 2, 3, 7, 4, 120
+    ins = [torch.zeros(Wn, Tn, Jn, 3, 3), torch.zeros(Wn, Tn, Jn, 3), torch.zeros(Wn, O, 3),
+           torch.zeros(Wn, O, 3, 3), torch.zeros(Wn, Tn, Jn, 3, Bn), torch.zeros(Wn, Tn, Jn, 3),
+           torch.ones(Wn, O, dtype=torch.bool)]
+    out = kcol.screen_collision(*ins, 50, 2)
+    (name, symbol, argtypes, (args, smem, _)), = calls
+    assert (name, symbol) == ("screen_collision", "k13_launch")
+    a = args._obj
+    N = Tn * Jn * O
+    geo = kcol.k13_geometry(Wn, N, 50)
+    for f, t in zip(("shape_gens", "radius", "centers", "gens", "center", "env", "obs_mask"),
+                    ins):
+        assert getattr(a, f) == t.data_ptr(), f
+    for f, t in zip(("A_out", "d_out", "delta_out", "row", "mask"), out):
+        assert getattr(a, f) == t.data_ptr(), f
+    assert (a.W, a.N, a.TJ, a.O, a.B, a.K, a.quota, a.Kp, a.smem_sort) == (
+        Wn, N, Tn * Jn, O, Bn, 50, 2, geo.Kp, 1)
+    assert smem == geo.smem_bytes and a.sort is None
+    assert tuple(out[0].shape) == (Wn, 3, 36, 50) and out[3].dtype == torch.int32
+
+
+def test_k15_launcher_passes_its_parts(monkeypatch):
+    """The launcher hands K15 the links' egen / rad and u_both's three
+    tensors, c0 and the friction rounded once to float32, the sizes and the
+    shared memory; u_coef and center_coef stay views of the inputs."""
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import make_basis
+
+    calls = []
+    monkeypatch.setattr(reach, "launcher", _fake_launcher(calls))
+    monkeypatch.setattr(reach, "_stream", lambda t: None)
+    monkeypatch.setattr(reach, "launched", lambda *a: None)
+    monkeypatch.setattr(reach, "_require", lambda p, what, shape: p)
+    robot, cfg, basis = kinova_gen3(), ArmourConfig(num_time_steps=4), make_basis(7, 3)
+    Wn, Tn = 2, 4
+    links, u_both = bpz.zeros((Wn, Tn, J, 3), basis), bpz.zeros((Wn, 2, Tn, F), basis)
+    frs, torque = reach.reach_assembly(links, u_both, robot, cfg, basis)
+    (name, symbol, _, (args, smem, _)), = calls
+    assert (name, symbol) == ("reach_assembly", "k15_launch")
+    a = args._obj
+    assert (a.W, a.T, a.F, a.J3, a.B, a.E, a.sh0) == (Wn, Tn, F, 3 * J, B, E, 5 * 7)
+    assert smem == reach.k15_smem(F, 3 * J, B, E)
+    assert (a.le, a.lr) == (links.egen.data_ptr(), links.rad.data_ptr())
+    assert (a.shape_gens, a.radius) == (frs.shape_gens.data_ptr(), frs.radius.data_ptr())
+    assert frs.center_coef is links.coef
+    assert (a.uc, a.ue, a.ur) == (u_both.coef.data_ptr(), u_both.egen.data_ptr(),
+                                  u_both.rad.data_ptr())
+    assert a.torque_radius == torque.torque_radius.data_ptr()
+    assert torque.u_coef.data_ptr() == u_both.coef.data_ptr()
+    ub = cfg.ub
+    assert a.c0 == np.float32(ub.alpha * (ub.m_max - ub.m_min) * ub.eps)
+    assert list(a.friction)[:F] == [np.float32(x) for x in robot.friction[:F]]
+
+
+@pytest.mark.cuda
+def test_k15_matches_its_plain_version_on_the_card():
+    """K15 gives reach_assembly_plain's bits on the card, for the Kinova
+    and with an uncertain centre of mass (u_both from the K1 / K2 loops),
+    and the same bits on a second call; u_coef and center_coef are views of
+    K10's and K9's outputs.  torque_frs alone launches K15 with the FK
+    chain's links and gives the same bits; reduce_links alone refuses CUDA
+    tensors."""
+    from armour_tpu_torch import dynamics, kinematics
+    from armour_tpu_torch.jrs import build_jrs
+
+    dev = _card()
+    robot, cfg, basis, _ = _small_problem(dev)
+    rng = np.random.default_rng(2)
+    q = [torch.as_tensor(rng.uniform(-0.5, 0.5, (3, 7)), dtype=torch.float32, device=dev)
+         for _ in range(3)]
+    for rob in (robot, dataclasses.replace(robot, com_uncertainty=0.05)):
+        jrs = build_jrs(*q, rob, cfg, basis)
+        links = kinematics.forward_occupancy(jrs, rob, cfg, basis)
+        u_both = dynamics.rnea_pz_sets(jrs, rob, cfg, basis)
+        frs, tq = reach.reach_assembly(links, u_both, rob, cfg, basis)
+        frs2, tq2 = reach.reach_assembly(links, u_both, rob, cfg, basis)
+        frs_p, tq_p = dynamics.reach_assembly_plain(links, u_both, rob, cfg, basis)
+        t1 = dynamics.torque_frs(jrs, rob, cfg, basis)
+        with pytest.raises(ValueError, match="reach_assembly"):
+            kinematics.reduce_links(links, basis)
+        for got in (frs, frs2):
+            assert torch.equal(got.shape_gens, frs_p.shape_gens)
+            assert torch.equal(got.radius, frs_p.radius)
+            assert got.center_coef.data_ptr() == links.coef.data_ptr()
+        for got in (tq, tq2):
+            assert torch.equal(got.torque_radius, tq_p.torque_radius)
+            assert got.u_coef.data_ptr() == u_both.coef.data_ptr()
+        assert torch.equal(t1.torque_radius, tq_p.torque_radius)
+        assert torch.equal(t1.u_coef, tq_p.u_coef)
