@@ -1,18 +1,21 @@
 """Single typed configuration for the planner (counterpart of
-armour_tpu/config.py:30-181).
+armour_tpu/config.py).
 
 Every field and derived constant matches the JAX package's ArmourConfig;
-only `dtype` is a torch dtype.  Deriving a per-robot UltimateBound needs the
-numeric RNEA and the certified eigenvalue bounds, which this package does not
-carry yet: `ArmourConfig.for_robot(derive_ub=True)` and
-`derive_ultimate_bound` raise NotImplementedError.  The flagship Kinova runs
-with the default UltimateBound.
+only `dtype` is a torch dtype.  A per-robot UltimateBound comes from
+derive_ultimate_bound: the cached entry of models/ub_cache.json (this
+package's copy), or, with an explicit v_max or use_cache=False, the sampled
+eigenvalue bracket of the mass matrix (mass_eigenvalue_bracket, float64 on
+the CPU through rnea_numeric) and the certified bounds of certify.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 import math
+from pathlib import Path
 from typing import Tuple
 
 import torch
@@ -109,8 +112,10 @@ class ArmourConfig:
 
     @classmethod
     def for_robot(cls, robot, derive_ub: bool = True, **overrides) -> "ArmourConfig":
-        """Config with per-factor knobs sized to the robot.  derive_ub=True
-        needs derive_ultimate_bound, which this package does not carry yet."""
+        """Config with per-factor knobs sized to the robot (the default
+        k_range is the 7-DOF flagship's).  By default the UltimateBound is
+        derived for the robot (derive_ultimate_bound); pass derive_ub=False
+        or an explicit ub= to skip."""
         if "k_range" not in overrides:
             overrides["k_range"] = tuple([math.pi / 48] * robot.num_factors)
         if derive_ub and "ub" not in overrides:
@@ -118,13 +123,112 @@ class ArmourConfig:
         return cls(**overrides)
 
 
-def derive_ultimate_bound(robot, **kwargs) -> UltimateBound:
-    """Per-robot UltimateBound (armour_tpu/config.py:261-332).  It needs the
-    numeric RNEA and the certified mass-matrix bounds, which are not ported
-    yet."""
-    raise NotImplementedError(
-        "derive_ultimate_bound needs rnea_numeric and certify, which the "
-        "PyTorch port does not carry yet; pass ub= explicitly")
+def mass_eigenvalue_bracket(robot, n_samples: int = 512, seed: int = 0,
+                            margin: float = 0.1, refine_steps: int = 12):
+    """(m_min, m_max) bracket of lambda(M(q)) over the joint-limit box
+    (armour_tpu/config.py:201-253), a heuristic: the extremes of n_samples
+    seeded samples, the 8 worst of each refined by 12 steps of projected
+    gradient descent on lambda_min (ascent on lambda_max), then shrunk /
+    grown by `margin`.  The gradient is the Rayleigh quotient's of the
+    frozen extremal eigenvector, by torch.autograd; float64 on the CPU."""
+    import numpy as np
+
+    from .rnea_numeric import mass_matrix
+
+    rng = np.random.default_rng(seed)
+    lo = np.maximum(np.asarray(robot.position_limits_lb), -math.pi)
+    hi = np.minimum(np.asarray(robot.position_limits_ub), math.pi)
+    qs = torch.as_tensor(rng.uniform(lo, hi, (n_samples, robot.num_factors)),
+                         dtype=torch.float64)
+    lo_t = torch.as_tensor(lo, dtype=torch.float64)
+    hi_t = torch.as_tensor(hi, dtype=torch.float64)
+
+    def eig_ends(q):
+        e = torch.linalg.eigvalsh(mass_matrix(robot, q))
+        return e[..., 0], e[..., -1]
+
+    def refine(q, sign):
+        for _ in range(refine_steps):
+            with torch.no_grad():
+                _, V = torch.linalg.eigh(mass_matrix(robot, q))
+                v = V[..., 0] if sign < 0 else V[..., -1]
+            qq = q.detach().requires_grad_(True)
+            rq = torch.einsum("...i,...ij,...j->...", v, mass_matrix(robot, qq), v)
+            (g,) = torch.autograd.grad(rq.sum(), qq)
+            q = torch.clamp(q - sign * 0.1 * g, lo_t, hi_t)
+        with torch.no_grad():
+            a, b = eig_ends(q)
+        return a if sign < 0 else b
+
+    with torch.no_grad():
+        e_lo, e_hi = eig_ends(qs)
+    worst_lo = qs[torch.argsort(e_lo, stable=True)[:8]]
+    worst_hi = qs[torch.argsort(-e_hi, stable=True)[:8]]
+    r_lo, r_hi = refine(worst_lo, -1), refine(worst_hi, +1)
+    m_lo = min(float(e_lo.min()), float(r_lo.min()))
+    m_hi = max(float(e_hi.max()), float(r_hi.max()))
+    m_min = m_lo * (1.0 - margin)
+    m_max = m_hi * (1.0 + margin)
+    if not m_min > 0.0:
+        raise ValueError("mass matrix must be positive definite")
+    return m_min, m_max
+
+
+def derive_ultimate_bound(robot, v_max: float = None, alpha: float = 10.0,
+                          k_r: float = 5.0, n_samples: int = 512,
+                          seed: int = 0, margin: float = 0.1,
+                          qde_fraction: float = 0.4,
+                          use_cache: bool = True,
+                          return_provenance: bool = False) -> UltimateBound:
+    """Per-robot UltimateBound (armour_tpu/config.py:261-332).
+
+    V_max is a controller design knob.  Without one, eps is chosen first,
+
+        eps = min(sqrt(2 * 1e-2 / m_min), qde_fraction * min(speed_limits) / 2),
+
+    and V_max co-derived as 0.5 * m_min * eps^2; such results are cached per
+    robot name in models/ub_cache.json and read from there.  m_min is the
+    certified bound (certify.certified_m_min) where it is at least 0.6 of the
+    sampled bracket's, else the sampled heuristic; m_max the sampled
+    bracket's.  return_provenance adds the dict of how m_min was chosen."""
+    if use_cache and v_max is None:
+        cached = _ub_cache().get(_ub_cache_key(robot, alpha, k_r, n_samples,
+                                               seed, margin, qde_fraction))
+        if cached is not None:
+            fields = {f.name for f in dataclasses.fields(UltimateBound)}
+            ub = UltimateBound(**{k: v for k, v in cached.items() if k in fields})
+            return (ub, cached.get("provenance")) if return_provenance else ub
+
+    from .certify import certified_m_max, certified_m_min
+
+    m_min, m_max = mass_eigenvalue_bracket(robot, n_samples, seed, margin)
+    m_sampled = m_min
+    m_cert = certified_m_min(robot, max_boxes=600)
+    certified = m_cert >= 0.6 * m_min
+    if certified:
+        m_min = m_cert
+    if v_max is None:
+        eps = min(math.sqrt(2.0 * 1e-2 / m_min),
+                  qde_fraction * float(min(robot.speed_limits)) / 2.0)
+        v_max = 0.5 * m_min * eps * eps
+    ub = UltimateBound(alpha=alpha, v_max=v_max, m_max=m_max, m_min=m_min, k_r=k_r)
+    if not return_provenance:
+        return ub
+    return ub, {"certified": bool(certified), "m_cert": float(m_cert),
+                "m_min_sampled": float(m_sampled),
+                "m_max_cert": float(certified_m_max(robot)),
+                "m_max_sampled": float(m_max)}
+
+
+def _ub_cache_key(robot, alpha, k_r, n_samples, seed, margin, qde_fraction):
+    return (f"{robot.name}|a{alpha}|kr{k_r}|n{n_samples}|s{seed}|m{margin}"
+            f"|f{qde_fraction}")
+
+
+@functools.lru_cache(maxsize=None)
+def _ub_cache() -> dict:
+    p = Path(__file__).parent / "models" / "ub_cache.json"
+    return json.loads(p.read_text()) if p.exists() else {}
 
 
 DEFAULT_CONFIG = ArmourConfig()

@@ -20,6 +20,7 @@ import torch
 from .collision import Hyperplanes, ObstacleSet, ScreenedCollision
 from .config import ArmourConfig, UltimateBound
 from .dynamics import TorqueFRS
+from .grasp import ContactWrenchFRS, GraspFRS
 from .kinematics import LinkFRS
 from .pz.bpz import BPZ
 from .robot import RobotModel
@@ -59,8 +60,17 @@ def config_from_fields(fields: Mapping) -> ArmourConfig:
     return ArmourConfig(**kw)
 
 
+def ultimate_bound_from_fields(fields) -> UltimateBound:
+    """UltimateBound from the JAX UltimateBound (or a mapping of its
+    fields)."""
+    names = [f.name for f in dataclasses.fields(UltimateBound)]
+    return UltimateBound(**{n: float(fields[n] if isinstance(fields, Mapping)
+                                     else getattr(fields, n)) for n in names})
+
+
 def robot_from_fields(fields: Mapping) -> RobotModel:
-    """RobotModel from the JAX robot's fields (numpy arrays stay numpy)."""
+    """RobotModel from the JAX robot's fields (numpy arrays stay numpy):
+    the flagship or a zoo robot (models/zoo.py)."""
     names = {f.name for f in dataclasses.fields(RobotModel)}
     kw = {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
           for k, v in fields.items() if k in names}
@@ -120,3 +130,14 @@ def planref_from_numpy(q0, qd0, qdd0, k_act, prev_q0, prev_qd0, prev_qdd0, prev_
                        dtype=torch.float64, device="cpu") -> PlanRef:
     return PlanRef(*(_t(x, dtype, device) for x in
                      (q0, qd0, qdd0, k_act, prev_q0, prev_qd0, prev_qdd0, prev_k_act)))
+
+
+def grasp_frs_from_numpy(g_coef, g_rad, dtype=torch.float64, device="cpu") -> GraspFRS:
+    return GraspFRS(g_coef=_t(g_coef, dtype, device), g_rad=_t(g_rad, dtype, device))
+
+
+def contact_wrench_from_numpy(f_nom, n_nom, f_int, n_int, dtype=torch.float64,
+                              device="cpu") -> ContactWrenchFRS:
+    """ContactWrenchFRS from four (coef, egen, rad) triples."""
+    return ContactWrenchFRS(*(bpz_from_numpy(*p, dtype=dtype, device=device)
+                              for p in (f_nom, n_nom, f_int, n_int)))

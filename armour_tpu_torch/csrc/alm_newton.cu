@@ -12,7 +12,8 @@
 //   step = H^-1 g (7x7 Cholesky),  m0 = cost + sum_r [active] z_r^2 / (2 rho)
 //   feas = all(c <= thr),  and the cost itself (the solve loop's tracker, K14)
 //
-// over the M = 2 T F + K + 8 F rows, without writing the Jacobian.
+// over the M = 2 T F + TG + K + 8 F rows (TG = 3 T grasp rows in a grasp
+// plan, else 0), without writing the Jacobian.
 //
 // Bound on the H100 (flagship, W = 64, S = 4): a call must read each
 // world's centre polynomials (1.29 MB), torque polynomials (0.43 MB) and
@@ -32,7 +33,8 @@
 //       the row's dot products for all seeds.  Centre rows go to the L2
 //       scratch pd [W, S, T J, 3, 1 + F] (22 MB at W = 64, S = 4; a cell's
 //       3 (1 + F) values are contiguous for (b)'s gathers).  Torque rows
-//       become their two clipped stack rows (+u - hi, then -u - hi); a
+//       become their two clipped stack rows (+u - hi, then -u - hi), grasp
+//       rows their one (g + g_rad); a
 //       thread per (seed, row) forms their terms of g (F), H's lower
 //       triangle (F (F + 1) / 2), the penalty and the violation count,
 //       summed over the tile by a fixed shuffle tree.
@@ -91,8 +93,8 @@ __device__ __forceinline__ void k7_terms(float c_raw, const float* J, float lam,
   acc[NF + NT + 1] += (c <= thr) ? 0.0f : 1.0f;
 }
 
-// (a) polynomial rows: [0, 3 TJ) link centres, [3 TJ, 3 TJ + TF) torques;
-// SM >= S seed slots
+// (a) polynomial rows: [0, 3 TJ) link centres, [3 TJ, 3 TJ + TF) torques,
+// [3 TJ + TF, 3 TJ + TF + TG) grasp rows; SM >= S seed slots
 template <int NF, int R, int SM>
 __global__ void __launch_bounds__(K7A_THREADS) k7_rows_kernel(const AlmArgs a, float* pd,
                                                              float* part, int t_first,
@@ -108,13 +110,14 @@ __global__ void __launch_bounds__(K7A_THREADS) k7_rows_kernel(const AlmArgs a, f
   float* tile = basis + S * NV * P;            // [R][P]; then the torque values [R][S][NV]
   unsigned char* degs = (unsigned char*)(tile + R * P);   // [B][ALM_MAX_F]
   const int w = blockIdx.y, t = blockIdx.x, tid = threadIdx.x;
-  const int NC = 3 * TJ, NR = NC + TF, r0 = t * R;
+  const int NC = 3 * TJ, NT = NC + TF, NR = NT + a.TG, r0 = t * R;
 
   const bool vec = B % 4 == 0;
   for (int row = tid >> 5; row < R; row += K7A_THREADS / 32) {
     const int rr = r0 + row;
-    const float* src = rr < NC ? a.center + ((long long)w * NC + rr) * B
-                               : a.u_coef + ((long long)w * TF + rr - NC) * B;
+    const float* src = rr < NC   ? a.center + ((long long)w * NC + rr) * B
+                       : rr < NT ? a.u_coef + ((long long)w * TF + rr - NC) * B
+                                 : a.g_coef + ((long long)w * a.TG + rr - NT) * B;
     float* dst = tile + row * P;
     if (vec && rr < NR) {
       for (int b4 = tid & 31; b4 < B / 4; b4 += 32) alm_cp16(dst + 4 * b4, src + 4 * b4);
@@ -184,16 +187,17 @@ __global__ void __launch_bounds__(K7A_THREADS) k7_rows_kernel(const AlmArgs a, f
   }
   __syncthreads();
 
-  // a thread per (seed, row): the terms of the row's two clipped stack rows,
-  // summed over the tile's rows by a fixed shuffle tree within each warp
-  // (SEG rows of one seed), then the warps of a seed in order
+  // a thread per (seed, row): the terms of the row's clipped stack rows (two
+  // for a torque row, one for a grasp row), summed over the tile's rows by a
+  // fixed shuffle tree within each warp (SEG rows of one seed), then the
+  // warps of a seed in order
   for (int base = 0; base < S * R; base += K7A_THREADS) {
     const int idx = base + tid, s = idx / R, row = idx - R * s;
     float acc[NACC];
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
     const int rr = r0 + row;
-    if (s < S && rr >= NC && rr < NR) {
+    if (s < S && rr >= NC && rr < NT) {
       const int r = rr - NC;
       const float* lam = a.lam + ((long long)w * S + s) * a.M;
       const float rho = a.rho[(long long)w * S + s];
@@ -206,6 +210,15 @@ __global__ void __launch_bounds__(K7A_THREADS) k7_rows_kernel(const AlmArgs a, f
 #pragma unroll
       for (int f = 0; f < NF; ++f) J[f] = -v[1 + f];
       k7_terms<NF>(-v[0] - hi, J, lam[TF + r], rho, a.thr_torque, acc);
+    } else if (s < S && rr >= NT && rr < NR) {
+      const int r = rr - NT;
+      const float* lam = a.lam + ((long long)w * S + s) * a.M;
+      const float* v = val + (row * S + s) * NV;
+      float J[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) J[f] = v[1 + f];
+      k7_terms<NF>(v[0] + a.g_rad[(long long)w * a.TG + r], J, lam[2 * TF + r],
+                   a.rho[(long long)w * S + s], a.thr_grasp, acc);
     }
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
@@ -248,7 +261,7 @@ __global__ void __launch_bounds__(RB) k7_collision_kernel(const AlmArgs a, const
   if (live) alm_collision_at<G>(a, w, r, p0, p1, p2, m, comb, sign);
   const bool real = live && a.mask[(long long)w * K + r] != 0;
   const float* Aw = a.A + (long long)w * 3 * C * K;
-  const int row = 2 * a.TF + r;
+  const int row = 2 * a.TF + a.TG + r;
 #pragma unroll
   for (int s = 0; s < G; ++s) {
     if (s >= S) break;
@@ -308,7 +321,7 @@ __global__ void __launch_bounds__(K7C_THREADS) k7_finish_kernel(const AlmArgs a,
     float gf = 0.0f, hf = 0.0f, pe = 0.0f, co = 0.0f;
     for (int grp = 0; grp < 8; ++grp) {
       const float c = alm_clip(c8[grp]);
-      const float z = lam[2 * a.TF + a.K + grp * NF + f] + rho * c;
+      const float z = lam[2 * a.TF + a.TG + a.K + grp * NF + f] + rho * c;
       const bool act = z > 0.0f;
       gf += j8[grp] * (act ? z : 0.0f);
       hf += (j8[grp] * (act ? rho : 0.0f)) * j8[grp];
@@ -418,7 +431,7 @@ static int k7_rows_s(const AlmArgs* a, float* pd, float* part, int t_first, int 
   cudaError_t err = cudaFuncSetAttribute(k7_rows_kernel<NF, R, SM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned int)((3 * a->TJ + a->TF + R - 1) / R), (unsigned int)a->W);
+  dim3 grid((unsigned int)((3 * a->TJ + a->TF + a->TG + R - 1) / R), (unsigned int)a->W);
   k7_rows_kernel<NF, R, SM><<<grid, K7A_THREADS, smem, (cudaStream_t)stream>>>(
       *a, pd, part, t_first, npart);
   return (int)cudaGetLastError();
@@ -457,7 +470,7 @@ static int k7_collision(const AlmArgs* a, const float* pd, float* part, int tile
 
 template <int NF>
 static int k7_launch_nf(const AlmArgs* a, float* pd, float* part, int R, int RB, void* stream) {
-  const int NR = 3 * a->TJ + a->TF;
+  const int NR = 3 * a->TJ + a->TF + a->TG;
   const int tiles_a = (NR + R - 1) / R, t_first = 3 * a->TJ / R;
   const int tiles_b = (a->K + RB - 1) / RB;
   const int npart = tiles_a - t_first + tiles_b;
@@ -490,6 +503,7 @@ static int k7_launch_nf(const AlmArgs* a, float* pd, float* part, int R, int RB,
 extern "C" int k7_launch(const AlmArgs* a, float* pd, float* part, int R, int RB, void* stream) {
   if (a->S < 1 || a->S > K7_MAXS || a->Q != a->S) return (int)cudaErrorInvalidValue;
   switch (a->F) {
+    case 6: return k7_launch_nf<6>(a, pd, part, R, RB, stream);
     case 7: return k7_launch_nf<7>(a, pd, part, R, RB, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -5,9 +5,12 @@
 //
 // The stack is the one of nlp.py:constraint_stack, in its row order:
 //
-//   [torque_hi (TF); torque_lo (TF); collision (K); state (8F)]
+//   [torque_hi (TF); torque_lo (TF); grasp (TG); collision (K); state (8F)]
 //
 //   torque    u = u_coef[row] . phi(k),  c = +-u - hi,  dc/dk = +-u_coef[row] . dphi(k)
+//   grasp     the contact rows of a grasp plan (TG = 3 T, else 0; grasp.py):
+//             c = g_coef[row] . phi(k) + g_rad[row],  dc/dk = g_coef[row] . dphi(k),
+//             the torque rows' arithmetic without the limit
 //   collision K4's rule (collision_rows.cu) at the link centre p = center[cell] . phi(k)
 //             of the row's (time, link) cell, plus collision_search_margin
 //   state     the position / velocity extrema over the whole trajectory
@@ -38,6 +41,8 @@
 struct AlmArgs {
   const float* u_coef;              // [W, TF, B] nominal torque polynomials
   const float* u_hi;                // [W, TF] torque limit minus the robust radius
+  const float* g_coef;              // [W, TG, B] grasp row polynomials (row t 3 + sep/slip/tip)
+  const float* g_rad;               // [W, TG] their non-k radius
   const float* center;              // [W, TJ * 3, B] link-centre polynomials
   const float* A;                   // [W, 3, C, K] screened rows' unit normals
   const float* d;                   // [W, C, K]
@@ -59,8 +64,9 @@ struct AlmArgs {
   float* H;                         // K7 [W, Q, F, F] or null
   float* c;                         // K8 [W, Q, M] or null
   float* cost;                      // [W, Q] the cost at each query, or null
-  float* vmax;                      // K8's max mode: [W, Q, 2] torque and state maxima
+  float* vmax;                      // K8's max mode: [W, Q, 3] torque, state and grasp maxima
   int W, Q, S, M, TF, TJ, C, K, B, F;
+  int TG;                           // grasp rows, 3 T or 0
   int armtd;                        // 1: the constant-acceleration family
   int maxima;                       // 1: K8's max mode (max_violations' torque and state rows)
   float cost_scale;                 // cfg.cost_scale
@@ -68,7 +74,7 @@ struct AlmArgs {
   float qb0, qb1, qb2, qb3;         // q_des's Bernstein weights at t_plan (b3+b4+b5 last)
   float two_pi, pi;                 // the wrap's constants, as float32
   float dur;                        // duration
-  float thr_torque, thr_col, thr_state, col_margin;
+  float thr_torque, thr_col, thr_state, col_margin, thr_grasp;
   float tp, dts;                    // ARMTD: t_plan and duration - t_plan
   float g_tp, g_ts;                 // ARMTD: dq/dk_actual at t_plan and at duration
   unsigned char degs[ALM_MAX_B * ALM_MAX_F];   // [B, F] monomial degrees

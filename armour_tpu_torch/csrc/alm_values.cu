@@ -13,12 +13,13 @@
 //
 // The max mode (maxima set; nlp.py:max_violations, armour_tpu/nlp.py:258-297)
 // writes instead, per query, vmax = (max_r |u_r| - hi_r over the torque rows,
-// the max of the 8 F state rows against the untightened limits): the torque
+// the max of the 8 F state rows against the untightened limits, the max of
+// the grasp rows; -BIG for a group the plan does not have): the torque
 // maximum is the larger of K8's two rows +-u - hi, unclipped, so no
-// operation is added to u.  Step (a) tiles the torque rows only (the link
-// centres are neither read nor formed, p is not used), step (b) does not
-// run, lam, rho and seed are not read, and value, feas and cost are not
-// written.
+// operation is added to u.  Step (a) tiles the torque and grasp rows only
+// (the link centres are neither read nor formed, p is not used), step (b)
+// does not run, lam, rho and seed are not read, and value, feas and cost
+// are not written.
 //
 // Bound on the H100 (flagship, W = 64, Q = S A = 12): the world's centre
 // and torque polynomials and screened rows are read once, ~0.30 GB, ~0.09
@@ -67,8 +68,10 @@ __device__ __forceinline__ float k8_row(float c_raw, float lam, float rho, float
   return c;
 }
 
-// (a) polynomial rows: [0, 3 TJ) link centres, [3 TJ, 3 TJ + TF) torques;
-// tile t holds rows [row0 + t R, row0 + t R + R) (row0 = 3 TJ in the max mode)
+// (a) polynomial rows: [0, 3 TJ) link centres, [3 TJ, 3 TJ + TF) torques,
+// [3 TJ + TF, 3 TJ + TF + TG) grasp rows; tile t holds rows [row0 + t R,
+// row0 + t R + R) (row0 = 3 TJ in the max mode, where (pen, cnt) hold the
+// torque and the grasp rows' maxima)
 template <int NF, int R>
 __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, float* p, int Qp,
                                                              float* part, int ntiles, int row0) {
@@ -84,7 +87,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
   unsigned char* degs = (unsigned char*)(cnt + K8_MAXQ * R);   // [B][ALM_MAX_F]
   const int w = blockIdx.y, t = blockIdx.x, tid = threadIdx.x;
   const int Q = a.Q, B = a.B, TJ = a.TJ, TF = a.TF;
-  const int NC = 3 * TJ, NR = NC + TF, r0 = row0 + t * R;
+  const int NC = 3 * TJ, NT = NC + TF, NR = NT + a.TG, r0 = row0 + t * R;
 
   // a warp per staged row, lanes along it: 16-byte asynchronous copies
   // when rows are 16-byte aligned (B % 4 == 0), so that phi is formed while
@@ -92,8 +95,9 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
   const bool vec = B % 4 == 0;
   for (int row = tid >> 5; row < R; row += K8A_THREADS / 32) {
     const int rr = r0 + row;
-    const float* src = rr < NC ? a.center + ((long long)w * NC + rr) * B
-                               : a.u_coef + ((long long)w * TF + rr - NC) * B;
+    const float* src = rr < NC   ? a.center + ((long long)w * NC + rr) * B
+                       : rr < NT ? a.u_coef + ((long long)w * TF + rr - NC) * B
+                                 : a.g_coef + ((long long)w * a.TG + rr - NT) * B;
     float* dst = tile + row * P;
     if (vec && rr < NR) {
       for (int b4 = tid & 31; b4 < B / 4; b4 += 32) alm_cp16(dst + 4 * b4, src + 4 * b4);
@@ -138,13 +142,22 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
   for (int j = 0; j < QPT; ++j) {
     const int q = slot + j * SLOTS;
     if (q >= K8_MAXQ) continue;
-    // max mode: pe holds the rows' maximum (-inf is its identity)
-    float pe = maxima ? -INFINITY : 0.0f, co = 0.0f;
+    // max mode: pe holds the torque rows' maximum, co the grasp rows' (-inf
+    // is their identity)
+    float pe = maxima ? -INFINITY : 0.0f, co = maxima ? -INFINITY : 0.0f;
     if (q < Q && rr < NC) {
       p[((long long)(w * Qp + q) * 3 + rr % 3) * TJ + rr / 3] = s[j];
-    } else if (q < Q && rr < NR && maxima) {
+    } else if (q < Q && rr < NT && maxima) {
       const float hi = a.u_hi[(long long)w * TF + rr - NC];
       pe = alm_max(s[j] - hi, -s[j] - hi);
+    } else if (q < Q && rr < NR && maxima) {
+      co = s[j] + a.g_rad[(long long)w * a.TG + rr - NT];
+    } else if (q < Q && rr >= NT && rr < NR) {
+      const int r = rr - NT, sd = a.seed[q];
+      const float c1 = k8_row(s[j] + a.g_rad[(long long)w * a.TG + r],
+                              a.lam[((long long)w * a.S + sd) * a.M + 2 * TF + r],
+                              a.rho[(long long)w * a.S + sd], a.thr_grasp, pe, co);
+      if (a.c != nullptr) a.c[((long long)w * Q + q) * a.M + 2 * TF + r] = c1;
     } else if (q < Q && rr < NR) {
       const int r = rr - NC, sd = a.seed[q];
       const float* lam = a.lam + ((long long)w * a.S + sd) * a.M;
@@ -170,7 +183,7 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
     float pe = pen[q * R + 8 * ch], co = cnt[q * R + 8 * ch];
     for (int i = 8 * ch + 1; i < r1; ++i) {
       pe = maxima ? alm_max(pe, pen[q * R + i]) : pe + pen[q * R + i];
-      co += cnt[q * R + i];
+      co = maxima ? alm_max(co, cnt[q * R + i]) : co + cnt[q * R + i];
     }
     chunk[tid * 2] = pe;
     chunk[tid * 2 + 1] = co;
@@ -180,7 +193,8 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
     float pe = chunk[tid * NCH * 2], co = chunk[tid * NCH * 2 + 1];
     for (int ch = 1; ch < NCH; ++ch) {
       pe = maxima ? alm_max(pe, chunk[(tid * NCH + ch) * 2]) : pe + chunk[(tid * NCH + ch) * 2];
-      co += chunk[(tid * NCH + ch) * 2 + 1];
+      co = maxima ? alm_max(co, chunk[(tid * NCH + ch) * 2 + 1])
+                  : co + chunk[(tid * NCH + ch) * 2 + 1];
     }
     float* o = part + (((long long)w * ntiles + t) * Q + tid) * 2;
     o[0] = pe;
@@ -204,7 +218,7 @@ __global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs
     // queries q0 + g >= Q read the scratch's padding; their results are dropped
     alm_collision<G>(a, w, r, p + (long long)(w * Qp + q0) * 3 * a.TJ, m, nullptr, nullptr);
     const bool real = a.mask[(long long)w * K + r] != 0;
-    const int row = 2 * a.TF + r;
+    const int row = 2 * a.TF + a.TG + r;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (g >= nq) continue;
@@ -226,8 +240,8 @@ __global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs
 }
 
 // (c) the finish: partials in tile order, then the state rows and the cost;
-// in the max mode the torque maxima of the nread row tiles and the state
-// rows' maximum
+// in the max mode the torque and grasp maxima of the nread row tiles and
+// the state rows' maximum
 template <int NF>
 __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a, const float* part,
                                                                int ntiles, int nread) {
@@ -245,16 +259,22 @@ __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a,
     __syncthreads();
     if (tid >= Q) return;
     const float* pq = part + ((long long)w * ntiles * Q + tid) * 2;
-    float vt = -ALM_BIG;            // without torque rows (nread = 0)
+    float vt = -ALM_BIG, vg = -ALM_BIG;   // without torque / grasp rows
     if (nread > 0) {
-      vt = pq[0];
-      for (int t = 1; t < nread; ++t) vt = alm_max(vt, pq[(long long)t * Q * 2]);
+      float mt = pq[0], mg = pq[1];
+      for (int t = 1; t < nread; ++t) {
+        mt = alm_max(mt, pq[(long long)t * Q * 2]);
+        mg = alm_max(mg, pq[(long long)t * Q * 2 + 1]);
+      }
+      if (a.TF > 0) vt = mt;
+      if (a.TG > 0) vg = mg;
     }
     float vs = st[tid * NF];
     for (int f = 1; f < NF; ++f) vs = alm_max(vs, st[tid * NF + f]);
-    float* o = a.vmax + ((long long)w * Q + tid) * 2;
+    float* o = a.vmax + ((long long)w * Q + tid) * 3;
     o[0] = vt;
     o[1] = vs;
+    o[2] = vg;
     return;
   }
   if (tid < Q * NF) {
@@ -264,7 +284,7 @@ __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a,
     float c8[8], j8[8], pe = 0.0f, co = 0.0f;
     alm_state_rows(a, a.limits, w, f, a.k[((long long)w * Q + q) * NF + f], c8, j8);
     for (int grp = 0; grp < 8; ++grp) {
-      const int row = 2 * a.TF + a.K + grp * NF + f;
+      const int row = 2 * a.TF + a.TG + a.K + grp * NF + f;
       const float c = k8_row(c8[grp], lam[row], rho, a.thr_state, pe, co);
       if (a.c != nullptr) a.c[((long long)w * Q + q) * a.M + row] = c;
     }
@@ -331,7 +351,7 @@ template <int NF>
 static int k8_launch_nf(const AlmArgs* a, float* p, float* part, int R, int G, void* stream) {
   const int Qp = (a->Q + G - 1) / G * G;
   const int row0 = a->maxima ? 3 * a->TJ : 0;
-  const int tiles_a = (3 * a->TJ + a->TF - row0 + R - 1) / R;
+  const int tiles_a = (3 * a->TJ + a->TF + a->TG - row0 + R - 1) / R;
   const int ntiles = a->maxima ? tiles_a : tiles_a + (a->K + K8B_THREADS - 1) / K8B_THREADS;
   int err = 0;
   if (tiles_a > 0) {
@@ -363,12 +383,13 @@ static int k8_launch_nf(const AlmArgs* a, float* p, float* part, int R, int G, v
 }
 
 // p: scratch [W, Qp, 3, TJ] (Qp = Q rounded up to G; null in the max mode);
-// part: scratch [W, ntiles, Q, 2] (max mode: ntiles = the torque rows'
-// tiles); R: polynomial rows per CTA (8, 16, 32, 64); G: queries per
+// part: scratch [W, ntiles, Q, 2] (max mode: ntiles = the torque and grasp
+// rows' tiles); R: polynomial rows per CTA (8, 16, 32, 64); G: queries per
 // collision thread (1, 2, 4, 6, 8, 12, 16); Q <= 16.
 extern "C" int k8_launch(const AlmArgs* a, float* p, float* part, int R, int G, void* stream) {
   if (a->Q > K8_MAXQ) return (int)cudaErrorInvalidValue;
   switch (a->F) {
+    case 6: return k8_launch_nf<6>(a, p, part, R, G, stream);
     case 7: return k8_launch_nf<7>(a, p, part, R, G, stream);
     default: return (int)cudaErrorInvalidValue;
   }

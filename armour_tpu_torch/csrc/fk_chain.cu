@@ -54,7 +54,7 @@
 
 #include "pz_ops.cuh"
 
-#define K9_MAXJ 8
+#define K9_MAXJ 9
 #define K9_SLOTS 4         // fk_r rows: three and a spare
 #define K9_THREADS 256     // threads of a block at most
 

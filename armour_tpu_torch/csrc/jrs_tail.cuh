@@ -15,7 +15,7 @@
 #pragma once
 #include <cuda_runtime.h>
 
-#define JRS_MAXJ 9          // joints + 1 (the end-effector identity)
+#define JRS_MAXJ 10         // joints + 1 (the end-effector identity)
 #define JRS_MAXF 8          // actuated factors
 
 // pz/interval.py's constants, Python doubles rounded once to float32

@@ -1,6 +1,6 @@
 // Per-element polynomial-zonotope arithmetic in shared memory, shared by
 // every PZ kernel: K1 (pz_matmul_linear.cu), K2 (pz_cross.cu), K9
-// (fk_chain.cu) and K10 (rnea_chain.cu).  Keeping one copy of the
+// (fk_chain.cu), K10 (rnea_chain.cu) and K16 (grasp_rows.cu).  Keeping one copy of the
 // arithmetic here is what keeps the op-level kernels and the fused chains
 // from drifting apart.
 //
@@ -726,6 +726,65 @@ __device__ void pz_cross(const PZCtx& c, PZMat a, PZMat b, PZMat out, float slop
   }
   pz_sync(c.g);
   pz_slop(c, out, 3, 1, slop);
+}
+
+// The coefficients and the radius of a * b for one entry (bpz._mul: the
+// pair-table bilinear product, armour_tpu/pz/bpz.py:120-170) by one warp,
+// lanes over the monomials: each coefficient a segment sum over the pairs
+// sorted by output monomial, in table order; the in-basis abs mass
+// |a_i||b_j| taken per pair and summed per monomial, then by the warp in
+// pz_mass_loop's order; then lane 0 the radius from the masses ma and mb
+// (S at [0], E at [1]), its terms in the plain version's order.
+__device__ __forceinline__ void pz_mul_coefs(const PZCtx& c, const float* a, const float* b,
+                                             const float* ma, const float* mb, float* out) {
+  const int B = c.B, rix = c.B + c.E, lane = c.g.rank & 31;
+  float ia = 0.0f;
+  for (int x = lane; x < B; x += 32) {
+    float s = 0.0f, i = 0.0f;
+    const int q1 = c.seg[x + 1];
+#pragma unroll 2
+    for (int q = c.seg[x]; q < q1; ++q) {
+      const float u = a[c.pi[q]], v = b[c.pj[q]];
+      s += u * v;
+      i += fabsf(u) * fabsf(v);
+    }
+    out[x] = s;
+    ia += i;
+  }
+  ia = pz_warp_sum(ia);
+  if (lane == 0) {
+    const float Sa = ma[0], Ea = ma[1], Sb = mb[0], Eb = mb[1];
+    const float ov = Sa * Sb - ia;
+    const float overflow = ov < 0.0f ? 0.0f : ov;    // torch.clamp(min=0): NaN stays
+    const float ar = a[rix], br = b[rix];
+    float rd = (Sa + Ea) * br + ar * (Sb + Eb);
+    rd = rd + ar * br;
+    rd = rd + Ea * (Sb - fabsf(b[0]));
+    rd = rd + (Sa - fabsf(a[0])) * Eb;
+    rd = rd + Ea * Eb;
+    out[rix] = rd + overflow;
+  }
+}
+
+// out[k] = a[k] * b[k] for n entries of vector views (bpz._mul), n <=
+// PZ_MAXMASS / 2: the masses of a's and b's entries, then a warp per entry
+// for its coefficients and radius (pz_mul_coefs), the group for the error
+// generators a.egen b0 + a0 b.egen, then the slop.
+__device__ void pz_mul(const PZCtx& c, PZMat a, PZMat b, PZMat out, int n, float slop) {
+  const int B = c.B, E = c.E;
+  const int warp = c.g.rank >> 5, nw = c.g.size >> 5;
+  pz_masses(c, a, n, 1, b, n, 1);
+  for (int k = warp; k < n; k += nw)
+    pz_mul_coefs(c, pz_at(a, k, 0), pz_at(b, k, 0), c.mass + 4 * k, c.mass + 4 * (n + k),
+                 pz_at(out, k, 0));
+  for (int it = c.g.rank; it < n * E; it += c.g.size) {
+    const int k = it / E, x = B + it - E * k;
+    const float* pa = pz_at(a, k, 0);
+    const float* pb = pz_at(b, k, 0);
+    pz_at(out, k, 0)[x] = pa[x] * pb[0] + pa[0] * pb[x];
+  }
+  pz_sync(c.g);
+  pz_slop(c, out, n, 1, slop);
 }
 
 // Component o of a x v at position x for a PZ 3-vector a (au = a[u],

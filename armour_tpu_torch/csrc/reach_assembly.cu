@@ -33,7 +33,7 @@
 
 #define K15_THREADS 64
 #define K15_MAXF 8
-#define K15_MAXJ3 24
+#define K15_MAXJ3 27
 
 struct K15Args {
   const float* uc;        // [W, 2, T, F, B] u_both coefficients
@@ -98,19 +98,21 @@ __global__ void __launch_bounds__(K15_THREADS) k15_kernel(const __grid_constant_
       s_sq[f] = k15_max(lo * lo, hi * hi);
     }
   } else {
-    const int r = tid - 32;
-    if (r < F) {                                        // the nominal radius of factor r
-      const float* ne = s_e + r * E;
-      float s = 0.0f;
-      for (int e = 0; e < E; ++e) s = s + fabsf(ne[e]);
-      s_nrad[r] = s_r[r] + s;
-    } else if (r < F + J3) {                            // link row l = (j, axis)
-      const int l = r - F;
-      const float* le = s_l + l * E;
-      float s = 0.0f;
-      for (int e = 0; e < a.sh0; ++e) s = s + fabsf(le[e]);
-      for (int e = a.sh0 + 3; e < E; ++e) s = s + fabsf(le[e]);
-      a.radius[wt * J3 + l] = a.lr[wt * J3 + l] + s;
+    // F + J3 <= 35 rows: a second round for lanes 0..2 at J = 9
+    for (int r = tid - 32; r < F + J3; r += 32) {
+      if (r < F) {                                      // the nominal radius of factor r
+        const float* ne = s_e + r * E;
+        float s = 0.0f;
+        for (int e = 0; e < E; ++e) s = s + fabsf(ne[e]);
+        s_nrad[r] = s_r[r] + s;
+      } else {                                          // link row l = (j, axis)
+        const int l = r - F;
+        const float* le = s_l + l * E;
+        float s = 0.0f;
+        for (int e = 0; e < a.sh0; ++e) s = s + fabsf(le[e]);
+        for (int e = a.sh0 + 3; e < E; ++e) s = s + fabsf(le[e]);
+        a.radius[wt * J3 + l] = a.lr[wt * J3 + l] + s;
+      }
     }
   }
   __syncthreads();

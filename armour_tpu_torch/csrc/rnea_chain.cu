@@ -11,8 +11,12 @@
 // interval: P <= 2) that share the kinematics, and the backward recursion
 // accumulates the wrenches (f, n), rotated by R_{i+1}, and reads
 // u_i = e_i . n + armature qdda_i + damping qd_i.  Writes u [W, P, T, F]
-// (coef, egen, rad); torque_frs's assembly (disturbance interval, rho,
-// nominal reduce, radius) stays in torch.
+// (coef, egen, rad), and, when asked (wj >= 0), the wrench (f, n) after
+// joint wj [W, P, T, 3] (dynamics.py:268-279: the contact wrench of the
+// grasp rows, kernel K16), from the same pass.  Joints past F (the
+// trailing fixed joints of the dumbbell payload, J = 9, F = 7) have no
+// motion axis (rv = 0) and read a zero row for qd / qda / qdda, as
+// dynamics.py:142-151 pads them.
 //
 // Not taken here: an uncertain centre of mass (robot.com_uncertainty > 0
 // with an interval set), whose F_i and N_i need PZ x PZ crosses with the
@@ -58,7 +62,7 @@
 
 #include "pz_ops.cuh"
 
-#define K10_MAXJ 8
+#define K10_MAXJ 9
 #define K10_MAXP 2
 #define K10_SLOTS 5        // carry columns: four and a spare
 #define K10_TEMPS 3
@@ -67,7 +71,7 @@ struct K10Args {
   const float* rc;   // R coef [W, T, J+1, 3, 3, B]
   const float* re;
   const float* rr;
-  const float* qc;   // qd coef [W, T, J, B]
+  const float* qc;   // qd coef [W, T, F, B]
   const float* qe;
   const float* qr;
   const float* ac;   // qda
@@ -76,12 +80,20 @@ struct K10Args {
   const float* dc;   // qdda
   const float* de;
   const float* dr;
-  float* uc;         // u coef [W, P, T, J, B]
+  const float* zero; // B + E + 1 zeros: qd, qda, qdda of a joint past F
+  float* uc;         // u coef [W, P, T, F, B]
   float* ue;
   float* ur;
+  float* wfc;        // wrench f coef [W, P, T, 3, B] (wj >= 0)
+  float* wfe;
+  float* wfr;
+  float* wnc;        // wrench n
+  float* wne;
+  float* wnr;
   float* fn;         // scratch: F_i, N_i [grid, NG, J, P, 2, 3, ld] of each resident group
   long long n;       // elements, W T
-  int T, J, P;
+  int T, J, F, P;
+  int wj;            // the wrench's joint, or -1
   float slop, gravity;
   float trans[K10_MAXJ + 1][3];
   float com[K10_MAXJ][3];
@@ -181,17 +193,27 @@ __global__ void __launch_bounds__(G > 128 ? G : 128, G > 128 ? 1 : 3)
       const PZLinA Rt = {rl, ldl, 3 * ldl};
       rotate(Rt, 4);
       const PZMat WD = col(0), WV = col(1), WA = col(2), LA = col(3);
-      const long long q0 = e * J + i;
       const int ax = args.ax[i];
       const float sg = args.sgn[i], rv = args.rv[i];
+      const float *qdc, *qde, *qdr, *ddc, *dde, *ddr, *adc, *ade, *adr;
+      if (i < args.F) {
+        const long long q0 = e * args.F + i;
+        qdc = args.qc + q0 * B; qde = args.qe + q0 * E; qdr = args.qr + q0;
+        ddc = args.dc + q0 * B; dde = args.de + q0 * E; ddr = args.dr + q0;
+        adc = args.ac + q0 * B; ade = args.ae + q0 * E; adr = args.ar + q0;
+      } else {
+        qdc = ddc = adc = args.zero;
+        qde = dde = ade = args.zero + B;
+        qdr = ddr = adr = args.zero + B + E;
+      }
       // w += e qd ; wdot += w_aux x (e qd) + e qdda ; w_aux += e qda
       pz_zero(c, TB, 3);
-      pz_add_scaled_axis(c, TB, ax, sg, rv, args.qc + q0 * B, args.qe + q0 * E, args.qr + q0);
+      pz_add_scaled_axis(c, TB, ax, sg, rv, qdc, qde, qdr);
       pz_add(c, WV, TB, WV, 3, 1);
       pz_cross(c, WA, TB, TA, args.slop);
       pz_add(c, WD, TA, WD, 3, 1);
-      pz_add_scaled_axis(c, WD, ax, sg, rv, args.dc + q0 * B, args.de + q0 * E, args.dr + q0);
-      pz_add_scaled_axis(c, WA, ax, sg, rv, args.ac + q0 * B, args.ae + q0 * E, args.ar + q0);
+      pz_add_scaled_axis(c, WD, ax, sg, rv, ddc, dde, ddr);
+      pz_add_scaled_axis(c, WA, ax, sg, rv, adc, ade, adr);
       // f_arg = lin_acc + (wdot x com_i + w x (w_aux x com_i)) -> TA
       const float* cm = com + 3 * i;
       pz_cross_pz_const(c, WA, cm, TA);
@@ -220,12 +242,14 @@ __global__ void __launch_bounds__(G > 128 ? G : 128, G > 128 ? 1 : 3)
       pz_load_lin(c, rl, 9, args.rc + r0 * B, args.re + r0 * E, args.rr + r0);
       const PZLinA Rm = {rl, 3 * ldl, ldl};
       rotate(Rm, 2 * P);
-      const long long q0 = e * J + i;
+      // the torque of a joint past F is not written
+      const bool act = i < args.F, wrench = i == args.wj;
+      const long long q0 = act ? e * args.F + i : 0;
       const float* qdc = args.qc + q0 * B;
       const float* qde = args.qe + q0 * E;
       const float* ddc = args.dc + q0 * B;
       const float* dde = args.de + q0 * E;
-      const float qdr = args.qr[q0], ddr = args.dr[q0];
+      const float qdr = act ? args.qr[q0] : 0.0f, ddr = act ? args.dr[q0] : 0.0f;
       const int ax = args.ax[i];
       const float sg = args.sgn[i];
       const float sa = args.arm[i] * args.rv[i], sd = args.damp[i] * args.rv[i];
@@ -236,7 +260,8 @@ __global__ void __launch_bounds__(G > 128 ? G : 128, G > 128 ? 1 : 3)
         // u_i = (sgn n[ax] + arm rv qdda_i) + damp rv qd_i: one pass over x
         const PZMat RF = col(2 * p), RN = col(2 * p + 1);
         const PZMat Fp = force(i, p, 0), Np = force(i, p, 1);
-        const long long u0 = (w * P + p) * T * J + t * J + i;
+        const long long u0 = ((w * P + p) * T + t) * args.F + i;
+        const long long w0 = ((w * P + p) * T + t) * 3;
         for (int x = g.rank; x < ld; x += G) {
           float nn[3], ff[3];
 #pragma unroll
@@ -253,6 +278,22 @@ __global__ void __launch_bounds__(G > 128 ? G : 128, G > 128 ? 1 : 3)
             pz_at(RF, o, 0)[x] = ff[o];
           }
           const float na = nn[ax];
+          if (wrench) {
+#pragma unroll
+            for (int o = 0; o < 3; ++o) {
+              if (x < B) {
+                args.wfc[(w0 + o) * B + x] = ff[o];
+                args.wnc[(w0 + o) * B + x] = nn[o];
+              } else if (x < rix) {
+                args.wfe[(w0 + o) * E + x - B] = ff[o];
+                args.wne[(w0 + o) * E + x - B] = nn[o];
+              } else {
+                args.wfr[w0 + o] = ff[o];
+                args.wnr[w0 + o] = nn[o];
+              }
+            }
+          }
+          if (!act) continue;
           if (x < B) {
             args.uc[u0 * B + x] = (sg * na + ddc[x] * sa) + qdc[x] * sd;
           } else if (x < rix) {

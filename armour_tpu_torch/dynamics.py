@@ -9,7 +9,10 @@ share one kinematic forward pass.  Layout: kinematic quantities are
 broadcasts where the JAX code broadcasts a leading [P] against [T].
 
 rnea_pz_sets_plain runs both recursions as Python loops over the joints of
-the plain PyTorch ops, on any device.  On CUDA tensors rnea_pz_sets runs the
+the plain PyTorch ops, on any device.  Joints past num_factors are fixed
+(the dumbbell's payload bodies); with wrench_at the backward recursion's
+wrench after that joint comes out of the same pass (the grasp rows' contact
+wrench).  On CUDA tensors rnea_pz_sets runs the
 whole chain as kernel K10 (kernels/reach.py, csrc/rnea_chain.cu); a robot
 with an uncertain centre of mass (robot.com_uncertainty > 0, off for the
 Kinova) is routed, by that field, to the same loops over the op-level
@@ -88,10 +91,23 @@ def _row(p: BPZ, i: int) -> BPZ:
     return BPZ(coef=p.coef[i], egen=p.egen[i], rad=p.rad[i])
 
 
+def _factor(p: BPZ, i: int) -> BPZ:
+    """Factor i of a [W, T, F] PZ as [W, 1, T]; zeros past F (the trailing
+    fixed joints, as armour_tpu/dynamics.py:142-151 pads them)."""
+    if i < p.rad.shape[-1]:
+        return BPZ(coef=p.coef[:, None, :, i], egen=p.egen[:, None, :, i],
+                   rad=p.rad[:, None, :, i])
+    return BPZ(coef=torch.zeros_like(p.coef[:, None, :, 0]),
+               egen=torch.zeros_like(p.egen[:, None, :, 0]),
+               rad=torch.zeros_like(p.rad[:, None, :, 0]))
+
+
 def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, sets,
-                matmul_linear, cross) -> BPZ:
+                matmul_linear, cross, wrench_at=None):
     """The PZ RNEA as loops over the joints (armour_tpu/dynamics.py:116-283)
-    with the given rotation product and PZ x PZ cross product."""
+    with the given rotation product and PZ x PZ cross product.  Joints past
+    num_factors are fixed (no motion axis, zero velocities).  Returns u, or
+    (u, f, n) with the wrench [W, P, T, 3] after joint wrench_at."""
     dt, dev = jrs.qd.coef.dtype, jrs.qd.coef.device
     Wn, T = jrs.qd.coef.shape[:2]
     J = robot.num_joints
@@ -102,8 +118,6 @@ def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, s
     com = to_device(robot.com, dt, dev)             # [J, 3]
     mass_pz, inertia_pz, com_pz = _inertial_pzs(robot, basis, dt, dev, sets)
     com_uncertain = bool(robot.com_uncertainty and any(s == "int" for s in sets))
-    if F != J:
-        raise NotImplementedError("trailing fixed joints (F < J) are not ported yet")
 
     w = bpz.zeros((Wn, 1, T, 3), basis, dt, device=dev)
     w_aux = bpz.zeros((Wn, 1, T, 3), basis, dt, device=dev)
@@ -117,9 +131,7 @@ def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, s
         ax = abs(int(robot.axes[i])) - 1 if rev else 0
         sgn = (1.0 if robot.axes[i] > 0 else -1.0) if rev else 0.0
         rt = _joint(jrs.Rt, i)
-        qd_i, qda_i, qdda_i = (BPZ(coef=p.coef[:, None, :, i], egen=p.egen[:, None, :, i],
-                                   rad=p.rad[:, None, :, i])
-                               for p in (jrs.qd, jrs.qda, jrs.qdda))
+        qd_i, qda_i, qdda_i = (_factor(p, i) for p in (jrs.qd, jrs.qda, jrs.qdda))
 
         acc_arg = bpz.add(
             lin_acc,
@@ -163,6 +175,7 @@ def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, s
     armature = robot.armature
     damping = robot.damping
     u_all = [None] * J
+    wrench = None
     for i in reversed(range(J)):
         rev = robot.axes[i] != 0 and i < F
         ax = abs(int(robot.axes[i])) - 1 if rev else 0
@@ -181,39 +194,44 @@ def _rnea_loops(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis, s
         n = bpz.add(bpz.add(N_all[i], rn),
                     bpz.add(com_cross_F, bpz.cross_const(trans[i + 1], rf)))
         f = bpz.add(rf, F_all[i])
+        if i == wrench_at:
+            wrench = (f, n)
         u_axis = BPZ(coef=sgn * n.coef[..., ax, :], egen=sgn * n.egen[..., ax, :],
                      rad=abs(sgn) * n.rad[..., ax])
-        qdda_i = BPZ(coef=jrs.qdda.coef[:, None, :, i], egen=jrs.qdda.egen[:, None, :, i],
-                     rad=jrs.qdda.rad[:, None, :, i])
-        qd_i = BPZ(coef=jrs.qd.coef[:, None, :, i], egen=jrs.qd.egen[:, None, :, i],
-                   rad=jrs.qd.rad[:, None, :, i])
+        qdda_i, qd_i = _factor(jrs.qdda, i), _factor(jrs.qd, i)
         u_i = bpz.add(u_axis, bpz.scale(qdda_i, float(armature[i]) * rv))
         u_all[i] = bpz.add(u_i, bpz.scale(qd_i, float(damping[i]) * rv))
-    return bpz.stack(u_all[:F], dim=-1)                  # [W, P, T, F]
+    u = bpz.stack(u_all[:F], dim=-1)                     # [W, P, T, F]
+    if wrench_at is None:
+        return u
+    return u, wrench[0], wrench[1]
 
 
 def rnea_pz_sets_plain(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
-                       sets=("nom", "int")) -> BPZ:
+                       sets=("nom", "int"), *, wrench_at=None):
     """Plain version of kernel K10: PZ RNEA torque u [W, P, T, F] for the
     parameter sets (nominal "nom", interval "int") sharing one kinematic
-    forward pass, on the plain PyTorch ops (pure PyTorch on any device)."""
+    forward pass, on the plain PyTorch ops (pure PyTorch on any device).
+    With wrench_at, (u, f, n): the wrench [W, P, T, 3] after that joint."""
     return _rnea_loops(jrs, robot, cfg, basis, sets, bpz.matmul_linear_plain,
-                       bpz.cross_plain)
+                       bpz.cross_plain, wrench_at)
 
 
 def rnea_pz_sets(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,
-                 sets=("nom", "int")) -> BPZ:
-    """PZ RNEA torque u [W, P, T, F] (armour_tpu/dynamics.py:116-283).
-    CPU tensors take rnea_pz_sets_plain; on CUDA tensors kernel K10, or,
-    for a robot with an uncertain centre of mass, the loops over kernels K1
-    and K2."""
+                 sets=("nom", "int"), *, wrench_at=None):
+    """PZ RNEA torque u [W, P, T, F] (armour_tpu/dynamics.py:116-283), and
+    with wrench_at the joint wrench (f, n) [W, P, T, 3] after that chain
+    index too, (u, f, n) from the same pass.  CPU tensors take
+    rnea_pz_sets_plain; on CUDA tensors kernel K10, or, for a robot with an
+    uncertain centre of mass, the loops over kernels K1 and K2."""
     if not jrs.qd.coef.is_cuda:
-        return rnea_pz_sets_plain(jrs, robot, cfg, basis, sets)
+        return rnea_pz_sets_plain(jrs, robot, cfg, basis, sets, wrench_at=wrench_at)
     if robot.com_uncertainty and "int" in sets:
-        return _rnea_loops(jrs, robot, cfg, basis, sets, bpz.matmul_linear, bpz.cross)
+        return _rnea_loops(jrs, robot, cfg, basis, sets, bpz.matmul_linear, bpz.cross,
+                           wrench_at)
     from .kernels import reach
 
-    return reach.rnea_chain(jrs, robot, cfg, basis, sets)
+    return reach.rnea_chain(jrs, robot, cfg, basis, sets, wrench_at=wrench_at)
 
 
 def rnea_pz(jrs: JRS, robot: RobotModel, cfg: ArmourConfig, basis: KBasis,

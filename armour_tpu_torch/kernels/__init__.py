@@ -15,10 +15,11 @@
   K13 screen_collision  csrc/screen_collision.cu   (kernels/collision.py)
   K14 alm_loop          csrc/alm_loop.cu           (kernels/solver.py)
   K15 reach_assembly    csrc/reach_assembly.cu     (kernels/reach.py)
+  K16 grasp_rows        csrc/grasp_rows.cu         (kernels/grasp.py)
 
 The public wrappers live beside their plain PyTorch versions (pz/bpz.py,
 collision.py, simulator.py, nlp.py, kinematics.py, dynamics.py, armtd.py,
-jrs.py): a CPU tensor takes the plain version, a CUDA tensor launches the
+jrs.py, grasp.py): a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel through the launchers here or raises.  Each launcher calls
 launched(name) where it launches its kernel and nowhere else: LAUNCHES[name]
 counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
@@ -33,7 +34,8 @@ import contextlib
 
 KERNELS = ("pz_matmul_linear", "pz_cross", "build_hyperplanes", "collision_rows",
            "rollout", "oracle_check", "alm_newton", "alm_values", "fk_chain", "rnea_chain",
-           "jrs_armtd", "jrs_bernstein", "screen_collision", "alm_loop", "reach_assembly")
+           "jrs_armtd", "jrs_bernstein", "screen_collision", "alm_loop", "reach_assembly",
+           "grasp_rows")
 
 H100_SMS = 132            # streaming multiprocessors of an H100 SXM (launch geometry defaults)
 

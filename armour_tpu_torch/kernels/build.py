@@ -38,6 +38,7 @@ SOURCES = {
     "screen_collision": "screen_collision.cu",
     "alm_loop": "alm_loop.cu",
     "reach_assembly": "reach_assembly.cu",
+    "grasp_rows": "grasp_rows.cu",
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -22,7 +22,7 @@ from ..jrs import JRS, QDD_K_DEP_MAXIMA, QDD_K_DEP_MINIMA, TrajectoryCoeffs
 from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
 
-MAXJ, MAXF = 9, 8           # csrc/jrs_tail.cuh: JRS_MAXJ (joints + 1), JRS_MAXF
+MAXJ, MAXF = 10, 8          # csrc/jrs_tail.cuh: JRS_MAXJ (joints + 1), JRS_MAXF
 
 
 class JrsTrig(ctypes.Structure):

@@ -26,7 +26,7 @@ from .pz import (PZ_MAXMASS, PZ_TAB_BYTES, ChainGeometry, chain_geometry, group_
 from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
 
-MAX_J, MAX_P = 8, 2
+MAX_J, MAX_P = 9, 2
 K9_THREADS = 256          # threads per block of several elements at most (csrc/fk_chain.cu)
 K9_ENTRIES = 3 * 4 + 3                       # four fk_r row slots, fk_t
 K9_CONST = -(-(3 * (MAX_J + 1) + 12 * MAX_J) // 4) * 4
@@ -88,8 +88,10 @@ class K9Args(ctypes.Structure):
 
 class K10Args(ctypes.Structure):
     _fields_ = _PTRS + [(n, ctypes.c_void_p) for n in (
-        "qc", "qe", "qr", "ac", "ae", "ar", "dc", "de", "dr", "uc", "ue", "ur", "fn")] + [
-        ("n", ctypes.c_longlong), ("T", ctypes.c_int), ("J", ctypes.c_int), ("P", ctypes.c_int),
+        "qc", "qe", "qr", "ac", "ae", "ar", "dc", "de", "dr", "zero", "uc", "ue", "ur",
+        "wfc", "wfe", "wfr", "wnc", "wne", "wnr", "fn")] + [
+        ("n", ctypes.c_longlong), ("T", ctypes.c_int), ("J", ctypes.c_int), ("F", ctypes.c_int),
+        ("P", ctypes.c_int), ("wj", ctypes.c_int),
         ("slop", ctypes.c_float), ("gravity", ctypes.c_float),
         ("trans", _F3 * (MAX_J + 1)), ("com", _F3 * MAX_J),
         ("mc", (ctypes.c_float * MAX_P) * MAX_J), ("mr", (ctypes.c_float * MAX_P) * MAX_J),
@@ -229,7 +231,7 @@ def _robot_args(robot, cfg, basis: KBasis, sets) -> K10Args:
     if key not in tab:
         J, P = robot.num_joints, len(sets)
         args = K10Args()
-        args.J, args.P = J, P
+        args.J, args.F, args.P = J, robot.num_factors, P
         args.slop = float(cfg.float_slop)
         args.gravity = float(robot.gravity)
         prm = chain_params(robot, sets, basis)
@@ -248,16 +250,32 @@ def _robot_args(robot, cfg, basis: KBasis, sets) -> K10Args:
     return tab[key]
 
 
-def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int")) -> BPZ:
+def _zero_row(basis: KBasis, E: int, device) -> torch.Tensor:
+    """B + E + 1 zeros on `device`, formed once per device and kept in
+    basis.kernel_args: K10's qd, qda, qdda of a joint past num_factors."""
+    key = ("k10_zero", str(device))
+    tab = basis.kernel_args
+    if key not in tab:
+        tab[key] = torch.zeros(basis.size + E + 1, device=device, dtype=torch.float32)
+    return tab[key]
+
+
+def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int"), *, wrench_at=None):
     """K10: the PZ RNEA torque u [W, P, T, F] for P = len(sets) <= 2
     parameter sets without COM uncertainty (dynamics.rnea_pz_sets_plain's
-    result)."""
+    result); with wrench_at, (u, f, n): the wrench [W, P, T, 3] after that
+    joint, from the same launch.  J <= 9 joints, the last J - F fixed."""
     Wn, T, Jr = jrs.R.rad.shape[:3]
     J, F, P = robot.num_joints, robot.num_factors, len(sets)
-    if J > MAX_J or Jr != J + 1 or F != J or not 1 <= P <= MAX_P:
-        raise ValueError(f"rnea_chain takes J = F <= {MAX_J} joints, J + 1 rotations and "
+    if J > MAX_J or Jr != J + 1 or F > J or not 1 <= P <= MAX_P:
+        raise ValueError(f"rnea_chain takes F <= J <= {MAX_J} joints, J + 1 rotations and "
                          f"1..{MAX_P} parameter sets; got J={J}, F={F}, {Jr} rotations, "
                          f"P={P}")
+    if any(robot.axes[i] != 0 for i in range(F, J)):
+        raise ValueError("rnea_chain: the joints past num_factors must be fixed")
+    if wrench_at is not None and not 0 <= wrench_at < J:
+        raise ValueError(f"rnea_chain: wrench_at must be a joint index below {J}, "
+                         f"got {wrench_at}")
     if robot.com_uncertainty and "int" in sets:
         raise ValueError("rnea_chain does not take an uncertain centre of mass")
     R = _require(jrs.R, "rnea_chain", (Wn, T, Jr, 3, 3))
@@ -274,8 +292,16 @@ def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int")) -> BPZ:
     args.ac, args.ae, args.ar = _ptrs(qda)
     args.dc, args.de, args.dr = _ptrs(qdda)
     args.uc, args.ue, args.ur = _ptrs(u)
+    args.zero = _zero_row(basis, E, R.coef.device).data_ptr()
     args.T = T
-    record("rnea_chain", (tuple(R.rad.shape), tuple(sets)), (jrs, robot, cfg, basis, tuple(sets)))
+    args.wj = -1 if wrench_at is None else int(wrench_at)
+    f_c = n_c = None
+    if wrench_at is not None:
+        f_c, n_c = _empty((Wn, P, T, 3), B, E, R.coef), _empty((Wn, P, T, 3), B, E, R.coef)
+        args.wfc, args.wfe, args.wfr = _ptrs(f_c)
+        args.wnc, args.wne, args.wnr = _ptrs(n_c)
+    record("rnea_chain", (tuple(R.rad.shape), tuple(sets), wrench_at),
+           (jrs, robot, cfg, basis, tuple(sets), wrench_at))
     if Wn * T:
         ld, ldl = B + E + 1, lin_ld(basis.nf, E)
         geo = k10_geometry(Wn * T, ld, ldl, _sms(R.coef))
@@ -284,11 +310,13 @@ def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int")) -> BPZ:
         args.fn, args.n = fn.data_ptr(), Wn * T
         upload_tables("rnea_chain", "k10_tables", basis, E)
         _launch("rnea_chain", "k10_launch", K10Args, args, geo, ld, ldl, R.coef)
-    return u
+    if wrench_at is None:
+        return u
+    return u, f_c, n_c
 
 
 K15_THREADS = 64          # threads per block of one (world, time step) (csrc/reach_assembly.cu)
-K15_MAX_F, K15_MAX_J3 = 8, 24
+K15_MAX_F, K15_MAX_J3 = 8, 27
 K15_SMEM_MAX = 48 * 1024  # dynamic shared memory without the opt-in, bytes
 
 

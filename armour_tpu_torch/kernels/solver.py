@@ -34,12 +34,13 @@ from .collision import _require, _stream
 from ..pz.basis import KBasis
 
 MAX_B, MAX_F, MAX_DEG = 128, 8, 3
-FACTORS = (7,)            # the kernels are instantiated for these F (the Kinova Gen3's 7)
+FACTORS = (6, 7)          # the kernels are instantiated for these F (the UR5's 6, the 7-DOF arms')
 SMEM_LIMIT = 232448       # bytes of shared memory a block can use on Hopper
 
 
 class AlmArgs(ctypes.Structure):
     _fields_ = [("u_coef", ctypes.c_void_p), ("u_hi", ctypes.c_void_p),
+                ("g_coef", ctypes.c_void_p), ("g_rad", ctypes.c_void_p),
                 ("center", ctypes.c_void_p), ("A", ctypes.c_void_p), ("d", ctypes.c_void_p),
                 ("delta", ctypes.c_void_p), ("row", ctypes.c_void_p), ("mask", ctypes.c_void_p),
                 ("traj", ctypes.c_void_p), ("limits", ctypes.c_void_p),
@@ -51,13 +52,15 @@ class AlmArgs(ctypes.Structure):
                 ("W", ctypes.c_int), ("Q", ctypes.c_int), ("S", ctypes.c_int),
                 ("M", ctypes.c_int), ("TF", ctypes.c_int), ("TJ", ctypes.c_int),
                 ("C", ctypes.c_int), ("K", ctypes.c_int), ("B", ctypes.c_int),
-                ("F", ctypes.c_int), ("armtd", ctypes.c_int), ("maxima", ctypes.c_int),
+                ("F", ctypes.c_int), ("TG", ctypes.c_int), ("armtd", ctypes.c_int),
+                ("maxima", ctypes.c_int),
                 ("cost_scale", ctypes.c_float), ("kw", ctypes.c_float),
                 ("qb0", ctypes.c_float), ("qb1", ctypes.c_float), ("qb2", ctypes.c_float),
                 ("qb3", ctypes.c_float), ("two_pi", ctypes.c_float), ("pi", ctypes.c_float),
                 ("dur", ctypes.c_float), ("thr_torque", ctypes.c_float),
                 ("thr_col", ctypes.c_float), ("thr_state", ctypes.c_float),
-                ("col_margin", ctypes.c_float), ("tp", ctypes.c_float), ("dts", ctypes.c_float),
+                ("col_margin", ctypes.c_float), ("thr_grasp", ctypes.c_float),
+                ("tp", ctypes.c_float), ("dts", ctypes.c_float),
                 ("g_tp", ctypes.c_float), ("g_ts", ctypes.c_float),
                 ("degs", ctypes.c_ubyte * (MAX_B * MAX_F))]
 
@@ -106,7 +109,8 @@ def _bezier_weights(s: float):
 
 def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     """Gather and check a plan's inputs to K7 / K8 (three small launches per
-    solve: the torque limits, the trajectory scalars, the state limits)."""
+    solve: the torque limits, the trajectory scalars, the state limits).  A
+    plan with grasp rows (prob.grasp) passes them as views: no copy."""
     if cfg.smooth_obstacle_constraints:
         raise NotImplementedError("smooth obstacle constraints are not ported yet")
     Wn, F = prob.q_des.shape
@@ -127,6 +131,15 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
         u_coef = prob.torque.u_coef.reshape(Wn, TF, B).contiguous()
         u_hi = (prob.limits.torque - prob.torque.torque_radius).reshape(Wn, TF).contiguous()
         _require(u_coef, "u_coef", (Wn, TF, B))
+    if prob.grasp is None:
+        TG = 0
+        g_coef = g_rad = torch.zeros(1, device=prob.q_des.device, dtype=torch.float32)
+    else:
+        TG = 3 * prob.grasp.g_coef.shape[1]
+        g_coef = prob.grasp.g_coef.reshape(Wn, TG, B).contiguous()
+        g_rad = prob.grasp.g_rad.reshape(Wn, TG).contiguous()
+        _require(g_coef, "grasp g_coef", (Wn, TG, B))
+        _require(g_rad, "grasp g_rad", (Wn, TG))
     center = frs.center_coef.reshape(Wn, TJ * 3, B).contiguous()
     _require(center, "center_coef", (Wn, TJ * 3, B))
     _require(sc.A, "screened A", (Wn, 3, C, K))
@@ -153,14 +166,16 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     args = AlmArgs()
     ctypes.memmove(ctypes.addressof(args), ctypes.addressof(_degs_template(basis)),
                    ctypes.sizeof(AlmArgs))
-    tensors = {"u_coef": u_coef, "u_hi": u_hi, "center": center, "traj": traj,
-               "limits": limits, "continuous": continuous}
-    for name, t in (("u_coef", u_coef), ("u_hi", u_hi), ("center", center), ("A", sc.A),
+    tensors = {"u_coef": u_coef, "u_hi": u_hi, "g_coef": g_coef, "g_rad": g_rad,
+               "center": center, "traj": traj, "limits": limits, "continuous": continuous}
+    for name, t in (("u_coef", u_coef), ("u_hi", u_hi), ("g_coef", g_coef), ("g_rad", g_rad),
+                    ("center", center), ("A", sc.A),
                     ("d", sc.d), ("delta", sc.delta), ("row", sc.row), ("mask", sc.mask),
                     ("traj", traj), ("limits", limits), ("continuous", continuous)):
         setattr(args, name, t.data_ptr())
-    M = 2 * TF + K + 8 * F
+    M = 2 * TF + TG + K + 8 * F
     args.W, args.M, args.TF, args.TJ, args.C, args.K, args.B, args.F = Wn, M, TF, TJ, C, K, B, F
+    args.TG = TG
     s_plan = cfg.t_plan / cfg.duration
     b0, b1, b2, b3 = _bezier_weights(s_plan)
     tp, ts = cfg.t_plan, cfg.duration
@@ -177,6 +192,7 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     args.thr_col = cfg.collision_violation_threshold
     args.thr_state = 0.5 * cfg.state_limit_margin
     args.col_margin = cfg.collision_search_margin
+    args.thr_grasp = cfg.grasp_violation_threshold
     return AlmRows(prob=prob, cfg=cfg, basis=basis, tensors=tensors, args=args, M=M)
 
 
@@ -250,8 +266,8 @@ def k7_geometry(Wn: int, S: int, n_centre: int, n_torque: int, K: int,
     """The largest row tiles that still give 2 x sms CTAs in K7's steps (a)
     and (b) (the smallest where none does): each polynomial row is read
     once per call for all S seeds, and the grid fills the card at W = 1 as
-    at W = 64.  n_centre: link-centre rows (3 T J), n_torque: torque rows
-    (T F), K: screened rows, per world."""
+    at W = 64.  n_centre: link-centre rows (3 T J), n_torque: torque and
+    grasp rows (T F + 3 T in a grasp plan), K: screened rows, per world."""
     if not 1 <= S <= K7_MAXS:
         raise ValueError(f"alm_newton takes 1..{K7_MAXS} seeds, got {S}")
     target = 2 * sms
@@ -284,7 +300,7 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
     H = torch.empty(Wn, S, F, F, device=dev, dtype=torch.float32) if want_system else None
     record("alm_newton", (Wn, S, rows.M, want_system), (rows, k, lam, rho))
     if Wn * S:
-        geo = k7_geometry(Wn, S, 3 * a.TJ, a.TF, a.K,
+        geo = k7_geometry(Wn, S, 3 * a.TJ, a.TF + a.TG, a.K,
                           torch.cuda.get_device_properties(dev).multi_processor_count)
         if k7_rows_smem(a.B, F, S, geo.R) + k7_rows_static_smem(F, S, geo.R) > SMEM_LIMIT:
             raise ValueError(f"K7's row tiles need more than {SMEM_LIMIT} bytes of shared memory")
@@ -354,7 +370,7 @@ def k8_geometry(Wn: int, Q: int, n_poly: int, K: int, sms: int = H100_SMS) -> K8
     smallest ones where none does): each row is read once per call for as
     many queries as the card allows, and the grid fills the card at W = 1
     as at W = 64.  n_poly: polynomial rows per world (3 T J centres + T F
-    torques); K: screened rows per world."""
+    torques + the grasp rows); K: screened rows per world."""
     if not 1 <= Q <= K8_MAXQ:
         raise ValueError(f"alm_values takes 1..{K8_MAXQ} queries, got {Q}")
     target = 2 * sms
@@ -382,7 +398,7 @@ def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
     c = torch.empty(Wn, Q, M, device=dev, dtype=torch.float32) if want_c else None
     record("alm_values", (Wn, Q, S, rows.M, want_c), (rows, kq, lam, rho, seed_of_q, want_c))
     if Wn * Q:
-        geo = k8_geometry(Wn, Q, 3 * a.TJ + a.TF, a.K,
+        geo = k8_geometry(Wn, Q, 3 * a.TJ + a.TF + a.TG, a.K,
                           torch.cuda.get_device_properties(dev).multi_processor_count)
         p = torch.empty(Wn, geo.Qp, 3, a.TJ, device=dev, dtype=torch.float32)
         part = torch.empty(Wn, geo.ntiles, Q, 2, device=dev, dtype=torch.float32)
@@ -407,28 +423,29 @@ def _k8_launch(args: AlmArgs, p, part, geo: K8Geometry, kq) -> None:
 
 
 def alm_maxima(rows: AlmRows, kq):
-    """K8's max mode: (v_torque [W,Q], v_state [W,Q]) at kq [W,Q,F], the
-    torque and state maxima of nlp.max_violations (max |u| - hi over the
-    torque rows, -BIG without them; the 8 F state rows against the
-    untightened limits).  Two device launches: step (a) over the torque
-    rows alone (no link centres, no scratch p) and the finish."""
+    """K8's max mode: (v_torque, v_state, v_grasp) [W,Q] at kq [W,Q,F], the
+    torque, state and grasp maxima of nlp.max_violations (max |u| - hi over
+    the torque rows, -BIG without them; the 8 F state rows against the
+    untightened limits; the max of the grasp rows, -BIG without them).  Two
+    device launches: step (a) over the torque and grasp rows alone (no link
+    centres, no scratch p) and the finish."""
     Q = kq.shape[1] if kq.dim() == 3 else -1
     a = rows.args
     Wn = a.W
     _require(kq, "k", (Wn, Q, a.F))
     dev = kq.device
-    vmax = torch.empty(Wn, Q, 2, device=dev, dtype=torch.float32)
+    vmax = torch.empty(Wn, Q, 3, device=dev, dtype=torch.float32)
     record("alm_values", (Wn, Q, "maxima"), (rows, kq, "maxima"))
     if Wn * Q:
-        geo = k8_geometry(Wn, Q, a.TF, a.K,
+        geo = k8_geometry(Wn, Q, a.TF + a.TG, a.K,
                           torch.cuda.get_device_properties(dev).multi_processor_count)
         part = torch.empty(Wn, geo.tiles_a, Q, 2, device=dev, dtype=torch.float32)
         args = AlmArgs()
         ctypes.memmove(ctypes.addressof(args), ctypes.addressof(a), ctypes.sizeof(AlmArgs))
         args.k, args.Q, args.maxima, args.vmax = kq.data_ptr(), Q, 1, vmax.data_ptr()
         _k8_launch(args, None, part, geo, kq)
-        launched("alm_values", 2 if a.TF else 1)
-    return vmax[..., 0], vmax[..., 1]
+        launched("alm_values", 2 if a.TF + a.TG else 1)
+    return vmax[..., 0], vmax[..., 1], vmax[..., 2]
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 The problem: n = F variables k in [-1,1]^F;
   cost = cost_scale * sum_j wrap(q_plan_j(k) - q_des_j)^2
-  subject to torque, collision and state-limit rows c(k) <= 0.
+  subject to torque, grasp (when the plan has them), collision and
+  state-limit rows c(k) <= 0.
 Solved by a fixed-iteration multi-start augmented-Lagrangian method with
 projected Gauss-Newton inner steps, then re-checked against the full
 constraint set (infeasible -> NaN k, the caller brakes).
@@ -90,6 +91,9 @@ class PlanProblem:
     obs: ObstacleSet
     screened: ScreenedCollision
     limits: RobotLimits
+    # optional k-sliceable contact rows (grasp.GraspFRS); None leaves them
+    # out of the stack
+    grasp: object = None
 
 
 # ---------------------------------------------------------------------------
@@ -229,12 +233,20 @@ def _torque(k_phi, prob: PlanProblem):
     return u, hi, uc
 
 
+def _grasp(k_phi, prob: PlanProblem):
+    """The grasp rows g [W, Q, 3T] at phi(k) (row (t, sep / slip / tip)),
+    and their coefficients [W, 3T, B]."""
+    Wn, T, _, B = prob.grasp.g_coef.shape
+    gc = prob.grasp.g_coef.reshape(Wn, 3 * T, B)
+    return torch.matmul(k_phi, gc.transpose(1, 2)) + prob.grasp.g_rad.reshape(Wn, 1, 3 * T), gc
+
+
 def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
                      with_grad: bool = True):
     """All inequality rows c [W, Q, M] and (optionally) the Jacobian
-    [W, Q, M, F].  Ordering: [torque_hi; torque_lo; collision; pos_min_lo;
-    pos_min_hi; pos_max_lo; pos_max_hi; vel_min_lo; vel_min_hi; vel_max_lo;
-    vel_max_hi]."""
+    [W, Q, M, F].  Ordering: [torque_hi; torque_lo; grasp (when the plan
+    has them); collision; pos_min_lo; pos_min_hi; pos_max_lo; pos_max_hi;
+    vel_min_lo; vel_min_hi; vel_max_lo; vel_max_hi]."""
     if cfg.smooth_obstacle_constraints:
         raise NotImplementedError("smooth obstacle constraints are not ported yet")
     F = k.shape[-1]
@@ -250,6 +262,12 @@ def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
         if with_grad:
             du = torch.matmul(uc[:, None], dphi)                # [W, Q, T*F, F]
             Js += [du, -du]
+
+    if prob.grasp is not None:
+        g, gc = _grasp(phi, prob)
+        cs.append(g)
+        if with_grad:
+            Js.append(torch.matmul(gc[:, None], dphi))
 
     p_all = eval_link_polys(prob.frs, phi)
     dp_all = eval_link_poly_grads(prob.frs, dphi) if with_grad else None
@@ -282,17 +300,21 @@ def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
 
 
 def maxima_plain(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, phi=None):
-    """Plain version of kernel K8's max mode: the torque and state groups of
-    max_violations, (v_torque, v_state) [W, Q] at k [W, Q, F]: max |u| - hi
-    over the torque rows (-BIG without them) and the max of the 8 F state
-    rows against the untightened limits."""
+    """Plain version of kernel K8's max mode: the torque, state and grasp
+    groups of max_violations, (v_torque, v_state, v_grasp) [W, Q] at k
+    [W, Q, F]: max |u| - hi over the torque rows (-BIG without them), the
+    max of the 8 F state rows against the untightened limits, and the max
+    of the grasp rows (-BIG without them)."""
     ub = cfg.ub
     lim = prob.limits
+    phi = basis.phi(k) if phi is None else phi
+    none = torch.full(k.shape[:-1], -BIG, dtype=k.dtype, device=k.device)
     if cfg.turn_off_input_constraints:
-        v_torque = torch.full(k.shape[:-1], -BIG, dtype=k.dtype, device=k.device)
+        v_torque = none
     else:
-        u, hi, _ = _torque(basis.phi(k) if phi is None else phi, prob)
+        u, hi, _ = _torque(phi, prob)
         v_torque = torch.amax(torch.abs(u) - hi, dim=-1)
+    v_grasp = none if prob.grasp is None else torch.amax(_grasp(phi, prob)[0], dim=-1)
     q_min, q_max, _, _ = joint_position_extrema(k, prob.traj, cfg)
     qd_min, qd_max, _, _ = joint_velocity_extrema(k, prob.traj, cfg)
     pos_lb = lim.pos_lb + ub.qe
@@ -304,7 +326,7 @@ def maxima_plain(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, phi=Non
         torch.amax(-vel_ub - qd_min, dim=-1), torch.amax(qd_min - vel_ub, dim=-1),
         torch.amax(-vel_ub - qd_max, dim=-1), torch.amax(qd_max - vel_ub, dim=-1),
     ]), dim=0)
-    return v_torque, v_state
+    return v_torque, v_state, v_grasp
 
 
 def max_violations(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
@@ -312,18 +334,18 @@ def max_violations(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
     """Per-group max violations (torque, collision, state, grasp), each
     [W, Q], over the FULL constraint set.  collision_fn evaluates every
     collision row; the default routes through kernel K4 on the card.  With
-    rows (kernels.solver.alm_rows of this plan, CUDA tensors) the torque and
-    state maxima come from kernel K8's max mode, else from maxima_plain."""
+    rows (kernels.solver.alm_rows of this plan, CUDA tensors) the torque,
+    state and grasp maxima come from kernel K8's max mode, else from
+    maxima_plain."""
     phi = basis.phi(k)
-    v_grasp = torch.full(k.shape[:-1], -BIG, dtype=k.dtype, device=k.device)
     g_col = collision_fn(prob.hyp, prob.obs, eval_link_polys(prob.frs, phi))
     v_col = torch.amax(g_col.reshape(*k.shape[:-1], -1), dim=-1)
     if rows is not None:
         from .kernels import solver as ksolver
 
-        v_torque, v_state = ksolver.alm_maxima(rows, k)
+        v_torque, v_state, v_grasp = ksolver.alm_maxima(rows, k)
     else:
-        v_torque, v_state = maxima_plain(k, prob, cfg, basis, phi)
+        v_torque, v_state, v_grasp = maxima_plain(k, prob, cfg, basis, phi)
     return v_torque, v_col, v_state, v_grasp
 
 
@@ -369,6 +391,9 @@ def _stack_thresholds(prob: PlanProblem, cfg: ArmourConfig) -> torch.Tensor:
     if not cfg.turn_off_input_constraints:
         T = prob.torque.u_coef.shape[1]
         parts.append(torch.full((2 * T * F,), cfg.torque_violation_threshold, dtype=dt, device=dev))
+    if prob.grasp is not None:
+        Tg = prob.grasp.g_coef.shape[1]
+        parts.append(torch.full((3 * Tg,), cfg.grasp_violation_threshold, dtype=dt, device=dev))
     K = prob.screened.row.shape[-1]
     parts.append(torch.full((K,), cfg.collision_violation_threshold, dtype=dt, device=dev))
     # state rows are margin-tightened: accepting margin/2 against them

@@ -1,8 +1,9 @@
 """The receding-horizon planner: one planning step (counterpart of
 armour_tpu/planner.py).
 
-plan_step runs JRS -> PZ FK -> PZ RNEA torque bound -> obstacle hyperplanes
--> screen -> ALM solve for a batch of worlds.  make_batch_planner,
+plan_step runs JRS -> PZ FK -> PZ RNEA torque bound (and, with
+cfg.grasp_constraints, the contact rows from the RNEA's wrench) -> obstacle
+hyperplanes -> screen -> ALM solve for a batch of worlds.  make_batch_planner,
 make_planner, make_rescue_planner and make_realtime_planner return step
 functions that run on the card by default; pass device="cpu" to run the
 plain versions of every kernel on the CPU.
@@ -21,6 +22,7 @@ from .collision import (ObstacleSet, build_hyperplanes, build_hyperplanes_plain,
 from .armtd import build_jrs_armtd, build_jrs_armtd_plain
 from .config import ArmourConfig
 from .dynamics import reach_assembly, reach_assembly_plain, rnea_pz_sets, rnea_pz_sets_plain
+from .grasp import contact_joint_of, grasp_params, grasp_rows, grasp_rows_plain
 from .jrs import build_jrs, build_jrs_plain
 from .kinematics import forward_occupancy, forward_occupancy_plain
 from .nlp import PlanProblem, SolveResult, robot_limits, solve
@@ -51,19 +53,27 @@ def problem_from_jrs(jrs, q_des, obs: ObstacleSet, robot: RobotModel, cfg: Armou
                      basis: KBasis, *, plain: bool = False) -> PlanProblem:
     """The stages after the JRS, shared by both trajectory families: FK
     (K9), RNEA (K10), the torque radius and the link split in one launch
-    (K15), hyperplanes (K3) and the screen (K13)."""
-    if cfg.grasp_constraints:
-        raise NotImplementedError("grasp constraints are not ported yet")
+    (K15), with cfg.grasp_constraints the contact rows from the wrench of
+    the same K10 launch (K16), hyperplanes (K3) and the screen (K13)."""
     fk = forward_occupancy_plain if plain else forward_occupancy
     rnea = rnea_pz_sets_plain if plain else rnea_pz_sets
+    links = fk(jrs, robot, cfg, basis)
+    grasp = None
+    if cfg.grasp_constraints:
+        u_both, f_c, n_c = rnea(jrs, robot, cfg, basis, wrench_at=contact_joint_of(robot, None))
+    else:
+        u_both = rnea(jrs, robot, cfg, basis)
     frs, torque = (reach_assembly_plain if plain else reach_assembly)(
-        fk(jrs, robot, cfg, basis), rnea(jrs, robot, cfg, basis), robot, cfg, basis)
+        links, u_both, robot, cfg, basis)
+    if cfg.grasp_constraints:
+        grasp = (grasp_rows_plain if plain else grasp_rows)(f_c, n_c, grasp_params(cfg), cfg,
+                                                             basis)
     hyp = (build_hyperplanes_plain if plain else build_hyperplanes)(frs, obs)
     screened = (screen_collision_plain if plain else screen_collision)(
         hyp, obs, frs, cfg.screen_k, cfg.screen_obstacle_quota)
     return PlanProblem(traj=jrs.traj, q_des=q_des, torque=torque, frs=frs, hyp=hyp,
                        obs=obs, screened=screened,
-                       limits=robot_limits(robot, q_des.dtype, q_des.device))
+                       limits=robot_limits(robot, q_des.dtype, q_des.device), grasp=grasp)
 
 
 def plan_step(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,

@@ -14,7 +14,9 @@ Two ops have hand-written CUDA kernels: `matmul_linear` (and its
 right-operand form) and `cross`.  Each is a wrapper that takes its plain
 PyTorch version (`matmul_linear_plain`, `cross_plain`) for CPU tensors and
 launches the kernel for CUDA tensors (kernels/pz.py), raising on anything the
-kernel does not take.
+kernel does not take.  The elementwise product `mul` runs on the card only
+fused into the grasp rows (kernel K16, grasp.py), in the fixed order of
+`_mul`; `mul` itself takes CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Callable
 
 import torch
 
-from .basis import KBasis, error_layout, linear_tables
+from ..utils import warp_sum_in_order
+from .basis import KBasis, error_layout, linear_tables, pair_segments
 
 
 @dataclasses.dataclass
@@ -148,6 +151,74 @@ def bilinear(a: BPZ, b: BPZ, prod: Callable, absprod: Callable, basis: KBasis,
     if slop:
         rad = rad + slop * (torch.sum(torch.abs(coef), dim=-1)
                             + torch.sum(torch.abs(egen), dim=-1) + rad)
+    return BPZ(coef=coef, egen=egen, rad=rad)
+
+
+def mul(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
+    """Elementwise (Hadamard) product with broadcasting, the bilinear core
+    with the pair table (armour_tpu/pz/bpz.py:170).  The two operands are
+    independent: mul(p, p) is not a tightened square.  CPU tensors only: on
+    the card the product runs fused into kernel K16 (grasp.grasp_frs), and
+    no port code calls it there."""
+    if a.coef.is_cuda or b.coef.is_cuda:
+        raise ValueError("bpz.mul takes CPU tensors; on the card the product runs in kernel "
+                         "K16 (grasp.grasp_frs)")
+    return _mul(a, b, basis, slop)
+
+
+def _segment_table(basis: KBasis, device) -> tuple:
+    """The pair table by output monomial as rank-major index tables
+    [L, B] (L the longest segment): the r-th pair of monomial m, or B (a
+    zero sentinel) past its segment's end."""
+    tab = basis.device_tables(device)
+    if "seg_i" not in tab:
+        pi, pj, seg = pair_segments(basis.nf, basis.max_degree)
+        B = basis.size
+        L = int((seg[1:] - seg[:-1]).max())
+        ti = torch.full((L, B), B, dtype=torch.int64)
+        tj = torch.full((L, B), B, dtype=torch.int64)
+        for m in range(B):
+            n = int(seg[m + 1] - seg[m])
+            ti[:n, m] = torch.as_tensor(pi[seg[m]:seg[m + 1]], dtype=torch.int64)
+            tj[:n, m] = torch.as_tensor(pj[seg[m]:seg[m + 1]], dtype=torch.int64)
+        tab["seg_i"], tab["seg_j"] = ti.to(device), tj.to(device)
+    return tab["seg_i"], tab["seg_j"]
+
+
+def _mul(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
+    """mul on any device, every sum in the fixed order of kernel K16
+    (pz_ops.cuh: pz_mul): each coefficient over its monomial's pairs in
+    pair-table order (basis.pair_segments) from 0; the in-table magnitudes
+    per monomial in the same order, then over the monomials in a warp's
+    order (utils.warp_sum_in_order), as the abs sums of coef and egen; the
+    radius' terms as written (bpz.py:146-166)."""
+    shape = torch.broadcast_shapes(a.rad.shape, b.rad.shape)
+    B, E = a.coef.shape[-1], a.egen.shape[-1]
+    a = BPZ(coef=a.coef.expand(*shape, B), egen=a.egen.expand(*shape, E),
+            rad=a.rad.expand(shape))
+    b = BPZ(coef=b.coef.expand(*shape, B), egen=b.egen.expand(*shape, E),
+            rad=b.rad.expand(shape))
+    ti, tj = _segment_table(basis, a.coef.device)
+    pad = a.coef.new_zeros(shape + (1,))
+    ca, cb = torch.cat([a.coef, pad], dim=-1), torch.cat([b.coef, pad], dim=-1)
+    coef = torch.zeros_like(ca[..., :B])
+    seg_abs = torch.zeros_like(coef)
+    for r in range(ti.shape[0]):
+        x, y = ca[..., ti[r]], cb[..., tj[r]]
+        coef = coef + x * y
+        seg_abs = seg_abs + torch.abs(x) * torch.abs(y)
+    in_abs = warp_sum_in_order(seg_abs)
+    Sa, Sb = warp_sum_in_order(torch.abs(a.coef)), warp_sum_in_order(torch.abs(b.coef))
+    overflow = torch.clamp(Sa * Sb - in_abs, min=0.0)
+    a0, b0 = a.coef[..., 0], b.coef[..., 0]
+    egen = a.egen * b0[..., None] + a0[..., None] * b.egen
+    Ea, Eb = warp_sum_in_order(torch.abs(a.egen)), warp_sum_in_order(torch.abs(b.egen))
+    Ta, Tb = Sa + Ea, Sb + Eb
+    rad = (Ta * b.rad + a.rad * Tb + a.rad * b.rad + Ea * (Sb - torch.abs(b0))
+           + (Sa - torch.abs(a0)) * Eb + Ea * Eb + overflow)
+    if slop:
+        rad = rad + slop * (warp_sum_in_order(torch.abs(coef))
+                            + warp_sum_in_order(torch.abs(egen)) + rad)
     return BPZ(coef=coef, egen=egen, rad=rad)
 
 

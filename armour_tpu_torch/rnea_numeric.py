@@ -106,9 +106,9 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
          set_gravity: bool = True, include_armature: bool = True, wrench_at=None):
     """Passivity-form RNEA torque [..., F].  mass/com/inertia default to the
     robot's nominal values; pass perturbed tensors for true-parameter or
-    sensitivity evaluations."""
-    if wrench_at is not None:
-        raise NotImplementedError("wrench_at (grasp contact wrench) is not ported yet")
+    sensitivity evaluations.  wrench_at: a chain index; then the backward
+    recursion's wrench (f, n) [..., 3] at that body is returned too,
+    (tau, f, n) (the contact wrench's ground truth for grasp.py)."""
     J = robot.num_joints
     mass = _const(robot.mass if mass is None else mass, q)
     com = _const(robot.com if com is None else com, q)
@@ -147,6 +147,7 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
 
     f, n = zero3, zero3
     taus = [None] * robot.num_factors
+    wrench = None
     for i in reversed(range(J)):
         cb = com[..., i, :]
         if i + 1 < J:
@@ -156,6 +157,8 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
             rf, rn = f, n
         n = Ns[i] + rn + _cross(cb, Fs[i]) + _cross(trans[i + 1], rf)
         f = rf + Fs[i]
+        if wrench_at is not None and i == wrench_at:
+            wrench = (f, n)
         axis = int(robot.axes[i])
         if axis != 0 and i < robot.num_factors:
             tau = (1.0 if axis > 0 else -1.0) * n[..., abs(axis) - 1]
@@ -164,7 +167,10 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
             if robot.damping[i] != 0.0:
                 tau = tau + float(robot.damping[i]) * qd[..., i]
             taus[i] = tau
-    return torch.stack(taus, -1)
+    out = torch.stack(taus, -1)
+    if wrench_at is not None:
+        return out, wrench[0], wrench[1]
+    return out
 
 
 def mass_matrix(robot: RobotModel, q, *, mass=None, com=None, inertia=None,

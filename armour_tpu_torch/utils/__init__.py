@@ -40,3 +40,25 @@ def abs_sum_in_order(*parts: torch.Tensor) -> torch.Tensor:
         for i in range(a.shape[-1]):
             total = total + a[..., i]
     return total
+
+
+_LANES = 32
+
+
+def warp_sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """sum x over the last axis in the order of a warp reduction of
+    csrc/pz_ops.cuh (pz_mass_loop, pz_mul_coefs): lane l sums x[l],
+    x[l + 32], ... from 0, then a shuffle butterfly (each lane adds the
+    partial sum of lane l ^ 16, then l ^ 8, ..., l ^ 1), lane 0's sum."""
+    n = x.shape[-1]
+    chunks = max(1, -(-n // _LANES))
+    if chunks * _LANES != n:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (chunks * _LANES - n,))], dim=-1)
+    parts = x.reshape(x.shape[:-1] + (chunks, _LANES))
+    s = x.new_zeros(x.shape[:-1] + (_LANES,))
+    for i in range(chunks):
+        s = s + parts[..., i, :]
+    lane = torch.arange(_LANES, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[..., lane ^ off]
+    return s[..., 0]

@@ -276,7 +276,7 @@ def main() -> None:
                                                           for k, v in split.items()))
         out[name].append({"shape": list(key), "ms": ms, "launch_ms": split})
 
-    jrs, _, _, basis, sets = next(v for k, v in captured.items() if k[0] == "rnea_chain")
+    jrs, _, _, basis, sets, _ = next(v for k, v in captured.items() if k[0] == "rnea_chain")
 
     def first(p):
         return BPZ(coef=p.coef[:1].contiguous(), egen=p.egen[:1].contiguous(),
@@ -317,12 +317,15 @@ def main() -> None:
 
 def step_only() -> None:
     """--step: the W = 64 step of both families timed through
-    make_batch_planner, and the digest of K3's hyperplanes of its cells."""
+    make_batch_planner, the digest of each family's result (k, feasible,
+    cost, viol), of K10's torque and of K3's hyperplanes of the step's
+    cells."""
     import statistics
 
     import armour_tpu_torch  # noqa: F401  (precision pins)
     from chip_smoke import armtd_inputs, card_line, scenes
     from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.dynamics import rnea_pz_sets
     from armour_tpu_torch.jrs import build_jrs
     from armour_tpu_torch.kernels import collision as kcol
     from armour_tpu_torch.kernels.build import build_all
@@ -350,7 +353,11 @@ def step_only() -> None:
             wall_s(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)
         ts = [wall_s(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)[0] for _ in range(7)]
         out[f"{family}_step_ms"] = statistics.median(ts) * 1e3
-    links = forward_occupancy(build_jrs(q0d, z, z, robot, cfg, basis), robot, cfg, basis)
+        res = step(q0d, qd, z, q_des_d, obs_d)
+        out[f"{family}_result_digest"] = digest((res.k, res.feasible, res.cost, res.viol))
+    jrs = build_jrs(q0d, z, z, robot, cfg, basis)
+    out["k10_digest"] = digest(rnea_pz_sets(jrs, robot, cfg, basis))
+    links = forward_occupancy(jrs, robot, cfg, basis)
     sh0 = links.egen.shape[-1] - 3
     radius = torch.zeros_like(links.rad)
     for i in range(sh0):
@@ -360,7 +367,9 @@ def step_only() -> None:
                                  obs_d.generators)
     out["k3_digest"] = digest(tuple(hyp))
     print(f"step: Bernstein {out['bernstein_step_ms']:.3f} ms, ARMTD {out['armtd_step_ms']:.3f} "
-          f"ms (W = 64, medians of 7); K3 digest {out['k3_digest']}")
+          f"ms (W = 64, medians of 7); result digests {out['bernstein_result_digest']} / "
+          f"{out['armtd_result_digest']}, K10 digest {out['k10_digest']}, K3 digest "
+          f"{out['k3_digest']}")
     print(card)
     print(json.dumps(out))
 
@@ -444,7 +453,7 @@ def times_only(captured, robot, cfg, card, dev) -> None:
                     return reach.fk_chain(*i)
             elif name == "rnea_chain":
                 def fn(i=inputs):
-                    return reach.rnea_chain(*i)
+                    return reach.rnea_chain(*i[:5], wrench_at=i[5])
             else:
                 continue
             ms = median_ms(fn, dev, ITERS)

@@ -2,14 +2,16 @@
 iterations of the lockstep closed loop, a rescue-profile solve, the
 real-time planner, the containment of sampled true states in the chain
 kernels' sets, the two entry points plan_from_armour_in and the rest-FRS
-solvability checker, three iterations of a hard scenario, and the ARMTD
-(constant-acceleration) trajectory family end to end.
+solvability checker, three iterations of a hard scenario, the ARMTD
+(constant-acceleration) trajectory family end to end, and the grasp path
+(the Kinova with the dumbbell payload, contact rows on) with a step of
+every zoo robot.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
-     flags; build the fifteen kernels from csrc/ (one nvcc per source, in parallel)
+     flags; build the sixteen kernels from csrc/ (one nvcc per source, in parallel)
      and print the nvcc flags, every kernel's registers, spills, stack frame
      and static shared memory (ptxas) and K7's / K8's / K9's / K10's dynamic
      shared memory a block.
@@ -117,6 +119,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      9's containment on the ARMTD sets (65,536 sampled states); three
      closed-loop iterations with rescue (K11, K5, K6 launched, no safety
      flag); batch-1 p50 / p99.
+  13. the grasp path: the Kinova with the dumbbell payload (zoo
+     kinova_dumbbell: J = 9 bodies, F = 7 factors) at the full width (T =
+     128, O = 40, K = 4096) over the same 64 worlds at rest, its ultimate
+     bound derived at V_max = 5e-4 (tests/test_grasp.py:170), cfg.
+     grasp_constraints on with the permissive contact parameters (mu 1.5,
+     r 0.5): one warm-up step that records each kernel's inputs, then one
+     step with the launch counters set to 0 just before it and read just
+     after, which must launch K12, K9, K10 (torque and wrench), K15, K16,
+     K3 and K13 once and K4, K7, K8, K14, and neither K1 nor K2; every
+     recorded call against its plain version (K16 and K15 bit for bit, K12's
+     velocity PZs and R bit for bit, K9 / K10 / K7 / K8 within the
+     tolerances above, K14 bit for bit), timed; every feasible k passes
+     the plain full-set check, v_grasp included; the constraint groups
+     over their thresholds in the infeasible worlds, and the same step's
+     feasible count without grasp rows; the step's wall time, its
+     device time, activities and busy share, K16's event and device time
+     and bound, the reach sets' window from K10 to K3 (K15 and K16 alone);
+     the same step with the tight contact parameters (1e-4, 1e-4), which
+     must leave every world infeasible (NaN k); then a W = 8 step of every
+     zoo robot (the UR5 with F = 6 included), counted, every kernel call of
+     it against its plain version (K7 / K8 at F = 6, K9 / K10 at F < J),
+     its verdicts against the same step through the port on the CPU (at
+     most one flip), each feasible k certified by the plain full-set check,
+     the groups over their thresholds printed for the infeasible worlds,
+     and the step again with the torque rows off (the JAX package's zoo
+     test's setting), its feasible k certified too.
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -178,6 +206,10 @@ ARMTD_QD0 = 0.6      # rad/s: phase 12's start velocities, seeded uniform in +-A
 ARMTD_SEED = 12
 ARMTD_ITERATIONS = 3
 COM_UNCERTAINTY = 0.05   # the uncertain-COM route (tests/test_torch_reachsets.py)
+GRASP_V_MAX = 5e-4       # phase 13: the dumbbell's V_max (tests/test_grasp.py:170)
+GRASP_PERMISSIVE = (1.5, 0.5)   # (mu, support radius), tests/test_grasp.py:175
+GRASP_TIGHT = (1e-4, 1e-4)      # tests/test_grasp.py:178
+N_ZOO = 8                # worlds of each zoo robot's step in phase 13
 
 
 def fail(msg: str) -> None:
@@ -398,8 +430,9 @@ def _alm_io_bytes(rows, k, lam, rho, newton: bool, want_c: bool) -> int:
     Wn, Q = k.shape[:2]
     F, M = rows.args.F, rows.M
     out = Wn * Q * (4 + 1) + (Wn * Q * F * 4 if newton else 0) + (Wn * Q * M * 4 if want_c else 0)
-    return _nbytes(t["u_coef"], t["u_hi"], t["center"], sc.A, sc.d, sc.delta, sc.row, sc.mask,
-                   t["traj"], t["limits"], k, lam, rho) + out
+    grasp = (t["g_coef"], t["g_rad"]) if rows.args.TG else ()
+    return _nbytes(t["u_coef"], t["u_hi"], *grasp, t["center"], sc.A, sc.d, sc.delta, sc.row,
+                   sc.mask, t["traj"], t["limits"], k, lam, rho) + out
 
 
 def _alm_flops(rows, nq: int, newton: bool) -> int:
@@ -407,7 +440,7 @@ def _alm_flops(rows, nq: int, newton: bool) -> int:
     torque dot products (with the k-gradients for K7), K4's 2C candidates
     per screened row, and per row the penalty (K7: g and H terms)."""
     a = rows.args
-    B, F, TF, TJ, K, C, M = a.B, a.F, a.TF, a.TJ, a.K, a.C, rows.M
+    B, F, TF, TJ, K, C, M = a.B, a.F, a.TF + a.TG, a.TJ, a.K, a.C, rows.M
     nv = 1 + F if newton else 1
     per = (B * F * (4 + (F if newton else 0)) + 2 * nv * B * (3 * TJ + TF) + K * C * 14
            + M * 6)
@@ -449,7 +482,8 @@ def check_alm_newton(inputs, dev):
     z0 = lam + rho[..., None] * c0
     act0 = z0 > 0
     flip = (act0 != (lam + rho[..., None] * ck > 0)).any(-1)
-    tie = _collision_ties(rows, k) & act0[..., 2 * rows.args.TF:2 * rows.args.TF + rows.args.K]
+    c0_ = 2 * rows.args.TF + rows.args.TG
+    tie = _collision_ties(rows, k) & act0[..., c0_:c0_ + rows.args.K]
     clear = ~(flip | tie.any(-1))                                      # [W, S]
     w = torch.where(act0, rho[..., None], torch.zeros_like(c0))
     le = torch.where(act0, z0, torch.zeros_like(c0))
@@ -489,15 +523,25 @@ def check_alm_newton(inputs, dev):
 
 def _row_mag(rows, kq, c0):
     """Magnitude of the terms of every row at kq [W, Q, F]: 1 + |c|, and for
-    the torque rows also sum_b |u_coef_b phi_b| + |hi|."""
+    the torque rows also sum_b |u_coef_b phi_b| + |hi|, for the grasp rows
+    sum_b |g_coef_b phi_b| + |g_rad|."""
     a = rows.args
     mag = 1.0 + c0.abs()
+    phi = rows.basis.phi(kq).abs()
     if a.TF:
-        phi = rows.basis.phi(kq).abs()
         u_abs = torch.matmul(phi, rows.tensors["u_coef"].abs().transpose(1, 2))  # [W, Q, TF]
         t = u_abs + rows.tensors["u_hi"].abs()[:, None]
         mag[..., :2 * a.TF] += torch.cat([t, t], dim=-1)
+    if a.TG:
+        mag[..., 2 * a.TF:2 * a.TF + a.TG] += _grasp_mag(rows, phi)
     return mag
+
+
+def _grasp_mag(rows, phi_abs):
+    """sum_b |g_coef_b phi_b| + |g_rad| of every grasp row [W, Q, TG]."""
+    t = rows.tensors
+    return (torch.matmul(phi_abs, t["g_coef"].abs().transpose(1, 2))
+            + t["g_rad"].abs()[:, None])
 
 
 def _collision_ties(rows, k):
@@ -608,33 +652,41 @@ def check_alm_maxima(inputs, dev):
     def plain():
         return nlp.maxima_plain(kq, prob, cfg, basis)
 
-    vt, vs = kern()
-    vt2, vs2 = kern()
-    pt, ps = plain()
-    same = _bits(vt, vt2) and _bits(vs, vs2)
+    vt, vs, vg = kern()
+    vt2, vs2, vg2 = kern()
+    pt, ps, pg = plain()
+    same = _bits(vt, vt2) and _bits(vs, vs2) and _bits(vg, vg2)
     state_ok = _bits(vs, ps)
+    phi = basis.phi(kq).abs()
     if rows.args.TF:
-        u_abs = torch.matmul(basis.phi(kq).abs(), rows.tensors["u_coef"].abs().transpose(1, 2))
+        u_abs = torch.matmul(phi, rows.tensors["u_coef"].abs().transpose(1, 2))
         mag = (u_abs + rows.tensors["u_hi"].abs()[:, None]).amax(-1) + 1.0
     else:
         mag = torch.ones_like(pt)
+    gmag = _grasp_mag(rows, phi).amax(-1) + 1.0 if rows.args.TG else torch.ones_like(pg)
     t_ratio = float(((vt - pt).abs() / (ALM_C_TOL * mag)).max())
+    g_ratio = float(((vg - pg).abs() / (ALM_C_TOL * gmag)).max())
     torch.cuda.synchronize(dev)
-    ok = same and state_ok and t_ratio <= 1.0
-    err = max(float((vt - pt).abs().max()), float((vs - ps).abs().max()))
+    ok = same and state_ok and t_ratio <= 1.0 and g_ratio <= 1.0
+    err = max(float((vt - pt).abs().max()), float((vs - ps).abs().max()),
+              float((vg - pg).abs().max()))
     note = (f"max mode at {kq.shape[1]} points: state maxima "
             f"{'bit for bit' if state_ok else 'DIFFER'} "
             f"({int((vs.view(torch.int32) != ps.contiguous().view(torch.int32)).sum())} of "
             f"{vs.numel()} differ), torque maxima worst |d|/tol {t_ratio:.3g} (max |d| "
-            f"{float((vt - pt).abs().max()):.3g}; {int((vt != pt).sum())} not bit for bit); a "
-            f"second call {'gives the same bits' if same else 'DIFFERS'}")
-    # the max mode reads the torque rows and their limits, the trajectory
-    # scalars and the untightened state limits (rows 3-5); no link centre
+            f"{float((vt - pt).abs().max()):.3g}; {int((vt != pt).sum())} not bit for bit), "
+            f"grasp maxima worst |d|/tol {g_ratio:.3g} ({int((vg != pg).sum())} not bit for "
+            f"bit); a second call {'gives the same bits' if same else 'DIFFERS'}")
+    # the max mode reads the torque and grasp rows and the torque limits, the
+    # trajectory scalars and the untightened state limits (rows 3-5); no
+    # link centre
     a, t = rows.args, rows.tensors
     torque = (t["u_coef"], t["u_hi"]) if a.TF else ()
-    nbytes = (_nbytes(*torque, t["traj"], t["limits"][3:], t["continuous"], kq)
-              + kq.shape[0] * kq.shape[1] * 8)
-    flops = a.W * kq.shape[1] * (a.B * a.F * 4 + 2 * a.B * a.TF + 3 * a.TF + 8 * a.F * 60)
+    grasp = (t["g_coef"], t["g_rad"]) if a.TG else ()
+    nbytes = (_nbytes(*torque, *grasp, t["traj"], t["limits"][3:], t["continuous"], kq)
+              + kq.shape[0] * kq.shape[1] * 12)
+    flops = a.W * kq.shape[1] * (a.B * a.F * 4 + 2 * a.B * (a.TF + a.TG) + 3 * a.TF + a.TG
+                                 + 8 * a.F * 60)
     return ok, err, kern, plain, nbytes, flops, note
 
 
@@ -812,7 +864,8 @@ def check_chain(name, inputs, dev):
     """K9 / K10 against their plain versions (forward_occupancy_plain,
     rnea_pz_sets_plain) on the card: every coef / egen / rad entry within
     TOL (PR 1's 1e-5) of the plain output entry's total mass
-    (sum |coef| + sum |egen| + rad, the scale its summed terms share) + 1e-6."""
+    (sum |coef| + sum |egen| + rad, the scale its summed terms share) + 1e-6;
+    K10's wrench outputs (a grasp step's, wrench_at set) likewise."""
     from armour_tpu_torch import dynamics, kinematics
     from armour_tpu_torch.kernels import reach
 
@@ -828,29 +881,32 @@ def check_chain(name, inputs, dev):
         in_bytes = sum(_nbytes(t[:, :, :robot.num_joints])
                        for t in (jrs.R.coef, jrs.R.egen, jrs.R.rad))
     else:
-        jrs, robot, cfg, basis, sets = inputs
+        jrs, robot, cfg, basis, sets, wrench_at = inputs
 
         def kern():
-            return reach.rnea_chain(jrs, robot, cfg, basis, sets)
+            return reach.rnea_chain(jrs, robot, cfg, basis, sets, wrench_at=wrench_at)
 
         def plain():
-            return dynamics.rnea_pz_sets_plain(jrs, robot, cfg, basis, sets)
+            return dynamics.rnea_pz_sets_plain(jrs, robot, cfg, basis, sets,
+                                               wrench_at=wrench_at)
         P = len(sets)
         in_bytes = _bpz_bytes(jrs.R) + _bpz_bytes(jrs.qd) + _bpz_bytes(jrs.qda) \
             + _bpz_bytes(jrs.qdda)
-    got, again, ref = kern(), kern(), plain()
+    got, again, ref = _tup(kern()), _tup(kern()), _tup(plain())
     torch.cuda.synchronize(dev)
-    same = all(torch.equal(getattr(got, f), getattr(again, f)) for f in ("coef", "egen", "rad"))
-    mass = ref.coef.abs().sum(-1) + ref.egen.abs().sum(-1) + ref.rad.abs()
-    ratio = max(_rel_ratio(got.coef, ref.coef, mass[..., None]),
-                _rel_ratio(got.egen, ref.egen, mass[..., None]),
-                _rel_ratio(got.rad, ref.rad, mass))
-    err = max(float((getattr(got, f) - getattr(ref, f)).abs().max())
-              for f in ("coef", "egen", "rad"))
-    finite = all(bool(torch.isfinite(getattr(got, f)).all()) for f in ("coef", "egen", "rad"))
+    fields = ("coef", "egen", "rad")
+    same = all(torch.equal(getattr(g, f), getattr(a, f))
+               for g, a in zip(got, again) for f in fields)
+    ratio, err, finite = 0.0, 0.0, True
+    for g, r in zip(got, ref):
+        mass = r.coef.abs().sum(-1) + r.egen.abs().sum(-1) + r.rad.abs()
+        ratio = max(ratio, _rel_ratio(g.coef, r.coef, mass[..., None]),
+                    _rel_ratio(g.egen, r.egen, mass[..., None]), _rel_ratio(g.rad, r.rad, mass))
+        err = max([err] + [float((getattr(g, f) - getattr(r, f)).abs().max()) for f in fields])
+        finite &= all(bool(torch.isfinite(getattr(g, f)).all()) for f in fields)
     Wn, T = jrs.R.rad.shape[:2]
     flops = _chain_flops(name, Wn, T, robot.num_joints, P, basis, jrs.R.egen.shape[-1])
-    nbytes = in_bytes + _bpz_bytes(got)
+    nbytes = in_bytes + sum(_bpz_bytes(g) for g in got)
     return ratio <= 1.0 and finite and same, err, kern, plain, nbytes, flops, \
         (f"worst |d|/tol {ratio:.3g}, max |d| {err:.3g}; a second call "
          f"{'gives the same bits' if same else 'DIFFERS'}")
@@ -1006,6 +1062,8 @@ REPLACES = {
     "alm_loop": ("armour_tpu_torch/csrc/alm_loop.cu", "armour_tpu/nlp.py:427"),
     "reach_assembly": ("armour_tpu_torch/csrc/reach_assembly.cu",
                        "armour_tpu/dynamics.py:293, armour_tpu/kinematics.py:115"),
+    "grasp_rows": ("armour_tpu_torch/csrc/grasp_rows.cu",
+                   "armour_tpu/pz/bpz.py:120 (mul, :170), armour_tpu/grasp.py:131"),
 }
 # the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
 # only the uncertain-COM route, which phase 3 drives as their own path
@@ -1020,7 +1078,8 @@ HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperpl
                       "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
                       "alm_newton": "k7", "alm_values": "k8", "fk_chain": "k9",
                       "rnea_chain": "k10", "jrs_armtd": "k11", "jrs_bernstein": "k12",
-                      "screen_collision": "k13", "alm_loop": "k14", "reach_assembly": "k15"}
+                      "screen_collision": "k13", "alm_loop": "k14", "reach_assembly": "k15",
+                      "grasp_rows": "k16"}
 
 
 def _bound_ms(nbytes, flops) -> float:
@@ -2213,9 +2272,11 @@ def check_reach_assembly(inputs, dev):
          f"{'views' if views else 'COPIES'}")
 
 
-def reach_window(fn, dev, label) -> dict:
+def reach_window(fn, dev, label, between=("k15_",)) -> dict:
     """The reach sets' device activities of one call of fn: from K10's
-    launch to K3's only K15 may run (once).  Returns the window's names."""
+    launch to K3's only the kernels `between` may run, once each and in
+    that order (K15; K15 then K16 with grasp rows).  Returns the window's
+    names."""
     names = [n for n, _ in device_timeline(fn, dev)]
     i10 = [i for i, n in enumerate(names) if "k10_" in n]
     i3 = [i for i, n in enumerate(names) if "k3_" in n]
@@ -2224,8 +2285,8 @@ def reach_window(fn, dev, label) -> dict:
     window = names[i10[0] + 1:i3[0]]
     print(f"  {label}: {len(names)} device activities in the reach sets; from K10 to K3: "
           f"{[n[:40] for n in window]}")
-    if len(window) != 1 or "k15_" not in window[0]:
-        fail(f"{label}: other device work than K15 between K10 and K3: {window}")
+    if len(window) != len(between) or not all(b in n for b, n in zip(between, window)):
+        fail(f"{label}: other device work than {between} between K10 and K3: {window}")
     return {"reach_activities": len(names), "k10_to_k3": [n[:40] for n in window]}
 
 
@@ -2435,6 +2496,353 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the grasp path: the Kinova with the dumbbell payload, K16, the zoo
+# ---------------------------------------------------------------------------
+
+
+def k16_work(Wn, T, B, E, P) -> tuple:
+    """(bytes, float32 operations) K16 must move and do at W worlds, T steps:
+    it reads the five wrench components it uses (B + E + 1 floats each) and
+    writes three rows (B + 1 floats each) per (world, step); per square 6
+    operations a pair (the product and its sum, two abs, their product and
+    its sum), the abs sums of coef and egen, in_abs, egen, the radius and
+    the slop term; then the rows' sums and scales and their reductions."""
+    per_bytes = 4 * (5 * (B + E + 1) + 3 * (B + 1))
+    per_ops = 5 * (6 * P + 5 * B + 7 * E + 18) + 7 * B + 13 * E + 8
+    return Wn * T * per_bytes, Wn * T * per_ops
+
+
+def check_grasp(inputs, dev):
+    """K16 against grasp_rows_plain on the same CUDA inputs: g_coef and g_rad
+    bit for bit (the same operations in the same order), and a second call
+    the same bits."""
+    from armour_tpu_torch import grasp
+    from armour_tpu_torch.kernels import grasp as kgrasp
+
+    f_c, n_c, params, cfg, basis = inputs
+
+    def kern():
+        return kgrasp.grasp_rows(f_c, n_c, params, cfg, basis)
+
+    def plain():
+        return grasp.grasp_rows_plain(f_c, n_c, params, cfg, basis)
+
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize(dev)
+    bits = _bits(got.g_coef, want.g_coef) and _bits(got.g_rad, want.g_rad)
+    same = _bits(got.g_coef, again.g_coef) and _bits(got.g_rad, again.g_rad)
+    finite = bool(torch.isfinite(got.g_coef).all()) and bool(torch.isfinite(got.g_rad).all())
+    err = max(float((got.g_coef - want.g_coef).abs().max()),
+              float((got.g_rad - want.g_rad).abs().max()))
+    Wn, _, T = f_c.rad.shape[:3]
+    nbytes, flops = k16_work(Wn, T, basis.size, f_c.egen.shape[-1], len(basis.pair_i))
+    note = (f"mu {params.mu}, r {params.support_radius}: g_coef and g_rad "
+            f"{'bit for bit' if bits else 'DIFFER'}, max |d| {err:.3g}; a second call "
+            f"{'gives the same bits' if same else 'DIFFERS'}")
+    return bits and same and finite, err, kern, plain, nbytes, flops, note
+
+
+def check_zoo_captures(captured, dev, label) -> str:
+    """Every kernel call recorded on a zoo robot's step against its plain
+    version on the same inputs, untimed (K7 / K8 / K14, K9 / K10, K12, K13,
+    K3, K4, K15); fails on a mismatch or if a kernel of the step was not
+    recorded.  Returns a summary."""
+    check = {"jrs_bernstein": lambda x, d: check_jrs("jrs_bernstein", x, d),
+             "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
+             "screen_collision": lambda x, d: check_screen(x, d)[:7],
+             "reach_assembly": check_reach_assembly}
+    shapes, bad = {}, []
+    for (name, key), inputs in captured.items():
+        if name in ("fk_chain", "rnea_chain"):
+            ok, _, _, _, _, _, note = check_chain(name, inputs, dev)
+        elif name in ALM_KERNELS:
+            ok, _, _, _, _, _, note = check_alm(name, key, inputs, dev)
+        elif name in check:
+            ok, _, _, _, _, _, note = check[name](inputs, dev)
+        else:
+            continue
+        shapes[name] = shapes.get(name, 0) + 1
+        if not ok:
+            bad.append(f"{name} {key}: {note}")
+    missing = [k for k in BERNSTEIN_KERNELS if k not in shapes]
+    if bad or missing:
+        fail(f"{label}: kernels against their plain versions: not recorded {missing}, "
+             f"mismatches {bad}")
+    return ", ".join(f"{n} {c}" for n, c in shapes.items())
+
+
+def zoo_steps(dev) -> dict:
+    """A W = N_ZOO step of every zoo robot on the card (ArmourConfig.
+    for_robot: the cached ultimate bound, the full width), from mid-range
+    postures seeded around the joint boxes' centres toward a goal 0.05 rad
+    away, among the obstacles of the first N_ZOO saved worlds.  The first
+    call records every kernel call, each held against its plain version
+    (K7 / K8 at the UR5's F = 6, K9 / K10 at the Fetch arm's and the
+    dumbbell's F < J among them); the second is counted: every kernel of a
+    Bernstein step must launch, K16 not.  Witnesses of the verdicts: the
+    same step through the port on the CPU (plain versions) must agree on
+    feasibility with at most one flip; every feasible k passes the plain
+    full-set check; the groups over their thresholds in the infeasible
+    worlds are printed; and the step again with the torque rows off
+    (turn_off_input_constraints, the configuration of the JAX package's
+    tests/test_robot_zoo.py:test_zoo_plan_step_runs, whose Kinova-tuned
+    controller constants do not fit the other robots' torque limits), its
+    feasible k certified too.  Returns {name: numbers}."""
+    import dataclasses
+
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.collision import (ObstacleSet, collision_constraints_plain,
+                                            pad_obstacles, stack_obstacles)
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import make_batch_planner, plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.utils.timing import wall_s
+    from armour_tpu_torch.worlds import load_world_csv
+
+    worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:N_ZOO]]
+    rng = np.random.default_rng(13)
+    out = {}
+
+    def certify(r, cfg, args, obs_d, res, label):
+        feas = res.feasible
+        if not bool(torch.isfinite(res.k[feas]).all()) or bool(
+                torch.isfinite(res.k[~feas]).any()):
+            fail(f"{label}: k is not finite exactly where a world is feasible")
+        if not bool(feas.any()):
+            return
+        basis = make_basis(r.num_factors, cfg.max_poly_degree)
+        prob = plan_problem(*args, obs_d, r, cfg, basis)
+        k_chk = torch.where(feas[:, None], res.k, torch.zeros_like(res.k))[:, None]
+        v = torch.stack(nlp.max_violations(k_chk, prob, cfg, basis,
+                                           collision_fn=collision_constraints_plain),
+                        dim=-1)[:, 0]
+        if not bool(nlp.viol_feasible(v, cfg)[feas].all()):
+            fail(f"{label}: the plain full-set check rejects a feasible world")
+
+    for name in zoo.list_robots():
+        r = zoo.load_zoo_robot(name)
+        cfg = ArmourConfig.for_robot(r, dtype=torch.float32)
+        lo = np.maximum(r.position_limits_lb, -np.pi)
+        hi = np.minimum(r.position_limits_ub, np.pi)
+        q0 = (lo + hi) / 2.0 + rng.uniform(-0.1, 0.1, (N_ZOO, r.num_factors))
+        obs = stack_obstacles([pad_obstacles(w.obstacle_centers, w.obstacle_generators,
+                                             cfg.max_obstacles, cfg.dtype) for w in worlds])
+        obs_d = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                            mask=obs.mask.to(dev))
+        q0d = torch.as_tensor(q0, dtype=cfg.dtype).to(dev)
+        z = torch.zeros_like(q0d)
+        args = (q0d, z, z, q0d + 0.05)
+        step = make_batch_planner(r, cfg)
+        with kernels.capture() as captured:
+            t_first, _ = wall_s(lambda: step(*args, obs_d), dev)
+        kernels.reset_counts()
+        t, res = wall_s(lambda: step(*args, obs_d), dev)
+        n = kernels.counts()
+        missing = [k for k in BERNSTEIN_KERNELS if n[k] == 0]
+        if missing or n["grasp_rows"]:
+            fail(f"zoo {name}: kernels not launched {missing}, K16 x{n['grasp_rows']}")
+        checked = check_zoo_captures(captured, dev, f"zoo {name}")
+        captured.clear()
+        certify(r, cfg, args, obs_d, res, f"zoo {name}")
+        feas = res.feasible
+        thr = torch.tensor(nlp.viol_thresholds(cfg), device=dev)
+        over = (res.viol[~feas] > thr).sum(0).tolist()
+
+        q0c = torch.as_tensor(q0, dtype=cfg.dtype)
+        zc = torch.zeros_like(q0c)
+        t_cpu, res_cpu = wall_s(lambda: make_batch_planner(r, cfg, device="cpu")(
+            q0c, zc, zc, q0c + 0.05, obs), "cpu")
+        card_v, cpu_v = feas.cpu().tolist(), res_cpu.feasible.tolist()
+        flips = sum(x != y for x, y in zip(card_v, cpu_v))
+
+        cfg_off = dataclasses.replace(cfg, turn_off_input_constraints=True)
+        res_off = make_batch_planner(r, cfg_off)(*args, obs_d)
+        certify(r, cfg_off, args, obs_d, res_off, f"zoo {name}, torque rows off")
+        n_off = int(res_off.feasible.sum())
+        print(f"  zoo {name} (J = {r.num_joints}, F = {r.num_factors}): W={N_ZOO} step "
+              f"{t * 1e3:.1f} ms (first call {t_first * 1e3:.1f} ms), {int(feas.sum())}/{N_ZOO} "
+              f"feasible, launches K7 x{n['alm_newton']}, K8 x{n['alm_values']}, "
+              f"K10 x{n['rnea_chain']}, K16 x{n['grasp_rows']}; kernels against their plain "
+              f"versions, shapes: {checked}; infeasible worlds over their thresholds: torque "
+              f"{over[0]}, collision {over[1]}, state {over[2]}, grasp {over[3]}; CPU plain "
+              f"{sum(cpu_v)}/{N_ZOO} feasible ({flips} differ, {t_cpu:.1f} s); torque rows "
+              f"off: {n_off}/{N_ZOO} feasible")
+        if flips > 1:
+            fail(f"zoo {name}: card {card_v} and CPU {cpu_v} verdicts differ on more than one "
+                 f"world")
+        out[name] = {"step_ms": t * 1e3, "feasible": int(feas.sum()), "over": over,
+                     "feasible_cpu": sum(cpu_v), "feasible_torque_off": n_off}
+    return out
+
+
+def grasp_phase(dev) -> tuple:
+    """Phase 13: the grasp path on the Kinova with the dumbbell payload at
+    the full width (see the module docstring).  Returns (K16's kernels-line
+    row, numbers)."""
+    import dataclasses
+
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.collision import ObstacleSet, collision_constraints_plain
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import make_batch_planner, plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.utils.timing import median_ms, wall_s
+
+    robot = zoo.kinova_dumbbell()
+    t_ub, ub = wall_s(lambda: derive_ultimate_bound(robot, v_max=GRASP_V_MAX), "cpu")
+    mu, rr = GRASP_PERMISSIVE
+    cfg = ArmourConfig.for_robot(robot, derive_ub=False, ub=ub, dtype=torch.float32,
+                                 grasp_constraints=True, grasp_mu=mu, grasp_support_radius=rr)
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    q0, qd0, qdd0, q_des, obs = scenes(robot, cfg, N_WORLDS)
+    args = [torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, qd0, qdd0, q_des)]
+    obs_d = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                        mask=obs.mask.to(dev))
+    step = make_batch_planner(robot, cfg)
+    with kernels.capture() as captured:
+        t_first, _ = wall_s(lambda: step(*args, obs_d), dev)
+    kernels.reset_counts()
+    t_main, res = wall_s(lambda: step(*args, obs_d), dev)
+    launches, dlaunches = kernels.counts(), kernels.device_counts()
+    print(f"phase 13: grasp path, {robot.name} (J = {robot.num_joints}, F = "
+          f"{robot.num_factors}), ub at V_max {GRASP_V_MAX} (eps {ub.eps:.5f}, m_min "
+          f"{ub.m_min}, m_max {ub.m_max:.6f}; derived on the host in {t_ub:.2f} s), contact "
+          f"mu {mu}, r {rr}: W={N_WORLDS} step {t_main * 1e3:.1f} ms (first call "
+          f"{t_first * 1e3:.1f} ms); launches {launches}")
+    for name in BERNSTEIN_KERNELS + ("grasp_rows",):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the grasp step")
+    for name in ("jrs_bernstein", "fk_chain", "rnea_chain", "reach_assembly", "grasp_rows",
+                 "build_hyperplanes", "screen_collision"):
+        if launches[name] != 1:
+            fail(f"kernel {name} launched {launches[name]} times in one grasp step, not once")
+    for name in OP_KERNELS:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched on the grasp step")
+
+    # every recorded call against its plain version, each kernel twice
+    check = {"jrs_bernstein": lambda x, d: check_jrs("jrs_bernstein", x, d),
+             "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
+             "screen_collision": lambda x, d: check_screen(x, d)[:7],
+             "reach_assembly": check_reach_assembly, "grasp_rows": check_grasp}
+    sums, k16, all_ok = {}, None, True
+    for (name, key), inputs in captured.items():
+        if name in ("fk_chain", "rnea_chain"):
+            res_c = check_chain(name, inputs, dev)
+        elif name in ALM_KERNELS:
+            res_c = check_alm(name, key, inputs, dev)
+        elif name in check:
+            res_c = check[name](inputs, dev)
+        else:
+            continue
+        ok, err, kern, plain, nbytes, flops, note = res_c
+        ms, pms = median_ms(kern, dev, TIMING_ITERS), median_ms(plain, dev, TIMING_ITERS)
+        print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB, bound "
+              f"{_bound_ms(nbytes, flops):.4f} ms")
+        all_ok &= ok
+        sm = sums.setdefault(name, [0.0, 0.0, 0])
+        sm[0] += ms
+        sm[1] += pms
+        sm[2] += 1
+        if name == "grasp_rows":
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
+            src, rep = REPLACES[name]
+            k16 = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                   "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None, "variants": 1, "device_launches": dlaunches[name]}
+            k16_work_done = (nbytes, flops)
+    captured.clear()
+    if not all_ok:
+        fail("a kernel disagrees with its plain version on the grasp step")
+    if k16 is None or any(n not in sums for n in ALM_KERNELS + ("rnea_chain", "fk_chain")):
+        fail("the grasp step recorded no K16 / K9 / K10 / K7 / K8 / K14 call")
+    print("  grasp step kernels, ms summed over their shapes (kernel / plain): " + ", ".join(
+        f"{n} {v[0]:.4f} / {v[1]:.4f} ({v[2]} shapes)" for n, v in sums.items()))
+
+    # results: the full-set check, the grasp rows included
+    k, feas = res.k, res.feasible
+    if not bool(torch.isfinite(k[feas]).all()) or bool((k[feas].abs() > 1.0 + 1e-6).any()):
+        fail("a feasible grasp k is not finite or leaves [-1, 1]")
+    if bool(torch.isfinite(k[~feas]).any()):
+        fail("an infeasible grasp world returned a finite k")
+    prob = plan_problem(*args, obs_d, robot, cfg, basis)
+    if prob.grasp is None or tuple(prob.grasp.g_coef.shape) != (
+            N_WORLDS, cfg.num_time_steps, 3, basis.size):
+        fail("the grasp plan carries no grasp rows of the expected shape")
+    k_chk = torch.where(feas[:, None], k, torch.zeros_like(k))[:, None]
+    v = torch.stack(nlp.max_violations(k_chk, prob, cfg, basis,
+                                       collision_fn=collision_constraints_plain), dim=-1)[:, 0]
+    cert = nlp.viol_feasible(v, cfg)
+    if not bool(cert[feas].all()):
+        fail(f"the plain full-set check rejects feasible grasp worlds "
+             f"{torch.nonzero(feas & ~cert).flatten().tolist()}")
+    n_feas = int(feas.sum())
+    vg = float(v[feas][:, 3].max()) if n_feas else float("nan")
+    # what blocks the infeasible worlds: the groups over their thresholds at
+    # the returned attempt (SolveResult.viol: torque, collision, state, grasp)
+    thr = torch.tensor(nlp.viol_thresholds(cfg), device=dev)
+    over = (res.viol[~feas] > thr).sum(0).tolist()
+    print(f"  {n_feas}/{N_WORLDS} grasp worlds feasible under mu {mu}, r {rr}; every feasible "
+          f"k passes the plain full-set check (max v_grasp {vg:.4g} against "
+          f"{cfg.grasp_violation_threshold}); of the {N_WORLDS - n_feas} infeasible, over "
+          f"their thresholds: torque {over[0]}, collision {over[1]}, state {over[2]}, grasp "
+          f"{over[3]}")
+    del prob
+    res_off = make_batch_planner(robot, dataclasses.replace(cfg, grasp_constraints=False))(
+        *args, obs_d)
+    n_off = int(res_off.feasible.sum())
+    print(f"  the same step without grasp rows: {n_off}/{N_WORLDS} feasible")
+
+    # the tight contact parameters: every world rejected
+    mu_t, r_t = GRASP_TIGHT
+    cfg_t = dataclasses.replace(cfg, grasp_mu=mu_t, grasp_support_radius=r_t)
+    step_t = make_batch_planner(robot, cfg_t)
+    kernels.reset_counts()
+    t_tight, res_t = wall_s(lambda: step_t(*args, obs_d), dev)
+    n_t = int(res_t.feasible.sum())
+    print(f"  tight contact parameters (mu {mu_t}, r {r_t}): {n_t}/{N_WORLDS} feasible, step "
+          f"{t_tight * 1e3:.1f} ms (first call), K16 x{kernels.counts()['grasp_rows']}")
+    if n_t or not bool(torch.isnan(res_t.k).all()):
+        fail("the tight contact parameters left a world feasible or a k finite")
+
+    # timings: the step, its device time and activities, the reach window
+    t_steps = [wall_s(lambda: step(*args, obs_d), dev)[0] for _ in range(3)]
+    t_step = statistics.median(t_steps)
+    t_rs = statistics.median(
+        [wall_s(lambda: plan_problem(*args, obs_d, robot, cfg, basis), dev)[0]
+         for _ in range(3)])
+    breakdown = profile_step(lambda: step(*args, obs_d), dev, t_step)
+    k16_dev = breakdown.get("hand_device_ms", {}).get("grasp_rows", float("nan"))
+    print(f"  grasp W={N_WORLDS} step {t_step * 1e3:.1f} ms (median of 3), reach sets "
+          f"{t_rs * 1e3:.1f} ms, solve {(t_step - t_rs) * 1e3:.1f} ms; "
+          f"{breakdown.get('device_activities', 'not measured')} device activities, busy "
+          f"share {breakdown.get('device_busy_share', float('nan')):.3f}")
+    print(f"  K16 (grasp_rows): event {k16['ms']:.4f} ms, device {k16_dev:.4f} ms in one step, "
+          f"{k16['launches']} launch, bound {k16['bound_ms']:.4f} ms ({k16['bound_by']}: "
+          f"{k16_work_done[0] / 1e6:.1f} MB, {k16_work_done[1] / 1e9:.3f} G operations), "
+          f"plain {k16['plain_ms']:.4f} ms, library none")
+    window = reach_window(lambda: plan_problem(*args, obs_d, robot, cfg, basis), dev,
+                          f"grasp reach sets, W={N_WORLDS}", between=("k15_", "k16_"))
+    zoo_out = zoo_steps(dev)
+    perf = {"grasp_step_ms": t_step * 1e3, "grasp_reachset_ms": t_rs * 1e3,
+            "grasp_feasible": n_feas, "grasp_feasible_tight": n_t,
+            "grasp_feasible_without_rows": n_off, "grasp_infeasible_over": over,
+            "grasp_launches": {n: launches[n] for n in BERNSTEIN_KERNELS + ("grasp_rows",)},
+            "grasp_kernel_ms": {n: v[0] for n, v in sums.items()},
+            "grasp_plain_ms": {n: v[1] for n, v in sums.items()},
+            "k16_device_ms": k16_dev, "zoo": zoo_out,
+            **{f"grasp_{kk}": vv for kk, vv in breakdown.items()},
+            **{f"grasp_{kk}": vv for kk, vv in window.items()}}
+    return k16, perf
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2511,6 +2919,8 @@ def main() -> None:
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the main path: the reach sets should run "
                  f"as the chain kernels K9 / K10")
+    if launches["grasp_rows"] != 0:
+        fail("K16 was launched on the flagship's step, which has no grasp rows")
 
     # ---- phase 3: kernels against their plain versions ----
     jrs64 = next(v[0] for k, v in captured.items() if k[0] == "rnea_chain")
@@ -2619,6 +3029,10 @@ def main() -> None:
     k11, armtd_perf = armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, t_step)
     krows.append(k11)
 
+    # ---- phase 13: the grasp path and the zoo ----
+    k16, grasp_perf = grasp_phase(dev)
+    krows.append(k16)
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -2626,7 +3040,7 @@ def main() -> None:
             "uncertain_com_step_ms": t_com,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown, **window,
-            **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf}
+            **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

@@ -10,6 +10,6 @@ setup(
     ),
     packages=find_packages(include=["armour_tpu", "armour_tpu.*",
                                     "armour_tpu_torch", "armour_tpu_torch.*"]),
-    package_data={"armour_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"armour_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "models/*.json"]},
     python_requires=">=3.10",
 )

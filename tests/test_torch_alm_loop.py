@@ -649,8 +649,9 @@ def test_k14_matches_the_plain_bookkeeping_on_the_card(seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["bernstein", "armtd"])
 def test_k8_max_mode_and_costs_match_the_plain_versions_on_the_card(family):
-    """K8's max mode against the plain max_violations: the state maxima bit
-    for bit, the torque maxima within 1e-5 of their terms (K8's dot order);
+    """K8's max mode against the plain max_violations: the state maxima and
+    the grasp maxima (-BIG: no grasp rows here) bit for bit, the torque
+    maxima within 1e-5 of their terms (K8's dot order);
     K7's and K8's cost against plan_cost bit for bit."""
     dev = _card()
     cfg, basis, prob = _port_problem(family, torch.float32, 3, dev)
@@ -659,11 +660,11 @@ def test_k8_max_mode_and_costs_match_the_plain_versions_on_the_card(family):
     g = torch.Generator().manual_seed(0)
     kq = (torch.rand(W, 8, 7, generator=g) * 2 - 1).to(dev)
     kq[:, 0] = 0.0
-    vt, vs = ks.alm_maxima(rows, kq)
-    vt2, vs2 = ks.alm_maxima(rows, kq)
-    pt, _, ps, _ = tnlp.max_violations(kq, prob, cfg, basis)
-    assert _bits_equal(vt, vt2) and _bits_equal(vs, vs2)
-    assert _bits_equal(vs, ps)
+    vt, vs, vg = ks.alm_maxima(rows, kq)
+    vt2, vs2, vg2 = ks.alm_maxima(rows, kq)
+    pt, _, ps, pg = tnlp.max_violations(kq, prob, cfg, basis)
+    assert _bits_equal(vt, vt2) and _bits_equal(vs, vs2) and _bits_equal(vg, vg2)
+    assert _bits_equal(vs, ps) and _bits_equal(vg, pg)
     u_abs = torch.matmul(basis.phi(kq).abs(), rows.tensors["u_coef"].abs().transpose(1, 2))
     mag = (u_abs + rows.tensors["u_hi"].abs()[:, None]).amax(-1) + 1.0
     assert bool(((vt - pt).abs() <= 1e-5 * mag).all())

@@ -109,9 +109,17 @@ def test_forward_kinematics_matches_jax():
 
 
 def test_wrench_at_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        z = torch.zeros(7, dtype=torch.float64)
-        trn.rnea(T_ROBOT, z, z, z, z, wrench_at=3)
+    """rnea(wrench_at=) was refused until the grasp path was ported; it now
+    returns (tau, f, n) with the wrench after that joint, the JAX package's
+    to 1e-10 (the flagship, joint 3, perturbed masses)."""
+    q, qd, qa, qdd = _states(1)
+    m = _params(2)[0]
+    want = jrn.rnea(J_ROBOT, *map(jnp.asarray, (q, qd, qa, qdd)), mass=jnp.asarray(m),
+                    wrench_at=3)
+    got = trn.rnea(T_ROBOT, *map(_t, (q, qd, qa, qdd)), mass=_t(m), wrench_at=3)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        _close(g, w, 1e-10)
 
 
 # ---------------------------------------------------------------------------

@@ -9,15 +9,20 @@ the kernels' shared-memory formulas are held against the constants of the
 CUDA sources.  K13's (screen_collision) and K15's (reach_assembly) ctypes
 argument structs are held field for field against the structs parsed out
 of their sources, and their launchers' values against the inputs with the
-library stubbed.
+library stubbed; so are K16's (grasp_rows), with its pair tables and
+shared memory, and K10's arguments for fixed joints and the contact wrench;
+K7 / K8's tiles cover the dumbbell's rows (3 T J = 3456, the grasp group).
 
 The cuda-marked tests run K1, K2, K5, K6, K7, K8, K9, K10 and K15 against
-their plain versions on the card, and K11 and K7 / K8's ARMTD branch
-against theirs (they skip where there is no card; K12 and K13 are in
+their plain versions on the card, K11 and K7 / K8's ARMTD branch against
+theirs, and the grasp path's: K16 (bit for bit), K10 with the wrench at
+F < J, K7 / K8's grasp rows, a grasp step and a UR5 (F = 6) step (they
+skip where there is no card; K12 and K13 are in
 test_torch_jrs_screen_kernels.py)."""
 
 import dataclasses
 import re
+import types
 
 import numpy as np
 import pytest
@@ -997,7 +1002,8 @@ def test_k7_k8_armtd_branch_matches_plain_on_the_card():
 # against the sources, the launchers' values, the launch geometry
 # ---------------------------------------------------------------------------
 
-_C_TYPES = {"int": "c_int", "long long": "c_longlong", "float": "c_float"}
+_C_TYPES = {"int": "c_int", "long long": "c_longlong", "float": "c_float",
+            "short": "c_short", "unsigned char": "c_ubyte"}
 
 
 def _struct_fields(src, name):
@@ -1010,15 +1016,17 @@ def _struct_fields(src, name):
         decl = decl.strip()
         if not decl:
             continue
-        m = re.match(r"(?:const )?((?:unsigned )?(?:long long|int|float|char))\s*(\*?)\s*(.*)$",
+        m = re.match(r"(?:const )?((?:unsigned )?(?:long long|int|float|char|short))\s*(\*?)"
+                     r"\s*(.*)$",
                      decl, re.S)
         base, ptr, names = m.groups()
         for nm in (x.strip() for x in names.split(",")):
-            arr = re.match(r"(\w+)\[(\w+)\]$", nm)
+            arr = re.match(r"(\w+)\[(\w+)(?: \+ (\d+))?\]$", nm)
             if ptr or nm.startswith("*"):
                 out.append((nm.lstrip("* "), "c_void_p"))
             elif arr:
-                out.append((arr.group(1), (_C_TYPES[base], _define(text, arr.group(2)))))
+                out.append((arr.group(1), (_C_TYPES[base], _define(text, arr.group(2))
+                                           + int(arr.group(3) or 0))))
             else:
                 out.append((nm, _C_TYPES[base]))
     return out
@@ -1074,17 +1082,19 @@ def test_k13_passes_cover_rows_and_choices_once(Wn, Kq):
 @pytest.mark.parametrize("Wn", WORLDS)
 def test_k15_geometry_fits(Wn):
     """A block per (world, time step) of K15_THREADS; warp 0 holds the F
-    disturbance sums, warp 1 the F nominal sums and the 3 J link rows; the
-    slab fits the shared memory a block takes without the opt-in, up to 8
-    factors and 8 links with the basis of 8 factors."""
+    disturbance sums, warp 1 the F nominal sums and the 3 J link rows, in
+    two rounds of 32 at most (the dumbbell's 7 + 27); the slab fits the
+    shared memory a block takes without the opt-in, up to 8 factors and 9
+    links with the basis of 8 factors."""
     assert reach.K15_THREADS == 64
-    assert reach.K15_MAX_F + reach.K15_MAX_J3 <= 32
+    assert reach.K15_MAX_F + reach.K15_MAX_J3 <= 2 * 32
+    assert "for (int r = tid - 32; r < F + J3; r += 32)" in _source("reach_assembly.cu")
     assert reach.k15_smem(F, 3 * J, B, E) == 4 * (2 * F * (B + E + 1) + 3 * J * E)
     from armour_tpu_torch.pz.basis import make_basis
 
     b8 = make_basis(8, 3)
     E8 = 5 * 8 + 3
-    assert reach.k15_smem(8, 24, b8.size, E8) <= reach.K15_SMEM_MAX <= 48 * 1024
+    assert reach.k15_smem(8, 27, b8.size, E8) <= reach.K15_SMEM_MAX <= 48 * 1024
     assert Wn * T < 2 ** 31
 
 
@@ -1200,3 +1210,467 @@ def test_k15_matches_its_plain_version_on_the_card():
             assert got.u_coef.data_ptr() == u_both.coef.data_ptr()
         assert torch.equal(t1.torque_radius, tq_p.torque_radius)
         assert torch.equal(t1.u_coef, tq_p.u_coef)
+
+
+# ---------------------------------------------------------------------------
+# the grasp path: K16 (grasp_rows), K10 with the wrench and fixed joints,
+# K7 / K8's grasp rows and F = 6
+# ---------------------------------------------------------------------------
+
+# the dumbbell's widths: J = 9 bodies, F = 7 factors, 3 T grasp rows
+JD = 9
+N_CENTRE_D, N_TG_D = 3 * T * JD, T * F + 3 * T
+
+
+def test_k16_args_match_the_source():
+    from armour_tpu_torch.kernels import grasp as kgrasp
+
+    assert _ctypes_fields(kgrasp.K16Args) == _struct_fields("grasp_rows.cu", "K16Args")
+    text = _source("grasp_rows.cu")
+    assert _define(text, "K16_NG") == kgrasp.K16_NG
+    assert _define(text, "K16_THREADS") == kgrasp.K16_THREADS == 32 * kgrasp.K16_NG
+    assert _define(text, "K16_BLOCKS_PER_SM") == kgrasp.K16_BLOCKS_PER_SM
+    assert _define(text, "K16_SQ") == kgrasp.K16_SQ
+    assert '#include "pz_ops.cuh"' in text and "pz_mul(" in text
+
+
+@pytest.mark.parametrize("nf", [6, 7])
+def test_k16_tables_and_shared_memory_fit(nf):
+    """The sorted pair table lists every pair of the basis once, in
+    pair-table order within a monomial; it fits pz_ops.cuh's tables, which
+    K16 reads, and a block's shared memory the default 48 KB, at the basis'
+    widths and at the tables' largest; pz_mul's masses of the five squares'
+    operands fit the mass scratch."""
+    from armour_tpu_torch.kernels import grasp as kgrasp, pz as kpz
+    from armour_tpu_torch.pz.basis import error_layout, make_basis, pair_segments
+
+    basis = make_basis(nf, 3)
+    Ed = error_layout(nf)["size"]
+    pi, pj, seg = pair_segments(nf, 3)
+    assert sorted(zip(pi.tolist(), pj.tolist())) == sorted(
+        zip(basis.pair_i.tolist(), basis.pair_j.tolist()))
+    m_of = {(int(i), int(j)): int(m) for i, j, m in zip(basis.pair_i, basis.pair_j,
+                                                        basis.pair_m)}
+    for m in range(basis.size):
+        seg_pairs = list(zip(pi[seg[m]:seg[m + 1]].tolist(), pj[seg[m]:seg[m + 1]].tolist()))
+        assert all(m_of[p] == m for p in seg_pairs)
+        order = [next(k for k, q in enumerate(zip(basis.pair_i, basis.pair_j)) if q == p)
+                 for p in seg_pairs]
+        assert order == sorted(order)
+    t = kpz.pz_tables(basis, Ed)
+    assert (t.B, t.E, t.P) == (basis.size, Ed, len(pi))
+    assert list(t.seg)[:basis.size + 1] == seg.tolist() and list(t.pi)[:len(pi)] == pi.tolist()
+    assert kgrasp.k16_smem(basis.size + Ed + 1) <= kgrasp.K16_SMEM_MAX
+    assert kgrasp.k16_smem(kpz.MAX_B + kpz.MAX_E + 1) <= kgrasp.K16_SMEM_MAX
+    assert 2 * kgrasp.K16_SQ <= kpz.PZ_MAXMASS
+
+
+@pytest.mark.parametrize("n", [1, 48, 8192, 131072])
+def test_k16_geometry_covers_the_elements(n):
+    """K16's persistent grid: warps of one element, K16_NG a block, at most
+    as many blocks as the elements need and as stay resident on an H100 (by
+    shared memory: seven at the dumbbell's widths; the register cap allows
+    eight); every element is walked once."""
+    from armour_tpu_torch.kernels import grasp as kgrasp
+
+    geo = kgrasp.k16_geometry(n, LD)
+    per_sm = BLOCK_SMEM // (kgrasp.k16_smem(LD) + 1024)
+    assert (geo.G, geo.NG) == (32, kgrasp.K16_NG) and per_sm == 7
+    assert geo.grid == min(-(-n // kgrasp.K16_NG), SMS * min(per_sm, kgrasp.K16_BLOCKS_PER_SM))
+    seen = sorted(e for b in range(geo.grid) for gi in range(geo.NG)
+                  for e in range(b * geo.NG + gi, n, geo.grid * geo.NG))
+    assert seen == list(range(n))
+
+
+def test_k16_launcher_passes_its_values(monkeypatch):
+    """The launcher uploads the basis tables, then hands K16 the wrench's
+    six tensors in place (the interval set: pset = P - 1), the outputs, the
+    sizes, -mu^2 and -r^2 rounded once to float32, the slop and ld."""
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.grasp import GraspParams
+    from armour_tpu_torch.kernels import grasp as kgrasp
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import make_basis
+
+    calls, uploads = [], []
+    monkeypatch.setattr(kgrasp, "launcher", _fake_launcher(calls))
+    monkeypatch.setattr(kgrasp, "upload_tables", lambda *a: uploads.append(a))
+    monkeypatch.setattr(kgrasp, "_stream", lambda t: None)
+    monkeypatch.setattr(kgrasp, "launched", lambda *a: None)
+    monkeypatch.setattr(kgrasp, "_require", lambda p, what, shape: p)
+    monkeypatch.setattr(kgrasp.torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=1))
+    basis, cfg = make_basis(7, 3), ArmourConfig(num_time_steps=4)
+    params = GraspParams(mu=0.6, support_radius=0.06, normal_axis=1)
+    f, n = bpz.zeros((2, 2, 4, 3), basis), bpz.zeros((2, 2, 4, 3), basis)
+    out = kgrasp.grasp_rows(f, n, params, cfg, basis)
+    assert uploads == [("grasp_rows", "k16_tables", basis, E)]
+    (name, symbol, _, (args, ld, grid, _)), = calls
+    assert (name, symbol, ld) == ("grasp_rows", "k16_launch", B + E + 1)
+    assert grid == kgrasp.k16_geometry(2 * 4, B + E + 1, 1).grid == 2
+    a = args._obj
+    assert (a.W, a.T, a.P, a.pset, a.normal) == (2, 4, 2, 1, 1)
+    for fld, t in zip(("fc", "fe", "fr", "nc", "ne", "nr"),
+                      (f.coef, f.egen, f.rad, n.coef, n.egen, n.rad)):
+        assert getattr(a, fld) == t.data_ptr(), fld
+    assert (a.g_coef, a.g_rad) == (out.g_coef.data_ptr(), out.g_rad.data_ptr())
+    assert tuple(out.g_coef.shape) == (2, 4, 3, B) and tuple(out.g_rad.shape) == (2, 4, 3)
+    assert a.s_mu == np.float32(-0.6 ** 2) and a.s_r == np.float32(-0.06 ** 2)
+    assert a.slop == np.float32(cfg.float_slop)
+    with pytest.raises(ValueError, match="normal_axis"):
+        kgrasp.grasp_rows(f, n, GraspParams(normal_axis=3), cfg, basis)
+
+
+def test_k10_args_take_fixed_joints_and_the_wrench(monkeypatch):
+    """K10's arguments for the dumbbell (J = 9, F = 7): the two fixed joints
+    have no axis and rv = 0, the factor count F indexes qd; the wrench's
+    joint and outputs when asked, -1 and null pointers when not; the zero
+    row the fixed joints read."""
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.jrs import build_jrs
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.pz.basis import make_basis
+
+    robot = zoo.kinova_dumbbell()
+    cfg = ArmourConfig.for_robot(robot, derive_ub=False, num_time_steps=4)
+    basis = make_basis(7, 3)
+    jrs = build_jrs(torch.zeros(2, 7), torch.zeros(2, 7), torch.zeros(2, 7), robot, cfg, basis)
+    calls = []
+    monkeypatch.setattr(reach, "launcher", _fake_launcher(calls))
+    monkeypatch.setattr(reach, "_stream", lambda t: None)
+    monkeypatch.setattr(reach, "launched", lambda *a: None)
+    monkeypatch.setattr(reach, "_require", lambda p, what, shape: p)
+    monkeypatch.setattr(reach, "upload_tables", lambda *a: None)
+    monkeypatch.setattr(reach, "_sms", lambda t: SMS)
+    u = reach.rnea_chain(jrs, robot, cfg, basis)
+    u2, fc, nc = reach.rnea_chain(jrs, robot, cfg, basis, wrench_at=8)
+    (_, _, _, (a0, *_)), (_, _, _, (a1, *_)) = calls
+    a0, a1 = a0._obj, a1._obj
+    assert (a0.J, a0.F, a0.P, a0.wj) == (9, 7, 2, -1) and a0.wfc is None and a0.wnr is None
+    assert (a1.J, a1.F, a1.wj) == (9, 7, 8)
+    assert list(a1.rv)[:9] == [1.0] * 7 + [0.0] * 2
+    assert list(a1.sgn)[7:9] == [0.0, 0.0] and list(a1.ax)[7:9] == [0, 0]
+    assert a1.zero == a0.zero != 0
+    zero = basis.kernel_args[("k10_zero", "cpu")]
+    assert zero.data_ptr() == a1.zero and bool((zero == 0).all())
+    assert zero.numel() == B + E + 1
+    for fld, t in zip(("wfc", "wfe", "wfr", "wnc", "wne", "wnr"),
+                      (fc.coef, fc.egen, fc.rad, nc.coef, nc.egen, nc.rad)):
+        assert getattr(a1, fld) == t.data_ptr(), fld
+    assert tuple(u.rad.shape) == tuple(u2.rad.shape) == (2, 2, 4, 7)
+    assert tuple(fc.rad.shape) == (2, 2, 4, 3)
+    with pytest.raises(ValueError, match="wrench_at"):
+        reach.rnea_chain(jrs, robot, cfg, basis, wrench_at=9)
+
+
+def test_k10_k9_k12_caps_take_nine_joints():
+    """The joint caps of K9, K10 (K10Args' arrays) and K12 / K11 (J + 1
+    rotations) hold the dumbbell's nine bodies; K9's and K10's shared memory
+    still fits two K9 blocks of eight warps and three K10 blocks of four
+    warps an SM."""
+    from armour_tpu_torch.kernels import jrs as kjrs
+
+    assert _define(_source("fk_chain.cu"), "K9_MAXJ") == reach.MAX_J == 9
+    assert _define(_source("rnea_chain.cu"), "K10_MAXJ") == reach.MAX_J
+    assert _define(_source("jrs_tail.cuh"), "JRS_MAXJ") == kjrs.MAXJ == 10
+    assert 2 * (reach.k9_smem(LD, LDL, 8) + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
+    assert 3 * (reach.k10_smem(LD, LDL, 4) + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
+
+
+@pytest.mark.parametrize("Wn", WORLDS)
+@pytest.mark.parametrize("S", SEEDS)
+def test_k7_tiles_cover_the_grasp_rows_once(Wn, S):
+    """At the dumbbell's widths (3 T J = 3456 centre rows, T F + 3 T =
+    1280 torque and grasp rows): the tiles of step (a) cover every
+    polynomial row once, the partials start at the first tile holding a
+    torque row, and the rows' shared memory fits for F = 6 and 7."""
+    geo = ks.k7_geometry(Wn, S, N_CENTRE_D, N_TG_D, K)
+    n = N_CENTRE_D + N_TG_D
+    assert geo.tiles_a * geo.R >= n > (geo.tiles_a - 1) * geo.R
+    assert geo.t_first == N_CENTRE_D // geo.R
+    assert geo.t_first * geo.R <= N_CENTRE_D
+    for nf in (6, 7):
+        Bf = 84 if nf == 6 else B
+        assert (ks.k7_rows_smem(Bf, nf, S, geo.R) + ks.k7_rows_static_smem(nf, S, geo.R)
+                <= ks.SMEM_LIMIT)
+    g8 = ks.k8_geometry(Wn, 12, n, K)
+    assert g8.tiles_a * g8.R >= n > (g8.tiles_a - 1) * g8.R
+    assert ks.k8_rows_smem(B, g8.R) <= ks.SMEM_LIMIT
+
+
+def test_alm_kernels_take_six_and_seven_factors():
+    """K7 and K8 are instantiated for every F of kernels.solver.FACTORS: the
+    UR5's 6 and the 7-DOF arms'."""
+    assert ks.FACTORS == (6, 7)
+    for src in ("alm_newton.cu", "alm_values.cu"):
+        text = _source(src)
+        for nf in ks.FACTORS:
+            assert re.search(r"case %d: return k[78]_launch_nf<%d>" % (nf, nf), text), (src, nf)
+
+
+def _grasp_problem(dev, W=3, T_=16, mu=1.5, r=0.5):
+    """A dumbbell grasp plan on `dev` (float32, T = 16, the permissive
+    contact parameters of tests/test_grasp.py), built by the port's
+    planner stages."""
+    import glob
+
+    from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.worlds import load_world_csv, straight_line_waypoint
+
+    robot = zoo.kinova_dumbbell()
+    cfg = ArmourConfig.for_robot(robot, derive_ub=False,
+                                 ub=derive_ultimate_bound(robot, v_max=5e-4),
+                                 num_time_steps=T_, screen_k=512, grasp_constraints=True,
+                                 grasp_mu=mu, grasp_support_radius=r)
+    basis = make_basis(7, 3)
+    ws = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:W]]
+    q0 = torch.as_tensor(np.stack([w.start for w in ws]), dtype=torch.float32, device=dev)
+    q_des = torch.as_tensor(np.stack([straight_line_waypoint(w.start, w.goal,
+                                                             continuous=robot.continuous_joints)
+                                      for w in ws]), dtype=torch.float32, device=dev)
+    obs = stack_obstacles([pad_obstacles(w.obstacle_centers, w.obstacle_generators,
+                                         cfg.max_obstacles, cfg.dtype) for w in ws])
+    obs = type(obs)(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                    mask=obs.mask.to(dev))
+    z = torch.zeros_like(q0)
+    return robot, cfg, basis, plan_problem(q0, z, z, q_des, obs, robot, cfg, basis)
+
+
+@pytest.mark.cuda
+def test_k16_matches_its_plain_version_on_the_card():
+    """K16 gives grasp_rows_plain's bits on the card from K10's wrench of a
+    dumbbell JRS (both contact parameter sets of tests/test_grasp.py and a
+    sideways normal: pz_mul's warp-order sums, which the plain version
+    repeats), and the same bits on a second call; bpz.mul refuses CUDA
+    tensors."""
+    from armour_tpu_torch import dynamics, grasp
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.jrs import build_jrs
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import make_basis
+
+    dev = _card()
+    robot = zoo.kinova_dumbbell()
+    cfg = ArmourConfig.for_robot(robot, derive_ub=False, num_time_steps=16)
+    basis = make_basis(7, 3)
+    rng = np.random.default_rng(4)
+    q = [torch.as_tensor(rng.uniform(-0.5, 0.5, (3, 7)), dtype=torch.float32, device=dev)
+         for _ in range(3)]
+    jrs = build_jrs(*q, robot, cfg, basis)
+    _, fc, nc = dynamics.rnea_pz_sets(jrs, robot, cfg, basis, wrench_at=8)
+    for mu, r, ax in ((1.5, 0.5, 2), (1e-4, 1e-4, 2), (0.6, 0.06, 0)):
+        p = grasp.GraspParams(mu=mu, support_radius=r, normal_axis=ax)
+        got = grasp.grasp_rows(fc, nc, p, cfg, basis)
+        again = grasp.grasp_rows(fc, nc, p, cfg, basis)
+        want = grasp.grasp_rows_plain(fc, nc, p, cfg, basis)
+        for g in (got, again):
+            assert torch.equal(g.g_coef, want.g_coef) and torch.equal(g.g_rad, want.g_rad)
+    one = bpz.BPZ(coef=fc.coef[:, 1, :, 0], egen=fc.egen[:, 1, :, 0], rad=fc.rad[:, 1, :, 0])
+    with pytest.raises(ValueError, match="K16"):
+        bpz.mul(one, one, basis)
+
+
+@pytest.mark.cuda
+def test_k10_wrench_and_fixed_joints_match_plain_on_the_card():
+    """K10 for the dumbbell (F < J) and the Fetch arm: u and the wrench
+    after the last body within 1e-5 of the plain entry's total mass, the
+    same bits on a second call, and u the same bits as without the wrench;
+    K9 and K12 at J = 9 against their plain versions."""
+    from armour_tpu_torch import dynamics, kinematics
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.jrs import build_jrs, build_jrs_plain
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.pz.basis import make_basis
+
+    dev = _card()
+    basis = make_basis(7, 3)
+    rng = np.random.default_rng(5)
+    for robot in (zoo.kinova_dumbbell(), zoo.fetch_arm()):
+        cfg = ArmourConfig.for_robot(robot, derive_ub=False, num_time_steps=16)
+        q = [torch.as_tensor(rng.uniform(-0.5, 0.5, (3, 7)), dtype=torch.float32, device=dev)
+             for _ in range(3)]
+        jrs = build_jrs(*q, robot, cfg, basis)
+        jp = build_jrs_plain(*q, robot, cfg, basis)
+        for fld in ("qd", "qda", "qdda"):
+            a, b = getattr(jrs, fld), getattr(jp, fld)
+            assert torch.equal(a.coef, b.coef) and torch.equal(a.rad, b.rad), fld
+        Jn = robot.num_joints
+        assert tuple(jrs.R.rad.shape) == (3, 16, Jn + 1, 3, 3)
+        assert torch.equal(jrs.R.coef[:, :, robot.num_factors:],
+                           jp.R.coef[:, :, robot.num_factors:])
+        got = reach.rnea_chain(jrs, robot, cfg, basis, wrench_at=Jn - 1)
+        again = reach.rnea_chain(jrs, robot, cfg, basis, wrench_at=Jn - 1)
+        u_only = reach.rnea_chain(jrs, robot, cfg, basis)
+        ref = dynamics.rnea_pz_sets_plain(jrs, robot, cfg, basis, wrench_at=Jn - 1)
+        assert torch.equal(u_only.coef, got[0].coef) and torch.equal(u_only.rad, got[0].rad)
+        for g, a, r in zip(got, again, ref):
+            mass = r.coef.abs().sum(-1) + r.egen.abs().sum(-1) + r.rad.abs()
+            for f in ("coef", "egen", "rad"):
+                assert torch.equal(getattr(g, f), getattr(a, f))
+                m = mass if f == "rad" else mass[..., None]
+                assert ((getattr(g, f) - getattr(r, f)).abs() <= 1e-5 * (m + 1e-6)).all(), f
+        links = kinematics.forward_occupancy(jrs, robot, cfg, basis)
+        lref = kinematics.forward_occupancy_plain(jrs, robot, cfg, basis)
+        mass = lref.coef.abs().sum(-1) + lref.egen.abs().sum(-1) + lref.rad.abs()
+        for f in ("coef", "egen", "rad"):
+            m = mass if f == "rad" else mass[..., None]
+            assert ((getattr(links, f) - getattr(lref, f)).abs() <= 1e-5 * (m + 1e-6)).all()
+
+
+@pytest.mark.cuda
+def test_k7_k8_grasp_rows_match_plain_on_the_card():
+    """K8's rows c (the grasp group between the torque and the collision
+    rows) within 1e-5 of their terms, its max mode's grasp maxima within
+    1e-5 of the plain maxima and its state maxima bit for bit; K7's g and H
+    within 1e-4 of their summed terms (a dumbbell grasp plan, T = 16)."""
+    from armour_tpu_torch import nlp
+
+    dev = _card()
+    robot, cfg, basis, prob = _grasp_problem(dev)
+    assert prob.grasp is not None
+    rows = ks.alm_rows(prob, cfg, basis)
+    Wn, Tn = prob.q_des.shape[0], cfg.num_time_steps
+    TF, TG = Tn * 7, 3 * Tn
+    assert rows.args.TG == TG and rows.M == 2 * TF + TG + rows.args.K + 56
+    g = torch.Generator().manual_seed(1)
+    kq = ((torch.rand(Wn, 6, 7, generator=g) * 2 - 1) * 0.5).to(dev)
+    lam = (torch.rand(Wn, 6, rows.M, generator=g) * 3).to(dev)
+    rho = torch.full((Wn, 6), 10.0, device=dev)
+    seed = torch.arange(6, dtype=torch.int32, device=dev)
+    _, _, _, c = ks.alm_values(rows, kq, lam, rho, seed, want_c=True)
+    c0 = nlp._clip_big(nlp.constraint_stack(kq, prob, cfg, basis, with_grad=False)[0])
+    phi = basis.phi(kq).abs()
+    gmag = torch.matmul(phi, prob.grasp.g_coef.reshape(Wn, TG, -1).abs().transpose(1, 2)) \
+        + prob.grasp.g_rad.reshape(Wn, 1, TG).abs() + 1.0
+    sl = slice(2 * TF, 2 * TF + TG)
+    assert ((c[..., sl] - c0[..., sl]).abs() <= 1e-5 * gmag).all()
+    vt, vs, vg = ks.alm_maxima(rows, kq)
+    pt, _, ps, pg = nlp.max_violations(kq, prob, cfg, basis)
+    assert torch.equal(vs, ps)
+    assert ((vg - pg).abs() <= 1e-5 * gmag.amax(-1)).all()
+    k = kq[:, :4].contiguous()
+    step, m0, feas, _, gk, Hk = ks.alm_newton(rows, k, lam[:, :4].contiguous(),
+                                              rho[:, :4].contiguous(), want_system=True)
+    g0, H0, cc = nlp.alm_newton_system(k, lam[:, :4], rho[:, :4], prob, cfg, basis)
+    _, Jc = nlp.constraint_stack(k, prob, cfg, basis, with_grad=True)
+    z0 = lam[:, :4] + rho[:, :4, None] * cc
+    w = torch.where(z0 > 0, rho[:, :4, None], torch.zeros_like(cc))
+    le = torch.where(z0 > 0, z0, torch.zeros_like(cc))
+    Ja = Jc.abs()
+    g_mag = nlp.plan_cost_grad(k, prob.traj, prob.q_des, prob.limits.continuous,
+                               cfg).abs() + (Ja * le[..., None]).sum(-2)
+    H_mag = torch.matmul(Ja.transpose(-1, -2) * w[..., None, :], Ja) \
+        + nlp.plan_cost_hessian(prob.traj, cfg) + 1e-3
+    assert ((gk - g0).abs() <= 1e-4 * (g_mag + 1e-6)).all()
+    assert ((Hk - H0).abs() <= 1e-4 * (H_mag + 1e-6)).all()
+
+
+@pytest.mark.cuda
+def test_grasp_and_six_factor_steps_run_on_the_card():
+    """A W = 3 grasp step of the dumbbell through make_batch_planner
+    launches K10 and K16 once each and every feasible k passes the plain
+    full-set check (v_grasp included); the tight contact parameters leave
+    every world infeasible.  A UR5 (F = 6) step runs K7 / K8 on the card and
+    gives the port's CPU verdicts on the same inputs; with the torque rows
+    off (the JAX package's zoo test's setting) every world is feasible and
+    each k passes the plain full-set check."""
+    import dataclasses
+
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import make_batch_planner
+
+    dev = _card()
+    robot, cfg, basis, prob = _grasp_problem(dev)
+    obs = prob.obs
+    q0 = prob.traj.q0
+    z = torch.zeros_like(q0)
+    kernels.reset_counts()
+    res = make_batch_planner(robot, cfg)(q0, z, z, prob.q_des, obs)
+    n = kernels.counts()
+    assert n["rnea_chain"] == 1 and n["grasp_rows"] == 1
+    ok = res.feasible
+    if bool(ok.any()):
+        v = torch.stack(nlp.max_violations(res.k[:, None], prob, cfg, basis), -1)[:, 0]
+        assert bool(nlp.viol_feasible(v, cfg)[ok].all())
+    tight = dataclasses.replace(cfg, grasp_mu=1e-4, grasp_support_radius=1e-4)
+    res_t = make_batch_planner(robot, tight)(q0, z, z, prob.q_des, obs)
+    assert not bool(res_t.feasible.any()) and bool(torch.isnan(res_t.k).all())
+    ur5 = zoo.ur5()
+    from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig
+
+    ucfg = ArmourConfig.for_robot(ur5, num_time_steps=16, screen_k=512)
+    uq = torch.full((3, 6), 0.1, device=dev)
+    uobs = stack_obstacles([pad_obstacles(np.array([[2.5, 2.5, 2.5]]),
+                                          np.stack([np.diag([0.05] * 3)]), ucfg.max_obstacles,
+                                          ucfg.dtype)] * 3)
+    uobs = type(uobs)(centers=uobs.centers.to(dev), generators=uobs.generators.to(dev),
+                      mask=uobs.mask.to(dev))
+    uz = torch.zeros_like(uq)
+    kernels.reset_counts()
+    ures = make_batch_planner(ur5, ucfg)(uq, uz, uz, uq + 0.02, uobs)
+    assert kernels.counts()["alm_newton"] > 0 and bool(torch.isfinite(ures.cost).all())
+    cpu_obs = type(uobs)(centers=uobs.centers.cpu(), generators=uobs.generators.cpu(),
+                         mask=uobs.mask.cpu())
+    ucpu = make_batch_planner(ur5, ucfg, device="cpu")(uq.cpu(), uz.cpu(), uz.cpu(),
+                                                       uq.cpu() + 0.02, cpu_obs)
+    assert torch.equal(ures.feasible.cpu(), ucpu.feasible)
+    from armour_tpu_torch.collision import collision_constraints_plain
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+
+    off = dataclasses.replace(ucfg, turn_off_input_constraints=True)
+    kernels.reset_counts()
+    roff = make_batch_planner(ur5, off)(uq, uz, uz, uq + 0.02, uobs)
+    assert kernels.counts()["alm_newton"] > 0 and bool(roff.feasible.all())
+    assert bool((roff.k.abs() <= 1.0 + 1e-6).all())
+    b6 = make_basis(6, off.max_poly_degree)
+    uprob = plan_problem(uq, uz, uz, uq + 0.02, uobs, ur5, off, b6)
+    v = torch.stack(nlp.max_violations(roff.k[:, None], uprob, off, b6,
+                                       collision_fn=collision_constraints_plain), -1)[:, 0]
+    assert bool(nlp.viol_feasible(v, off).all())
+
+
+@pytest.mark.parametrize("grasp", [False, True], ids=["no_grasp", "grasp"])
+def test_alm_args_carry_the_grasp_group(monkeypatch, grasp):
+    """alm_rows hands K7 / K8 the grasp rows in place (g_coef [W, 3 T, B],
+    g_rad [W, 3 T]), TG = 3 T (0 without them), M = 2 T F + TG + K + 8 F,
+    the stack's row count, and the grasp threshold rounded once to float32
+    (a dumbbell plan on the CPU, the device check stubbed; the AlmArgs /
+    K10Args field order is tests/test_torch_entry.py's)."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+
+    robot = zoo.kinova_dumbbell()
+    Tn = 4
+    cfg = ArmourConfig.for_robot(robot, derive_ub=False, num_time_steps=Tn, max_obstacles=4,
+                                 screen_k=64, grasp_constraints=grasp)
+    basis = make_basis(7, 3)
+    obs = stack_obstacles([pad_obstacles(np.array([[0.5, 0.4, 0.6]]),
+                                         np.diag([0.05] * 3)[None], 4, torch.float32)] * 2)
+    q0 = torch.full((2, 7), 0.1)
+    prob = plan_problem(q0, torch.zeros_like(q0), torch.zeros_like(q0), q0 + 0.05, obs, robot,
+                        cfg, basis)
+    monkeypatch.setattr(ks, "_require", lambda *a, **k: None)
+    rows = ks.alm_rows(prob, cfg, basis)
+    a = rows.args
+    TG = 3 * Tn if grasp else 0
+    assert a.TG == TG and a.TF == Tn * 7 and a.TJ == Tn * 9
+    assert rows.M == 2 * Tn * 7 + TG + a.K + 8 * 7 == nlp._stack_thresholds(prob, cfg).shape[0]
+    assert a.thr_grasp == np.float32(cfg.grasp_violation_threshold)
+    if grasp:
+        assert a.g_coef == prob.grasp.g_coef.data_ptr()
+        assert a.g_rad == prob.grasp.g_rad.data_ptr()
+        assert tuple(rows.tensors["g_coef"].shape) == (2, TG, B)
+    else:
+        assert prob.grasp is None
