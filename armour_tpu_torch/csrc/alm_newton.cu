@@ -47,7 +47,9 @@
 //       tile order (six chunks of tiles, then the chunks in order), adds the
 //       state rows (alm_state_rows) and the cost (alm_cost), factors H (7x7
 //       Cholesky) and writes step, m0, feas and the cost, and g and H when
-//       asked.
+//       asked; then, when AlmArgs.epi asks for it, the solve loop's ladder
+//       for its (world, seed) from the step in its registers (K14's phase,
+//       alm_loop.cuh: no launch of its own).
 //
 // R and RB come from kernels/solver.py:k7_geometry (the largest tiles that
 // still give >= 2 x 132 CTAs).  No atomics: every sum has a fixed order, so
@@ -414,8 +416,11 @@ __global__ void __launch_bounds__(K7C_THREADS) k7_finish_kernel(const AlmArgs a,
 #pragma unroll
   for (int i = 0; i < NF; ++i) a.step[o * NF + i] = y[i];
   a.value[o] = cost + acc[NF + NT] / (2.0f * rho);
-  a.feas[o] = acc[NF + NT + 1] == 0.0f ? 1 : 0;
+  const bool feas = acc[NF + NT + 1] == 0.0f;
+  a.feas[o] = feas ? 1 : 0;
   if (a.cost != nullptr) a.cost[o] = cost;
+  // the solve loop's ladder on this (world, seed): its tracker and line-search points
+  if (a.epi.phase == ALM_EPI_LADDER) alm_epi_ladder(a.epi, o, kk, y, feas, cost, NF);
 }
 
 static size_t k7_rows_smem(int B, int NV, int S, int R) {
@@ -502,6 +507,9 @@ static int k7_launch_nf(const AlmArgs* a, float* pd, float* part, int R, int RB,
 // 128); 1 <= S <= 8 (the query count Q equals S).
 extern "C" int k7_launch(const AlmArgs* a, float* pd, float* part, int R, int RB, void* stream) {
   if (a->S < 1 || a->S > K7_MAXS || a->Q != a->S) return (int)cudaErrorInvalidValue;
+  if (a->epi.phase != ALM_EPI_NONE &&
+      (a->epi.phase != ALM_EPI_LADDER || a->epi.A < 1 || a->S * a->epi.A > K14_MAX_A))
+    return (int)cudaErrorInvalidValue;
   switch (a->F) {
     case 6: return k7_launch_nf<6>(a, pd, part, R, RB, stream);
     case 7: return k7_launch_nf<7>(a, pd, part, R, RB, stream);

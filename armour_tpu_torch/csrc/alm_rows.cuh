@@ -31,6 +31,8 @@
 #pragma once
 #include <cuda_runtime.h>
 
+#include "alm_loop.cuh"
+
 #define ALM_MAX_B 128
 #define ALM_MAX_F 8
 #define ALM_MAX_DEG 3
@@ -78,6 +80,7 @@ struct AlmArgs {
   float tp, dts;                    // ARMTD: t_plan and duration - t_plan
   float g_tp, g_ts;                 // ARMTD: dq/dk_actual at t_plan and at duration
   unsigned char degs[ALM_MAX_B * ALM_MAX_F];   // [B, F] monomial degrees
+  AlmEpilogue epi;                  // the loop's phase the finish runs (K7 / K8), or none
 };
 
 // ---------------------------------------------------------------------------

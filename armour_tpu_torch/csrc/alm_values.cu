@@ -47,6 +47,15 @@
 //       state rows (alm_state_rows) and the cost (alm_cost), and writes
 //       value, feas and the cost.
 //
+// When AlmArgs.epi names a phase of the solve loop (K14, alm_loop.cuh),
+// the finish runs it for its world after the queries are reduced, a thread
+// per seed reading the queries' merit, feas and cost from shared memory:
+// init, accept, outer, the pull-in's start, steps and end, finish.  The
+// outer update of the multipliers, lam = max(lam + rho c, 0), runs where
+// each clipped row c is formed (in (a), (b) and the finish's state rows),
+// from the lam + rho c the merit forms anyway: no scratch c is written or
+// read back, and the [W, S, M] multipliers are written once.
+//
 // R and G come from kernels/solver.py:k8_geometry (the largest tile, the
 // widest query group, that still give >= 2 x 132 CTAs).  No atomics: every
 // sum has a fixed order, so repeated calls give the same bits.
@@ -154,10 +163,12 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
       co = s[j] + a.g_rad[(long long)w * a.TG + rr - NT];
     } else if (q < Q && rr >= NT && rr < NR) {
       const int r = rr - NT, sd = a.seed[q];
-      const float c1 = k8_row(s[j] + a.g_rad[(long long)w * a.TG + r],
-                              a.lam[((long long)w * a.S + sd) * a.M + 2 * TF + r],
-                              a.rho[(long long)w * a.S + sd], a.thr_grasp, pe, co);
+      const long long at = ((long long)w * a.S + sd) * a.M + 2 * TF + r;
+      const float rho = a.rho[(long long)w * a.S + sd];
+      const float c1 = k8_row(s[j] + a.g_rad[(long long)w * a.TG + r], a.lam[at], rho,
+                              a.thr_grasp, pe, co);
       if (a.c != nullptr) a.c[((long long)w * Q + q) * a.M + 2 * TF + r] = c1;
+      alm_epi_lam(a.epi, at, a.lam[at], rho, c1);
     } else if (q < Q && rr < NR) {
       const int r = rr - NC, sd = a.seed[q];
       const float* lam = a.lam + ((long long)w * a.S + sd) * a.M;
@@ -170,6 +181,9 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
         cq[r] = c1;
         cq[TF + r] = c2;
       }
+      const long long at = ((long long)w * a.S + sd) * a.M;
+      alm_epi_lam(a.epi, at + r, lam[r], rho, c1);
+      alm_epi_lam(a.epi, at + TF + r, lam[TF + r], rho, c2);
     }
     pen[q * R + row] = pe;
     cnt[q * R + row] = co;
@@ -224,10 +238,12 @@ __global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs
       if (g >= nq) continue;
       const int q = q0 + g, sd = a.seed[q];
       const float gval = real ? -m[g] : -ALM_BIG;
-      const float c = k8_row(gval + a.col_margin, a.lam[((long long)w * a.S + sd) * a.M + row],
-                             a.rho[(long long)w * a.S + sd], a.thr_col, acc[2 * g],
+      const long long at = ((long long)w * a.S + sd) * a.M + row;
+      const float rho = a.rho[(long long)w * a.S + sd];
+      const float c = k8_row(gval + a.col_margin, a.lam[at], rho, a.thr_col, acc[2 * g],
                              acc[2 * g + 1]);
       if (a.c != nullptr) a.c[((long long)w * Q + q) * a.M + row] = c;
+      alm_epi_lam(a.epi, at, a.lam[at], rho, c);
     }
   }
   alm_block_sum<2 * G, K8B_THREADS / 32>(acc, red);
@@ -236,6 +252,30 @@ __global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs
     float* o = part + (((long long)w * ntiles + tile0 + blockIdx.x) * Q + q0 + g) * 2;
     o[0] = acc[2 * g];
     o[1] = acc[2 * g + 1];
+  }
+}
+
+// The solve loop's phase of seed s of world w after K8's queries (AlmArgs.epi;
+// alm_loop.cuh): merit, feas and cost of the world's Q queries as written
+// to memory.  The ladder's accept reads the seed's A queries s A ..; every
+// other phase one query per seed, query s (the launcher checks Q).
+template <int NF>
+__device__ __forceinline__ void k8_epilogue(const AlmArgs& a, int w, int s, const float* merit,
+                                            const unsigned char* feas, const float* cost) {
+  const AlmEpilogue& e = a.epi;
+  const long long i = (long long)w * a.S + s;
+  const float* kq = a.k + (long long)w * a.Q * NF;
+  const float* ks = kq + s * NF;
+  const bool ok = feas[s] != 0;
+  switch (e.phase) {
+    case ALM_EPI_INIT: alm_epi_init(e, i, ks, ok, cost[s], NF); break;
+    case ALM_EPI_ACCEPT: alm_epi_accept(e, i, s, kq, merit, feas, cost, NF); break;
+    case ALM_EPI_OUTER: alm_epi_outer(e, i, ks, ok, cost[s], a.rho[i], NF); break;
+    case ALM_EPI_PULL_START: alm_epi_pull_start(e, i, ks, NF); break;
+    case ALM_EPI_PULL_STEP: alm_epi_pull_step(e, i, ks, ok, NF); break;
+    case ALM_EPI_PULL_END: alm_epi_pull_end(e, i, ks, ok, NF); break;
+    case ALM_EPI_FINISH: alm_epi_finish(e, w, s, a.S, ks, ok, cost[s], NF); break;
+    default: break;
   }
 }
 
@@ -287,33 +327,46 @@ __global__ void __launch_bounds__(K8C_THREADS) k8_finish_kernel(const AlmArgs a,
       const int row = 2 * a.TF + a.TG + a.K + grp * NF + f;
       const float c = k8_row(c8[grp], lam[row], rho, a.thr_state, pe, co);
       if (a.c != nullptr) a.c[((long long)w * Q + q) * a.M + row] = c;
+      alm_epi_lam(a.epi, ((long long)w * a.S + sd) * a.M + row, lam[row], rho, c);
     }
     st[tid * 2] = pe;
     st[tid * 2 + 1] = co;
   }
   __syncthreads();
-  if (tid >= Q) return;
-  const int q = tid;
-  const float* pq = part + ((long long)w * ntiles * Q + q) * 2;
-  float pe = pq[0], co = pq[1];
+  __shared__ float q_merit[K8_MAXQ], q_cost[K8_MAXQ];
+  __shared__ unsigned char q_feas[K8_MAXQ];
+  if (tid < Q) {
+    const int q = tid;
+    const float* pq = part + ((long long)w * ntiles * Q + q) * 2;
+    float pe = pq[0], co = pq[1];
 #pragma unroll 8
-  for (int t = 1; t < nread; ++t) {
-    pe += pq[(long long)t * Q * 2];
-    co += pq[(long long)t * Q * 2 + 1];
-  }
-  float kk[NF];
+    for (int t = 1; t < nread; ++t) {
+      pe += pq[(long long)t * Q * 2];
+      co += pq[(long long)t * Q * 2 + 1];
+    }
+    float kk[NF];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    pe += st[(q * NF + f) * 2];
-    co += st[(q * NF + f) * 2 + 1];
-    kk[f] = a.k[((long long)w * Q + q) * NF + f];
+    for (int f = 0; f < NF; ++f) {
+      pe += st[(q * NF + f) * 2];
+      co += st[(q * NF + f) * 2 + 1];
+      kk[f] = a.k[((long long)w * Q + q) * NF + f];
+    }
+    const float rho = a.rho[(long long)w * a.S + a.seed[q]];
+    const long long o = (long long)w * Q + q;
+    const float cost = alm_cost(a, w, kk, nullptr);
+    const float merit = cost + pe / (2.0f * rho);
+    const unsigned char feas = co == 0.0f ? 1 : 0;
+    a.value[o] = merit;
+    a.feas[o] = feas;
+    if (a.cost != nullptr) a.cost[o] = cost;
+    q_merit[q] = merit;
+    q_feas[q] = feas;
+    q_cost[q] = cost;
   }
-  const float rho = a.rho[(long long)w * a.S + a.seed[q]];
-  const long long o = (long long)w * Q + q;
-  const float cost = alm_cost(a, w, kk, nullptr);
-  a.value[o] = cost + pe / (2.0f * rho);
-  a.feas[o] = co == 0.0f ? 1 : 0;
-  if (a.cost != nullptr) a.cost[o] = cost;
+  if (a.epi.phase == ALM_EPI_NONE) return;
+  // the solve loop's phase on this world's queries, a thread per seed
+  __syncthreads();
+  if (tid < a.S) k8_epilogue<NF>(a, w, tid, q_merit, q_feas, q_cost);
 }
 
 static size_t k8_rows_smem(int B, int R) {
@@ -388,6 +441,14 @@ static int k8_launch_nf(const AlmArgs* a, float* p, float* part, int R, int G, v
 // collision thread (1, 2, 4, 6, 8, 12, 16); Q <= 16.
 extern "C" int k8_launch(const AlmArgs* a, float* p, float* part, int R, int G, void* stream) {
   if (a->Q > K8_MAXQ) return (int)cudaErrorInvalidValue;
+  const int ph = a->epi.phase;
+  if (ph != ALM_EPI_NONE) {
+    // a phase of the loop: not in the max mode, seeds and queries as it reads them
+    const int per = ph == ALM_EPI_ACCEPT ? a->epi.A : 1;
+    if (a->maxima || ph == ALM_EPI_LADDER || ph < 0 || ph > ALM_EPI_FINISH || a->S < 1 ||
+        a->S > K14_MAX_S || per < 1 || a->Q != a->S * per)
+      return (int)cudaErrorInvalidValue;
+  }
   switch (a->F) {
     case 6: return k8_launch_nf<6>(a, p, part, R, G, stream);
     case 7: return k8_launch_nf<7>(a, p, part, R, G, stream);

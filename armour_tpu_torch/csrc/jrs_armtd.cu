@@ -18,12 +18,12 @@
 // 3.35 TB/s; the ~60k elements' few hundred operations each are
 // microseconds.  Bound by the bytes written.
 //
-// Design, simple first: a block of K11_THREADS per (world, sub-interval).
-// The first J + 1 threads form a joint each (the element of factor j, its
-// trig tail and four rotation matrices; the fixed joints and the identity)
-// into shared memory; then every warp writes whole rows of the slab, lanes
-// along the row, so the stores are coalesced (jrs_tail.cuh:jrs_write_slab,
-// which the Bernstein family's kernel can share).
+// Design: K12's (jrs_bernstein.cu), whose writer it shares
+// (jrs_tail.cuh:jrs_write_slabs): a block of K11_THREADS per G consecutive
+// (world, sub-interval) slabs, a thread per (slab, joint) forming the
+// element of factor j, its trig tail and four rotation matrices (the fixed
+// joints and the identity) into shared memory; then the block writes each
+// output's flat range of its slabs with 16-byte streaming stores.
 //
 // The float32 arithmetic repeats the plain version operation by operation.
 // Its constants arrive as the plain version rounds them: Python doubles
@@ -37,6 +37,7 @@
 #include "jrs_tail.cuh"
 
 #define K11_THREADS 256
+#define K11_BLOCKS_PER_SM 4      // the register cap that keeps four blocks an SM
 
 struct K11Args {
   const float* q0;            // [W, F]
@@ -149,59 +150,61 @@ __device__ float k11_element(const K11Args& a, float q0, float qd0, int t, float
   return gk;
 }
 
-__global__ void __launch_bounds__(K11_THREADS) k11_kernel(const __grid_constant__ K11Args a) {
-  __shared__ float rot[JRS_MAXJ][4][9];
-  __shared__ float vel[3][3][JRS_MAXF];
-  const long long wt = blockIdx.x;
+// Joint j of slab wt (world w, sub-interval t) into rot [4][9] and, for an
+// actuated joint, vel [p][x][j]: factor j's element (k11_element), its trig
+// tail and four matrices (and, at t = 0, its trajectory scalars); a fixed
+// joint's rotation; the identity at j = J.
+__device__ void k11_joint(const K11Args& a, long long wt, int j, float (*rot)[9],
+                          float (*vel)[3][JRS_MAXF]) {
   const int w = (int)(wt / a.T), t = (int)(wt - (long long)w * a.T);
-  const int j = threadIdx.x;
-  if (j <= a.J) {
-    float m[4][9];
-    if (j < a.F) {
-      float trig[6], v[3][3];
-      const float q0 = a.q0[(long long)w * a.F + j], qd0 = a.qd0[(long long)w * a.F + j];
-      const float gk = k11_element(a, q0, qd0, t, trig, v);
-      for (int p = 0; p < 3; ++p)
-        for (int i = 0; i < 3; ++i) vel[p][i][j] = v[p][i];
-      jrs_joint_mats(a.axis[j], a.rotm + j * 9, trig, m);
-      if (t == 0) {
-        float* tr = a.traj + (long long)w * 3 * a.F;
-        tr[j] = gk;
-        tr[a.F + j] = qd0 * a.ts;
-        tr[2 * a.F + j] = 0.0f;
-      }
-    } else if (j < a.J) {
-      jrs_joint_mats(0, a.rotm + j * 9, nullptr, m);
-    } else {
-      const float eye[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-      jrs_joint_mats(0, eye, nullptr, m);
+  float m[4][9];
+  if (j < a.F) {
+    float trig[6], v[3][3];
+    const float q0 = a.q0[(long long)w * a.F + j], qd0 = a.qd0[(long long)w * a.F + j];
+    const float gk = k11_element(a, q0, qd0, t, trig, v);
+    for (int p = 0; p < 3; ++p)
+      for (int i = 0; i < 3; ++i) vel[p][i][j] = v[p][i];
+    jrs_joint_mats(a.axis[j], a.rotm + j * 9, trig, m);
+    if (t == 0) {
+      float* tr = a.traj + (long long)w * 3 * a.F;
+      tr[j] = gk;
+      tr[a.F + j] = qd0 * a.ts;
+      tr[2 * a.F + j] = 0.0f;
     }
-    for (int i = 0; i < 4; ++i)
-      for (int e = 0; e < 9; ++e) rot[j][i][e] = m[i][e];
+  } else if (j < a.J) {
+    jrs_joint_mats(0, a.rotm + j * 9, nullptr, m);
+  } else {
+    const float eye[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+    jrs_joint_mats(0, eye, nullptr, m);
   }
-  __syncthreads();
-  JrsOut o;
-  o.R_coef = a.R_coef;
-  o.R_egen = a.R_egen;
-  o.R_rad = a.R_rad;
-  o.v_coef = a.v_coef;
-  o.v_egen = a.v_egen;
-  o.v_rad = a.v_rad;
-  o.WT = (long long)a.W * a.T;
-  o.J = a.J;
-  o.F = a.F;
-  o.B = a.B;
-  o.E = a.E;
-  o.e_cos = a.e_cos;
-  o.e_sin = a.e_sin;
-  o.e_vel[0] = a.e_qde;
-  o.e_vel[1] = a.e_qdae;
-  o.e_vel[2] = a.e_qddae;
-  jrs_write_slab(o, wt, a.lin, rot, vel);
+  for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 9; ++e) rot[i][e] = m[i][e];
 }
 
-extern "C" int k11_launch(const K11Args* args, void* stream) {
-  const long long blocks = (long long)args->W * args->T;
-  k11_kernel<<<(unsigned int)blocks, K11_THREADS, 0, (cudaStream_t)stream>>>(*args);
+// A block per G consecutive slabs (grid-stride beyond the grid): a thread
+// per (slab, joint) forms them, then the block writes them (jrs_tail.cuh).
+__global__ void __launch_bounds__(K11_THREADS, K11_BLOCKS_PER_SM) k11_kernel(
+    const __grid_constant__ K11Args a, int G) {
+  __shared__ JrsSlabs sl;
+  const JrsOut o = jrs_out(a);
+  const int J1 = a.J + 1;
+  if ((int)threadIdx.x < a.F) sl.lin[threadIdx.x] = a.lin[threadIdx.x];
+  for (long long wt0 = (long long)blockIdx.x * G; wt0 < o.WT; wt0 += (long long)gridDim.x * G) {
+    const int n = (int)min((long long)G, o.WT - wt0);
+    for (int i = threadIdx.x; i < n * J1; i += blockDim.x) {
+      const int g = i / J1, j = i - g * J1;
+      k11_joint(a, wt0 + g, j, sl.rot[g][j], sl.vel[g]);
+    }
+    __syncthreads();
+    jrs_write_slabs(o, wt0, n, sl);
+    __syncthreads();                     // sl is formed again for the next slabs
+  }
+}
+
+// G slabs per block (1 .. JRS_MAX_G) and the grid: kernels/jrs.py:jrs_geometry.
+extern "C" int k11_launch(const K11Args* args, int G, int blocks, void* stream) {
+  if (G < 1 || G > JRS_MAX_G || blocks < 1 || args->J + 1 > JRS_MAXJ || args->F > JRS_MAXF)
+    return (int)cudaErrorInvalidValue;
+  k11_kernel<<<(unsigned int)blocks, K11_THREADS, 0, (cudaStream_t)stream>>>(*args, G);
   return (int)cudaGetLastError();
 }

@@ -23,10 +23,17 @@
 // layout, so one call is ~0.145 ms at 3.35 TB/s; the ~57k elements' few
 // hundred operations each are microseconds.  Bound by the bytes written.
 //
-// Design, as K11 (jrs_armtd.cu): a block of K12_THREADS per (world,
-// sub-interval); the first J + 1 threads form a joint each into shared
-// memory (jrs_tail.cuh: the trig tail and the joint's four matrices), then
-// every warp writes whole rows of the slab (jrs_tail.cuh:jrs_write_slab).
+// What held the first design back (a block per (world, sub-interval), 8,192
+// at the flagship size; 0.254 ms, 57% of the bytes' rate): J + 1 of its 256
+// threads formed the slab's joints while the rest waited at the barrier,
+// then each warp wrote a row with 4-byte stores (B = 120: the fourth pass
+// 24 lanes busy; E = 38: the second pass 6), in waves of blocks that formed
+// and then stored together.  This design (jrs_tail.cuh: the writer, shared
+// with K11): a block of K12_THREADS per G consecutive slabs, its threads a
+// (slab, joint) each forming them at once, then 16-byte streaming stores
+// of each output's flat range; at the flagship size G = 16, 512 blocks,
+// all resident (K12_BLOCKS_PER_SM caps the registers so that four fit an
+// SM): one short pass of forming, then the stores.
 //
 // The float32 arithmetic repeats the plain version operation by operation,
 // left to right as Python evaluates it (6.0 * Tqd0 * s**3 is (6 Tqd0) s^3).
@@ -42,6 +49,7 @@
 #include "jrs_tail.cuh"
 
 #define K12_THREADS 256
+#define K12_BLOCKS_PER_SM 4      // the register cap that keeps four blocks an SM
 
 struct K12Args {
   const float* q0;            // [W, F]
@@ -217,62 +225,64 @@ __device__ void k12_element(const K12Args& a, float q0, float T, float TT, float
   vel[2][2] = (ad_radius + (hi - lo) * 0.5f) + a.qddae;
 }
 
-__global__ void __launch_bounds__(K12_THREADS) k12_kernel(const __grid_constant__ K12Args a) {
-  __shared__ float rot[JRS_MAXJ][4][9];
-  __shared__ float vel[3][3][JRS_MAXF];
-  const long long wt = blockIdx.x;
+// Joint j of slab wt (world w, sub-interval t) into rot [4][9] and, for an
+// actuated joint, vel [p][x][j]: factor j's element, its trig tail and four
+// matrices (and, at t = 0, its trajectory scalars); a fixed joint's
+// rotation; the identity at j = J.
+__device__ void k12_joint(const K12Args& a, long long wt, int j, float (*rot)[9],
+                          float (*vel)[3][JRS_MAXF]) {
   const int w = (int)(wt / a.T), t = (int)(wt - (long long)w * a.T);
-  const int j = threadIdx.x;
-  if (j <= a.J) {
-    float m[4][9];
-    if (j < a.F) {
-      float trig[6], v[3][3];
-      const long long i = (long long)w * a.F + j;
-      const float q0 = a.q0[i], qd0 = a.qd0[i], qdd0 = a.qdd0[i], kr = a.k_range[j];
-      const float T = qd0 * a.dur;                  // Tqd0
-      const float TT = (qdd0 * a.dur) * a.dur;      // TTqdd0
-      k12_element(a, q0, T, TT, kr, t, trig, v);
-      for (int p = 0; p < 3; ++p)
-        for (int x = 0; x < 3; ++x) vel[p][x][j] = v[p][x];
-      jrs_joint_mats(a.axis[j], a.rotm + j * 9, trig, m);
-      if (t == 0) {
-        float* tr = a.traj + (long long)w * 3 * a.F;
-        tr[j] = kr;
-        tr[a.F + j] = T;
-        tr[2 * a.F + j] = TT;
-      }
-    } else if (j < a.J) {
-      jrs_joint_mats(0, a.rotm + j * 9, nullptr, m);
-    } else {
-      const float eye[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-      jrs_joint_mats(0, eye, nullptr, m);
+  float m[4][9];
+  if (j < a.F) {
+    float trig[6], v[3][3];
+    const long long i = (long long)w * a.F + j;
+    const float q0 = a.q0[i], qd0 = a.qd0[i], qdd0 = a.qdd0[i], kr = a.k_range[j];
+    const float T = qd0 * a.dur;                  // Tqd0
+    const float TT = (qdd0 * a.dur) * a.dur;      // TTqdd0
+    k12_element(a, q0, T, TT, kr, t, trig, v);
+    for (int p = 0; p < 3; ++p)
+      for (int x = 0; x < 3; ++x) vel[p][x][j] = v[p][x];
+    jrs_joint_mats(a.axis[j], a.rotm + j * 9, trig, m);
+    if (t == 0) {
+      float* tr = a.traj + (long long)w * 3 * a.F;
+      tr[j] = kr;
+      tr[a.F + j] = T;
+      tr[2 * a.F + j] = TT;
     }
-    for (int x = 0; x < 4; ++x)
-      for (int e = 0; e < 9; ++e) rot[j][x][e] = m[x][e];
+  } else if (j < a.J) {
+    jrs_joint_mats(0, a.rotm + j * 9, nullptr, m);
+  } else {
+    const float eye[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+    jrs_joint_mats(0, eye, nullptr, m);
   }
-  __syncthreads();
-  JrsOut o;
-  o.R_coef = a.R_coef;
-  o.R_egen = a.R_egen;
-  o.R_rad = a.R_rad;
-  o.v_coef = a.v_coef;
-  o.v_egen = a.v_egen;
-  o.v_rad = a.v_rad;
-  o.WT = (long long)a.W * a.T;
-  o.J = a.J;
-  o.F = a.F;
-  o.B = a.B;
-  o.E = a.E;
-  o.e_cos = a.e_cos;
-  o.e_sin = a.e_sin;
-  o.e_vel[0] = a.e_qde;
-  o.e_vel[1] = a.e_qdae;
-  o.e_vel[2] = a.e_qddae;
-  jrs_write_slab(o, wt, a.lin, rot, vel);
+  for (int x = 0; x < 4; ++x)
+    for (int e = 0; e < 9; ++e) rot[x][e] = m[x][e];
 }
 
-extern "C" int k12_launch(const K12Args* args, void* stream) {
-  const long long blocks = (long long)args->W * args->T;
-  k12_kernel<<<(unsigned int)blocks, K12_THREADS, 0, (cudaStream_t)stream>>>(*args);
+// A block per G consecutive slabs (grid-stride beyond the grid): a thread
+// per (slab, joint) forms them, then the block writes them (jrs_tail.cuh).
+__global__ void __launch_bounds__(K12_THREADS, K12_BLOCKS_PER_SM) k12_kernel(
+    const __grid_constant__ K12Args a, int G) {
+  __shared__ JrsSlabs sl;
+  const JrsOut o = jrs_out(a);
+  const int J1 = a.J + 1;
+  if ((int)threadIdx.x < a.F) sl.lin[threadIdx.x] = a.lin[threadIdx.x];
+  for (long long wt0 = (long long)blockIdx.x * G; wt0 < o.WT; wt0 += (long long)gridDim.x * G) {
+    const int n = (int)min((long long)G, o.WT - wt0);
+    for (int i = threadIdx.x; i < n * J1; i += blockDim.x) {
+      const int g = i / J1, j = i - g * J1;
+      k12_joint(a, wt0 + g, j, sl.rot[g][j], sl.vel[g]);
+    }
+    __syncthreads();
+    jrs_write_slabs(o, wt0, n, sl);
+    __syncthreads();                     // sl is formed again for the next slabs
+  }
+}
+
+// G slabs per block (1 .. JRS_MAX_G) and the grid: kernels/jrs.py:jrs_geometry.
+extern "C" int k12_launch(const K12Args* args, int G, int blocks, void* stream) {
+  if (G < 1 || G > JRS_MAX_G || blocks < 1 || args->J + 1 > JRS_MAXJ || args->F > JRS_MAXF)
+    return (int)cudaErrorInvalidValue;
+  k12_kernel<<<(unsigned int)blocks, K12_THREADS, 0, (cudaStream_t)stream>>>(*args, G);
   return (int)cudaGetLastError();
 }

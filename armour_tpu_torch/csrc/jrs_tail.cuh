@@ -2,8 +2,8 @@
 // kernels: the first-order Taylor of cos / sin with an interval Lagrange
 // remainder (jrs.py:trig_taylor_pz, pz/interval.py), a joint's four
 // rotation matrices (jrs.py:assemble_rotations: centre, k coefficient and
-// the cos / sin error generators), and a block's write of one (world, time)
-// slab of R and of the three velocity PZs (jrs.py:make_velocity_pz) in the
+// the cos / sin error generators), and a block's write of its (world, time)
+// slabs of R and of the three velocity PZs (jrs.py:make_velocity_pz) in the
 // port's layouts.  A family's kernel supplies the per-element scalars
 // (centre angle, its radius and k coefficient; velocity and acceleration
 // centres, k coefficients and radii) and calls these.
@@ -130,7 +130,7 @@ __device__ __forceinline__ void jrs_joint_mats(int axis, const float* rotm, cons
   jrs_rotate(rotm, P, m[3]);
 }
 
-// Where a block writes one (world, time) slab wt of a JRS.
+// Where the blocks write the (world, time) slabs of a JRS.
 struct JrsOut {
   float* R_coef;       // [W*T, J+1, 3, 3, B]
   float* R_egen;       // [W*T, J+1, 3, 3, E]
@@ -144,36 +144,180 @@ struct JrsOut {
   int e_vel[3];        // error-generator columns of factor 0's qde / qdae / qddae
 };
 
-// The block writes slab wt from rot[j][4][9] (jrs_joint_mats of every joint,
-// the identity last) and vel[p][3][f] (p = qd, qda, qdda: centre, k
-// coefficient, error radius), lin[f] the basis column of k_f.  Every entry
-// is written (zeros included), a warp per row, lanes along the row.
-__device__ __forceinline__ void jrs_write_slab(const JrsOut& o, long long wt, const int* lin,
-                                               float (*rot)[4][9], float (*vel)[3][JRS_MAXF]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int J1 = o.J + 1, B = o.B, E = o.E, F = o.F;
-  float* Rc = o.R_coef + wt * J1 * 9 * B;
-  float* Re = o.R_egen + wt * J1 * 9 * E;
-  for (int r = warp; r < J1 * 9; r += nwarps) {
-    const int j = r / 9, e = r - (r / 9) * 9;
-    const float c0 = rot[j][0][e], ck = rot[j][1][e], ce = rot[j][2][e], se = rot[j][3][e];
-    const int lj = j < F ? lin[j] : -1;
-    const int jc = j < F ? o.e_cos + j : -1, js = j < F ? o.e_sin + j : -1;
-    float* row = Rc + (long long)r * B;
-    for (int b = lane; b < B; b += 32) row[b] = b == 0 ? c0 : (b == lj ? ck : 0.0f);
-    row = Re + (long long)r * E;
-    for (int x = lane; x < E; x += 32) row[x] = x == jc ? ce : (x == js ? se : 0.0f);
+// A family's arguments (K11Args, K12Args) name the outputs alike.
+template <class Args>
+__device__ __forceinline__ JrsOut jrs_out(const Args& a) {
+  JrsOut o;
+  o.R_coef = a.R_coef;
+  o.R_egen = a.R_egen;
+  o.R_rad = a.R_rad;
+  o.v_coef = a.v_coef;
+  o.v_egen = a.v_egen;
+  o.v_rad = a.v_rad;
+  o.WT = (long long)a.W * a.T;
+  o.J = a.J;
+  o.F = a.F;
+  o.B = a.B;
+  o.E = a.E;
+  o.e_cos = a.e_cos;
+  o.e_sin = a.e_sin;
+  o.e_vel[0] = a.e_qde;
+  o.e_vel[1] = a.e_qdae;
+  o.e_vel[2] = a.e_qddae;
+  return o;
+}
+
+// The writer (what bounds a JRS kernel on the H100: ~484 MB written at the
+// flagship size, almost all of it the zeros of the dense PZ layout).  A
+// block forms G <= JRS_MAX_G consecutive slabs at once, a thread per
+// (slab, joint), into JrsSlabs; then, since each output tensor's range of
+// those slabs is contiguous (R's [W T, J+1, 3, 3, .]; the velocity PZs'
+// [3, W T, F, .], one range per p), it writes each range flat: every
+// thread 16-byte streaming stores (__stcs on float4, evict-first: nothing
+// reads them back before K9 / K10), neighbouring threads on neighbouring
+// addresses, from the range's first 16-byte boundary, single floats before
+// it and after its last whole float4 (ranges of F E = 266 floats start
+// unaligned).  Each entry is computed from its flat index: zero but the
+// centre column, the k column (lin) and the error columns, with the values
+// the element stage left in shared memory, so the tensors hold the same
+// bits as written row by row.  kernels/jrs.py:jrs_geometry picks G and the
+// grid (every block resident at once at the flagship size: one pass of
+// forming, then the stores; a grid-stride loop beyond).
+// tests/test_torch_kernel_geometry.py repeats jrs_write_slabs' index
+// arithmetic in Python for the CPU tests.
+#define JRS_MAX_G 16        // slabs a block holds
+#define JRS_R_COEF 0        // segment kinds
+#define JRS_R_EGEN 1
+#define JRS_V_COEF 2
+#define JRS_V_EGEN 3
+#define JRS_ZERO 4
+
+// A block's slabs: rot[g][j] joint j's four matrices (centre, k
+// coefficient, cos error, sin error; jrs_joint_mats, the identity last),
+// vel[g][p][x][f] factor f's velocity PZ p (qd, qda, qdda) as (centre, k
+// coefficient, error radius).
+struct JrsSlabs {
+  float rot[JRS_MAX_G][JRS_MAXJ][4][9];
+  float vel[JRS_MAX_G][3][3][JRS_MAXF];
+  int lin[JRS_MAXF];      // the basis column of k_f, read by lanes of differing rows
+};
+
+// Entry c of row r of slab g of a segment of KIND (velocity PZ p)
+template <int KIND>
+__device__ __forceinline__ float jrs_value(const JrsOut& o, const JrsSlabs& s, int p, int g, int r,
+                                           int c) {
+  const int* lin = s.lin;
+  if (KIND == JRS_R_COEF) {
+    const int j = r / 9, e = r - 9 * j;
+    return c == 0 ? s.rot[g][j][0][e] : (j < o.F && c == lin[j]) ? s.rot[g][j][1][e] : 0.0f;
   }
-  for (int i = threadIdx.x; i < J1 * 9; i += blockDim.x) o.R_rad[wt * J1 * 9 + i] = 0.0f;
-  for (int r = warp; r < 3 * F; r += nwarps) {
-    const int p = r / F, f = r - (r / F) * F;
-    const long long slab = (p * o.WT + wt) * F + f;
-    const float c0 = vel[p][0][f], ck = vel[p][1][f], ce = vel[p][2][f];
-    const int lf = lin[f], ef = o.e_vel[p] + f;
-    float* row = o.v_coef + slab * B;
-    for (int b = lane; b < B; b += 32) row[b] = b == 0 ? c0 : (b == lf ? ck : 0.0f);
-    row = o.v_egen + slab * E;
-    for (int x = lane; x < E; x += 32) row[x] = x == ef ? ce : 0.0f;
-    if (lane == 0) o.v_rad[slab] = 0.0f;
+  if (KIND == JRS_R_EGEN) {
+    const int j = r / 9, e = r - 9 * j;
+    if (j >= o.F) return 0.0f;
+    return c == o.e_cos + j ? s.rot[g][j][2][e] : c == o.e_sin + j ? s.rot[g][j][3][e] : 0.0f;
+  }
+  if (KIND == JRS_V_COEF)
+    return c == 0 ? s.vel[g][p][0][r] : c == lin[r] ? s.vel[g][p][1][r] : 0.0f;
+  if (KIND == JRS_V_EGEN) return c == o.e_vel[p] + r ? s.vel[g][p][2][r] : 0.0f;
+  return 0.0f;
+}
+
+// Flat entry x of a segment: slabs of slab_len entries, rows of L
+template <int KIND>
+__device__ __forceinline__ float jrs_entry(const JrsOut& o, const JrsSlabs& s, int p, int x,
+                                           int slab_len, int L) {
+  if (KIND == JRS_ZERO) return 0.0f;
+  const int g = x / slab_len, y = x - g * slab_len, r = y / L;
+  return jrs_value<KIND>(o, s, p, g, r, y - r * L);
+}
+
+// The columns [lo, hi] of a row of KIND that can hold a non-zero entry
+// (the centre column 0 and the k columns lin; the error columns)
+template <int KIND>
+__device__ __forceinline__ void jrs_window(const JrsOut& o, const int* lin, int p, int* lo,
+                                           int* hi) {
+  int top = 0;
+  for (int f = 0; f < o.F; ++f) top = max(top, lin[f]);
+  if (KIND == JRS_R_COEF || KIND == JRS_V_COEF) {
+    *lo = 0;
+    *hi = top;
+  } else if (KIND == JRS_R_EGEN) {
+    *lo = min(o.e_cos, o.e_sin);
+    *hi = max(o.e_cos, o.e_sin) + o.F - 1;
+  } else {
+    *lo = o.e_vel[p];
+    *hi = o.e_vel[p] + o.F - 1;
+  }
+}
+
+// Entries [0, len) of the segment at dst, by the whole block.  A thread
+// finds its first float4's (slab, row, column) by division, then steps it
+// by the block's stride (4 blockDim.x entries) with carries; a float4 whose
+// four columns lie in one row outside the row's window (jrs_window) is
+// zero without a look-up.
+template <int KIND>
+__device__ __forceinline__ void jrs_write_segment(float* dst, int len, int slab_len, int L, int p,
+                                                  const JrsOut& o, const JrsSlabs& s) {
+  const int head = min(len, (int)(((16u - ((unsigned)(size_t)dst & 15u)) & 15u) >> 2));
+  const int n4 = (len - head) >> 2;
+  for (int x = threadIdx.x; x < head; x += blockDim.x)
+    __stcs(dst + x, jrs_entry<KIND>(o, s, p, x, slab_len, L));
+  float4* d4 = (float4*)(dst + head);
+  if (KIND == JRS_ZERO) {
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      __stcs(d4 + i, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  } else if ((int)threadIdx.x < n4) {
+    const int rows = slab_len / L, stride = 4 * blockDim.x;
+    const int dq = stride / L, dc = stride - dq * L, dg = dq / rows, dr = dq - dg * rows;
+    int lo, hi;
+    jrs_window<KIND>(o, s.lin, p, &lo, &hi);
+    const int x = head + 4 * threadIdx.x;
+    int g = x / slab_len, y = x - g * slab_len, r = y / L, c = y - r * L;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (!((c > hi || c + 3 < lo) && c + 3 < L)) {
+        int gg = g, rr = r, cc = c;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          v[u] = jrs_value<KIND>(o, s, p, gg, rr, cc);
+          if (++cc == L) {
+            cc = 0;
+            if (++rr == rows) {
+              rr = 0;
+              ++gg;
+            }
+          }
+        }
+      }
+      __stcs(d4 + i, make_float4(v[0], v[1], v[2], v[3]));
+      c += dc;
+      if (c >= L) {
+        c -= L;
+        ++r;
+      }
+      r += dr;
+      if (r >= rows) {
+        r -= rows;
+        ++g;
+      }
+      g += dg;
+    }
+  }
+  for (int x = head + 4 * n4 + threadIdx.x; x < len; x += blockDim.x)
+    __stcs(dst + x, jrs_entry<KIND>(o, s, p, x, slab_len, L));
+}
+
+// The block's n slabs wt0 .. wt0 + n - 1 of every output, from s.
+__device__ __forceinline__ void jrs_write_slabs(const JrsOut& o, long long wt0, int n,
+                                                const JrsSlabs& s) {
+  const int J9 = (o.J + 1) * 9, B = o.B, E = o.E, F = o.F;
+  jrs_write_segment<JRS_R_COEF>(o.R_coef + wt0 * J9 * B, n * J9 * B, J9 * B, B, 0, o, s);
+  jrs_write_segment<JRS_R_EGEN>(o.R_egen + wt0 * J9 * E, n * J9 * E, J9 * E, E, 0, o, s);
+  jrs_write_segment<JRS_ZERO>(o.R_rad + wt0 * J9, n * J9, J9, 1, 0, o, s);
+  for (int p = 0; p < 3; ++p) {
+    const long long slab = p * o.WT + wt0;
+    jrs_write_segment<JRS_V_COEF>(o.v_coef + slab * F * B, n * F * B, F * B, B, p, o, s);
+    jrs_write_segment<JRS_V_EGEN>(o.v_egen + slab * F * E, n * F * E, F * E, E, p, o, s);
+    jrs_write_segment<JRS_ZERO>(o.v_rad + slab * F, n * F, F, 1, p, o, s);
   }
 }

@@ -24,7 +24,8 @@ kernel through the launchers here or raises.  Each launcher calls
 launched(name) where it launches its kernel and nowhere else: LAUNCHES[name]
 counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
 launched (K7, K8 and K13 run three per call, K8's max mode two, every
-other kernel one).
+other kernel one).  K14 launches only its cull and selection; its other
+phases run in K7's / K8's finish, counted by phase in IN_FINISH.
 Sources are compiled with nvcc at first use (kernels/build.py).
 """
 
@@ -41,6 +42,9 @@ H100_SMS = 132            # streaming multiprocessors of an H100 SXM (launch geo
 
 LAUNCHES = {name: 0 for name in KERNELS}
 DEVICE_LAUNCHES = {name: 0 for name in KERNELS}
+# K14's phases that a K7 / K8 finish ran (kernels/solver.py:ALM_EPILOGUES), by
+# phase: they launch nothing of their own
+IN_FINISH = {}
 
 # when a dict: the first call of each (kernel, shape signature) records its
 # inputs here, so that a run can replay the main path's calls against the
@@ -53,10 +57,15 @@ def launched(name: str, device_launches: int = 1) -> None:
     DEVICE_LAUNCHES[name] += device_launches
 
 
+def ran_in_finish(phase: str) -> None:
+    IN_FINISH[phase] = IN_FINISH.get(phase, 0) + 1
+
+
 def reset_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
         DEVICE_LAUNCHES[name] = 0
+    IN_FINISH.clear()
 
 
 def counts() -> dict:

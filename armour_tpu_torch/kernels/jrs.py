@@ -5,7 +5,9 @@ tensors only.  Each checks device, dtype, shapes and contiguity, raises on
 anything its kernel does not take, allocates every output with torch.empty
 (the kernel writes each entry, zeros included) and launches on the current
 stream without a host synchronisation.  The robot's and config's part of
-the arguments is built once and kept in basis.kernel_args."""
+the arguments is built once and kept in basis.kernel_args.  Both kernels
+write through one writer (csrc/jrs_tail.cuh), launched with the (slabs a
+block, grid) of jrs_geometry."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from . import launched, record
+from . import H100_SMS, launched, record
 from .build import launcher
 from .collision import _require, _stream
 from ..jrs import JRS, QDD_K_DEP_MAXIMA, QDD_K_DEP_MINIMA, TrajectoryCoeffs
@@ -23,6 +25,21 @@ from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
 
 MAXJ, MAXF = 10, 8          # csrc/jrs_tail.cuh: JRS_MAXJ (joints + 1), JRS_MAXF
+MAX_G = 16                  # csrc/jrs_tail.cuh: JRS_MAX_G, the slabs a block holds
+THREADS = 256               # K11_THREADS, K12_THREADS
+BLOCKS_PER_SM = 4           # K11_BLOCKS_PER_SM, K12_BLOCKS_PER_SM
+
+
+def jrs_geometry(WT: int, sms: int = H100_SMS) -> tuple:
+    """(G, blocks) of K11 / K12 for W T slabs: G slabs a block (at most
+    MAX_G), as few as keep every SM's BLOCKS_PER_SM blocks busy, and no more
+    blocks than are resident at once (a grid-stride loop takes the rest)."""
+    G = min(MAX_G, max(1, -(-WT // (sms * BLOCKS_PER_SM))))
+    return G, max(1, min(-(-WT // G), sms * BLOCKS_PER_SM))
+
+
+def _sms(x) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 class JrsTrig(ctypes.Structure):
@@ -120,8 +137,10 @@ def jrs_armtd(q0, qd0, robot, cfg, basis: KBasis) -> JRS:
                                                 v_rad.data_ptr())
         args.traj = traj.data_ptr()
         args.W, args.T = Wn, T
-        fn = launcher("jrs_armtd", "k11_launch", [ctypes.POINTER(K11Args), ctypes.c_void_p])
-        err = fn(ctypes.byref(args), _stream(q0))
+        G, blocks = jrs_geometry(Wn * T, _sms(q0))
+        fn = launcher("jrs_armtd", "k11_launch", [ctypes.POINTER(K11Args), ctypes.c_int,
+                                                  ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), G, blocks, _stream(q0))
         if err:
             raise RuntimeError(f"jrs_armtd launch failed: cudaError {err}")
         launched("jrs_armtd")
@@ -225,8 +244,10 @@ def jrs_bernstein(q0, qd0, qdd0, robot, cfg, basis: KBasis) -> JRS:
                                                 v_rad.data_ptr())
         args.traj = traj.data_ptr()
         args.W, args.T = Wn, T
-        fn = launcher("jrs_bernstein", "k12_launch", [ctypes.POINTER(K12Args), ctypes.c_void_p])
-        err = fn(ctypes.byref(args), _stream(q0))
+        G, blocks = jrs_geometry(Wn * T, _sms(q0))
+        fn = launcher("jrs_bernstein", "k12_launch", [ctypes.POINTER(K12Args), ctypes.c_int,
+                                                      ctypes.c_int, ctypes.c_void_p])
+        err = fn(ctypes.byref(args), G, blocks, _stream(q0))
         if err:
             raise RuntimeError(f"jrs_bernstein launch failed: cudaError {err}")
         launched("jrs_bernstein")

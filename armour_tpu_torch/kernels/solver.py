@@ -1,6 +1,9 @@
 """Launchers of the ALM solver's row kernels K7 (alm_newton) and K8
 (alm_values, and its max mode alm_maxima), and of K14 (alm_loop), the solve
-loop's bookkeeping between them.  Called by nlp.py for CUDA tensors only;
+loop's bookkeeping between them: its cull and selection launch on their
+own (LOOP); every other phase runs in the finish of the K7 / K8 call that
+feeds it (epilogue: an AlmEpilogue in the call's arguments, ALM_EPILOGUES
+its fields per phase; nlp.loop_pairs hands it to the row pass).  Called by nlp.py for CUDA tensors only;
 each checks device, dtype, shapes and contiguity, raises on anything its
 kernel does not take, allocates the outputs with torch.empty and launches
 on the current stream, without a host synchronisation.
@@ -28,7 +31,7 @@ import types
 import numpy as np
 import torch
 
-from . import H100_SMS, launched, record
+from . import H100_SMS, launched, ran_in_finish, record
 from .build import launcher
 from .collision import _require, _stream
 from ..pz.basis import KBasis
@@ -36,6 +39,27 @@ from ..pz.basis import KBasis
 MAX_B, MAX_F, MAX_DEG = 128, 8, 3
 FACTORS = (6, 7)          # the kernels are instantiated for these F (the UR5's 6, the 7-DOF arms')
 SMEM_LIMIT = 232448       # bytes of shared memory a block can use on Hopper
+
+
+K14_THREADS = 128
+K14_MAX_A, K14_MAX_S, K14_MAX_F = 16, 8, 8
+# csrc/alm_loop.cuh's ALM_EPI_* in order: the phases a K7 / K8 finish runs
+EPI_PHASES = ("none", "init", "ladder", "accept", "outer", "pull_start", "pull_step", "pull_end",
+              "finish")
+
+
+class AlmEpilogue(ctypes.Structure):
+    """csrc/alm_loop.cuh:AlmEpilogue, the solve loop's phase a K7 / K8 call
+    runs in its finish (phase 0: none)."""
+
+    _fields_ = [("phase", ctypes.c_int), ("A", ctypes.c_int),
+                ("k", ctypes.c_void_p), ("m0", ctypes.c_void_p), ("best_k", ctypes.c_void_p),
+                ("best_cost", ctypes.c_void_p), ("lo", ctypes.c_void_p), ("hi", ctypes.c_void_p),
+                ("end_feas", ctypes.c_void_p), ("k_out", ctypes.c_void_p),
+                ("best_k_out", ctypes.c_void_p), ("best_cost_out", ctypes.c_void_p),
+                ("lam_out", ctypes.c_void_p), ("rho_out", ctypes.c_void_p),
+                ("lo_out", ctypes.c_void_p), ("hi_out", ctypes.c_void_p),
+                ("mid_out", ctypes.c_void_p), ("alphas", ctypes.c_float * K14_MAX_A)]
 
 
 class AlmArgs(ctypes.Structure):
@@ -62,7 +86,7 @@ class AlmArgs(ctypes.Structure):
                 ("col_margin", ctypes.c_float), ("thr_grasp", ctypes.c_float),
                 ("tp", ctypes.c_float), ("dts", ctypes.c_float),
                 ("g_tp", ctypes.c_float), ("g_ts", ctypes.c_float),
-                ("degs", ctypes.c_ubyte * (MAX_B * MAX_F))]
+                ("degs", ctypes.c_ubyte * (MAX_B * MAX_F)), ("epi", AlmEpilogue)]
 
 
 def _degs_template(basis: KBasis) -> AlmArgs:
@@ -278,12 +302,13 @@ def k7_geometry(Wn: int, S: int, n_centre: int, n_torque: int, K: int,
                       tiles_b=-(-K // RB))
 
 
-def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
+def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False, epi=None):
     """K7: (step [W,S,F], m0 [W,S], feas [W,S], cost [W,S]) at the seeds k
     [W,S,F] with multipliers lam [W,S,M] and penalties rho [W,S]; with
     want_system also g [W,S,F] and H [W,S,F,F].  Three device launches (two
     without screened rows); the scratch (link centres and their gradients,
-    partial sums) is allocated here."""
+    partial sums) is allocated here.  epi: the solve loop's ladder for the
+    finish to run (an Epilogue), or None."""
     S = k.shape[1] if k.dim() == 3 else -1
     if _state(rows, k, lam, rho, S) != S:
         raise ValueError("alm_newton takes one query per seed")
@@ -311,6 +336,7 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
         args.cost = cost.data_ptr()
         if want_system:
             args.g, args.H = g.data_ptr(), H.data_ptr()
+        _set_epilogue(args, epi, "alm_newton")
         fn = launcher("alm_newton", "k7_launch",
                       [ctypes.POINTER(AlmArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p])
@@ -318,6 +344,8 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False):
         if err:
             raise RuntimeError(f"alm_newton launch failed: cudaError {err}")
         launched("alm_newton", 3 if a.K else 2)
+        if epi is not None:
+            ran_in_finish(epi.phase)
     if want_system:
         return step, m0, feas, cost, g, H
     return step, m0, feas, cost
@@ -382,10 +410,12 @@ def k8_geometry(Wn: int, Q: int, n_poly: int, K: int, sms: int = H100_SMS) -> K8
     return K8Geometry(R=R, G=G, tiles_a=-(-n_poly // R), tiles_b=tiles_b, Qp=-(-Q // G) * G)
 
 
-def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
+def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False, epi=None):
     """K8: (merit [W,Q], feas [W,Q], cost [W,Q], c [W,Q,M] or None) at the
     query points kq [W,Q,F], query q taking the multipliers lam [W,S,M] and
-    penalty rho [W,S] of seed seed_of_q[q] (int32 [Q] on the card)."""
+    penalty rho [W,S] of seed seed_of_q[q] (int32 [Q] on the card).  epi:
+    a phase of the solve loop for the finish to run (an Epilogue), or
+    None."""
     Q = kq.shape[1] if kq.dim() == 3 else -1
     S = _state(rows, kq, lam, rho, Q)
     _require(seed_of_q, "seed_of_q", (Q,), torch.int32)
@@ -407,8 +437,11 @@ def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False):
         args.value, args.feas, args.cost = merit.data_ptr(), feas.data_ptr(), cost.data_ptr()
         if want_c:
             args.c = c.data_ptr()
+        _set_epilogue(args, epi, "alm_values")
         _k8_launch(args, p, part, geo, kq)
         launched("alm_values", 3 if a.K else 2)
+        if epi is not None:
+            ran_in_finish(epi.phase)
     return merit, feas, cost, c
 
 
@@ -449,41 +482,43 @@ def alm_maxima(rows: AlmRows, kq):
 
 
 # ---------------------------------------------------------------------------
-# K14: the solve loop's bookkeeping (csrc/alm_loop.cu)
+# K14: the solve loop's bookkeeping (csrc/alm_loop.cuh, csrc/alm_loop.cu)
 # ---------------------------------------------------------------------------
 
-K14_THREADS = 128
-K14_MAX_A, K14_MAX_S, K14_MAX_F = 16, 8, 8
+# The phases that run as the epilogue of the row pass feeding them: the row
+# kernel, then the AlmEpilogue fields the phase reads beside that pass's
+# own outputs and those it writes, each name[dims] a tensor (":bool" a bool
+# one, else float32) of the given sizes.  Sizes: W worlds, S seeds, F
+# factors, A ladder points per seed, Q = S A, S2 = 2 S, M multipliers.  The
+# row pass's query points: the seeds' iterate, but the accept's (the ladder,
+# Q = S A) and the pull-in steps' (the midpoints).
+ALM_EPILOGUES = {
+    "init": ("alm_values", "", "best_k_out[W,S,F] best_cost_out[W,S]"),
+    "ladder": ("alm_newton", "best_k[W,S,F] best_cost[W,S]",
+               "k_out[W,Q,F] best_k_out[W,S,F] best_cost_out[W,S]"),
+    "accept": ("alm_values", "k[W,S,F] m0[W,S] best_k[W,S,F] best_cost[W,S]",
+               "k_out[W,S,F] best_k_out[W,S,F] best_cost_out[W,S]"),
+    "outer": ("alm_values", "best_k[W,S,F] best_cost[W,S]",
+              "lam_out[W,S,M] rho_out[W,S] best_k_out[W,S,F] best_cost_out[W,S]"),
+    "pull_start": ("alm_values", "best_k[W,S,F] best_cost[W,S]",
+                   "lo_out[W,S,F] hi_out[W,S,F] mid_out[W,S,F]"),
+    "pull_step": ("alm_values", "lo[W,S,F] hi[W,S,F]",
+                  "lo_out[W,S,F] hi_out[W,S,F] mid_out[W,S,F]"),
+    "pull_end": ("alm_values", "k[W,S,F] lo[W,S,F] end_feas[W,S]:bool best_cost[W,S]",
+                 "k_out[W,S,F]"),
+    "finish": ("alm_values", "k[W,S,F] best_k[W,S,F] best_cost[W,S]",
+               "k_out[W,S2,F] best_cost_out[W,S]"),
+}
 
 # K14's C launchers (csrc/alm_loop.cu), every parameter in order: name[dims]
-# a tensor (":bool" a bool one, else float32) of the given sizes, or a
-# float[A] array for "alphas"; name:float a float; a bare name an int (a
-# size, or a grid dimension "blocks*" from k14_geometry); "stream" the
-# stream.  Sizes: W worlds, S seeds, F factors, A ladder points per seed,
-# Q = S A, S2 = 2 S, M multipliers, keep kept seeds, n = W S.
-# tests/test_torch_alm_loop.py holds this table against the source.
+# a tensor as above; name:float a float; a bare name an int (a size, or a
+# grid dimension "blocks*" from k14_geometry); "stream" the stream.  keep:
+# kept seeds.  tests/test_torch_alm_loop.py holds this table against the
+# source.
 K14_PROTOS = {
-    "k14_init": "k[W,S,F] feas[W,S]:bool cost[W,S] best_k[W,S,F] best_cost[W,S] n F blocks "
-                "stream",
-    "k14_ladder": "k[W,S,F] step[W,S,F] feas[W,S]:bool cost[W,S] best_k[W,S,F] best_cost[W,S] "
-                  "kq[W,Q,F] best_k_out[W,S,F] best_cost_out[W,S] n F A alphas[A] blocks stream",
-    "k14_accept": "k[W,S,F] m0[W,S] kq[W,Q,F] merit[W,Q] feas[W,Q]:bool cost[W,Q] "
-                  "best_k[W,S,F] best_cost[W,S] k_out[W,S,F] best_k_out[W,S,F] "
-                  "best_cost_out[W,S] n F A blocks stream",
-    "k14_outer": "k[W,S,F] feas[W,S]:bool cost[W,S] c[W,S,M] lam[W,S,M] rho[W,S] best_k[W,S,F] "
-                 "best_cost[W,S] lam_out[W,S,M] rho_out[W,S] best_k_out[W,S,F] "
-                 "best_cost_out[W,S] n F M blocks stream",
     "k14_cull": "k[W,S,F] lam[W,S,M] rho[W,S] best_k[W,S,F] best_cost[W,S] v[W,S] cost[W,S] "
                 "k_out[W,keep,F] lam_out[W,keep,M] rho_out[W,keep] best_k_out[W,keep,F] "
                 "best_cost_out[W,keep] W S keep F M blocks_m blocks_wk stream",
-    "k14_pull_start": "k[W,S,F] best_k[W,S,F] best_cost[W,S] lo[W,S,F] hi[W,S,F] mid[W,S,F] "
-                      "n F blocks stream",
-    "k14_pull_step": "lo[W,S,F] hi[W,S,F] mid[W,S,F] ok[W,S]:bool lo_out[W,S,F] hi_out[W,S,F] "
-                     "mid_out[W,S,F] n F blocks stream",
-    "k14_pull_end": "k[W,S,F] lo[W,S,F] mid[W,S,F] ok[W,S]:bool end_feas[W,S]:bool "
-                    "best_cost[W,S] k_pull[W,S,F] n F blocks stream",
-    "k14_finish": "k[W,S,F] k_pull[W,S,F] feas[W,S]:bool cost[W,S] best_k[W,S,F] "
-                  "best_cost[W,S] kb[W,S2,F] best_cost_out[W,S] n S F blocks stream",
     "k14_select": "kb[W,S2,F] v[W,S2,4] best_cost[W,S] cost_final[W,S] t0:float t1:float "
                   "t2:float t3:float k_out[W,F] feasible_out[W]:bool cost_out[W] viol_out[W,4] "
                   "W S F blocks stream",
@@ -491,16 +526,12 @@ K14_PROTOS = {
 _PARAM = re.compile(r"(\w+)(?:\[([\w,]+)\])?(?::(\w+))?$")
 
 
-@functools.lru_cache(maxsize=None)
-def k14_params(symbol: str) -> tuple:
-    """K14_PROTOS[symbol] as (name, kind, dims): kind "tensor", "bool"
-    (a bool tensor), "array", "float", "int" or "stream"; dims the sizes of
-    a tensor or array."""
+def _parse(spec: str) -> tuple:
     out = []
-    for tok in K14_PROTOS[symbol].split():
+    for tok in spec.split():
         name, dims, tag = _PARAM.match(tok).groups()
         if dims is not None:
-            kind = "array" if name == "alphas" else ("bool" if tag == "bool" else "tensor")
+            kind = "bool" if tag == "bool" else "tensor"
         else:
             kind = "stream" if name == "stream" else (tag or "int")
         out.append((name, kind, tuple(int(d) if d.isdigit() else d
@@ -508,22 +539,35 @@ def k14_params(symbol: str) -> tuple:
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=None)
+def k14_params(symbol: str) -> tuple:
+    """K14_PROTOS[symbol] as (name, kind, dims): kind "tensor", "bool"
+    (a bool tensor), "float", "int" or "stream"; dims the sizes of a
+    tensor."""
+    return _parse(K14_PROTOS[symbol])
+
+
+@functools.lru_cache(maxsize=None)
+def epilogue_fields(phase: str) -> tuple:
+    """ALM_EPILOGUES[phase] as (row kernel, inputs, outputs), each field
+    (name, kind, dims) as k14_params gives them."""
+    kernel, ins, outs = ALM_EPILOGUES[phase]
+    return kernel, _parse(ins), _parse(outs)
+
+
 def k14_geometry(phase: str, Wn: int, S: int, M: int = 0, keep: int = 0) -> tuple:
-    """K14's grid for a phase, in blocks of K14_THREADS: a thread per
-    (world, seed), per multiplier ("outer"), per world ("select"); "cull":
-    (blocks over M, W keep) CTAs."""
+    """K14's grid for the phases with launches of their own, in blocks of
+    K14_THREADS: "select" a thread per world; "cull" (blocks over M,
+    W keep) CTAs."""
     if not 1 <= S <= K14_MAX_S:
         raise ValueError(f"alm_loop takes 1..{K14_MAX_S} seeds, got {S}")
-    per = -(-Wn * S // K14_THREADS)
-    if phase == "outer":
-        return (max(per, -(-Wn * S * M // K14_THREADS)),)
     if phase == "cull":
         if not 1 <= keep <= S:
             raise ValueError(f"the cull keeps 1..{S} seeds, got {keep}")
         return (-(-M // K14_THREADS), Wn * keep)
     if phase == "select":
         return (-(-Wn // K14_THREADS),)
-    return (per,)
+    raise ValueError(f"K14 launches no phase {phase!r} of its own (see ALM_EPILOGUES)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -536,28 +580,31 @@ def _k14_ctypes(symbol: str) -> tuple:
     return types_, tuple(n for n, _, _ in params if n.startswith("blocks"))
 
 
+def _shape(dims, sz) -> tuple:
+    return tuple(d if type(d) is int else sz[d] for d in dims)
+
+
+def _sizes(**sizes) -> dict:
+    return dict(sizes, n=sizes["W"] * sizes["S"], S2=2 * sizes["S"],
+                Q=sizes["S"] * sizes.get("A", 0))
+
+
 def _loop_call(symbol: str, sizes: dict, rec: tuple, **vals) -> None:
     """Launch K14's phase `symbol`: its grid from k14_geometry, each named
     value checked against K14_PROTOS (a tensor's device, dtype, shape and
     contiguity), the int parameters taken from `sizes`; record the call
     as rec = (key, inputs) and count it."""
-    sz = dict(sizes, n=sizes["W"] * sizes["S"], S2=2 * sizes["S"], Q=sizes["S"] * sizes.get("A", 0))
+    sz = _sizes(**sizes)
     grid = k14_geometry(symbol[len("k14_"):], sz["W"], sz["S"], sz.get("M", 0), sz.get("keep", 0))
     argtypes, blocks = _k14_ctypes(symbol)
     sz.update(zip(blocks, grid))
-    call, first, arrays, shapes = [], None, [], {}
+    call, first = [], None
     for name, kind, dims in k14_params(symbol):
         if kind == "tensor" or kind == "bool":
             x = vals.pop(name)
-            shape = shapes.get(dims)
-            if shape is None:
-                shape = shapes[dims] = tuple([d if type(d) is int else sz[d] for d in dims])
-            _require(x, name, shape, torch.bool if kind == "bool" else torch.float32)
+            _require(x, name, _shape(dims, sz), torch.bool if kind == "bool" else torch.float32)
             first = x if first is None else first
             call.append(x.data_ptr())
-        elif kind == "array":
-            arrays.append((ctypes.c_float * sz[dims[0]])(*vals.pop(name)))
-            call.append(ctypes.addressof(arrays[-1]))
         elif kind == "float":
             call.append(float(vals.pop(name)))
         elif kind == "int":
@@ -591,56 +638,69 @@ def _empty(*shape, like, dtype=torch.float32):
     return torch.empty(*shape, device=like.device, dtype=dtype)
 
 
-def loop_init(k, feas, cost):
-    """K14 init (nlp.alm_init_plain): (best_k, best_cost)."""
-    Wn, S, F = _seeds(k)
-    best_k, best_cost = _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
-    _loop_call("k14_init", dict(W=Wn, S=S, F=F), (("init", Wn, S), (k, feas, cost)),
-               k=k, feas=feas, cost=cost, best_k=best_k, best_cost=best_cost)
-    return best_k, best_cost
+@dataclasses.dataclass
+class Epilogue:
+    """A phase of the solve loop for the finish of the row pass that feeds
+    it: its descriptor (AlmArgs.epi) and the outputs the finish writes, in
+    ALM_EPILOGUES' order."""
+
+    phase: str
+    desc: AlmEpilogue
+    out: tuple
 
 
-def loop_ladder(k, step, feas, cost, best_k, best_cost, alphas):
-    """K14 ladder (nlp.alm_ladder_plain): (kq [W,S*A,F], best_k, best_cost)."""
-    Wn, S, F = _seeds(k)
-    A = len(alphas)
-    if not 1 <= A or S * A > K14_MAX_A:
+def epilogue(rows: AlmRows, alphas, phase: str, q, lam, rho, **vals) -> Epilogue:
+    """The Epilogue of `phase` (ALM_EPILOGUES) for the row pass at the query
+    points q [W,Q,F] with multipliers lam [W,S,M] and penalties rho [W,S]
+    (K7 for the ladder, else K8): each of the phase's inputs `vals` checked
+    (device, dtype, shape, contiguity) and its pointer set, each output
+    allocated with torch.empty.  Records the step as ("alm_loop", (phase,
+    W, S, Q, M)) with inputs (rows, alphas, (q, lam, rho, *vals)), the
+    step's arguments in nlp.loop_pairs' order."""
+    if rho.dim() != 2 or q.dim() != 3:
+        raise ValueError(f"the {phase} phase takes rho [W, S] and query points [W, Q, F]")
+    Wn, S, F, Q = rows.args.W, rho.shape[1], rows.args.F, q.shape[1]
+    if not 1 <= S <= K14_MAX_S:
+        raise ValueError(f"alm_loop takes 1..{K14_MAX_S} seeds, got {S}")
+    A = len(alphas) if phase == "ladder" else Q // S if phase == "accept" else 0
+    if phase == "ladder" and S * A > K14_MAX_A:
         raise ValueError(f"alm_loop takes S * A <= {K14_MAX_A} ladder points, got {S} x {A}")
-    kq = _empty(Wn, S * A, F, like=k)
-    bk, bc = _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
-    _loop_call("k14_ladder", dict(W=Wn, S=S, F=F, A=A),
-               (("ladder", Wn, S, A), (k, step, feas, cost, best_k, best_cost, tuple(alphas))),
-               k=k, step=step, feas=feas, cost=cost, best_k=best_k, best_cost=best_cost, kq=kq,
-               best_k_out=bk, best_cost_out=bc, alphas=alphas)
-    return kq, bk, bc
-
-
-def loop_accept(k, m0, kq, merit, feas, cost, best_k, best_cost):
-    """K14 accept (nlp.alm_accept_plain): (k, best_k, best_cost)."""
-    Wn, S, F = _seeds(k)
-    Q = kq.shape[1] if kq.dim() == 3 else -1
-    A = Q // S
-    if A < 1 or A * S != Q or Q > K14_MAX_A:
+    if phase == "accept" and (A < 1 or A * S != Q or Q > K14_MAX_A):
         raise ValueError(f"the ladder block has {Q} points for {S} seeds")
-    k_out, bk, bc = _empty(Wn, S, F, like=k), _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
-    _loop_call("k14_accept", dict(W=Wn, S=S, F=F, A=A),
-               (("accept", Wn, S, A), (k, m0, kq, merit, feas, cost, best_k, best_cost)),
-               k=k, m0=m0, kq=kq, merit=merit, feas=feas, cost=cost, best_k=best_k,
-               best_cost=best_cost, k_out=k_out, best_k_out=bk, best_cost_out=bc)
-    return k_out, bk, bc
+    if phase not in ("ladder", "accept") and Q != S:
+        raise ValueError(f"the {phase} phase takes one query per seed, got {Q} for {S}")
+    _require(q, "query points", (Wn, Q, F))
+    step = (q, lam, rho) + tuple(vals.values())
+    _, ins, outs = epilogue_fields(phase)
+    sz = _sizes(W=Wn, S=S, F=F, A=A, M=rows.M)
+    e = AlmEpilogue()
+    e.phase, e.A = EPI_PHASES.index(phase), A
+    for name, kind, dims in ins:
+        x = vals.pop(name)
+        _require(x, name, _shape(dims, sz), torch.bool if kind == "bool" else torch.float32)
+        setattr(e, name, x.data_ptr())
+    if vals:
+        raise TypeError(f"the {phase} phase takes no {sorted(vals)}")
+    out = []
+    for name, kind, dims in outs:
+        t = torch.empty(_shape(dims, sz), device=q.device,
+                        dtype=torch.bool if kind == "bool" else torch.float32)
+        setattr(e, name, t.data_ptr())
+        out.append(t)
+    if phase == "ladder":
+        for i, x in enumerate(alphas):
+            e.alphas[i] = x
+    record("alm_loop", (phase, Wn, S, Q, rows.M), (rows, tuple(alphas), step))
+    return Epilogue(phase, e, tuple(out))
 
 
-def loop_outer(k, feas, cost, c, lam, rho, best_k, best_cost):
-    """K14 outer (nlp.alm_outer_plain): (lam, rho, best_k, best_cost)."""
-    Wn, S, F = _seeds(k)
-    M = lam.shape[-1]
-    lam_o, rho_o = _empty(Wn, S, M, like=k), _empty(Wn, S, like=k)
-    bk, bc = _empty(Wn, S, F, like=k), _empty(Wn, S, like=k)
-    _loop_call("k14_outer", dict(W=Wn, S=S, F=F, M=M),
-               (("outer", Wn, S, M), (k, feas, cost, c, lam, rho, best_k, best_cost)),
-               k=k, feas=feas, cost=cost, c=c, lam=lam, rho=rho, best_k=best_k,
-               best_cost=best_cost, lam_out=lam_o, rho_out=rho_o, best_k_out=bk, best_cost_out=bc)
-    return lam_o, rho_o, bk, bc
+def _set_epilogue(args: AlmArgs, epi, kernel: str) -> None:
+    """Hand the row pass `kernel` the phase epi (an Epilogue or None)."""
+    if epi is None:
+        return
+    if ALM_EPILOGUES[epi.phase][0] != kernel:
+        raise ValueError(f"{kernel}'s finish does not run the {epi.phase} phase")
+    args.epi = epi.desc
 
 
 def loop_cull(k, lam, rho, best_k, best_cost, v, cost, keep: int):
@@ -655,46 +715,6 @@ def loop_cull(k, lam, rho, best_k, best_cost, v, cost, keep: int):
                k=k, lam=lam, rho=rho, best_k=best_k, best_cost=best_cost, v=v, cost=cost,
                **dict(zip(("k_out", "lam_out", "rho_out", "best_k_out", "best_cost_out"), out)))
     return out
-
-
-def loop_pull_start(k, best_k, best_cost):
-    """K14 pull-in bracket (nlp.alm_pull_start_plain): (lo, hi, mid)."""
-    Wn, S, F = _seeds(k)
-    lo, hi, mid = (_empty(Wn, S, F, like=k) for _ in range(3))
-    _loop_call("k14_pull_start", dict(W=Wn, S=S, F=F),
-               (("pull_start", Wn, S), (k, best_k, best_cost)),
-               k=k, best_k=best_k, best_cost=best_cost, lo=lo, hi=hi, mid=mid)
-    return lo, hi, mid
-
-
-def loop_pull_step(lo, hi, mid, ok):
-    """K14 bisection step (nlp.alm_pull_step_plain): (lo, hi, mid)."""
-    Wn, S, F = _seeds(lo, "lo")
-    out = tuple(_empty(Wn, S, F, like=lo) for _ in range(3))
-    _loop_call("k14_pull_step", dict(W=Wn, S=S, F=F), (("pull_step", Wn, S), (lo, hi, mid, ok)),
-               lo=lo, hi=hi, mid=mid, ok=ok, lo_out=out[0], hi_out=out[1], mid_out=out[2])
-    return out
-
-
-def loop_pull_end(k, lo, mid, ok, end_feas, best_cost):
-    """K14 last bisection step and k_pull (nlp.alm_pull_end_plain)."""
-    Wn, S, F = _seeds(k)
-    k_pull = _empty(Wn, S, F, like=k)
-    _loop_call("k14_pull_end", dict(W=Wn, S=S, F=F),
-               (("pull_end", Wn, S), (k, lo, mid, ok, end_feas, best_cost)),
-               k=k, lo=lo, mid=mid, ok=ok, end_feas=end_feas, best_cost=best_cost, k_pull=k_pull)
-    return k_pull
-
-
-def loop_finish(k, k_pull, feas, cost, best_k, best_cost):
-    """K14 finish (nlp.alm_finish_plain): (kb [W,2S,F], best_cost)."""
-    Wn, S, F = _seeds(k)
-    kb, bc = _empty(Wn, 2 * S, F, like=k), _empty(Wn, S, like=k)
-    _loop_call("k14_finish", dict(W=Wn, S=S, F=F),
-               (("finish", Wn, S), (k, k_pull, feas, cost, best_k, best_cost)),
-               k=k, k_pull=k_pull, feas=feas, cost=cost, best_k=best_k, best_cost=best_cost,
-               kb=kb, best_cost_out=bc)
-    return kb, bc
 
 
 def loop_select(kb, v, best_cost, cost_final, thresholds):
@@ -715,7 +735,5 @@ def loop_select(kb, v, best_cost, cost_final, thresholds):
     return out
 
 
-LOOP = types.SimpleNamespace(
-    init=loop_init, ladder=loop_ladder, accept=loop_accept, outer=loop_outer, cull=loop_cull,
-    pull_start=loop_pull_start, pull_step=loop_pull_step, pull_end=loop_pull_end,
-    finish=loop_finish, select=loop_select)
+# the phases with launches of their own (the others: epilogue)
+LOOP = types.SimpleNamespace(cull=loop_cull, select=loop_select)

@@ -20,7 +20,9 @@ CPU) and alm_values (merit, feasibility, cost and optionally the rows of
 query points; kernel K8, alm_values_plain).  Between two row passes the
 loop's bookkeeping (the best-feasible tracker, the line search's ladder
 and accept test, the multiplier update, the cull, the pull-in bisection and
-the final selection) is one phase of kernel K14 on the card and the
+the final selection) is one phase of kernel K14 on the card, run by the
+finish of the K7 / K8 call that feeds it (all but the cull and the final
+selection, which launch K14 after their torch reductions), and the
 alm_*_plain functions on the CPU.  On the card neither the constraint stack
 nor its Jacobian is formed inside the loop; the full-set check in finalize
 (max_violations: kernel K4 over every collision row, K8's max mode for the
@@ -36,6 +38,7 @@ jax.hessian).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import types
 
@@ -474,27 +477,37 @@ def alm_values_plain(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConf
     return merit, feas, cost, (c if want_c else None)
 
 
-def alm_newton(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, rows=None):
+def alm_newton(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, rows=None,
+               epi=None):
     """One inner step's (step, m0, feas, cost): kernel K7 on CUDA tensors
-    (rows: kernels.solver.alm_rows of this plan, built when not given),
+    (rows: kernels.solver.alm_rows of this plan, built when not given; epi:
+    the loop's ladder for K7's finish, a kernels.solver.Epilogue, or None),
     alm_newton_plain on CPU tensors."""
     if not k.is_cuda:
+        _no_epilogue(epi)
         return alm_newton_plain(k, lam, rho, prob, cfg, basis)
     from .kernels import solver as ksolver
 
-    return ksolver.alm_newton(rows or ksolver.alm_rows(prob, cfg, basis), k, lam, rho)
+    return ksolver.alm_newton(rows or ksolver.alm_rows(prob, cfg, basis), k, lam, rho, epi=epi)
 
 
 def alm_values(kq, lam, rho, seed_of_q, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
-               want_c: bool = False, rows=None):
+               want_c: bool = False, rows=None, epi=None):
     """(merit, feas, cost, c or None) of query points: kernel K8 on CUDA
-    tensors, alm_values_plain on CPU tensors."""
+    tensors (epi: a phase of the loop for K8's finish, a
+    kernels.solver.Epilogue, or None), alm_values_plain on CPU tensors."""
     if not kq.is_cuda:
+        _no_epilogue(epi)
         return alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
     from .kernels import solver as ksolver
 
     return ksolver.alm_values(rows or ksolver.alm_rows(prob, cfg, basis), kq, lam, rho,
-                              seed_of_q, want_c)
+                              seed_of_q, want_c, epi=epi)
+
+
+def _no_epilogue(epi) -> None:
+    if epi is not None:
+        raise ValueError("only the kernels K7 / K8 run a phase of the loop in their finish")
 
 
 # ---------------------------------------------------------------------------
@@ -653,9 +666,10 @@ def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None,
     """Multi-start ALM solve for every world.  Seeds: k=0, the
     waypoint-directed k and +-0.5 of it; the best feasible result wins.
     On the card the rows are kernels K7 / K8 and the bookkeeping between
-    them kernel K14.  plain=True takes the plain versions of all three on
-    any device (the reference the kernels are held against); eager=True
-    keeps K7 / K8 and takes the plain bookkeeping."""
+    them kernel K14, most of its phases run by K7's / K8's finish.
+    plain=True takes the plain versions of all three on any device (the
+    reference the kernels are held against); eager=True keeps K7 / K8 and
+    takes the plain bookkeeping after each of their calls."""
     dt, dev = prob.q_des.dtype, prob.q_des.device
     Wn, F = prob.q_des.shape
 
@@ -691,13 +705,85 @@ def solve(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, k0=None,
     return SolveResult(k=k, feasible=feasible, cost=cost, viol=viol)
 
 
+def loop_pairs(newton, values, book, alphas, epilogue=None):
+    """The solve loop's steps, each one row pass (newton: K7 or its plain
+    version; values: K8 or its plain version; both take epi=) and the phase
+    of the loop it feeds.  Without `epilogue` the book's phase runs after
+    the pass.  With it (kernels/solver.py:epilogue bound to a plan and its
+    alphas), the pass's finish runs the phase (kernel K14's phases in K7 /
+    K8) and the book is not called; both give the same bits.  Each step
+    takes the row pass's query points and multipliers first."""
+    A = len(alphas)
+
+    def ident(k):
+        return _seed_index(k.shape[1], 1, k.device)
+
+    def fuse(phase, *args, **vals):
+        return None if epilogue is None else epilogue(phase, *args, **vals)
+
+    def init(k, lam, rho):
+        epi = fuse("init", k, lam, rho)
+        _, feas, cost, _ = values(k, lam, rho, ident(k), epi=epi)
+        # a feasible start (k=0 is the rest plan) seeds the best tracker
+        return epi.out if epi else book.init(k, feas, cost)
+
+    def ladder(k, lam, rho, best_k, best_cost):
+        epi = fuse("ladder", k, lam, rho, best_k=best_k, best_cost=best_cost)
+        step, m0, feas, cost = newton(k, lam, rho, epi=epi)
+        # geometric backtracking ladder, all alphas in one values pass;
+        # every line-search candidate is also a best-feasible candidate
+        return (m0,) + tuple(epi.out if epi else
+                             book.ladder(k, step, feas, cost, best_k, best_cost, alphas))
+
+    def accept(kq, lam, rho, k, m0, best_k, best_cost):
+        epi = fuse("accept", kq, lam, rho, k=k, m0=m0, best_k=best_k, best_cost=best_cost)
+        merit, feas, cost, _ = values(kq, lam, rho, _seed_index(k.shape[1], A, k.device), epi=epi)
+        return epi.out if epi else book.accept(k, m0, kq, merit, feas, cost, best_k, best_cost)
+
+    def outer(k, lam, rho, best_k, best_cost):
+        # proxy feasibility on the screened stack; the winner is re-checked
+        # against the full set in finalize.  In K8 the multipliers are
+        # updated where each row is formed: no c is written
+        epi = fuse("outer", k, lam, rho, best_k=best_k, best_cost=best_cost)
+        _, feas, cost, c = values(k, lam, rho, ident(k), want_c=not epi, epi=epi)
+        return epi.out if epi else book.outer(k, feas, cost, c, lam, rho, best_k, best_cost)
+
+    def pull_start(k, lam, rho, best_k, best_cost):
+        epi = fuse("pull_start", k, lam, rho, best_k=best_k, best_cost=best_cost)
+        _, end_feas, cost_final, _ = values(k, lam, rho, ident(k), epi=epi)
+        return (end_feas, cost_final) + tuple(epi.out if epi else
+                                              book.pull_start(k, best_k, best_cost))
+
+    def pull_step(mid, lam, rho, lo, hi):
+        epi = fuse("pull_step", mid, lam, rho, lo=lo, hi=hi)
+        ok = values(mid, lam, rho, ident(mid), epi=epi)[1]
+        return epi.out if epi else book.pull_step(lo, hi, mid, ok)
+
+    def pull_end(mid, lam, rho, k, lo, end_feas, best_cost):
+        epi = fuse("pull_end", mid, lam, rho, k=k, lo=lo, end_feas=end_feas, best_cost=best_cost)
+        ok = values(mid, lam, rho, ident(mid), epi=epi)[1]
+        return epi.out[0] if epi else book.pull_end(k, lo, mid, ok, end_feas, best_cost)
+
+    def finish(k_pull, lam, rho, k, best_k, best_cost):
+        epi = fuse("finish", k_pull, lam, rho, k=k, best_k=best_k, best_cost=best_cost)
+        _, feas, cost, _ = values(k_pull, lam, rho, ident(k_pull), epi=epi)
+        return epi.out if epi else book.finish(k, k_pull, feas, cost, best_k, best_cost)
+
+    return types.SimpleNamespace(init=init, ladder=ladder, accept=accept, outer=outer,
+                                 pull_start=pull_start, pull_step=pull_step, pull_end=pull_end,
+                                 finish=finish)
+
+
 def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, plain: bool = False,
                 eager: bool = False):
     """The ALM descent as (init, run_outer, finalize, cull) over a carry
     (k, lam, rho, best_k, best_cost) of [W, S, ...] tensors.  Every row
     evaluation is one newton (K7) or values (K8) pass, every step between
-    two of them one phase of the loop's book: kernel K14 on the card (one
-    launch each), the plain versions above on the CPU or when asked.  On
+    two of them one phase of the loop's book (loop_pairs).  On the card
+    (kernel K14) the phase runs in the finish of the K7 / K8 call that
+    feeds it (loop_pairs with kernels/solver.py:epilogue), but the cull and the final
+    selection, which launch K14 after their torch reductions; on the CPU,
+    or when asked, the plain versions above run after each row pass.  On
     the card no constraint stack or Jacobian is formed and, between the
     first row pass and the full-set check, no torch op runs but the cull's
     violation sum."""
@@ -705,54 +791,45 @@ def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, plain: bool
     thr = _stack_thresholds(prob, cfg)
     M = thr.shape[0]
     alphas = tuple(cfg.solver_alphas)
-    A = len(alphas)
     kernel_rows = dev.type == "cuda" and not plain
     rows = None
-    book = PLAIN_LOOP
     if kernel_rows:
         from .kernels import solver as ksolver
 
         rows = ksolver.alm_rows(prob, cfg, basis)
-        if not eager:
-            book = ksolver.LOOP
 
-    def newton(k, lam, rho):
+    def newton(k, lam, rho, epi=None):
         if plain:
             return alm_newton_plain(k, lam, rho, prob, cfg, basis)
-        return alm_newton(k, lam, rho, prob, cfg, basis, rows)
+        return alm_newton(k, lam, rho, prob, cfg, basis, rows, epi)
 
-    def values(kq, lam, rho, seed_of_q, want_c=False):
+    def values(kq, lam, rho, seed_of_q, want_c=False, epi=None):
         if plain:
             return alm_values_plain(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c)
-        return alm_values(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c, rows)
+        return alm_values(kq, lam, rho, seed_of_q, prob, cfg, basis, want_c, rows, epi)
+
+    if kernel_rows and not eager:
+        book = ksolver.LOOP
+        steps = loop_pairs(newton, values, book, alphas,
+                           functools.partial(ksolver.epilogue, rows, alphas))
+    else:
+        book = PLAIN_LOOP
+        steps = loop_pairs(newton, values, book, alphas)
 
     def init(k):
         Wn, S = k.shape[:2]
         lam = torch.zeros(Wn, S, M, dtype=dt, device=dev)
         rho = torch.full((Wn, S), 10.0, dtype=dt, device=dev)
-        _, feas0, cost0, _ = values(k, lam, rho, _seed_index(S, 1, dev))
-        # a feasible start (k=0 is the rest plan) seeds the best tracker
-        best_k, best_cost = book.init(k, feas0, cost0)
+        best_k, best_cost = steps.init(k, lam, rho)
         return (k, lam, rho, best_k, best_cost)
 
     def run_outer(carry, n: int):
         k, lam, rho, best_k, best_cost = carry
-        S = k.shape[1]
         for _ in range(n):
             for _ in range(cfg.solver_inner_iters):
-                step, m0, feas, cost = newton(k, lam, rho)
-                # geometric backtracking ladder, all alphas in one values pass;
-                # every line-search candidate is also a best-feasible candidate
-                kq, best_k, best_cost = book.ladder(k, step, feas, cost, best_k, best_cost,
-                                                    alphas)
-                merit, feas_q, cost_q, _ = values(kq, lam, rho, _seed_index(S, A, dev))
-                k, best_k, best_cost = book.accept(k, m0, kq, merit, feas_q, cost_q, best_k,
-                                                   best_cost)
-            _, feas, cost, c = values(k, lam, rho, _seed_index(S, 1, dev), want_c=True)
-            # proxy feasibility on the screened stack; the winner is
-            # re-checked against the full set in finalize
-            lam, rho, best_k, best_cost = book.outer(k, feas, cost, c, lam, rho, best_k,
-                                                     best_cost)
+                m0, kq, best_k, best_cost = steps.ladder(k, lam, rho, best_k, best_cost)
+                k, best_k, best_cost = steps.accept(kq, lam, rho, k, m0, best_k, best_cost)
+            lam, rho, best_k, best_cost = steps.outer(k, lam, rho, best_k, best_cost)
         return (k, lam, rho, best_k, best_cost)
 
     def cull(carry, keep: int):
@@ -765,18 +842,13 @@ def _alm_phases(prob: PlanProblem, cfg: ArmourConfig, basis: KBasis, plain: bool
 
     def finalize(carry):
         k, lam, rho, best_k, best_cost = carry
-        ident = _seed_index(k.shape[1], 1, dev)
         # feasibility pull-in: bisect along [best_k, k] for the deepest
         # feasible point when the ALM ends epsilon outside the feasible set
-        _, end_feas, cost_final, _ = values(k, lam, rho, ident)
-        lo, hi, mid = book.pull_start(k, best_k, best_cost)
-        for i in range(6):
-            ok = values(mid, lam, rho, ident)[1]
-            if i < 5:
-                lo, hi, mid = book.pull_step(lo, hi, mid, ok)
-        k_pull = book.pull_end(k, lo, mid, ok, end_feas, best_cost)
-        _, feas, cost, _ = values(k_pull, lam, rho, ident)
-        kb, best_cost = book.finish(k, k_pull, feas, cost, best_k, best_cost)
+        end_feas, cost_final, lo, hi, mid = steps.pull_start(k, lam, rho, best_k, best_cost)
+        for _ in range(5):
+            lo, hi, mid = steps.pull_step(mid, lam, rho, lo, hi)
+        k_pull = steps.pull_end(mid, lam, rho, k, lo, end_feas, best_cost)
+        kb, best_cost = steps.finish(k_pull, lam, rho, k, best_k, best_cost)
 
         # one full-set check for the final and the best iterate of every seed
         v = torch.stack(max_violations(kb, prob, cfg, basis, rows=rows), dim=-1)  # [W, 2S, 4]

@@ -48,9 +48,15 @@ card; exits non-zero without one.
 
 times the W = 64 planning step of both trajectory families (the first 64
 saved worlds; ARMTD with chip_smoke.armtd_inputs' start velocities) through
-make_batch_planner alone, median of 7 after two warm-up steps, and prints a
-digest of K3's hyperplanes of that step's cells: the links of K9 (the FK
-chain) split here, in this script, with a left-to-right sum (so that two
+make_batch_planner alone, median of 7 after two warm-up steps, with its
+device time and activities (torch.profiler; K12's / K11's, K14's and the
+K7 / K8 finish kernels' share), K14's launches and the solve's host
+launcher calls, and batch-1 p50 / p99 over 32 worlds (make_planner); K12
+and K11 alone at W = 64 (median of 20, and device time); the dumbbell's
+W = 64 grasp step (chip_smoke.py phase 13's configuration) under both
+contact parameter sets; and prints a digest of each result, of K10's
+torque and of K3's hyperplanes of that step's cells: the links of K9 (the
+FK chain) split here, in this script, with a left-to-right sum (so that two
 checkouts whose reduce_links sum in other orders still hand K3 the same
 cells).  Copied into an older checkout, it times and digests that one in
 turns with this one (older, this, this, older).
@@ -315,25 +321,60 @@ def main() -> None:
     print(json.dumps(out))
 
 
+def device_profile(fn, dev) -> tuple:
+    """(device ms, device activities, {name: device ms}) of one call of fn
+    (torch.profiler: a warm-up call, then the recorded one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize(dev)
+            prof.step()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not e.name.startswith("ProfilerStep")]
+    by = {}
+    for e in ev:
+        by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return sum(by.values()), len(ev), by
+
+
+def _part(by, *keys) -> float:
+    return sum(ms for n, ms in by.items() if any(k in n for k in keys))
+
+
 def step_only() -> None:
     """--step: the W = 64 step of both families timed through
-    make_batch_planner, the digest of each family's result (k, feasible,
-    cost, viol), of K10's torque and of K3's hyperplanes of the step's
-    cells."""
+    make_batch_planner, its device time and activities (and K12's / K11's,
+    K14's and the K7 / K8 finish kernels' device time in it), its K14
+    launches and the solve's host launcher calls, the digest of each
+    family's result (k, feasible, cost, viol), batch-1 p50 / p99 over 32
+    worlds through make_planner, the dumbbell's W = 64 grasp step under
+    both contact parameter sets (feasible counts, digests), K12 and K11
+    alone at W = 64 (median of 20 calls, CUDA events, and device time), the
+    digest of K10's torque and of K3's hyperplanes of the step's cells."""
     import statistics
+
+    import numpy as np
 
     import armour_tpu_torch  # noqa: F401  (precision pins)
     from chip_smoke import armtd_inputs, card_line, scenes
-    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.armtd import build_jrs_armtd
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
     from armour_tpu_torch.dynamics import rnea_pz_sets
     from armour_tpu_torch.jrs import build_jrs
     from armour_tpu_torch.kernels import collision as kcol
     from armour_tpu_torch.kernels.build import build_all
     from armour_tpu_torch.kinematics import forward_occupancy
+    from armour_tpu_torch.models import zoo
     from armour_tpu_torch.models.kinova import kinova_gen3
-    from armour_tpu_torch.planner import make_batch_planner
+    from armour_tpu_torch.planner import make_batch_planner, make_planner
     from armour_tpu_torch.pz.basis import make_basis
-    from armour_tpu_torch.utils.timing import wall_s
+    from armour_tpu_torch.utils.timing import median_ms, wall_s
 
     dev = torch.device("cuda")
     card = card_line()
@@ -348,13 +389,37 @@ def step_only() -> None:
     z = torch.zeros_like(q0d)
     out = {"card": card}
     for family, qd in (("bernstein", z), ("armtd", armtd_inputs(q0d, cfg, 64, dev))):
-        step = make_batch_planner(robot, dataclasses.replace(cfg, traj_family=family))
+        fcfg = dataclasses.replace(cfg, traj_family=family)
+        step = make_batch_planner(robot, fcfg)
         for _ in range(2):
             wall_s(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)
         ts = [wall_s(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)[0] for _ in range(7)]
         out[f"{family}_step_ms"] = statistics.median(ts) * 1e3
+        kernels.reset_counts()
         res = step(q0d, qd, z, q_des_d, obs_d)
+        n = kernels.counts()
+        out[f"{family}_k14_launches"] = n["alm_loop"]
+        out[f"{family}_solve_host_calls"] = n["alm_newton"] + n["alm_values"] + n["alm_loop"]
         out[f"{family}_result_digest"] = digest((res.k, res.feasible, res.cost, res.viol))
+        dms, nact, by = device_profile(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)
+        out[f"{family}_device_ms"], out[f"{family}_activities"] = dms, nact
+        out[f"{family}_jrs_device_ms"] = _part(by, "k12_", "k11_")
+        out[f"{family}_k14_device_ms"] = _part(by, "k14_")
+        out[f"{family}_finish_device_ms"] = _part(by, "k7_finish", "k8_finish")
+        one = make_planner(robot, fcfg)
+        batch1 = [(q0d[i], qd[i], z[i], q_des_d[i],
+                   ObstacleSet(centers=obs_d.centers[i], generators=obs_d.generators[i],
+                               mask=obs_d.mask[i])) for i in range(32)]
+        wall_s(lambda: one(*batch1[0]), dev)
+        lats = [wall_s(lambda a=a: one(*a), dev)[0] for a in batch1]
+        out[f"{family}_batch1_p50_ms"] = float(np.percentile(lats, 50)) * 1e3
+        out[f"{family}_batch1_p99_ms"] = float(np.percentile(lats, 99)) * 1e3
+    for name, fn in (("k12", lambda: build_jrs(q0d, z, z, robot, cfg, basis)),
+                     ("k11", lambda: build_jrs_armtd(q0d, armtd_inputs(q0d, cfg, 64, dev), robot,
+                                                     dataclasses.replace(cfg, traj_family="armtd"),
+                                                     basis))):
+        out[f"{name}_event_ms"] = median_ms(fn, dev, ITERS)
+        out[f"{name}_device_ms"] = _part(device_profile(fn, dev)[2], name + "_")
     jrs = build_jrs(q0d, z, z, robot, cfg, basis)
     out["k10_digest"] = digest(rnea_pz_sets(jrs, robot, cfg, basis))
     links = forward_occupancy(jrs, robot, cfg, basis)
@@ -366,10 +431,36 @@ def step_only() -> None:
     hyp = kcol.build_hyperplanes(links.egen[..., sh0:].contiguous(), radius, obs_d.centers,
                                  obs_d.generators)
     out["k3_digest"] = digest(tuple(hyp))
-    print(f"step: Bernstein {out['bernstein_step_ms']:.3f} ms, ARMTD {out['armtd_step_ms']:.3f} "
-          f"ms (W = 64, medians of 7); result digests {out['bernstein_result_digest']} / "
-          f"{out['armtd_result_digest']}, K10 digest {out['k10_digest']}, K3 digest "
-          f"{out['k3_digest']}")
+    del jrs, links, hyp
+    # the dumbbell's grasp step (chip_smoke.py phase 13's configuration)
+    dumbbell = zoo.kinova_dumbbell()
+    ub = derive_ultimate_bound(dumbbell, v_max=5e-4)
+    for label, (mu, r) in (("grasp", (1.5, 0.5)), ("grasp_tight", (1e-4, 1e-4))):
+        gcfg = ArmourConfig.for_robot(dumbbell, derive_ub=False, ub=ub, dtype=torch.float32,
+                                      grasp_constraints=True, grasp_mu=mu, grasp_support_radius=r)
+        g = [torch.as_tensor(x, dtype=gcfg.dtype).to(dev)
+             for x in scenes(dumbbell, gcfg, 64)[:4]]
+        gstep = make_batch_planner(dumbbell, gcfg)
+        wall_s(lambda: gstep(*g, obs_d), dev)
+        ts = [wall_s(lambda: gstep(*g, obs_d), dev)[0] for _ in range(3)]
+        res = gstep(*g, obs_d)
+        out[f"{label}_step_ms"] = statistics.median(ts) * 1e3
+        out[f"{label}_feasible"] = int(res.feasible.sum())
+        out[f"{label}_result_digest"] = digest((res.k, res.feasible, res.cost, res.viol))
+    print("step: " + ", ".join(
+        f"{f} {out[f + '_step_ms']:.3f} ms (device {out[f + '_device_ms']:.3f} ms in "
+        f"{out[f + '_activities']} activities; JRS {out[f + '_jrs_device_ms']:.4f}, K14 "
+        f"{out[f + '_k14_device_ms']:.4f} in {out[f + '_k14_launches']} launches, K7 / K8 "
+        f"finish {out[f + '_finish_device_ms']:.4f}; {out[f + '_solve_host_calls']} host "
+        f"launcher calls in the solve; batch-1 p50 {out[f + '_batch1_p50_ms']:.3f} / p99 "
+        f"{out[f + '_batch1_p99_ms']:.3f} ms; digest {out[f + '_result_digest']})"
+        for f in ("bernstein", "armtd")))
+    print(f"  K12 {out['k12_event_ms']:.4f} ms event / {out['k12_device_ms']:.4f} ms device, K11 "
+          f"{out['k11_event_ms']:.4f} / {out['k11_device_ms']:.4f} (W = 64, medians of {ITERS}); "
+          f"K10 digest {out['k10_digest']}, K3 digest {out['k3_digest']}")
+    print("  dumbbell grasp step: " + ", ".join(
+        f"{lb} {out[lb + '_step_ms']:.3f} ms, {out[lb + '_feasible']} of 64 feasible, digest "
+        f"{out[lb + '_result_digest']}" for lb in ("grasp", "grasp_tight")))
     print(card)
     print(json.dumps(out))
 

@@ -9,26 +9,33 @@ NaN, exactly; the cost output of alm_newton_plain / alm_values_plain
 against plan_cost in both trajectory families; the refactored solve against
 the JAX solve; max_violations against the JAX function at 1e-9.  K14's
 launch geometry, argument checks and C prototypes (the launchers' table
-against csrc/alm_loop.cu, and each launcher's call with the library
-stubbed) are pure Python.
+against csrc/alm_loop.cu, the phases' epilogue table against
+csrc/alm_loop.cuh, and each launch or row pass with the library stubbed)
+are pure Python.
 
 The cuda-marked tests (they skip where there is no card) hold K14 to the
-plain bookkeeping bit for bit, K8's max mode to the plain max_violations,
-K7 / K8's cost to plan_cost, and the solve with K14 to the eager solve
-(K7 / K8 with the plain bookkeeping), bit for bit.  JAX is imported only
+plain bookkeeping bit for bit (the cull and the selection as launches, the
+other phases as run by K7's / K8's finish against the row pass followed by
+the plain phase), K8's max mode to the plain max_violations, K7 / K8's
+cost to plan_cost, and the solve with K14 to the eager solve (K7 / K8
+with the plain bookkeeping), bit for bit, in both families and with the
+grasp group.  JAX is imported only
 by the CPU tests, so that the card runs this file without it:
 python3 -m pytest --noconftest tests/test_torch_alm_loop.py -m cuda."""
 
 import ctypes
 import dataclasses
+import functools
 import math
+import re
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from armour_tpu_torch import convert, nlp as tnlp
-from armour_tpu_torch.kernels import solver as ks
+from armour_tpu_torch.kernels import build, solver as ks
 
 ALPHAS = (1.0, 0.3, 0.09)
 THR = (1e-6, 1e-6, 1e-6, 1e-3)
@@ -424,64 +431,142 @@ def test_max_violations_matches_jax(jax_problems):
 @pytest.mark.parametrize("Wn", [1, 64, 1024])
 @pytest.mark.parametrize("S", [1, 2, 4, 8])
 def test_k14_geometry_covers_every_element_once(Wn, S):
-    """A thread per (world, seed), per multiplier of the outer update and
-    per world of the selection; the cull's CTAs cover (kept seed, M)."""
+    """K14's own launches: a thread per world of the selection; the cull's
+    CTAs cover (kept seed, M).  Its phases in the row passes' finishes: K7's
+    finish, a CTA per (world, seed), runs the ladder for each once; K8's,
+    a CTA per world of K8C_THREADS, a thread per seed; the outer update
+    writes each of the M multipliers of a (world, seed) once, where K8
+    forms its row (2 T F torque rows and 3 T grasp rows in step (a), the K
+    screened rows in step (b), the 8 F state rows in the finish)."""
     T = ks.K14_THREADS
     M = 5944
-    (b,) = ks.k14_geometry("ladder", Wn, S)
-    assert (b - 1) * T < Wn * S <= b * T
-    (b,) = ks.k14_geometry("outer", Wn, S, M)
-    assert (b - 1) * T < Wn * S * M <= b * T
     (b,) = ks.k14_geometry("select", Wn, S)
     assert (b - 1) * T < Wn <= b * T
     for keep in range(1, S + 1):
         bx, by = ks.k14_geometry("cull", Wn, S, M, keep)
         assert by == Wn * keep and (bx - 1) * T < M <= bx * T and T >= 7
+    for phase in ("init", "ladder", "outer"):
+        with pytest.raises(ValueError, match="no phase"):
+            ks.k14_geometry(phase, Wn, S)
+    Tt, F, K, TG = 128, 7, 4096, 3 * 128
+    geo7 = ks.k7_geometry(Wn, S, 3 * Tt * F, Tt * F + TG, K)
+    assert geo7.ctas(Wn, S)[2] == Wn * S
+    text = (build.CSRC / "alm_values.cu").read_text()
+    assert S <= int(re.search(r"#define K8C_THREADS (\d+)", text).group(1))
+    geo8 = ks.k8_geometry(Wn, S, 3 * Tt * F + Tt * F + TG, K)
+    rows = np.zeros(3 * Tt * F + Tt * F + TG, dtype=int)
+    for t in range(geo8.tiles_a):
+        rows[t * geo8.R:(t + 1) * geo8.R] += 1
+    torque_grasp = rows[3 * Tt * F:]
+    assert (torque_grasp == 1).all() and geo8.tiles_b * ks.K8_COL_THREADS >= K
+    assert 2 * Tt * F + TG + K + 8 * F == M + TG
 
 
 def test_k14_source_constants_match_the_launchers():
-    from armour_tpu_torch.kernels import build
-
-    text = (build.CSRC / "alm_loop.cu").read_text()
+    """alm_loop.cuh's constants and its phase ids (EPI_PHASES in order);
+    alm_loop.cu launches only the cull and the selection."""
+    text = (build.CSRC / "alm_loop.cuh").read_text()
     for name, want in (("K14_THREADS", ks.K14_THREADS), ("K14_MAX_A", ks.K14_MAX_A),
                        ("K14_MAX_S", ks.K14_MAX_S), ("K14_MAX_F", ks.K14_MAX_F)):
         assert f"#define {name} {want}\n" in text, name
+    for i, phase in enumerate(ks.EPI_PHASES):
+        assert f"#define ALM_EPI_{phase.upper()} {i}\n" in text, phase
     assert build.SOURCES["alm_loop"] == "alm_loop.cu"
+    loop = (build.CSRC / "alm_loop.cu").read_text()
+    assert set(re.findall(r"\b(k14_\w+?)_kernel\b", loop)) == {
+        "k14_cull", "k14_select"}
+    assert '#include "alm_loop.cuh"' in (build.CSRC / "alm_rows.cuh").read_text()
 
 
-def test_k14_launchers_check_their_arguments():
+def _dry_rows(monkeypatch, W=3):
+    """A small plan's AlmRows on the CPU (Kinova, T = 4), the device checks
+    and the card's SM count stubbed, so that the launchers can be driven
+    with the library stubbed."""
+    from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+
+    robot, basis = kinova_gen3(), make_basis(7, 3)
+    cfg = ArmourConfig(num_time_steps=4, max_obstacles=4, screen_k=64, dtype=torch.float32)
+    obs = stack_obstacles([pad_obstacles(np.array([[0.5, 0.4, 0.6]]),
+                                         np.diag([0.05] * 3)[None], 4, torch.float32)] * W)
+    q0 = torch.full((W, 7), 0.1)
+    prob = plan_problem(q0, torch.zeros_like(q0), torch.zeros_like(q0), q0 + 0.05, obs, robot,
+                        cfg, basis)
+    monkeypatch.setattr(ks, "_require", _shape_only)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count": 132})())
+    return ks.alm_rows(prob, cfg, basis)
+
+
+def _shape_only(t, name, shape, dtype=torch.float32):
+    assert t.dtype == dtype and tuple(t.shape) == tuple(shape), name
+
+
+def test_k14_launchers_check_their_arguments(monkeypatch):
     """CPU tensors raise (a CUDA tensor launches or raises: no plain
-    fallback); shapes K14 does not take raise before any launch."""
+    fallback); shapes K14 does not take raise before any launch, in its
+    own launches and in the row passes that run its phases."""
     z = torch.zeros
     b = torch.bool
     with pytest.raises(ValueError, match="CUDA"):
-        ks.loop_init(z(2, 4, 7), z(2, 4, dtype=b), z(2, 4))
+        ks.loop_cull(z(2, 4, 7), z(2, 4, 5), z(2, 4), z(2, 4, 7), z(2, 4), z(2, 4), z(2, 4), 2)
     with pytest.raises(ValueError, match="CUDA"):
         ks.loop_select(z(2, 8, 7), z(2, 8, 4), z(2, 4), z(2, 4), THR)
     with pytest.raises(ValueError, match="seeds"):
-        ks.loop_init(z(2, 9, 7), z(2, 9, dtype=b), z(2, 9))
-    with pytest.raises(ValueError, match="seeds"):
-        ks.loop_pull_start(z(2, 4, 9), z(2, 4, 9), z(2, 4))
-    with pytest.raises(ValueError, match="ladder points"):
-        ks.loop_ladder(z(2, 8, 7), z(2, 8, 7), z(2, 8, dtype=b), z(2, 8), z(2, 8, 7), z(2, 8),
-                       ALPHAS)
-    with pytest.raises(ValueError, match="ladder block"):
-        ks.loop_accept(z(2, 4, 7), z(2, 4), z(2, 10, 7), z(2, 10), z(2, 10, dtype=b), z(2, 10),
-                       z(2, 4, 7), z(2, 4))
+        ks.loop_cull(z(2, 9, 7), z(2, 9, 5), z(2, 9), z(2, 9, 7), z(2, 9), z(2, 9), z(2, 9), 2)
     with pytest.raises(ValueError, match="keeps"):
         ks.loop_cull(z(2, 4, 7), z(2, 4, 5), z(2, 4), z(2, 4, 7), z(2, 4), z(2, 4), z(2, 4), 5)
     with pytest.raises(ValueError, match="2S"):
         ks.loop_select(z(2, 7, 7), z(2, 7, 4), z(2, 3), z(2, 3), THR)
+    rows = types_rows(W=2, M=5)
+    fused = _fused_steps(rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.init(z(2, 4, 7), z(2, 4, 5), z(2, 4))
+    with pytest.raises(ValueError, match="seeds"):
+        fused.init(z(2, 9, 7), z(2, 9, 5), z(2, 9))
+    with pytest.raises(ValueError, match="ladder points"):
+        fused.ladder(z(2, 8, 7), z(2, 8, 5), z(2, 8), z(2, 8, 7), z(2, 8))
+    with pytest.raises(ValueError, match="ladder block"):
+        fused.accept(z(2, 10, 7), z(2, 4, 5), z(2, 4), z(2, 4, 7), z(2, 4), z(2, 4, 7), z(2, 4))
+    with pytest.raises(ValueError, match="one query per seed"):
+        fused.pull_step(z(2, 3, 7), z(2, 4, 5), z(2, 4), z(2, 4, 7), z(2, 4, 7))
+    monkeypatch.setattr(ks, "_require", _shape_only)
+    with pytest.raises(AssertionError, match="end_feas"):
+        fused.pull_end(z(2, 4, 7), z(2, 4, 5), z(2, 4), z(2, 4, 7), z(2, 4, 7), z(2, 4), z(2, 4))
+    with pytest.raises(TypeError, match="takes no"):
+        ks.epilogue(rows, ALPHAS, "init", z(2, 4, 7), z(2, 4, 5), z(2, 4), best_k=z(2, 4, 7))
+    with pytest.raises(ValueError, match="does not run"):
+        ks._set_epilogue(ks.AlmArgs(), ks.Epilogue("ladder", ks.AlmEpilogue(), ()), "alm_values")
+    with pytest.raises(ValueError, match="only the kernels"):
+        tnlp.alm_values(z(2, 4, 7), z(2, 4, 5), z(2, 4), None, None, None, None,
+                        epi=ks.Epilogue("init", ks.AlmEpilogue(), ()))
+
+
+def types_rows(W, M, F=7):
+    """A stand-in for AlmRows with the sizes the fused steps read first."""
+    return types.SimpleNamespace(args=types.SimpleNamespace(W=W, F=F), M=M)
+
+
+def _row_passes(rows):
+    """K7 and K8 on the plan `rows` as nlp.loop_pairs calls them."""
+    return (lambda k, lam, rho, epi=None: ks.alm_newton(rows, k, lam, rho, epi=epi),
+            lambda *a, **kw: ks.alm_values(rows, *a, **kw))
+
+
+def _fused_steps(rows):
+    """The fused solve's steps: nlp.loop_pairs with K7 / K8 running each
+    phase in their finish (kernels/solver.py:epilogue)."""
+    return tnlp.loop_pairs(*_row_passes(rows), ks.LOOP, ALPHAS,
+                           functools.partial(ks.epilogue, rows, ALPHAS))
 
 
 def _c_prototypes():
     """{symbol: [(name, C kind)]} of the extern "C" k14_* launchers in
     csrc/alm_loop.cu; kind "float*", "unsigned char*", "void*", "int" or
     "float"."""
-    import re
-
-    from armour_tpu_torch.kernels import build
-
     text = (build.CSRC / "alm_loop.cu").read_text()
     out = {}
     for sym, plist in re.findall(r'extern "C" int (k14_\w+)\(([^)]*)\)', text):
@@ -494,37 +579,84 @@ def _c_prototypes():
     return out
 
 
-_C_KIND = {"tensor": "float*", "array": "float*", "bool": "unsignedchar*", "stream": "void*",
-           "int": "int", "float": "float"}
+_C_KIND = {"tensor": "float*", "bool": "unsignedchar*", "stream": "void*", "int": "int",
+           "float": "float"}
 
 
 def test_k14_prototype_table_matches_the_source():
     """K14_PROTOS names every extern "C" launcher of alm_loop.cu and each
     one's parameters in order, with their kinds: ctypes infers nothing, so
     a launcher that gains, loses or reorders a parameter fails here, not
-    on the card."""
+    on the card.  ALM_EPILOGUES names a phase for every ALM_EPI_* but none,
+    and only AlmEpilogue's fields, each an input or an output of the kind
+    the struct declares."""
     protos = _c_prototypes()
     assert sorted(protos) == sorted(ks.K14_PROTOS)
     assert {f"k14_{name}" for name in vars(ks.LOOP)} == set(protos)
     for sym, params in protos.items():
         want = [(n, _C_KIND[kind]) for n, kind, _ in ks.k14_params(sym)]
         assert [(n, k.replace(" ", "")) for n, k in params] == want, sym
+    assert set(ks.ALM_EPILOGUES) == set(ks.EPI_PHASES[1:]) == set(
+        vars(tnlp.loop_pairs(None, None, None, ALPHAS)))
+    decl = _c_struct(_loop_header(), "AlmEpilogue")
+    assert [n for n, _ in decl] == [f[0] for f in ks.AlmEpilogue._fields_]
+    kinds = dict(decl)
+    for phase in ks.ALM_EPILOGUES:
+        _, ins, outs = ks.epilogue_fields(phase)
+        for name, kind, _ in ins:
+            assert kinds[name] == ("constunsignedchar*" if kind == "bool" else "constfloat*")
+        for name, kind, _ in outs:
+            assert kinds[name] == "float*", name
+
+
+def _loop_header():
+    return (build.CSRC / "alm_loop.cuh").read_text()
+
+
+def _c_struct(text, name):
+    """[(field, C type without spaces)] of `struct name { ... };`."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, text, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    out = []
+    for decl in body.split(";"):
+        decl = " ".join(decl.split())
+        if decl:
+            kind, field = decl.rsplit(" ", 1)
+            kind += "*" * field.count("*")
+            out.append((re.sub(r"\[.*\]", "", field.lstrip("*")), kind.replace(" ", "")))
+    return out
+
+
+def _phase_fields(phase):
+    """The AlmEpilogue fields (e.name) that phase's device code in
+    alm_loop.cuh reads or writes, through the helpers it calls."""
+    text = _loop_header()
+
+    def body(fn):
+        m = re.search(r"void %s\((.*?)\n\}" % fn, text, re.S)
+        return m.group(1)
+
+    code = body(f"alm_epi_{phase}")
+    if "k14_track_out(" in code:
+        code += body("k14_track_out")
+    if phase == "outer":
+        code += body("alm_epi_lam")
+    return set(re.findall(r"\be\.(\w+)", code)) - {"phase"}
 
 
 def _dry_loop_args(phase, W=3, S=4, A=3, F=7, M=11, keep=2):
     z, b = torch.zeros, torch.bool
     ws, wsf = z(W, S), z(W, S, F)
     return {
-        "init": (wsf, z(W, S, dtype=b), ws),
-        "ladder": (wsf, wsf, z(W, S, dtype=b), ws, wsf, ws, ALPHAS),
-        "accept": (wsf, ws, z(W, S * A, F), z(W, S * A), z(W, S * A, dtype=b), z(W, S * A),
-                   wsf, ws),
-        "outer": (wsf, z(W, S, dtype=b), ws, z(W, S, M), z(W, S, M), ws, wsf, ws),
+        "init": (wsf, z(W, S, M), ws),
+        "ladder": (wsf, z(W, S, M), ws, wsf, ws),
+        "accept": (z(W, S * A, F), z(W, S, M), ws, wsf, ws, wsf, ws),
+        "outer": (wsf, z(W, S, M), ws, wsf, ws),
         "cull": (wsf, z(W, S, M), ws, wsf, ws, ws, ws, keep),
-        "pull_start": (wsf, wsf, ws),
-        "pull_step": (wsf, wsf, wsf, z(W, S, dtype=b)),
-        "pull_end": (wsf, wsf, wsf, z(W, S, dtype=b), z(W, S, dtype=b), ws),
-        "finish": (wsf, wsf, z(W, S, dtype=b), ws, wsf, ws),
+        "pull_start": (wsf, z(W, S, M), ws, wsf, ws),
+        "pull_step": (wsf, z(W, S, M), ws, wsf, wsf),
+        "pull_end": (wsf, z(W, S, M), ws, wsf, wsf, z(W, S, dtype=b), ws),
+        "finish": (wsf, z(W, S, M), ws, wsf, wsf, ws),
         "select": (z(W, 2 * S, F), z(W, 2 * S, 4), ws, ws, THR),
     }[phase]
 
@@ -532,10 +664,16 @@ def _dry_loop_args(phase, W=3, S=4, A=3, F=7, M=11, keep=2):
 @pytest.mark.parametrize("phase", ["init", "ladder", "accept", "outer", "cull", "pull_start",
                                    "pull_step", "pull_end", "finish", "select"])
 def test_k14_launchers_pass_their_prototypes(phase, monkeypatch):
-    """Each launcher, with the device check and the library stubbed out,
-    hands its C function exactly the prototype's parameters: one value per
-    parameter, of its ctypes type, the grid from k14_geometry, the sizes
-    of its tensors."""
+    """Each phase, with the device check and the library stubbed out,
+    hands its kernel exactly what it declares.  The cull and the selection
+    (K14's launches): one value per prototype parameter, of its ctypes
+    type, the grid from k14_geometry, the sizes of its tensors.  A phase
+    run by a row pass (K7 for the ladder, else K8): one launch of that
+    kernel whose AlmArgs.epi holds the phase's id, A and alphas, the
+    pointers of its inputs and of the outputs it returns (ALM_EPILOGUES),
+    null in every field it does not use, the fields its device code reads
+    and writes; the row pass takes the step's query points, multipliers
+    and penalties, and writes no scratch rows."""
     from armour_tpu_torch import kernels
 
     calls = []
@@ -546,34 +684,107 @@ def test_k14_launchers_pass_their_prototypes(phase, monkeypatch):
             return 0
         return fn
 
-    def shape_only(t, name, shape, dtype=torch.float32):
-        assert t.dtype == dtype and tuple(t.shape) == tuple(shape), name
+    monkeypatch.setattr(ks, "launcher", fake_launcher)
+    monkeypatch.setattr(ks, "_stream", lambda t: "the stream")
+    if phase in ("cull", "select"):
+        monkeypatch.setattr(ks, "_require", _shape_only)
+        before = kernels.LAUNCHES["alm_loop"]
+        getattr(ks.LOOP, phase)(*_dry_loop_args(phase))
+        assert kernels.LAUNCHES["alm_loop"] == before + 1
+        [(symbol, argtypes, args)] = calls
+        c_params = _c_prototypes()[symbol]
+        assert symbol == f"k14_{phase}" and len(argtypes) == len(args) == len(c_params)
+        for (name, kind), t, x in zip(c_params, argtypes, args):
+            kind = kind.replace(" ", "")
+            want = {"int": ctypes.c_int, "float": ctypes.c_float}.get(kind, ctypes.c_void_p)
+            assert t is want, name
+            assert isinstance(x, int if kind == "int" else float) or kind.endswith("*"), name
+        sizes = dict(zip((n for n, _ in c_params), args))
+        assert sizes.get("F") == 7
+        blocks = tuple(sizes[n] for n, _ in c_params if n.startswith("blocks"))
+        assert blocks == ks.k14_geometry(phase, 3, 4, 11, 2 if phase == "cull" else 0)
+        assert args[-1] == "the stream"
+        return
+    rows = _dry_rows(monkeypatch)
+    M = rows.M
+    args = _dry_loop_args(phase, M=M)
+    kernels.reset_counts()
+    got = getattr(_fused_steps(rows), phase)(*args)
+    kernel, ins, outs = ks.epilogue_fields(phase)
+    assert kernels.LAUNCHES["alm_loop"] == 0 and kernels.IN_FINISH == {phase: 1}
+    assert kernels.LAUNCHES[kernel] == 1
+    [(symbol, _, cargs)] = calls
+    assert symbol == ("k7_launch" if kernel == "alm_newton" else "k8_launch")
+    a = cargs[0]._obj
+    e = a.epi
+    assert ks.EPI_PHASES[e.phase] == phase
+    assert e.A == {"ladder": len(ALPHAS), "accept": 3}.get(phase, 0)
+    assert [e.alphas[i] for i in range(len(ALPHAS))] == (
+        [np.float32(x) for x in ALPHAS] if phase == "ladder" else [0.0] * len(ALPHAS))
+    names = {
+        "ladder": ("k", "lam", "rho", "best_k", "best_cost"),
+        "accept": ("kq", "lam", "rho", "k", "m0", "best_k", "best_cost"),
+        "pull_step": ("mid", "lam", "rho", "lo", "hi"),
+        "pull_end": ("mid", "lam", "rho", "k", "lo", "end_feas", "best_cost"),
+        "finish": ("k_pull", "lam", "rho", "k", "best_k", "best_cost"),
+    }.get(phase, ("k", "lam", "rho", "best_k", "best_cost"))
+    given = dict(zip(names, args))
+    q = args[0]
+    assert a.k == q.data_ptr() and a.lam == given["lam"].data_ptr()
+    assert a.rho == given["rho"].data_ptr() and a.Q == q.shape[1] and a.S == 4
+    assert not a.c and not a.maxima
+    used = {n for n, _, _ in ins} | {n for n, _, _ in outs}
+    for name, _, _ in ins:
+        assert getattr(e, name) == given[name].data_ptr(), name
+    got = got if isinstance(got, tuple) else (got,)
+    returned = {"ladder": got[1:], "pull_start": got[2:]}.get(phase, got)
+    assert len(returned) == len(outs)
+    sz = dict(W=3, S=4, F=7, M=M, Q=12, S2=8)
+    for (name, _, dims), t in zip(outs, returned):
+        assert getattr(e, name) == t.data_ptr(), name
+        assert tuple(t.shape) == tuple(sz[d] if isinstance(d, str) else d for d in dims), name
+    for name, _ in ks.AlmEpilogue._fields_:
+        if name not in used | {"phase", "A", "alphas"}:
+            assert not getattr(e, name), name
+    assert _phase_fields(phase) == used | ({"A", "alphas"} if phase == "ladder" else
+                                           {"A"} if phase == "accept" else set())
+
+
+def test_row_passes_without_a_phase_leave_the_descriptor_null(monkeypatch):
+    """K7 and K8 called alone (the eager solve, the max mode, the recorded
+    calls) hand a zeroed AlmEpilogue (ALM_EPI_NONE, every pointer null):
+    their finish then runs as before the phases moved in."""
+    calls = []
+
+    def fake_launcher(lib, symbol, argtypes):
+        return lambda *args: calls.append(args[0]._obj) or 0
 
     monkeypatch.setattr(ks, "launcher", fake_launcher)
-    monkeypatch.setattr(ks, "_require", shape_only)
     monkeypatch.setattr(ks, "_stream", lambda t: "the stream")
-    before = kernels.LAUNCHES["alm_loop"]
-    getattr(ks.LOOP, phase)(*_dry_loop_args(phase))
-    assert kernels.LAUNCHES["alm_loop"] == before + 1
-    [(symbol, argtypes, args)] = calls
-    c_params = _c_prototypes()[symbol]
-    assert symbol == f"k14_{phase}" and len(argtypes) == len(args) == len(c_params)
-    for (name, kind), t, x in zip(c_params, argtypes, args):
-        kind = kind.replace(" ", "")
-        want = {"int": ctypes.c_int, "float": ctypes.c_float}.get(kind, ctypes.c_void_p)
-        assert t is want, name
-        assert isinstance(x, int if kind == "int" else float) or kind.endswith("*"), name
-    sizes = dict(zip((n for n, _ in c_params), args))
-    assert sizes.get("F") == 7
-    blocks = tuple(sizes[n] for n, _ in c_params if n.startswith("blocks"))
-    assert blocks == ks.k14_geometry(phase, 3, 4, 11, 2 if phase == "cull" else 0)
-    assert args[-1] == "the stream"
+    rows = _dry_rows(monkeypatch)
+    k, lam, rho = torch.zeros(3, 4, 7), torch.zeros(3, 4, rows.M), torch.ones(3, 4)
+    ks.alm_newton(rows, k, lam, rho)
+    ks.alm_values(rows, k, lam, rho, torch.arange(4, dtype=torch.int32), True)
+    ks.alm_maxima(rows, k)
+    assert len(calls) == 3
+    for a in calls:
+        assert bytes(a.epi) == bytes(ks.AlmEpilogue())
+        assert ks.EPI_PHASES[a.epi.phase] == "none"
+    rows_text = (build.CSRC / "alm_rows.cuh").read_text()
+    assert "AlmEpilogue epi;" in rows_text
+    for src, ph in (("alm_newton.cu", "LADDER"), ("alm_values.cu", "ACCEPT")):
+        text = (build.CSRC / src).read_text()
+        assert "a.epi.phase" in text and f"ALM_EPI_{ph}" in text
+    k8 = (build.CSRC / "alm_values.cu").read_text()
+    assert set(re.findall(r"case ALM_EPI_(\w+):", k8)) == {
+        p.upper() for p in ks.ALM_EPILOGUES if ks.ALM_EPILOGUES[p][0] == "alm_values"}
+    assert "if (a.epi.phase == ALM_EPI_NONE) return;" in k8
 
 
 def test_cpu_solve_takes_the_plain_book(monkeypatch):
     """On CPU tensors the solve's phases are the plain versions: it never
-    reaches K14's launchers (each raises here), and gives the eager
-    solve's result."""
+    reaches K14's launchers or the row passes that run its phases (each
+    raises here), and gives the eager solve's result."""
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU solve reached K14")
 
@@ -581,6 +792,8 @@ def test_cpu_solve_takes_the_plain_book(monkeypatch):
     want = tnlp.solve(prob, cfg, basis, eager=True)
     for name in vars(ks.LOOP):
         monkeypatch.setattr(ks.LOOP, name, refuse)
+    for name in ("epilogue", "alm_newton", "alm_values"):
+        monkeypatch.setattr(ks, name, refuse)
     got = tnlp.solve(prob, cfg, basis)
     for f in ("k", "feasible", "cost", "viol"):
         assert torch.equal(torch.nan_to_num(getattr(got, f)), torch.nan_to_num(getattr(want, f)))
@@ -605,35 +818,49 @@ def _bits_equal(a, b):
 
 
 def _loop_cases(st, dev):
-    """(phase, K14 launcher args) from a _state on the card, float32."""
+    """(phase, launcher args) of K14's own launches from a _state on the
+    card, float32."""
     def f(n):
         x = torch.as_tensor(np.asarray(st[n]))
         return (x.to(dev) if x.dtype == torch.bool else x.to(dev, torch.float32)).contiguous()
 
     return [
-        ("init", (f("k"), f("feas"), f("cost"))),
-        ("ladder", (f("k"), f("step"), f("feas"), f("cost"), f("best_k"), f("best_cost"),
-                    ALPHAS)),
-        ("accept", (f("k"), f("m0"), f("kq"), f("merit"), f("feas_q"), f("cost_q"), f("best_k"),
-                    f("best_cost"))),
-        ("outer", (f("k"), f("feas"), f("cost"), f("c"), f("lam"), f("rho"), f("best_k"),
-                   f("best_cost"))),
         ("cull", (f("k"), f("lam"), f("rho"), f("best_k"), f("best_cost"), f("v"), f("cost"), 2)),
-        ("pull_start", (f("k"), f("best_k"), f("best_cost"))),
-        ("pull_step", (f("k"), f("best_k"), f("kq")[:, :4].contiguous(), f("ok"))),
-        ("pull_end", (f("k"), f("best_k"), f("kq")[:, :4].contiguous(), f("ok"), f("end_feas"),
-                      f("best_cost"))),
-        ("finish", (f("k"), f("best_k"), f("feas"), f("cost"), f("best_k"), f("best_cost"))),
         ("select", (f("kb"), f("viol"), f("best_cost"), f("cost_final"), THR)),
+    ]
+
+
+def _step_cases(st, dev, M):
+    """(phase, step args) of every phase run by a row pass, from a _state
+    of the plan's sizes on the card (float32): the tracker's costs, m0 and
+    the brackets with ties, infinities and NaN."""
+    def f(n):
+        x = torch.as_tensor(np.asarray(st[n]))
+        return (x.to(dev) if x.dtype == torch.bool else x.to(dev, torch.float32)).contiguous()
+
+    k, lam, rho, bk, bc = f("k"), f("lam"), f("rho"), f("best_k"), f("best_cost")
+    mid = f("kq")[:, :k.shape[1]].contiguous()
+    return [
+        ("init", (k, lam, rho)),
+        ("ladder", (k, lam, rho, bk, bc)),
+        ("accept", (f("kq"), lam, rho, k, f("m0"), bk, bc)),
+        ("outer", (k, lam, rho, bk, bc)),
+        ("pull_start", (k, lam, rho, bk, bc)),
+        ("pull_step", (mid, lam, rho, bk, k)),
+        ("pull_end", (mid, lam, rho, k, bk, f("end_feas"), bc)),
+        ("finish", (mid, lam, rho, k, bk, bc)),
     ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_k14_matches_the_plain_bookkeeping_on_the_card(seed):
-    """Every phase of K14 against its plain version on the same CUDA
-    tensors (ties, infinities, NaN): the same bits, and the same again on a
-    second call."""
+    """K14's cull and selection against their plain versions on the same
+    CUDA tensors (ties, infinities, NaN); and every phase run by a row
+    pass's finish against the same pass without it followed by the plain
+    phase (nlp.loop_pairs with K7 / K8 and nlp.PLAIN_LOOP), on a plan of
+    the card in both families: every output the same bits, and the same
+    again on a second call."""
     dev = _card()
     for name, args in _loop_cases(_state(seed), dev):
         got = getattr(ks.LOOP, name)(*args)
@@ -644,6 +871,21 @@ def test_k14_matches_the_plain_bookkeeping_on_the_card(seed):
         for g, a, w in zip(got, again, want):
             assert _bits_equal(g, w), name
             assert _bits_equal(g, a), name
+    for family in ("bernstein", "armtd"):
+        cfg, basis, prob = _port_problem(family, torch.float32, 3, dev)
+        rows = ks.alm_rows(prob, cfg, basis)
+        fused = _fused_steps(rows)
+        plain = tnlp.loop_pairs(*_row_passes(rows), tnlp.PLAIN_LOOP, ALPHAS)
+        st = _state(seed, W=3, S=4, A=3, F=7, M=rows.M)
+        st["lam"][:, :, ::7] = 0.0
+        for name, args in _step_cases(st, dev, rows.M):
+            got, again = getattr(fused, name)(*args), getattr(fused, name)(*args)
+            want = getattr(plain, name)(*args)
+            got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
+            assert len(got) == len(want), name
+            for g, a, w in zip(got, again, want):
+                assert _bits_equal(g, w), (family, name)
+                assert _bits_equal(g, a), (family, name)
 
 
 @pytest.mark.cuda
@@ -680,13 +922,29 @@ def test_k8_max_mode_and_costs_match_the_plain_versions_on_the_card(family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["bernstein", "armtd"])
+@pytest.mark.parametrize("family", ["bernstein", "armtd", "grasp"])
 def test_fused_solve_matches_the_eager_solve_on_the_card(family):
-    """The solve with K14 against the eager solve (K7 / K8 and the plain
-    bookkeeping) on the same problem: k, feasible, cost and viol bit for
-    bit, with and without the cull and from one start (k0)."""
+    """The solve with K14 (its phases in K7's / K8's finish) against the
+    eager solve (K7 / K8 and the plain bookkeeping) on the same problem:
+    k, feasible, cost and viol bit for bit, with and without the cull and
+    from one start (k0); in both families and with the grasp group (a
+    dumbbell plan, F = 7 of J = 9).  The fused solve launches K14 twice
+    (the cull and the selection) and runs every other phase in a row
+    pass."""
+    from armour_tpu_torch import kernels
+
     dev = _card()
-    cfg, basis, prob = _port_problem(family, torch.float32, 3, dev)
+    if family == "grasp":
+        from test_torch_kernel_geometry import _grasp_problem
+
+        _, cfg, basis, prob = _grasp_problem(dev)
+    else:
+        cfg, basis, prob = _port_problem(family, torch.float32, 3, dev)
+    kernels.reset_counts()
+    tnlp.solve(prob, cfg, basis)
+    assert kernels.counts()["alm_loop"] == 2
+    assert sum(kernels.IN_FINISH.values()) == (kernels.counts()["alm_newton"]
+                                               + kernels.counts()["alm_values"] - 2)
     for c, k0 in ((cfg, None), (dataclasses.replace(cfg, solver_cull_after=0), None),
                   (cfg, torch.zeros(prob.q_des.shape, device=dev))):
         a = tnlp.solve(prob, c, basis, k0=k0)

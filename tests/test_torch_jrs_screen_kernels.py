@@ -1,6 +1,6 @@
 """Kernels K12 (jrs_bernstein, csrc/jrs_bernstein.cu) and K13
 (screen_collision, csrc/screen_collision.cu), and the port's scalar
-divisions.
+divisions; the writer K11 (jrs_armtd) shares with K12.
 
 On the CPU: the launchers' pure-Python parts (K12's constants, each a Python
 double rounded once to float32 as the plain version rounds it; the
@@ -9,7 +9,8 @@ constants), the screen's selection order against a lexicographic sort, and
 utils.div.  The cuda-marked tests hold K12 and K13 against their plain
 versions on the card (K12: the velocity PZs and trajectory scalars bit for
 bit, R within 1e-6 (1 + |plain|) where cos / sin or the 3x3 products round
-differently; K13: the same indices and bits in every field, with quota 0
+differently; K12 and K11 also at the flagship size, at J = 9 and at F = 6;
+K13: the same indices and bits in every field, with quota 0
 and 8 and planted ties, against the plain screen of K3's hyperplanes and
 against tests/data/screen_hyperplanes.cu, the screen that reads K3's
 tensors, built there with the port's flags), each twice for the same
@@ -208,6 +209,70 @@ def test_k12_matches_its_plain_version_on_the_card(start, T):
             else:
                 assert torch.equal(a, b), (f, g)
     for n in ("q0", "qd0", "qdd0", "Tqd0", "TTqdd0", "k_scale"):
+        assert torch.equal(getattr(got.traj, n), getattr(ref.traj, n)), n
+
+
+def _jrs_robot(which):
+    """(robot, cfg, basis, W) of a path's JRS widths: the flagship (the
+    Kinova, T = 128, W = 64), the dumbbell (J = 9 bodies, F = 7) and the
+    UR5 (F = 6), these two at W = 8, T = 32."""
+    from armour_tpu_torch.models import zoo
+
+    if which == "flagship":
+        return kinova_gen3(), ArmourConfig(dtype=torch.float32), make_basis(7, 3), 64
+    robot = zoo.kinova_dumbbell() if which == "J9" else zoo.ur5()
+    F = robot.num_factors
+    cfg = ArmourConfig.for_robot(robot, derive_ub=False, num_time_steps=32, dtype=torch.float32)
+    return robot, cfg, make_basis(F, 3), 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["bernstein", "armtd"])
+@pytest.mark.parametrize("which", ["flagship", "J9", "F6"])
+def test_jrs_writer_gives_the_plain_versions_entries_on_the_card(family, which):
+    """K12 (Bernstein) and K11 (ARMTD), both on the flat 16-byte writer, at
+    the flagship size, at J = 9 and at F = 6 from moving starts: the
+    velocity PZs and the trajectory scalars the plain version's bits, R
+    within 1e-6 (1 + |plain|) (its cos / sin and 3x3 products may round
+    differently) and exactly zero wherever the plain R is; the same bits
+    on a repeat, one launch a call."""
+    import dataclasses
+
+    from armour_tpu_torch import armtd, jrs, kernels
+
+    dev = _card()
+    robot, cfg, basis, W = _jrs_robot(which)
+    cfg = dataclasses.replace(cfg, traj_family=family)
+    F = robot.num_factors
+    rng = np.random.default_rng(F + W)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    q0, qd0, qdd0 = (t(rng.uniform(-lim, lim, (W, F))) for lim in (2.5, 0.6, 2.0))
+    if family == "armtd":
+        def kern():
+            return armtd.build_jrs_armtd(q0, qd0, robot, cfg, basis)
+        ref = armtd.build_jrs_armtd_plain(q0, qd0, robot, cfg, basis)
+        name = "jrs_armtd"
+    else:
+        def kern():
+            return jrs.build_jrs(q0, qd0, qdd0, robot, cfg, basis)
+        ref = jrs.build_jrs_plain(q0, qd0, qdd0, robot, cfg, basis)
+        name = "jrs_bernstein"
+    kernels.reset_counts()
+    got, again = kern(), kern()
+    assert kernels.counts()[name] == 2
+    for f in ("R", "qd", "qda", "qdda"):
+        for g in ("coef", "egen", "rad"):
+            a, b = getattr(getattr(got, f), g), getattr(getattr(ref, f), g)
+            assert a.shape == b.shape and torch.equal(a, getattr(getattr(again, f), g)), (f, g)
+            if f == "R":
+                assert bool(((a - b).abs() <= 1e-6 * (1 + b.abs())).all()), (f, g)
+                assert bool((a[b == 0] == 0).all()), (f, g)
+            else:
+                assert torch.equal(a, b), (f, g)
+    for n in ("Tqd0", "TTqdd0", "k_scale"):
         assert torch.equal(getattr(got.traj, n), getattr(ref.traj, n)), n
 
 

@@ -28,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from armour_tpu_torch.kernels import build, pz as kpz, reach, sim as ksim, solver as ks
+from armour_tpu_torch.kernels import build, jrs as kjrs, pz as kpz, reach, sim as ksim
+from armour_tpu_torch.kernels import solver as ks
 
 SMS = 132
 BLOCK_SMEM = 232448
@@ -1368,7 +1369,6 @@ def test_k10_k9_k12_caps_take_nine_joints():
     rotations) hold the dumbbell's nine bodies; K9's and K10's shared memory
     still fits two K9 blocks of eight warps and three K10 blocks of four
     warps an SM."""
-    from armour_tpu_torch.kernels import jrs as kjrs
 
     assert _define(_source("fk_chain.cu"), "K9_MAXJ") == reach.MAX_J == 9
     assert _define(_source("rnea_chain.cu"), "K10_MAXJ") == reach.MAX_J
@@ -1674,3 +1674,243 @@ def test_alm_args_carry_the_grasp_group(monkeypatch, grasp):
         assert tuple(rows.tensors["g_coef"].shape) == (2, TG, B)
     else:
         assert prob.grasp is None
+
+
+# ---------------------------------------------------------------------------
+# K11 / K12's writer (csrc/jrs_tail.cuh:jrs_write_slabs): flat 16-byte stores
+# ---------------------------------------------------------------------------
+
+
+# A pure-Python copy of the writer's index arithmetic: the ranges, stores,
+# walks and values of csrc/jrs_tail.cuh, which the tests below hold against
+# the row-by-row writer K11 / K12 had before.
+KINDS = ("R_coef", "R_egen", "zero", "v_coef", "v_egen")   # JRS_R_COEF .. JRS_ZERO, in order
+
+
+def jrs_segments(J: int, F: int, B: int, E: int, WT: int, wt0: int, n: int) -> list:
+    """The flat ranges a block writes for its slabs wt0 .. wt0 + n - 1
+    (csrc/jrs_tail.cuh:jrs_write_slabs), in order: (output, first entry,
+    entries, slab length, row length, kind, velocity PZ p).  Outputs: R_coef
+    [W T, J+1, 3, 3, B], R_egen [.., E], R_rad [W T, J+1, 3, 3], v_coef
+    [3, W T, F, B], v_egen [.., E], v_rad [3, W T, F], each flat."""
+    J9 = (J + 1) * 9
+    out = [("R_coef", wt0 * J9 * B, n * J9 * B, J9 * B, B, "R_coef", 0),
+           ("R_egen", wt0 * J9 * E, n * J9 * E, J9 * E, E, "R_egen", 0),
+           ("R_rad", wt0 * J9, n * J9, J9, 1, "zero", 0)]
+    for p in range(3):
+        slab = p * WT + wt0
+        out += [("v_coef", slab * F * B, n * F * B, F * B, B, "v_coef", p),
+                ("v_egen", slab * F * E, n * F * E, F * E, E, "v_egen", p),
+                ("v_rad", slab * F, n * F, F, 1, "zero", p)]
+    return out
+
+
+def jrs_stores(first: int, length: int, align: int = 0) -> tuple:
+    """How a block stores the range [first, first + length) of an output
+    whose entry 0 lies `align` floats past a 16-byte boundary
+    (jrs_write_segment): (head, float4 starts, tail) as flat entries, the
+    head and tail single floats."""
+    head = min(length, (4 - (align + first) % 4) % 4)
+    n4 = (length - head) // 4
+    body = [first + head + 4 * i for i in range(n4)]
+    return (list(range(first, first + head)), body,
+            list(range(first + head + 4 * n4, first + length)))
+
+
+def jrs_window(kind: str, p: int, F: int, lin, e_cos: int, e_sin: int, e_vel) -> tuple:
+    """The columns [lo, hi] of a row of a segment of `kind` that can hold a
+    non-zero entry (csrc/jrs_tail.cuh:jrs_window)."""
+    top = max([0] + [int(x) for x in lin[:F]])
+    if kind in ("R_coef", "v_coef"):
+        return 0, top
+    if kind == "R_egen":
+        return min(e_cos, e_sin), max(e_cos, e_sin) + F - 1
+    return e_vel[p], e_vel[p] + F - 1
+
+
+def jrs_walk(head: int, n4: int, slab_len: int, L: int, threads: int = kjrs.THREADS) -> list:
+    """Each thread's float4s of a segment as jrs_write_segment steps them:
+    [(float4 index, slab, row, column of its first entry)] per thread, the
+    first by division, the rest by adding the block's stride with carries."""
+    rows, stride = slab_len // L, 4 * threads
+    dq, dc = divmod(stride, L)
+    dg, dr = divmod(dq, rows)
+    out = []
+    for t in range(min(threads, n4)):
+        g, y = divmod(head + 4 * t, slab_len)
+        r, c = divmod(y, L)
+        walk = []
+        for i in range(t, n4, threads):
+            walk.append((i, g, r, c))
+            c += dc
+            if c >= L:
+                c, r = c - L, r + 1
+            r += dr
+            if r >= rows:
+                r, g = r - rows, g + 1
+            g += dg
+        out.append(walk)
+    return out
+
+
+def jrs_entries(kind: str, p: int, x, slab_len: int, L: int, J: int, F: int, lin, e_cos: int,
+                e_sin: int, e_vel) -> tuple:
+    """What entries x (numpy, offsets in a segment) hold
+    (csrc/jrs_tail.cuh:jrs_value): (slab g, row r, source), source -1 a
+    zero, else R's matrix m of joint j at element e as j * 36 + m * 9 + e
+    (R_coef, R_egen), or velocity PZ p's part x of factor f as 1000 + p * 24
+    + x * 8 + f (v_coef, v_egen)."""
+    x = np.asarray(x)
+    if kind == "zero":
+        return x * 0, x * 0, np.full(x.shape, -1)
+    g, y = np.divmod(x, slab_len)
+    r, c = np.divmod(y, L)
+    src = np.full(x.shape, -1)
+    lin = np.asarray(lin)
+    if kind in ("R_coef", "R_egen"):
+        j, e = np.divmod(r, 9)
+        act = j < F
+        jl = np.where(act, j, 0)
+        if kind == "R_coef":
+            src = np.where(c == 0, j * 36 + e, np.where(act & (c == lin[jl]), j * 36 + 9 + e, -1))
+        else:
+            src = np.where(act & (c == e_cos + j), j * 36 + 18 + e,
+                           np.where(act & (c == e_sin + j), j * 36 + 27 + e, -1))
+    elif kind == "v_coef":
+        src = np.where(c == 0, 1000 + p * 24 + r, np.where(c == lin[r], 1000 + p * 24 + 8 + r, -1))
+    else:
+        src = np.where(c == e_vel[p] + r, 1000 + p * 24 + 16 + r, -1)
+    return g, r, src
+
+
+def _old_slab_writer(J_, F_, B_, E_, WT, lin, e_cos, e_sin, e_vel):
+    """What the row-by-row writer of K11 / K12 before their redesign put in
+    every entry, per output (flat, C order): (slab, source) as
+    jrs_entries numbers the sources (-1 a zero)."""
+    J1 = J_ + 1
+    out = {n: np.full(shape, -1) for n, shape in (
+        ("R_coef", (WT, J1 * 9, B_)), ("R_egen", (WT, J1 * 9, E_)), ("R_rad", (WT, J1 * 9)),
+        ("v_coef", (3, WT, F_, B_)), ("v_egen", (3, WT, F_, E_)), ("v_rad", (3, WT, F_)))}
+    slab = {n: np.zeros(x.shape, dtype=int) for n, x in out.items()}
+    for wt in range(WT):
+        for r in range(J1 * 9):
+            j, e = divmod(r, 9)
+            lj = lin[j] if j < F_ else -1
+            jc, js = (e_cos + j, e_sin + j) if j < F_ else (-1, -1)
+            row = out["R_coef"][wt, r]
+            row[0] = j * 36 + e
+            if lj >= 0:
+                row[lj] = j * 36 + 9 + e
+            row = out["R_egen"][wt, r]
+            if jc >= 0:
+                row[jc], row[js] = j * 36 + 18 + e, j * 36 + 27 + e
+            for n in ("R_coef", "R_egen", "R_rad"):
+                slab[n][wt, r] = wt
+        for p in range(3):
+            for f in range(F_):
+                out["v_coef"][p, wt, f, 0] = 1000 + p * 24 + f
+                out["v_coef"][p, wt, f, lin[f]] = 1000 + p * 24 + 8 + f
+                out["v_egen"][p, wt, f, e_vel[p] + f] = 1000 + p * 24 + 16 + f
+                for n in ("v_coef", "v_egen", "v_rad"):
+                    slab[n][p, wt, f] = wt
+    return {n: (slab[n].ravel(), out[n].ravel()) for n in out}
+
+
+@pytest.mark.parametrize("J_, F_", [(6, 6), (7, 6), (7, 7), (9, 7), (8, 8), (9, 8)])
+@pytest.mark.parametrize("WT, geo", [(15, None), (23, (3, 2)), (8192, None)],
+                         ids=["ragged", "grid_stride", "flagship_grid"])
+def test_jrs_writer_covers_every_entry_once(J_, F_, WT, geo):
+    """K11 / K12's writer: each block's slabs, its segments
+    (jrs_segments) and their stores (jrs_stores: single floats to
+    the first 16-byte boundary, float4s, single floats after) cover every
+    entry of R_coef, R_egen, R_rad, v_coef, v_egen and v_rad exactly once,
+    every float4 on a 16-byte boundary, and each entry holds what the
+    row-by-row writer put there (its slab, its source or a zero); with the
+    outputs' first entries 0-3 floats past a boundary, for J + 1 <= 10,
+    F = 6, 7, 8 and the ragged rows (B = 165, E = 33, 38, 43; v_egen's F E
+    floats a slab).  Each thread's walk over a range (jrs_walk: its
+    first float4 by division, the rest by the block's stride with carries)
+    gives each float4's slab, row and column, and a float4 in one row
+    outside the row's window of non-zero columns (jrs_window) holds
+    zeros only."""
+    from armour_tpu_torch.pz.basis import error_layout, make_basis
+
+    basis, lay = make_basis(F_, 3), error_layout(F_)
+    B_, E_ = basis.size, lay["size"]
+    lin = [int(x) for x in basis.lin_idx[:F_]]
+    e_cos, e_sin = lay["cosqe"].start, lay["sinqe"].start
+    e_vel = (lay["qde"].start, lay["qdae"].start, lay["qddae"].start)
+    G, blocks = kjrs.jrs_geometry(WT) if geo is None else geo
+    assert 1 <= G <= kjrs.MAX_G and blocks * G >= min(WT, blocks * G)
+    if WT == 8192:
+        # the flagship: every slab's block resident at once, 16 slabs a block
+        assert (G, blocks) == (16, 512) and blocks <= SMS * kjrs.BLOCKS_PER_SM
+        return
+    want = _old_slab_writer(J_, F_, B_, E_, WT, lin, e_cos, e_sin, e_vel)
+    for align in range(4):
+        count = {n: np.zeros(len(w[0]), dtype=int) for n, w in want.items()}
+        slab = {n: np.full(len(w[0]), -1) for n, w in want.items()}
+        src = {n: np.full(len(w[0]), -2) for n, w in want.items()}
+        for b in range(blocks):
+            for wt0 in range(b * G, WT, blocks * G):
+                n = min(G, WT - wt0)
+                for name, first, length, slab_len, L, kind, p in jrs_segments(
+                        J_, F_, B_, E_, WT, wt0, n):
+                    head, body, tail = jrs_stores(first, length, align)
+                    assert all((align + x) % 4 == 0 for x in body)
+                    body = np.asarray(body, dtype=int)
+                    xs = np.concatenate([np.asarray(head, dtype=int),
+                                         (body[:, None] + np.arange(4)).ravel(),
+                                         np.asarray(tail, dtype=int)])
+                    assert xs.size == length
+                    g, _, s = jrs_entries(kind, p, xs - first, slab_len, L, J_, F_, lin,
+                                               e_cos, e_sin, e_vel)
+                    np.add.at(count[name], xs, 1)
+                    slab[name][xs] = wt0 + g if kind != "zero" else want[name][0][xs]
+                    src[name][xs] = s
+        for name, (w_slab, w_src) in want.items():
+            assert (count[name] == 1).all(), (name, align)
+            np.testing.assert_array_equal(slab[name], w_slab, err_msg=name)
+            np.testing.assert_array_equal(src[name], w_src, err_msg=name)
+    # each thread's stepped (slab, row, column) is its float4's by division,
+    # and a float4 in one row outside the row's window holds zeros only
+    for name, first, length, slab_len, L, kind, p in jrs_segments(
+            J_, F_, B_, E_, WT, 0, min(G, WT)):
+        if kind == "zero":
+            continue
+        lo, hi = jrs_window(kind, p, F_, lin, e_cos, e_sin, e_vel)
+        for align in range(4):
+            head, body, _ = jrs_stores(first, length, align)
+            i, g, r, c = np.array([st for walk in jrs_walk(len(head), len(body), slab_len, L)
+                                   for st in walk]).T
+            x = len(head) + 4 * i
+            np.testing.assert_array_equal(np.stack([g, r, c]), np.stack(
+                [x // slab_len, x % slab_len // L, x % L]), err_msg=name)
+            zero = ((c > hi) | (c + 3 < lo)) & (c + 3 < L)
+            xs = (x[zero][:, None] + np.arange(4)).ravel()
+            _, _, s = jrs_entries(kind, p, xs, slab_len, L, J_, F_, lin, e_cos, e_sin, e_vel)
+            assert (s == -1).all(), name
+
+
+def test_jrs_writer_constants_match_the_sources():
+    """JRS_MAX_G, the kinds' order, the threads and the register caps of
+    K11 / K12, and their launchers' (G, blocks) parameters."""
+
+    tail = _source("jrs_tail.cuh")
+    assert _define(tail, "JRS_MAX_G") == kjrs.MAX_G
+    kinds = ("JRS_R_COEF", "JRS_R_EGEN", "JRS_ZERO", "JRS_V_COEF", "JRS_V_EGEN")
+    names = {"JRS_R_COEF": "R_coef", "JRS_R_EGEN": "R_egen", "JRS_V_COEF": "v_coef",
+             "JRS_V_EGEN": "v_egen", "JRS_ZERO": "zero"}
+    assert sorted(KINDS) == sorted(names[k] for k in kinds)
+    for src, k in (("jrs_armtd.cu", "K11"), ("jrs_bernstein.cu", "K12")):
+        text = _source(src)
+        assert _define(text, f"{k}_THREADS") == kjrs.THREADS
+        assert _define(text, f"{k}_BLOCKS_PER_SM") == kjrs.BLOCKS_PER_SM
+        assert re.search(r'extern "C" int %s_launch\(const %sArgs\* args, int G, int blocks, '
+                         r'void\* stream\)' % (k.lower(), k), text), src
+        assert "jrs_write_slabs(o, wt0, n, sl);" in text and "sl.lin[threadIdx.x] = a.lin" in text
+    # G (slabs) x (J + 1) joints: one pass of a block's threads forms them
+    assert kjrs.MAX_G * 10 <= kjrs.THREADS
+    # the slabs' shared memory: four blocks an SM within the H100's 228 KB
+    slabs = 4 * kjrs.MAX_G * (10 * 4 * 9 + 3 * 3 * 8) + 4 * 8
+    assert kjrs.BLOCKS_PER_SM * slabs <= 233472 and slabs <= 48 * 1024
