@@ -25,11 +25,11 @@ from .rnea_numeric import rnea
 from .robot import RobotModel
 
 
-def _perturbation_taus(robot: RobotModel, q, qd, qd_aux, qdd):
-    """tau contribution of each link's +-uncertainty direction: [2J, ..., F]
-    (the J mass directions, then the J inertia directions)."""
+def _directions(robot: RobotModel, dt, dev):
+    """The 2J uncertainty directions: masses [2J, J] (the J mass directions,
+    then zeros) and inertias [2J, J, 3, 3] (zeros, then the J inertia
+    directions)."""
     J = robot.num_joints
-    dt, dev = q.dtype, q.device
     mass = torch.as_tensor(robot.mass, dtype=dt).to(dev)
     inertia = torch.as_tensor(robot.inertia, dtype=dt).to(dev)
     mass_dirs = torch.diag(mass * robot.mass_uncertainty)                        # [J, J]
@@ -37,15 +37,49 @@ def _perturbation_taus(robot: RobotModel, q, qd, qd_aux, qdd):
     eye = torch.eye(J, dtype=dt, device=dev)
     inertia_dirs = eye[:, :, None, None] * inertia[None] * robot.inertia_uncertainty
     inertia_b = torch.cat([torch.zeros_like(inertia_dirs), inertia_dirs], 0)    # [2J, J, 3, 3]
+    return mass_b, inertia_b
+
+
+def _controller_taus(robot: RobotModel, q, qd, qd_ref, qdd_ref, r=None, rotations=None):
+    """The controller's RNEAs at one q as one batched call over 1 + 2J
+    chains (2 + 4J with r), which share q's rotations: tau = rnea(q, qd,
+    qd_ref, qdd_ref), and pert [2J, ..., F], the tau contribution of each
+    of the 2J uncertainty directions of _directions at the same point
+    (armour_tpu/controller.py _perturbation_taus: gravity on, armature off);
+    with r also the Lyapunov pass rnea(q, 0, 0, r; no gravity) and pert_r,
+    the directions' contributions at (q, 0, 0, r).  Each chain's arithmetic
+    is its own call's; returns (tau, pert[, mr, pert_r])."""
+    J = robot.num_joints
+    dt, dev = q.dtype, q.device
+    mass_b, inertia_b = _directions(robot, dt, dev)
+    mass = torch.as_tensor(robot.mass, dtype=dt).to(dev)[None]
+    inertia = torch.as_tensor(robot.inertia, dtype=dt).to(dev)[None]
+    n = 1 + 2 * J
+    masses, inertias = [mass, mass_b], [inertia, inertia_b]
+    grav, arm = [1.0] + [1.0] * (2 * J), [1.0] + [0.0] * (2 * J)
+    qds, qas, qdds = [qd], [qd_ref], [qdd_ref]
+    if r is not None:
+        z = torch.zeros_like(q)
+        masses, inertias = masses * 2, inertias * 2
+        grav, arm = grav + [0.0] + [1.0] * (2 * J), arm * 2
+        qds, qas, qdds = [qd, z], [qd_ref, z], [qdd_ref, r]
     lead = (1,) * (q.dim() - 1)
-    mass_b = mass_b.reshape((2 * J,) + lead + (J,))
-    inertia_b = inertia_b.reshape((2 * J,) + lead + (J, 3, 3))
 
-    def b(x):
-        return x.expand((2 * J,) + x.shape)
+    def chains(xs):
+        return torch.cat([x.expand((n,) + x.shape) for x in xs])
 
-    return rnea(robot, b(q), b(qd), b(qd_aux), b(qdd), mass=mass_b, inertia=inertia_b,
-                set_gravity=True, include_armature=False)
+    def per_chain(xs, tail):
+        return torch.cat(xs).reshape((-1,) + lead + tail)
+
+    def flag(v):
+        return torch.as_tensor(v, dtype=dt).to(dev).reshape((-1,) + lead)
+
+    out = rnea(robot, q, chains(qds), chains(qas), chains(qdds),
+               mass=per_chain(masses, (J,)), inertia=per_chain(inertias, (J, 3, 3)),
+               set_gravity=flag(grav), include_armature=flag(arm), rotations=rotations)
+    if r is None:
+        return out[0], out[1:n]
+    return out[0], out[1:n], out[n], out[n + 1:]
 
 
 def _refs(cfg: ArmourConfig, q, qd, q_des, qd_des, qdd_des):
@@ -55,22 +89,20 @@ def _refs(cfg: ArmourConfig, q, qd, q_des, qd_des, qdd_des):
     return err, derr, qd_des + k_r * err, qdd_des + k_r * derr, derr + k_r * err
 
 
-def robust_control(robot: RobotModel, cfg: ArmourConfig, q, qd, q_des, qd_des, qdd_des):
-    """(u, tau, v): control input u = tau_nominal + robust term v."""
+def robust_control(robot: RobotModel, cfg: ArmourConfig, q, qd, q_des, qd_des, qdd_des, *,
+                   rotations=None):
+    """(u, tau, v): control input u = tau_nominal + robust term v.
+    rotations: joint_rotations(robot, q), where the caller has them."""
     ub = cfg.ub
     _, _, qd_ref, qdd_ref, r = _refs(cfg, q, qd, q_des, qd_des, qdd_des)
 
-    tau = rnea(robot, q, qd, qd_ref, qdd_ref)
-    pert = _perturbation_taus(robot, q, qd, qd_ref, qdd_ref)        # [2J, ..., F]
+    # tau, the perturbations at (qd, qd_ref, qdd_ref) [2J, ..., F], and the
+    # interval Lyapunov's passes: V = 0.5 r^T M(q) r with M (armature
+    # included) from rnea(qdd = r, no gravity), its perturbations [2J, ..., F]
+    tau, pert, mr, v_pert = _controller_taus(robot, q, qd, qd_ref, qdd_ref, r, rotations)
     dist_sup = pert.abs().sum(0)                                    # [..., F]
     rho = (r.abs() * dist_sup).sum(-1)
-
-    # interval Lyapunov: V = 0.5 r^T M(q) r with M (armature included) from
-    # rnea(qdd = r, no gravity)
-    z = torch.zeros_like(q)
-    v_nom = 0.5 * (r * rnea(robot, q, z, z, r, set_gravity=False,
-                            include_armature=True)).sum(-1)
-    v_pert = _perturbation_taus(robot, q, z, z, r)                  # [2J, ..., F]
+    v_nom = 0.5 * (r * mr).sum(-1)
     v_sup = v_nom + 0.5 * (v_pert * r).sum(-1).abs().sum(0)
     h = ub.v_max - v_sup
 
@@ -82,10 +114,10 @@ def robust_control(robot: RobotModel, cfg: ArmourConfig, q, qd, q_des, qd_des, q
 
 
 def nominal_passivity_control(robot: RobotModel, cfg: ArmourConfig,
-                              q, qd, q_des, qd_des, qdd_des):
+                              q, qd, q_des, qd_des, qdd_des, *, rotations=None):
     """Ablation controller: the nominal passivity RNEA only."""
     _, _, qd_ref, qdd_ref, _ = _refs(cfg, q, qd, q_des, qd_des, qdd_des)
-    return rnea(robot, q, qd, qd_ref, qdd_ref)
+    return rnea(robot, q, qd, qd_ref, qdd_ref, rotations=rotations)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +134,7 @@ ALTHOFF_DEFAULT = AlthoffGains()
 
 def althoff_control(robot: RobotModel, cfg: ArmourConfig, q, qd,
                     q_des, qd_des, qdd_des, e_acc, dt,
-                    gains: AlthoffGains = ALTHOFF_DEFAULT):
+                    gains: AlthoffGains = ALTHOFF_DEFAULT, *, rotations=None):
     """Giusti-Althoff PI-adaptive robust comparison controller:
 
         phi(t)   = Kp[0] + Ki[0] E(t);  kappa(t) = Kp[1] + Ki[1] E(t)
@@ -113,8 +145,7 @@ def althoff_control(robot: RobotModel, cfg: ArmourConfig, q, qd,
     (u, tau, v, e_acc_new); e_acc [...] is carried through the rollout."""
     err, derr, qd_ref, qdd_ref, r = _refs(cfg, q, qd, q_des, qd_des, qdd_des)
 
-    tau = rnea(robot, q, qd, qd_ref, qdd_ref)
-    pert = _perturbation_taus(robot, q, qd, qd_ref, qdd_ref)
+    tau, pert = _controller_taus(robot, q, qd, qd_ref, qdd_ref, rotations=rotations)
     bound_norm = torch.linalg.vector_norm(pert.abs().sum(0), dim=-1)
 
     state_err = torch.sqrt((err * err).sum(-1) + (derr * derr).sum(-1))

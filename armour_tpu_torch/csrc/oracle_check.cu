@@ -48,13 +48,18 @@
 //     of ones needs no read).  k6_launch zeroes the one output buffer
 //     (counts, then flags) with one cudaMemsetAsync before the kernel; no
 //     block zeroes anything.
+// Up to K6_MAXJ = 9 links: the grasp path's Kinova with the dumbbell has 9
+// bodies, the last two on fixed joints (F = 7): their frames follow the
+// chain with the identity axis rotation and their boxes are tested like the
+// others; the joint flags cover the F logged joints.  The staged frames take
+// 4 (9 x 27 x 32 + 32 O) bytes of dynamic shared memory, 36,224 at O = 40.
 // Each axis test repeats the plain version's float32 arithmetic up to the
 // order of 3-term sums, in the same order as the first design (one thread per
 // (world, step, link)), so the flags and counts are the same bits as before.
 // Built with -fmad=false and no fast math.
 #include <cuda_runtime.h>
 
-#define K6_MAXJ 8
+#define K6_MAXJ 9
 #define K6_STEPS 32            // logged steps of a chunk: one per lane
 #define K6_THREADS 256
 #define K6_WARPS (K6_THREADS / 32)

@@ -46,8 +46,11 @@
 // kernels/sim.py:k5_geometry, so that the 2 + 4J + F chains of a step run
 // in one round) are template parameters and every joint loop is unrolled
 // to J; F <= J stays a runtime bound, tested inside those loops, so every
-// per-joint array is indexed by a constant and lives in registers (nine
-// instantiations instead of 36 keep the build short).  The robot is a
+// per-joint array is indexed by a constant and lives in registers (ten
+// instantiations instead of 45 keep the build short).  J = 9 is the grasp
+// path's Kinova with the dumbbell (F = 7, its last two bodies fixed): 45
+// chains on 64 lanes; a fixed joint past F has the identity axis rotation
+// and no torque, as in rnea_numeric.py.  The robot is a
 // __grid_constant__ parameter, read in place.  One block of NL threads per
 // world; per control step:
 //   1. lane f forms joint f's measured state and references, lanes 0..J-1
@@ -78,7 +81,7 @@
 // only for |angle| > 105615 rad).
 #include <cuda_runtime.h>
 
-#define K5_MAXJ 8
+#define K5_MAXJ 9
 #define K5_FULL 0xffffffffu
 
 struct K5Robot {
@@ -639,6 +642,7 @@ extern "C" int k5_launch(const K5Args* args, int lanes, void* stream) {
     switch (J) {
       case 7: return k5_go<7, 64>(args, stream);
       case 8: return k5_go<8, 64>(args, stream);
+      case 9: return k5_go<9, 64>(args, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -20,7 +20,7 @@ from . import H100_SMS, launched, record
 from .build import launcher
 from .collision import _require, _stream
 
-MAXJ = 8
+MAXJ = 9                  # joints of the closed-loop kernels (the dumbbell's 9 bodies)
 K5_LANES = (32, 64)       # threads per world of K5 (rollout.cu's instantiations)
 K6_STEPS = 32             # logged steps of a K6 chunk, one per lane (csrc/oracle_check.cu)
 K6_THREADS = 256

@@ -13,6 +13,7 @@ that the plain closed loop on the card makes few launches per call.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .robot import RobotModel
@@ -38,7 +39,9 @@ def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a, b = torch.broadcast_tensors(a, b)
+    """a x b over the last axis, for operands of one shape (torch's fast
+    path: linalg.cross broadcasting its operands costs three times as much
+    on small tensors)."""
     return torch.linalg.cross(a, b, dim=-1)
 
 
@@ -46,8 +49,6 @@ def _axis_patterns(robot: RobotModel):
     """Per joint: the constant matrices C, S, K with Rot_axis(th) =
     cos(th) C + sin(th) S + K, and the sign of each joint angle.  A fixed
     joint (or one past num_factors) is C = S = 0, K = I."""
-    import numpy as np
-
     J = robot.num_joints
     C = np.zeros((J, 3, 3))
     S = np.zeros((J, 3, 3))
@@ -70,6 +71,16 @@ def _axis_patterns(robot: RobotModel):
             S[i, b, c], S[i, c, b] = -1.0, 1.0
         sgn[i] = 1.0 if axis > 0 else -1.0
     return C, S, K, sgn
+
+
+def _unit_axes(robot: RobotModel):
+    """Per joint its signed unit axis [J, 3] (a zero row for a fixed joint or
+    one past num_factors)."""
+    E = np.zeros((robot.num_joints, 3))
+    for i, axis in enumerate(int(a) for a in robot.axes):
+        if axis != 0 and i < robot.num_factors:
+            E[i, abs(axis) - 1] = 1.0 if axis > 0 else -1.0
+    return E
 
 
 def joint_rotations(robot: RobotModel, q: torch.Tensor) -> torch.Tensor:
@@ -102,81 +113,109 @@ def forward_kinematics(robot: RobotModel, q: torch.Tensor):
     return torch.stack(R_out, -3), torch.stack(p_out, -2), torch.stack(c_out, -2)
 
 
+def _flag(x, like: torch.Tensor):
+    """A per-chain switch: a bool, or a 0 / 1 tensor broadcasting against the
+    batch dims (as a float multiplier)."""
+    return bool(x) if isinstance(x, bool) else _const(x, like)
+
+
 def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=None,
-         set_gravity: bool = True, include_armature: bool = True, wrench_at=None):
+         set_gravity=True, include_armature=True, wrench_at=None, rotations=None):
     """Passivity-form RNEA torque [..., F].  mass/com/inertia default to the
     robot's nominal values; pass perturbed tensors for true-parameter or
     sensitivity evaluations.  wrench_at: a chain index; then the backward
     recursion's wrench (f, n) [..., 3] at that body is returned too,
-    (tau, f, n) (the contact wrench's ground truth for grasp.py)."""
-    J = robot.num_joints
+    (tau, f, n) (the contact wrench's ground truth for grasp.py).
+
+    Port-only: rotations, joint_rotations(robot, q) when the caller already
+    has them (broadcasting against the batch dims); set_gravity and
+    include_armature may be 0 / 1 tensors over the batch dims, so that
+    chains differing in them run as one batched call.  Every chain's
+    arithmetic is the per-chain call's: the link wrenches are formed for all
+    links at once after the forward recursion, and the quantities one
+    rotation moves are moved together."""
+    J, F = robot.num_joints, robot.num_factors
     mass = _const(robot.mass if mass is None else mass, q)
     com = _const(robot.com if com is None else com, q)
     inertia = _const(robot.inertia if inertia is None else inertia, q)
-    trans = _const(robot.trans, q)
-    batch = q.shape[:-1]
-    Rs = joint_rotations(robot, q)
+    Rs = joint_rotations(robot, q) if rotations is None else rotations
+    grav, arm = _flag(set_gravity, q), _flag(include_armature, q)
+    batch = torch.broadcast_shapes(
+        q.shape[:-1], qd.shape[:-1], qd_aux.shape[:-1], qdd.shape[:-1], mass.shape[:-1],
+        com.shape[:-2], inertia.shape[:-3], Rs.shape[:-3],
+        *(x.shape for x in (grav, arm) if isinstance(x, torch.Tensor)))
+
+    def full(x, trailing):
+        return x.expand(batch + x.shape[x.dim() - trailing:])
+
+    # one shape for every operand of a cross product (torch's fast path)
+    Rs = full(Rs, 3).unbind(-3)
+    trans = full(_const(robot.trans, q), 2).unbind(-2)
+    com = full(com, 2)
+    qd, qd_aux, qdd = full(qd, 1), full(qd_aux, 1), full(qdd, 1)
 
     zero3 = torch.zeros(batch + (3,), dtype=q.dtype, device=q.device)
     w, w_aux, wdot = zero3, zero3, zero3
     lin_acc = zero3
-    if set_gravity:
+    if grav is not False:
         lin_acc = zero3.clone()
-        lin_acc[..., 2] = robot.gravity
-
-    Fs, Ns = [], []
+        lin_acc[..., 2] = robot.gravity if grav is True else robot.gravity * grav
+    units = _const(_unit_axes(robot), q)
+    E = units.unbind(0)
+    accs, ws, w_auxs, wdots = [], [], [], []
     for i in range(J):
-        R = Rs[..., i, :, :]
-        lin_acc = _mtv(R, lin_acc + _cross(wdot, trans[i]) + _cross(w, _cross(w_aux, trans[i])))
-        w = _mtv(R, w)
-        w_aux = _mtv(R, w_aux)
-        wdot = _mtv(R, wdot)
-        axis = int(robot.axes[i])
-        if axis != 0 and i < robot.num_factors:
-            ax = abs(axis) - 1
-            e = torch.zeros(3, dtype=q.dtype, device=q.device)
-            e[ax] = 1.0 if axis > 0 else -1.0
-            w = w + e * qd[..., i, None]
-            wdot = wdot + _cross(w_aux, e * qd[..., i, None]) + e * qdd[..., i, None]
+        pre = lin_acc + _cross(wdot, trans[i]) + _cross(w, _cross(w_aux, trans[i]))
+        lin_acc, w, w_aux, wdot = _mtv(Rs[i][..., None, :, :],
+                                       torch.stack([pre, w, w_aux, wdot], -2)).unbind(-2)
+        if int(robot.axes[i]) != 0 and i < F:
+            e = E[i]
+            eq = e * qd[..., i, None]
+            w = w + eq
+            wdot = wdot + _cross(w_aux, eq) + e * qdd[..., i, None]
             w_aux = w_aux + e * qd_aux[..., i, None]
-        mb = mass[..., i]
-        cb = com[..., i, :]
-        Ib = inertia[..., i, :, :]
-        Fs.append(mb[..., None] * (lin_acc + _cross(wdot, cb) + _cross(w, _cross(w_aux, cb))))
-        Ns.append(_mv(Ib, wdot) + _cross(w_aux, _mv(Ib, w)))
+        accs.append(lin_acc)
+        ws.append(w)
+        w_auxs.append(w_aux)
+        wdots.append(wdot)
+    acc, w, w_aux, wdot = (torch.stack(x, -2) for x in (accs, ws, w_auxs, wdots))
+    inertia = full(inertia, 3)
+    Fs = full(mass, 1)[..., None] * (acc + _cross(wdot, com) + _cross(w, _cross(w_aux, com)))
+    Ns = _mv(inertia, wdot) + _cross(w_aux, _mv(inertia, w))
+    CF = _cross(com, Fs).unbind(-2)
+    Fs, Ns = Fs.unbind(-2), Ns.unbind(-2)
 
     f, n = zero3, zero3
-    taus = [None] * robot.num_factors
+    ns = [None] * J
     wrench = None
     for i in reversed(range(J)):
-        cb = com[..., i, :]
         if i + 1 < J:
-            R_ip1 = Rs[..., i + 1, :, :]
-            rf, rn = _mv(R_ip1, f), _mv(R_ip1, n)
+            rf, rn = _mv(Rs[i + 1][..., None, :, :], torch.stack([f, n], -2)).unbind(-2)
         else:
             rf, rn = f, n
-        n = Ns[i] + rn + _cross(cb, Fs[i]) + _cross(trans[i + 1], rf)
+        n = Ns[i] + rn + CF[i] + _cross(trans[i + 1], rf)
         f = rf + Fs[i]
         if wrench_at is not None and i == wrench_at:
             wrench = (f, n)
-        axis = int(robot.axes[i])
-        if axis != 0 and i < robot.num_factors:
-            tau = (1.0 if axis > 0 else -1.0) * n[..., abs(axis) - 1]
-            if include_armature:
-                tau = tau + float(robot.armature[i]) * qdd[..., i]
-            if robot.damping[i] != 0.0:
-                tau = tau + float(robot.damping[i]) * qd[..., i]
-            taus[i] = tau
-    out = torch.stack(taus, -1)
+        ns[i] = n
+    # every joint i < F is actuated: tau_i = sign_i n_i[axis_i], the one
+    # non-zero term of the sum with its signed unit axis
+    tau = (torch.stack(ns[:F], -2) * units[:F]).sum(-1)
+    if arm is not False:
+        a = _const(robot.armature[:F], q)
+        tau = tau + (a if arm is True else a * arm[..., None]) * qdd[..., :F]
+    damping = robot.damping[:F]
+    if any(d != 0.0 for d in damping):
+        tau = tau + _const(damping, q) * qd[..., :F]
     if wrench_at is not None:
-        return out, wrench[0], wrench[1]
-    return out
+        return tau, wrench[0], wrench[1]
+    return tau
 
 
 def mass_matrix(robot: RobotModel, q, *, mass=None, com=None, inertia=None,
-                include_armature: bool = True):
+                include_armature: bool = True, rotations=None):
     """M(q) [..., F, F], columnwise via one RNEA over the F unit
-    accelerations.  Overrides with a batch shape get a direction axis."""
+    accelerations.  Overrides with a batch shape get a direction axis.
+    rotations: joint_rotations(robot, q), where the caller has them."""
     F = robot.num_factors
     eye = torch.eye(F, dtype=q.dtype, device=q.device)
     bq = q[..., None, :].expand(q.shape[:-1] + (F, F))
@@ -191,11 +230,14 @@ def mass_matrix(robot: RobotModel, q, *, mass=None, com=None, inertia=None,
 
     cols = rnea(robot, bq, bz, bz, bqdd, mass=_dir(mass, 1), com=_dir(com, 2),
                 inertia=_dir(inertia, 3), set_gravity=False,
-                include_armature=include_armature)
+                include_armature=include_armature,
+                rotations=None if rotations is None else rotations.unsqueeze(-4))
     return cols.transpose(-1, -2)
 
 
-def coriolis_gravity(robot: RobotModel, q, qd, *, mass=None, com=None, inertia=None):
-    """C(q, qd) qd + g(q), the combined bias torque."""
+def coriolis_gravity(robot: RobotModel, q, qd, *, mass=None, com=None, inertia=None,
+                     rotations=None):
+    """C(q, qd) qd + g(q), the combined bias torque (rotations as in rnea)."""
     return rnea(robot, q, qd, qd, torch.zeros_like(q), mass=mass, com=com,
-                inertia=inertia, set_gravity=True, include_armature=False)
+                inertia=inertia, set_gravity=True, include_armature=False,
+                rotations=rotations)

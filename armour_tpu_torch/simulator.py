@@ -33,7 +33,7 @@ from .config import ArmourConfig
 from .controller import (ALTHOFF_DEFAULT, AlthoffGains, althoff_control,
                          nominal_passivity_control, robust_control)
 from .planner import resolve_device
-from .rnea_numeric import coriolis_gravity, forward_kinematics, mass_matrix
+from .rnea_numeric import coriolis_gravity, forward_kinematics, joint_rotations, mass_matrix
 from .robot import RobotModel
 from .trajectory import PlanRef, advance_plan, desired_state, initial_plan
 from .worlds import World, straight_line_waypoint, world_goal_check
@@ -106,24 +106,29 @@ def rollout_plain(robot: RobotModel, cfg: ArmourConfig, q, qd, q_des, qd_des, qd
         if noise is not None:
             q_m = q + noise[:, i, 0]
             qd_m = qd + noise[:, i, 1]
+        # the joint rotations at q serve the mass matrix, the first RK4
+        # stage and, without noise, the controller
+        R_q = joint_rotations(robot, q)
+        R_m = R_q if noise is None else None
         if controller == "robust":
-            u, _, _ = robust_control(robot, cfg, q_m, qd_m, qr, qdr, qddr)
+            u, _, _ = robust_control(robot, cfg, q_m, qd_m, qr, qdr, qddr, rotations=R_m)
         elif controller == "nominal":
-            u = nominal_passivity_control(robot, cfg, q_m, qd_m, qr, qdr, qddr)
+            u = nominal_passivity_control(robot, cfg, q_m, qd_m, qr, qdr, qddr,
+                                          rotations=R_m)
         else:
             u, _, _, e_acc = althoff_control(robot, cfg, q_m, qd_m, qr, qdr, qddr,
-                                             e_acc, control_dt, gains)
+                                             e_acc, control_dt, gains, rotations=R_m)
 
         # M(q) varies slowly: once per control step, held across the stages
         # (inv_ex: no host synchronisation on the card)
-        M_inv = torch.linalg.inv_ex(mass_matrix(robot, q, **kw)).inverse
+        M_inv = torch.linalg.inv_ex(mass_matrix(robot, q, **kw, rotations=R_q)).inverse
 
-        def ode(qq, qqd):
-            rhs = u - coriolis_gravity(robot, qq, qqd, **kw)
+        def ode(qq, qqd, R=None):
+            rhs = u - coriolis_gravity(robot, qq, qqd, **kw, rotations=R)
             return qqd, (M_inv * rhs[..., None, :]).sum(-1)
 
-        for _ in range(substeps):
-            k1 = ode(q, qd)
+        for sub in range(substeps):
+            k1 = ode(q, qd, R_q if sub == 0 else None)
             k2 = ode(q + 0.5 * h * k1[0], qd + 0.5 * h * k1[1])
             k3 = ode(q + 0.5 * h * k2[0], qd + 0.5 * h * k2[1])
             k4 = ode(q + h * k3[0], qd + h * k3[1])

@@ -3,9 +3,10 @@ iterations of the lockstep closed loop, a rescue-profile solve, the
 real-time planner, the containment of sampled true states in the chain
 kernels' sets, the two entry points plan_from_armour_in and the rest-FRS
 solvability checker, three iterations of a hard scenario, the ARMTD
-(constant-acceleration) trajectory family end to end, and the grasp path
+(constant-acceleration) trajectory family end to end, the grasp path
 (the Kinova with the dumbbell payload, contact rows on) with a step of
-every zoo robot.
+every zoo robot, and the closed loop of the grasp path and of the zoo
+(the tray trial, the dumbbell at the full width, every zoo robot).
 
     python3 chip_smoke.py
 
@@ -144,13 +145,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and bound, the reach sets' window from K10 to K3 (K15 and K16 alone);
      the same step with the tight contact parameters (1e-4, 1e-4), which
      must leave every world infeasible (NaN k); then a W = 8 step of every
-     zoo robot (the UR5 with F = 6 included), counted, every kernel call of
-     it against its plain version (K7 / K8 at F = 6, K9 / K10 at F < J),
-     its verdicts against the same step through the port on the CPU (at
-     most one flip), each feasible k certified by the plain full-set check,
+     zoo robot (the UR5 with F = 6 included), counted, the first call of
+     each kernel and shape in it against its plain version (K7 / K8 at F =
+     6, K9 / K10 at F < J), its verdicts against the same step through the
+     port on the CPU (at most one flip), each feasible k certified by the plain full-set check,
      the groups over their thresholds printed for the infeasible worlds,
      and the step again with the torque rows off (the JAX package's zoo
      test's setting), its feasible k certified too.
+  14. the closed loop at J = 9 and F < J, K5 and K6 on the dumbbell's nine
+     bodies: (i) the tray trial of tests/test_grasp.py:194-227 through
+     simulator.run_trial on the card (T = 16, O = 8, K = 256, V_max 5e-4,
+     contact (1.5, 0.5), worst-case true parameters from rng 0, 8
+     iterations), which must reach its goal with no safety flag; (ii) the
+     dumbbell's closed loop over phase 13's 64 scenes at the full width with
+     grasp rows, as phase 5 runs the flagship's (3 lockstep iterations,
+     straight guidance with rescue, worst-case true parameters), every
+     kernel of the grasp step, K5 and K6 counted, its K5 / K6 calls held
+     against their plain versions as in phase 6 (the whole move and its
+     three 100-step variants; K6 also on the planted copies), timed, with
+     K5's bound: the dumbbell's numbers in the K5 / K6 rows of the kernels
+     line; (iii) a W = 8 closed loop of every zoo robot for 2 iterations
+     (phase 13's postures and scenes, a goal 0.2 rad a joint away; K5 / K6
+     at F < J on the Fetch arm and the dumbbell, at F = 6 on the UR5; the
+     worst-case true parameters on the robots whose ultimate bound is
+     certified, the nominal ones on the others, which leave their bound
+     under model error in both packages: tests/test_torch_zoo.py's
+     test_holding_still_under_model_error_matches_jax), with the worlds
+     that moved and the feasible plans printed.  In (i)-(iii) the first
+     K5 / K6 call of each shape is held against its plain version (the
+     later iterations' calls are counted, not compared).  No world may
+     raise a safety flag, and K5 and K6 launch once an iteration.
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -220,6 +244,10 @@ GRASP_V_MAX = 5e-4       # phase 13: the dumbbell's V_max (tests/test_grasp.py:1
 GRASP_PERMISSIVE = (1.5, 0.5)   # (mu, support radius), tests/test_grasp.py:175
 GRASP_TIGHT = (1e-4, 1e-4)      # tests/test_grasp.py:178
 N_ZOO = 8                # worlds of each zoo robot's step in phase 13
+TRAY_ITERATIONS = 8      # phase 14 (i): tests/test_grasp.py:221
+ZOO_LOOP_ITERATIONS = 2  # phase 14 (iii): each zoo robot's closed loop at W = N_ZOO
+ZOO_GOAL_STEP = 0.2      # rad per joint from each zoo start to its goal there
+ZOO_MOVED = 1e-3         # rad: a phase 14 (iii) world moved if a joint went further
 
 
 def fail(msg: str) -> None:
@@ -1661,9 +1689,10 @@ def closed_loop_phase(robot, cfg, dev):
     return launches, keep, stats, t_loop, buckets
 
 
-def closed_loop_kernel_rows(robot, cfg, launches, inputs, dev):
-    """Phase 6: the K5 and K6 rows of the kernels line."""
-    print("phase 6: K5 and K6 against their plain versions on the recorded inputs")
+def closed_loop_kernel_rows(robot, cfg, launches, inputs, dev, label="phase 6"):
+    """Phase 6 (and phase 14 (ii) at J = 9): the K5 and K6 rows of the
+    kernels line."""
+    print(f"{label}: K5 and K6 against their plain versions on the recorded inputs")
     inp = inputs["rollout"]
     ok5, err5, ms5, pms5, bytes5 = check_rollout(robot, cfg, inp, dev, "robust", timed=True)
     for label, x in rollout_variants(inp, dev, K5_VARIANT_STEPS):
@@ -2745,9 +2774,9 @@ def zoo_steps(dev) -> dict:
     for_robot: the cached ultimate bound, the full width), from mid-range
     postures seeded around the joint boxes' centres toward a goal 0.05 rad
     away, among the obstacles of the first N_ZOO saved worlds.  The first
-    call records every kernel call, each held against its plain version
-    (K7 / K8 at the UR5's F = 6, K9 / K10 at the Fetch arm's and the
-    dumbbell's F < J among them); the second is counted: every kernel of a
+    call records the first call of each kernel and shape, each held against
+    its plain version (K7 / K8 at the UR5's F = 6, K9 / K10 at the Fetch
+    arm's and the dumbbell's F < J among them); the second is counted: every kernel of a
     Bernstein step must launch, K16 not.  Witnesses of the verdicts: the
     same step through the port on the CPU (plain versions) must agree on
     feasibility with at most one flip; every feasible k passes the plain
@@ -3011,6 +3040,217 @@ def grasp_phase(dev) -> tuple:
     return k16, perf
 
 
+def _flagged(summaries) -> list:
+    return [i for i, s in enumerate(summaries)
+            if s.collision or s.torque_exceeded or s.ultimate_bound_exceeded
+            or s.joint_limit_exceeded]
+
+
+def check_loop_calls(robot, cfg, captured, dev, label) -> float:
+    """The K5 / K6 calls a closed loop recorded (the first of each shape:
+    kernels.capture) against their plain versions on the same inputs (K5
+    over the whole move with K5's tolerances, K6's flags exactly and its
+    overlap counts up to the triples within K6_MARGIN of the boundary),
+    untimed; fails on a mismatch or if either kernel was
+    not recorded.  Returns the largest difference."""
+    err, seen = 0.0, set()
+    for (name, key), inp in captured.items():
+        if name == "rollout":
+            ok, e, _, _, _ = check_rollout(robot, cfg, inp, dev, label, timed=False)
+        elif name == "oracle_check":
+            ok, fp, ok_, op, diff, amb = oracle_agreement(robot, cfg, inp)
+            e = float(diff.max())
+            Wn, N, _ = inp["q"].shape
+            print(f"  oracle_check {label} [{Wn} worlds x {N} steps x {robot.num_joints} links "
+                  f"x {inp['mask'].shape[1]} obstacles]: {'ok' if ok else 'MISMATCH'} (worlds "
+                  f"flagged by the plain version {fp.sum(0).tolist()}; overlaps kernel "
+                  f"{int(ok_.sum())} plain {int(op.sum())}, triples within {K6_MARGIN} m of "
+                  f"the boundary {int(amb.sum())})")
+        else:
+            continue
+        seen.add(name)
+        if not ok:
+            fail(f"{label}: {name} {key} disagrees with its plain version")
+        err = max(err, e)
+    if seen != {"rollout", "oracle_check"}:
+        fail(f"{label}: K5 / K6 calls recorded: {sorted(seen)}")
+    return err
+
+
+def zoo_loop_worlds(robot, q0, scenes_) -> tuple:
+    """Worlds from start postures q0 [W, F] toward goals ZOO_GOAL_STEP rad a
+    joint away among the scenes' obstacles, less those that overlap one of
+    the robot's link boxes at its start (a trial starts collision-free):
+    (worlds, obstacles dropped)."""
+    from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+    from armour_tpu_torch.worlds import World
+
+    n_obs = max(len(w.obstacle_centers) for w in scenes_)
+    obs = stack_obstacles([pad_obstacles(w.obstacle_centers, w.obstacle_generators, n_obs,
+                                         torch.float64) for w in scenes_])
+    margins = link_obstacle_margins(robot, torch.as_tensor(q0)[:, None], obs)   # [W, 1, J, O]
+    clear = (margins > 0).flatten(1, 2).all(1)                                   # [W, O]
+    worlds, dropped = [], 0
+    for i, w in enumerate(scenes_):
+        keep = clear[i, :len(w.obstacle_centers)].numpy()
+        dropped += int((~keep).sum())
+        worlds.append(World(start=q0[i], goal=q0[i] + ZOO_GOAL_STEP,
+                            obstacle_centers=w.obstacle_centers[keep],
+                            obstacle_generators=w.obstacle_generators[keep]))
+    return worlds, dropped
+
+
+def grasp_loop_phase(dev) -> tuple:
+    """Phase 14: the closed loop at J = 9 and F < J (see the module
+    docstring).  Returns (the dumbbell's K5 and K6 rows at W = 64, numbers)."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.batch_sim import run_trials_batched
+    from armour_tpu_torch.collision import pad_obstacles
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
+    from armour_tpu_torch.kernels import sim as ksim
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import make_planner
+    from armour_tpu_torch.simulator import run_trial, sample_true_params
+    from armour_tpu_torch.utils.timing import wall_s
+    from armour_tpu_torch.worlds import World, load_world_csv
+
+    robot = zoo.kinova_dumbbell()
+    J, F = robot.num_joints, robot.num_factors
+    ub = derive_ultimate_bound(robot, v_max=GRASP_V_MAX)
+    mu, rr = GRASP_PERMISSIVE
+    grasp = dict(derive_ub=False, ub=ub, dtype=torch.float32, grasp_constraints=True,
+                 grasp_mu=mu, grasp_support_radius=rr)
+    out = {}
+
+    # (i) the tray trial: tests/test_grasp.py:194-227 on the card
+    cfg_t = ArmourConfig.for_robot(robot, num_time_steps=16, max_obstacles=8, screen_k=256,
+                                   **grasp)
+    start = np.linspace(-0.3, 0.3, F)
+    world = World(start=start, goal=start + 0.12, obstacle_centers=np.array([[2.0, 2.0, 2.0]]),
+                  obstacle_generators=np.stack([np.diag([0.05] * 3)]))
+    obs = pad_obstacles(world.obstacle_centers, world.obstacle_generators, cfg_t.max_obstacles,
+                        cfg_t.dtype)
+    tp = sample_true_params(robot, np.random.default_rng(0), scale=1.0)
+    step = make_planner(robot, cfg_t)
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        t_tray, s = wall_s(lambda: run_trial(world, robot, cfg_t, step, obs, tp,
+                                             max_iterations=TRAY_ITERATIONS), dev)
+    n = kernels.counts()
+    print(f"phase 14 (i): tray trial, {robot.name} (J = {J}, F = {F}), T = 16, O = 8, K = 256, "
+          f"contact mu {mu}, r {rr}: {s.iterations} iterations in {t_tray:.1f} s (planner "
+          f"warm-up included), goal {'reached' if s.goal_reached else 'NOT reached'}, "
+          f"{s.infeasible_plans} infeasible plans, goal distance {s.goal_distance_final:.4f}; "
+          f"launches K5 x{n['rollout']}, K6 x{n['oracle_check']}, K16 x{n['grasp_rows']}")
+    if _flagged([s]):
+        fail("the tray trial raised a safety flag")
+    if not s.goal_reached:
+        fail(f"the tray trial did not reach its goal in {TRAY_ITERATIONS} iterations")
+    if n["rollout"] != s.iterations or n["oracle_check"] != s.iterations or not n["grasp_rows"]:
+        fail(f"tray trial launches {n} for {s.iterations} iterations")
+    err = check_loop_calls(robot, cfg_t, captured, dev, "tray")
+    captured.clear()
+    out["tray"] = {"iterations": s.iterations, "goal_reached": s.goal_reached,
+                   "wall_s": t_tray, "max_abs_err": err,
+                   "plan_ms": [x * 1e3 for x in s.planning_times]}
+
+    # (ii) the dumbbell's closed loop at the full width over phase 13's scenes
+    cfg = ArmourConfig.for_robot(robot, **grasp)
+    worlds = [load_world_csv(p) for p in
+              sorted(glob.glob("saved_worlds/random/*.csv"))[:N_WORLDS]]
+    stats: dict = {}
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        t_loop, summaries = wall_s(lambda: run_trials_batched(
+            worlds, robot, cfg, max_iterations=LOOP_ITERATIONS, true_param_scale=1.0, seed=0,
+            rescue_solver=True, guidance="straight", stats=stats), dev)
+    launches = kernels.counts()
+    keep = {k[0]: v for k, v in captured.items() if k[0] in ("rollout", "oracle_check")}
+    captured.clear()
+    n_it = stats["batch_iterations"]
+    buckets = {"goal": sum(x.goal_reached for x in summaries),
+               "stuck": sum(x.stuck for x in summaries),
+               "active": sum(not (x.goal_reached or x.stuck) for x in summaries)}
+    print(f"phase 14 (ii): {robot.name} W={N_WORLDS} closed loop with grasp rows, {n_it} "
+          f"lockstep iterations in {t_loop:.1f} s (planner warm-up included); after them "
+          f"{buckets}, infeasible plans {sum(x.infeasible_plans for x in summaries)}, rescued "
+          f"{stats['recovered_rows']}/{stats['rescued_rows']} rows; launches {launches}")
+    for i, rec in enumerate(stats["iterations"]):
+        rescue = "not fired" if rec["rescue_s"] is None else f"{rec['rescue_s'] * 1e3:.1f} ms"
+        print(f"  iteration {i}: plan {rec['plan_s'] * 1e3:.1f} ms, rescue {rescue}, rollout "
+              f"(reference + K5) {rec['rollout_s'] * 1e3:.1f} ms, oracles "
+              f"{rec['oracles_s'] * 1e3:.1f} ms")
+    if n_it < 1:
+        fail("the dumbbell's closed loop ran no iteration")
+    for name in BERNSTEIN_KERNELS + ("grasp_rows",):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the dumbbell's closed loop")
+    for name in ("rollout", "oracle_check"):
+        if launches[name] != n_it or name not in keep:
+            fail(f"kernel {name} launched {launches[name]} times in {n_it} iterations")
+    if _flagged(summaries):
+        fail(f"dumbbell worlds {_flagged(summaries)} raised a safety flag")
+    rows = closed_loop_kernel_rows(robot, cfg, launches, keep, dev, "phase 14 (ii)")
+    keep.clear()
+    out["dumbbell_loop"] = {"worlds": N_WORLDS, "iterations": n_it, "wall_s": t_loop,
+                            "buckets": buckets,
+                            "rollout_ms": [r["rollout_s"] * 1e3 for r in stats["iterations"]],
+                            "oracles_ms": [r["oracles_s"] * 1e3 for r in stats["iterations"]]}
+
+    # (iii) every zoo robot's closed loop: phase 13's postures and scenes,
+    # the worst-case true parameters where the robot's ultimate bound is
+    # certified and the nominal ones elsewhere, the obstacles that overlap a
+    # robot at its start dropped
+    scenes_ = [load_world_csv(p) for p in
+               sorted(glob.glob("saved_worlds/random/*.csv"))[:N_ZOO]]
+    rng = np.random.default_rng(13)
+    out["zoo_loop"] = {}
+    for name in zoo.list_robots():
+        r = zoo.load_zoo_robot(name)
+        cfg_z = ArmourConfig.for_robot(r, dtype=torch.float32)
+        certified = derive_ultimate_bound(r, return_provenance=True)[1]["certified"]
+        scale = 1.0 if certified else 0.0
+        lo = np.maximum(r.position_limits_lb, -np.pi)
+        hi = np.minimum(r.position_limits_ub, np.pi)
+        q0 = (lo + hi) / 2.0 + rng.uniform(-0.1, 0.1, (N_ZOO, r.num_factors))
+        ws, dropped = zoo_loop_worlds(r, q0, scenes_)
+        stats_z: dict = {}
+        kernels.reset_counts()
+        with kernels.capture() as captured:
+            t_z, sz = wall_s(lambda: run_trials_batched(
+                ws, r, cfg_z, max_iterations=ZOO_LOOP_ITERATIONS, true_param_scale=scale,
+                seed=0, rescue_solver=True, guidance="straight", stats=stats_z,
+                trace=range(N_ZOO)), dev)
+        nz = kernels.counts()
+        it_z = stats_z["batch_iterations"]
+        # how far each world got from its start, over the states it reached
+        moved = [max(float(np.abs(np.asarray(rec["q"]) - w.start).max()) for rec in recs)
+                 for w, recs in zip(ws, (stats_z["trace"][str(i)] for i in range(N_ZOO)))]
+        n_moved = sum(m > ZOO_MOVED for m in moved)
+        n_feas = sum(rec["feasible"] for i in range(N_ZOO) for rec in stats_z["trace"][str(i)])
+        print(f"phase 14 (iii): zoo {name} (J = {r.num_joints}, F = {r.num_factors}) W={N_ZOO} "
+              f"closed loop, {'worst-case' if certified else 'nominal'} true parameters "
+              f"(bound {'certified' if certified else 'not certified'}; {dropped} obstacles "
+              f"on the start postures dropped), {it_z} iterations in {t_z:.1f} s; goal "
+              f"{sum(x.goal_reached for x in sz)}, feasible plans {n_feas}, infeasible plans "
+              f"{sum(x.infeasible_plans for x in sz)}, worlds moved over {ZOO_MOVED} rad "
+              f"{n_moved} of {N_ZOO} (largest {max(moved):.4f} rad); launches K5 "
+              f"x{nz['rollout']} (lanes {ksim.k5_geometry(r.num_joints, r.num_factors)}), K6 "
+              f"x{nz['oracle_check']}")
+        if it_z < 1 or nz["rollout"] != it_z or nz["oracle_check"] != it_z:
+            fail(f"zoo {name}: K5 x{nz['rollout']}, K6 x{nz['oracle_check']} in {it_z} "
+                 f"iterations")
+        if _flagged(sz):
+            fail(f"zoo {name}: worlds {_flagged(sz)} raised a safety flag")
+        err_z = check_loop_calls(r, cfg_z, captured, dev, f"zoo {name}")
+        captured.clear()
+        out["zoo_loop"][name] = {"iterations": it_z, "wall_s": t_z, "max_abs_err": err_z,
+                                 "goal": sum(x.goal_reached for x in sz),
+                                 "true_param_scale": scale, "feasible_plans": n_feas,
+                                 "worlds_moved": n_moved, "largest_move_rad": max(moved)}
+    return rows, out
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -3209,6 +3449,15 @@ def main() -> None:
     k16, grasp_perf = grasp_phase(dev)
     krows.append(k16)
 
+    # ---- phase 14: the closed loop at J = 9 and F < J ----
+    rows9, loop9 = grasp_loop_phase(dev)
+    for row in krows:
+        for r9 in rows9:
+            if row["name"] == r9["name"]:
+                row["dumbbell_w64"] = {k: r9[k] for k in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "serial_chain_ms", "device_ms") if k in r9}
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -3216,7 +3465,8 @@ def main() -> None:
             "uncertain_com_step_ms": t_com,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown, **window,
-            **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf}
+            **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf,
+            "grasp_loop": loop9}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

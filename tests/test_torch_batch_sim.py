@@ -38,6 +38,16 @@ Q0 = np.array([0.0, -0.3, 0.0, -1.2, 0.0, -0.8, 0.0])
 ITERS = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _worlds(cls):
     far = np.array([[0.9, 0.9, 0.5]])
     g = np.diag([0.05, 0.05, 0.05])[None]

@@ -3,10 +3,14 @@ numeric RNEA / FK (1e-10), the reference trajectory on its three branches
 (1e-12), the three controllers (1e-10), the tracking rollout in both move
 modes (integrate 1e-9, direct exact), the OBB separating-axis test and the
 safety oracles (identical booleans), and the RRT* guidance (bit-identical
-waypoints).  The CPU branch of the K5/K6 wrappers is the plain version, so
-this holds the kernels' references against the JAX package."""
+waypoints).  The rollout and the oracles also run on the grasp path's robot,
+the Kinova with the dumbbell payload (J = 9 bodies, F = 7 factors: the
+largest robot the closed-loop kernels K5 / K6 take).  The CPU branch of the
+K5/K6 wrappers is the plain version, so this holds the kernels' references
+against the JAX package."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +25,8 @@ from armour_tpu import simulator as jsim
 from armour_tpu import trajectory as jtraj
 from armour_tpu.collision import pad_obstacles as j_pad
 from armour_tpu.config import ArmourConfig as JConfig
+from armour_tpu.config import UltimateBound as JUltimateBound
+from armour_tpu.models import zoo as j_zoo
 from armour_tpu.models.kinova import kinova_gen3 as j_kinova
 from armour_tpu.worlds import load_world_csv as j_load
 from armour_tpu_torch import controller as tctl
@@ -30,6 +36,7 @@ from armour_tpu_torch import rnea_numeric as trn
 from armour_tpu_torch import simulator as tsim
 from armour_tpu_torch import trajectory as ttraj
 from armour_tpu_torch.collision import pad_obstacles, stack_obstacles
+from armour_tpu_torch.config import derive_ultimate_bound
 from armour_tpu_torch.worlds import load_world_csv
 
 J_ROBOT = j_kinova()
@@ -40,6 +47,37 @@ T_CFG = convert.config_from_fields({f.name: getattr(J_CFG, f.name)
                                     for f in dataclasses.fields(J_CFG)})
 Q0 = np.array([0.0, -0.3, 0.0, -1.2, 0.0, -0.8, 0.0])
 B = 5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(name):
+    """(JAX robot, port robot, JAX config, port config, q0) of the flagship
+    or of the grasp path's robot, the Kinova with the dumbbell; the latter
+    under the tray trial's ultimate bound (tests/test_grasp.py:170, V_max
+    5e-4, derived by the port and handed to both packages)."""
+    if name == "flagship":
+        return J_ROBOT, T_ROBOT, J_CFG, T_CFG, Q0
+    jr = j_zoo.load_zoo_robot(name)
+    tr = convert.robot_from_fields({f.name: getattr(jr, f.name) for f in dataclasses.fields(jr)})
+    ub = derive_ultimate_bound(tr, v_max=5e-4)
+    jcfg = JConfig.for_robot(jr, derive_ub=False, ub=JUltimateBound(**dataclasses.asdict(ub)),
+                             num_time_steps=32, dtype=jnp.float64, max_obstacles=8)
+    tcfg = convert.config_from_fields({f.name: getattr(jcfg, f.name)
+                                       for f in dataclasses.fields(jcfg)})
+    return jr, tr, jcfg, tcfg, np.linspace(-0.3, 0.3, tr.num_factors)
+
+
+ROBOTS = ["flagship", "kinova_dumbbell"]
 
 
 def _t(x):
@@ -108,7 +146,7 @@ def test_forward_kinematics_matches_jax():
         _close(got, want, 1e-10)
 
 
-def test_wrench_at_is_not_ported():
+def test_wrench_at_matches_jax():
     """rnea(wrench_at=) was refused until the grasp path was ported; it now
     returns (tau, f, n) with the wrench after that joint, the JAX package's
     to 1e-10 (the flagship, joint 3, perturbed masses)."""
@@ -205,7 +243,7 @@ def test_robust_and_nominal_control_match_jax():
     _close(tctl.nominal_passivity_control(T_ROBOT, T_CFG, *map(_t, x)), want, 1e-10)
     # the perturbation sensitivities keep the JAX layout [2J, ..., F]
     q, qd, q_des, qd_des, qdd_des = x
-    pert = tctl._perturbation_taus(T_ROBOT, *map(_t, (q, qd, qd_des, qdd_des)))
+    pert = tctl._controller_taus(T_ROBOT, *map(_t, (q, qd, qd_des, qdd_des)))[1]
     want = jax.vmap(lambda *a: jctl._perturbation_taus(J_ROBOT, *a), out_axes=1)(
         *map(jnp.asarray, (q, qd, qd_des, qdd_des)))
     _close(pert, want, 1e-10)
@@ -226,11 +264,13 @@ def test_althoff_control_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-def _plans(ks):
-    """One feasible plan per k from Q0 at rest (the JAX refs and the port's
-    stacked PlanRef)."""
-    jrefs = [jtraj.advance_plan(jtraj.initial_plan(Q0, jnp.float64), jnp.full(7, k),
-                                jnp.asarray(Q0), jnp.zeros(7), jnp.zeros(7), J_CFG)
+def _plans(ks, name="flagship"):
+    """One feasible plan per k from the robot's q0 at rest (the JAX refs and
+    the port's stacked PlanRef)."""
+    jr, _, jcfg, _, q0 = _setup(name)
+    n = len(q0)
+    jrefs = [jtraj.advance_plan(jtraj.initial_plan(q0, jnp.float64), jnp.full(n, k),
+                                jnp.asarray(q0), jnp.zeros(n), jnp.zeros(n), jcfg)
              for k in ks]
     fields = [f.name for f in dataclasses.fields(jrefs[0])]
     tref = convert.planref_from_numpy(**{n: np.stack([np.asarray(getattr(r, n))
@@ -238,34 +278,43 @@ def _plans(ks):
     return jrefs, tref
 
 
-def _true_params(n):
-    tp = jsim.sample_true_params(J_ROBOT, np.random.default_rng(0), scale=1.0)
+def _true_params(n, name="flagship"):
+    jr = _setup(name)[0]
+    tp = jsim.sample_true_params(jr, np.random.default_rng(0), scale=1.0)
     return tp, convert.true_params_from_numpy(
         *(np.broadcast_to(np.asarray(getattr(tp, f)), (n,) + np.shape(getattr(tp, f)))
           for f in ("mass", "inertia", "com")))
 
 
+# control steps: the flagship's whole move at 2 ms; the dumbbell's cut to 50
+# at 10 ms (each RK4 substep 5 ms)
+CONTROL_DT = {"flagship": 2e-3, "kinova_dumbbell": 1e-2}
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
 @pytest.mark.parametrize("controller", ["robust", "althoff"])
-def test_rollout_integrate_matches_jax(controller):
+def test_rollout_integrate_matches_jax(controller, robot):
+    jr, tr, jcfg, tcfg, q00 = _setup(robot)
+    F = tr.num_factors
+    dt = CONTROL_DT[robot]
     ks = (0.5, -0.7)
-    jrefs, tref = _plans(ks)
-    jtp, ttp = _true_params(len(ks))
-    jroll = jsim.make_rollout(J_ROBOT, J_CFG, control_dt=2e-3, controller=controller)
-    troll = tsim.make_rollout(T_ROBOT, T_CFG, control_dt=2e-3, controller=controller,
-                              device="cpu")
-    q0 = np.stack([Q0, Q0])
+    jrefs, tref = _plans(ks, robot)
+    jtp, ttp = _true_params(len(ks), robot)
+    jroll = jsim.make_rollout(jr, jcfg, control_dt=dt, controller=controller)
+    troll = tsim.make_rollout(tr, tcfg, control_dt=dt, controller=controller, device="cpu")
+    q0 = np.stack([q00, q00])
     q, qd, logs = troll(q0, np.zeros_like(q0), tref, ttp)
-    assert logs["q"].shape == (2, 250, 7)
+    assert logs["q"].shape == (2, int(round(tcfg.t_plan / dt)), F)
     for w, jref in enumerate(jrefs):
-        jq, jqd, jlogs = jroll(jnp.asarray(Q0), jnp.zeros(7), jref, jtp)
+        jq, jqd, jlogs = jroll(jnp.asarray(q00), jnp.zeros(F), jref, jtp)
         _close(q[w], jq, 1e-9)
         _close(qd[w], jqd, 1e-9)
         for name in ("q", "qd", "u", "q_des", "qd_des"):
             _close(logs[name][w], jlogs[name], 1e-9)
     if controller == "robust":
         # worst-case model error stays inside the ultimate bound
-        assert float((logs["q"] - logs["q_des"]).abs().max()) <= T_CFG.ub.qe
-        assert float((logs["qd"] - logs["qd_des"]).abs().max()) <= T_CFG.ub.qde
+        assert float((logs["q"] - logs["q_des"]).abs().max()) <= tcfg.ub.qe
+        assert float((logs["qd"] - logs["qd_des"]).abs().max()) <= tcfg.ub.qde
 
 
 def test_rollout_direct_matches_jax():
@@ -357,16 +406,16 @@ def test_obstacle_axes_halves_matches_jax():
         _close(got, want, 1e-12)
 
 
-def _logs_near(rng, n_steps=12):
-    """Logged states around Q0 (one world per row of a [W, n, F] batch),
+def _logs_near(rng, q0, n_steps=12):
+    """Logged states around q0 (one world per row of a [W, n, F] batch),
     some beyond the limits and bounds so that every flag fires somewhere."""
-    W = 4
-    q = Q0 + rng.normal(0, 0.2, (W, n_steps, 7))
-    logs = {"q": q, "qd": rng.normal(0, 0.3, (W, n_steps, 7)),
-            "u": rng.normal(0, 10.0, (W, n_steps, 7)),
-            "q_des": q + rng.normal(0, 0.004, (W, n_steps, 7)),
-            "qd_des": rng.normal(0, 0.3, (W, n_steps, 7))}
-    logs["qd_des"] = logs["qd"] + rng.normal(0, 0.02, (W, n_steps, 7))
+    W, F = 4, len(q0)
+    q = q0 + rng.normal(0, 0.2, (W, n_steps, F))
+    logs = {"q": q, "qd": rng.normal(0, 0.3, (W, n_steps, F)),
+            "u": rng.normal(0, 10.0, (W, n_steps, F)),
+            "q_des": q + rng.normal(0, 0.004, (W, n_steps, F)),
+            "qd_des": rng.normal(0, 0.3, (W, n_steps, F))}
+    logs["qd_des"] = logs["qd"] + rng.normal(0, 0.02, (W, n_steps, F))
     logs["u"][1, 3, 4] = 40.0              # over world 1's torque limit
     logs["q"][2, 5, 1] = 2.5               # past world 2's joint limit
     logs["q_des"][3] = logs["q"][3]        # world 3 inside the bound
@@ -374,41 +423,54 @@ def _logs_near(rng, n_steps=12):
     return logs
 
 
-def test_oracles_match_jax():
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_oracles_match_jax(robot):
+    """Flags and overlap counts against the JAX oracles, an obstacle near
+    link w + 1 in world w; on the dumbbell, worlds 2 and 3 take it near the
+    two bodies after the fixed joints, whose boxes must be tested too."""
+    jr, tr, jcfg, tcfg, q0 = _setup(robot)
+    J, F = tr.num_joints, tr.num_factors
     rng = np.random.default_rng(8)
-    logs = _logs_near(rng)
+    logs = _logs_near(rng, q0)
     W = logs["q"].shape[0]
-    _, _, link_c = jrn.forward_kinematics(J_ROBOT, jnp.asarray(Q0))
+    _, _, link_c = jrn.forward_kinematics(jr, jnp.asarray(q0))
     link_c = np.asarray(link_c)
+    near = [w + 1 if J == F or w < 2 else F + w - 2 for w in range(W)]
     obs_j, obs_t = [], []
     for w in range(W):
         th = rng.uniform(0, np.pi)
         R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]])
-        centers = np.concatenate([link_c[[w + 1]] + rng.normal(0, 0.1, (1, 3)),
+        centers = np.concatenate([link_c[[near[w]]] + rng.normal(0, 0.1, (1, 3)),
                                   rng.uniform(-1, 1, (3, 3))])
         gens = np.stack([R @ np.diag(rng.uniform(0.02, 0.1, 3)) for _ in range(4)])
-        obs_j.append(j_pad(centers, gens, J_CFG.max_obstacles, jnp.float64))
-        obs_t.append(pad_obstacles(centers, gens, T_CFG.max_obstacles, torch.float64))
-    j_check = jsim.make_oracles(J_ROBOT, J_CFG)
+        obs_j.append(j_pad(centers, gens, jcfg.max_obstacles, jnp.float64))
+        obs_t.append(pad_obstacles(centers, gens, tcfg.max_obstacles, torch.float64))
+    j_check = jsim.make_oracles(jr, jcfg)
     t_flags, t_overlaps = tsim.oracle_check_plain(
-        T_ROBOT, T_CFG, {k: _t(v) for k, v in logs.items()}, stack_obstacles(obs_t))
-    t_dict = tsim.make_oracles(T_ROBOT, T_CFG, device="cpu")(logs, stack_obstacles(obs_t))
+        tr, tcfg, {k: _t(v) for k, v in logs.items()}, stack_obstacles(obs_t))
+    t_dict = tsim.make_oracles(tr, tcfg, device="cpu")(logs, stack_obstacles(obs_t))
+    hit_links = np.zeros(J, dtype=int)
     for w in range(W):
         want = j_check({k: jnp.asarray(v[w]) for k, v in logs.items()}, obs_j[w])
         for j, name in enumerate(tsim.ORACLE_FLAGS):
             assert bool(t_flags[w, j]) == bool(want[name]), (w, name)
             assert bool(t_dict[name][w]) == bool(want[name]), (w, name)
         # the overlap count against the JAX separating-axis test
-        R_w, _, centers = jrn.forward_kinematics(J_ROBOT, jnp.asarray(logs["q"][w]))
+        R_w, _, centers = jrn.forward_kinematics(jr, jnp.asarray(logs["q"][w]))
+        assert centers.shape[-2] == J
         axes, half = jsim.obstacle_axes_halves(obs_j[w].generators)
         sep = jsim.obb_obb_separated(
             centers[:, :, None], R_w[:, :, None],
-            jnp.broadcast_to(jnp.asarray(J_ROBOT.link_generators)[None, :, None],
+            jnp.broadcast_to(jnp.asarray(jr.link_generators)[None, :, None],
                              centers[:, :, None].shape),
             obs_j[w].centers[None, None], axes[None, None], half[None, None])
-        assert int(t_overlaps[w]) == int(np.sum(~np.asarray(sep) & np.asarray(obs_j[w].mask)))
+        hit = ~np.asarray(sep) & np.asarray(obs_j[w].mask)             # [N, J, O]
+        assert int(t_overlaps[w]) == int(np.sum(hit))
+        hit_links += hit.sum((0, 2))
     assert t_flags.any(0).all(), "every flag fires on some world"
     assert int(t_overlaps.sum()) > 0
+    # on the dumbbell the bodies after its fixed joints overlap too
+    assert J == F or hit_links[F:].sum() > 0, hit_links
 
 
 def test_oracles_match_jax_on_degenerate_axes():

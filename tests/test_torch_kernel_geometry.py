@@ -177,7 +177,8 @@ def test_k7_takes_at_most_8_seeds():
         ks.k7_geometry(1, 9, 3 * T * J, T * F, K)
 
 
-@pytest.mark.parametrize("J_, F_", [(7, 7), (7, 6), (6, 6), (8, 7), (8, 8), (1, 1), (7, 1)])
+@pytest.mark.parametrize("J_, F_", [(7, 7), (7, 6), (6, 6), (8, 7), (8, 8), (1, 1), (7, 1),
+                                    (9, 7), (9, 9)])
 def test_k5_lanes_cover_every_chain(J_, F_):
     """K5 runs the 2 + 4J + F chains of a control step in one round: one
     lane each, 32 lanes when they fit one warp, else 64; the Gauss-Jordan
@@ -192,7 +193,7 @@ def test_k5_lanes_cover_every_chain(J_, F_):
 
 
 def test_k5_geometry_refuses_what_the_kernel_does_not_take():
-    for J_, F_ in ((9, 7), (7, 8), (7, 0)):
+    for J_, F_ in ((10, 7), (7, 8), (7, 0)):
         with pytest.raises(ValueError, match="closed-loop"):
             ksim.k5_geometry(J_, F_)
 
@@ -342,6 +343,11 @@ def test_k6_shared_memory_fits():
     assert ksim.K6_FRAME == 12 + 3 * _define(k6, "K6_AXIS")
     for O in (0, 1, O_MAX, 1000):
         assert ksim.k6_smem(O) <= BLOCK_SMEM
+    # nine links' frames (the dumbbell's bodies): 4 (9 x 27 x 32 + 32 O) bytes,
+    # under the 48 KB default up to O = 141
+    assert ksim.MAXJ == 9
+    assert ksim.k6_smem(O_MAX) == 4 * (9 * 27 * 32 + 32 * O_MAX) == 36224
+    assert ksim.k6_smem(141) <= 48 * 1024 < ksim.k6_smem(142)
     # four blocks an SM at the flagship's 40 obstacles
     assert 4 * (ksim.k6_smem(O_MAX) + kpz.BLOCK_SMEM_RESERVED) <= kpz.SM_SMEM
     launch = k6[k6.index('extern "C" int k6_launch'):]

@@ -55,6 +55,16 @@ STATES = (
 SCENES = ("scene_013_001", "scene_013_002")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t_robot(jrobot):
     return convert.robot_from_fields({f.name: getattr(jrobot, f.name)
                                       for f in dataclasses.fields(jrobot)})

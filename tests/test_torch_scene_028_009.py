@@ -64,6 +64,16 @@ K_LOST = [-0.0625, -0.0625, 0.020013734698295593, 0.0625, -0.0625, 0.12301518768
 COST_LOST = 9.898250579833984
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def plans():
     """{state: (port (k, cost, feasible), JAX (k, cost, feasible))}, float64."""
