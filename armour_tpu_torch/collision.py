@@ -19,8 +19,10 @@ it.  Three functions have hand-written CUDA kernels:
                        formed again with K3's device code; plain version
                        screen_collision_plain;
   screened_rows,       kernel K4: per-row max over the 2C signed distances,
-  collision_constraints  first argmax, and dg/dk; plain versions
-                       screened_rows_plain / collision_constraints_plain.
+  collision_constraints  first argmax, and dg/dk (the screened rows also in
+                       the smooth mode, a log-sum-exp over them); plain
+                       versions screened_rows_plain /
+                       collision_constraints_plain.
 
 Each wrapper takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors.
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from .kinematics import LinkFRS
+from .utils import div
 
 BIG = 1e8
 # 9 buffered generators -> C(9,2) = 36 combinations
@@ -337,9 +340,23 @@ def _rows_at(x: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, idx.expand(*x.shape[:-1], row.shape[1]))
 
 
-def screened_constraints(sc: ScreenedCollision, p_all: torch.Tensor):
-    """Hard-mode g [W, Q, K] (<= 0 safe) and dg/dp [W, Q, 3, K] of the
-    screened rows (armour_tpu/collision.py:255-302 with smooth_tau = 0)."""
+def smooth_shift(tau: float, C: int, dtype) -> torch.Tensor:
+    """tau log(2C) as a 0-d CPU tensor of dtype, rounded as the JAX
+    expression tau * jnp.log(2.0 * C) rounds it in that dtype (the log in
+    dtype, then the product); kernels K4 / K7 / K8 take its value, and the
+    plain version subtracts it as a CPU scalar on any device."""
+    return tau * torch.log(torch.tensor(2.0 * C, dtype=dtype))
+
+
+def screened_constraints(sc: ScreenedCollision, p_all: torch.Tensor, smooth_tau: float = 0.0):
+    """g [W, Q, K] (<= 0 safe) and dg/dp [W, Q, 3, K] of the screened rows
+    (armour_tpu/collision.py:255-302).
+
+    smooth_tau > 0 is the smooth mode: the max over the 2C signed distances
+    x becomes m = mx + tau log sum exp((x - mx) / tau) - tau log(2C) >=
+    max(x) - tau log(2C), so g = -m lies at most tau log(2C) above the hard
+    g and never below it, and dg/dp is minus the softmax blend of the signed
+    normals."""
     p = _rows_at(p_all, sc.row)                             # [W, Q, 3, K]
     A = sc.A[:, None]                                       # [W, 1, 3, C, K]
     Ap = _dot3(A, p[:, :, :, None, :], 2)                   # [W, Q, C, K]
@@ -350,8 +367,22 @@ def screened_constraints(sc: ScreenedCollision, p_all: torch.Tensor):
     neg = torch.where(ok, -Ap - (-d + delta), big)
     both = torch.cat([pos, neg], dim=-2)                    # [W, Q, 2C, K]
     C = sc.A.shape[2]
-    m = torch.amax(both, dim=-2)
     mask = sc.mask[:, None]
+
+    if smooth_tau > 0:
+        tau = smooth_tau
+        mx = torch.amax(both, dim=-2)
+        w = torch.exp(div(both - mx[:, :, None], tau))      # softmax weights
+        Z = torch.sum(w, dim=-2)
+        m = mx + tau * torch.log(Z) - smooth_shift(tau, C, both.dtype)
+        g = torch.where(mask, -m, torch.full_like(m, -BIG))
+        wn = w / Z[:, :, None]                              # [W, Q, 2C, K]
+        w_pos, w_neg = wn[:, :, None, :C], wn[:, :, None, C:]
+        A_blend = (A * w_pos).sum(dim=3) - (A * w_neg).sum(dim=3)   # [W, Q, 3, K]
+        grad_p = torch.where(mask[:, :, None], -A_blend, torch.zeros_like(A_blend))
+        return g, grad_p
+
+    m = torch.amax(both, dim=-2)
     g = torch.where(mask, -m, torch.full_like(m, -BIG))
     idx = torch.argmax(both, dim=-2)                        # first maximal index
     sign = torch.where(idx < C, -1.0, 1.0).to(p.dtype)
@@ -374,21 +405,23 @@ def screened_constraint_grads(sc: ScreenedCollision, grad_p: torch.Tensor,
 
 
 def screened_rows_plain(sc: ScreenedCollision, p_all: torch.Tensor,
-                        dp_all: torch.Tensor | None = None):
+                        dp_all: torch.Tensor | None = None, *, smooth_tau: float = 0.0):
     """Plain version of kernel K4 on the screened rows: (g [W, Q, K],
-    dg/dk [W, Q, K, F] or None)."""
-    g, grad_p = screened_constraints(sc, p_all)
+    dg/dk [W, Q, K, F] or None), the smooth mode when smooth_tau > 0."""
+    g, grad_p = screened_constraints(sc, p_all, smooth_tau)
     if dp_all is None:
         return g, None
     return g, screened_constraint_grads(sc, grad_p, dp_all)
 
 
 def screened_rows(sc: ScreenedCollision, p_all: torch.Tensor,
-                  dp_all: torch.Tensor | None = None):
-    """Screened collision rows and, when dp_all is given, their k-gradients.
-    Kernel K4 on CUDA tensors, screened_rows_plain on CPU tensors."""
+                  dp_all: torch.Tensor | None = None, *, smooth_tau: float = 0.0):
+    """Screened collision rows and, when dp_all is given, their k-gradients,
+    in the smooth mode when smooth_tau > 0.  Kernel K4 on CUDA tensors,
+    screened_rows_plain on CPU tensors."""
     if not p_all.is_cuda:
-        return screened_rows_plain(sc, p_all, dp_all)
+        return screened_rows_plain(sc, p_all, dp_all, smooth_tau=smooth_tau)
     from .kernels import collision as kcol
 
-    return kcol.collision_rows(sc.A, sc.d, sc.delta, sc.row, sc.mask, p_all, dp_all)
+    return kcol.collision_rows(sc.A, sc.d, sc.delta, sc.row, sc.mask, p_all, dp_all,
+                               smooth_tau=smooth_tau)

@@ -19,6 +19,8 @@
 // world's centre polynomials (1.29 MB), torque polynomials (0.43 MB) and
 // screened rows (2.95 MB) once, ~0.30 GB, ~0.09 ms at 3.35 TB/s; ~7 MFLOP
 // per (world, seed), ~1.8 GFLOP, ~0.03 ms at 67 TFLOP/s: bound by bytes.
+// The smooth mode adds 2C + 1 = 73 expf / logf per (seed, screened row):
+// 77 M at S = 4, ~0.02 ms at 4.18 T special-function results/s.
 //
 // What held the first design back (one 256-thread CTA per (world, seed)):
 // S x W CTAs (2-4 at W = 1), each streaming its world's ~4.7 MB alone while
@@ -42,7 +44,10 @@
 //       row reads its 3 C normals, d and delta once and runs K4's rule
 //       (alm_collision_at) for every seed at the row's cell, chains the
 //       chosen normal through dp, and the CTA sums each seed's terms by a
-//       fixed shuffle tree (alm_block_sum).
+//       fixed shuffle tree (alm_block_sum).  In the smooth mode (AlmArgs.tau
+//       > 0, its own instantiation) the rule is the log-sum-exp
+//       (alm_collision_smooth_at: a second pass over the row's candidates,
+//       2C expf and one logf a seed) and the chained normal is its blend.
 //   (c) finish: a CTA per (world, seed) sums the partials of (a) and (b) in
 //       tile order (six chunks of tiles, then the chunks in order), adds the
 //       state rows (alm_state_rows) and the cost (alm_cost), factors H (7x7
@@ -240,8 +245,9 @@ __global__ void __launch_bounds__(K7A_THREADS) k7_rows_kernel(const AlmArgs a, f
   }
 }
 
-// (b) screened collision rows, a thread each, every seed; G >= S seeds slots
-template <int NF, int G, int RB>
+// (b) screened collision rows, a thread each, every seed; G >= S seeds slots;
+// SMOOTH: the smooth mode's value and blended normal (alm_collision_smooth_at)
+template <int NF, int G, int RB, bool SMOOTH>
 __global__ void __launch_bounds__(RB) k7_collision_kernel(const AlmArgs a, const float* pd,
                                                          float* part, int tile0, int npart) {
   constexpr int NV = K7Sizes<NF>::NV, NACC = K7Sizes<NF>::NACC;
@@ -251,7 +257,7 @@ __global__ void __launch_bounds__(RB) k7_collision_kernel(const AlmArgs a, const
   const bool live = r < K;
   const int cell = live ? a.row[(long long)w * K + r] : 0;
   const float* pw = pd + (long long)w * S * NC * NV + (long long)cell * 3 * NV;
-  float p0[G], p1[G], p2[G], m[G], sign[G];
+  float p0[G], p1[G], p2[G], m[G], sign[G], gp0[G], gp1[G], gp2[G];
   int comb[G];
 #pragma unroll
   for (int s = 0; s < G; ++s) {
@@ -260,7 +266,12 @@ __global__ void __launch_bounds__(RB) k7_collision_kernel(const AlmArgs a, const
     p1[s] = on ? pw[(long long)s * NC * NV + 1 * NV] : 0.0f;
     p2[s] = on ? pw[(long long)s * NC * NV + 2 * NV] : 0.0f;
   }
-  if (live) alm_collision_at<G>(a, w, r, p0, p1, p2, m, comb, sign);
+  if (live) {
+    if constexpr (SMOOTH)
+      alm_collision_smooth_at<G>(a, w, r, p0, p1, p2, m, gp0, gp1, gp2);
+    else
+      alm_collision_at<G>(a, w, r, p0, p1, p2, m, comb, sign);
+  }
   const bool real = live && a.mask[(long long)w * K + r] != 0;
   const float* Aw = a.A + (long long)w * 3 * C * K;
   const int row = 2 * a.TF + a.TG + r;
@@ -271,9 +282,16 @@ __global__ void __launch_bounds__(RB) k7_collision_kernel(const AlmArgs a, const
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
     if (live) {
-      const float g0 = real ? sign[s] * Aw[(0 * C + comb[s]) * K + r] : 0.0f;
-      const float g1 = real ? sign[s] * Aw[(1 * C + comb[s]) * K + r] : 0.0f;
-      const float g2 = real ? sign[s] * Aw[(2 * C + comb[s]) * K + r] : 0.0f;
+      float g0, g1, g2;
+      if constexpr (SMOOTH) {
+        g0 = real ? gp0[s] : 0.0f;
+        g1 = real ? gp1[s] : 0.0f;
+        g2 = real ? gp2[s] : 0.0f;
+      } else {
+        g0 = real ? sign[s] * Aw[(0 * C + comb[s]) * K + r] : 0.0f;
+        g1 = real ? sign[s] * Aw[(1 * C + comb[s]) * K + r] : 0.0f;
+        g2 = real ? sign[s] * Aw[(2 * C + comb[s]) * K + r] : 0.0f;
+      }
       const float* dp = pw + (long long)s * NC * NV + 1;
       float J[NF];
 #pragma unroll
@@ -382,13 +400,16 @@ __global__ void __launch_bounds__(K7C_THREADS) k7_finish_kernel(const AlmArgs a,
       for (int j = 0; j < NF; ++j) a.H[(o * NF + i) * NF + j] = i >= j ? L[i][j] : L[j][i];
     }
   }
-  // Cholesky H = L L^T in place (lower triangle), then L y = g, L^T x = y
+  // Cholesky H = L L^T in place (lower triangle), then L y = g, L^T x = y;
+  // a pivot <= 0 or NaN (a float32 H that lost its regulariser) is NaN, so
+  // that the step is NaN in every entry, as nlp.py:newton_step and
+  // jax.scipy.linalg.cho_factor give it (a zero pivot would give inf)
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     float dsum = L[j][j];
 #pragma unroll
     for (int t = 0; t < j; ++t) dsum -= L[j][t] * L[j][t];
-    const float ljj = sqrtf(dsum);
+    const float ljj = dsum > 0.0f ? sqrtf(dsum) : __int_as_float(0x7fc00000);
     L[j][j] = ljj;
 #pragma unroll
     for (int i = j + 1; i < NF; ++i) {
@@ -451,26 +472,34 @@ static int k7_rows(const AlmArgs* a, float* pd, float* part, int t_first, int np
   return k7_rows_s<NF, R, 8>(a, pd, part, t_first, npart, stream);
 }
 
-template <int NF, int G>
-static int k7_collision(const AlmArgs* a, const float* pd, float* part, int tile0, int npart,
-                        int RB, void* stream) {
+template <int NF, int G, bool SMOOTH>
+static int k7_collision_mode(const AlmArgs* a, const float* pd, float* part, int tile0, int npart,
+                             int RB, void* stream) {
   dim3 grid((unsigned int)((a->K + RB - 1) / RB), (unsigned int)a->W);
   switch (RB) {
     case 128:
-      k7_collision_kernel<NF, G, 128><<<grid, 128, 0, (cudaStream_t)stream>>>(*a, pd, part, tile0,
-                                                                              npart);
+      k7_collision_kernel<NF, G, 128, SMOOTH><<<grid, 128, 0, (cudaStream_t)stream>>>(
+          *a, pd, part, tile0, npart);
       break;
     case 64:
-      k7_collision_kernel<NF, G, 64><<<grid, 64, 0, (cudaStream_t)stream>>>(*a, pd, part, tile0,
-                                                                            npart);
+      k7_collision_kernel<NF, G, 64, SMOOTH><<<grid, 64, 0, (cudaStream_t)stream>>>(
+          *a, pd, part, tile0, npart);
       break;
     case 32:
-      k7_collision_kernel<NF, G, 32><<<grid, 32, 0, (cudaStream_t)stream>>>(*a, pd, part, tile0,
-                                                                            npart);
+      k7_collision_kernel<NF, G, 32, SMOOTH><<<grid, 32, 0, (cudaStream_t)stream>>>(
+          *a, pd, part, tile0, npart);
       break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// the smooth mode (tau > 0) is its own instantiation: the hard mode keeps its code
+template <int NF, int G>
+static int k7_collision(const AlmArgs* a, const float* pd, float* part, int tile0, int npart,
+                        int RB, void* stream) {
+  if (a->tau > 0.0f) return k7_collision_mode<NF, G, true>(a, pd, part, tile0, npart, RB, stream);
+  return k7_collision_mode<NF, G, false>(a, pd, part, tile0, npart, RB, stream);
 }
 
 template <int NF>

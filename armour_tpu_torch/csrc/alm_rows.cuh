@@ -12,7 +12,10 @@
 //             c = g_coef[row] . phi(k) + g_rad[row],  dc/dk = g_coef[row] . dphi(k),
 //             the torque rows' arithmetic without the limit
 //   collision K4's rule (collision_rows.cu) at the link centre p = center[cell] . phi(k)
-//             of the row's (time, link) cell, plus collision_search_margin
+//             of the row's (time, link) cell, plus collision_search_margin; in
+//             the smooth mode (tau > 0) K4's log-sum-exp and its blended normal
+//             (collision_rule.cuh, one copy for K4 / K7 / K8), a template flag
+//             of the kernels that call it
 //   state     the position / velocity extrema over the whole trajectory
 //             against the margin-tightened limits, each row's gradient one
 //             entry: the Bezier family's (bezier.py:q_extrema_in_k,
@@ -32,6 +35,7 @@
 #include <cuda_runtime.h>
 
 #include "alm_loop.cuh"
+#include "collision_rule.cuh"
 
 #define ALM_MAX_B 128
 #define ALM_MAX_F 8
@@ -79,6 +83,8 @@ struct AlmArgs {
   float thr_torque, thr_col, thr_state, col_margin, thr_grasp;
   float tp, dts;                    // ARMTD: t_plan and duration - t_plan
   float g_tp, g_ts;                 // ARMTD: dq/dk_actual at t_plan and at duration
+  float tau;                        // > 0: the smooth collision mode (cfg.smooth_tau)
+  float tau_log2c;                  // tau log(2C), rounded as the plain version rounds it
   unsigned char degs[ALM_MAX_B * ALM_MAX_F];   // [B, F] monomial degrees
   AlmEpilogue epi;                  // the loop's phase the finish runs (K7 / K8), or none
 };
@@ -207,9 +213,24 @@ __device__ __forceinline__ void alm_collision_at(const AlmArgs& a, int w, int r,
   }
 }
 
-// The same at the link centres p[(g * 3 + a) * TJ + cell] of the row's
-// (time, link) cell; returns the cell.
+// The smooth mode's rule (collision_rule.cuh, shared with K4) for screened
+// row r of world w at G link centres: m[g] and, when gp0 is given, the
+// blended normal's dm/dp negated in gp0 / gp1 / gp2.
 template <int G>
+__device__ __forceinline__ void alm_collision_smooth_at(const AlmArgs& a, int w, int r,
+                                                        const float* p0, const float* p1,
+                                                        const float* p2, float* m, float* gp0,
+                                                        float* gp1, float* gp2) {
+  const long long K = a.K;
+  const int C = a.C;
+  collision_smooth_rule<G>(a.A + (long long)w * 3 * C * K, a.d + (long long)w * C * K,
+                           a.delta + (long long)w * C * K, K, C, r, a.tau, a.tau_log2c, p0, p1,
+                           p2, m, gp0, gp1, gp2);
+}
+
+// The same (SMOOTH: the smooth rule's m alone) at the link centres
+// p[(g * 3 + a) * TJ + cell] of the row's (time, link) cell; returns the cell.
+template <int G, bool SMOOTH = false>
 __device__ __forceinline__ int alm_collision(const AlmArgs& a, int w, int r, const float* p,
                                              float* m, int* comb, float* sign) {
   const int TJ = a.TJ;
@@ -221,7 +242,10 @@ __device__ __forceinline__ int alm_collision(const AlmArgs& a, int w, int r, con
     p1[g] = p[(g * 3 + 1) * TJ + cell];
     p2[g] = p[(g * 3 + 2) * TJ + cell];
   }
-  alm_collision_at<G>(a, w, r, p0, p1, p2, m, comb, sign);
+  if constexpr (SMOOTH)
+    alm_collision_smooth_at<G>(a, w, r, p0, p1, p2, m, nullptr, nullptr, nullptr);
+  else
+    alm_collision_at<G>(a, w, r, p0, p1, p2, m, comb, sign);
   return cell;
 }
 

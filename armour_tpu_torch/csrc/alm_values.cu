@@ -25,7 +25,10 @@
 // and torque polynomials and screened rows are read once, ~0.30 GB, ~0.09
 // ms at 3.35 TB/s; ~1.2 MFLOP per query, ~0.9 GFLOP, ~0.03 ms at the 33.5 T
 // operations/s of separate float32 multiplies and adds (no FMA contraction):
-// bound by bytes (c, when written, adds 4 M bytes per query).
+// bound by bytes (c, when written, adds 4 M bytes per query).  The smooth
+// mode adds 2C + 1 = 73 expf / logf per (query, screened row): 230 M at Q =
+// 12, ~0.055 ms at the 4.18 T special-function results/s (16 a clock per
+// SM), still under the bytes' 0.09 ms.
 //
 // Design: parallel over a world's rows, not its queries, so that each row
 // is read once per call for all Q <= 16 queries together, and the grid
@@ -42,7 +45,10 @@
 //   (b) collision: a CTA per (128 screened rows, group of G queries,
 //       world); a thread per row reads its 3 C normals, d and delta once
 //       and evaluates K4's rule (alm_collision) at the row's cell for its
-//       G queries; per (tile, query) partials by a fixed shuffle tree.
+//       G queries; per (tile, query) partials by a fixed shuffle tree.  In
+//       the smooth mode (AlmArgs.tau > 0, its own instantiation at every G)
+//       the rule is the log-sum-exp (alm_collision_smooth_at: the row's
+//       candidates read a second time, 2C expf and one logf a query).
 //   (c) finish: a CTA per world sums the partials in tile order, adds the
 //       state rows (alm_state_rows) and the cost (alm_cost), and writes
 //       value, feas and the cost.
@@ -216,8 +222,9 @@ __global__ void __launch_bounds__(K8A_THREADS) k8_rows_kernel(const AlmArgs a, f
   }
 }
 
-// (b) screened collision rows, G queries per thread
-template <int G>
+// (b) screened collision rows, G queries per thread; SMOOTH: the smooth
+// mode's value (alm_collision_smooth_at)
+template <int G, bool SMOOTH>
 __global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs a, const float* p,
                                                                   int Qp, float* part, int tile0,
                                                                   int ntiles) {
@@ -230,7 +237,8 @@ __global__ void __launch_bounds__(K8B_THREADS) k8_collision_kernel(const AlmArgs
   if (r < K) {
     float m[G];
     // queries q0 + g >= Q read the scratch's padding; their results are dropped
-    alm_collision<G>(a, w, r, p + (long long)(w * Qp + q0) * 3 * a.TJ, m, nullptr, nullptr);
+    alm_collision<G, SMOOTH>(a, w, r, p + (long long)(w * Qp + q0) * 3 * a.TJ, m, nullptr,
+                             nullptr);
     const bool real = a.mask[(long long)w * K + r] != 0;
     const int row = 2 * a.TF + a.TG + r;
 #pragma unroll
@@ -390,13 +398,18 @@ static int k8_rows(const AlmArgs* a, float* p, int Qp, float* part, int tiles, i
   return (int)cudaGetLastError();
 }
 
+// the smooth mode (tau > 0) is its own instantiation: the hard mode keeps its code
 template <int G>
 static int k8_collision(const AlmArgs* a, const float* p, int Qp, float* part, int tile0,
                         int ntiles, void* stream) {
   dim3 grid((unsigned int)((a->K + K8B_THREADS - 1) / K8B_THREADS),
             (unsigned int)((a->Q + G - 1) / G), (unsigned int)a->W);
-  k8_collision_kernel<G><<<grid, K8B_THREADS, 0, (cudaStream_t)stream>>>(*a, p, Qp, part, tile0,
-                                                                         ntiles);
+  if (a->tau > 0.0f)
+    k8_collision_kernel<G, true><<<grid, K8B_THREADS, 0, (cudaStream_t)stream>>>(
+        *a, p, Qp, part, tile0, ntiles);
+  else
+    k8_collision_kernel<G, false><<<grid, K8B_THREADS, 0, (cudaStream_t)stream>>>(
+        *a, p, Qp, part, tile0, ntiles);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from . import launched, record
+from ..collision import smooth_shift
 from .build import launcher
 
 N_COMB = 36
@@ -33,7 +34,8 @@ class K4Args(ctypes.Structure):
                 ("p_all", ctypes.c_void_p), ("dp_all", ctypes.c_void_p),
                 ("g", ctypes.c_void_p), ("dg", ctypes.c_void_p),
                 ("W", ctypes.c_int), ("Q", ctypes.c_int), ("C", ctypes.c_int),
-                ("R", ctypes.c_int), ("TJ", ctypes.c_int), ("F", ctypes.c_int)]
+                ("R", ctypes.c_int), ("TJ", ctypes.c_int), ("F", ctypes.c_int),
+                ("tau", ctypes.c_float), ("tau_log2c", ctypes.c_float)]
 
 
 class K13Args(ctypes.Structure):
@@ -120,13 +122,19 @@ def build_hyperplanes(shape_gens, radius, centers, generators):
     return A, d, delta
 
 
-def collision_rows(A, d, delta, row, mask, p_all, dp_all=None):
+def collision_rows(A, d, delta, row, mask, p_all, dp_all=None, *, smooth_tau: float = 0.0):
     """K4: g [W,Q,R] and, when dp_all is given, dg/dk [W,Q,R,F] of rows with
     normals A [W,3,C,R], offsets d, buffers delta [W,C,R], link cell index
     row ([W,R], or [R] shared by every world, int32) and real-obstacle mask
-    [W,R], at link centres p_all [W,Q,3,TJ] (dp_all [W,Q,3,F,TJ])."""
+    [W,R], at link centres p_all [W,Q,3,TJ] (dp_all [W,Q,3,F,TJ]).
+    smooth_tau > 0: the smooth mode (collision.screened_constraints), for
+    screened rows only; the full set (row [R]) is the exact check."""
     Wn, _, C, R = A.shape
     Q, TJ = p_all.shape[1], p_all.shape[-1]
+    smooth = smooth_tau > 0
+    if smooth and row.dim() == 1:
+        raise ValueError("K4's smooth mode takes screened rows (row [W, R]); the full-set "
+                         "check over a shared row [R] stays exact")
     _require(A, "A", (Wn, 3, C, R))
     _require(d, "d", (Wn, C, R))
     _require(delta, "delta", (Wn, C, R))
@@ -145,14 +153,18 @@ def collision_rows(A, d, delta, row, mask, p_all, dp_all=None):
     dev = A.device
     g = torch.empty(Wn, Q, R, device=dev, dtype=_F32)
     dg = torch.empty(Wn, Q, R, F, device=dev, dtype=_F32) if dp_all is not None else None
-    record("collision_rows", (tuple(A.shape), tuple(p_all.shape), row.dim(), dp_all is not None),
-           (A, d, delta, row, mask, p_all, dp_all))
+    key = (tuple(A.shape), tuple(p_all.shape), row.dim(), dp_all is not None)
+    record("collision_rows", key + (("smooth", float(smooth_tau)) if smooth else ()),
+           (A, d, delta, row, mask, p_all, dp_all, smooth_tau))
     if Wn * Q * R:
         args = K4Args(A.data_ptr(), d.data_ptr(), delta.data_ptr(), row.data_ptr(), row_ws,
                       mask.data_ptr(), p_all.data_ptr(),
                       dp_all.data_ptr() if dp_all is not None else None,
                       g.data_ptr(), dg.data_ptr() if dg is not None else None,
                       Wn, Q, C, R, TJ, F)
+        if smooth:
+            args.tau = smooth_tau
+            args.tau_log2c = float(smooth_shift(smooth_tau, C, _F32))
         fn = launcher("collision_rows", "k4_launch", [ctypes.POINTER(K4Args), ctypes.c_void_p])
         err = fn(ctypes.byref(args), _stream(A))
         if err:

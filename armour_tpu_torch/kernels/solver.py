@@ -34,6 +34,7 @@ import torch
 from . import H100_SMS, launched, ran_in_finish, record
 from .build import launcher
 from .collision import _require, _stream
+from ..collision import smooth_shift
 from ..pz.basis import KBasis
 
 MAX_B, MAX_F, MAX_DEG = 128, 8, 3
@@ -86,6 +87,7 @@ class AlmArgs(ctypes.Structure):
                 ("col_margin", ctypes.c_float), ("thr_grasp", ctypes.c_float),
                 ("tp", ctypes.c_float), ("dts", ctypes.c_float),
                 ("g_tp", ctypes.c_float), ("g_ts", ctypes.c_float),
+                ("tau", ctypes.c_float), ("tau_log2c", ctypes.c_float),
                 ("degs", ctypes.c_ubyte * (MAX_B * MAX_F)), ("epi", AlmEpilogue)]
 
 
@@ -134,9 +136,10 @@ def _bezier_weights(s: float):
 def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     """Gather and check a plan's inputs to K7 / K8 (three small launches per
     solve: the torque limits, the trajectory scalars, the state limits).  A
-    plan with grasp rows (prob.grasp) passes them as views: no copy."""
-    if cfg.smooth_obstacle_constraints:
-        raise NotImplementedError("smooth obstacle constraints are not ported yet")
+    plan with grasp rows (prob.grasp) passes them as views: no copy.  In
+    the smooth collision mode (cfg.smooth_obstacle_constraints with
+    smooth_tau > 0) the screened rows take K4's log-sum-exp: AlmArgs.tau and
+    tau_log2c (0 in the hard mode)."""
     Wn, F = prob.q_des.shape
     if F not in FACTORS or F != basis.nf:
         raise ValueError(f"the ALM kernels take F in {FACTORS} matching the basis, got {F}")
@@ -217,7 +220,15 @@ def alm_rows(prob, cfg, basis: KBasis) -> AlmRows:
     args.thr_state = 0.5 * cfg.state_limit_margin
     args.col_margin = cfg.collision_search_margin
     args.thr_grasp = cfg.grasp_violation_threshold
+    tau = cfg.smooth_tau if cfg.smooth_obstacle_constraints else 0.0
+    if tau > 0:
+        args.tau, args.tau_log2c = tau, float(smooth_shift(tau, C, torch.float32))
     return AlmRows(prob=prob, cfg=cfg, basis=basis, tensors=tensors, args=args, M=M)
+
+
+def _smooth_key(rows: AlmRows) -> tuple:
+    """The record key's mark of a smooth-mode plan: ("smooth", tau), else ()."""
+    return ("smooth", float(rows.cfg.smooth_tau)) if rows.args.tau > 0 else ()
 
 
 def _state(rows: AlmRows, k, lam, rho, Q: int):
@@ -323,7 +334,7 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False, epi=None):
     cost = torch.empty(Wn, S, device=dev, dtype=torch.float32)
     g = torch.empty(Wn, S, F, device=dev, dtype=torch.float32) if want_system else None
     H = torch.empty(Wn, S, F, F, device=dev, dtype=torch.float32) if want_system else None
-    record("alm_newton", (Wn, S, rows.M, want_system), (rows, k, lam, rho))
+    record("alm_newton", (Wn, S, rows.M, want_system) + _smooth_key(rows), (rows, k, lam, rho))
     if Wn * S:
         geo = k7_geometry(Wn, S, 3 * a.TJ, a.TF + a.TG, a.K,
                           torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -426,7 +437,8 @@ def alm_values(rows: AlmRows, kq, lam, rho, seed_of_q, want_c: bool = False, epi
     feas = torch.empty(Wn, Q, device=dev, dtype=torch.bool)
     cost = torch.empty(Wn, Q, device=dev, dtype=torch.float32)
     c = torch.empty(Wn, Q, M, device=dev, dtype=torch.float32) if want_c else None
-    record("alm_values", (Wn, Q, S, rows.M, want_c), (rows, kq, lam, rho, seed_of_q, want_c))
+    record("alm_values", (Wn, Q, S, rows.M, want_c) + _smooth_key(rows),
+           (rows, kq, lam, rho, seed_of_q, want_c))
     if Wn * Q:
         geo = k8_geometry(Wn, Q, 3 * a.TJ + a.TF + a.TG, a.K,
                           torch.cuda.get_device_properties(dev).multi_processor_count)

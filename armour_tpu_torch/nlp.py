@@ -250,8 +250,6 @@ def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
     [W, Q, M, F].  Ordering: [torque_hi; torque_lo; grasp (when the plan
     has them); collision; pos_min_lo; pos_min_hi; pos_max_lo; pos_max_hi;
     vel_min_lo; vel_min_hi; vel_max_lo; vel_max_hi]."""
-    if cfg.smooth_obstacle_constraints:
-        raise NotImplementedError("smooth obstacle constraints are not ported yet")
     F = k.shape[-1]
     phi = basis.phi(k)
     dphi = basis.dphi(k) if with_grad else None
@@ -274,8 +272,9 @@ def constraint_stack(k, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis,
 
     p_all = eval_link_polys(prob.frs, phi)
     dp_all = eval_link_poly_grads(prob.frs, dphi) if with_grad else None
-    g_col, dg_col = screened_rows(prob.screened, p_all, dp_all)
-    # plan with extra clearance; the certification stays exact
+    tau = cfg.smooth_tau if cfg.smooth_obstacle_constraints else 0.0
+    g_col, dg_col = screened_rows(prob.screened, p_all, dp_all, smooth_tau=tau)
+    # plan with extra clearance; the certification (max_violations) stays exact
     cs.append(g_col + cfg.collision_search_margin)
     if with_grad:
         Js.append(dg_col)
@@ -451,13 +450,24 @@ def alm_newton_system(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: 
     return g, H, c
 
 
+def newton_step(H, g):
+    """H^-1 g [..., F] by Cholesky, NaN in every entry where the
+    factorisation fails (a pivot <= 0 or NaN: H is SPD in exact arithmetic,
+    but a float32 H whose rows carry rho up to 1e6 can lose the 1e-3
+    regulariser), as jax.scipy.linalg.cho_factor / cho_solve give it; the
+    line search then meets NaN merits and keeps its iterate.  LAPACK's
+    partial factor would give a finite step from the failed pivot on."""
+    L, info = torch.linalg.cholesky_ex(H)
+    step = torch.cholesky_solve(g[..., None], L)[..., 0]
+    return torch.where((info == 0)[..., None], step, torch.full_like(step, math.nan))
+
+
 def alm_newton_plain(k, lam, rho, prob: PlanProblem, cfg: ArmourConfig, basis: KBasis):
     """Plain version of kernel K7: (step [W,S,F], m0 [W,S], feas [W,S],
     cost [W,S]).  step = H^-1 g by Cholesky (H is SPD), m0 = cost + penalty,
     feas = every clipped row within its threshold, cost = plan_cost at k."""
     g, H, c = alm_newton_system(k, lam, rho, prob, cfg, basis)
-    L, _ = torch.linalg.cholesky_ex(H)
-    step = torch.cholesky_solve(g[..., None], L)[..., 0]
+    step = newton_step(H, g)
     cost = plan_cost(k, prob.traj, prob.q_des, prob.limits.continuous, cfg)
     m0 = cost + _penalty(c, lam, rho)
     feas = torch.all(c <= _stack_thresholds(prob, cfg), dim=-1)

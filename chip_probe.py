@@ -61,6 +61,18 @@ checkouts whose reduce_links sum in other orders still hand K3 the same
 cells).  Copied into an older checkout, it times and digests that one in
 turns with this one (older, this, this, older).
 
+    python3 chip_probe.py --nonfinite
+
+plans the dumbbell's W = 64 grasp step (chip_smoke.py phase 13's
+configuration, contact (1.5, 0.5)) in the hard and the smooth collision mode
+and solves each plan three ways: plain (nlp.newton_step's float32 Cholesky,
+on the card), eager (K7 / K8 with the plain bookkeeping: the fused solve's
+bits) and fused.  For the plain solve it lists every (call, world, seed)
+whose Cholesky fails, with the float64 eigenvalues of that float32 H and
+whether a float64 Cholesky of it succeeds; for the eager solve every K7
+step that is not finite; for both the line-search points that are not
+finite and the feasible count, beside the fused solve's.
+
     python3 chip_probe.py --ops
 
 runs on the CPU (no card): the torch ops that one uncertain-COM RNEA call
@@ -239,6 +251,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs the card")
     if "--step" in sys.argv[1:]:
         step_only()
+        return
+    if "--nonfinite" in sys.argv[1:]:
+        nonfinite_only()
         return
     import armour_tpu_torch  # noqa: F401  (precision pins)
     from chip_smoke import card_line, scenes
@@ -461,6 +476,116 @@ def step_only() -> None:
     print("  dumbbell grasp step: " + ", ".join(
         f"{lb} {out[lb + '_step_ms']:.3f} ms, {out[lb + '_feasible']} of 64 feasible, digest "
         f"{out[lb + '_result_digest']}" for lb in ("grasp", "grasp_tight")))
+    print(card)
+    print(json.dumps(out))
+
+
+def nonfinite_only() -> None:
+    """--nonfinite: where the dumbbell's grasp solve meets a failed float32
+    Cholesky (see the module docstring)."""
+    import numpy as np
+
+    import armour_tpu_torch  # noqa: F401  (precision pins)
+    from chip_smoke import GRASP_PERMISSIVE, GRASP_V_MAX, SMOOTH_TAU, card_line, scenes
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
+    from armour_tpu_torch.kernels.build import build_all
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+
+    dev = torch.device("cuda")
+    card = card_line()
+    build_all()
+    robot = zoo.kinova_dumbbell()
+    mu, r = GRASP_PERMISSIVE
+    ub = derive_ultimate_bound(robot, v_max=GRASP_V_MAX)
+    basis = make_basis(robot.num_factors, 3)
+    log = {}
+    newton_step, alm_newton = nlp.newton_step, nlp.alm_newton
+    alm_values, alm_values_plain = nlp.alm_values, nlp.alm_values_plain
+
+    def rec_step(H, g):
+        step = newton_step(H, g)
+        _, info = torch.linalg.cholesky_ex(H)
+        bad = torch.nonzero(info != 0).tolist()
+        log["calls"] += 1
+        for w, s_ in bad:
+            H64 = H[w, s_].double()
+            ev = torch.linalg.eigvalsh(H64)
+            log["fails"].append({"call": log["calls"], "world": w, "seed": s_,
+                                 "eig_min": float(ev[0]), "eig_max": float(ev[-1]),
+                                 "f64_cholesky_ok": int(torch.linalg.cholesky_ex(H64)[1]) == 0})
+        return step
+
+    def rec_newton(*a, **kw):
+        out = alm_newton(*a, **kw)
+        log["calls"] += 1
+        for w, s_ in torch.nonzero(~torch.isfinite(out[0]).all(-1)).tolist():
+            log["fails"].append({"call": log["calls"], "world": w, "seed": s_})
+        return out
+
+    def rec_values(fn):
+        def wrapped(kq, *a, **kw):
+            bad = ~torch.isfinite(kq).all(-1)
+            log["nan_points"] += int(bad.sum())
+            log["nan_worlds"] |= set(torch.nonzero(bad.any(-1)).flatten().tolist())
+            return fn(kq, *a, **kw)
+        return wrapped
+
+    out = {"card": card}
+    for mode in ("hard", "smooth"):
+        cfg = ArmourConfig.for_robot(robot, derive_ub=False, ub=ub, dtype=torch.float32,
+                                     grasp_constraints=True, grasp_mu=mu, grasp_support_radius=r,
+                                     smooth_obstacle_constraints=mode == "smooth",
+                                     smooth_tau=SMOOTH_TAU)
+        q = scenes(robot, cfg, 64)
+        args = [torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in q[:4]]
+        obs = ObstacleSet(centers=q[4].centers.to(dev), generators=q[4].generators.to(dev),
+                          mask=q[4].mask.to(dev))
+        prob = plan_problem(*args, obs, robot, cfg, basis)
+        fused = nlp.solve(prob, cfg, basis)
+        for how in ("plain", "eager"):
+            log.update(calls=0, fails=[], nan_points=0, nan_worlds=set())
+            nlp.newton_step, nlp.alm_newton = rec_step, rec_newton
+            nlp.alm_values_plain, nlp.alm_values = rec_values(alm_values_plain), \
+                rec_values(alm_values)
+            try:
+                res = nlp.solve(prob, cfg, basis, **{how: True})
+            finally:
+                nlp.newton_step, nlp.alm_newton = newton_step, alm_newton
+                nlp.alm_values_plain, nlp.alm_values = alm_values_plain, alm_values
+            torch.cuda.synchronize(dev)
+            fails = log["fails"]
+            entry = {"newton_calls": log["calls"], "failed_steps": len(fails),
+                     "failed_worlds": sorted({f["world"] for f in fails}),
+                     "nan_query_points": log["nan_points"],
+                     "nan_query_worlds": sorted(log["nan_worlds"]),
+                     "feasible": int(res.feasible.sum()),
+                     "fused_feasible": int(fused.feasible.sum()),
+                     "verdicts_differ_from_fused": int((res.feasible != fused.feasible).sum())}
+            if how == "plain" and fails:
+                eig_min = np.array([f["eig_min"] for f in fails])
+                eig_max = np.array([f["eig_max"] for f in fails])
+                entry.update(eig_min_range=[float(eig_min.min()), float(eig_min.max())],
+                             eig_max_range=[float(eig_max.min()), float(eig_max.max())],
+                             cond_min=float((eig_max / np.abs(eig_min)).min()),
+                             f64_cholesky_ok=sum(f["f64_cholesky_ok"] for f in fails),
+                             failures=fails[:24])
+            out[f"{mode}_{how}"] = entry
+            print(f"{mode} grasp plan, {how} solve: {len(fails)} of the (call, world, seed) "
+                  f"Newton steps not finite ({'failed float32 Cholesky' if how == 'plain' else 'K7'}"
+                  f") in worlds {entry['failed_worlds']}, {log['nan_points']} line-search points "
+                  f"not finite in worlds {entry['nan_query_worlds']}; feasible {entry['feasible']} "
+                  f"(fused {entry['fused_feasible']}, {entry['verdicts_differ_from_fused']} "
+                  f"verdicts differ)")
+            if how == "plain" and fails:
+                print(f"  the failing float32 H in float64: min eigenvalue "
+                      f"{entry['eig_min_range'][0]:.4g} .. {entry['eig_min_range'][1]:.4g}, max "
+                      f"{entry['eig_max_range'][0]:.4g} .. {entry['eig_max_range'][1]:.4g}, "
+                      f"smallest max / |min| {entry['cond_min']:.4g}; a float64 Cholesky "
+                      f"succeeds on {entry['f64_cholesky_ok']} of {len(fails)}")
     print(card)
     print(json.dumps(out))
 

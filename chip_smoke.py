@@ -5,8 +5,9 @@ kernels' sets, the two entry points plan_from_armour_in and the rest-FRS
 solvability checker, three iterations of a hard scenario, the ARMTD
 (constant-acceleration) trajectory family end to end, the grasp path
 (the Kinova with the dumbbell payload, contact rows on) with a step of
-every zoo robot, and the closed loop of the grasp path and of the zoo
-(the tray trial, the dumbbell at the full width, every zoo robot).
+every zoo robot, the closed loop of the grasp path and of the zoo
+(the tray trial, the dumbbell at the full width, every zoo robot), and the
+smooth collision mode (cfg.smooth_obstacle_constraints).
 
     python3 chip_smoke.py
 
@@ -175,6 +176,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K5 / K6 call of each shape is held against its plain version (the
      later iterations' calls are counted, not compared).  No world may
      raise a safety flag, and K5 and K6 launch once an iteration.
+  15. the smooth collision mode (cfg.smooth_obstacle_constraints, smooth_tau
+     = SMOOTH_TAU: K4's screened rows and K7 / K8 take the log-sum-exp of
+     armour_tpu/collision.py:277-290; the full-set check stays exact):
+     (i) a W = 64 Bernstein step over phase 2's worlds, a warm-up step that
+     records each kernel's inputs, then one counted step (K12, K13, K3, K4,
+     K7, K8, K14, K9, K10, K15, neither K1 nor K2); the recorded K7 / K8 /
+     K14 calls and a plain solve's K4 calls (its smooth screened rows, and
+     the exact full-set check) against their plain versions at phase 3's
+     tolerances, each twice for the same bits (K14 bit for bit), timed,
+     with their bound (bytes, or float32 operations and the expf / logf
+     over the special-function rate, H100_SFU_PER_S); every feasible k
+     certified by the plain exact full-set check; phase 4's solve
+     comparison (fused against eager bit for bit, against plain the same
+     feasible count); the feasible count beside phase 4's, the step's wall
+     time, device time, activities and busy share, K4 / K7 / K8's event and
+     device times beside phases 3 / 4's; the first 8 worlds through the port
+     on the CPU (at most one flip); (ii) the same checks, untimed (phase
+     4's solve comparison too), on phase 12's ARMTD step, phase 13's
+     dumbbell grasp step under (1.5, 0.5) and a W = 8 UR5 step (F = 6);
+     (iii) phase 7 (the rescue profile's solve, strong_config keeps the
+     mode) and phase 8 (make_realtime_planner's calibration, batch-1 p50 /
+     p99 over the first 32 worlds) in the smooth mode, and
+     make_rescue_planner batch-1 on the first 8 worlds, each recorded call
+     held against its plain version; (iv) phase 5's closed loop in the
+     smooth mode (3 iterations, rescue): no safety flag.  The smooth
+     shapes' numbers go into the kernels line's K4 / K7 / K8 entries
+     (smooth_w64; K4's launches and device time: one plain solve's, where
+     its smooth rows run).
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -196,6 +225,10 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
+# expf / logf: one special-function (MUFU) result each, 16 a clock per SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0), 132 SMs at the 1,980 MHz boost clock of the 67 TFLOP/s
+H100_SFU_PER_S = 132 * 16 * 1.98e9
 TOL = 1e-5                      # relative to the summed |terms|, float32
 N_WORLDS = 64
 N_LATENCY = 32
@@ -248,6 +281,7 @@ TRAY_ITERATIONS = 8      # phase 14 (i): tests/test_grasp.py:221
 ZOO_LOOP_ITERATIONS = 2  # phase 14 (iii): each zoo robot's closed loop at W = N_ZOO
 ZOO_GOAL_STEP = 0.2      # rad per joint from each zoo start to its goal there
 ZOO_MOVED = 1e-3         # rad: a phase 14 (iii) world moved if a joint went further
+SMOOTH_TAU = 0.01        # phase 15: cfg.smooth_tau, m (the JAX package's default)
 
 
 def fail(msg: str) -> None:
@@ -406,16 +440,17 @@ def check_hyperplanes(inputs, dev):
 
 def check_rows(inputs, dev):
     """K4 against the plain rows: g within TOL; dg where the best two
-    candidates differ by more than TOL (elsewhere the argmax may flip)."""
+    candidates differ by more than TOL (elsewhere the argmax may flip); in
+    the smooth mode (no argmax) dg on every row."""
     from armour_tpu_torch import collision as col
     from armour_tpu_torch.kernels import collision as kcol
 
-    A, d, delta, row, mask, p_all, dp_all = inputs
+    A, d, delta, row, mask, p_all, dp_all, tau = inputs
     Wn, Q = p_all.shape[:2]
     R, C = A.shape[-1], A.shape[2]
 
     def kern():
-        return kcol.collision_rows(A, d, delta, row, mask, p_all, dp_all)
+        return kcol.collision_rows(A, d, delta, row, mask, p_all, dp_all, smooth_tau=tau)
 
     if row.dim() == 1:
         # the full-set check: against collision_constraints' plain version
@@ -430,25 +465,41 @@ def check_rows(inputs, dev):
         sc = col.ScreenedCollision(A=A, d=d, delta=delta, row=row, mask=mask)
 
         def plain():
-            return col.screened_rows_plain(sc, p_all, dp_all)
+            return col.screened_rows_plain(sc, p_all, dp_all, smooth_tau=tau)
 
     g, dg = kern()
     g0, dg0 = plain()
-    ok = float((g - g0).abs().max()) <= TOL
-    err = float((g - g0).abs().max())
-    note = f"|dg| {err:.3g}"
+    # a query point that is not finite (a line-search point after a failed
+    # Cholesky: nlp.newton_step gives the JAX package's all-NaN step) gives
+    # NaN rows in both: the same rows, and only there; the rest compared
+    fin = torch.isfinite(g0)
+    at_nan_p = ~torch.isfinite(col._rows_at(p_all, row) if row.dim() == 2
+                               else p_all[..., row.long()]).all(dim=2)  # [W, Q, R]
+    nan_ok = torch.equal(torch.isnan(g), torch.isnan(g0)) and bool((at_nan_p | fin).all())
+    err = float((g - g0)[fin].abs().max()) if bool(fin.any()) else 0.0
+    ok = err <= TOL and nan_ok
+    note = (f"|dg| {err:.3g}; {int((~fin).sum())} rows NaN in the plain version "
+            f"({'the same in the kernel, all at non-finite link centres' if nan_ok else 'NOT the same rows in the kernel'})")
+    if tau > 0:
+        again = kern()
+        same = _bits(g, again[0]) and _bits(dg, again[1])
+        ok = ok and same
+        note += f", a second call {'gives the same bits' if same else 'DIFFERS'}"
     if dp_all is not None:
-        # the best two candidates of every row, from the plain arithmetic
-        p = col._rows_at(p_all, row)
-        Ap = col._dot3(A[:, None], p[:, :, :, None, :], 2)
-        okn = (A.abs().sum(dim=1) > 0)[:, None]
-        big = torch.full_like(Ap, -col.BIG)
-        both = torch.cat([torch.where(okn, Ap - (d + delta)[:, None], big),
-                          torch.where(okn, -Ap - (-d + delta)[:, None], big)], dim=-2)
-        top2 = torch.topk(both, 2, dim=-2).values
-        clear = (top2[:, :, 0] - top2[:, :, 1]) > TOL                  # [W, Q, R]
         dp = col._rows_at(dp_all, row)                                 # [W, Q, 3, F, R]
         mag = (dp.abs().sum(dim=2)).transpose(-1, -2)                  # |A_a| <= 1
+        if tau > 0:
+            clear = fin & torch.isfinite(dg0).all(-1)
+        else:
+            # the best two candidates of every row, from the plain arithmetic
+            p = col._rows_at(p_all, row)
+            Ap = col._dot3(A[:, None], p[:, :, :, None, :], 2)
+            okn = (A.abs().sum(dim=1) > 0)[:, None]
+            big = torch.full_like(Ap, -col.BIG)
+            both = torch.cat([torch.where(okn, Ap - (d + delta)[:, None], big),
+                              torch.where(okn, -Ap - (-d + delta)[:, None], big)], dim=-2)
+            top2 = torch.topk(both, 2, dim=-2).values
+            clear = fin & ((top2[:, :, 0] - top2[:, :, 1]) > TOL)      # [W, Q, R]
         ratio = float(((dg - dg0).abs() / (TOL * (mag + 1e-6)))[clear].max()) \
             if bool(clear.any()) else 0.0
         ok = ok and ratio <= 1.0
@@ -458,6 +509,9 @@ def check_rows(inputs, dev):
     F = dp_all.shape[3] if dp_all is not None else 0
     nbytes = _nbytes(A, d, delta, row, mask, p_all, dp_all, g, dg)
     flops = Wn * Q * R * (C * 16 + 6 * F)
+    if tau > 0:
+        # the second pass: the candidates again, the weights, Z and the blend
+        flops += Wn * Q * R * (C * 36 + 8)
     return ok, err, kern, plain, nbytes, flops, note
 
 
@@ -484,6 +538,10 @@ def _alm_flops(rows, nq: int, newton: bool) -> int:
            + M * 6)
     if newton:
         per += K * 6 * F + M * (2 * F + F * (F + 1)) + 2 * F ** 3
+    if a.tau > 0:
+        # the smooth mode's second pass: the candidates again, the weights,
+        # Z (and in K7 the blended normal)
+        per += K * (C * (36 if newton else 24) + 8)
     return a.W * nq * per
 
 
@@ -521,7 +579,11 @@ def check_alm_newton(inputs, dev):
     act0 = z0 > 0
     flip = (act0 != (lam + rho[..., None] * ck > 0)).any(-1)
     c0_ = 2 * rows.args.TF + rows.args.TG
-    tie = _collision_ties(rows, k) & act0[..., c0_:c0_ + rows.args.K]
+    if rows.args.tau > 0:
+        # the smooth mode blends the normals: no argmax to tie
+        tie = torch.zeros_like(act0[..., c0_:c0_ + rows.args.K])
+    else:
+        tie = _collision_ties(rows, k) & act0[..., c0_:c0_ + rows.args.K]
     clear = ~(flip | tie.any(-1))                                      # [W, S]
     w = torch.where(act0, rho[..., None], torch.zeros_like(c0))
     le = torch.where(act0, z0, torch.zeros_like(c0))
@@ -1924,7 +1986,7 @@ def solver_phase(prob, cfg, basis, dev) -> dict:
             "solve_eager_device_ms": pe["device_ms"], "solve_eager_busy": pe["busy"], **window}
 
 
-def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
+def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev, label="phase 7") -> None:
     """Phase 7: one solve at the rescue profile (strong_config: 8 x 6
     iterations, seeds 4 -> 2, 4 line-search alphas) over the flagship
     worlds; K7 / K8 against their plain versions at its shapes."""
@@ -1938,7 +2000,7 @@ def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
         prob = plan_problem(*args_dev, obs_dev, robot, strong, basis)
         t, res = wall_s(lambda: nlp.solve(prob, strong, basis), dev)
     n = kernels.counts()
-    print(f"phase 7: rescue-profile solve over W={N_WORLDS} in {t * 1e3:.1f} ms, "
+    print(f"{label}: rescue-profile solve over W={N_WORLDS} in {t * 1e3:.1f} ms, "
           f"{int(res.feasible.sum())} feasible; K7 x{n['alm_newton']}, K8 x{n['alm_values']}, "
           f"K14 x{n['alm_loop']}, "
           f"K9 x{n['fk_chain']}, K10 x{n['rnea_chain']}, K12 x{n['jrs_bernstein']}, "
@@ -1953,7 +2015,7 @@ def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev) -> None:
     captured.clear()
 
 
-def realtime_phase(robot, cfg, one, dev) -> dict:
+def realtime_phase(robot, cfg, one, dev, label="phase 8") -> dict:
     """Phase 8: make_realtime_planner calibrates on the card; batch-1
     latency through the calibrated step over the first N_LATENCY worlds,
     counted; K7 / K8 against their plain versions at the W = 1 shapes."""
@@ -1968,7 +2030,7 @@ def realtime_phase(robot, cfg, one, dev) -> dict:
         lats = [wall_s(lambda a=a: step_rt(*a), dev)[0] for a in one]
     n = kernels.counts()
     p50, p99 = float(np.percentile(lats, 50)), float(np.percentile(lats, 99))
-    print(f"phase 8: real-time calibration in {t_cal:.1f} s: {json.dumps(cal)}")
+    print(f"{label}: real-time calibration in {t_cal:.1f} s: {json.dumps(cal)}")
     print(f"  batch-1 through the calibrated step ({cal['outer_iters']} outer iterations) over "
           f"{len(one)} worlds: p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms against 500 ms; "
           f"fits_budget {cal['fits_budget']}; launches {n}")
@@ -3252,6 +3314,319 @@ def grasp_loop_phase(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the smooth collision mode: K4's screened rows and K7 / K8 by log-sum-exp
+# ---------------------------------------------------------------------------
+
+
+SMOOTH_KERNELS = ("collision_rows", "alm_newton", "alm_values")
+
+
+def _smooth_specials(name, inputs) -> int:
+    """expf and logf of a smooth K4 / K7 / K8 call: 2C + 1 for every
+    (query, screened row)."""
+    if name == "collision_rows":
+        A, p_all = inputs[0], inputs[5]
+        Wn, _, C, R = A.shape
+        return Wn * p_all.shape[1] * R * (2 * C + 1)
+    rows, kq = inputs[0], inputs[1]
+    return rows.args.W * kq.shape[1] * rows.args.K * (2 * rows.args.C + 1)
+
+
+def _smooth_bound(nbytes, flops, specials) -> tuple:
+    """(ms, 'bytes' or 'operations'): bytes over the memory rate, float32
+    operations over their peak and the expf / logf over the special-function
+    rate, the longest."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = max(flops / H100_FP32_FLOP_PER_S, specials / H100_SFU_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_smooth_captures(captured, dev, label, timed: bool) -> dict:
+    """K4 (its smooth screened rows and the exact full-set check), K7 / K8
+    and K14 against their plain versions on every call recorded on a
+    smooth-mode path, at phase 3's tolerances, each run twice for the same
+    bits (K14 bit for bit), timed when asked; fails on a mismatch or when a
+    smooth K4 / K7 / K8 shape or a K14 phase was not recorded.  Returns
+    {name: sums over the smooth shapes} for K4 / K7 / K8."""
+    from armour_tpu_torch.utils.timing import median_ms
+
+    sums, all_ok, loop = {}, True, 0
+    for (name, key), inputs in captured.items():
+        if name == "collision_rows":
+            res = check_rows(inputs, dev)
+        elif name in ALM_KERNELS:
+            res = check_alm(name, key, inputs, dev)
+        else:
+            continue
+        ok, err, kern, plain, nbytes, flops, note = res
+        smooth = "smooth" in key
+        loop += name == "alm_loop"
+        line = f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note})"
+        ms = pms = float("nan")
+        if timed:
+            ms, pms = kernel_ms(kern, dev), median_ms(plain, dev, TIMING_ITERS)
+            line += f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
+        if smooth:
+            spec = _smooth_specials(name, inputs)
+            b_ms, _ = _smooth_bound(nbytes, flops, spec)
+            line += (f", {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP, {spec / 1e6:.2f} M "
+                     f"expf / logf, bound {b_ms:.4f} ms")
+            r = sums.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
+                                       "specials": 0, "err": 0.0, "calls": 0})
+            for f, x in (("ms", ms), ("plain_ms", pms), ("bytes", nbytes), ("flops", flops),
+                         ("specials", spec), ("calls", 1)):
+                r[f] += x
+            r["err"] = max(r["err"], err)
+        print(line)
+        all_ok &= ok
+    missing = [n for n in SMOOTH_KERNELS if n not in sums] + ([] if loop else ["alm_loop"])
+    if missing or not all_ok:
+        fail(f"{label}: smooth-mode kernels against their plain versions: not recorded "
+             f"{missing}, all within tolerance {all_ok}")
+    return sums
+
+
+def smooth_step(label, robot, cfg, basis, args, obs_d, dev, kernels_of_step, timed: bool):
+    """One counted smooth-mode step (a warm-up step records the calls, then
+    the launch counters are set to 0 and read after a second step): every
+    kernel in kernels_of_step must launch, K1 / K2 not; the results' shapes,
+    k finite exactly where feasible, every feasible k certified by the plain
+    exact full-set check; a plain solve of the plan, recorded and counted
+    (K4's smooth screened rows run there: its host and device launches, and
+    when timed their device time in one profiled plain solve); the recorded
+    K4 / K7 / K8 / K14 calls against their plain versions, timed when asked;
+    then solver_phase on the plan (the fused solve against the eager and
+    the plain one).  Returns {res, launches, device_launches, sums, solve,
+    k4_plain, k4_plain_device, k4_plain_device_ms}."""
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.collision import collision_constraints_plain
+    from armour_tpu_torch.planner import make_batch_planner, plan_problem
+    from armour_tpu_torch.utils.timing import wall_s
+
+    step = make_batch_planner(robot, cfg)
+    with kernels.capture() as captured:
+        t_first, _ = wall_s(lambda: step(*args, obs_d), dev)
+    kernels.reset_counts()
+    t_main, res = wall_s(lambda: step(*args, obs_d), dev)
+    launches, dlaunches = kernels.counts(), kernels.device_counts()
+    Wn = args[0].shape[0]
+    print(f"{label}: W={Wn} step {t_main * 1e3:.1f} ms (first call {t_first * 1e3:.1f} ms); "
+          f"launches {launches}")
+    missing = [n for n in kernels_of_step if launches[n] == 0]
+    extra = [n for n in OP_KERNELS if launches[n]]
+    if missing or extra:
+        fail(f"{label}: kernels not launched {missing}, launched but not of the step {extra}")
+    k, feas = res.k, res.feasible
+    if k.shape != (Wn, robot.num_factors) or feas.shape != (Wn,):
+        fail(f"{label}: unexpected result shapes {tuple(k.shape)} {tuple(feas.shape)}")
+    if not bool(torch.isfinite(k[feas]).all()) or bool((k[feas].abs() > 1.0 + 1e-6).any()):
+        fail(f"{label}: a feasible k is not finite or leaves [-1, 1]")
+    if bool(torch.isfinite(k[~feas]).any()):
+        fail(f"{label}: an infeasible world returned a finite k")
+    prob = plan_problem(*args, obs_d, robot, cfg, basis)
+    k_chk = torch.where(feas[:, None], k, torch.zeros_like(k))[:, None]
+    v = torch.stack(nlp.max_violations(k_chk, prob, cfg, basis,
+                                       collision_fn=collision_constraints_plain), dim=-1)[:, 0]
+    cert = nlp.viol_feasible(v, cfg)
+    if not bool(cert[feas].all()):
+        fail(f"{label}: the plain exact full-set check rejects feasible worlds "
+             f"{torch.nonzero(feas & ~cert).flatten().tolist()}")
+    print(f"  {int(feas.sum())}/{Wn} worlds feasible; every feasible k passes the plain exact "
+          f"full-set check")
+    kernels.reset_counts()
+    with kernels.capture() as cap:
+        nlp.solve(prob, cfg, basis, plain=True)
+    k4_plain = kernels.counts()["collision_rows"]
+    k4_dev = kernels.device_counts()["collision_rows"]
+    k4_ms = None
+    if timed:
+        tl = device_timeline(lambda: nlp.solve(prob, cfg, basis, plain=True), dev)
+        smooth_k4 = [us for n, us in tl if "k4_kernel<true>" in n]
+        k4_ms = sum(smooth_k4) / 1e3 if tl else None
+        print(f"  the plain solve: K4's smooth screened rows x{k4_plain} (device launches "
+              f"{k4_dev}; profiled {len(smooth_k4)}), "
+              f"{'not measured' if k4_ms is None else f'{k4_ms:.4f} ms'} of device time")
+    captured.update({kk: vv for kk, vv in cap.items() if kk[0] == "collision_rows"})
+    cap.clear()
+    sums = check_smooth_captures(captured, dev, label, timed)
+    captured.clear()
+    solve = solver_phase(prob, cfg, basis, dev)
+    return {"res": res, "launches": launches, "device_launches": dlaunches, "sums": sums,
+            "solve": solve, "k4_plain": k4_plain, "k4_plain_device": k4_dev,
+            "k4_plain_device_ms": k4_ms}
+
+
+def smooth_phase(robot, cfg, basis, scene, one, dev, hard) -> tuple:
+    """Phase 15: the smooth collision mode (cfg.smooth_obstacle_constraints,
+    smooth_tau = SMOOTH_TAU) on the card, see the module docstring.  hard:
+    phase 4's feasible count, step time, device breakdown and kernel rows.
+    Returns ({K4 / K7 / K8: its smooth shapes' numbers for the kernels
+    line}, numbers)."""
+    import dataclasses
+
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.batch_sim import run_trials_batched
+    from armour_tpu_torch.collision import ObstacleSet, pad_obstacles, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.planner import make_batch_planner, make_rescue_planner, strong_config
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.utils.timing import wall_s
+    from armour_tpu_torch.worlds import load_world_csv
+
+    q0, qd0, qdd0, q_des, obs = scene
+    cfg_s = dataclasses.replace(cfg, smooth_obstacle_constraints=True, smooth_tau=SMOOTH_TAU)
+    args = tuple(torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, qd0, qdd0, q_des))
+    obs_d = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                        mask=obs.mask.to(dev))
+
+    # (i) the W = 64 Bernstein step
+    out = smooth_step(f"phase 15 (i): smooth mode (tau {SMOOTH_TAU} m), Bernstein", robot,
+                      cfg_s, basis, args, obs_d, dev, BERNSTEIN_KERNELS, timed=True)
+    res, launches, sums = out["res"], out["launches"], out["sums"]
+    for name in ("jrs_bernstein", "screen_collision", "reach_assembly"):
+        if launches[name] != 1:
+            fail(f"phase 15 (i): kernel {name} launched {launches[name]} times, not once")
+    n_s = int(res.feasible.sum())
+    solve_cmp = out["solve"]
+    step = make_batch_planner(robot, cfg_s)
+    t_step = statistics.median([wall_s(lambda: step(*args, obs_d), dev)[0] for _ in range(3)])
+    bd = profile_step(lambda: step(*args, obs_d), dev, t_step)
+    print(f"  smooth step {t_step * 1e3:.1f} ms (median of 3) beside the hard step "
+          f"{hard['step_s'] * 1e3:.1f} ms (phase 4); {bd.get('device_activities', 'not measured')}"
+          f" device activities, busy share {bd.get('device_busy_share', float('nan')):.3f}; "
+          f"feasible {n_s}/{N_WORLDS} beside the hard mode's {hard['feasible']}/{N_WORLDS}")
+    hard_ms = {r["name"]: r["ms"] for r in hard["krows"]}
+    rows = {}
+    for name in SMOOTH_KERNELS:
+        s = sums[name]
+        b_ms, b_by = _smooth_bound(s["bytes"], s["flops"], s["specials"])
+        d_h = hard["breakdown"].get("hand_device_ms", {}).get(name, float("nan"))
+        if name == "collision_rows":
+            # K4's smooth rows run in the plain solve only (the step's K4
+            # call is the exact full-set check): one plain solve's launches
+            # and device time
+            n_l, n_d, d_s = out["k4_plain"], out["k4_plain_device"], out["k4_plain_device_ms"]
+            where = "one plain solve"
+        else:
+            n_l, n_d = launches[name], out["device_launches"][name]
+            d_s = bd.get("hand_device_ms", {}).get(name)
+            where = "one smooth step"
+        rows[name] = {"launches": n_l, "device_launches": n_d, "device_ms_in": where,
+                      "max_abs_err": s["err"],
+                      "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None, "variants": s["calls"],
+                      "specials": s["specials"], "device_ms": d_s}
+        d_txt = "not measured" if d_s is None else f"{d_s:.4f} ms"
+        print(f"  {name}, smooth shapes: event {s['ms']:.4f} ms over {s['calls']} shapes "
+              f"(hard, phase 3: {hard_ms.get(name, float('nan')):.4f}), device {d_txt} in "
+              f"{where} (hard, in phase 4's step: {d_h:.4f}), bound {b_ms:.4f} ms ({b_by}: "
+              f"{s['bytes'] / 1e6:.1f} MB, {s['flops'] / 1e9:.3f} GFLOP, "
+              f"{s['specials'] / 1e6:.2f} M expf / logf), plain {s['plain_ms']:.4f} ms")
+    cpu_step = make_batch_planner(robot, cfg_s, device="cpu")
+    t_cpu, res_cpu = wall_s(lambda: cpu_step(q0[:N_CPU], qd0[:N_CPU], qdd0[:N_CPU],
+                                             q_des[:N_CPU], obs_slice(obs, slice(0, N_CPU))),
+                            "cpu")
+    card_v, cpu_v = res.feasible[:N_CPU].cpu().tolist(), res_cpu.feasible.tolist()
+    flips = sum(a != b for a, b in zip(card_v, cpu_v))
+    print(f"  first {N_CPU} worlds feasible in the smooth mode: card {card_v}, CPU plain "
+          f"{cpu_v} ({flips} differ; CPU step {t_cpu:.1f} s)")
+    if flips > 1:
+        fail("phase 15 (i): card and CPU verdicts differ on more than one world")
+
+    # (ii) the ARMTD step, the dumbbell's grasp step, the UR5's W = 8 step
+    cfg_a = dataclasses.replace(cfg_s, traj_family="armtd")
+    a_args = (args[0], armtd_inputs(args[0], cfg, N_WORLDS, dev), args[2], args[3])
+    out_a = smooth_step("phase 15 (ii): smooth ARMTD", robot, cfg_a, basis, a_args, obs_d, dev,
+                        ("jrs_armtd",) + STEP_KERNELS, timed=False)
+    dumbbell = zoo.kinova_dumbbell()
+    mu, rr = GRASP_PERMISSIVE
+    cfg_g = ArmourConfig.for_robot(dumbbell, derive_ub=False,
+                                   ub=derive_ultimate_bound(dumbbell, v_max=GRASP_V_MAX),
+                                   dtype=torch.float32, grasp_constraints=True, grasp_mu=mu,
+                                   grasp_support_radius=rr, smooth_obstacle_constraints=True,
+                                   smooth_tau=SMOOTH_TAU)
+    gq = scenes(dumbbell, cfg_g, N_WORLDS)
+    g_args = tuple(torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in gq[:4])
+    g_obs = ObstacleSet(centers=gq[4].centers.to(dev), generators=gq[4].generators.to(dev),
+                        mask=gq[4].mask.to(dev))
+    out_g = smooth_step(
+        f"phase 15 (ii): smooth grasp ({dumbbell.name}, contact {mu}, {rr})", dumbbell, cfg_g,
+        make_basis(dumbbell.num_factors, cfg_g.max_poly_degree), g_args, g_obs, dev,
+        BERNSTEIN_KERNELS + ("grasp_rows",), timed=False)
+    ur5 = zoo.load_zoo_robot("ur5")
+    cfg_u = ArmourConfig.for_robot(ur5, dtype=torch.float32, smooth_obstacle_constraints=True,
+                                   smooth_tau=SMOOTH_TAU)
+    lo = np.maximum(ur5.position_limits_lb, -np.pi)
+    hi = np.minimum(ur5.position_limits_ub, np.pi)
+    uq = (lo + hi) / 2.0 + np.random.default_rng(15).uniform(-0.1, 0.1, (N_ZOO, 6))
+    worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:N_ZOO]]
+    u_obs = stack_obstacles([pad_obstacles(w.obstacle_centers, w.obstacle_generators,
+                                           cfg_u.max_obstacles, cfg_u.dtype) for w in worlds])
+    u_obs_d = ObstacleSet(centers=u_obs.centers.to(dev), generators=u_obs.generators.to(dev),
+                          mask=u_obs.mask.to(dev))
+    uqd = torch.as_tensor(uq, dtype=cfg.dtype).to(dev)
+    uz = torch.zeros_like(uqd)
+    out_u = smooth_step("phase 15 (ii): smooth UR5 (F = 6)", ur5, cfg_u,
+                        make_basis(6, cfg_u.max_poly_degree), (uqd, uz, uz, uqd + 0.05), u_obs_d,
+                        dev, BERNSTEIN_KERNELS, timed=False)
+
+    # (iii) the rescue profile and the real-time planner in the smooth mode,
+    # every K7 / K8 / K14 / K9 / K10 / K12 / K13 / K15 shape held against its
+    # plain version as phases 7 and 8 hold the hard mode's
+    if not strong_config(cfg_s).smooth_obstacle_constraints:
+        fail("phase 15 (iii): strong_config dropped the smooth mode")
+    rescue_phase(robot, cfg_s, basis, args, obs_d, dev, label="phase 15 (iii): smooth")
+    rescue = make_rescue_planner(robot, cfg_s)
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        t_r = [wall_s(lambda a=a: rescue(*a), dev) for a in one[:N_CPU]]
+    n = kernels.counts()
+    print(f"  smooth rescue planner (make_rescue_planner) batch-1 over {N_CPU} worlds: "
+          f"{statistics.median(t for t, _ in t_r[1:]) * 1e3:.1f} ms (median after the first), "
+          f"feasible {sum(bool(r.feasible) for _, r in t_r)}/{N_CPU}; launches {n}")
+    if any(n[k] == 0 for k in BERNSTEIN_KERNELS):
+        fail("phase 15 (iii): a kernel of the step was not launched by the rescue planner")
+    check_alm_captures(captured, dev, "smooth rescue planner (W = 1)")
+    check_chain_captures(captured, dev, "smooth rescue planner (W = 1)")
+    check_jrs_screen_captures(captured, dev, "smooth rescue planner (W = 1)")
+    captured.clear()
+    rt = realtime_phase(robot, cfg_s, one, dev, label="phase 15 (iii): smooth")
+
+    # (iv) the flagship's closed loop in the smooth mode, as phase 5
+    worlds = [load_world_csv(p) for p in sorted(glob.glob("saved_worlds/random/*.csv"))[:N_WORLDS]]
+    stats: dict = {}
+    kernels.reset_counts()
+    t_loop, summaries = wall_s(lambda: run_trials_batched(
+        worlds, robot, cfg_s, max_iterations=LOOP_ITERATIONS, true_param_scale=1.0, seed=0,
+        rescue_solver=True, guidance="straight", stats=stats), dev)
+    n = kernels.counts()
+    n_it = stats["batch_iterations"]
+    flagged = _flagged(summaries)
+    print(f"phase 15 (iv): smooth closed loop W={N_WORLDS}, {n_it} lockstep iterations with "
+          f"rescue in {t_loop:.1f} s; launches {n}; infeasible plans "
+          f"{sum(x.infeasible_plans for x in summaries)}, rescued {stats['recovered_rows']}/"
+          f"{stats['rescued_rows']} rows; safety flags in worlds {flagged}")
+    if n_it < 1 or any(n[k] == 0 for k in BERNSTEIN_KERNELS):
+        fail("phase 15 (iv): no iteration, or a kernel of the step was not launched")
+    if n["rollout"] != n_it or n["oracle_check"] != n_it:
+        fail(f"phase 15 (iv): K5 x{n['rollout']}, K6 x{n['oracle_check']} in {n_it} iterations")
+    if flagged:
+        fail(f"phase 15 (iv): worlds {flagged} raised a safety flag")
+    perf = {"smooth_tau": SMOOTH_TAU, "smooth_feasible": n_s, "hard_feasible": hard["feasible"],
+            "smooth_step_ms": t_step * 1e3, "smooth_cpu_flips": flips,
+            **{f"smooth_{lab}_feasible": int(o["res"].feasible.sum())
+               for lab, o in (("armtd", out_a), ("grasp", out_g), ("ur5", out_u))},
+            **{f"smooth_{lab}_solve": o["solve"]
+               for lab, o in (("armtd", out_a), ("grasp", out_g), ("ur5", out_u))},
+            **{f"smooth_{kk}": vv for kk, vv in rt.items()}, "smooth_loop_iterations": n_it,
+            "smooth_loop_wall_s": t_loop,
+            **{f"smooth_{kk}": vv for kk, vv in solve_cmp.items()},
+            **{f"smooth_{kk}": vv for kk, vv in bd.items()}}
+    return rows, perf
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3458,6 +3833,14 @@ def main() -> None:
                     "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "serial_chain_ms", "device_ms") if k in r9}
 
+    # ---- phase 15: the smooth collision mode ----
+    smooth_rows, smooth_perf = smooth_phase(
+        robot, cfg, basis, (q0, qd0, qdd0, q_des, obs), one, dev,
+        {"feasible": n_feas, "step_s": t_step, "breakdown": breakdown, "krows": krows})
+    for row in krows:
+        if row["name"] in smooth_rows:
+            row["smooth_w64"] = smooth_rows[row["name"]]
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -3466,7 +3849,7 @@ def main() -> None:
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown, **window,
             **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf,
-            "grasp_loop": loop9}
+            "grasp_loop": loop9, **smooth_perf}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

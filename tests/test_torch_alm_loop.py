@@ -922,15 +922,16 @@ def test_k8_max_mode_and_costs_match_the_plain_versions_on_the_card(family):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [False, True], ids=["hard", "smooth"])
 @pytest.mark.parametrize("family", ["bernstein", "armtd", "grasp"])
-def test_fused_solve_matches_the_eager_solve_on_the_card(family):
+def test_fused_solve_matches_the_eager_solve_on_the_card(family, smooth):
     """The solve with K14 (its phases in K7's / K8's finish) against the
     eager solve (K7 / K8 and the plain bookkeeping) on the same problem:
     k, feasible, cost and viol bit for bit, with and without the cull and
     from one start (k0); in both families and with the grasp group (a
-    dumbbell plan, F = 7 of J = 9).  The fused solve launches K14 twice
-    (the cull and the selection) and runs every other phase in a row
-    pass."""
+    dumbbell plan, F = 7 of J = 9), in the hard and the smooth collision
+    mode.  The fused solve launches K14 twice (the cull and the selection)
+    and runs every other phase in a row pass."""
     from armour_tpu_torch import kernels
 
     dev = _card()
@@ -940,6 +941,7 @@ def test_fused_solve_matches_the_eager_solve_on_the_card(family):
         _, cfg, basis, prob = _grasp_problem(dev)
     else:
         cfg, basis, prob = _port_problem(family, torch.float32, 3, dev)
+    cfg = dataclasses.replace(cfg, smooth_obstacle_constraints=smooth)
     kernels.reset_counts()
     tnlp.solve(prob, cfg, basis)
     assert kernels.counts()["alm_loop"] == 2

@@ -11,6 +11,7 @@ held against their plain versions on the card in
 tests/test_torch_kernel_geometry.py)."""
 
 import dataclasses
+import functools
 import math
 
 import jax
@@ -269,6 +270,69 @@ def test_plan_step_armtd_matches_jax():
         pad_obstacles(np.array([[0.7, 0.7, 0.5]]), np.diag([0.05] * 3)[None],
                       T_CFG.max_obstacles, F64))
     assert torch.equal(one.k, got.k[0]) and torch.equal(one.cost, got.cost[0])
+
+
+def _np_fields(obj):
+    """The array fields of a JAX dataclass as numpy, with a worlds axis."""
+    return {f.name: np.array(getattr(obj, f.name))[None]
+            for f in dataclasses.fields(obj) if f.name not in ("dims", "family")}
+
+
+@functools.lru_cache(maxsize=1)
+def _armtd_plan():
+    """tests/test_armtd.py's ARMTD plan in the JAX package, and the same
+    plan carried into the port through convert.py (built once)."""
+    from armour_tpu.collision import build_hyperplanes, screen_collision
+    from armour_tpu.dynamics import torque_frs
+    from armour_tpu.kinematics import forward_occupancy, reduce_links
+
+    q0, qd0, q_des, obs = _jax_problem()
+
+    @jax.jit
+    def build(q0, qd0, q_des):
+        jrs = j_armtd.build_jrs_armtd(q0, qd0, J_ROBOT, J_CFG, J_BASIS)
+        frs = reduce_links(forward_occupancy(jrs, J_ROBOT, J_CFG, J_BASIS), J_BASIS)
+        hyp = build_hyperplanes(frs, obs)
+        return j_nlp.PlanProblem(
+            traj=jrs.traj, q_des=q_des, torque=torque_frs(jrs, J_ROBOT, J_CFG, J_BASIS),
+            frs=frs, hyp=hyp, obs=obs, screened=screen_collision(hyp, obs, frs, J_CFG.screen_k))
+
+    jp = build(q0, qd0, q_des)
+    tp = nlp.PlanProblem(
+        traj=TrajectoryCoeffs(**{k: torch.as_tensor(v) for k, v in _np_fields(jp.traj).items()},
+                              family="armtd"),
+        q_des=torch.as_tensor(np.array(jp.q_des))[None],
+        torque=convert.torque_frs_from_numpy(**_np_fields(jp.torque)),
+        frs=convert.linkfrs_from_numpy(**_np_fields(jp.frs)),
+        hyp=convert.hyperplanes_from_numpy(dims=jp.hyp.dims, **_np_fields(jp.hyp)),
+        obs=convert.obstacles_from_numpy(**_np_fields(jp.obs)),
+        screened=convert.screened_from_numpy(**_np_fields(jp.screened)),
+        limits=nlp.robot_limits(T_ROBOT, F64, "cpu"))
+    return jp, tp
+
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["off", "on"])
+def test_armtd_constraint_stack_matches_jax(smooth):
+    """An ARMTD plan's constraint stack (torque, collision, state rows) and
+    its Jacobian at sampled k, and the full-set violations, against the JAX
+    package's on tests/test_armtd.py's problem, in the hard and the smooth
+    collision mode."""
+    jp, tp = _armtd_plan()
+    j_cfg = dataclasses.replace(J_CFG, traj_family="armtd", smooth_obstacle_constraints=smooth)
+    t_cfg = dataclasses.replace(T_CFG, traj_family="armtd", smooth_obstacle_constraints=smooth)
+    assert bool(tp.screened.mask.any())
+    ks = np.random.default_rng(13).uniform(-1, 1, (3, 7))
+    c, J = nlp.constraint_stack(_t(ks)[None], tp, t_cfg, T_BASIS)
+    v = nlp.max_violations(_t(ks)[None], tp, t_cfg, T_BASIS)
+    stack = jax.jit(lambda k: j_nlp.constraint_stack(k, jp, J_ROBOT, j_cfg, J_BASIS))
+    viol = jax.jit(lambda k: jnp.stack(j_nlp.max_violations(k, jp, J_ROBOT, j_cfg, J_BASIS)))
+    for q, k in enumerate(ks):
+        jc, jJ = stack(jnp.asarray(k))
+        close(c[0, q], jc)
+        close(J[0, q], jJ)
+        jv = viol(jnp.asarray(k))
+        for i, t in enumerate(v):
+            close(t[0, q], jv[i])
 
 
 def test_unknown_family_raises():

@@ -270,7 +270,8 @@ def _c_struct_fields(source: str, name: str):
     ("jrs_tail.cuh", (kjrs.JrsTrig,)),
     ("jrs_armtd.cu", (kjrs.K11Args,)),
     ("jrs_bernstein.cu", (kjrs.K12Args,)),
-    ("screen_collision.cu", (kcol.K13Args,))])
+    ("screen_collision.cu", (kcol.K13Args,)),
+    ("collision_rows.cu", (kcol.K4Args,))])
 def test_closed_loop_structs_match_the_sources(src, structs):
     """The ctypes mirrors list the C structs' fields in the same order (no
     compiler here checks the layout)."""

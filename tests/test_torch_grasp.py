@@ -315,13 +315,15 @@ def _j_problem(q_des, obs, cfg):
     return build(_j_wrench("kinova_dumbbell", 0.0)[0], q_des, obs)
 
 
-def test_grasp_problem_matches_jax():
+@pytest.mark.parametrize("smooth", [False, True], ids=["off", "on"])
+def test_grasp_problem_matches_jax(smooth):
     """The slice as a whole: a grasp plan's constraint stack (torque, grasp,
     collision, state rows), its Jacobian and the full-set violations at
     sampled k, through planner.problem_from_jrs against the JAX package's
-    stages."""
+    stages, in the hard and the smooth collision mode."""
     jcfg = dataclasses.replace(J_CFG, grasp_constraints=True, grasp_mu=1.5,
-                               grasp_support_radius=0.5, max_obstacles=4, screen_k=64)
+                               grasp_support_radius=0.5, max_obstacles=4, screen_k=64,
+                               smooth_obstacle_constraints=smooth)
     cfg = convert.config_from_fields({f.name: getattr(jcfg, f.name)
                                       for f in dataclasses.fields(jcfg)})
     c = np.array([[0.5, 0.4, 0.6], [2.0, 2.0, 2.0]])
@@ -375,3 +377,72 @@ def test_grasp_rows_gate_the_planner():
     assert float(res["ok"].viol[3]) <= 1e-4
     assert not bool(res["tight"].feasible)
     assert bool(torch.isnan(res["tight"].k).all())
+
+
+@pytest.mark.slow
+def test_float32_grasp_solves_meet_failed_cholesky_in_both_packages(monkeypatch):
+    """In float32 the grasp plan's Gauss-Newton H can lose its 1e-3
+    regulariser to rounding (rows carry rho up to 1e6), so its Cholesky
+    fails: the JAX package's solve meets such factors too, its cho_factor
+    giving the all-NaN step that nlp.newton_step gives.  The dumbbell's
+    grasp plan in the smooth mode at T = 48 (contact (1.5, 0.5), V_max 5e-4,
+    screen_k 512) on six saved worlds whose full-size plan failed on the
+    card: both packages' float32 solves meet failed factors (on which
+    (world, seed) is a matter of rounding), give every world the same
+    verdict, and the port's failed steps are NaN."""
+    import glob
+
+    import jax.scipy.linalg as jsl
+
+    from armour_tpu.config import derive_ultimate_bound as j_dub
+    from armour_tpu.planner import make_planner as j_make_planner
+    from armour_tpu.worlds import load_world_csv, straight_line_waypoint
+    from armour_tpu_torch.planner import make_batch_planner
+
+    paths = sorted(glob.glob("saved_worlds/random/*.csv"))
+    worlds = [load_world_csv(paths[i]) for i in (12, 19, 22, 37, 52, 54)]
+    jcfg = JConfig.for_robot(J_ROBOT, derive_ub=False, ub=j_dub(J_ROBOT, v_max=5e-4),
+                             dtype=jnp.float32, num_time_steps=48, screen_k=512,
+                             grasp_constraints=True, grasp_mu=1.5, grasp_support_radius=0.5,
+                             smooth_obstacle_constraints=True)
+    q0 = np.stack([w.start for w in worlds]).astype(np.float32)
+    q_des = np.stack([straight_line_waypoint(w.start, w.goal,
+                                             continuous=J_ROBOT.continuous_joints)
+                      for w in worlds]).astype(np.float32)
+    z = np.zeros_like(q0)
+
+    j_failed = []
+    cho_factor = jsl.cho_factor
+
+    def recording_cho_factor(H, *args, **kwargs):
+        c = cho_factor(H, *args, **kwargs)
+        jax.debug.callback(lambda L: j_failed.append(bool(np.isnan(np.asarray(L)).any())), c[0])
+        return c
+
+    monkeypatch.setattr(jsl, "cho_factor", recording_cho_factor)
+    j_step = j_make_planner(J_ROBOT, jcfg)
+    j_feas = []
+    for i, w in enumerate(worlds):
+        obs = j_pad(w.obstacle_centers, w.obstacle_generators, jcfg.max_obstacles, jnp.float32)
+        j_feas.append(bool(j_step(q0[i], z[i], z[i], q_des[i], obs).feasible))
+    jax.effects_barrier()
+
+    t_failed = []
+    newton_step = nlp.newton_step
+
+    def recording_newton_step(H, g):
+        step = newton_step(H, g)
+        bad = torch.linalg.cholesky_ex(H)[1] != 0
+        assert bool(torch.isnan(step[bad]).all()) and bool(torch.isfinite(step[~bad]).all())
+        t_failed.append(int(bad.sum()))
+        return step
+
+    monkeypatch.setattr(nlp, "newton_step", recording_newton_step)
+    cfg = convert.config_from_fields({f.name: getattr(jcfg, f.name)
+                                      for f in dataclasses.fields(jcfg)})
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    obs = stack_obstacles([pad_obstacles(w.obstacle_centers, w.obstacle_generators,
+                                         cfg.max_obstacles, torch.float32) for w in worlds])
+    res = make_batch_planner(t_robot(J_ROBOT), cfg, device="cpu")(q0, z, z, q_des, obs)
+    assert sum(j_failed) > 0 and sum(t_failed) > 0, (sum(j_failed), sum(t_failed))
+    assert res.feasible.tolist() == j_feas

@@ -1683,6 +1683,192 @@ def test_alm_args_carry_the_grasp_group(monkeypatch, grasp):
 
 
 # ---------------------------------------------------------------------------
+# the smooth collision mode (cfg.smooth_obstacle_constraints): K4's screened
+# rows and K7 / K8 take a log-sum-exp over the rows' candidates
+# ---------------------------------------------------------------------------
+
+
+def test_k4_refuses_the_smooth_mode_on_the_full_set():
+    """The full-set check (a row index [R] shared by every world) stays
+    exact: K4's launcher refuses smooth_tau > 0 there before it looks at a
+    device."""
+    from armour_tpu_torch.kernels import collision as kcol
+
+    Wn, C, R, TJ = 2, 36, 12, 4
+    A = torch.zeros(Wn, 3, C, R)
+    d = torch.zeros(Wn, C, R)
+    mask = torch.ones(Wn, R, dtype=torch.bool)
+    p = torch.zeros(Wn, 1, 3, TJ)
+    row = torch.arange(R, dtype=torch.int32) % TJ
+    with pytest.raises(ValueError, match="smooth mode takes screened rows"):
+        kcol.collision_rows(A, d, d, row, mask, p, smooth_tau=0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        kcol.collision_rows(A, d, d, row, mask, p)
+
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["off", "on"])
+def test_alm_args_carry_the_smooth_mode(monkeypatch, smooth):
+    """alm_rows sets AlmArgs.tau to cfg.smooth_tau and tau_log2c to
+    collision.smooth_shift's float32 tau log(2C) in the smooth mode, both 0
+    otherwise (whatever smooth_tau holds); a T = 4 Kinova plan on the CPU,
+    the device check stubbed."""
+    from armour_tpu_torch.collision import pad_obstacles, smooth_shift, stack_obstacles
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+
+    cfg = ArmourConfig(dtype=torch.float32, num_time_steps=4, max_obstacles=4, screen_k=64,
+                       smooth_obstacle_constraints=smooth, smooth_tau=0.02)
+    basis = make_basis(7, 3)
+    obs = stack_obstacles([pad_obstacles(np.array([[0.5, 0.4, 0.6]]),
+                                         np.diag([0.05] * 3)[None], 4, torch.float32)] * 2)
+    q0 = torch.full((2, 7), 0.1)
+    prob = plan_problem(q0, torch.zeros_like(q0), torch.zeros_like(q0), q0 + 0.05, obs,
+                        kinova_gen3(), cfg, basis)
+    monkeypatch.setattr(ks, "_require", lambda *a, **k: None)
+    rows = ks.alm_rows(prob, cfg, basis)
+    a = rows.args
+    if smooth:
+        assert a.tau == np.float32(0.02)
+        assert a.tau_log2c == float(smooth_shift(0.02, a.C, torch.float32))
+        assert abs(a.tau_log2c - 0.02 * np.log(2 * a.C)) <= 1e-8
+    else:
+        assert a.tau == 0.0 and a.tau_log2c == 0.0
+    assert ks._smooth_key(rows) == (("smooth", 0.02) if smooth else ())
+
+
+def _smooth_problem(dev, grasp: bool):
+    """_small_problem / _grasp_problem with the smooth mode on (the plan's
+    sets and rows do not depend on it)."""
+    robot, cfg, basis, prob = (_grasp_problem if grasp else _small_problem)(dev)
+    return robot, dataclasses.replace(cfg, smooth_obstacle_constraints=True), basis, prob
+
+
+@pytest.mark.cuda
+def test_k4_smooth_rows_match_plain_on_the_card():
+    """K4's smooth screened rows against screened_rows_plain: g within 1e-5,
+    dg/dk within 1e-5 of sum_a |dp_a| on every row (no argmax to flip),
+    the same bits on a second call; the full set is refused."""
+    from armour_tpu_torch import collision as col
+    from armour_tpu_torch.kernels import collision as kcol
+
+    dev = _card()
+    _, cfg, basis, prob = _smooth_problem(dev, False)
+    sc = prob.screened
+    g = torch.Generator().manual_seed(3)
+    k = ((torch.rand(sc.A.shape[0], 4, 7, generator=g) * 2 - 1) * 0.8).to(dev)
+    p_all = col.eval_link_polys(prob.frs, basis.phi(k)).contiguous()
+    dp_all = col.eval_link_poly_grads(prob.frs, basis.dphi(k)).contiguous()
+    tau = cfg.smooth_tau
+    got = col.screened_rows(sc, p_all, dp_all, smooth_tau=tau)
+    again = col.screened_rows(sc, p_all, dp_all, smooth_tau=tau)
+    want = col.screened_rows_plain(sc, p_all, dp_all, smooth_tau=tau)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    mag = col._rows_at(dp_all, sc.row).abs().sum(2).transpose(-1, -2)
+    assert bool(((got[1] - want[1]).abs() <= 1e-5 * (mag + 1e-6)).all())
+    hard = col.screened_rows(sc, p_all, dp_all)
+    real = sc.mask[:, None].expand_as(hard[0])
+    assert bool((got[0][real] >= hard[0][real] - 1e-6).all())
+    with pytest.raises(ValueError, match="screened rows"):
+        kcol.collision_rows(sc.A, sc.d, sc.delta, sc.row[0].contiguous(), sc.mask, p_all,
+                            smooth_tau=tau)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [False, True], ids=["hard", "smooth"])
+def test_k4_rows_at_non_finite_points_match_plain_on_the_card(smooth):
+    """K4's screened rows where the query point is NaN (a line-search point
+    after a failed Cholesky): NaN on exactly the real rows the plain version
+    gives NaN, in both modes, also on rows whose first candidate is
+    degenerate (the hard mode's max must not skip the NaN ones after it);
+    the finite queries beside them within 1e-5."""
+    from armour_tpu_torch import collision as col
+
+    dev = _card()
+    _, cfg, basis, prob = _smooth_problem(dev, False)
+    sc = prob.screened
+    # a degenerate first normal on every eighth row
+    A = sc.A.clone()
+    A[:, :, 0, ::8] = 0.0
+    sc = col.ScreenedCollision(A=A, d=sc.d, delta=sc.delta, row=sc.row, mask=sc.mask)
+    g = torch.Generator().manual_seed(5)
+    k = ((torch.rand(sc.A.shape[0], 3, 7, generator=g) * 2 - 1) * 0.8).to(dev)
+    k[:, 1] = float("nan")
+    p_all = col.eval_link_polys(prob.frs, basis.phi(k)).contiguous()
+    dp_all = col.eval_link_poly_grads(prob.frs, basis.dphi(k)).contiguous()
+    tau = cfg.smooth_tau if smooth else 0.0
+    got = col.screened_rows(sc, p_all, dp_all, smooth_tau=tau)
+    want = col.screened_rows_plain(sc, p_all, dp_all, smooth_tau=tau)
+    real = sc.mask[:, None].expand_as(got[0])
+    assert bool(torch.isnan(want[0][:, 1][real[:, 1]]).all())
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    fin = ~torch.isnan(want[0])
+    assert float((got[0] - want[0])[fin].abs().max()) <= 1e-5
+    assert bool(torch.isnan(got[1][:, 1][real[:, 1]]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grasp", [False, True], ids=["bernstein", "grasp"])
+def test_k7_k8_smooth_match_plain_on_the_card(grasp):
+    """K7 / K8 in the smooth mode against alm_newton_plain / alm_values_plain
+    (a Bernstein plan and a dumbbell grasp plan, T = 16): K8's merit within
+    1e-4 |merit| and rows within 1e-5 of their terms, K7's m0 within 1e-4
+    |m0|, g and H within 1e-4 of their summed terms; the same bits on a
+    second call."""
+    from armour_tpu_torch import nlp
+
+    dev = _card()
+    _, cfg, basis, prob = _smooth_problem(dev, grasp)
+    rows = ks.alm_rows(prob, cfg, basis)
+    assert rows.args.tau > 0
+    Wn, S, A = prob.q_des.shape[0], 4, 3
+    g = torch.Generator().manual_seed(2)
+    kq = ((torch.rand(Wn, S * A, 7, generator=g) * 2 - 1) * 0.5).to(dev)
+    lam = (torch.rand(Wn, S, rows.M, generator=g) * 3).to(dev)
+    rho = torch.full((Wn, S), 10.0, device=dev)
+    seed = torch.arange(S, dtype=torch.int32).repeat_interleave(A).to(dev)
+    m, f, _, c = ks.alm_values(rows, kq, lam, rho, seed, True)
+    m2, f2, _, c2 = ks.alm_values(rows, kq, lam, rho, seed, True)
+    m0, f0, _, c0 = nlp.alm_values_plain(kq, lam, rho, seed, prob, cfg, basis, True)
+    assert torch.equal(m, m2) and torch.equal(c, c2) and torch.equal(f, f2)
+    assert bool(((m - m0).abs() <= 1e-4 * (m0.abs() + 1e-6)).all())
+    phi = basis.phi(kq).abs()
+    mag = 1.0 + c0.abs()
+    t = (torch.matmul(phi, rows.tensors["u_coef"].abs().transpose(1, 2))
+         + rows.tensors["u_hi"].abs()[:, None])
+    mag[..., :2 * rows.args.TF] += torch.cat([t, t], dim=-1)
+    if grasp:
+        TF, TG = rows.args.TF, rows.args.TG
+        mag[..., 2 * TF:2 * TF + TG] += (torch.matmul(phi, rows.tensors["g_coef"].abs()
+                                                      .transpose(1, 2))
+                                         + rows.tensors["g_rad"].abs()[:, None])
+    assert bool(((c - c0).abs() <= 1e-5 * mag).all())
+    near = ((c0 - nlp._stack_thresholds(prob, cfg)).abs() <= 1e-5 * mag).any(-1)
+    assert bool(((f == f0) | near).all())
+    k = kq[:, :S].contiguous()
+    got = ks.alm_newton(rows, k, lam, rho, want_system=True)
+    again = ks.alm_newton(rows, k, lam, rho, want_system=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _, m0k, _, _, gk, Hk = got
+    _, m00, _, _ = nlp.alm_newton_plain(k, lam, rho, prob, cfg, basis)
+    g0, H0, cc = nlp.alm_newton_system(k, lam, rho, prob, cfg, basis)
+    _, Jc = nlp.constraint_stack(k, prob, cfg, basis, with_grad=True)
+    z0 = lam + rho[..., None] * cc
+    w = torch.where(z0 > 0, rho[..., None], torch.zeros_like(cc))
+    le = torch.where(z0 > 0, z0, torch.zeros_like(cc))
+    Ja = Jc.abs()
+    g_mag = nlp.plan_cost_grad(k, prob.traj, prob.q_des, prob.limits.continuous,
+                               cfg).abs() + (Ja * le[..., None]).sum(-2)
+    H_mag = torch.matmul(Ja.transpose(-1, -2) * w[..., None, :], Ja) \
+        + nlp.plan_cost_hessian(prob.traj, cfg) + 1e-3
+    assert bool(((m0k - m00).abs() <= 1e-4 * (m00.abs() + 1e-6)).all())
+    assert bool(((gk - g0).abs() <= 1e-4 * (g_mag + 1e-6)).all())
+    assert bool(((Hk - H0).abs() <= 1e-4 * (H_mag + 1e-6)).all())
+
+
+# ---------------------------------------------------------------------------
 # K11 / K12's writer (csrc/jrs_tail.cuh:jrs_write_slabs): flat 16-byte stores
 # ---------------------------------------------------------------------------
 

@@ -192,23 +192,27 @@ def problem():
     return jp, tp
 
 
-def test_constraint_stack_matches_jax(problem):
-    """Rows, Jacobian, thresholds and full-set violations at three k."""
+@pytest.mark.parametrize("smooth", [False, True], ids=["off", "on"])
+def test_constraint_stack_matches_jax(problem, smooth):
+    """Rows, Jacobian, thresholds and full-set violations at three k, in the
+    hard and the smooth collision mode (the full-set check exact in both)."""
     jp, tp = problem
+    j_cfg = dataclasses.replace(J_CFG, smooth_obstacle_constraints=smooth)
+    t_cfg = dataclasses.replace(T_CFG, smooth_obstacle_constraints=smooth)
     ks = np.random.default_rng(11).uniform(-1, 1, (3, 7))
     basis = make_basis(7, 3)
-    c, J = tnlp.constraint_stack(torch.as_tensor(ks)[None], tp, T_CFG, basis)
-    v = tnlp.max_violations(torch.as_tensor(ks)[None], tp, T_CFG, basis)
+    c, J = tnlp.constraint_stack(torch.as_tensor(ks)[None], tp, t_cfg, basis)
+    v = tnlp.max_violations(torch.as_tensor(ks)[None], tp, t_cfg, basis)
     for q, k in enumerate(ks):
-        jc, jJ = jnlp.constraint_stack(jnp.asarray(k), jp, J_ROBOT, J_CFG, J_BASIS)
+        jc, jJ = jnlp.constraint_stack(jnp.asarray(k), jp, J_ROBOT, j_cfg, J_BASIS)
         np.testing.assert_allclose(c[0, q].numpy(), np.asarray(jc), rtol=1e-9, atol=1e-12)
         np.testing.assert_allclose(J[0, q].numpy(), np.asarray(jJ), rtol=1e-9, atol=1e-12)
-        jv = jnlp.max_violations(jnp.asarray(k), jp, J_ROBOT, J_CFG, J_BASIS)
+        jv = jnlp.max_violations(jnp.asarray(k), jp, J_ROBOT, j_cfg, J_BASIS)
         for t, j in zip(v, jv):
             np.testing.assert_allclose(t[0, q].numpy(), np.asarray(j), rtol=1e-9, atol=1e-12)
     np.testing.assert_array_equal(
-        tnlp._stack_thresholds(tp, T_CFG).numpy(),
-        np.asarray(jnlp._stack_thresholds(jp, J_ROBOT, J_CFG, jnp.float64)))
+        tnlp._stack_thresholds(tp, t_cfg).numpy(),
+        np.asarray(jnlp._stack_thresholds(jp, J_ROBOT, j_cfg, jnp.float64)))
 
 
 def test_cost_gradient_and_hessian_match_jax(problem):

@@ -108,8 +108,9 @@ def _groups(tp):
 @pytest.fixture(scope="module")
 def jax_side(problem):
     """The JAX package's rows and the formulas of armour_tpu/nlp.py:475-493
-    at one (k, lam, rho); its m0, feasibility and clipped rows are also the
-    value pass's merit, feasibility and rows (nlp.py:494-500)."""
+    at one (k, lam, rho), in the hard (False) and the smooth (True)
+    collision mode; its m0, feasibility and clipped rows are also the value
+    pass's merit, feasibility and rows (nlp.py:494-500)."""
     jp, _ = problem
     cost_fn = lambda kk: jnlp.plan_cost(kk, jp.traj, jp.q_des, J_ROBOT, J_CFG)
     thr = jnlp._stack_thresholds(jp, J_ROBOT, J_CFG, jnp.float64)
@@ -118,20 +119,28 @@ def jax_side(problem):
     def penalty(cc, lam, rho):
         return jnp.sum(jnp.where(lam + rho * cc > 0, (lam + rho * cc) ** 2, 0.0)) / (2 * rho)
 
-    @jax.jit
-    def newton(k, lam, rho):
-        c, Jc = jnlp.constraint_stack(k, jp, J_ROBOT, J_CFG, J_BASIS, with_grad=True)
-        c = jnp.maximum(c, -1e6)
-        act = (lam + rho * c) > 0.0
-        w = jnp.where(act, rho, 0.0)
-        lam_eff = jnp.where(act, lam + rho * c, 0.0)
-        g = jax.grad(cost_fn)(k) + Jc.T @ lam_eff
-        H = (Jc.T * w) @ Jc + Hc + 1e-3 * jnp.eye(7)
-        step = jax.scipy.linalg.cho_solve(jax.scipy.linalg.cho_factor(H), g)
-        m0 = cost_fn(k) + penalty(c, lam, rho)
-        return g, H, step, m0, jnp.all(c <= thr), c, act
+    def make(cfg):
+        @jax.jit
+        def newton(k, lam, rho):
+            c, Jc = jnlp.constraint_stack(k, jp, J_ROBOT, cfg, J_BASIS, with_grad=True)
+            c = jnp.maximum(c, -1e6)
+            act = (lam + rho * c) > 0.0
+            w = jnp.where(act, rho, 0.0)
+            lam_eff = jnp.where(act, lam + rho * c, 0.0)
+            g = jax.grad(cost_fn)(k) + Jc.T @ lam_eff
+            H = (Jc.T * w) @ Jc + Hc + 1e-3 * jnp.eye(7)
+            step = jax.scipy.linalg.cho_solve(jax.scipy.linalg.cho_factor(H), g)
+            m0 = cost_fn(k) + penalty(c, lam, rho)
+            return g, H, step, m0, jnp.all(c <= thr), c, act
 
-    return newton
+        return newton
+
+    return {smooth: make(dataclasses.replace(J_CFG, smooth_obstacle_constraints=smooth))
+            for smooth in (False, True)}
+
+
+def _cfg(smooth):
+    return dataclasses.replace(T_CFG, smooth_obstacle_constraints=smooth)
 
 
 def _state(problem, seed):
@@ -148,16 +157,18 @@ def _state(problem, seed):
     return k, lam, rho
 
 
+@pytest.mark.parametrize("smooth", [False, True], ids=["off", "on"])
 @pytest.mark.parametrize("seed", [1, 2])
-def test_alm_newton_plain_matches_jax(problem, jax_side, seed):
+def test_alm_newton_plain_matches_jax(problem, jax_side, seed, smooth):
     jp, tp = problem
-    newton = jax_side
+    newton = jax_side[smooth]
+    cfg = _cfg(smooth)
     k, lam, rho = _state(problem, seed)
     kt, lt, rt = (torch.as_tensor(x)[None] for x in (k, lam, rho))
-    g, H, c = tnlp.alm_newton_system(kt, lt, rt, tp, T_CFG, BASIS)
-    step, m0, feas, cost = tnlp.alm_newton_plain(kt, lt, rt, tp, T_CFG, BASIS)
+    g, H, c = tnlp.alm_newton_system(kt, lt, rt, tp, cfg, BASIS)
+    step, m0, feas, cost = tnlp.alm_newton_plain(kt, lt, rt, tp, cfg, BASIS)
     # CPU tensors take the plain version
-    for got, want in zip(tnlp.alm_newton(kt, lt, rt, tp, T_CFG, BASIS), (step, m0, feas, cost)):
+    for got, want in zip(tnlp.alm_newton(kt, lt, rt, tp, cfg, BASIS), (step, m0, feas, cost)):
         assert torch.equal(got, want)
     for s in range(2):
         jg, jH, jstep, jm0, jfeas, jc, jact = (np.asarray(x) for x in newton(
@@ -173,16 +184,59 @@ def test_alm_newton_plain_matches_jax(problem, jax_side, seed):
         assert bool(feas[0, s]) == bool(jfeas)
 
 
-def test_alm_values_plain_matches_jax(problem, jax_side):
+def _newton_case(case: str) -> np.ndarray:
+    """A 7x7 H: SPD, or one whose Cholesky fails at a pivot < 0 or = 0, or
+    meets a NaN."""
+    rng = np.random.default_rng(7)
+    J = rng.uniform(-1.0, 1.0, (9, 7))
+    H = J.T @ J + 1e-3 * np.eye(7)
+    if case == "negative_pivot":
+        H[3, 3] = -1.0
+    elif case == "zero_pivot":
+        # the second pivot 1 - 1 * 1 = 0 exactly, in any order of operations
+        H = 2.0 * np.eye(7)
+        H[:2, :2] = 1.0
+    elif case == "nan":
+        H[5, 5] = np.nan
+    return H
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["spd", "negative_pivot", "zero_pivot", "nan"])
+def test_newton_step_matches_jax_cho_solve(case, dtype):
+    """nlp.newton_step (alm_newton_plain's step, and K7's rule) against the
+    JAX package's cho_factor / cho_solve (armour_tpu/nlp.py:486-487): the
+    step of an SPD H, and NaN in every entry where the factorisation fails,
+    in float32 (the card's dtype) and float64.  LAPACK's partial factor
+    alone would give a finite step there, which the line search could take
+    where the JAX solve keeps its iterate."""
+    H = _newton_case(case).astype(dtype)
+    g = np.random.default_rng(8).uniform(-1.0, 1.0, 7).astype(dtype)
+    want = np.asarray(jax.scipy.linalg.cho_solve(jax.scipy.linalg.cho_factor(jnp.asarray(H)),
+                                                 jnp.asarray(g)))
+    got = tnlp.newton_step(torch.as_tensor(H)[None, None], torch.as_tensor(g)[None, None])
+    assert got.shape == (1, 1, 7) and got.dtype == torch.as_tensor(H).dtype
+    got = got[0, 0].numpy()
+    if case == "spd":
+        assert np.all(np.isfinite(want))
+        tol = 1e-4 if dtype == "float32" else TOL
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max())
+    else:
+        assert np.all(np.isnan(want)) and np.all(np.isnan(got))
+
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["off", "on"])
+def test_alm_values_plain_matches_jax(problem, jax_side, smooth):
     """Line-search layout: 3 queries per seed, each with its seed's lam/rho."""
     jp, tp = problem
-    newton = jax_side
+    newton = jax_side[smooth]
+    cfg = _cfg(smooth)
     k, lam, rho = _state(problem, 3)
     kq = np.clip(k[:, None] - np.array([1.0, 0.25, 0.5])[:, None] * 0.7, -1.0, 1.0).reshape(6, 7)
     seed_of_q = torch.arange(2).repeat_interleave(3)
     merit, feas, _, c = tnlp.alm_values_plain(torch.as_tensor(kq)[None],
                                               torch.as_tensor(lam)[None],
-                                              torch.as_tensor(rho)[None], seed_of_q, tp, T_CFG,
+                                              torch.as_tensor(rho)[None], seed_of_q, tp, cfg,
                                               BASIS, want_c=True)
     for q in range(6):
         s = int(seed_of_q[q])
@@ -192,7 +246,7 @@ def test_alm_values_plain_matches_jax(problem, jax_side):
         np.testing.assert_allclose(c[0, q].numpy(), jc, rtol=TOL, atol=1e-12)
         assert bool(feas[0, q]) == bool(jf)
     m_cpu, f_cpu, _, c_cpu = tnlp.alm_values(torch.as_tensor(kq)[None], torch.as_tensor(lam)[None],
-                                          torch.as_tensor(rho)[None], seed_of_q, tp, T_CFG,
+                                          torch.as_tensor(rho)[None], seed_of_q, tp, cfg,
                                           BASIS)
     assert torch.equal(m_cpu, merit) and torch.equal(f_cpu, feas) and c_cpu is None
 
