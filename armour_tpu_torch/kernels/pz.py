@@ -5,8 +5,8 @@ by pz/bpz.py for CUDA tensors only; each launcher checks device, dtype,
 shapes and strides, raises on anything its kernel does not take, allocates
 the outputs with torch.empty and launches on the current stream.
 
-chain_geometry, k1_geometry and k2_geometry are pure Python, so that the
-CPU tests check them."""
+chain_geometry, tile_geometry, k1_geometry and k2_geometry are pure
+Python, so that the CPU tests check them."""
 
 from __future__ import annotations
 
@@ -55,6 +55,42 @@ def chain_geometry(n: int, G: int, NG: int, smem: int, sms: int = H100_SMS,
     registers, blocks_per_sm), at most one per NG elements."""
     per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), 2048 // (G * NG), blocks_per_sm)
     return ChainGeometry(G=G, NG=NG, grid=max(1, min(-(-n // NG), sms * per_sm)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """A persistent grid over tiles of `tile` consecutive time steps of one
+    world (K15, K16): `per_world` tiles a world, `tiles` in all; block b
+    takes the tiles b, b + grid, ...; `per_sm` blocks fit an SM, `smem`
+    bytes each."""
+
+    tile: int
+    tiles: int
+    per_world: int
+    grid: int
+    per_sm: int
+    smem: int
+
+    def steps(self, b: int, T: int):
+        """The (world, time step) pairs block b works on, in its order."""
+        out = []
+        for tile in range(b, self.tiles, self.grid):
+            w, t0 = divmod(tile, self.per_world)
+            t0 *= self.tile
+            out += [(w, t) for t in range(t0, min(t0 + self.tile, T))]
+        return out
+
+
+def tile_geometry(W: int, T: int, tile: int, threads: int, smem: int, sms: int = H100_SMS,
+                  blocks_per_sm: int = 32) -> TileGeometry:
+    """As many blocks of `threads` as fit the card at once (by shared
+    memory, threads and the kernel's registers, blocks_per_sm), at most one
+    per tile."""
+    per_world = -(-T // tile)
+    tiles = W * per_world
+    per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), 2048 // threads, blocks_per_sm)
+    return TileGeometry(tile=tile, tiles=tiles, per_world=per_world,
+                        grid=max(1, min(tiles, sms * per_sm)), per_sm=per_sm, smem=smem)
 
 
 def group_size(n: int, sms: int) -> int:

@@ -9,20 +9,23 @@ stream.
 
 k9_geometry and k10_geometry are K9's and K10's launch geometries
 (threads per element, elements per block, the persistent grid of
-kernels/pz.py:chain_geometry, which K2 shares), pure Python so that the
-CPU tests check them."""
+kernels/pz.py:chain_geometry, which K2 shares), k15_geometry K15's (tiles
+of time steps, kernels/pz.py:tile_geometry, which K16 shares), pure
+Python so that the CPU tests check them; reach_assembly raises on an input
+that does not start 16-byte aligned."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from . import H100_SMS, launched, record
 from .build import launcher
-from .pz import (PZ_MAXMASS, PZ_TAB_BYTES, ChainGeometry, chain_geometry, group_size, lin_ld,
-                 upload_tables)
+from .pz import (PZ_MAXMASS, PZ_TAB_BYTES, ChainGeometry, TileGeometry, chain_geometry,
+                 group_size, lin_ld, tile_geometry, upload_tables)
 from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
 
@@ -315,9 +318,13 @@ def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int"), *, wrench_at
     return u, f_c, n_c
 
 
-K15_THREADS = 64          # threads per block of one (world, time step) (csrc/reach_assembly.cu)
+K15_TILE = 4              # time steps a tile, a warp each (csrc/reach_assembly.cu)
+K15_THREADS = 32 * K15_TILE
+K15_STAGES = 2            # the ring's stages: the next tile lands while this one is summed
+K15_RANGES = 8            # a tile's ranges: coef, egen, rad of both planes; the links' egen, rad
+K15_PART = 5              # per warp and factor: the two disturbance sums, the nominal sum, d_max, sq
 K15_MAX_F, K15_MAX_J3 = 8, 27
-K15_SMEM_MAX = 48 * 1024  # dynamic shared memory without the opt-in, bytes
+K15_SMEM_MAX = 232448     # dynamic shared memory of a block after the opt-in, bytes
 
 
 class K15Args(ctypes.Structure):
@@ -327,11 +334,34 @@ class K15Args(ctypes.Structure):
         ("c0", ctypes.c_float), ("friction", ctypes.c_float * K15_MAX_F)]
 
 
+def k15_counts(F: int, J3: int, B: int, E: int) -> tuple:
+    """Floats a time step holds of each of a tile's ranges
+    (reach_assembly.cu:k15_count)."""
+    return (F * B, F * B, F * E, F * E, F, F, J3 * E, J3)
+
+
+def k15_slot(count: int) -> int:
+    """Floats of a range's ring slot: a tile and 3 floats of phase, a
+    multiple of 4 (reach_assembly.cu:k15_slot)."""
+    return (K15_TILE * count + 3 + 3) // 4 * 4
+
+
 def k15_smem(F: int, J3: int, B: int, E: int) -> int:
-    """Bytes of dynamic shared memory of a K15 block: the (world, time)
-    slab of u_both's two sets (coef, egen, rad of F factors) and of the
-    links' egen (J3 rows)."""
-    return 4 * (2 * F * (B + E + 1) + J3 * E)
+    """Bytes of dynamic shared memory of a K15 block (reach_assembly.cu:
+    k15_smem): the ring's stages of one tile each, then the warps' parts."""
+    stage = sum(k15_slot(c) for c in k15_counts(F, J3, B, E))
+    return 4 * (K15_STAGES * stage + K15_TILE * K15_PART * K15_MAX_F)
+
+
+@functools.lru_cache(maxsize=64)
+def k15_geometry(W: int, T: int, F: int, J3: int, B: int, E: int,
+                 sms: int = H100_SMS) -> TileGeometry:
+    """K15's persistent grid over tiles of K15_TILE steps: as many blocks
+    as fit the card at once by shared memory (two an SM at the flagship's
+    and the dumbbell's widths), at most one per tile.  Cached (its host
+    time is a tenth of the kernel's): clear the cache after changing this
+    module's constants."""
+    return tile_geometry(W, T, K15_TILE, K15_THREADS, k15_smem(F, J3, B, E), sms)
 
 
 def _k15_template(robot, cfg, basis: KBasis) -> K15Args:
@@ -373,6 +403,10 @@ def reach_assembly(links, u_both, robot, cfg, basis: KBasis):
         raise ValueError("reach_assembly: the links and the torque lie on different devices")
     B, E = _widths(basis, L, "reach_assembly")
     _widths(basis, U, "reach_assembly")
+    for t in (U.coef, U.egen, U.rad, L.egen, L.rad):
+        if t.data_ptr() % 16:
+            raise ValueError("reach_assembly: the kernel copies 16-byte chunks at each range's "
+                             "phase in its tensor, so every input must start 16-byte aligned")
     kw = dict(device=L.rad.device, dtype=torch.float32)
     shape_gens = torch.empty(Wn, T, J, 3, 3, **kw)
     radius = torch.empty(Wn, T, J, 3, **kw)
@@ -389,13 +423,13 @@ def reach_assembly(links, u_both, robot, cfg, basis: KBasis):
     record("reach_assembly", (tuple(links.rad.shape), tuple(u_both.rad.shape)),
            (links, u_both, robot, cfg, basis))
     if Wn * T:
-        smem = k15_smem(F, 3 * J, B, E)
-        if smem > K15_SMEM_MAX:
-            raise ValueError(f"reach_assembly: {smem} bytes of shared memory a block exceed "
+        geo = k15_geometry(Wn, T, F, 3 * J, B, E, _sms(L.rad))
+        if geo.smem > K15_SMEM_MAX:
+            raise ValueError(f"reach_assembly: {geo.smem} bytes of shared memory a block exceed "
                              f"{K15_SMEM_MAX}")
         fn = launcher("reach_assembly", "k15_launch",
                       [ctypes.POINTER(K15Args), ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), smem, _stream(L.rad))
+        err = fn(ctypes.byref(args), geo.grid, _stream(L.rad))
         if err:
             raise RuntimeError(f"reach_assembly launch failed: cudaError {err}")
         launched("reach_assembly")

@@ -39,10 +39,34 @@ planted faults (chip_smoke.planted_oracle_inputs), so that two checkouts
 that must agree bit for bit can be held to it; where kernels/pz.py has
 k2_geometry (k1_geometry), K2 (K1) also runs under the launch geometries of
 K2_VARIANTS (K1_VARIANTS), each result's digest printed, and must give the
-default's bits.
+default's bits.  Last, it runs the --assembly part below.
 
 Prints the card line and, last, one JSON line of the times.  Needs one
 card; exits non-zero without one.
+
+    python3 chip_probe.py --assembly
+
+times K15 (reach_assembly) on every shape the planning paths give it: the
+W = 64 step of the flagship Kinova in both trajectory families, of the
+Kinova with an uncertain centre of mass (u_both from the K1 / K2 loops)
+and the dumbbell's grasp step (J = 9); and K16 (grasp_rows) on that grasp
+step, with its ablations where its source has the K16_ABLATE macro (a
+copy built here with K16_ABLATE 1: the loads and stores alone; 2: with
+the five squares).  Each: its bits against the plain version (not the ablations),
+the median of 20 calls by CUDA events, its device time a call
+(queued_ms), its bound, a digest of its outputs and its launch geometry;
+the two kernels' ptxas reports.  --times runs it too.  Copied into an
+older checkout, it times and digests that one in turns with this one.
+
+    python3 chip_probe.py --variants
+
+rebuilds K15 and K16 with other tile, stage and warp counts
+(K15_VARIANTS, K16_VARIANTS: their #defines replaced in a copy of the
+source), K15 also with its sums cut (its copies alone) and K16 with its
+K16_ABLATE parts, holds each that computes the outputs to the plain
+version's bits and times each (queued_ms) on the W = 64 flagship and
+grasp steps' inputs, beside one torch sum and one torch copy of u_both's
+coefficients as a yardstick of the card's memory rate.
 
     python3 chip_probe.py --step
 
@@ -103,7 +127,11 @@ K1_VARIANTS = ((32, 1), (32, 4), (64, 2), (96, 2), (256, 1))
 # the kernels' times before their current designs (PERF.md's kernel history;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 BEFORE_MS = {"oracle_check": "0.259", "pz_cross": "2.073 over its 4 shapes",
-             "pz_matmul_linear": "2.295 over its 3 shapes"}
+             "pz_matmul_linear": "2.295 over its 3 shapes",
+             "reach_assembly": "0.1468 event / 0.0729 device at the flagship step, "
+                               "0.1348 / 0.0764 at the grasp step",
+             "grasp_rows": "0.1462 event / 0.1025 device"}
+K16_ABLATIONS = {1: "loads and stores", 2: "loads, the five squares, stores"}
 ITERS = 20
 COM_UNCERTAINTY = 0.05     # the uncertain-COM route (tests/test_torch_reachsets.py)
 
@@ -255,6 +283,12 @@ def main() -> None:
     if "--nonfinite" in sys.argv[1:]:
         nonfinite_only()
         return
+    if "--assembly" in sys.argv[1:]:
+        assembly_only()
+        return
+    if "--variants" in sys.argv[1:]:
+        variants_only()
+        return
     import armour_tpu_torch  # noqa: F401  (precision pins)
     from chip_smoke import card_line, scenes
     from armour_tpu_torch import kernels
@@ -287,7 +321,7 @@ def main() -> None:
                 return ks.alm_newton(*i)
         elif name == "alm_values":
             def fn(i=inputs):
-                return ks.alm_values(*i)
+                return _k8(ks, i)
         else:
             continue
         ms = median_ms(fn, dev, ITERS)
@@ -334,6 +368,14 @@ def main() -> None:
         out[name][label] = times
     print(card)
     print(json.dumps(out))
+
+
+def _k8(ks, inputs):
+    """K8 on its recorded inputs: the row passes (rows, kq, lam, rho,
+    seed_of_q, want_c) or the max mode (rows, kq, "maxima")."""
+    if inputs[-1] == "maxima":
+        return ks.alm_maxima(*inputs[:2])
+    return ks.alm_values(*inputs)
 
 
 def device_profile(fn, dev) -> tuple:
@@ -663,7 +705,7 @@ def times_only(captured, robot, cfg, card, dev) -> None:
                 out["alm_newton_launch_ms"][f"{label} {key}"] = launch_split(fn)
             elif name == "alm_values":
                 def fn(i=inputs):
-                    return ks.alm_values(*i)
+                    return _k8(ks, i)
             elif name == "fk_chain":
                 def fn(i=inputs):
                     return reach.fk_chain(*i)
@@ -678,8 +720,302 @@ def times_only(captured, robot, cfg, card, dev) -> None:
             if name in ("fk_chain", "rnea_chain"):
                 out["digest"][f"{name} {label} {key}"] = digest(fn())
     uncertain_com(captured, robot, cfg, basis, args, obs, dev, out)
+    out["assembly"] = assembly_times(dev)
     print(card)
     print(json.dumps(out))
+
+
+def assembly_only() -> None:
+    """--assembly: K15 and K16 alone (assembly_times), after the build."""
+    import armour_tpu_torch  # noqa: F401  (precision pins)
+    from chip_smoke import card_line
+    from armour_tpu_torch.kernels.build import build_all
+
+    card = card_line()
+    print(f"card: {card}")
+    build_all()
+    out = {"card": card, "assembly": assembly_times(torch.device("cuda"))}
+    print(card)
+    print(json.dumps(out))
+
+
+K15_VARIANTS = ((4, 2, False), (8, 2, False), (2, 2, False), (4, 3, False), (4, 2, True),
+                (8, 2, True))   # (K15_TILE, K15_STAGES, copies alone)
+K16_VARIANTS = ((8, 2, 0), (4, 5, 0), (8, 2, 1), (8, 2, 2))   # (K16_NG, blocks an SM, K16_ABLATE)
+
+
+def _variant_library(src: str, subs, tag: str):
+    """csrc/src with each #define of `subs` replaced, built with the
+    kernels' flags beside their libraries (reused while the text, the
+    headers and the flags are the same); (path, ptxas lines)."""
+    import hashlib
+    import subprocess
+
+    from armour_tpu_torch.kernels import build
+
+    text = (build.CSRC / src).read_text()
+    for old, new in subs:
+        if old not in text:
+            fail(f"{src} has no {old!r} to vary")
+        text = text.replace(old, new)
+    h = hashlib.sha256(text.encode())
+    for hdr in sorted(build.CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(build.FLAGS).encode())
+    out = build.BUILD / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"lib{tag}-{h.hexdigest()[:16]}.so"
+    log = path.with_suffix(".log")
+    if not path.exists():
+        (out / f"{tag}.cu").write_text(text)
+        r = subprocess.run([build.nvcc(), *build.FLAGS, f"-I{build.CSRC}", "-o", str(path),
+                            str(out / f"{tag}.cu")], capture_output=True, text=True)
+        if r.returncode:
+            fail(f"nvcc failed for the variant {tag}:\n{r.stdout}{r.stderr}")
+        log.write_text(r.stdout + r.stderr)
+    return path, [ln.strip() for ln in log.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln]
+
+
+def variants_only() -> None:
+    """--variants: K15 and K16 rebuilt with other tile, stage and warp
+    counts (K15_VARIANTS, K16_VARIANTS; K15 also with its sums cut, its
+    copies alone), each held to the committed kernel's bits where it
+    computes them and timed (queued_ms) on the W = 64 flagship and grasp
+    steps' inputs, beside torch's own reads of K15's largest input (one
+    sum, one copy) as a yardstick of the card's rate."""
+    import ctypes
+
+    import armour_tpu_torch  # noqa: F401  (precision pins)
+    from chip_smoke import card_line, scenes
+    from armour_tpu_torch import dynamics, grasp, kernels
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
+    from armour_tpu_torch.kernels import build, pz as kpz, reach
+    from armour_tpu_torch.kernels import grasp as kgrasp
+    from armour_tpu_torch.kernels.build import build_all
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import make_batch_planner
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    build_all()
+    robot, cfg = kinova_gen3(), ArmourConfig(dtype=torch.float32)
+    q0, _, _, q_des, obs = scenes(robot, cfg, 64)
+    q0d, q_des_d = (torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, q_des))
+    obs_d = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                        mask=obs.mask.to(dev))
+    z = torch.zeros_like(q0d)
+    dumbbell = zoo.kinova_dumbbell()
+    gcfg = ArmourConfig.for_robot(dumbbell, derive_ub=False,
+                                  ub=derive_ultimate_bound(dumbbell, v_max=5e-4),
+                                  dtype=torch.float32, grasp_constraints=True, grasp_mu=1.5,
+                                  grasp_support_radius=0.5)
+    g = [torch.as_tensor(x, dtype=gcfg.dtype).to(dev) for x in scenes(dumbbell, gcfg, 64)[:4]]
+    with kernels.capture() as rec:
+        make_batch_planner(robot, cfg)(q0d, z, z, q_des_d, obs_d)
+        make_batch_planner(dumbbell, gcfg)(*g, obs_d)
+    torch.cuda.synchronize(dev)
+    k15 = {("flagship" if k[1][0][2] == robot.num_joints else "grasp"): v
+           for k, v in rec.items() if k[0] == "reach_assembly"}
+    k16 = next(v for k, v in rec.items() if k[0] == "grasp_rows")
+    del rec
+    out = {"card": card}
+    coef = k15["flagship"][1].coef
+    copy = torch.empty_like(coef)
+    nb = coef.numel() * coef.element_size()
+    for name, fn, moved in (("torch sum", lambda: coef.sum(), nb),
+                            ("torch copy_", lambda: copy.copy_(coef), 2 * nb)):
+        ms = queued_ms(fn, dev)
+        out[name] = {"device_ms": ms, "TB_per_s": moved / ms / 1e9}
+        print(f"yardstick {name} of u_both's coef ({nb / 1e6:.1f} MB): {ms:.4f} ms device, "
+              f"{moved / ms / 1e9:.2f} TB/s")
+    want = {lab: dynamics.reach_assembly_plain(*x) for lab, x in k15.items()}
+    keep = (build.library("reach_assembly"), reach.K15_TILE, reach.K15_THREADS, reach.K15_STAGES)
+    try:
+        for tile, stages, copies in K15_VARIANTS:
+            tag = f"k15_tile{tile}_stages{stages}{'_copies' if copies else ''}"
+            subs = [("#define K15_TILE 4 ", f"#define K15_TILE {tile} "),
+                    ("#define K15_STAGES 2", f"#define K15_STAGES {stages}")]
+            if copies:
+                subs.append(("    if (t0 + s < T) {", "    if (false && t0 + s < T) {"))
+            path, ptxas = _variant_library("reach_assembly.cu", subs, tag)
+            build._LIBS["reach_assembly"] = ctypes.CDLL(str(path))
+            reach.K15_TILE, reach.K15_THREADS, reach.K15_STAGES = tile, 32 * tile, stages
+            reach.k15_geometry.cache_clear()
+            row = {"ptxas": ptxas}
+            for lab, x in k15.items():
+                got = reach.reach_assembly(*x)
+                ref = want[lab]
+                bits = None if copies else all(torch.equal(a, b) for a, b in (
+                    (got[0].shape_gens, ref[0].shape_gens), (got[0].radius, ref[0].radius),
+                    (got[1].torque_radius, ref[1].torque_radius)))
+                if bits is False:
+                    fail(f"K15 variant {tag} differs from its plain version at the {lab} step")
+                row[lab] = queued_ms(lambda x=x: reach.reach_assembly(*x), dev)
+            out[tag] = row
+            print(f"{tag}: device ms flagship {row['flagship']:.4f}, grasp {row['grasp']:.4f}"
+                  f"{'' if copies else ', bits of the plain version'}; {ptxas}")
+    finally:
+        build._LIBS["reach_assembly"] = keep[0]
+        reach.K15_TILE, reach.K15_THREADS, reach.K15_STAGES = keep[1:]
+        reach.k15_geometry.cache_clear()
+    want16 = grasp.grasp_rows_plain(*k16)
+    keep = (build.library("grasp_rows"), kgrasp.K16_NG, kgrasp.K16_THREADS,
+            kgrasp.K16_BLOCKS_PER_SM)
+    try:
+        for ng, per_sm, ablate in K16_VARIANTS:
+            tag = f"k16_warps{ng}_blocks{per_sm}_ablate{ablate}"
+            path, ptxas = _variant_library("grasp_rows.cu", [
+                ("#define K16_NG 8 ", f"#define K16_NG {ng} "),
+                ("#define K16_THREADS 256", f"#define K16_THREADS {32 * ng}"),
+                ("#define K16_BLOCKS_PER_SM 2", f"#define K16_BLOCKS_PER_SM {per_sm}"),
+                ("#define K16_ABLATE 0", f"#define K16_ABLATE {ablate}")], tag)
+            build._LIBS["grasp_rows"] = ctypes.CDLL(str(path))
+            kpz._UPLOADED.pop("grasp_rows", None)
+            kgrasp.K16_NG, kgrasp.K16_THREADS, kgrasp.K16_BLOCKS_PER_SM = ng, 32 * ng, per_sm
+            kgrasp.k16_geometry.cache_clear()
+            got = kgrasp.grasp_rows(*k16)
+            if not ablate and not (torch.equal(got.g_coef, want16.g_coef)
+                                   and torch.equal(got.g_rad, want16.g_rad)):
+                fail(f"K16 variant {tag} differs from its plain version")
+            out[tag] = {"device_ms": queued_ms(lambda: kgrasp.grasp_rows(*k16), dev),
+                        "ptxas": ptxas}
+            print(f"{tag}: device ms {out[tag]['device_ms']:.4f}"
+                  f"{'' if ablate else ', bits of the plain version'}; {ptxas}")
+    finally:
+        build._LIBS["grasp_rows"] = keep[0]
+        kpz._UPLOADED.pop("grasp_rows", None)
+        kgrasp.K16_NG, kgrasp.K16_THREADS, kgrasp.K16_BLOCKS_PER_SM = keep[1:]
+        kgrasp.k16_geometry.cache_clear()
+    print(card)
+    print(json.dumps(out))
+
+
+def _ablation_libraries() -> dict:
+    """{level: path} of grasp_rows.cu built with K16_ABLATE = level for
+    each level of K16_ABLATIONS, or {} where this checkout's source has no
+    such macro."""
+    from armour_tpu_torch.kernels import build
+
+    if "#define K16_ABLATE 0" not in (build.CSRC / "grasp_rows.cu").read_text():
+        return {}
+    return {level: _variant_library("grasp_rows.cu", [
+        ("#define K16_ABLATE 0", f"#define K16_ABLATE {level}")], f"k16_ablate{level}")[0]
+        for level in K16_ABLATIONS}
+
+
+def assembly_times(dev) -> dict:
+    """K15 (reach_assembly) on every recorded shape: the W = 64 step of the
+    flagship Kinova (Bernstein and ARMTD), of the Kinova with an uncertain
+    centre of mass (u_both from the K1 / K2 loops) and the dumbbell's grasp
+    step (J = 9); K16 (grasp_rows) on that grasp step, and its ablations
+    (K16_ABLATIONS, where the source has them).  Each: its bits against the
+    plain version (chip_smoke.check_reach_assembly / check_grasp; an
+    ablation is not checked), the median of ITERS calls by CUDA events, its
+    device time a call (queued_ms), its byte / operation bound and a digest
+    of its outputs; the kernels' ptxas reports and, where this checkout has
+    them, their launch geometries."""
+    import ctypes
+
+    from chip_smoke import (_bound_ms, armtd_inputs, check_grasp, check_reach_assembly,
+                            scenes)
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.collision import ObstacleSet
+    from armour_tpu_torch.config import ArmourConfig, derive_ultimate_bound
+    from armour_tpu_torch.kernels import build, pz as kpz, reach
+    from armour_tpu_torch.kernels import grasp as kgrasp
+    from armour_tpu_torch.models import zoo
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import make_batch_planner
+    from armour_tpu_torch.utils.timing import median_ms
+
+    for name, log in build.build_all(["reach_assembly", "grasp_rows"]).items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+    robot = kinova_gen3()
+    cfg = ArmourConfig(dtype=torch.float32)
+    q0, _, _, q_des, obs = scenes(robot, cfg, 64)
+    q0d, q_des_d = (torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, q_des))
+    obs_d = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                        mask=obs.mask.to(dev))
+    z = torch.zeros_like(q0d)
+    dumbbell = zoo.kinova_dumbbell()
+    gcfg = ArmourConfig.for_robot(dumbbell, derive_ub=False,
+                                  ub=derive_ultimate_bound(dumbbell, v_max=5e-4),
+                                  dtype=torch.float32, grasp_constraints=True, grasp_mu=1.5,
+                                  grasp_support_radius=0.5)
+    g = [torch.as_tensor(x, dtype=gcfg.dtype).to(dev) for x in scenes(dumbbell, gcfg, 64)[:4]]
+    steps = (("flagship", lambda: make_batch_planner(robot, cfg)(q0d, z, z, q_des_d, obs_d)),
+             ("armtd", lambda: make_batch_planner(
+                 robot, dataclasses.replace(cfg, traj_family="armtd"))(
+                 q0d, armtd_inputs(q0d, cfg, 64, dev), z, q_des_d, obs_d)),
+             ("uncertain_com", lambda: make_batch_planner(
+                 dataclasses.replace(robot, com_uncertainty=COM_UNCERTAINTY), cfg)(
+                 q0d, z, z, q_des_d, obs_d)),
+             ("grasp", lambda: make_batch_planner(dumbbell, gcfg)(*g, obs_d)))
+    out = {"reach_assembly": {}, "grasp_rows": {}}
+    for label, step in steps:
+        with kernels.capture() as rec:
+            step()
+        torch.cuda.synchronize(dev)
+        for (name, key), inputs in rec.items():
+            if name not in out:
+                continue
+            check = check_reach_assembly if name == "reach_assembly" else check_grasp
+            ok, err, kern, _, nbytes, flops, note = check(inputs, dev)
+            if not ok:
+                fail(f"{name} at the {label} step: {note}")
+            got = kern()
+            ts = ((got[0].shape_gens, got[0].radius, got[1].torque_radius)
+                  if name == "reach_assembly" else (got.g_coef, got.g_rad))
+            row = {"shape": str(key), "event_ms": median_ms(kern, dev, ITERS),
+                   "device_ms": queued_ms(kern, dev), "bound_ms": _bound_ms(nbytes, flops),
+                   "bytes": nbytes, "digest": digest(ts)}
+            geo = None
+            if name == "reach_assembly" and hasattr(reach, "k15_geometry"):
+                links = inputs[0]
+                Wn, T, J = links.rad.shape[:3]
+                geo = reach.k15_geometry(Wn, T, inputs[1].rad.shape[-1], 3 * J,
+                                         links.coef.shape[-1], links.egen.shape[-1],
+                                         torch.cuda.get_device_properties(dev)
+                                         .multi_processor_count)
+            elif name == "grasp_rows":
+                f_c = inputs[0]
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                ld = f_c.coef.shape[-1] + f_c.egen.shape[-1] + 1
+                geo = (kgrasp.k16_geometry(f_c.rad.shape[0], f_c.rad.shape[2], ld, sms)
+                       if hasattr(kgrasp, "K16_STAGES")   # tiles of steps
+                       else kgrasp.k16_geometry(f_c.rad.shape[0] * f_c.rad.shape[2], ld, sms))
+            row["geometry"] = str(geo)
+            if name == "grasp_rows":
+                default = build._LIBS.get("grasp_rows")
+                try:
+                    for level, path in _ablation_libraries().items():
+                        build._LIBS["grasp_rows"] = ctypes.CDLL(str(path))
+                        kpz._UPLOADED.pop("grasp_rows", None)
+                        row[f"ablate{level}"] = {"what": K16_ABLATIONS[level],
+                                                 "event_ms": median_ms(kern, dev, ITERS),
+                                                 "device_ms": queued_ms(kern, dev)}
+                finally:
+                    build._LIBS["grasp_rows"] = default
+                    kpz._UPLOADED.pop("grasp_rows", None)
+            out[name][label] = row
+            parts = "".join(f"; ablation {lv} ({v['what']}): {v['event_ms']:.4f} event / "
+                            f"{v['device_ms']:.4f} device" for lv, v in
+                            ((k[6:], v) for k, v in row.items() if k.startswith("ablate")))
+            print(f"{name} {label} {key}: {row['event_ms']:.4f} ms event (median of {ITERS}; "
+                  f"before: {BEFORE_MS[name]}), {row['device_ms']:.4f} ms device (queued_ms), "
+                  f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); bits of the plain "
+                  f"version; geometry {geo}; digest {row['digest']}{parts}")
+        del rec
+    for name in out:
+        if not out[name]:
+            fail(f"no {name} call was recorded")
+    return out
 
 
 def _variants(name, kpz, kernels):

@@ -40,7 +40,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain phase; its time the pass with it less the pass alone); K13 (passed the
      cells, never K3's hyperplane tensors) against the plain screen of K3's
      hyperplanes of the same cells bit for bit, also at quota 8 and on
-     planted ties; K15 bit for bit, twice, its outputs' views checked.  K1
+     planted ties; K15 bit for bit, twice, its outputs' views checked, and
+     its launch geometry printed (kernels/reach.py:k15_geometry).  K1
      / K2, which the Kinova's step does not launch, on their own path: one
      W = 64 planning step of the Kinova with com_uncertainty = 0.05 (the
      uncertain-COM route of the PZ RNEA, through the op-level kernels),
@@ -143,7 +144,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      over their thresholds in the infeasible worlds, and the same step's
      feasible count without grasp rows; the step's wall time, its
      device time, activities and busy share, K16's event and device time
-     and bound, the reach sets' window from K10 to K3 (K15 and K16 alone);
+     and bound, K15's and K16's launch geometries (k15_geometry,
+     kernels/grasp.py:k16_geometry), the reach sets' window from K10 to K3
+     (K15 and K16 alone);
      the same step with the tight contact parameters (1e-4, 1e-4), which
      must leave every world infeasible (NaN k); then a W = 8 step of every
      zoo robot (the UR5 with F = 6 included), counted, the first call of
@@ -258,7 +261,10 @@ BEFORE_MS = {"alm_values": "1.464 (6 shapes)", "alm_newton": "2.138 (2 shapes)",
              "oracle_check": "0.259", "pz_cross": "2.073 (4 shapes)",
              "pz_matmul_linear": "2.295 (3 shapes)",
              "jrs_bernstein": "0.332 event, 0.254 device (a block per slab, 4-byte rows)",
-             "alm_loop": "0.944 over 13 shapes, 39 launches a step, 0.187 device"}
+             "alm_loop": "0.944 over 13 shapes, 39 launches a step, 0.187 device",
+             "reach_assembly": "0.1468 event, 0.0729 device (a block per (world, step), "
+                               "4-byte loads)",
+             "grasp_rows": "0.1462 event, 0.1025 device (pz_ops.cuh's pz_mul, loads unhidden)"}
 BEFORE_MS_OTHER = {("rnea_chain", "rescue profile"): "7.168",
                    ("fk_chain", "rescue profile"): "3.814",
                    ("rnea_chain", "real-time path (W = 1)"): "0.440",
@@ -1340,6 +1346,8 @@ def kernel_phase(captured, launches, device_launches, dev):
               f"bound {_bound_ms(nbytes, flops):.4f} ms")
         if name == "fk_chain":
             print(f"  {name} {key}: {check_k9_geometries(inputs)}")
+        elif name == "reach_assembly":
+            print(f"  {name} {key}: launch geometry {k15_geometry_of(inputs)}")
         elif name in OP_KERNELS:
             print(f"  {name} {key}: {check_op_geometries(name, inputs)}")
         elif name == "screen_collision":
@@ -2469,6 +2477,17 @@ def screen_variants(inputs):
             ("planted ties", tied + (K, 0)), ("planted ties, quota 8", tied + (K, 8))]
 
 
+def k15_geometry_of(inputs):
+    """K15's launch geometry for a recorded call (kernels/reach.py:
+    k15_geometry on this card)."""
+    from armour_tpu_torch.kernels import reach as kreach
+
+    links, u_both = inputs[0], inputs[1]
+    Wn, T, J = links.rad.shape[:3]
+    return kreach.k15_geometry(Wn, T, u_both.rad.shape[-1], 3 * J, links.coef.shape[-1],
+                               links.egen.shape[-1], kreach._sms(links.rad))
+
+
 def check_reach_assembly(inputs, dev):
     """K15 against its plain version (dynamics.reach_assembly_plain, or the
     one part's plain version) on the card: the shape generators, the link
@@ -2772,6 +2791,18 @@ def k16_work(Wn, T, B, E, P) -> tuple:
     return Wn * T * per_bytes, Wn * T * per_ops
 
 
+def k16_geometry_of(inputs):
+    """K16's launch geometry for a recorded call (kernels/grasp.py:
+    k16_geometry on this card)."""
+    from armour_tpu_torch.kernels import grasp as kgrasp
+
+    f_c = inputs[0]
+    return kgrasp.k16_geometry(f_c.rad.shape[0], f_c.rad.shape[2],
+                               f_c.coef.shape[-1] + f_c.egen.shape[-1] + 1,
+                               torch.cuda.get_device_properties(f_c.rad.device)
+                               .multi_processor_count)
+
+
 def check_grasp(inputs, dev):
     """K16 against grasp_rows_plain on the same CUDA inputs: g_coef and g_rad
     bit for bit (the same operations in the same order), and a second call
@@ -3002,6 +3033,11 @@ def grasp_phase(dev) -> tuple:
         print(f"  {name} {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB, bound "
               f"{_bound_ms(nbytes, flops):.4f} ms")
+        if name == "reach_assembly":
+            print(f"  {name} {key}: launch geometry {k15_geometry_of(inputs)}")
+        elif name == "grasp_rows":
+            print(f"  {name} {key}: launch geometry {k16_geometry_of(inputs)} (before: "
+                  f"{BEFORE_MS[name]} ms)")
         all_ok &= ok
         sm = sums.setdefault(name, [0.0, 0.0, 0])
         sm[0] += ms

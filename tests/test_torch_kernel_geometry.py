@@ -20,6 +20,7 @@ F < J, K7 / K8's grasp rows, a grasp step and a UR5 (F = 6) step (they
 skip where there is no card; K12 and K13 are in
 test_torch_jrs_screen_kernels.py)."""
 
+import ctypes
 import dataclasses
 import re
 import types
@@ -1064,7 +1065,12 @@ def test_k13_args_match_the_source():
 def test_k15_args_match_the_source():
     assert _ctypes_fields(reach.K15Args) == _struct_fields("reach_assembly.cu", "K15Args")
     text = _source("reach_assembly.cu")
-    assert _define(text, "K15_THREADS") == reach.K15_THREADS
+    assert _define(text, "K15_TILE") == reach.K15_TILE
+    assert "#define K15_THREADS (32 * K15_TILE)" in text
+    assert reach.K15_THREADS == 32 * reach.K15_TILE
+    assert _define(text, "K15_STAGES") == reach.K15_STAGES
+    assert _define(text, "K15_RANGES") == reach.K15_RANGES
+    assert _define(text, "K15_PART") == reach.K15_PART
     assert _define(text, "K15_MAXF") == reach.K15_MAX_F
     assert _define(text, "K15_MAXJ3") == reach.K15_MAX_J3
 
@@ -1088,21 +1094,143 @@ def test_k13_passes_cover_rows_and_choices_once(Wn, Kq):
 
 @pytest.mark.parametrize("Wn", WORLDS)
 def test_k15_geometry_fits(Wn):
-    """A block per (world, time step) of K15_THREADS; warp 0 holds the F
-    disturbance sums, warp 1 the F nominal sums and the 3 J link rows, in
-    two rounds of 32 at most (the dumbbell's 7 + 27); the slab fits the
-    shared memory a block takes without the opt-in, up to 8 factors and 9
-    links with the basis of 8 factors."""
-    assert reach.K15_THREADS == 64
-    assert reach.K15_MAX_F + reach.K15_MAX_J3 <= 2 * 32
-    assert "for (int r = tid - 32; r < F + J3; r += 32)" in _source("reach_assembly.cu")
-    assert reach.k15_smem(F, 3 * J, B, E) == 4 * (2 * F * (B + E + 1) + 3 * J * E)
+    """A block of K15_TILE warps, a warp a time step of its tile; the
+    ring's K15_STAGES tiles, the warps' parts and the zero fit a block's
+    shared memory after the opt-in up to 8 factors and 9 links with the
+    basis of 8 factors, and two blocks fit an SM at the flagship's and the
+    dumbbell's widths; the Python mirror of the shared memory repeats the
+    source's formula."""
     from armour_tpu_torch.pz.basis import make_basis
 
+    text = _source("reach_assembly.cu")
+    assert "return (K15_TILE * k15_count(a, r) + 3 + 3) / 4 * 4;" in text
+    assert ("return sizeof(float) * ((size_t)K15_STAGES * k15_stage_floats(a) +\n"
+            "                          K15_TILE * K15_PART * K15_MAXF);") in text
+    counts = reach.k15_counts(F, 3 * J, B, E)
+    assert reach.k15_smem(F, 3 * J, B, E) == 4 * (
+        2 * sum((4 * c + 6) // 4 * 4 for c in counts) + 4 * 5 * 8)
     b8 = make_basis(8, 3)
     E8 = 5 * 8 + 3
-    assert reach.k15_smem(8, 27, b8.size, E8) <= reach.K15_SMEM_MAX <= 48 * 1024
+    assert reach.k15_smem(8, 27, b8.size, E8) <= reach.K15_SMEM_MAX <= BLOCK_SMEM
+    for J3 in (3 * J, 3 * JD):
+        geo = reach.k15_geometry(Wn, T, F, J3, B, E, SMS)
+        assert geo.per_sm == 2 and geo.smem == reach.k15_smem(F, J3, B, E)
+        assert geo.grid == min(Wn * T // reach.K15_TILE, 2 * SMS)
     assert Wn * T < 2 ** 31
+
+
+@pytest.mark.parametrize("Fn, J3", [(F, 3 * J), (F, 27), (6, 18), (8, 27), (2, 6)])
+def test_k15_lanes_take_each_sum_once(Fn, J3):
+    """A Python copy of a warp's sums (reach_assembly.cu): lane f < F takes
+    factor f's long sum, lane F + f its two egen sums, and link row p goes
+    to lane (2F + p) mod 32, so every sum is taken once, no lane takes two
+    of the long or egen sums, and a lane takes at most two link rows (one
+    after a long or egen sum)."""
+    text = _source("reach_assembly.cu")
+    assert "part[lane] = k15_long_sum(ic + lane * B, nc + lane * B, B);" in text
+    assert ("for (int p = lane >= 2 * F ? lane - 2 * F : lane + 32 - 2 * F; p < J3; "
+            "p += 32) {") in text
+    assert "2 * args->F + args->J3 > 64" in text
+    assert 2 * reach.K15_MAX_F + reach.K15_MAX_J3 <= 64 and 2 * Fn + J3 <= 64
+    rows = {}
+    for lane in range(32):
+        p = lane - 2 * Fn if lane >= 2 * Fn else lane + 32 - 2 * Fn
+        while p < J3:
+            rows.setdefault(lane, []).append(p)
+            p += 32
+    assert sorted(p for ps in rows.values() for p in ps) == list(range(J3))
+    assert all(len(ps) == 1 for lane, ps in rows.items() if lane < 2 * Fn)
+    assert all(len(ps) <= 2 for ps in rows.values())
+
+
+@pytest.mark.parametrize("Wn", [1, 3, 64])
+@pytest.mark.parametrize("Tn", [128, 6, 10])
+def test_k15_tiles_cover_every_step_once(Wn, Tn):
+    """The persistent grid walks every (world, time step) once, also where
+    T is not a multiple of the tile (the ragged last tile of each world)
+    and where the grid holds fewer blocks than tiles."""
+    for sms in (SMS, 1):
+        geo = reach.k15_geometry(Wn, Tn, F, 3 * J, B, E, sms)
+        assert geo.tiles == Wn * -(-Tn // reach.K15_TILE) and 1 <= geo.grid <= geo.tiles
+        seen = sorted(p for b in range(geo.grid) for p in geo.steps(b, Tn))
+        assert seen == [(w, t) for w in range(Wn) for t in range(Tn)]
+
+
+def _ring_copies(off, n, slot):
+    """A Python copy of csrc/ring_copy.cuh:ring_copy: the (tensor float,
+    stage float, bytes) of each copy of n floats at offset off into the
+    slot starting at stage float `slot`."""
+    ph = off % 4
+    head = min((4 - ph) % 4, n)
+    chunks = (n - head) // 4
+    tail = n - head - 4 * chunks
+    starts = [(off + i, 4) for i in range(head)]
+    starts += [(off + head + 4 * k, 16) for k in range(chunks)]
+    starts += [(off + n - tail + i, 4) for i in range(tail)]
+    return [(g, slot + ph + g - off, size) for g, size in starts]
+
+
+def _check_ring_ranges(ranges):
+    """ranges: (tensor offset, floats, slot start, slot end) of a tile's
+    ranges, in stage order.  Every float copied once, 16-byte copies
+    aligned in the tensor and in the stage, each range inside its slot at
+    its phase, the slots contiguous multiples of 4 floats."""
+    assert ranges[0][2] == 0
+    for (off, n, lo, hi), nxt in zip(ranges, ranges[1:] + [None]):
+        cps = _ring_copies(off, n, lo)
+        got = sorted(g + i for g, _, size in cps for i in range(size // 4))
+        assert got == list(range(off, off + n))
+        assert all(g % 4 == 0 and s % 4 == 0 for g, s, size in cps if size == 16)
+        assert lo % 4 == 0 and hi % 4 == 0 and lo + off % 4 + n <= hi
+        assert nxt is None or nxt[2] == hi
+
+
+@pytest.mark.parametrize("Tn", [128, 6, 10])
+@pytest.mark.parametrize("J3", [21, 27])
+def test_k15_copies_cover_each_range_once(Tn, J3):
+    """The eight ranges of every tile (reach_assembly.cu:k15_issue: u_both's
+    coef, egen, rad of each plane, the links' egen and rad) copied through
+    ring_copy into their slots (_check_ring_ranges), at the flagship's,
+    the dumbbell's and the UR5's widths (B = 84, E = 33, F = 6)."""
+    assert "ring_copy(st, k15_base(a, r), k15_offset(a, r, w, t0)" in _source("reach_assembly.cu")
+    for Fn, Bn, En in ((F, B, E), (6, 84, 33)):
+        counts = reach.k15_counts(Fn, J3, Bn, En)
+        for w in (0, 1, 2):
+            for t0 in range(0, Tn, reach.K15_TILE):
+                nv = min(reach.K15_TILE, Tn - t0)
+                ranges, lo = [], 0
+                for r, c in enumerate(counts):
+                    row = (w * 2 + (r & 1)) * Tn + t0 if r < 6 else w * Tn + t0
+                    ranges.append((row * c, nv * c, lo, lo + reach.k15_slot(c)))
+                    lo += reach.k15_slot(c)
+                _check_ring_ranges(ranges)
+
+
+def test_k15_wrapper_raises_on_a_misaligned_view(monkeypatch):
+    """The kernel places each range at the phase of its offset in its
+    tensor, so a view that does not start 16-byte aligned is refused
+    before anything launches."""
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import make_basis
+
+    robot, cfg, basis = kinova_gen3(), ArmourConfig(num_time_steps=4), make_basis(7, 3)
+    calls = []
+    links, u_both = bpz.zeros((1, 4, J, 3), basis), bpz.zeros((1, 2, 4, F), basis)
+    flat = torch.zeros(u_both.egen.numel() + 1)
+    shifted = bpz.BPZ(coef=u_both.coef, egen=flat[1:].view(u_both.egen.shape), rad=u_both.rad)
+    assert shifted.egen.data_ptr() % 16 == 4
+    monkeypatch.setattr(reach, "launcher", _fake_launcher(calls))
+    monkeypatch.setattr(reach, "_stream", lambda t: None)
+    monkeypatch.setattr(reach, "_sms", lambda t: 1)
+    monkeypatch.setattr(reach, "launched", lambda *a: None)
+    monkeypatch.setattr(reach, "_require", lambda p, what, shape: p)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        reach.reach_assembly(links, shifted, robot, cfg, basis)
+    assert not calls
+    reach.reach_assembly(links, u_both, robot, cfg, basis)
+    assert len(calls) == 1
 
 
 def _fake_launcher(calls):
@@ -1150,7 +1278,8 @@ def test_k13_launcher_passes_the_cells(monkeypatch):
 def test_k15_launcher_passes_its_parts(monkeypatch):
     """The launcher hands K15 the links' egen / rad and u_both's three
     tensors, c0 and the friction rounded once to float32, the sizes and the
-    shared memory; u_coef and center_coef stay views of the inputs."""
+    persistent grid (k15_geometry; the kernel's C launcher forms its shared
+    memory); u_coef and center_coef stay views of the inputs."""
     from armour_tpu_torch.config import ArmourConfig
     from armour_tpu_torch.models.kinova import kinova_gen3
     from armour_tpu_torch.pz import bpz
@@ -1164,12 +1293,14 @@ def test_k15_launcher_passes_its_parts(monkeypatch):
     robot, cfg, basis = kinova_gen3(), ArmourConfig(num_time_steps=4), make_basis(7, 3)
     Wn, Tn = 2, 4
     links, u_both = bpz.zeros((Wn, Tn, J, 3), basis), bpz.zeros((Wn, 2, Tn, F), basis)
+    monkeypatch.setattr(reach, "_sms", lambda t: 1)
     frs, torque = reach.reach_assembly(links, u_both, robot, cfg, basis)
-    (name, symbol, _, (args, smem, _)), = calls
+    (name, symbol, argtypes, (args, grid, _)), = calls
     assert (name, symbol) == ("reach_assembly", "k15_launch")
+    assert argtypes[1:] == [ctypes.c_int, ctypes.c_void_p]
     a = args._obj
     assert (a.W, a.T, a.F, a.J3, a.B, a.E, a.sh0) == (Wn, Tn, F, 3 * J, B, E, 5 * 7)
-    assert smem == reach.k15_smem(F, 3 * J, B, E)
+    assert grid == reach.k15_geometry(Wn, Tn, F, 3 * J, B, E, 1).grid == 2
     assert (a.le, a.lr) == (links.egen.data_ptr(), links.rad.data_ptr())
     assert (a.shape_gens, a.radius) == (frs.shape_gens.data_ptr(), frs.radius.data_ptr())
     assert frs.center_coef is links.coef
@@ -1238,16 +1369,20 @@ def test_k16_args_match_the_source():
     assert _define(text, "K16_THREADS") == kgrasp.K16_THREADS == 32 * kgrasp.K16_NG
     assert _define(text, "K16_BLOCKS_PER_SM") == kgrasp.K16_BLOCKS_PER_SM
     assert _define(text, "K16_SQ") == kgrasp.K16_SQ
-    assert '#include "pz_ops.cuh"' in text and "pz_mul(" in text
+    assert _define(text, "K16_STAGES") == kgrasp.K16_STAGES
+    assert _define(text, "K16_RANGES") == kgrasp.K16_RANGES
+    assert _define(text, "K16_SLOTS") == kgrasp.K16_SLOTS == -(-kpz.MAX_B // 32)
+    assert "#define K16_TAB_BYTES (4 * PZ_MAXPAIRS + 2 * (PZ_MAXB + 8))" in text
+    assert '#include "pz_ops.cuh"' in text and "pz_warp_sum(" in text
 
 
 @pytest.mark.parametrize("nf", [6, 7])
 def test_k16_tables_and_shared_memory_fit(nf):
     """The sorted pair table lists every pair of the basis once, in
     pair-table order within a monomial; it fits pz_ops.cuh's tables, which
-    K16 reads, and a block's shared memory the default 48 KB, at the basis'
-    widths and at the tables' largest; pz_mul's masses of the five squares'
-    operands fit the mass scratch."""
+    K16 reads; a block's shared memory fits the opt-in's 227 KB (the
+    launcher opts in always) at the basis' widths, two blocks to an SM, and
+    at the tables' largest."""
     from armour_tpu_torch.kernels import grasp as kgrasp, pz as kpz
     from armour_tpu_torch.pz.basis import error_layout, make_basis, pair_segments
 
@@ -1267,26 +1402,91 @@ def test_k16_tables_and_shared_memory_fit(nf):
     t = kpz.pz_tables(basis, Ed)
     assert (t.B, t.E, t.P) == (basis.size, Ed, len(pi))
     assert list(t.seg)[:basis.size + 1] == seg.tolist() and list(t.pi)[:len(pi)] == pi.tolist()
-    assert kgrasp.k16_smem(basis.size + Ed + 1) <= kgrasp.K16_SMEM_MAX
-    assert kgrasp.k16_smem(kpz.MAX_B + kpz.MAX_E + 1) <= kgrasp.K16_SMEM_MAX
-    assert 2 * kgrasp.K16_SQ <= kpz.PZ_MAXMASS
+    assert 2 * (kgrasp.k16_smem(basis.size + Ed + 1) + 1024) <= kpz.SM_SMEM
+    assert kgrasp.k16_smem(kpz.MAX_B + kpz.MAX_E + 1) <= kgrasp.K16_SMEM_MAX == BLOCK_SMEM
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in _source("grasp_rows.cu")
+    # a pair's packed operand offsets fit 16 bits each; the ring's stages
+    # and the interleaved coefficients start 16-byte aligned
+    assert 4 * kgrasp.K16_SQ * (kpz.MAX_B - 1) < 2 ** 16
+    assert kgrasp.K16_TAB_BYTES % 16 == 0 and kgrasp.k16_stage_floats(LD) % 4 == 0
 
 
-@pytest.mark.parametrize("n", [1, 48, 8192, 131072])
-def test_k16_geometry_covers_the_elements(n):
-    """K16's persistent grid: warps of one element, K16_NG a block, at most
-    as many blocks as the elements need and as stay resident on an H100 (by
-    shared memory: seven at the dumbbell's widths; the register cap allows
-    eight); every element is walked once."""
+@pytest.mark.parametrize("Wn", [1, 3, 8, 64])
+@pytest.mark.parametrize("Tn", [128, 6, 10])
+def test_k16_geometry_covers_the_elements(Wn, Tn):
+    """K16's persistent grid: tiles of K16_NG steps of one world, a warp a
+    step, at most as many blocks as tiles and as stay resident on an H100
+    (by shared memory and by the register cap: two at the dumbbell's
+    widths), its shared memory within the launcher's limit; every (world,
+    time step) is walked once, also with a ragged last tile and with fewer
+    blocks than tiles."""
     from armour_tpu_torch.kernels import grasp as kgrasp
 
-    geo = kgrasp.k16_geometry(n, LD)
-    per_sm = BLOCK_SMEM // (kgrasp.k16_smem(LD) + 1024)
-    assert (geo.G, geo.NG) == (32, kgrasp.K16_NG) and per_sm == 7
-    assert geo.grid == min(-(-n // kgrasp.K16_NG), SMS * min(per_sm, kgrasp.K16_BLOCKS_PER_SM))
-    seen = sorted(e for b in range(geo.grid) for gi in range(geo.NG)
-                  for e in range(b * geo.NG + gi, n, geo.grid * geo.NG))
-    assert seen == list(range(n))
+    per_sm = kpz.SM_SMEM // (kgrasp.k16_smem(LD) + 1024)
+    assert per_sm == 2 and kgrasp.K16_THREADS == 32 * kgrasp.K16_NG
+    assert kgrasp.k16_smem(LD) <= kgrasp.K16_SMEM_MAX
+    for sms in (SMS, 1):
+        geo = kgrasp.k16_geometry(Wn, Tn, LD, sms)
+        assert geo.tiles == Wn * -(-Tn // kgrasp.K16_NG) and geo.smem == kgrasp.k16_smem(LD)
+        assert geo.grid == min(geo.tiles, sms * min(per_sm, kgrasp.K16_BLOCKS_PER_SM))
+        seen = sorted(p for b in range(geo.grid) for p in geo.steps(b, Tn))
+        assert seen == [(w, t) for w in range(Wn) for t in range(Tn)]
+
+
+@pytest.mark.parametrize("Bn, En", [(B, E), (84, 33), (kpz.MAX_B, kpz.MAX_E)])
+@pytest.mark.parametrize("Tn", [128, 6])
+def test_k16_copies_cover_each_range_once(Bn, En, Tn):
+    """The six ranges of every tile (grasp_rows.cu:k16_issue: coef, egen,
+    rad of f, then of n, 3 entries a step) copied through ring_copy into
+    their slots (_check_ring_ranges), the slots within k16_stage_floats;
+    at the flagship's and the UR5's widths and the tables' largest."""
+    from armour_tpu_torch.kernels import grasp as kgrasp
+
+    text = _source("grasp_rows.cu")
+    assert "return (3 * K16_NG * k16_width(r, B, E) + 3 + 3) / 4 * 4;" in text
+    assert "return (6 * K16_NG * ld + 36 + 3) / 4 * 4;" in text
+    assert "ring_copy(st, k16_base(a, r), e0 * width, 3 * nv * width" in text
+    ld, P = Bn + En + 1, 2
+    widths = (Bn, En, 1, Bn, En, 1)
+    assert sum(kgrasp.k16_slot(x) for x in widths) <= kgrasp.k16_stage_floats(ld)
+    for w in (0, 1, 2):
+        for t0 in range(0, Tn, kgrasp.K16_NG):
+            nv = min(kgrasp.K16_NG, Tn - t0)
+            e0 = ((w * P + P - 1) * Tn + t0) * 3
+            ranges, lo = [], 0
+            for width in widths:
+                ranges.append((e0 * width, 3 * nv * width, lo, lo + kgrasp.k16_slot(width)))
+                lo += kgrasp.k16_slot(width)
+            _check_ring_ranges(ranges)
+
+
+def test_k16_wrapper_raises_on_a_misaligned_view(monkeypatch):
+    """A wrench tensor that does not start 16-byte aligned is refused
+    before anything launches."""
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.grasp import GraspParams
+    from armour_tpu_torch.kernels import grasp as kgrasp
+    from armour_tpu_torch.pz import bpz
+    from armour_tpu_torch.pz.basis import make_basis
+
+    calls = []
+    monkeypatch.setattr(kgrasp, "launcher", _fake_launcher(calls))
+    monkeypatch.setattr(kgrasp, "upload_tables", lambda *a: None)
+    monkeypatch.setattr(kgrasp, "_stream", lambda t: None)
+    monkeypatch.setattr(kgrasp, "launched", lambda *a: None)
+    monkeypatch.setattr(kgrasp, "_require", lambda p, what, shape: p)
+    monkeypatch.setattr(kgrasp.torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=1))
+    basis, cfg = make_basis(7, 3), ArmourConfig(num_time_steps=4)
+    f, n = bpz.zeros((2, 2, 4, 3), basis), bpz.zeros((2, 2, 4, 3), basis)
+    flat = torch.zeros(n.coef.numel() + 2)
+    shifted = bpz.BPZ(coef=flat[2:].view(n.coef.shape), egen=n.egen, rad=n.rad)
+    assert shifted.coef.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kgrasp.grasp_rows(f, shifted, GraspParams(), cfg, basis)
+    assert not calls
+    kgrasp.grasp_rows(f, n, GraspParams(), cfg, basis)
+    assert len(calls) == 1
 
 
 def test_k16_launcher_passes_its_values(monkeypatch):
@@ -1314,7 +1514,7 @@ def test_k16_launcher_passes_its_values(monkeypatch):
     assert uploads == [("grasp_rows", "k16_tables", basis, E)]
     (name, symbol, _, (args, ld, grid, _)), = calls
     assert (name, symbol, ld) == ("grasp_rows", "k16_launch", B + E + 1)
-    assert grid == kgrasp.k16_geometry(2 * 4, B + E + 1, 1).grid == 2
+    assert grid == kgrasp.k16_geometry(2, 4, B + E + 1, 1).grid == 2
     a = args._obj
     assert (a.W, a.T, a.P, a.pset, a.normal) == (2, 4, 2, 1, 1)
     for fld, t in zip(("fc", "fe", "fr", "nc", "ne", "nr"),
