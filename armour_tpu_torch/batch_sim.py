@@ -202,17 +202,18 @@ def run_trials_batched(
     qd = torch.zeros_like(q)
     ref = initial_plan(starts, dt, device=dev)
 
-    # warm-up outside the timed loop: every kernel's build (in parallel),
-    # the planners' first calls, the allocator
+    # warm-up outside the timed loop on the card: every kernel's build (in
+    # parallel), the planners' first calls, the allocator (the CPU has
+    # nothing to build or warm)
     if dev.type == "cuda":
         from .kernels.build import build_all
 
         build_all()
-    q0w, qd0w, qdd0w, wpw = plan_inputs(ref)
-    planner(q0w, qd0w, qdd0w, wpw, obs)
-    if rescue is not None:
-        rescue(q0w, qd0w, qdd0w, wpw, obs)
-    sync(dev)
+        q0w, qd0w, qdd0w, wpw = plan_inputs(ref)
+        planner(q0w, qd0w, qdd0w, wpw, obs)
+        if rescue is not None:
+            rescue(q0w, qd0w, qdd0w, wpw, obs)
+        sync(dev)
 
     wp_cache = np.asarray(goals_np, dtype=np.float64).copy()
 

@@ -1,7 +1,8 @@
-"""Experiment harness: the batched world suite, the hard scenarios, their
-buckets and results files (counterpart of
-armour_tpu/experiments.py:48-66,135-240,312-385 and
-scripts/run_hard_scenarios.py).
+"""Experiment harness: world generation, the serial and batched world
+suites, the controller sweep, the hard scenarios, their buckets and results
+files (counterpart of armour_tpu/experiments.py and the scripts
+run_worlds.py, run_controller_sweep.py, generate_worlds.py and
+run_hard_scenarios.py).
 
     python3 -m armour_tpu_torch.experiments [world_dir] [n_worlds] [results.json]
         [mode] [--seed S] [--device cpu|cuda] [--trace WORLD ...]
@@ -17,8 +18,24 @@ outer iterations to the measured reach-set time at batch 1
 (planner.make_realtime_planner) and runs the suite at that profile,
 recording the calibration in the results' batch_stats.  --trace WORLD (a
 world's file name, repeatable) records that world's every iteration in
-batch_stats["trace"][WORLD] (batch_sim.run_trials_batched's trace).  The
-serial mode of scripts/run_worlds.py is not ported.
+batch_stats["trace"][WORLD] (batch_sim.run_trials_batched's trace).
+--resume keeps the worlds already in the results file and runs the others.
+
+mode "serial" runs the worlds one at a time at batch 1 (run_world_suite,
+the serial mode of scripts/run_worlds.py), saving the results file after
+each world; --resume skips the worlds already in it.
+
+mode "sweep" runs the controller sweep (robust_controller_sweep: 7
+uncertainty levels x 3 controllers x 32 samples, float32, on kernel K5)
+and writes its JSON (the layout of results_controller_sweep.json, never
+that file) to results; world_dir and n_worlds are ignored:
+
+    python3 -m armour_tpu_torch.experiments - 0 controller_sweep_torch.json sweep
+
+mode "generate" writes the 100-scene random suite (generate_world_suite,
+default_rng(--seed)) into world_dir, the JAX package's files byte for byte:
+
+    python3 -m armour_tpu_torch.experiments /tmp/worlds 0 - generate --seed 0
 
 mode "hard" runs the 7 hard scenarios (scenarios.all_hard_scenarios) as
 scripts/run_hard_scenarios.py does: one world at a time through run_trial
@@ -57,7 +74,27 @@ import numpy as np
 from .config import ArmourConfig
 from .robot import RobotModel
 from .simulator import TrialSummary
-from .worlds import load_world_csv
+from .worlds import load_world_csv, random_world, save_world_csv
+
+DEFAULT_COUNTS = (13, 16, 19, 22, 25, 28, 31, 34, 37, 40)
+
+
+def generate_world_suite(out_dir: str, robot: RobotModel,
+                         counts: Sequence[int] = DEFAULT_COUNTS,
+                         per_count: int = 10, seed: int = 0) -> List[str]:
+    """per_count random worlds (worlds.random_world) for each obstacle count,
+    written as scene_NNN_III.csv; one generator default_rng(seed) for all,
+    so the files are the JAX package's, byte for byte."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for n in counts:
+        for i in range(per_count):
+            w = random_world(rng, robot, n)
+            path = os.path.join(out_dir, f"scene_{n:03d}_{i + 1:03d}.csv")
+            save_world_csv(w, path)
+            paths.append(path)
+    return paths
 
 
 @dataclasses.dataclass
@@ -80,6 +117,89 @@ class SuiteResult:
         return "stuck"
 
 
+def _load_done(results_path: Optional[str], names: Sequence[str]) -> dict:
+    """The per-world records of results_path (save_results' layout) whose
+    world file name is in names, as {name: SuiteResult}; resume keys worlds
+    by file name, as the JAX package does."""
+    done: dict = {}
+    if results_path and os.path.exists(results_path):
+        with open(results_path) as f:
+            for d in json.load(f).get("results", []):
+                name = d.pop("world")
+                d.pop("bucket", None)
+                d.pop("solvability", None)
+                if name in names:
+                    done[name] = SuiteResult(world=name, summary=TrialSummary(**d))
+    return done
+
+
+def run_world_suite(world_paths: Sequence[str], robot: RobotModel,
+                    cfg: ArmourConfig, max_iterations: int = 500,
+                    true_param_scale: Optional[float] = 1.0,
+                    seed: int = 0, verbose: bool = True,
+                    results_path: Optional[str] = None,
+                    use_hlp: bool = False,
+                    resume: bool = False, *, device=None,
+                    stats: Optional[dict] = None) -> List[SuiteResult]:
+    """The serial suite: one world at a time through simulator.run_trial at
+    batch 1, with make_planner and the rescue planner, the results file
+    saved after each world.  World i's true parameters come from
+    default_rng((seed, i)), so resumed and fresh runs sample the same ones.
+    use_hlp: EE-RRT* guidance (lookahead 0.1, seed seed + i) instead of the
+    straight line.  resume=True: worlds already in results_path are
+    reloaded, not run (keyed by file name).  stats, when given, receives
+    per world run its run_trial stats (each iteration's plan / move /
+    oracle seconds) and its wall seconds.  Runs on the card unless device
+    names another device."""
+    from .collision import pad_obstacles
+    from .planner import make_planner, make_rescue_planner
+    from .simulator import make_oracles, make_rollout, run_trial, sample_true_params
+
+    names = [os.path.basename(p) for p in world_paths]
+    done = _load_done(results_path, names) if resume else {}
+    parts = None
+    results = []
+    for i, path in enumerate(world_paths):
+        name = names[i]
+        if name in done:
+            results.append(done[name])
+            continue
+        if parts is None:
+            parts = (make_planner(robot, cfg, device=device),
+                     make_rescue_planner(robot, cfg, device=device),
+                     make_rollout(robot, cfg, device=device),
+                     make_oracles(robot, cfg, device=device))
+        step, rescue, rollout, oracles = parts
+        world = load_world_csv(path)
+        obs = pad_obstacles(world.obstacle_centers, world.obstacle_generators,
+                            cfg.max_obstacles, cfg.dtype)
+        tp = sample_true_params(robot, np.random.default_rng((seed, i)),
+                                scale=true_param_scale)
+        hlp = None
+        if use_hlp:
+            from .hlp import EndEffectorRRTStarHLP
+
+            hlp = EndEffectorRRTStarHLP(world, robot, lookahead=0.1, seed=seed + i)
+        trial_stats: dict = {}
+        t0 = time.perf_counter()
+        summary = run_trial(world, robot, cfg, step, obs, tp,
+                            max_iterations=max_iterations, rollout=rollout,
+                            oracles=oracles, hlp=hlp, rescue_step=rescue, device=device,
+                            stats=trial_stats)
+        trial_stats["wall_s"] = time.perf_counter() - t0
+        if stats is not None:
+            stats[name] = trial_stats
+        res = SuiteResult(world=name, summary=summary)
+        results.append(res)
+        if verbose:
+            print(f"{res.world}: {res.bucket()} iters={summary.iterations} "
+                  f"infeasible={summary.infeasible_plans} "
+                  f"wall={trial_stats['wall_s']:.1f}s", flush=True)
+        if results_path:
+            save_results(results, results_path)
+    return results
+
+
 def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
                             cfg: ArmourConfig, max_iterations: int = 500,
                             true_param_scale: Optional[float] = 1.0,
@@ -88,6 +208,8 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
                             extra_stats: Optional[dict] = None,
                             rescue_solver: bool = True,
                             guidance: str = "straight",
+                            resume: bool = False,
+                            second_pass: Optional[dict] = None,
                             *, device=None, trace: Sequence[str] = (),
                             stats: Optional[dict] = None) -> List[SuiteResult]:
     """All worlds advanced in lockstep on one card
@@ -95,23 +217,48 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
     are recorded in the saved batch_stats, into which extra_stats (e.g. the
     real-time budget calibration) is merged.  trace: world file names whose
     every iteration goes to batch_stats["trace"][name].  stats, when given,
-    receives the batch_stats."""
+    receives the batch_stats.
+
+    resume=True: worlds already in results_path (keyed by file name) are
+    reloaded and only the others run, as a sub-batch whose true parameters
+    are drawn as in the fresh full run (run_trials_batched's tp_indices /
+    tp_total); a call with every world done runs nothing.
+
+    second_pass: a dict of run_trials_batched overrides (plus optional
+    'cfg' and 'seed' keys) for a sub-batch of the worlds left stuck, with
+    the main run's true parameters.  Only retries that reach the goal with
+    no safety flag replace a record; batch_stats["second_pass"] records
+    the attempt and the worlds swapped."""
     from .batch_sim import run_trials_batched
 
     names = [os.path.basename(p) for p in world_paths]
-    worlds = [load_world_csv(p) for p in world_paths]
+    done = _load_done(results_path, names) if resume else {}
+    todo = [i for i, n in enumerate(names) if n not in done]
+    if not todo:
+        return [done[n] for n in names]
+    worlds = [load_world_csv(world_paths[i]) for i in todo]
     t0 = time.perf_counter()
     batch_stats: dict = dict(extra_stats or {})
     batch_stats.update(rescue_solver=rescue_solver, guidance=guidance)
+    if done:
+        batch_stats["resumed_worlds"] = len(done)
+    run_names = [names[i] for i in todo]
     summaries = run_trials_batched(
         worlds, robot, cfg, max_iterations=max_iterations,
         true_param_scale=true_param_scale, seed=seed, verbose=verbose,
         stats=batch_stats, rescue_solver=rescue_solver, guidance=guidance,
-        device=device, trace=[names.index(n) for n in trace])
+        tp_indices=(todo if done else None), tp_total=(len(names) if done else None),
+        device=device, trace=[run_names.index(n) for n in trace if n not in done])
     if "trace" in batch_stats:
-        batch_stats["trace"] = {names[int(i)]: rec for i, rec in batch_stats["trace"].items()}
+        batch_stats["trace"] = {run_names[int(i)]: rec
+                                for i, rec in batch_stats["trace"].items()}
+    fresh = dict(zip(run_names, summaries))
+    results = [done[n] if n in done else SuiteResult(world=n, summary=fresh[n])
+               for n in names]
+    if second_pass is not None:
+        _second_pass(results, world_paths, robot, cfg, second_pass, max_iterations,
+                     true_param_scale, seed, verbose, batch_stats, device)
     batch_stats["suite_wall_s"] = time.perf_counter() - t0
-    results = [SuiteResult(world=n, summary=s) for n, s in zip(names, summaries)]
     if stats is not None:
         stats.update(batch_stats)
     if verbose:
@@ -121,6 +268,124 @@ def run_world_suite_batched(world_paths: Sequence[str], robot: RobotModel,
     if results_path:
         save_results(results, results_path, batch_stats=batch_stats)
     return results
+
+
+def _second_pass(results: List[SuiteResult], world_paths: Sequence[str], robot: RobotModel,
+                 cfg: ArmourConfig, second_pass: dict, max_iterations: int,
+                 true_param_scale: Optional[float], seed: int, verbose: bool,
+                 batch_stats: dict, device) -> None:
+    """Retry the stuck worlds of results in place (run_world_suite_batched's
+    second_pass)."""
+    from .batch_sim import run_trials_batched
+
+    stuck_idx = [i for i, r in enumerate(results) if r.bucket() == "stuck"]
+    if not stuck_idx:
+        return
+    sp = dict(second_pass)
+    sp_cfg = sp.pop("cfg", cfg)
+    sp_seed = sp.pop("seed", seed)
+    retried = run_trials_batched(
+        [load_world_csv(world_paths[i]) for i in stuck_idx], robot, sp_cfg,
+        max_iterations=sp.pop("max_iterations", max_iterations),
+        true_param_scale=true_param_scale, seed=sp_seed, verbose=verbose,
+        tp_indices=stuck_idx, tp_total=len(results), device=device, **sp)
+    swapped = []
+    for i, s in zip(stuck_idx, retried):
+        safe = not (s.collision or s.torque_exceeded or s.ultimate_bound_exceeded
+                    or s.joint_limit_exceeded)
+        if s.goal_reached and safe:
+            results[i] = SuiteResult(world=results[i].world, summary=s)
+            swapped.append(results[i].world)
+    batch_stats["second_pass"] = {
+        "attempted": len(stuck_idx), "recovered": swapped,
+        "variant": {k: (repr(v)[:200] if k == "cfg" else v) for k, v in second_pass.items()}}
+    if verbose:
+        print(f"second pass: {len(swapped)}/{len(stuck_idx)} stuck worlds recovered",
+              flush=True)
+
+
+def robust_controller_sweep(robot: RobotModel, cfg: ArmourConfig,
+                            uncertainties: Sequence[float] = (0.0, 0.05, 0.1, 0.15, 0.2,
+                                                              0.25, 0.3),
+                            controllers: Sequence[str] = ("robust", "althoff", "nominal"),
+                            n_samples: int = 32, seed: int = 0,
+                            results_path: Optional[str] = None, *,
+                            device=None) -> dict:
+    """Tracking error and input over model uncertainty: for each level,
+    n_samples randomised references (sweep_draws) tracked by each
+    controller under the worst-case true parameters (sweep_true_params);
+    one batched rollout (make_rollout, kernel K5 on the card) per (level,
+    controller) gives the max |q - q_des|, max |qd - qd_des| and mean |u|.
+    The JSON layout is results_controller_sweep.json's."""
+    from .planner import resolve_device
+    from .simulator import make_rollout
+
+    if results_path and os.path.basename(results_path) == "results_controller_sweep.json":
+        raise ValueError("results_controller_sweep.json is the JAX package's record; "
+                         "name another file")
+    dev = resolve_device(device)
+    out = {"uncertainties": list(uncertainties), "n_samples": n_samples,
+           "controllers": {c: {"max_pos_err": [], "max_vel_err": [], "mean_abs_u": []}
+                           for c in controllers}}
+    q0, qd0, refs = sweep_draws(robot, cfg, n_samples, seed, dev)
+    for u in uncertainties:
+        robot_u = dataclasses.replace(robot, mass_uncertainty=u, inertia_uncertainty=u)
+        tp = sweep_true_params(robot, cfg, u, n_samples, dev)
+        for ctrl in controllers:
+            roll = make_rollout(robot_u, cfg, controller=ctrl, device=dev)
+            _, _, logs = roll(q0, qd0, refs, tp)
+            rec = out["controllers"][ctrl]
+            rec["max_pos_err"].append(float((logs["q"] - logs["q_des"]).abs().max()))
+            rec["max_vel_err"].append(float((logs["qd"] - logs["qd_des"]).abs().max()))
+            rec["mean_abs_u"].append(float(logs["u"].abs().mean()))
+    if results_path:
+        out["provenance"] = _provenance()
+        with open(results_path, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+def sweep_draws(robot: RobotModel, cfg: ArmourConfig, n_samples: int, seed: int, device):
+    """The sweep's start states and references, drawn from default_rng(seed)
+    in the JAX package's order: anchors in +-pi/2 rad and +-0.3 rad/s, start
+    offsets of 0.025 pi in position and 0.05 pi in velocity, k in [-1, 1]
+    (kinova_compare_robust_controller.m:80-86).  (q0, qd0, refs) on device."""
+    import torch
+
+    from .trajectory import advance_plan, initial_plan
+
+    rng = np.random.default_rng(seed)
+    F = robot.num_factors
+    q_anchor = rng.uniform(-np.pi / 2, np.pi / 2, (n_samples, F))
+    qd_anchor = rng.uniform(-0.3, 0.3, (n_samples, F))
+    dq = rng.normal(size=(n_samples, F))
+    dq = 0.025 * np.pi * dq / np.linalg.norm(dq, axis=1, keepdims=True)
+    dqd = rng.normal(size=(n_samples, F))
+    dqd = 0.05 * np.pi * dqd / np.linalg.norm(dqd, axis=1, keepdims=True)
+    ks = rng.uniform(-1, 1, (n_samples, F))
+
+    def t(x):
+        return torch.as_tensor(x, dtype=cfg.dtype).to(device)
+
+    qa, qda = t(q_anchor), t(qd_anchor)
+    refs = advance_plan(initial_plan(qa, cfg.dtype, device=device), t(ks), qa, qda,
+                        torch.zeros_like(qa), cfg)
+    return t(q_anchor + dq), t(qd_anchor + dqd), refs
+
+
+def sweep_true_params(robot: RobotModel, cfg: ArmourConfig, u: float, n_samples: int, device):
+    """The worst-case true parameters at uncertainty level u: mass and
+    inertia scaled by 1 + u, the nominal centres of mass."""
+    import torch
+
+    from .simulator import TrueParams
+
+    def t(x):
+        return torch.as_tensor(x, dtype=cfg.dtype).to(device)
+
+    return TrueParams(mass=t(np.tile(robot.mass * (1.0 + u), (n_samples, 1))),
+                      inertia=t(np.tile(robot.inertia * (1.0 + u), (n_samples, 1, 1, 1))),
+                      com=t(np.tile(robot.com, (n_samples, 1, 1))))
 
 
 def run_hard_world(i: int, world, robot: RobotModel, cfg: ArmourConfig, step, rescue,
@@ -341,8 +606,11 @@ def main(argv=None) -> None:
     ap.add_argument("n_worlds", nargs="?", type=int, default=0)
     ap.add_argument("results", nargs="?", default="results_worlds_torch.json")
     ap.add_argument("mode", nargs="?", default="batched",
-                    choices=("batched", "budget", "serial", "hard", "armtd"))
+                    choices=("batched", "budget", "serial", "hard", "armtd", "sweep",
+                             "generate"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="batched / serial: keep the worlds already in the results file")
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", action="append", default=[], metavar="WORLD",
                     help="record this world's every iteration (file name, e.g. scene_028_009.csv)")
@@ -362,15 +630,27 @@ def main(argv=None) -> None:
         results = run_hard_scenarios(args.results, device=args.device)
         print(json.dumps(summarize(results), indent=1))
         return
-    if args.mode == "serial":
-        raise SystemExit("mode 'serial' (the per-world loop of scripts/run_worlds.py) is not "
-                         "ported; the batched suite gives the same outcomes")
+    if args.mode == "generate":
+        paths = generate_world_suite(args.world_dir, kinova_gen3(), seed=args.seed)
+        print(f"wrote {len(paths)} scenes to {args.world_dir}")
+        return
+    if args.mode == "sweep":
+        out = robust_controller_sweep(kinova_gen3(), ArmourConfig(dtype=torch.float32),
+                                      seed=args.seed, results_path=args.results,
+                                      device=args.device)
+        print(json.dumps(out, indent=1))
+        return
     paths = sorted(glob.glob(os.path.join(args.world_dir, "*.csv")))
     if args.n_worlds:
         paths = paths[: args.n_worlds]
     if not paths:
         raise SystemExit(f"no *.csv worlds in {args.world_dir}")
     robot, cfg = kinova_gen3(), ArmourConfig(dtype=torch.float32)
+    if args.mode == "serial":
+        results = run_world_suite(paths, robot, cfg, seed=args.seed, results_path=args.results,
+                                  resume=args.resume, device=args.device)
+        print(json.dumps(summarize(results), indent=1))
+        return
     if args.mode == "armtd":
         doc = run_armtd_comparison(paths, robot, cfg, args.results, seed=args.seed,
                                    device=args.device, trace=args.trace)
@@ -387,7 +667,8 @@ def main(argv=None) -> None:
         extra = {"budget_calibration": calib, "budget_mode": True}
     results = run_world_suite_batched(paths, robot, cfg, max_iterations=500, seed=args.seed,
                                       results_path=args.results, extra_stats=extra,
-                                      device=args.device, trace=args.trace)
+                                      resume=args.resume, device=args.device,
+                                      trace=args.trace)
     print(json.dumps(summarize(results), indent=1))
 
 

@@ -1,5 +1,5 @@
 """High-level planners (waypoint generators) for the receding-horizon loop
-(copy of armour_tpu/hlp.py:41-605; numpy only, bit-identical waypoints for
+(copy of armour_tpu/hlp.py; numpy only, bit-identical waypoints for
 the same seed).
 
 HLPs are cheap geometric guidance on the host, called once per 0.5 s re-plan:
@@ -13,8 +13,10 @@ HLPs are cheap geometric guidance on the host, called once per 0.5 s re-plan:
   * ConfigRRTStarHLP      -- RRT* directly in the configuration space; nodes
     and edges are checked by sweeping the whole arm (link segments,
     capsule-buffered) against the obstacle boxes.
-
-LazyPRMHLP of the JAX package is not ported.
+  * LazyPRMHLP            -- a workspace roadmap of end-effector positions
+    sampled once, k nearest neighbours connected without edge checks, then
+    Dijkstra validating each edge when it would relax through it (Lazy
+    PRM); the same path walk and IK waypoint as the end-effector RRT*.
 """
 
 from __future__ import annotations
@@ -593,3 +595,128 @@ class ConfigRRTStarHLP:
         if walked_off:
             return np.asarray(self.goal, float)
         return np.asarray(z, float)
+
+
+# ---------------------------------------------------------------------------
+# lazy PRM (workspace roadmap + lazy-Dijkstra edge validation)
+# ---------------------------------------------------------------------------
+
+
+class LazyPRMHLP:
+    """Probabilistic roadmap on end-effector positions with LAZY edge
+    validation (robot_arm_PRM_HLP.m intent + the lazy-Dijkstra sampling
+    variants): the roadmap is built without collision checks; Dijkstra
+    validates an edge only when it would relax through it, deleting invalid
+    edges and continuing.  Narrow scenes re-sample with a denser roadmap if
+    no path survives."""
+
+    def __init__(self, world: World, robot: RobotModel, lookahead: float = 0.1,
+                 buffer: float = 0.05, bounds_radius: float = 1.1,
+                 n_samples: int = 300, k_neighbors: int = 8, seed: int = 0,
+                 max_resample: int = 2):
+        self.world = world
+        self.robot = robot
+        self.lookahead = lookahead
+        self.rng = np.random.default_rng(seed)
+        self.bounds_radius = bounds_radius
+        self.n_samples = n_samples
+        self.k_neighbors = k_neighbors
+        self.max_resample = max_resample
+
+        self.start_p = ee_position(robot, world.start)
+        self.goal_p = ee_position(robot, world.goal)
+        self.obs_c = np.asarray(world.obstacle_centers).reshape(-1, 3)
+        gens = np.asarray(world.obstacle_generators).reshape(-1, 3, 3)
+        self.obs_half = (np.abs(gens).sum(axis=2) + buffer) if len(gens) else gens.reshape(0, 3)
+        self._path: Optional[np.ndarray] = None
+
+    def _sample_nodes(self, n: int) -> np.ndarray:
+        pts = []
+        while len(pts) < n:
+            p = self.rng.uniform(-self.bounds_radius, self.bounds_radius, 3)
+            p[2] = self.rng.uniform(0.0, self.bounds_radius)
+            # keep nodes out of (buffered) obstacles: cheap point check
+            if len(self.obs_c) and np.any(
+                np.all(np.abs(p[None] - self.obs_c) < self.obs_half, axis=1)
+            ):
+                continue
+            pts.append(p)
+        return np.asarray(pts)
+
+    def _lazy_dijkstra(self, nodes: np.ndarray, start_i: int, goal_i: int):
+        """Dijkstra with on-pop lazy edge validation.  Returns node-index
+        path or None."""
+        import heapq
+
+        n = len(nodes)
+        d2 = np.linalg.norm(nodes[:, None, :] - nodes[None, :, :], axis=2)
+        order = np.argsort(d2, axis=1)[:, 1: self.k_neighbors + 1]
+        adj = {i: set(order[i]) for i in range(n)}
+        for i in range(n):
+            for j in order[i]:
+                adj[int(j)].add(i)          # symmetric roadmap
+
+        checked: dict = {}
+
+        def edge_free(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in checked:
+                checked[key] = not _segment_hits_boxes(
+                    nodes[i], nodes[j], self.obs_c, self.obs_half)
+            return checked[key]
+
+        dist = np.full(n, np.inf)
+        prev = np.full(n, -1, dtype=int)
+        dist[start_i] = 0.0
+        heap = [(0.0, start_i)]
+        while heap:
+            du, u = heapq.heappop(heap)
+            if du > dist[u]:
+                continue
+            if u == goal_i:
+                path = [u]
+                while prev[path[-1]] >= 0:
+                    path.append(int(prev[path[-1]]))
+                return path[::-1]
+            for v in adj[u]:
+                v = int(v)
+                nd = du + d2[u, v]
+                if nd < dist[v] and edge_free(u, v):
+                    dist[v] = nd
+                    prev[v] = u
+                    heapq.heappush(heap, (nd, v))
+        return None
+
+    def _build(self, root: np.ndarray):
+        n = self.n_samples
+        for _ in range(self.max_resample + 1):
+            nodes = np.vstack([root[None, :], self.goal_p[None, :],
+                               self._sample_nodes(n)])
+            idx_path = self._lazy_dijkstra(nodes, 0, 1)
+            if idx_path is not None:
+                self._path = nodes[idx_path]
+                return
+            n *= 2
+        self._path = np.vstack([root[None, :], self.goal_p[None, :]])
+
+    def get_waypoint(self, q: np.ndarray) -> np.ndarray:
+        p_now = ee_position(self.robot, q)
+        if self._path is None:
+            self._build(p_now)
+        z, walked_off = _walk_path(self._path, p_now, self.lookahead)
+        if walked_off or np.linalg.norm(p_now - self.goal_p) < \
+                max(2.0 * self.lookahead, 0.15):
+            # off the path end / near the EE goal -> hand over to the goal
+            # configuration (see EndEffectorRRTStarHLP.get_waypoint)
+            return np.asarray(self.world.goal, float)
+        # the waypoint EE is only ~lookahead from the current EE, so the
+        # current configuration is the natural IK seed; fall back to the
+        # start/goal midpoint seed, then to the goal configuration
+        # (reference exitflag<0 branch)
+        q_wp, ok = ik_damped_ls(self.robot, z, np.asarray(q, float))
+        if not ok:
+            q_seed = 0.5 * (np.asarray(q) + self.world.goal)
+            q_wp, ok = ik_damped_ls(self.robot, z, q_seed)
+        if not ok:
+            return np.asarray(self.world.goal, float)
+        return q_wp

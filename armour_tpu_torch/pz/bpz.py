@@ -87,6 +87,12 @@ def add(a: BPZ, b: BPZ) -> BPZ:
     return BPZ(coef=a.coef + b.coef, egen=a.egen + b.egen, rad=a.rad + b.rad)
 
 
+def add_const(a: BPZ, x) -> BPZ:
+    coef = a.coef.clone()
+    coef[..., 0] += x
+    return BPZ(coef=coef, egen=a.egen, rad=a.rad)
+
+
 def neg(a: BPZ) -> BPZ:
     return BPZ(coef=-a.coef, egen=-a.egen, rad=a.rad)
 
@@ -412,6 +418,73 @@ def matmul_interval(C: torch.Tensor, R: torch.Tensor, b: BPZ, slop: float = 0.0)
     return BPZ(coef=coef, egen=egen, rad=rad)
 
 
+def _matmul_pair(x, y):
+    """Unrolled small matrix product keeping the trailing pair axis
+    innermost (armour_tpu/pz/bpz.py:381-398)."""
+    n, m = x.shape[-3], x.shape[-2]
+    p = y.shape[-2]
+    rows = []
+    for i in range(n):
+        cols = []
+        for k in range(p):
+            acc = x[..., i, 0, :] * y[..., 0, k, :]
+            for j in range(1, m):
+                acc = acc + x[..., i, j, :] * y[..., j, k, :]
+            cols.append(acc)
+        rows.append(torch.stack(cols, dim=-2))
+    return torch.stack(rows, dim=-3)
+
+
+def _matmul_abs(x, y):
+    n, m = x.shape[-2], x.shape[-1]
+    p = y.shape[-1]
+    rows = []
+    for i in range(n):
+        cols = []
+        for k in range(p):
+            acc = x[..., i, 0] * y[..., 0, k]
+            for j in range(1, m):
+                acc = acc + x[..., i, j] * y[..., j, k]
+            cols.append(acc)
+        rows.append(torch.stack(cols, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def matmul(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
+    """Matrix product through the pair table: a [..., n, m, :], b [..., m,
+    p, :] -> [..., n, p, :].  Plain torch on any device: no path of the
+    planner calls it (the rotations go through matmul_linear)."""
+    return bilinear(a, b, _matmul_pair, _matmul_abs, basis, slop)
+
+
+def _matvec_pair(x, y):
+    n, m = x.shape[-3], x.shape[-2]
+    rows = []
+    for i in range(n):
+        acc = x[..., i, 0, :] * y[..., 0, :]
+        for j in range(1, m):
+            acc = acc + x[..., i, j, :] * y[..., j, :]
+        rows.append(acc)
+    return torch.stack(rows, dim=-2)
+
+
+def _matvec_abs(x, y):
+    n, m = x.shape[-2], x.shape[-1]
+    rows = []
+    for i in range(n):
+        acc = x[..., i, 0] * y[..., 0]
+        for j in range(1, m):
+            acc = acc + x[..., i, j] * y[..., j]
+        rows.append(acc)
+    return torch.stack(rows, dim=-1)
+
+
+def matvec(a: BPZ, v: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
+    """a [..., n, m, :] @ v [..., m, :] -> [..., n, :] through the pair
+    table; plain torch on any device, as matmul."""
+    return bilinear(a, v, _matvec_pair, _matvec_abs, basis, slop)
+
+
 def _cross_pair(x, y):
     # x, y: [..., 3, t]
     return torch.stack([
@@ -486,12 +559,28 @@ def cross_pz_const(a: BPZ, v: torch.Tensor) -> BPZ:
     return BPZ(coef=cr(a.coef), egen=cr(a.egen), rad=_cross_abs(a.rad, torch.abs(v)))
 
 
+def matvec_const(m: torch.Tensor, b: BPZ) -> BPZ:
+    """Exact constant-matrix times PZ vector."""
+    return BPZ(coef=torch.einsum("...ij,...jt->...it", m, b.coef),
+               egen=torch.einsum("...ij,...jt->...it", m, b.egen),
+               rad=torch.einsum("...ij,...j->...i", torch.abs(m), b.rad))
+
+
 def stack(pzs, *, dim: int = -1) -> BPZ:
     """Stack PZs along a new value axis (dim counts over the value axes,
     -1 = trailing)."""
     return BPZ(coef=torch.stack([p.coef for p in pzs], dim=dim - 1),
                egen=torch.stack([p.egen for p in pzs], dim=dim - 1),
                rad=torch.stack([p.rad for p in pzs], dim=dim))
+
+
+def axis_embed(a: BPZ, axis: int, dim: int = 3) -> BPZ:
+    """Embed a scalar PZ as a vector PZ with its value on `axis`."""
+    e = torch.zeros((dim,), dtype=a.coef.dtype, device=a.coef.device)
+    e[axis] = 1.0
+    return BPZ(coef=e[:, None] * a.coef[..., None, :],
+               egen=e[:, None] * a.egen[..., None, :],
+               rad=e * a.rad[..., None])
 
 
 def reduce_(a: BPZ) -> BPZ:
@@ -505,3 +594,11 @@ def to_interval(a: BPZ):
     radius = (torch.sum(torch.abs(a.coef[..., 1:]), dim=-1)
               + torch.sum(torch.abs(a.egen), dim=-1) + a.rad)
     return a.coef[..., 0], radius
+
+
+def slice_at(a: BPZ, phi_k: torch.Tensor):
+    """Evaluate the k-monomials at a point: phi_k = basis.phi(k) [..., B].
+    Returns (center, radius): the sliced center and the non-k radius."""
+    c = torch.einsum("...m,...m->...", a.coef, phi_k)
+    r = torch.sum(torch.abs(a.egen), dim=-1) + a.rad
+    return c, r

@@ -10,6 +10,10 @@ import torch
 TWO_PI = 2.0 * math.pi
 
 
+def make(lo, hi):
+    return torch.as_tensor(lo), torch.as_tensor(hi)
+
+
 def sym(r):
     """[-r, r] for r >= 0."""
     return -r, r
@@ -17,6 +21,10 @@ def sym(r):
 
 def add(a, b):
     return a[0] + b[0], a[1] + b[1]
+
+
+def neg(a):
+    return -a[1], -a[0]
 
 
 def scale(a, s):
@@ -32,6 +40,14 @@ def mul(a, b):
     p4 = a[1] * b[1]
     return (torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4)),
             torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4)))
+
+
+def square(a):
+    lo2 = a[0] * a[0]
+    hi2 = a[1] * a[1]
+    contains_zero = (a[0] <= 0) & (a[1] >= 0)
+    return (torch.where(contains_zero, torch.zeros_like(lo2), torch.minimum(lo2, hi2)),
+            torch.maximum(lo2, hi2))
 
 
 def _contains_multiple(lo, hi, period, offset):

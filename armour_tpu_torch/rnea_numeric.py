@@ -13,6 +13,8 @@ that the plain closed loop on the card makes few launches per call.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -21,6 +23,38 @@ from .robot import RobotModel
 
 def _const(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=like.dtype).to(like.device)
+
+
+_CONSTS: dict = {}
+
+
+def _robot_consts(robot: RobotModel, like: torch.Tensor) -> dict:
+    """The robot's constant tensors in like's dtype on its device, formed
+    once per (robot, dtype, device): the closed loop calls the RNEA ten
+    times a control step."""
+    key = (id(robot), like.dtype, like.device)
+    hit = _CONSTS.get(key)
+    if hit is not None and hit[0] is robot:
+        return hit[1]
+    if len(_CONSTS) > 64:
+        _CONSTS.clear()
+    F = robot.num_factors
+    C, S, K, sgn = _axis_patterns(robot)
+    c = {name: _const(x, like) for name, x in (
+        ("C", C), ("S", S), ("K", K), ("sgn", sgn), ("rot_mats", robot.rot_mats),
+        ("trans", robot.trans), ("link_center", robot.link_center), ("mass", robot.mass),
+        ("com", robot.com), ("inertia", robot.inertia), ("units", _unit_axes(robot)),
+        ("armature", robot.armature[:F]), ("damping", robot.damping[:F]))}
+    c["damped"] = any(d != 0.0 for d in robot.damping[:F])
+    _CONSTS[key] = (robot, c)
+    return c
+
+
+@functools.lru_cache(maxsize=256)
+def _broadcast(*shapes) -> torch.Size:
+    """torch.broadcast_shapes, cached by the shapes (the closed loop meets a
+    handful of shape tuples many thousand times)."""
+    return torch.broadcast_shapes(*shapes)
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -85,22 +119,22 @@ def _unit_axes(robot: RobotModel):
 
 def joint_rotations(robot: RobotModel, q: torch.Tensor) -> torch.Tensor:
     """R_i = RPY_i @ Rot_axis(q_i): [..., J, 3, 3]."""
-    C, S, K, sgn = (_const(x, q) for x in _axis_patterns(robot))
+    k = _robot_consts(robot, q)
     J, F = robot.num_joints, robot.num_factors
     th = torch.zeros(q.shape[:-1] + (J,), dtype=q.dtype, device=q.device)
     th[..., :min(F, J)] = q[..., :min(F, J)]
-    th = th * sgn
+    th = th * k["sgn"]
     c, s = torch.cos(th)[..., None, None], torch.sin(th)[..., None, None]
-    R_axis = c * C + s * S + K
-    return _mm(_const(robot.rot_mats, q), R_axis)
+    R_axis = c * k["C"] + s * k["S"] + k["K"]
+    return _mm(k["rot_mats"], R_axis)
 
 
 def forward_kinematics(robot: RobotModel, q: torch.Tensor):
     """World rotation + position of each joint frame and link box centre:
     (R_w [..., J, 3, 3], p_w [..., J, 3], link_centers [..., J, 3])."""
     Rs = joint_rotations(robot, q)
-    trans = _const(robot.trans, q)
-    link_c = _const(robot.link_center, q)
+    k = _robot_consts(robot, q)
+    trans, link_c = k["trans"], k["link_center"]
     fk_r = torch.eye(3, dtype=q.dtype, device=q.device).expand(q.shape[:-1] + (3, 3))
     fk_t = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)
     R_out, p_out, c_out = [], [], []
@@ -135,12 +169,13 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
     links at once after the forward recursion, and the quantities one
     rotation moves are moved together."""
     J, F = robot.num_joints, robot.num_factors
-    mass = _const(robot.mass if mass is None else mass, q)
-    com = _const(robot.com if com is None else com, q)
-    inertia = _const(robot.inertia if inertia is None else inertia, q)
+    k = _robot_consts(robot, q)
+    mass = k["mass"] if mass is None else _const(mass, q)
+    com = k["com"] if com is None else _const(com, q)
+    inertia = k["inertia"] if inertia is None else _const(inertia, q)
     Rs = joint_rotations(robot, q) if rotations is None else rotations
     grav, arm = _flag(set_gravity, q), _flag(include_armature, q)
-    batch = torch.broadcast_shapes(
+    batch = _broadcast(
         q.shape[:-1], qd.shape[:-1], qd_aux.shape[:-1], qdd.shape[:-1], mass.shape[:-1],
         com.shape[:-2], inertia.shape[:-3], Rs.shape[:-3],
         *(x.shape for x in (grav, arm) if isinstance(x, torch.Tensor)))
@@ -150,7 +185,7 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
 
     # one shape for every operand of a cross product (torch's fast path)
     Rs = full(Rs, 3).unbind(-3)
-    trans = full(_const(robot.trans, q), 2).unbind(-2)
+    trans = full(k["trans"], 2).unbind(-2)
     com = full(com, 2)
     qd, qd_aux, qdd = full(qd, 1), full(qd_aux, 1), full(qdd, 1)
 
@@ -160,19 +195,22 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
     if grav is not False:
         lin_acc = zero3.clone()
         lin_acc[..., 2] = robot.gravity if grav is True else robot.gravity * grav
-    units = _const(_unit_axes(robot), q)
-    E = units.unbind(0)
+    units = k["units"]
+    # each joint's e qd_i, e qdd_i, e qd_aux_i (its signed unit axis e), all
+    # joints at once
+    n_act = min(F, J)
+    eqs, eqdds, eqas = ((units[:n_act] * x[..., :n_act, None]).unbind(-2)
+                        for x in (qd, qdd, qd_aux))
     accs, ws, w_auxs, wdots = [], [], [], []
     for i in range(J):
         pre = lin_acc + _cross(wdot, trans[i]) + _cross(w, _cross(w_aux, trans[i]))
         lin_acc, w, w_aux, wdot = _mtv(Rs[i][..., None, :, :],
                                        torch.stack([pre, w, w_aux, wdot], -2)).unbind(-2)
         if int(robot.axes[i]) != 0 and i < F:
-            e = E[i]
-            eq = e * qd[..., i, None]
+            eq = eqs[i]
             w = w + eq
-            wdot = wdot + _cross(w_aux, eq) + e * qdd[..., i, None]
-            w_aux = w_aux + e * qd_aux[..., i, None]
+            wdot = wdot + _cross(w_aux, eq) + eqdds[i]
+            w_aux = w_aux + eqas[i]
         accs.append(lin_acc)
         ws.append(w)
         w_auxs.append(w_aux)
@@ -201,11 +239,10 @@ def rnea(robot: RobotModel, q, qd, qd_aux, qdd, *, mass=None, com=None, inertia=
     # non-zero term of the sum with its signed unit axis
     tau = (torch.stack(ns[:F], -2) * units[:F]).sum(-1)
     if arm is not False:
-        a = _const(robot.armature[:F], q)
+        a = k["armature"]
         tau = tau + (a if arm is True else a * arm[..., None]) * qdd[..., :F]
-    damping = robot.damping[:F]
-    if any(d != 0.0 for d in damping):
-        tau = tau + _const(damping, q) * qd[..., :F]
+    if k["damped"]:
+        tau = tau + k["damping"] * qd[..., :F]
     if wrench_at is not None:
         return tau, wrench[0], wrench[1]
     return tau

@@ -93,51 +93,54 @@ def rollout_plain(robot: RobotModel, cfg: ArmourConfig, q, qd, q_des, qd_des, qd
     after each step and the input applied during it."""
     if controller not in CONTROLLERS:
         raise ValueError(controller)
-    n = q_des.shape[1]
     q_log = torch.empty_like(q_des)
     qd_log = torch.empty_like(q_des)
     u_log = torch.empty_like(q_des)
+    n = q_des.shape[1]
+    kw = dict(mass=tp.mass, inertia=tp.inertia, com=tp.com)
     e_acc = torch.zeros(q.shape[:-1], dtype=q.dtype, device=q.device)
     h = control_dt / substeps
-    kw = dict(mass=tp.mass, inertia=tp.inertia, com=tp.com)
-    for i in range(n):
-        qr, qdr, qddr = q_des[:, i], qd_des[:, i], qdd_des[:, i]
-        q_m, qd_m = q, qd
-        if noise is not None:
-            q_m = q + noise[:, i, 0]
-            qd_m = qd + noise[:, i, 1]
-        # the joint rotations at q serve the mass matrix, the first RK4
-        # stage and, without noise, the controller
-        R_q = joint_rotations(robot, q)
-        R_m = R_q if noise is None else None
-        if controller == "robust":
-            u, _, _ = robust_control(robot, cfg, q_m, qd_m, qr, qdr, qddr, rotations=R_m)
-        elif controller == "nominal":
-            u = nominal_passivity_control(robot, cfg, q_m, qd_m, qr, qdr, qddr,
-                                          rotations=R_m)
-        else:
-            u, _, _, e_acc = althoff_control(robot, cfg, q_m, qd_m, qr, qdr, qddr,
-                                             e_acc, control_dt, gains, rotations=R_m)
+    # no autograd bookkeeping in the step loop (host time on the CPU); the
+    # logs are written in place, q and qd copied out after
+    with torch.inference_mode():
+        for i in range(n):
+            qr, qdr, qddr = q_des[:, i], qd_des[:, i], qdd_des[:, i]
+            q_m, qd_m = q, qd
+            if noise is not None:
+                q_m = q + noise[:, i, 0]
+                qd_m = qd + noise[:, i, 1]
+            # the joint rotations at q serve the mass matrix, the first RK4
+            # stage and, without noise, the controller
+            R_q = joint_rotations(robot, q)
+            R_m = R_q if noise is None else None
+            if controller == "robust":
+                u, _, _ = robust_control(robot, cfg, q_m, qd_m, qr, qdr, qddr, rotations=R_m)
+            elif controller == "nominal":
+                u = nominal_passivity_control(robot, cfg, q_m, qd_m, qr, qdr, qddr,
+                                              rotations=R_m)
+            else:
+                u, _, _, e_acc = althoff_control(robot, cfg, q_m, qd_m, qr, qdr, qddr,
+                                                 e_acc, control_dt, gains, rotations=R_m)
 
-        # M(q) varies slowly: once per control step, held across the stages
-        # (inv_ex: no host synchronisation on the card)
-        M_inv = torch.linalg.inv_ex(mass_matrix(robot, q, **kw, rotations=R_q)).inverse
+            # M(q) varies slowly: once per control step, held across the stages
+            # (inv_ex: no host synchronisation on the card)
+            M_inv = torch.linalg.inv_ex(mass_matrix(robot, q, **kw, rotations=R_q)).inverse
 
-        def ode(qq, qqd, R=None):
-            rhs = u - coriolis_gravity(robot, qq, qqd, **kw, rotations=R)
-            return qqd, (M_inv * rhs[..., None, :]).sum(-1)
+            def ode(qq, qqd, R=None):
+                rhs = u - coriolis_gravity(robot, qq, qqd, **kw, rotations=R)
+                return qqd, (M_inv * rhs[..., None, :]).sum(-1)
 
-        for sub in range(substeps):
-            k1 = ode(q, qd, R_q if sub == 0 else None)
-            k2 = ode(q + 0.5 * h * k1[0], qd + 0.5 * h * k1[1])
-            k3 = ode(q + 0.5 * h * k2[0], qd + 0.5 * h * k2[1])
-            k4 = ode(q + h * k3[0], qd + h * k3[1])
-            q = q + (h / 6.0) * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
-            qd = qd + (h / 6.0) * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
-        q_log[:, i] = q
-        qd_log[:, i] = qd
-        u_log[:, i] = u
-    return q, qd, q_log, qd_log, u_log
+            for sub in range(substeps):
+                k1 = ode(q, qd, R_q if sub == 0 else None)
+                k2 = ode(q + 0.5 * h * k1[0], qd + 0.5 * h * k1[1])
+                k3 = ode(q + 0.5 * h * k2[0], qd + 0.5 * h * k2[1])
+                k4 = ode(q + h * k3[0], qd + h * k3[1])
+                q = q + (h / 6.0) * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
+                qd = qd + (h / 6.0) * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
+            q_log[:, i] = q
+            qd_log[:, i] = qd
+            u_log[:, i] = u
+    return q.clone(), qd.clone(), q_log, qd_log, u_log
 
 
 def rollout_move(robot: RobotModel, cfg: ArmourConfig, q, qd, q_des, qd_des, qdd_des,
@@ -375,30 +378,45 @@ def run_trial(world: World, robot: RobotModel, cfg: ArmourConfig, planner_step,
               rollout=None, oracles=None, hlp=None, trace_path: Optional[str] = None,
               trace_stride: int = 10, stall_window: int = 25,
               stall_progress: float = 0.05, rescue_step=None,
-              max_fallback_regrows: int = 50, *, device=None) -> TrialSummary:
+              max_fallback_regrows: int = 50, *, device=None,
+              stats: Optional[dict] = None) -> TrialSummary:
     """One closed-loop trial on one world.  planner_step = make_planner(robot,
     cfg) output (one world); rollout/oracles default to make_rollout /
     make_oracles on `device` (the card unless named).  hlp: optional
     waypoint generator with .get_waypoint(q); the default is the
-    straight-line waypoint."""
+    straight-line waypoint.
+
+    trace_path: write a .npz replay trace in the JAX package's layout
+    (scripts/replay_trial.py renders it): the moves' logged q, qd, u, q_des,
+    qd_des every trace_stride control steps, each plan's k, waypoint and
+    feasibility, the world, trace_dt, robot_name and the safety flags.
+
+    stats, when given, receives per iteration the host-clock seconds of the
+    plan, the move and the oracles (each ending in a device
+    synchronisation): stats["iterations"] = [{"plan_s", "move_s",
+    "oracles_s"}, ...]."""
     import time as _time
 
-    if trace_path is not None:
-        raise NotImplementedError("trace_path (replay traces) is not ported yet")
     dev = resolve_device(device)
     rollout = rollout if rollout is not None else make_rollout(robot, cfg, device=dev)
     oracles = oracles if oracles is not None else make_oracles(robot, cfg, device=dev)
     dt = cfg.dtype
-    # warm-up outside the timed loop
-    _q0w = np.asarray(world.start, float)
-    _zw = np.zeros_like(_q0w)
-    planner_step(_q0w, _zw, _zw, _q0w, obs)
-    if rescue_step is not None:
-        rescue_step(_q0w, _zw, _zw, _q0w, obs)
+    # warm-up outside the timed loop, on the card (the CPU has nothing to
+    # warm)
+    if dev.type == "cuda":
+        _q0w = np.asarray(world.start, float)
+        _zw = np.zeros_like(_q0w)
+        planner_step(_q0w, _zw, _zw, _q0w, obs)
+        if rescue_step is not None:
+            rescue_step(_q0w, _zw, _zw, _q0w, obs)
     obs_b = ObstacleSet(centers=obs.centers[None], generators=obs.generators[None],
                         mask=obs.mask[None])
     tp = TrueParams(*(torch.as_tensor(x)[None] for x in
                       (true_params.mass, true_params.inertia, true_params.com)))
+
+    trace = {name: [] for name in TRACE_LOGS + ("k", "waypoint", "feasible")} \
+        if trace_path else None
+    timings = stats.setdefault("iterations", []) if stats is not None else None
 
     q = torch.as_tensor(world.start, dtype=dt).to(dev)[None]
     qd = torch.zeros_like(q)
@@ -458,8 +476,10 @@ def run_trial(world: World, robot: RobotModel, cfg: ArmourConfig, planner_step,
             blocked_counts[grp] = blocked_counts.get(grp, 0) + 1
         ref = advance_plan(ref, torch.as_tensor(k)[None], q0, qd0, qdd0, cfg)
 
+        t1 = _time.perf_counter()
         q, qd, logs = rollout(q, qd, ref, tp)
         gd = _goal_distance(q[0].cpu().numpy())
+        t2 = _time.perf_counter()
         gd_min = min(gd_min, gd)
         if gd_min < stall_ref - stall_progress:
             stall_ref = gd_min
@@ -479,7 +499,17 @@ def run_trial(world: World, robot: RobotModel, cfg: ArmourConfig, planner_step,
             if verbose:
                 print(f"iter {it}: stalled at gd={gd:.2f} -> "
                       f"config-RRT* fallback #{fallback_count}")
+        t3 = _time.perf_counter()
         checks = {name: bool(v[0]) for name, v in oracles(logs, obs_b).items()}
+        if timings is not None:
+            timings.append({"plan_s": plan_times[-1], "move_s": t2 - t1,
+                            "oracles_s": _time.perf_counter() - t3})
+        if trace is not None:
+            for name in TRACE_LOGS:
+                trace[name].append(logs[name][0, ::trace_stride].cpu().numpy())
+            trace["k"].append(k)
+            trace["waypoint"].append(np.asarray(waypoint))
+            trace["feasible"].append(bool(np.all(np.isfinite(k))))
         for name in flags:
             flags[name] = flags[name] or checks[name]
         if verbose:
@@ -493,9 +523,36 @@ def run_trial(world: World, robot: RobotModel, cfg: ArmourConfig, planner_step,
         if stop_count >= stop_threshold:
             break
 
-    return TrialSummary(
+    summary = TrialSummary(
         goal_reached=goal, infeasible_plans=infeasible, iterations=it + 1,
         planning_times=plan_times, stuck=(stop_count >= stop_threshold),
         blocked_counts=blocked_counts, goal_distance_final=gd,
         goal_distance_min=(gd_min if np.isfinite(gd_min) else float("nan")),
         rescued_plans=rescued, **flags)
+    if trace is not None:
+        _save_trace(trace_path, trace, world, robot, summary, trace_stride)
+    return summary
+
+
+TRACE_LOGS = ("q", "qd", "u", "q_des", "qd_des")
+
+
+def _save_trace(path: str, trace: dict, world: World, robot: RobotModel,
+               summary: TrialSummary, trace_stride: int) -> None:
+    """The replay trace as armour_tpu/simulator.py:459-477 writes it: one row
+    per iteration of each logged array, the world, trace_dt, robot_name and
+    the flags (collision, torque, ultimate bound, joint limit, goal,
+    stuck)."""
+    np.savez_compressed(
+        path,
+        **{name: np.stack(trace[name]) for name in TRACE_LOGS + ("k", "waypoint")},
+        feasible=np.asarray(trace["feasible"]),
+        start=np.asarray(world.start), goal=np.asarray(world.goal),
+        obstacle_centers=np.asarray(world.obstacle_centers),
+        obstacle_generators=np.asarray(world.obstacle_generators),
+        trace_dt=float(1e-3 * trace_stride),
+        robot_name=robot.name,
+        flags=np.asarray([summary.collision, summary.torque_exceeded,
+                          summary.ultimate_bound_exceeded,
+                          summary.joint_limit_exceeded,
+                          summary.goal_reached, summary.stuck]))

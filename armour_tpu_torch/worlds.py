@@ -1,5 +1,6 @@
-"""Saved-world loading, the goal check and the straight-line waypoint
-(copies of armour_tpu/worlds.py:19-63,172-217).
+"""World loading and saving, random world generation, the goal check and
+the straight-line waypoint (the port's copy of armour_tpu/worlds.py, numpy
+on the host).
 
 CSV scene format: row 1 start, row 2 goal, row 3 NaN separator, rows 4+
 obstacle centre xyz + side lengths; generators = diag(side / 2).
@@ -8,8 +9,11 @@ obstacle centre xyz + side lengths; generators = diag(side / 2).
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
+
+from .robot import RobotModel
 
 
 @dataclasses.dataclass
@@ -57,6 +61,111 @@ def load_world_csv(path: str) -> World:
         obstacle_centers=np.asarray(centers).reshape(-1, 3),
         obstacle_generators=np.asarray(gens).reshape(-1, 3, 3),
     )
+
+
+def save_world_csv(world: World, path: str) -> None:
+    with open(path, "w") as f:
+        f.write(",".join(f"{x:.6g}" for x in world.start) + "\n")
+        f.write(",".join(f"{x:.6g}" for x in world.goal) + "\n")
+        f.write(",".join(["NaN"] * 7) + "\n")
+        for c, g in zip(world.obstacle_centers, world.obstacle_generators):
+            side = 2.0 * np.diag(g)
+            f.write(",".join(f"{x:.6g}" for x in (*c, *side)) + "\n")
+
+
+def _arm_sphere_centers(robot: RobotModel, q: np.ndarray) -> np.ndarray:
+    """Link box centers along the arm (numpy forward kinematics on the
+    host: world generation pays no device dispatch)."""
+    fk_r = np.eye(3)
+    fk_t = np.zeros(3)
+    out = []
+    for i in range(robot.num_joints):
+        fk_t = fk_t + fk_r @ robot.trans[i]
+        axis = int(robot.axes[i])
+        R = np.eye(3)
+        if axis != 0 and i < robot.num_factors:
+            th = q[i] * (1.0 if axis > 0 else -1.0)
+            c, si = np.cos(th), np.sin(th)
+            a = abs(axis) - 1
+            if a == 0:
+                R = np.array([[1, 0, 0], [0, c, -si], [0, si, c]])
+            elif a == 1:
+                R = np.array([[c, 0, si], [0, 1, 0], [-si, 0, c]])
+            else:
+                R = np.array([[c, -si, 0], [si, c, 0], [0, 0, 1]])
+        fk_r = fk_r @ robot.rot_mats[i] @ R
+        out.append(fk_t + fk_r @ robot.link_center[i])
+    return np.asarray(out)
+
+
+def _aabb_clearance(point: np.ndarray, centers: np.ndarray, sides: np.ndarray) -> np.ndarray:
+    """Distance from point to each axis-aligned box surface (negative inside)."""
+    d = np.abs(point[None, :] - centers) - sides / 2.0
+    outside = np.linalg.norm(np.maximum(d, 0.0), axis=1)
+    inside = np.minimum(np.max(d, axis=1), 0.0)
+    return outside + inside
+
+
+def random_world(
+    rng: np.random.Generator,
+    robot: RobotModel,
+    n_obstacles: int,
+    obstacle_size_range: Tuple[float, float] = (0.01, 0.5),
+    workspace_radius: float = 1.0,
+    min_clearance: float = 0.15,
+    max_tries: int = 200,
+    ensure_solvable: bool = False,
+    *,
+    device=None,
+) -> World:
+    """Rejection-sampled random scene: random start and goal configurations
+    within the joint limits, obstacles placed to keep clearance from the
+    link centres of both.  The draws from rng are the JAX package's, one
+    for one, so a seed gives the same scene in both packages.
+
+    ensure_solvable: also reject scenes with no unpadded configuration-space
+    path from start to goal (solvability.classify_world, its rest-FRS test
+    on `device`, default the card); seconds a scene."""
+    lb = np.where(robot.position_limits_lb < -100, -np.pi, robot.position_limits_lb)
+    ub = np.where(robot.position_limits_ub > 100, np.pi, robot.position_limits_ub)
+
+    start = rng.uniform(lb, ub)
+    goal = rng.uniform(lb, ub)
+    pts = np.concatenate(
+        [_arm_sphere_centers(robot, start), _arm_sphere_centers(robot, goal)], axis=0
+    )
+
+    centers, gens = [], []
+    tries = 0
+    while len(centers) < n_obstacles and tries < max_tries * n_obstacles:
+        tries += 1
+        c = rng.uniform(-workspace_radius, workspace_radius, 3)
+        c[2] = rng.uniform(0.1, workspace_radius)  # above the floor
+        side = rng.uniform(*obstacle_size_range, 3)
+        clear = min(
+            float(np.min(_aabb_clearance(p, c[None], side[None]))) for p in pts
+        )
+        if clear > min_clearance:
+            centers.append(c)
+            gens.append(np.diag(side / 2.0))
+    world = World(
+        start=start,
+        goal=goal,
+        obstacle_centers=np.asarray(centers).reshape(-1, 3),
+        obstacle_generators=np.asarray(gens).reshape(-1, 3, 3),
+    )
+    if ensure_solvable:
+        from .solvability import classify_world
+
+        v = classify_world(world, robot, seed=int(rng.integers(1 << 31)),
+                           max_nodes=2000, device=device)
+        if v["verdict"] in ("static_blocked", "no_path_found",
+                            "frs_blocked_start", "frs_blocked_goal"):
+            # provably (or with high confidence) impossible: resample
+            return random_world(rng, robot, n_obstacles, obstacle_size_range,
+                                workspace_radius, min_clearance, max_tries,
+                                ensure_solvable=True, device=device)
+    return world
 
 
 def goal_check(q: np.ndarray, goal: np.ndarray, goal_radius: float = np.pi / 30) -> bool:

@@ -207,6 +207,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      shapes' numbers go into the kernels line's K4 / K7 / K8 entries
      (smooth_w64; K4's launches and device time: one plain solve's, where
      its smooth rows run).
+  16. the harness: (i) the serial suite (experiments.run_world_suite: one
+     world at a time at batch 1, the rescue planner, worst-case true
+     parameters) over the first HARNESS_WORLDS saved worlds, at most
+     HARNESS_ITERATIONS iterations, counted (every kernel of the step, K5
+     and K6 once an iteration, no safety flag), with its per-iteration plan
+     / move / oracle times, its first K5 / K6 / K7-K15 call of each shape
+     against the plain versions; then a call that resumes from the first
+     two worlds' records, whose planners never see a reloaded world and
+     whose summaries equal the fresh run's; (ii) the batched suite on the
+     same worlds, again with world 0's record dropped: only world 0 runs,
+     keeping its bucket and iterations; (iii) a traced trial
+     (run_trial(trace_path=)) of world 0: the JAX writer's keys, q rows equal
+     to K5's logs every 10 steps, the serial suite's summary; (iv) the
+     controller sweep (7 levels x 3 controllers x 32 samples, float32) on
+     K5, counted, one (level, controller) against rollout_plain, every entry
+     printed beside results_controller_sweep.json (the JAX package's
+     float32 run) with the largest relative difference, not gated; (v) the
+     first flagship world's JRS (K12) -> FK (K9) against oracle_fk at three
+     time indices and its nominal RNEA (K10) against oracle_rnea (threshold
+     1e-5) at one, the float64 sparse oracle on the card's JRS: K9's
+     k-coefficients within ORACLE_COEF_TOL and its radii at least the
+     oracle's less ORACLE_SLACK; K10's sliced centres within ORACLE_TAU_TOL,
+     its radii at least the oracle's less ORACLE_TAU_TOL (the radius ratios
+     printed).
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -288,6 +312,22 @@ ZOO_LOOP_ITERATIONS = 2  # phase 14 (iii): each zoo robot's closed loop at W = N
 ZOO_GOAL_STEP = 0.2      # rad per joint from each zoo start to its goal there
 ZOO_MOVED = 1e-3         # rad: a phase 14 (iii) world moved if a joint went further
 SMOOTH_TAU = 0.01        # phase 15: cfg.smooth_tau, m (the JAX package's default)
+HARNESS_WORLDS = 4       # phase 16: the first saved worlds of the serial and batched suites
+HARNESS_ITERATIONS = 30  # and their iteration cap there
+SWEEP_CHECKED = (0.3, "robust")   # phase 16 (iv): the (level, controller) held against plain
+SWEEP_FILE = "results_controller_sweep.json"   # the JAX package's float32 sweep
+SWEEP_FINDING = 1e-3     # a larger relative difference from that file is a finding to bisect
+ORACLE_TIMES = (0, 64, 127)   # phase 16 (v): the time indices of the FK comparison
+ORACLE_RNEA_T = 64       # and of the RNEA comparison
+ORACLE_THRESHOLD = 1e-5  # oracle_rnea's pruning (tests/test_pipeline_reachsets.py:186)
+ORACLE_COEF_TOL = 1e-5   # m: K9's float32 k-coefficients against the float64 oracle's
+ORACLE_SLACK = 1e-5      # m: K9's radii may fall this far below the oracle's
+ORACLE_TAU_TOL = 1e-3    # Nm: K10's sliced centres against the oracle's, and how far its
+#                          radii may fall below the oracle's
+# the replay trace's keys, as armour_tpu/simulator.py:459-477 writes them
+TRACE_KEYS = ("q", "qd", "u", "q_des", "qd_des", "k", "waypoint", "feasible", "start",
+              "goal", "obstacle_centers", "obstacle_generators", "trace_dt", "robot_name",
+              "flags")
 
 
 def fail(msg: str) -> None:
@@ -3667,6 +3707,381 @@ def smooth_phase(robot, cfg, basis, scene, one, dev, hard) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def _same_summary(a, b, times: bool) -> bool:
+    """Two TrialSummary records equal, planning_times (the host clock) too
+    only when times."""
+    import dataclasses
+
+    return (a if times else dataclasses.replace(a, planning_times=b.planning_times)) == b
+
+
+def serial_suite_phase(robot, cfg, paths, tmp, dev) -> tuple:
+    """Phase 16 (i): the serial suite on the card, counted, its K5 / K6 and
+    K7-K15 calls at batch 1 against their plain versions; then a suite that
+    resumes from the first two worlds' records: they never reach a
+    planner, the others give the fresh run's summaries."""
+    import os
+
+    from armour_tpu_torch import experiments as texp, kernels, planner as tplanner
+    from armour_tpu_torch.collision import pad_obstacles
+    from armour_tpu_torch.utils.timing import wall_s
+    from armour_tpu_torch.worlds import load_world_csv
+
+    names = [os.path.basename(p) for p in paths]
+    fresh_path = os.path.join(tmp, "serial.json")
+    stats: dict = {}
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        t_fresh, fresh = wall_s(lambda: texp.run_world_suite(
+            paths, robot, cfg, HARNESS_ITERATIONS, 1.0, 0, False, fresh_path, stats=stats), dev)
+    n = kernels.counts()
+    iters = sum(r.summary.iterations for r in fresh)
+    its = [x for w in names for x in stats[w]["iterations"]]
+    plan_ms = [x["plan_s"] * 1e3 for x in its]
+    move_ms = [x["move_s"] * 1e3 for x in its]
+    oracles_ms = [x["oracles_s"] * 1e3 for x in its]
+    print(f"phase 16 (i): serial suite (run_world_suite, batch 1) over {names}, at most "
+          f"{HARNESS_ITERATIONS} iterations: {[r.bucket() for r in fresh]}, "
+          f"{[r.summary.iterations for r in fresh]} iterations, {t_fresh:.1f} s; per "
+          f"iteration plan {statistics.median(plan_ms):.2f} ms (median; max "
+          f"{max(plan_ms):.2f}), move (K5 + the state to host) "
+          f"{statistics.median(move_ms):.2f} ms (max {max(move_ms):.2f}), oracles (K6 + "
+          f"flags to host) {statistics.median(oracles_ms):.2f} ms; launches {n}")
+    for name in BERNSTEIN_KERNELS:
+        if n[name] == 0:
+            fail(f"kernel {name} was not launched by the serial suite")
+    for name in ("rollout", "oracle_check"):
+        if n[name] != iters:
+            fail(f"kernel {name} launched {n[name]} times in {iters} serial iterations")
+    if _flagged([r.summary for r in fresh]):
+        fail(f"the serial suite raised a safety flag in {_flagged([r.summary for r in fresh])}")
+    check_loop_calls(robot, cfg, captured, dev, "phase 16 (i) batch 1")
+    check_alm_captures(captured, dev, "phase 16 (i) serial suite")
+    check_chain_captures(captured, dev, "phase 16 (i) serial suite")
+    check_jrs_screen_captures(captured, dev, "phase 16 (i) serial suite")
+    captured.clear()
+
+    # resume from the first two worlds' records: record every planner call's
+    # obstacle set (make_rescue_planner builds on make_planner)
+    resume_path = os.path.join(tmp, "resume.json")
+    texp.save_results(fresh[:2], resume_path)
+    seen, make = [], tplanner.make_planner
+
+    def recording(robot_, cfg_, **kw):
+        step = make(robot_, cfg_, **kw)
+
+        def call(q0, qd0, qdd0, q_des, obs):
+            seen.append(obs.centers.cpu())
+            return step(q0, qd0, qdd0, q_des, obs)
+        return call
+
+    stats_r: dict = {}
+    tplanner.make_planner = recording
+    try:
+        resumed = texp.run_world_suite(paths, robot, cfg, HARNESS_ITERATIONS, 1.0, 0, False,
+                                       resume_path, resume=True, stats=stats_r)
+    finally:
+        tplanner.make_planner = make
+    padded = [pad_obstacles(w.obstacle_centers, w.obstacle_generators, cfg.max_obstacles,
+                            cfg.dtype).centers for w in map(load_world_csv, paths)]
+    calls = [sum(torch.equal(c, p) for c in seen) for p in padded]
+    same = [_same_summary(a.summary, b.summary, i < 2)
+            for i, (a, b) in enumerate(zip(resumed, fresh))]
+    print(f"  resumed from {names[:2]}: ran {sorted(stats_r)}; planner calls by world {calls} "
+          f"(of {len(seen)}); summaries equal to the fresh run's {same}")
+    if sorted(stats_r) != names[2:] or calls[0] or calls[1] or not all(calls[2:]) \
+            or sum(calls) != len(seen):
+        fail("the resumed serial suite planned a reloaded world or skipped a missing one")
+    if not all(same):
+        fail("the resumed serial suite's summaries differ from the fresh run's")
+    return fresh, {"serial_suite_s": t_fresh, "serial_iterations": iters,
+                   "serial_plan_ms_median": statistics.median(plan_ms),
+                   "serial_move_ms_median": statistics.median(move_ms),
+                   "serial_oracles_ms_median": statistics.median(oracles_ms),
+                   "serial_buckets": [r.bucket() for r in fresh]}
+
+
+def batched_resume_phase(robot, cfg, paths, tmp, dev) -> dict:
+    """Phase 16 (ii): the batched suite over the same worlds, then again
+    with world 0's record dropped: only world 0 runs (as a sub-batch with
+    the full run's true parameters), keeping its bucket and iterations."""
+    import os
+
+    from armour_tpu_torch import experiments as texp, kernels
+    from armour_tpu_torch.utils.timing import wall_s
+
+    b_path = os.path.join(tmp, "batched.json")
+    kernels.reset_counts()
+    t_b, fresh = wall_s(lambda: texp.run_world_suite_batched(
+        paths, robot, cfg, HARNESS_ITERATIONS, 1.0, 0, False, b_path), dev)
+    n = kernels.counts()
+    with open(b_path) as f:
+        doc = json.load(f)
+    doc["results"] = [d for d in doc["results"] if d["world"] != fresh[0].world]
+    with open(b_path, "w") as f:
+        json.dump(doc, f)
+    stats: dict = {}
+    kernels.reset_counts()
+    again = texp.run_world_suite_batched(paths, robot, cfg, HARNESS_ITERATIONS, 1.0, 0, False,
+                                         b_path, None, True, "straight", True, stats=stats)
+    n_r = kernels.counts()
+    a, b = again[0].summary, fresh[0].summary
+    print(f"phase 16 (ii): batched suite over the same worlds: {[r.bucket() for r in fresh]}, "
+          f"{[r.summary.iterations for r in fresh]} iterations, {t_b:.1f} s, launches {n}; "
+          f"resumed with {fresh[0].world} dropped: {stats.get('resumed_worlds')} reloaded, "
+          f"{fresh[0].world} {again[0].bucket()} after {a.iterations} iterations (fresh: "
+          f"{fresh[0].bucket()} after {b.iterations}); launches {n_r}")
+    for name in BERNSTEIN_KERNELS + ("rollout", "oracle_check"):
+        if n[name] == 0 or n_r[name] == 0:
+            fail(f"kernel {name} was not launched by the batched suite or its resume")
+    if stats.get("resumed_worlds") != len(paths) - 1 or n_r["rollout"] != a.iterations:
+        fail("the batched resume did not run world 0 alone")
+    if (again[0].bucket(), a.iterations, a.infeasible_plans) != \
+            (fresh[0].bucket(), b.iterations, b.infeasible_plans):
+        fail("the batched resume's rerun world differs from the fresh run")
+    if [r.bucket() for r in again] != [r.bucket() for r in fresh]:
+        fail("the batched resume's reloaded worlds differ from the fresh run")
+    return {"batched_suite_s": t_b}
+
+
+def traced_trial_phase(robot, cfg, path, fresh, tmp, dev) -> dict:
+    """Phase 16 (iii): one traced trial (run_trial(trace_path=)) on the
+    suite's first world: the JAX writer's keys, its q rows K5's logs every
+    trace_stride control steps, its summary the serial suite's."""
+    import os
+
+    from armour_tpu_torch import kernels, planner as tplanner, simulator as tsim
+    from armour_tpu_torch.collision import pad_obstacles
+    from armour_tpu_torch.worlds import load_world_csv
+
+    w = load_world_csv(path)
+    obs = pad_obstacles(w.obstacle_centers, w.obstacle_generators, cfg.max_obstacles, cfg.dtype)
+    tp = tsim.sample_true_params(robot, np.random.default_rng((0, 0)), scale=1.0)
+    base, rows = tsim.make_rollout(robot, cfg), []
+
+    def rollout(q, qd, ref, tp_):
+        q2, qd2, logs = base(q, qd, ref, tp_)
+        rows.append(logs["q"][0, ::10].cpu().numpy())
+        return q2, qd2, logs
+
+    trace = os.path.join(tmp, "trace.npz")
+    kernels.reset_counts()
+    s = tsim.run_trial(w, robot, cfg, tplanner.make_planner(robot, cfg), obs, tp,
+                       HARNESS_ITERATIONS, rollout=rollout,
+                       rescue_step=tplanner.make_rescue_planner(robot, cfg), trace_path=trace)
+    n = kernels.counts()
+    tr = np.load(trace)
+    layout = {k: (str(tr[k].dtype), tr[k].shape) for k in tr.files}
+    q_rows = np.stack(rows)
+    ok = (sorted(tr.files) == sorted(TRACE_KEYS) and tr["k"].shape == (s.iterations, 7)
+          and tr["q"].shape == (s.iterations, 50, 7) and np.array_equal(tr["q"], q_rows)
+          and tr["q"].dtype == np.float32 and str(tr["robot_name"]) == robot.name
+          and float(tr["trace_dt"]) == 1e-3 * 10)
+    print(f"phase 16 (iii): traced trial on {os.path.basename(path)}: {s.iterations} "
+          f"iterations, launches {n}; trace {layout}; q rows equal K5's logs every 10 steps: "
+          f"{np.array_equal(tr['q'], q_rows)}; summary equal to the serial suite's: "
+          f"{_same_summary(s, fresh.summary, False)}")
+    if not ok:
+        fail("the replay trace does not have the JAX layout or K5's logs")
+    if n["rollout"] != s.iterations or n["oracle_check"] != s.iterations:
+        fail("the traced trial did not launch K5 and K6 once an iteration")
+    if not _same_summary(s, fresh.summary, False):
+        fail("the traced trial's summary differs from the serial suite's for the same world")
+    return {"trace_iterations": s.iterations}
+
+
+def check_sweep_rollout(robot, cfg, inp, dev, label) -> float:
+    """K5 against rollout_plain on a sweep move: q and qd within K5's
+    tolerances; u within K5_TOL_U (|u| + 1) of the plain version, or, where
+    the plain float32 version itself misses the plain float64 one on the
+    same inputs by more (the robust and Althoff terms amplify float32
+    rounding at the sweep's tracking errors), within that miss: the worst
+    |du| / (K5_TOL_U (|u| + 1)) over the move against the plain float32
+    version at most max(1, the same ratio of the float32 plain against the
+    float64 plain).  Returns the plain float32 version's milliseconds."""
+    from armour_tpu_torch import simulator as tsim
+    from armour_tpu_torch.kernels import sim as ksim
+
+    def plain(x):
+        return tsim.rollout_plain(robot, cfg, *(x[k] for k in ("q", "qd", "q_des", "qd_des",
+                                                               "qdd_des", "tp", "control_dt",
+                                                               "substeps", "controller",
+                                                               "noise", "gains")))
+
+    got = ksim.rollout(robot, cfg, **inp)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = plain(inp)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    x64 = {k: (v.double() if torch.is_tensor(v) else v) for k, v in inp.items()}
+    x64["tp"] = inp["tp"].to(torch.float64, dev)
+    ref64 = plain(x64)
+    dq = max(float((got[i] - ref[i]).abs().max()) for i in (0, 2))
+    dqd = max(float((got[i] - ref[i]).abs().max()) for i in (1, 3))
+    u, u32, u64 = got[4].double(), ref[4].double(), ref64[4]
+    tol = K5_TOL_U * (u32.abs() + 1.0)
+    f32 = (u32 - u64).abs() / tol
+    worst, own = float(((u - u32).abs() / tol).max()), float(f32.max())
+    print(f"  rollout {label} [{tuple(inp['q_des'].shape)}]: max |dq| {dq:.3g} rad <= "
+          f"{K5_TOL_Q}, max |dqd| {dqd:.3g} rad/s <= {K5_TOL_QD}; worst |du|/({K5_TOL_U}(|u|+1)) "
+          f"against the plain float32 version {worst:.3g} <= max(1, {own:.3g}: the plain "
+          f"float32 against the plain float64 version); the kernel against float64 "
+          f"{float(((u - u64).abs() / tol).max()):.3g}; control steps where float32 alone "
+          f"exceeds K5_TOL_U {int((f32 > 1).any(-1).any(0).sum())} of {u.shape[1]}; plain "
+          f"{ms:.1f} ms")
+    if dq > K5_TOL_Q or dqd > K5_TOL_QD or worst > max(1.0, own):
+        fail(f"K5 disagrees with rollout_plain on the {label}")
+    return ms
+
+
+def sweep_phase(robot, cfg, tmp, dev) -> dict:
+    """Phase 16 (iv): the controller sweep on K5, counted; one (level,
+    controller) against rollout_plain; every entry beside the JAX package's
+    float32 run (results_controller_sweep.json), printed, not gated."""
+    import dataclasses
+    import os
+
+    from armour_tpu_torch import experiments as texp, kernels, simulator as tsim
+    from armour_tpu_torch.utils.timing import wall_s
+
+    kernels.reset_counts()
+    t_sweep, sw = wall_s(lambda: texp.robust_controller_sweep(
+        robot, cfg, results_path=os.path.join(tmp, "sweep.json")), dev)
+    n = kernels.counts()
+    levels, ctrls = sw["uncertainties"], list(sw["controllers"])
+    print(f"phase 16 (iv): controller sweep, {len(levels)} levels x {len(ctrls)} controllers x "
+          f"{sw['n_samples']} samples, float32, in {t_sweep:.2f} s; launches {n}")
+    if n["rollout"] != len(levels) * len(ctrls) or sum(n.values()) != n["rollout"]:
+        fail(f"the sweep launched {n}, not K5 once a (level, controller)")
+    u, ctrl = SWEEP_CHECKED
+    q0, qd0, refs = texp.sweep_draws(robot, cfg, sw["n_samples"], 0, dev)
+    robot_u = dataclasses.replace(robot, mass_uncertainty=u, inertia_uncertainty=u)
+    with kernels.capture() as cap:
+        tsim.make_rollout(robot_u, cfg, controller=ctrl)(
+            q0, qd0, refs, texp.sweep_true_params(robot, cfg, u, sw["n_samples"], dev))
+    inp = next(v for (name, _), v in cap.items() if name == "rollout")
+    plain_ms = check_sweep_rollout(robot_u, cfg, inp, dev, f"sweep level {u} {ctrl}")
+    with open(SWEEP_FILE) as f:
+        ref = json.load(f)
+    if ref["uncertainties"] != levels or ref["n_samples"] != sw["n_samples"]:
+        fail(f"{SWEEP_FILE} holds another sweep")
+    worst = 0.0
+    for c in ctrls:
+        for m, got in sw["controllers"][c].items():
+            want = ref["controllers"][c][m]
+            rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+            worst = max(worst, max(rel))
+            print(f"  {c} {m}: card {[f'{x:.6g}' for x in got]}; {SWEEP_FILE} "
+                  f"{[f'{x:.6g}' for x in want]}; max relative difference {max(rel):.3g}")
+    print(f"  largest relative difference from {SWEEP_FILE}: {worst:.3g} (recorded, not "
+          f"gated; above {SWEEP_FINDING} it is a finding to bisect)")
+    return {"sweep_s": t_sweep, "sweep_max_rel_diff": worst, "sweep_plain_check_ms": plain_ms}
+
+
+def oracle_phase(robot, cfg, basis, dev) -> dict:
+    """Phase 16 (v): one flagship world's JRS (K12), FK (K9) and nominal
+    RNEA (K10) on the card against the float64 sparse oracle run on the
+    same JRS (pz/oracle_pipeline.py): K9's k-coefficients within
+    ORACLE_COEF_TOL and its radii at least the oracle's less ORACLE_SLACK
+    at ORACLE_TIMES, every link; K10's centres sliced at 5 seeded k within
+    ORACLE_TAU_TOL of oracle_rnea's (threshold ORACLE_THRESHOLD) and its
+    radii at least the oracle's less ORACLE_TAU_TOL.  The radius ratios
+    (the dense basis' outward rounding) are printed, not gated."""
+    from armour_tpu_torch import dynamics, kernels, kinematics
+    from armour_tpu_torch.jrs import build_jrs
+    from armour_tpu_torch.pz.oracle_pipeline import jrs_to_oracle, oracle_fk, oracle_rnea
+
+    q0, qd0, qdd0, _, _ = scenes(robot, cfg, 1)
+    args = [torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, qd0, qdd0)]
+    kernels.reset_counts()
+    with kernels.capture() as captured:
+        jrs = build_jrs(*args, robot, cfg, basis)
+        links = kinematics.forward_occupancy(jrs, robot, cfg, basis)
+        u_nom = dynamics.rnea_pz(jrs, robot, cfg, basis, uncertain=False)
+        torch.cuda.synchronize(dev)
+    n = kernels.counts()
+    for name in ("jrs_bernstein", "fk_chain", "rnea_chain"):
+        if n[name] != 1:
+            fail(f"phase 16 (v): kernel {name} launched {n[name]} times, not once")
+    check_chain_captures(captured, dev, "phase 16 (v) oracle world")
+    captured.clear()
+    coef = links.coef[0].double().cpu().numpy()                      # [T, J, 3, B]
+    drad_all = (np.abs(coef[..., 1:]).sum(-1) + np.abs(links.egen[0].double().cpu().numpy()).sum(-1)
+                + links.rad[0].double().cpu().numpy())                # [T, J, 3]
+    t0 = time.perf_counter()
+    coef_err, below, ratio = 0.0, 0.0, 0.0
+    for t in ORACLE_TIMES:
+        for i, ref in enumerate(oracle_fk(jrs_to_oracle(jrs, robot, basis, t), robot)):
+            want = np.zeros_like(coef[t, i])
+            want[:, 0] = ref.center
+            for key, v in ref.k_poly().items():
+                d = [0] * robot.num_factors
+                for (_, j), e in key:
+                    d[j] = e
+                if sum(d) <= basis.max_degree:
+                    want[:, basis.index[tuple(d)]] += v
+            coef_err = max(coef_err, float(np.abs(coef[t, i] - want).max()))
+            _, orad = ref.to_interval()
+            below = max(below, float((orad - drad_all[t, i]).max()))
+            ratio = max(ratio, float((drad_all[t, i] / orad).max()))
+    t_fk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    otau = oracle_rnea(jrs_to_oracle(jrs, robot, basis, ORACLE_RNEA_T), robot, uncertain=False,
+                       threshold=ORACLE_THRESHOLD)
+    t_rnea = time.perf_counter() - t0
+    uc = u_nom.coef[0, ORACLE_RNEA_T].double().cpu()
+    ur = (u_nom.egen[0, ORACLE_RNEA_T].double().abs().sum(-1)
+          + u_nom.rad[0, ORACLE_RNEA_T].double()).cpu().numpy()
+    rng = np.random.default_rng(6)
+    tau_err, tau_below, tau_ratio = 0.0, -np.inf, [np.inf, 0.0]
+    for _ in range(5):
+        k = rng.uniform(-1, 1, robot.num_factors)
+        dc = (uc @ basis.phi(torch.as_tensor(k))).numpy()
+        for i in range(robot.num_factors):
+            oc, orad = otau[i].slice_at(k)
+            tau_err = max(tau_err, abs(float(dc[i]) - float(oc)))
+            tau_below = max(tau_below, float(orad) - float(ur[i]))
+            tau_ratio = [min(tau_ratio[0], float(ur[i] / orad)), max(tau_ratio[1],
+                                                                   float(ur[i] / orad))]
+    print(f"phase 16 (v): the first flagship world's JRS (K12), FK (K9) and nominal RNEA (K10) "
+          f"on the card against the float64 sparse oracle; launches {n}")
+    print(f"  K9 at t = {ORACLE_TIMES}, {robot.num_joints} links: max |d k-coefficient| "
+          f"{coef_err:.3g} m (tolerance {ORACLE_COEF_TOL}); the oracle's radius exceeds the "
+          f"card's by at most {below:.3g} m (slack {ORACLE_SLACK}); card / oracle radius at "
+          f"most {ratio:.4f}; oracle_fk {t_fk:.1f} s on the host")
+    print(f"  K10 at t = {ORACLE_RNEA_T}, 5 seeded k: max |d centre| {tau_err:.3g} Nm "
+          f"(tolerance {ORACLE_TAU_TOL}); the oracle's radius exceeds the card's by at most "
+          f"{tau_below:.3g} Nm (slack {ORACLE_TAU_TOL}); card / oracle radius in "
+          f"[{tau_ratio[0]:.4f}, {tau_ratio[1]:.4f}]; oracle_rnea (threshold "
+          f"{ORACLE_THRESHOLD}) {t_rnea:.1f} s on the host")
+    if coef_err > ORACLE_COEF_TOL or below > ORACLE_SLACK:
+        fail("K9's reach sets disagree with the sparse oracle")
+    if tau_err > ORACLE_TAU_TOL or tau_below > ORACLE_TAU_TOL:
+        fail("K10's nominal torque disagrees with the sparse oracle")
+    return {"oracle_fk_coef_err": coef_err, "oracle_fk_radius_shortfall": below,
+            "oracle_fk_radius_ratio_max": ratio, "oracle_rnea_centre_err": tau_err,
+            "oracle_rnea_radius_shortfall": tau_below, "oracle_rnea_radius_ratio": tau_ratio}
+
+
+def harness_phase(robot, cfg, basis, dev) -> dict:
+    """Phase 16: the harness on the card, each path counted on its own."""
+    import tempfile
+
+    paths = sorted(glob.glob("saved_worlds/random/*.csv"))[:HARNESS_WORLDS]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh, out = serial_suite_phase(robot, cfg, paths, tmp, dev)
+        out.update(batched_resume_phase(robot, cfg, paths, tmp, dev))
+        out.update(traced_trial_phase(robot, cfg, paths[0], fresh[0], tmp, dev))
+        out.update(sweep_phase(robot, cfg, tmp, dev))
+    out.update(oracle_phase(robot, cfg, basis, dev))
+    out["harness_phase_s"] = time.perf_counter() - t0
+    print(f"phase 16: {out['harness_phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
@@ -3877,6 +4292,9 @@ def main() -> None:
         if row["name"] in smooth_rows:
             row["smooth_w64"] = smooth_rows[row["name"]]
 
+    # ---- phase 16: the harness ----
+    harness = harness_phase(robot, cfg, basis, dev)
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -3885,7 +4303,7 @@ def main() -> None:
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown, **window,
             **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf,
-            "grasp_loop": loop9, **smooth_perf}
+            "grasp_loop": loop9, **smooth_perf, **harness}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

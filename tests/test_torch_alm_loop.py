@@ -42,6 +42,16 @@ THR = (1e-6, 1e-6, 1e-6, 1e-3)
 TOL = 1e-9
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax():
     import jax
     import jax.numpy as jnp

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from armour_tpu.config import ArmourConfig as JConfig
@@ -17,6 +18,16 @@ from armour_tpu_torch import bench as tbench
 from armour_tpu_torch.config import ArmourConfig
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _root_bench():

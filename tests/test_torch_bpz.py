@@ -24,6 +24,16 @@ T = 4
 SLOP = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rand_np(rng, shape, degree1=False):
     """Random BPZ fields; degree1 keeps k-coefficients at degree <= 1
     (rotation operands of matmul_linear)."""

@@ -29,6 +29,16 @@ QD0 = np.array([0.1, -0.2, 0.15, 0.3, -0.1, 0.05, 0.2])
 QDD0 = np.array([0.3, 0.1, -0.2, 0.1, 0.2, -0.1, 0.0])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.as_tensor(np.asarray(x, dtype=np.float64))
 

@@ -35,6 +35,16 @@ PORT_FILES = sorted(p for p in (ROOT / "armour_tpu_torch").rglob("*.py")
                     if "_build" not in p.relative_to(ROOT).parts) + [ROOT / "chip_smoke.py"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _one_world_suite(robot, cfg, **kw):
     """run_trials_batched on one saved world, no iteration past the warm-up."""
     w = load_world_csv(str(ROOT / "saved_worlds/random/scene_013_001.csv"))
@@ -332,6 +342,20 @@ def test_shared_functions_keep_the_jax_positional_order(module, name):
             if rename.get(a.arg, a.arg) is not None]
     got = [a.arg for a in port.posonlyargs + port.args]
     assert got == want[:len(got)], f"{module}:{name} positional {got}, JAX order {want}"
+
+
+def test_batched_suite_takes_resume_and_second_pass_twelfth_and_thirteenth():
+    """run_world_suite_batched has every JAX positional parameter, resume
+    12th and second_pass 13th included; the port-only ones follow them
+    keyword-only."""
+    port = _public_functions(ROOT / "armour_tpu_torch" / "experiments.py")[
+        "run_world_suite_batched"].args
+    ref = _public_functions(ROOT / "armour_tpu" / "experiments.py")[
+        "run_world_suite_batched"].args
+    got = [a.arg for a in port.args]
+    assert got == [a.arg for a in ref.args]
+    assert got[11:] == ["resume", "second_pass"]
+    assert [a.arg for a in port.kwonlyargs] == ["device", "trace", "stats"]
 
 
 def test_extra_stats_passed_ninth_lands_in_batch_stats(tmp_path):

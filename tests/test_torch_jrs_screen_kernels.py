@@ -38,6 +38,16 @@ f32 = np.float32
 BLOCK_SMEM = 232448          # an H100 block's shared memory with the opt-in, bytes
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _define(name, src):
     return int(re.search(r"#define %s (\d+)" % name, (build.CSRC / src).read_text()).group(1))
 

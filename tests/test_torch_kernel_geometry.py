@@ -43,6 +43,16 @@ QUERIES = [2, 4, 6, 12]
 SEEDS = [2, 4]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _source(name):
     return (build.CSRC / name).read_text()
 

@@ -46,6 +46,16 @@ OBS_G = np.stack([np.diag([0.05, 0.05, 0.05]), np.diag([0.08, 0.08, 0.08])])
 SAVED = ["scene_013_001", "scene_013_002", "scene_013_003"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _walled():
     _, _, link_c = rnea_numeric.forward_kinematics(J_ROBOT, jnp.asarray(Q0))
     return np.asarray(link_c)[:7], np.stack([np.diag([0.3, 0.3, 0.3])] * 7)

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from armour_tpu import armour_io as j_io
 from armour_tpu import nlp as jnlp
@@ -43,6 +44,16 @@ T_CFG = convert.config_from_fields({f.name: getattr(J_CFG, f.name)
 Q0 = np.array([0.6543, -0.0876, -0.4837, -1.2278, -1.5735, -1.0720, 0.0])
 DUMPS = ("armour_joint_position_center.out", "armour_joint_position_radius.out",
          "armour_control_input_radius.out", "armour_constraints.out")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,16 @@ T_CFG = convert.config_from_fields({f.name: getattr(J_CFG, f.name)
                                     for f in dataclasses.fields(J_CFG)})
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t_robot(jrobot):
     return convert.robot_from_fields({f.name: getattr(jrobot, f.name)
                                       for f in dataclasses.fields(jrobot)})

@@ -31,6 +31,16 @@ T, O_PAD, N_DUP = 8, 20, 3
 SCENE = "saved_worlds/random/scene_013_001.csv"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small: one torch thread each, so that the
+    six workers of a full run do not oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fields(obj):
     return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)
             if f.name != "dims"}
