@@ -13,8 +13,8 @@ Obstacle layout in armour.in: per obstacle 12 numbers, the centre xyz then
 generators as columns.
 
 plan_from_armour_in runs the planner on the card by default (device=None);
-the reach sets it slices for the dumps go through kernels K9 / K10 / K3 and
-the full-set check K4 there.
+the reach sets it slices for the dumps go through kernels K9 / K10 and the
+full-set check through K4, which forms its rows from the cells there.
 """
 
 from __future__ import annotations
@@ -91,7 +91,8 @@ def frs_values(data: ArmourIn, k_slice: np.ndarray, robot, cfg, device,
     link centres [T, J, 3], shape generators [T, J, 3, 3], radii [T, J, 3],
     the torque radius [T, F], and the torque [T, F], collision [T, J, O]
     and 4F state rows.  plain=True takes the plain versions of the kernels
-    (K3, K4, K9, K10, K12, K15) on `device`."""
+    (K3, K4, K9, K10, K12, K15) on `device`; on the card K4 forms its rows
+    from the cells and K3 does not run."""
     from .collision import (build_hyperplanes, build_hyperplanes_plain, collision_constraints,
                             collision_constraints_plain, eval_link_polys, pad_obstacles)
     from .dynamics import (reach_assembly, reach_assembly_plain, rnea_pz_sets,

@@ -13,16 +13,19 @@ evaluates several k at once (seeds, line-search alphas), a query axis Q after
 it.  Three functions have hand-written CUDA kernels:
 
   build_hyperplanes    kernel K3 (kernels/collision.py), plain version
-                       build_hyperplanes_plain;
+                       build_hyperplanes_plain, run when a Hyperplanes made
+                       from the cells is first read: no planning path reads
+                       one on the card;
   screen_collision     kernel K13: the rows' upper bound, the top K in
                        jax.lax.top_k's order and the chosen rows, each
                        formed again with K3's device code; plain version
                        screen_collision_plain;
   screened_rows,       kernel K4: per-row max over the 2C signed distances,
   collision_constraints  first argmax, and dg/dk (the screened rows also in
-                       the smooth mode, a log-sum-exp over them); plain
-                       versions screened_rows_plain /
-                       collision_constraints_plain.
+                       the smooth mode, a log-sum-exp over them); over the
+                       full set it forms each row again with K3's device
+                       code (its cell mode); plain versions
+                       screened_rows_plain / collision_constraints_plain.
 
 Each wrapper takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors.
@@ -82,14 +85,54 @@ def stack_obstacles(sets) -> ObstacleSet:
                        mask=torch.stack([s.mask for s in sets]))
 
 
-@dataclasses.dataclass
 class Hyperplanes:
-    """Polytope data; N = T*J*O flattened (obstacle fastest), C = 36."""
+    """Polytope data; N = T*J*O flattened (obstacle fastest), C = 36:
 
-    A: torch.Tensor      # [W, 3, C, N] unit normals (0 for degenerate pairs)
-    d: torch.Tensor      # [W, C, N]
-    delta: torch.Tensor  # [W, C, N]
-    dims: tuple          # (T, J, O)
+      A      [W, 3, C, N] unit normals (0 for degenerate pairs)
+      d      [W, C, N]
+      delta  [W, C, N]
+      dims   (T, J, O)
+
+    Made from these tensors, or (build_hyperplanes) from the cells they
+    come from: the link sets frs and the obstacles obs, keyword-only.  Made
+    from the cells, A / d / delta are formed on their first read (kernel K3
+    on CUDA tensors, build_hyperplanes_plain on CPU tensors); on the card
+    the full-set check forms its rows from the cells and reads none of
+    them."""
+
+    def __init__(self, A=None, d=None, delta=None, dims=None, *, frs: LinkFRS | None = None,
+                 obs: ObstacleSet | None = None):
+        if (A is None) == (frs is None) or (frs is None) != (obs is None):
+            raise ValueError("Hyperplanes takes either A / d / delta or the cells (frs, obs)")
+        if dims is None and frs is not None:
+            dims = (*frs.radius.shape[1:3], obs.centers.shape[-2])
+        self._planes = None if A is None else (A, d, delta)
+        self.dims = dims
+        self.frs, self.obs = frs, obs
+
+    def _formed(self) -> tuple:
+        if self._planes is None:
+            if self.frs.radius.is_cuda:
+                from .kernels import collision as kcol
+
+                self._planes = kcol.build_hyperplanes(self.frs.shape_gens, self.frs.radius,
+                                                      self.obs.centers, self.obs.generators)
+            else:
+                h = build_hyperplanes_plain(self.frs, self.obs)
+                self._planes = (h.A, h.d, h.delta)
+        return self._planes
+
+    @property
+    def A(self) -> torch.Tensor:
+        return self._formed()[0]
+
+    @property
+    def d(self) -> torch.Tensor:
+        return self._formed()[1]
+
+    @property
+    def delta(self) -> torch.Tensor:
+        return self._formed()[2]
 
 
 def _dot3(a, b, dim):
@@ -146,16 +189,11 @@ def build_hyperplanes_plain(frs: LinkFRS, obs: ObstacleSet) -> Hyperplanes:
 
 
 def build_hyperplanes(frs: LinkFRS, obs: ObstacleSet) -> Hyperplanes:
-    """Buffer + polytope construction, once per plan.  Kernel K3 on CUDA
-    tensors, build_hyperplanes_plain on CPU tensors."""
-    if not frs.radius.is_cuda:
-        return build_hyperplanes_plain(frs, obs)
-    from .kernels import collision as kcol
-
-    T, J = frs.radius.shape[1:3]
-    A, d, delta = kcol.build_hyperplanes(frs.shape_gens, frs.radius, obs.centers,
-                                         obs.generators)
-    return Hyperplanes(A=A, d=d, delta=delta, dims=(T, J, obs.centers.shape[-2]))
+    """Buffer + polytope construction, once per plan: the Hyperplanes of
+    these cells, formed on first read (kernel K3 on CUDA tensors,
+    build_hyperplanes_plain on CPU tensors).  The planning step never reads
+    them on the card: K13 and K4's cell mode form the rows they need."""
+    return Hyperplanes(frs=frs, obs=obs)
 
 
 def eval_link_polys(frs: LinkFRS, phi: torch.Tensor) -> torch.Tensor:
@@ -210,14 +248,20 @@ def collision_constraints_plain(hyp: Hyperplanes, obs: ObstacleSet,
 def collision_constraints(hyp: Hyperplanes, obs: ObstacleSet,
                           p_all: torch.Tensor) -> torch.Tensor:
     """Full-set constraint values g [W, Q, T, J, O] (used by the final
-    feasibility check).  On CUDA this is kernel K4 over all N rows with
-    row = n // O and mask = obs.mask[n % O]."""
+    feasibility check).  On CUDA this is kernel K4: its cell mode for
+    Hyperplanes made from the cells (the rows formed from hyp's link sets and
+    obstacles, obs.mask the real ones), else its row mode over all N rows
+    with row = n // O and mask = obs.mask[n % O]."""
     if not p_all.is_cuda:
         return collision_constraints_plain(hyp, obs, p_all)
     from .kernels import collision as kcol
 
     T, J, O = hyp.dims
     Wn, Q = p_all.shape[:2]
+    if hyp.frs is not None:
+        g = kcol.collision_cells(hyp.frs.shape_gens, hyp.frs.radius, hyp.obs.centers,
+                                 hyp.obs.generators, obs.mask, p_all)
+        return g.reshape(Wn, Q, T, J, O)
     N = T * J * O
     n = torch.arange(N, device=p_all.device)
     row = (n // O).to(torch.int32)
@@ -324,7 +368,7 @@ def screen_collision(hyp: Hyperplanes, obs: ObstacleSet, frs: LinkFRS,
     forms each row's hyperplanes again from frs and obs with K3's device
     code, so on the card it reads nothing of hyp and gives the rows
     screen_collision_plain takes from K3's hyp, bit for bit."""
-    if not hyp.A.is_cuda:
+    if not frs.radius.is_cuda:
         return screen_collision_plain(hyp, obs, frs, K, obstacle_quota)
     from .kernels import collision as kcol
 

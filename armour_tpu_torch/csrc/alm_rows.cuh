@@ -165,7 +165,8 @@ __device__ __forceinline__ void alm_warp_dots(const float* __restrict__ row, con
 // collision rows: K4's rule (collision_rows.cu)
 // ---------------------------------------------------------------------------
 
-// K4's rule for screened row r of world w at G link centres (p0, p1, p2)[g]:
+// K4's hard rule (collision_rule.cuh, shared with K4, without K4's NaN
+// order) for screened row r of world w at G link centres (p0, p1, p2)[g]:
 // m[g] = max over the 2C candidates (first maximal, pos before neg), and,
 // when comb is given, the chosen normal and sign.
 template <int G>
@@ -174,43 +175,9 @@ __device__ __forceinline__ void alm_collision_at(const AlmArgs& a, int w, int r,
                                                  int* comb, float* sign) {
   const long long K = a.K;
   const int C = a.C;
-  float best_p[G], best_n[G];
-  int ip[G], in[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    best_p[g] = 0.0f;
-    best_n[g] = 0.0f;
-    ip[g] = 0;
-    in[g] = 0;
-  }
-  const float* Aw = a.A + (long long)w * 3 * C * K;
-  const float* dw = a.d + (long long)w * C * K;
-  const float* delw = a.delta + (long long)w * C * K;
-#pragma unroll 4
-  for (int cc = 0; cc < C; ++cc) {
-    const float A0 = Aw[(0 * C + cc) * K + r];
-    const float A1 = Aw[(1 * C + cc) * K + r];
-    const float A2 = Aw[(2 * C + cc) * K + r];
-    const bool ok = fabsf(A0) + fabsf(A1) + fabsf(A2) > 0.0f;
-    const float dd = dw[cc * K + r], de = delw[cc * K + r];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float Ap = A0 * p0[g] + A1 * p1[g] + A2 * p2[g];
-      const float pos = ok ? Ap - (dd + de) : -ALM_BIG;
-      const float neg = ok ? -Ap - (-dd + de) : -ALM_BIG;
-      if (cc == 0 || pos > best_p[g]) { best_p[g] = pos; ip[g] = cc; }
-      if (cc == 0 || neg > best_n[g]) { best_n[g] = neg; in[g] = cc; }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const bool use_neg = best_n[g] > best_p[g];
-    m[g] = use_neg ? best_n[g] : best_p[g];
-    if (comb != nullptr) {
-      comb[g] = use_neg ? in[g] : ip[g];
-      sign[g] = use_neg ? 1.0f : -1.0f;
-    }
-  }
+  collision_hard_rule<G, false>(a.A + (long long)w * 3 * C * K, a.d + (long long)w * C * K,
+                                a.delta + (long long)w * C * K, K, C, r, p0, p1, p2, m, comb,
+                                sign);
 }
 
 // The smooth mode's rule (collision_rule.cuh, shared with K4) for screened

@@ -1,6 +1,7 @@
 // One cell's buffered-zonotope hyperplanes, shared by K3 (build_hyperplanes.cu,
-// every cell to device memory) and K13 (screen_collision.cu, which forms the
-// rows it needs again instead of reading K3's tensors).
+// every cell to device memory), K13 (screen_collision.cu, which forms the
+// rows it needs again instead of reading K3's tensors) and K4's cell mode
+// (collision_rows.cu, the full-set check formed from the cells).
 //
 // A cell n = (t J + j) O + o buffers obstacle o with link j's generators at
 // time t: its 9 generators G (obstacle 3 | link shape 3 | diag(link radius)
@@ -9,11 +10,11 @@
 // JAX), delta = sum_g |A . G_g| summed left to right and d = A . obstacle
 // centre (armour_tpu/collision.py:99-130).
 //
-// Both kernels compile this same code in libraries built without fast math
-// and with -fmad=false, and the normal is IEEE 1.0f / sqrtf(n2): every row
-// K13 forms carries K3's bits.  An approximate rsqrt, a fused multiply-add
-// or a reordered sum here changes A and delta, and with them the safety
-// buffer and the screen's choice.
+// The three kernels compile this same code in libraries built without fast
+// math and with -fmad=false, and the normal is IEEE 1.0f / sqrtf(n2): every
+// row K13 and K4 form carries K3's bits.  An approximate rsqrt, a fused
+// multiply-add or a reordered sum here changes A and delta, and with them
+// the safety buffer and the screen's choice.
 #pragma once
 #include <cuda_runtime.h>
 

@@ -1,5 +1,6 @@
 """Launchers of the collision kernels K3 (build_hyperplanes), K4
-(collision_rows) and K13 (screen_collision).  Called by collision.py for
+(collision_rows, and its cell mode collision_cells) and K13
+(screen_collision).  Called by collision.py for
 CUDA tensors only; each checks device, dtype, shapes and contiguity, raises
 on anything its kernel does not take, allocates the outputs with
 torch.empty and launches on the current stream."""
@@ -31,10 +32,14 @@ class K4Args(ctypes.Structure):
     _fields_ = [("A", ctypes.c_void_p), ("d", ctypes.c_void_p), ("delta", ctypes.c_void_p),
                 ("row", ctypes.c_void_p), ("row_ws", ctypes.c_longlong),
                 ("mask", ctypes.c_void_p),
+                ("shape_gens", ctypes.c_void_p), ("radius", ctypes.c_void_p),
+                ("centers", ctypes.c_void_p), ("gens", ctypes.c_void_p),
+                ("obs_mask", ctypes.c_void_p),
                 ("p_all", ctypes.c_void_p), ("dp_all", ctypes.c_void_p),
                 ("g", ctypes.c_void_p), ("dg", ctypes.c_void_p),
                 ("W", ctypes.c_int), ("Q", ctypes.c_int), ("C", ctypes.c_int),
                 ("R", ctypes.c_int), ("TJ", ctypes.c_int), ("F", ctypes.c_int),
+                ("O", ctypes.c_int), ("G", ctypes.c_int),
                 ("tau", ctypes.c_float), ("tau_log2c", ctypes.c_float)]
 
 
@@ -54,6 +59,27 @@ class K13Args(ctypes.Structure):
 # csrc/screen_collision.cu: K13_BOUND_THREADS, K13_SELECT_THREADS, K13_GATHER_THREADS
 K13_BOUND_THREADS, K13_SELECT_THREADS, K13_GATHER_THREADS = 256, 1024, 256
 K13_SMEM_SORT_MAX = 64 * 1024   # the sort buffer's largest size in shared memory, bytes
+# csrc/collision_rows.cu: K4_THREADS, K4_MAX_G and k4_launch's cases
+K4_THREADS, K4_MAX_G = 256, 6
+K4_GROUPS = (1, 2, 4, 6)
+
+
+def k4_group(Q: int) -> int:
+    """K4's queries a thread (its grid, collision_rows.cu:k4_launch_g:
+    blocks of K4_THREADS rows, groups of G queries, worlds): the fewest
+    groups of at most K4_MAX_G queries, then the least G of K4_GROUPS that
+    covers Q in that many groups.  The planning paths send the full-set
+    check Q = 1 or 2S', the screened rows Q = S, S' and each times the A
+    line-search alphas (S seeds, S' kept after the cull: 4, 2 and A = 3 at
+    the default profile), so Q = 1, 2, 4, 6, 12 and G = 1, 2, 4, 6, 6 with
+    no query padded."""
+    n = -(-Q // K4_MAX_G) if Q > 0 else 1
+    return next(G for G in K4_GROUPS if G * n >= Q)
+
+
+def _k4_check_group(G: int) -> None:
+    if G not in K4_GROUPS:
+        raise ValueError(f"K4 takes {K4_GROUPS} queries a thread, not {G}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +148,14 @@ def build_hyperplanes(shape_gens, radius, centers, generators):
     return A, d, delta
 
 
+def _k4_launch(args: K4Args, stream) -> None:
+    fn = launcher("collision_rows", "k4_launch", [ctypes.POINTER(K4Args), ctypes.c_void_p])
+    err = fn(ctypes.byref(args), stream)
+    if err:
+        raise RuntimeError(f"collision_rows launch failed: cudaError {err}")
+    launched("collision_rows")
+
+
 def collision_rows(A, d, delta, row, mask, p_all, dp_all=None, *, smooth_tau: float = 0.0):
     """K4: g [W,Q,R] and, when dp_all is given, dg/dk [W,Q,R,F] of rows with
     normals A [W,3,C,R], offsets d, buffers delta [W,C,R], link cell index
@@ -129,12 +163,20 @@ def collision_rows(A, d, delta, row, mask, p_all, dp_all=None, *, smooth_tau: fl
     [W,R], at link centres p_all [W,Q,3,TJ] (dp_all [W,Q,3,F,TJ]).
     smooth_tau > 0: the smooth mode (collision.screened_constraints), for
     screened rows only; the full set (row [R]) is the exact check."""
+    return _collision_rows(A, d, delta, row, mask, p_all, dp_all, smooth_tau,
+                           k4_group(p_all.shape[1]))
+
+
+def _collision_rows(A, d, delta, row, mask, p_all, dp_all, smooth_tau: float, G: int):
+    """collision_rows at G queries a thread (one of K4_GROUPS): every G
+    gives the same bits, and the checks hold k4_group's G against G = 1."""
     Wn, _, C, R = A.shape
     Q, TJ = p_all.shape[1], p_all.shape[-1]
     smooth = smooth_tau > 0
     if smooth and row.dim() == 1:
         raise ValueError("K4's smooth mode takes screened rows (row [W, R]); the full-set "
                          "check over a shared row [R] stays exact")
+    _k4_check_group(G)
     _require(A, "A", (Wn, 3, C, R))
     _require(d, "d", (Wn, C, R))
     _require(delta, "delta", (Wn, C, R))
@@ -157,20 +199,54 @@ def collision_rows(A, d, delta, row, mask, p_all, dp_all=None, *, smooth_tau: fl
     record("collision_rows", key + (("smooth", float(smooth_tau)) if smooth else ()),
            (A, d, delta, row, mask, p_all, dp_all, smooth_tau))
     if Wn * Q * R:
-        args = K4Args(A.data_ptr(), d.data_ptr(), delta.data_ptr(), row.data_ptr(), row_ws,
-                      mask.data_ptr(), p_all.data_ptr(),
-                      dp_all.data_ptr() if dp_all is not None else None,
-                      g.data_ptr(), dg.data_ptr() if dg is not None else None,
-                      Wn, Q, C, R, TJ, F)
+        args = K4Args(A=A.data_ptr(), d=d.data_ptr(), delta=delta.data_ptr(),
+                      row=row.data_ptr(), row_ws=row_ws, mask=mask.data_ptr(),
+                      p_all=p_all.data_ptr(),
+                      dp_all=dp_all.data_ptr() if dp_all is not None else None,
+                      g=g.data_ptr(), dg=dg.data_ptr() if dg is not None else None,
+                      W=Wn, Q=Q, C=C, R=R, TJ=TJ, F=F, G=G)
         if smooth:
             args.tau = smooth_tau
             args.tau_log2c = float(smooth_shift(smooth_tau, C, _F32))
-        fn = launcher("collision_rows", "k4_launch", [ctypes.POINTER(K4Args), ctypes.c_void_p])
-        err = fn(ctypes.byref(args), _stream(A))
-        if err:
-            raise RuntimeError(f"collision_rows launch failed: cudaError {err}")
-        launched("collision_rows")
+        _k4_launch(args, _stream(A))
     return g, dg
+
+
+def collision_cells(shape_gens, radius, centers, generators, obs_mask, p_all):
+    """K4's cell mode, the full-set check formed from the cells: g [W,Q,N]
+    (N = T*J*O rows, obstacle fastest; -BIG for a padded obstacle's) from the
+    link shape generators [W,T,J,3,3], radii [W,T,J,3], the obstacles'
+    centres [W,O,3], generators [W,O,3,3] and real-obstacle mask [W,O], at
+    link centres p_all [W,Q,3,T*J].  The kernel forms each row's 36
+    hyperplanes with K3's device code: the bits of collision_rows over K3's
+    tensors of the same cells, with no hyperplane tensor made."""
+    return _collision_cells(shape_gens, radius, centers, generators, obs_mask, p_all,
+                            k4_group(p_all.shape[1]))
+
+
+def _collision_cells(shape_gens, radius, centers, generators, obs_mask, p_all, G: int):
+    """collision_cells at G queries a thread (one of K4_GROUPS)."""
+    Wn, T, J = radius.shape[:3]
+    O = obs_mask.shape[-1]
+    Q, TJ = p_all.shape[1], T * J
+    N = TJ * O
+    _k4_check_group(G)
+    _require(shape_gens, "shape_gens", (Wn, T, J, 3, 3))
+    _require(radius, "radius", (Wn, T, J, 3))
+    _require(centers, "centers", (Wn, O, 3))
+    _require(generators, "generators", (Wn, O, 3, 3))
+    _require(obs_mask, "obs_mask", (Wn, O), torch.bool)
+    _require(p_all, "p_all", (Wn, Q, 3, TJ))
+    g = torch.empty(Wn, Q, N, device=radius.device, dtype=_F32)
+    record("collision_rows", (tuple(radius.shape), O, tuple(p_all.shape), "cells"),
+           (shape_gens, radius, centers, generators, obs_mask, p_all))
+    if Wn * Q * N:
+        args = K4Args(shape_gens=shape_gens.data_ptr(), radius=radius.data_ptr(),
+                      centers=centers.data_ptr(), gens=generators.data_ptr(),
+                      obs_mask=obs_mask.data_ptr(), p_all=p_all.data_ptr(), g=g.data_ptr(),
+                      W=Wn, Q=Q, C=N_COMB, R=N, TJ=TJ, O=O, G=G)
+        _k4_launch(args, _stream(radius))
+    return g
 
 
 def screen_collision(shape_gens, radius, centers, generators, center_coef, env, obs_mask,

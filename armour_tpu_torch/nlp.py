@@ -25,8 +25,8 @@ finish of the K7 / K8 call that feeds it (all but the cull and the final
 selection, which launch K14 after their torch reductions), and the
 alm_*_plain functions on the CPU.  On the card neither the constraint stack
 nor its Jacobian is formed inside the loop; the full-set check in finalize
-(max_violations: kernel K4 over every collision row, K8's max mode for the
-torque and state rows) is what soundness rests on.
+(max_violations: kernel K4 over every collision row, each formed from its
+cell, K8's max mode for the torque and state rows) is what soundness rests on.
 
 q_plan is linear in k (weight s^3 (6 s^2 - 15 s + 10) * k_range at
 s = t_plan / duration; 0.5 t_plan^2 g_k for the ARMTD family), so the cost

@@ -2,8 +2,8 @@
 armour_tpu/planner.py).
 
 plan_step runs JRS -> PZ FK -> PZ RNEA torque bound (and, with
-cfg.grasp_constraints, the contact rows from the RNEA's wrench) -> obstacle
-hyperplanes -> screen -> ALM solve for a batch of worlds.  make_batch_planner,
+cfg.grasp_constraints, the contact rows from the RNEA's wrench) -> screen
+of the obstacle hyperplanes -> ALM solve for a batch of worlds.  make_batch_planner,
 make_planner, make_rescue_planner and make_realtime_planner return step
 functions that run on the card by default; pass device="cpu" to run the
 plain versions of every kernel on the CPU.
@@ -38,8 +38,11 @@ def plan_problem(q0, qd0, qdd0, q_des, obs: ObstacleSet, robot: RobotModel,
     The Bernstein JRS is kernel K12 on the card; cfg.traj_family "armtd"
     builds the constant-acceleration JRS (kernel K11) and ignores qdd0.  On
     the card the FK chain is kernel K9, the RNEA kernel K10, the assembly
-    after them kernel K15, the hyperplanes kernel K3 and the screen kernel
-    K13; plain=True takes their plain versions on any device."""
+    after them kernel K15 and the screen kernel K13, which forms the rows it
+    needs from the cells; the hyperplanes are formed only where they are
+    read (PlanProblem.hyp: the full-set check reads none on the card, where
+    K4 forms its rows from the cells too).  plain=True takes their plain
+    versions on any device, the hyperplanes formed at once."""
     if cfg.traj_family == "armtd":
         jrs = (build_jrs_armtd_plain if plain else build_jrs_armtd)(q0, qd0, robot, cfg, basis)
     elif cfg.traj_family == "bernstein":
@@ -54,7 +57,8 @@ def problem_from_jrs(jrs, q_des, obs: ObstacleSet, robot: RobotModel, cfg: Armou
     """The stages after the JRS, shared by both trajectory families: FK
     (K9), RNEA (K10), the torque radius and the link split in one launch
     (K15), with cfg.grasp_constraints the contact rows from the wrench of
-    the same K10 launch (K16), hyperplanes (K3) and the screen (K13)."""
+    the same K10 launch (K16), the hyperplanes of the cells (formed on
+    first read) and the screen (K13)."""
     fk = forward_occupancy_plain if plain else forward_occupancy
     rnea = rnea_pz_sets_plain if plain else rnea_pz_sets
     links = fk(jrs, robot, cfg, basis)

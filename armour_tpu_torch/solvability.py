@@ -22,8 +22,8 @@ verdict per world:
 
 The search is the bidirectional-connect configuration-space RRT of
 hlp.ConfigRRTStarHLP with the buffer pinned; the exact test is the rest FRS
-(JRS -> FK (K9) -> RNEA (K10) -> hyperplanes (K3) -> full-set check (K4) on
-the card).  Unlike the JAX module, whose checker always uses the default
+(JRS -> FK (K9) -> RNEA (K10) -> full-set check (K4, forming each row from
+the cells) on the card).  Unlike the JAX module, whose checker always uses the default
 ArmourConfig(float32), the checker here takes the planner's config.
 
     python3 -m armour_tpu_torch.solvability <results.json> <world_dir>

@@ -78,12 +78,27 @@ K7 / K8 finish kernels' share), K14's launches and the solve's host
 launcher calls, and batch-1 p50 / p99 over 32 worlds (make_planner); K12
 and K11 alone at W = 64 (median of 20, and device time); the dumbbell's
 W = 64 grasp step (chip_smoke.py phase 13's configuration) under both
-contact parameter sets; and prints a digest of each result, of K10's
-torque and of K3's hyperplanes of that step's cells: the links of K9 (the
+contact parameter sets; a W = 1,024 step (the 64 worlds 16 times, the
+bench's width): its time and peak device memory, as each W = 64 step's;
+and prints a digest of each result, of K10's torque and of K3's
+hyperplanes of that step's cells (a direct K3 call): the links of K9 (the
 FK chain) split here, in this script, with a left-to-right sum (so that two
 checkouts whose reduce_links sum in other orders still hand K3 the same
 cells).  Copied into an older checkout, it times and digests that one in
 turns with this one (older, this, this, older).
+
+    python3 chip_probe.py --k4
+
+times K4 (collision_rows) on the screened rows of one plain solve of the
+W = 64 flagship step (the first 64 saved worlds; nlp.constraint_stack
+takes them from K4), in the hard mode and in the smooth one (smooth_tau =
+chip_smoke.SMOOTH_TAU): every call shape through the public launcher
+kernels/collision.py:collision_rows, the median of 20 calls (CUDA events),
+its device time a call (queued_ms) and a digest of g / dg, and their sums;
+and the seconds one nvcc takes to build csrc/collision_rows.cu alone (the
+build's flags), with the ptxas report's entry functions and spills.
+Copied into an older checkout, it times and digests that one in turns with
+this one (older, this, this, older): the digests must agree.
 
     python3 chip_probe.py --nonfinite
 
@@ -283,6 +298,9 @@ def main() -> None:
     if "--nonfinite" in sys.argv[1:]:
         nonfinite_only()
         return
+    if "--k4" in sys.argv[1:]:
+        k4_only()
+        return
     if "--assembly" in sys.argv[1:]:
         assembly_only()
         return
@@ -402,6 +420,19 @@ def _part(by, *keys) -> float:
     return sum(ms for n, ms in by.items() if any(k in n for k in keys))
 
 
+W_BENCH = 1024   # the bench's largest width (armour_tpu_torch.bench, ARMOUR_BENCH_BATCH)
+
+
+def step_peak_gb(fn, dev) -> float:
+    """The peak device memory of one call of fn, GB: torch's
+    max_memory_allocated after a reset (what was held before it included)."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
 def step_only() -> None:
     """--step: the W = 64 step of both families timed through
     make_batch_planner, its device time and activities (and K12's / K11's,
@@ -411,7 +442,10 @@ def step_only() -> None:
     worlds through make_planner, the dumbbell's W = 64 grasp step under
     both contact parameter sets (feasible counts, digests), K12 and K11
     alone at W = 64 (median of 20 calls, CUDA events, and device time), the
-    digest of K10's torque and of K3's hyperplanes of the step's cells."""
+    digest of K10's torque and of K3's hyperplanes of the step's cells (a
+    direct K3 call: no step launches it since K4 forms its rows from the
+    cells), each step's K3 launches and peak device memory, and a W = 1,024
+    step's (the bench's width) time, peak memory and digest."""
     import statistics
 
     import numpy as np
@@ -456,6 +490,8 @@ def step_only() -> None:
         res = step(q0d, qd, z, q_des_d, obs_d)
         n = kernels.counts()
         out[f"{family}_k14_launches"] = n["alm_loop"]
+        out[f"{family}_k3_launches"] = n["build_hyperplanes"]
+        out[f"{family}_peak_gb"] = step_peak_gb(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)
         out[f"{family}_solve_host_calls"] = n["alm_newton"] + n["alm_values"] + n["alm_loop"]
         out[f"{family}_result_digest"] = digest((res.k, res.feasible, res.cost, res.viol))
         dms, nact, by = device_profile(lambda: step(q0d, qd, z, q_des_d, obs_d), dev)
@@ -489,6 +525,20 @@ def step_only() -> None:
                                  obs_d.generators)
     out["k3_digest"] = digest(tuple(hyp))
     del jrs, links, hyp
+    # the bench's width: W = 1,024 (the 64 worlds 16 times), its peak memory
+    # and result digest
+    reps = W_BENCH // 64
+    big = (q0d.repeat(reps, 1), z.repeat(reps, 1), z.repeat(reps, 1), q_des_d.repeat(reps, 1),
+           ObstacleSet(centers=obs_d.centers.repeat(reps, 1, 1),
+                       generators=obs_d.generators.repeat(reps, 1, 1, 1),
+                       mask=obs_d.mask.repeat(reps, 1)))
+    step = make_batch_planner(robot, cfg)
+    wall_s(lambda: step(*big), dev)
+    out["w1024_step_ms"] = wall_s(lambda: step(*big), dev)[0] * 1e3
+    out["w1024_peak_gb"] = step_peak_gb(lambda: step(*big), dev)
+    res = step(*big)
+    out["w1024_result_digest"] = digest((res.k, res.feasible, res.cost, res.viol))
+    del big, res, step
     # the dumbbell's grasp step (chip_smoke.py phase 13's configuration)
     dumbbell = zoo.kinova_dumbbell()
     ub = derive_ultimate_bound(dumbbell, v_max=5e-4)
@@ -509,15 +559,99 @@ def step_only() -> None:
         f"{out[f + '_activities']} activities; JRS {out[f + '_jrs_device_ms']:.4f}, K14 "
         f"{out[f + '_k14_device_ms']:.4f} in {out[f + '_k14_launches']} launches, K7 / K8 "
         f"finish {out[f + '_finish_device_ms']:.4f}; {out[f + '_solve_host_calls']} host "
-        f"launcher calls in the solve; batch-1 p50 {out[f + '_batch1_p50_ms']:.3f} / p99 "
+        f"launcher calls in the solve; K3 x{out[f + '_k3_launches']}; peak "
+        f"{out[f + '_peak_gb']:.3f} GB; batch-1 p50 {out[f + '_batch1_p50_ms']:.3f} / p99 "
         f"{out[f + '_batch1_p99_ms']:.3f} ms; digest {out[f + '_result_digest']})"
         for f in ("bernstein", "armtd")))
     print(f"  K12 {out['k12_event_ms']:.4f} ms event / {out['k12_device_ms']:.4f} ms device, K11 "
           f"{out['k11_event_ms']:.4f} / {out['k11_device_ms']:.4f} (W = 64, medians of {ITERS}); "
           f"K10 digest {out['k10_digest']}, K3 digest {out['k3_digest']}")
+    print(f"  W = {W_BENCH} step {out['w1024_step_ms']:.1f} ms, peak {out['w1024_peak_gb']:.3f} GB, "
+          f"digest {out['w1024_result_digest']}")
     print("  dumbbell grasp step: " + ", ".join(
         f"{lb} {out[lb + '_step_ms']:.3f} ms, {out[lb + '_feasible']} of 64 feasible, digest "
         f"{out[lb + '_result_digest']}" for lb in ("grasp", "grasp_tight")))
+    print(card)
+    print(json.dumps(out))
+
+
+def k4_only() -> None:
+    """--k4: K4's screened rows of one plain solve at the W = 64 step, hard
+    and smooth, through the public launcher; and collision_rows.cu's nvcc
+    time.  See the module docstring."""
+    import os
+    import re
+    import subprocess
+    import tempfile
+    import time
+
+    import armour_tpu_torch  # noqa: F401  (precision pins)
+    from chip_smoke import SMOOTH_TAU, card_line, scenes
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.kernels import build
+    from armour_tpu_torch.kernels import collision as kcol
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.planner import plan_problem
+    from armour_tpu_torch.pz.basis import make_basis
+    from armour_tpu_torch.utils.timing import median_ms
+
+    dev = torch.device("cuda")
+    card = card_line()
+    fd, tmp = tempfile.mkstemp(suffix=".so")
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([build.nvcc(), *build.FLAGS, "-o", tmp,
+                           str(build.CSRC / build.SOURCES["collision_rows"])],
+                          capture_output=True, text=True)
+    nvcc_s = time.perf_counter() - t0
+    os.unlink(tmp)
+    if proc.returncode:
+        fail(f"nvcc failed for collision_rows.cu:\n{proc.stdout}{proc.stderr}")
+    report = proc.stdout + proc.stderr
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", report)]
+    out = {"card": card, "nvcc_collision_rows_s": nvcc_s,
+           "entry_functions": report.count("Compiling entry function"),
+           "max_spill_store_bytes": max(spills, default=0), "digest": {}}
+    build.build_all()
+    robot = kinova_gen3()
+    cfg = ArmourConfig(dtype=torch.float32)
+    basis = make_basis(robot.num_factors, cfg.max_poly_degree)
+    q0, _, _, q_des, obs = scenes(robot, cfg, 64)
+    q0d, q_des_d = (torch.as_tensor(x, dtype=cfg.dtype).to(dev) for x in (q0, q_des))
+    obs_d = type(obs)(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
+                      mask=obs.mask.to(dev))
+    z = torch.zeros_like(q0d)
+    for mode, mcfg in (("hard", cfg), ("smooth", dataclasses.replace(
+            cfg, smooth_obstacle_constraints=True, smooth_tau=SMOOTH_TAU))):
+        prob = plan_problem(q0d, z, z, q_des_d, obs_d, robot, mcfg, basis)
+        with kernels.capture() as cap:
+            nlp.solve(prob, mcfg, basis, plain=True)
+        torch.cuda.synchronize(dev)
+        tot = {"event_ms": 0.0, "device_ms": 0.0, "shapes": 0}
+        for (name, key), inputs in cap.items():
+            if name != "collision_rows" or len(inputs) != 8:
+                continue
+            A, d, delta, row, mask, p_all, dp_all, tau = inputs
+
+            def fn(i=inputs):
+                return kcol.collision_rows(*i[:7], smooth_tau=i[7])
+
+            ms, dms = median_ms(fn, dev, ITERS), queued_ms(fn, dev)
+            dig = digest(tuple(t for t in fn() if t is not None))
+            out["digest"][f"{mode} {key}"] = dig
+            out[f"{mode} {key}"] = {"event_ms": ms, "device_ms": dms}
+            print(f"K4 {mode} {key}: {ms:.4f} ms (median of {ITERS}), device {dms:.4f} ms a "
+                  f"call (queued_ms), digest {dig}")
+            for f, x in (("event_ms", ms), ("device_ms", dms), ("shapes", 1)):
+                tot[f] += x
+        cap.clear()
+        del prob
+        out[f"{mode}_total"] = tot
+        print(f"K4 {mode} screened rows of one plain solve: {tot['event_ms']:.4f} ms of CUDA-event "
+              f"time, {tot['device_ms']:.4f} ms of device time over {tot['shapes']} shapes")
+    print(f"nvcc collision_rows.cu alone: {nvcc_s:.1f} s, {out['entry_functions']} entry "
+          f"functions, largest spill store {out['max_spill_store_bytes']} bytes")
     print(card)
     print(json.dumps(out))
 

@@ -20,11 +20,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. the main path at the flagship width (Kinova Gen3, T = 128, O = 40,
      K = 4096, float32) over the first 64 saved worlds: one warm-up step that
      records each kernel's inputs, then one step with the launch counters set
-     to 0, which must launch every kernel of the step (K12, K13, K3, K4, K7,
+     to 0, which must launch every kernel of the step (K12, K13, K4, K7,
      K8, K14, the reach-set chains K9, K10 and their assembly K15; K12, K13
      and K15 once, K14 at most twice: its cull and selection, its other
-     phases run in K7's / K8's finish, counted apart) and neither K1 nor K2;
-     prints K14's launches and the solve's host launcher calls.
+     phases run in K7's / K8's finish, counted apart) and neither K1, K2
+     nor K3 (K13 and K4's cell mode form the rows they need from the
+     cells: no planning path makes the [W, 3, 36, N] hyperplane tensors;
+     every counted path below is held to that too); prints K14's launches
+     and the solve's host launcher calls.
   3. every recorded kernel call against its plain PyTorch version on the
      same inputs, on the card, with the tolerances below, and both timed
      (median of 20 calls, CUDA events); K7, K8, K9 and K10 also run twice
@@ -40,7 +43,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain phase; its time the pass with it less the pass alone); K13 (passed the
      cells, never K3's hyperplane tensors) against the plain screen of K3's
      hyperplanes of the same cells bit for bit, also at quota 8 and on
-     planted ties; K15 bit for bit, twice, its outputs' views checked, and
+     planted ties; K3 by a direct call on the step's cells (no step
+     launches it); K4's cell mode (the full-set check) bit for bit against
+     K4's row mode (G = 1) over K3's tensors of the same cells and within
+     the tolerance of the plain check; K15 bit for bit, twice, its
+     outputs' views checked, and
      its launch geometry printed (kernels/reach.py:k15_geometry).  K1
      / K2, which the Kinova's step does not launch, on their own path: one
      W = 64 planning step of the Kinova with com_uncertainty = 0.05 (the
@@ -65,8 +72,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      on feasibility with at most one flip; solves/s at W = 64, the reach-set
      / solver split (reachset_ms), the device time of one step by kernel
      name, its device activities and busy share (torch.profiler), the reach
-     sets' device activities (only K15 between K10 and K3), K13's and K15's
-     event time, device time and bound, and batch-1 p50/p99 latency at the
+     sets' device activities (only K15 and the screen's envelope, torch's
+     abs and sum, between K10 and K13, no K3), K13's
+     and K15's event time, device time and bound; K4's two modes: the cell
+     mode's event time, device time in the step and bound, and the screened
+     rows of one plain solve (hard mode) against their plain versions and
+     their G = 1 instantiation bit for bit, with event time, device time and
+     bound; the step's peak device memory; batch-1 p50/p99 latency at the
      full profile against the 0.5 s budget.
   5. the closed loop at the flagship width: run_trials_batched over the same
      64 worlds, 3 iterations, straight-line guidance with the rescue solver,
@@ -116,15 +128,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with start velocities seeded uniform in +-ARMTD_QD0 rad/s: one warm-up
      step that records each kernel's inputs, then one step with the launch
      counters set to 0 just before it and read just after, which must
-     launch K11 (jrs_armtd) once and K3, K4, K7, K8, K9, K10, K13, K14, K15,
-     and neither K1, K2 nor K12; every recorded call (K11, K3, K4, K13, K15, K7 /
+     launch K11 (jrs_armtd) once and K4, K7, K8, K9, K10, K13, K14, K15,
+     and neither K1, K2, K3 nor K12; every recorded call (K11, K4, K13, K15, K7 /
      K8's ARMTD branch and K14 on every shape, K9 / K10 on the ARMTD sets)
      against its plain version
      with the tolerances above, each kernel twice for the same bits, all
      timed; every feasible k passes the plain full-set check; phase 4's
      fused / eager / plain solve comparison and profiles on the ARMTD plan;
      the step beside phase 4's Bernstein step, profiled, its reach sets'
-     window from K10 to K3 (K15 alone); phase
+     window from K10 to K13 (K15 alone; K3 on the step's cells directly); phase
      9's containment on the ARMTD sets (65,536 sampled states); three
      closed-loop iterations with rescue (K11, K5, K6 launched, no safety
      flag); batch-1 p50 / p99.
@@ -136,7 +148,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      r 0.5): one warm-up step that records each kernel's inputs, then one
      step with the launch counters set to 0 just before it and read just
      after, which must launch K12, K9, K10 (torque and wrench), K15, K16,
-     K3 and K13 once and K4, K7, K8, K14, and neither K1 nor K2; every
+     K13 once and K4, K7, K8, K14, and neither K1, K2 nor K3; every
      recorded call against its plain version (K16 and K15 bit for bit, K12's
      velocity PZs and R bit for bit, K9 / K10 / K7 / K8 within the
      tolerances above, K14 bit for bit), timed; every feasible k passes
@@ -145,7 +157,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      feasible count without grasp rows; the step's wall time, its
      device time, activities and busy share, K16's event and device time
      and bound, K15's and K16's launch geometries (k15_geometry,
-     kernels/grasp.py:k16_geometry), the reach sets' window from K10 to K3
+     kernels/grasp.py:k16_geometry), the reach sets' window from K10 to K13
      (K15 and K16 alone);
      the same step with the tight contact parameters (1e-4, 1e-4), which
      must leave every world infeasible (NaN k); then a W = 8 step of every
@@ -183,7 +195,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      = SMOOTH_TAU: K4's screened rows and K7 / K8 take the log-sum-exp of
      armour_tpu/collision.py:277-290; the full-set check stays exact):
      (i) a W = 64 Bernstein step over phase 2's worlds, a warm-up step that
-     records each kernel's inputs, then one counted step (K12, K13, K3, K4,
+     records each kernel's inputs, then one counted step (K12, K13, K4,
      K7, K8, K14, K9, K10, K15, neither K1 nor K2); the recorded K7 / K8 /
      K14 calls and a plain solve's K4 calls (its smooth screened rows, and
      the exact full-set check) against their plain versions at phase 3's
@@ -484,19 +496,73 @@ def check_hyperplanes(inputs, dev):
         f"|dA| {float((A - hp.A).abs().max()):.3g}, d/delta worst |d|/tol {ratio:.3g}"
 
 
+def check_cells(inputs, dev):
+    """K4's cell mode (the full-set check formed from the cells) against
+    K4's row mode (G = 1) over K3's tensors of the same cells, bit for bit
+    (NaN at the same places), and within TOL against its plain version,
+    collision_constraints_plain over build_hyperplanes_plain of the cells:
+    the error and the plain time reported are that plain version's."""
+    from armour_tpu_torch import collision as col
+    from armour_tpu_torch.kernels import collision as kcol
+    from armour_tpu_torch.kinematics import LinkFRS
+
+    shape_gens, radius, centers, gens, obs_mask, p_all = inputs
+    Wn, Q = p_all.shape[:2]
+    T, J = radius.shape[1:3]
+    O = obs_mask.shape[1]
+    N = T * J * O
+
+    def kern():
+        return kcol.collision_cells(shape_gens, radius, centers, gens, obs_mask, p_all)
+
+    A, d, delta = kcol.build_hyperplanes(shape_gens, radius, centers, gens)
+    obs = col.ObstacleSet(centers=centers, generators=gens, mask=obs_mask)
+    frs = LinkFRS(center_coef=None, shape_gens=shape_gens, radius=radius)
+    row = (torch.arange(N, device=dev) // O).to(torch.int32)
+    mask = col._cell_mask(obs, T, J).contiguous()
+
+    def plain():
+        hyp = col.build_hyperplanes_plain(frs, obs)
+        return col.collision_constraints_plain(hyp, obs, p_all).reshape(Wn, Q, N)
+
+    g, again = kern(), kern()
+    rows, _ = kcol._collision_rows(A, d, delta, row, mask, p_all, None, 0.0, 1)
+    g0 = plain()
+    exact = _bits(g, rows) and _bits(g, again)
+    fin = torch.isfinite(g0)
+    err = float((g - g0)[fin].abs().max()) if bool(fin.any()) else 0.0
+    nan_ok = torch.equal(torch.isnan(g), torch.isnan(g0))
+    torch.cuda.synchronize(dev)
+    real = int(obs_mask.sum())
+    cells = int((obs_mask.sum(1) > 0).sum()) * T * J
+    nbytes = _nbytes(shape_gens, radius, centers, gens, obs_mask, p_all, g)
+    flops = k4_cell_operations(cells, real, real * T * J, Q)
+    return exact and nan_ok and err <= TOL, err, kern, plain, nbytes, flops, \
+        (f"cell mode, G = {kcol.k4_group(Q)}: {'bit for bit' if exact else 'NOT bit for bit'} "
+         f"K4's row mode (G = 1) over K3's tensors of the same cells, the same bits on a second "
+         f"call; |dg| {err:.3g} against the plain check over the plain hyperplanes, "
+         f"{int((~fin).sum())} rows NaN in it "
+         f"({'the same' if nan_ok else 'NOT the same'} in the kernel); {real * T * J} real rows "
+         f"of {Wn * N}, no hyperplane tensor passed")
+
+
 def check_rows(inputs, dev):
     """K4 against the plain rows: g within TOL; dg where the best two
     candidates differ by more than TOL (elsewhere the argmax may flip); in
-    the smooth mode (no argmax) dg on every row."""
+    the smooth mode (no argmax) dg on every row.  The screened rows also
+    against the G = 1 instantiation bit for bit (the launch takes
+    k4_group(Q) queries a thread).  A cell-mode call goes to check_cells."""
     from armour_tpu_torch import collision as col
     from armour_tpu_torch.kernels import collision as kcol
 
+    if len(inputs) == 6:
+        return check_cells(inputs, dev)
     A, d, delta, row, mask, p_all, dp_all, tau = inputs
     Wn, Q = p_all.shape[:2]
     R, C = A.shape[-1], A.shape[2]
 
-    def kern():
-        return kcol.collision_rows(A, d, delta, row, mask, p_all, dp_all, smooth_tau=tau)
+    def kern(G=kcol.k4_group(Q)):
+        return kcol._collision_rows(A, d, delta, row, mask, p_all, dp_all, tau, G)
 
     if row.dim() == 1:
         # the full-set check: against collision_constraints' plain version
@@ -526,6 +592,12 @@ def check_rows(inputs, dev):
     ok = err <= TOL and nan_ok
     note = (f"|dg| {err:.3g}; {int((~fin).sum())} rows NaN in the plain version "
             f"({'the same in the kernel, all at non-finite link centres' if nan_ok else 'NOT the same rows in the kernel'})")
+    G = kcol.k4_group(Q)
+    if G > 1:
+        g1 = kern(1)
+        same = _bits(g, g1[0]) and _bits(dg, g1[1])
+        ok = ok and same
+        note += f", G = {G} {'bit for bit' if same else 'NOT bit for bit'} the G = 1 instantiation"
     if tau > 0:
         again = kern()
         same = _bits(g, again[0]) and _bits(dg, again[1])
@@ -1256,6 +1328,7 @@ def uncertain_com_path(jrs, robot, cfg, obs_args, dev):
             fail(f"kernel {name} was not launched on the uncertain-COM path")
     if counts["reach_assembly"] != 1:
         fail(f"K15 launched {counts['reach_assembly']} times in the uncertain-COM step, not once")
+    no_k3(counts, "the uncertain-COM path")
     k15 = [v for k, v in rec.items() if k[0] == "reach_assembly"]
     if len(k15) != 1:
         fail("the uncertain-COM step recorded no K15 call")
@@ -1301,21 +1374,44 @@ REPLACES = {
     "grasp_rows": ("armour_tpu_torch/csrc/grasp_rows.cu",
                    "armour_tpu/pz/bpz.py:120 (mul, :170), armour_tpu/grasp.py:131"),
 }
-# the kernels of one planning step; K1 / K2 (the op-level PZ products) serve
-# only the uncertain-COM route, which phase 3 drives as their own path
-# the kernels of a planning step of either trajectory family, after its JRS
-STEP_KERNELS = ("build_hyperplanes", "collision_rows", "alm_newton", "alm_values",
-                "fk_chain", "rnea_chain", "screen_collision", "alm_loop", "reach_assembly")
+# the kernels of a planning step of either trajectory family, after its JRS;
+# K1 / K2 (the op-level PZ products) serve only the uncertain-COM route,
+# which phase 3 drives as their own path, and K3 no planning path at all
+STEP_KERNELS = ("collision_rows", "alm_newton", "alm_values", "fk_chain", "rnea_chain",
+                "screen_collision", "alm_loop", "reach_assembly")
 # a Bernstein step: its JRS is K12 (the ARMTD family's is K11)
 BERNSTEIN_KERNELS = ("jrs_bernstein",) + STEP_KERNELS
 OP_KERNELS = ("pz_matmul_linear", "pz_cross")
 PLANNING_KERNELS = OP_KERNELS + BERNSTEIN_KERNELS
+# held against their plain versions by a direct call on a step's inputs:
+# K3 (build_hyperplanes), on the step's cells (add_direct_k3)
+DIRECT_KERNELS = ("build_hyperplanes",)
 HAND_KERNEL_PREFIX = {"pz_matmul_linear": "k1", "pz_cross": "k2", "build_hyperplanes": "k3",
                       "collision_rows": "k4", "rollout": "k5", "oracle_check": "k6",
                       "alm_newton": "k7", "alm_values": "k8", "fk_chain": "k9",
                       "rnea_chain": "k10", "jrs_armtd": "k11", "jrs_bernstein": "k12",
                       "screen_collision": "k13", "alm_loop": "k14", "reach_assembly": "k15",
                       "grasp_rows": "k16"}
+
+
+def no_k3(launches, where) -> None:
+    """No planning path forms the hyperplane tensors: K13 and K4 form the
+    rows they need from the cells, so K3 must not have launched."""
+    if launches["build_hyperplanes"]:
+        fail(f"K3 (build_hyperplanes) launched {launches['build_hyperplanes']} times on {where}: "
+             f"a planning path formed the [W, 3, 36, N] hyperplane tensors")
+
+
+def add_direct_k3(captured) -> None:
+    """K3 on a step's cells (the recorded K13 call's link sets and
+    obstacles), recorded as a call of that step: K3 runs on no planning
+    path, so phase 3 and the ARMTD and grasp steps hold it against its plain
+    version this way."""
+    for (name, _), inputs in list(captured.items()):
+        if name == "screen_collision":
+            shape_gens, radius, centers, gens = inputs[:4]
+            captured[("build_hyperplanes", (tuple(radius.shape), centers.shape[1]))] = (
+                shape_gens, radius, centers, gens)
 
 
 def _bound_ms(nbytes, flops) -> float:
@@ -1338,7 +1434,7 @@ def kernel_phase(captured, launches, device_launches, dev):
     from armour_tpu_torch.utils.timing import median_ms
 
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0, "calls": 0,
-                "library_ms": None} for k in PLANNING_KERNELS}
+                "library_ms": None} for k in PLANNING_KERNELS + DIRECT_KERNELS}
     parts = {}
     all_ok = True
     for (name, key), inputs in captured.items():
@@ -1403,10 +1499,11 @@ def kernel_phase(captured, launches, device_launches, dev):
               f"{_bound_ms(nbytes, flops):.4f} ms ({nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP) over {n} shapes")
     out = []
-    for name in PLANNING_KERNELS:
+    for name in PLANNING_KERNELS + DIRECT_KERNELS:
         r = rows[name]
         if r["calls"] == 0:
-            fail(f"kernel {name} was never called on the main path")
+            fail(f"kernel {name} was never called on the main path"
+                 + (" (a direct call on its cells)" if name in DIRECT_KERNELS else ""))
         t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = r["flops"] / H100_FP32_FLOP_PER_S * 1e3
         if name in BEFORE_MS:
@@ -1423,6 +1520,71 @@ def kernel_phase(captured, launches, device_launches, dev):
     if not all_ok:
         fail("a kernel disagrees with its plain version")
     return out
+
+
+def k4_modes(prob, cfg, basis, krows, breakdown, dev) -> dict:
+    """K4's two modes at the W = 64 step: the cell mode (the step's
+    full-set check: phase 3's event time, its device time in phase 4's
+    profiled step, its bound) and the screened rows of one plain solve (the
+    hard mode, where nlp.constraint_stack takes them from K4: every call
+    against its plain version and its G = 1 instantiation bit for bit, the
+    event times summed, the device time in one profiled plain solve, the
+    bound)."""
+    from armour_tpu_torch import kernels, nlp
+    from armour_tpu_torch.utils.timing import median_ms
+
+    k4 = next(r for r in krows if r["name"] == "collision_rows")
+    cell_dev = breakdown.get("hand_device_ms", {}).get("collision_rows", float("nan"))
+    print(f"  K4, cell mode (the step's full-set check): event {k4['ms']:.4f} ms, device "
+          f"{cell_dev:.4f} ms in one step, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), "
+          f"plain {k4['plain_ms']:.4f} ms")
+    with kernels.capture() as cap:
+        nlp.solve(prob, cfg, basis, plain=True)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "calls": 0}
+    all_ok = True
+    for (name, key), inputs in cap.items():
+        if name != "collision_rows" or len(inputs) == 6:
+            continue
+        ok, _, kern, plain, nbytes, flops, note = check_rows(inputs, dev)
+        ms, pms = kernel_ms(kern, dev), median_ms(plain, dev, TIMING_ITERS)
+        print(f"  collision_rows {key}: {'ok' if ok else 'MISMATCH'} ({note}); kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, {nbytes / 1e6:.1f} MB, bound "
+              f"{_bound_ms(nbytes, flops):.4f} ms")
+        all_ok &= ok
+        for f, x in (("ms", ms), ("plain_ms", pms), ("bytes", nbytes), ("flops", flops),
+                     ("calls", 1)):
+            tot[f] += x
+    cap.clear()
+    if not all_ok or tot["calls"] == 0:
+        fail(f"K4's screened rows of the plain solve: {tot['calls']} shapes recorded, all "
+             f"within tolerance and bit for bit G = 1: {all_ok}")
+    tl = device_timeline(lambda: nlp.solve(prob, cfg, basis, plain=True), dev)
+    rows_dev = [us for n, us in tl if "k4_rows<false" in n]
+    bound = _bound_ms(tot["bytes"], tot["flops"])
+    print(f"  K4, screened rows (hard, one plain solve): event {tot['ms']:.4f} ms over "
+          f"{tot['calls']} shapes, device {sum(rows_dev) / 1e3:.4f} ms in {len(rows_dev)} "
+          f"launches of one plain solve, bound {bound:.4f} ms (the shapes' {tot['bytes'] / 1e6:.1f}"
+          f" MB and {tot['flops'] / 1e9:.3f} GFLOP), plain {tot['plain_ms']:.4f} ms")
+    return {"k4_cells_event_ms": k4["ms"], "k4_cells_device_ms": cell_dev,
+            "k4_cells_bound_ms": k4["bound_ms"], "k4_screened_event_ms": tot["ms"],
+            "k4_screened_device_ms": sum(rows_dev) / 1e3,
+            "k4_screened_device_launches": len(rows_dev), "k4_screened_bound_ms": bound,
+            "k4_screened_shapes": tot["calls"]}
+
+
+def step_peak(fn, dev) -> dict:
+    """The device memory one call of fn takes at its peak: the largest
+    allocation above what was held before it (torch's caching allocator's
+    max_memory_allocated after a reset), and the run's peak until then."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.max_memory_allocated(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    return {"step_peak_gb": peak / 1e9, "step_peak_above_held_gb": (peak - held) / 1e9,
+            "held_gb": held / 1e9, "run_peak_before_gb": before / 1e9}
 
 
 def print_k13_k15(krows, breakdown, label) -> None:
@@ -1779,6 +1941,7 @@ def closed_loop_phase(robot, cfg, dev):
     for name in BERNSTEIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the closed-loop path")
+    no_k3(launches, "the closed-loop path")
     for name in ("rollout", "oracle_check"):
         if launches[name] != n_it:
             fail(f"kernel {name} launched {launches[name]} times in {n_it} iterations")
@@ -2057,6 +2220,7 @@ def rescue_phase(robot, cfg, basis, args_dev, obs_dev, dev, label="phase 7") -> 
                  "jrs_bernstein", "screen_collision", "reach_assembly"):
         if n[name] == 0:
             fail(f"the rescue-profile plan did not launch {name}")
+    no_k3(n, f"{label}'s plan")
     check_alm_captures(captured, dev, "rescue profile")
     check_chain_captures(captured, dev, "rescue profile")
     check_jrs_screen_captures(captured, dev, "rescue profile")
@@ -2085,6 +2249,7 @@ def realtime_phase(robot, cfg, one, dev, label="phase 8") -> dict:
     for name in BERNSTEIN_KERNELS:
         if n[name] == 0:
             fail(f"kernel {name} was not launched on the real-time path")
+    no_k3(n, "the real-time path")
     check_alm_captures(captured, dev, "real-time path")
     check_chain_captures(captured, dev, "real-time path (W = 1)")
     check_jrs_screen_captures(captured, dev, "real-time path (W = 1)")
@@ -2216,6 +2381,7 @@ def armour_io_phase(robot, cfg, dev) -> dict:
     for name in BERNSTEIN_KERNELS:
         if n[name] == 0:
             fail(f"kernel {name} was not launched by plan_from_armour_in")
+    no_k3(n, "plan_from_armour_in")
     if not out["feasible"] or k_file is None:
         fail(f"plan_from_armour_in found no feasible plan for {path}")
     T, J = cfg.num_time_steps, robot.num_joints
@@ -2288,10 +2454,11 @@ def rest_checker_phase(robot, cfg, args_dev, obs_dev, dev) -> dict:
           f"(plain route {int((ref > 0).sum())}); sign differs in {flips}; planted margin "
           f"{got[-1]:.4g} m (plain {ref[-1]:.4g}); max |d| {float(np.abs(got - ref).max()):.3g}; "
           f"launches {n}")
-    for name in ("fk_chain", "rnea_chain", "build_hyperplanes", "collision_rows",
-                 "jrs_bernstein", "screen_collision", "reach_assembly"):
+    for name in ("fk_chain", "rnea_chain", "collision_rows", "jrs_bernstein",
+                 "screen_collision", "reach_assembly"):
         if n[name] == 0:
             fail(f"kernel {name} was not launched by the rest-FRS checker")
+    no_k3(n, "the rest-FRS checker")
     if flips or not got[-1] > 0:
         fail("the rest-FRS checker's verdicts differ from the plain route's, or the planted "
              "obstacle was not caught")
@@ -2329,6 +2496,7 @@ def hard_phase(robot, cfg, dev) -> dict:
     for name in BERNSTEIN_KERNELS + ("rollout", "oracle_check"):
         if counts[name] == 0:
             fail(f"kernel {name} was not launched on the hard scenario")
+    no_k3(counts, "the hard scenario")
     for name in OP_KERNELS:
         if counts[name] != 0:
             fail(f"kernel {name} was launched on the hard scenario")
@@ -2498,6 +2666,27 @@ def k13_operations(cells, obstacles, real, chosen):
     return cells * per_cell + obstacles * per_obstacle + real * per_row + chosen * built
 
 
+K4_QUERY = 9      # one (query, hyperplane): A . p 5, +-(A . p) - (+-d + delta) 2,
+                  # the pos / neg running maxima 2
+K4_PICK = 2       # one hyperplane's +-d + delta, shared by its queries
+
+
+def k4_cell_operations(cells, obstacles, real, nq):
+    """The least float32 operation count of K4's cell mode: each real row's
+    36 hyperplanes with their shared parts counted once, as k13_operations
+    counts them (the link pairs' normals and link terms of delta once per
+    link cell, the obstacle pairs' once per obstacle, the rest per row; the
+    normal's zero test is K13_NORMAL's n2 test), K4_PICK per (real row,
+    hyperplane) and K4_QUERY per (real row, query, hyperplane).  A padded
+    obstacle's rows are not formed."""
+    per_cell = 15 * (K13_NORMAL + 6 * K13_TERM)
+    per_obstacle = 3 * (K13_NORMAL + 3 * K13_TERM + K13_DOT)
+    built = (18 * (K13_NORMAL + 9 * K13_TERM + K13_DOT) + 15 * (3 * K13_TERM + 1 + K13_DOT)
+             + 3 * (6 * K13_TERM + 1))
+    return (cells * per_cell + obstacles * per_obstacle
+            + real * (built + 36 * K4_PICK + nq * 36 * K4_QUERY))
+
+
 def screen_variants(inputs):
     """K13's inputs with an obstacle quota of 8, and with planted ties:
     every odd obstacle slot a copy of the even one before it (centre,
@@ -2577,36 +2766,48 @@ def check_reach_assembly(inputs, dev):
          f"{'views' if views else 'COPIES'}")
 
 
+SCREEN_ENVELOPE_OPS = ("AbsFunctor", "sum_functor")   # collision.screen_envelope's torch ops
+
+
 def reach_window(fn, dev, label, between=("k15_",)) -> dict:
     """The reach sets' device activities of one call of fn: from K10's
-    launch to K3's only the kernels `between` may run, once each and in
-    that order (K15; K15 then K16 with grasp rows).  Returns the window's
-    names."""
+    launch to K13's first only the kernels `between` may run, once each and
+    in that order (K15; K15 then K16 with grasp rows), then the screen's
+    envelope (two torch ops, K13's input): no K3 among them.  Returns the
+    window's names."""
     from armour_tpu_torch import kernels
 
     for attempt in range(1, PROFILE_TRIES + 1):
         before = kernels.counts()
         names = [n for n, _ in device_timeline(fn, dev)]
-        ran = {k: kernels.counts()[k] - before[k] for k in ("rnea_chain", "build_hyperplanes")}
+        ran = {k: kernels.counts()[k] - before[k] for k in ("rnea_chain", "screen_collision")}
         i10 = [i for i, n in enumerate(names) if "k10_" in n]
-        i3 = [i for i, n in enumerate(names) if "k3_" in n]
-        if len(i10) == 1 and len(i3) == 1 and i3[0] > i10[0]:
+        i13 = [i for i, n in enumerate(names) if "k13_bound" in n]
+        if len(i10) == 1 and len(i13) == 1 and i13[0] > i10[0]:
             break
         # profile again only when an activity is missing that the launch
         # counters say ran; an extra activity or the wrong order fails
-        lost = (not i10 or not i3) and len(i10) <= 1 and len(i3) <= 1 and min(ran.values()) > 0
+        lost = (not i10 or not i13) and len(i10) <= 1 and len(i13) <= 1 and min(ran.values()) > 0
         if not lost or attempt == PROFILE_TRIES:
-            fail(f"{label}: expected one K10 then one K3 activity, got {len(i10)} / {len(i3)} "
-                 f"(launched {ran['rnea_chain']} / {ran['build_hyperplanes']} in the profiled "
+            fail(f"{label}: expected one K10 then one K13 activity, got {len(i10)} / {len(i13)} "
+                 f"(launched {ran['rnea_chain']} / {ran['screen_collision']} in the profiled "
                  f"calls)")
         print(f"  {label}: profile {attempt} of {PROFILE_TRIES} holds {len(i10)} K10 / "
-              f"{len(i3)} K3 activities though both were launched; profiling again")
-    window = names[i10[0] + 1:i3[0]]
-    print(f"  {label}: {len(names)} device activities in the reach sets; from K10 to K3: "
+              f"{len(i13)} K13 activities though both were launched; profiling again")
+    window = names[i10[0] + 1:i13[0]]
+    print(f"  {label}: {len(names)} device activities in the reach sets; from K10 to K13: "
           f"{[n[:40] for n in window]}")
-    if len(window) != len(between) or not all(b in n for b, n in zip(between, window)):
-        fail(f"{label}: other device work than {between} between K10 and K3: {window}")
-    return {"reach_activities": len(names), "k10_to_k3": [n[:40] for n in window]}
+    # K13's input env (collision.screen_envelope: torch's abs, then its sum)
+    # is formed just before K13
+    env = window[len(between):]
+    if (len(env) > len(SCREEN_ENVELOPE_OPS)
+            or not all(b in n for b, n in zip(between, window[:len(between)]))
+            or not all(any(e in n for e in SCREEN_ENVELOPE_OPS) for n in env)):
+        fail(f"{label}: other device work than {between} and the screen's envelope between "
+             f"K10 and K13: {window}")
+    if any("k3_" in n for n in names):
+        fail(f"{label}: K3 ran in the reach sets")
+    return {"reach_activities": len(names), "k10_to_k13": [n[:40] for n in window]}
 
 
 def check_jrs_screen_captures(captured, dev, label) -> None:
@@ -2645,7 +2846,7 @@ def armtd_inputs(q0, cfg, n, dev):
 
 def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     """Phase 12: the ARMTD family at the flagship width.  A W = 64 step
-    counted (K11 once, K3, K4, K7, K8, K9, K10, neither K1 nor K2), every
+    counted (K11 once, K4, K7, K8, K9, K10, neither K1, K2 nor K3), every
     recorded kernel call against its plain version, the full-set check and
     the fused-vs-plain solve, containment, three closed-loop iterations with
     rescue, batch-1 latency.  Returns (K11's kernels-line row, numbers)."""
@@ -2683,11 +2884,14 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     for name in STEP_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the ARMTD step")
+    no_k3(launches, "the ARMTD step")
     for name in OP_KERNELS:
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the ARMTD step")
 
-    # every recorded call against its plain version, each kernel twice
+    # every recorded call against its plain version, each kernel twice (K3
+    # by a direct call on the step's cells)
+    add_direct_k3(captured)
     check = {"jrs_armtd": lambda x, d: check_jrs("jrs_armtd", x, d),
              "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
              "screen_collision": lambda x, d: check_screen(x, d)[:7],
@@ -2789,6 +2993,7 @@ def armtd_phase(robot, cfg, basis, q0, q_des, obs, dev, bern_step_s) -> tuple:
     for name in ("jrs_armtd", "rollout", "oracle_check") + STEP_KERNELS:
         if loop_counts[name] == 0:
             fail(f"kernel {name} was not launched on the ARMTD closed loop")
+    no_k3(loop_counts, "the ARMTD closed loop")
     if flagged:
         fail(f"ARMTD worlds {flagged} raised a safety flag under worst-case true parameters")
 
@@ -2876,7 +3081,7 @@ def check_grasp(inputs, dev):
 def check_zoo_captures(captured, dev, label) -> str:
     """Every kernel call recorded on a zoo robot's step against its plain
     version on the same inputs, untimed (K7 / K8 / K14, K9 / K10, K12, K13,
-    K3, K4, K15); fails on a mismatch or if a kernel of the step was not
+    K4, K15); fails on a mismatch or if a kernel of the step was not
     recorded.  Returns a summary."""
     check = {"jrs_bernstein": lambda x, d: check_jrs("jrs_bernstein", x, d),
              "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
@@ -2973,6 +3178,7 @@ def zoo_steps(dev) -> dict:
         missing = [k for k in BERNSTEIN_KERNELS if n[k] == 0]
         if missing or n["grasp_rows"]:
             fail(f"zoo {name}: kernels not launched {missing}, K16 x{n['grasp_rows']}")
+        no_k3(n, f"zoo {name}'s step")
         checked = check_zoo_captures(captured, dev, f"zoo {name}")
         captured.clear()
         certify(r, cfg, args, obs_d, res, f"zoo {name}")
@@ -3045,15 +3251,18 @@ def grasp_phase(dev) -> tuple:
     for name in BERNSTEIN_KERNELS + ("grasp_rows",):
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the grasp step")
+    no_k3(launches, "the grasp step")
     for name in ("jrs_bernstein", "fk_chain", "rnea_chain", "reach_assembly", "grasp_rows",
-                 "build_hyperplanes", "screen_collision"):
+                 "screen_collision"):
         if launches[name] != 1:
             fail(f"kernel {name} launched {launches[name]} times in one grasp step, not once")
     for name in OP_KERNELS:
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the grasp step")
 
-    # every recorded call against its plain version, each kernel twice
+    # every recorded call against its plain version, each kernel twice (K3
+    # by a direct call on the step's cells)
+    add_direct_k3(captured)
     check = {"jrs_bernstein": lambda x, d: check_jrs("jrs_bernstein", x, d),
              "build_hyperplanes": check_hyperplanes, "collision_rows": check_rows,
              "screen_collision": lambda x, d: check_screen(x, d)[:7],
@@ -3286,6 +3495,7 @@ def grasp_loop_phase(dev) -> tuple:
         fail(f"the tray trial did not reach its goal in {TRAY_ITERATIONS} iterations")
     if n["rollout"] != s.iterations or n["oracle_check"] != s.iterations or not n["grasp_rows"]:
         fail(f"tray trial launches {n} for {s.iterations} iterations")
+    no_k3(n, "the tray trial")
     err = check_loop_calls(robot, cfg_t, captured, dev, "tray")
     captured.clear()
     out["tray"] = {"iterations": s.iterations, "goal_reached": s.goal_reached,
@@ -3323,6 +3533,7 @@ def grasp_loop_phase(dev) -> tuple:
     for name in BERNSTEIN_KERNELS + ("grasp_rows",):
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the dumbbell's closed loop")
+    no_k3(launches, "the dumbbell's closed loop")
     for name in ("rollout", "oracle_check"):
         if launches[name] != n_it or name not in keep:
             fail(f"kernel {name} launched {launches[name]} times in {n_it} iterations")
@@ -3378,6 +3589,7 @@ def grasp_loop_phase(dev) -> tuple:
         if it_z < 1 or nz["rollout"] != it_z or nz["oracle_check"] != it_z:
             fail(f"zoo {name}: K5 x{nz['rollout']}, K6 x{nz['oracle_check']} in {it_z} "
                  f"iterations")
+        no_k3(nz, f"zoo {name}'s closed loop")
         if _flagged(sz):
             fail(f"zoo {name}: worlds {_flagged(sz)} raised a safety flag")
         err_z = check_loop_calls(r, cfg_z, captured, dev, f"zoo {name}")
@@ -3492,6 +3704,7 @@ def smooth_step(label, robot, cfg, basis, args, obs_d, dev, kernels_of_step, tim
     extra = [n for n in OP_KERNELS if launches[n]]
     if missing or extra:
         fail(f"{label}: kernels not launched {missing}, launched but not of the step {extra}")
+    no_k3(launches, label)
     k, feas = res.k, res.feasible
     if k.shape != (Wn, robot.num_factors) or feas.shape != (Wn,):
         fail(f"{label}: unexpected result shapes {tuple(k.shape)} {tuple(feas.shape)}")
@@ -3517,7 +3730,7 @@ def smooth_step(label, robot, cfg, basis, args, obs_d, dev, kernels_of_step, tim
     k4_ms = None
     if timed:
         tl = device_timeline(lambda: nlp.solve(prob, cfg, basis, plain=True), dev)
-        smooth_k4 = [us for n, us in tl if "k4_kernel<true>" in n]
+        smooth_k4 = [us for n, us in tl if "k4_rows<true" in n]
         k4_ms = sum(smooth_k4) / 1e3 if tl else None
         print(f"  the plain solve: K4's smooth screened rows x{k4_plain} (device launches "
               f"{k4_dev}; profiled {len(smooth_k4)}), "
@@ -3663,6 +3876,7 @@ def smooth_phase(robot, cfg, basis, scene, one, dev, hard) -> tuple:
           f"feasible {sum(bool(r.feasible) for _, r in t_r)}/{N_CPU}; launches {n}")
     if any(n[k] == 0 for k in BERNSTEIN_KERNELS):
         fail("phase 15 (iii): a kernel of the step was not launched by the rescue planner")
+    no_k3(n, "phase 15 (iii)'s rescue planner")
     check_alm_captures(captured, dev, "smooth rescue planner (W = 1)")
     check_chain_captures(captured, dev, "smooth rescue planner (W = 1)")
     check_jrs_screen_captures(captured, dev, "smooth rescue planner (W = 1)")
@@ -3685,6 +3899,7 @@ def smooth_phase(robot, cfg, basis, scene, one, dev, hard) -> tuple:
           f"{stats['rescued_rows']} rows; safety flags in worlds {flagged}")
     if n_it < 1 or any(n[k] == 0 for k in BERNSTEIN_KERNELS):
         fail("phase 15 (iv): no iteration, or a kernel of the step was not launched")
+    no_k3(n, "phase 15 (iv)")
     if n["rollout"] != n_it or n["oracle_check"] != n_it:
         fail(f"phase 15 (iv): K5 x{n['rollout']}, K6 x{n['oracle_check']} in {n_it} iterations")
     if flagged:
@@ -3750,6 +3965,7 @@ def serial_suite_phase(robot, cfg, paths, tmp, dev) -> tuple:
     for name in BERNSTEIN_KERNELS:
         if n[name] == 0:
             fail(f"kernel {name} was not launched by the serial suite")
+    no_k3(n, "the serial suite")
     for name in ("rollout", "oracle_check"):
         if n[name] != iters:
             fail(f"kernel {name} launched {n[name]} times in {iters} serial iterations")
@@ -3834,6 +4050,8 @@ def batched_resume_phase(robot, cfg, paths, tmp, dev) -> dict:
     for name in BERNSTEIN_KERNELS + ("rollout", "oracle_check"):
         if n[name] == 0 or n_r[name] == 0:
             fail(f"kernel {name} was not launched by the batched suite or its resume")
+    no_k3(n, "the batched suite")
+    no_k3(n_r, "the batched suite's resume")
     if stats.get("resumed_worlds") != len(paths) - 1 or n_r["rollout"] != a.iterations:
         fail("the batched resume did not run world 0 alone")
     if (again[0].bucket(), a.iterations, a.infeasible_plans) != \
@@ -4154,6 +4372,7 @@ def main() -> None:
     for name in BERNSTEIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
+    no_k3(launches, "the main path")
     for name in ("jrs_bernstein", "screen_collision", "reach_assembly"):
         if launches[name] != 1:
             fail(f"kernel {name} launched {launches[name]} times in one step, not once")
@@ -4169,8 +4388,10 @@ def main() -> None:
     op_rec, op_launches, op_device, t_com = uncertain_com_path(
         jrs64, robot, cfg, (q0, qd0, qdd0, q_des, obs), dev)
     captured.update(op_rec)
+    add_direct_k3(captured)
     print(f"phase 3: {len(captured)} recorded kernel calls against their plain versions "
-          f"(K1 / K2 on the uncertain-COM path's calls and the FK product of joint 1)")
+          f"(K1 / K2 on the uncertain-COM path's calls and the FK product of joint 1; K3 on "
+          f"the step's cells, a direct call: no planning path launches it)")
     krows = kernel_phase(captured, {**launches, **op_launches},
                          {**device_launches, **op_device}, dev)
     captured.clear()
@@ -4230,6 +4451,13 @@ def main() -> None:
     window = reach_window(lambda: plan_problem(*args_dev, obs_dev, robot, cfg, basis), dev,
                           f"reach sets of the W={N_WORLDS} step")
     print_k13_k15(krows, breakdown, "Bernstein step")
+    prob = plan_problem(*args_dev, obs_dev, robot, cfg, basis)
+    k4_perf = k4_modes(prob, cfg, basis, krows, breakdown, dev)
+    del prob
+    peak = step_peak(lambda: step64(q0, qd0, qdd0, q_des, obs), dev)
+    print(f"  W={N_WORLDS} step peak device memory {peak['step_peak_gb']:.3f} GB, "
+          f"{peak['step_peak_above_held_gb']:.3f} GB above the {peak['held_gb']:.3f} GB held "
+          f"before it (torch.cuda.max_memory_allocated)")
 
     # batch-1 latency over the first N_LATENCY worlds
     step1 = make_planner(robot, cfg)
@@ -4301,7 +4529,9 @@ def main() -> None:
             "latency_batch1_p50_ms": p50 * 1e3, "latency_batch1_p99_ms": p99 * 1e3,
             "uncertain_com_step_ms": t_com,
             "budget_ms": 500.0, "batch1_ok": p99 < 0.5,
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **breakdown, **window,
+            "peak_mem_gb": max(peak["run_peak_before_gb"],
+                               torch.cuda.max_memory_allocated(dev) / 1e9),
+            **{f"w64_{kk}": vv for kk, vv in peak.items()}, **k4_perf, **breakdown, **window,
             **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf,
             "grasp_loop": loop9, **smooth_perf, **harness}
     print("planning: " + json.dumps(perf))

@@ -6,8 +6,8 @@ the grid reaches 2 x 132 CTAs wherever the work allows, and the shared
 memory each block asks for fits the H100 (227 KB a block, 228 KB an SM), so
 that a launch the card would refuse shows up here.  The Python mirrors of
 the kernels' shared-memory formulas are held against the constants of the
-CUDA sources.  K13's (screen_collision) and K15's (reach_assembly) ctypes
-argument structs are held field for field against the structs parsed out
+CUDA sources.  K4's (collision_rows, both modes), K13's (screen_collision)
+and K15's (reach_assembly) ctypes argument structs are held field for field against the structs parsed out
 of their sources, and their launchers' values against the inputs with the
 library stubbed; so are K16's (grasp_rows), with its pair tables and
 shared memory, and K10's arguments for fixed joints and the contact wrench;
@@ -1020,7 +1020,8 @@ def test_k7_k8_armtd_branch_matches_plain_on_the_card():
 # against the sources, the launchers' values, the launch geometry
 # ---------------------------------------------------------------------------
 
-_C_TYPES = {"int": "c_int", "long long": "c_longlong", "float": "c_float",
+# ctypes.c_longlong is c_long where long has 64 bits
+_C_TYPES = {"int": "c_int", "long long": ctypes.c_longlong.__name__, "float": "c_float",
             "short": "c_short", "unsigned char": "c_ubyte"}
 
 
@@ -1283,6 +1284,106 @@ def test_k13_launcher_passes_the_cells(monkeypatch):
         Wn, N, Tn * Jn, O, Bn, 50, 2, geo.Kp, 1)
     assert smem == geo.smem_bytes and a.sort is None
     assert tuple(out[0].shape) == (Wn, 3, 36, 50) and out[3].dtype == torch.int32
+
+
+def test_k4_args_match_the_source():
+    """K4Args names csrc/collision_rows.cu's struct field for field, in
+    order and type (the cell mode's cells beside the row mode's tensors);
+    the launcher's constants are the source's; the cell mode forms its rows
+    with K3's device code."""
+    from armour_tpu_torch.kernels import collision as kcol
+
+    assert _ctypes_fields(kcol.K4Args) == _struct_fields("collision_rows.cu", "K4Args")
+    text = _source("collision_rows.cu")
+    assert _define(text, "K4_THREADS") == kcol.K4_THREADS
+    assert _define(text, "K4_MAX_G") == kcol.K4_MAX_G == max(kcol.K4_GROUPS)
+    assert '#include "hyperplane_cell.cuh"' in text
+    cases = re.findall(r"case (\d+): k4_launch_g<(\d+)>\(a, s\); break;", text)
+    assert [(int(c), int(g)) for c, g in cases] == [(g, g) for g in kcol.K4_GROUPS]
+    assert ("  dim3 grid((unsigned int)((a.R + K4_THREADS - 1) / K4_THREADS),\n"
+            "            (unsigned int)((a.Q + G - 1) / G), (unsigned int)a.W);") in text
+
+
+@pytest.mark.parametrize("Q", [1, 2, 3, 4, 5, 7, 8, 9, 12, 16, 17, 24, 33])
+def test_k4_groups_cover_every_query_once(Q):
+    """k4_group takes the fewest groups of at most K4_MAX_G queries, then the
+    least instantiated G that covers Q in them; the grid's groups cover
+    every query once, the last group's queries past Q written nowhere
+    (collision_rows.cu: q0 + g < Q); the planning paths' Q = 1, 2, 4, 6,
+    12 pad no query."""
+    from armour_tpu_torch.kernels import collision as kcol
+
+    G = kcol.k4_group(Q)
+    assert G in kcol.K4_GROUPS
+    by = -(-Q // G)                   # the grid's groups (k4_launch_g)
+    assert by == -(-Q // kcol.K4_MAX_G)
+    assert G == min(g for g in kcol.K4_GROUPS if g * by >= Q)
+    written = [q0 * G + g for q0 in range(by) for g in range(G) if q0 * G + g < Q]
+    assert written == list(range(Q))
+    if Q in (1, 2, 4, 6, 12):
+        assert by * G == Q
+
+
+def _k4_stubbed(monkeypatch):
+    from armour_tpu_torch.kernels import collision as kcol
+
+    calls = []
+    monkeypatch.setattr(kcol, "launcher", _fake_launcher(calls))
+    monkeypatch.setattr(kcol, "_stream", lambda t: None)
+    monkeypatch.setattr(kcol, "launched", lambda *a: None)
+    monkeypatch.setattr(kcol, "_require", lambda *a, **k: None)
+    return kcol, calls
+
+
+@pytest.mark.parametrize("group", [0, 1, 4])
+def test_k4_launcher_passes_the_cells(monkeypatch, group):
+    """The cell mode's launcher hands K4 the cells' inputs and no hyperplane
+    tensor, no dg, C = 36, R = T J O and the group (k4_group(Q) through
+    collision_cells, else the one _collision_cells is given), with the
+    library and the device check stubbed."""
+    kcol, calls = _k4_stubbed(monkeypatch)
+    Wn, Tn, Jn, O, Q = 2, 3, 7, 4, 12
+    ins = [torch.zeros(Wn, Tn, Jn, 3, 3), torch.zeros(Wn, Tn, Jn, 3), torch.zeros(Wn, O, 3),
+           torch.zeros(Wn, O, 3, 3), torch.ones(Wn, O, dtype=torch.bool),
+           torch.zeros(Wn, Q, 3, Tn * Jn)]
+    g = kcol._collision_cells(*ins, group) if group else kcol.collision_cells(*ins)
+    (name, symbol, _, (args, _)), = calls
+    assert (name, symbol) == ("collision_rows", "k4_launch")
+    a = args._obj
+    for f, t in zip(("shape_gens", "radius", "centers", "gens", "obs_mask", "p_all"), ins):
+        assert getattr(a, f) == t.data_ptr(), f
+    assert a.g == g.data_ptr() and tuple(g.shape) == (Wn, Q, Tn * Jn * O)
+    for f in ("A", "d", "delta", "row", "mask", "dp_all", "dg"):
+        assert getattr(a, f) is None, f
+    assert (a.W, a.Q, a.C, a.R, a.TJ, a.O, a.F, a.row_ws) == (Wn, Q, 36, Tn * Jn * O, Tn * Jn,
+                                                              O, 0, 0)
+    assert a.G == (group or kcol.k4_group(Q)) and a.tau == 0.0
+
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["hard", "smooth"])
+def test_k4_launcher_passes_the_rows(monkeypatch, smooth):
+    """The row mode's launcher hands K4 the rows' tensors and no cells, the
+    world stride of a screened row index, dg's F, the group and, smooth,
+    tau; a group outside K4_GROUPS is refused."""
+    kcol, calls = _k4_stubbed(monkeypatch)
+    Wn, R, TJ, Q, F = 2, 50, 21, 5, 7
+    ins = [torch.zeros(Wn, 3, 36, R), torch.zeros(Wn, 36, R), torch.zeros(Wn, 36, R),
+           torch.zeros(Wn, R, dtype=torch.int32), torch.ones(Wn, R, dtype=torch.bool),
+           torch.zeros(Wn, Q, 3, TJ), torch.zeros(Wn, Q, 3, F, TJ)]
+    g, dg = kcol.collision_rows(*ins, smooth_tau=0.01 if smooth else 0.0)
+    (_, _, _, (args, _)), = calls
+    a = args._obj
+    for f, t in zip(("A", "d", "delta", "row", "mask", "p_all", "dp_all"), ins):
+        assert getattr(a, f) == t.data_ptr(), f
+    for f in ("shape_gens", "radius", "centers", "gens", "obs_mask"):
+        assert getattr(a, f) is None, f
+    assert (a.g, a.dg) == (g.data_ptr(), dg.data_ptr())
+    assert (a.W, a.Q, a.C, a.R, a.TJ, a.F, a.O, a.G, a.row_ws) == (Wn, Q, 36, R, TJ, F, 0,
+                                                                   kcol.k4_group(Q), R)
+    assert (a.tau > 0) == smooth
+    for bad in (-1, 3, kcol.K4_MAX_G + 1):
+        with pytest.raises(ValueError, match="queries a thread"):
+            kcol._collision_rows(*ins, 0.0, bad)
 
 
 def test_k15_launcher_passes_its_parts(monkeypatch):
