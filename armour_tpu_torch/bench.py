@@ -16,8 +16,8 @@ exits with 1.
 
 Prints ONE JSON line with every key of the root bench.py's line:
   value / solves_per_s   batch-W throughput of the full planning step (the
-                         best of 5 calls after a warm-up, as the root's
-                         utils.timing.bench times it)
+                         best of 5 calls after a warm-up, utils.timing.bench:
+                         the root's utils.timing.bench with a device sync)
   latency_batch1_ms      one-world step, best of 10
   latency_p50/p99_ms     one-world step over the first min(48, W) instances
   reachset_ms / solver_ms  the step's reach-set prefix (planner.plan_problem,
@@ -43,7 +43,7 @@ import torch
 
 from .collision import ObstacleSet
 from .config import ArmourConfig
-from .utils.timing import sync
+from .utils.timing import bench, sync
 
 
 def _scene_instances(cfg, batch):
@@ -70,23 +70,6 @@ def _scene_instances(cfg, batch):
     q0 = torch.as_tensor(q0)
     zeros = torch.zeros_like(q0)
     return robot, (q0, zeros, zeros, torch.as_tensor(wps), obs)
-
-
-def _best_s(fn, dev, iters: int, warmup: int = 1):
-    """(best seconds, last output) over iters calls after warmup calls, each
-    timed by the host clock around work that ends in a device
-    synchronisation (armour_tpu/utils/timing.py:bench)."""
-    out = None
-    for _ in range(warmup):
-        out = fn()
-        sync(dev)
-    best = float("inf")
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        out = fn()
-        sync(dev)
-        best = min(best, time.perf_counter() - t0)
-    return best, out
 
 
 def _one(args, i):
@@ -117,12 +100,12 @@ def run(batch: int, *, device=None) -> dict:
 
     # batch throughput
     step = pl.make_batch_planner(robot, cfg, device=dev)
-    dt, out = _best_s(lambda: step(*args), dev, iters=5)
+    dt, out = bench(lambda: step(*args), iters=5)
     n_feasible = int(out.feasible.sum())
 
     # batch-1 latency (the real-time criterion) and its spread over instances
     step1 = pl.make_planner(robot, cfg, device=dev)
-    dt1, _ = _best_s(lambda: step1(*_one(args, 0)), dev, iters=10)
+    dt1, _ = bench(lambda: step1(*_one(args, 0)), iters=10)
     instances = [_one(args, i) for i in range(min(48, batch))]
     step1(*instances[0])
     sync(dev)
@@ -142,11 +125,11 @@ def run(batch: int, *, device=None) -> dict:
     def reachsets_only(a):
         return pl.plan_problem(*a, robot, cfg, basis)
 
-    dt_rs, _ = _best_s(lambda: reachsets_only(args), dev, iters=5)
+    dt_rs, _ = bench(lambda: reachsets_only(args), iters=5)
     first = (*(x[:1] for x in args[:4]),
              ObstacleSet(centers=args[4].centers[:1], generators=args[4].generators[:1],
                          mask=args[4].mask[:1]))
-    dt_rs1, _ = _best_s(lambda: reachsets_only(first), dev, iters=5)
+    dt_rs1, _ = bench(lambda: reachsets_only(first), iters=5)
     solver_budget_s = 0.5 * cfg.duration - dt_rs1 - 0.05
     solver1_s = max(dt1 - dt_rs1, 0.0)
 

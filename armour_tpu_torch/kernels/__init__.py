@@ -26,7 +26,9 @@ counts the wrapper's calls, DEVICE_LAUNCHES[name] the device kernels they
 launched (K7, K8 and K13 run three per call, K8's max mode two, every
 other kernel one).  K14 launches only its cull and selection; its other
 phases run in K7's / K8's finish, counted by phase in IN_FINISH.
-Sources are compiled with nvcc at first use (kernels/build.py).
+Sources are compiled with nvcc at first use (kernels/build.py); every
+launcher calls its C function inside build.on_device, on its tensors'
+device and that device's current stream.
 """
 
 from __future__ import annotations

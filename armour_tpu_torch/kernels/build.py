@@ -7,10 +7,12 @@ all of them.  Libraries go to armour_tpu_torch/_build/ (git-ignored), named
 by a hash of the source, the shared header and the flags, so a changed
 source is rebuilt and an unchanged one is reused.  No fast math: IEEE
 float32 division, square root and no contraction into fused multiply-adds.
+on_device() is the guard every launcher calls the C side in.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -115,3 +119,16 @@ def launcher(name: str, symbol: str, argtypes):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+@contextlib.contextmanager
+def on_device(t):
+    """Enter the device of the CUDA tensor t for a call through ctypes, and
+    yield that device's current stream as a ctypes pointer.  The C side
+    launches, sets kernel attributes and writes __constant__ memory on the
+    runtime's current device, so every launch and every table upload runs
+    inside this guard: a kernel given tensors on cuda:i runs on card i,
+    on that card's current stream, whatever the current device is."""
+    dev = t.device
+    with torch.cuda.device(dev):
+        yield ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)

@@ -14,7 +14,7 @@ import torch
 
 from . import launched, record
 from ..collision import smooth_shift
-from .build import launcher
+from .build import launcher, on_device
 
 N_COMB = 36
 _F32 = torch.float32
@@ -116,10 +116,6 @@ def _require(t: torch.Tensor, name: str, shape, dtype=_F32) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def build_hyperplanes(shape_gens, radius, centers, generators):
     """K3: (A [W,3,C,N], d [W,C,N], delta [W,C,N]) from the link shape
     generators [W,T,J,3,3], radii [W,T,J,3] and the obstacles [W,O,3(,3)]."""
@@ -141,16 +137,18 @@ def build_hyperplanes(shape_gens, radius, centers, generators):
                       Wn, T, J, O)
         fn = launcher("build_hyperplanes", "k3_launch",
                       [ctypes.POINTER(K3Args), ctypes.c_void_p])
-        err = fn(ctypes.byref(args), _stream(radius))
+        with on_device(radius) as stream:
+            err = fn(ctypes.byref(args), stream)
         if err:
             raise RuntimeError(f"build_hyperplanes launch failed: cudaError {err}")
         launched("build_hyperplanes")
     return A, d, delta
 
 
-def _k4_launch(args: K4Args, stream) -> None:
+def _k4_launch(args: K4Args, like: torch.Tensor) -> None:
     fn = launcher("collision_rows", "k4_launch", [ctypes.POINTER(K4Args), ctypes.c_void_p])
-    err = fn(ctypes.byref(args), stream)
+    with on_device(like) as stream:
+        err = fn(ctypes.byref(args), stream)
     if err:
         raise RuntimeError(f"collision_rows launch failed: cudaError {err}")
     launched("collision_rows")
@@ -208,7 +206,7 @@ def _collision_rows(A, d, delta, row, mask, p_all, dp_all, smooth_tau: float, G:
         if smooth:
             args.tau = smooth_tau
             args.tau_log2c = float(smooth_shift(smooth_tau, C, _F32))
-        _k4_launch(args, _stream(A))
+        _k4_launch(args, A)
     return g, dg
 
 
@@ -245,7 +243,7 @@ def _collision_cells(shape_gens, radius, centers, generators, obs_mask, p_all, G
                       centers=centers.data_ptr(), gens=generators.data_ptr(),
                       obs_mask=obs_mask.data_ptr(), p_all=p_all.data_ptr(), g=g.data_ptr(),
                       W=Wn, Q=Q, C=N_COMB, R=N, TJ=TJ, O=O, G=G)
-        _k4_launch(args, _stream(radius))
+        _k4_launch(args, radius)
     return g
 
 
@@ -298,7 +296,8 @@ def screen_collision(shape_gens, radius, centers, generators, center_coef, env, 
                        Wn, N, T * J, O, B, Kk, quota, geo.Kp, int(geo.smem_bytes > 0))
         fn = launcher("screen_collision", "k13_launch",
                       [ctypes.POINTER(K13Args), ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), geo.smem_bytes, _stream(radius))
+        with on_device(radius) as stream:
+            err = fn(ctypes.byref(args), geo.smem_bytes, stream)
         if err:
             raise RuntimeError(f"screen_collision launch failed: cudaError {err}")
         launched("screen_collision", 3)

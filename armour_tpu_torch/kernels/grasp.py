@@ -15,9 +15,9 @@ import functools
 import torch
 
 from . import H100_SMS, launched, record
-from .build import launcher
+from .build import launcher, on_device
 from .pz import MAX_B, MAX_PAIRS, TileGeometry, tile_geometry, upload_tables
-from .reach import _ptrs, _require, _stream, _widths
+from .reach import _ptrs, _require, _widths
 from ..pz.basis import KBasis
 
 K16_NG = 8                 # warps a block, and time steps a tile
@@ -119,12 +119,13 @@ def grasp_rows(f_c, n_c, params, cfg, basis: KBasis):
     args.W, args.T, args.P, args.pset = Wn, T, P, P - 1
     record("grasp_rows", (tuple(f_c.rad.shape), params), (f_c, n_c, params, cfg, basis))
     if Wn * T:
-        upload_tables("grasp_rows", "k16_tables", basis, E)
+        upload_tables("grasp_rows", "k16_tables", basis, E, f.rad.device)
         geo = k16_geometry(Wn, T, B + E + 1,
                            torch.cuda.get_device_properties(f.rad.device).multi_processor_count)
         fn = launcher("grasp_rows", "k16_launch",
                       [ctypes.POINTER(K16Args), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), B + E + 1, geo.grid, _stream(f.rad))
+        with on_device(f.rad) as stream:
+            err = fn(ctypes.byref(args), B + E + 1, geo.grid, stream)
         if err:
             raise RuntimeError(f"grasp_rows launch failed: cudaError {err}")
         launched("grasp_rows")

@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from . import H100_SMS, launched, record
-from .build import launcher
-from .collision import _require, _stream
+from .build import launcher, on_device
+from .collision import _require
 from ..jrs import JRS, QDD_K_DEP_MAXIMA, QDD_K_DEP_MINIMA, TrajectoryCoeffs
 from ..pz.basis import KBasis, error_layout
 from ..pz.bpz import BPZ
@@ -140,7 +140,8 @@ def jrs_armtd(q0, qd0, robot, cfg, basis: KBasis) -> JRS:
         G, blocks = jrs_geometry(Wn * T, _sms(q0))
         fn = launcher("jrs_armtd", "k11_launch", [ctypes.POINTER(K11Args), ctypes.c_int,
                                                   ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), G, blocks, _stream(q0))
+        with on_device(q0) as stream:
+            err = fn(ctypes.byref(args), G, blocks, stream)
         if err:
             raise RuntimeError(f"jrs_armtd launch failed: cudaError {err}")
         launched("jrs_armtd")
@@ -247,7 +248,8 @@ def jrs_bernstein(q0, qd0, qdd0, robot, cfg, basis: KBasis) -> JRS:
         G, blocks = jrs_geometry(Wn * T, _sms(q0))
         fn = launcher("jrs_bernstein", "k12_launch", [ctypes.POINTER(K12Args), ctypes.c_int,
                                                       ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), G, blocks, _stream(q0))
+        with on_device(q0) as stream:
+            err = fn(ctypes.byref(args), G, blocks, stream)
         if err:
             raise RuntimeError(f"jrs_bernstein launch failed: cudaError {err}")
         launched("jrs_bernstein")

@@ -3,7 +3,8 @@
 from constant memory, and the persistent-grid geometry they share.  Called
 by pz/bpz.py for CUDA tensors only; each launcher checks device, dtype,
 shapes and strides, raises on anything its kernel does not take, allocates
-the outputs with torch.empty and launches on the current stream.
+the outputs with torch.empty and launches on the current stream of the
+operands' device (build.on_device).
 
 chain_geometry, tile_geometry, k1_geometry and k2_geometry are pure
 Python, so that the CPU tests check them."""
@@ -17,7 +18,7 @@ import math
 import torch
 
 from . import H100_SMS, launched, record
-from .build import launcher
+from .build import launcher, on_device
 from ..pz.basis import KBasis, linear_tables, pair_segments
 from ..pz.bpz import BPZ
 
@@ -198,22 +199,30 @@ def pz_tables(basis: KBasis, E: int) -> PZTables:
     return tab[key]
 
 
+# (device index, library) -> the tables in that library's constant memory on
+# that card: __constant__ memory exists once per device
 _UPLOADED = {}
 
 
-def upload_tables(name: str, symbol: str, basis: KBasis, E: int) -> None:
-    """Copy the basis tables into kernel `name`'s constant memory, once per
-    (library, tables); a change of tables waits for the queued work first."""
+def upload_tables(name: str, symbol: str, basis: KBasis, E: int, device) -> None:
+    """Copy the basis tables into kernel `name`'s constant memory on the card
+    `device` (an indexed CUDA device), once per (device, library, tables),
+    inside that device's guard; a change of tables on a card waits for that
+    card's queued work first."""
     t = pz_tables(basis, E)
-    if _UPLOADED.get(name) is t:
+    key = (device.index, name)
+    prev = _UPLOADED.get(key)
+    if prev is t:
         return
-    if name in _UPLOADED:
-        torch.cuda.synchronize()
     fn = launcher(name, symbol, [ctypes.POINTER(PZTables)])
-    err = fn(ctypes.byref(t))
+    with torch.cuda.device(device):
+        if prev is not None:
+            torch.cuda.synchronize(device)
+        err = fn(ctypes.byref(t))
     if err:
-        raise RuntimeError(f"{name}: uploading the basis tables failed: cudaError {err}")
-    _UPLOADED[name] = t
+        raise RuntimeError(f"{name}: uploading the basis tables to {device} failed: "
+                           f"cudaError {err}")
+    _UPLOADED[key] = t
 
 
 def _check(p: BPZ, what: str) -> None:
@@ -267,10 +276,6 @@ def _view(p: BPZ, bshape, nval: int, what: str) -> PZView:
 def _bd(bshape):
     full = [1] * (3 - len(bshape)) + list(bshape)
     return (ctypes.c_int * 3)(*full), math.prod(full)
-
-
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 _K1_SIGS = {}
@@ -335,9 +340,10 @@ def matmul_linear(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0,
     if total:
         ld, ldl = B + E + 1, lin_ld(basis.nf, E)
         geo = k1_geometry(total, ld, ldl, n, args.m, sms)
-        upload_tables("pz_matmul_linear", "k1_tables", basis, E)
+        upload_tables("pz_matmul_linear", "k1_tables", basis, E, dev)
         fn = launcher("pz_matmul_linear", "k1_launch", _K1_TYPES)
-        err = fn(ctypes.byref(args), total, ld, ldl, geo.G, geo.NG, geo.grid, _stream(a.coef))
+        with on_device(a.coef) as stream:
+            err = fn(ctypes.byref(args), total, ld, ldl, geo.G, geo.NG, geo.grid, stream)
         if err:
             raise RuntimeError(f"pz_matmul_linear launch failed: cudaError {err}")
         launched("pz_matmul_linear")
@@ -385,9 +391,10 @@ def cross(a: BPZ, b: BPZ, basis: KBasis, slop: float = 0.0) -> BPZ:
     record("pz_cross", (tuple(a.rad.shape), tuple(b.rad.shape)), (a, b, basis, slop))
     if n:
         geo = k2_geometry(n, B + E + 1, sms)
-        upload_tables("pz_cross", "k2_tables", basis, E)
+        upload_tables("pz_cross", "k2_tables", basis, E, dev)
         fn = launcher("pz_cross", "k2_launch", _K2_TYPES)
-        err = fn(ctypes.byref(args), n, B + E + 1, geo.G, geo.NG, geo.grid, _stream(a.coef))
+        with on_device(a.coef) as stream:
+            err = fn(ctypes.byref(args), n, B + E + 1, geo.G, geo.NG, geo.grid, stream)
         if err:
             raise RuntimeError(f"pz_cross launch failed: cudaError {err}")
         launched("pz_cross")

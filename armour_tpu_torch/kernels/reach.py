@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import H100_SMS, launched, record
-from .build import launcher
+from .build import launcher, on_device
 from .pz import (PZ_MAXMASS, PZ_TAB_BYTES, ChainGeometry, TileGeometry, chain_geometry,
                  group_size, lin_ld, tile_geometry, upload_tables)
 from ..pz.basis import KBasis, error_layout
@@ -121,10 +121,6 @@ def _ptrs(p: BPZ):
     return p.coef.data_ptr(), p.egen.data_ptr(), p.rad.data_ptr()
 
 
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def _empty(shape, B: int, E: int, like: torch.Tensor) -> BPZ:
     kw = dict(device=like.device, dtype=torch.float32)
     return BPZ(coef=torch.empty(*shape, B, **kw), egen=torch.empty(*shape, E, **kw),
@@ -142,7 +138,8 @@ def _launch(name: str, symbol: str, argtype, args, geo: ChainGeometry, ld: int, 
             like) -> None:
     fn = launcher(name, symbol, [ctypes.POINTER(argtype), ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    err = fn(ctypes.byref(args), ld, ldl, geo.G, geo.NG, geo.grid, _stream(like))
+    with on_device(like) as stream:
+        err = fn(ctypes.byref(args), ld, ldl, geo.G, geo.NG, geo.grid, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launched(name)
@@ -193,7 +190,7 @@ def fk_chain(jrs, robot, cfg, basis: KBasis) -> BPZ:
     record("fk_chain", tuple(R.rad.shape), (jrs, robot, cfg, basis))
     if Wn * T:
         ld, ldl = B + E + 1, lin_ld(basis.nf, E)
-        upload_tables("fk_chain", "k9_tables", basis, E)
+        upload_tables("fk_chain", "k9_tables", basis, E, R.coef.device)
         _launch("fk_chain", "k9_launch", K9Args, args, k9_geometry(Wn * T, ld, ldl, _sms(R.coef)),
                 ld, ldl, R.coef)
     return links
@@ -311,7 +308,7 @@ def rnea_chain(jrs, robot, cfg, basis: KBasis, sets=("nom", "int"), *, wrench_at
         fn = torch.empty(geo.grid * geo.NG * J * P * 6 * ld, device=R.coef.device,
                          dtype=torch.float32)
         args.fn, args.n = fn.data_ptr(), Wn * T
-        upload_tables("rnea_chain", "k10_tables", basis, E)
+        upload_tables("rnea_chain", "k10_tables", basis, E, R.coef.device)
         _launch("rnea_chain", "k10_launch", K10Args, args, geo, ld, ldl, R.coef)
     if wrench_at is None:
         return u
@@ -429,7 +426,8 @@ def reach_assembly(links, u_both, robot, cfg, basis: KBasis):
                              f"{K15_SMEM_MAX}")
         fn = launcher("reach_assembly", "k15_launch",
                       [ctypes.POINTER(K15Args), ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), geo.grid, _stream(L.rad))
+        with on_device(L.rad) as stream:
+            err = fn(ctypes.byref(args), geo.grid, stream)
         if err:
             raise RuntimeError(f"reach_assembly launch failed: cudaError {err}")
         launched("reach_assembly")

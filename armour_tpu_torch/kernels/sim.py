@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from . import H100_SMS, launched, record
-from .build import launcher
-from .collision import _require, _stream
+from .build import launcher, on_device
+from .collision import _require
 
 MAXJ = 9                  # joints of the closed-loop kernels (the dumbbell's 9 bodies)
 K5_LANES = (32, 64)       # threads per world of K5 (rollout.cu's instantiations)
@@ -242,7 +242,8 @@ def rollout(robot, cfg, q, qd, q_des, qd_des, qdd_des, tp, control_dt, substeps=
                       Wn, n, substeps, CONTROLLER_IDS[controller])
         fn = launcher("rollout", "k5_launch",
                       [ctypes.POINTER(K5Args), ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), k5_geometry(J, F), _stream(q))
+        with on_device(q) as stream:
+            err = fn(ctypes.byref(args), k5_geometry(J, F), stream)
         if err:
             raise RuntimeError(f"rollout launch failed: cudaError {err}")
         launched("rollout")
@@ -283,7 +284,8 @@ def oracle_check(robot, cfg, q, qd, u, q_des, qd_des, centers, generators, mask)
     args.out = out.data_ptr()
     args.W, args.N, args.O, args.chunks, args.splits = Wn, N, O, geo.chunks, geo.splits
     fn = launcher("oracle_check", "k6_launch", [ctypes.POINTER(K6Args), ctypes.c_void_p])
-    err = fn(ctypes.byref(args), _stream(q))
+    with on_device(q) as stream:
+        err = fn(ctypes.byref(args), stream)
     if err:
         raise RuntimeError(f"oracle_check launch failed: cudaError {err}")
     launched("oracle_check")

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from . import H100_SMS, launched, ran_in_finish, record
-from .build import launcher
-from .collision import _require, _stream
+from .build import launcher, on_device
+from .collision import _require
 from ..collision import smooth_shift
 from ..pz.basis import KBasis
 
@@ -351,7 +351,8 @@ def alm_newton(rows: AlmRows, k, lam, rho, want_system: bool = False, epi=None):
         fn = launcher("alm_newton", "k7_launch",
                       [ctypes.POINTER(AlmArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p])
-        err = fn(ctypes.byref(args), pd.data_ptr(), part.data_ptr(), geo.R, geo.RB, _stream(k))
+        with on_device(k) as stream:
+            err = fn(ctypes.byref(args), pd.data_ptr(), part.data_ptr(), geo.R, geo.RB, stream)
         if err:
             raise RuntimeError(f"alm_newton launch failed: cudaError {err}")
         launched("alm_newton", 3 if a.K else 2)
@@ -461,8 +462,9 @@ def _k8_launch(args: AlmArgs, p, part, geo: K8Geometry, kq) -> None:
     fn = launcher("alm_values", "k8_launch",
                   [ctypes.POINTER(AlmArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p])
-    err = fn(ctypes.byref(args), None if p is None else p.data_ptr(), part.data_ptr(), geo.R,
-             geo.G, _stream(kq))
+    with on_device(kq) as stream:
+        err = fn(ctypes.byref(args), None if p is None else p.data_ptr(), part.data_ptr(),
+                 geo.R, geo.G, stream)
     if err:
         raise RuntimeError(f"alm_values launch failed: cudaError {err}")
 
@@ -627,8 +629,10 @@ def _loop_call(symbol: str, sizes: dict, rec: tuple, **vals) -> None:
         raise TypeError(f"{symbol} takes no {sorted(vals)}")
     record("alm_loop", *rec)
     if min(grid) > 0:
-        call[call.index("stream")] = _stream(first)
-        err = launcher("alm_loop", symbol, argtypes)(*call)
+        fn = launcher("alm_loop", symbol, argtypes)
+        with on_device(first) as stream:
+            call[call.index("stream")] = stream
+            err = fn(*call)
         if err:
             raise RuntimeError(f"alm_loop ({symbol}) launch failed: cudaError {err}")
         launched("alm_loop")

@@ -217,6 +217,16 @@ def same_bits(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("coef", "egen", "rad"))
 
 
+def _drop_uploads(name: str) -> None:
+    """Forget that library `name`'s basis tables were uploaded, on every
+    card (kernels/pz.py:upload_tables keys by (device index, library)): a
+    swapped-in library gets its own upload."""
+    from armour_tpu_torch.kernels import pz as kpz
+
+    for key in [k for k in kpz._UPLOADED if k[1] == name]:
+        del kpz._UPLOADED[key]
+
+
 def digest(p) -> str:
     """sha256 of a BPZ's coef, egen and rad bytes, or of a tuple of tensors."""
     import hashlib
@@ -1008,7 +1018,7 @@ def variants_only() -> None:
                 ("#define K16_BLOCKS_PER_SM 2", f"#define K16_BLOCKS_PER_SM {per_sm}"),
                 ("#define K16_ABLATE 0", f"#define K16_ABLATE {ablate}")], tag)
             build._LIBS["grasp_rows"] = ctypes.CDLL(str(path))
-            kpz._UPLOADED.pop("grasp_rows", None)
+            _drop_uploads("grasp_rows")
             kgrasp.K16_NG, kgrasp.K16_THREADS, kgrasp.K16_BLOCKS_PER_SM = ng, 32 * ng, per_sm
             kgrasp.k16_geometry.cache_clear()
             got = kgrasp.grasp_rows(*k16)
@@ -1021,7 +1031,7 @@ def variants_only() -> None:
                   f"{'' if ablate else ', bits of the plain version'}; {ptxas}")
     finally:
         build._LIBS["grasp_rows"] = keep[0]
-        kpz._UPLOADED.pop("grasp_rows", None)
+        _drop_uploads("grasp_rows")
         kgrasp.K16_NG, kgrasp.K16_THREADS, kgrasp.K16_BLOCKS_PER_SM = keep[1:]
         kgrasp.k16_geometry.cache_clear()
     print(card)
@@ -1130,13 +1140,13 @@ def assembly_times(dev) -> dict:
                 try:
                     for level, path in _ablation_libraries().items():
                         build._LIBS["grasp_rows"] = ctypes.CDLL(str(path))
-                        kpz._UPLOADED.pop("grasp_rows", None)
+                        _drop_uploads("grasp_rows")
                         row[f"ablate{level}"] = {"what": K16_ABLATIONS[level],
                                                  "event_ms": median_ms(kern, dev, ITERS),
                                                  "device_ms": queued_ms(kern, dev)}
                 finally:
                     build._LIBS["grasp_rows"] = default
-                    kpz._UPLOADED.pop("grasp_rows", None)
+                    _drop_uploads("grasp_rows")
             out[name][label] = row
             parts = "".join(f"; ablation {lv} ({v['what']}): {v['event_ms']:.4f} event / "
                             f"{v['device_ms']:.4f} device" for lv, v in

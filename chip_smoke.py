@@ -6,10 +6,12 @@ solvability checker, three iterations of a hard scenario, the ARMTD
 (constant-acceleration) trajectory family end to end, the grasp path
 (the Kinova with the dumbbell payload, contact rows on) with a step of
 every zoo robot, the closed loop of the grasp path and of the zoo
-(the tray trial, the dumbbell at the full width, every zoo robot), and the
-smooth collision mode (cfg.smooth_obstacle_constraints).
+(the tray trial, the dumbbell at the full width, every zoo robot), the
+smooth collision mode (cfg.smooth_obstacle_constraints), the harness, and
+the planner sharded over a mesh of devices with its dry runs.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded     # the build and phase 17 alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch/CUDA versions, precision
@@ -243,6 +245,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      oracle's less ORACLE_SLACK; K10's sliced centres within ORACLE_TAU_TOL,
      its radii at least the oracle's less ORACLE_TAU_TOL (the radius ratios
      printed).
+  17. the sharded planner (parallel/batch.py): (i) the W = 64 step as two
+     shards on cuda:0, counted (every kernel of the step, K12 / K13 / K15
+     once a shard, neither K1, K2 nor K3), each shard's SolveResult bit for
+     bit make_batch_planner's on its 32 worlds alone, the verdicts the
+     unsharded step's, every feasible k certified by the plain full-set
+     check; the host's queue time (call to return, no synchronisation),
+     the wall and the device time (torch.profiler) of the W = 64 step, of
+     each W = 32 shard and of the sharded step (medians of SHARD_REPS);
+     (ii) dryrun_multichip over max(2, cards) shards at the flagship shapes;
+     (iii) the two-process dry run (gloo on localhost) on the card, its
+     summary one process' of the same 16 worlds; (iv) make_mesh refuses a
+     card index past the count; (v) where the host has several cards: a
+     shard on each card bit for bit its worlds' run on cuda:0 (the basis
+     tables uploaded on every card), K9 / K10 recorded on the last card
+     against their plain versions, the wall over 1, 2, ... cards at W = 64
+     x cards, and each card's step queued alone in turn; on one card (v)
+     prints "not run: 1 card".
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -329,6 +348,7 @@ HARNESS_ITERATIONS = 30  # and their iteration cap there
 SWEEP_CHECKED = (0.3, "robust")   # phase 16 (iv): the (level, controller) held against plain
 SWEEP_FILE = "results_controller_sweep.json"   # the JAX package's float32 sweep
 SWEEP_FINDING = 1e-3     # a larger relative difference from that file is a finding to bisect
+SHARD_REPS = 5           # phase 17: calls a host queue / wall median is taken over
 ORACLE_TIMES = (0, 64, 127)   # phase 16 (v): the time indices of the FK comparison
 ORACLE_RNEA_T = 64       # and of the RNEA comparison
 ORACLE_THRESHOLD = 1e-5  # oracle_rnea's pruning (tests/test_pipeline_reachsets.py:186)
@@ -347,11 +367,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """Every card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -4300,12 +4325,287 @@ def harness_phase(robot, cfg, basis, dev) -> dict:
     return out
 
 
-def main() -> None:
+# ---------------------------------------------------------------------------
+# phase 17: the planner sharded over a mesh of devices, and its dry runs
+# ---------------------------------------------------------------------------
+
+
+def _sync_all(devs) -> None:
+    for d in dict.fromkeys(devs):
+        torch.cuda.synchronize(d)
+
+
+def queue_and_wall(fn, devs, reps: int = SHARD_REPS) -> tuple:
+    """(median host ms until fn returns: the time the host takes to queue
+    it; median ms until every device in devs is idle again: its wall; the
+    last output) over reps calls after a warm-up, each started on idle
+    devices."""
+    fn()
+    _sync_all(devs)
+    queue, wall, out = [], [], None
+    for _ in range(reps):
+        _sync_all(devs)
+        t0 = time.perf_counter()
+        out = fn()
+        t1 = time.perf_counter()
+        _sync_all(devs)
+        queue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(queue), statistics.median(wall), out
+
+
+def device_ms_of(fn, dev) -> float:
+    """Device ms of one call of fn: the sum of its device activities
+    (torch.profiler, a warm-up call then the recorded one); nan where the
+    profiler saw no device time."""
+    total = sum(us for _, us in device_timeline(fn, dev)) / 1e3
+    return total if total > 0 else float("nan")
+
+
+def _same_result(a, b) -> bool:
+    return all(_bits(getattr(a, f), getattr(b, f)) for f in ("k", "feasible", "cost", "viol"))
+
+
+def _result_slice(res, sl):
+    from armour_tpu_torch.nlp import SolveResult
+
+    return SolveResult(k=res.k[sl], feasible=res.feasible[sl], cost=res.cost[sl],
+                       viol=res.viol[sl])
+
+
+def _dev_args(scene, dtype, dev, sl=slice(None)):
+    from armour_tpu_torch.collision import ObstacleSet
+
+    q0, qd0, qdd0, q_des, obs = scene
+    return (*(torch.as_tensor(np.asarray(x)[sl], dtype=dtype).to(dev) for x in (q0, qd0, qdd0, q_des)),
+            ObstacleSet(centers=obs.centers[sl].to(dev), generators=obs.generators[sl].to(dev),
+                        mask=obs.mask[sl].to(dev)))
+
+
+def _tiled(args, n):
+    """The worlds of args repeated n times (W -> n W), on their device."""
+    from armour_tpu_torch.collision import ObstacleSet
+
+    *qs, obs = args
+    rep = lambda t: t.repeat(n, *([1] * (t.dim() - 1)))  # noqa: E731
+    return (*(rep(x) for x in qs),
+            ObstacleSet(centers=rep(obs.centers), generators=rep(obs.generators),
+                        mask=rep(obs.mask)))
+
+
+def certify_plain(res, prob, cfg, basis, label) -> float:
+    """Every feasible k of res passes the plain full-set check on the card
+    (prob: plan_problem's sets of the same worlds); returns the largest
+    collision violation among them."""
+    from armour_tpu_torch import nlp
+    from armour_tpu_torch.collision import collision_constraints_plain
+
+    feas = res.feasible
+    k_chk = torch.where(feas[:, None], res.k, torch.zeros_like(res.k))[:, None]
+    v = torch.stack(nlp.max_violations(k_chk, prob, cfg, basis,
+                                       collision_fn=collision_constraints_plain), dim=-1)[:, 0]
+    cert = nlp.viol_feasible(v, cfg)
+    if not bool(cert[feas].all()):
+        fail(f"{label}: the plain full-set check rejects feasible worlds "
+             f"{torch.nonzero(feas & ~cert).flatten().tolist()}")
+    return float(v[feas][:, 1].max()) if bool(feas.any()) else float("nan")
+
+
+def sharded_phase(robot, cfg, basis, scene) -> dict:
+    """Phase 17: the worlds-sharded planner (parallel/batch.py) on the card,
+    its dry runs, and the host's queue time against the device time."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.parallel.batch import (make_mesh, make_sharded_planner,
+                                                 make_sharded_summary)
+    from armour_tpu_torch.parallel.dryrun import (DEV_PER_PROC, N_PROC, dryrun_multichip,
+                                                  dryrun_multihost, multihost_config,
+                                                  multihost_inputs)
+    from armour_tpu_torch.planner import make_batch_planner, plan_problem
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    d0 = torch.device("cuda", 0)
+    out = {"cards": n_cards}
+    args = _dev_args(scene, cfg.dtype, d0)
+    half = N_WORLDS // 2
+
+    # (i) the W = 64 step as two shards on cuda:0, against the unsharded step
+    # and against make_batch_planner on each shard's worlds alone
+    step64 = make_batch_planner(robot, cfg, device=d0)
+    mesh = make_mesh([d0, d0])
+    sharded = make_sharded_planner(robot, cfg, mesh)
+    q64, w64, res64 = queue_and_wall(lambda: step64(*args), [d0])
+    q2, w2, res2 = queue_and_wall(lambda: sharded(*args), [d0])
+    kernels.reset_counts()
+    res2 = sharded(*args)
+    torch.cuda.synchronize(d0)
+    launches = kernels.counts()
+    for name in BERNSTEIN_KERNELS:
+        if launches[name] == 0:
+            fail(f"phase 17: the sharded step did not launch {name}")
+    for name in ("jrs_bernstein", "screen_collision", "reach_assembly"):
+        if launches[name] != 2:
+            fail(f"phase 17: the sharded step launched {name} {launches[name]} times, not "
+                 f"once a shard")
+    no_k3(launches, "the sharded step")
+    for name in OP_KERNELS:
+        if launches[name]:
+            fail(f"phase 17: the sharded step launched {name}")
+    shards = []
+    for i in range(2):
+        sl = slice(i * half, (i + 1) * half)
+        shard_args = _dev_args(scene, cfg.dtype, d0, sl)
+        q, w, alone = queue_and_wall(lambda a=shard_args: step64(*a), [d0])
+        if not _same_result(_result_slice(res2, sl), alone):
+            fail(f"phase 17: shard {i} of the sharded step differs from make_batch_planner on "
+                 f"its {half} worlds alone")
+        shards.append({"queue_ms": q, "wall_ms": w,
+                       "device_ms": device_ms_of(lambda a=shard_args: step64(*a), d0)})
+    if not torch.equal(res2.feasible, res64.feasible):
+        fail(f"phase 17: the sharded step's verdicts differ from the unsharded W={N_WORLDS} "
+             f"step's in worlds "
+             f"{torch.nonzero(res2.feasible != res64.feasible).flatten().tolist()}")
+    v_col = certify_plain(res2, plan_problem(*args, robot, cfg, basis), cfg, basis, "phase 17")
+    out.update({
+        "w64_queue_ms": q64, "w64_wall_ms": w64, "w64_device_ms": device_ms_of(
+            lambda: step64(*args), d0),
+        "w32_shards": shards, "sharded_2x32_queue_ms": q2, "sharded_2x32_wall_ms": w2,
+        "sharded_2x32_device_ms": device_ms_of(lambda: sharded(*args), d0),
+        "sharded_feasible": int(res2.feasible.sum())})
+    print(f"phase 17 (i): the W={N_WORLDS} step as 2 shards on cuda:0: each shard's SolveResult "
+          f"the bits of make_batch_planner on its {half} worlds; verdicts the unsharded step's "
+          f"({out['sharded_feasible']}/{N_WORLDS} feasible, every feasible k certified by the "
+          f"plain full-set check, max collision violation {v_col:.3g}); launches {launches}")
+    print(f"  host queue / wall / device ms: W={N_WORLDS} step {q64:.3f} / {w64:.3f} / "
+          f"{out['w64_device_ms']:.3f}; " + "; ".join(
+              f"shard {i} (W={half}) {s['queue_ms']:.3f} / {s['wall_ms']:.3f} / "
+              f"{s['device_ms']:.3f}" for i, s in enumerate(shards))
+          + f"; sharded 2 x {half} {q2:.3f} / {w2:.3f} / {out['sharded_2x32_device_ms']:.3f} "
+          f"(medians of {SHARD_REPS}, host clock; device: torch.profiler)")
+
+    # (ii) the multichip dry run: flagship shapes, a shard on each card (two
+    # shards at least), 2 saved-world scenes a shard with RRT* waypoints
+    n_shards = max(2, n_cards)
+    line = dryrun_multichip(n_cards, shards=n_shards)
+    if line["n_total"] != 2 * n_shards:
+        fail(f"phase 17 (ii): dryrun_multichip counted {line['n_total']} worlds")
+    out["dryrun_multichip"] = line
+    print(f"phase 17 (ii): dryrun_multichip({n_cards}, shards={n_shards}): "
+          f"{line['n_feasible']}/{line['n_total']} feasible on {line['devices']}")
+
+    # (iii) the two-process dry run on the card, against one process' summary of
+    # the same 16 worlds on cuda:0 (each shard the same 2 worlds)
+    t0 = time.perf_counter()
+    mh = dryrun_multihost(device="cuda")
+    t_mh = time.perf_counter() - t0
+    mcfg = multihost_config()
+    mesh8 = make_mesh([d0] * (N_PROC * DEV_PER_PROC))
+    r8 = make_sharded_planner(robot, mcfg, mesh8)(*multihost_inputs(mcfg, robot.num_factors))
+    one = make_sharded_summary(mesh8)(r8.feasible, r8.cost)
+    if (mh["n_feasible"], mh["n_total"]) != (one["n_feasible"], one["n_total"]) or abs(
+            mh["mean_feasible_cost"] - one["mean_feasible_cost"]) > 1e-12 * abs(
+            one["mean_feasible_cost"]):
+        fail(f"phase 17 (iii): the two-process dry run's summary {mh} differs from one "
+             f"process' {one}")
+    out["dryrun_multihost"] = {**mh, "wall_s": t_mh}
+    print(f"phase 17 (iii): 2-process dry run (gloo) on the card in {t_mh:.1f} s: "
+          f"{mh['n_feasible']}/{mh['n_total']} feasible, mean cost "
+          f"{mh['mean_feasible_cost']!r}, one process' summary {one}")
+
+    # (iv) a card index past the count is refused
+    try:
+        make_mesh([torch.device("cuda", n_cards)])
+    except ValueError as e:
+        print(f"phase 17 (iv): make_mesh refuses cuda:{n_cards}: {e}")
+    else:
+        fail(f"phase 17 (iv): make_mesh accepted cuda:{n_cards} on a host of {n_cards} card(s)")
+
+    # (v) a shard on each card: the bits of its run on cuda:0 (the basis tables
+    # uploaded on every card), K9 / K10 on the last card against their plain
+    # versions, and the wall over 1, 2, ... cards at W = 64 x cards
+    if n_cards < 2:
+        print(f"phase 17 (v): not run: {n_cards} card")
+        out["multi_card"] = f"not run: {n_cards} card"
+    else:
+        out["multi_card"] = multi_card_checks(robot, cfg, scene, args, res64, n_cards)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {out['phase_s']:.1f} s")
+    return out
+
+
+def multi_card_checks(robot, cfg, scene, args, res64, n_cards) -> dict:
+    """Phase 17 (v), on a host of n_cards > 1 cards."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.parallel.batch import make_mesh, make_sharded_planner
+    from armour_tpu_torch.planner import make_batch_planner
+
+    devs = [torch.device("cuda", i) for i in range(n_cards)]
+    if N_WORLDS % n_cards:
+        fail(f"phase 17 (v): {N_WORLDS} worlds do not split over {n_cards} cards")
+    m = N_WORLDS // n_cards
+    step0 = make_batch_planner(robot, cfg, device=devs[0])
+    res = make_sharded_planner(robot, cfg, make_mesh(devs))(*args)
+    torch.cuda.synchronize(devs[0])
+    for i in range(n_cards):
+        sl = slice(i * m, (i + 1) * m)
+        alone = step0(*_dev_args(scene, cfg.dtype, devs[0], sl))
+        if not _same_result(_result_slice(res, sl), alone):
+            fail(f"phase 17 (v): the shard on cuda:{i} differs from its worlds' run on cuda:0")
+    if not torch.equal(res.feasible, res64.feasible):
+        fail("phase 17 (v): the sharded verdicts over the cards differ from the W = 64 step's")
+    last = devs[-1]
+    with kernels.capture() as captured:
+        make_batch_planner(robot, cfg, device=last)(*_dev_args(scene, cfg.dtype, last))
+        torch.cuda.synchronize(last)
+    # timed on the last card's stream with cuda:0 current (utils.timing.device_ms)
+    check_chain_captures({k: v for k, v in captured.items()
+                          if k[0] in ("fk_chain", "rnea_chain")}, last, f"cuda:{n_cards - 1}")
+    print(f"phase 17 (v): a shard of {m} worlds on each of {n_cards} cards, each the bits of "
+          f"its run on cuda:0; K9 / K10 on cuda:{n_cards - 1} agree with their plain versions")
+    curve = []
+    steps = [make_batch_planner(robot, cfg, device=d) for d in devs]
+    on_card = [_dev_args(scene, cfg.dtype, d) for d in devs]
+    for c in range(1, n_cards + 1):
+        mesh = make_mesh(devs[:c])
+        step = make_sharded_planner(robot, cfg, mesh)
+        big = _tiled(args, c)
+        q, w, r = queue_and_wall(lambda s=step, a=big: s(*a), devs[:c])
+        if not torch.equal(r.feasible, res64.feasible.repeat(c)):
+            fail(f"phase 17 (v): the W = {N_WORLDS * c} step over {c} cards changed verdicts")
+        marks = card_queue_marks(steps[:c], on_card[:c], devs[:c])
+        curve.append({"cards": c, "worlds": N_WORLDS * c, "queue_ms": q, "wall_ms": w,
+                      "solves_per_s": N_WORLDS * c / (w / 1e3), "steps_queued_by_ms": marks})
+        print(f"  {c} card(s), W={N_WORLDS * c}: host queue {q:.3f} ms, wall {w:.3f} ms, "
+              f"{curve[-1]['solves_per_s']:.1f} solves/s; the cards' W = {N_WORLDS} steps "
+              f"alone (inputs on their cards, no gather) queued by "
+              f"{', '.join(f'{x:.3f}' for x in marks)} ms")
+    return {"shard_worlds": m, "curve": curve}
+
+
+def card_queue_marks(steps, args, devs, reps: int = SHARD_REPS) -> list:
+    """Host ms from the start until each card's step is queued, the steps
+    called in turn on inputs already on their cards (medians of reps after
+    a warm-up): where the host's time goes without the sharded step's
+    input copies and gather."""
+    runs = []
+    for _ in range(reps + 1):
+        _sync_all(devs)
+        t0 = time.perf_counter()
+        marks = []
+        for step, a in zip(steps, args):
+            step(*a)
+            marks.append((time.perf_counter() - t0) * 1e3)
+        _sync_all(devs)
+        runs.append(marks)
+    return [statistics.median(col) for col in zip(*runs[1:])]
+
+
+def main(argv=()) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
     import armour_tpu_torch  # noqa: F401  (precision pins)
-    from armour_tpu_torch import kernels, nlp
-    from armour_tpu_torch.collision import ObstacleSet, collision_constraints_plain
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.collision import ObstacleSet
     from armour_tpu_torch.config import ArmourConfig
     from armour_tpu_torch.kernels import reach as reach_k, solver as solver_k
     from armour_tpu_torch.kernels.build import FLAGS as BUILD_FLAGS, build_all
@@ -4351,6 +4651,12 @@ def main() -> None:
     cfg = ArmourConfig(dtype=torch.float32)
     basis = make_basis(robot.num_factors, cfg.max_poly_degree)
     q0, qd0, qdd0, q_des, obs = scenes(robot, cfg, N_WORLDS)
+    if "--sharded" in argv:
+        # phase 17 alone (on a host of several cards): its numbers, every card
+        print("sharded: " + json.dumps(sharded_phase(robot, cfg, basis,
+                                                     (q0, qd0, qdd0, q_des, obs))))
+        print("\n".join(card_lines()))
+        return
     step64 = make_batch_planner(robot, cfg)
 
     # ---- phase 2: the main path, counted ----
@@ -4411,15 +4717,9 @@ def main() -> None:
     obs_dev = ObstacleSet(centers=obs.centers.to(dev), generators=obs.generators.to(dev),
                           mask=obs.mask.to(dev))
     prob = plan_problem(*args_dev, obs_dev, robot, cfg, basis)
-    k_chk = torch.where(feas[:, None], k, torch.zeros_like(k))[:, None]
-    v = torch.stack(nlp.max_violations(k_chk, prob, cfg, basis,
-                                       collision_fn=collision_constraints_plain), dim=-1)[:, 0]
-    cert = nlp.viol_feasible(v, cfg)
-    if not bool(cert[feas].all()):
-        fail(f"plain full-set check rejects feasible worlds "
-             f"{torch.nonzero(feas & ~cert).flatten().tolist()}")
+    v_col = certify_plain(res, prob, cfg, basis, "phase 4")
     print(f"phase 4: {n_feas}/{N_WORLDS} worlds feasible; every feasible k passes the plain "
-          f"full-set check (max collision violation {float(v[feas][:, 1].max()) if n_feas else float('nan'):.3g})")
+          f"full-set check (max collision violation {v_col:.3g})")
     solve_cmp = solver_phase(prob, cfg, basis, dev)
     del prob
 
@@ -4523,6 +4823,9 @@ def main() -> None:
     # ---- phase 16: the harness ----
     harness = harness_phase(robot, cfg, basis, dev)
 
+    # ---- phase 17: the sharded planner and its dry runs ----
+    sharded = sharded_phase(robot, cfg, basis, (q0, qd0, qdd0, q_des, obs))
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -4533,7 +4836,7 @@ def main() -> None:
                                torch.cuda.max_memory_allocated(dev) / 1e9),
             **{f"w64_{kk}": vv for kk, vv in peak.items()}, **k4_perf, **breakdown, **window,
             **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf,
-            "grasp_loop": loop9, **smooth_perf, **harness}
+            "grasp_loop": loop9, **smooth_perf, **harness, "sharded": sharded}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))
@@ -4543,4 +4846,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

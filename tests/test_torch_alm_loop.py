@@ -23,6 +23,7 @@ grasp group.  JAX is imported only
 by the CPU tests, so that the card runs this file without it:
 python3 -m pytest --noconftest tests/test_torch_alm_loop.py -m cuda."""
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -695,7 +696,7 @@ def test_k14_launchers_pass_their_prototypes(phase, monkeypatch):
         return fn
 
     monkeypatch.setattr(ks, "launcher", fake_launcher)
-    monkeypatch.setattr(ks, "_stream", lambda t: "the stream")
+    monkeypatch.setattr(ks, "on_device", lambda t: contextlib.nullcontext("the stream"))
     if phase in ("cull", "select"):
         monkeypatch.setattr(ks, "_require", _shape_only)
         before = kernels.LAUNCHES["alm_loop"]
@@ -770,7 +771,7 @@ def test_row_passes_without_a_phase_leave_the_descriptor_null(monkeypatch):
         return lambda *args: calls.append(args[0]._obj) or 0
 
     monkeypatch.setattr(ks, "launcher", fake_launcher)
-    monkeypatch.setattr(ks, "_stream", lambda t: "the stream")
+    monkeypatch.setattr(ks, "on_device", lambda t: contextlib.nullcontext("the stream"))
     rows = _dry_rows(monkeypatch)
     k, lam, rho = torch.zeros(3, 4, 7), torch.zeros(3, 4, rows.M), torch.ones(3, 4)
     ks.alm_newton(rows, k, lam, rho)

@@ -20,6 +20,7 @@ F < J, K7 / K8's grasp rows, a grasp step and a UR5 (F = 6) step (they
 skip where there is no card; K12 and K13 are in
 test_torch_jrs_screen_kernels.py)."""
 
+import contextlib
 import ctypes
 import dataclasses
 import re
@@ -1233,7 +1234,7 @@ def test_k15_wrapper_raises_on_a_misaligned_view(monkeypatch):
     shifted = bpz.BPZ(coef=u_both.coef, egen=flat[1:].view(u_both.egen.shape), rad=u_both.rad)
     assert shifted.egen.data_ptr() % 16 == 4
     monkeypatch.setattr(reach, "launcher", _fake_launcher(calls))
-    monkeypatch.setattr(reach, "_stream", lambda t: None)
+    monkeypatch.setattr(reach, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(reach, "_sms", lambda t: 1)
     monkeypatch.setattr(reach, "launched", lambda *a: None)
     monkeypatch.setattr(reach, "_require", lambda p, what, shape: p)
@@ -1262,7 +1263,7 @@ def test_k13_launcher_passes_the_cells(monkeypatch):
 
     calls = []
     monkeypatch.setattr(kcol, "launcher", _fake_launcher(calls))
-    monkeypatch.setattr(kcol, "_stream", lambda t: None)
+    monkeypatch.setattr(kcol, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(kcol, "launched", lambda *a: None)
     monkeypatch.setattr(kcol, "_require", lambda *a, **k: None)
     Wn, Tn, Jn, O, Bn = 2, 3, 7, 4, 120
@@ -1329,7 +1330,7 @@ def _k4_stubbed(monkeypatch):
 
     calls = []
     monkeypatch.setattr(kcol, "launcher", _fake_launcher(calls))
-    monkeypatch.setattr(kcol, "_stream", lambda t: None)
+    monkeypatch.setattr(kcol, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(kcol, "launched", lambda *a: None)
     monkeypatch.setattr(kcol, "_require", lambda *a, **k: None)
     return kcol, calls
@@ -1398,7 +1399,7 @@ def test_k15_launcher_passes_its_parts(monkeypatch):
 
     calls = []
     monkeypatch.setattr(reach, "launcher", _fake_launcher(calls))
-    monkeypatch.setattr(reach, "_stream", lambda t: None)
+    monkeypatch.setattr(reach, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(reach, "launched", lambda *a: None)
     monkeypatch.setattr(reach, "_require", lambda p, what, shape: p)
     robot, cfg, basis = kinova_gen3(), ArmourConfig(num_time_steps=4), make_basis(7, 3)
@@ -1583,7 +1584,7 @@ def test_k16_wrapper_raises_on_a_misaligned_view(monkeypatch):
     calls = []
     monkeypatch.setattr(kgrasp, "launcher", _fake_launcher(calls))
     monkeypatch.setattr(kgrasp, "upload_tables", lambda *a: None)
-    monkeypatch.setattr(kgrasp, "_stream", lambda t: None)
+    monkeypatch.setattr(kgrasp, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(kgrasp, "launched", lambda *a: None)
     monkeypatch.setattr(kgrasp, "_require", lambda p, what, shape: p)
     monkeypatch.setattr(kgrasp.torch.cuda, "get_device_properties",
@@ -1613,7 +1614,7 @@ def test_k16_launcher_passes_its_values(monkeypatch):
     calls, uploads = [], []
     monkeypatch.setattr(kgrasp, "launcher", _fake_launcher(calls))
     monkeypatch.setattr(kgrasp, "upload_tables", lambda *a: uploads.append(a))
-    monkeypatch.setattr(kgrasp, "_stream", lambda t: None)
+    monkeypatch.setattr(kgrasp, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(kgrasp, "launched", lambda *a: None)
     monkeypatch.setattr(kgrasp, "_require", lambda p, what, shape: p)
     monkeypatch.setattr(kgrasp.torch.cuda, "get_device_properties",
@@ -1622,7 +1623,7 @@ def test_k16_launcher_passes_its_values(monkeypatch):
     params = GraspParams(mu=0.6, support_radius=0.06, normal_axis=1)
     f, n = bpz.zeros((2, 2, 4, 3), basis), bpz.zeros((2, 2, 4, 3), basis)
     out = kgrasp.grasp_rows(f, n, params, cfg, basis)
-    assert uploads == [("grasp_rows", "k16_tables", basis, E)]
+    assert uploads == [("grasp_rows", "k16_tables", basis, E, f.rad.device)]
     (name, symbol, _, (args, ld, grid, _)), = calls
     assert (name, symbol, ld) == ("grasp_rows", "k16_launch", B + E + 1)
     assert grid == kgrasp.k16_geometry(2, 4, B + E + 1, 1).grid == 2
@@ -1655,7 +1656,7 @@ def test_k10_args_take_fixed_joints_and_the_wrench(monkeypatch):
     jrs = build_jrs(torch.zeros(2, 7), torch.zeros(2, 7), torch.zeros(2, 7), robot, cfg, basis)
     calls = []
     monkeypatch.setattr(reach, "launcher", _fake_launcher(calls))
-    monkeypatch.setattr(reach, "_stream", lambda t: None)
+    monkeypatch.setattr(reach, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(reach, "launched", lambda *a: None)
     monkeypatch.setattr(reach, "_require", lambda p, what, shape: p)
     monkeypatch.setattr(reach, "upload_tables", lambda *a: None)
