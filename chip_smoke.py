@@ -7,8 +7,9 @@ solvability checker, three iterations of a hard scenario, the ARMTD
 (the Kinova with the dumbbell payload, contact rows on) with a step of
 every zoo robot, the closed loop of the grasp path and of the zoo
 (the tray trial, the dumbbell at the full width, every zoo robot), the
-smooth collision mode (cfg.smooth_obstacle_constraints), the harness, and
-the planner sharded over a mesh of devices with its dry runs.
+smooth collision mode (cfg.smooth_obstacle_constraints), the harness, the
+planner sharded over a mesh of devices with its dry runs, and the
+stuck-tail lab (scripts/stuck_lab.py).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded     # the build and phase 17 alone
@@ -262,6 +263,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      against their plain versions, the wall over 1, 2, ... cards at W = 64
      x cards, and each card's step queued alone in turn; on one card (v)
      prints "not run: 1 card".
+  18. the stuck-tail lab (armour_tpu_torch.scripts.stuck_lab.run_stuck_lab)
+     at the flagship config over the stuck worlds of STUCK_LAB_RESULTS
+     (under STUCK_LAB_WORLDS) with the variants STUCK_LAB_PHASE (the whole
+     closed loop per variant: auto guidance, no rescue solver, 500
+     iterations at most), the launch counters set to 0 just before it and
+     read just after: K5, K6, K7, K8, K9, K10, K12, K13, K14, K15 and K4
+     must launch, K1, K2 and K3 not; no variant may list an unsafe world,
+     and the report must have the JAX script's keys.  Each variant's
+     recovered worlds and wall time are printed.
 
 Prints the card line, one JSON line of per-kernel numbers, and last the
 contract line {"ok": true, "device": {...}}.
@@ -337,6 +347,10 @@ COM_UNCERTAINTY = 0.05   # the uncertain-COM route (tests/test_torch_reachsets.p
 GRASP_V_MAX = 5e-4       # phase 13: the dumbbell's V_max (tests/test_grasp.py:170)
 GRASP_PERMISSIVE = (1.5, 0.5)   # (mu, support radius), tests/test_grasp.py:175
 GRASP_TIGHT = (1e-4, 1e-4)      # tests/test_grasp.py:178
+# phase 13's feasible worlds in both packages' float32 CPU runs, chunks of 8
+# (tests/test_torch_grasp_verdicts.py FEASIBLE): the card's are held to them
+GRASP_FEASIBLE_CPU = {"permissive": [1, 10, 16, 18, 30, 33, 34, 38, 39, 57], "tight": [],
+                      "without_rows": sorted(set(range(64)) - {11, 21, 22, 25, 35, 62})}
 N_ZOO = 8                # worlds of each zoo robot's step in phase 13
 TRAY_ITERATIONS = 8      # phase 14 (i): tests/test_grasp.py:221
 ZOO_LOOP_ITERATIONS = 2  # phase 14 (iii): each zoo robot's closed loop at W = N_ZOO
@@ -356,6 +370,10 @@ ORACLE_COEF_TOL = 1e-5   # m: K9's float32 k-coefficients against the float64 or
 ORACLE_SLACK = 1e-5      # m: K9's radii may fall this far below the oracle's
 ORACLE_TAU_TOL = 1e-3    # Nm: K10's sliced centres against the oracle's, and how far its
 #                          radii may fall below the oracle's
+STUCK_LAB_RESULTS = "results_worlds_reference.json"   # phase 18's suite results file
+STUCK_LAB_WORLDS = "saved_worlds/reference"          # and its scenes
+STUCK_LAB_PHASE = ("baseline", "strong_primary")     # the variants it runs
+STUCK_LAB_REPORT_KEYS = {"recovered", "n", "unsafe"}  # scripts/stuck_lab.py's report entry
 # the replay trace's keys, as armour_tpu/simulator.py:459-477 writes them
 TRACE_KEYS = ("q", "qd", "u", "q_des", "qd_des", "k", "waypoint", "feasible", "start",
               "goal", "obstacle_centers", "obstacle_generators", "trace_dt", "robot_name",
@@ -3368,6 +3386,8 @@ def grasp_phase(dev) -> tuple:
         *args, obs_d)
     n_off = int(res_off.feasible.sum())
     print(f"  the same step without grasp rows: {n_off}/{N_WORLDS} feasible")
+    feasible_worlds = {"permissive": _feasible_worlds(res), "without_rows": _feasible_worlds(
+        res_off)}
 
     # the tight contact parameters: every world rejected
     mu_t, r_t = GRASP_TIGHT
@@ -3380,6 +3400,15 @@ def grasp_phase(dev) -> tuple:
           f"{t_tight * 1e3:.1f} ms (first call), K16 x{kernels.counts()['grasp_rows']}")
     if n_t or not bool(torch.isnan(res_t.k).all()):
         fail("the tight contact parameters left a world feasible or a k finite")
+    feasible_worlds["tight"] = _feasible_worlds(res_t)
+    print(f"  feasible worlds on the card: mu {mu}, r {rr}: {feasible_worlds['permissive']}; "
+          f"mu {mu_t}, r {r_t}: {feasible_worlds['tight']}; without grasp rows: "
+          f"{feasible_worlds['without_rows']}")
+    # a float32 fork may flip a verdict on the card: reported, not failed
+    differ = {k: sorted(set(v) ^ set(GRASP_FEASIBLE_CPU[k])) for k, v in feasible_worlds.items()
+              if v != GRASP_FEASIBLE_CPU[k]}
+    print("  feasible worlds against the CPU's (both packages, float32): "
+          + (f"differ in {differ}" if differ else "the same under all three settings"))
 
     # timings: the step, its device time and activities, the reach window
     t_steps = [wall_s(lambda: step(*args, obs_d), dev)[0] for _ in range(3)]
@@ -3403,6 +3432,7 @@ def grasp_phase(dev) -> tuple:
     perf = {"grasp_step_ms": t_step * 1e3, "grasp_reachset_ms": t_rs * 1e3,
             "grasp_feasible": n_feas, "grasp_feasible_tight": n_t,
             "grasp_feasible_without_rows": n_off, "grasp_infeasible_over": over,
+            "grasp_feasible_worlds": feasible_worlds,
             "grasp_launches": {n: launches[n] for n in BERNSTEIN_KERNELS + ("grasp_rows",)},
             "grasp_kernel_ms": {n: v[0] for n, v in sums.items()},
             "grasp_plain_ms": {n: v[1] for n, v in sums.items()},
@@ -3410,6 +3440,10 @@ def grasp_phase(dev) -> tuple:
             **{f"grasp_{kk}": vv for kk, vv in breakdown.items()},
             **{f"grasp_{kk}": vv for kk, vv in window.items()}}
     return k16, perf
+
+
+def _feasible_worlds(res) -> list:
+    return torch.nonzero(res.feasible).flatten().tolist()
 
 
 def _flagged(summaries) -> list:
@@ -4600,6 +4634,39 @@ def card_queue_marks(steps, args, devs, reps: int = SHARD_REPS) -> list:
     return [statistics.median(col) for col in zip(*runs[1:])]
 
 
+def stuck_lab_phase() -> dict:
+    """Phase 18: the stuck-tail lab on the card at the flagship config."""
+    from armour_tpu_torch import kernels
+    from armour_tpu_torch.config import ArmourConfig
+    from armour_tpu_torch.models.kinova import kinova_gen3
+    from armour_tpu_torch.scripts.stuck_lab import VARIANTS, run_stuck_lab
+
+    robot, cfg = kinova_gen3(), ArmourConfig(dtype=torch.float32)
+    stats = {}
+    kernels.reset_counts()
+    report = run_stuck_lab(STUCK_LAB_RESULTS, STUCK_LAB_WORLDS, robot, cfg,
+                           variants={n: VARIANTS[n] for n in STUCK_LAB_PHASE}, stats=stats)
+    launches = kernels.counts()
+    walls = {n: st["wall_s"] for n, st in stats.items()}
+    for name in BERNSTEIN_KERNELS + ("rollout", "oracle_check"):
+        if launches[name] == 0:
+            fail(f"phase 18: the stuck lab did not launch {name}")
+    no_k3(launches, "the stuck lab")
+    for name in OP_KERNELS:
+        if launches[name]:
+            fail(f"phase 18: the stuck lab launched {name}")
+    if list(report) != list(STUCK_LAB_PHASE) or any(
+            set(v) != STUCK_LAB_REPORT_KEYS for v in report.values()):
+        fail(f"phase 18: the lab's report {report} does not have the JAX script's keys")
+    for name, v in report.items():
+        print(f"phase 18: stuck lab, {name}: recovered {v['n']} {v['recovered']}, unsafe "
+              f"{v['unsafe']}, wall {walls[name]:.1f} s")
+        if v["unsafe"]:
+            fail(f"phase 18: variant {name} raised a safety flag in {v['unsafe']}")
+    print(f"phase 18: launches {launches}")
+    return {"stuck_lab": report, "stuck_lab_wall_s": walls, "stuck_lab_launches": launches}
+
+
 def main(argv=()) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
@@ -4826,6 +4893,9 @@ def main(argv=()) -> None:
     # ---- phase 17: the sharded planner and its dry runs ----
     sharded = sharded_phase(robot, cfg, basis, (q0, qd0, qdd0, q_des, obs))
 
+    # ---- phase 18: the stuck-tail lab ----
+    lab = stuck_lab_phase()
+
     perf = {"card": card, "worlds": N_WORLDS, "feasible": n_feas,
             "solves_per_s": N_WORLDS / t_step, "step_ms": t_step * 1e3,
             "reachset_ms": t_rs * 1e3, "solver_ms": (t_step - t_rs) * 1e3,
@@ -4836,7 +4906,7 @@ def main(argv=()) -> None:
                                torch.cuda.max_memory_allocated(dev) / 1e9),
             **{f"w64_{kk}": vv for kk, vv in peak.items()}, **k4_perf, **breakdown, **window,
             **solve_cmp, **realtime, **contain, **entry, **hard, **armtd_perf, **grasp_perf,
-            "grasp_loop": loop9, **smooth_perf, **harness, "sharded": sharded}
+            "grasp_loop": loop9, **smooth_perf, **harness, "sharded": sharded, **lab}
     print("planning: " + json.dumps(perf))
     print(card)
     print(json.dumps({"kernels": krows}))

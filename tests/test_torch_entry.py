@@ -434,3 +434,34 @@ def test_compare_results_holds_two_traces_of_a_world(tmp_path):
     assert t["first_k_difference"] == 1 and t["first_fork"] == 2
     assert [r[0] for r in t["rows"]] == [0, 1, 2]
     assert t["rows"][2][1:5] == [0.0, 0.75, 1.0, 1.5]
+
+
+# each script's function: its positional parameters (the JAX script's
+# inputs) and its keyword-only ones (port-only)
+_SCRIPTS = {
+    "stuck_lab": ("run_stuck_lab", ["results", "world_dir", "robot", "cfg"],
+                  ["variants", "device", "stats"]),
+    "derive_ub_cache": ("derive_ub_cache", [], ["out"]),
+    "regenerate_unsolvable": ("regenerate_unsolvable", ["results", "world_dir", "robot"],
+                              ["device"]),
+    "extract_robot_zoo": ("extract", ["ref_dir"], ["out"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SCRIPTS))
+def test_scripts_mirror_the_jax_scripts(name):
+    """armour_tpu_torch/scripts/<name>.py counterparts scripts/<name>.py:
+    a main(argv=None) for `python3 -m`, and one function whose port-only
+    parameters are keyword-only."""
+    assert (ROOT / "scripts" / f"{name}.py").exists()
+    path = ROOT / "armour_tpu_torch" / "scripts" / f"{name}.py"
+    assert path in PORT_FILES
+    funcs = _public_functions(path)
+    main = funcs["main"].args
+    assert [a.arg for a in main.args] == ["argv"] and len(main.defaults) == 1
+    assert isinstance(main.defaults[0], ast.Constant) and main.defaults[0].value is None
+    fn, positional, keyword = _SCRIPTS[name]
+    args = funcs[fn].args
+    assert [a.arg for a in args.args] == positional
+    assert [a.arg for a in args.kwonlyargs] == keyword
+    assert 'if __name__ == "__main__":\n    main()' in path.read_text()
